@@ -1,0 +1,203 @@
+"""The port's hand-written CUDA kernels: build, load, launch.
+
+Each `csrc/*.cu` source has a plain C interface. At first use it is
+compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under the
+package's `_build/` directory (listed in `.gitignore`) and loaded with
+`ctypes`. A library is rebuilt when its source or the flags change: the
+file name carries a hash of both. Nothing is compiled or loaded when this
+module is imported, so the CPU tests import it on machines without `nvcc`.
+
+Each wrapper takes CUDA tensors only, checks device, dtype, shape and
+layout, launches on PyTorch's current stream without synchronising, raises
+when the launch is refused, and adds one to its launch counter
+(`paged_attention_launches`). The plain PyTorch versions live beside the
+dispatchers in `ops/fused.py`; no wrapper ever falls back to them.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+from ..base import MXNetError
+
+__all__ = ["build", "paged_attention_cuda", "paged_attention_launches",
+           "reset_launch_counts", "launch_counts"]
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_BUILD = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "_build")
+_SOURCES = ("paged_attention",)
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS = {}
+# what the last build printed, per source (ptxas register/spill report)
+BUILD_LOG = {}
+
+# launches of each kernel since the last reset: one per successful launch
+paged_attention_launches = 0
+
+
+def reset_launch_counts():
+    global paged_attention_launches
+    paged_attention_launches = 0
+
+
+def launch_counts():
+    return {"paged_attention": paged_attention_launches}
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise MXNetError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+        "CUDA kernels are built from ops/csrc at first use")
+
+
+def _lib_path(name):
+    src = os.path.join(_CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode())
+    return src, os.path.join(_BUILD, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(names=_SOURCES):
+    """Compile every named source that has no current library, one `nvcc`
+    process per source, all started together. Returns {name: seconds} of
+    the sources compiled now (an up-to-date library costs nothing)."""
+    todo = []
+    for name in names:
+        src, lib = _lib_path(name)
+        if not os.path.isfile(lib):
+            todo.append((name, src, lib))
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    os.makedirs(_BUILD, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for name, src, lib in todo:
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        p = subprocess.Popen([nvcc, *_NVCC_FLAGS, "-o", tmp, src],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+        procs.append((name, lib, tmp, p))
+    took, failed = {}, []
+    for name, lib, tmp, p in procs:
+        log, _ = p.communicate()
+        BUILD_LOG[name] = log
+        took[name] = time.perf_counter() - t0
+        if p.returncode != 0:
+            failed.append(f"{name}: nvcc exit {p.returncode}\n{log}")
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise MXNetError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return took
+
+
+def _load(name):
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(_lib_path(name)[1])
+            if name == "paged_attention":
+                lib.mx_paged_attention_fwd.restype = ctypes.c_int
+                lib.mx_paged_attention_fwd.argtypes = (
+                    [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+                    + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+                    + [ctypes.c_void_p])
+            lib.mx_cuda_error_string.restype = ctypes.c_char_p
+            lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
+            _LIBS[name] = lib
+    return lib
+
+
+_PA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PA_HEAD_DIMS = (32, 64, 128)
+
+
+def paged_attention_cuda(q, k_slab, v_slab, lengths, layer):
+    """Launch the paged-attention kernel (`csrc/paged_attention.cu`).
+
+    `q`: contiguous (S, C, H, D) CUDA tensor, float32 or bfloat16.
+    `k_slab`/`v_slab`: (rows, L, T, H, D) with rows > S, the same dtype,
+    shape and strides, heads and dims contiguous; a view that cuts the
+    position axis (`slab[:, :, :extent]`) is read in place, not copied.
+    `lengths`: (S,) int32, each >= 0. Returns (S, C, H, D) in q's dtype.
+    Raises `MXNetError` on any input the kernel does not take."""
+    global paged_attention_launches
+    tensors = (q, k_slab, v_slab, lengths)
+    if not all(t.is_cuda for t in tensors):
+        raise MXNetError("paged_attention_cuda takes CUDA tensors only")
+    if len({t.device for t in tensors}) != 1:
+        raise MXNetError("paged_attention_cuda: tensors on several devices")
+    if q.dim() != 4 or k_slab.dim() != 5:
+        raise MXNetError(
+            f"paged_attention_cuda: q must be (S, C, H, D) and the slabs "
+            f"(rows, L, T, H, D); got {tuple(q.shape)}, "
+            f"{tuple(k_slab.shape)}")
+    S, C, H, D = q.shape
+    rows, L, T, Hk, Dk = k_slab.shape
+    if q.dtype not in _PA_DTYPES:
+        raise MXNetError(f"paged_attention_cuda: dtype {q.dtype} not taken "
+                         f"(float32, bfloat16)")
+    if k_slab.dtype != q.dtype or v_slab.dtype != q.dtype:
+        raise MXNetError("paged_attention_cuda: q and slabs differ in dtype")
+    if D not in _PA_HEAD_DIMS:
+        raise MXNetError(f"paged_attention_cuda: head_dim {D} not in "
+                         f"{_PA_HEAD_DIMS}")
+    if (Hk, Dk) != (H, D) or rows <= S or not 0 <= layer < L:
+        raise MXNetError(
+            f"paged_attention_cuda: slab {tuple(k_slab.shape)} does not "
+            f"serve q {tuple(q.shape)} at layer {layer}")
+    if v_slab.shape != k_slab.shape or v_slab.stride() != k_slab.stride():
+        raise MXNetError("paged_attention_cuda: k and v slabs differ in "
+                         "shape or strides")
+    st = k_slab.stride()
+    vec = 16 // q.element_size()
+    if st[4] != 1 or st[3] != D or st[0] % vec or st[2] % vec:
+        raise MXNetError(
+            f"paged_attention_cuda: slab strides {st} not taken (heads and "
+            f"dims contiguous, rows and positions 16-byte aligned)")
+    if not q.is_contiguous():
+        raise MXNetError("paged_attention_cuda: q must be contiguous")
+    if (lengths.dtype != torch.int32 or lengths.shape != (S,)
+            or not lengths.is_contiguous()):
+        raise MXNetError("paged_attention_cuda: lengths must be a "
+                         "contiguous (S,) int32 tensor")
+    kl, vl = k_slab[:, layer], v_slab[:, layer]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if any(t.data_ptr() % 16 for t in (q, kl, vl, out)):
+        raise MXNetError("paged_attention_cuda: buffers not 16-byte aligned")
+    lib = _load("paged_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.mx_paged_attention_fwd(
+        _PA_DTYPES[q.dtype], q.device.index or 0, q.data_ptr(),
+        kl.data_ptr(), vl.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        S, C, H, D, T, st[0], st[2], stream)
+    if rc != 0:
+        raise MXNetError(
+            f"paged_attention kernel launch failed: CUDA error {rc} "
+            f"({lib.mx_cuda_error_string(rc).decode()})")
+    paged_attention_launches += 1
+    return out

@@ -1,0 +1,74 @@
+"""PyTorch port: the package and chip_smoke.py import nothing of JAX or of
+the JAX package, and chip_smoke.py refuses to run without a card.
+
+Each check runs in a fresh interpreter whose `sys.meta_path` starts with a
+finder that raises on `jax`, `jaxlib` and `incubator_mxnet_tpu` (but not
+`incubator_mxnet_tpu_torch`), so an import anywhere in the chain fails the
+subprocess.
+"""
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKER = r"""
+import importlib.abc, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        root = name.split(".")[0]
+        if root in ("jax", "jaxlib", "incubator_mxnet_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, _Block())
+"""
+
+_IMPORT_ALL = _BLOCKER + r"""
+import pkgutil
+import incubator_mxnet_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    __import__(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "incubator_mxnet_tpu"))
+assert not bad, bad
+print("IMPORTED", len(names))
+"""
+
+_IMPORT_SMOKE = _BLOCKER + r"""
+import importlib.util
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+assert callable(mod.main)
+print("SMOKE_IMPORTED")
+"""
+
+
+def _run(code, args=()):
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, *args, "-c", code] if code
+                          else [sys.executable, *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_port_modules_import_without_jax():
+    r = _run(_IMPORT_ALL)
+    assert r.returncode == 0, r.stderr
+    n = int(r.stdout.split("IMPORTED")[1])
+    assert n >= 10      # base, device, ops.{fused,kernels}, serve.{...}
+
+
+def test_chip_smoke_imports_without_jax():
+    r = _run(_IMPORT_SMOKE)
+    assert r.returncode == 0, r.stderr
+    assert "SMOKE_IMPORTED" in r.stdout
+
+
+def test_chip_smoke_without_a_card_fails_and_prints_no_result():
+    r = _run(None, args=("chip_smoke.py",))
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
+    assert "cuda" in r.stderr.lower()
