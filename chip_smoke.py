@@ -2,31 +2,53 @@
 """Smoke run of the PyTorch/CUDA port (`incubator_mxnet_tpu_torch`) on one
 NVIDIA card.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--profile]
 
 Run from the repository root, on a machine with one CUDA card and `nvcc`.
 Each phase fails the run (non-zero exit) on any error:
 
   1. setup: the card's name and power limit; every CUDA kernel of the
-     port is built from `incubator_mxnet_tpu_torch/ops/csrc` (timed).
-  2. kernels against their plain versions on the card: paged attention
-     at the serving shapes (16 lanes, 12 heads x 64, 2048 positions,
-     12 layers), float32 and bfloat16, one query (decode) and 256 queries
-     (chunk prefill), ragged lengths, and a slab view cut on the position
-     axis; then the kernel's time against its bound, the plain version's
-     time and one PyTorch library call's time.
+     port is built from `incubator_mxnet_tpu_torch/ops/csrc` (one `nvcc`
+     per source, all started together; timed).
+  2. paged attention against its plain version on the card at the serving
+     shapes (16 lanes, 12 heads x 64, 2048 positions, 12 layers), float32
+     and bfloat16, one query (decode) and 256 queries (chunk prefill),
+     ragged lengths, and a slab view cut on the position axis; then the
+     kernel's time against its bound, the plain version's time and one
+     PyTorch library call's time.
   3. serving at full width: `ContinuousEngine` over a 12-layer, 768-wide
      `CachedDecoder` (vocab 32000, 2048 positions, random weights from a
      seed) answers 16 greedy requests with prompts of 16-1500 tokens, in
-     bfloat16 (timed; the kernel's launch counter must move by exactly
-     layers x (decode_steps x decode waves + chunk waves)) and in float32
-     with TF32 off, where every request's tokens must equal the 1-slot
-     `reference_generate`.
+     bfloat16 (timed; the paged-attention launch counter must move by
+     exactly layers x (decode_steps x decode waves + chunk waves)) and in
+     float32 with TF32 off, where every request's tokens must equal the
+     1-slot `reference_generate`.
+  4. the training kernels against their plain versions on the card: the
+     scale/shift/activation apply at every (rows, channels, activation,
+     residual) shape ResNet-50 v1 gives it at batch 32 and 224x224, in
+     float32 and bfloat16, plus sigmoid, tanh, silu and gelu at one shape;
+     the NHWC average pool's forward and backward at the global 7x7 pool
+     of (32, 7, 7, 2048) and a 2x2 pool of (32, 56, 56, 256), in float32
+     and bfloat16; then each kernel's time against its bound, the plain
+     version's time and, where one PyTorch call computes the same
+     function, that call's time.
+  5. training at full width: `FusedTrainStep` over `resnet50_v1(layout=
+     "NHWC")` (1000 classes, random weights from a seed), batch 32 of
+     224x224 images made with numpy from a seed, bf16 AMP, SGD momentum
+     0.9, lr 0.05, rescale 1/32: 2 warm-up steps, then 10 timed steps with
+     finite losses and exactly 53 apply, 1 pool-forward and 1
+     pool-backward launches a step; the shapes the apply kernel was given
+     must be ResNet-50's; then, in float32 with TF32 off at batch 8, two
+     fused steps against two unfused steps from the same weights: the
+     losses, and each weight's and running stat's update relative to its
+     own norm, must agree. `--profile` adds a
+     `torch.profiler` pass over 3 steps (device time by kernel).
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`. Without a
 card the script exits non-zero and prints no result. It imports nothing of
-JAX.
+JAX. It took 57-72 s on one `NVIDIA H100 80GB HBM3, 700.00 W`, the
+kernels' build included.
 """
 import argparse
 import json
@@ -38,7 +60,9 @@ import time
 import numpy as np
 import torch
 
-from incubator_mxnet_tpu_torch import serve
+from incubator_mxnet_tpu_torch import amp, gluon, optimizer, serve
+from incubator_mxnet_tpu_torch.gluon.contrib import FusedTrainStep
+from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 from incubator_mxnet_tpu_torch.ops import fused, kernels
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM device memory
@@ -62,11 +86,18 @@ def card_line():
     return r.stdout.strip().splitlines()[0]
 
 
+HOLD_CYCLES = 50_000_000                  # ~25 ms of the card's clock
+
+
 def median_ms(fn, reps, warmup=2):
-    """Median of `reps` CUDA-event timings of fn(i) (i = repetition)."""
+    """Median of `reps` CUDA-event timings of fn(i) (i = repetition). The
+    stream is held by a sleep kernel while the host queues every timed
+    call, so a short kernel's time is its device time, not the host's
+    launch overhead."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     evs = []
     for i in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -274,10 +305,468 @@ def phase_serve(card):
             "float32_exact": len(prompts)}
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+BATCH, IMAGE, CLASSES = 32, 224, 1000
+TRAIN_WARMUP, TRAIN_STEPS, CHECK_BATCH, CHECK_STEPS = 2, 10, 8, 2
+# elementwise kernels compute in f32 on the CUDA cores whatever the storage
+ELEMENTWISE_OPS_PER_S = PEAK_OPS[torch.float32]
+# kernel against plain version: f32 differs only where a transcendental
+# rounds differently; bf16 may part by one output rounding step
+KTOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+# fused against unfused float32 training (TF32 off, deterministic cuDNN):
+# a random-init ResNet-50 in training mode is ill-conditioned (the two
+# paths' BN applies round differently, and 53 batch-statistic BN layers
+# amplify that: their step-1 gradients part by a few percent, as the
+# unfused float32 gradients part from a float64 run's on the CPU), so the
+# check takes two small steps (lr 1e-5) and holds the losses, and each
+# leaf's update (value after the steps minus the initial value, weights
+# and running stats alike) against the unfused one relative to that
+# update's own norm: a dropped update reads 1, a reversed one 2. Sound
+# runs on an H100 read a median of 0.08 over the 267 leaves and at most
+# 0.20 (the stage-3 bn3 gammas), the same in every run (deterministic
+# cuDNN), so the limit is twice that
+CHECK_LR = 1e-5
+CHECK_LOSS_RTOL = 1e-3
+CHECK_UPDATE_RTOL = 0.4
+ACT_OPS = {None: 0, "relu": 1, "sigmoid": 4, "tanh": 4, "silu": 5,
+           "gelu": 8}
+
+
+def resnet50_apply_rows(batch, image):
+    """Every launch of the apply kernel in one ResNet-50 v1 forward at
+    (batch, image, image, 3), NHWC, as (rows M, channels C, act,
+    residual): the stem BN (its relu is a separate Activation), then per
+    bottleneck bn1 and bn2 (+relu), the downsample BN of each stage's
+    first block, and bn3 (+residual +relu). 53 in all."""
+    s = image // 4                      # stem conv s2, then max pool s2
+    rows = [(batch * (image // 2) ** 2, 64, None, False)]
+    in_c = 64
+    for stage, (n, c) in enumerate(zip((3, 4, 6, 3),
+                                       (256, 512, 1024, 2048))):
+        for b in range(n):
+            if b == 0 and stage > 0:
+                s //= 2
+            m = batch * s * s
+            rows += [(m, c // 4, "relu", False)] * 2
+            if b == 0 and c != in_c:
+                rows.append((m, c, None, False))
+            rows.append((m, c, "relu", True))
+        in_c = c
+    return rows
+
+
+def _dtype_name(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def _err_ok(out, ref, dtype):
+    rtol, atol = KTOL[dtype]
+    d = (out.float() - ref.float()).abs()
+    return d.max().item(), bool((d <= atol + rtol * ref.float().abs()).all())
+
+
+def apply_inputs(m, c, residual, dtype, gen, dev):
+    x = torch.randn((m, c), generator=gen, device=dev).to(dtype)
+    scale = 1.0 + 0.2 * torch.randn((c,), generator=gen, device=dev)
+    shift = 0.2 * torch.randn((c,), generator=gen, device=dev)
+    res = torch.randn((m, c), generator=gen, device=dev).to(dtype) \
+        if residual else None
+    return x, scale, shift, res
+
+
+def apply_bound(m, c, act, residual, dtype):
+    """Least time (ms) of one apply: x (+ residual) read and out written
+    once, the scale/shift rows read once, over the memory rate, against
+    its f32 operations (mul, add, residual add, activation) over the f32
+    rate."""
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = m * c * item * (3 if residual else 2) + 2 * c * 4
+    ops = m * c * (2 + (1 if residual else 0) + ACT_OPS[act])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ELEMENTWISE_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def pool_bound(n_in, n_out, item):
+    """Least time (ms) of one pooling pass: the input read and the output
+    written once, against one f32 operation per element read."""
+    t_bytes = (n_in + n_out) * item / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n_in, n_out) / ELEMENTWISE_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def check_apply(m, c, act, residual, dtype, gen, dev, timed):
+    x, scale, shift, res = apply_inputs(m, c, residual, dtype, gen, dev)
+    out = kernels.scale_shift_act_cuda(x, scale, shift, res, act)
+    ref = fused.apply_ref(x, scale, shift, res, act)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all(), "non-finite apply output"
+    err, ok = _err_ok(out, ref, dtype)
+    name = (f"scale_shift_act M={m} C={c} act={act} res={residual} "
+            f"{_dtype_name(dtype)}")
+    row = {"M": m, "C": c, "act": act, "residual": residual,
+           "dtype": _dtype_name(dtype), "max_abs_err": err,
+           "tol": KTOL[dtype]}
+    if timed:
+        row["ms"] = median_ms(lambda i: kernels.scale_shift_act_cuda(
+            x, scale, shift, res, act), reps=20)
+        row["plain_ms"] = median_ms(lambda i: fused.apply_ref(
+            x, scale, shift, res, act), reps=5, warmup=1)
+        row["bound_ms"], row["bound_by"] = apply_bound(m, c, act, residual,
+                                                       dtype)
+        row["library_ms"] = None
+        if act is None and not residual and dtype == torch.float32:
+            lib = torch.addcmul(shift, x, scale)
+            row["library_max_abs_err"] = (lib - ref).abs().max().item()
+            row["library_ms"] = median_ms(
+                lambda i: torch.addcmul(shift, x, scale), reps=20)
+    log(f"[train kernels] {name}: max_abs_err {err:.3e} "
+        + (f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, plain "
+           f"{row['plain_ms']:.4f} ms, library {row['library_ms']})"
+           if timed else ""))
+    assert ok, f"{name} disagrees with its plain version"
+    return row
+
+
+def check_pool(shape, pool, dtype, gen, dev, timed):
+    n, h, w, c = shape
+    ph, pw = pool
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    y = kernels.avg_pool2d_fwd_cuda(x, ph, pw)
+    y_ref = fused.avg_pool2d_ref(x, (ph, pw))
+    dy = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
+    dx = kernels.avg_pool2d_bwd_cuda(dy, h, w, ph, pw)
+    dx_ref = fused.avg_pool2d_bwd_ref(dy, h, w, ph, pw)
+    torch.cuda.synchronize()
+    err_f, ok_f = _err_ok(y, y_ref, dtype)
+    err_b, ok_b = _err_ok(dx, dx_ref, dtype)
+    name = f"avg_pool2d {shape} pool {ph}x{pw} {_dtype_name(dtype)}"
+    log(f"[train kernels] {name}: forward max_abs_err {err_f:.3e}, "
+        f"backward {err_b:.3e}")
+    assert ok_f and ok_b, f"{name} disagrees with its plain version"
+    fwd = {"shape": list(shape), "pool": [ph, pw],
+           "dtype": _dtype_name(dtype), "max_abs_err": err_f}
+    bwd = dict(fwd, max_abs_err=err_b)
+    if timed:
+        item = x.element_size()
+        xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        F = torch.nn.functional
+        fwd["ms"] = median_ms(lambda i: kernels.avg_pool2d_fwd_cuda(
+            x, ph, pw), reps=20)
+        fwd["plain_ms"] = median_ms(lambda i: fused.avg_pool2d_ref(
+            x, (ph, pw)), reps=5, warmup=1)
+        fwd["library_ms"] = median_ms(lambda i: F.avg_pool2d(
+            xc, (ph, pw)), reps=20)
+        fwd["bound_ms"], fwd["bound_by"] = pool_bound(x.numel(), y.numel(),
+                                                      item)
+        aten_bwd = torch.ops.aten.avg_pool2d_backward
+        bwd["ms"] = median_ms(lambda i: kernels.avg_pool2d_bwd_cuda(
+            dy, h, w, ph, pw), reps=20)
+        bwd["plain_ms"] = median_ms(lambda i: fused.avg_pool2d_bwd_ref(
+            dy, h, w, ph, pw), reps=5, warmup=1)
+        bwd["library_ms"] = median_ms(lambda i: aten_bwd(
+            dyc, xc, [ph, pw], [ph, pw], [0, 0], False, True, None), reps=20)
+        bwd["bound_ms"], bwd["bound_by"] = pool_bound(dy.numel(), dx.numel(),
+                                                      item)
+        lib_err = (aten_bwd(dyc, xc, [ph, pw], [ph, pw], [0, 0], False, True,
+                            None).permute(0, 2, 3, 1).float()
+                   - dx_ref.float()).abs().max().item()
+        log(f"[train kernels] {name}: forward {fwd['ms']:.4f} ms (bound "
+            f"{fwd['bound_ms']:.4f}, plain {fwd['plain_ms']:.4f}, "
+            f"F.avg_pool2d {fwd['library_ms']:.4f}); backward "
+            f"{bwd['ms']:.4f} ms (bound {bwd['bound_ms']:.4f}, plain "
+            f"{bwd['plain_ms']:.4f}, aten avg_pool2d_backward "
+            f"{bwd['library_ms']:.4f}, its max_abs_err {lib_err:.2e})")
+    return fwd, bwd
+
+
+def phase_train_kernels(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = resnet50_apply_rows(BATCH, IMAGE)
+    assert len(rows) == 53, len(rows)
+    distinct = sorted(set(rows), key=lambda r: (-r[0], r[1], str(r[2]),
+                                                r[3]))
+    apply_rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, c, act, residual in distinct:
+            # the main path runs the apply in float32 (the JAX package's
+            # AMP class for batch norm): time those shapes
+            apply_rows.append(check_apply(m, c, act, residual, dtype, gen,
+                                          dev, dtype == torch.float32))
+        for act in ("sigmoid", "tanh", "silu", "gelu"):
+            apply_rows.append(check_apply(25088, 512, act, True, dtype, gen,
+                                          dev, False))
+    pools = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, pool in (((BATCH, 7, 7, 2048), (7, 7)),
+                            ((BATCH, 56, 56, 256), (2, 2))):
+            # the main path pools (32, 7, 7, 2048) in bf16: time that one
+            timed = dtype == torch.bfloat16 and pool == (7, 7)
+            pools.append(check_pool(shape, pool, dtype, gen, dev, timed))
+    kernels.reset_launch_counts()   # comparison launches do not count
+    return {"rows": rows, "apply": apply_rows, "pools": pools}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: ResNet-50 v1 training at full width
+# ---------------------------------------------------------------------------
+def make_batches(n, batch, seed):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(batch, IMAGE, IMAGE, 3).astype(np.float32),
+             rng.randint(0, CLASSES, size=batch).astype(np.int32))
+            for _ in range(n)]
+
+
+def new_step(net, batch, use_fusion, lr=0.05):
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    opt = optimizer.create("sgd", learning_rate=lr, momentum=0.9,
+                           rescale_grad=1.0 / batch)
+    return FusedTrainStep(net, lambda n, x, y: loss_fn(n(x), y).sum(), opt,
+                          use_fusion=use_fusion)
+
+
+def record_apply_shapes(step, x, y):
+    """Run one step with the apply wrapper wrapped to record the (M, C,
+    act, residual, dtype) of each launch."""
+    seen = []
+    orig = kernels.scale_shift_act_cuda
+
+    def recording(x2d, scale, shift, residual, act_type):
+        seen.append((x2d.shape[0], x2d.shape[1], act_type,
+                     residual is not None, x2d.dtype))
+        return orig(x2d, scale, shift, residual, act_type)
+    kernels.scale_shift_act_cuda = recording
+    try:
+        step(x, y)
+    finally:
+        kernels.scale_shift_act_cuda = orig
+    return seen
+
+
+PROFILE_STEPS = 3
+# the training kernels' names as the profiler lists them
+KERNEL_SYMBOLS = {"scale_shift_act": "scale_shift_act_kernel",
+                  "avg_pool2d_fwd": "avg_pool_fwd_kernel",
+                  "avg_pool2d_bwd": "avg_pool_bwd_kernel"}
+
+
+def profile_steps(step, batches, step_ms):
+    """torch.profiler over PROFILE_STEPS steps: device time by kernel (the
+    rows of device-side events only; operator rows repeat their kernels'
+    time), the three training kernels' device time per step, and the
+    card's idle share of a timed step (one stream: busy time is the sum of
+    kernel times)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILE_STEPS):
+            step(*batches[i % len(batches)])
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    total_ms = sum(r[0] for r in rows) / 1e3
+    per_step = total_ms / PROFILE_STEPS
+    ours = {name: sum(us for us, key, _ in rows if sym in key) / 1e3
+            / PROFILE_STEPS for name, sym in KERNEL_SYMBOLS.items()}
+    idle = 1.0 - per_step / step_ms
+    log(f"[train profile] device time {per_step:.3f} ms per step in "
+        f"{len(rows)} kernel names; idle share of a {step_ms:.3f} ms step "
+        f"{100 * idle:.1f}%; the training kernels per step (ms): {ours}; "
+        f"top 15 over {PROFILE_STEPS} steps:")
+    for us, key, count in rows[:15]:
+        log(f"[train profile]   {us / 1e3:9.3f} ms "
+            f"{100 * us / 1e3 / max(total_ms, 1e-9):5.1f}% x{count:<5d} "
+            f"{key[:90]}")
+    return {"device_ms_per_step": per_step, "idle_share": idle,
+            "kernels_ms_per_step": ours,
+            "top": [{"ms": us / 1e3, "name": key, "count": count}
+                    for us, key, count in rows[:40]]}
+
+
+def phase_train(card, kernel_rows, profile, dev):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in b)
+               for b in make_batches(2, BATCH, seed=11)]
+    amp.init("bfloat16")
+    try:
+        net = vision.resnet50_v1(layout="NHWC", classes=CLASSES,
+                                 device=dev, seed=0)
+        step = new_step(net, BATCH, use_fusion=True)
+        t0 = time.perf_counter()
+        seen = record_apply_shapes(step, *batches[0])
+        for i in range(1, TRAIN_WARMUP):
+            step(*batches[i % 2])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        want = [(m, c, a, r, torch.float32) for m, c, a, r in kernel_rows]
+        assert sorted(seen, key=str) == sorted(want, key=str), \
+            f"apply launches of a step differ from ResNet-50's: {seen}"
+        log(f"[train] warm-up {TRAIN_WARMUP} steps {warm_s:.3f} s; one step "
+            f"gave the apply kernel ResNet-50's 53 shapes, all float32")
+        kernels.reset_launch_counts()
+        fused.reset_layout_copies()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [step(*batches[i % 2]) for i in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        copies = fused.layout_copies()
+        step_ms = wall / TRAIN_STEPS * 1e3
+        prof = profile_steps(step, batches, step_ms) if profile else None
+    finally:
+        amp.uninit()
+    losses = [float(v) for v in losses]
+    ips = BATCH * TRAIN_STEPS / wall
+    log(f"[train bf16] {card}: {TRAIN_STEPS} steps of batch {BATCH} in "
+        f"{wall:.3f} s: {step_ms:.3f} ms/step, {ips:.1f} images/s; losses "
+        f"{[round(v, 4) for v in losses]}")
+    log(f"[train bf16] launches {launches} (expected 53, 1, 1 per step x "
+        f"{TRAIN_STEPS}); layout copies made for the kernels: {copies}")
+    assert all(np.isfinite(losses)), "non-finite training loss"
+    assert launches["scale_shift_act"] == 53 * TRAIN_STEPS \
+        and launches["avg_pool2d_fwd"] == TRAIN_STEPS \
+        and launches["avg_pool2d_bwd"] == TRAIN_STEPS, \
+        "kernel launch count off the main path"
+    del net, step
+    torch.cuda.empty_cache()
+    check = train_f32_check(dev)
+    return {"step_ms": step_ms, "images_per_s": ips, "losses": losses,
+            "launches": launches, "layout_copies": copies,
+            "warmup_s": warm_s, "f32_check": check, "profile": prof}
+
+
+def update_parting(init, a, b):
+    """{name: |dA - dB| / |dB|} with dA = a[name] - init[name] and dB the
+    same for b: how far one run's update of each value parts from
+    another's, relative to the update itself."""
+    rel = {}
+    for name, w0 in init.items():
+        ua = a[name].double() - w0.double()
+        ub = b[name].double() - w0.double()
+        norm = ub.norm().item()
+        diff = (ua - ub).norm().item()
+        rel[name] = diff / norm if norm > 0 else (0.0 if diff == 0 else
+                                                  float("inf"))
+    return rel
+
+
+def train_f32_check(dev):
+    """Two fused against two unfused float32 steps (TF32 off, cuDNN
+    deterministic) from the same weights and data, batch CHECK_BATCH at
+    full resolution, lr CHECK_LR."""
+    x, y = [torch.from_numpy(a).to(dev)
+            for a in make_batches(1, CHECK_BATCH, seed=12)[0]]
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    nets, losses = [], []
+    try:
+        for use_fusion in (True, False):
+            net = vision.resnet50_v1(layout="NHWC", classes=CLASSES,
+                                     device=dev, seed=1)
+            step = new_step(net, CHECK_BATCH, use_fusion, lr=CHECK_LR)
+            kernels.reset_launch_counts()
+            losses.append([float(step(x, y)) for _ in range(CHECK_STEPS)])
+            n_launch = sum(kernels.launch_counts().values())
+            assert n_launch == (CHECK_STEPS * 55 if use_fusion else 0), \
+                f"fusion={use_fusion}: {n_launch} launches"
+            nets.append(net)
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    kernels.reset_launch_counts()
+    init = vision.resnet50_v1(layout="NHWC", classes=CLASSES, device=dev,
+                              seed=1).collect_params()
+    rel = update_parting(init, *(n.collect_params() for n in nets))
+    order = sorted(rel, key=rel.get, reverse=True)
+    worst = order[0]
+    loss_rel = max(abs(p - q) / max(abs(q), 1e-6)
+                   for p, q in zip(*losses))
+    log(f"[train float32] fused losses {losses[0]} unfused {losses[1]} "
+        f"(max rel {loss_rel:.2e}, tol {CHECK_LOSS_RTOL}); the update of "
+        f"each of {len(rel)} weights and stats against the unfused one, "
+        f"|dA - dB| / |dB|: median {float(np.median(list(rel.values()))):.3e}"
+        f", largest {[(n, f'{rel[n]:.3e}') for n in order[:5]]} (tol "
+        f"{CHECK_UPDATE_RTOL})")
+    assert all(np.isfinite(losses[0])), "non-finite float32 loss"
+    assert loss_rel <= CHECK_LOSS_RTOL, "fused and unfused losses part"
+    assert rel[worst] <= CHECK_UPDATE_RTOL, \
+        f"fused and unfused updates part at {worst}: {rel[worst]:.3e}"
+    return {"lr": CHECK_LR, "fused_losses": losses[0],
+            "unfused_losses": losses[1], "loss_max_rel": loss_rel,
+            "update_rel_median": float(np.median(list(rel.values()))),
+            "update_rel_worst": rel[worst], "worst_at": worst,
+            "update_rel": rel}
+
+
+def train_entries(tk, train):
+    """The kernels' JSON entries for the training path."""
+    timed = [r for r in tk["apply"] if "ms" in r]
+    key = {(r["M"], r["C"], r["act"], r["residual"]): r for r in timed}
+    per_step = {f: sum(key[row][f] for row in tk["rows"])
+                for f in ("ms", "plain_ms", "bound_ms")}
+    stem = key[tk["rows"][0]]
+    fwd, bwd = next(p for p in tk["pools"] if "ms" in p[0])
+    f32_err = max(r["max_abs_err"] for r in tk["apply"]
+                  if r["dtype"] == "float32")
+    share = (per_step["ms"] + fwd["ms"] + bwd["ms"]) / train["step_ms"]
+    base = "incubator_mxnet_tpu"
+    entries = [
+        {"name": "scale_shift_act", "route": "cuda",
+         "source": "incubator_mxnet_tpu_torch/ops/csrc/scale_shift_act.cu",
+         "replaces": f"{base}/ops/pallas_kernels.py:112",
+         "launches": train["launches"]["scale_shift_act"],
+         "max_abs_err": f32_err, "ms": stem["ms"],
+         "plain_ms": stem["plain_ms"], "bound_ms": stem["bound_ms"],
+         "bound_by": stem["bound_by"], "library_ms": stem["library_ms"],
+         "shape": f"M={stem['M']} C={stem['C']} act=None float32 (the stem "
+                  f"BN; library: torch.addcmul)",
+         "step_ms": per_step["ms"], "step_plain_ms": per_step["plain_ms"],
+         "step_bound_ms": per_step["bound_ms"],
+         "variants": tk["apply"]},
+        {"name": "avg_pool2d_fwd", "route": "cuda",
+         "source": "incubator_mxnet_tpu_torch/ops/csrc/avg_pool2d.cu",
+         "replaces": f"{base}/ops/pallas_kernels.py:186",
+         "launches": train["launches"]["avg_pool2d_fwd"],
+         "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
+         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
+         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
+         "shape": f"{fwd['shape']} pool {fwd['pool']} bfloat16 (library: "
+                  f"F.avg_pool2d)",
+         "variants": [p[0] for p in tk["pools"]]},
+        {"name": "avg_pool2d_bwd", "route": "cuda",
+         "source": "incubator_mxnet_tpu_torch/ops/csrc/avg_pool2d.cu",
+         "replaces": f"{base}/ops/pallas_kernels.py:364",
+         "launches": train["launches"]["avg_pool2d_bwd"],
+         "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+         "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
+         "shape": f"{bwd['shape']} pool {bwd['pool']} bfloat16 (library: "
+                  f"aten.avg_pool2d_backward)",
+         "variants": [p[1] for p in tk["pools"]]},
+    ]
+    log(f"[train] the three training kernels take {per_step['ms']:.3f} + "
+        f"{fwd['ms']:.4f} + {bwd['ms']:.4f} ms of a {train['step_ms']:.3f} "
+        f"ms step: {100 * share:.1f}% (bound of the 53 apply launches "
+        f"{per_step['bound_ms']:.3f} ms)")
+    return entries, share
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every result to this JSON "
                     "file")
+    ap.add_argument("--profile", action="store_true",
+                    help="add a torch.profiler pass over 3 training steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -296,6 +785,8 @@ def main():
 
     variants, lens = phase_kernels(dev)
     result = phase_serve(card)
+    train_kernels = phase_train_kernels(dev)
+    train = phase_train(card, train_kernels["rows"], args.profile, dev)
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -313,14 +804,18 @@ def main():
                  f"T={FULL['max_len']} bfloat16, lengths {lens}",
         "variants": variants,
     }
+    entries, share = train_entries(train_kernels, train)
+    train["kernel_share"] = share
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": card, "kernels": [entry],
-                       "serve": result}, f, indent=1, default=str)
+            json.dump({"card": card, "kernels": [entry] + entries,
+                       "serve": result, "train": train}, f, indent=1,
+                      default=str)
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry] + [
+        {k: v for k, v in e.items() if k != "variants"} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

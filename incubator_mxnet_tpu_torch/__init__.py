@@ -7,12 +7,20 @@ the caller passes `device="cpu"`. Every TPU (Pallas) kernel on a ported
 path is a hand-written CUDA kernel here (`ops/csrc/`), built with `nvcc`
 at first use.
 
-Ported so far: greedy continuous-batching serving (`serve`) on the
-paged-attention CUDA kernel.
+Ported so far:
+  * greedy continuous-batching serving (`serve`) on the paged-attention
+    CUDA kernel;
+  * ResNet v1 training through `gluon.contrib.FusedTrainStep`
+    (`gluon.model_zoo.vision.resnet50_v1(layout="NHWC")`,
+    `gluon.loss.SoftmaxCrossEntropyLoss`, `optimizer.SGD` with MXNet's
+    momentum rule, `amp` bf16 autocast with the JAX package's op lists),
+    whose fused tier runs on the CUDA kernels for the scale/shift/
+    activation apply pass and the NHWC average pool's forward and
+    backward.
 """
 from .base import MXNetError, get_env
 from .device import default_device, resolve_device
-from . import ops, serve
+from . import amp, initializer, ops, optimizer, gluon, serve
 
 __all__ = ["MXNetError", "get_env", "default_device", "resolve_device",
-           "ops", "serve"]
+           "amp", "initializer", "ops", "optimizer", "gluon", "serve"]

@@ -1,0 +1,120 @@
+"""FusedTrainStep of the PyTorch port: forward, loss, backward, optional
+global-norm clipping and the optimizer update in one call.
+
+Counterpart of `incubator_mxnet_tpu/gluon/contrib/fused.py::FusedTrainStep`:
+
+    step = FusedTrainStep(net, fn, optimizer)   # fn(net, *inputs) -> loss
+    loss = step(x, y)
+
+`fn` receives the live net and the step inputs and returns a scalar loss
+tensor, or a tuple (loss, *extras) whose extras pass through. The step
+runs eagerly on the net's device. Weights and optimizer state are updated
+in place; there is nothing to donate (the JAX package donates its buffers
+to XLA to the same end), so the `donate` knob does not exist here, and
+`remat` other than None raises. With `steps_per_call=K` the call loops K
+steps over inputs with a leading K axis and returns the K losses; the
+learning rates are resolved once per call, as in the JAX package.
+
+The net runs in training mode for the step (BatchNorm takes batch
+statistics and updates its running stats, as the JAX step's aux buffers
+are updated) and inside `fusion_scope(use_fusion)`: with fusion on (the
+default; `use_fusion=False` gives the unfused step) the Gluon blocks route
+through the fused ops, whose CUDA kernels run on the card. CUDA-graph capture of the
+step comes later.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ... import optimizer as opt_mod
+from ...base import MXNetError
+from ...ops import fused as _fused
+
+__all__ = ["FusedTrainStep"]
+
+
+class FusedTrainStep:
+    """One training step per call (K with `steps_per_call=K`)."""
+
+    def __init__(self, net, fn, optimizer, clip_global_norm=None,
+                 steps_per_call=1, remat=None, use_fusion=None):
+        if remat is not None:
+            raise MXNetError(f"remat={remat!r} is not supported by the port "
+                             f"yet (only None)")
+        self._opt = opt_mod.create(optimizer)
+        self._net = net
+        self._fn = fn
+        self._clip = clip_global_norm
+        self._K = int(steps_per_call)
+        if self._K < 1:
+            raise MXNetError("steps_per_call must be >= 1")
+        self._use_fusion = True if use_fusion is None else bool(use_fusion)
+        values = sorted(net.collect_params().items())
+        for name, t in values:
+            if t.device.type == "meta":
+                raise MXNetError(f"FusedTrainStep needs an initialized net "
+                                 f"({name} is not materialized)")
+        self._params = [t for _, t in values]
+        self._device = self._params[0].device
+        # per-parameter lr_mult/wd_mult resolve through param_dict, as in
+        # the JAX package
+        self._opt.param_dict = dict(enumerate(self._params))
+        self._train_idx = [i for i, t in enumerate(self._params)
+                           if isinstance(t, torch.nn.Parameter)
+                           and t.requires_grad]
+        self._states = None
+
+    def _stage(self, a):
+        if isinstance(a, torch.Tensor):
+            return a.to(self._device)
+        if isinstance(a, np.ndarray):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self._device)
+        return a
+
+    def __call__(self, *inputs):
+        opt, params = self._opt, self._params
+        if self._states is None:
+            self._states = [opt.create_state(i, params[i])
+                            for i in self._train_idx]
+        for _ in range(self._K):
+            for i in self._train_idx:
+                opt._update_count(i)
+        lrs = [opt._get_lr(i) for i in self._train_idx]
+        wds = [opt._get_wd(i) for i in self._train_idx]
+        train = [params[i] for i in self._train_idx]
+        staged = [self._stage(a) for a in inputs]
+        losses, extras_k = [], []
+        was_training = self._net.training
+        self._net.train(True)
+        try:
+            for k in range(self._K):
+                in_k = [a[k] for a in staged] if self._K > 1 else staged
+                with _fused.fusion_scope(self._use_fusion):
+                    out = self._fn(self._net, *in_k)
+                if isinstance(out, (tuple, list)):
+                    loss, extras = out[0], tuple(out[1:])
+                else:
+                    loss, extras = out, ()
+                grads = torch.autograd.grad(loss, train, allow_unused=True)
+                grads = [torch.zeros_like(t) if g is None else g
+                         for g, t in zip(grads, train)]
+                if self._clip is not None:
+                    total = sum(g.float().square().sum() for g in grads)
+                    scale = torch.clamp(
+                        self._clip / torch.clamp(total.sqrt(), min=1e-12),
+                        max=1.0)
+                    grads = [g * scale.to(g.dtype) for g in grads]
+                for j, i in enumerate(self._train_idx):
+                    opt.step_one(i, params[i], grads[j], self._states[j],
+                                 lrs[j], wds[j])
+                losses.append(loss.detach())
+                extras_k.append(tuple(e.detach() for e in extras))
+        finally:
+            self._net.train(was_training)
+        if self._K == 1:
+            loss, extras = losses[0], extras_k[0]
+        else:
+            loss = torch.stack(losses)
+            extras = tuple(torch.stack(es) for es in zip(*extras_k))
+        return (loss,) + extras if extras else loss

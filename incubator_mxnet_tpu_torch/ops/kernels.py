@@ -9,9 +9,10 @@ module is imported, so the CPU tests import it on machines without `nvcc`.
 
 Each wrapper takes CUDA tensors only, checks device, dtype, shape and
 layout, launches on PyTorch's current stream without synchronising, raises
-when the launch is refused, and adds one to its launch counter
-(`paged_attention_launches`). The plain PyTorch versions live beside the
-dispatchers in `ops/fused.py`; no wrapper ever falls back to them.
+when the launch is refused, and adds one to its launch counter (see
+`launch_counts()`). The plain PyTorch versions live beside the
+dispatchers in `ops/fused.py`; no wrapper ever falls back to them, and no
+wrapper copies a tensor into the layout its kernel takes: it raises.
 """
 from __future__ import annotations
 
@@ -27,13 +28,14 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["build", "paged_attention_cuda", "paged_attention_launches",
+__all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
+           "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "ACT_CODES",
            "reset_launch_counts", "launch_counts"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
-_SOURCES = ("paged_attention",)
+_SOURCES = ("paged_attention", "scale_shift_act", "avg_pool2d")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,15 +46,25 @@ BUILD_LOG = {}
 
 # launches of each kernel since the last reset: one per successful launch
 paged_attention_launches = 0
+scale_shift_act_launches = 0
+avg_pool2d_fwd_launches = 0
+avg_pool2d_bwd_launches = 0
 
 
 def reset_launch_counts():
-    global paged_attention_launches
+    global paged_attention_launches, scale_shift_act_launches, \
+        avg_pool2d_fwd_launches, avg_pool2d_bwd_launches
     paged_attention_launches = 0
+    scale_shift_act_launches = 0
+    avg_pool2d_fwd_launches = 0
+    avg_pool2d_bwd_launches = 0
 
 
 def launch_counts():
-    return {"paged_attention": paged_attention_launches}
+    return {"paged_attention": paged_attention_launches,
+            "scale_shift_act": scale_shift_act_launches,
+            "avg_pool2d_fwd": avg_pool2d_fwd_launches,
+            "avg_pool2d_bwd": avg_pool2d_bwd_launches}
 
 
 def _nvcc():
@@ -124,6 +136,20 @@ def _load(name):
                     [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
                     + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
                     + [ctypes.c_void_p])
+            elif name == "scale_shift_act":
+                lib.mx_scale_shift_act.restype = ctypes.c_int
+                lib.mx_scale_shift_act.argtypes = (
+                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+                    + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+            elif name == "avg_pool2d":
+                lib.mx_avg_pool2d_fwd.restype = ctypes.c_int
+                lib.mx_avg_pool2d_fwd.argtypes = (
+                    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                lib.mx_avg_pool2d_bwd.restype = ctypes.c_int
+                lib.mx_avg_pool2d_bwd.argtypes = (
+                    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
             lib.mx_cuda_error_string.restype = ctypes.c_char_p
             lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
             _LIBS[name] = lib
@@ -201,3 +227,147 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer):
             f"({lib.mx_cuda_error_string(rc).decode()})")
     paged_attention_launches += 1
     return out
+
+
+# act name -> the kernels' activation code (csrc/scale_shift_act.cu)
+ACT_CODES = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3, "silu": 4,
+             "gelu": 5}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _launch_failed(lib, name, rc):
+    return MXNetError(f"{name} kernel launch failed: CUDA error {rc} "
+                      f"({lib.mx_cuda_error_string(rc).decode()})")
+
+
+def _check_cuda(name, tensors):
+    if not all(t.is_cuda for t in tensors):
+        raise MXNetError(f"{name} takes CUDA tensors only")
+    if len({t.device for t in tensors}) != 1:
+        raise MXNetError(f"{name}: tensors on several devices")
+
+
+def _check_aligned(name, tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise MXNetError(f"{name}: buffers not 16-byte aligned")
+
+
+def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
+    """Launch the fused apply kernel (`csrc/scale_shift_act.cu`):
+    act(x2d * scale + shift + residual) over a row-major (M, C) view, f32
+    inside, returned in x2d's dtype.
+
+    `x2d`: contiguous (M, C), float32 or bfloat16, C * itemsize a multiple
+    of 16. `scale`/`shift`: contiguous (C,) float32, or None. `residual`:
+    None or contiguous (M, C) of x2d's dtype. `act_type`: a key of
+    `ACT_CODES`. Raises `MXNetError` on any input the kernel does not take
+    (a strided view included: the caller copies, and counts the copy)."""
+    global scale_shift_act_launches
+    name = "scale_shift_act_cuda"
+    rows = [t for t in (scale, shift) if t is not None]
+    full = [x2d] + ([residual] if residual is not None else [])
+    _check_cuda(name, full + rows)
+    if act_type not in ACT_CODES:
+        raise MXNetError(f"{name}: activation {act_type!r} not in "
+                         f"{sorted(ACT_CODES, key=str)}")
+    if x2d.dim() != 2 or x2d.dtype not in _DTYPE_CODES:
+        raise MXNetError(f"{name}: x must be a 2-D float32 or bfloat16 "
+                         f"tensor; got {tuple(x2d.shape)} {x2d.dtype}")
+    M, C = x2d.shape
+    if (C * x2d.element_size()) % 16:
+        raise MXNetError(f"{name}: C * itemsize = {C * x2d.element_size()} "
+                         f"bytes is not a multiple of 16")
+    if residual is not None and (residual.shape != x2d.shape
+                                 or residual.dtype != x2d.dtype):
+        raise MXNetError(f"{name}: residual must match x in shape and dtype")
+    for t in rows:
+        if t.shape != (C,) or t.dtype != torch.float32:
+            raise MXNetError(f"{name}: scale and shift must be ({C},) "
+                             f"float32; got {tuple(t.shape)} {t.dtype}")
+    if not all(t.is_contiguous() for t in full + rows):
+        raise MXNetError(f"{name}: x, residual, scale and shift must be "
+                         f"contiguous")
+    out = torch.empty_like(x2d)
+    if out.numel() == 0:
+        return out
+    _check_aligned(name, full + rows + [out])
+    lib = _load("scale_shift_act")
+    stream = torch.cuda.current_stream(x2d.device).cuda_stream
+    rc = lib.mx_scale_shift_act(
+        _DTYPE_CODES[x2d.dtype], ACT_CODES[act_type], x2d.device.index or 0,
+        x2d.data_ptr(), scale.data_ptr() if scale is not None else None,
+        shift.data_ptr() if shift is not None else None,
+        residual.data_ptr() if residual is not None else None,
+        out.data_ptr(), M, C, stream)
+    if rc != 0:
+        raise _launch_failed(lib, "scale_shift_act", rc)
+    scale_shift_act_launches += 1
+    return out
+
+
+def _pool_check(name, t, ph, pw, spatial=None):
+    """Checks of an NHWC pooling operand; `spatial` is the (h, w) pooled
+    over (the forward's own, or the backward's dX)."""
+    _check_cuda(name, (t,))
+    if t.dim() != 4 or t.dtype not in _DTYPE_CODES:
+        raise MXNetError(f"{name}: takes a 4-D NHWC float32 or bfloat16 "
+                         f"tensor; got {tuple(t.shape)} {t.dtype}")
+    if not t.is_contiguous():
+        raise MXNetError(f"{name}: the NHWC tensor must be contiguous")
+    h, w = t.shape[1:3] if spatial is None else spatial
+    if ph <= 0 or pw <= 0 or h % ph or w % pw:
+        raise MXNetError(f"{name}: pool {ph}x{pw} must divide the spatial "
+                         f"dims {h}x{w}")
+    if t.shape[3] % 8:
+        raise MXNetError(f"{name}: channels {t.shape[3]} not a multiple "
+                         f"of 8")
+
+
+def avg_pool2d_fwd_cuda(x, ph, pw):
+    """Launch the pooling forward (`csrc/avg_pool2d.cu`): the mean over
+    each non-overlapping (ph, pw) window of a contiguous NHWC tensor,
+    f32 inside, in x's dtype. Channels must be a multiple of 8."""
+    global avg_pool2d_fwd_launches
+    name = "avg_pool2d_fwd_cuda"
+    _pool_check(name, x, ph, pw)
+    n, h, w, c = x.shape
+    y = torch.empty((n, h // ph, w // pw, c), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    _check_aligned(name, (x, y))
+    lib = _load("avg_pool2d")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.mx_avg_pool2d_fwd(_DTYPE_CODES[x.dtype], x.device.index or 0,
+                               x.data_ptr(), y.data_ptr(), n, h, w, c, ph,
+                               pw, stream)
+    if rc != 0:
+        raise _launch_failed(lib, "avg_pool2d_fwd", rc)
+    avg_pool2d_fwd_launches += 1
+    return y
+
+
+def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
+    """Launch the pooling backward (`csrc/avg_pool2d.cu`): dX (N, h, w, C)
+    from a contiguous NHWC dY (N, h/ph, w/pw, C), each dY value times
+    1/(ph*pw) broadcast over its window, in dy's dtype."""
+    global avg_pool2d_bwd_launches
+    name = "avg_pool2d_bwd_cuda"
+    _pool_check(name, dy, ph, pw, (h, w))
+    n, ho, wo, c = dy.shape
+    if (ho * ph, wo * pw) != (h, w):
+        raise MXNetError(f"{name}: dy {tuple(dy.shape)} is not the pool "
+                         f"{ph}x{pw} of {h}x{w}")
+    dx = torch.empty((n, h, w, c), dtype=dy.dtype, device=dy.device)
+    if dx.numel() == 0:
+        return dx
+    _check_aligned(name, (dy, dx))
+    lib = _load("avg_pool2d")
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    inv = float(torch.tensor(1.0 / (ph * pw), dtype=torch.float32))
+    rc = lib.mx_avg_pool2d_bwd(_DTYPE_CODES[dy.dtype], dy.device.index or 0,
+                               dy.data_ptr(), dx.data_ptr(), n, h, w, c, ph,
+                               pw, inv, stream)
+    if rc != 0:
+        raise _launch_failed(lib, "avg_pool2d_bwd", rc)
+    avg_pool2d_bwd_launches += 1
+    return dx

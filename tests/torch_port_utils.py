@@ -46,3 +46,86 @@ def decoders(cfg=CFG, seed=0):
                               params=tserve.params_from_jax(pn, "cpu"),
                               device="cpu")
     return jm, tm
+
+
+# ---------------------------------------------------------------------------
+# ResNet training: one small BottleneckV1 ResNet in both packages, with the
+# same numpy-made values
+# ---------------------------------------------------------------------------
+RESNET = dict(layers=[1, 1], channels=[8, 16, 32], classes=10)
+
+
+def _resnet_value(name, shape, rng):
+    """A numpy value for one parameter: varied BN affines and stats (not
+    the ones/zeros init) so every term of the BN gradient counts."""
+    if name.endswith("gamma"):
+        return 1.0 + 0.2 * rng.randn(*shape)
+    if name.endswith("beta") or name.endswith("bias"):
+        return 0.1 * rng.randn(*shape)
+    if name.endswith("running_mean"):
+        return 0.1 * rng.randn(*shape)
+    if name.endswith("running_var"):
+        return 1.0 + 0.2 * np.abs(rng.randn(*shape))
+    fan_in = int(np.prod(shape[:-1])) if len(shape) == 4 else shape[1]
+    return rng.randn(*shape) * np.sqrt(2.0 / fan_in)
+
+
+def resnet_pair(thumbnail, seed=0):
+    """(JAX net, port net on the CPU) — `ResNetV1(BottleneckV1, [1, 1],
+    [8, 16, 32], classes=10, layout="NHWC")`, thumbnail stem (8x8 input)
+    or the full stem (conv7 s2, BN, relu, maxpool; 32x32 input) — holding
+    the same values, made with numpy from `seed` and carried into the port
+    with `gluon.params_from_jax`."""
+    import incubator_mxnet_tpu as mx
+    from incubator_mxnet_tpu.gluon.model_zoo import vision as jvision
+    from incubator_mxnet_tpu_torch import gluon as tgluon
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision as tvision
+    hw = 8 if thumbnail else 32
+    jnet = jvision.ResNetV1(jvision.BottleneckV1, thumbnail=thumbnail,
+                            layout="NHWC", **RESNET)
+    jnet.initialize()
+    jnet(mx.np.zeros((2, hw, hw, 3)))          # resolve deferred shapes
+    rng = np.random.RandomState(seed)
+    values = {}
+    for name, p in jnet.collect_params().items():
+        v = _resnet_value(name, p.shape, rng).astype(np.float32)
+        p.set_data(mx.np.array(v))
+        values[name] = v
+    tnet = tvision.ResNetV1(tvision.BottleneckV1, thumbnail=thumbnail,
+                            layout="NHWC", **RESNET).initialize(device="cpu")
+    tgluon.params_from_jax(tnet, values)
+    return jnet, tnet
+
+
+def resnet_batch(thumbnail, seed=1, batch=4):
+    """(images NHWC float32, int32 labels) made with numpy."""
+    hw = 8 if thumbnail else 32
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, hw, hw, 3).astype(np.float32)
+    y = rng.randint(0, RESNET["classes"], size=batch).astype(np.int32)
+    return x, y
+
+
+def jax_values(jnet):
+    return {n: np.asarray(p.data().asnumpy(), np.float32)
+            for n, p in jnet.collect_params().items()}
+
+
+def port_values(tnet):
+    """The port net's values in the JAX package's layout (a channels-last
+    Conv2D's (O, I, kh, kw) weight back to HWIO)."""
+    out = {}
+    for name, t in tnet.collect_params().items():
+        v = t.detach().float().cpu()
+        blk, leaf = tnet._owner(name)
+        if leaf == "weight" and getattr(blk, "_hwio_weight", False):
+            v = v.permute(2, 3, 1, 0)
+        out[name] = v.contiguous().numpy()
+    return out
+
+
+def assert_values_close(got, want, rtol, atol, what=""):
+    assert sorted(got) == sorted(want)
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=rtol,
+                                   atol=atol, err_msg=f"{what} {name}")
