@@ -43,12 +43,34 @@ Each phase fails the run (non-zero exit) on any error:
      losses, and each weight's and running stat's update relative to its
      own norm, must agree. `--profile` adds a
      `torch.profiler` pass over 3 steps (device time by kernel).
+  6. the flash-attention kernels (B5 forward, B6 forward + log-sum-exp,
+     B7 dq sweep, B8 dk/dv sweep) against their plain versions on the
+     card at the BERT path's shape (bh 192 = 16 x 12 heads, T 512, d 64)
+     in bfloat16 and float32, causal and not, plus Tq != Tk causal (rows
+     that see no key), a ragged T = 500 and head dims 32 and 128; then at
+     the path's shape (bf16, no mask) each kernel's time against its
+     bound, the plain version's time and one SDPA call's (forward for
+     B5/B6, backward for B7/B8). A bf16 output is held to limits relative
+     to its own size, and they must refuse two planted store faults (a
+     truncating store, a swapped pair) at that shape.
+  7. BERT-base at full width: 12 `TransformerEncoderCell(768, 3072, 12,
+     dropout 0.1, gelu, use_flash=True)` between token and positional
+     embeddings (vocab 30522, 512 positions) and a LayerNorm + Dense head
+     over the vocabulary, random weights from a seed, batch 16 x 512
+     tokens and random labels from numpy, bf16 AMP, Adam lr 1e-4: 2
+     warm-up and 10 timed steps with finite losses and exactly 12 B6, 12
+     B7 and 12 B8 launches a step, then one inference forward under
+     `torch.no_grad()` with exactly 12 B5 launches and finite logits;
+     then, in float32 with TF32 off, dropout 0, 2 layers at full width
+     and batch 4, two flash SGD steps against two SDPA-composition steps
+     from the same weights: the losses, and each weight's update relative
+     to its own norm, must agree, and the same check must refuse a run
+     whose flash backward drops delta.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`. Without a
 card the script exits non-zero and prints no result. It imports nothing of
-JAX. It took 57-72 s on one `NVIDIA H100 80GB HBM3, 700.00 W`, the
-kernels' build included.
+JAX. Its run time on the card is in the root `PERF.md`.
 """
 import argparse
 import json
@@ -63,7 +85,7 @@ import torch
 from incubator_mxnet_tpu_torch import amp, gluon, optimizer, serve
 from incubator_mxnet_tpu_torch.gluon.contrib import FusedTrainStep
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
-from incubator_mxnet_tpu_torch.ops import fused, kernels
+from incubator_mxnet_tpu_torch.ops import attention, fused, kernels
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12,         # f32 outside the tensor cores
@@ -554,12 +576,13 @@ KERNEL_SYMBOLS = {"scale_shift_act": "scale_shift_act_kernel",
                   "avg_pool2d_bwd": "avg_pool_bwd_kernel"}
 
 
-def profile_steps(step, batches, step_ms):
+def profile_steps(step, batches, step_ms, symbols=KERNEL_SYMBOLS,
+                  tag="train"):
     """torch.profiler over PROFILE_STEPS steps: device time by kernel (the
     rows of device-side events only; operator rows repeat their kernels'
-    time), the three training kernels' device time per step, and the
-    card's idle share of a timed step (one stream: busy time is the sum of
-    kernel times)."""
+    time), the named kernels' device time per step (`symbols`: {name:
+    substring of the kernel's symbol}), and the card's idle share of a
+    timed step (one stream: busy time is the sum of kernel times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -576,14 +599,14 @@ def profile_steps(step, batches, step_ms):
     total_ms = sum(r[0] for r in rows) / 1e3
     per_step = total_ms / PROFILE_STEPS
     ours = {name: sum(us for us, key, _ in rows if sym in key) / 1e3
-            / PROFILE_STEPS for name, sym in KERNEL_SYMBOLS.items()}
+            / PROFILE_STEPS for name, sym in symbols.items()}
     idle = 1.0 - per_step / step_ms
-    log(f"[train profile] device time {per_step:.3f} ms per step in "
+    log(f"[{tag} profile] device time {per_step:.3f} ms per step in "
         f"{len(rows)} kernel names; idle share of a {step_ms:.3f} ms step "
-        f"{100 * idle:.1f}%; the training kernels per step (ms): {ours}; "
+        f"{100 * idle:.1f}%; the port's kernels per step (ms): {ours}; "
         f"top 15 over {PROFILE_STEPS} steps:")
     for us, key, count in rows[:15]:
-        log(f"[train profile]   {us / 1e3:9.3f} ms "
+        log(f"[{tag} profile]   {us / 1e3:9.3f} ms "
             f"{100 * us / 1e3 / max(total_ms, 1e-9):5.1f}% x{count:<5d} "
             f"{key[:90]}")
     return {"device_ms_per_step": per_step, "idle_share": idle,
@@ -761,12 +784,516 @@ def train_entries(tk, train):
     return entries, share
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+# BERT-base (Devlin et al. 2018, sec. 3; GluonNLP's bert_12_768_12): 12
+# layers, 768 wide, 12 heads x 64, FFN 3072 (exact-erf GELU), 512
+# positions, WordPiece vocabulary 30522, dropout 0.1
+BERT = dict(vocab=30522, units=768, layers=12, heads=12, hidden=3072,
+            max_len=512, dropout=0.1)
+BERT_BATCH, BERT_SEQ = 16, 512
+# (bh, T, d) of every flash launch on the path: batch x heads, T, 64
+FLASH_MAIN = (BERT_BATCH * BERT["heads"], BERT_SEQ,
+              BERT["units"] // BERT["heads"])
+# further (bh, tq, tk, d, causal) each kernel must take: Tq != Tk causal
+# (rows with no live key when Tq > Tk), a ragged length, the other head dims
+FLASH_EXTRA = [(24, 384, 512, 64, True), (24, 512, 384, 64, True),
+               (24, 500, 500, 64, False), (24, 500, 500, 64, True),
+               (24, 256, 256, 32, True), (24, 256, 200, 128, False)]
+FLASH_KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
+                 "flash_bwd_dkv")
+# products per (query, key) pair, each 2 * d operations: q.k and p.v in the
+# forward; q.k, dO.v and ds.k in the dq sweep; q.k, dO.v, p.dO and ds.q in
+# the dk/dv sweep
+FLASH_PRODUCTS = {"flash_fwd": 2, "flash_fwd_lse": 2, "flash_bwd_dq": 3,
+                  "flash_bwd_dkv": 4}
+FLASH_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+def live_pairs(tq, tk, causal):
+    """(query, key) pairs a head attends: all, or the end-aligned causal
+    triangle (query i sees keys j <= i + tk - tq)."""
+    if not causal:
+        return tq * tk
+    return int(np.clip(np.arange(tq) + tk - tq + 1, 0, tk).sum())
+
+
+def flash_bound(name, bh, tq, tk, d, causal, dtype):
+    """Least time (ms) of one launch: its inputs read and outputs written
+    once (q, k, v, o, dO, dq, dk, dv in `dtype`, lse and delta float32)
+    over the memory rate, against the products the live pairs need over
+    the peak for the type."""
+    item = torch.empty((), dtype=dtype).element_size()
+    nq, nk, rows = bh * tq * d * item, bh * tk * d * item, bh * tq * 4
+    nbytes = {"flash_fwd": 2 * nq + 2 * nk,
+              "flash_fwd_lse": 2 * nq + 2 * nk + rows,
+              "flash_bwd_dq": 3 * nq + 2 * nk + 2 * rows,
+              "flash_bwd_dkv": 2 * nq + 4 * nk + 2 * rows}[name]
+    ops = bh * live_pairs(tq, tk, causal) * 2 * d * FLASH_PRODUCTS[name]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+# a bfloat16 output is one rounding of float32 values that part from the
+# plain version's only by summation order, so isolated elements part by one
+# rounding step (at most 2^-7 = 7.8e-3 of the value) and the rest not at
+# all; both limits are relative to the output's own size: the largest error
+# to max |ref|, the rms error to rms |ref|. A store that truncates instead
+# of rounding moves about half the elements by a step, which only the rms
+# reading sees; a swapped pair moves elements by their own size. On an
+# H100 sound outputs read max_rel <= 2.0e-3 and rms_rel <= 5.1e-5 (o; dq,
+# dk and dv <= 2.7e-5), a truncating store rms_rel 4.05e-3
+FLASH_BF16_MAX_TOL = 1e-2
+FLASH_BF16_RMS_TOL = 5e-4
+
+
+def _flash_err(out, ref, dtype):
+    """(max abs error, ok, readings): float32 outputs must lie within
+    TOL[float32] x (1 + |ref|) everywhere; bfloat16 ones within the two
+    limits above, read as {"max_rel", "rms_rel"}. The plain version's
+    output must not be all zero."""
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    nonzero = bool(r.abs().max() > 0)
+    if dtype == torch.float32:
+        ok = bool((diff <= TOL[dtype] * (1.0 + r.abs())).all())
+        return diff.max().item(), ok and nonzero, {}
+    read = {"max_rel": (diff.max() / r.abs().max()).item(),
+            "rms_rel": (diff.square().mean().sqrt()
+                        / r.square().mean().sqrt()).item()}
+    ok = read["max_rel"] <= FLASH_BF16_MAX_TOL and \
+        read["rms_rel"] <= FLASH_BF16_RMS_TOL
+    return diff.max().item(), ok and nonzero, read
+
+
+def bf16_store_faults(out32):
+    """What two faulty bf16 stores would write from float32 values: one
+    that truncates (drops the low 16 bits) and one that swaps each pair of
+    neighbours."""
+    trunc = (out32.contiguous().view(torch.int32) & -65536).view(
+        torch.float32).to(torch.bfloat16)
+    swapped = out32.to(torch.bfloat16).reshape(-1, 2).flip(-1).reshape(
+        out32.shape)
+    return {"truncating store": trunc, "swapped pair": swapped}
+
+
+def flash_planted_faults(bwd_args, refs):
+    """The bf16 limits against planted store faults: each kernel's float32
+    instance on the same (bf16-valued) inputs gives the values the bf16
+    instance rounds, `bf16_store_faults` writes them as a faulty store
+    would, and the check must refuse every one. Returns the readings."""
+    q, k, v, do, lse, delta, causal, scale = bwd_args
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    args32 = (q32, k32, v32, do32, lse, delta, causal, scale)
+    dk32, dv32 = kernels.flash_bwd_dkv_cuda(*args32)
+    out32 = {"o": kernels.flash_fwd_cuda(q32, k32, v32, causal, scale,
+                                         False),
+             "dq": kernels.flash_bwd_dq_cuda(*args32), "dk": dk32,
+             "dv": dv32}
+    readings = {}
+    for name, x32 in out32.items():
+        for fault, bad in bf16_store_faults(x32).items():
+            _, ok, read = _flash_err(bad, refs[name], torch.bfloat16)
+            readings[f"{name}, {fault}"] = read
+            assert not ok, f"the bf16 check passes a {fault} of {name}"
+    log("[flash kernels] planted bf16 store faults (must fail: max_rel > "
+        f"{FLASH_BF16_MAX_TOL} or rms_rel > {FLASH_BF16_RMS_TOL}): "
+        + "; ".join(f"{n} max_rel {r['max_rel']:.3e} rms_rel "
+                    f"{r['rms_rel']:.3e}" for n, r in readings.items()))
+    return readings
+
+
+def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed):
+    """The four kernels against their plain versions on the same inputs
+    (the backward ones from the plain forward's lse and delta); with
+    `timed`, each kernel's time, bound, plain time and library time."""
+    q, k, v, do = (torch.randn((bh, n, d), generator=gen, device=dev)
+                   .to(dtype) for n in (tq, tk, tk, tq))
+    scale = 1.0 / np.sqrt(d)
+    o5 = kernels.flash_fwd_cuda(q, k, v, causal, scale, False)
+    o6, lse = kernels.flash_fwd_cuda(q, k, v, causal, scale, True)
+    o_ref, lse_ref = attention.flash_forward_lse_ref(q, k, v, causal, scale)
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    bwd_args = (q, k, v, do, lse_ref, delta, causal, scale)
+    dq = kernels.flash_bwd_dq_cuda(*bwd_args)
+    dk, dv = kernels.flash_bwd_dkv_cuda(*bwd_args)
+    dq_ref = attention.flash_bwd_dq_ref(*bwd_args)
+    dk_ref, dv_ref = attention.flash_bwd_dkv_ref(*bwd_args)
+    torch.cuda.synchronize()
+    outputs = {"flash_fwd": {"o": (o5, o_ref, dtype)},
+               "flash_fwd_lse": {"o": (o6, o_ref, dtype),
+                                 "lse": (lse, lse_ref, torch.float32)},
+               "flash_bwd_dq": {"dq": (dq, dq_ref, dtype)},
+               "flash_bwd_dkv": {"dk": (dk, dk_ref, dtype),
+                                 "dv": (dv, dv_ref, dtype)}}
+    checks = {n: {o: _flash_err(*a) for o, a in c.items()}
+              for n, c in outputs.items()}
+    case = {"bh": bh, "tq": tq, "tk": tk, "d": d, "causal": causal,
+            "dtype": _dtype_name(dtype)}
+    tol = ({"elementwise": TOL[dtype]} if dtype == torch.float32 else
+           {"max_rel": FLASH_BF16_MAX_TOL, "rms_rel": FLASH_BF16_RMS_TOL})
+    rows = {n: dict(case, max_abs_err=max(e for e, _, _ in c.values()),
+                    tol=tol, readings={o: r for o, (_, _, r) in c.items()
+                                       if r})
+            for n, c in checks.items()}
+    # an f32 product that accumulates in the plain version's order (the
+    # dq and dk/dv sweeps at d = 64 against cuBLAS) can agree to the bit
+    if dtype == torch.float32:
+        how = f"tol {TOL[dtype]:.0e} x (1 + |ref|)"
+    else:
+        how = "bf16 " + ", ".join(
+            f"{o} max_rel {r['max_rel']:.3e} rms_rel {r['rms_rel']:.3e}"
+            for o, r in ((o, c[o][2]) for c in checks.values() for o in c)
+            if r) + f" (tol {FLASH_BF16_MAX_TOL:.0e} / " \
+            f"{FLASH_BF16_RMS_TOL:.0e})"
+    log(f"[flash kernels] {case}: max_abs_err "
+        + ", ".join(f"{n} {r['max_abs_err']:.3e}" for n, r in rows.items())
+        + f"; {how}; max |ref| o "
+        f"{o_ref.float().abs().max().item():.3f} dq "
+        f"{dq_ref.float().abs().max().item():.3f} dk "
+        f"{dk_ref.float().abs().max().item():.3f} dv "
+        f"{dv_ref.float().abs().max().item():.3f}")
+    assert all(torch.isfinite(t.float()).all()
+               for t in (o5, o6, dq, dk, dv)), "non-finite flash output"
+    for n, c in checks.items():
+        assert all(ok for _, ok, _ in c.values()), \
+            f"{n} {case} disagrees with its plain version"
+    if timed:
+        time_flash(rows, q, k, v, do, lse_ref, delta, causal, scale, dtype,
+                   o_ref)
+        rows["flash_fwd"]["planted"] = flash_planted_faults(
+            bwd_args, {"o": o_ref, "dq": dq_ref, "dk": dk_ref, "dv": dv_ref})
+    return rows
+
+
+def time_flash(rows, q, k, v, do, lse, delta, causal, scale, dtype, o_ref):
+    """Kernel, plain and library (one PyTorch SDPA call: its forward for
+    B5/B6, its backward, which gives dq, dk and dv at once, for B7/B8)
+    times, and the bound, into `rows`."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    bwd = (q, k, v, do, lse, delta, causal, scale)
+    run = {"flash_fwd": (
+               lambda i: kernels.flash_fwd_cuda(q, k, v, causal, scale,
+                                                False),
+               lambda i: attention.flash_attention_ref(q, k, v, causal,
+                                                       scale)),
+           "flash_fwd_lse": (
+               lambda i: kernels.flash_fwd_cuda(q, k, v, causal, scale,
+                                                True),
+               lambda i: attention.flash_forward_lse_ref(q, k, v, causal,
+                                                         scale)),
+           "flash_bwd_dq": (lambda i: kernels.flash_bwd_dq_cuda(*bwd),
+                            lambda i: attention.flash_bwd_dq_ref(*bwd)),
+           "flash_bwd_dkv": (lambda i: kernels.flash_bwd_dkv_cuda(*bwd),
+                             lambda i: attention.flash_bwd_dkv_ref(*bwd))}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (t.detach().unsqueeze(0).requires_grad_()
+                  for t in (q, k, v))
+    lib_out = sdpa(q4, k4, v4, is_causal=causal and tq == tk)
+    lib_err = (lib_out[0].float() - o_ref.float()).abs().max().item()
+    lib_fwd = median_ms(lambda i: sdpa(q4, k4, v4,
+                                       is_causal=causal and tq == tk),
+                        reps=20)
+    do4 = do.unsqueeze(0)
+    lib_bwd = median_ms(lambda i: torch.autograd.grad(
+        lib_out, (q4, k4, v4), do4, retain_graph=True), reps=20)
+    for name, (kern, plain) in run.items():
+        r = rows[name]
+        r["ms"] = median_ms(kern, reps=20)
+        r["plain_ms"] = median_ms(plain, reps=5, warmup=1)
+        r["bound_ms"], r["bound_by"] = flash_bound(name, bh, tq, tk, d,
+                                                   causal, dtype)
+        r["library_ms"] = lib_fwd if name in ("flash_fwd",
+                                              "flash_fwd_lse") else lib_bwd
+        r["library_max_abs_err"] = lib_err
+        log(f"[flash kernels] {name} {(bh, tq, tk, d)} "
+            f"{_dtype_name(dtype)} causal={causal}: {r['ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, sdpa "
+            f"{'forward' if name.startswith('flash_fwd') else 'backward'} "
+            f"{r['library_ms']:.4f} ms (sdpa forward max_abs_err "
+            f"{lib_err:.2e})")
+
+
+def phase_flash_kernels(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bh, t, d = FLASH_MAIN
+    variants = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (False, True):
+            # the main path runs (192, 512, 64) bf16 without a mask: time it
+            timed = dtype == torch.bfloat16 and not causal
+            variants.append(check_flash(bh, t, t, d, causal, dtype, gen,
+                                        dev, timed))
+        for bh_, tq, tk, d_, causal in FLASH_EXTRA:
+            variants.append(check_flash(bh_, tq, tk, d_, causal, dtype, gen,
+                                        dev, False))
+    kernels.reset_launch_counts()   # comparison launches do not count
+    return variants
+
+
+# ---------------------------------------------------------------------------
+# phase 7: BERT-base encoder training and inference at full width
+# ---------------------------------------------------------------------------
+BERT_WARMUP, BERT_STEPS, BERT_LR = 2, 10, 1e-4
+# flash (B5-B8) against the SDPA composition, float32, TF32 off, dropout 0,
+# 2 layers at full width, batch 4, two SGD steps from the same weights: the
+# losses, and each leaf's update against the composition's relative to its
+# own norm (SGD, so an update is lr x its gradient). The key projection's
+# bias is left out of the limit: its gradient is zero in exact arithmetic
+# (softmax is shift-invariant along each query's row), so both runs hand it
+# roundoff, whose parting says nothing of the kernels
+FLASH_CHECK_LAYERS, FLASH_CHECK_BATCH, FLASH_CHECK_STEPS = 2, 4, 2
+FLASH_CHECK_LR = 1e-3
+# sound runs on an H100 read a median of 8.9e-7 over the 36 held weights
+# and at most 3.4e-4 (cells.1.attention.query_proj.weight), the losses
+# equal to the last digit. A planted fault, the flash backward without
+# delta (the softmax normaliser's term), is run at this very configuration
+# every time, and must read over the update limit
+FLASH_CHECK_LOSS_RTOL = 1e-4
+FLASH_CHECK_UPDATE_RTOL = 1e-3
+FLASH_CHECK_SKIP = "attention.key_proj.bias"
+
+
+class BertEncoderLM(gluon.HybridBlock):
+    """BERT-base's encoder stack from the public Gluon blocks: token and
+    learned positional embeddings, pre-norm encoder cells (exact-erf
+    GELU, flash attention), a final LayerNorm (the block's epsilon, 1e-5)
+    and a dense head over the vocabulary at every position."""
+
+    def __init__(self, layers, use_flash, dropout, cfg=BERT):
+        super().__init__()
+        nn = gluon.nn
+        u = cfg["units"]
+        self.emb = nn.Embedding(cfg["vocab"], u)
+        self.pos = nn.PositionalEmbedding(cfg["max_len"], u)
+        self.cells = nn.HybridSequential(*[
+            nn.TransformerEncoderCell(u, cfg["hidden"], cfg["heads"],
+                                      dropout=dropout, activation="gelu",
+                                      use_flash=use_flash)
+            for _ in range(layers)])
+        self.ln = nn.LayerNorm(in_channels=u)
+        self.head = nn.Dense(cfg["vocab"], flatten=False, in_units=u)
+
+    def forward(self, x):
+        return self.head(self.ln(self.cells(self.pos(self.emb(x)))))
+
+
+def token_batches(n, batch, seed, dev):
+    rng = np.random.RandomState(seed)
+    shape = (batch, BERT_SEQ)
+    return [tuple(torch.from_numpy(rng.randint(0, BERT["vocab"], size=shape)
+                                   .astype(np.int32)).to(dev)
+                  for _ in range(2)) for _ in range(n)]
+
+
+def bert_step(net, opt):
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    return FusedTrainStep(net, lambda n, x, y: loss_fn(n(x), y).mean(), opt)
+
+
+def phase_bert(card, profile, dev):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batches = token_batches(2, BERT_BATCH, seed=21, dev=dev)
+    L = BERT["layers"]
+    amp.init("bfloat16")
+    try:
+        t0 = time.perf_counter()
+        net = BertEncoderLM(L, True, BERT["dropout"]).initialize(
+            device=dev, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_weights = sum(t.numel() for t in net.collect_params().values())
+        step = bert_step(net, optimizer.create("adam",
+                                               learning_rate=BERT_LR))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(BERT_WARMUP):
+            step(*batches[i % 2])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [step(*batches[i % 2]) for i in range(BERT_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        step_ms = wall / BERT_STEPS * 1e3
+        # inference: one forward with nothing recorded, on the same counts
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = net(batches[0][0])
+        torch.cuda.synchronize()
+        infer_ms = (time.perf_counter() - t0) * 1e3
+        total = kernels.launch_counts()
+        prof = profile_steps(step, batches, step_ms, FLASH_SYMBOLS,
+                             "bert") if profile else None
+    finally:
+        amp.uninit()
+    losses = [float(v) for v in losses]
+    tokens_s = BERT_BATCH * BERT_SEQ * BERT_STEPS / wall
+    infer = {n: total[n] - launches[n] for n in total}
+    log(f"[bert] {L} layers x {BERT['units']} wide, {n_weights} weights "
+        f"(initialized in {init_s:.3f} s), batch {BERT_BATCH} x {BERT_SEQ} "
+        f"tokens, bf16 AMP, Adam lr {BERT_LR}: warm-up {BERT_WARMUP} steps "
+        f"{warm_s:.3f} s")
+    log(f"[bert] {card}: {BERT_STEPS} steps in {wall:.3f} s: {step_ms:.3f} "
+        f"ms/step, {tokens_s:.1f} tokens/s; peak device memory "
+        f"{peak_gb:.2f} GiB; losses {[round(v, 4) for v in losses]}")
+    log(f"[bert] training launches {launches} (expected {L} each of "
+        f"flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv per step x "
+        f"{BERT_STEPS}); inference forward {infer_ms:.3f} ms, launches "
+        f"{infer} (expected {L} flash_fwd)")
+    assert all(np.isfinite(losses)), "non-finite BERT training loss"
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_fwd_lse": L * BERT_STEPS,
+                 "flash_bwd_dq": L * BERT_STEPS,
+                 "flash_bwd_dkv": L * BERT_STEPS})
+    assert launches == want, "flash launch count off the training path"
+    assert infer == dict(dict.fromkeys(infer, 0), flash_fwd=L), \
+        "flash launch count off the inference path"
+    assert logits.shape == (BERT_BATCH, BERT_SEQ, BERT["vocab"]) and \
+        torch.isfinite(logits.float()).all(), "inference logits not finite"
+    del net, step, logits
+    torch.cuda.empty_cache()
+    check = bert_f32_check(dev)
+    return {"step_ms": step_ms, "tokens_per_s": tokens_s, "losses": losses,
+            "launches": total, "train_launches": launches,
+            "infer_launches": infer, "infer_ms": infer_ms,
+            "weights": n_weights, "peak_gib": peak_gb, "warmup_s": warm_s,
+            "f32_check": check, "profile": prof}
+
+
+def bert_f32_check(dev):
+    """Two flash against two SDPA-composition float32 SGD steps (TF32 off,
+    dropout 0) from the same weights and data, FLASH_CHECK_LAYERS layers
+    at full width."""
+    x, y = token_batches(1, FLASH_CHECK_BATCH, seed=22, dev=dev)[0]
+    nets, losses = [], []
+    for use_flash in (True, False):
+        net = BertEncoderLM(FLASH_CHECK_LAYERS, use_flash, 0.0).initialize(
+            device=dev, seed=1)
+        step = bert_step(net, optimizer.create("sgd",
+                                               learning_rate=FLASH_CHECK_LR))
+        kernels.reset_launch_counts()
+        losses.append([float(step(x, y)) for _ in range(FLASH_CHECK_STEPS)])
+        n = FLASH_CHECK_LAYERS * FLASH_CHECK_STEPS if use_flash else 0
+        assert kernels.launch_counts() == dict(
+            dict.fromkeys(kernels.launch_counts(), 0), flash_fwd_lse=n,
+            flash_bwd_dq=n, flash_bwd_dkv=n), \
+            f"use_flash={use_flash}: {kernels.launch_counts()}"
+        nets.append(net)
+    planted = planted_no_delta(x, y, dev)
+    kernels.reset_launch_counts()
+    init = BertEncoderLM(FLASH_CHECK_LAYERS, True, 0.0).initialize(
+        device=dev, seed=1).collect_params()
+    rel = update_parting(init, *(n.collect_params() for n in nets))
+    held = {n: r for n, r in rel.items() if not n.endswith(FLASH_CHECK_SKIP)}
+    bad = update_parting(init, planted.collect_params(),
+                         nets[1].collect_params())
+    bad = {n: r for n, r in bad.items() if not n.endswith(FLASH_CHECK_SKIP)}
+    bad_worst = max(bad, key=bad.get)
+    order = sorted(held, key=held.get, reverse=True)
+    worst = order[0]
+    loss_rel = max(abs(p - q) / max(abs(q), 1e-6)
+                   for p, q in zip(*losses))
+    skipped = {n: f"{r:.3e}" for n, r in rel.items() if n not in held}
+    log(f"[bert float32] flash losses {losses[0]} SDPA {losses[1]} (max rel "
+        f"{loss_rel:.2e}, tol {FLASH_CHECK_LOSS_RTOL}); the update of each "
+        f"of {len(held)} weights against the SDPA one, |dA - dB| / |dB|: "
+        f"median {float(np.median(list(held.values()))):.3e}, largest "
+        f"{[(n, f'{held[n]:.3e}') for n in order[:5]]} (tol "
+        f"{FLASH_CHECK_UPDATE_RTOL}); left out (zero gradient in exact "
+        f"arithmetic): {skipped}")
+    log(f"[bert float32] planted fault, the flash backward without delta "
+        f"(must read over {FLASH_CHECK_UPDATE_RTOL}): median "
+        f"{float(np.median(list(bad.values()))):.3e}, worst "
+        f"{bad[bad_worst]:.3e} at {bad_worst}")
+    assert all(np.isfinite(losses[0])), "non-finite float32 loss"
+    assert loss_rel <= FLASH_CHECK_LOSS_RTOL, "flash and SDPA losses part"
+    assert held[worst] <= FLASH_CHECK_UPDATE_RTOL, \
+        f"flash and SDPA updates part at {worst}: {held[worst]:.3e}"
+    assert bad[bad_worst] > FLASH_CHECK_UPDATE_RTOL, \
+        "the update check passes a flash backward without delta"
+    return {"lr": FLASH_CHECK_LR, "flash_losses": losses[0],
+            "sdpa_losses": losses[1], "loss_max_rel": loss_rel,
+            "update_rel_median": float(np.median(list(held.values()))),
+            "update_rel_worst": held[worst], "worst_at": worst,
+            "update_rel": rel,
+            "planted_no_delta_median": float(np.median(list(bad.values()))),
+            "planted_no_delta_worst": bad[bad_worst]}
+
+
+def planted_no_delta(x, y, dev):
+    """The check's flash run with a planted fault: the backward kernels
+    given delta = 0 in place of rowsum(dO * o). Returns the net after
+    FLASH_CHECK_STEPS steps from the check's weights."""
+    net = BertEncoderLM(FLASH_CHECK_LAYERS, True, 0.0).initialize(
+        device=dev, seed=1)
+    step = bert_step(net, optimizer.create("sgd",
+                                           learning_rate=FLASH_CHECK_LR))
+    sound = attention._backward
+
+    def no_delta(q, k, v, do, lse, delta, causal, scale):
+        return sound(q, k, v, do, lse, torch.zeros_like(delta), causal,
+                     scale)
+    attention._backward = no_delta
+    try:
+        for _ in range(FLASH_CHECK_STEPS):
+            step(x, y)
+    finally:
+        attention._backward = sound
+    return net
+
+
+FLASH_REPLACES = {"flash_fwd": 279, "flash_fwd_lse": 313,
+                  "flash_bwd_dq": 366, "flash_bwd_dkv": 385}
+
+
+def flash_entries(variants, bert):
+    """The kernels' JSON entries for the transformer path."""
+    main = next(v for v in variants if "ms" in v["flash_fwd"])
+    entries = []
+    for name in FLASH_KERNELS:
+        r = main[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "incubator_mxnet_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": "incubator_mxnet_tpu/ops/pallas_attention.py:"
+                        f"{FLASH_REPLACES[name]}",
+            "launches": bert["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": f"(bh, T, d) = ({r['bh']}, {r['tq']}, {r['d']}) "
+                     f"{r['dtype']}, no mask (library: "
+                     f"F.scaled_dot_product_attention "
+                     f"{'forward' if name.startswith('flash_fwd') else 'backward (dq, dk, dv at once)'})",
+            "variants": [v[name] for v in variants]})
+    per_step = sum(main[n]["ms"] for n in FLASH_KERNELS[1:]) \
+        * BERT["layers"]
+    share = per_step / bert["step_ms"]
+    log(f"[bert] the flash kernels take about {per_step:.3f} ms of a "
+        f"{bert['step_ms']:.3f} ms step ({BERT['layers']} x (B6 + B7 + B8) "
+        f"from phase 6): {100 * share:.1f}%")
+    return entries, share
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every result to this JSON "
                     "file")
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler pass over 3 training steps")
+                    help="add a torch.profiler pass over 3 training steps "
+                         "of ResNet-50 and of BERT-base")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -787,6 +1314,8 @@ def main():
     result = phase_serve(card)
     train_kernels = phase_train_kernels(dev)
     train = phase_train(card, train_kernels["rows"], args.profile, dev)
+    flash = phase_flash_kernels(dev)
+    bert = phase_bert(card, args.profile, dev)
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -806,13 +1335,15 @@ def main():
     }
     entries, share = train_entries(train_kernels, train)
     train["kernel_share"] = share
+    fentries, bert["flash_share"] = flash_entries(flash, bert)
+    entries += fentries
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": [entry] + entries,
-                       "serve": result, "train": train}, f, indent=1,
-                      default=str)
+                       "serve": result, "train": train, "bert": bert}, f,
+                      indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [
         {k: v for k, v in e.items() if k != "variants"} for e in entries]}))

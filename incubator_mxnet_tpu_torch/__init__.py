@@ -16,11 +16,19 @@ Ported so far:
     momentum rule, `amp` bf16 autocast with the JAX package's op lists),
     whose fused tier runs on the CUDA kernels for the scale/shift/
     activation apply pass and the NHWC average pool's forward and
-    backward.
+    backward;
+  * transformer encoders and decoders (`gluon.nn.MultiHeadAttention`,
+    `TransformerEncoderCell`, `TransformerDecoderCell`,
+    `PositionalEmbedding`, `Embedding`, `LayerNorm`, `Dropout`), trained
+    through `FusedTrainStep` with `optimizer.Adam`/`AdamW`, whose flash
+    attention (`ops.attention.flash_attention`) runs on the CUDA kernels
+    for the forward, the forward with log-sum-exp and the backward's dq
+    and dk/dv sweeps.
 """
 from .base import MXNetError, get_env
 from .device import default_device, resolve_device
-from . import amp, initializer, ops, optimizer, gluon, serve
+from . import amp, initializer, ops, optimizer, random, gluon, serve
 
 __all__ = ["MXNetError", "get_env", "default_device", "resolve_device",
-           "amp", "initializer", "ops", "optimizer", "gluon", "serve"]
+           "amp", "initializer", "ops", "optimizer", "random", "gluon",
+           "serve"]

@@ -150,7 +150,9 @@ def params_from_jax(net, params_np):
     `{name: p.data().asnumpy() for name, p in net.collect_params().items()}`
     gives them. A 4-D convolution weight comes in HWIO (the JAX package's
     NHWC layout) and is stored as the port's (O, I, kh, kw); an NCHW net's
-    OIHW weight and every other value keep their layout. Unknown names,
+    OIHW weight and every other value keep their layout (a Dense weight
+    (units, in_units), an Embedding or PositionalEmbedding table, a
+    LayerNorm's gamma and beta). Unknown names,
     missing names and shape mismatches raise `MXNetError`."""
     own = net.collect_params()
     unknown = sorted(set(params_np) - set(own))

@@ -13,7 +13,9 @@ in place; there is nothing to donate (the JAX package donates its buffers
 to XLA to the same end), so the `donate` knob does not exist here, and
 `remat` other than None raises. With `steps_per_call=K` the call loops K
 steps over inputs with a leading K axis and returns the K losses; the
-learning rates are resolved once per call, as in the JAX package.
+learning rates are resolved once per call, as in the JAX package, and a
+rule that takes the step count (the Adam family) sees each inner step's
+own count.
 
 The net runs in training mode for the step (BatchNorm takes batch
 statistics and updates its running stats, as the JAX step's aux buffers
@@ -82,6 +84,10 @@ class FusedTrainStep:
                 opt._update_count(i)
         lrs = [opt._get_lr(i) for i in self._train_idx]
         wds = [opt._get_wd(i) for i in self._train_idx]
+        # t = the count at each inner step: the first one's, plus k
+        ts = ([opt._index_update_count[i] - self._K + 1
+               for i in self._train_idx]
+              if type(opt)._step_takes_t() else None)
         train = [params[i] for i in self._train_idx]
         staged = [self._stage(a) for a in inputs]
         losses, extras_k = [], []
@@ -106,8 +112,9 @@ class FusedTrainStep:
                         max=1.0)
                     grads = [g * scale.to(g.dtype) for g in grads]
                 for j, i in enumerate(self._train_idx):
+                    t = {} if ts is None else {"t": ts[j] + k}
                     opt.step_one(i, params[i], grads[j], self._states[j],
-                                 lrs[j], wds[j])
+                                 lrs[j], wds[j], **t)
                 losses.append(loss.detach())
                 extras_k.append(tuple(e.detach() for e in extras))
         finally:

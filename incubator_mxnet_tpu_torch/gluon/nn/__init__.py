@@ -1,9 +1,13 @@
-"""gluon.nn of the PyTorch port: the layers ResNet needs.
+"""gluon.nn of the PyTorch port: the layers ResNet and the transformer
+blocks need.
 
 Counterpart of `incubator_mxnet_tpu/gluon/nn/__init__.py`:
 `HybridSequential`, `Conv2D`, `BatchNorm` (with `fused_forward`),
 `BatchNormReLU`, `Activation`, `MaxPool2D`, `AvgPool2D`,
-`GlobalAvgPool2D`, `Dense` and `Flatten`. They route
+`GlobalAvgPool2D`, `Dense`, `Flatten`, `Dropout`, `LayerNorm` and
+`Embedding`, and from `transformer`: `MultiHeadAttention`,
+`TransformerEncoderCell`, `TransformerDecoderCell` and
+`PositionalEmbedding`. They route
 exactly as the JAX package's layers do: inside a fusion scope
 (`ops.fused.fusion_enabled()`, which `FusedTrainStep` enters) a Dense or
 Conv2D with bias and a fusable activation takes `fused.bias_act`, a
@@ -12,10 +16,12 @@ the NHWC input (GlobalAvgPool2D included) takes `fused.avg_pool2d`;
 otherwise the plain ops of `ops.nn`.
 
 Differences from the JAX package: channel counts are explicit
-(`in_channels`/`in_units`; there is no deferred init), and the fused
-BatchNorm is taken only when the channel axis is last (NHWC), since the
-apply kernel takes channels last; a channels-first BatchNorm stays on the
-plain op. A strided input to a fused op is copied to a contiguous one
+(`in_channels`/`in_units`; there is no deferred init), `Dropout` draws
+from the port's per-device generator (`random.generator`) while the
+block is in training mode, `Embedding` has no sparse gradient, and the
+fused BatchNorm is taken only when the channel axis is last (NHWC),
+since the apply kernel takes channels last; a channels-first BatchNorm
+stays on the plain op. A strided input to a fused op is copied to a contiguous one
 first and counted (`ops.fused.layout_copies()`): the kernels raise on
 strided views.
 """
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import random as _random
 from ...base import MXNetError
 from ...ops import fused as _fused
 from ...ops import nn as _ops
@@ -30,7 +37,9 @@ from ..block import HybridBlock
 
 __all__ = ["HybridSequential", "Conv2D", "BatchNorm", "BatchNormReLU",
            "Activation", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D",
-           "Dense", "Flatten"]
+           "Dense", "Flatten", "Dropout", "LayerNorm", "Embedding",
+           "MultiHeadAttention", "TransformerEncoderCell",
+           "TransformerDecoderCell", "PositionalEmbedding"]
 
 # activations a Dense/Conv2D may fuse: those both the kernel and the plain
 # `ops.nn.activation` take, so the block also runs with fusion off
@@ -101,6 +110,44 @@ class Dense(HybridBlock):
         if self._act_type:
             y = _ops.activation(y, self._act_type)
         return y
+
+
+class Dropout(HybridBlock):
+    """Dropout of rate `rate` in training mode, identity otherwise."""
+
+    def __init__(self, rate):
+        super().__init__()
+        self._rate = rate
+
+    def forward(self, x):
+        return _ops.dropout(x, self._rate, _random.generator(x.device),
+                            training=self.training)
+
+
+class LayerNorm(HybridBlock):
+    """Layer norm over the last axis (epsilon 1e-5), gamma (ones) and beta
+    (zeros) of `in_channels`."""
+
+    def __init__(self, in_channels=0):
+        super().__init__()
+        ch = _need(in_channels, "in_channels", "LayerNorm")
+        self._new_param("gamma", (ch,), "ones")
+        self._new_param("beta", (ch,), "zeros")
+
+    def forward(self, x):
+        return _ops.layer_norm(x, self.gamma, self.beta)
+
+
+class Embedding(HybridBlock):
+    """Rows of weight (input_dim, output_dim) by index, drawn by the
+    default initializer."""
+
+    def __init__(self, input_dim, output_dim):
+        super().__init__()
+        self._new_param("weight", (input_dim, output_dim))
+
+    def forward(self, x):
+        return _ops.embedding(x, self.weight)
 
 
 class Conv2D(HybridBlock):
@@ -304,3 +351,7 @@ class AvgPool2D(_Pool):
 class GlobalAvgPool2D(_Pool):
     def __init__(self, layout="NCHW"):
         super().__init__((1, 1), None, 0, True, "avg", layout)
+
+
+from .transformer import (MultiHeadAttention, TransformerEncoderCell,  # noqa: E402
+                          TransformerDecoderCell, PositionalEmbedding)

@@ -1,9 +1,9 @@
 """Weight initializers of the PyTorch port.
 
 Counterpart of `incubator_mxnet_tpu/initializer.py` for what the ported
-Gluon layers need: `Uniform` (the default, scale 0.07), `Zero` and
-`One`, resolved by `create` from an instance, a
-name or None. As in the JAX package, an initializer dispatches on the
+Gluon layers need: `Uniform` (the default, scale 0.07), `Normal` (sigma
+0.01, `PositionalEmbedding`'s), `Zero` and `One`, resolved by `create`
+from an instance, a name or None. As in the JAX package, an initializer dispatches on the
 parameter's name: `*gamma` and `*running_var` get ones, `*beta`, `*bias`
 and `*running_mean` get zeros, everything else its own draw.
 
@@ -18,7 +18,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Initializer", "Zero", "One", "Uniform", "create"]
+__all__ = ["Initializer", "Zero", "One", "Uniform", "Normal", "create"]
 
 _REGISTRY = {}
 
@@ -85,6 +85,18 @@ class Uniform(Initializer):
     def _init_weight(self, shape, generator):
         u = torch.rand(shape, generator=generator, dtype=torch.float32)
         return u * (2.0 * self.scale) - self.scale
+
+
+@register
+class Normal(Initializer):
+    """Normal with mean 0 and standard deviation `sigma`."""
+
+    def __init__(self, sigma=0.01):
+        self.sigma = sigma
+
+    def _init_weight(self, shape, generator):
+        return torch.randn(shape, generator=generator,
+                           dtype=torch.float32) * self.sigma
 
 
 def create(init):

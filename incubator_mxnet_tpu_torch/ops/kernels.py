@@ -11,8 +11,9 @@ Each wrapper takes CUDA tensors only, checks device, dtype, shape and
 layout, launches on PyTorch's current stream without synchronising, raises
 when the launch is refused, and adds one to its launch counter (see
 `launch_counts()`). The plain PyTorch versions live beside the
-dispatchers in `ops/fused.py`; no wrapper ever falls back to them, and no
-wrapper copies a tensor into the layout its kernel takes: it raises.
+dispatchers in `ops/fused.py` and `ops/attention.py`; no wrapper ever
+falls back to them, and no wrapper copies a tensor into the layout its
+kernel takes: it raises.
 """
 from __future__ import annotations
 
@@ -29,13 +30,15 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
-           "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "ACT_CODES",
+           "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "flash_fwd_cuda",
+           "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "ACT_CODES",
            "reset_launch_counts", "launch_counts"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
-_SOURCES = ("paged_attention", "scale_shift_act", "avg_pool2d")
+_SOURCES = ("paged_attention", "scale_shift_act", "avg_pool2d",
+            "flash_attention")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,22 +52,36 @@ paged_attention_launches = 0
 scale_shift_act_launches = 0
 avg_pool2d_fwd_launches = 0
 avg_pool2d_bwd_launches = 0
+flash_fwd_launches = 0
+flash_fwd_lse_launches = 0
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 
 
 def reset_launch_counts():
     global paged_attention_launches, scale_shift_act_launches, \
-        avg_pool2d_fwd_launches, avg_pool2d_bwd_launches
+        avg_pool2d_fwd_launches, avg_pool2d_bwd_launches, \
+        flash_fwd_launches, flash_fwd_lse_launches, flash_bwd_dq_launches, \
+        flash_bwd_dkv_launches
     paged_attention_launches = 0
     scale_shift_act_launches = 0
     avg_pool2d_fwd_launches = 0
     avg_pool2d_bwd_launches = 0
+    flash_fwd_launches = 0
+    flash_fwd_lse_launches = 0
+    flash_bwd_dq_launches = 0
+    flash_bwd_dkv_launches = 0
 
 
 def launch_counts():
     return {"paged_attention": paged_attention_launches,
             "scale_shift_act": scale_shift_act_launches,
             "avg_pool2d_fwd": avg_pool2d_fwd_launches,
-            "avg_pool2d_bwd": avg_pool2d_bwd_launches}
+            "avg_pool2d_bwd": avg_pool2d_bwd_launches,
+            "flash_fwd": flash_fwd_launches,
+            "flash_fwd_lse": flash_fwd_lse_launches,
+            "flash_bwd_dq": flash_bwd_dq_launches,
+            "flash_bwd_dkv": flash_bwd_dkv_launches}
 
 
 def _nvcc():
@@ -150,6 +167,17 @@ def _load(name):
                 lib.mx_avg_pool2d_bwd.argtypes = (
                     [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+            elif name == "flash_attention":
+                tail = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+                lib.mx_flash_fwd.restype = ctypes.c_int
+                lib.mx_flash_fwd.argtypes = (
+                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + tail)
+                lib.mx_flash_bwd_dq.restype = ctypes.c_int
+                lib.mx_flash_bwd_dq.argtypes = (
+                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + tail)
+                lib.mx_flash_bwd_dkv.restype = ctypes.c_int
+                lib.mx_flash_bwd_dkv.argtypes = (
+                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + tail)
             lib.mx_cuda_error_string.restype = ctypes.c_char_p
             lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
             _LIBS[name] = lib
@@ -371,3 +399,131 @@ def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
         raise _launch_failed(lib, "avg_pool2d_bwd", rc)
     avg_pool2d_bwd_launches += 1
     return dx
+
+
+_FLASH_HEAD_DIMS = (32, 64, 128)
+
+
+def _flash_check(name, q, k, v, extra=()):
+    """Checks shared by the flash wrappers: q (bh, tq, d), k and v
+    (bh, tk, d), one dtype (float32 or bfloat16), d in (32, 64, 128),
+    every tensor contiguous and on one card. `extra` are further operands
+    of q's shape and dtype (dO). Returns (bh, tq, tk, d)."""
+    _check_cuda(name, (q, k, v) + tuple(extra))
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise MXNetError(f"{name}: q, k, v must be (bh, T, d); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    bh, tq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
+        raise MXNetError(f"{name}: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not serve q {tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise MXNetError(f"{name}: q, k, v must share one dtype, float32 or "
+                         f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if d not in _FLASH_HEAD_DIMS:
+        raise MXNetError(f"{name}: head_dim {d} not in {_FLASH_HEAD_DIMS}")
+    if bh > 65535:
+        raise MXNetError(f"{name}: bh {bh} exceeds 65535")
+    for t in extra:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise MXNetError(f"{name}: dO must match q in shape and dtype")
+    if not all(t.is_contiguous() for t in (q, k, v) + tuple(extra)):
+        raise MXNetError(f"{name}: q, k, v and dO must be contiguous")
+    return bh, tq, k.shape[1], d
+
+
+def _row_stat(name, t, bh, tq, what):
+    if (t.dtype != torch.float32 or t.shape != (bh, tq, 1)
+            or not t.is_contiguous()):
+        raise MXNetError(f"{name}: {what} must be a contiguous ({bh}, {tq}, "
+                         f"1) float32 tensor; got {tuple(t.shape)} {t.dtype}")
+
+
+def flash_fwd_cuda(q, k, v, causal, scale, with_lse):
+    """Launch the flash-attention forward (`csrc/flash_attention.cu`):
+    softmax(q k^T * scale, end-aligned causal mask when `causal`) v over
+    (bh, T, d), f32 inside, in q's dtype; a row with no live key gives 0.
+    With `with_lse` also the per-row log-sum-exp, (bh, tq, 1) float32,
+    -1e30 on rows with no live key. Returns o, or (o, lse). Raises
+    `MXNetError` on any input the kernel does not take."""
+    global flash_fwd_launches, flash_fwd_lse_launches
+    name = "flash_fwd_cuda"
+    bh, tq, tk, d = _flash_check(name, q, k, v)
+    o = torch.empty_like(q)
+    lse = q.new_empty((bh, tq, 1), dtype=torch.float32) if with_lse else None
+    if o.numel() == 0:
+        return (o, lse) if with_lse else o
+    _check_aligned(name, (q, k, v, o))
+    lib = _load("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.mx_flash_fwd(
+        _DTYPE_CODES[q.dtype], q.device.index or 0, d, int(with_lse),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if with_lse else None, bh, tq, tk, int(causal),
+        float(scale), stream)
+    if rc != 0:
+        raise _launch_failed(lib, "flash_fwd", rc)
+    if with_lse:
+        flash_fwd_lse_launches += 1
+        return o, lse
+    flash_fwd_launches += 1
+    return o
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
+    """Launch the flash backward's dq sweep (`csrc/flash_attention.cu`):
+    dq = scale * sum_k p * (dO v^T - delta) k with p = exp(s - lse), zero
+    on masked keys and on rows whose lse is the -1e30 sentinel. `lse` and
+    `delta` (rowsum(dO * o)) are (bh, tq, 1) float32. Returns dq in q's
+    dtype."""
+    global flash_bwd_dq_launches
+    name = "flash_bwd_dq_cuda"
+    _check_cuda(name, (lse, delta))
+    bh, tq, tk, d = _flash_check(name, q, k, v, (do,))
+    _row_stat(name, lse, bh, tq, "lse")
+    _row_stat(name, delta, bh, tq, "delta")
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    _check_aligned(name, (q, k, v, do, dq))
+    lib = _load("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.mx_flash_bwd_dq(
+        _DTYPE_CODES[q.dtype], q.device.index or 0, d, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), bh, tq, tk, int(causal),
+        float(scale), stream)
+    if rc != 0:
+        raise _launch_failed(lib, "flash_bwd_dq", rc)
+    flash_bwd_dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
+    """Launch the flash backward's dk/dv sweep (`csrc/flash_attention.cu`):
+    dv = sum_q p^T dO and dk = scale * sum_q ds^T q, with the dq sweep's p,
+    ds, sentinel and mask rules. Returns (dk, dv) in k's dtype."""
+    global flash_bwd_dkv_launches
+    name = "flash_bwd_dkv_cuda"
+    _check_cuda(name, (lse, delta))
+    bh, tq, tk, d = _flash_check(name, q, k, v, (do,))
+    _row_stat(name, lse, bh, tq, "lse")
+    _row_stat(name, delta, bh, tq, "delta")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    _check_aligned(name, (q, k, v, do, dk, dv))
+    lib = _load("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.mx_flash_bwd_dkv(
+        _DTYPE_CODES[q.dtype], q.device.index or 0, d, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq, tk,
+        int(causal), float(scale), stream)
+    if rc != 0:
+        raise _launch_failed(lib, "flash_bwd_dkv", rc)
+    flash_bwd_dkv_launches += 1
+    return dk, dv

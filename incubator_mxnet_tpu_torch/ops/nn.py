@@ -1,11 +1,13 @@
 """Neural-network ops of the PyTorch port, in plain torch.
 
-Counterpart of `incubator_mxnet_tpu/ops/nn.py` for what ResNet training
-needs: convolution, fully_connected, the unfused batch_norm, pooling,
-activation, relu, log_softmax and pick, plus the elementwise `add` and
-the reductions the Gluon layers call. The JAX package leaves these to XLA
-outside any Pallas kernel, so the port leaves them to PyTorch (cuDNN and
-cuBLAS on the card).
+Counterpart of `incubator_mxnet_tpu/ops/nn.py` for what ResNet and
+transformer training need: convolution, fully_connected, the unfused
+batch_norm, layer_norm, pooling, activation, relu, gelu, softmax,
+log_softmax, pick, embedding, dropout and scaled_dot_product_attention,
+plus the elementwise `add`, the reductions and the reshapes the Gluon
+layers call. The JAX package leaves these to XLA outside any Pallas
+kernel, so the port leaves them to PyTorch (cuDNN and cuBLAS on the
+card).
 
 Layouts follow the JAX package at the public functions: NHWC (or NCHW)
 activations, channels-minor for the fused tier. One difference: the port
@@ -16,8 +18,11 @@ transpose), where the JAX package keeps HWIO for NHWC;
 
 Under AMP each op casts its float inputs on entry as the JAX package's
 dispatch does (`amp.cast_inputs`, by op name and class): convolution,
-fully_connected, pooling, activation, relu and add run in the target
-dtype; batch_norm, log_softmax, sum and mean in float32; pick as given.
+fully_connected, scaled_dot_product_attention, pooling, activation,
+relu, add, reshape and transpose run in the target dtype; batch_norm,
+layer_norm, softmax, log_softmax, sum and mean in float32; pick,
+embedding, gelu and dropout as given (no list names them and the JAX
+package registers no class for them, so their inputs keep their dtypes).
 """
 from __future__ import annotations
 
@@ -29,9 +34,10 @@ import torch.nn.functional as F
 from .. import amp
 from ..base import MXNetError
 
-__all__ = ["convolution", "fully_connected", "batch_norm", "pooling",
-           "activation", "relu", "log_softmax", "pick", "add", "multiply",
-           "sum", "mean", "reshape"]
+__all__ = ["convolution", "fully_connected", "batch_norm", "layer_norm",
+           "pooling", "activation", "relu", "gelu", "softmax", "log_softmax",
+           "pick", "embedding", "dropout", "scaled_dot_product_attention",
+           "add", "multiply", "sum", "mean", "reshape", "transpose"]
 
 
 def _pair(v):
@@ -119,6 +125,16 @@ def batch_norm(x, gamma, beta, running_mean, running_var, momentum=0.9,
     return out.to(x.dtype), new_rm, new_rv
 
 
+def layer_norm(x, gamma, beta):
+    """Normalize over the last axis in float32 (population variance,
+    epsilon 1e-5), then the float32 affine; the result in x's dtype
+    (float32 under AMP)."""
+    x, gamma, beta = amp.cast_inputs("layer_norm", "unsafe", x, gamma, beta)
+    out = F.layer_norm(x.float(), (x.shape[-1],), gamma.float(),
+                       beta.float(), 1e-5)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # pooling
 # ---------------------------------------------------------------------------
@@ -204,6 +220,17 @@ def relu(x):
     return torch.relu(x)
 
 
+def gelu(x):
+    """The exact (erf) GELU."""
+    (x,) = amp.cast_inputs("gelu", "neutral", x)
+    return F.gelu(x)
+
+
+def softmax(x, axis=-1):
+    (x,) = amp.cast_inputs("softmax", "unsafe", x)
+    return torch.softmax(x, dim=axis)
+
+
 def log_softmax(x, axis=-1):
     (x,) = amp.cast_inputs("log_softmax", "unsafe", x)
     return torch.log_softmax(x, dim=axis)
@@ -217,6 +244,52 @@ def pick(x, index, axis=-1, keepdims=False):
         0, x.shape[axis] - 1)
     picked = torch.gather(x, axis, idx.unsqueeze(axis))
     return picked if keepdims else picked.squeeze(axis)
+
+
+def embedding(indices, weight):
+    """Rows of `weight` (input_dim, output_dim) gathered by `indices`."""
+    (weight,) = amp.cast_inputs("embedding", "neutral", weight)
+    return F.embedding(indices.to(device=weight.device, dtype=torch.int64),
+                       weight)
+
+
+def dropout(x, rate, generator, training=True):
+    """Zero each element with probability `rate` and scale the kept ones
+    by 1/(1 - rate), drawing the mask from `generator` (a
+    `torch.Generator` on x's device). Identity when not training or
+    rate <= 0."""
+    (x,) = amp.cast_inputs("dropout", "neutral", x)
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (the composition MultiHeadAttention takes with a mask or without
+# flash; the JAX package leaves it to XLA)
+# ---------------------------------------------------------------------------
+def scaled_dot_product_attention(q, k, v, mask=None, causal=False):
+    """q, k, v (..., T, d): the product q k^T in the inputs' dtype, times
+    1/sqrt(d) in float32 (the JAX package's scale is a float64 numpy
+    scalar, which promotes), masked to -1e30 (end-aligned causal, then
+    `mask`, True = keep), softmax in float32 cast back to q's dtype, times
+    v."""
+    q, k, v = amp.cast_inputs("scaled_dot_product_attention", "safe", q, k,
+                              v)
+    logits = torch.matmul(q, k.transpose(-1, -2)).float() * (
+        1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        tq, tk = logits.shape[-2:]
+        cm = torch.ones((tq, tk), dtype=torch.bool,
+                        device=logits.device).tril(tk - tq)
+        logits = logits.masked_fill(~cm, -1e30)
+    if mask is not None:
+        logits = logits.masked_fill(~mask.to(device=logits.device,
+                                             dtype=torch.bool), -1e30)
+    w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.matmul(w, v)
 
 
 # ---------------------------------------------------------------------------
@@ -250,3 +323,8 @@ def mean(x, axis=None, keepdims=False):
 def reshape(x, shape):
     (x,) = amp.cast_inputs("reshape", "neutral", x)
     return x.reshape(shape)
+
+
+def transpose(x, axes):
+    (x,) = amp.cast_inputs("transpose", "neutral", x)
+    return x.permute(axes)

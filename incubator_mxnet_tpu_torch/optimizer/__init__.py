@@ -1,4 +1,5 @@
-"""Optimizers of the PyTorch port: the base `Optimizer` and `SGD`.
+"""Optimizers of the PyTorch port: the base `Optimizer`, `SGD`, `Adam` and
+`AdamW`.
 
 Counterpart of `incubator_mxnet_tpu/optimizer/__init__.py`. The base keeps
 the JAX package's plumbing: `learning_rate`, `wd`, `rescale_grad`,
@@ -11,16 +12,28 @@ the per-index update counts. `SGD` follows MXNet's rule, which is not
     mom = momentum * mom - lr * g            (with momentum)
     w   = w + mom                            (w - lr * g without)
 
+`Adam` and `AdamW` follow MXNet's rule too (`optimizer/__init__.py:710-781`
+of the JAX package), with step count t per parameter:
+
+    lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)
+    g    = clip(rescale_grad * grad) (+ wd * w for Adam)
+    m    = beta1 * m + (1 - beta1) * g
+    v    = beta2 * v + (1 - beta2) * g^2
+    w    = w - lr_t * m / (sqrt(v) + epsilon) (- lr * wd * w for AdamW:
+           decoupled decay at the base rate)
+
 Updates are in place on the weight and state tensors (the JAX package
 donates the buffers to the same effect).
 """
 from __future__ import annotations
 
+import inspect
+
 import torch
 
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "SGD", "register", "create"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "register", "create"]
 
 _REGISTRY = {}
 
@@ -101,6 +114,11 @@ class Optimizer:
     def step_one(self, index, weight, grad, state, lr, wd):
         raise NotImplementedError
 
+    @classmethod
+    def _step_takes_t(cls):
+        """Does `step_one` take the step count `t` (the Adam family)?"""
+        return "t" in inspect.signature(cls.step_one).parameters
+
 
 @register
 class SGD(Optimizer):
@@ -123,3 +141,49 @@ class SGD(Optimizer):
             weight.add_(state)
         else:
             weight.sub_(lr * g)
+
+
+class _AdamBase(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight, requires_grad=False),
+                torch.zeros_like(weight, requires_grad=False))
+
+    def _moments(self, index, g, state, lr, t):
+        """Update the moments in place; returns (lr_t, m, v)."""
+        mean, var = state
+        if t is None:
+            t = self._index_update_count[index]
+        lr_t = lr * (1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t)
+        mean.mul_(self.beta1).add_((1 - self.beta1) * g)
+        var.mul_(self.beta2).add_((1 - self.beta2) * g * g)
+        return lr_t, mean, var
+
+
+@register
+class Adam(_AdamBase):
+    """Adam with MXNet's rule: weight decay is added to the gradient."""
+
+    @torch.no_grad()
+    def step_one(self, index, weight, grad, state, lr, wd, t=None):
+        g = self._preprocess(grad) + wd * weight
+        lr_t, m, v = self._moments(index, g, state, lr, t)
+        weight.sub_(lr_t * m / (v.sqrt() + self.epsilon))
+
+
+@register
+class AdamW(_AdamBase):
+    """Adam with decoupled weight decay (lr * wd * w, at the base rate)."""
+
+    @torch.no_grad()
+    def step_one(self, index, weight, grad, state, lr, wd, t=None):
+        decay = (lr * wd) * weight
+        lr_t, m, v = self._moments(index, self._preprocess(grad), state, lr,
+                                   t)
+        weight.sub_(lr_t * m / (v.sqrt() + self.epsilon)).sub_(decay)

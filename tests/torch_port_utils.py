@@ -129,3 +129,79 @@ def assert_values_close(got, want, rtol, atol, what=""):
     for name in want:
         np.testing.assert_allclose(got[name], want[name], rtol=rtol,
                                    atol=atol, err_msg=f"{what} {name}")
+
+
+# ---------------------------------------------------------------------------
+# Transformer blocks: the same numpy values in a JAX block and a port block
+# ---------------------------------------------------------------------------
+TRANSFORMER = dict(units=32, heads=4, hidden=64, seq=16, vocab=50)
+
+
+def _transformer_value(name, shape, rng):
+    """Varied LayerNorm affines and biases (not the ones/zeros init), and
+    weights scaled by 1/sqrt(fan-in), so every term of the gradient
+    counts."""
+    if name.endswith("gamma"):
+        return 1.0 + 0.2 * rng.randn(*shape)
+    if name.endswith("beta") or name.endswith("bias"):
+        return 0.1 * rng.randn(*shape)
+    return rng.randn(*shape) / np.sqrt(shape[-1])
+
+
+def carry_values(jblk, tblk, seed=0):
+    """Give the initialized JAX block numpy values made from `seed` and
+    carry them into the port block with `gluon.params_from_jax`."""
+    import incubator_mxnet_tpu as mx
+    from incubator_mxnet_tpu_torch import gluon as tgluon
+    rng = np.random.RandomState(seed)
+    values = {}
+    for name, p in sorted(jblk.collect_params().items()):
+        v = _transformer_value(name, p.shape, rng).astype(np.float32)
+        p.set_data(mx.np.array(v))
+        values[name] = v
+    tgluon.params_from_jax(tblk, values)
+    return values
+
+
+def encoder_lm_pair(layers=2, use_flash=True, seed=0, cfg=TRANSFORMER):
+    """(JAX net, port net on the CPU): token embedding, positional
+    embedding, `layers` pre-norm encoder cells (gelu, dropout 0), a final
+    LayerNorm and a Dense head over the vocabulary — BERT's layout at a
+    small width — holding the same values."""
+    from incubator_mxnet_tpu import gluon as jgluon
+    from incubator_mxnet_tpu_torch import gluon as tgluon
+
+    def build(gluon, seq_add):
+        nn = gluon.nn
+        u, V = cfg["units"], cfg["vocab"]
+
+        class EncoderLM(gluon.HybridBlock):
+            def __init__(self):
+                super().__init__()
+                self.emb = nn.Embedding(V, u)
+                self.pos = nn.PositionalEmbedding(cfg["seq"], u)
+                self.cells = nn.HybridSequential()
+                seq_add(self.cells, [nn.TransformerEncoderCell(
+                    u, cfg["hidden"], cfg["heads"], dropout=0.0,
+                    use_flash=use_flash) for _ in range(layers)])
+                self.ln = nn.LayerNorm(in_channels=u)
+                self.head = nn.Dense(V, flatten=False, in_units=u)
+
+            def forward(self, x):
+                return self.head(self.ln(self.cells(self.pos(self.emb(x)))))
+        return EncoderLM()
+
+    jnet = build(jgluon, lambda s, cells: [s.add(c) for c in cells])
+    jnet.initialize()
+    tnet = build(tgluon, lambda s, cells: s.add(*cells)).initialize(
+        device="cpu")
+    carry_values(jnet, tnet, seed)
+    return jnet, tnet
+
+
+def token_batch(seed=1, batch=2, cfg=TRANSFORMER):
+    """(token ids, labels), (batch, seq) int32 from numpy."""
+    rng = np.random.RandomState(seed)
+    shape = (batch, cfg["seq"])
+    return (rng.randint(0, cfg["vocab"], size=shape).astype(np.int32),
+            rng.randint(0, cfg["vocab"], size=shape).astype(np.int32))
