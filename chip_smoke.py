@@ -67,6 +67,33 @@ Each phase fails the run (non-zero exit) on any error:
      to its own norm, must agree, and the same check must refuse a run
      whose flash backward drops delta.
 
+  8. B4's int8 variant and mixed types against the plain version on the
+     card at phase 9's shapes (16 lanes over 21 pool rows, 12 layers, 12
+     heads x 64, 2048 positions, a non-zero layer, ragged lengths with 0
+     and T - C): q float32 and bfloat16 over int8 (codes and scales from
+     the engine's quantizer), bfloat16 and float32 slabs, C in (1, 4 =
+     the speculative verify at draft 3, 256 = the chunk), each also on a
+     slab and scale view cut on the position axis; float32 outputs within
+     phase 2's limit, bfloat16 ones within phase 6's limits relative to
+     their size. The check must refuse a planted fault each run: the
+     kernel fed scales one position off. Then, for bf16 q over int8 at
+     each C, the kernel's time against its bound, the plain version's
+     time and SDPA's over the prefix dequantized to bf16 beforehand.
+  9. the full decode engine at full width: phase 3's model in bfloat16
+     behind `ContinuousEngine(kv_dtype="int8", draft_tokens=3,
+     prefix_cache_slots=4, prefix_block=64, max_slots=16,
+     prefill_window=256, decode_steps=4)`: one request of a 512-token
+     system prefix + 16 tokens (it publishes the prefix), then 15 that
+     share the prefix (suffixes of 16-400 tokens) together, then 8 of
+     their own (16-1500 tokens); every other request sampled
+     (temperature 0.8, top_k 50, top_p 0.95, seed = its index), 64 new
+     tokens each. It must show 15 prefix hits, exactly layers x
+     (decode_steps x decode waves + chunk waves) int8 launches and no
+     float one. Then the same run in float32 with TF32 off: every reply
+     must equal the 1-slot `reference_generate` with the same knobs (the
+     hits at `cached_prefix_len=512`), and every greedy reply the
+     `draft_tokens=0` reference.
+
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`. Without a
 card the script exits non-zero and prints no result. It imports nothing of
@@ -135,20 +162,27 @@ def median_ms(fn, reps, warmup=2):
 # ---------------------------------------------------------------------------
 # phase 2: paged attention against its plain version
 # ---------------------------------------------------------------------------
-def attention_bound(lens, C, T, H, D, dtype):
+def attention_bound(lens, C, T, H, D, dtype, kv_dtype=None):
     """Least time (ms) for the work: bytes moved (q read, out written,
-    lengths read, each lane's live K/V read once) over the memory rate,
-    against the multiply-adds this data needs over the peak for the type."""
+    lengths read, each lane's live K/V read once, and their f32 scales on
+    an int8 slab) over the memory rate, against the multiply-adds this
+    data needs over the peak for the type: q's, or the slab's where that
+    is slower (f32)."""
+    kv_dtype = kv_dtype or dtype
     item = torch.empty((), dtype=dtype).element_size()
+    kv_item = torch.empty((), dtype=kv_dtype).element_size()
     S = len(lens)
     live = sum(min(T, int(n) + C) for n in lens)
-    nbytes = 2 * S * C * H * D * item + 4 * S + live * H * D * 2 * item
+    nbytes = 2 * S * C * H * D * item + 4 * S + live * H * D * 2 * kv_item
+    if kv_dtype == torch.int8:
+        nbytes += live * 2 * 4
     # query j of lane s attends over min(T, len + j + 1) positions, and
     # each position costs 2 * D multiply-adds (q.k and p.v), 2 ops each
     ops = sum(min(T, int(n) + j + 1) for n in lens for j in range(C)) \
         * H * D * 4
+    peak = min(PEAK_OPS[dtype], PEAK_OPS.get(kv_dtype, PEAK_OPS[dtype]))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -1254,6 +1288,296 @@ def planted_no_delta(x, y, dev):
     return net
 
 
+# ---------------------------------------------------------------------------
+# phase 8: B4's int8 variant and mixed types against the plain version
+# ---------------------------------------------------------------------------
+CACHE_SLOTS = 4                           # phase 9's prefix-cache rows
+INT8_CS = (1, 4, WINDOW)                  # decode, verify (draft 3), chunk
+
+
+def paged_err(out, ref):
+    """(max abs error, ok, readings): a float32 output must lie within
+    TOL[float32] of the plain version everywhere (phase 2's limit); a
+    bfloat16 one within phase 6's two limits relative to its own size."""
+    if out.dtype == torch.float32:
+        err = (out - ref).abs().max().item()
+        return err, err <= TOL[torch.float32], {}
+    return _flash_err(out, ref, out.dtype)
+
+
+def shifted_scales(scale):
+    """A view of `scale`'s shape whose position t holds scale[t - 1]:
+    what a kernel reading the scales one position off would see."""
+    pad = torch.zeros(scale.shape[:2] + (scale.shape[2] + 1,),
+                      dtype=scale.dtype, device=scale.device)
+    pad[:, :, 1:] = scale
+    return pad[:, :, :scale.shape[2]]
+
+
+def phase_int8_kernels(dev):
+    """B4 on int8 slabs (codes and scales made by the engine's own
+    quantizer from random K/V) and on mixed q/slab float types, at the
+    serving shapes of phase 9: 16 lanes over 21 pool rows, 12 layers, 12
+    heads x 64, 2048 positions, a non-zero layer, ragged lengths with 0
+    and T - C, C in (1, 4, 256), and a view cut on the position axis."""
+    from incubator_mxnet_tpu_torch.serve.continuous import _quantize_kv
+    S, H, D, T, L = SLOTS, FULL["heads"], FULL["head_dim"], \
+        FULL["max_len"], FULL["layers"]
+    rows = SLOTS + CACHE_SLOTS + 1
+    gen = torch.Generator(device=dev).manual_seed(8)
+    shape = (rows, L, T, H, D)
+    k32 = torch.randn(shape, generator=gen, device=dev)
+    v32 = torch.randn(shape, generator=gen, device=dev)
+    slabs = {torch.float32: (k32, v32, None, None)}
+    slabs[torch.bfloat16] = (k32.bfloat16(), v32.bfloat16(), None, None)
+    kc, ks = _quantize_kv(k32)
+    vc, vs = _quantize_kv(v32)
+    slabs[torch.int8] = (kc, vc, ks, vs)
+    rng = np.random.RandomState(8)
+    layer = min(7, L - 1)           # a non-zero layer
+    variants = []
+    for C in INT8_CS:
+        lens_np = np.concatenate([[0, 1, 255, 1000, T - C],
+                                  rng.randint(0, T - C, S - 5)]) \
+            .astype(np.int32)
+        lens = torch.as_tensor(lens_np, device=dev)
+        ext = 1280
+        lens_e = torch.clamp(lens, max=ext - C)
+        for q_dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((S, C, H, D), generator=gen,
+                            device=dev).to(q_dtype)
+            for kv_dtype, (k, v, ksc, vsc) in slabs.items():
+                sc = dict(k_scale=ksc, v_scale=vsc)
+                out = kernels.paged_attention_cuda(q, k, v, lens, layer,
+                                                   **sc)
+                ref = fused.paged_attention_ref(q, k, v, lens, layer, **sc)
+                cut = {n: t[:, :, :ext] if t is not None else None
+                       for n, t in sc.items()}
+                out_v = kernels.paged_attention_cuda(
+                    q, k[:, :, :ext], v[:, :, :ext], lens_e, layer, **cut)
+                ref_v = fused.paged_attention_ref(
+                    q, k[:, :, :ext], v[:, :, :ext], lens_e, layer, **cut)
+                torch.cuda.synchronize()
+                assert torch.isfinite(out.float()).all(), "non-finite output"
+                err, ok, read = paged_err(out, ref)
+                err_v, ok_v, read_v = paged_err(out_v, ref_v)
+                name = (f"q {_dtype_name(q_dtype)} slab "
+                        f"{_dtype_name(kv_dtype)} C={C}")
+                log(f"[int8] paged_attention {name}: max_abs_err {err:.3e} "
+                    f"{read} (view {err_v:.3e} {read_v})")
+                assert ok and ok_v, \
+                    f"paged_attention {name} disagrees with its plain version"
+                rec = {"q_dtype": _dtype_name(q_dtype),
+                       "kv_dtype": _dtype_name(kv_dtype), "C": C,
+                       "max_abs_err": err, **read}
+                if kv_dtype == torch.int8:
+                    # planted fault: the kernel fed scales one position off
+                    bad = kernels.paged_attention_cuda(
+                        q, k, v, lens, layer, k_scale=shifted_scales(ksc),
+                        v_scale=shifted_scales(vsc))
+                    torch.cuda.synchronize()
+                    b_err, b_ok, b_read = paged_err(bad, ref)
+                    log(f"[int8] planted fault (scales one position off) "
+                        f"{name}: max_abs_err {b_err:.3e} {b_read}: "
+                        f"{'ACCEPTED' if b_ok else 'refused'}")
+                    assert not b_ok, "the check accepted shifted scales"
+                    rec["planted_max_abs_err"] = b_err
+                    rec["planted"] = b_read
+                if kv_dtype == torch.int8 and q_dtype == torch.bfloat16:
+                    rec.update(time_int8(q, k, v, ksc, vsc, lens, lens_np,
+                                         layer))
+                    log(f"[int8] paged_attention {name}: {rec['ms']:.4f} "
+                        f"ms, bound {rec['bound_ms']:.4f} ms "
+                        f"({rec['bound_by']}), plain {rec['plain_ms']:.4f} "
+                        f"ms, sdpa over the dequantized bf16 prefix "
+                        f"{rec['library_ms']:.4f} ms (dequant not timed)")
+                variants.append(rec)
+    del slabs, k32, v32, kc, vc
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()   # comparison launches do not count
+    return variants
+
+
+def time_int8(q, k, v, ks, vs, lens, lens_np, layer):
+    """Kernel, plain and library times of one int8 read, rotating over
+    the layers as the engine's layer loop does; the library call is SDPA
+    over the lanes' prefix dequantized and gathered into bf16 beforehand
+    (the dequant is not in its time)."""
+    S, C, H, D = q.shape
+    T, L = k.shape[2], k.shape[1]
+    ms = median_ms(lambda i: kernels.paged_attention_cuda(
+        q, k, v, lens, i % L, k_scale=ks, v_scale=vs), reps=24)
+    plain_ms = median_ms(lambda i: fused.paged_attention_ref(
+        q, k, v, lens, i % L, k_scale=ks, v_scale=vs), reps=5, warmup=1)
+    deq_k = (k[:, layer:layer + 1].float()
+             * ks[:, layer:layer + 1, :, None, None]).bfloat16()
+    deq_v = (v[:, layer:layer + 1].float()
+             * vs[:, layer:layer + 1, :, None, None]).bfloat16()
+    lib_fn, _ = library_call(q, deq_k, deq_v, lens, 0)
+    lib_ms = median_ms(lib_fn, reps=24)
+    del deq_k, deq_v
+    bound_ms, bound_by = attention_bound(lens_np, C, T, H, D, q.dtype,
+                                         torch.int8)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the full decode engine at full width
+# ---------------------------------------------------------------------------
+SYSTEM_LEN, PREFIX_BLOCK, DRAFT = 512, 64, 3
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def engine_traffic():
+    """(prompt, sampling kwargs, cached prefix length) of each request:
+    one 512-token system prefix + 16 tokens (published), then 15 prompts
+    sharing that prefix with suffixes of 16-400 tokens, then 8 prompts of
+    their own of 16-1500 tokens; every other request sampled with seed =
+    its index."""
+    rng = np.random.RandomState(9)
+    vocab = FULL["vocab"]
+    system = rng.randint(1, vocab, SYSTEM_LEN).tolist()
+    prompts = [system + rng.randint(1, vocab, 16).tolist()]
+    for n in np.linspace(16, 400, 15).astype(int):
+        prompts.append(system + rng.randint(1, vocab, int(n)).tolist())
+    for n in np.linspace(16, 1500, 8).astype(int):
+        prompts.append(rng.randint(1, vocab, int(n)).tolist())
+    out = []
+    for i, p in enumerate(prompts):
+        samp = dict(SAMPLED, seed=i) if i % 2 else {}
+        out.append((p, samp, SYSTEM_LEN if 1 <= i <= 15 else 0))
+    return out
+
+
+def engine_run(dtype, traffic):
+    cfg = serve.DecoderConfig(**FULL, dtype=dtype)
+    model = serve.CachedDecoder(cfg, seed=0)
+    eng = serve.ContinuousEngine(
+        model, max_slots=SLOTS, prefill_window=WINDOW,
+        decode_steps=DECODE_STEPS, kv_dtype="int8",
+        prefix_cache_slots=CACHE_SLOTS, prefix_block=PREFIX_BLOCK,
+        draft_tokens=DRAFT)
+    eng.start()
+    log(f"[engine {dtype}] warmup {eng.warmup_s:.3f} s")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [eng.generate(traffic[0][0], NEW_TOKENS, timeout=300,
+                         **traffic[0][1])]
+    for group in (traffic[1:16], traffic[16:]):
+        futs = [eng.submit(p, NEW_TOKENS, **samp) for p, samp, _ in group]
+        outs += [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    st = eng.stats()
+    eng.close()
+    for (p, _, _), o in zip(traffic, outs):
+        assert o.dtype == np.int32 and o.shape == (NEW_TOKENS,), \
+            f"prompt of {len(p)} tokens gave {o.shape} tokens"
+        assert ((o >= 0) & (o < cfg.vocab)).all(), "token id out of range"
+    want = cfg.layers * (eng.decode_steps * st["decode_iterations"]
+                         + st["chunk_batches"])
+    got = launches["paged_attention_int8"]
+    log(f"[engine {dtype}] paged_attention_int8 launches {got} (expected "
+        f"{cfg.layers} layers x ({eng.decode_steps} speculative "
+        f"micro-steps x {st['decode_iterations']} decode waves + "
+        f"{st['chunk_batches']} chunk waves) = {want}); float "
+        f"paged_attention launches {launches['paged_attention']}; prefix "
+        f"hits {st['prefix_hits']}")
+    assert got == want and got > 0, "int8 launch count off the main path"
+    assert launches["paged_attention"] == 0, "a float read on an int8 pool"
+    assert st["prefix_hits"] == 15, "the 15 shared-prefix requests missed"
+    return model, eng, outs, st, wall, launches
+
+
+def phase_engine(card):
+    traffic = engine_traffic()
+    log(f"[engine] {len(traffic)} requests ({sum(1 for t in traffic if t[1])}"
+        f" sampled: {SAMPLED}), prompt lengths "
+        f"{[len(p) for p, _, _ in traffic]}, {NEW_TOKENS} new tokens each; "
+        f"kv int8, draft {DRAFT}, {CACHE_SLOTS} prefix-cache rows, block "
+        f"{PREFIX_BLOCK}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, eng, outs, st, wall, launches = engine_run("bfloat16", traffic)
+    tokens = len(traffic) * NEW_TOKENS
+    bf16_pool = serve.KVCachePool(
+        eng.pool.max_slots, layers=FULL["layers"], max_len=FULL["max_len"],
+        heads=FULL["heads"], head_dim=FULL["head_dim"], dtype="bfloat16",
+        device=model.device, allocate=False)
+    log(f"[engine bfloat16] {card}: {wall:.3f} s for {tokens} tokens "
+        f"({tokens / wall:.1f} tokens/s end to end), decode "
+        f"{st['decode_tokens_per_sec']} tokens/s; TTFT p50 "
+        f"{st['ttft_p50_ms']} ms p99 {st['ttft_p99_ms']} ms; TPOT p50 "
+        f"{st['tpot_p50_ms']} ms p99 {st['tpot_p99_ms']} ms; draft "
+        f"acceptance {st.get('draft_acceptance')} ({st['draft_accepted']} "
+        f"accepted, {st['draft_rejected']} rejected); prefix hit rate "
+        f"{st.get('prefix_hit_rate')}; {st['decode_iterations']} decode "
+        f"waves, {st['chunk_batches']} chunk waves; int8 pool "
+        f"{eng.pool.slots_per_gb()} slots/GiB against bf16 "
+        f"{bf16_pool.slots_per_gb()}")
+    # finite logits of the expected shape from a prefill into an int8 pool
+    pool = model.new_pool(1, dtype="int8")
+    p0 = np.asarray(traffic[0][0][:WINDOW], np.int32)[None]
+    logits = model.prefill_program(WINDOW)(
+        model.params, *pool.buffers(),
+        torch.as_tensor(p0, device=model.device),
+        torch.full((1,), WINDOW, dtype=torch.int32, device=model.device),
+        torch.zeros(1, dtype=torch.int32, device=model.device))
+    assert logits.shape == (1, FULL["vocab"]) and \
+        torch.isfinite(logits.float()).all(), "prefill logits not finite"
+    del model, pool
+    torch.cuda.empty_cache()
+    model32, _, outs32, st32, wall32, _ = engine_run("float32", traffic)
+    bad, spec_bad = [], []
+    t0 = time.perf_counter()
+    for i, ((p, samp, cached), o) in enumerate(zip(traffic, outs32)):
+        ref = model32.reference_generate(
+            p, NEW_TOKENS, window=WINDOW, draft_tokens=DRAFT,
+            kv_dtype="int8", cached_prefix_len=cached, **samp)
+        if not np.array_equal(o, ref):
+            bad.append(i)
+        if not samp and not np.array_equal(o, model32.reference_generate(
+                p, NEW_TOKENS, window=WINDOW, kv_dtype="int8",
+                cached_prefix_len=cached)):
+            spec_bad.append(i)
+    log(f"[engine float32] {len(traffic) - len(bad)}/{len(traffic)} requests "
+        f"token-exact against the 1-slot reference_generate (draft "
+        f"{DRAFT}, int8, the hits at cached_prefix_len {SYSTEM_LEN}); "
+        f"{len(traffic) // 2 - len(spec_bad)}/{len(traffic) // 2} greedy "
+        f"requests equal the draft_tokens=0 reference ({wall32:.3f} s "
+        f"served, references {time.perf_counter() - t0:.3f} s)")
+    assert not bad, f"engine != reference for requests {bad}"
+    assert not spec_bad, f"speculation changed greedy requests {spec_bad}"
+    return {"wall_s": wall, "tokens": tokens, "launches": launches,
+            "stats": st, "float32_stats": st32,
+            "slots_per_gib": eng.pool.slots_per_gb(),
+            "bf16_slots_per_gib": bf16_pool.slots_per_gb()}
+
+
+def int8_entry(variants, engine):
+    """The int8 variant's JSON entry, at the speculative verify shape the
+    engine's decode waves launch (bf16 q, int8 slab, C = draft + 1)."""
+    timed = [v for v in variants if "ms" in v]
+    head = next(v for v in timed if v["C"] == DRAFT + 1)
+    return {
+        "name": "paged_attention_int8", "route": "cuda",
+        "source": "incubator_mxnet_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "incubator_mxnet_tpu/ops/pallas_kernels.py:292",
+        "launches": engine["launches"]["paged_attention_int8"],
+        "max_abs_err": max(v["max_abs_err"] for v in variants
+                           if v["kv_dtype"] == "int8"),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "shape": f"S={SLOTS} C={DRAFT + 1} H={FULL['heads']} "
+                 f"D={FULL['head_dim']} T={FULL['max_len']} bfloat16 q, "
+                 f"int8 slab (library: SDPA over the prefix dequantized to "
+                 f"bf16 beforehand, dequant not timed)",
+        "variants": variants,
+    }
+
+
 FLASH_REPLACES = {"flash_fwd": 279, "flash_fwd_lse": 313,
                   "flash_bwd_dq": 366, "flash_bwd_dkv": 385}
 
@@ -1287,6 +1611,21 @@ def flash_entries(variants, bert):
     return entries, share
 
 
+def spill_report(ptxas_log):
+    """(instances compiled, [(instance, ptxas line)] of those that spill)
+    from `nvcc -Xptxas -v` output."""
+    fn, n, spilled = None, 0, []
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            n += 1
+        elif "spill stores" in line and not (
+                " 0 bytes spill stores" in line
+                and " 0 bytes spill loads" in line):
+            spilled.append((fn, line.strip()))
+    return n, spilled
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every result to this JSON "
@@ -1309,6 +1648,9 @@ def main():
         f"({', '.join(built) or 'up to date'})")
     for name, text in kernels.BUILD_LOG.items():
         print(f"[setup] nvcc {name}:\n{text}", file=sys.stderr)
+        n_fn, spilled = spill_report(text)
+        log(f"[setup] {name}: {n_fn} kernel instances, spilling: "
+            f"{spilled or 'none'}")
 
     variants, lens = phase_kernels(dev)
     result = phase_serve(card)
@@ -1316,6 +1658,8 @@ def main():
     train = phase_train(card, train_kernels["rows"], args.profile, dev)
     flash = phase_flash_kernels(dev)
     bert = phase_bert(card, args.profile, dev)
+    int8_variants = phase_int8_kernels(dev)
+    engine = phase_engine(card)
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -1337,13 +1681,14 @@ def main():
     train["kernel_share"] = share
     fentries, bert["flash_share"] = flash_entries(flash, bert)
     entries += fentries
+    entries.append(int8_entry(int8_variants, engine))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": [entry] + entries,
-                       "serve": result, "train": train, "bert": bert}, f,
-                      indent=1, default=str)
+                       "serve": result, "train": train, "bert": bert,
+                       "engine": engine}, f, indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [
         {k: v for k, v in e.items() if k != "variants"} for e in entries]}))

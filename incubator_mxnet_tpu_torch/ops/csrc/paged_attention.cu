@@ -1,27 +1,33 @@
 // Paged decode / chunk attention over the slotted KV slab, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel incubator_mxnet_tpu/ops/pallas_kernels.py ::
-// paged_attention_fwd (_paged_attn_kernel) for float32 and bfloat16 slabs.
-// It computes what incubator_mxnet_tpu_torch/ops/fused.py ::
-// paged_attention_ref computes:
+// paged_attention_fwd (_paged_attn_kernel), both its float variant and its
+// quantized one (int8 codes with per-position f32 scales, the dequant at
+// pallas_kernels.py:246-248). It computes what
+// incubator_mxnet_tpu_torch/ops/fused.py :: paged_attention_ref computes:
 //
-//   out[s, j, h] = softmax_t(q[s,j,h] . k[s,l,t,h] / sqrt(D)) . v[s,l,t,h]
+//   out[s, j, h] = softmax_t(q[s,j,h] . k'[s,l,t,h] / sqrt(D)) . v'[s,l,t,h]
 //                  over t <= len_s + j and t < T,
+//   k' = k (float slabs) or float(code_k) * k_scale[s,l,t] (int8 slabs),
 //
-// with f32 arithmetic inside and the output in q's dtype. Lane s reads row s
-// of the slab; the slab may be a view (the engine's `extent` slice keeps the
-// full slab's strides), so rows and positions are addressed by strides.
+// with f32 arithmetic inside and the output in q's dtype. q and out are
+// float32 or bfloat16; the slab is float32, bfloat16 or int8, independent of
+// q's type. Lane s reads row s of the slab; the slab and the scales may be
+// views (the engine's `extent` slice keeps the full slab's strides), so rows
+// and positions are addressed by strides.
 //
 // What bounds it on the card: the live KV bytes it must read,
-// sum_s min(T, len_s + C) * H * D * 2 * itemsize, over 3.35 TB/s. For the
-// chunk case (C = the prefill window) the f32 multiply-adds come close too.
-// What the design does about it: a block reads only its lane's live prefix
-// (the token loop stops at min(T, len_s + last query row + 1), the clamp the
-// TPU kernel made through its index map), loads K and V with 16-byte vector
-// loads once per (lane, head, query tile), and keeps the running max,
-// normaliser and accumulator on chip in f32. Left for later: tensor-core
-// (wgmma) products for the chunk case, TMA with double-buffered tiles, and a
-// split over tokens when lanes x heads are too few to fill the card.
+// sum_s min(T, len_s + C) * H * D * 2 * itemsize (plus 2 * 4 bytes a
+// position of scales for int8), over 3.35 TB/s. For the chunk case (C = the
+// prefill window) the f32 multiply-adds come close too. What the design does
+// about it: a block reads only its lane's live prefix (the token loop stops
+// at min(T, len_s + last query row + 1), the clamp the TPU kernel made
+// through its index map), loads K and V with 16-byte vector loads once per
+// (lane, head, query tile), dequantizes as it loads (a tile's scales are
+// staged in shared memory once), and keeps the running max, normaliser and
+// accumulator on chip in f32. Left for later: tensor-core (wgmma) products
+// for the chunk case, TMA with double-buffered tiles, and a split over tokens
+// when lanes x heads are too few to fill the card.
 //
 // Grid (ceil(C / QT), H, S), 128 threads a block. Blocks run in any order and
 // share nothing: the token loop inside a block takes the place of the TPU
@@ -31,12 +37,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kMasked = -1e30f;  // the mask value of the plain version
 
+// 16 bytes of T converted to f32
 template <typename T>
 struct Vec16;
 
@@ -68,6 +77,17 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
+template <>
+struct Vec16<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const int8_t* p, float* dst) {
+    const int4 x = *reinterpret_cast<const int4*>(p);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&x);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dst[e] = (float)b[e];
+  }
+};
+
 __device__ __forceinline__ void store(float x, float* p) { *p = x; }
 __device__ __forceinline__ void store(float x, __nv_bfloat16* p) {
   *p = __float2bfloat16(x);
@@ -85,17 +105,32 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Pointers and sizes of one launch. k, v, k_scale and v_scale point at
+// [row 0, layer, position 0]; slab rows and positions are row_stride and
+// tok_stride elements apart, scale rows scale_row_stride floats (positions
+// contiguous). The scales are null for float slabs.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* k_scale;
+  const float* v_scale;
+  const int* lengths;
+  void* out;
+  int S, C, H, T_ext;
+  long long row_stride, tok_stride, scale_row_stride;
+};
+
 // One block: lane s, head h, query rows [q0, q0 + QT) of the chunk.
-template <typename T, int D, int QT>
+template <typename Tq, typename Tkv, int D, int QT>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
-                       const int* __restrict__ lengths, T* __restrict__ out,
-                       int C, int H, int T_ext, long long row_stride,
-                       long long tok_stride, float scale) {
+paged_attention_kernel(const Args a, float scale) {
+  constexpr bool kQuant = std::is_same<Tkv, int8_t>::value;
   constexpr int BT = D <= 64 ? 64 : 32;  // token positions per K/V tile
-  constexpr int VN = Vec16<T>::N;
-  constexpr int DV = D / VN;  // 16-byte vectors per head row
+  constexpr int QN = Vec16<Tq>::N;
+  constexpr int QV = D / QN;  // 16-byte vectors per q row
+  constexpr int KN = Vec16<Tkv>::N;
+  constexpr int KV = D / KN;  // 16-byte vectors per slab head row
   constexpr int ACC = (QT * D + kThreads - 1) / kThreads;
 
   __shared__ float qs[QT][D];
@@ -103,29 +138,33 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float vs[BT][D];
   __shared__ float ps[QT][BT];
   __shared__ float m_s[QT], l_s[QT], alpha_s[QT];
+  __shared__ float ksc[kQuant ? BT : 1], vsc[kQuant ? BT : 1];
 
+  const Tq* q = static_cast<const Tq*>(a.q);
+  Tq* out = static_cast<Tq*>(a.out);
+  const int C = a.C, H = a.H;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * QT;
   const int h = blockIdx.y;
   const int s = blockIdx.z;
-  const int len = lengths[s];
+  const int len = a.lengths[s];
   const int q_end = min(C, q0 + QT);
   // positions some row of this tile may read: [0, len + q_end - 1] within T
-  const int n_pos = min(T_ext, len + q_end);
+  const int n_pos = min(a.T_ext, len + q_end);
 
   // the q tile in f32; rows past C are zero and never written out
-  for (int c = tid; c < QT * DV; c += kThreads) {
-    const int i = c / DV, d = (c % DV) * VN;
-    float x[VN];
+  for (int c = tid; c < QT * QV; c += kThreads) {
+    const int i = c / QV, d = (c % QV) * QN;
+    float x[QN];
     if (q0 + i < C) {
-      Vec16<T>::load(q + ((long long)(s * C + q0 + i) * H + h) * D + d, x);
+      Vec16<Tq>::load(q + ((long long)(s * C + q0 + i) * H + h) * D + d, x);
     } else {
 #pragma unroll
-      for (int e = 0; e < VN; ++e) x[e] = 0.f;
+      for (int e = 0; e < QN; ++e) x[e] = 0.f;
     }
 #pragma unroll
-    for (int e = 0; e < VN; ++e) qs[i][d + e] = x[e];
+    for (int e = 0; e < QN; ++e) qs[i][d + e] = x[e];
   }
   for (int i = tid; i < QT; i += kThreads) {
     m_s[i] = kMasked;
@@ -136,23 +175,47 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < ACC; ++r) acc[r] = 0.f;
   __syncthreads();
 
-  const T* kb = k + (long long)s * row_stride + (long long)h * D;
-  const T* vb = v + (long long)s * row_stride + (long long)h * D;
+  const Tkv* kb = static_cast<const Tkv*>(a.k) + (long long)s * a.row_stride +
+                  (long long)h * D;
+  const Tkv* vb = static_cast<const Tkv*>(a.v) + (long long)s * a.row_stride +
+                  (long long)h * D;
+  const float* ksb = kQuant ? a.k_scale + (long long)s * a.scale_row_stride
+                            : nullptr;
+  const float* vsb = kQuant ? a.v_scale + (long long)s * a.scale_row_stride
+                            : nullptr;
   for (int t0 = 0; t0 < n_pos; t0 += BT) {
-    // K/V tile in f32; positions at or past n_pos are zero and masked below
-    for (int c = tid; c < BT * DV; c += kThreads) {
-      const int j = c / DV, d = (c % DV) * VN;
-      float kx[VN], vx[VN];
+    if constexpr (kQuant) {
+      // this tile's scales, once; positions at or past n_pos are masked
+      for (int j = tid; j < BT; j += kThreads) {
+        const bool in = t0 + j < n_pos;
+        ksc[j] = in ? ksb[t0 + j] : 0.f;
+        vsc[j] = in ? vsb[t0 + j] : 0.f;
+      }
+      __syncthreads();
+    }
+    // K/V tile in f32 (dequantized as it loads: code * scale, the plain
+    // version's order); positions at or past n_pos are zero and masked below
+    for (int c = tid; c < BT * KV; c += kThreads) {
+      const int j = c / KV, d = (c % KV) * KN;
+      float kx[KN], vx[KN];
       if (t0 + j < n_pos) {
-        const long long off = (long long)(t0 + j) * tok_stride + d;
-        Vec16<T>::load(kb + off, kx);
-        Vec16<T>::load(vb + off, vx);
+        const long long off = (long long)(t0 + j) * a.tok_stride + d;
+        Vec16<Tkv>::load(kb + off, kx);
+        Vec16<Tkv>::load(vb + off, vx);
+        if constexpr (kQuant) {
+          const float sk = ksc[j], sv = vsc[j];
+#pragma unroll
+          for (int e = 0; e < KN; ++e) {
+            kx[e] *= sk;
+            vx[e] *= sv;
+          }
+        }
       } else {
 #pragma unroll
-        for (int e = 0; e < VN; ++e) kx[e] = vx[e] = 0.f;
+        for (int e = 0; e < KN; ++e) kx[e] = vx[e] = 0.f;
       }
 #pragma unroll
-      for (int e = 0; e < VN; ++e) {
+      for (int e = 0; e < KN; ++e) {
         ks[j][d + e] = kx[e];
         vs[j][d + e] = vx[e];
       }
@@ -186,9 +249,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       sum = warp_sum(sum);
       if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        alpha_s[i] = a;
-        l_s[i] = l_s[i] * a + sum;
+        const float al = expf(m_old - m_new);
+        alpha_s[i] = al;
+        l_s[i] = l_s[i] * al + sum;
         m_s[i] = m_new;
       }
     }
@@ -200,13 +263,13 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int p = tid + r * kThreads;
       if (p < QT * D) {
         const int i = p / D, d = p % D;
-        float a = acc[r] * alpha_s[i];
+        float x = acc[r] * alpha_s[i];
 #pragma unroll 16
-        for (int j = 0; j < BT; ++j) a = fmaf(ps[i][j], vs[j][d], a);
-        acc[r] = a;
+        for (int j = 0; j < BT; ++j) x = fmaf(ps[i][j], vs[j][d], x);
+        acc[r] = x;
       }
     }
-    __syncthreads();  // the next tile overwrites ks, vs and ps
+    __syncthreads();  // the next tile overwrites ks, vs, ps and the scales
   }
 
 #pragma unroll
@@ -222,48 +285,44 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int QT>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, void* out, int S, int C, int H,
-                   int T_ext, long long row_stride, long long tok_stride,
-                   cudaStream_t stream) {
-  const dim3 grid((C + QT - 1) / QT, H, S);
+// decode (C == 1) takes a one-row query tile; chunks take 16-row tiles
+template <typename Tq, typename Tkv, int D>
+cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
-  paged_attention_kernel<T, D, QT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), C, H, T_ext,
-      row_stride, tok_stride, scale);
+  if (a.C == 1) {
+    paged_attention_kernel<Tq, Tkv, D, 1>
+        <<<dim3(a.C, a.H, a.S), kThreads, 0, stream>>>(a, scale);
+  } else {
+    paged_attention_kernel<Tq, Tkv, D, 16>
+        <<<dim3((a.C + 15) / 16, a.H, a.S), kThreads, 0, stream>>>(a, scale);
+  }
   return cudaGetLastError();
 }
 
-// decode (C == 1) takes a one-row query tile; chunks take 16-row tiles
-template <typename T, int D>
-cudaError_t launch_tile(const void* q, const void* k, const void* v,
-                        const int* lengths, void* out, int S, int C, int H,
-                        int T_ext, long long row_stride, long long tok_stride,
-                        cudaStream_t stream) {
-  if (C == 1)
-    return launch<T, D, 1>(q, k, v, lengths, out, S, C, H, T_ext, row_stride,
-                           tok_stride, stream);
-  return launch<T, D, 16>(q, k, v, lengths, out, S, C, H, T_ext, row_stride,
-                          tok_stride, stream);
-}
-
-template <typename T>
-cudaError_t launch_dim(int D, const void* q, const void* k, const void* v,
-                       const int* lengths, void* out, int S, int C, int H,
-                       int T_ext, long long row_stride, long long tok_stride,
-                       cudaStream_t stream) {
+template <typename Tq, typename Tkv>
+cudaError_t launch_dim(int D, const Args& a, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_tile<T, 32>(q, k, v, lengths, out, S, C, H, T_ext,
-                                row_stride, tok_stride, stream);
+      return launch_tile<Tq, Tkv, 32>(a, stream);
     case 64:
-      return launch_tile<T, 64>(q, k, v, lengths, out, S, C, H, T_ext,
-                                row_stride, tok_stride, stream);
+      return launch_tile<Tq, Tkv, 64>(a, stream);
     case 128:
-      return launch_tile<T, 128>(q, k, v, lengths, out, S, C, H, T_ext,
-                                 row_stride, tok_stride, stream);
+      return launch_tile<Tq, Tkv, 128>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Tq>
+cudaError_t launch_kv(int kv_dtype, int D, const Args& a,
+                      cudaStream_t stream) {
+  switch (kv_dtype) {
+    case 0:
+      return launch_dim<Tq, float>(D, a, stream);
+    case 1:
+      return launch_dim<Tq, __nv_bfloat16>(D, a, stream);
+    case 2:
+      return launch_dim<Tq, int8_t>(D, a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -271,31 +330,48 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. q and out are contiguous (S, C, H, D); k and
-// v point at [row 0, layer, position 0] of the slab, whose rows and positions
-// are row_stride and tok_stride elements apart (heads and dims contiguous).
-// lengths is (S,) int32 on the device. S, C and H are at least 1. Returns
-// cudaGetLastError() after the launch (0 on success), never synchronises.
-extern "C" int mx_paged_attention_fwd(int dtype, int device, const void* q,
-                                      const void* k, const void* v,
-                                      const void* lengths, void* out, int S,
-                                      int C, int H, int D, int T_ext,
-                                      long long row_stride,
-                                      long long tok_stride, void* stream) {
-  if (S <= 0 || C <= 0 || H <= 0 || (dtype != 0 && dtype != 1))
+// q_dtype: 0 float32, 1 bfloat16 (q and out). kv_dtype: 0 float32,
+// 1 bfloat16, 2 int8 (the slab; int8 needs k_scale and v_scale, f32). q and
+// out are contiguous (S, C, H, D); k and v point at [row 0, layer,
+// position 0] of the slab, whose rows and positions are row_stride and
+// tok_stride elements apart (heads and dims contiguous); k_scale and v_scale
+// point at [row 0, layer, position 0] of the scales, whose rows are
+// scale_row_stride floats apart (positions contiguous). lengths is (S,)
+// int32 on the device. S, C and H are at least 1. Returns cudaGetLastError()
+// after the launch (0 on success), never synchronises.
+extern "C" int mx_paged_attention_fwd(
+    int q_dtype, int kv_dtype, int device, const void* q, const void* k,
+    const void* v, const void* k_scale, const void* v_scale,
+    const void* lengths, void* out, int S, int C, int H, int D, int T_ext,
+    long long row_stride, long long tok_stride, long long scale_row_stride,
+    void* stream) {
+  if (S <= 0 || C <= 0 || H <= 0 || (q_dtype != 0 && q_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if ((kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
   // launch on the tensors' device, and leave the caller's current device
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int* lens = static_cast<const int*>(lengths);
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = out;
+  a.S = S;
+  a.C = C;
+  a.H = H;
+  a.T_ext = T_ext;
+  a.row_stride = row_stride;
+  a.tok_stride = tok_stride;
+  a.scale_row_stride = scale_row_stride;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = dtype == 0
-            ? launch_dim<float>(D, q, k, v, lens, out, S, C, H, T_ext,
-                                row_stride, tok_stride, st)
-            : launch_dim<__nv_bfloat16>(D, q, k, v, lens, out, S, C, H,
-                                        T_ext, row_stride, tok_stride, st);
+  err = q_dtype == 0 ? launch_kv<float>(kv_dtype, D, a, st)
+                     : launch_kv<__nv_bfloat16>(kv_dtype, D, a, st);
   if (prev != device) cudaSetDevice(prev);
   return (int)err;
 }

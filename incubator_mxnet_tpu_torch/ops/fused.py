@@ -226,7 +226,8 @@ def avg_pool2d_bwd_ref(dy, h, w, ph, pw):
     return g.reshape(n, h, w, c).to(dy.dtype)
 
 
-def paged_attention_ref(q, k_slab, v_slab, lengths, layer):
+def paged_attention_ref(q, k_slab, v_slab, lengths, layer, k_scale=None,
+                        v_scale=None):
     """Plain paged decode attention over the serve KV-pool slab. Reads the
     WHOLE (S, T) page of each lane and masks to `[0, lengths + j]` for
     chunk query j; f32 arithmetic inside, output in q's dtype.
@@ -234,11 +235,19 @@ def paged_attention_ref(q, k_slab, v_slab, lengths, layer):
     `q`: (S, C, H, D) — C chunk queries per lane at positions
     `lengths[s] + j`. `k_slab`/`v_slab`: (rows, layers, T, H, D) with
     rows > S (lane s reads row s), possibly a view cut on the position
-    axis. `lengths`: (S,) integer."""
+    axis, of any float dtype (q's or another), or int8 codes.
+    `k_scale`/`v_scale`: the per-position f32 dequant scales
+    (rows, layers, T) of int8 slabs, applied as `codes.float() * scale`
+    before the score product, as the TPU kernel does. `lengths`: (S,)
+    integer."""
     s_lanes, c, _h, d = q.shape
     t = k_slab.shape[2]
     kk = k_slab[:s_lanes, layer].float()
     vv = v_slab[:s_lanes, layer].float()
+    if k_scale is not None:
+        kk = kk * k_scale[:s_lanes, layer][..., None, None]
+    if v_scale is not None:
+        vv = vv * v_scale[:s_lanes, layer][..., None, None]
     scores = torch.einsum("schd,sthd->shct", q.float(), kk) * (
         1.0 / float(d) ** 0.5)
     pos = torch.arange(t, device=q.device)
@@ -462,15 +471,18 @@ def avg_pool2d(x, pool_size, layout="NHWC"):
     return _AvgPool2d.apply(x, ph, pw)
 
 
-def paged_attention(q, k_slab, v_slab, lengths, layer):
+def paged_attention(q, k_slab, v_slab, lengths, layer, k_scale=None,
+                    v_scale=None):
     """Paged decode attention over the slotted KV slab — the serve
     engine's per-layer attention read, in place (no per-layer copy of the
-    cache). CUDA tensors launch the kernel (`ops/csrc/paged_attention.cu`),
-    CPU tensors take `paged_attention_ref`."""
+    cache). int8 slabs come with their per-position `k_scale`/`v_scale`.
+    CUDA tensors launch the kernel (`ops/csrc/paged_attention.cu`), CPU
+    tensors take `paged_attention_ref`."""
     dev = q.device.type
     if dev == "cuda":
         return kernels.paged_attention_cuda(q, k_slab, v_slab, lengths,
-                                            layer)
+                                            layer, k_scale, v_scale)
     if dev == "cpu":
-        return paged_attention_ref(q, k_slab, v_slab, lengths, layer)
+        return paged_attention_ref(q, k_slab, v_slab, lengths, layer,
+                                   k_scale, v_scale)
     raise _no_path("paged_attention", q)

@@ -49,6 +49,7 @@ BUILD_LOG = {}
 
 # launches of each kernel since the last reset: one per successful launch
 paged_attention_launches = 0
+paged_attention_int8_launches = 0
 scale_shift_act_launches = 0
 avg_pool2d_fwd_launches = 0
 avg_pool2d_bwd_launches = 0
@@ -59,11 +60,12 @@ flash_bwd_dkv_launches = 0
 
 
 def reset_launch_counts():
-    global paged_attention_launches, scale_shift_act_launches, \
-        avg_pool2d_fwd_launches, avg_pool2d_bwd_launches, \
-        flash_fwd_launches, flash_fwd_lse_launches, flash_bwd_dq_launches, \
-        flash_bwd_dkv_launches
+    global paged_attention_launches, paged_attention_int8_launches, \
+        scale_shift_act_launches, avg_pool2d_fwd_launches, \
+        avg_pool2d_bwd_launches, flash_fwd_launches, flash_fwd_lse_launches, \
+        flash_bwd_dq_launches, flash_bwd_dkv_launches
     paged_attention_launches = 0
+    paged_attention_int8_launches = 0
     scale_shift_act_launches = 0
     avg_pool2d_fwd_launches = 0
     avg_pool2d_bwd_launches = 0
@@ -75,6 +77,7 @@ def reset_launch_counts():
 
 def launch_counts():
     return {"paged_attention": paged_attention_launches,
+            "paged_attention_int8": paged_attention_int8_launches,
             "scale_shift_act": scale_shift_act_launches,
             "avg_pool2d_fwd": avg_pool2d_fwd_launches,
             "avg_pool2d_bwd": avg_pool2d_bwd_launches,
@@ -150,8 +153,8 @@ def _load(name):
             if name == "paged_attention":
                 lib.mx_paged_attention_fwd.restype = ctypes.c_int
                 lib.mx_paged_attention_fwd.argtypes = (
-                    [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-                    + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+                    + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
                     + [ctypes.c_void_p])
             elif name == "scale_shift_act":
                 lib.mx_scale_shift_act.restype = ctypes.c_int
@@ -184,76 +187,107 @@ def _load(name):
     return lib
 
 
-_PA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PA_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PA_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _PA_HEAD_DIMS = (32, 64, 128)
 
 
-def paged_attention_cuda(q, k_slab, v_slab, lengths, layer):
+def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
+                         v_scale=None):
     """Launch the paged-attention kernel (`csrc/paged_attention.cu`).
 
     `q`: contiguous (S, C, H, D) CUDA tensor, float32 or bfloat16.
-    `k_slab`/`v_slab`: (rows, L, T, H, D) with rows > S, the same dtype,
-    shape and strides, heads and dims contiguous; a view that cuts the
-    position axis (`slab[:, :, :extent]`) is read in place, not copied.
+    `k_slab`/`v_slab`: (rows, L, T, H, D) with rows > S, float32, bfloat16
+    or int8 (any of them with either q dtype), one dtype, shape and
+    strides, heads and dims contiguous, rows, layers and positions 16-byte
+    aligned; a view that cuts the position axis (`slab[:, :, :extent]`) is
+    read in place, not copied. int8 slabs need `k_scale`/`v_scale`:
+    (rows, L, T) float32 with one set of strides, positions contiguous
+    (the same view cut is read in place); float slabs take none.
     `lengths`: (S,) int32, each >= 0. Returns (S, C, H, D) in q's dtype.
-    Raises `MXNetError` on any input the kernel does not take."""
-    global paged_attention_launches
-    tensors = (q, k_slab, v_slab, lengths)
+    Counts a launch over an int8 slab in `paged_attention_int8_launches`,
+    any other in `paged_attention_launches`. Raises `MXNetError` on any
+    input the kernel does not take."""
+    global paged_attention_launches, paged_attention_int8_launches
+    name = "paged_attention_cuda"
+    quant = k_slab.dtype == torch.int8
+    scales = [t for t in (k_scale, v_scale) if t is not None]
+    if len(scales) != (2 if quant else 0):
+        raise MXNetError(
+            f"{name}: int8 slabs need k_scale and v_scale, float slabs "
+            f"take none; got a {k_slab.dtype} slab and {len(scales)} "
+            f"scale tensor(s)")
+    tensors = (q, k_slab, v_slab, lengths) + tuple(scales)
     if not all(t.is_cuda for t in tensors):
-        raise MXNetError("paged_attention_cuda takes CUDA tensors only")
+        raise MXNetError(f"{name} takes CUDA tensors only")
     if len({t.device for t in tensors}) != 1:
-        raise MXNetError("paged_attention_cuda: tensors on several devices")
+        raise MXNetError(f"{name}: tensors on several devices")
     if q.dim() != 4 or k_slab.dim() != 5:
         raise MXNetError(
-            f"paged_attention_cuda: q must be (S, C, H, D) and the slabs "
+            f"{name}: q must be (S, C, H, D) and the slabs "
             f"(rows, L, T, H, D); got {tuple(q.shape)}, "
             f"{tuple(k_slab.shape)}")
     S, C, H, D = q.shape
     rows, L, T, Hk, Dk = k_slab.shape
-    if q.dtype not in _PA_DTYPES:
-        raise MXNetError(f"paged_attention_cuda: dtype {q.dtype} not taken "
+    if q.dtype not in _PA_Q_DTYPES:
+        raise MXNetError(f"{name}: q dtype {q.dtype} not taken "
                          f"(float32, bfloat16)")
-    if k_slab.dtype != q.dtype or v_slab.dtype != q.dtype:
-        raise MXNetError("paged_attention_cuda: q and slabs differ in dtype")
+    if k_slab.dtype not in _PA_KV_DTYPES or v_slab.dtype != k_slab.dtype:
+        raise MXNetError(f"{name}: slab dtypes {k_slab.dtype}, "
+                         f"{v_slab.dtype} not taken (one of float32, "
+                         f"bfloat16, int8)")
     if D not in _PA_HEAD_DIMS:
-        raise MXNetError(f"paged_attention_cuda: head_dim {D} not in "
-                         f"{_PA_HEAD_DIMS}")
+        raise MXNetError(f"{name}: head_dim {D} not in {_PA_HEAD_DIMS}")
     if (Hk, Dk) != (H, D) or rows <= S or not 0 <= layer < L:
         raise MXNetError(
-            f"paged_attention_cuda: slab {tuple(k_slab.shape)} does not "
-            f"serve q {tuple(q.shape)} at layer {layer}")
+            f"{name}: slab {tuple(k_slab.shape)} does not serve q "
+            f"{tuple(q.shape)} at layer {layer}")
     if v_slab.shape != k_slab.shape or v_slab.stride() != k_slab.stride():
-        raise MXNetError("paged_attention_cuda: k and v slabs differ in "
-                         "shape or strides")
+        raise MXNetError(f"{name}: k and v slabs differ in shape or "
+                         f"strides")
     st = k_slab.stride()
-    vec = 16 // q.element_size()
-    if st[4] != 1 or st[3] != D or st[0] % vec or st[2] % vec:
+    vec = 16 // k_slab.element_size()
+    if st[4] != 1 or st[3] != D or st[0] % vec or st[1] % vec \
+            or st[2] % vec:
         raise MXNetError(
-            f"paged_attention_cuda: slab strides {st} not taken (heads and "
-            f"dims contiguous, rows and positions 16-byte aligned)")
+            f"{name}: slab strides {st} not taken (heads and dims "
+            f"contiguous, rows, layers and positions 16-byte aligned)")
+    if quant:
+        for t in scales:
+            if (t.dtype != torch.float32 or t.shape != (rows, L, T)
+                    or t.stride() != k_scale.stride() or t.stride(2) != 1):
+                raise MXNetError(
+                    f"{name}: k_scale and v_scale must be ({rows}, {L}, "
+                    f"{T}) float32 with one set of strides, positions "
+                    f"contiguous; got {tuple(t.shape)} {t.dtype} strides "
+                    f"{t.stride()}")
     if not q.is_contiguous():
-        raise MXNetError("paged_attention_cuda: q must be contiguous")
+        raise MXNetError(f"{name}: q must be contiguous")
     if (lengths.dtype != torch.int32 or lengths.shape != (S,)
             or not lengths.is_contiguous()):
-        raise MXNetError("paged_attention_cuda: lengths must be a "
-                         "contiguous (S,) int32 tensor")
+        raise MXNetError(f"{name}: lengths must be a contiguous (S,) int32 "
+                         f"tensor")
     kl, vl = k_slab[:, layer], v_slab[:, layer]
+    ksl = k_scale[:, layer] if quant else None
+    vsl = v_scale[:, layer] if quant else None
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    if any(t.data_ptr() % 16 for t in (q, kl, vl, out)):
-        raise MXNetError("paged_attention_cuda: buffers not 16-byte aligned")
+    _check_aligned(name, (q, kl, vl, out))
     lib = _load("paged_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.mx_paged_attention_fwd(
-        _PA_DTYPES[q.dtype], q.device.index or 0, q.data_ptr(),
-        kl.data_ptr(), vl.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        S, C, H, D, T, st[0], st[2], stream)
+        _PA_Q_DTYPES[q.dtype], _PA_KV_DTYPES[k_slab.dtype],
+        q.device.index or 0, q.data_ptr(), kl.data_ptr(), vl.data_ptr(),
+        ksl.data_ptr() if quant else None, vsl.data_ptr() if quant else None,
+        lengths.data_ptr(), out.data_ptr(), S, C, H, D, T, st[0], st[2],
+        k_scale.stride(0) if quant else 0, stream)
     if rc != 0:
-        raise MXNetError(
-            f"paged_attention kernel launch failed: CUDA error {rc} "
-            f"({lib.mx_cuda_error_string(rc).decode()})")
-    paged_attention_launches += 1
+        raise _launch_failed(lib, "paged_attention", rc)
+    if quant:
+        paged_attention_int8_launches += 1
+    else:
+        paged_attention_launches += 1
     return out
 
 

@@ -14,9 +14,10 @@ Counterpart of `incubator_mxnet_tpu/serve/kv_pool.py`:
   * A freed slot's rows are NOT zeroed: the attention masks clamp every
     read to `[0, cur_len]` of the current request. `poison()` and
     `poison_slot()` let tests prove it.
-
-Float slabs only (float32, bfloat16, float16): int8 KV with per-position
-scales is not ported yet and raises `ServeError`.
+  * The slab dtype is any float dtype (float32, bfloat16, float16),
+    independent of the model's, or "int8": quantized storage, int8 codes
+    plus one f32 dequant scale per written (row, layer, position) in
+    `k_scale`/`v_scale` of `scale_shape`.
 """
 from __future__ import annotations
 
@@ -63,14 +64,16 @@ class KVCachePool:
         self.heads = int(heads)
         self.head_dim = int(head_dim)
         self.dtype = str(dtype)
-        if self.dtype == "int8":
-            raise ServeError(
-                "int8 KV pools are not ported to PyTorch yet; use a float "
-                "dtype")
-        try:
-            self.torch_dtype = torch_dtype(self.dtype)
-        except MXNetError as e:
-            raise ServeError(str(e)) from None
+        # int8 = quantized storage: the slabs hold int8 codes, the paired
+        # k_scale/v_scale buffers one f32 dequant factor per position
+        self.quantized = self.dtype == "int8"
+        if self.quantized:
+            self.torch_dtype = torch.int8
+        else:
+            try:
+                self.torch_dtype = torch_dtype(self.dtype)
+            except MXNetError as e:
+                raise ServeError(f"{e}, or 'int8'") from None
         self.device = resolve_device(device)
         # LIFO free list: a just-freed slot is re-claimed first, which is
         # exactly what the poison-fill reuse test needs to exercise
@@ -78,6 +81,7 @@ class KVCachePool:
         self._claimed = set()
         self._lock = threading.Lock()
         self.k = self.v = None
+        self.k_scale = self.v_scale = None
         if allocate:
             self._allocate()
 
@@ -89,6 +93,11 @@ class KVCachePool:
                 self.heads, self.head_dim)
 
     @property
+    def scale_shape(self):
+        """Per-position dequant-scale buffer shape (quantized pools)."""
+        return (self.max_slots + 1, self.layers, self.max_len)
+
+    @property
     def garbage_row(self):
         """Scatter target for a fixed-shape step's inactive lanes."""
         return self.max_slots
@@ -98,44 +107,63 @@ class KVCachePool:
                              device=self.device)
         self.v = torch.zeros(self.shape, dtype=self.torch_dtype,
                              device=self.device)
+        if self.quantized:
+            self.k_scale = torch.zeros(self.scale_shape, dtype=torch.float32,
+                                       device=self.device)
+            self.v_scale = torch.zeros(self.scale_shape, dtype=torch.float32,
+                                       device=self.device)
 
     def buffers(self):
-        """The (k, v) slabs the step programs read and write in place."""
+        """The (k, v) arguments the step programs read and write in place:
+        the slabs, or `(codes, scales)` pairs on a quantized pool."""
+        if self.quantized:
+            return (self.k, self.k_scale), (self.v, self.v_scale)
         return self.k, self.v
 
-    def _itemsize(self):
-        return torch.empty((), dtype=self.torch_dtype).element_size()
+    def bytes_per_slot(self):
+        """Marginal device bytes one slot row costs (k + v pages, plus
+        their scale rows on a quantized pool)."""
+        page = 2 * self.layers * self.max_len * self.heads * self.head_dim
+        per = page * torch.empty((), dtype=self.torch_dtype).element_size()
+        if self.quantized:
+            per += 2 * self.layers * self.max_len * 4
+        return per
 
     def nbytes(self):
-        """Size of the slab pair incl. the garbage row."""
-        n = 1
-        for d in self.shape:
-            n *= d
-        return 2 * n * self._itemsize()
+        """Size of the slab pair (and scales) incl. the garbage row."""
+        return (self.max_slots + 1) * self.bytes_per_slot()
 
-    def bytes_per_slot(self):
-        """Marginal device bytes one slot row costs (k + v pages)."""
-        return (2 * self.layers * self.max_len * self.heads * self.head_dim
-                * self._itemsize())
+    def slots_per_gb(self):
+        """KV slots one GiB of device memory buys at this pool's shape."""
+        return round((1 << 30) / self.bytes_per_slot(), 2)
 
     def poison(self, value=1e9):
         """Overwrite the WHOLE slab with a sentinel. Test hook for the
         slot-reuse isolation contract: after poisoning, any read that
         escapes the `[0, cur_len]` mask shows up as the sentinel in the
-        output. Never called on the serving path."""
-        self.k.fill_(value)
-        self.v.fill_(value)
+        output. On a quantized pool the codes are set to 1 and the SCALES
+        to `value`, so a stale-scale read is as loud as a stale-code one.
+        Never called on the serving path."""
+        self._fill(slice(None), value)
 
     def poison_slot(self, slot, value=1e9):
         """`poison()` at slot granularity: overwrite ONE row of both slabs
-        with the sentinel, leaving every other slot's live KV intact.
-        Never called on the serving path."""
+        (and its scale rows on a quantized pool) with the sentinel, leaving
+        every other slot's live KV intact. Never called on the serving
+        path."""
         slot = int(slot)
         if not 0 <= slot <= self.max_slots:
             raise ServeError(
                 f"slot {slot} outside [0, {self.max_slots}]")
-        self.k[slot].fill_(value)
-        self.v[slot].fill_(value)
+        self._fill(slot, value)
+
+    def _fill(self, rows, value):
+        code = 1 if self.quantized else value
+        self.k[rows] = code
+        self.v[rows] = code
+        if self.quantized:
+            self.k_scale[rows] = value
+            self.v_scale[rows] = value
 
     # -- slot bookkeeping --------------------------------------------------
     def claim(self):
@@ -176,4 +204,5 @@ class KVCachePool:
         return {"max_slots": self.max_slots, "in_use": used,
                 "free": self.max_slots - used,
                 "dtype": self.dtype,
+                "slots_per_gb": self.slots_per_gb(),
                 "slab_bytes": self.nbytes() if self.k is not None else 0}

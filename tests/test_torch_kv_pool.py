@@ -1,9 +1,11 @@
 """PyTorch port: the KV slot pool (`serve.kv_pool.KVCachePool`).
 
-Counterparts of the KV-slot lifecycle tests of tests/test_continuous.py:
-claim/free with typed exhaustion and double-free, concurrent claim/free,
-and the poison-fill isolation contract (a reused slot cannot read a prior
-tenant's KV), here through the port's engine on the CPU.
+Counterparts of the KV-slot lifecycle tests of tests/test_continuous.py
+and the int8-pool tests of tests/test_decode.py: claim/free with typed
+exhaustion and double-free, concurrent claim/free, the int8 pool's
+buffers and sizes against the JAX package's pool, and the poison-fill
+isolation contract (a reused slot cannot read a prior tenant's KV, codes
+or scales), here through the port's engine on the CPU.
 """
 import sys
 import threading
@@ -114,10 +116,45 @@ def test_poison_and_poison_slot():
 
 
 def test_int8_and_unknown_dtypes_raise_typed():
-    with pytest.raises(serve.ServeError, match="int8"):
-        _pool(dtype="int8")
+    """int8 is a storage dtype now (codes + scales); a dtype that is
+    neither a float the port stores nor int8 still raises typed."""
+    pool = _pool(dtype="int8")
+    (k, ks), (v, vs) = pool.buffers()
+    assert k.dtype == v.dtype == torch.int8 and pool.quantized
+    assert ks.dtype == vs.dtype == torch.float32
     with pytest.raises(serve.ServeError, match="dtype"):
         _pool(dtype="float64")
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_pool_shapes_and_sizes_match_jax_pool(dtype):
+    from incubator_mxnet_tpu import serve as jserve
+    kw = dict(layers=3, max_len=40, heads=4, head_dim=8)
+    jp = jserve.KVCachePool(5, dtype=dtype, **kw)
+    tp = serve.KVCachePool(5, dtype=dtype, device="cpu", **kw)
+    assert tp.shape == jp.shape and tp.quantized == jp.quantized
+    assert tuple(tp.k.shape) == tuple(jp.k.shape)
+    if dtype == "int8":
+        assert tp.scale_shape == jp.scale_shape
+        assert tuple(tp.k_scale.shape) == tuple(jp.k_scale.shape)
+    assert tp.nbytes() == jp.nbytes()
+    assert tp.bytes_per_slot() == jp.bytes_per_slot()
+    assert tp.slots_per_gb() == jp.slots_per_gb()
+    st = tp.stats()
+    assert st["slots_per_gb"] == jp.stats()["slots_per_gb"]
+    assert st["slab_bytes"] == jp.stats()["slab_bytes"]
+
+
+def test_int8_poison_writes_codes_and_scales_per_slot():
+    pool = _pool(dtype="int8")
+    pool.poison(7.0)
+    assert torch.all(pool.k == 1) and torch.all(pool.v == 1)
+    assert torch.all(pool.k_scale == 7.0) and torch.all(pool.v_scale == 7.0)
+    pool.poison(0.0)
+    pool.poison_slot(1, 5.0)
+    assert torch.all(pool.k_scale[1] == 5.0) and torch.all(pool.v[1] == 1)
+    assert torch.all(pool.k_scale[[0, 2, 3]] == 0.0)
+    assert torch.all(pool.v_scale[[0, 2, 3]] == 0.0)
 
 
 def test_cuda_pool_without_card_raises():
@@ -152,3 +189,26 @@ def test_slot_reuse_cannot_read_prior_request_cache():
     np.testing.assert_array_equal(
         long_out, model.reference_generate(list(range(1, 40)), 5, window=16),
         err_msg="a poisoned slab leaked into a chunked prefill")
+
+
+def test_int8_slot_reuse_cannot_read_prior_codes_or_scales():
+    """A whole int8 pool poisoned (codes 1, scales 1e9) after a tenant
+    dirtied it: later requests through the speculative verify path, one
+    of them chunked, read only what they wrote. Their tokens equal the
+    JAX package's int8 reference."""
+    from torch_port_utils import decoders
+    jm, tm = decoders()
+    work = [([1, 2, 3], 8), (list(range(1, 40)), 6), ([5, 9, 5, 9, 5], 10)]
+    eng = serve.ContinuousEngine(tm, max_slots=2, prefill_window=16,
+                                 decode_steps=2, draft_tokens=2,
+                                 kv_dtype="int8").start()
+    try:
+        eng.generate([9, 8, 7, 6], 10, timeout=60)
+        eng.pool.poison(1e9)
+        outs = [eng.generate(p, m, timeout=60) for p, m in work]
+    finally:
+        eng.close()
+    for (p, m), o in zip(work, outs):
+        np.testing.assert_array_equal(
+            o, jm.reference_generate(p, m, window=16, kv_dtype="int8"),
+            err_msg=f"int8 poison leaked for a prompt of {len(p)} tokens")
