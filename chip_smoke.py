@@ -47,20 +47,27 @@ Each phase fails the run (non-zero exit) on any error:
      B7 dq sweep, B8 dk/dv sweep) against their plain versions on the
      card at the BERT path's shape (bh 192 = 16 x 12 heads, T 512, d 64)
      in bfloat16 and float32, causal and not, plus Tq != Tk causal (rows
-     that see no key), a ragged T = 500 and head dims 32 and 128; then at
-     the path's shape (bf16, no mask) each kernel's time against its
-     bound, the plain version's time and one SDPA call's (forward for
-     B5/B6, backward for B7/B8). A bf16 output is held to limits relative
-     to its own size, and they must refuse two planted store faults (a
-     truncating store, a swapped pair) at that shape.
+     that see no key), a ragged T = 500, head dims 12 (the CUDA-core
+     forward in bf16 too), 32, 40, 96 and 128, and bh 65600 (T 16, d 16);
+     then at the path's shape (bf16, no mask) and at a causal (48, 2048,
+     128) bf16 shape each kernel's time against its bound, the plain
+     version's time and one SDPA call's (forward for B5/B6, backward for
+     B7/B8). The bf16 forward at d % 8 == 0 runs on the tensor-core kernel
+     (wgmma, TMA). A bf16 output is held to limits relative to its own
+     size, and they must refuse two planted store faults (a truncating
+     store, a swapped pair) at both timed shapes, and a swapped pair of
+     the tensor-core kernel's own output; beside them, the reading of a
+     one-term bf16 P (emulated in PyTorch), which the kernel's two-term P
+     avoids.
   7. BERT-base at full width: 12 `TransformerEncoderCell(768, 3072, 12,
      dropout 0.1, gelu, use_flash=True)` between token and positional
      embeddings (vocab 30522, 512 positions) and a LayerNorm + Dense head
      over the vocabulary, random weights from a seed, batch 16 x 512
      tokens and random labels from numpy, bf16 AMP, Adam lr 1e-4: 2
      warm-up and 10 timed steps with finite losses and exactly 12 B6, 12
-     B7 and 12 B8 launches a step, then one inference forward under
-     `torch.no_grad()` with exactly 12 B5 launches and finite logits;
+     B7 and 12 B8 launches a step, every B6 launch on the tensor cores,
+     then one inference forward under `torch.no_grad()` with exactly 12 B5
+     launches, all on the tensor cores, and finite logits;
      then, in float32 with TF32 off, dropout 0, 2 layers at full width
      and batch 4, two flash SGD steps against two SDPA-composition steps
      from the same weights: the losses, and each weight's update relative
@@ -93,6 +100,13 @@ Each phase fails the run (non-zero exit) on any error:
      must equal the 1-slot `reference_generate` with the same knobs (the
      hits at `cached_prefix_len=512`), and every greedy reply the
      `draft_tokens=0` reference.
+ 10. the off-flagship shapes the kernels cover (ROADMAP C1), each through
+     its kernel, as the launch counters show: `ContinuousEngine(
+     CachedDecoder(DecoderConfig(max_len=64)))`, float32, head_dim 16,
+     token-exact against `reference_generate`; one fused `Dense(10,
+     "relu")` float32 training step equal to the unfused one; the NHWC
+     pool at 12 channels and the apply at 10 float32 and 4 bfloat16
+     channels against their plain versions.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`. Without a
@@ -834,7 +848,12 @@ FLASH_MAIN = (BERT_BATCH * BERT["heads"], BERT_SEQ,
 # (rows with no live key when Tq > Tk), a ragged length, the other head dims
 FLASH_EXTRA = [(24, 384, 512, 64, True), (24, 512, 384, 64, True),
                (24, 500, 500, 64, False), (24, 500, 500, 64, True),
-               (24, 256, 256, 32, True), (24, 256, 200, 128, False)]
+               (24, 256, 256, 32, True), (24, 256, 200, 128, False),
+               (24, 256, 256, 12, True), (24, 300, 300, 40, False),
+               (24, 256, 256, 96, True), (24, 256, 256, 128, True),
+               (65600, 16, 16, 16, False)]
+# the second timed shape: a long causal sequence at the widest head dim
+FLASH_LONG = (48, 2048, 2048, 128, True)
 FLASH_KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
                  "flash_bwd_dkv")
 # products per (query, key) pair, each 2 * d operations: q.k and p.v in the
@@ -843,6 +862,7 @@ FLASH_KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
 FLASH_PRODUCTS = {"flash_fwd": 2, "flash_fwd_lse": 2, "flash_bwd_dq": 3,
                   "flash_bwd_dkv": 4}
 FLASH_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
+                 "flash_fwd_wgmma": "flash_fwd_wgmma_kernel",
                  "flash_bwd_dq": "flash_bwd_dq_kernel",
                  "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
 
@@ -975,6 +995,8 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed):
                     tol=tol, readings={o: r for o, (_, _, r) in c.items()
                                        if r})
             for n, c in checks.items()}
+    for n in ("flash_fwd", "flash_fwd_lse"):
+        rows[n]["route"] = kernels.flash_fwd_route(dtype, d)
     # an f32 product that accumulates in the plain version's order (the
     # dq and dk/dv sweeps at d = 64 against cuBLAS) can agree to the bit
     if dtype == torch.float32:
@@ -985,7 +1007,8 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed):
             for o, r in ((o, c[o][2]) for c in checks.values() for o in c)
             if r) + f" (tol {FLASH_BF16_MAX_TOL:.0e} / " \
             f"{FLASH_BF16_RMS_TOL:.0e})"
-    log(f"[flash kernels] {case}: max_abs_err "
+    log(f"[flash kernels] {case} forward on "
+        f"{kernels.flash_fwd_route(dtype, d)}: max_abs_err "
         + ", ".join(f"{n} {r['max_abs_err']:.3e}" for n, r in rows.items())
         + f"; {how}; max |ref| o "
         f"{o_ref.float().abs().max().item():.3f} dq "
@@ -1002,7 +1025,49 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed):
                    o_ref)
         rows["flash_fwd"]["planted"] = flash_planted_faults(
             bwd_args, {"o": o_ref, "dq": dq_ref, "dk": dk_ref, "dv": dv_ref})
+        rows["flash_fwd"]["planted"]["o, swapped pair of the kernel's own "
+                                     "output"] = swapped_own(o5, o_ref)
+        rows["flash_fwd"]["one_term_p"] = one_term_reading(q, k, v, causal,
+                                                           scale, o_ref)
     return rows
+
+
+def swapped_own(o, o_ref):
+    """The bf16 limits against the forward kernel's own output with each
+    pair of neighbours swapped (a store that writes a pair the wrong way
+    round): must be refused."""
+    bad = o.reshape(-1, 2).flip(-1).reshape(o.shape)
+    _, ok, read = _flash_err(bad, o_ref, o.dtype)
+    log(f"[flash kernels] planted fault, the forward's own output with "
+        f"pairs swapped: max_rel {read['max_rel']:.3e} rms_rel "
+        f"{read['rms_rel']:.3e}")
+    assert not ok, "the bf16 check passes a swapped pair of the output"
+    return read
+
+
+def one_term_reading(q, k, v, causal, scale, o_ref):
+    """What the bf16 limits read if P went into P.V as one bf16 term (P
+    rounded to bf16, products and sums in f32, as a single wgmma would
+    take it), against the two terms P_hi + P_lo the tensor-core forward
+    issues; emulated in PyTorch on the card. Recorded, not asserted: it
+    says why the forward splits P."""
+    s, live = attention._scores(q, k, scale, causal)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    if live is not None:
+        p = p * live
+    den = p.sum(-1, keepdim=True)
+    den = torch.where(den == 0, 1.0, den)
+    hi = p.bfloat16().float()
+    out = {}
+    for name, pp in (("one_term", hi),
+                     ("two_term", hi + (p - hi).bfloat16().float())):
+        o = (torch.einsum("bqk,bkd->bqd", pp, v.float()) / den).to(q.dtype)
+        out[name] = _flash_err(o, o_ref, q.dtype)[2]
+    del s, p, hi
+    log(f"[flash kernels] P.V with P in bf16 (emulated): one term "
+        f"{out['one_term']}, two terms {out['two_term']} (limits max_rel "
+        f"{FLASH_BF16_MAX_TOL}, rms_rel {FLASH_BF16_RMS_TOL})")
+    return out
 
 
 def time_flash(rows, q, k, v, do, lse, delta, causal, scale, dtype, o_ref):
@@ -1068,6 +1133,8 @@ def phase_flash_kernels(dev):
         for bh_, tq, tk, d_, causal in FLASH_EXTRA:
             variants.append(check_flash(bh_, tq, tk, d_, causal, dtype, gen,
                                         dev, False))
+        variants.append(check_flash(*FLASH_LONG, dtype, gen, dev,
+                                    dtype == torch.bfloat16))
     kernels.reset_launch_counts()   # comparison launches do not count
     return variants
 
@@ -1184,15 +1251,18 @@ def phase_bert(card, profile, dev):
         f"{peak_gb:.2f} GiB; losses {[round(v, 4) for v in losses]}")
     log(f"[bert] training launches {launches} (expected {L} each of "
         f"flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv per step x "
-        f"{BERT_STEPS}); inference forward {infer_ms:.3f} ms, launches "
-        f"{infer} (expected {L} flash_fwd)")
+        f"{BERT_STEPS}, every flash_fwd_lse on the tensor cores); inference "
+        f"forward {infer_ms:.3f} ms, launches {infer} (expected {L} "
+        f"flash_fwd, all on the tensor cores)")
     assert all(np.isfinite(losses)), "non-finite BERT training loss"
     want = dict.fromkeys(launches, 0)
     want.update({"flash_fwd_lse": L * BERT_STEPS,
+                 "flash_fwd_lse_wgmma": L * BERT_STEPS,
                  "flash_bwd_dq": L * BERT_STEPS,
                  "flash_bwd_dkv": L * BERT_STEPS})
     assert launches == want, "flash launch count off the training path"
-    assert infer == dict(dict.fromkeys(infer, 0), flash_fwd=L), \
+    assert infer == dict(dict.fromkeys(infer, 0), flash_fwd=L,
+                         flash_fwd_wgmma=L), \
         "flash launch count off the inference path"
     assert logits.shape == (BERT_BATCH, BERT_SEQ, BERT["vocab"]) and \
         torch.isfinite(logits.float()).all(), "inference logits not finite"
@@ -1555,6 +1625,119 @@ def phase_engine(card):
             "bf16_slots_per_gib": bf16_pool.slots_per_gb()}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the off-flagship shapes the kernels cover (ROADMAP C1)
+# ---------------------------------------------------------------------------
+COVER_NEW_TOKENS = 24
+# fused against unfused Dense(10, "relu"), float32, TF32 off, one SGD step:
+# the bias add rounds once in both (in the kernel, or in cuBLAS's addmm
+# epilogue), so the loss and every updated weight agree to a few ulps
+DENSE_RTOL = 1e-5
+
+
+def _counted(fn, **want):
+    """Run fn() on counts set to 0 and assert the launches it made are
+    exactly `want` (every other counter 0). Returns fn's result."""
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    expect = dict(dict.fromkeys(got, 0), **want)
+    assert got == expect, f"launches {got}, expected {want}"
+    return out
+
+
+def cover_engine(dev):
+    """DecoderConfig's defaults (head_dim 16, 4 heads, 2 layers, vocab 256)
+    at max_len 64, float32, behind the engine's default knobs: the port's
+    own docstring example."""
+    model = serve.CachedDecoder(serve.DecoderConfig(max_len=64), seed=0,
+                                device=dev)
+    rng = np.random.RandomState(10)
+    prompts = [rng.randint(1, model.config.vocab, size=int(n)).tolist()
+               for n in np.linspace(3, 36, 6).astype(int)]
+    with serve.ContinuousEngine(model, max_slots=8) as eng:
+        kernels.reset_launch_counts()
+        futs = [eng.submit(p, COVER_NEW_TOKENS) for p in prompts]
+        outs = [f.result(timeout=300) for f in futs]
+        launches = kernels.launch_counts()
+        st = eng.stats()
+        window = eng.prefill_window
+        want = model.config.layers * (eng.decode_steps
+                                      * st["decode_iterations"]
+                                      + st["chunk_batches"])
+    exact = sum(int(np.array_equal(o, model.reference_generate(
+        p, COVER_NEW_TOKENS, window=window))) for p, o in zip(prompts, outs))
+    log(f"[cover] engine at head_dim {model.config.head_dim} float32: "
+        f"{exact}/{len(prompts)} requests token-exact against "
+        f"reference_generate; paged_attention launches "
+        f"{launches['paged_attention']} (expected {want})")
+    assert launches["paged_attention"] == want > 0, \
+        "head_dim 16 engine off the kernel"
+    assert exact == len(prompts), "head_dim 16 engine != reference"
+    return {"head_dim": model.config.head_dim, "requests": len(prompts),
+            "token_exact": exact, "launches": launches["paged_attention"]}
+
+
+def cover_dense(dev):
+    """One FusedTrainStep SGD step of `Dense(10, "relu")` on float32 data
+    with fusion on (the bias and relu in the apply kernel, rows of 40
+    bytes) and off, from the same weights and batch."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randn(64, 32).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 10, 64).astype(np.int32)).to(dev)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = []
+    for use_fusion in (True, False):
+        net = gluon.nn.Dense(10, activation="relu", in_units=32).initialize(
+            device=dev, seed=3)
+        step = FusedTrainStep(
+            net, lambda n, a, b: loss_fn(n(a), b).sum(),
+            optimizer.create("sgd", learning_rate=0.1, momentum=0.9,
+                             rescale_grad=1.0 / 64), use_fusion=use_fusion)
+        loss = _counted(lambda: float(step(x, y)),
+                        **({"scale_shift_act": 1} if use_fusion else {}))
+        runs.append((loss, {n: t.detach().clone() for n, t in
+                            net.collect_params().items()}))
+    (fl, fw), (ul, uw) = runs
+    rel = {n: ((fw[n] - uw[n]).abs().max() / uw[n].abs().max()).item()
+           for n in uw}
+    loss_rel = abs(fl - ul) / abs(ul)
+    log(f"[cover] Dense(10, relu) float32 step fused {fl!r} unfused {ul!r} "
+        f"(rel {loss_rel:.2e}); weights after the step, max |fused - "
+        f"unfused| / max |unfused|: {rel} (tol {DENSE_RTOL})")
+    assert loss_rel <= DENSE_RTOL and all(r <= DENSE_RTOL
+                                          for r in rel.values()), \
+        "fused Dense(10) step != unfused"
+    return {"loss_fused": fl, "loss_unfused": ul, "loss_rel": loss_rel,
+            "weight_rel": rel}
+
+
+def phase_coverage(dev):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(10)
+    engine = cover_engine(dev)
+    dense = cover_dense(dev)
+    pools = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, pool in (((8, 14, 14, 12), (2, 2)),
+                            ((8, 7, 7, 12), (7, 7))):
+            pools.append(_counted(
+                lambda: check_pool(shape, pool, dtype, gen, dev, False),
+                avg_pool2d_fwd=1, avg_pool2d_bwd=1))
+    applies = []
+    for c, dtype in ((10, torch.float32), (4, torch.bfloat16)):
+        for act, residual in ((None, False), ("relu", True),
+                              ("gelu", False)):
+            applies.append(_counted(
+                lambda: check_apply(6000, c, act, residual, dtype, gen, dev,
+                                    False), scale_shift_act=1))
+    kernels.reset_launch_counts()
+    return {"engine": engine, "dense": dense, "pools": pools,
+            "applies": applies}
+
+
 def int8_entry(variants, engine):
     """The int8 variant's JSON entry, at the speculative verify shape the
     engine's decode waves launch (bf16 q, int8 slab, C = draft + 1)."""
@@ -1583,11 +1766,20 @@ FLASH_REPLACES = {"flash_fwd": 279, "flash_fwd_lse": 313,
 
 
 def flash_entries(variants, bert):
-    """The kernels' JSON entries for the transformer path."""
-    main = next(v for v in variants if "ms" in v["flash_fwd"])
+    """The kernels' JSON entries for the transformer path: the numbers at
+    the path's shape, the causal (48, 2048, 128) timing beside them."""
+    main, long_ = [v for v in variants if "ms" in v["flash_fwd"]]
     entries = []
     for name in FLASH_KERNELS:
         r = main[name]
+        timed_long = {k: long_[name][k] for k in
+                      ("ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "max_abs_err")}
+        extra = {}
+        if name in ("flash_fwd", "flash_fwd_lse"):
+            extra = {"route": r["route"],
+                     "tensor_core_launches": bert["launches"][
+                         name + "_wgmma"]}
         entries.append({
             "name": name, "route": "cuda",
             "source": "incubator_mxnet_tpu_torch/ops/csrc/flash_attention.cu",
@@ -1601,6 +1793,7 @@ def flash_entries(variants, bert):
                      f"{r['dtype']}, no mask (library: "
                      f"F.scaled_dot_product_attention "
                      f"{'forward' if name.startswith('flash_fwd') else 'backward (dq, dk, dv at once)'})",
+            **extra, "causal_48x2048x128": timed_long,
             "variants": [v[name] for v in variants]})
     per_step = sum(main[n]["ms"] for n in FLASH_KERNELS[1:]) \
         * BERT["layers"]
@@ -1660,6 +1853,7 @@ def main():
     bert = phase_bert(card, args.profile, dev)
     int8_variants = phase_int8_kernels(dev)
     engine = phase_engine(card)
+    coverage = phase_coverage(dev)
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -1676,8 +1870,12 @@ def main():
         "shape": f"S={SLOTS} C=1 H={FULL['heads']} D={FULL['head_dim']} "
                  f"T={FULL['max_len']} bfloat16, lengths {lens}",
         "variants": variants,
+        "coverage": coverage["engine"],
     }
     entries, share = train_entries(train_kernels, train)
+    entries[0]["coverage"] = coverage["applies"] + [coverage["dense"]]
+    entries[1]["coverage"] = [p[0] for p in coverage["pools"]]
+    entries[2]["coverage"] = [p[1] for p in coverage["pools"]]
     train["kernel_share"] = share
     fentries, bert["flash_share"] = flash_entries(flash, bert)
     entries += fentries
@@ -1688,7 +1886,8 @@ def main():
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": [entry] + entries,
                        "serve": result, "train": train, "bert": bert,
-                       "engine": engine}, f, indent=1, default=str)
+                       "engine": engine, "coverage": coverage}, f,
+                      indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [
         {k: v for k, v in e.items() if k != "variants"} for e in entries]}))

@@ -25,8 +25,12 @@
 // few output vectors over all SMs. Left for later: splitting a large window
 // over several threads with a warp reduction.
 //
-// The caller guarantees: contiguous NHWC tensors, C a multiple of 8, every
-// pointer 16-byte aligned, H = Ho * ph and W = Wo * pw.
+// Any C: the kernels are templated on the channels a thread moves, V = 8
+// (C a multiple of 8 and both pointers 16-byte aligned; every ResNet shape)
+// or V = 1 (one channel a thread, C = 12 for example), with the same
+// arithmetic.
+//
+// The caller guarantees: contiguous NHWC tensors, H = Ho * ph and W = Wo * pw.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,12 +81,37 @@ struct Pack8<__nv_bfloat16> {
   }
 };
 
+// V channels of T: the 8-channel vector above, or one channel
+template <typename T, int V>
+struct PackV : Pack8<T> {};
+
 template <typename T>
+struct PackV<T, 1> {
+  __device__ __forceinline__ static void load(const T* p, float* d) {
+    d[0] = to_float(p[0]);
+  }
+  __device__ __forceinline__ static void store(T* p, const float* s) {
+    p[0] = from_float(s[0], p);
+  }
+  __device__ __forceinline__ static float to_float(float x) { return x; }
+  __device__ __forceinline__ static float to_float(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  __device__ __forceinline__ static float from_float(float x, float*) {
+    return x;
+  }
+  __device__ __forceinline__ static __nv_bfloat16 from_float(
+      float x, __nv_bfloat16*) {
+    return __float2bfloat16_rn(x);
+  }
+};
+
+template <typename T, int V>
 __global__ void __launch_bounds__(kFwdThreads)
     avg_pool_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int H,
                         int W, int C, int Ho, int Wo, int ph, int pw,
                         long long total) {
-  const int c8 = C / 8;
+  const int c8 = C / V;
   const float count = (float)(ph * pw);
   const long long step = (long long)gridDim.x * kFwdThreads;
   for (long long idx = (long long)blockIdx.x * kFwdThreads + threadIdx.x;
@@ -94,29 +123,31 @@ __global__ void __launch_bounds__(kFwdThreads)
     const int oh = (int)(r % Ho);
     const long long n = r / Ho;
     const T* base =
-        x + ((n * H + (long long)oh * ph) * W + (long long)ow * pw) * C + cv * 8;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        x + ((n * H + (long long)oh * ph) * W + (long long)ow * pw) * C + cv * V;
+    float acc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = 0.f;
     for (int i = 0; i < ph; ++i) {
       const T* row = base + (long long)i * W * C;
       for (int j = 0; j < pw; ++j) {
-        float v[8];
-        Pack8<T>::load(row + (long long)j * C, v);
+        float v[V];
+        PackV<T, V>::load(row + (long long)j * C, v);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) acc[k] += v[k];
+        for (int k = 0; k < V; ++k) acc[k] += v[k];
       }
     }
 #pragma unroll
-    for (int k = 0; k < 8; ++k) acc[k] = acc[k] / count;
-    Pack8<T>::store(y + idx * 8, acc);
+    for (int k = 0; k < V; ++k) acc[k] = acc[k] / count;
+    PackV<T, V>::store(y + idx * V, acc);
   }
 }
 
-template <typename T>
+template <typename T, int V>
 __global__ void __launch_bounds__(kBwdThreads)
     avg_pool_bwd_kernel(const T* __restrict__ dy, T* __restrict__ dx, int H,
                         int W, int C, int Ho, int Wo, int ph, int pw,
                         float inv, long long total) {
-  const int c8 = C / 8;
+  const int c8 = C / V;
   const long long step = (long long)gridDim.x * kBwdThreads;
   for (long long idx = (long long)blockIdx.x * kBwdThreads + threadIdx.x;
        idx < total; idx += step) {
@@ -126,12 +157,12 @@ __global__ void __launch_bounds__(kBwdThreads)
     r /= W;
     const int h = (int)(r % H);
     const long long n = r / H;
-    float g[8];
-    Pack8<T>::load(
-        dy + ((n * Ho + h / ph) * Wo + w / pw) * C + (long long)cv * 8, g);
+    float g[V];
+    PackV<T, V>::load(
+        dy + ((n * Ho + h / ph) * Wo + w / pw) * C + (long long)cv * V, g);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) g[k] = g[k] * inv;
-    Pack8<T>::store(dx + idx * 8, g);
+    for (int k = 0; k < V; ++k) g[k] = g[k] * inv;
+    PackV<T, V>::store(dx + idx * V, g);
   }
 }
 
@@ -163,8 +194,36 @@ struct Device {
 };
 
 bool bad_shape(int dtype, int N, int H, int W, int C, int ph, int pw) {
-  return (dtype != 0 && dtype != 1) || N <= 0 || C <= 0 || C % 8 != 0 ||
-         ph <= 0 || pw <= 0 || H <= 0 || W <= 0 || H % ph != 0 || W % pw != 0;
+  return (dtype != 0 && dtype != 1) || N <= 0 || C <= 0 || ph <= 0 ||
+         pw <= 0 || H <= 0 || W <= 0 || H % ph != 0 || W % pw != 0;
+}
+
+// 8-channel vectors where C is a multiple of 8 and both buffers are aligned
+bool vec8(int C, const void* a, const void* b) {
+  return C % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
+
+template <typename T, int V>
+void fwd(const void* x, void* y, int N, int H, int W, int C, int ph, int pw,
+         int device, cudaStream_t st) {
+  const int Ho = H / ph, Wo = W / pw;
+  const long long total = (long long)N * Ho * Wo * (C / V);
+  avg_pool_fwd_kernel<T, V>
+      <<<grid_for(total, kFwdThreads, device), kFwdThreads, 0, st>>>(
+          static_cast<const T*>(x), static_cast<T*>(y), H, W, C, Ho, Wo, ph,
+          pw, total);
+}
+
+template <typename T, int V>
+void bwd(const void* dy, void* dx, int N, int H, int W, int C, int ph, int pw,
+         float inv, int device, cudaStream_t st) {
+  const int Ho = H / ph, Wo = W / pw;
+  const long long total = (long long)N * H * W * (C / V);
+  avg_pool_bwd_kernel<T, V>
+      <<<grid_for(total, kBwdThreads, device), kBwdThreads, 0, st>>>(
+          static_cast<const T*>(dy), static_cast<T*>(dx), H, W, C, Ho, Wo, ph,
+          pw, inv, total);
 }
 
 }  // namespace
@@ -177,18 +236,14 @@ extern "C" int mx_avg_pool2d_fwd(int dtype, int device, const void* x,
   if (bad_shape(dtype, N, H, W, C, ph, pw)) return (int)cudaErrorInvalidValue;
   Device guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  const int Ho = H / ph, Wo = W / pw;
-  const long long total = (long long)N * Ho * Wo * (C / 8);
-  const int grid = grid_for(total, kFwdThreads, device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool v8 = vec8(C, x, y);
   if (dtype == 0)
-    avg_pool_fwd_kernel<float><<<grid, kFwdThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), H, W, C, Ho, Wo,
-        ph, pw, total);
+    (v8 ? fwd<float, 8> : fwd<float, 1>)(x, y, N, H, W, C, ph, pw, device,
+                                         st);
   else
-    avg_pool_fwd_kernel<__nv_bfloat16><<<grid, kFwdThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
-        H, W, C, Ho, Wo, ph, pw, total);
+    (v8 ? fwd<__nv_bfloat16, 8> : fwd<__nv_bfloat16, 1>)(
+        x, y, N, H, W, C, ph, pw, device, st);
   return (int)cudaGetLastError();
 }
 
@@ -201,18 +256,14 @@ extern "C" int mx_avg_pool2d_bwd(int dtype, int device, const void* dy,
   if (bad_shape(dtype, N, H, W, C, ph, pw)) return (int)cudaErrorInvalidValue;
   Device guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  const int Ho = H / ph, Wo = W / pw;
-  const long long total = (long long)N * H * W * (C / 8);
-  const int grid = grid_for(total, kBwdThreads, device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool v8 = vec8(C, dy, dx);
   if (dtype == 0)
-    avg_pool_bwd_kernel<float><<<grid, kBwdThreads, 0, st>>>(
-        static_cast<const float*>(dy), static_cast<float*>(dx), H, W, C, Ho,
-        Wo, ph, pw, inv, total);
+    (v8 ? bwd<float, 8> : bwd<float, 1>)(dy, dx, N, H, W, C, ph, pw, inv,
+                                         device, st);
   else
-    avg_pool_bwd_kernel<__nv_bfloat16><<<grid, kBwdThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dx),
-        H, W, C, Ho, Wo, ph, pw, inv, total);
+    (v8 ? bwd<__nv_bfloat16, 8> : bwd<__nv_bfloat16, 1>)(
+        dy, dx, N, H, W, C, ph, pw, inv, device, st);
   return (int)cudaGetLastError();
 }
 

@@ -21,30 +21,58 @@
 //   dk_j     = scale * sum_i ds[i, j] q_i,  dv_j = sum_i p[i, j] dO_i
 //
 // with f32 arithmetic and accumulators inside, and q, k, v, o, dO, dq, dk, dv
-// in float32 or bfloat16 (lse and delta float32). delta is computed by the
-// caller, as the JAX package computes it outside Pallas.
+// in float32 or bfloat16 (lse and delta float32), for every head dim d from 1
+// to 128 and any bh. delta is computed by the caller, as the JAX package
+// computes it outside Pallas.
 //
-// What bounds them on the card: operations. At the BERT-base shape (bh 192,
-// T 512, d 64) the forward does 12.9 GFLOP on 50.7 MB of bf16 inputs and
-// outputs, the dq sweep 19.3 GFLOP and the dk/dv sweep 25.8 GFLOP; this first
-// version runs its products on the CUDA cores in f32 (67 TFLOP/s at most),
-// not on the tensor cores (989 TFLOP/s bf16), so it sits far above the bound
-// the bytes set. What the design does about it: every tile lives in shared
-// memory as f32 after one 16-byte-vector load from device memory, the
-// (64 x 64) score tile never leaves the chip, each thread computes a 4 x 4
-// block of scores from float4 reads of padded rows (conflict-free banks), and
-// the running max, normaliser and accumulators stay in registers. Causal tiles
-// wholly above the diagonal are skipped, as the TPU kernels skip them.
-// Left for later: wgmma/TMA tensor-core tiles in bf16.
+// Two forwards. The bfloat16 forward at d a multiple of 8 runs on the tensor
+// cores (flash_fwd_wgmma_kernel, below); float32 inputs and bfloat16 ones at
+// other d run on the CUDA cores (flash_fwd_kernel). The wrapper chooses by
+// dtype and d alone. float32 stays off the tensor cores because they would
+// take it as TF32 (about three digits); d % 8 != 0 stays off them because a
+// row of d bfloat16 values is then no multiple of 16 bytes, the least global
+// stride a TMA tensor map can describe.
+//
+// What bounds them on the card. At the BERT-base shape (bh 192, T 512, d 64)
+// the forward does 12.9 GFLOP on 50.3 MB of bf16 inputs and outputs, so on
+// the tensor cores (989 TFLOP/s bf16) its bound is the bytes (0.015 ms at
+// 3.35 TB/s); the dq sweep does 19.3 GFLOP and the dk/dv sweep 25.8, which
+// the f32 CUDA cores (67 TFLOP/s at most) make their bound. What the designs
+// do about it:
+//   * tensor-core forward: a producer warp streams K and V tiles by TMA into
+//     a ring of shared-memory stages (mbarriers), two consumer warpgroups of
+//     64 query rows each run S = Q K^T and O += P V as wgmma with f32
+//     accumulators in registers, the online softmax runs on those registers,
+//     and the (128 x Tk) score block never leaves the chip. P is split into
+//     two bf16 terms (hi + lo), so P V keeps the f32 P of the plain version
+//     to about 2^-17 (see the kernel's note).
+//   * CUDA-core kernels (the CUDA-core forward and both backward sweeps):
+//     every tile lives in shared memory as f32 after one 16-byte-vector load
+//     from device memory (a scalar one where a row is not a whole number of
+//     16-byte vectors), the (64 x 64) score tile never leaves the chip, each
+//     thread computes a 4 x 4 block of scores from float4 reads of padded
+//     rows (conflict-free banks), and the running max, normaliser and
+//     accumulators stay in registers.
+// Causal tiles wholly above the diagonal are skipped, as the TPU kernels skip
+// them. Left for later: the backward sweeps on the tensor cores.
+//
+// Head dims. Each kernel is instantiated for a capacity D (32, 64, 128 on
+// the CUDA cores; 64, 128 on the tensor cores) and takes the real d at run
+// time: columns d..D-1 of every tile are zero (masked loads, or TMA's
+// out-of-bounds fill) and are never stored, so they add nothing to a dot
+// product.
 //
 // Unlike the TPU grid, blocks run in parallel and share nothing: the loop over
 // key tiles (forward, dq) or query tiles (dk/dv) inside one block takes the
 // place of the TPU grid's sequential axis, so both backward sweeps accumulate
 // without atomics and are deterministic. Ragged Tq and Tk are masked per tile.
+// The grid is one-dimensional, head-major: block b serves head b / tiles and
+// row tile b % tiles, so bh is bounded by nothing but memory.
 //
-// Threads: 256 a block, as 16 row groups x 16 column groups. Thread (rg, cg)
-// owns rows rg*4 .. rg*4+3 of a 64-row tile; its scores are the columns
-// cg + 16*j (j < 4) and its output columns col(cg, t) below.
+// CUDA-core threads: 256 a block, as 16 row groups x 16 column groups. Thread
+// (rg, cg) owns rows rg*4 .. rg*4+3 of a 64-row tile; its scores are the
+// columns cg + 16*j (j < 4) and its output columns col(cg, t) below.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,6 +106,7 @@ struct Load8;
 
 template <>
 struct Load8<float> {
+  __device__ __forceinline__ static float one(const float* p) { return *p; }
   __device__ __forceinline__ static void load(const float* p, float* d) {
     const float4 a = *reinterpret_cast<const float4*>(p);
     const float4 b = *reinterpret_cast<const float4*>(p + 4);
@@ -88,6 +117,9 @@ struct Load8<float> {
 
 template <>
 struct Load8<__nv_bfloat16> {
+  __device__ __forceinline__ static float one(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
   __device__ __forceinline__ static void load(const __nv_bfloat16* p,
                                               float* d) {
     const uint4 v = *reinterpret_cast<const uint4*>(p);
@@ -106,27 +138,45 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// rows [row0, row0 + 64) of a contiguous (rows, D) matrix into a padded f32
-// tile; rows at or past `rows` read as zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int row0,
-                                          int rows, float* dst) {
+// rows [row0, row0 + 64) of a contiguous (rows, hd) matrix into a padded f32
+// tile of capacity D >= hd; rows at or past `rows` and columns at or past hd
+// read as zeros. kVec: every 8-value chunk that starts inside a row is whole
+// and 16-byte aligned, one vector load; else element by element.
+template <typename T, int D, bool kVec>
+__device__ __forceinline__ void load_tile_path(const T* __restrict__ src,
+                                               int row0, int rows, int hd,
+                                               float* dst) {
   constexpr int kPerRow = D / 8;
   constexpr int kChunks = kTile * kPerRow;
   for (int c = threadIdx.x; c < kChunks; c += kThreads) {
     const int r = c / kPerRow;
     const int d = (c % kPerRow) * 8;
     float v[8];
-    if (row0 + r < rows) {
-      Load8<T>::load(src + (long long)(row0 + r) * D + d, v);
-    } else {
+    const T* p = src + (long long)(row0 + r) * hd + d;
+    if (row0 + r >= rows || d >= hd) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) v[i] = 0.f;
+    } else if constexpr (kVec) {
+      Load8<T>::load(p, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = d + i < hd ? Load8<T>::one(p + i) : 0.f;
     }
     float4* o = reinterpret_cast<float4*>(dst + r * Dims<D>::kLd + d);
     o[0] = make_float4(v[0], v[1], v[2], v[3]);
     o[1] = make_float4(v[4], v[5], v[6], v[7]);
   }
+}
+
+// the path is chosen once per call (a uniform branch), so the vector loop's
+// loads stay straight-line
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, int row0,
+                                          int rows, int hd, float* dst) {
+  if (hd % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0)
+    load_tile_path<T, D, true>(src, row0, rows, hd, dst);
+  else
+    load_tile_path<T, D, false>(src, row0, rows, hd, dst);
 }
 
 // acc[i][j] += A[rg*4+i] . B[cg+16j] over D (A, B padded (64 x D) tiles)
@@ -229,14 +279,15 @@ __device__ __forceinline__ bool live(int qi, int kj, int Tq, int Tk,
   return qi < Tq && kj < Tk && (!causal || kj <= qi + (Tk - Tq));
 }
 
-// key tiles a query tile at q0 reads: all, or, when causal, those not wholly
-// above the diagonal (the TPU kernels' skip rule)
-__device__ __forceinline__ int key_tiles(int q0, int Tq, int Tk, int causal) {
-  const int nk = (Tk + kTile - 1) / kTile;
+// key tiles of `bn` rows a query tile of `bm` rows at q0 reads: all, or, when
+// causal, those not wholly above the diagonal (the TPU kernels' skip rule)
+__device__ __forceinline__ int key_tiles(int q0, int Tq, int Tk, int causal,
+                                         int bm = kTile, int bn = kTile) {
+  const int nk = (Tk + bn - 1) / bn;
   if (!causal) return nk;
-  const int last = min(q0 + kTile, Tq) - 1 + (Tk - Tq);
+  const int last = min(q0 + bm, Tq) - 1 + (Tk - Tq);
   if (last < 0) return 0;
-  return min(nk, last / kTile + 1);
+  return min(nk, last / bn + 1);
 }
 
 // the first query tile that sees a key tile at k0 (causal)
@@ -246,30 +297,31 @@ __device__ __forceinline__ int first_query_tile(int k0, int Tq, int Tk) {
 }
 
 // ---------------------------------------------------------------------------
-// B5 / B6: forward, one block per (query tile, bh), online softmax over the
-// key tiles
+// B5 / B6 on the CUDA cores (float32; bfloat16 at d % 8 != 0): one block per
+// (bh, query tile), online softmax over the key tiles
 // ---------------------------------------------------------------------------
 template <typename T, int D, bool kWithLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int Tq, int Tk, int causal,
-                     float scale) {
+                     float scale, int hd) {
   constexpr int TD = Dims<D>::kTD;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sK = sQ + Dims<D>::kTileFloats;
   float* sV = sK + Dims<D>::kTileFloats;
   float* sP = sV + Dims<D>::kTileFloats;
-  const long long bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
+  const int n_qt = (Tq + kTile - 1) / kTile;
+  const long long bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * kTile;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
-  q += bh * Tq * D;
-  k += bh * Tk * D;
-  v += bh * Tk * D;
-  o += bh * Tq * D;
+  q += bh * Tq * hd;
+  k += bh * Tk * hd;
+  v += bh * Tk * hd;
+  o += bh * Tq * hd;
 
-  load_tile<T, D>(q, q0, Tq, sQ);
+  load_tile<T, D>(q, q0, Tq, hd, sQ);
   float m[4], l[4], acc[4][TD];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -282,8 +334,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the last tile's P.V is done with sK, sV, sP
-    load_tile<T, D>(k, k0, Tk, sK);
-    load_tile<T, D>(v, k0, Tk, sV);
+    load_tile<T, D>(k, k0, Tk, hd, sK);
+    load_tile<T, D>(v, k0, Tk, hd, sV);
     __syncthreads();
     float s[4][4] = {};
     tile_dot<D>(sQ, sK, rg, cg, s);
@@ -321,8 +373,10 @@ __global__ void __launch_bounds__(kThreads)
     if (qi >= Tq) continue;
     const float denom = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
-    for (int t = 0; t < TD; ++t)
-      store(o + (long long)qi * D + out_col<D>(cg, t), acc[i][t] / denom);
+    for (int t = 0; t < TD; ++t) {
+      const int col = out_col<D>(cg, t);
+      if (col < hd) store(o + (long long)qi * hd + col, acc[i][t] / denom);
+    }
     if (kWithLse && cg == 0)
       lse[bh * Tq + qi] =
           l[i] > 0.f ? m[i] + logf(fmaxf(l[i], 1e-37f)) : kMasked;
@@ -338,7 +392,7 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int Tq, int Tk, int causal, float scale) {
+                        int Tq, int Tk, int causal, float scale, int hd) {
   constexpr int TD = Dims<D>::kTD;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -346,17 +400,18 @@ __global__ void __launch_bounds__(kThreads)
   float* sK = sO + Dims<D>::kTileFloats;
   float* sV = sK + Dims<D>::kTileFloats;
   float* sS = sV + Dims<D>::kTileFloats;  // ds
-  const long long bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
+  const int n_qt = (Tq + kTile - 1) / kTile;
+  const long long bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * kTile;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
-  q += bh * Tq * D;
-  dout += bh * Tq * D;
-  dq += bh * Tq * D;
-  k += bh * Tk * D;
-  v += bh * Tk * D;
+  q += bh * Tq * hd;
+  dout += bh * Tq * hd;
+  dq += bh * Tq * hd;
+  k += bh * Tk * hd;
+  v += bh * Tk * hd;
 
-  load_tile<T, D>(q, q0, Tq, sQ);
-  load_tile<T, D>(dout, q0, Tq, sO);
+  load_tile<T, D>(q, q0, Tq, hd, sQ);
+  load_tile<T, D>(dout, q0, Tq, hd, sO);
   float lse_r[4], del_r[4], acc[4][TD];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -370,8 +425,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile<T, D>(k, k0, Tk, sK);
-    load_tile<T, D>(v, k0, Tk, sV);
+    load_tile<T, D>(k, k0, Tk, hd, sK);
+    load_tile<T, D>(v, k0, Tk, hd, sV);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
     tile_dot<D>(sQ, sK, rg, cg, s);
@@ -396,8 +451,10 @@ __global__ void __launch_bounds__(kThreads)
     const int qi = q0 + rg * 4 + i;
     if (qi >= Tq) continue;
 #pragma unroll
-    for (int t = 0; t < TD; ++t)
-      store(dq + (long long)qi * D + out_col<D>(cg, t), acc[i][t] * scale);
+    for (int t = 0; t < TD; ++t) {
+      const int col = out_col<D>(cg, t);
+      if (col < hd) store(dq + (long long)qi * hd + col, acc[i][t] * scale);
+    }
   }
 }
 
@@ -412,7 +469,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, int Tq, int Tk, int causal,
-                         float scale) {
+                         float scale, int hd) {
   constexpr int TD = Dims<D>::kTD;
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
@@ -423,18 +480,19 @@ __global__ void __launch_bounds__(kThreads)
   float* sS = sP + kTile * kLdS;          // ds, (key row, query row)
   float* sL = sS + kTile * kLdS;          // lse of the query tile
   float* sD = sL + kTile;                 // delta of the query tile
-  const long long bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
+  const int n_kt = (Tk + kTile - 1) / kTile;
+  const long long bh = blockIdx.x / n_kt;
+  const int k0 = (blockIdx.x % n_kt) * kTile;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
-  q += bh * Tq * D;
-  dout += bh * Tq * D;
-  k += bh * Tk * D;
-  v += bh * Tk * D;
-  dk += bh * Tk * D;
-  dv += bh * Tk * D;
+  q += bh * Tq * hd;
+  dout += bh * Tq * hd;
+  k += bh * Tk * hd;
+  v += bh * Tk * hd;
+  dk += bh * Tk * hd;
+  dv += bh * Tk * hd;
 
-  load_tile<T, D>(k, k0, Tk, sK);
-  load_tile<T, D>(v, k0, Tk, sV);
+  load_tile<T, D>(k, k0, Tk, hd, sK);
+  load_tile<T, D>(v, k0, Tk, hd, sV);
   float dk_acc[4][TD], dv_acc[4][TD];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -448,8 +506,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = causal ? first_query_tile(k0, Tq, Tk) : 0; qt < nq; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();
-    load_tile<T, D>(q, q0, Tq, sQ);
-    load_tile<T, D>(dout, q0, Tq, sO);
+    load_tile<T, D>(q, q0, Tq, hd, sQ);
+    load_tile<T, D>(dout, q0, Tq, hd, sO);
     for (int r = threadIdx.x; r < kTile; r += kThreads) {
       const bool in = q0 + r < Tq;
       sL[r] = in ? lse[bh * Tq + q0 + r] : kMasked;
@@ -483,11 +541,509 @@ __global__ void __launch_bounds__(kThreads)
     if (kj >= Tk) continue;
 #pragma unroll
     for (int t = 0; t < TD; ++t) {
-      const long long at = (long long)kj * D + out_col<D>(cg, t);
+      const int col = out_col<D>(cg, t);
+      if (col >= hd) continue;
+      const long long at = (long long)kj * hd + col;
       store(dk + at, dk_acc[i][t] * scale);
       store(dv + at, dv_acc[i][t]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// B5 / B6 on the tensor cores: bfloat16, d a multiple of 8 (<= 128)
+// ---------------------------------------------------------------------------
+// Replaces _flash_forward_kernel / _flash_forward_lse
+// (incubator_mxnet_tpu/ops/pallas_attention.py:279, :313) for bfloat16 inputs
+// whose rows are whole 16-byte vectors. Bound: bytes, (2 Tq + 2 Tk) d bh x 2
+// bytes (+ 4 Tq bh for the lse) over 3.35 TB/s, 0.015 ms at (192, 512, 64);
+// its 12.9 GFLOP (19.3 with the two-term P) need 0.013-0.020 ms at the bf16
+// peak. What the design does about it:
+//   * a persistent grid, one block of 288 threads per SM (its registers
+//     leave room for no second), each walking work items of (head, 128
+//     query rows): warps 0-3 and 4-7 are two consumer warpgroups of 64 rows
+//     each, warp 8 the producer. A block of T = 512 has only 4 key tiles,
+//     so the producer loading the next item's Q (into a second Q buffer)
+//     and first tiles under this item's last products is what keeps the
+//     tensor cores fed between items.
+//   * the producer's lane 0 loads each item's Q once and then K and V tiles
+//     of BN key rows into a ring of kTcStages stages by TMA
+//     (cp.async.bulk.tensor over a 3-D tensor map (d, T, bh) with 128-byte
+//     swizzle, in 64-column boxes), each stage guarded by a full mbarrier
+//     (transaction bytes) and an empty one (the 256 consumer threads). A
+//     row past T, or a column past d, is outside the map and reads as zero,
+//     so a head never reads the next head's rows and the pad adds nothing.
+//   * a consumer warpgroup computes S = Q K^T (64 x BN) by wgmma from the
+//     swizzled tiles (bf16 operands, f32 accumulators), runs the online
+//     softmax on the accumulator registers (row max by two lane shuffles,
+//     the row sum kept per thread until the end), and accumulates
+//     O += P V by wgmma with P from registers and V from shared memory
+//     (transposed operand).
+//   * P in bf16 alone would part from the f32 P by up to 2^-9 relative per
+//     term, and the bf16 O from the plain version's by rms_rel ~2.4e-3 at
+//     (192, 512, 64) (chip_smoke.py phase 6 reads it), over the 5e-4 limit
+//     the smoke holds bf16 outputs to; P = P_hi + P_lo, both bf16, issued
+//     as two wgmma into the same accumulator, keeps P to about 2^-17 for
+//     1.5x the forward's products.
+//   * the two consumer warpgroups take turns issuing S = Q K^T (named
+//     barriers), so one's softmax overlaps the other's products.
+//   * BN = 128 key rows at D = 64, 64 at D = 128, so S, O and the two P
+//     terms fit the 168 registers ptxas gives a thread of a 288-thread
+//     block that issues wgmma.
+// The 128-row block and the causal skip of key tiles wholly above the
+// diagonal follow the CUDA-core forward; the function is the same.
+constexpr int kTcThreads = 288;   // 2 consumer warpgroups + 1 producer warp
+constexpr int kTcRows = 128;      // query rows a work item
+constexpr int kTcStages = 3;      // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct Tc {
+  static constexpr int kBN = D <= 64 ? 128 : 64;      // key rows a tile
+  static constexpr int kAtoms = D / 64;               // 64-column boxes
+  static constexpr int kQBytes = 2 * kAtoms * 64 * 128;   // both warpgroups
+  static constexpr int kTileBytes = kAtoms * kBN * 128;   // K or V, a stage
+  // two Q buffers (the next item's Q loads under this item's tiles), the
+  // K and V ring, then the barriers: q_full[2], q_empty[2], full[stages],
+  // empty[stages]
+  static constexpr int kBarOff = 2 * kQBytes + 2 * kTcStages * kTileBytes;
+  static constexpr int kSmem = 1024 + kBarOff + 8 * (4 + 2 * kTcStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait for the phase of parity `parity` to complete; a wait that outlasts
+// ~2^34 cycles (seconds: a fault in the pipeline, never a slow tile) traps,
+// so the launch fails instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory operand descriptor, 128-byte swizzle: start address,
+// leading byte offset (between 64-column atoms of an MN-major operand; unused
+// for a K-major one), stride byte offset 1024 (between groups of 8 rows)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// named barriers between the two consumer warpgroups (256 threads: one
+// warpgroup syncs, the other arrives); barrier 0 is __syncthreads'
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator reads or writes across a
+// wgmma fence or wait
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x N f32, the accumulator fragment) (+)= A (64 x 16, K-major, shared
+// memory) . B (16 x N, K-major, shared memory); accumulate = 0 overwrites
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int accumulate);
+// d (64 x N f32) += A (64 x 16 bf16 in registers, 4 x 2 values a thread) .
+// B (16 x N, N-major (transposed), shared memory)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Accumulator fragment of a 64 x N wgmma in a consumer thread (warp w of
+// its warpgroup, lane = 4 g + t): register 4 j + e holds row
+// 16 w + g + 8 (e / 2), column 8 j + 2 t + (e % 2).
+template <int D, bool kWithLse>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int n_heads, int Tq,
+                           int Tk, int causal, float scale_log2, int hd) {
+  using C = Tc<D>;
+  constexpr int BN = C::kBN;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;                          // Q buffer b: + b kQBytes
+  const uint32_t sK = sQ + 2 * C::kQBytes;
+  const uint32_t sV = sK + kTcStages * C::kTileBytes;
+  const uint32_t q_full0 = base + C::kBarOff;        // q_full[b] = + 8 b
+  const uint32_t q_empty0 = q_full0 + 16;
+  const uint32_t full0 = q_empty0 + 16;              // full[s] = full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * kTcStages;     // empty[s]
+
+  // work item i = (head i % n_heads, 128-row query tile n_qt - 1 - i /
+  // n_heads): the last query tiles, which a causal mask gives the most key
+  // tiles, come first, so each round of the blocks' walk (items blockIdx.x,
+  // + gridDim.x, ...) takes items of one size and the light ones fill the
+  // last, partial round
+  const int n_qt = (Tq + kTcRows - 1) / kTcRows;
+  const int n_items = n_heads * n_qt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(q_full0 + 8 * b, 1);
+      mbar_init(q_empty0 + 8 * b, 256);
+    }
+    for (int st = 0; st < kTcStages; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // producer: each item's Q into the free Q buffer, then its K/V tiles
+    // through the ring; the ring's stage and phase run on across items
+    if (lane == 0) {
+      int st = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x, it = 0; item < n_items;
+           item += gridDim.x, ++it) {
+        const int bh = item % n_heads;
+        const int q0 = (n_qt - 1 - item / n_heads) * kTcRows;
+        const int nk = key_tiles(q0, Tq, Tk, causal, kTcRows, BN);
+        const int qb = it & 1;
+        mbar_wait(q_empty0 + 8 * qb, ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(q_full0 + 8 * qb, C::kQBytes);
+        for (int w = 0; w < 2; ++w)
+          for (int a = 0; a < C::kAtoms; ++a)
+            tma_load(sQ + qb * C::kQBytes + (w * C::kAtoms + a) * 8192,
+                     &tm_q, q_full0 + 8 * qb, a * 64, q0 + 64 * w, bh);
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(empty0 + 8 * st, phase ^ 1);
+          const uint32_t bar = full0 + 8 * st;
+          mbar_expect_tx(bar, 2 * C::kTileBytes);
+          for (int a = 0; a < C::kAtoms; ++a) {
+            const uint32_t off = st * C::kTileBytes + a * BN * 128;
+            tma_load(sK + off, &tm_k, bar, a * 64, kt * BN, bh);
+            tma_load(sV + off, &tm_v, bar, a * 64, kt * BN, bh);
+          }
+          if (++st == kTcStages) {
+            st = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers. The two warpgroups take turns issuing S = Q K^T (named
+  // barriers 1 and 2), so one's softmax runs while the other's products
+  // hold the tensor cores: warpgroup 1 lets warpgroup 0 go first, and
+  // warpgroup 0 takes warpgroup 1's last turn signal at the end, so both
+  // barriers end balanced.
+  const int wg = warp / 4;
+  const int g = lane / 4, t = lane % 4;
+  if (wg == 1) named_arrive(1);
+  int st = 0;
+  uint32_t phase = 0;
+  for (int item = blockIdx.x, it = 0; item < n_items;
+       item += gridDim.x, ++it) {
+    const int bh = item % n_heads;
+    const int q0 = (n_qt - 1 - item / n_heads) * kTcRows;
+    const int nk = key_tiles(q0, Tq, Tk, causal, kTcRows, BN);
+    const int qb = it & 1;
+    const int row0 = q0 + 64 * wg + 16 * (warp % 4) + g;  // and row0 + 8
+    const int wg_first = q0 + 64 * wg;
+    const uint32_t sQw = sQ + qb * C::kQBytes + wg * C::kAtoms * 8192;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};  // m in log2 units
+    mbar_wait(q_full0 + 8 * qb, (it >> 1) & 1);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int k0 = kt * BN;
+      mbar_wait(full0 + 8 * st, phase);
+      const uint32_t sKs = sK + st * C::kTileBytes;
+      const uint32_t sVs = sV + st * C::kTileBytes;
+      float s[BN / 2];
+      named_sync(1 + wg);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // 16 columns: 32 bytes
+        wgmma_ss<BN>(s, sw128_desc(sQw + (kk / 4) * 8192 + off, 16),
+                     sw128_desc(sKs + (kk / 4) * BN * 128 + off, 16), kk > 0);
+      }
+      wg_commit();
+      named_arrive(2 - wg);
+      wg_wait0();
+      pin<BN / 2>(s);
+
+      // online softmax on the fragment: masked scores to -inf (exp2 gives
+      // 0), the row max of the raw scores over the 4 lanes of a row, then
+      // p = exp2(s * scale * log2(e) - m) with m in log2 units
+      const bool masked = k0 + BN > Tk ||
+                          (causal && k0 + BN - 1 > wg_first + (Tk - Tq));
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        if (masked) {
+          const int kj = k0 + 8 * (i / 4) + 2 * t + (i % 2);
+          const int qi = row0 + 8 * ((i % 4) / 2);
+          if (!(kj < Tk && (!causal || kj <= qi + (Tk - Tq))))
+            s[i] = -INFINITY;
+        }
+        mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+      uint32_t p_hi[BN / 16][4], p_lo[BN / 16][4];
+#pragma unroll
+      for (int kb = 0; kb < BN / 16; ++kb) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kb + 2 * r;  // rows: r even row0, odd row0 + 8
+          const float a = exp2f(fmaf(s[i], scale_log2, -m[r % 2]));
+          const float b = exp2f(fmaf(s[i + 1], scale_log2, -m[r % 2]));
+          l[r % 2] += a + b;
+          const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+          const float2 hf = __bfloat1622float2(h);
+          p_hi[kb][r] = *reinterpret_cast<const uint32_t*>(&h);
+          p_lo[kb][r] = pack_bf16(a - hf.x, b - hf.y);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i % 4) / 2];
+      pin<D / 2>(acc);
+      wg_fence();
+#pragma unroll
+      for (int kb = 0; kb < BN / 16; ++kb)
+        wgmma_rs<D>(acc, p_hi[kb], sw128_desc(sVs + kb * 2048, BN * 128));
+#pragma unroll
+      for (int kb = 0; kb < BN / 16; ++kb)
+        wgmma_rs<D>(acc, p_lo[kb], sw128_desc(sVs + kb * 2048, BN * 128));
+      wg_commit();
+      wg_wait0();
+      pin<D / 2>(acc);
+      mbar_arrive(empty0 + 8 * st);
+      if (++st == kTcStages) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+    mbar_arrive(q_empty0 + 8 * qb);   // this item's S products are done
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    const long long head = (long long)bh * Tq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row0 + 8 * r;
+      if (qi >= Tq) continue;
+      const float den = l[r] == 0.f ? 1.f : l[r];
+      __nv_bfloat16* orow = o + (head + qi) * hd;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col < hd)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r] / den,
+                                    acc[4 * j + 2 * r + 1] / den);
+      }
+      if (kWithLse && t == 0)
+        lse[head + qi] = l[r] > 0.f
+                             ? m[r] * kLn2 + logf(fmaxf(l[r], 1e-37f))
+                             : kMasked;
+    }
+  }
+  if (wg == 0) named_sync(1);
 }
 
 // ---------------------------------------------------------------------------
@@ -529,7 +1085,7 @@ struct Args {
   void* o;     // o, dq or dk
   void* o2;    // dv
   float* lse;  // the forward's lse output
-  int bh, tq, tk, causal;
+  int bh, tq, tk, causal, hd;
   float scale;
   cudaStream_t st;
 };
@@ -540,17 +1096,26 @@ cudaError_t prepare(K kern, int smem) {
                               smem);
 }
 
+// one block per (head, row tile), head-major along grid x
+bool grid_1d(int bh, int rows, int tile, dim3* grid) {
+  const long long n = (long long)bh * ((rows + tile - 1) / tile);
+  if (n <= 0 || n > 2147483647LL) return false;
+  *grid = dim3((unsigned)n);
+  return true;
+}
+
 template <typename T, int D, bool L>
 cudaError_t run_fwd(const Args& a) {
   auto kern = flash_fwd_kernel<T, D, L>;
   constexpr int smem = fwd_smem<D>();
+  dim3 grid;
+  if (!grid_1d(a.bh, a.tq, kTile, &grid)) return cudaErrorInvalidValue;
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.tq + kTile - 1) / kTile, a.bh);
   kern<<<grid, kThreads, smem, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.tq, a.tk,
-      a.causal, a.scale);
+      a.causal, a.scale, a.hd);
   return cudaGetLastError();
 }
 
@@ -558,13 +1123,14 @@ template <typename T, int D>
 cudaError_t run_dq(const Args& a) {
   auto kern = flash_bwd_dq_kernel<T, D>;
   constexpr int smem = dq_smem<D>();
+  dim3 grid;
+  if (!grid_1d(a.bh, a.tq, kTile, &grid)) return cudaErrorInvalidValue;
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.tq + kTile - 1) / kTile, a.bh);
   kern<<<grid, kThreads, smem, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse_in,
-      a.delta, static_cast<T*>(a.o), a.tq, a.tk, a.causal, a.scale);
+      a.delta, static_cast<T*>(a.o), a.tq, a.tk, a.causal, a.scale, a.hd);
   return cudaGetLastError();
 }
 
@@ -572,14 +1138,15 @@ template <typename T, int D>
 cudaError_t run_dkv(const Args& a) {
   auto kern = flash_bwd_dkv_kernel<T, D>;
   constexpr int smem = dkv_smem<D>();
+  dim3 grid;
+  if (!grid_1d(a.bh, a.tk, kTile, &grid)) return cudaErrorInvalidValue;
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.tk + kTile - 1) / kTile, a.bh);
   kern<<<grid, kThreads, smem, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse_in,
       a.delta, static_cast<T*>(a.o), static_cast<T*>(a.o2), a.tq, a.tk,
-      a.causal, a.scale);
+      a.causal, a.scale, a.hd);
   return cudaGetLastError();
 }
 
@@ -595,30 +1162,119 @@ cudaError_t run(int which, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+// the capacity instance that holds head dim hd
 template <typename T>
-cudaError_t run_dim(int head_dim, int which, const Args& a) {
-  switch (head_dim) {
-    case 32: return run<T, 32>(which, a);
-    case 64: return run<T, 64>(which, a);
-    case 128: return run<T, 128>(which, a);
-  }
-  return cudaErrorInvalidValue;
+cudaError_t run_dim(int which, const Args& a) {
+  if (a.hd <= 32) return run<T, 32>(which, a);
+  if (a.hd <= 64) return run<T, 64>(which, a);
+  return run<T, 128>(which, a);
 }
 
-int dispatch(int dtype, int device, int head_dim, int which, const Args& a) {
-  if ((dtype != 0 && dtype != 1) || a.bh <= 0 || a.bh > 65535 || a.tq < 0 ||
-      a.tk < 0)
+int dispatch(int dtype, int device, int which, const Args& a) {
+  if ((dtype != 0 && dtype != 1) || a.bh <= 0 || a.tq < 0 || a.tk < 0 ||
+      a.hd < 1 || a.hd > 128)
+    return (int)cudaErrorInvalidValue;
+  // the bfloat16 forward at d % 8 == 0 is the tensor-core kernel's
+  if (dtype == 1 && which <= 1 && a.hd % 8 == 0)
     return (int)cudaErrorInvalidValue;
   Device guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  return (int)(dtype == 0 ? run_dim<float>(head_dim, which, a)
-                          : run_dim<__nv_bfloat16>(head_dim, which, a));
+  return (int)(dtype == 0 ? run_dim<float>(which, a)
+                          : run_dim<__nv_bfloat16>(which, a));
+}
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the library
+// needs no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a bf16 (bh, rows, hd) contiguous tensor as a 3-D map (hd, rows, bh), read
+// in (64 columns, box_rows rows, 1 head) boxes with 128-byte swizzle;
+// outside the map reads as zero
+bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int rows, int bh,
+                int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)hd * 2 * rows};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// streaming multiprocessors of the current device (the persistent grid)
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  int n = dev >= 0 && dev < 64 ? counts[dev] : 0;
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n <= 0)
+      n = 132;
+    if (dev >= 0 && dev < 64) counts[dev] = n;
+  }
+  return n;
+}
+
+template <int D, bool L>
+cudaError_t run_fwd_wgmma(const Args& a) {
+  using C = Tc<D>;
+  auto kern = flash_fwd_wgmma_kernel<D, L>;
+  const long long items = (long long)a.bh * ((a.tq + kTcRows - 1) / kTcRows);
+  if (items <= 0 || items > 2147483647LL) return cudaErrorInvalidValue;
+  // persistent: one block per SM (its registers allow no second), each
+  // walking items blockIdx.x, + gridDim.x, ...
+  const int grid = (int)(items < sm_count() ? items : sm_count());
+  CUtensorMap mq, mk, mv;
+  // Tk == 0: no key tile is read; the maps only need to be valid
+  const void* kp = a.tk > 0 ? a.k : a.q;
+  const void* vp = a.tk > 0 ? a.v : a.q;
+  const int tk = a.tk > 0 ? a.tk : a.tq;
+  if (!tensor_map(&mq, a.q, a.hd, a.tq, a.bh, 64) ||
+      !tensor_map(&mk, kp, a.hd, tk, a.bh, C::kBN) ||
+      !tensor_map(&mv, vp, a.hd, tk, a.bh, C::kBN))
+    return cudaErrorInvalidValue;
+  cudaError_t e = prepare(kern, C::kSmem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, kTcThreads, C::kSmem, a.st>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(a.o), a.lse, a.bh, a.tq, a.tk,
+      a.causal, a.scale * kLog2e, a.hd);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; head_dim 32, 64 or 128. q (bh, tq, d), k and
-// v (bh, tk, d), o (bh, tq, d), all contiguous and 16-byte aligned; lse
+// dtype: 0 float32, 1 bfloat16; head_dim 1..128 (bfloat16 at a multiple of 8
+// is refused: mx_flash_fwd_wgmma serves it). q (bh, tq, d), k and v
+// (bh, tk, d), o (bh, tq, d), all contiguous and 16-byte aligned; lse
 // (bh, tq) float32, written when with_lse. Returns cudaGetLastError() after
 // the launch, never synchronises.
 extern "C" int mx_flash_fwd(int dtype, int device, int head_dim, int with_lse,
@@ -626,10 +1282,32 @@ extern "C" int mx_flash_fwd(int dtype, int device, int head_dim, int with_lse,
                             void* o, void* lse, int bh, int tq, int tk,
                             int causal, float scale, void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr,
-         static_cast<float*>(lse), bh, tq, tk, causal, scale,
+         static_cast<float*>(lse), bh, tq, tk, causal, head_dim, scale,
          static_cast<cudaStream_t>(stream)};
   if (with_lse && lse == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch(dtype, device, head_dim, with_lse ? 1 : 0, a);
+  return dispatch(dtype, device, with_lse ? 1 : 0, a);
+}
+
+// The tensor-core forward: bfloat16 q, k, v, o as above, 16-byte aligned,
+// head_dim a multiple of 8 up to 128, tq >= 1.
+extern "C" int mx_flash_fwd_wgmma(int device, int head_dim, int with_lse,
+                                  const void* q, const void* k,
+                                  const void* v, void* o, void* lse, int bh,
+                                  int tq, int tk, int causal, float scale,
+                                  void* stream) {
+  if (head_dim < 8 || head_dim > 128 || head_dim % 8 || bh <= 0 || tq <= 0 ||
+      tk < 0 || (with_lse && lse == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr,
+         static_cast<float*>(lse), bh, tq, tk, causal, head_dim, scale,
+         static_cast<cudaStream_t>(stream)};
+  Device guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  if (head_dim <= 64)
+    return (int)(with_lse ? run_fwd_wgmma<64, true>(a)
+                          : run_fwd_wgmma<64, false>(a));
+  return (int)(with_lse ? run_fwd_wgmma<128, true>(a)
+                        : run_fwd_wgmma<128, false>(a));
 }
 
 // dq (bh, tq, d) from q, k, v, dout and the float32 (bh, tq) lse and delta.
@@ -640,8 +1318,8 @@ extern "C" int mx_flash_bwd_dq(int dtype, int device, int head_dim,
                                int tk, int causal, float scale, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dq, nullptr, nullptr, bh, tq, tk,
-         causal, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, device, head_dim, 2, a);
+         causal, head_dim, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, device, 2, a);
 }
 
 // dk and dv (bh, tk, d) from q, k, v, dout and the float32 (bh, tq) lse and
@@ -654,8 +1332,8 @@ extern "C" int mx_flash_bwd_dkv(int dtype, int device, int head_dim,
                                 void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dk, dv, nullptr, bh, tq, tk,
-         causal, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, device, head_dim, 3, a);
+         causal, head_dim, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, device, 3, a);
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

@@ -29,6 +29,13 @@
 // for the chunk case, TMA with double-buffered tiles, and a split over tokens
 // when lanes x heads are too few to fill the card.
 //
+// Head dims: each instance has a capacity D (32, 64, 128) and takes the real
+// head dim d <= D at run time; columns d..D-1 of its tiles are zero and never
+// stored. Rows are read with 16-byte vector loads where every q and slab row
+// is a whole number of aligned 16-byte vectors (d * itemsize a multiple of 16,
+// strides and pointers aligned), and element by element otherwise (int8 codes
+// at d = 24, bf16 at d = 12, for example).
+//
 // Grid (ceil(C / QT), H, S), 128 threads a block. Blocks run in any order and
 // share nothing: the token loop inside a block takes the place of the TPU
 // grid's sequential token axis.
@@ -52,6 +59,7 @@ struct Vec16;
 template <>
 struct Vec16<float> {
   static constexpr int N = 4;
+  __device__ __forceinline__ static float one(const float* p) { return *p; }
   __device__ __forceinline__ static void load(const float* p, float* dst) {
     const float4 x = *reinterpret_cast<const float4*>(p);
     dst[0] = x.x;
@@ -64,6 +72,9 @@ struct Vec16<float> {
 template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
+  __device__ __forceinline__ static float one(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
   __device__ __forceinline__ static void load(const __nv_bfloat16* p,
                                               float* dst) {
     const uint4 x = *reinterpret_cast<const uint4*>(p);
@@ -80,6 +91,9 @@ struct Vec16<__nv_bfloat16> {
 template <>
 struct Vec16<int8_t> {
   static constexpr int N = 16;
+  __device__ __forceinline__ static float one(const int8_t* p) {
+    return (float)*p;
+  }
   __device__ __forceinline__ static void load(const int8_t* p, float* dst) {
     const int4 x = *reinterpret_cast<const int4*>(p);
     const int8_t* b = reinterpret_cast<const int8_t*>(&x);
@@ -87,6 +101,24 @@ struct Vec16<int8_t> {
     for (int e = 0; e < 16; ++e) dst[e] = (float)b[e];
   }
 };
+
+// the N = Vec16<T>::N values at p whose first n (>= 1) are in the row: one
+// vector load on the vector path (where every chunk is whole), else element
+// by element. The kernel picks the path once per block (a uniform branch
+// around each tile loop), so the vector path's loads stay straight-line.
+template <bool kVec, typename T>
+__device__ __forceinline__ void load_chunk(const T* p, int n, float* dst) {
+  constexpr int N = Vec16<T>::N;
+  if constexpr (kVec) {
+    Vec16<T>::load(p, dst);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) dst[e] = e < n ? Vec16<T>::one(p + e) : 0.f;
+  }
+}
+
+template <bool V>
+using Path = std::integral_constant<bool, V>;
 
 __device__ __forceinline__ void store(float x, float* p) { *p = x; }
 __device__ __forceinline__ void store(float x, __nv_bfloat16* p) {
@@ -118,10 +150,13 @@ struct Args {
   const int* lengths;
   void* out;
   int S, C, H, T_ext;
+  int d;    // the head dim, <= the instance's capacity D
+  int vec;  // every q and slab row is whole aligned 16-byte vectors
   long long row_stride, tok_stride, scale_row_stride;
 };
 
-// One block: lane s, head h, query rows [q0, q0 + QT) of the chunk.
+// One block: lane s, head h, query rows [q0, q0 + QT) of the chunk; D is
+// the capacity, a.d the head dim.
 template <typename Tq, typename Tkv, int D, int QT>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const Args a, float scale) {
@@ -142,7 +177,8 @@ paged_attention_kernel(const Args a, float scale) {
 
   const Tq* q = static_cast<const Tq*>(a.q);
   Tq* out = static_cast<Tq*>(a.out);
-  const int C = a.C, H = a.H;
+  const int C = a.C, H = a.H, hd = a.d;
+  const bool vec = a.vec != 0;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * QT;
@@ -154,18 +190,23 @@ paged_attention_kernel(const Args a, float scale) {
   const int n_pos = min(a.T_ext, len + q_end);
 
   // the q tile in f32; rows past C are zero and never written out
-  for (int c = tid; c < QT * QV; c += kThreads) {
-    const int i = c / QV, d = (c % QV) * QN;
-    float x[QN];
-    if (q0 + i < C) {
-      Vec16<Tq>::load(q + ((long long)(s * C + q0 + i) * H + h) * D + d, x);
-    } else {
+  auto q_tile = [&](auto path) {
+    for (int c = tid; c < QT * QV; c += kThreads) {
+      const int i = c / QV, d = (c % QV) * QN;
+      float x[QN];
+      if (q0 + i < C && d < hd) {
+        load_chunk<decltype(path)::value>(
+            q + ((long long)(s * C + q0 + i) * H + h) * hd + d, hd - d, x);
+      } else {
 #pragma unroll
-      for (int e = 0; e < QN; ++e) x[e] = 0.f;
+        for (int e = 0; e < QN; ++e) x[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < QN; ++e) qs[i][d + e] = x[e];
     }
-#pragma unroll
-    for (int e = 0; e < QN; ++e) qs[i][d + e] = x[e];
-  }
+  };
+  if (vec) q_tile(Path<true>{});
+  else q_tile(Path<false>{});
   for (int i = tid; i < QT; i += kThreads) {
     m_s[i] = kMasked;
     l_s[i] = 0.f;
@@ -176,9 +217,9 @@ paged_attention_kernel(const Args a, float scale) {
   __syncthreads();
 
   const Tkv* kb = static_cast<const Tkv*>(a.k) + (long long)s * a.row_stride +
-                  (long long)h * D;
+                  (long long)h * hd;
   const Tkv* vb = static_cast<const Tkv*>(a.v) + (long long)s * a.row_stride +
-                  (long long)h * D;
+                  (long long)h * hd;
   const float* ksb = kQuant ? a.k_scale + (long long)s * a.scale_row_stride
                             : nullptr;
   const float* vsb = kQuant ? a.v_scale + (long long)s * a.scale_row_stride
@@ -195,31 +236,35 @@ paged_attention_kernel(const Args a, float scale) {
     }
     // K/V tile in f32 (dequantized as it loads: code * scale, the plain
     // version's order); positions at or past n_pos are zero and masked below
-    for (int c = tid; c < BT * KV; c += kThreads) {
-      const int j = c / KV, d = (c % KV) * KN;
-      float kx[KN], vx[KN];
-      if (t0 + j < n_pos) {
-        const long long off = (long long)(t0 + j) * a.tok_stride + d;
-        Vec16<Tkv>::load(kb + off, kx);
-        Vec16<Tkv>::load(vb + off, vx);
-        if constexpr (kQuant) {
-          const float sk = ksc[j], sv = vsc[j];
+    auto kv_tile = [&](auto path) {
+      for (int c = tid; c < BT * KV; c += kThreads) {
+        const int j = c / KV, d = (c % KV) * KN;
+        float kx[KN], vx[KN];
+        if (t0 + j < n_pos && d < hd) {
+          const long long off = (long long)(t0 + j) * a.tok_stride + d;
+          load_chunk<decltype(path)::value>(kb + off, hd - d, kx);
+          load_chunk<decltype(path)::value>(vb + off, hd - d, vx);
+          if constexpr (kQuant) {
+            const float sk = ksc[j], sv = vsc[j];
 #pragma unroll
-          for (int e = 0; e < KN; ++e) {
-            kx[e] *= sk;
-            vx[e] *= sv;
+            for (int e = 0; e < KN; ++e) {
+              kx[e] *= sk;
+              vx[e] *= sv;
+            }
           }
+        } else {
+#pragma unroll
+          for (int e = 0; e < KN; ++e) kx[e] = vx[e] = 0.f;
         }
-      } else {
 #pragma unroll
-        for (int e = 0; e < KN; ++e) kx[e] = vx[e] = 0.f;
+        for (int e = 0; e < KN; ++e) {
+          ks[j][d + e] = kx[e];
+          vs[j][d + e] = vx[e];
+        }
       }
-#pragma unroll
-      for (int e = 0; e < KN; ++e) {
-        ks[j][d + e] = kx[e];
-        vs[j][d + e] = vx[e];
-      }
-    }
+    };
+    if (vec) kv_tile(Path<true>{});
+    else kv_tile(Path<false>{});
     __syncthreads();
 
     // scores; query row q0 + i may read positions [0, len + q0 + i]
@@ -277,9 +322,9 @@ paged_attention_kernel(const Args a, float scale) {
     const int p = tid + r * kThreads;
     if (p < QT * D) {
       const int i = p / D, d = p % D;
-      if (q0 + i < C) {
+      if (q0 + i < C && d < hd) {
         store(acc[r] / l_s[i],
-              out + ((long long)(s * C + q0 + i) * H + h) * D + d);
+              out + ((long long)(s * C + q0 + i) * H + h) * hd + d);
       }
     }
   }
@@ -288,7 +333,7 @@ paged_attention_kernel(const Args a, float scale) {
 // decode (C == 1) takes a one-row query tile; chunks take 16-row tiles
 template <typename Tq, typename Tkv, int D>
 cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf((float)D);
+  const float scale = 1.0f / sqrtf((float)a.d);
   if (a.C == 1) {
     paged_attention_kernel<Tq, Tkv, D, 1>
         <<<dim3(a.C, a.H, a.S), kThreads, 0, stream>>>(a, scale);
@@ -299,33 +344,30 @@ cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the capacity instance that holds head dim a.d
 template <typename Tq, typename Tkv>
-cudaError_t launch_dim(int D, const Args& a, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_tile<Tq, Tkv, 32>(a, stream);
-    case 64:
-      return launch_tile<Tq, Tkv, 64>(a, stream);
-    case 128:
-      return launch_tile<Tq, Tkv, 128>(a, stream);
+cudaError_t launch_dim(const Args& a, cudaStream_t stream) {
+  if (a.d <= 32) return launch_tile<Tq, Tkv, 32>(a, stream);
+  if (a.d <= 64) return launch_tile<Tq, Tkv, 64>(a, stream);
+  return launch_tile<Tq, Tkv, 128>(a, stream);
+}
+
+template <typename Tq>
+cudaError_t launch_kv(int kv_dtype, const Args& a, cudaStream_t stream) {
+  switch (kv_dtype) {
+    case 0:
+      return launch_dim<Tq, float>(a, stream);
+    case 1:
+      return launch_dim<Tq, __nv_bfloat16>(a, stream);
+    case 2:
+      return launch_dim<Tq, int8_t>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename Tq>
-cudaError_t launch_kv(int kv_dtype, int D, const Args& a,
-                      cudaStream_t stream) {
-  switch (kv_dtype) {
-    case 0:
-      return launch_dim<Tq, float>(D, a, stream);
-    case 1:
-      return launch_dim<Tq, __nv_bfloat16>(D, a, stream);
-    case 2:
-      return launch_dim<Tq, int8_t>(D, a, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -337,15 +379,16 @@ cudaError_t launch_kv(int kv_dtype, int D, const Args& a,
 // tok_stride elements apart (heads and dims contiguous); k_scale and v_scale
 // point at [row 0, layer, position 0] of the scales, whose rows are
 // scale_row_stride floats apart (positions contiguous). lengths is (S,)
-// int32 on the device. S, C and H are at least 1. Returns cudaGetLastError()
-// after the launch (0 on success), never synchronises.
+// int32 on the device. S, C and H are at least 1, D from 1 to 128. Returns
+// cudaGetLastError() after the launch (0 on success), never synchronises.
 extern "C" int mx_paged_attention_fwd(
     int q_dtype, int kv_dtype, int device, const void* q, const void* k,
     const void* v, const void* k_scale, const void* v_scale,
     const void* lengths, void* out, int S, int C, int H, int D, int T_ext,
     long long row_stride, long long tok_stride, long long scale_row_stride,
     void* stream) {
-  if (S <= 0 || C <= 0 || H <= 0 || (q_dtype != 0 && q_dtype != 1))
+  if (S <= 0 || C <= 0 || H <= 0 || D < 1 || D > 128 ||
+      (q_dtype != 0 && q_dtype != 1) || kv_dtype < 0 || kv_dtype > 2)
     return (int)cudaErrorInvalidValue;
   if ((kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
@@ -366,12 +409,21 @@ extern "C" int mx_paged_attention_fwd(
   a.C = C;
   a.H = H;
   a.T_ext = T_ext;
+  a.d = D;
+  // 16-byte vectors where every row of q and out (D values), and of the slab
+  // (D values at each row, layer and position offset), is whole and aligned
+  const int q_item = q_dtype == 0 ? 4 : 2;
+  const int kv_item = kv_dtype == 0 ? 4 : (kv_dtype == 1 ? 2 : 1);
+  const long long kv_vec = 16 / kv_item;
+  a.vec = (D * q_item) % 16 == 0 && (D * kv_item) % 16 == 0 &&
+          row_stride % kv_vec == 0 && tok_stride % kv_vec == 0 &&
+          aligned16(q) && aligned16(out) && aligned16(k) && aligned16(v);
   a.row_stride = row_stride;
   a.tok_stride = tok_stride;
   a.scale_row_stride = scale_row_stride;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = q_dtype == 0 ? launch_kv<float>(kv_dtype, D, a, st)
-                     : launch_kv<__nv_bfloat16>(kv_dtype, D, a, st);
+  err = q_dtype == 0 ? launch_kv<float>(kv_dtype, a, st)
+                     : launch_kv<__nv_bfloat16>(kv_dtype, a, st);
   if (prev != device) cudaSetDevice(prev);
   return (int)err;
 }

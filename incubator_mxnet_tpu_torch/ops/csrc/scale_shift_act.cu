@@ -22,9 +22,13 @@
 // grid-stride loop over a grid sized to keep every SM full. The per-channel
 // scale and shift rows are small and stay in L1/L2.
 //
-// The caller guarantees: every pointer 16-byte aligned, x / residual / out
-// contiguous and of one dtype, C * itemsize a multiple of 16 (so no 16-byte
-// vector crosses a row), scale and shift float32 of C elements.
+// Any C: where C * itemsize is a multiple of 16 and every pointer is 16-byte
+// aligned (no 16-byte vector crosses a row; every ResNet-50 shape), the
+// vector instance above; otherwise a scalar instance, one element a thread
+// with the same arithmetic (Dense(10) in float32, 4 channels in bfloat16).
+//
+// The caller guarantees: x / residual / out contiguous and of one dtype,
+// scale and shift float32 of C elements.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,6 +67,10 @@ struct Pack<float> {
   __device__ __forceinline__ static void store(float* p, const float* s) {
     *reinterpret_cast<float4*>(p) = make_float4(s[0], s[1], s[2], s[3]);
   }
+  __device__ __forceinline__ static float one(const float* p) {
+    return __ldg(p);
+  }
+  __device__ __forceinline__ static void put(float* p, float x) { *p = x; }
 };
 
 template <>
@@ -86,6 +94,12 @@ struct Pack<__nv_bfloat16> {
 #pragma unroll
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(s[2 * i], s[2 * i + 1]);
     *reinterpret_cast<uint4*>(p) = v;
+  }
+  __device__ __forceinline__ static float one(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  __device__ __forceinline__ static void put(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16_rn(x);
   }
 };
 
@@ -140,6 +154,28 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// the same function one element a thread, for rows that are not whole
+// aligned 16-byte vectors
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kThreads)
+    scale_shift_act_scalar_kernel(const T* __restrict__ x,
+                                  const float* __restrict__ scale,
+                                  const float* __restrict__ shift,
+                                  const T* __restrict__ res,
+                                  T* __restrict__ out, long long n,
+                                  long long C) {
+  const long long step = (long long)gridDim.x * kThreads;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += step) {
+    const long long c = e % C;
+    float u = Pack<T>::one(x + e);
+    if (scale != nullptr) u = __fmul_rn(u, __ldg(scale + c));
+    if (shift != nullptr) u = __fadd_rn(u, __ldg(shift + c));
+    if (res != nullptr) u = __fadd_rn(u, Pack<T>::one(res + e));
+    Pack<T>::put(out + e, activate<ACT>(u));
+  }
+}
+
 int grid_for(long long n_vec, int device) {
   static int sms[64] = {0};
   int n_sm = device >= 0 && device < 64 ? sms[device] : 0;
@@ -155,22 +191,33 @@ int grid_for(long long n_vec, int device) {
   return (int)(need < most ? need : most);
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 template <typename T>
 cudaError_t launch(int act, const void* x, const float* scale,
                    const float* shift, const void* res, void* out,
                    long long M, long long C, int device, cudaStream_t st) {
   constexpr int N = Pack<T>::N;
+  const bool vec = C % N == 0 && aligned16(x) && aligned16(out) &&
+                   aligned16(scale) && aligned16(shift) && aligned16(res);
   const long long c_vec = C / N;
   const long long n_vec = M * c_vec;
-  const int grid = grid_for(n_vec, device);
+  const long long n = M * C;
+  const int grid = grid_for(vec ? n_vec : n, device);
   const T* xp = static_cast<const T*>(x);
   const T* rp = static_cast<const T*>(res);
   T* op = static_cast<T*>(out);
   switch (act) {
 #define MX_SSA_CASE(A)                                                  \
   case A:                                                               \
-    scale_shift_act_kernel<T, A><<<grid, kThreads, 0, st>>>(            \
-        xp, scale, shift, rp, op, n_vec, c_vec);                        \
+    if (vec)                                                            \
+      scale_shift_act_kernel<T, A><<<grid, kThreads, 0, st>>>(          \
+          xp, scale, shift, rp, op, n_vec, c_vec);                      \
+    else                                                                \
+      scale_shift_act_scalar_kernel<T, A><<<grid, kThreads, 0, st>>>(   \
+          xp, scale, shift, rp, op, n, C);                              \
     break;
     MX_SSA_CASE(kNone)
     MX_SSA_CASE(kRelu)
@@ -189,8 +236,8 @@ cudaError_t launch(int act, const void* x, const float* scale,
 
 // dtype: 0 float32, 1 bfloat16 (x, residual and out). act: 0 none, 1 relu,
 // 2 sigmoid, 3 tanh, 4 silu, 5 gelu. scale, shift and residual may be null.
-// M >= 1, C * itemsize a multiple of 16. Returns cudaGetLastError() after
-// the launch (0 on success), never synchronises.
+// M >= 1, C >= 1. Returns cudaGetLastError() after the launch (0 on
+// success), never synchronises.
 extern "C" int mx_scale_shift_act(int dtype, int act, int device,
                                   const void* x, const void* scale,
                                   const void* shift, const void* residual,

@@ -10,7 +10,10 @@ module is imported, so the CPU tests import it on machines without `nvcc`.
 Each wrapper takes CUDA tensors only, checks device, dtype, shape and
 layout, launches on PyTorch's current stream without synchronising, raises
 when the launch is refused, and adds one to its launch counter (see
-`launch_counts()`). The plain PyTorch versions live beside the
+`launch_counts()`). Every shape rule a wrapper enforces is a row of one
+table, `refusal()`: it refuses what the JAX package refuses too, and one
+named remainder, head dims over 128 (ROADMAP C1). Any other shape the JAX
+package serves reaches a kernel. The plain PyTorch versions live beside the
 dispatchers in `ops/fused.py` and `ops/attention.py`; no wrapper ever
 falls back to them, and no wrapper copies a tensor into the layout its
 kernel takes: it raises.
@@ -31,7 +34,8 @@ from ..base import MXNetError
 
 __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
            "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "flash_fwd_cuda",
-           "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "ACT_CODES",
+           "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "flash_fwd_route",
+           "ACT_CODES", "HEAD_DIM_MAX", "RULES", "refusal",
            "reset_launch_counts", "launch_counts"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -55,6 +59,9 @@ avg_pool2d_fwd_launches = 0
 avg_pool2d_bwd_launches = 0
 flash_fwd_launches = 0
 flash_fwd_lse_launches = 0
+# the forward launches (of the two above) that ran on the tensor cores
+flash_fwd_wgmma_launches = 0
+flash_fwd_lse_wgmma_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 
@@ -63,6 +70,7 @@ def reset_launch_counts():
     global paged_attention_launches, paged_attention_int8_launches, \
         scale_shift_act_launches, avg_pool2d_fwd_launches, \
         avg_pool2d_bwd_launches, flash_fwd_launches, flash_fwd_lse_launches, \
+        flash_fwd_wgmma_launches, flash_fwd_lse_wgmma_launches, \
         flash_bwd_dq_launches, flash_bwd_dkv_launches
     paged_attention_launches = 0
     paged_attention_int8_launches = 0
@@ -71,6 +79,8 @@ def reset_launch_counts():
     avg_pool2d_bwd_launches = 0
     flash_fwd_launches = 0
     flash_fwd_lse_launches = 0
+    flash_fwd_wgmma_launches = 0
+    flash_fwd_lse_wgmma_launches = 0
     flash_bwd_dq_launches = 0
     flash_bwd_dkv_launches = 0
 
@@ -83,6 +93,8 @@ def launch_counts():
             "avg_pool2d_bwd": avg_pool2d_bwd_launches,
             "flash_fwd": flash_fwd_launches,
             "flash_fwd_lse": flash_fwd_lse_launches,
+            "flash_fwd_wgmma": flash_fwd_wgmma_launches,
+            "flash_fwd_lse_wgmma": flash_fwd_lse_wgmma_launches,
             "flash_bwd_dq": flash_bwd_dq_launches,
             "flash_bwd_dkv": flash_bwd_dkv_launches}
 
@@ -175,6 +187,9 @@ def _load(name):
                 lib.mx_flash_fwd.restype = ctypes.c_int
                 lib.mx_flash_fwd.argtypes = (
                     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + tail)
+                lib.mx_flash_fwd_wgmma.restype = ctypes.c_int
+                lib.mx_flash_fwd_wgmma.argtypes = (
+                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + tail)
                 lib.mx_flash_bwd_dq.restype = ctypes.c_int
                 lib.mx_flash_bwd_dq.argtypes = (
                     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + tail)
@@ -187,9 +202,61 @@ def _load(name):
     return lib
 
 
+# act name -> the kernels' activation code (csrc/scale_shift_act.cu)
+ACT_CODES = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3, "silu": 4,
+             "gelu": 5}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the largest head dim the paged and flash kernels take
+HEAD_DIM_MAX = 128
+
+# Every shape rule the wrappers enforce, one row each: (kernel, kind, test,
+# message). Kind "jax": the JAX package refuses the shape too. Kind
+# "remainder": the JAX package serves the shape and no kernel here takes it
+# yet; ROADMAP C1 keeps it open with the reason the message gives. Any other
+# shape reaches a kernel: head dims 1..128 through capacity instances (32, 64,
+# 128) that mask the tail, any channel count through a scalar path beside the
+# 16-byte vector one, any bh along a 1-D grid.
+RULES = (
+    ("paged_attention", "remainder",
+     lambda s: s["head_dim"] > HEAD_DIM_MAX,
+     "head_dim {head_dim} > 128 has no instance yet: no model the port "
+     "serves has one (a capacity-256 instance closes it)"),
+    ("flash", "remainder",
+     lambda s: s["d"] > HEAD_DIM_MAX,
+     "head_dim {d} > 128 has no instance yet: the 64-row f32 backward tiles "
+     "at d = 192 need 236,032 bytes of shared memory, over the 232,448 a "
+     "block can use (the backward's redesign closes it)"),
+    ("scale_shift_act", "jax",
+     lambda s: s["act"] not in ACT_CODES,
+     "unsupported fused activation {act!r}"),
+    ("avg_pool2d", "jax",
+     lambda s: s["ph"] <= 0 or s["pw"] <= 0 or s["h"] % s["ph"]
+     or s["w"] % s["pw"],
+     "pool {ph}x{pw} must divide the spatial dims {h}x{w}"),
+)
+
+
+def refusal(kernel, **shape):
+    """Why the CUDA kernel `kernel` refuses `shape`, or None when a kernel
+    takes it. Kernels and the shape keys their rules read:
+    "paged_attention" (head_dim), "scale_shift_act" (act), "avg_pool2d"
+    (h, w, ph, pw), "flash" (d; all four flash kernels). Runs anywhere: the
+    CPU tests hold it against the JAX package."""
+    for name, _kind, test, message in RULES:
+        if name == kernel and test(shape):
+            return message.format(**shape)
+    return None
+
+
+def _refuse(name, kernel, **shape):
+    why = refusal(kernel, **shape)
+    if why is not None:
+        raise MXNetError(f"{name}: {why}")
+
+
 _PA_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PA_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_PA_HEAD_DIMS = (32, 64, 128)
 
 
 def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
@@ -199,11 +266,13 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
     `q`: contiguous (S, C, H, D) CUDA tensor, float32 or bfloat16.
     `k_slab`/`v_slab`: (rows, L, T, H, D) with rows > S, float32, bfloat16
     or int8 (any of them with either q dtype), one dtype, shape and
-    strides, heads and dims contiguous, rows, layers and positions 16-byte
-    aligned; a view that cuts the position axis (`slab[:, :, :extent]`) is
-    read in place, not copied. int8 slabs need `k_scale`/`v_scale`:
-    (rows, L, T) float32 with one set of strides, positions contiguous
-    (the same view cut is read in place); float slabs take none.
+    strides, heads and dims contiguous; a view that cuts the position axis
+    (`slab[:, :, :extent]`) is read in place, not copied. Any head_dim D
+    from 1 to 128: 16-byte vector loads where every row is a whole number
+    of aligned 16-byte vectors, scalar loads otherwise. int8 slabs need
+    `k_scale`/`v_scale`: (rows, L, T) float32 with one set of strides,
+    positions contiguous (the same view cut is read in place); float slabs
+    take none.
     `lengths`: (S,) int32, each >= 0. Returns (S, C, H, D) in q's dtype.
     Counts a launch over an int8 slab in `paged_attention_int8_launches`,
     any other in `paged_attention_launches`. Raises `MXNetError` on any
@@ -236,8 +305,7 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
         raise MXNetError(f"{name}: slab dtypes {k_slab.dtype}, "
                          f"{v_slab.dtype} not taken (one of float32, "
                          f"bfloat16, int8)")
-    if D not in _PA_HEAD_DIMS:
-        raise MXNetError(f"{name}: head_dim {D} not in {_PA_HEAD_DIMS}")
+    _refuse(name, "paged_attention", head_dim=D)
     if (Hk, Dk) != (H, D) or rows <= S or not 0 <= layer < L:
         raise MXNetError(
             f"{name}: slab {tuple(k_slab.shape)} does not serve q "
@@ -246,12 +314,9 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
         raise MXNetError(f"{name}: k and v slabs differ in shape or "
                          f"strides")
     st = k_slab.stride()
-    vec = 16 // k_slab.element_size()
-    if st[4] != 1 or st[3] != D or st[0] % vec or st[1] % vec \
-            or st[2] % vec:
-        raise MXNetError(
-            f"{name}: slab strides {st} not taken (heads and dims "
-            f"contiguous, rows, layers and positions 16-byte aligned)")
+    if st[4] != 1 or st[3] != D:
+        raise MXNetError(f"{name}: slab strides {st} not taken (heads and "
+                         f"dims contiguous)")
     if quant:
         for t in scales:
             if (t.dtype != torch.float32 or t.shape != (rows, L, T)
@@ -273,7 +338,6 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    _check_aligned(name, (q, kl, vl, out))
     lib = _load("paged_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.mx_paged_attention_fwd(
@@ -289,12 +353,6 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
     else:
         paged_attention_launches += 1
     return out
-
-
-# act name -> the kernels' activation code (csrc/scale_shift_act.cu)
-ACT_CODES = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3, "silu": 4,
-             "gelu": 5}
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _launch_failed(lib, name, rc):
@@ -319,8 +377,10 @@ def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
     act(x2d * scale + shift + residual) over a row-major (M, C) view, f32
     inside, returned in x2d's dtype.
 
-    `x2d`: contiguous (M, C), float32 or bfloat16, C * itemsize a multiple
-    of 16. `scale`/`shift`: contiguous (C,) float32, or None. `residual`:
+    `x2d`: contiguous (M, C), float32 or bfloat16, any C (16-byte vectors
+    when C * itemsize is a multiple of 16 and every buffer is 16-byte
+    aligned, one element a thread otherwise). `scale`/`shift`: contiguous
+    (C,) float32, or None. `residual`:
     None or contiguous (M, C) of x2d's dtype. `act_type`: a key of
     `ACT_CODES`. Raises `MXNetError` on any input the kernel does not take
     (a strided view included: the caller copies, and counts the copy)."""
@@ -329,16 +389,11 @@ def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
     rows = [t for t in (scale, shift) if t is not None]
     full = [x2d] + ([residual] if residual is not None else [])
     _check_cuda(name, full + rows)
-    if act_type not in ACT_CODES:
-        raise MXNetError(f"{name}: activation {act_type!r} not in "
-                         f"{sorted(ACT_CODES, key=str)}")
+    _refuse(name, "scale_shift_act", act=act_type)
     if x2d.dim() != 2 or x2d.dtype not in _DTYPE_CODES:
         raise MXNetError(f"{name}: x must be a 2-D float32 or bfloat16 "
                          f"tensor; got {tuple(x2d.shape)} {x2d.dtype}")
     M, C = x2d.shape
-    if (C * x2d.element_size()) % 16:
-        raise MXNetError(f"{name}: C * itemsize = {C * x2d.element_size()} "
-                         f"bytes is not a multiple of 16")
     if residual is not None and (residual.shape != x2d.shape
                                  or residual.dtype != x2d.dtype):
         raise MXNetError(f"{name}: residual must match x in shape and dtype")
@@ -352,7 +407,6 @@ def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
     out = torch.empty_like(x2d)
     if out.numel() == 0:
         return out
-    _check_aligned(name, full + rows + [out])
     lib = _load("scale_shift_act")
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     rc = lib.mx_scale_shift_act(
@@ -377,26 +431,22 @@ def _pool_check(name, t, ph, pw, spatial=None):
     if not t.is_contiguous():
         raise MXNetError(f"{name}: the NHWC tensor must be contiguous")
     h, w = t.shape[1:3] if spatial is None else spatial
-    if ph <= 0 or pw <= 0 or h % ph or w % pw:
-        raise MXNetError(f"{name}: pool {ph}x{pw} must divide the spatial "
-                         f"dims {h}x{w}")
-    if t.shape[3] % 8:
-        raise MXNetError(f"{name}: channels {t.shape[3]} not a multiple "
-                         f"of 8")
+    _refuse(name, "avg_pool2d", h=h, w=w, ph=ph, pw=pw)
 
 
 def avg_pool2d_fwd_cuda(x, ph, pw):
     """Launch the pooling forward (`csrc/avg_pool2d.cu`): the mean over
     each non-overlapping (ph, pw) window of a contiguous NHWC tensor,
-    f32 inside, in x's dtype. Channels must be a multiple of 8."""
+    f32 inside, in x's dtype. Any channel count: 8-channel vectors when C
+    is a multiple of 8 and both buffers are 16-byte aligned, one channel a
+    thread otherwise."""
     global avg_pool2d_fwd_launches
     name = "avg_pool2d_fwd_cuda"
     _pool_check(name, x, ph, pw)
     n, h, w, c = x.shape
-    y = torch.empty((n, h // ph, w // pw, c), dtype=x.dtype, device=x.device)
+    y = x.new_empty((n, h // ph, w // pw, c))
     if y.numel() == 0:
         return y
-    _check_aligned(name, (x, y))
     lib = _load("avg_pool2d")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.mx_avg_pool2d_fwd(_DTYPE_CODES[x.dtype], x.device.index or 0,
@@ -411,7 +461,8 @@ def avg_pool2d_fwd_cuda(x, ph, pw):
 def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
     """Launch the pooling backward (`csrc/avg_pool2d.cu`): dX (N, h, w, C)
     from a contiguous NHWC dY (N, h/ph, w/pw, C), each dY value times
-    1/(ph*pw) broadcast over its window, in dy's dtype."""
+    1/(ph*pw) broadcast over its window, in dy's dtype; any channel
+    count, as the forward."""
     global avg_pool2d_bwd_launches
     name = "avg_pool2d_bwd_cuda"
     _pool_check(name, dy, ph, pw, (h, w))
@@ -419,10 +470,9 @@ def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
     if (ho * ph, wo * pw) != (h, w):
         raise MXNetError(f"{name}: dy {tuple(dy.shape)} is not the pool "
                          f"{ph}x{pw} of {h}x{w}")
-    dx = torch.empty((n, h, w, c), dtype=dy.dtype, device=dy.device)
+    dx = dy.new_empty((n, h, w, c))
     if dx.numel() == 0:
         return dx
-    _check_aligned(name, (dy, dx))
     lib = _load("avg_pool2d")
     stream = torch.cuda.current_stream(dy.device).cuda_stream
     inv = float(torch.tensor(1.0 / (ph * pw), dtype=torch.float32))
@@ -435,14 +485,21 @@ def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
     return dx
 
 
-_FLASH_HEAD_DIMS = (32, 64, 128)
+def flash_fwd_route(dtype, d):
+    """Which forward kernel takes (dtype, head dim d): "wgmma", the
+    tensor-core kernel, for bfloat16 at d a multiple of 8 (a TMA tensor map
+    needs rows of whole 16-byte vectors), else "cuda_cores" (float32 stays
+    off the tensor cores, which would take it as TF32)."""
+    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 \
+        else "cuda_cores"
 
 
 def _flash_check(name, q, k, v, extra=()):
     """Checks shared by the flash wrappers: q (bh, tq, d), k and v
-    (bh, tk, d), one dtype (float32 or bfloat16), d in (32, 64, 128),
-    every tensor contiguous and on one card. `extra` are further operands
-    of q's shape and dtype (dO). Returns (bh, tq, tk, d)."""
+    (bh, tk, d), one dtype (float32 or bfloat16), d the `refusal` table
+    takes (1 to 128), every tensor contiguous and on one card. `extra` are
+    further operands of q's shape and dtype (dO). Returns (bh, tq, tk,
+    d)."""
     _check_cuda(name, (q, k, v) + tuple(extra))
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise MXNetError(f"{name}: q, k, v must be (bh, T, d); got "
@@ -456,10 +513,7 @@ def _flash_check(name, q, k, v, extra=()):
             or v.dtype != q.dtype:
         raise MXNetError(f"{name}: q, k, v must share one dtype, float32 or "
                          f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in _FLASH_HEAD_DIMS:
-        raise MXNetError(f"{name}: head_dim {d} not in {_FLASH_HEAD_DIMS}")
-    if bh > 65535:
-        raise MXNetError(f"{name}: bh {bh} exceeds 65535")
+    _refuse(name, "flash", d=d)
     for t in extra:
         if t.shape != q.shape or t.dtype != q.dtype:
             raise MXNetError(f"{name}: dO must match q in shape and dtype")
@@ -480,29 +534,40 @@ def flash_fwd_cuda(q, k, v, causal, scale, with_lse):
     softmax(q k^T * scale, end-aligned causal mask when `causal`) v over
     (bh, T, d), f32 inside, in q's dtype; a row with no live key gives 0.
     With `with_lse` also the per-row log-sum-exp, (bh, tq, 1) float32,
-    -1e30 on rows with no live key. Returns o, or (o, lse). Raises
+    -1e30 on rows with no live key. Returns o, or (o, lse). The kernel is
+    `flash_fwd_route(q.dtype, d)`'s: the tensor-core one (its buffers
+    16-byte aligned) or the CUDA-core one; a tensor-core launch also counts
+    in `flash_fwd_wgmma_launches` / `flash_fwd_lse_wgmma_launches`. Raises
     `MXNetError` on any input the kernel does not take."""
-    global flash_fwd_launches, flash_fwd_lse_launches
+    global flash_fwd_launches, flash_fwd_lse_launches, \
+        flash_fwd_wgmma_launches, flash_fwd_lse_wgmma_launches
     name = "flash_fwd_cuda"
     bh, tq, tk, d = _flash_check(name, q, k, v)
     o = torch.empty_like(q)
     lse = q.new_empty((bh, tq, 1), dtype=torch.float32) if with_lse else None
     if o.numel() == 0:
         return (o, lse) if with_lse else o
-    _check_aligned(name, (q, k, v, o))
     lib = _load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.mx_flash_fwd(
-        _DTYPE_CODES[q.dtype], q.device.index or 0, d, int(with_lse),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr() if with_lse else None, bh, tq, tk, int(causal),
-        float(scale), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if with_lse else None)
+    tail = (bh, tq, tk, int(causal), float(scale), stream)
+    tensor_cores = flash_fwd_route(q.dtype, d) == "wgmma"
+    if tensor_cores:
+        _check_aligned(name, (q, k, v, o))
+        rc = lib.mx_flash_fwd_wgmma(q.device.index or 0, d, int(with_lse),
+                                    *ptrs, *tail)
+    else:
+        rc = lib.mx_flash_fwd(_DTYPE_CODES[q.dtype], q.device.index or 0, d,
+                              int(with_lse), *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_fwd", rc)
     if with_lse:
         flash_fwd_lse_launches += 1
+        flash_fwd_lse_wgmma_launches += tensor_cores
         return o, lse
     flash_fwd_launches += 1
+    flash_fwd_wgmma_launches += tensor_cores
     return o
 
 
@@ -521,7 +586,6 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
-    _check_aligned(name, (q, k, v, do, dq))
     lib = _load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.mx_flash_bwd_dq(
@@ -549,7 +613,6 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
     dv = torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    _check_aligned(name, (q, k, v, do, dk, dv))
     lib = _load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.mx_flash_bwd_dkv(

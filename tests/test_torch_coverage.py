@@ -1,0 +1,230 @@
+"""PyTorch port: every shape the JAX package serves reaches a CUDA kernel,
+but for one named remainder (ROADMAP C1).
+
+`ops.kernels.refusal` is the table of every shape rule the CUDA wrappers
+enforce. For a grid of shapes this file calls the JAX package's function
+at a tiny size (each call shows the JAX package serves the shape) and
+holds the port's table to it:
+  * paged attention at head_dim 1-128;
+  * the fused apply (`bias_act`) at C 1-70, float32 and bfloat16;
+  * the NHWC average pool at C 1-20;
+  * flash attention at d 1-128, and bh 70000 as a shape only;
+the table takes every one. It refuses head dims over 128, which the JAX
+package serves (the named remainder), and what the JAX package refuses
+too: an unknown activation, a pool that does not divide the spatial dims.
+The wrappers themselves, given tensors that report a card, pass every
+check at such shapes and stop only at the kernel build, which the tests
+deny its `nvcc`.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from incubator_mxnet_tpu.ops import fused as jfused
+from incubator_mxnet_tpu.ops import pallas_attention as pa
+
+from incubator_mxnet_tpu_torch import MXNetError
+from incubator_mxnet_tpu_torch.ops import kernels
+
+torch.set_num_threads(1)
+
+REMAINDER = (129, 160, 192, 256)
+
+
+def _rand(shape, seed, dtype=np.float32):
+    return np.random.RandomState(seed).randn(*shape).astype(dtype)
+
+
+def _jax_paged(d):
+    """The JAX engine's paged read at head_dim d (2 lanes, 2 queries, 2
+    heads, 8 positions)."""
+    q = _rand((2, 2, 2, d), d)
+    k = _rand((3, 1, 8, 2, d), d + 1)
+    v = _rand((3, 1, 8, 2, d), d + 2)
+    out = jfused.paged_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v),
+                                 jnp.asarray([0, 5], jnp.int32), 0)
+    return np.asarray(out)
+
+
+def _jax_flash(d, bh=1):
+    q, k, v = (_rand((bh, 8, d), d + i) for i in range(3))
+    return np.asarray(pa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), causal=True))
+
+
+def _served(out, shape):
+    assert out.shape == shape and np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("d", range(1, 129))
+def test_paged_head_dims_the_jax_package_serves_reach_a_kernel(d):
+    _served(_jax_paged(d), (2, 2, 2, d))
+    assert kernels.refusal("paged_attention", head_dim=d) is None
+
+
+@pytest.mark.parametrize("d", range(1, 129))
+def test_flash_head_dims_the_jax_package_serves_reach_a_kernel(d):
+    _served(_jax_flash(d), (1, 8, d))
+    assert kernels.refusal("flash", d=d) is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", range(1, 71))
+def test_apply_channel_counts_the_jax_package_serves_reach_a_kernel(c,
+                                                                    dtype):
+    x = jnp.asarray(_rand((3, c), c)).astype(dtype)
+    out = np.asarray(jfused.bias_act(x, jnp.zeros((c,), dtype), "relu")
+                     .astype(jnp.float32))
+    _served(out, (3, c))
+    assert kernels.refusal("scale_shift_act", act="relu", c=c) is None
+
+
+@pytest.mark.parametrize("c", range(1, 21))
+def test_pool_channel_counts_the_jax_package_serves_reach_a_kernel(c):
+    out = np.asarray(jfused.avg_pool2d(jnp.asarray(_rand((2, 4, 6, c), c)),
+                                       (2, 3)))
+    _served(out, (2, 2, 2, c))
+    assert kernels.refusal("avg_pool2d", h=4, w=6, ph=2, pw=3, c=c) is None
+
+
+def test_flash_bh_past_the_old_grid_limit_is_a_shape_the_table_takes():
+    """bh 70000 was over grid y's 65535; the grid is now one-dimensional.
+    The JAX package serves it (shown at d 1, T 1)."""
+    q = jnp.ones((70000, 1, 1), jnp.float32)
+    _served(np.asarray(pa.flash_attention(q, q, q)), (70000, 1, 1))
+    assert kernels.refusal("flash", d=16, bh=70000) is None
+
+
+@pytest.mark.parametrize("kernel,key,call", [
+    ("paged_attention", "head_dim", _jax_paged),
+    ("flash", "d", _jax_flash)])
+@pytest.mark.parametrize("d", REMAINDER)
+def test_head_dims_over_128_are_the_named_remainder(kernel, key, call, d):
+    """The JAX package serves them; the table refuses them with the
+    remainder's reason."""
+    out = call(d)
+    assert out.shape[-1] == d and np.isfinite(out).all()
+    why = kernels.refusal(kernel, **{key: d})
+    assert why is not None and f"{d} > 128" in why
+
+
+def test_the_table_names_only_the_remainder_and_refusals_jax_shares():
+    kinds = {(name, kind) for name, kind, _, _ in kernels.RULES}
+    assert {k for k in kinds if k[1] == "remainder"} == {
+        ("paged_attention", "remainder"), ("flash", "remainder")}
+    assert {kind for _, kind in kinds} == {"jax", "remainder"}
+    assert kernels.HEAD_DIM_MAX == 128
+
+
+def test_the_refusals_jax_shares_are_refused_by_jax_too():
+    with pytest.raises(ValueError, match="unsupported fused activation"):
+        jfused.bias_act(jnp.ones((2, 4)), jnp.zeros((4,)), "swish")
+    assert "swish" in kernels.refusal("scale_shift_act", act="swish", c=4)
+    with pytest.raises(ValueError, match="must divide"):
+        jfused.avg_pool2d(jnp.ones((1, 5, 4, 3)), (2, 2))
+    assert "must divide" in kernels.refusal("avg_pool2d", h=5, w=4, ph=2,
+                                            pw=2, c=3)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers call the table and take every other shape to the build
+# ---------------------------------------------------------------------------
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so the wrappers'
+    checks can be driven without one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _cuda(t):
+    return t.as_subclass(_CudaLooking)
+
+
+@pytest.fixture
+def no_nvcc(monkeypatch, tmp_path):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(kernels, "_BUILD", str(tmp_path / "build"))
+    monkeypatch.setattr(kernels, "_LIBS", {})
+    isfile = os.path.isfile
+    monkeypatch.setattr(os.path, "isfile",
+                        lambda p: isfile(p) and not str(p).endswith("nvcc"))
+
+
+def _paged_call(d, dtype=torch.bfloat16, kv=torch.bfloat16):
+    q = _cuda(torch.zeros((2, 1, 3, d), dtype=dtype))
+    k = _cuda(torch.zeros((3, 1, 8, 3, d), dtype=kv))
+    scales = {}
+    if kv == torch.int8:
+        s = _cuda(torch.ones((3, 1, 8)))
+        scales = dict(k_scale=s, v_scale=s)
+    return lambda: kernels.paged_attention_cuda(
+        q, k, k, _cuda(torch.zeros(2, dtype=torch.int32)), 0, **scales)
+
+
+def _flash_call(d, bh=2, dtype=torch.bfloat16):
+    q = _cuda(torch.zeros((bh, 4, d), dtype=dtype))
+    return lambda: kernels.flash_fwd_cuda(q, q, q, True, 0.5, True)
+
+
+CALLS = {
+    "paged d=16 bf16": _paged_call(16),
+    "paged d=24 int8": _paged_call(24, torch.float32, torch.int8),
+    "paged d=12 bf16 over f32": _paged_call(12, kv=torch.float32),
+    "apply C=10 f32": lambda: kernels.scale_shift_act_cuda(
+        _cuda(torch.zeros((4, 10))), None, _cuda(torch.zeros(10)), None,
+        "relu"),
+    "apply C=4 bf16": lambda: kernels.scale_shift_act_cuda(
+        _cuda(torch.zeros((4, 4), dtype=torch.bfloat16)),
+        _cuda(torch.ones(4)), _cuda(torch.zeros(4)), None, None),
+    "pool C=12 fwd": lambda: kernels.avg_pool2d_fwd_cuda(
+        _cuda(torch.zeros((2, 4, 4, 12))), 2, 2),
+    "pool C=12 bwd": lambda: kernels.avg_pool2d_bwd_cuda(
+        _cuda(torch.zeros((2, 2, 2, 12))), 4, 4, 2, 2),
+    "flash d=12 bf16": _flash_call(12),
+    "flash d=96 bf16": _flash_call(96),
+    "flash d=40 f32": _flash_call(40, dtype=torch.float32),
+    "flash bh=70000": _flash_call(16, bh=70000),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CALLS))
+def test_wrappers_take_the_new_shapes_to_the_kernel_build(name, no_nvcc):
+    """Every check passes; the call stops where the kernel is built."""
+    with pytest.raises(MXNetError, match="nvcc not found"):
+        CALLS[name]()
+
+
+@pytest.mark.parametrize("name,call,match", [
+    ("paged", _paged_call(136), "head_dim 136 > 128"),
+    ("flash", _flash_call(192), "head_dim 192 > 128"),
+    ("pool", lambda: kernels.avg_pool2d_fwd_cuda(
+        _cuda(torch.zeros((1, 5, 4, 3))), 2, 2), "must divide"),
+    ("apply", lambda: kernels.scale_shift_act_cuda(
+        _cuda(torch.zeros((2, 4))), None, None, None, "swish"),
+     "unsupported fused activation"),
+])
+def test_wrappers_refuse_what_the_table_refuses(name, call, match, no_nvcc):
+    with pytest.raises(MXNetError, match=match):
+        call()
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 8, "wgmma"),
+    (torch.bfloat16, 96, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 12, "cuda_cores"), (torch.bfloat16, 1, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 96, "cuda_cores")])
+def test_flash_forward_route_is_by_dtype_and_head_dim_alone(dtype, d, route):
+    assert kernels.flash_fwd_route(dtype, d) == route
