@@ -48,24 +48,27 @@ Each phase fails the run (non-zero exit) on any error:
      card at the BERT path's shape (bh 192 = 16 x 12 heads, T 512, d 64)
      in bfloat16 and float32, causal and not, plus Tq != Tk causal (rows
      that see no key), a ragged T = 500, head dims 12 (the CUDA-core
-     forward in bf16 too), 32, 40, 96 and 128, and bh 65600 (T 16, d 16);
-     then at the path's shape (bf16, no mask) and at a causal (48, 2048,
-     128) bf16 shape each kernel's time against its bound, the plain
-     version's time and one SDPA call's (forward for B5/B6, backward for
-     B7/B8). The bf16 forward at d % 8 == 0 runs on the tensor-core kernel
-     (wgmma, TMA). A bf16 output is held to limits relative to its own
-     size, and they must refuse two planted store faults (a truncating
-     store, a swapped pair) at both timed shapes, and a swapped pair of
-     the tensor-core kernel's own output; beside them, the reading of a
-     one-term bf16 P (emulated in PyTorch), which the kernel's two-term P
-     avoids.
+     kernels in bf16 too), 32, 40, 96 and 128, 136, 192 and 256 (the
+     capacity-256 instances, causal and not, ragged T = 300), and bh 65600
+     (T 16, d 16); then at the path's shape (bf16, no mask) and at a
+     causal (48, 2048, 128) bf16 shape each kernel's time against its
+     bound, the plain version's time and one SDPA call's (forward for
+     B5/B6, backward for B7/B8). All four kernels take bf16 at d % 8 == 0
+     up to 128 on the tensor cores (wgmma, TMA), and the launch counters
+     must show every such shape there and no other. A bf16 output is held
+     to limits relative to its own size, and they must refuse two planted
+     store faults (a truncating store, a swapped pair) of o, dq, dk and dv
+     at both timed shapes, and a swapped pair of each tensor-core kernel's
+     own output; beside them, the readings of a one-term bf16 P in the
+     forward and of one-term P and dS in the backward (emulated in
+     PyTorch), which the kernels' two-term operands avoid.
   7. BERT-base at full width: 12 `TransformerEncoderCell(768, 3072, 12,
      dropout 0.1, gelu, use_flash=True)` between token and positional
      embeddings (vocab 30522, 512 positions) and a LayerNorm + Dense head
      over the vocabulary, random weights from a seed, batch 16 x 512
      tokens and random labels from numpy, bf16 AMP, Adam lr 1e-4: 2
      warm-up and 10 timed steps with finite losses and exactly 12 B6, 12
-     B7 and 12 B8 launches a step, every B6 launch on the tensor cores,
+     B7 and 12 B8 launches a step, every one on the tensor cores,
      then one inference forward under `torch.no_grad()` with exactly 12 B5
      launches, all on the tensor cores, and finite logits;
      then, in float32 with TF32 off, dropout 0, 2 layers at full width
@@ -102,14 +105,18 @@ Each phase fails the run (non-zero exit) on any error:
      `draft_tokens=0` reference.
  10. the off-flagship shapes the kernels cover (ROADMAP C1), each through
      its kernel, as the launch counters show: `ContinuousEngine(
-     CachedDecoder(DecoderConfig(max_len=64)))`, float32, head_dim 16,
-     token-exact against `reference_generate`; one fused `Dense(10,
-     "relu")` float32 training step equal to the unfused one; the NHWC
-     pool at 12 channels and the apply at 10 float32 and 4 bfloat16
-     channels against their plain versions.
+     CachedDecoder(DecoderConfig(max_len=64)))`, float32, at head_dim 16
+     and at 2 heads x 256, token-exact against `reference_generate`; the
+     paged kernel at head_dim 256 over bfloat16 and int8 pools against its
+     plain version; `MultiHeadAttention(384, 2, use_flash=True)` (head_dim
+     192) forward and gradients against the SDPA composition in float32;
+     one fused `Dense(10, "relu")` float32 training step equal to the
+     unfused one; the NHWC pool at 12 channels and the apply at 10 float32
+     and 4 bfloat16 channels against their plain versions.
 
 The last three lines are the card's name and power limit, one JSON object
-with the kernels' numbers, and `{"ok": true, "device": {...}}`. Without a
+with the kernels' numbers (one entry a wrapper, and one for each
+tensor-core backward sweep), and `{"ok": true, "device": {...}}`. Without a
 card the script exits non-zero and prints no result. It imports nothing of
 JAX. Its run time on the card is in the root `PERF.md`.
 """
@@ -852,7 +859,12 @@ FLASH_EXTRA = [(24, 384, 512, 64, True), (24, 512, 384, 64, True),
                (24, 256, 256, 12, True), (24, 300, 300, 40, False),
                (24, 256, 256, 96, True), (24, 256, 256, 128, True),
                (65600, 16, 16, 16, False)]
-# the second timed shape: a long causal sequence at the widest head dim
+# head dims over 128 (the CUDA-core capacity-256 instances of all four
+# kernels, in both types): causal and not, a ragged T = 300, Tq != Tk
+FLASH_WIDE = [(12, 256, 256, 136, False), (12, 300, 300, 192, True),
+              (12, 256, 200, 256, True), (12, 256, 256, 256, False)]
+# the second timed shape: a long causal sequence at the widest head dim the
+# tensor cores take
 FLASH_LONG = (48, 2048, 2048, 128, True)
 FLASH_KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
                  "flash_bwd_dkv")
@@ -864,7 +876,11 @@ FLASH_PRODUCTS = {"flash_fwd": 2, "flash_fwd_lse": 2, "flash_bwd_dq": 3,
 FLASH_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
                  "flash_fwd_wgmma": "flash_fwd_wgmma_kernel",
                  "flash_bwd_dq": "flash_bwd_dq_kernel",
-                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+                 "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                 "flash_bwd_dq_wgmma": "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma": "flash_bwd_dkv_wgmma_kernel"}
+# the tensor-core counter of each wrapper's launches
+FLASH_WGMMA = {n: n + "_wgmma" for n in FLASH_KERNELS}
 
 
 def live_pairs(tq, tk, causal):
@@ -969,6 +985,7 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed):
     q, k, v, do = (torch.randn((bh, n, d), generator=gen, device=dev)
                    .to(dtype) for n in (tq, tk, tk, tq))
     scale = 1.0 / np.sqrt(d)
+    before = kernels.launch_counts()
     o5 = kernels.flash_fwd_cuda(q, k, v, causal, scale, False)
     o6, lse = kernels.flash_fwd_cuda(q, k, v, causal, scale, True)
     o_ref, lse_ref = attention.flash_forward_lse_ref(q, k, v, causal, scale)
@@ -979,6 +996,17 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed):
     dq_ref = attention.flash_bwd_dq_ref(*bwd_args)
     dk_ref, dv_ref = attention.flash_bwd_dkv_ref(*bwd_args)
     torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    # every kernel ran once, on the tensor cores exactly where its route
+    # says so
+    route = {"flash_fwd": kernels.flash_fwd_route(dtype, d),
+             "flash_fwd_lse": kernels.flash_fwd_route(dtype, d),
+             "flash_bwd_dq": kernels.flash_bwd_route(dtype, d),
+             "flash_bwd_dkv": kernels.flash_bwd_route(dtype, d)}
+    moved = {n: after[n] - before[n] for n in after}
+    assert all(moved[n] == 1 and moved[FLASH_WGMMA[n]]
+               == (route[n] == "wgmma") for n in FLASH_KERNELS), \
+        f"flash launches {moved} off the routes {route}"
     outputs = {"flash_fwd": {"o": (o5, o_ref, dtype)},
                "flash_fwd_lse": {"o": (o6, o_ref, dtype),
                                  "lse": (lse, lse_ref, torch.float32)},
@@ -995,8 +1023,8 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed):
                     tol=tol, readings={o: r for o, (_, _, r) in c.items()
                                        if r})
             for n, c in checks.items()}
-    for n in ("flash_fwd", "flash_fwd_lse"):
-        rows[n]["route"] = kernels.flash_fwd_route(dtype, d)
+    for n in FLASH_KERNELS:
+        rows[n]["route"] = route[n]
     # an f32 product that accumulates in the plain version's order (the
     # dq and dk/dv sweeps at d = 64 against cuBLAS) can agree to the bit
     if dtype == torch.float32:
@@ -1007,8 +1035,8 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed):
             for o, r in ((o, c[o][2]) for c in checks.values() for o in c)
             if r) + f" (tol {FLASH_BF16_MAX_TOL:.0e} / " \
             f"{FLASH_BF16_RMS_TOL:.0e})"
-    log(f"[flash kernels] {case} forward on "
-        f"{kernels.flash_fwd_route(dtype, d)}: max_abs_err "
+    log(f"[flash kernels] {case} forward and backward on "
+        f"{route['flash_fwd']}: max_abs_err "
         + ", ".join(f"{n} {r['max_abs_err']:.3e}" for n, r in rows.items())
         + f"; {how}; max |ref| o "
         f"{o_ref.float().abs().max().item():.3f} dq "
@@ -1023,25 +1051,30 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed):
     if timed:
         time_flash(rows, q, k, v, do, lse_ref, delta, causal, scale, dtype,
                    o_ref)
-        rows["flash_fwd"]["planted"] = flash_planted_faults(
+        planted = flash_planted_faults(
             bwd_args, {"o": o_ref, "dq": dq_ref, "dk": dk_ref, "dv": dv_ref})
-        rows["flash_fwd"]["planted"]["o, swapped pair of the kernel's own "
-                                     "output"] = swapped_own(o5, o_ref)
+        for name, own, ref in (("o", o5, o_ref), ("dq", dq, dq_ref),
+                               ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+            planted[f"{name}, swapped pair of the kernel's own output"] = \
+                swapped_own(name, own, ref)
+        rows["flash_fwd"]["planted"] = planted
         rows["flash_fwd"]["one_term_p"] = one_term_reading(q, k, v, causal,
                                                            scale, o_ref)
+        rows["flash_bwd_dq"]["one_term"] = bwd_term_readings(
+            bwd_args, {"dq": dq_ref, "dk": dk_ref, "dv": dv_ref})
     return rows
 
 
-def swapped_own(o, o_ref):
-    """The bf16 limits against the forward kernel's own output with each
-    pair of neighbours swapped (a store that writes a pair the wrong way
-    round): must be refused."""
-    bad = o.reshape(-1, 2).flip(-1).reshape(o.shape)
-    _, ok, read = _flash_err(bad, o_ref, o.dtype)
-    log(f"[flash kernels] planted fault, the forward's own output with "
-        f"pairs swapped: max_rel {read['max_rel']:.3e} rms_rel "
+def swapped_own(name, out, ref):
+    """The bf16 limits against a kernel's own output `name` with each pair
+    of neighbours swapped (a store that writes a pair the wrong way round):
+    must be refused."""
+    bad = out.reshape(-1, 2).flip(-1).reshape(out.shape)
+    _, ok, read = _flash_err(bad, ref, out.dtype)
+    log(f"[flash kernels] planted fault, the kernel's own {name} with pairs "
+        f"swapped: max_rel {read['max_rel']:.3e} rms_rel "
         f"{read['rms_rel']:.3e}")
-    assert not ok, "the bf16 check passes a swapped pair of the output"
+    assert not ok, f"the bf16 check passes a swapped pair of {name}"
     return read
 
 
@@ -1067,6 +1100,34 @@ def one_term_reading(q, k, v, causal, scale, o_ref):
     log(f"[flash kernels] P.V with P in bf16 (emulated): one term "
         f"{out['one_term']}, two terms {out['two_term']} (limits max_rel "
         f"{FLASH_BF16_MAX_TOL}, rms_rel {FLASH_BF16_RMS_TOL})")
+    return out
+
+
+def bwd_term_readings(bwd_args, refs):
+    """What the bf16 limits read if P and dS went into the backward's
+    products as one bf16 term (P^T dO for dv; dS K for dq and dS^T Q for
+    dk; products and sums in f32, as a single wgmma would take them),
+    against the two terms x_hi + x_lo the tensor-core sweeps use;
+    emulated in PyTorch on the card. Recorded, not asserted: it says why
+    the sweeps split both operands."""
+    q, k, v, do, lse, delta, causal, scale = bwd_args
+    p = attention._probs(q, k, lse, causal, scale)
+    ds = p * (torch.einsum("bqd,bkd->bqk", do.float(), v.float()) - delta)
+    out = {}
+    for name, f in (("one_term", lambda x: x.bfloat16().float()),
+                    ("two_term", lambda x: x.bfloat16().float()
+                     + (x - x.bfloat16().float()).bfloat16().float())):
+        pp, dd = f(p), f(ds)
+        got = {"dq": torch.einsum("bqk,bkd->bqd", dd, k.float()) * scale,
+               "dk": torch.einsum("bqk,bqd->bkd", dd, q.float()) * scale,
+               "dv": torch.einsum("bqk,bqd->bkd", pp, do.float())}
+        out[name] = {n: _flash_err(g.to(q.dtype), refs[n], q.dtype)[2]
+                     for n, g in got.items()}
+        del pp, dd, got
+    del p, ds
+    log(f"[flash kernels] the backward with P and dS in bf16 (emulated): "
+        f"one term {out['one_term']}, two terms {out['two_term']} (limits "
+        f"max_rel {FLASH_BF16_MAX_TOL}, rms_rel {FLASH_BF16_RMS_TOL})")
     return out
 
 
@@ -1130,7 +1191,7 @@ def phase_flash_kernels(dev):
             timed = dtype == torch.bfloat16 and not causal
             variants.append(check_flash(bh, t, t, d, causal, dtype, gen,
                                         dev, timed))
-        for bh_, tq, tk, d_, causal in FLASH_EXTRA:
+        for bh_, tq, tk, d_, causal in FLASH_EXTRA + FLASH_WIDE:
             variants.append(check_flash(bh_, tq, tk, d_, causal, dtype, gen,
                                         dev, False))
         variants.append(check_flash(*FLASH_LONG, dtype, gen, dev,
@@ -1239,6 +1300,13 @@ def phase_bert(card, profile, dev):
                              "bert") if profile else None
     finally:
         amp.uninit()
+    if prof is not None:
+        ms = prof["kernels_ms_per_step"]
+        log(f"[bert profile] B7 {ms['flash_bwd_dq_wgmma']:.3f} ms and B8 "
+            f"{ms['flash_bwd_dkv_wgmma']:.3f} ms a step on the tensor cores "
+            f"(CUDA-core sweeps {ms['flash_bwd_dq']:.3f} / "
+            f"{ms['flash_bwd_dkv']:.3f}), B6 {ms['flash_fwd_wgmma']:.3f} ms, "
+            f"of {prof['device_ms_per_step']:.3f} device ms a step")
     losses = [float(v) for v in losses]
     tokens_s = BERT_BATCH * BERT_SEQ * BERT_STEPS / wall
     infer = {n: total[n] - launches[n] for n in total}
@@ -1251,15 +1319,13 @@ def phase_bert(card, profile, dev):
         f"{peak_gb:.2f} GiB; losses {[round(v, 4) for v in losses]}")
     log(f"[bert] training launches {launches} (expected {L} each of "
         f"flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv per step x "
-        f"{BERT_STEPS}, every flash_fwd_lse on the tensor cores); inference "
+        f"{BERT_STEPS}, every one on the tensor cores); inference "
         f"forward {infer_ms:.3f} ms, launches {infer} (expected {L} "
         f"flash_fwd, all on the tensor cores)")
     assert all(np.isfinite(losses)), "non-finite BERT training loss"
     want = dict.fromkeys(launches, 0)
-    want.update({"flash_fwd_lse": L * BERT_STEPS,
-                 "flash_fwd_lse_wgmma": L * BERT_STEPS,
-                 "flash_bwd_dq": L * BERT_STEPS,
-                 "flash_bwd_dkv": L * BERT_STEPS})
+    want.update({n: L * BERT_STEPS for n in FLASH_KERNELS[1:]})
+    want.update({FLASH_WGMMA[n]: L * BERT_STEPS for n in FLASH_KERNELS[1:]})
     assert launches == want, "flash launch count off the training path"
     assert infer == dict(dict.fromkeys(infer, 0), flash_fwd=L,
                          flash_fwd_wgmma=L), \
@@ -1647,11 +1713,19 @@ def _counted(fn, **want):
     return out
 
 
-def cover_engine(dev):
-    """DecoderConfig's defaults (head_dim 16, 4 heads, 2 layers, vocab 256)
-    at max_len 64, float32, behind the engine's default knobs: the port's
-    own docstring example."""
-    model = serve.CachedDecoder(serve.DecoderConfig(max_len=64), seed=0,
+# float32 decoders behind the engine's default knobs: DecoderConfig's
+# defaults (head_dim 16, 4 heads, 2 layers, vocab 256) at max_len 64, the
+# port's own docstring example; and 2 heads x 256 (the capacity-256
+# instance of the paged kernel)
+COVER_CONFIGS = (dict(max_len=64),
+                 dict(max_len=64, embed=512, heads=2, head_dim=256))
+
+
+def cover_engine(dev, cfg):
+    """`ContinuousEngine` over `CachedDecoder(DecoderConfig(**cfg))`, float32,
+    token-exact against `reference_generate`, every paged read on the
+    kernel."""
+    model = serve.CachedDecoder(serve.DecoderConfig(**cfg), seed=0,
                                 device=dev)
     rng = np.random.RandomState(10)
     prompts = [rng.randint(1, model.config.vocab, size=int(n)).tolist()
@@ -1672,11 +1746,87 @@ def cover_engine(dev):
         f"{exact}/{len(prompts)} requests token-exact against "
         f"reference_generate; paged_attention launches "
         f"{launches['paged_attention']} (expected {want})")
+    hd = model.config.head_dim
     assert launches["paged_attention"] == want > 0, \
-        "head_dim 16 engine off the kernel"
-    assert exact == len(prompts), "head_dim 16 engine != reference"
-    return {"head_dim": model.config.head_dim, "requests": len(prompts),
+        f"head_dim {hd} engine off the kernel"
+    assert exact == len(prompts), f"head_dim {hd} engine != reference"
+    return {"head_dim": hd, "requests": len(prompts),
             "token_exact": exact, "launches": launches["paged_attention"]}
+
+
+def cover_paged_wide(dev, gen):
+    """The paged kernel at head_dim 256 against its plain version: bfloat16
+    and int8 pools (codes and scales from the engine's quantizer) under
+    float32 and bfloat16 queries, one query and a 9-row chunk, ragged
+    lengths with 0 and T - C; phase 2's and phase 8's limits."""
+    from incubator_mxnet_tpu_torch.serve.continuous import _quantize_kv
+    S, L, T, H, D = 4, 2, 80, 2, 256
+    out = []
+    for kv in ("bfloat16", "int8"):
+        for C in (1, 9):
+            for qd in (torch.float32, torch.bfloat16):
+                q = torch.randn((S, C, H, D), generator=gen, device=dev).to(qd)
+                k, v = (torch.randn((S + 1, L, T, H, D), generator=gen,
+                                    device=dev) for _ in range(2))
+                sc = {}
+                if kv == "int8":
+                    (k, ks), (v, vs) = (_quantize_kv(x) for x in (k, v))
+                    sc = dict(k_scale=ks, v_scale=vs)
+                else:
+                    k, v = k.bfloat16(), v.bfloat16()
+                lens = torch.tensor([0, 5, 40, T - C], dtype=torch.int32,
+                                    device=dev)
+                got = _counted(lambda: kernels.paged_attention_cuda(
+                    q, k, v, lens, 1, **sc), **{
+                        "paged_attention_int8" if sc else "paged_attention":
+                            1})
+                err, ok, read = paged_err(
+                    got, fused.paged_attention_ref(q, k, v, lens, 1, **sc))
+                rec = {"kv": kv, "C": C, "q": _dtype_name(qd),
+                       "max_abs_err": err, **read}
+                log(f"[cover] paged attention head_dim {D}: {rec}")
+                assert ok, f"paged attention at head_dim {D} {rec}"
+                out.append(rec)
+    return out
+
+
+# MultiHeadAttention(use_flash=True) at head_dim 192 (384 units, 2 heads):
+# the forward and the input and weight gradients against use_flash=False
+# (the SDPA composition) from the same weights, float32, TF32 off, each
+# relative to its own size; the key projection's bias is left out, as in
+# phase 7 (its gradient is zero in exact arithmetic)
+MHA_RTOL = 1e-4
+MHA_SKIP = "key_proj.bias"
+
+
+def cover_mha(dev):
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.randn(2, 96, 384).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(2, 96, 384).astype(np.float32)).to(dev)
+    runs = []
+    for use_flash in (True, False):
+        net = gluon.nn.MultiHeadAttention(384, 2, use_flash=use_flash)
+        net.initialize(device=dev, seed=4)
+        xi = x.clone().requires_grad_()
+        named = {n: p for n, p in net.collect_params().items()
+                 if p.requires_grad and n != MHA_SKIP}
+
+        def run():
+            y = net(xi, causal=True)
+            grads = torch.autograd.grad(y, [xi] + list(named.values()), g,
+                                        allow_unused=True)
+            return dict(zip(["out", "x"] + list(named), (y,) + grads))
+        want = dict(flash_fwd_lse=1, flash_bwd_dq=1, flash_bwd_dkv=1) \
+            if use_flash else {}
+        runs.append(_counted(run, **want))
+    rel = {n: ((a - runs[1][n]).abs().max() / runs[1][n].abs().max())
+           .item() for n, a in runs[0].items()}
+    worst = max(rel, key=rel.get)
+    log(f"[cover] MultiHeadAttention(384, 2) head_dim 192 causal, flash "
+        f"against SDPA, float32: output and gradients, max |a - b| / max "
+        f"|b|: worst {rel[worst]:.3e} at {worst} (tol {MHA_RTOL})")
+    assert rel[worst] <= MHA_RTOL, "head_dim 192 flash attention != SDPA"
+    return {"head_dim": 192, "rel": rel}
 
 
 def cover_dense(dev):
@@ -1717,7 +1867,9 @@ def phase_coverage(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(10)
-    engine = cover_engine(dev)
+    engines = [cover_engine(dev, cfg) for cfg in COVER_CONFIGS]
+    paged_wide = cover_paged_wide(dev, gen)
+    mha = cover_mha(dev)
     dense = cover_dense(dev)
     pools = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1734,8 +1886,9 @@ def phase_coverage(dev):
                 lambda: check_apply(6000, c, act, residual, dtype, gen, dev,
                                     False), scale_shift_act=1))
     kernels.reset_launch_counts()
-    return {"engine": engine, "dense": dense, "pools": pools,
-            "applies": applies}
+    return {"engine": engines[0], "engines": engines,
+            "paged_wide": paged_wide, "mha": mha, "dense": dense,
+            "pools": pools, "applies": applies}
 
 
 def int8_entry(variants, engine):
@@ -1767,24 +1920,29 @@ FLASH_REPLACES = {"flash_fwd": 279, "flash_fwd_lse": 313,
 
 def flash_entries(variants, bert):
     """The kernels' JSON entries for the transformer path: the numbers at
-    the path's shape, the causal (48, 2048, 128) timing beside them."""
+    the path's shape, the causal (48, 2048, 128) timing beside them. One
+    entry a wrapper (its launches on either route), then one for each
+    tensor-core backward sweep, the kernel the path's bf16 shape runs
+    (its launches from its own counter)."""
     main, long_ = [v for v in variants if "ms" in v["flash_fwd"]]
     entries = []
-    for name in FLASH_KERNELS:
-        r = main[name]
-        timed_long = {k: long_[name][k] for k in
+    for name in FLASH_KERNELS + ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"):
+        wrapper = name.replace("_wgmma", "")
+        r = main[wrapper]
+        timed_long = {k: long_[wrapper][k] for k in
                       ("ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms", "max_abs_err")}
-        extra = {}
-        if name in ("flash_fwd", "flash_fwd_lse"):
-            extra = {"route": r["route"],
-                     "tensor_core_launches": bert["launches"][
-                         name + "_wgmma"]}
+        # "route" is the build route (hand-written CUDA); which of a
+        # wrapper's two kernels the shape took is "kernel_route"
+        extra = {"kernel_route": r["route"]}
+        if name == wrapper:
+            extra["tensor_core_launches"] = bert["launches"][
+                FLASH_WGMMA[name]]
         entries.append({
             "name": name, "route": "cuda",
             "source": "incubator_mxnet_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": "incubator_mxnet_tpu/ops/pallas_attention.py:"
-                        f"{FLASH_REPLACES[name]}",
+                        f"{FLASH_REPLACES[wrapper]}",
             "launches": bert["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1794,7 +1952,9 @@ def flash_entries(variants, bert):
                      f"F.scaled_dot_product_attention "
                      f"{'forward' if name.startswith('flash_fwd') else 'backward (dq, dk, dv at once)'})",
             **extra, "causal_48x2048x128": timed_long,
-            "variants": [v[name] for v in variants]})
+            "variants": [v[wrapper] for v in variants
+                         if v[wrapper]["route"] == r["route"]
+                         or name == wrapper]})
     per_step = sum(main[n]["ms"] for n in FLASH_KERNELS[1:]) \
         * BERT["layers"]
     share = per_step / bert["step_ms"]

@@ -12,11 +12,13 @@ there: q (bh, Tq, d), k and v (bh, Tk, d), causal masking end-aligned
   flash_bwd_dq    B7 `_flash_backward`, dq sweep     flash_bwd_dq_ref
   flash_bwd_dkv   B8 `_flash_backward`, dk/dv sweep  flash_bwd_dkv_ref
 
-The forward has two kernels, chosen by dtype and head dim alone
-(`kernels.flash_fwd_route`): bfloat16 at d a multiple of 8 on the tensor
-cores (`flash_fwd_wgmma_kernel`; its launches also count in
-`flash_fwd_wgmma` / `flash_fwd_lse_wgmma`), float32 and other d on the
-CUDA cores. Every head dim 1-128 and any bh reach a kernel; d > 128 is
+Each of them has two kernels, chosen by dtype and head dim alone
+(`kernels.flash_fwd_route`, `kernels.flash_bwd_route`): bfloat16 at d a
+multiple of 8 up to 128 on the tensor cores (`flash_fwd_wgmma_kernel`,
+`flash_bwd_dq_wgmma_kernel`, `flash_bwd_dkv_wgmma_kernel`; their launches
+also count in `flash_fwd_wgmma`, `flash_fwd_lse_wgmma`,
+`flash_bwd_dq_wgmma` and `flash_bwd_dkv_wgmma`), float32 and other d on
+the CUDA cores. Every head dim 1-256 and any bh reach a kernel; d > 256 is
 refused (`kernels.refusal`).
 
 `flash_attention` is the JAX package's `custom_vjp` as one

@@ -22,23 +22,27 @@
 //
 // with f32 arithmetic and accumulators inside, and q, k, v, o, dO, dq, dk, dv
 // in float32 or bfloat16 (lse and delta float32), for every head dim d from 1
-// to 128 and any bh. delta is computed by the caller, as the JAX package
+// to 256 and any bh. delta is computed by the caller, as the JAX package
 // computes it outside Pallas.
 //
-// Two forwards. The bfloat16 forward at d a multiple of 8 runs on the tensor
-// cores (flash_fwd_wgmma_kernel, below); float32 inputs and bfloat16 ones at
-// other d run on the CUDA cores (flash_fwd_kernel). The wrapper chooses by
-// dtype and d alone. float32 stays off the tensor cores because they would
-// take it as TF32 (about three digits); d % 8 != 0 stays off them because a
-// row of d bfloat16 values is then no multiple of 16 bytes, the least global
-// stride a TMA tensor map can describe.
+// Two routes. bfloat16 at d a multiple of 8 up to 128 runs on the tensor
+// cores (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel and
+// flash_bwd_dkv_wgmma_kernel, below); float32 inputs and bfloat16 ones at
+// other d run on the CUDA cores (flash_fwd_kernel, flash_bwd_dq_kernel,
+// flash_bwd_dkv_kernel). The wrappers choose by dtype and d alone. float32
+// stays off the tensor cores because they would take it as TF32 (about three
+// digits); d % 8 != 0 stays off them because a row of d bfloat16 values is
+// then no multiple of 16 bytes, the least global stride a TMA tensor map can
+// describe; d > 128 because a 64 x d f32 accumulator is d / 2 registers a
+// thread in each of O, dK and dV, which at d = 256 leaves no room for the
+// rest.
 //
 // What bounds them on the card. At the BERT-base shape (bh 192, T 512, d 64)
 // the forward does 12.9 GFLOP on 50.3 MB of bf16 inputs and outputs, so on
 // the tensor cores (989 TFLOP/s bf16) its bound is the bytes (0.015 ms at
 // 3.35 TB/s); the dq sweep does 19.3 GFLOP and the dk/dv sweep 25.8, which
-// the f32 CUDA cores (67 TFLOP/s at most) make their bound. What the designs
-// do about it:
+// make their bound on any cores (0.020 and 0.026 ms on the tensor cores,
+// 0.29 and 0.39 ms on the f32 CUDA cores). What the designs do about it:
 //   * tensor-core forward: a producer warp streams K and V tiles by TMA into
 //     a ring of shared-memory stages (mbarriers), two consumer warpgroups of
 //     64 query rows each run S = Q K^T and O += P V as wgmma with f32
@@ -46,6 +50,10 @@
 //     and the (128 x Tk) score block never leaves the chip. P is split into
 //     two bf16 terms (hi + lo), so P V keeps the f32 P of the plain version
 //     to about 2^-17 (see the kernel's note).
+//   * tensor-core backward: the same machinery, each sweep its own kernel
+//     (see their note): the resident side (Q, dO or K, V) loads once per
+//     128-row item, the other streams through the ring, every product is a
+//     wgmma, and P and dS go to their products from registers in two terms.
 //   * CUDA-core kernels (the CUDA-core forward and both backward sweeps):
 //     every tile lives in shared memory as f32 after one 16-byte-vector load
 //     from device memory (a scalar one where a row is not a whole number of
@@ -54,10 +62,10 @@
 //     rows (conflict-free banks), and the running max, normaliser and
 //     accumulators stay in registers.
 // Causal tiles wholly above the diagonal are skipped, as the TPU kernels skip
-// them. Left for later: the backward sweeps on the tensor cores.
+// them.
 //
-// Head dims. Each kernel is instantiated for a capacity D (32, 64, 128 on
-// the CUDA cores; 64, 128 on the tensor cores) and takes the real d at run
+// Head dims. Each kernel is instantiated for a capacity D (32, 64, 128, 256
+// on the CUDA cores; 64, 128 on the tensor cores) and takes the real d at run
 // time: columns d..D-1 of every tile are zero (masked loads, or TMA's
 // out-of-bounds fill) and are never stored, so they add nothing to a dot
 // product.
@@ -70,8 +78,10 @@
 // row tile b % tiles, so bh is bounded by nothing but memory.
 //
 // CUDA-core threads: 256 a block, as 16 row groups x 16 column groups. Thread
-// (rg, cg) owns rows rg*4 .. rg*4+3 of a 64-row tile; its scores are the
-// columns cg + 16*j (j < 4) and its output columns col(cg, t) below.
+// (rg, cg) owns rows rg*RM .. rg*RM+RM-1 of a 16 RM-row tile (RM = 4, but 2
+// in the backward sweeps at capacity 256: bwd_rm); its scores are the
+// columns cg + 16*j (j < 4) of a 64-row tile and its output columns col(cg,
+// t) below.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,16 +148,16 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// rows [row0, row0 + 64) of a contiguous (rows, hd) matrix into a padded f32
+// rows [row0, row0 + R) of a contiguous (rows, hd) matrix into a padded f32
 // tile of capacity D >= hd; rows at or past `rows` and columns at or past hd
 // read as zeros. kVec: every 8-value chunk that starts inside a row is whole
 // and 16-byte aligned, one vector load; else element by element.
-template <typename T, int D, bool kVec>
+template <typename T, int D, int R, bool kVec>
 __device__ __forceinline__ void load_tile_path(const T* __restrict__ src,
                                                int row0, int rows, int hd,
                                                float* dst) {
   constexpr int kPerRow = D / 8;
-  constexpr int kChunks = kTile * kPerRow;
+  constexpr int kChunks = R * kPerRow;
   for (int c = threadIdx.x; c < kChunks; c += kThreads) {
     const int r = c / kPerRow;
     const int d = (c % kPerRow) * 8;
@@ -170,31 +180,32 @@ __device__ __forceinline__ void load_tile_path(const T* __restrict__ src,
 
 // the path is chosen once per call (a uniform branch), so the vector loop's
 // loads stay straight-line
-template <typename T, int D>
+template <typename T, int D, int R = kTile>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src, int row0,
                                           int rows, int hd, float* dst) {
   if (hd % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0)
-    load_tile_path<T, D, true>(src, row0, rows, hd, dst);
+    load_tile_path<T, D, R, true>(src, row0, rows, hd, dst);
   else
-    load_tile_path<T, D, false>(src, row0, rows, hd, dst);
+    load_tile_path<T, D, R, false>(src, row0, rows, hd, dst);
 }
 
-// acc[i][j] += A[rg*4+i] . B[cg+16j] over D (A, B padded (64 x D) tiles)
-template <int D>
+// acc[i][j] += A[rg*RM+i] . B[cg+16j] over D (A a padded (16 RM x D) tile,
+// B a padded (64 x D) one)
+template <int D, int RM = 4>
 __device__ __forceinline__ void tile_dot(const float* A, const float* B,
-                                         int rg, int cg, float acc[4][4]) {
+                                         int rg, int cg, float acc[RM][4]) {
   constexpr int L = Dims<D>::kLd;
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
+    float4 a[RM], b[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (rg * 4 + i) * L + d);
+    for (int i = 0; i < RM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (rg * RM + i) * L + d);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       b[j] = *reinterpret_cast<const float4*>(B + (cg + 16 * j) * L + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RM; ++i) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float s = acc[i][j];
@@ -229,19 +240,19 @@ __device__ __forceinline__ void load_cols(const float* M, int row, int cg,
   }
 }
 
-// out[i][t] += sum_k P[rg*4+i][k] * M[k][col(cg, t)]   (P a (64 x 64) score
-// tile, M a padded (64 x D) tile)
-template <int D>
+// out[i][t] += sum_k P[rg*RM+i][k] * M[k][col(cg, t)]   (P a (16 RM x 64)
+// score tile, M a padded (64 x D) tile)
+template <int D, int RM = 4>
 __device__ __forceinline__ void tile_pm(const float* P, const float* M, int rg,
-                                        int cg, float out[4][Dims<D>::kTD]) {
+                                        int cg, float out[RM][Dims<D>::kTD]) {
   constexpr int TD = Dims<D>::kTD;
 #pragma unroll 2
   for (int k = 0; k < kTile; k += 4) {
-    float p[4][4];
+    float p[RM][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RM; ++i) {
       const float4 x =
-          *reinterpret_cast<const float4*>(P + (rg * 4 + i) * kLdS + k);
+          *reinterpret_cast<const float4*>(P + (rg * RM + i) * kLdS + k);
       p[i][0] = x.x;
       p[i][1] = x.y;
       p[i][2] = x.z;
@@ -252,7 +263,7 @@ __device__ __forceinline__ void tile_pm(const float* P, const float* M, int rg,
       float m[TD];
       load_cols<D>(M, k + kk, cg, m);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RM; ++i) {
 #pragma unroll
         for (int t = 0; t < TD; ++t) out[i][t] = fmaf(p[i][kk], m[t], out[i][t]);
       }
@@ -383,6 +394,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Rows a thread owns in the backward sweeps' own tile (query rows in dq, key
+// rows in dk/dv): 4, a 64-row tile, up to capacity 128; 2, a 32-row tile, at
+// capacity 256, so the f32 tiles fit a block's shared memory (see dq_smem /
+// dkv_smem below). The streamed tile keeps 64 rows.
+template <int D>
+__host__ __device__ constexpr int bwd_rm() {
+  return D <= 128 ? 4 : 2;
+}
+
 // ---------------------------------------------------------------------------
 // B7: dq sweep, one block per (query tile, bh), accumulating over key tiles
 // ---------------------------------------------------------------------------
@@ -394,15 +414,18 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int Tq, int Tk, int causal, float scale, int hd) {
   constexpr int TD = Dims<D>::kTD;
+  constexpr int RM = bwd_rm<D>();
+  constexpr int BM = 16 * RM;               // query rows a block
+  constexpr int L = Dims<D>::kLd;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sO = sQ + Dims<D>::kTileFloats;  // dO
-  float* sK = sO + Dims<D>::kTileFloats;
+  float* sO = sQ + BM * L;  // dO
+  float* sK = sO + BM * L;
   float* sV = sK + Dims<D>::kTileFloats;
   float* sS = sV + Dims<D>::kTileFloats;  // ds
-  const int n_qt = (Tq + kTile - 1) / kTile;
+  const int n_qt = (Tq + BM - 1) / BM;
   const long long bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x % n_qt) * kTile;
+  const int q0 = (blockIdx.x % n_qt) * BM;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
   q += bh * Tq * hd;
   dout += bh * Tq * hd;
@@ -410,45 +433,45 @@ __global__ void __launch_bounds__(kThreads)
   k += bh * Tk * hd;
   v += bh * Tk * hd;
 
-  load_tile<T, D>(q, q0, Tq, hd, sQ);
-  load_tile<T, D>(dout, q0, Tq, hd, sO);
-  float lse_r[4], del_r[4], acc[4][TD];
+  load_tile<T, D, BM>(q, q0, Tq, hd, sQ);
+  load_tile<T, D, BM>(dout, q0, Tq, hd, sO);
+  float lse_r[RM], del_r[RM], acc[RM][TD];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + rg * 4 + i;
+  for (int i = 0; i < RM; ++i) {
+    const int qi = q0 + rg * RM + i;
     lse_r[i] = qi < Tq ? lse[bh * Tq + qi] : kMasked;
     del_r[i] = qi < Tq ? delta[bh * Tq + qi] : 0.f;
 #pragma unroll
     for (int t = 0; t < TD; ++t) acc[i][t] = 0.f;
   }
-  const int nk = key_tiles(q0, Tq, Tk, causal);
+  const int nk = key_tiles(q0, Tq, Tk, causal, BM);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
     load_tile<T, D>(k, k0, Tk, hd, sK);
     load_tile<T, D>(v, k0, Tk, hd, sV);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<D>(sQ, sK, rg, cg, s);
-    tile_dot<D>(sO, sV, rg, cg, dp);
+    float s[RM][4] = {}, dp[RM][4] = {};
+    tile_dot<D, RM>(sQ, sK, rg, cg, s);
+    tile_dot<D, RM>(sO, sV, rg, cg, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + rg * 4 + i;
+    for (int i = 0; i < RM; ++i) {
+      const int qi = q0 + rg * RM + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = live(qi, k0 + cg + 16 * j, Tq, Tk, causal) &&
                                 lse_r[i] > kSentinelCut
                             ? expf(s[i][j] * scale - lse_r[i])
                             : 0.f;
-        sS[(rg * 4 + i) * kLdS + cg + 16 * j] = p * (dp[i][j] - del_r[i]);
+        sS[(rg * RM + i) * kLdS + cg + 16 * j] = p * (dp[i][j] - del_r[i]);
       }
     }
     __syncthreads();
-    tile_pm<D>(sS, sK, rg, cg, acc);
+    tile_pm<D, RM>(sS, sK, rg, cg, acc);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + rg * 4 + i;
+  for (int i = 0; i < RM; ++i) {
+    const int qi = q0 + rg * RM + i;
     if (qi >= Tq) continue;
 #pragma unroll
     for (int t = 0; t < TD; ++t) {
@@ -471,18 +494,21 @@ __global__ void __launch_bounds__(kThreads)
                          T* __restrict__ dv, int Tq, int Tk, int causal,
                          float scale, int hd) {
   constexpr int TD = Dims<D>::kTD;
+  constexpr int RM = bwd_rm<D>();
+  constexpr int BM = 16 * RM;               // key rows a block
+  constexpr int L = Dims<D>::kLd;
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + Dims<D>::kTileFloats;
-  float* sQ = sV + Dims<D>::kTileFloats;
+  float* sV = sK + BM * L;
+  float* sQ = sV + BM * L;
   float* sO = sQ + Dims<D>::kTileFloats;  // dO
   float* sP = sO + Dims<D>::kTileFloats;  // p, (key row, query row)
-  float* sS = sP + kTile * kLdS;          // ds, (key row, query row)
-  float* sL = sS + kTile * kLdS;          // lse of the query tile
+  float* sS = sP + BM * kLdS;             // ds, (key row, query row)
+  float* sL = sS + BM * kLdS;             // lse of the query tile
   float* sD = sL + kTile;                 // delta of the query tile
-  const int n_kt = (Tk + kTile - 1) / kTile;
+  const int n_kt = (Tk + BM - 1) / BM;
   const long long bh = blockIdx.x / n_kt;
-  const int k0 = (blockIdx.x % n_kt) * kTile;
+  const int k0 = (blockIdx.x % n_kt) * BM;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
   q += bh * Tq * hd;
   dout += bh * Tq * hd;
@@ -491,11 +517,11 @@ __global__ void __launch_bounds__(kThreads)
   dk += bh * Tk * hd;
   dv += bh * Tk * hd;
 
-  load_tile<T, D>(k, k0, Tk, hd, sK);
-  load_tile<T, D>(v, k0, Tk, hd, sV);
-  float dk_acc[4][TD], dv_acc[4][TD];
+  load_tile<T, D, BM>(k, k0, Tk, hd, sK);
+  load_tile<T, D, BM>(v, k0, Tk, hd, sV);
+  float dk_acc[RM][TD], dv_acc[RM][TD];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RM; ++i) {
 #pragma unroll
     for (int t = 0; t < TD; ++t) {
       dk_acc[i][t] = 0.f;
@@ -514,12 +540,12 @@ __global__ void __launch_bounds__(kThreads)
       sD[r] = in ? delta[bh * Tq + q0 + r] : 0.f;
     }
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<D>(sK, sQ, rg, cg, s);
-    tile_dot<D>(sV, sO, rg, cg, dp);
+    float s[RM][4] = {}, dp[RM][4] = {};
+    tile_dot<D, RM>(sK, sQ, rg, cg, s);
+    tile_dot<D, RM>(sV, sO, rg, cg, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kj = k0 + rg * 4 + i;
+    for (int i = 0; i < RM; ++i) {
+      const int kj = k0 + rg * RM + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = cg + 16 * j;
@@ -527,17 +553,17 @@ __global__ void __launch_bounds__(kThreads)
         const float p = live(q0 + c, kj, Tq, Tk, causal) && lq > kSentinelCut
                             ? expf(s[i][j] * scale - lq)
                             : 0.f;
-        sP[(rg * 4 + i) * kLdS + c] = p;
-        sS[(rg * 4 + i) * kLdS + c] = p * (dp[i][j] - sD[c]);
+        sP[(rg * RM + i) * kLdS + c] = p;
+        sS[(rg * RM + i) * kLdS + c] = p * (dp[i][j] - sD[c]);
       }
     }
     __syncthreads();
-    tile_pm<D>(sP, sO, rg, cg, dv_acc);
-    tile_pm<D>(sS, sQ, rg, cg, dk_acc);
+    tile_pm<D, RM>(sP, sO, rg, cg, dv_acc);
+    tile_pm<D, RM>(sS, sQ, rg, cg, dk_acc);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + rg * 4 + i;
+  for (int i = 0; i < RM; ++i) {
+    const int kj = k0 + rg * RM + i;
     if (kj >= Tk) continue;
 #pragma unroll
     for (int t = 0; t < TD; ++t) {
@@ -1047,20 +1073,527 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// B7 / B8 on the tensor cores: bfloat16, d a multiple of 8 (<= 128)
+// ---------------------------------------------------------------------------
+// flash_bwd_dq_wgmma_kernel replaces _bwd_dq_kernel (the dq sweep of
+// _flash_backward, incubator_mxnet_tpu/ops/pallas_attention.py:107, its
+// pallas_call :366), flash_bwd_dkv_wgmma_kernel _bwd_dkv_kernel (:162, its
+// pallas_call :385), for bfloat16 inputs whose rows are whole 16-byte
+// vectors. Bound: operations. The dq sweep does 3 products of 2 d
+// operations a live pair (S = Q K^T, dP = dO V^T, dQ = dS K) and the dk/dv
+// sweep 4 (S^T, dP^T, dV = P^T dO, dK = dS^T Q): 19.3 and 25.8 GFLOP at
+// (192, 512, 64), 0.0195 and 0.0261 ms at the bf16 peak, over their bytes
+// (15.8 and 18.0 MB, ~0.005 ms). What the design does about it: every
+// product is a wgmma with f32 accumulators, the tiles the forward's machinery
+// brings (TMA over 3-D tensor maps (d, T, bh), 128-byte swizzle, an mbarrier
+// ring, a persistent grid walking 128-row work items heaviest first), and
+// nothing of the (128 x T) P or dS blocks leaves the chip:
+//   * dq: a work item is (head, 128 query rows), two consumer warpgroups of
+//     64 rows each. Q and dO stay resident (two buffers: the next item's
+//     load under this item's products); K and V stream through the ring in
+//     64-row tiles. Per tile S = Q K^T and dP = dO V^T (K-major operands),
+//     P = exp2(S scale log2(e) - lse log2(e)) and dS = P (dP - delta) on the
+//     accumulator registers, then dQ += dS K with dS as the register
+//     A-fragment and K through the transposed (N-major) descriptor, as V is
+//     in the forward's P V.
+//   * dk/dv: a work item is (head, 128 key rows). K and V stay resident; Q,
+//     dO and the rows' lse and delta stream in 64-row tiles (the producer
+//     warp writes lse log2(e), +inf on rows past Tq and on the -1e30
+//     sentinel, and delta into the stage beside the TMA tiles). Per tile
+//     S^T = K Q^T and dP^T = V dO^T, P^T and dS^T on the registers, then
+//     dV += P^T dO and dK += dS^T Q with dO and Q through the transposed
+//     descriptor. Under causal a key item starts at first_query_tile.
+//   * P and dS go into their products as two bf16 terms (x = x_hi + x_lo,
+//     two wgmma into one accumulator), as P does in the forward: one term
+//     reads rms_rel ~2.6e-3 on dq, dk and dv at (192, 512, 64), over the
+//     5e-4 limit chip_smoke.py holds bf16 outputs to, two terms ~9e-5
+//     (emulated; phase 6 records the reading on the card). The split costs
+//     4/3 the dq sweep's products and 6/4 the dk/dv sweep's.
+//   * registers: dK and dV at d = 128 are 128 f32 accumulators a thread,
+//     and S^T, dP^T 64 more, over the 168 ptxas gives a thread of a block
+//     of three warpgroups. The producer warpgroup gives its registers to the
+//     consumers (setmaxnreg: 24 and 240, which the block's 384 x 168 cover
+//     exactly); the launch refuses a build whose register count would leave
+//     the raise unmet instead of waiting on it forever.
+//   * the two consumer warpgroups take turns issuing S and dP (named
+//     barriers), so one's exponentials overlap the other's products.
+constexpr int kBwThreads = 384;    // 2 consumer warpgroups + a producer one
+constexpr int kBwRows = 128;       // rows of a work item (2 x 64)
+constexpr int kBwTile = 64;        // streamed rows a stage
+constexpr int kBwStages = 3;       // ring depth
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+template <int D>
+struct Bw {
+  static constexpr int kAtoms = D / 64;              // 64-column boxes
+  static constexpr int kHalf = kAtoms * 8192;        // 64 rows of one operand
+  static constexpr int kOperand = 2 * kHalf;         // 128 rows (both groups)
+  static constexpr int kItem = 2 * kOperand;         // the resident pair
+  static constexpr int kTile = kHalf;                // a streamed operand
+  // two buffers of the resident pair (Q, dO or K, V), the ring of the
+  // streamed pair (K, V or Q, dO: first operand's stages, then the
+  // second's), each stage's lse and delta rows (dk/dv), then the barriers:
+  // res_full[2], res_empty[2], full[stages], empty[stages]
+  static constexpr int kRing = 2 * kItem;
+  static constexpr int kStats = kRing + 2 * kBwStages * kTile;
+  static constexpr int kBarOff = kStats + kBwStages * 2 * kBwTile * 4;
+  static constexpr int kSmem = 1024 + kBarOff + 8 * (4 + 2 * kBwStages);
+};
+static_assert(Bw<128>::kSmem <= 232448, "the backward's tiles fit");
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// x = hi + lo, each a bf16 pair in the register A-fragment's packing
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t* hi,
+                                           uint32_t* lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  *hi = *reinterpret_cast<const uint32_t*>(&h);
+  *lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// the backward's barriers: res_full[b] (count res_count), res_empty[b] (the
+// 256 consumer threads), full[s] (count full_count), empty[s] (256)
+__device__ __forceinline__ void bw_init(uint32_t bars, int full_count) {
+  for (int b = 0; b < 2; ++b) {
+    mbar_init(bars + 8 * b, 1);
+    mbar_init(bars + 16 + 8 * b, 256);
+  }
+  for (int st = 0; st < kBwStages; ++st) {
+    mbar_init(bars + 32 + 8 * st, full_count);
+    mbar_init(bars + 32 + 8 * kBwStages + 8 * st, 256);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// S (64 x 64) = A . B^T over D for one warpgroup: A 64 rows at a (K-major,
+// atoms 8192 bytes apart), B 64 rows at b (the same)
+template <int D>
+__device__ __forceinline__ void bw_scores(float* s, uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
+    wgmma_ss<64>(s, sw128_desc(a + off, 16), sw128_desc(b + off, 16), kk > 0);
+  }
+}
+
+// acc (64 x D) += X (64 x 64, two bf16 terms in registers) . M (64 rows x
+// D at m, through the transposed descriptor)
+template <int D>
+__device__ __forceinline__ void bw_product(float* acc, uint32_t (*hi)[4],
+                                           uint32_t (*lo)[4], uint32_t m) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+    wgmma_rs<D>(acc, hi[kb], sw128_desc(m + kb * 2048, kBwTile * 128));
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+    wgmma_rs<D>(acc, lo[kb], sw128_desc(m + kb * 2048, kBwTile * 128));
+}
+
+// lse in log2 units for the exponentials: +inf on a row past Tq or on the
+// -1e30 sentinel of a row with no live key, so its p is exp2(-inf) = 0
+__device__ __forceinline__ float lse_log2(const float* lse, long long at,
+                                          bool in) {
+  if (!in) return INFINITY;
+  const float l = lse[at];
+  return l > kSentinelCut ? l * kLog2e : INFINITY;
+}
+
+// Accumulator fragment of a 64 x N wgmma in a consumer thread (warp w of its
+// warpgroup, lane = 4 g + t): register 4 j + e holds row 16 w + g + 8 (e /
+// 2), column 8 j + 2 t + (e % 2), as in the forward.
+template <int D>
+__global__ void __launch_bounds__(kBwThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int n_heads,
+                              int Tq, int Tk, int causal, float scale_log2,
+                              float scale, int hd) {
+  using C = Bw<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + C::kBarOff;
+  const uint32_t res_full0 = bars, res_empty0 = bars + 16;
+  const uint32_t full0 = bars + 32, empty0 = full0 + 8 * kBwStages;
+  const uint32_t ringK = base + C::kRing;
+  const uint32_t ringV = ringK + kBwStages * C::kTile;
+
+  // work item i = (head i % n_heads, 128-row query tile n_qt - 1 - i /
+  // n_heads): under causal the last query tiles see the most key tiles
+  const int n_qt = (Tq + kBwRows - 1) / kBwRows;
+  const int n_items = n_heads * n_qt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) bw_init(bars, 1);
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer warpgroup: its lane 0 of warp 8 loads each item's Q and dO
+    // into the free resident buffer, then the K/V tiles through the ring
+    regs_dec<kProducerRegs>();
+    if (warp == 8 && lane == 0) {
+      int st = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x, it = 0; item < n_items;
+           item += gridDim.x, ++it) {
+        const int bh = item % n_heads;
+        const int q0 = (n_qt - 1 - item / n_heads) * kBwRows;
+        const int nk = key_tiles(q0, Tq, Tk, causal, kBwRows, kBwTile);
+        const int b = it & 1;
+        mbar_wait(res_empty0 + 8 * b, ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(res_full0 + 8 * b, C::kItem);
+        for (int w = 0; w < 2; ++w)
+          for (int a = 0; a < C::kAtoms; ++a) {
+            const uint32_t dst = base + b * C::kItem + w * C::kHalf + a * 8192;
+            tma_load(dst, &tm_q, res_full0 + 8 * b, a * 64, q0 + 64 * w, bh);
+            tma_load(dst + C::kOperand, &tm_do, res_full0 + 8 * b, a * 64,
+                     q0 + 64 * w, bh);
+          }
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(empty0 + 8 * st, phase ^ 1);
+          const uint32_t bar = full0 + 8 * st;
+          mbar_expect_tx(bar, 2 * C::kTile);
+          for (int a = 0; a < C::kAtoms; ++a) {
+            const uint32_t off = st * C::kTile + a * 8192;
+            tma_load(ringK + off, &tm_k, bar, a * 64, kt * kBwTile, bh);
+            tma_load(ringV + off, &tm_v, bar, a * 64, kt * kBwTile, bh);
+          }
+          if (++st == kBwStages) {
+            st = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    regs_inc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const int g = lane / 4, t = lane % 4;
+    if (wg == 1) named_arrive(1);
+    int st = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x, it = 0; item < n_items;
+         item += gridDim.x, ++it) {
+      const int bh = item % n_heads;
+      const int q0 = (n_qt - 1 - item / n_heads) * kBwRows;
+      const int nk = key_tiles(q0, Tq, Tk, causal, kBwRows, kBwTile);
+      const int b = it & 1;
+      const int wg_first = q0 + 64 * wg;
+      const int row0 = wg_first + 16 * (warp % 4) + g;  // and row0 + 8
+      const long long head = (long long)bh * Tq;
+      float l2[2], dl[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = row0 + 8 * r;
+        l2[r] = lse_log2(lse, head + qi, qi < Tq);
+        dl[r] = qi < Tq ? delta[head + qi] : 0.f;
+      }
+      const uint32_t sQw = base + b * C::kItem + wg * C::kHalf;
+      const uint32_t sOw = sQw + C::kOperand;
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      mbar_wait(res_full0 + 8 * b, (it >> 1) & 1);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int k0 = kt * kBwTile;
+        mbar_wait(full0 + 8 * st, phase);
+        const uint32_t sKs = ringK + st * C::kTile;
+        const uint32_t sVs = ringV + st * C::kTile;
+        float s[32], dp[32];
+        named_sync(1 + wg);
+        wg_fence();
+        bw_scores<D>(s, sQw, sKs);
+        bw_scores<D>(dp, sOw, sVs);
+        wg_commit();
+        named_arrive(2 - wg);
+        wg_wait0();
+        pin<32>(s);
+        pin<32>(dp);
+
+        const bool masked = k0 + kBwTile > Tk ||
+                            (causal && k0 + kBwTile - 1 >
+                                           wg_first + (Tk - Tq));
+        uint32_t d_hi[4][4], d_lo[4][4];
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 8 * kb + 2 * r;  // rows: r even row0, odd row0 + 8
+            const int h = r % 2;
+            float x = exp2f(fmaf(s[i], scale_log2, -l2[h]));
+            float y = exp2f(fmaf(s[i + 1], scale_log2, -l2[h]));
+            if (masked) {
+              const int kj = k0 + 16 * kb + 8 * (r / 2) + 2 * t;
+              const int qi = row0 + 8 * h;
+              if (!live(qi, kj, Tq, Tk, causal)) x = 0.f;
+              if (!live(qi, kj + 1, Tq, Tk, causal)) y = 0.f;
+            }
+            split_bf16(x * (dp[i] - dl[h]), y * (dp[i + 1] - dl[h]),
+                       &d_hi[kb][r], &d_lo[kb][r]);
+          }
+        }
+        wg_fence();
+        bw_product<D>(acc, d_hi, d_lo, sKs);
+        wg_commit();
+        wg_wait0();
+        pin<D / 2>(acc);
+        mbar_arrive(empty0 + 8 * st);
+        if (++st == kBwStages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+      mbar_arrive(res_empty0 + 8 * b);  // this item's S and dP are done
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = row0 + 8 * r;
+        if (qi >= Tq) continue;
+        __nv_bfloat16* orow = dq + (head + qi) * hd;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int col = 8 * j + 2 * t;
+          if (col < hd)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale,
+                                      acc[4 * j + 2 * r + 1] * scale);
+        }
+      }
+    }
+    if (wg == 0) named_sync(1);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int n_heads,
+                               int Tq, int Tk, int causal, float scale_log2,
+                               float scale, int hd) {
+  using C = Bw<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const base_p = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bars = base + C::kBarOff;
+  const uint32_t res_full0 = bars, res_empty0 = bars + 16;
+  const uint32_t full0 = bars + 32, empty0 = full0 + 8 * kBwStages;
+  const uint32_t ringQ = base + C::kRing;
+  const uint32_t ringO = ringQ + kBwStages * C::kTile;
+  // stage s: lse log2(e) of its 64 query rows, then their delta
+  float* const stats = reinterpret_cast<float*>(base_p + C::kStats);
+
+  // work item i = (head i % n_heads, 128-row key tile i / n_heads): under
+  // causal the first key tiles are seen by the most query tiles
+  const int n_kt = (Tk + kBwRows - 1) / kBwRows;
+  const int n_items = n_heads * n_kt;
+  const int nq = (Tq + kBwTile - 1) / kBwTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) bw_init(bars, 32);
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer warpgroup: warp 8 loads each item's K and V into the free
+    // resident buffer (lane 0), then for each query tile its 64 rows' lse
+    // and delta (every lane, two rows each) and its Q and dO tiles (lane 0)
+    // into a ring stage; the stage's full barrier takes one arrival a lane
+    regs_dec<kProducerRegs>();
+    if (warp == 8) {
+      int st = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x, it = 0; item < n_items;
+           item += gridDim.x, ++it) {
+        const int bh = item % n_heads;
+        const int k0 = (item / n_heads) * kBwRows;
+        const int b = it & 1;
+        if (lane == 0) {
+          mbar_wait(res_empty0 + 8 * b, ((it >> 1) & 1) ^ 1);
+          mbar_expect_tx(res_full0 + 8 * b, C::kItem);
+          for (int w = 0; w < 2; ++w)
+            for (int a = 0; a < C::kAtoms; ++a) {
+              const uint32_t dst =
+                  base + b * C::kItem + w * C::kHalf + a * 8192;
+              tma_load(dst, &tm_k, res_full0 + 8 * b, a * 64, k0 + 64 * w,
+                       bh);
+              tma_load(dst + C::kOperand, &tm_v, res_full0 + 8 * b, a * 64,
+                       k0 + 64 * w, bh);
+            }
+        }
+        const long long head = (long long)bh * Tq;
+        for (int qt = causal ? first_query_tile(k0, Tq, Tk) : 0; qt < nq;
+             ++qt) {
+          const int q0 = qt * kBwTile;
+          mbar_wait(empty0 + 8 * st, phase ^ 1);
+          float* sl = stats + st * 2 * kBwTile;
+          for (int r = lane; r < kBwTile; r += 32) {
+            const int qi = q0 + r;
+            sl[r] = lse_log2(lse, head + qi, qi < Tq);
+            sl[kBwTile + r] = qi < Tq ? delta[head + qi] : 0.f;
+          }
+          const uint32_t bar = full0 + 8 * st;
+          if (lane == 0) {
+            mbar_expect_tx(bar, 2 * C::kTile);
+            for (int a = 0; a < C::kAtoms; ++a) {
+              const uint32_t off = st * C::kTile + a * 8192;
+              tma_load(ringQ + off, &tm_q, bar, a * 64, q0, bh);
+              tma_load(ringO + off, &tm_do, bar, a * 64, q0, bh);
+            }
+          } else {
+            mbar_arrive(bar);
+          }
+          if (++st == kBwStages) {
+            st = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    regs_inc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const int g = lane / 4, t = lane % 4;
+    if (wg == 1) named_arrive(1);
+    int st = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x, it = 0; item < n_items;
+         item += gridDim.x, ++it) {
+      const int bh = item % n_heads;
+      const int k0 = (item / n_heads) * kBwRows;
+      const int b = it & 1;
+      const int wg_first = k0 + 64 * wg;
+      const int row0 = wg_first + 16 * (warp % 4) + g;  // and row0 + 8
+      const uint32_t sKw = base + b * C::kItem + wg * C::kHalf;
+      const uint32_t sVw = sKw + C::kOperand;
+      float dka[D / 2], dva[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        dka[i] = 0.f;
+        dva[i] = 0.f;
+      }
+      mbar_wait(res_full0 + 8 * b, (it >> 1) & 1);
+      for (int qt = causal ? first_query_tile(k0, Tq, Tk) : 0; qt < nq;
+           ++qt) {
+        const int q0 = qt * kBwTile;
+        mbar_wait(full0 + 8 * st, phase);
+        const uint32_t sQs = ringQ + st * C::kTile;
+        const uint32_t sOs = ringO + st * C::kTile;
+        const float* sl = stats + st * 2 * kBwTile;
+        float s[32], dp[32];
+        named_sync(1 + wg);
+        wg_fence();
+        bw_scores<D>(s, sKw, sQs);   // S^T: key rows x query columns
+        bw_scores<D>(dp, sVw, sOs);  // dP^T
+        wg_commit();
+        named_arrive(2 - wg);
+        wg_wait0();
+        pin<32>(s);
+        pin<32>(dp);
+
+        const bool masked = wg_first + 64 > Tk ||
+                            (causal && wg_first + 63 > q0 + (Tk - Tq));
+        uint32_t p_hi[4][4], p_lo[4][4], d_hi[4][4], d_lo[4][4];
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 8 * kb + 2 * r;  // rows: r even row0, odd row0 + 8
+            const int c = 16 * kb + 8 * (r / 2) + 2 * t;  // query column
+            const float2 l2 = *reinterpret_cast<const float2*>(sl + c);
+            const float2 dl =
+                *reinterpret_cast<const float2*>(sl + kBwTile + c);
+            float x = exp2f(fmaf(s[i], scale_log2, -l2.x));
+            float y = exp2f(fmaf(s[i + 1], scale_log2, -l2.y));
+            if (masked) {
+              const int kj = row0 + 8 * (r % 2);
+              if (!live(q0 + c, kj, Tq, Tk, causal)) x = 0.f;
+              if (!live(q0 + c + 1, kj, Tq, Tk, causal)) y = 0.f;
+            }
+            split_bf16(x, y, &p_hi[kb][r], &p_lo[kb][r]);
+            split_bf16(x * (dp[i] - dl.x), y * (dp[i + 1] - dl.y),
+                       &d_hi[kb][r], &d_lo[kb][r]);
+          }
+        }
+        wg_fence();
+        bw_product<D>(dva, p_hi, p_lo, sOs);
+        bw_product<D>(dka, d_hi, d_lo, sQs);
+        wg_commit();
+        wg_wait0();
+        pin<D / 2>(dva);
+        pin<D / 2>(dka);
+        mbar_arrive(empty0 + 8 * st);
+        if (++st == kBwStages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+      mbar_arrive(res_empty0 + 8 * b);  // this item's S^T and dP^T are done
+
+      const long long head = (long long)bh * Tk;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int kj = row0 + 8 * r;
+        if (kj >= Tk) continue;
+        __nv_bfloat16* krow = dk + (head + kj) * hd;
+        __nv_bfloat16* vrow = dv + (head + kj) * hd;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int col = 8 * j + 2 * t;
+          if (col >= hd) continue;
+          *reinterpret_cast<__nv_bfloat162*>(krow + col) =
+              __floats2bfloat162_rn(dka[4 * j + 2 * r] * scale,
+                                    dka[4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(vrow + col) =
+              __floats2bfloat162_rn(dva[4 * j + 2 * r],
+                                    dva[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+    if (wg == 0) named_sync(1);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
+// Shared memory of the CUDA-core kernels, f32 tiles padded to D + 4. At
+// capacity 256 (rows of 260 floats) the forward's 64-row tiles take 217,088
+// bytes; 64-row backward tiles would take 283,648 (dq) and 301,568 (dk/dv),
+// over the 232,448 a block can use, so the sweeps' own tile there is 32 rows
+// (bwd_rm): 208,384 bytes for dq, 217,600 for dk/dv.
 template <int D>
 constexpr int fwd_smem() {
   return (3 * Dims<D>::kTileFloats + kTile * kLdS) * 4;
 }
 template <int D>
 constexpr int dq_smem() {
-  return (4 * Dims<D>::kTileFloats + kTile * kLdS) * 4;
+  constexpr int BM = 16 * bwd_rm<D>();
+  return ((2 * BM + 2 * kTile) * Dims<D>::kLd + BM * kLdS) * 4;
 }
 template <int D>
 constexpr int dkv_smem() {
-  return (4 * Dims<D>::kTileFloats + 2 * kTile * kLdS + 2 * kTile) * 4;
+  constexpr int BM = 16 * bwd_rm<D>();
+  return ((2 * BM + 2 * kTile) * Dims<D>::kLd + 2 * BM * kLdS + 2 * kTile) *
+         4;
 }
+static_assert(fwd_smem<256>() == 217088 && dq_smem<256>() == 208384 &&
+                  dkv_smem<256>() == 217600 && dkv_smem<128>() <= 232448,
+              "the capacity-256 tiles fit a block's shared memory");
 
 struct Device {
   int prev = 0;
@@ -1124,7 +1657,8 @@ cudaError_t run_dq(const Args& a) {
   auto kern = flash_bwd_dq_kernel<T, D>;
   constexpr int smem = dq_smem<D>();
   dim3 grid;
-  if (!grid_1d(a.bh, a.tq, kTile, &grid)) return cudaErrorInvalidValue;
+  if (!grid_1d(a.bh, a.tq, 16 * bwd_rm<D>(), &grid))
+    return cudaErrorInvalidValue;
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<grid, kThreads, smem, a.st>>>(
@@ -1139,7 +1673,8 @@ cudaError_t run_dkv(const Args& a) {
   auto kern = flash_bwd_dkv_kernel<T, D>;
   constexpr int smem = dkv_smem<D>();
   dim3 grid;
-  if (!grid_1d(a.bh, a.tk, kTile, &grid)) return cudaErrorInvalidValue;
+  if (!grid_1d(a.bh, a.tk, 16 * bwd_rm<D>(), &grid))
+    return cudaErrorInvalidValue;
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<grid, kThreads, smem, a.st>>>(
@@ -1167,15 +1702,16 @@ template <typename T>
 cudaError_t run_dim(int which, const Args& a) {
   if (a.hd <= 32) return run<T, 32>(which, a);
   if (a.hd <= 64) return run<T, 64>(which, a);
-  return run<T, 128>(which, a);
+  if (a.hd <= 128) return run<T, 128>(which, a);
+  return run<T, 256>(which, a);
 }
 
 int dispatch(int dtype, int device, int which, const Args& a) {
   if ((dtype != 0 && dtype != 1) || a.bh <= 0 || a.tq < 0 || a.tk < 0 ||
-      a.hd < 1 || a.hd > 128)
+      a.hd < 1 || a.hd > 256)
     return (int)cudaErrorInvalidValue;
-  // the bfloat16 forward at d % 8 == 0 is the tensor-core kernel's
-  if (dtype == 1 && which <= 1 && a.hd % 8 == 0)
+  // bfloat16 at d % 8 == 0 up to 128 is the tensor-core kernels'
+  if (dtype == 1 && a.hd % 8 == 0 && a.hd <= 128)
     return (int)cudaErrorInvalidValue;
   Device guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
@@ -1270,10 +1806,77 @@ cudaError_t run_fwd_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
+// setmaxnreg moves registers within the block's launch allocation: the
+// producer warpgroup's release has to cover the consumers' raise, or the
+// raise would wait for ever. A build whose register count falls short is
+// refused before it launches.
+template <typename K>
+cudaError_t prepare_rebalanced(K kern, int smem) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e != cudaSuccess) return e;
+  if (attr.numRegs * kBwThreads <
+      256 * kConsumerRegs + 128 * kProducerRegs)
+    return cudaErrorLaunchOutOfResources;
+  return prepare(kern, smem);
+}
+
+// the persistent grid of a backward sweep over `rows` (tq for dq, tk for
+// dk/dv) in 128-row items: one block per SM at most
+bool bw_grid(const Args& a, int rows, int* grid) {
+  const long long items = (long long)a.bh * ((rows + kBwRows - 1) / kBwRows);
+  if (items <= 0 || items > 2147483647LL) return false;
+  *grid = (int)(items < sm_count() ? items : sm_count());
+  return true;
+}
+
+// the four maps of a backward sweep; a side with no rows (tk == 0 for dq,
+// tq == 0 for dk/dv) is never read, and its maps only need to be valid
+bool bw_maps(const Args& a, CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
+             CUtensorMap* mo) {
+  const bool qs = a.tq > 0, ks = a.tk > 0;
+  return tensor_map(mq, qs ? a.q : a.k, a.hd, qs ? a.tq : a.tk, a.bh, 64) &&
+         tensor_map(mo, qs ? a.dout : a.k, a.hd, qs ? a.tq : a.tk, a.bh,
+                    64) &&
+         tensor_map(mk, ks ? a.k : a.q, a.hd, ks ? a.tk : a.tq, a.bh, 64) &&
+         tensor_map(mv, ks ? a.v : a.q, a.hd, ks ? a.tk : a.tq, a.bh, 64);
+}
+
+template <int D>
+cudaError_t run_dq_wgmma(const Args& a) {
+  auto kern = flash_bwd_dq_wgmma_kernel<D>;
+  int grid = 0;
+  CUtensorMap mq, mk, mv, mo;
+  if (!bw_grid(a, a.tq, &grid) || !bw_maps(a, &mq, &mk, &mv, &mo))
+    return cudaErrorInvalidValue;
+  cudaError_t e = prepare_rebalanced(kern, Bw<D>::kSmem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, kBwThreads, Bw<D>::kSmem, a.st>>>(
+      mq, mk, mv, mo, a.lse_in, a.delta, static_cast<__nv_bfloat16*>(a.o),
+      a.bh, a.tq, a.tk, a.causal, a.scale * kLog2e, a.scale, a.hd);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t run_dkv_wgmma(const Args& a) {
+  auto kern = flash_bwd_dkv_wgmma_kernel<D>;
+  int grid = 0;
+  CUtensorMap mq, mk, mv, mo;
+  if (!bw_grid(a, a.tk, &grid) || !bw_maps(a, &mq, &mk, &mv, &mo))
+    return cudaErrorInvalidValue;
+  cudaError_t e = prepare_rebalanced(kern, Bw<D>::kSmem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, kBwThreads, Bw<D>::kSmem, a.st>>>(
+      mq, mk, mv, mo, a.lse_in, a.delta, static_cast<__nv_bfloat16*>(a.o),
+      static_cast<__nv_bfloat16*>(a.o2), a.bh, a.tq, a.tk, a.causal,
+      a.scale * kLog2e, a.scale, a.hd);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; head_dim 1..128 (bfloat16 at a multiple of 8
-// is refused: mx_flash_fwd_wgmma serves it). q (bh, tq, d), k and v
+// dtype: 0 float32, 1 bfloat16; head_dim 1..256 (bfloat16 at a multiple of 8
+// up to 128 is refused: the tensor-core entry points serve it). q (bh, tq, d), k and v
 // (bh, tk, d), o (bh, tq, d), all contiguous and 16-byte aligned; lse
 // (bh, tq) float32, written when with_lse. Returns cudaGetLastError() after
 // the launch, never synchronises.
@@ -1310,7 +1913,8 @@ extern "C" int mx_flash_fwd_wgmma(int device, int head_dim, int with_lse,
                         : run_fwd_wgmma<128, false>(a));
 }
 
-// dq (bh, tq, d) from q, k, v, dout and the float32 (bh, tq) lse and delta.
+// dq (bh, tq, d) from q, k, v, dout and the float32 (bh, tq) lse and delta
+// (dtype and head_dim as mx_flash_fwd's).
 extern "C" int mx_flash_bwd_dq(int dtype, int device, int head_dim,
                                const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
@@ -1334,6 +1938,49 @@ extern "C" int mx_flash_bwd_dkv(int dtype, int device, int head_dim,
          static_cast<const float*>(delta), dk, dv, nullptr, bh, tq, tk,
          causal, head_dim, scale, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, device, 3, a);
+}
+
+// The tensor-core backward sweeps: bfloat16 q, k, v, dout and outputs as
+// above, 16-byte aligned, head_dim a multiple of 8 up to 128; tq >= 1 for
+// dq, tk >= 1 for dk/dv (the other side may be empty).
+static bool bw_args_ok(int head_dim, int bh, int tq, int tk, const void* lse,
+                const void* delta) {
+  return head_dim >= 8 && head_dim <= 128 && head_dim % 8 == 0 && bh > 0 &&
+         tq >= 0 && tk >= 0 && lse != nullptr && delta != nullptr;
+}
+
+extern "C" int mx_flash_bwd_dq_wgmma(int device, int head_dim, const void* q,
+                                     const void* k, const void* v,
+                                     const void* dout, const void* lse,
+                                     const void* delta, void* dq, int bh,
+                                     int tq, int tk, int causal, float scale,
+                                     void* stream) {
+  if (!bw_args_ok(head_dim, bh, tq, tk, lse, delta) || tq < 1)
+    return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), dq, nullptr, nullptr, bh, tq, tk,
+         causal, head_dim, scale, static_cast<cudaStream_t>(stream)};
+  Device guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  return (int)(head_dim <= 64 ? run_dq_wgmma<64>(a) : run_dq_wgmma<128>(a));
+}
+
+extern "C" int mx_flash_bwd_dkv_wgmma(int device, int head_dim,
+                                      const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dk, void* dv, int bh, int tq,
+                                      int tk, int causal, float scale,
+                                      void* stream) {
+  if (!bw_args_ok(head_dim, bh, tq, tk, lse, delta) || tk < 1)
+    return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), dk, dv, nullptr, bh, tq, tk,
+         causal, head_dim, scale, static_cast<cudaStream_t>(stream)};
+  Device guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  return (int)(head_dim <= 64 ? run_dkv_wgmma<64>(a)
+                              : run_dkv_wgmma<128>(a));
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

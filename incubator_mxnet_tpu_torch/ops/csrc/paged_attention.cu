@@ -29,9 +29,11 @@
 // for the chunk case, TMA with double-buffered tiles, and a split over tokens
 // when lanes x heads are too few to fill the card.
 //
-// Head dims: each instance has a capacity D (32, 64, 128) and takes the real
-// head dim d <= D at run time; columns d..D-1 of its tiles are zero and never
-// stored. Rows are read with 16-byte vector loads where every q and slab row
+// Head dims: each instance has a capacity D (32, 64, 128, 256) and takes the
+// real head dim d <= D at run time; columns d..D-1 of its tiles are zero and
+// never stored. Every tile is static shared memory, at most 48 KB a block:
+// at capacity 256 a K/V tile holds 16 positions and a chunk's query tile 8
+// rows (41,760 bytes; 32 positions and 16 rows would take ~83 KB). Rows are read with 16-byte vector loads where every q and slab row
 // is a whole number of aligned 16-byte vectors (d * itemsize a multiple of 16,
 // strides and pointers aligned), and element by element otherwise (int8 codes
 // at d = 24, bf16 at d = 12, for example).
@@ -161,7 +163,8 @@ template <typename Tq, typename Tkv, int D, int QT>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const Args a, float scale) {
   constexpr bool kQuant = std::is_same<Tkv, int8_t>::value;
-  constexpr int BT = D <= 64 ? 64 : 32;  // token positions per K/V tile
+  // token positions per K/V tile
+  constexpr int BT = D <= 64 ? 64 : (D <= 128 ? 32 : 16);
   constexpr int QN = Vec16<Tq>::N;
   constexpr int QV = D / QN;  // 16-byte vectors per q row
   constexpr int KN = Vec16<Tkv>::N;
@@ -330,16 +333,19 @@ paged_attention_kernel(const Args a, float scale) {
   }
 }
 
-// decode (C == 1) takes a one-row query tile; chunks take 16-row tiles
+// decode (C == 1) takes a one-row query tile; chunks take 16-row tiles (8
+// at capacity 256, within static shared memory)
 template <typename Tq, typename Tkv, int D>
 cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
+  constexpr int QT = D <= 128 ? 16 : 8;
   const float scale = 1.0f / sqrtf((float)a.d);
   if (a.C == 1) {
     paged_attention_kernel<Tq, Tkv, D, 1>
         <<<dim3(a.C, a.H, a.S), kThreads, 0, stream>>>(a, scale);
   } else {
-    paged_attention_kernel<Tq, Tkv, D, 16>
-        <<<dim3((a.C + 15) / 16, a.H, a.S), kThreads, 0, stream>>>(a, scale);
+    paged_attention_kernel<Tq, Tkv, D, QT>
+        <<<dim3((a.C + QT - 1) / QT, a.H, a.S), kThreads, 0, stream>>>(a,
+                                                                      scale);
   }
   return cudaGetLastError();
 }
@@ -349,7 +355,8 @@ template <typename Tq, typename Tkv>
 cudaError_t launch_dim(const Args& a, cudaStream_t stream) {
   if (a.d <= 32) return launch_tile<Tq, Tkv, 32>(a, stream);
   if (a.d <= 64) return launch_tile<Tq, Tkv, 64>(a, stream);
-  return launch_tile<Tq, Tkv, 128>(a, stream);
+  if (a.d <= 128) return launch_tile<Tq, Tkv, 128>(a, stream);
+  return launch_tile<Tq, Tkv, 256>(a, stream);
 }
 
 template <typename Tq>
@@ -379,7 +386,7 @@ bool aligned16(const void* p) {
 // tok_stride elements apart (heads and dims contiguous); k_scale and v_scale
 // point at [row 0, layer, position 0] of the scales, whose rows are
 // scale_row_stride floats apart (positions contiguous). lengths is (S,)
-// int32 on the device. S, C and H are at least 1, D from 1 to 128. Returns
+// int32 on the device. S, C and H are at least 1, D from 1 to 256. Returns
 // cudaGetLastError() after the launch (0 on success), never synchronises.
 extern "C" int mx_paged_attention_fwd(
     int q_dtype, int kv_dtype, int device, const void* q, const void* k,
@@ -387,7 +394,7 @@ extern "C" int mx_paged_attention_fwd(
     const void* lengths, void* out, int S, int C, int H, int D, int T_ext,
     long long row_stride, long long tok_stride, long long scale_row_stride,
     void* stream) {
-  if (S <= 0 || C <= 0 || H <= 0 || D < 1 || D > 128 ||
+  if (S <= 0 || C <= 0 || H <= 0 || D < 1 || D > 256 ||
       (q_dtype != 0 && q_dtype != 1) || kv_dtype < 0 || kv_dtype > 2)
     return (int)cudaErrorInvalidValue;
   if ((kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr))

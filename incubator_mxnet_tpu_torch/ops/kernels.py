@@ -12,7 +12,7 @@ layout, launches on PyTorch's current stream without synchronising, raises
 when the launch is refused, and adds one to its launch counter (see
 `launch_counts()`). Every shape rule a wrapper enforces is a row of one
 table, `refusal()`: it refuses what the JAX package refuses too, and one
-named remainder, head dims over 128 (ROADMAP C1). Any other shape the JAX
+named remainder, head dims over 256 (ROADMAP C1). Any other shape the JAX
 package serves reaches a kernel. The plain PyTorch versions live beside the
 dispatchers in `ops/fused.py` and `ops/attention.py`; no wrapper ever
 falls back to them, and no wrapper copies a tensor into the layout its
@@ -35,6 +35,7 @@ from ..base import MXNetError
 __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
            "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "flash_fwd_cuda",
            "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "flash_fwd_route",
+           "flash_bwd_route",
            "ACT_CODES", "HEAD_DIM_MAX", "RULES", "refusal",
            "reset_launch_counts", "launch_counts"]
 
@@ -64,6 +65,9 @@ flash_fwd_wgmma_launches = 0
 flash_fwd_lse_wgmma_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+# the backward launches (of the two above) that ran on the tensor cores
+flash_bwd_dq_wgmma_launches = 0
+flash_bwd_dkv_wgmma_launches = 0
 
 
 def reset_launch_counts():
@@ -71,7 +75,8 @@ def reset_launch_counts():
         scale_shift_act_launches, avg_pool2d_fwd_launches, \
         avg_pool2d_bwd_launches, flash_fwd_launches, flash_fwd_lse_launches, \
         flash_fwd_wgmma_launches, flash_fwd_lse_wgmma_launches, \
-        flash_bwd_dq_launches, flash_bwd_dkv_launches
+        flash_bwd_dq_launches, flash_bwd_dkv_launches, \
+        flash_bwd_dq_wgmma_launches, flash_bwd_dkv_wgmma_launches
     paged_attention_launches = 0
     paged_attention_int8_launches = 0
     scale_shift_act_launches = 0
@@ -83,6 +88,8 @@ def reset_launch_counts():
     flash_fwd_lse_wgmma_launches = 0
     flash_bwd_dq_launches = 0
     flash_bwd_dkv_launches = 0
+    flash_bwd_dq_wgmma_launches = 0
+    flash_bwd_dkv_wgmma_launches = 0
 
 
 def launch_counts():
@@ -96,7 +103,9 @@ def launch_counts():
             "flash_fwd_wgmma": flash_fwd_wgmma_launches,
             "flash_fwd_lse_wgmma": flash_fwd_lse_wgmma_launches,
             "flash_bwd_dq": flash_bwd_dq_launches,
-            "flash_bwd_dkv": flash_bwd_dkv_launches}
+            "flash_bwd_dkv": flash_bwd_dkv_launches,
+            "flash_bwd_dq_wgmma": flash_bwd_dq_wgmma_launches,
+            "flash_bwd_dkv_wgmma": flash_bwd_dkv_wgmma_launches}
 
 
 def _nvcc():
@@ -196,6 +205,12 @@ def _load(name):
                 lib.mx_flash_bwd_dkv.restype = ctypes.c_int
                 lib.mx_flash_bwd_dkv.argtypes = (
                     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + tail)
+                lib.mx_flash_bwd_dq_wgmma.restype = ctypes.c_int
+                lib.mx_flash_bwd_dq_wgmma.argtypes = (
+                    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + tail)
+                lib.mx_flash_bwd_dkv_wgmma.restype = ctypes.c_int
+                lib.mx_flash_bwd_dkv_wgmma.argtypes = (
+                    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + tail)
             lib.mx_cuda_error_string.restype = ctypes.c_char_p
             lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
             _LIBS[name] = lib
@@ -208,25 +223,28 @@ ACT_CODES = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3, "silu": 4,
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the largest head dim the paged and flash kernels take
-HEAD_DIM_MAX = 128
+HEAD_DIM_MAX = 256
 
 # Every shape rule the wrappers enforce, one row each: (kernel, kind, test,
 # message). Kind "jax": the JAX package refuses the shape too. Kind
-# "remainder": the JAX package serves the shape and no kernel here takes it
-# yet; ROADMAP C1 keeps it open with the reason the message gives. Any other
-# shape reaches a kernel: head dims 1..128 through capacity instances (32, 64,
-# 128) that mask the tail, any channel count through a scalar path beside the
-# 16-byte vector one, any bh along a 1-D grid.
+# "remainder": the JAX package serves the shape and no kernel here takes it;
+# ROADMAP C1 keeps it open with the reason the message gives. Any other
+# shape reaches a kernel: head dims 1..256 through capacity instances (32,
+# 64, 128, 256) that mask the tail, any channel count through a scalar path
+# beside the 16-byte vector one, any bh along a 1-D grid.
 RULES = (
     ("paged_attention", "remainder",
      lambda s: s["head_dim"] > HEAD_DIM_MAX,
-     "head_dim {head_dim} > 128 has no instance yet: no model the port "
-     "serves has one (a capacity-256 instance closes it)"),
+     "head_dim {head_dim} > 256 has no instance: a wider one holds less "
+     "than 16 positions of f32 K and V in a block's 48 KB of static shared "
+     "memory and an f32 accumulator row of head_dim per query; no model in "
+     "either package has such a head dim"),
     ("flash", "remainder",
      lambda s: s["d"] > HEAD_DIM_MAX,
-     "head_dim {d} > 128 has no instance yet: the 64-row f32 backward tiles "
-     "at d = 192 need 236,032 bytes of shared memory, over the 232,448 a "
-     "block can use (the backward's redesign closes it)"),
+     "head_dim {d} > 256 has no instance: the f32 tiles of capacity 256 "
+     "already take 217,600 of the 232,448 bytes of shared memory a block "
+     "can use, and an f32 accumulator row of d a query; no model in either "
+     "package has such a head dim"),
     ("scale_shift_act", "jax",
      lambda s: s["act"] not in ACT_CODES,
      "unsupported fused activation {act!r}"),
@@ -268,7 +286,7 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
     or int8 (any of them with either q dtype), one dtype, shape and
     strides, heads and dims contiguous; a view that cuts the position axis
     (`slab[:, :, :extent]`) is read in place, not copied. Any head_dim D
-    from 1 to 128: 16-byte vector loads where every row is a whole number
+    from 1 to 256: 16-byte vector loads where every row is a whole number
     of aligned 16-byte vectors, scalar loads otherwise. int8 slabs need
     `k_scale`/`v_scale`: (rows, L, T) float32 with one set of strides,
     positions contiguous (the same view cut is read in place); float slabs
@@ -488,16 +506,25 @@ def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
 def flash_fwd_route(dtype, d):
     """Which forward kernel takes (dtype, head dim d): "wgmma", the
     tensor-core kernel, for bfloat16 at d a multiple of 8 (a TMA tensor map
-    needs rows of whole 16-byte vectors), else "cuda_cores" (float32 stays
-    off the tensor cores, which would take it as TF32)."""
-    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 \
+    needs rows of whole 16-byte vectors) up to 128, else "cuda_cores".
+    float32 stays off the tensor cores, which would take it as TF32; d over
+    128 because a 64 x d f32 accumulator (O here, dK and dV in the
+    backward) is d / 2 registers a thread, which at d = 256 leaves no room
+    for the scores and the rest."""
+    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= 128 \
         else "cuda_cores"
+
+
+def flash_bwd_route(dtype, d):
+    """Which backward kernels (dq sweep, dk/dv sweep) take (dtype, head dim
+    d): the forward's rule, `flash_fwd_route`, for the same reasons."""
+    return flash_fwd_route(dtype, d)
 
 
 def _flash_check(name, q, k, v, extra=()):
     """Checks shared by the flash wrappers: q (bh, tq, d), k and v
     (bh, tk, d), one dtype (float32 or bfloat16), d the `refusal` table
-    takes (1 to 128), every tensor contiguous and on one card. `extra` are
+    takes (1 to 256), every tensor contiguous and on one card. `extra` are
     further operands of q's shape and dtype (dO). Returns (bh, tq, tk,
     d)."""
     _check_cuda(name, (q, k, v) + tuple(extra))
@@ -576,8 +603,10 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
     dq = scale * sum_k p * (dO v^T - delta) k with p = exp(s - lse), zero
     on masked keys and on rows whose lse is the -1e30 sentinel. `lse` and
     `delta` (rowsum(dO * o)) are (bh, tq, 1) float32. Returns dq in q's
-    dtype."""
-    global flash_bwd_dq_launches
+    dtype. The kernel is `flash_bwd_route(q.dtype, d)`'s: the tensor-core
+    one (its buffers 16-byte aligned; the launch also counts in
+    `flash_bwd_dq_wgmma_launches`) or the CUDA-core one."""
+    global flash_bwd_dq_launches, flash_bwd_dq_wgmma_launches
     name = "flash_bwd_dq_cuda"
     _check_cuda(name, (lse, delta))
     bh, tq, tk, d = _flash_check(name, q, k, v, (do,))
@@ -588,22 +617,30 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
         return dq
     lib = _load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.mx_flash_bwd_dq(
-        _DTYPE_CODES[q.dtype], q.device.index or 0, d, q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), bh, tq, tk, int(causal),
-        float(scale), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    tail = (bh, tq, tk, int(causal), float(scale), stream)
+    tensor_cores = flash_bwd_route(q.dtype, d) == "wgmma"
+    if tensor_cores:
+        _check_aligned(name, (q, k, v, do, dq))
+        rc = lib.mx_flash_bwd_dq_wgmma(q.device.index or 0, d, *ptrs, *tail)
+    else:
+        rc = lib.mx_flash_bwd_dq(_DTYPE_CODES[q.dtype], q.device.index or 0,
+                                 d, *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_bwd_dq", rc)
     flash_bwd_dq_launches += 1
+    flash_bwd_dq_wgmma_launches += tensor_cores
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
     """Launch the flash backward's dk/dv sweep (`csrc/flash_attention.cu`):
     dv = sum_q p^T dO and dk = scale * sum_q ds^T q, with the dq sweep's p,
-    ds, sentinel and mask rules. Returns (dk, dv) in k's dtype."""
-    global flash_bwd_dkv_launches
+    ds, sentinel and mask rules. Returns (dk, dv) in k's dtype, from the
+    kernel `flash_bwd_route(q.dtype, d)` names (a tensor-core launch also
+    counts in `flash_bwd_dkv_wgmma_launches`)."""
+    global flash_bwd_dkv_launches, flash_bwd_dkv_wgmma_launches
     name = "flash_bwd_dkv_cuda"
     _check_cuda(name, (lse, delta))
     bh, tq, tk, d = _flash_check(name, q, k, v, (do,))
@@ -615,12 +652,19 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
         return dk, dv
     lib = _load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.mx_flash_bwd_dkv(
-        _DTYPE_CODES[q.dtype], q.device.index or 0, d, q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq, tk,
-        int(causal), float(scale), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    tail = (bh, tq, tk, int(causal), float(scale), stream)
+    tensor_cores = flash_bwd_route(q.dtype, d) == "wgmma"
+    if tensor_cores:
+        _check_aligned(name, (q, k, v, do, dk, dv))
+        rc = lib.mx_flash_bwd_dkv_wgmma(q.device.index or 0, d, *ptrs,
+                                        *tail)
+    else:
+        rc = lib.mx_flash_bwd_dkv(_DTYPE_CODES[q.dtype],
+                                  q.device.index or 0, d, *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_bwd_dkv", rc)
     flash_bwd_dkv_launches += 1
+    flash_bwd_dkv_wgmma_launches += tensor_cores
     return dk, dv

@@ -5,16 +5,18 @@ but for one named remainder (ROADMAP C1).
 enforce. For a grid of shapes this file calls the JAX package's function
 at a tiny size (each call shows the JAX package serves the shape) and
 holds the port's table to it:
-  * paged attention at head_dim 1-128;
+  * paged attention at head_dim 1-128, and 129, 160, 192, 256;
   * the fused apply (`bias_act`) at C 1-70, float32 and bfloat16;
   * the NHWC average pool at C 1-20;
-  * flash attention at d 1-128, and bh 70000 as a shape only;
-the table takes every one. It refuses head dims over 128, which the JAX
+  * flash attention at d 1-128, and 129, 160, 192, 256, and bh 70000 as a
+    shape only;
+the table takes every one. It refuses head dims over 256, which the JAX
 package serves (the named remainder), and what the JAX package refuses
 too: an unknown activation, a pool that does not divide the spatial dims.
 The wrappers themselves, given tensors that report a card, pass every
 check at such shapes and stop only at the kernel build, which the tests
-deny its `nvcc`.
+deny its `nvcc`. The flash routes (tensor cores or CUDA cores) are pinned
+by dtype and head dim.
 """
 import os
 
@@ -32,7 +34,10 @@ from incubator_mxnet_tpu_torch.ops import kernels
 
 torch.set_num_threads(1)
 
-REMAINDER = (129, 160, 192, 256)
+# head dims over 128: a remainder until the capacity-256 instances
+WIDE = (129, 160, 192, 256)
+# head dims over 256: the named remainder
+REMAINDER = (257, 384)
 
 
 def _rand(shape, seed, dtype=np.float32):
@@ -103,14 +108,29 @@ def test_flash_bh_past_the_old_grid_limit_is_a_shape_the_table_takes():
 @pytest.mark.parametrize("kernel,key,call", [
     ("paged_attention", "head_dim", _jax_paged),
     ("flash", "d", _jax_flash)])
-@pytest.mark.parametrize("d", REMAINDER)
+@pytest.mark.parametrize("d", WIDE)
 def test_head_dims_over_128_are_the_named_remainder(kernel, key, call, d):
+    """Head dims 129-256, once the named remainder, now reach a kernel:
+    the JAX package serves them, and the table takes them (the wrappers'
+    side is `test_wrappers_take_the_new_shapes_to_the_kernel_build`)."""
+    out = call(d)
+    assert out.shape[-1] == d and np.isfinite(out).all()
+    assert kernels.refusal(kernel, **{key: d}) is None
+
+
+@pytest.mark.parametrize("kernel,key,call", [
+    ("paged_attention", "head_dim", _jax_paged),
+    ("flash", "d", _jax_flash)])
+@pytest.mark.parametrize("d", REMAINDER)
+def test_head_dims_over_256_are_the_named_remainder(kernel, key, call, d):
     """The JAX package serves them; the table refuses them with the
-    remainder's reason."""
+    remainder's reason, which names shared memory and the f32
+    accumulator row."""
     out = call(d)
     assert out.shape[-1] == d and np.isfinite(out).all()
     why = kernels.refusal(kernel, **{key: d})
-    assert why is not None and f"{d} > 128" in why
+    assert why is not None and f"{d} > 256" in why
+    assert "shared memory" in why and "accumulator" in why
 
 
 def test_the_table_names_only_the_remainder_and_refusals_jax_shares():
@@ -118,7 +138,7 @@ def test_the_table_names_only_the_remainder_and_refusals_jax_shares():
     assert {k for k in kinds if k[1] == "remainder"} == {
         ("paged_attention", "remainder"), ("flash", "remainder")}
     assert {kind for _, kind in kinds} == {"jax", "remainder"}
-    assert kernels.HEAD_DIM_MAX == 128
+    assert kernels.HEAD_DIM_MAX == 256
 
 
 def test_the_refusals_jax_shares_are_refused_by_jax_too():
@@ -174,9 +194,16 @@ def _paged_call(d, dtype=torch.bfloat16, kv=torch.bfloat16):
         q, k, k, _cuda(torch.zeros(2, dtype=torch.int32)), 0, **scales)
 
 
-def _flash_call(d, bh=2, dtype=torch.bfloat16):
+def _flash_call(d, bh=2, dtype=torch.bfloat16, kernel="flash_fwd_lse"):
     q = _cuda(torch.zeros((bh, 4, d), dtype=dtype))
-    return lambda: kernels.flash_fwd_cuda(q, q, q, True, 0.5, True)
+    stat = _cuda(torch.zeros((bh, 4, 1)))
+    bwd = (q, q, q, q, stat, stat, True, 0.5)
+    return {"flash_fwd": lambda: kernels.flash_fwd_cuda(q, q, q, True, 0.5,
+                                                        False),
+            "flash_fwd_lse": lambda: kernels.flash_fwd_cuda(q, q, q, True,
+                                                            0.5, True),
+            "flash_bwd_dq": lambda: kernels.flash_bwd_dq_cuda(*bwd),
+            "flash_bwd_dkv": lambda: kernels.flash_bwd_dkv_cuda(*bwd)}[kernel]
 
 
 CALLS = {
@@ -197,6 +224,18 @@ CALLS = {
     "flash d=96 bf16": _flash_call(96),
     "flash d=40 f32": _flash_call(40, dtype=torch.float32),
     "flash bh=70000": _flash_call(16, bh=70000),
+    "paged d=136 bf16": _paged_call(136),
+    "paged d=256 bf16": _paged_call(256),
+    "paged d=256 int8": _paged_call(256, torch.float32, torch.int8),
+    **{f"{kernel} d={d} {name}": _flash_call(d, dtype=dtype, kernel=kernel)
+       for kernel in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
+                      "flash_bwd_dkv")
+       for d, dtype, name in ((136, torch.bfloat16, "bf16"),
+                              (256, torch.float32, "f32"))},
+    "flash_bwd_dq d=64 bf16 tensor cores": _flash_call(
+        64, kernel="flash_bwd_dq"),
+    "flash_bwd_dkv d=64 bf16 tensor cores": _flash_call(
+        64, kernel="flash_bwd_dkv"),
 }
 
 
@@ -208,8 +247,10 @@ def test_wrappers_take_the_new_shapes_to_the_kernel_build(name, no_nvcc):
 
 
 @pytest.mark.parametrize("name,call,match", [
-    ("paged", _paged_call(136), "head_dim 136 > 128"),
-    ("flash", _flash_call(192), "head_dim 192 > 128"),
+    ("paged", _paged_call(257), "head_dim 257 > 256"),
+    ("flash", _flash_call(320), "head_dim 320 > 256"),
+    ("flash_bwd_dkv", _flash_call(264, kernel="flash_bwd_dkv"),
+     "head_dim 264 > 256"),
     ("pool", lambda: kernels.avg_pool2d_fwd_cuda(
         _cuda(torch.zeros((1, 5, 4, 3))), 2, 2), "must divide"),
     ("apply", lambda: kernels.scale_shift_act_cuda(
@@ -221,10 +262,24 @@ def test_wrappers_refuse_what_the_table_refuses(name, call, match, no_nvcc):
         call()
 
 
-@pytest.mark.parametrize("dtype,d,route", [
+ROUTES = [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 8, "wgmma"),
     (torch.bfloat16, 96, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 12, "cuda_cores"), (torch.bfloat16, 1, "cuda_cores"),
-    (torch.float32, 64, "cuda_cores"), (torch.float32, 96, "cuda_cores")])
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 96, "cuda_cores"),
+    (torch.bfloat16, 136, "cuda_cores"), (torch.bfloat16, 256, "cuda_cores"),
+    (torch.float32, 8, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
+    (torch.float32, 256, "cuda_cores")]
+
+
+@pytest.mark.parametrize("dtype,d,route", ROUTES)
 def test_flash_forward_route_is_by_dtype_and_head_dim_alone(dtype, d, route):
     assert kernels.flash_fwd_route(dtype, d) == route
+
+
+@pytest.mark.parametrize("dtype,d,route", ROUTES)
+def test_flash_backward_route_is_by_dtype_and_head_dim_alone(dtype, d,
+                                                             route):
+    """B7 and B8 take the tensor cores where the forward does: bfloat16 at
+    d % 8 == 0 up to 128."""
+    assert kernels.flash_bwd_route(dtype, d) == route

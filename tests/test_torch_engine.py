@@ -479,39 +479,43 @@ def test_spec_engine_eos_inside_draft_block(pair):
 def test_admission_budget_uses_post_cache_cost(pair):
     """A fully cached long prompt (1-token suffix) fits a nearly spent
     prefill budget and is admitted past an earlier cold prompt whose
-    full-window cost does not."""
+    full-window cost does not.
+
+    Both held slots come free in one step: they are freed under the
+    engine's condition, which admission runs under, so no admission sees
+    one free slot between the two frees. The order is the engine's own:
+    the requests' prompts in the order `_admit_locked` granted them."""
     _, tm = pair
     eng = serve.ContinuousEngine(tm, max_slots=2, prefill_lanes=2,
                                  prefill_window=16, prefix_block=8,
                                  prefix_cache_slots=1, prefill_budget=8,
                                  decode_steps=1).start()
-    order = []
-    lock = threading.Lock()
+    admit = eng._admit_locked
+    granted = []
+
+    def recording_admit():
+        admitted, expired = admit()
+        granted.extend(tuple(int(t) for t in r.prompt) for r in admitted)
+        return admitted, expired
+
     try:
         shared = list(range(1, 17))
         eng.generate(shared + [20], 2, timeout=120)
         held = [eng.pool.claim(), eng.pool.claim()]
-        first = eng.submit([40, 41, 42, 43], 2)
-        cold = eng.submit(list(range(30, 44)), 2)
-        hot = eng.submit(shared + [21], 2)
-
-        def watch(name, fut):
-            fut.result(timeout=120)
-            with lock:
-                order.append(name)
-
-        ts = [threading.Thread(target=watch, args=(n, f))
-              for n, f in (("first", first), ("cold", cold),
-                           ("hot", hot))]
-        for t in ts:
-            t.start()
-        time.sleep(0.05)
-        for s in held:
-            eng.pool.free(s)
-        for t in ts:
-            t.join(timeout=120)
+        eng._admit_locked = recording_admit
+        named = {"first": [40, 41, 42, 43], "cold": list(range(30, 44)),
+                 "hot": shared + [21]}
+        futs = [eng.submit(p, 2) for p in named.values()]
+        with eng._cv:
+            for s in held:
+                eng.pool.free(s)
+        for f in futs:
+            f.result(timeout=120)
     finally:
         eng.close()
+    by_prompt = {tuple(p): n for n, p in named.items()}
+    order = [by_prompt[p] for p in granted]
+    assert sorted(order) == sorted(named), order
     assert order.index("hot") < order.index("cold"), order
 
 

@@ -228,8 +228,8 @@ def test_cuda_wrappers_check_their_inputs():
     with pytest.raises(MXNetError, match="contiguous"):
         kernels.flash_fwd_cuda(qc.transpose(1, 2).contiguous().transpose(1, 2),
                                kc, vc, False, 0.1, True)
-    wide = _cuda_looking(*_qkv(2, 8, 8, 136, seed=44)[:3])
-    with pytest.raises(MXNetError, match="head_dim 136 > 128"):
+    wide = _cuda_looking(*_qkv(2, 8, 8, 264, seed=44)[:3])
+    with pytest.raises(MXNetError, match="head_dim 264 > 256"):
         kernels.flash_fwd_cuda(*wide, False, 0.1, True)
     with pytest.raises(MXNetError, match="one dtype"):
         kernels.flash_fwd_cuda(qc, kc.bfloat16(), vc, False, 0.1, True)
