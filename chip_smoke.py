@@ -12,17 +12,21 @@ Each phase fails the run (non-zero exit) on any error:
      per source, all started together; timed).
   2. paged attention against its plain version on the card at the serving
      shapes (16 lanes, 12 heads x 64, 2048 positions, 12 layers), float32
-     and bfloat16, one query (decode) and 256 queries (chunk prefill),
-     ragged lengths, and a slab view cut on the position axis; then the
-     kernel's time against its bound, the plain version's time and one
-     PyTorch library call's time.
+     and bfloat16, one query (decode), 4 (the speculative verify) and 256
+     (chunk prefill), ragged lengths, and a slab view cut on the position
+     axis that must read bit-equal to the full slab; every read must go to
+     the route `kernels.paged_route` names (split, wgmma, cuda_cores: the
+     launch counters show it); then each case's time against its bound,
+     the plain version's time and one PyTorch library call's time.
   3. serving at full width: `ContinuousEngine` over a 12-layer, 768-wide
      `CachedDecoder` (vocab 32000, 2048 positions, random weights from a
      seed) answers 16 greedy requests with prompts of 16-1500 tokens, in
      bfloat16 (timed; the paged-attention launch counter must move by
-     exactly layers x (decode_steps x decode waves + chunk waves)) and in
-     float32 with TF32 off, where every request's tokens must equal the
-     1-slot `reference_generate`.
+     exactly layers x (decode_steps x decode waves + chunk waves), every
+     decode read on the split route and every chunk read on the tensor
+     cores) and in float32 with TF32 off (decode on split, chunks on the
+     CUDA cores), where every request's tokens must equal the 1-slot
+     `reference_generate`.
   4. the training kernels against their plain versions on the card: the
      scale/shift/activation apply at every (rows, channels, activation,
      residual) shape ResNet-50 v1 gives it at batch 32 and 224x224, in
@@ -50,7 +54,9 @@ Each phase fails the run (non-zero exit) on any error:
      that see no key), a ragged T = 500, head dims 12 (the CUDA-core
      kernels in bf16 too), 32, 40, 96 and 128, 136, 192 and 256 (the
      capacity-256 instances, causal and not, ragged T = 300), and bh 65600
-     (T 16, d 16); then at the path's shape (bf16, no mask) and at a
+     (T 16, d 16), and head dims 264, 384 and 512 (128-column slices;
+     causal and not, ragged T, Tq != Tk; (8, 256, 384) timed); then at the
+     path's shape (bf16, no mask) and at a
      causal (48, 2048, 128) bf16 shape each kernel's time against its
      bound, the plain version's time and one SDPA call's (forward for
      B5/B6, backward for B7/B8). All four kernels take bf16 at d % 8 == 0
@@ -85,8 +91,11 @@ Each phase fails the run (non-zero exit) on any error:
      the speculative verify at draft 3, 256 = the chunk), each also on a
      slab and scale view cut on the position axis; float32 outputs within
      phase 2's limit, bfloat16 ones within phase 6's limits relative to
-     their size. The check must refuse a planted fault each run: the
-     kernel fed scales one position off. Then, for bf16 q over int8 at
+     their size; every read on its route, extent views bit-equal. The
+     check must refuse two planted faults each run: the kernel fed scales
+     one position off, and what a wrong combine of the split pieces would
+     give, a lane whose prefix crosses piece boundaries read one position
+     long. Then, for bf16 q over int8 at
      each C, the kernel's time against its bound, the plain version's
      time and SDPA's over the prefix dequantized to bf16 beforehand.
   9. the full decode engine at full width: phase 3's model in bfloat16
@@ -99,28 +108,33 @@ Each phase fails the run (non-zero exit) on any error:
      (temperature 0.8, top_k 50, top_p 0.95, seed = its index), 64 new
      tokens each. It must show 15 prefix hits, exactly layers x
      (decode_steps x decode waves + chunk waves) int8 launches and no
-     float one. Then the same run in float32 with TF32 off: every reply
+     float one, every verify read on the split route and every chunk read
+     on the tensor cores (float32: split and CUDA cores). Then the same run in float32 with TF32 off: every reply
      must equal the 1-slot `reference_generate` with the same knobs (the
      hits at `cached_prefix_len=512`), and every greedy reply the
      `draft_tokens=0` reference.
  10. the off-flagship shapes the kernels cover (ROADMAP C1), each through
      its kernel, as the launch counters show: `ContinuousEngine(
      CachedDecoder(DecoderConfig(max_len=64)))`, float32, at head_dim 16
-     and at 2 heads x 256, token-exact against `reference_generate`; the
-     paged kernel at head_dim 256 over bfloat16 and int8 pools against its
-     plain version; `MultiHeadAttention(384, 2, use_flash=True)` (head_dim
-     192) forward and gradients against the SDPA composition in float32;
+     and at 2 heads x 256 and x 384, token-exact against
+     `reference_generate`; the paged kernel at head_dim 256, 320 and 512
+     over bfloat16 and int8 pools (1, 9 and 40 queries) against its plain
+     version; `MultiHeadAttention(384, 2)` and `(768, 2, use_flash=True)`
+     (head_dim 192 and 384) forward and gradients against the SDPA
+     composition in float32;
      one fused `Dense(10, "relu")` float32 training step equal to the
      unfused one; the NHWC pool at 12 channels and the apply at 10 float32
      and 4 bfloat16 channels against their plain versions.
 
 The last three lines are the card's name and power limit, one JSON object
-with the kernels' numbers (one entry a wrapper, and one for each
-tensor-core backward sweep), and `{"ok": true, "device": {...}}`. Without a
+with the kernels' numbers (one entry a wrapper, one for each tensor-core
+backward sweep, and one for each route of the paged kernel), and
+`{"ok": true, "device": {...}}`. Without a
 card the script exits non-zero and prints no result. It imports nothing of
 JAX. Its run time on the card is in the root `PERF.md`.
 """
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -227,6 +241,28 @@ def library_call(q, k_slab, v_slab, lens, layer):
     return fn, fn(0).transpose(1, 2)
 
 
+PAGED_CS = (1, 4, WINDOW)           # decode, verify (draft 3), chunk
+# the phase 2 case each route's JSON entry reads
+PAGED_ROUTE_SHAPES = {"split": ("bfloat16", 1), "wgmma": ("bfloat16", WINDOW),
+                      "cuda_cores": ("float32", WINDOW)}
+
+
+def paged_checked(q, k, v, lens, layer, **sc):
+    """One kernel read that must have launched once, on the kernel
+    `kernels.paged_route` names, and counted in its type's counter.
+    Returns (out, route)."""
+    route = kernels.paged_route(q.dtype, k.dtype, q.shape[3], q.shape[1])
+    before = kernels.launch_counts()
+    out = kernels.paged_attention_cuda(q, k, v, lens, layer, **sc)
+    after = kernels.launch_counts()
+    moved = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    kind = ("paged_attention_int8" if sc.get("k_scale") is not None
+            else "paged_attention")
+    assert moved == {kind: 1, f"paged_attention_{route}": 1}, \
+        f"paged launches {moved}, expected one on route {route}"
+    return out, route
+
+
 def phase_kernels(dev):
     S, H, D, T, L = SLOTS, FULL["heads"], FULL["head_dim"], \
         FULL["max_len"], FULL["layers"]
@@ -242,32 +278,36 @@ def phase_kernels(dev):
     variants = []
     for dtype in (torch.float32, torch.bfloat16):
         k_slab, v_slab = k32.to(dtype), v32.to(dtype)
-        for C in (1, WINDOW):
+        for C in PAGED_CS:
             q = torch.randn((S, C, H, D), generator=gen, device=dev).to(dtype)
-            out = kernels.paged_attention_cuda(q, k_slab, v_slab, lens, layer)
+            out, route = paged_checked(q, k_slab, v_slab, lens, layer)
             ref = fused.paged_attention_ref(q, k_slab, v_slab, lens, layer)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
+            _, ok, read = paged_err(out, ref)
             # a view cut on the position axis, lengths inside the cut:
             # against the plain version on the view, and bit-equal to the
             # full-slab read (the engine's extent ladder relies on it)
             ext = 1280
             lens_e = torch.clamp(lens, max=ext - C)
-            out_v = kernels.paged_attention_cuda(
-                q, k_slab[:, :, :ext], v_slab[:, :, :ext], lens_e, layer)
+            out_v, _ = paged_checked(q, k_slab[:, :, :ext],
+                                     v_slab[:, :, :ext], lens_e, layer)
             ref_v = fused.paged_attention_ref(
                 q, k_slab[:, :, :ext], v_slab[:, :, :ext], lens_e, layer)
-            out_f = kernels.paged_attention_cuda(q, k_slab, v_slab, lens_e,
-                                                 layer)
+            out_f, _ = paged_checked(q, k_slab, v_slab, lens_e, layer)
             torch.cuda.synchronize()
             err_v = (out_v.float() - ref_v.float()).abs().max().item()
+            _, ok_v, read_v = paged_err(out_v, ref_v)
             same = torch.equal(out_v, out_f)
             assert torch.isfinite(out.float()).all(), "non-finite output"
-            name = f"{str(dtype).split('.')[-1]} C={C}"
+            name = f"{str(dtype).split('.')[-1]} C={C} ({route})"
             log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} "
-                f"(view {err_v:.3e}, view == full: {same}) tol "
-                f"{TOL[dtype]:.0e}")
-            assert err <= TOL[dtype] and err_v <= TOL[dtype], \
+                f"{read} (view {err_v:.3e} {read_v}, view == full: {same}) "
+                f"tol {TOL[dtype]:.0e}")
+            # phase 2's absolute limit, and for bf16 also phase 6's limits
+            # relative to the output's size
+            assert err <= TOL[dtype] and err_v <= TOL[dtype] and ok \
+                and ok_v, \
                 f"paged_attention {name} disagrees with its plain version"
             assert same, f"paged_attention {name}: extent view != full read"
             # timing: rotate over the 12 layers so the live prefix comes
@@ -285,8 +325,9 @@ def phase_kernels(dev):
                 f"sdpa {lib_ms:.4f} ms (sdpa max_abs_err {lib_err:.2e})")
             variants.append({
                 "dtype": str(dtype).split(".")[-1], "C": C,
-                "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "kernel_route": route, "max_abs_err": err, "tol": TOL[dtype],
+                **read,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms})
         del k_slab, v_slab
     kernels.reset_launch_counts()   # comparison launches do not count
@@ -333,7 +374,22 @@ def serve_run(dtype, prompts):
         f"{st['decode_iterations']} decode waves + {st['chunk_batches']} "
         f"chunk waves) = {want})")
     assert got == want and got > 0, "kernel launch count off the main path"
+    check_routes(f"serve {dtype}", dtype, cfg, eng, st, launches)
     return model, outs, st, wall, launches
+
+
+def check_routes(tag, dtype, cfg, eng, st, launches):
+    """Every decode (C = 1) or verify (C = draft + 1) read on the split
+    route; every chunk read (C = the window) on the tensor cores in
+    bfloat16, on the CUDA cores in float32."""
+    reads = cfg.layers * eng.decode_steps * st["decode_iterations"]
+    chunks = cfg.layers * st["chunk_batches"]
+    chunk_route = "wgmma" if dtype == "bfloat16" else "cuda_cores"
+    want = {"split": reads, "wgmma": 0, "cuda_cores": 0}
+    want[chunk_route] += chunks
+    got = {r: launches[f"paged_attention_{r}"] for r in want}
+    log(f"[{tag}] paged routes {got} (expected {want})")
+    assert got == want, f"{tag}: paged reads off their routes"
 
 
 def phase_serve(card):
@@ -370,7 +426,7 @@ def phase_serve(card):
         f"check is the float32 run)")
     del model, pool
     torch.cuda.empty_cache()
-    model32, outs32, st32, wall32, _ = serve_run("float32", prompts)
+    model32, outs32, st32, wall32, launches32 = serve_run("float32", prompts)
     bad = [len(p) for p, o in zip(prompts, outs32) if not np.array_equal(
         o, model32.reference_generate(p, NEW_TOKENS, window=WINDOW))]
     log(f"[serve float32] {len(prompts) - len(bad)}/{len(prompts)} requests "
@@ -378,6 +434,7 @@ def phase_serve(card):
         f"({wall32:.3f} s)")
     assert not bad, f"engine != reference for prompts of lengths {bad}"
     return {"wall_s": wall, "tokens": gen_tokens, "launches": launches,
+            "float32_launches": launches32,
             "stats": st, "bf16_exact": bf16_exact,
             "float32_exact": len(prompts)}
 
@@ -863,6 +920,12 @@ FLASH_EXTRA = [(24, 384, 512, 64, True), (24, 512, 384, 64, True),
 # kernels, in both types): causal and not, a ragged T = 300, Tq != Tk
 FLASH_WIDE = [(12, 256, 256, 136, False), (12, 300, 300, 192, True),
               (12, 256, 200, 256, True), (12, 256, 256, 256, False)]
+# head dims over 256 (128-column slices of the capacity-128 CUDA-core
+# instances): causal and not, ragged T, Tq != Tk; the d = 384 one is timed
+FLASH_HUGE = [(8, 300, 300, 264, True), (8, 300, 300, 264, False),
+              (8, 256, 256, 384, False), (8, 300, 260, 384, True),
+              (8, 300, 300, 512, True), (8, 256, 256, 512, False)]
+FLASH_HUGE_TIMED = (8, 256, 256, 384, False)
 # the second timed shape: a long causal sequence at the widest head dim the
 # tensor cores take
 FLASH_LONG = (48, 2048, 2048, 128, True)
@@ -978,10 +1041,11 @@ def flash_planted_faults(bwd_args, refs):
     return readings
 
 
-def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed):
+def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed, faults=True):
     """The four kernels against their plain versions on the same inputs
     (the backward ones from the plain forward's lse and delta); with
-    `timed`, each kernel's time, bound, plain time and library time."""
+    `timed`, each kernel's time, bound, plain time and library time, and
+    with `faults` too the planted faults and one-term readings."""
     q, k, v, do = (torch.randn((bh, n, d), generator=gen, device=dev)
                    .to(dtype) for n in (tq, tk, tk, tq))
     scale = 1.0 / np.sqrt(d)
@@ -1051,6 +1115,7 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed):
     if timed:
         time_flash(rows, q, k, v, do, lse_ref, delta, causal, scale, dtype,
                    o_ref)
+    if timed and faults:
         planted = flash_planted_faults(
             bwd_args, {"o": o_ref, "dq": dq_ref, "dk": dk_ref, "dv": dv_ref})
         for name, own, ref in (("o", o5, o_ref), ("dq", dq, dq_ref),
@@ -1194,6 +1259,10 @@ def phase_flash_kernels(dev):
         for bh_, tq, tk, d_, causal in FLASH_EXTRA + FLASH_WIDE:
             variants.append(check_flash(bh_, tq, tk, d_, causal, dtype, gen,
                                         dev, False))
+        for shape in FLASH_HUGE:
+            timed = shape == FLASH_HUGE_TIMED and dtype == torch.bfloat16
+            variants.append(check_flash(*shape, dtype, gen, dev, timed,
+                                        faults=False))
         variants.append(check_flash(*FLASH_LONG, dtype, gen, dev,
                                     dtype == torch.bfloat16))
     kernels.reset_launch_counts()   # comparison launches do not count
@@ -1484,28 +1553,45 @@ def phase_int8_kernels(dev):
                             device=dev).to(q_dtype)
             for kv_dtype, (k, v, ksc, vsc) in slabs.items():
                 sc = dict(k_scale=ksc, v_scale=vsc)
-                out = kernels.paged_attention_cuda(q, k, v, lens, layer,
-                                                   **sc)
+                out, route = paged_checked(q, k, v, lens, layer, **sc)
                 ref = fused.paged_attention_ref(q, k, v, lens, layer, **sc)
                 cut = {n: t[:, :, :ext] if t is not None else None
                        for n, t in sc.items()}
-                out_v = kernels.paged_attention_cuda(
-                    q, k[:, :, :ext], v[:, :, :ext], lens_e, layer, **cut)
+                out_v, _ = paged_checked(q, k[:, :, :ext], v[:, :, :ext],
+                                         lens_e, layer, **cut)
+                out_f, _ = paged_checked(q, k, v, lens_e, layer, **sc)
                 ref_v = fused.paged_attention_ref(
                     q, k[:, :, :ext], v[:, :, :ext], lens_e, layer, **cut)
                 torch.cuda.synchronize()
                 assert torch.isfinite(out.float()).all(), "non-finite output"
                 err, ok, read = paged_err(out, ref)
                 err_v, ok_v, read_v = paged_err(out_v, ref_v)
+                same = torch.equal(out_v, out_f)
                 name = (f"q {_dtype_name(q_dtype)} slab "
-                        f"{_dtype_name(kv_dtype)} C={C}")
+                        f"{_dtype_name(kv_dtype)} C={C} ({route})")
                 log(f"[int8] paged_attention {name}: max_abs_err {err:.3e} "
-                    f"{read} (view {err_v:.3e} {read_v})")
+                    f"{read} (view {err_v:.3e} {read_v}, view == full: "
+                    f"{same})")
                 assert ok and ok_v, \
                     f"paged_attention {name} disagrees with its plain version"
+                assert same, f"paged_attention {name}: extent view != full"
                 rec = {"q_dtype": _dtype_name(q_dtype),
                        "kv_dtype": _dtype_name(kv_dtype), "C": C,
-                       "max_abs_err": err, **read}
+                       "kernel_route": route, "max_abs_err": err, **read}
+                # planted fault: what a combine that took one position too
+                # many would give, lane 3 (length 1000: its prefix crosses
+                # three piece boundaries) read at length 1001
+                lens_bad = lens.clone()
+                lens_bad[3] += 1
+                bad = kernels.paged_attention_cuda(q, k, v, lens_bad, layer,
+                                                   **sc)
+                torch.cuda.synchronize()
+                c_err, c_ok, c_read = paged_err(bad, ref)
+                log(f"[int8] planted fault (lane 3 one position long) {name}:"
+                    f" max_abs_err {c_err:.3e} {c_read}: "
+                    f"{'ACCEPTED' if c_ok else 'refused'}")
+                assert not c_ok, "the check accepted a lane one position long"
+                rec["planted_combine_max_abs_err"] = c_err
                 if kv_dtype == torch.int8:
                     # planted fault: the kernel fed scales one position off
                     bad = kernels.paged_attention_cuda(
@@ -1622,6 +1708,7 @@ def engine_run(dtype, traffic):
         f"hits {st['prefix_hits']}")
     assert got == want and got > 0, "int8 launch count off the main path"
     assert launches["paged_attention"] == 0, "a float read on an int8 pool"
+    check_routes(f"engine {dtype}", dtype, cfg, eng, st, launches)
     assert st["prefix_hits"] == 15, "the 15 shared-prefix requests missed"
     return model, eng, outs, st, wall, launches
 
@@ -1664,7 +1751,8 @@ def phase_engine(card):
         torch.isfinite(logits.float()).all(), "prefill logits not finite"
     del model, pool
     torch.cuda.empty_cache()
-    model32, _, outs32, st32, wall32, _ = engine_run("float32", traffic)
+    model32, _, outs32, st32, wall32, launches32 = engine_run("float32",
+                                                              traffic)
     bad, spec_bad = [], []
     t0 = time.perf_counter()
     for i, ((p, samp, cached), o) in enumerate(zip(traffic, outs32)):
@@ -1686,6 +1774,7 @@ def phase_engine(card):
     assert not bad, f"engine != reference for requests {bad}"
     assert not spec_bad, f"speculation changed greedy requests {spec_bad}"
     return {"wall_s": wall, "tokens": tokens, "launches": launches,
+            "float32_launches": launches32,
             "stats": st, "float32_stats": st32,
             "slots_per_gib": eng.pool.slots_per_gb(),
             "bf16_slots_per_gib": bf16_pool.slots_per_gb()}
@@ -1715,10 +1804,11 @@ def _counted(fn, **want):
 
 # float32 decoders behind the engine's default knobs: DecoderConfig's
 # defaults (head_dim 16, 4 heads, 2 layers, vocab 256) at max_len 64, the
-# port's own docstring example; and 2 heads x 256 (the capacity-256
-# instance of the paged kernel)
+# port's own docstring example; 2 heads x 256 (the capacity-256 instance of
+# the paged kernel); and 2 heads x 384 (its 128-column slices)
 COVER_CONFIGS = (dict(max_len=64),
-                 dict(max_len=64, embed=512, heads=2, head_dim=256))
+                 dict(max_len=64, embed=512, heads=2, head_dim=256),
+                 dict(max_len=64, embed=768, heads=2, head_dim=384))
 
 
 def cover_engine(dev, cfg):
@@ -1749,48 +1839,56 @@ def cover_engine(dev, cfg):
     hd = model.config.head_dim
     assert launches["paged_attention"] == want > 0, \
         f"head_dim {hd} engine off the kernel"
+    # float32: decode on the split route, chunks (if any) on the CUDA cores
+    assert launches["paged_attention_wgmma"] == 0 and \
+        launches["paged_attention_split"] + \
+        launches["paged_attention_cuda_cores"] == want, \
+        f"head_dim {hd} engine off its routes {launches}"
     assert exact == len(prompts), f"head_dim {hd} engine != reference"
     return {"head_dim": hd, "requests": len(prompts),
             "token_exact": exact, "launches": launches["paged_attention"]}
 
 
 def cover_paged_wide(dev, gen):
-    """The paged kernel at head_dim 256 against its plain version: bfloat16
-    and int8 pools (codes and scales from the engine's quantizer) under
-    float32 and bfloat16 queries, one query and a 9-row chunk, ragged
-    lengths with 0 and T - C; phase 2's and phase 8's limits."""
+    """The paged kernel at head_dim 256, 320 and 512 against its plain
+    version: bfloat16 and int8 pools (codes and scales from the engine's
+    quantizer) under float32 and bfloat16 queries, one query, a 9-row and a
+    40-row chunk (split and CUDA-core routes), ragged lengths with 0 and
+    T - C; phase 2's and phase 8's limits."""
     from incubator_mxnet_tpu_torch.serve.continuous import _quantize_kv
-    S, L, T, H, D = 4, 2, 80, 2, 256
+    S, L, T, H = 4, 2, 80, 2
     out = []
-    for kv in ("bfloat16", "int8"):
-        for C in (1, 9):
-            for qd in (torch.float32, torch.bfloat16):
-                q = torch.randn((S, C, H, D), generator=gen, device=dev).to(qd)
-                k, v = (torch.randn((S + 1, L, T, H, D), generator=gen,
-                                    device=dev) for _ in range(2))
-                sc = {}
-                if kv == "int8":
-                    (k, ks), (v, vs) = (_quantize_kv(x) for x in (k, v))
-                    sc = dict(k_scale=ks, v_scale=vs)
-                else:
-                    k, v = k.bfloat16(), v.bfloat16()
-                lens = torch.tensor([0, 5, 40, T - C], dtype=torch.int32,
-                                    device=dev)
-                got = _counted(lambda: kernels.paged_attention_cuda(
-                    q, k, v, lens, 1, **sc), **{
-                        "paged_attention_int8" if sc else "paged_attention":
-                            1})
-                err, ok, read = paged_err(
-                    got, fused.paged_attention_ref(q, k, v, lens, 1, **sc))
-                rec = {"kv": kv, "C": C, "q": _dtype_name(qd),
-                       "max_abs_err": err, **read}
-                log(f"[cover] paged attention head_dim {D}: {rec}")
-                assert ok, f"paged attention at head_dim {D} {rec}"
-                out.append(rec)
+    for D, kv, C, qd in itertools.product(
+            (256, 320, 512), ("bfloat16", "int8"), (1, 9, 40),
+            (torch.float32, torch.bfloat16)):
+        q = torch.randn((S, C, H, D), generator=gen, device=dev).to(qd)
+        k, v = (torch.randn((S + 1, L, T, H, D), generator=gen,
+                            device=dev) for _ in range(2))
+        sc = {}
+        if kv == "int8":
+            (k, ks), (v, vs) = (_quantize_kv(x) for x in (k, v))
+            sc = dict(k_scale=ks, v_scale=vs)
+        else:
+            k, v = k.bfloat16(), v.bfloat16()
+        lens = torch.tensor([0, 5, 40, T - C], dtype=torch.int32,
+                            device=dev)
+        route = kernels.paged_route(qd, k.dtype, D, C)
+        got = _counted(lambda: kernels.paged_attention_cuda(
+            q, k, v, lens, 1, **sc), **{
+                "paged_attention_int8" if sc else "paged_attention":
+                    1, f"paged_attention_{route}": 1})
+        err, ok, read = paged_err(
+            got, fused.paged_attention_ref(q, k, v, lens, 1, **sc))
+        rec = {"head_dim": D, "kv": kv, "C": C, "q": _dtype_name(qd),
+               "kernel_route": route, "max_abs_err": err, **read}
+        log(f"[cover] paged attention head_dim {D}: {rec}")
+        assert ok, f"paged attention at head_dim {D} {rec}"
+        out.append(rec)
     return out
 
 
-# MultiHeadAttention(use_flash=True) at head_dim 192 (384 units, 2 heads):
+# MultiHeadAttention(use_flash=True) at head_dim 192 (384 units, 2 heads)
+# and 384 (768 units, 2 heads: 128-column slices):
 # the forward and the input and weight gradients against use_flash=False
 # (the SDPA composition) from the same weights, float32, TF32 off, each
 # relative to its own size; the key projection's bias is left out, as in
@@ -1799,13 +1897,13 @@ MHA_RTOL = 1e-4
 MHA_SKIP = "key_proj.bias"
 
 
-def cover_mha(dev):
+def cover_mha(dev, units):
     rng = np.random.RandomState(12)
-    x = torch.from_numpy(rng.randn(2, 96, 384).astype(np.float32)).to(dev)
-    g = torch.from_numpy(rng.randn(2, 96, 384).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.randn(2, 96, units).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(2, 96, units).astype(np.float32)).to(dev)
     runs = []
     for use_flash in (True, False):
-        net = gluon.nn.MultiHeadAttention(384, 2, use_flash=use_flash)
+        net = gluon.nn.MultiHeadAttention(units, 2, use_flash=use_flash)
         net.initialize(device=dev, seed=4)
         xi = x.clone().requires_grad_()
         named = {n: p for n, p in net.collect_params().items()
@@ -1822,11 +1920,12 @@ def cover_mha(dev):
     rel = {n: ((a - runs[1][n]).abs().max() / runs[1][n].abs().max())
            .item() for n, a in runs[0].items()}
     worst = max(rel, key=rel.get)
-    log(f"[cover] MultiHeadAttention(384, 2) head_dim 192 causal, flash "
-        f"against SDPA, float32: output and gradients, max |a - b| / max "
-        f"|b|: worst {rel[worst]:.3e} at {worst} (tol {MHA_RTOL})")
-    assert rel[worst] <= MHA_RTOL, "head_dim 192 flash attention != SDPA"
-    return {"head_dim": 192, "rel": rel}
+    hd = units // 2
+    log(f"[cover] MultiHeadAttention({units}, 2) head_dim {hd} causal, "
+        f"flash against SDPA, float32: output and gradients, max |a - b| / "
+        f"max |b|: worst {rel[worst]:.3e} at {worst} (tol {MHA_RTOL})")
+    assert rel[worst] <= MHA_RTOL, f"head_dim {hd} flash attention != SDPA"
+    return {"head_dim": hd, "rel": rel}
 
 
 def cover_dense(dev):
@@ -1869,7 +1968,7 @@ def phase_coverage(dev):
     gen = torch.Generator(device=dev).manual_seed(10)
     engines = [cover_engine(dev, cfg) for cfg in COVER_CONFIGS]
     paged_wide = cover_paged_wide(dev, gen)
-    mha = cover_mha(dev)
+    mha = [cover_mha(dev, units) for units in (384, 768)]
     dense = cover_dense(dev)
     pools = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1924,7 +2023,10 @@ def flash_entries(variants, bert):
     entry a wrapper (its launches on either route), then one for each
     tensor-core backward sweep, the kernel the path's bf16 shape runs
     (its launches from its own counter)."""
-    main, long_ = [v for v in variants if "ms" in v["flash_fwd"]]
+    timed = [v for v in variants if "ms" in v["flash_fwd"]]
+    main, = [v for v in timed if v["flash_fwd"]["tq"] == FLASH_MAIN[1]]
+    long_, = [v for v in timed if v["flash_fwd"]["tq"] == FLASH_LONG[1]]
+    huge, = [v for v in timed if v["flash_fwd"]["d"] == FLASH_HUGE_TIMED[3]]
     entries = []
     for name in FLASH_KERNELS + ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"):
         wrapper = name.replace("_wgmma", "")
@@ -1952,6 +2054,9 @@ def flash_entries(variants, bert):
                      f"F.scaled_dot_product_attention "
                      f"{'forward' if name.startswith('flash_fwd') else 'backward (dq, dk, dv at once)'})",
             **extra, "causal_48x2048x128": timed_long,
+            "d384_8x256": {k: huge[wrapper][k] for k in
+                           ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "max_abs_err")},
             "variants": [v[wrapper] for v in variants
                          if v[wrapper]["route"] == r["route"]
                          or name == wrapper]})
@@ -1997,7 +2102,8 @@ def main():
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     built = kernels.build()
-    log(f"[setup] kernel build {time.perf_counter() - t0:.2f} s "
+    build_s = time.perf_counter() - t0
+    log(f"[setup] kernel build {build_s:.2f} s "
         f"({', '.join(built) or 'up to date'})")
     for name, text in kernels.BUILD_LOG.items():
         print(f"[setup] nvcc {name}:\n{text}", file=sys.stderr)
@@ -2026,12 +2132,33 @@ def main():
                            if v["dtype"] == "bfloat16"),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
+        "library_ms": head["library_ms"], "kernel_route": "split",
         "shape": f"S={SLOTS} C=1 H={FULL['heads']} D={FULL['head_dim']} "
                  f"T={FULL['max_len']} bfloat16, lengths {lens}",
         "variants": variants,
         "coverage": coverage["engine"],
     }
+    # one entry per route of B4, timed at phase 2's serving shapes; its
+    # launches are the route's over the serving runs of phases 3 and 9
+    # (bfloat16 and float32 engines)
+    route_runs = (result["launches"], result["float32_launches"],
+                  engine["launches"], engine["float32_launches"])
+    route_entries = []
+    for route, (dt, C) in PAGED_ROUTE_SHAPES.items():
+        v = next(x for x in variants if x["dtype"] == dt and x["C"] == C)
+        assert v["kernel_route"] == route, (route, v)
+        launches = sum(r[f"paged_attention_{route}"] for r in route_runs)
+        assert launches > 0, f"route {route} never ran on the main path"
+        route_entries.append({
+            "name": f"paged_attention_{route}", "route": "cuda",
+            "source": "incubator_mxnet_tpu_torch/ops/csrc/paged_attention.cu",
+            "replaces": "incubator_mxnet_tpu/ops/pallas_kernels.py:292",
+            "launches": launches, "max_abs_err": v["max_abs_err"],
+            "ms": v["ms"], "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+            "library_ms": v["library_ms"], "kernel_route": route,
+            "shape": f"S={SLOTS} C={C} H={FULL['heads']} "
+                     f"D={FULL['head_dim']} T={FULL['max_len']} {dt}"})
     entries, share = train_entries(train_kernels, train)
     entries[0]["coverage"] = coverage["applies"] + [coverage["dense"]]
     entries[1]["coverage"] = [p[0] for p in coverage["pools"]]
@@ -2040,11 +2167,13 @@ def main():
     fentries, bert["flash_share"] = flash_entries(flash, bert)
     entries += fentries
     entries.append(int8_entry(int8_variants, engine))
+    entries += route_entries
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": card, "kernels": [entry] + entries,
+            json.dump({"card": card, "build_s": build_s,
+                       "build_each_s": built, "kernels": [entry] + entries,
                        "serve": result, "train": train, "bert": bert,
                        "engine": engine, "coverage": coverage}, f,
                       indent=1, default=str)

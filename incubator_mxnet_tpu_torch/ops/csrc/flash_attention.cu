@@ -21,8 +21,8 @@
 //   dk_j     = scale * sum_i ds[i, j] q_i,  dv_j = sum_i p[i, j] dO_i
 //
 // with f32 arithmetic and accumulators inside, and q, k, v, o, dO, dq, dk, dv
-// in float32 or bfloat16 (lse and delta float32), for every head dim d from 1
-// to 256 and any bh. delta is computed by the caller, as the JAX package
+// in float32 or bfloat16 (lse and delta float32), for every head dim d >= 1
+// and any bh. delta is computed by the caller, as the JAX package
 // computes it outside Pallas.
 //
 // Two routes. bfloat16 at d a multiple of 8 up to 128 runs on the tensor
@@ -68,7 +68,8 @@
 // on the CUDA cores; 64, 128 on the tensor cores) and takes the real d at run
 // time: columns d..D-1 of every tile are zero (masked loads, or TMA's
 // out-of-bounds fill) and are never stored, so they add nothing to a dot
-// product.
+// product. Past 256 the CUDA-core kernels take d in 128-column slices of the
+// capacity-128 instances (see Slice below); nothing grows with d.
 //
 // Unlike the TPU grid, blocks run in parallel and share nothing: the loop over
 // key tiles (forward, dq) or query tiles (dk/dv) inside one block takes the
@@ -88,28 +89,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+#include "tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;            // query rows and key rows per tile
-constexpr int kLdS = kTile + 4;      // padded row of a (64 x 64) score tile
-constexpr float kMasked = -1e30f;    // the mask value and the LSE sentinel
 constexpr float kSentinelCut = -5e29f;  // lse at or below: a fully masked row
-
-template <int D>
-struct Dims {
-  static constexpr int kLd = D + 4;         // padded row of a (64 x D) tile
-  static constexpr int kTD = D / 16;        // output columns per thread
-  static constexpr int kTileFloats = kTile * kLd;
-};
-
-// output column t of column group cg: float4 runs interleaved over the
-// groups, so each vector read of a row is contiguous across the groups
-template <int D>
-__device__ __forceinline__ int out_col(int cg, int t) {
-  if constexpr (Dims<D>::kTD < 4) return cg * Dims<D>::kTD + t;
-  else return (t / 4) * 64 + cg * 4 + (t % 4);
-}
 
 template <typename T>
 struct Load8;
@@ -143,26 +128,22 @@ struct Load8<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// rows [row0, row0 + R) of a contiguous (rows, hd) matrix into a padded f32
-// tile of capacity D >= hd; rows at or past `rows` and columns at or past hd
-// read as zeros. kVec: every 8-value chunk that starts inside a row is whole
-// and 16-byte aligned, one vector load; else element by element.
+// rows [row0, row0 + R) of a row-major matrix (rows `ld` elements apart),
+// columns [0, width), into a padded f32 tile of capacity D >= width; rows at
+// or past `rows` and columns at or past width read as zeros. kVec: every
+// 8-value chunk that starts inside a row is whole and 16-byte aligned, one
+// vector load; else element by element.
 template <typename T, int D, int R, bool kVec>
 __device__ __forceinline__ void load_tile_path(const T* __restrict__ src,
-                                               int row0, int rows, int hd,
-                                               float* dst) {
+                                               int row0, int rows, int ld,
+                                               int hd, float* dst) {
   constexpr int kPerRow = D / 8;
   constexpr int kChunks = R * kPerRow;
   for (int c = threadIdx.x; c < kChunks; c += kThreads) {
     const int r = c / kPerRow;
     const int d = (c % kPerRow) * 8;
     float v[8];
-    const T* p = src + (long long)(row0 + r) * hd + d;
+    const T* p = src + (long long)(row0 + r) * ld + d;
     if (row0 + r >= rows || d >= hd) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) v[i] = 0.f;
@@ -179,110 +160,18 @@ __device__ __forceinline__ void load_tile_path(const T* __restrict__ src,
 }
 
 // the path is chosen once per call (a uniform branch), so the vector loop's
-// loads stay straight-line
+// loads stay straight-line. A contiguous (rows, hd) matrix is ld = width =
+// hd; a column piece of one (a slice past capacity 256) is src + c0, ld =
+// hd, width = min(D, hd - c0).
 template <typename T, int D, int R = kTile>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src, int row0,
-                                          int rows, int hd, float* dst) {
-  if (hd % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0)
-    load_tile_path<T, D, R, true>(src, row0, rows, hd, dst);
+                                          int rows, int ld, int width,
+                                          float* dst) {
+  if (ld % 8 == 0 && width % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(src) % 16 == 0)
+    load_tile_path<T, D, R, true>(src, row0, rows, ld, width, dst);
   else
-    load_tile_path<T, D, R, false>(src, row0, rows, hd, dst);
-}
-
-// acc[i][j] += A[rg*RM+i] . B[cg+16j] over D (A a padded (16 RM x D) tile,
-// B a padded (64 x D) one)
-template <int D, int RM = 4>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B,
-                                         int rg, int cg, float acc[RM][4]) {
-  constexpr int L = Dims<D>::kLd;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[RM], b[4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (rg * RM + i) * L + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (cg + 16 * j) * L + d);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, b[j].x, s);
-        s = fmaf(a[i].y, b[j].y, s);
-        s = fmaf(a[i].z, b[j].z, s);
-        s = fmaf(a[i].w, b[j].w, s);
-        acc[i][j] = s;
-      }
-    }
-  }
-}
-
-// the thread's TD columns of row `row` of a padded (64 x D) tile
-template <int D>
-__device__ __forceinline__ void load_cols(const float* M, int row, int cg,
-                                          float* m) {
-  constexpr int TD = Dims<D>::kTD;
-  const float* p = M + row * Dims<D>::kLd;
-  if constexpr (TD < 4) {
-#pragma unroll
-    for (int t = 0; t < TD; ++t) m[t] = p[out_col<D>(cg, t)];
-  } else {
-#pragma unroll
-    for (int u = 0; u < TD / 4; ++u) {
-      const float4 x = *reinterpret_cast<const float4*>(p + u * 64 + cg * 4);
-      m[4 * u] = x.x;
-      m[4 * u + 1] = x.y;
-      m[4 * u + 2] = x.z;
-      m[4 * u + 3] = x.w;
-    }
-  }
-}
-
-// out[i][t] += sum_k P[rg*RM+i][k] * M[k][col(cg, t)]   (P a (16 RM x 64)
-// score tile, M a padded (64 x D) tile)
-template <int D, int RM = 4>
-__device__ __forceinline__ void tile_pm(const float* P, const float* M, int rg,
-                                        int cg, float out[RM][Dims<D>::kTD]) {
-  constexpr int TD = Dims<D>::kTD;
-#pragma unroll 2
-  for (int k = 0; k < kTile; k += 4) {
-    float p[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(P + (rg * RM + i) * kLdS + k);
-      p[i][0] = x.x;
-      p[i][1] = x.y;
-      p[i][2] = x.z;
-      p[i][3] = x.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float m[TD];
-      load_cols<D>(M, k + kk, cg, m);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-#pragma unroll
-        for (int t = 0; t < TD; ++t) out[i][t] = fmaf(p[i][kk], m[t], out[i][t]);
-      }
-    }
-  }
-}
-
-// reductions over the 16 threads of a row group (lanes 0-15 or 16-31)
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+    load_tile_path<T, D, R, false>(src, row0, rows, ld, width, dst);
 }
 
 __device__ __forceinline__ bool live(int qi, int kj, int Tq, int Tk,
@@ -308,10 +197,51 @@ __device__ __forceinline__ int first_query_tile(int k0, int Tq, int Tk) {
 }
 
 // ---------------------------------------------------------------------------
-// B5 / B6 on the CUDA cores (float32; bfloat16 at d % 8 != 0): one block per
-// (bh, query tile), online softmax over the key tiles
+// Head dims past 256 (any d): a block takes a slice of at most D = 128 output
+// columns (the slice index is the fastest part of the 1-D grid), and the
+// full-d products it needs first (S = Q K^T, and dP = dO V^T in the
+// backward) are accumulated over 128-column pieces through the same
+// capacity-128 tiles, reloaded piece by piece. Shared memory and registers
+// stay those of capacity 128 whatever d is; the scores are recomputed once
+// per slice (ceil(d / 128) x the score work), and every slice computes them
+// in the same order, so the slices agree on the softmax bit for bit.
+template <bool kSliced, int D>
+struct Slice {
+  int n;      // slices of the output columns
+  int col0;   // this block's first output column
+  int width;  // its columns
+  __device__ Slice(int hd, int index) {
+    n = kSliced ? (hd + D - 1) / D : 1;
+    col0 = kSliced ? (index % n) * D : 0;
+    width = kSliced ? min(D, hd - col0) : hd;
+  }
+};
+
+// acc[i][j] += X[x0 + rg*RM + i, :] . Y[y0 + cg + 16j, :] over every column
+// of two contiguous (rows, hd) matrices, one 128-column piece at a time
+// through the tiles sX (16 RM rows) and sY (64 rows); leaves the block
+// synchronised and both tiles free
+template <typename T, int D, int RM>
+__device__ __forceinline__ void sliced_dot(const T* X, int x0, int xrows,
+                                           const T* Y, int y0, int yrows,
+                                           int hd, float* sX, float* sY,
+                                           int rg, int cg,
+                                           float acc[RM][4]) {
+  for (int c0 = 0; c0 < hd; c0 += D) {
+    const int w = min(D, hd - c0);
+    load_tile<T, D, 16 * RM>(X + c0, x0, xrows, hd, w, sX);
+    load_tile<T, D>(Y + c0, y0, yrows, hd, w, sY);
+    __syncthreads();
+    tile_dot<D, RM>(sX, sY, rg, cg, acc);
+    __syncthreads();
+  }
+}
+
 // ---------------------------------------------------------------------------
-template <typename T, int D, bool kWithLse>
+// B5 / B6 on the CUDA cores (float32; bfloat16 at d % 8 != 0 or d > 128):
+// one block per (bh, query tile[, slice]), online softmax over the key tiles
+// ---------------------------------------------------------------------------
+template <typename T, int D, bool kWithLse, bool kSliced>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
@@ -323,16 +253,18 @@ __global__ void __launch_bounds__(kThreads)
   float* sK = sQ + Dims<D>::kTileFloats;
   float* sV = sK + Dims<D>::kTileFloats;
   float* sP = sV + Dims<D>::kTileFloats;
+  const Slice<kSliced, D> sl(hd, blockIdx.x);
   const int n_qt = (Tq + kTile - 1) / kTile;
-  const long long bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x % n_qt) * kTile;
+  const int item = blockIdx.x / sl.n;
+  const long long bh = item / n_qt;
+  const int q0 = (item % n_qt) * kTile;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
   q += bh * Tq * hd;
   k += bh * Tk * hd;
   v += bh * Tk * hd;
   o += bh * Tq * hd;
 
-  load_tile<T, D>(q, q0, Tq, hd, sQ);
+  if constexpr (!kSliced) load_tile<T, D>(q, q0, Tq, hd, hd, sQ);
   float m[4], l[4], acc[4][TD];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -345,11 +277,17 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the last tile's P.V is done with sK, sV, sP
-    load_tile<T, D>(k, k0, Tk, hd, sK);
-    load_tile<T, D>(v, k0, Tk, hd, sV);
-    __syncthreads();
     float s[4][4] = {};
-    tile_dot<D>(sQ, sK, rg, cg, s);
+    if constexpr (kSliced) {
+      sliced_dot<T, D, 4>(q, q0, Tq, k, k0, Tk, hd, sQ, sK, rg, cg, s);
+      load_tile<T, D>(v + sl.col0, k0, Tk, hd, sl.width, sV);
+      __syncthreads();
+    } else {
+      load_tile<T, D>(k, k0, Tk, hd, hd, sK);
+      load_tile<T, D>(v, k0, Tk, hd, hd, sV);
+      __syncthreads();
+      tile_dot<D>(sQ, sK, rg, cg, s);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + rg * 4 + i;
@@ -386,9 +324,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int t = 0; t < TD; ++t) {
       const int col = out_col<D>(cg, t);
-      if (col < hd) store(o + (long long)qi * hd + col, acc[i][t] / denom);
+      if (col < sl.width)
+        store(o + (long long)qi * hd + sl.col0 + col, acc[i][t] / denom);
     }
-    if (kWithLse && cg == 0)
+    if (kWithLse && cg == 0 && sl.col0 == 0)
       lse[bh * Tq + qi] =
           l[i] > 0.f ? m[i] + logf(fmaxf(l[i], 1e-37f)) : kMasked;
   }
@@ -404,9 +343,10 @@ __host__ __device__ constexpr int bwd_rm() {
 }
 
 // ---------------------------------------------------------------------------
-// B7: dq sweep, one block per (query tile, bh), accumulating over key tiles
+// B7: dq sweep, one block per (query tile[, slice], bh), accumulating over
+// key tiles
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool kSliced>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -423,9 +363,11 @@ __global__ void __launch_bounds__(kThreads)
   float* sK = sO + BM * L;
   float* sV = sK + Dims<D>::kTileFloats;
   float* sS = sV + Dims<D>::kTileFloats;  // ds
+  const Slice<kSliced, D> sl(hd, blockIdx.x);
   const int n_qt = (Tq + BM - 1) / BM;
-  const long long bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x % n_qt) * BM;
+  const int item = blockIdx.x / sl.n;
+  const long long bh = item / n_qt;
+  const int q0 = (item % n_qt) * BM;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
   q += bh * Tq * hd;
   dout += bh * Tq * hd;
@@ -433,8 +375,10 @@ __global__ void __launch_bounds__(kThreads)
   k += bh * Tk * hd;
   v += bh * Tk * hd;
 
-  load_tile<T, D, BM>(q, q0, Tq, hd, sQ);
-  load_tile<T, D, BM>(dout, q0, Tq, hd, sO);
+  if constexpr (!kSliced) {
+    load_tile<T, D, BM>(q, q0, Tq, hd, hd, sQ);
+    load_tile<T, D, BM>(dout, q0, Tq, hd, hd, sO);
+  }
   float lse_r[RM], del_r[RM], acc[RM][TD];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
@@ -448,12 +392,19 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile<T, D>(k, k0, Tk, hd, sK);
-    load_tile<T, D>(v, k0, Tk, hd, sV);
-    __syncthreads();
     float s[RM][4] = {}, dp[RM][4] = {};
-    tile_dot<D, RM>(sQ, sK, rg, cg, s);
-    tile_dot<D, RM>(sO, sV, rg, cg, dp);
+    if constexpr (kSliced) {
+      sliced_dot<T, D, RM>(q, q0, Tq, k, k0, Tk, hd, sQ, sK, rg, cg, s);
+      sliced_dot<T, D, RM>(dout, q0, Tq, v, k0, Tk, hd, sO, sV, rg, cg, dp);
+      load_tile<T, D>(k + sl.col0, k0, Tk, hd, sl.width, sK);
+      __syncthreads();
+    } else {
+      load_tile<T, D>(k, k0, Tk, hd, hd, sK);
+      load_tile<T, D>(v, k0, Tk, hd, hd, sV);
+      __syncthreads();
+      tile_dot<D, RM>(sQ, sK, rg, cg, s);
+      tile_dot<D, RM>(sO, sV, rg, cg, dp);
+    }
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int qi = q0 + rg * RM + i;
@@ -476,16 +427,18 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int t = 0; t < TD; ++t) {
       const int col = out_col<D>(cg, t);
-      if (col < hd) store(dq + (long long)qi * hd + col, acc[i][t] * scale);
+      if (col < sl.width)
+        store(dq + (long long)qi * hd + sl.col0 + col, acc[i][t] * scale);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// B8: dk/dv sweep, one block per (key tile, bh), accumulating over query
-// tiles. Thread rows are key rows here; its score columns are query rows.
+// B8: dk/dv sweep, one block per (key tile[, slice], bh), accumulating over
+// query tiles. Thread rows are key rows here; its score columns are query
+// rows.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool kSliced>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -506,9 +459,11 @@ __global__ void __launch_bounds__(kThreads)
   float* sS = sP + BM * kLdS;             // ds, (key row, query row)
   float* sL = sS + BM * kLdS;             // lse of the query tile
   float* sD = sL + kTile;                 // delta of the query tile
+  const Slice<kSliced, D> sl(hd, blockIdx.x);
   const int n_kt = (Tk + BM - 1) / BM;
-  const long long bh = blockIdx.x / n_kt;
-  const int k0 = (blockIdx.x % n_kt) * BM;
+  const int item = blockIdx.x / sl.n;
+  const long long bh = item / n_kt;
+  const int k0 = (item % n_kt) * BM;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
   q += bh * Tq * hd;
   dout += bh * Tq * hd;
@@ -517,8 +472,10 @@ __global__ void __launch_bounds__(kThreads)
   dk += bh * Tk * hd;
   dv += bh * Tk * hd;
 
-  load_tile<T, D, BM>(k, k0, Tk, hd, sK);
-  load_tile<T, D, BM>(v, k0, Tk, hd, sV);
+  if constexpr (!kSliced) {
+    load_tile<T, D, BM>(k, k0, Tk, hd, hd, sK);
+    load_tile<T, D, BM>(v, k0, Tk, hd, hd, sV);
+  }
   float dk_acc[RM][TD], dv_acc[RM][TD];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
@@ -532,17 +489,26 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = causal ? first_query_tile(k0, Tq, Tk) : 0; qt < nq; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();
-    load_tile<T, D>(q, q0, Tq, hd, sQ);
-    load_tile<T, D>(dout, q0, Tq, hd, sO);
+    float s[RM][4] = {}, dp[RM][4] = {};
+    if constexpr (kSliced) {
+      sliced_dot<T, D, RM>(k, k0, Tk, q, q0, Tq, hd, sK, sQ, rg, cg, s);
+      sliced_dot<T, D, RM>(v, k0, Tk, dout, q0, Tq, hd, sV, sO, rg, cg, dp);
+      load_tile<T, D>(q + sl.col0, q0, Tq, hd, sl.width, sQ);
+      load_tile<T, D>(dout + sl.col0, q0, Tq, hd, sl.width, sO);
+    } else {
+      load_tile<T, D>(q, q0, Tq, hd, hd, sQ);
+      load_tile<T, D>(dout, q0, Tq, hd, hd, sO);
+    }
     for (int r = threadIdx.x; r < kTile; r += kThreads) {
       const bool in = q0 + r < Tq;
       sL[r] = in ? lse[bh * Tq + q0 + r] : kMasked;
       sD[r] = in ? delta[bh * Tq + q0 + r] : 0.f;
     }
     __syncthreads();
-    float s[RM][4] = {}, dp[RM][4] = {};
-    tile_dot<D, RM>(sK, sQ, rg, cg, s);
-    tile_dot<D, RM>(sV, sO, rg, cg, dp);
+    if constexpr (!kSliced) {
+      tile_dot<D, RM>(sK, sQ, rg, cg, s);
+      tile_dot<D, RM>(sV, sO, rg, cg, dp);
+    }
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int kj = k0 + rg * RM + i;
@@ -568,8 +534,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int t = 0; t < TD; ++t) {
       const int col = out_col<D>(cg, t);
-      if (col >= hd) continue;
-      const long long at = (long long)kj * hd + col;
+      if (col >= sl.width) continue;
+      const long long at = (long long)kj * hd + sl.col0 + col;
       store(dk + at, dk_acc[i][t] * scale);
       store(dv + at, dv_acc[i][t]);
     }
@@ -636,225 +602,6 @@ struct Tc {
   static constexpr int kBarOff = 2 * kQBytes + 2 * kTcStages * kTileBytes;
   static constexpr int kSmem = 1024 + kBarOff + 8 * (4 + 2 * kTcStages);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait for the phase of parity `parity` to complete; a wait that outlasts
-// ~2^34 cycles (seconds: a fault in the pipeline, never a slow tile) traps,
-// so the launch fails instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory operand descriptor, 128-byte swizzle: start address,
-// leading byte offset (between 64-column atoms of an MN-major operand; unused
-// for a K-major one), stride byte offset 1024 (between groups of 8 rows)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// named barriers between the two consumer warpgroups (256 threads: one
-// warpgroup syncs, the other arrives); barrier 0 is __syncthreads'
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator reads or writes across a
-// wgmma fence or wait
-template <int N>
-__device__ __forceinline__ void pin(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x N f32, the accumulator fragment) (+)= A (64 x 16, K-major, shared
-// memory) . B (16 x N, K-major, shared memory); accumulate = 0 overwrites
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
-                                         int accumulate);
-// d (64 x N f32) += A (64 x 16 bf16 in registers, 4 x 2 values a thread) .
-// B (16 x N, N-major (transposed), shared memory)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 // Accumulator fragment of a 64 x N wgmma in a consumer thread (warp w of
 // its warpgroup, lane = 4 g + t): register 4 j + e holds row
@@ -1141,24 +888,6 @@ struct Bw {
   static constexpr int kSmem = 1024 + kBarOff + 8 * (4 + 2 * kBwStages);
 };
 static_assert(Bw<128>::kSmem <= 232448, "the backward's tiles fit");
-
-template <int N>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-// x = hi + lo, each a bf16 pair in the register A-fragment's packing
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t* hi,
-                                           uint32_t* lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  *hi = *reinterpret_cast<const uint32_t*>(&h);
-  *lo = pack_bf16(a - hf.x, b - hf.y);
-}
 
 // the backward's barriers: res_full[b] (count res_count), res_empty[b] (the
 // 256 consumer threads), full[s] (count full_count), empty[s] (256)
@@ -1595,19 +1324,6 @@ static_assert(fwd_smem<256>() == 217088 && dq_smem<256>() == 208384 &&
                   dkv_smem<256>() == 217600 && dkv_smem<128>() <= 232448,
               "the capacity-256 tiles fit a block's shared memory");
 
-struct Device {
-  int prev = 0;
-  int dev = 0;
-  cudaError_t err = cudaSuccess;
-  explicit Device(int device) : dev(device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != dev) err = cudaSetDevice(dev);
-  }
-  ~Device() {
-    if (err == cudaSuccess && prev != dev) cudaSetDevice(prev);
-  }
-};
-
 struct Args {
   const void* q;
   const void* k;
@@ -1629,20 +1345,23 @@ cudaError_t prepare(K kern, int smem) {
                               smem);
 }
 
-// one block per (head, row tile), head-major along grid x
-bool grid_1d(int bh, int rows, int tile, dim3* grid) {
-  const long long n = (long long)bh * ((rows + tile - 1) / tile);
+// one block per (head, row tile[, slice]), head-major along grid x, the
+// slice fastest (d > 256: ceil(d / 128) slices)
+bool grid_1d(int bh, int rows, int tile, int hd, bool sliced, dim3* grid) {
+  const long long n = (long long)bh * ((rows + tile - 1) / tile) *
+                      (sliced ? (hd + 127) / 128 : 1);
   if (n <= 0 || n > 2147483647LL) return false;
   *grid = dim3((unsigned)n);
   return true;
 }
 
-template <typename T, int D, bool L>
+template <typename T, int D, bool L, bool S>
 cudaError_t run_fwd(const Args& a) {
-  auto kern = flash_fwd_kernel<T, D, L>;
+  auto kern = flash_fwd_kernel<T, D, L, S>;
   constexpr int smem = fwd_smem<D>();
   dim3 grid;
-  if (!grid_1d(a.bh, a.tq, kTile, &grid)) return cudaErrorInvalidValue;
+  if (!grid_1d(a.bh, a.tq, kTile, a.hd, S, &grid))
+    return cudaErrorInvalidValue;
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<grid, kThreads, smem, a.st>>>(
@@ -1652,12 +1371,12 @@ cudaError_t run_fwd(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool S>
 cudaError_t run_dq(const Args& a) {
-  auto kern = flash_bwd_dq_kernel<T, D>;
+  auto kern = flash_bwd_dq_kernel<T, D, S>;
   constexpr int smem = dq_smem<D>();
   dim3 grid;
-  if (!grid_1d(a.bh, a.tq, 16 * bwd_rm<D>(), &grid))
+  if (!grid_1d(a.bh, a.tq, 16 * bwd_rm<D>(), a.hd, S, &grid))
     return cudaErrorInvalidValue;
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return e;
@@ -1668,12 +1387,12 @@ cudaError_t run_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool S>
 cudaError_t run_dkv(const Args& a) {
-  auto kern = flash_bwd_dkv_kernel<T, D>;
+  auto kern = flash_bwd_dkv_kernel<T, D, S>;
   constexpr int smem = dkv_smem<D>();
   dim3 grid;
-  if (!grid_1d(a.bh, a.tk, 16 * bwd_rm<D>(), &grid))
+  if (!grid_1d(a.bh, a.tk, 16 * bwd_rm<D>(), a.hd, S, &grid))
     return cudaErrorInvalidValue;
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return e;
@@ -1685,30 +1404,32 @@ cudaError_t run_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-// which: 0 forward, 1 forward + lse, 2 dq sweep, 3 dk/dv sweep
-template <typename T, int D>
+// which: 0 forward, 1 forward + lse, 2 dq sweep, 3 dk/dv sweep; S: the
+// 128-column slices of a head dim past 256
+template <typename T, int D, bool S = false>
 cudaError_t run(int which, const Args& a) {
   switch (which) {
-    case 0: return run_fwd<T, D, false>(a);
-    case 1: return run_fwd<T, D, true>(a);
-    case 2: return run_dq<T, D>(a);
-    case 3: return run_dkv<T, D>(a);
+    case 0: return run_fwd<T, D, false, S>(a);
+    case 1: return run_fwd<T, D, true, S>(a);
+    case 2: return run_dq<T, D, S>(a);
+    case 3: return run_dkv<T, D, S>(a);
   }
   return cudaErrorInvalidValue;
 }
 
-// the capacity instance that holds head dim hd
+// the capacity instance that holds head dim hd, or capacity 128's slices
 template <typename T>
 cudaError_t run_dim(int which, const Args& a) {
   if (a.hd <= 32) return run<T, 32>(which, a);
   if (a.hd <= 64) return run<T, 64>(which, a);
   if (a.hd <= 128) return run<T, 128>(which, a);
-  return run<T, 256>(which, a);
+  if (a.hd <= 256) return run<T, 256>(which, a);
+  return run<T, 128, true>(which, a);
 }
 
 int dispatch(int dtype, int device, int which, const Args& a) {
   if ((dtype != 0 && dtype != 1) || a.bh <= 0 || a.tq < 0 || a.tk < 0 ||
-      a.hd < 1 || a.hd > 256)
+      a.hd < 1)
     return (int)cudaErrorInvalidValue;
   // bfloat16 at d % 8 == 0 up to 128 is the tensor-core kernels'
   if (dtype == 1 && a.hd % 8 == 0 && a.hd <= 128)
@@ -1719,65 +1440,17 @@ int dispatch(int dtype, int device, int which, const Args& a) {
                           : run_dim<__nv_bfloat16>(which, a));
 }
 
-// cuTensorMapEncodeTiled from the driver through the runtime, so the library
-// needs no -lcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // a bf16 (bh, rows, hd) contiguous tensor as a 3-D map (hd, rows, bh), read
 // in (64 columns, box_rows rows, 1 head) boxes with 128-byte swizzle;
 // outside the map reads as zero
 bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int rows, int bh,
                 int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows,
                               (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)hd * 2 * rows};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// streaming multiprocessors of the current device (the persistent grid)
-int sm_count() {
-  static int counts[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
-  int n = dev >= 0 && dev < 64 ? counts[dev] : 0;
-  if (n == 0) {
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || n <= 0)
-      n = 132;
-    if (dev >= 0 && dev < 64) counts[dev] = n;
-  }
-  return n;
+  return tensor_map_bf16(map, ptr, 3, dims, strides, box);
 }
 
 template <int D, bool L>
@@ -1875,7 +1548,7 @@ cudaError_t run_dkv_wgmma(const Args& a) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; head_dim 1..256 (bfloat16 at a multiple of 8
+// dtype: 0 float32, 1 bfloat16; head_dim >= 1 (bfloat16 at a multiple of 8
 // up to 128 is refused: the tensor-core entry points serve it). q (bh, tq, d), k and v
 // (bh, tk, d), o (bh, tq, d), all contiguous and 16-byte aligned; lse
 // (bh, tq) float32, written when with_lse. Returns cudaGetLastError() after

@@ -3,17 +3,17 @@
 Each `csrc/*.cu` source has a plain C interface. At first use it is
 compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under the
 package's `_build/` directory (listed in `.gitignore`) and loaded with
-`ctypes`. A library is rebuilt when its source or the flags change: the
-file name carries a hash of both. Nothing is compiled or loaded when this
+`ctypes`. A library is rebuilt when its source, a `csrc/*.cuh` header it
+includes, or the flags change: the file name carries a hash of them all. Nothing is compiled or loaded when this
 module is imported, so the CPU tests import it on machines without `nvcc`.
 
 Each wrapper takes CUDA tensors only, checks device, dtype, shape and
 layout, launches on PyTorch's current stream without synchronising, raises
 when the launch is refused, and adds one to its launch counter (see
 `launch_counts()`). Every shape rule a wrapper enforces is a row of one
-table, `refusal()`: it refuses what the JAX package refuses too, and one
-named remainder, head dims over 256 (ROADMAP C1). Any other shape the JAX
-package serves reaches a kernel. The plain PyTorch versions live beside the
+table, `refusal()`: it refuses only what the JAX package refuses too. Any
+other shape the JAX package serves reaches a kernel, every head dim
+included. The plain PyTorch versions live beside the
 dispatchers in `ops/fused.py` and `ops/attention.py`; no wrapper ever
 falls back to them, and no wrapper copies a tensor into the layout its
 kernel takes: it raises.
@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,8 +36,8 @@ from ..base import MXNetError
 __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
            "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "flash_fwd_cuda",
            "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "flash_fwd_route",
-           "flash_bwd_route",
-           "ACT_CODES", "HEAD_DIM_MAX", "RULES", "refusal",
+           "flash_bwd_route", "paged_route",
+           "ACT_CODES", "RULES", "refusal",
            "reset_launch_counts", "launch_counts"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -55,6 +56,10 @@ BUILD_LOG = {}
 # launches of each kernel since the last reset: one per successful launch
 paged_attention_launches = 0
 paged_attention_int8_launches = 0
+# the paged launches (of the two above) by route (`paged_route`)
+paged_attention_split_launches = 0
+paged_attention_wgmma_launches = 0
+paged_attention_cuda_cores_launches = 0
 scale_shift_act_launches = 0
 avg_pool2d_fwd_launches = 0
 avg_pool2d_bwd_launches = 0
@@ -72,13 +77,17 @@ flash_bwd_dkv_wgmma_launches = 0
 
 def reset_launch_counts():
     global paged_attention_launches, paged_attention_int8_launches, \
-        scale_shift_act_launches, avg_pool2d_fwd_launches, \
+        paged_attention_split_launches, paged_attention_wgmma_launches, \
+        paged_attention_cuda_cores_launches, scale_shift_act_launches, avg_pool2d_fwd_launches, \
         avg_pool2d_bwd_launches, flash_fwd_launches, flash_fwd_lse_launches, \
         flash_fwd_wgmma_launches, flash_fwd_lse_wgmma_launches, \
         flash_bwd_dq_launches, flash_bwd_dkv_launches, \
         flash_bwd_dq_wgmma_launches, flash_bwd_dkv_wgmma_launches
     paged_attention_launches = 0
     paged_attention_int8_launches = 0
+    paged_attention_split_launches = 0
+    paged_attention_wgmma_launches = 0
+    paged_attention_cuda_cores_launches = 0
     scale_shift_act_launches = 0
     avg_pool2d_fwd_launches = 0
     avg_pool2d_bwd_launches = 0
@@ -95,6 +104,9 @@ def reset_launch_counts():
 def launch_counts():
     return {"paged_attention": paged_attention_launches,
             "paged_attention_int8": paged_attention_int8_launches,
+            "paged_attention_split": paged_attention_split_launches,
+            "paged_attention_wgmma": paged_attention_wgmma_launches,
+            "paged_attention_cuda_cores": paged_attention_cuda_cores_launches,
             "scale_shift_act": scale_shift_act_launches,
             "avg_pool2d_fwd": avg_pool2d_fwd_launches,
             "avg_pool2d_bwd": avg_pool2d_bwd_launches,
@@ -120,10 +132,25 @@ def _nvcc():
         "CUDA kernels are built from ops/csrc at first use")
 
 
+_INCLUDE = re.compile(rb'^#include "([^"]+\.cuh)"', re.M)
+
+
 def _lib_path(name):
+    """(source, library path): the library's name hashes the source, every
+    `csrc/*.cuh` header it includes (and theirs), and the flags."""
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    todo, seen = [src], set()
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        digest.update(os.path.basename(path).encode() + b"\0" + text)
+        todo += [os.path.join(_CSRC, h.decode())
+                 for h in _INCLUDE.findall(text)]
     return src, os.path.join(_BUILD, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -174,9 +201,9 @@ def _load(name):
             if name == "paged_attention":
                 lib.mx_paged_attention_fwd.restype = ctypes.c_int
                 lib.mx_paged_attention_fwd.argtypes = (
-                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
                     + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
-                    + [ctypes.c_void_p])
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
             elif name == "scale_shift_act":
                 lib.mx_scale_shift_act.restype = ctypes.c_int
                 lib.mx_scale_shift_act.argtypes = (
@@ -222,29 +249,14 @@ ACT_CODES = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3, "silu": 4,
              "gelu": 5}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the largest head dim the paged and flash kernels take
-HEAD_DIM_MAX = 256
-
 # Every shape rule the wrappers enforce, one row each: (kernel, kind, test,
-# message). Kind "jax": the JAX package refuses the shape too. Kind
-# "remainder": the JAX package serves the shape and no kernel here takes it;
-# ROADMAP C1 keeps it open with the reason the message gives. Any other
-# shape reaches a kernel: head dims 1..256 through capacity instances (32,
-# 64, 128, 256) that mask the tail, any channel count through a scalar path
-# beside the 16-byte vector one, any bh along a 1-D grid.
+# message). Kind "jax": the JAX package refuses the shape too; no other kind
+# exists. Any other shape reaches a kernel: head dims 1..256 through
+# capacity instances (32, 64, 128, 256) that mask the tail and any d past
+# 256 through 128-column slices of the capacity-128 instance, any channel
+# count through a scalar path beside the 16-byte vector one, any bh along a
+# 1-D grid.
 RULES = (
-    ("paged_attention", "remainder",
-     lambda s: s["head_dim"] > HEAD_DIM_MAX,
-     "head_dim {head_dim} > 256 has no instance: a wider one holds less "
-     "than 16 positions of f32 K and V in a block's 48 KB of static shared "
-     "memory and an f32 accumulator row of head_dim per query; no model in "
-     "either package has such a head dim"),
-    ("flash", "remainder",
-     lambda s: s["d"] > HEAD_DIM_MAX,
-     "head_dim {d} > 256 has no instance: the f32 tiles of capacity 256 "
-     "already take 217,600 of the 232,448 bytes of shared memory a block "
-     "can use, and an f32 accumulator row of d a query; no model in either "
-     "package has such a head dim"),
     ("scale_shift_act", "jax",
      lambda s: s["act"] not in ACT_CODES,
      "unsupported fused activation {act!r}"),
@@ -259,7 +271,8 @@ def refusal(kernel, **shape):
     """Why the CUDA kernel `kernel` refuses `shape`, or None when a kernel
     takes it. Kernels and the shape keys their rules read:
     "paged_attention" (head_dim), "scale_shift_act" (act), "avg_pool2d"
-    (h, w, ph, pw), "flash" (d; all four flash kernels). Runs anywhere: the
+    (h, w, ph, pw), "flash" (d; all four flash kernels); the paged and flash
+    kernels have no row. Runs anywhere: the
     CPU tests hold it against the JAX package."""
     for name, _kind, test, message in RULES:
         if name == kernel and test(shape):
@@ -275,27 +288,62 @@ def _refuse(name, kernel, **shape):
 
 _PA_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PA_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_PA_ROUTES = {"split": 0, "wgmma": 1, "cuda_cores": 2}
+# the split route's fixed pieces of the token axis (positions from 0), and
+# the output columns a block takes past head dim 256
+# (csrc/paged_attention.cu: kPiece, kSliceCols)
+PAGED_PIECE = 256
+PAGED_SLICE = 128
+# the most query rows the split route takes (csrc: kSplitRows)
+PAGED_SPLIT_ROWS = 16
+
+
+def paged_route(q_dtype, kv_dtype, d, C):
+    """Which kernel of `csrc/paged_attention.cu` takes (q dtype, slab dtype,
+    head dim d, query rows C), from those four values alone:
+    "split" for C <= 16 (decode, the speculative verify, short windows; a
+    memory-bound read on the CUDA cores, split over fixed 256-position
+    pieces and combined); "wgmma", the tensor cores, for longer chunks of
+    bfloat16 q over a bfloat16 slab at d % 8 == 0 or an int8 one at
+    d % 16 == 0 (a row of whole 16-byte vectors), d <= 128 (a 64 x d f32
+    accumulator is d / 2 registers a thread); "cuda_cores" for every other
+    chunk (float32 q or slab, which the tensor cores would take as TF32, the
+    other mixed pairs, d off that alignment, d > 128)."""
+    if C <= PAGED_SPLIT_ROWS:
+        return "split"
+    if (q_dtype == torch.bfloat16 and d <= 128
+            and ((kv_dtype == torch.bfloat16 and d % 8 == 0)
+                 or (kv_dtype == torch.int8 and d % 16 == 0))):
+        return "wgmma"
+    return "cuda_cores"
 
 
 def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
                          v_scale=None):
-    """Launch the paged-attention kernel (`csrc/paged_attention.cu`).
+    """Launch the paged-attention kernel (`csrc/paged_attention.cu`) that
+    `paged_route(q.dtype, k_slab.dtype, D, C)` names.
 
     `q`: contiguous (S, C, H, D) CUDA tensor, float32 or bfloat16.
     `k_slab`/`v_slab`: (rows, L, T, H, D) with rows > S, float32, bfloat16
     or int8 (any of them with either q dtype), one dtype, shape and
     strides, heads and dims contiguous; a view that cuts the position axis
-    (`slab[:, :, :extent]`) is read in place, not copied. Any head_dim D
-    from 1 to 256: 16-byte vector loads where every row is a whole number
-    of aligned 16-byte vectors, scalar loads otherwise. int8 slabs need
-    `k_scale`/`v_scale`: (rows, L, T) float32 with one set of strides,
-    positions contiguous (the same view cut is read in place); float slabs
-    take none.
+    (`slab[:, :, :extent]`) is read in place, not copied. Any head_dim D:
+    16-byte vector loads where every row is a whole number of aligned
+    16-byte vectors, scalar loads otherwise; the "wgmma" route needs its
+    buffers, slab strides and rows 16-byte aligned and raises naming the
+    one that is not. int8 slabs need `k_scale`/`v_scale`: (rows, L, T)
+    float32 with one set of strides, positions contiguous (the same view
+    cut is read in place); float slabs take none.
     `lengths`: (S,) int32, each >= 0. Returns (S, C, H, D) in q's dtype.
-    Counts a launch over an int8 slab in `paged_attention_int8_launches`,
-    any other in `paged_attention_launches`. Raises `MXNetError` on any
+    Counts one launch per call: over an int8 slab in
+    `paged_attention_int8_launches`, any other in
+    `paged_attention_launches`, and in the route's counter
+    (`paged_attention_split_launches`, `paged_attention_wgmma_launches`,
+    `paged_attention_cuda_cores_launches`). Raises `MXNetError` on any
     input the kernel does not take."""
-    global paged_attention_launches, paged_attention_int8_launches
+    global paged_attention_launches, paged_attention_int8_launches, \
+        paged_attention_split_launches, paged_attention_wgmma_launches, \
+        paged_attention_cuda_cores_launches
     name = "paged_attention_cuda"
     quant = k_slab.dtype == torch.int8
     scales = [t for t in (k_scale, v_scale) if t is not None]
@@ -350,26 +398,52 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
             or not lengths.is_contiguous()):
         raise MXNetError(f"{name}: lengths must be a contiguous (S,) int32 "
                          f"tensor")
+    route = paged_route(q.dtype, k_slab.dtype, D, C)
     kl, vl = k_slab[:, layer], v_slab[:, layer]
     ksl = k_scale[:, layer] if quant else None
     vsl = v_scale[:, layer] if quant else None
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if route == "wgmma":
+        _check_aligned(name, q=q, out=out, k_slab=kl, v_slab=vl)
+        item = k_slab.element_size()
+        bad = [f"{n} {s}" for n, s in (("row stride", st[0]),
+                                       ("position stride", st[2]))
+               if s * item % 16]
+        if bad:
+            raise MXNetError(f"{name}: slab {', '.join(bad)} (elements) not "
+                             f"a whole number of 16-byte vectors, which the "
+                             f"tensor-core route's tile loads need")
     lib = _load("paged_attention")
+    # the split route's partials: (S, H, pieces, C, D) accumulators, then
+    # (S, H, pieces, C, 2) maxima and normalisers, f32
+    ws = None
+    if route == "split":
+        pieces = -(-T // PAGED_PIECE)
+        ws = torch.empty(S * H * pieces * C * (D + 2), dtype=torch.float32,
+                         device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.mx_paged_attention_fwd(
-        _PA_Q_DTYPES[q.dtype], _PA_KV_DTYPES[k_slab.dtype],
+        _PA_ROUTES[route], _PA_Q_DTYPES[q.dtype], _PA_KV_DTYPES[k_slab.dtype],
         q.device.index or 0, q.data_ptr(), kl.data_ptr(), vl.data_ptr(),
         ksl.data_ptr() if quant else None, vsl.data_ptr() if quant else None,
-        lengths.data_ptr(), out.data_ptr(), S, C, H, D, T, st[0], st[2],
-        k_scale.stride(0) if quant else 0, stream)
+        lengths.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, S, C, H, D, T, st[0],
+        st[2], k_scale.stride(0) if quant else 0, PAGED_PIECE, PAGED_SLICE,
+        stream)
     if rc != 0:
         raise _launch_failed(lib, "paged_attention", rc)
     if quant:
         paged_attention_int8_launches += 1
     else:
         paged_attention_launches += 1
+    if route == "split":
+        paged_attention_split_launches += 1
+    elif route == "wgmma":
+        paged_attention_wgmma_launches += 1
+    else:
+        paged_attention_cuda_cores_launches += 1
     return out
 
 
@@ -385,9 +459,10 @@ def _check_cuda(name, tensors):
         raise MXNetError(f"{name}: tensors on several devices")
 
 
-def _check_aligned(name, tensors):
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise MXNetError(f"{name}: buffers not 16-byte aligned")
+def _check_aligned(name, **tensors):
+    bad = [n for n, t in tensors.items() if t.data_ptr() % 16]
+    if bad:
+        raise MXNetError(f"{name}: {', '.join(bad)} not 16-byte aligned")
 
 
 def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
@@ -508,7 +583,7 @@ def flash_fwd_route(dtype, d):
     tensor-core kernel, for bfloat16 at d a multiple of 8 (a TMA tensor map
     needs rows of whole 16-byte vectors) up to 128, else "cuda_cores".
     float32 stays off the tensor cores, which would take it as TF32; d over
-    128 because a 64 x d f32 accumulator (O here, dK and dV in the
+    128 (over 256 in 128-column slices) because a 64 x d f32 accumulator (O here, dK and dV in the
     backward) is d / 2 registers a thread, which at d = 256 leaves no room
     for the scores and the rest."""
     return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= 128 \
@@ -524,7 +599,7 @@ def flash_bwd_route(dtype, d):
 def _flash_check(name, q, k, v, extra=()):
     """Checks shared by the flash wrappers: q (bh, tq, d), k and v
     (bh, tk, d), one dtype (float32 or bfloat16), d the `refusal` table
-    takes (1 to 256), every tensor contiguous and on one card. `extra` are
+    takes (any), every tensor contiguous and on one card. `extra` are
     further operands of q's shape and dtype (dO). Returns (bh, tq, tk,
     d)."""
     _check_cuda(name, (q, k, v) + tuple(extra))
@@ -581,7 +656,7 @@ def flash_fwd_cuda(q, k, v, causal, scale, with_lse):
     tail = (bh, tq, tk, int(causal), float(scale), stream)
     tensor_cores = flash_fwd_route(q.dtype, d) == "wgmma"
     if tensor_cores:
-        _check_aligned(name, (q, k, v, o))
+        _check_aligned(name, q=q, k=k, v=v, o=o)
         rc = lib.mx_flash_fwd_wgmma(q.device.index or 0, d, int(with_lse),
                                     *ptrs, *tail)
     else:
@@ -622,7 +697,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
     tail = (bh, tq, tk, int(causal), float(scale), stream)
     tensor_cores = flash_bwd_route(q.dtype, d) == "wgmma"
     if tensor_cores:
-        _check_aligned(name, (q, k, v, do, dq))
+        _check_aligned(name, q=q, k=k, v=v, do=do, dq=dq)
         rc = lib.mx_flash_bwd_dq_wgmma(q.device.index or 0, d, *ptrs, *tail)
     else:
         rc = lib.mx_flash_bwd_dq(_DTYPE_CODES[q.dtype], q.device.index or 0,
@@ -657,7 +732,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
     tail = (bh, tq, tk, int(causal), float(scale), stream)
     tensor_cores = flash_bwd_route(q.dtype, d) == "wgmma"
     if tensor_cores:
-        _check_aligned(name, (q, k, v, do, dk, dv))
+        _check_aligned(name, q=q, k=k, v=v, do=do, dk=dk, dv=dv)
         rc = lib.mx_flash_bwd_dkv_wgmma(q.device.index or 0, d, *ptrs,
                                         *tail)
     else:

@@ -1,5 +1,5 @@
-"""PyTorch port: every shape the JAX package serves reaches a CUDA kernel,
-but for one named remainder (ROADMAP C1).
+"""PyTorch port: every shape the JAX package serves reaches a CUDA kernel
+(ROADMAP C1, closed).
 
 `ops.kernels.refusal` is the table of every shape rule the CUDA wrappers
 enforce. For a grid of shapes this file calls the JAX package's function
@@ -10,13 +10,14 @@ holds the port's table to it:
   * the NHWC average pool at C 1-20;
   * flash attention at d 1-128, and 129, 160, 192, 256, and bh 70000 as a
     shape only;
-the table takes every one. It refuses head dims over 256, which the JAX
-package serves (the named remainder), and what the JAX package refuses
+  * paged and flash attention at d 257, 384 and 512 (128-column slices);
+the table takes every one. It refuses only what the JAX package refuses
 too: an unknown activation, a pool that does not divide the spatial dims.
 The wrappers themselves, given tensors that report a card, pass every
 check at such shapes and stop only at the kernel build, which the tests
 deny its `nvcc`. The flash routes (tensor cores or CUDA cores) are pinned
-by dtype and head dim.
+by dtype and head dim, the paged routes (split, tensor cores, CUDA cores)
+by q dtype, slab dtype, head dim and query rows.
 """
 import os
 
@@ -36,8 +37,8 @@ torch.set_num_threads(1)
 
 # head dims over 128: a remainder until the capacity-256 instances
 WIDE = (129, 160, 192, 256)
-# head dims over 256: the named remainder
-REMAINDER = (257, 384)
+# head dims over 256: once the named remainder, now 128-column slices
+REMAINDER = (257, 384, 512)
 
 
 def _rand(shape, seed, dtype=np.float32):
@@ -123,22 +124,22 @@ def test_head_dims_over_128_are_the_named_remainder(kernel, key, call, d):
     ("flash", "d", _jax_flash)])
 @pytest.mark.parametrize("d", REMAINDER)
 def test_head_dims_over_256_are_the_named_remainder(kernel, key, call, d):
-    """The JAX package serves them; the table refuses them with the
-    remainder's reason, which names shared memory and the f32
-    accumulator row."""
+    """Head dims over 256, once the named remainder, now reach a kernel
+    (128-column slices): the JAX package serves them, and the table takes
+    them (the wrappers' side is
+    `test_wrappers_take_the_new_shapes_to_the_kernel_build`)."""
     out = call(d)
     assert out.shape[-1] == d and np.isfinite(out).all()
-    why = kernels.refusal(kernel, **{key: d})
-    assert why is not None and f"{d} > 256" in why
-    assert "shared memory" in why and "accumulator" in why
+    assert kernels.refusal(kernel, **{key: d}) is None
 
 
 def test_the_table_names_only_the_remainder_and_refusals_jax_shares():
+    """No remainder is left: every row is a refusal the JAX package
+    shares, and the paged and flash kernels have none."""
     kinds = {(name, kind) for name, kind, _, _ in kernels.RULES}
-    assert {k for k in kinds if k[1] == "remainder"} == {
-        ("paged_attention", "remainder"), ("flash", "remainder")}
-    assert {kind for _, kind in kinds} == {"jax", "remainder"}
-    assert kernels.HEAD_DIM_MAX == 256
+    assert {kind for _, kind in kinds} == {"jax"}
+    assert {name for name, _ in kinds} == {"scale_shift_act", "avg_pool2d"}
+    assert not hasattr(kernels, "HEAD_DIM_MAX")
 
 
 def test_the_refusals_jax_shares_are_refused_by_jax_too():
@@ -183,8 +184,8 @@ def no_nvcc(monkeypatch, tmp_path):
                         lambda p: isfile(p) and not str(p).endswith("nvcc"))
 
 
-def _paged_call(d, dtype=torch.bfloat16, kv=torch.bfloat16):
-    q = _cuda(torch.zeros((2, 1, 3, d), dtype=dtype))
+def _paged_call(d, dtype=torch.bfloat16, kv=torch.bfloat16, C=1):
+    q = _cuda(torch.zeros((2, C, 3, d), dtype=dtype))
     k = _cuda(torch.zeros((3, 1, 8, 3, d), dtype=kv))
     scales = {}
     if kv == torch.int8:
@@ -236,6 +237,25 @@ CALLS = {
         64, kernel="flash_bwd_dq"),
     "flash_bwd_dkv d=64 bf16 tensor cores": _flash_call(
         64, kernel="flash_bwd_dkv"),
+    # head dims over 256, refused until the 128-column slices
+    "paged d=257 bf16": _paged_call(257),
+    "flash d=320 bf16": _flash_call(320),
+    "flash_bwd_dkv d=264 bf16": _flash_call(264, kernel="flash_bwd_dkv"),
+    **{f"paged d={d} {name}": _paged_call(d, *types)
+       for d in (384, 512)
+       for name, types in (("bf16", ()), ("int8", (torch.float32, torch.int8)),
+                           ("f32 over bf16", (torch.float32,)))},
+    **{f"{kernel} d={d} f32": _flash_call(d, dtype=torch.float32,
+                                          kernel=kernel)
+       for kernel in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
+                      "flash_bwd_dkv")
+       for d in (257, 384, 512)},
+    # a chunk of each paged route: tensor cores (bf16 and int8 slabs) and
+    # CUDA cores (f32 q)
+    "paged chunk C=40 bf16 tensor cores": _paged_call(64, C=40),
+    "paged chunk C=40 int8 tensor cores": _paged_call(
+        64, kv=torch.int8, C=40),
+    "paged chunk C=40 f32 cuda cores": _paged_call(64, torch.float32, C=40),
 }
 
 
@@ -247,10 +267,6 @@ def test_wrappers_take_the_new_shapes_to_the_kernel_build(name, no_nvcc):
 
 
 @pytest.mark.parametrize("name,call,match", [
-    ("paged", _paged_call(257), "head_dim 257 > 256"),
-    ("flash", _flash_call(320), "head_dim 320 > 256"),
-    ("flash_bwd_dkv", _flash_call(264, kernel="flash_bwd_dkv"),
-     "head_dim 264 > 256"),
     ("pool", lambda: kernels.avg_pool2d_fwd_cuda(
         _cuda(torch.zeros((1, 5, 4, 3))), 2, 2), "must divide"),
     ("apply", lambda: kernels.scale_shift_act_cuda(
@@ -283,3 +299,74 @@ def test_flash_backward_route_is_by_dtype_and_head_dim_alone(dtype, d,
     """B7 and B8 take the tensor cores where the forward does: bfloat16 at
     d % 8 == 0 up to 128."""
     assert kernels.flash_bwd_route(dtype, d) == route
+
+
+PAGED_ROUTES = [
+    # decode, the speculative verify and short windows: split, any types, d
+    (torch.bfloat16, torch.bfloat16, 64, 1, "split"),
+    (torch.bfloat16, torch.int8, 64, 4, "split"),
+    (torch.float32, torch.float32, 64, 16, "split"),
+    (torch.float32, torch.int8, 512, 1, "split"),
+    (torch.bfloat16, torch.bfloat16, 12, 9, "split"),
+    # chunks of bf16 q over bf16 (d % 8) or int8 (d % 16) up to 128: tensor
+    # cores
+    (torch.bfloat16, torch.bfloat16, 64, 17, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 64, 256, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 8, 40, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 128, 256, "wgmma"),
+    (torch.bfloat16, torch.int8, 64, 256, "wgmma"),
+    (torch.bfloat16, torch.int8, 16, 40, "wgmma"),
+    (torch.bfloat16, torch.int8, 128, 40, "wgmma"),
+    # every other chunk: CUDA cores
+    (torch.float32, torch.float32, 64, 256, "cuda_cores"),
+    (torch.float32, torch.bfloat16, 64, 256, "cuda_cores"),
+    (torch.float32, torch.int8, 64, 256, "cuda_cores"),
+    (torch.bfloat16, torch.float32, 64, 256, "cuda_cores"),
+    (torch.bfloat16, torch.bfloat16, 12, 40, "cuda_cores"),
+    (torch.bfloat16, torch.int8, 24, 40, "cuda_cores"),
+    (torch.bfloat16, torch.bfloat16, 136, 256, "cuda_cores"),
+    (torch.bfloat16, torch.bfloat16, 256, 256, "cuda_cores"),
+    (torch.bfloat16, torch.int8, 384, 40, "cuda_cores")]
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,d,C,route", PAGED_ROUTES)
+def test_paged_route_is_by_types_head_dim_and_rows_alone(q_dtype, kv_dtype,
+                                                         d, C, route):
+    assert kernels.paged_route(q_dtype, kv_dtype, d, C) == route
+
+
+def test_paged_counters_start_at_zero_per_route():
+    kernels.reset_launch_counts()
+    counts = kernels.launch_counts()
+    for route in ("split", "wgmma", "cuda_cores"):
+        assert counts[f"paged_attention_{route}"] == 0
+
+
+def test_paged_wgmma_route_names_an_unaligned_stride(no_nvcc):
+    """The tensor-core route raises on a slab stride a tile load cannot
+    take, naming it, and never takes another route."""
+    q = _cuda(torch.zeros((2, 40, 3, 64), dtype=torch.bfloat16))
+    # positions 193 elements apart (386 bytes), heads and dims contiguous
+    k = _cuda(torch.zeros(3 * 8 * 193, dtype=torch.bfloat16).as_strided(
+        (3, 1, 8, 3, 64), (8 * 193, 8 * 193, 193, 64, 1)))
+    with pytest.raises(MXNetError, match="position stride 193"):
+        kernels.paged_attention_cuda(
+            q, k, k, _cuda(torch.zeros(2, dtype=torch.int32)), 0)
+    assert kernels.launch_counts()["paged_attention_wgmma"] == 0
+
+
+def test_library_name_hashes_the_headers_a_source_includes(tmp_path,
+                                                           monkeypatch):
+    """An edit to a shared header renames the libraries of exactly the
+    sources that include it, so no stale library survives it."""
+    for f in os.listdir(kernels._CSRC):
+        with open(os.path.join(kernels._CSRC, f), "rb") as src:
+            (tmp_path / f).write_bytes(src.read())
+    monkeypatch.setattr(kernels, "_CSRC", str(tmp_path))
+    names = {n: kernels._lib_path(n)[1] for n in kernels._SOURCES}
+    for header in ("hopper.cuh", "tiles.cuh"):
+        path = tmp_path / header
+        path.write_bytes(path.read_bytes() + b"\n// edited\n")
+        moved = {n for n in names if kernels._lib_path(n)[1] != names[n]}
+        assert moved == {"flash_attention", "paged_attention"}, header
+        names = {n: kernels._lib_path(n)[1] for n in kernels._SOURCES}

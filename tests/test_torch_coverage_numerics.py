@@ -5,14 +5,15 @@ On the CPU each fused op takes its kernel's plain version, the oracle
 `chip_smoke.py` holds the kernel against on the card (phases 6 and 10). The
 same numpy inputs go through the JAX package, its Pallas kernels in
 interpret mode where they tile (as its own tests run them):
-  * paged attention at head_dim 16, 24, 40, 160 and 256, float and int8
+  * paged attention at head_dim 16, 24, 40, 160, 256, 320 and 384, float
+    and int8
     slabs, against the Pallas kernel where it tiles and
     `paged_attention_ref` where the JAX dispatcher falls back;
   * a `Dense(10, "relu")` net through both packages' FusedTrainStep,
     fusion on;
   * the NHWC average pool at 12 channels, forward and gradient;
-  * flash attention at head dims 12, 40, 96, 136, 192 and 256, causal and
-    not: o, lse and the gradients of q, k and v;
+  * flash attention at head dims 12, 40, 96, 136, 192, 256, 320 and 384,
+    causal and not: o, lse and the gradients of q, k and v;
   * the head_dim-16 ContinuousEngine, token-exact against the JAX engine.
 
 Tolerances: float32 on both sides with sums in other orders, as the other
@@ -77,7 +78,7 @@ def _paged_inputs(d, C, int8, seed):
 
 @pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("C", [1, 3])
-@pytest.mark.parametrize("d", [16, 24, 40, 160, 256])
+@pytest.mark.parametrize("d", [16, 24, 40, 160, 256, 320, 384])
 def test_paged_plain_matches_jax_at_new_head_dims(d, C, int8):
     q, k, v, lens, sc = _paged_inputs(d, C, int8, seed=d + C + int8)
     got = tfused.paged_attention(
@@ -186,7 +187,7 @@ def _qkv(d, seed, bh=2, t=64):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [12, 40, 96, 136, 192, 256])
+@pytest.mark.parametrize("d", [12, 40, 96, 136, 192, 256, 320, 384])
 def test_flash_matches_jax_kernels_at_new_head_dims(d, causal):
     q, k, v, g = _qkv(d, seed=d + causal)
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))

@@ -228,9 +228,11 @@ def test_cuda_wrappers_check_their_inputs():
     with pytest.raises(MXNetError, match="contiguous"):
         kernels.flash_fwd_cuda(qc.transpose(1, 2).contiguous().transpose(1, 2),
                                kc, vc, False, 0.1, True)
-    wide = _cuda_looking(*_qkv(2, 8, 8, 264, seed=44)[:3])
-    with pytest.raises(MXNetError, match="head_dim 264 > 256"):
-        kernels.flash_fwd_cuda(*wide, False, 0.1, True)
+    # every head dim is taken (d > 256 in 128-column slices); k and v of
+    # another head dim than q are not
+    _, kw, vw = _cuda_looking(*_qkv(2, 64, 64, 264, seed=44)[:3])
+    with pytest.raises(MXNetError, match="do not serve q"):
+        kernels.flash_fwd_cuda(qc, kw, vw, False, 0.1, True)
     with pytest.raises(MXNetError, match="one dtype"):
         kernels.flash_fwd_cuda(qc, kc.bfloat16(), vc, False, 0.1, True)
     lc, dc = _cuda_looking(lse, lse[:, :32])

@@ -238,3 +238,165 @@ def test_kernel_wrapper_refuses_int8_without_scales_and_float_with():
             fargs[0], fargs[1], fargs[2], fargs[3], 1,
             k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
     assert kernels.launch_counts()["paged_attention_int8"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's arithmetic, emulated in PyTorch (csrc/paged_attention.cu)
+# ---------------------------------------------------------------------------
+# Sizes for the emulation: the kernel's pieces (256 positions) and tiles (64)
+# are scaled down with T so a lane's prefix crosses several of each.
+EMU_S, EMU_H, EMU_D, EMU_T = 4, 2, 16, 96
+EMU_PIECE, EMU_TILE = 32, 32
+# bf16 outputs held to chip_smoke.py's limits relative to their size (phase
+# 6): max |err| / max |ref| and rms(err) / rms(ref)
+BF16_MAX_REL, BF16_RMS_REL = 1e-2, 5e-4
+
+
+def _combine(m, l, acc):
+    """The split route's second kernel: pieces' (max, normaliser,
+    accumulator) along the last axis of m and l (and the second last of
+    acc), weighted by exp(m_p - M) in piece order (0 for a piece with no
+    live position, m = -inf)."""
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    return (w[..., None] * acc).sum(-2) / (w * l).sum(-1)[..., None]
+
+
+def _emulate(q, k, v, lens, layer, k_scale=None, v_scale=None, terms=2):
+    """The kernel's arithmetic on (S, C, H, D) q, in f32: S scaled by
+    k_scale per position (column) after q . code on int8 slabs; C <= 16
+    (the split route): fixed pieces of EMU_PIECE positions from 0, each a
+    softmax of its own (max m, normaliser l, accumulator), combined in
+    piece order with weights exp(m_p - M); C > 16 (the tensor-core route):
+    an online softmax over EMU_TILE-position tiles, P' = P v_scale folded
+    per position after l sums P, and P' entering P'.V as `terms` bf16
+    terms (hi + lo, or hi alone)."""
+    S, C, H, D = q.shape
+    T = k.shape[2]
+    quant = k_scale is not None
+    kk, vv = k[:S, layer].float(), v[:S, layer].float()   # codes on int8
+    ones = torch.ones(S, T)
+    ks = k_scale[:S, layer] if quant else ones
+    vs = v_scale[:S, layer] if quant else ones
+    s = torch.einsum("schd,sthd->shct", q.float(), kk) \
+        * ks[:, None, None, :] * (1.0 / D ** 0.5)
+    pos = torch.arange(T)
+    lim = torch.as_tensor(lens).long()[:, None] + torch.arange(C)[None]
+    live = (pos[None, None] <= lim[:, :, None])[:, None]     # (S, 1, C, T)
+    s = s.masked_fill(~live, float("-inf"))
+    if C <= 16:
+        n = -(-T // EMU_PIECE)
+        pad = n * EMU_PIECE - T
+        sp = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
+        sp = sp.reshape(S, H, C, n, EMU_PIECE)
+        m = sp.amax(-1)                                       # (S, H, C, n)
+        p = torch.exp(sp - m[..., None]).nan_to_num(0.0)      # empty: 0
+        l = p.sum(-1)
+        vsp = torch.nn.functional.pad(vs, (0, pad)).reshape(S, 1, 1, n,
+                                                            EMU_PIECE)
+        vvp = torch.nn.functional.pad(vv, (0, 0, 0, 0, 0, pad)).reshape(
+            S, n, EMU_PIECE, H, D)
+        acc = torch.einsum("shcnt,snthd->shcnd", p * vsp, vvp)
+        return _combine(m, l, acc).permute(0, 2, 1, 3)
+    m = torch.full((S, H, C), float("-inf"))
+    l = torch.zeros(S, H, C)
+    acc = torch.zeros(S, H, C, D)
+    for t0 in range(0, T, EMU_TILE):
+        st = s[..., t0:t0 + EMU_TILE]
+        m_new = torch.maximum(m, st.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        pp = p * vs[:, None, None, t0:t0 + EMU_TILE]
+        hi = pp.bfloat16().float()
+        pq = hi + (pp - hi).bfloat16().float() if terms == 2 else hi
+        acc = acc * alpha[..., None] + torch.einsum(
+            "shct,sthd->shcd", pq, vv[:, t0:t0 + EMU_TILE])
+        m = m_new
+    return (acc / l[..., None]).permute(0, 2, 1, 3)
+
+
+def _emu_inputs(C, kv, seed):
+    """bf16 q (the tensor-core route's operand), a bf16 slab or int8 codes
+    with per-position scales, ragged lengths with 0, T - C and prefixes
+    across several pieces."""
+    rng = np.random.RandomState(seed)
+    shape = (EMU_S + 1, L, EMU_T, EMU_H, EMU_D)
+    q = torch.from_numpy(rng.randn(EMU_S, C, EMU_H, EMU_D).astype(
+        np.float32)).bfloat16().float()
+    lens = np.array([0, 37, EMU_T - C, 70 - min(C, 40)], dtype=np.int32)
+    if kv == "int8":
+        k = torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
+        v = torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
+        ks = torch.from_numpy((rng.rand(*shape[:3]) * 0.02 + 0.002)
+                              .astype(np.float32))
+        vs = torch.from_numpy((rng.rand(*shape[:3]) * 0.02 + 0.002)
+                              .astype(np.float32))
+        return q, k, v, lens, dict(k_scale=ks, v_scale=vs)
+    k = torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16()
+    v = torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16()
+    return q, k, v, lens, {}
+
+
+def _jax_ref(q, k, v, lens, layer, sc):
+    """The JAX package's paged_attention_ref on the same values (bf16 slabs
+    handed over as the f32 values they hold)."""
+    jk, jv = ((jnp.asarray(x.numpy()) if x.dtype == torch.int8
+               else jnp.asarray(x.float().numpy())) for x in (k, v))
+    want = jfused.paged_attention_ref(
+        jnp.asarray(q.numpy()), jk, jv, jnp.asarray(lens), layer,
+        **{n: jnp.asarray(t.numpy()) for n, t in sc.items()})
+    return torch.from_numpy(np.array(want))
+
+
+def _rel(got, want):
+    d = got - want
+    return ((d.abs().max() / want.abs().max()).item(),
+            (d.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item())
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("C", [1, 4, 40])
+def test_kernel_arithmetic_emulated_matches_jax_reference(C, kv):
+    """C 1 and 4 (split: fixed pieces and their combine, f32 throughout)
+    agree with the JAX reference to f32 summation order (1e-5 absolute,
+    2e-5 relative and absolute on int8 slabs, whose values reach 2.5); C 40
+    (the tensor-core route: S scaled by k_scale per position, v_scale
+    folded into P after the normaliser, P' in two bf16 terms) to the bf16
+    limits chip_smoke.py holds the kernel's bf16 outputs to."""
+    q, k, v, lens, sc = _emu_inputs(C, kv, seed=100 + C)
+    assert kernels.paged_route(torch.bfloat16, k.dtype, EMU_D, C) == (
+        "split" if C <= 16 else "wgmma")
+    got = _emulate(q, k, v, lens, 1, **sc)
+    want = _jax_ref(q, k, v, lens, 1, sc)
+    if C <= 16:
+        tol = INT8_TOL if kv == "int8" else dict(rtol=0, atol=ATOL)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+    else:
+        max_rel, rms_rel = _rel(got, want)
+        assert max_rel <= BF16_MAX_REL and rms_rel <= BF16_RMS_REL / 10, \
+            (max_rel, rms_rel)
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_one_bf16_term_of_p_misses_the_rms_limit(kv):
+    """P' in one bf16 term parts from the f32 P by up to 2^-9 relative a
+    position, and the output then misses the 5e-4 rms limit: the reason the
+    tensor-core route keeps two terms (hi + lo)."""
+    q, k, v, lens, sc = _emu_inputs(40, kv, seed=140)
+    want = _jax_ref(q, k, v, lens, 1, sc)
+    one = _rel(_emulate(q, k, v, lens, 1, terms=1, **sc), want)[1]
+    two = _rel(_emulate(q, k, v, lens, 1, terms=2, **sc), want)[1]
+    assert one > BF16_RMS_REL > 10 * two, (one, two)
+
+
+def test_split_combine_of_one_piece_is_the_plain_quotient():
+    """A lane whose live prefix fits one piece: the later pieces ran with no
+    live position (m = -inf, l = 0, acc = 0), the combine's weights are
+    exp(0) = 1 and exp(-inf) = 0, and the output is that piece's acc / l
+    bit for bit."""
+    rng = np.random.RandomState(160)
+    m = torch.tensor([[1.25, float("-inf"), float("-inf")]])
+    l = torch.tensor([[float(rng.rand() * 30 + 1), 0.0, 0.0]])
+    acc = torch.zeros(1, 3, EMU_D)
+    acc[0, 0] = torch.from_numpy(rng.randn(EMU_D).astype(np.float32))
+    assert torch.equal(_combine(m, l, acc)[0], acc[0, 0] / l[0, 0])
