@@ -30,12 +30,22 @@ Each phase fails the run (non-zero exit) on any error:
   4. the training kernels against their plain versions on the card: the
      scale/shift/activation apply at every (rows, channels, activation,
      residual) shape ResNet-50 v1 gives it at batch 32 and 224x224, in
-     float32 and bfloat16, plus sigmoid, tanh, silu and gelu at one shape;
-     the NHWC average pool's forward and backward at the global 7x7 pool
-     of (32, 7, 7, 2048) and a 2x2 pool of (32, 56, 56, 256), in float32
-     and bfloat16; then each kernel's time against its bound, the plain
-     version's time and, where one PyTorch call computes the same
-     function, that call's time.
+     float32 and bfloat16, plus sigmoid, tanh, silu and gelu at one shape,
+     then each apply's time against its bound, the plain version's time
+     and, where one PyTorch call computes the same function, that call's
+     time; the NHWC average pool's forward and backward at the global 7x7
+     pool of (32, 7, 7, 2048) and a 2x2 pool of (32, 56, 56, 256), in
+     float32, bfloat16 and float16, each on the route `kernels.pool_route`
+     names: a float32 forward within 1e-5, a 16-bit one at most one step of
+     its type from the plain version in at most 0.1% of the elements, and
+     the limit must refuse three planted bfloat16 faults (a truncating
+     store, the divisor ph*pw - 1, a dropped window position); every
+     backward bit-equal. Each pass is timed cold (inputs rotated over
+     copies that with their outputs exceed 128 MB, past the 50 MB L2) and
+     warm (one input, as the main path finds it), beside the empty-launch
+     floor (`torch.cuda._sleep`), its bound, the plain version and the
+     library calls (F.avg_pool2d, and torch.mean for the global pool;
+     aten.avg_pool2d_backward).
   5. training at full width: `FusedTrainStep` over `resnet50_v1(layout=
      "NHWC")` (1000 classes, random weights from a seed), batch 32 of
      224x224 images made with numpy from a seed, bf16 AMP, SGD momentum
@@ -123,8 +133,11 @@ Each phase fails the run (non-zero exit) on any error:
      (head_dim 192 and 384) forward and gradients against the SDPA
      composition in float32;
      one fused `Dense(10, "relu")` float32 training step equal to the
-     unfused one; the NHWC pool at 12 channels and the apply at 10 float32
-     and 4 bfloat16 channels against their plain versions.
+     unfused one; the NHWC pool at 12 channels (float32, bfloat16 and
+     float16), over a 14x14 window, at 70000 x 5 x 5 and 4 x 4096 x 4096
+     (past the grid's 65535 rows) and over inputs off 16-byte alignment,
+     and the apply at 10 float32 and 4 bfloat16 channels, against their
+     plain versions.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
@@ -466,6 +479,9 @@ CHECK_LOSS_RTOL = 1e-3
 CHECK_UPDATE_RTOL = 0.4
 ACT_OPS = {None: 0, "relu": 1, "sigmoid": 4, "tanh": 4, "silu": 5,
            "gelu": 8}
+# ResNet-50's global pool and a 2x2 pool, (N, H, W, C) and window
+POOL_GLOBAL = ((BATCH, 7, 7, 2048), (7, 7))
+POOL_2X2 = ((BATCH, 56, 56, 256), (2, 2))
 
 
 def resnet50_apply_rows(batch, image):
@@ -566,55 +582,177 @@ def check_apply(m, c, act, residual, dtype, gen, dev, timed):
     return row
 
 
-def check_pool(shape, pool, dtype, gen, dev, timed):
+# phase 4's pool limits. Forward: float32 within KTOL; a bfloat16 or
+# float16 output at most one step of its type (one unit in the last place)
+# from the plain version's, in at most POOL_OFF_SHARE of the elements (both
+# sum in f32 and round once; two sums in other orders seldom straddle a
+# rounding point). Backward: bit-equal in every type (one multiply by
+# float32(1 / (ph*pw)) and one rounding on both sides).
+POOL_OFF_SHARE = 1e-3
+# a cold timing rotates over copies of the inputs, each output kept until
+# its copy comes round again, so that a call's inputs and outputs
+# together exceed this (the L2 cache holds 50 MB)
+COLD_BYTES = 128e6
+# the empty-launch floor: torch.cuda._sleep of this many cycles
+EMPTY_CYCLES = 1
+
+
+def _ordered(t):
+    """A 16-bit float tensor's values as int32 in value order (+0 and -0
+    both 0): neighbouring values of the type differ by one."""
+    i = t.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(i < 0, -(i & 0x7FFF), i)
+
+
+def pool_fwd_err(out, ref, dtype):
+    """(max abs error, ok, readings) of a pool forward against its plain
+    version, by the limits above; a 16-bit output is read as
+    {"max_steps", "share_off"} (steps of its type, share of elements that
+    differ)."""
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        rtol, atol = KTOL[dtype]
+        ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+        return diff.max().item(), ok, {}
+    steps = (_ordered(out) - _ordered(ref)).abs()
+    read = {"max_steps": int(steps.max()),
+            "share_off": float((steps > 0).float().mean())}
+    ok = bool(torch.isfinite(out.float()).all()) and \
+        read["max_steps"] <= 1 and read["share_off"] <= POOL_OFF_SHARE
+    return diff.max().item(), ok, read
+
+
+def pool_planted_faults(x, ph, pw):
+    """What three faulty bfloat16 forwards would write for x: a truncating
+    store of the right f32 mean, a divisor of ph*pw - 1, and a window that
+    drops its last position."""
+    n, h, w, c = x.shape
+    win = x.float().reshape(n, h // ph, ph, w // pw, pw, c)
+    total, k = win.sum(dim=(2, 4)), ph * pw
+    return {"truncating store": bf16_store_faults(total / k)[
+                "truncating store"],
+            "divisor ph*pw - 1": (total / (k - 1)).to(x.dtype),
+            "dropped window position": ((total - win[:, :, -1, :, -1]) / k)
+            .to(x.dtype)}
+
+
+def cold_ms(fn, inputs, reps=20):
+    """median_ms of fn over `inputs` in turn, each output kept until its
+    copy comes round again: neither is in L2 when the call starts. The
+    warm-up makes one round, so the caching allocator holds every output
+    block before the timed calls (a device allocation among them would
+    stall the queue)."""
+    turn = itertools.count()
+    keep = [None] * len(inputs)
+
+    def call(_):
+        j = next(turn) % len(inputs)
+        keep[j] = fn(inputs[j])
+    return median_ms(call, reps, warmup=len(inputs) + 1)
+
+
+def cold_copies(t, out_numel):
+    """Copies of t, enough that they and the outputs of a pass over them
+    exceed COLD_BYTES (at least 2)."""
+    nbytes = (t.numel() + out_numel) * t.element_size()
+    return [t.clone() for _ in range(max(2, -(-int(COLD_BYTES) // nbytes)))]
+
+
+def check_pool(shape, pool, dtype, gen, dev, timed, floor_ms=None,
+               offset=0):
+    """The pool's forward and backward against their plain versions (the
+    limits above; bfloat16 forwards must also refuse
+    `pool_planted_faults`), x read `offset` elements into its buffer (off
+    16-byte alignment: one channel a thread), and when `timed`, each pass
+    cold and warm against its bound, the plain version and the library
+    calls: for the forward F.avg_pool2d on the channels-last view and, for
+    the global pool, torch.mean over (1, 2) (the faster is the yardstick);
+    for the backward aten.avg_pool2d_backward."""
     n, h, w, c = shape
     ph, pw = pool
-    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    x = torch.randn(n * h * w * c + offset, generator=gen,
+                    device=dev).to(dtype)[offset:].view(shape)
     y = kernels.avg_pool2d_fwd_cuda(x, ph, pw)
     y_ref = fused.avg_pool2d_ref(x, (ph, pw))
     dy = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
     dx = kernels.avg_pool2d_bwd_cuda(dy, h, w, ph, pw)
     dx_ref = fused.avg_pool2d_bwd_ref(dy, h, w, ph, pw)
     torch.cuda.synchronize()
-    err_f, ok_f = _err_ok(y, y_ref, dtype)
-    err_b, ok_b = _err_ok(dx, dx_ref, dtype)
-    name = f"avg_pool2d {shape} pool {ph}x{pw} {_dtype_name(dtype)}"
-    log(f"[train kernels] {name}: forward max_abs_err {err_f:.3e}, "
-        f"backward {err_b:.3e}")
-    assert ok_f and ok_b, f"{name} disagrees with its plain version"
+    err_f, ok_f, read = pool_fwd_err(y, y_ref, dtype)
+    err_b = (dx.float() - dx_ref.float()).abs().max().item()
+    bit_equal = torch.equal(dx, dx_ref)
+    routes = [kernels.pool_route(ph, pw, c, dtype, a.data_ptr() % 16 == 0
+                                 and b.data_ptr() % 16 == 0)
+              for a, b in ((x, y), (dy, dx))]
+    name = f"avg_pool2d {shape} pool {ph}x{pw} {_dtype_name(dtype)}" + \
+        (f" at offset {offset}" if offset else "")
+    refused = {}
+    if dtype == torch.bfloat16:
+        refused = {fault: not pool_fwd_err(bad, y_ref, dtype)[1]
+                   for fault, bad in pool_planted_faults(x, ph, pw).items()}
+    log(f"[train kernels] {name} (routes, channels a thread: forward "
+        f"{routes[0]}, backward {routes[1]}): forward max_abs_err "
+        f"{err_f:.3e} {read}, backward {err_b:.3e} (bit-equal {bit_equal}); "
+        f"planted faults refused: {refused}")
+    assert ok_f, f"{name}: the forward disagrees with its plain version"
+    assert bit_equal, f"{name}: the backward is not bit-equal to its plain " \
+        f"version"
+    assert all(refused.values()), f"{name}: a planted fault passed {refused}"
     fwd = {"shape": list(shape), "pool": [ph, pw],
-           "dtype": _dtype_name(dtype), "max_abs_err": err_f}
-    bwd = dict(fwd, max_abs_err=err_b)
-    if timed:
-        item = x.element_size()
-        xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
-        F = torch.nn.functional
-        fwd["ms"] = median_ms(lambda i: kernels.avg_pool2d_fwd_cuda(
-            x, ph, pw), reps=20)
-        fwd["plain_ms"] = median_ms(lambda i: fused.avg_pool2d_ref(
-            x, (ph, pw)), reps=5, warmup=1)
-        fwd["library_ms"] = median_ms(lambda i: F.avg_pool2d(
-            xc, (ph, pw)), reps=20)
-        fwd["bound_ms"], fwd["bound_by"] = pool_bound(x.numel(), y.numel(),
-                                                      item)
-        aten_bwd = torch.ops.aten.avg_pool2d_backward
-        bwd["ms"] = median_ms(lambda i: kernels.avg_pool2d_bwd_cuda(
-            dy, h, w, ph, pw), reps=20)
-        bwd["plain_ms"] = median_ms(lambda i: fused.avg_pool2d_bwd_ref(
-            dy, h, w, ph, pw), reps=5, warmup=1)
-        bwd["library_ms"] = median_ms(lambda i: aten_bwd(
-            dyc, xc, [ph, pw], [ph, pw], [0, 0], False, True, None), reps=20)
-        bwd["bound_ms"], bwd["bound_by"] = pool_bound(dy.numel(), dx.numel(),
-                                                      item)
-        lib_err = (aten_bwd(dyc, xc, [ph, pw], [ph, pw], [0, 0], False, True,
-                            None).permute(0, 2, 3, 1).float()
-                   - dx_ref.float()).abs().max().item()
-        log(f"[train kernels] {name}: forward {fwd['ms']:.4f} ms (bound "
-            f"{fwd['bound_ms']:.4f}, plain {fwd['plain_ms']:.4f}, "
-            f"F.avg_pool2d {fwd['library_ms']:.4f}); backward "
-            f"{bwd['ms']:.4f} ms (bound {bwd['bound_ms']:.4f}, plain "
-            f"{bwd['plain_ms']:.4f}, aten avg_pool2d_backward "
-            f"{bwd['library_ms']:.4f}, its max_abs_err {lib_err:.2e})")
+           "dtype": _dtype_name(dtype), "kernel_route": routes[0][0],
+           "vec": routes[0][1], "max_abs_err": err_f, **read,
+           "planted_refused": refused}
+    bwd = {"shape": list(shape), "pool": [ph, pw],
+           "dtype": _dtype_name(dtype), "kernel_route": routes[1][0],
+           "vec": routes[1][1], "max_abs_err": err_b, "bit_equal": bit_equal}
+    if not timed:
+        return fwd, bwd
+    F = torch.nn.functional
+    aten_bwd = torch.ops.aten.avg_pool2d_backward
+    xs, dys = cold_copies(x, y.numel()), cold_copies(dy, dx.numel())
+    libs = {"F.avg_pool2d": lambda t: F.avg_pool2d(t.permute(0, 3, 1, 2),
+                                                   (ph, pw))}
+    if (ph, pw) == (h, w):
+        libs["torch.mean"] = lambda t: torch.mean(t, dim=(1, 2),
+                                                  keepdim=True)
+
+    def lib_bwd(t):
+        return aten_bwd(t.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+                        [ph, pw], [ph, pw], [0, 0], False, True, None)
+    for row, kernel, plain, cands, inputs, src, ref, out in (
+            (fwd, lambda t: kernels.avg_pool2d_fwd_cuda(t, ph, pw),
+             lambda t: fused.avg_pool2d_ref(t, (ph, pw)), libs, xs, x,
+             y_ref, y),
+            (bwd, lambda t: kernels.avg_pool2d_bwd_cuda(t, h, w, ph, pw),
+             lambda t: fused.avg_pool2d_bwd_ref(t, h, w, ph, pw),
+             {"aten.avg_pool2d_backward": lib_bwd}, dys, dy, dx_ref, dx)):
+        row["ms"] = cold_ms(kernel, inputs)
+        row["warm_ms"] = median_ms(lambda i: kernel(src), reps=20)
+        row["plain_ms"] = median_ms(lambda i: plain(src), reps=5, warmup=1)
+        row["bound_ms"], row["bound_by"] = pool_bound(
+            src.numel(), out.numel(), src.element_size())
+        row["floor_ms"] = floor_ms
+        row["libraries"] = {}
+        for lib, call in cands.items():
+            got = call(src) if lib == "torch.mean" \
+                else call(src).permute(0, 2, 3, 1)
+            row["libraries"][lib] = {
+                "ms": cold_ms(call, inputs),
+                "warm_ms": median_ms(lambda i: call(src), reps=20),
+                "max_abs_err": (got.float() - ref.float()).abs().max()
+                .item()}
+        row["library"] = min(row["libraries"],
+                             key=lambda k: row["libraries"][k]["ms"])
+        row["library_ms"] = row["libraries"][row["library"]]["ms"]
+        row["library_warm_ms"] = row["libraries"][row["library"]]["warm_ms"]
+    for tag, row in (("forward", fwd), ("backward", bwd)):
+        log(f"[train kernels] {name} {tag}: cold {row['ms']:.4f} ms, warm "
+            f"{row['warm_ms']:.4f} (bound {row['bound_ms']:.4f}, "
+            f"{100 * row['bound_ms'] / row['ms']:.0f}% of it cold; empty "
+            f"launch {floor_ms:.4f}; plain {row['plain_ms']:.4f}); library "
+            + ", ".join(f"{k} cold {v['ms']:.4f} warm {v['warm_ms']:.4f} "
+                        f"(max_abs_err {v['max_abs_err']:.2e})"
+                        for k, v in row["libraries"].items()))
     return fwd, bwd
 
 
@@ -634,13 +772,15 @@ def phase_train_kernels(dev):
         for act in ("sigmoid", "tanh", "silu", "gelu"):
             apply_rows.append(check_apply(25088, 512, act, True, dtype, gen,
                                           dev, False))
+    floor_ms = median_ms(lambda i: torch.cuda._sleep(EMPTY_CYCLES), reps=20)
+    log(f"[train kernels] empty-launch floor (torch.cuda._sleep("
+        f"{EMPTY_CYCLES}), timed as the kernels): {floor_ms:.4f} ms")
     pools = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for shape, pool in (((BATCH, 7, 7, 2048), (7, 7)),
-                            ((BATCH, 56, 56, 256), (2, 2))):
-            # the main path pools (32, 7, 7, 2048) in bf16: time that one
-            timed = dtype == torch.bfloat16 and pool == (7, 7)
-            pools.append(check_pool(shape, pool, dtype, gen, dev, timed))
+    # the main path pools (32, 7, 7, 2048) in bf16, the first row
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        for shape, pool in (POOL_GLOBAL, POOL_2X2):
+            pools.append(check_pool(shape, pool, dtype, gen, dev, True,
+                                    floor_ms))
     kernels.reset_launch_counts()   # comparison launches do not count
     return {"rows": rows, "apply": apply_rows, "pools": pools}
 
@@ -684,8 +824,8 @@ def record_apply_shapes(step, x, y):
 PROFILE_STEPS = 3
 # the training kernels' names as the profiler lists them
 KERNEL_SYMBOLS = {"scale_shift_act": "scale_shift_act_kernel",
-                  "avg_pool2d_fwd": "avg_pool_fwd_kernel",
-                  "avg_pool2d_bwd": "avg_pool_bwd_kernel"}
+                  "avg_pool2d_fwd": "mx_pool_fwd_",
+                  "avg_pool2d_bwd": "mx_pool_bwd_"}
 
 
 def profile_steps(step, batches, step_ms, symbols=KERNEL_SYMBOLS,
@@ -850,7 +990,7 @@ def train_entries(tk, train):
     per_step = {f: sum(key[row][f] for row in tk["rows"])
                 for f in ("ms", "plain_ms", "bound_ms")}
     stem = key[tk["rows"][0]]
-    fwd, bwd = next(p for p in tk["pools"] if "ms" in p[0])
+    fwd, bwd = tk["pools"][0]
     f32_err = max(r["max_abs_err"] for r in tk["apply"]
                   if r["dtype"] == "float32")
     share = (per_step["ms"] + fwd["ms"] + bwd["ms"]) / train["step_ms"]
@@ -875,8 +1015,12 @@ def train_entries(tk, train):
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
          "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
-         "shape": f"{fwd['shape']} pool {fwd['pool']} bfloat16 (library: "
-                  f"F.avg_pool2d)",
+         "warm_ms": fwd["warm_ms"], "floor_ms": fwd["floor_ms"],
+         "library_warm_ms": fwd["library_warm_ms"],
+         "kernel_route": fwd["kernel_route"],
+         "shape": f"{fwd['shape']} pool {fwd['pool']} bfloat16, cold (warm "
+                  f"in warm_ms; library: {fwd['library']}, the faster of "
+                  f"{sorted(fwd['libraries'])})",
          "variants": [p[0] for p in tk["pools"]]},
         {"name": "avg_pool2d_bwd", "route": "cuda",
          "source": "incubator_mxnet_tpu_torch/ops/csrc/avg_pool2d.cu",
@@ -885,8 +1029,11 @@ def train_entries(tk, train):
          "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
          "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
          "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
-         "shape": f"{bwd['shape']} pool {bwd['pool']} bfloat16 (library: "
-                  f"aten.avg_pool2d_backward)",
+         "warm_ms": bwd["warm_ms"], "floor_ms": bwd["floor_ms"],
+         "library_warm_ms": bwd["library_warm_ms"],
+         "kernel_route": bwd["kernel_route"],
+         "shape": f"{bwd['shape']} pool {bwd['pool']} bfloat16, cold (warm "
+                  f"in warm_ms; library: {bwd['library']})",
          "variants": [p[1] for p in tk["pools"]]},
     ]
     log(f"[train] the three training kernels take {per_step['ms']:.3f} + "
@@ -1962,6 +2109,19 @@ def cover_dense(dev):
             "weight_rel": rel}
 
 
+# pools off the flagship, as (shape, window, dtype, offset of x): float32
+# channels no multiple of 4 (one channel a thread), a window of more than
+# 64 positions (a slice of the window route loads it in more than one
+# batch), pixel counts past the grid's 65535 rows (the grid-stride loops of
+# both routes), inputs off 16-byte alignment (one channel a thread)
+COVER_POOLS = (((8, 14, 14, 10), (2, 2), torch.float32, 0),
+               ((4, 14, 14, 16), (14, 14), torch.bfloat16, 0),
+               ((70000, 5, 5, 8), (5, 5), torch.float32, 0),
+               ((4, 4096, 4096, 1), (2, 2), torch.bfloat16, 0),
+               ((8, 14, 14, 64), (2, 2), torch.bfloat16, 1),
+               ((8, 7, 7, 64), (7, 7), torch.float32, 1))
+
+
 def phase_coverage(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1971,12 +2131,17 @@ def phase_coverage(dev):
     mha = [cover_mha(dev, units) for units in (384, 768)]
     dense = cover_dense(dev)
     pools = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for shape, pool in (((8, 14, 14, 12), (2, 2)),
                             ((8, 7, 7, 12), (7, 7))):
             pools.append(_counted(
                 lambda: check_pool(shape, pool, dtype, gen, dev, False),
                 avg_pool2d_fwd=1, avg_pool2d_bwd=1))
+    for shape, pool, dtype, offset in COVER_POOLS:
+        pools.append(_counted(
+            lambda: check_pool(shape, pool, dtype, gen, dev, False,
+                               offset=offset),
+            avg_pool2d_fwd=1, avg_pool2d_bwd=1))
     applies = []
     for c, dtype in ((10, torch.float32), (4, torch.bfloat16)):
         for act, residual in ((None, False), ("relu", True),
@@ -2173,7 +2338,8 @@ def main():
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s,
-                       "build_each_s": built, "kernels": [entry] + entries,
+                       "build_each_s": built, "build_log": kernels.BUILD_LOG,
+                       "kernels": [entry] + entries,
                        "serve": result, "train": train, "bert": bert,
                        "engine": engine, "coverage": coverage}, f,
                       indent=1, default=str)

@@ -34,11 +34,11 @@ _TORCH = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def init(target_dtype="bfloat16"):
     """Activate autocast (as `amp.init` of the JAX package, with its
-    default op lists). bfloat16 only: no kernel of the port takes
-    float16 yet."""
+    default op lists). bfloat16 only: of the port's kernels only the pool
+    takes float16 yet."""
     if target_dtype != "bfloat16":
         raise MXNetError("target_dtype must be bfloat16 (the port's kernels "
-                         "take float32 and bfloat16)")
+                         "other than the pool take float32 and bfloat16)")
     _state["active"] = True
     _state["target_dtype"] = target_dtype
 

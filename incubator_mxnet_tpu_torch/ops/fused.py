@@ -457,7 +457,8 @@ def batch_norm(x, gamma, beta, running_mean, running_var, momentum=0.9,
 def avg_pool2d(x, pool_size, layout="NHWC"):
     """Non-overlapping (kernel == stride, no padding) NHWC average pool,
     GlobalAvgPool2D's shape included (pool_size = the spatial dims), whose
-    backward is the pooling-backward kernel on the card."""
+    backward is the pooling-backward kernel on the card; float32, bfloat16
+    and float16 reach the kernels."""
     ph, pw = (pool_size, pool_size) if isinstance(pool_size, int) \
         else tuple(pool_size)
     if layout != "NHWC" or x.ndim != 4:

@@ -36,7 +36,7 @@ from ..base import MXNetError
 __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
            "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "flash_fwd_cuda",
            "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "flash_fwd_route",
-           "flash_bwd_route", "paged_route",
+           "flash_bwd_route", "paged_route", "pool_route",
            "ACT_CODES", "RULES", "refusal",
            "reset_launch_counts", "launch_counts"]
 
@@ -212,11 +212,11 @@ def _load(name):
             elif name == "avg_pool2d":
                 lib.mx_avg_pool2d_fwd.restype = ctypes.c_int
                 lib.mx_avg_pool2d_fwd.argtypes = (
-                    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
                 lib.mx_avg_pool2d_bwd.restype = ctypes.c_int
                 lib.mx_avg_pool2d_bwd.argtypes = (
-                    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
                     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
             elif name == "flash_attention":
                 tail = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
@@ -248,6 +248,8 @@ def _load(name):
 ACT_CODES = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3, "silu": 4,
              "gelu": 5}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the pool alone takes float16 too (csrc/avg_pool2d.cu)
+_POOL_DTYPE_CODES = {**_DTYPE_CODES, torch.float16: 2}
 
 # Every shape rule the wrappers enforce, one row each: (kernel, kind, test,
 # message). Kind "jax": the JAX package refuses the shape too; no other kind
@@ -514,25 +516,53 @@ def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
     return out
 
 
+_POOL_ROUTES = {"window": 0, "per_output": 1}
+# the most window positions the per-output route takes
+# (csrc/avg_pool2d.cu: a thread issues them four loads at a time)
+POOL_PER_OUTPUT_MAX = 16
+
+
+def pool_route(ph, pw, c, dtype, aligned):
+    """(route, vector) of both pooling passes of `csrc/avg_pool2d.cu` for a
+    (ph, pw) window over c channels of `dtype`, from those values alone:
+    "window" for windows of more than 16 positions (the global pool: a
+    window split over 16 threads a word, summed in a fixed order, so
+    enough loads are in flight although the output has few pixels),
+    "per_output" for the rest (one thread an output word; the pixels fill
+    the card). The vector is the channels of one 16-byte word a
+    thread (8 in bfloat16 and float16, 4 in float32) where c is a multiple
+    of it and both buffers are 16-byte `aligned`, else 1. The spatial dims
+    and the batch do not enter."""
+    route = "window" if ph * pw > POOL_PER_OUTPUT_MAX else "per_output"
+    word = 16 // torch.empty((), dtype=dtype).element_size()
+    return route, word if c % word == 0 and aligned else 1
+
+
 def _pool_check(name, t, ph, pw, spatial=None):
     """Checks of an NHWC pooling operand; `spatial` is the (h, w) pooled
     over (the forward's own, or the backward's dX)."""
     _check_cuda(name, (t,))
-    if t.dim() != 4 or t.dtype not in _DTYPE_CODES:
-        raise MXNetError(f"{name}: takes a 4-D NHWC float32 or bfloat16 "
-                         f"tensor; got {tuple(t.shape)} {t.dtype}")
+    if t.dim() != 4 or t.dtype not in _POOL_DTYPE_CODES:
+        raise MXNetError(f"{name}: takes a 4-D NHWC float32, bfloat16 or "
+                         f"float16 tensor; got {tuple(t.shape)} {t.dtype}")
     if not t.is_contiguous():
         raise MXNetError(f"{name}: the NHWC tensor must be contiguous")
     h, w = t.shape[1:3] if spatial is None else spatial
     _refuse(name, "avg_pool2d", h=h, w=w, ph=ph, pw=pw)
 
 
+def _pool_args(src, dst, c, ph, pw):
+    """(dtype code, route code, vector) of a pooling launch."""
+    route, vec = pool_route(ph, pw, c, src.dtype, src.data_ptr() % 16 == 0
+                            and dst.data_ptr() % 16 == 0)
+    return _POOL_DTYPE_CODES[src.dtype], _POOL_ROUTES[route], vec
+
+
 def avg_pool2d_fwd_cuda(x, ph, pw):
     """Launch the pooling forward (`csrc/avg_pool2d.cu`): the mean over
-    each non-overlapping (ph, pw) window of a contiguous NHWC tensor,
-    f32 inside, in x's dtype. Any channel count: 8-channel vectors when C
-    is a multiple of 8 and both buffers are 16-byte aligned, one channel a
-    thread otherwise."""
+    each non-overlapping (ph, pw) window of a contiguous NHWC float32,
+    bfloat16 or float16 tensor, f32 inside, in x's dtype, on the route
+    `pool_route` names. Any channel count."""
     global avg_pool2d_fwd_launches
     name = "avg_pool2d_fwd_cuda"
     _pool_check(name, x, ph, pw)
@@ -542,9 +572,9 @@ def avg_pool2d_fwd_cuda(x, ph, pw):
         return y
     lib = _load("avg_pool2d")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.mx_avg_pool2d_fwd(_DTYPE_CODES[x.dtype], x.device.index or 0,
-                               x.data_ptr(), y.data_ptr(), n, h, w, c, ph,
-                               pw, stream)
+    rc = lib.mx_avg_pool2d_fwd(*_pool_args(x, y, c, ph, pw),
+                               x.device.index or 0, x.data_ptr(),
+                               y.data_ptr(), n, h, w, c, ph, pw, stream)
     if rc != 0:
         raise _launch_failed(lib, "avg_pool2d_fwd", rc)
     avg_pool2d_fwd_launches += 1
@@ -554,8 +584,8 @@ def avg_pool2d_fwd_cuda(x, ph, pw):
 def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
     """Launch the pooling backward (`csrc/avg_pool2d.cu`): dX (N, h, w, C)
     from a contiguous NHWC dY (N, h/ph, w/pw, C), each dY value times
-    1/(ph*pw) broadcast over its window, in dy's dtype; any channel
-    count, as the forward."""
+    1/(ph*pw) broadcast over its window, in dy's dtype; the forward's
+    types, routes and channel counts."""
     global avg_pool2d_bwd_launches
     name = "avg_pool2d_bwd_cuda"
     _pool_check(name, dy, ph, pw, (h, w))
@@ -569,9 +599,10 @@ def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
     lib = _load("avg_pool2d")
     stream = torch.cuda.current_stream(dy.device).cuda_stream
     inv = float(torch.tensor(1.0 / (ph * pw), dtype=torch.float32))
-    rc = lib.mx_avg_pool2d_bwd(_DTYPE_CODES[dy.dtype], dy.device.index or 0,
-                               dy.data_ptr(), dx.data_ptr(), n, h, w, c, ph,
-                               pw, inv, stream)
+    rc = lib.mx_avg_pool2d_bwd(*_pool_args(dy, dx, c, ph, pw),
+                               dy.device.index or 0, dy.data_ptr(),
+                               dx.data_ptr(), n, h, w, c, ph, pw, inv,
+                               stream)
     if rc != 0:
         raise _launch_failed(lib, "avg_pool2d_bwd", rc)
     avg_pool2d_bwd_launches += 1
