@@ -11,8 +11,8 @@ Each phase fails the run (non-zero exit) on any error:
      port is built from `incubator_mxnet_tpu_torch/ops/csrc` (one `nvcc`
      per source, all started together; timed).
   2. paged attention against its plain version on the card at the serving
-     shapes (16 lanes, 12 heads x 64, 2048 positions, 12 layers), float32
-     and bfloat16, one query (decode), 4 (the speculative verify) and 256
+     shapes (16 lanes, 12 heads x 64, 2048 positions, 12 layers), float32,
+     bfloat16 and float16, one query (decode), 4 (the speculative verify) and 256
      (chunk prefill), ragged lengths, and a slab view cut on the position
      axis that must read bit-equal to the full slab; every read must go to
      the route `kernels.paged_route` names (split, wgmma, cuda_cores: the
@@ -30,10 +30,12 @@ Each phase fails the run (non-zero exit) on any error:
   4. the training kernels against their plain versions on the card: the
      scale/shift/activation apply at every (rows, channels, activation,
      residual) shape ResNet-50 v1 gives it at batch 32 and 224x224, in
-     float32 and bfloat16, plus sigmoid, tanh, silu and gelu at one shape,
-     then each apply's time against its bound, the plain version's time
-     and, where one PyTorch call computes the same function, that call's
-     time; the NHWC average pool's forward and backward at the global 7x7
+     float32, bfloat16 and float16 (a 16-bit output within one step of its
+     type of the plain version's), plus sigmoid, tanh, silu and gelu at one
+     shape, then each float32 apply's and the float16 stem apply's time
+     against its bound, the plain version's time and, where one PyTorch
+     call computes the same function (torch.addcmul in the type), that
+     call's time; the NHWC average pool's forward and backward at the global 7x7
      pool of (32, 7, 7, 2048) and a 2x2 pool of (32, 56, 56, 256), in
      float32, bfloat16 and float16, each on the route `kernels.pool_route`
      names: a float32 forward within 1e-5, a 16-bit one at most one step of
@@ -60,7 +62,11 @@ Each phase fails the run (non-zero exit) on any error:
   6. the flash-attention kernels (B5 forward, B6 forward + log-sum-exp,
      B7 dq sweep, B8 dk/dv sweep) against their plain versions on the
      card at the BERT path's shape (bh 192 = 16 x 12 heads, T 512, d 64)
-     in bfloat16 and float32, causal and not, plus Tq != Tk causal (rows
+     in bfloat16 and float32 (and float16 on the CUDA cores, timed there
+     and at the causal (48, 2048, 128) shape, its limits bfloat16's scaled
+     to its step, 2^-11 against 2^-8, and the planted store faults refused
+     in float16 too, plus a ragged T = 500 and d = 384), causal and not,
+     plus Tq != Tk causal (rows
      that see no key), a ragged T = 500, head dims 12 (the CUDA-core
      kernels in bf16 too), 32, 40, 96 and 128, 136, 192 and 256 (the
      capacity-256 instances, causal and not, ragged T = 300), and bh 65600
@@ -96,18 +102,19 @@ Each phase fails the run (non-zero exit) on any error:
   8. B4's int8 variant and mixed types against the plain version on the
      card at phase 9's shapes (16 lanes over 21 pool rows, 12 layers, 12
      heads x 64, 2048 positions, a non-zero layer, ragged lengths with 0
-     and T - C): q float32 and bfloat16 over int8 (codes and scales from
-     the engine's quantizer), bfloat16 and float32 slabs, C in (1, 4 =
+     and T - C): q float32, bfloat16 and float16 over int8 (codes and
+     scales from the engine's quantizer), bfloat16, float16 and float32
+     slabs, C in (1, 4 =
      the speculative verify at draft 3, 256 = the chunk), each also on a
      slab and scale view cut on the position axis; float32 outputs within
-     phase 2's limit, bfloat16 ones within phase 6's limits relative to
+     phase 2's limit, 16-bit ones within phase 6's limits relative to
      their size; every read on its route, extent views bit-equal. The
      check must refuse two planted faults each run: the kernel fed scales
      one position off, and what a wrong combine of the split pieces would
      give, a lane whose prefix crosses piece boundaries read one position
-     long. Then, for bf16 q over int8 at
+     long. Then, for bf16 and float16 q over int8 at
      each C, the kernel's time against its bound, the plain version's
-     time and SDPA's over the prefix dequantized to bf16 beforehand.
+     time and SDPA's over the prefix dequantized to q's type beforehand.
   9. the full decode engine at full width: phase 3's model in bfloat16
      behind `ContinuousEngine(kv_dtype="int8", draft_tokens=3,
      prefix_cache_slots=4, prefix_block=64, max_slots=16,
@@ -133,15 +140,42 @@ Each phase fails the run (non-zero exit) on any error:
      (head_dim 192 and 384) forward and gradients against the SDPA
      composition in float32;
      one fused `Dense(10, "relu")` float32 training step equal to the
-     unfused one; the NHWC pool at 12 channels (float32, bfloat16 and
+     unfused one, and one under float16 AMP (the apply's float16 instance)
+     within 2^-9; a float16 engine (`DecoderConfig(max_len=64,
+     dtype="float16")`, a float16 pool on the card) answering every
+     request with every read on the kernel in float16; the NHWC pool at 12 channels (float32, bfloat16 and
      float16), over a 14x14 window, at 70000 x 5 x 5 and 4 x 4096 x 4096
      (past the grid's 65535 rows) and over inputs off 16-byte alignment,
      and the apply at 10 float32 and 4 bfloat16 channels, against their
      plain versions.
+ 11. the imperative Gluon loop at full width, each step `with
+     autograd.record(): loss = L(net(x), y)`, `autograd.backward(loss)`,
+     `trainer.step(batch)`, 2 warm-up and 10 timed steps, ms a step and
+     tokens or images a second: (a) phase 7's BERT-base built without the
+     final LayerNorm's and the head's widths (resolved at the first
+     forward), bf16 AMP, batch 16 x 512, `Trainer(..., "lamb", lr 1e-4,
+     wd 0.01, epsilon 1e-6, PolyScheduler(max_update 12, pwr 1, warmup
+     4))` with wd_mult 0 on beta, gamma and bias: finite losses, exactly
+     12 B6, 12 B7 and 12 B8 launches a step on the tensor cores, the
+     trainer's learning rate the scheduler's at every step; (b) ResNet-50
+     v1 NHWC, batch 32, bf16 AMP, `fused.set_fusion_default(True)`, NAG
+     momentum 0.9, wd 1e-4, lr 0.1 x 32 / 256 with a warmed-up
+     CosineScheduler: exactly 53, 1 and 1 launches a step; (c) (a)'s model
+     and batch under float16 AMP (`amp.init_trainer`, `amp.scale_loss`,
+     `amp.step_with_overflow_check`), 2 + 3 steps, every flash launch on
+     the float16 CUDA-core kernels, one inference forward (12 float16 B5),
+     then a step with an inf planted in one gradient, which must leave
+     every weight bit-equal and halve the scale; (d) float32, TF32 off,
+     dropout 0, 2 layers at full width, batch 4: two Trainer-loop Adam
+     steps against two FusedTrainStep Adam steps, and grad_req "add" over
+     two half-batches against "write" over the batch (SGD with momentum),
+     held as phase 7 holds flash against SDPA.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
-backward sweep, and one for each route of the paged kernel), and
+backward sweep, one for each route of the paged kernel, and one for each
+kernel's float16 instances, their launches from the path that runs them
+in float16), and
 `{"ok": true, "device": {...}}`. Without a
 card the script exits non-zero and prints no result. It imports nothing of
 JAX. Its run time on the card is in the root `PERF.md`.
@@ -157,16 +191,22 @@ import time
 import numpy as np
 import torch
 
-from incubator_mxnet_tpu_torch import amp, gluon, optimizer, serve
+from incubator_mxnet_tpu_torch import (amp, autograd, gluon, lr_scheduler,
+                                       optimizer, serve)
 from incubator_mxnet_tpu_torch.gluon.contrib import FusedTrainStep
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 from incubator_mxnet_tpu_torch.ops import attention, fused, kernels
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12,         # f32 outside the tensor cores
-            torch.bfloat16: 989e12}       # dense bf16 tensor cores
+            torch.bfloat16: 989e12,       # dense bf16 tensor cores
+            torch.float16: 989e12}        # fp16 counts bf16's peak
+# a 16-bit type's step (unit in the last place, relative): every 16-bit
+# limit below is bfloat16's scaled by STEP16[t] / STEP16[bfloat16]
+STEP16 = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 TOL = {torch.float32: 1e-4,               # f32 sums in another order
-       torch.bfloat16: 2e-2}              # bf16 output rounding dominates
+       torch.bfloat16: 2e-2,              # bf16 output rounding dominates
+       torch.float16: 2e-2 / 8}
 FULL = dict(vocab=32000, embed=768, layers=12, heads=12, head_dim=64,
             mlp_hidden=3072, max_len=2048)
 SLOTS, WINDOW, DECODE_STEPS, NEW_TOKENS = 16, 256, 4, 64
@@ -289,7 +329,7 @@ def phase_kernels(dev):
     lens = torch.as_tensor(lens_np, device=dev)
     layer = 5
     variants = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         k_slab, v_slab = k32.to(dtype), v32.to(dtype)
         for C in PAGED_CS:
             q = torch.randn((S, C, H, D), generator=gen, device=dev).to(dtype)
@@ -317,8 +357,8 @@ def phase_kernels(dev):
             log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} "
                 f"{read} (view {err_v:.3e} {read_v}, view == full: {same}) "
                 f"tol {TOL[dtype]:.0e}")
-            # phase 2's absolute limit, and for bf16 also phase 6's limits
-            # relative to the output's size
+            # phase 2's absolute limit, and for 16-bit types also phase
+            # 6's limits relative to the output's size
             assert err <= TOL[dtype] and err_v <= TOL[dtype] and ok \
                 and ok_v, \
                 f"paged_attention {name} disagrees with its plain version"
@@ -461,7 +501,8 @@ TRAIN_WARMUP, TRAIN_STEPS, CHECK_BATCH, CHECK_STEPS = 2, 10, 8, 2
 ELEMENTWISE_OPS_PER_S = PEAK_OPS[torch.float32]
 # kernel against plain version: f32 differs only where a transcendental
 # rounds differently; bf16 may part by one output rounding step
-KTOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+KTOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2),
+        torch.float16: (1e-2 / 8, 1e-2 / 8)}
 # fused against unfused float32 training (TF32 off, deterministic cuDNN):
 # a random-init ResNet-50 in training mode is ill-conditioned (the two
 # paths' BN applies round differently, and 53 batch-statistic BN layers
@@ -569,11 +610,14 @@ def check_apply(m, c, act, residual, dtype, gen, dev, timed):
         row["bound_ms"], row["bound_by"] = apply_bound(m, c, act, residual,
                                                        dtype)
         row["library_ms"] = None
-        if act is None and not residual and dtype == torch.float32:
-            lib = torch.addcmul(shift, x, scale)
-            row["library_max_abs_err"] = (lib - ref).abs().max().item()
+        if act is None and not residual and dtype != torch.bfloat16:
+            # the rows in x's type beforehand, so the call's output is too
+            sh, sc = shift.to(dtype), scale.to(dtype)
+            lib = torch.addcmul(sh, x, sc)
+            row["library_max_abs_err"] = (lib.float() - ref.float()).abs() \
+                .max().item()
             row["library_ms"] = median_ms(
-                lambda i: torch.addcmul(shift, x, scale), reps=20)
+                lambda i: torch.addcmul(sh, x, sc), reps=20)
     log(f"[train kernels] {name}: max_abs_err {err:.3e} "
         + (f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, plain "
            f"{row['plain_ms']:.4f} ms, library {row['library_ms']})"
@@ -629,7 +673,7 @@ def pool_planted_faults(x, ph, pw):
     n, h, w, c = x.shape
     win = x.float().reshape(n, h // ph, ph, w // pw, pw, c)
     total, k = win.sum(dim=(2, 4)), ph * pw
-    return {"truncating store": bf16_store_faults(total / k)[
+    return {"truncating store": store_faults16(total / k)[
                 "truncating store"],
             "divisor ph*pw - 1": (total / (k - 1)).to(x.dtype),
             "dropped window position": ((total - win[:, :, -1, :, -1]) / k)
@@ -763,12 +807,16 @@ def phase_train_kernels(dev):
     distinct = sorted(set(rows), key=lambda r: (-r[0], r[1], str(r[2]),
                                                 r[3]))
     apply_rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for m, c, act, residual in distinct:
             # the main path runs the apply in float32 (the JAX package's
-            # AMP class for batch norm): time those shapes
-            apply_rows.append(check_apply(m, c, act, residual, dtype, gen,
-                                          dev, dtype == torch.float32))
+            # AMP class for batch norm): time those shapes; float16 at the
+            # stem shape
+            apply_rows.append(check_apply(
+                m, c, act, residual, dtype, gen, dev,
+                dtype == torch.float32 or (dtype == torch.float16
+                                           and (m, c, act, residual)
+                                           == rows[0])))
         for act in ("sigmoid", "tanh", "silu", "gelu"):
             apply_rows.append(check_apply(25088, 512, act, True, dtype, gen,
                                           dev, False))
@@ -921,14 +969,20 @@ def phase_train(card, kernel_rows, profile, dev):
             "warmup_s": warm_s, "f32_check": check, "profile": prof}
 
 
+def _value(v):
+    """A `gluon.Parameter`'s tensor, or the tensor itself."""
+    return v.data() if isinstance(v, gluon.Parameter) else v
+
+
 def update_parting(init, a, b):
     """{name: |dA - dB| / |dB|} with dA = a[name] - init[name] and dB the
     same for b: how far one run's update of each value parts from
     another's, relative to the update itself."""
     rel = {}
     for name, w0 in init.items():
-        ua = a[name].double() - w0.double()
-        ub = b[name].double() - w0.double()
+        w0, wa, wb = (_value(v) for v in (w0, a[name], b[name]))
+        ua = wa.double() - w0.double()
+        ub = wb.double() - w0.double()
         norm = ub.norm().item()
         diff = (ua - ub).norm().item()
         rel[name] = diff / norm if norm > 0 else (0.0 if diff == 0 else
@@ -985,7 +1039,7 @@ def train_f32_check(dev):
 
 def train_entries(tk, train):
     """The kernels' JSON entries for the training path."""
-    timed = [r for r in tk["apply"] if "ms" in r]
+    timed = [r for r in tk["apply"] if "ms" in r and r["dtype"] == "float32"]
     key = {(r["M"], r["C"], r["act"], r["residual"]): r for r in timed}
     per_step = {f: sum(key[row][f] for row in tk["rows"])
                 for f in ("ms", "plain_ms", "bound_ms")}
@@ -1073,6 +1127,8 @@ FLASH_HUGE = [(8, 300, 300, 264, True), (8, 300, 300, 264, False),
               (8, 256, 256, 384, False), (8, 300, 260, 384, True),
               (8, 300, 300, 512, True), (8, 256, 256, 512, False)]
 FLASH_HUGE_TIMED = (8, 256, 256, 384, False)
+# float16's further shapes: a ragged T and a head dim over 256
+FLASH_F16_EXTRA = [(24, 500, 500, 64, True), (8, 300, 260, 384, True)]
 # the second timed shape: a long causal sequence at the widest head dim the
 # tensor cores take
 FLASH_LONG = (48, 2048, 2048, 128, True)
@@ -1132,11 +1188,18 @@ FLASH_BF16_MAX_TOL = 1e-2
 FLASH_BF16_RMS_TOL = 5e-4
 
 
+def limits16(dtype):
+    """(max_rel, rms_rel) limits of a 16-bit output: bfloat16's above,
+    scaled to the type's step (float16: 2^-11 against 2^-8)."""
+    f = STEP16[dtype] / STEP16[torch.bfloat16]
+    return FLASH_BF16_MAX_TOL * f, FLASH_BF16_RMS_TOL * f
+
+
 def _flash_err(out, ref, dtype):
     """(max abs error, ok, readings): float32 outputs must lie within
-    TOL[float32] x (1 + |ref|) everywhere; bfloat16 ones within the two
-    limits above, read as {"max_rel", "rms_rel"}. The plain version's
-    output must not be all zero."""
+    TOL[float32] x (1 + |ref|) everywhere; 16-bit ones within the two
+    limits of `limits16`, read as {"max_rel", "rms_rel"}. The plain
+    version's output must not be all zero."""
     o, r = out.float(), ref.float()
     diff = (o - r).abs()
     nonzero = bool(r.abs().max() > 0)
@@ -1146,28 +1209,38 @@ def _flash_err(out, ref, dtype):
     read = {"max_rel": (diff.max() / r.abs().max()).item(),
             "rms_rel": (diff.square().mean().sqrt()
                         / r.square().mean().sqrt()).item()}
-    ok = read["max_rel"] <= FLASH_BF16_MAX_TOL and \
-        read["rms_rel"] <= FLASH_BF16_RMS_TOL
+    max_tol, rms_tol = limits16(dtype)
+    ok = read["max_rel"] <= max_tol and read["rms_rel"] <= rms_tol
     return diff.max().item(), ok and nonzero, read
 
 
-def bf16_store_faults(out32):
-    """What two faulty bf16 stores would write from float32 values: one
-    that truncates (drops the low 16 bits) and one that swaps each pair of
-    neighbours."""
-    trunc = (out32.contiguous().view(torch.int32) & -65536).view(
-        torch.float32).to(torch.bfloat16)
-    swapped = out32.to(torch.bfloat16).reshape(-1, 2).flip(-1).reshape(
-        out32.shape)
+def store_faults16(out32, dtype=torch.bfloat16):
+    """What two faulty 16-bit stores would write from float32 values: one
+    that truncates (rounds toward zero: for bfloat16 the low 16 bits
+    dropped) and one that swaps each pair of neighbours."""
+    if dtype == torch.bfloat16:
+        trunc = (out32.contiguous().view(torch.int32) & -65536).view(
+            torch.float32).to(torch.bfloat16)
+    else:
+        # rounded to nearest, then one step toward zero where that rounded
+        # away from zero (the raw bits of a 16-bit float order by size)
+        near = out32.to(dtype)
+        away = near.float().abs() > out32.abs()
+        trunc = torch.where(away, (near.view(torch.int16) - 1).view(dtype),
+                            near)
+    swapped = out32.to(dtype).reshape(-1, 2).flip(-1).reshape(out32.shape)
     return {"truncating store": trunc, "swapped pair": swapped}
 
 
 def flash_planted_faults(bwd_args, refs):
-    """The bf16 limits against planted store faults: each kernel's float32
-    instance on the same (bf16-valued) inputs gives the values the bf16
-    instance rounds, `bf16_store_faults` writes them as a faulty store
-    would, and the check must refuse every one. Returns the readings."""
+    """The 16-bit limits against planted store faults: each kernel's
+    float32 instance on the same (16-bit-valued) inputs gives the values
+    the 16-bit instance rounds, `store_faults16` writes them as a faulty
+    store would, and the check must refuse every one. Returns the
+    readings."""
     q, k, v, do, lse, delta, causal, scale = bwd_args
+    dtype = q.dtype
+    max_tol, rms_tol = limits16(dtype)
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
     args32 = (q32, k32, v32, do32, lse, delta, causal, scale)
     dk32, dv32 = kernels.flash_bwd_dkv_cuda(*args32)
@@ -1177,12 +1250,12 @@ def flash_planted_faults(bwd_args, refs):
              "dv": dv32}
     readings = {}
     for name, x32 in out32.items():
-        for fault, bad in bf16_store_faults(x32).items():
-            _, ok, read = _flash_err(bad, refs[name], torch.bfloat16)
+        for fault, bad in store_faults16(x32, dtype).items():
+            _, ok, read = _flash_err(bad, refs[name], dtype)
             readings[f"{name}, {fault}"] = read
-            assert not ok, f"the bf16 check passes a {fault} of {name}"
-    log("[flash kernels] planted bf16 store faults (must fail: max_rel > "
-        f"{FLASH_BF16_MAX_TOL} or rms_rel > {FLASH_BF16_RMS_TOL}): "
+            assert not ok, f"the 16-bit check passes a {fault} of {name}"
+    log(f"[flash kernels] planted {_dtype_name(dtype)} store faults (must "
+        f"fail: max_rel > {max_tol:.3e} or rms_rel > {rms_tol:.3e}): "
         + "; ".join(f"{n} max_rel {r['max_rel']:.3e} rms_rel "
                     f"{r['rms_rel']:.3e}" for n, r in readings.items()))
     return readings
@@ -1229,7 +1302,7 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed, faults=True):
     case = {"bh": bh, "tq": tq, "tk": tk, "d": d, "causal": causal,
             "dtype": _dtype_name(dtype)}
     tol = ({"elementwise": TOL[dtype]} if dtype == torch.float32 else
-           {"max_rel": FLASH_BF16_MAX_TOL, "rms_rel": FLASH_BF16_RMS_TOL})
+           dict(zip(("max_rel", "rms_rel"), limits16(dtype))))
     rows = {n: dict(case, max_abs_err=max(e for e, _, _ in c.values()),
                     tol=tol, readings={o: r for o, (_, _, r) in c.items()
                                        if r})
@@ -1241,11 +1314,10 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed, faults=True):
     if dtype == torch.float32:
         how = f"tol {TOL[dtype]:.0e} x (1 + |ref|)"
     else:
-        how = "bf16 " + ", ".join(
+        how = f"{_dtype_name(dtype)} " + ", ".join(
             f"{o} max_rel {r['max_rel']:.3e} rms_rel {r['rms_rel']:.3e}"
             for o, r in ((o, c[o][2]) for c in checks.values() for o in c)
-            if r) + f" (tol {FLASH_BF16_MAX_TOL:.0e} / " \
-            f"{FLASH_BF16_RMS_TOL:.0e})"
+            if r) + " (tol {:.2e} / {:.2e})".format(*limits16(dtype))
     log(f"[flash kernels] {case} forward and backward on "
         f"{route['flash_fwd']}: max_abs_err "
         + ", ".join(f"{n} {r['max_abs_err']:.3e}" for n, r in rows.items())
@@ -1270,6 +1342,7 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed, faults=True):
             planted[f"{name}, swapped pair of the kernel's own output"] = \
                 swapped_own(name, own, ref)
         rows["flash_fwd"]["planted"] = planted
+    if timed and faults and dtype == torch.bfloat16:
         rows["flash_fwd"]["one_term_p"] = one_term_reading(q, k, v, causal,
                                                            scale, o_ref)
         rows["flash_bwd_dq"]["one_term"] = bwd_term_readings(
@@ -1278,15 +1351,15 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed, faults=True):
 
 
 def swapped_own(name, out, ref):
-    """The bf16 limits against a kernel's own output `name` with each pair
-    of neighbours swapped (a store that writes a pair the wrong way round):
-    must be refused."""
+    """The 16-bit limits against a kernel's own output `name` with each
+    pair of neighbours swapped (a store that writes a pair the wrong way
+    round): must be refused."""
     bad = out.reshape(-1, 2).flip(-1).reshape(out.shape)
     _, ok, read = _flash_err(bad, ref, out.dtype)
     log(f"[flash kernels] planted fault, the kernel's own {name} with pairs "
         f"swapped: max_rel {read['max_rel']:.3e} rms_rel "
         f"{read['rms_rel']:.3e}")
-    assert not ok, f"the bf16 check passes a swapped pair of {name}"
+    assert not ok, f"the 16-bit check passes a swapped pair of {name}"
     return read
 
 
@@ -1412,6 +1485,14 @@ def phase_flash_kernels(dev):
                                         faults=False))
         variants.append(check_flash(*FLASH_LONG, dtype, gen, dev,
                                     dtype == torch.bfloat16))
+    # float16, on the CUDA cores: the path's shape and the causal long one,
+    # timed, with the planted store faults; a ragged T and a head dim over
+    # 256
+    f16 = torch.float16
+    variants.append(check_flash(bh, t, t, d, False, f16, gen, dev, True))
+    variants.append(check_flash(*FLASH_LONG, f16, gen, dev, True))
+    for shape in FLASH_F16_EXTRA:
+        variants.append(check_flash(*shape, f16, gen, dev, False))
     kernels.reset_launch_counts()   # comparison launches do not count
     return variants
 
@@ -1445,10 +1526,13 @@ class BertEncoderLM(gluon.HybridBlock):
     GELU, flash attention), a final LayerNorm (the block's epsilon, 1e-5)
     and a dense head over the vocabulary at every position."""
 
-    def __init__(self, layers, use_flash, dropout, cfg=BERT):
+    def __init__(self, layers, use_flash, dropout, cfg=BERT, deferred=False):
         super().__init__()
         nn = gluon.nn
         u = cfg["units"]
+        # deferred: the final LayerNorm and the head take their width from
+        # the first input (no in_channels / in_units)
+        width = 0 if deferred else u
         self.emb = nn.Embedding(cfg["vocab"], u)
         self.pos = nn.PositionalEmbedding(cfg["max_len"], u)
         self.cells = nn.HybridSequential(*[
@@ -1456,8 +1540,8 @@ class BertEncoderLM(gluon.HybridBlock):
                                       dropout=dropout, activation="gelu",
                                       use_flash=use_flash)
             for _ in range(layers)])
-        self.ln = nn.LayerNorm(in_channels=u)
-        self.head = nn.Dense(cfg["vocab"], flatten=False, in_units=u)
+        self.ln = nn.LayerNorm(in_channels=width)
+        self.head = nn.Dense(cfg["vocab"], flatten=False, in_units=width)
 
     def forward(self, x):
         return self.head(self.ln(self.cells(self.pos(self.emb(x)))))
@@ -1488,7 +1572,8 @@ def phase_bert(card, profile, dev):
             device=dev, seed=0)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        n_weights = sum(t.numel() for t in net.collect_params().values())
+        n_weights = sum(p.data().numel()
+                        for p in net.collect_params().values())
         step = bert_step(net, optimizer.create("adam",
                                                learning_rate=BERT_LR))
         torch.cuda.reset_peak_memory_stats()
@@ -1682,6 +1767,7 @@ def phase_int8_kernels(dev):
     v32 = torch.randn(shape, generator=gen, device=dev)
     slabs = {torch.float32: (k32, v32, None, None)}
     slabs[torch.bfloat16] = (k32.bfloat16(), v32.bfloat16(), None, None)
+    slabs[torch.float16] = (k32.half(), v32.half(), None, None)
     kc, ks = _quantize_kv(k32)
     vc, vs = _quantize_kv(v32)
     slabs[torch.int8] = (kc, vc, ks, vs)
@@ -1695,7 +1781,7 @@ def phase_int8_kernels(dev):
         lens = torch.as_tensor(lens_np, device=dev)
         ext = 1280
         lens_e = torch.clamp(lens, max=ext - C)
-        for q_dtype in (torch.float32, torch.bfloat16):
+        for q_dtype in (torch.float32, torch.bfloat16, torch.float16):
             q = torch.randn((S, C, H, D), generator=gen,
                             device=dev).to(q_dtype)
             for kv_dtype, (k, v, ksc, vsc) in slabs.items():
@@ -1752,7 +1838,7 @@ def phase_int8_kernels(dev):
                     assert not b_ok, "the check accepted shifted scales"
                     rec["planted_max_abs_err"] = b_err
                     rec["planted"] = b_read
-                if kv_dtype == torch.int8 and q_dtype == torch.bfloat16:
+                if kv_dtype == torch.int8 and q_dtype != torch.float32:
                     rec.update(time_int8(q, k, v, ksc, vsc, lens, lens_np,
                                          layer))
                     log(f"[int8] paged_attention {name}: {rec['ms']:.4f} "
@@ -1779,9 +1865,9 @@ def time_int8(q, k, v, ks, vs, lens, lens_np, layer):
     plain_ms = median_ms(lambda i: fused.paged_attention_ref(
         q, k, v, lens, i % L, k_scale=ks, v_scale=vs), reps=5, warmup=1)
     deq_k = (k[:, layer:layer + 1].float()
-             * ks[:, layer:layer + 1, :, None, None]).bfloat16()
+             * ks[:, layer:layer + 1, :, None, None]).to(q.dtype)
     deq_v = (v[:, layer:layer + 1].float()
-             * vs[:, layer:layer + 1, :, None, None]).bfloat16()
+             * vs[:, layer:layer + 1, :, None, None]).to(q.dtype)
     lib_fn, _ = library_call(q, deq_k, deq_v, lens, 0)
     lib_ms = median_ms(lib_fn, reps=24)
     del deq_k, deq_v
@@ -1996,6 +2082,112 @@ def cover_engine(dev, cfg):
             "token_exact": exact, "launches": launches["paged_attention"]}
 
 
+def cover_engine_f16(dev):
+    """`ContinuousEngine` over a float16 `CachedDecoder(DecoderConfig(
+    max_len=64))` (a float16 pool on the card): every request answered,
+    every paged read on the kernel with float16 q and slab, decode on the
+    split route and chunks on the CUDA cores (float16 never takes the bf16
+    tensor cores). Token equality with `reference_generate` is read, not
+    held: float16 greedy may part at near-ties, as bfloat16 in phase 3."""
+    model = serve.CachedDecoder(serve.DecoderConfig(max_len=64,
+                                                    dtype="float16"),
+                                seed=0, device=dev)
+    rng = np.random.RandomState(13)
+    prompts = [rng.randint(1, model.config.vocab, size=int(n)).tolist()
+               for n in np.linspace(3, 36, 6).astype(int)]
+    with serve.ContinuousEngine(model, max_slots=8) as eng:
+        assert eng.pool.k.dtype == torch.float16 and \
+            eng.pool.k.device.type == dev.type
+        kernels.reset_launch_counts()
+        futs = [eng.submit(p, COVER_NEW_TOKENS) for p in prompts]
+        outs = [f.result(timeout=300) for f in futs]
+        launches = kernels.launch_counts()
+        by_dtype = kernels.launch_counts_by_dtype()
+        st = eng.stats()
+        window = eng.prefill_window
+        want = model.config.layers * (eng.decode_steps
+                                      * st["decode_iterations"]
+                                      + st["chunk_batches"])
+    for p, o in zip(prompts, outs):
+        assert o.shape == (COVER_NEW_TOKENS,) and \
+            ((o >= 0) & (o < model.config.vocab)).all(), \
+            f"float16 engine: prompt of {len(p)} tokens gave {o}"
+    exact = sum(int(np.array_equal(o, model.reference_generate(
+        p, COVER_NEW_TOKENS, window=window))) for p, o in zip(prompts, outs))
+    f16 = (by_dtype.get(("paged_attention_q", "float16"), 0),
+           by_dtype.get(("paged_attention_kv", "float16"), 0))
+    log(f"[cover] float16 engine (head_dim {model.config.head_dim}, float16 "
+        f"pool on the card): {len(outs)}/{len(prompts)} requests answered, "
+        f"{exact} equal to reference_generate; paged launches "
+        f"{launches['paged_attention']} (expected {want}), float16 q / slab "
+        f"{f16}, routes split {launches['paged_attention_split']} "
+        f"cuda_cores {launches['paged_attention_cuda_cores']}")
+    assert launches["paged_attention"] == want > 0 and f16 == (want, want), \
+        "float16 engine off the kernel"
+    assert launches["paged_attention_wgmma"] == 0 and \
+        launches["paged_attention_split"] \
+        + launches["paged_attention_cuda_cores"] == want, \
+        f"float16 engine off its routes {launches}"
+    return {"requests": len(prompts), "answered": len(outs),
+            "token_equal": exact, "launches": launches}
+
+
+# fused against unfused Dense(10, "relu") under float16 AMP, one SGD step:
+# the fused path rounds the product to float16 and then the bias + relu
+# once more, the unfused one rounds the product with its bias once, so
+# outputs part by up to one float16 step; the loss and the updated weights
+# are held to four of them (2^-9)
+DENSE16_RTOL = 2.0 ** -9
+
+
+def cover_dense_f16(dev):
+    """`cover_dense` under `amp.init("float16")`: the fused Dense takes
+    the apply kernel's float16 instance (`bias_act` is an AMP `safe` op),
+    one launch a step."""
+    rng = np.random.RandomState(14)
+    x = torch.from_numpy(rng.randn(64, 32).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 10, 64).astype(np.int32)).to(dev)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = []
+    amp.init("float16")
+    try:
+        for use_fusion in (True, False):
+            net = gluon.nn.Dense(10, activation="relu").initialize(
+                device=dev, seed=3)
+            net(x)                                  # resolve in_units
+            step = FusedTrainStep(
+                net, lambda n, a, b: loss_fn(n(a), b).sum(),
+                optimizer.create("sgd", learning_rate=0.1,
+                                 rescale_grad=1.0 / 64),
+                use_fusion=use_fusion)
+            kernels.reset_launch_counts()
+            loss = float(step(x, y))
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            by_dtype = kernels.launch_counts_by_dtype()
+            runs.append((loss, {n: p.data().detach().clone() for n, p in
+                                net.collect_params().items()}, launches,
+                         by_dtype))
+    finally:
+        amp.uninit()
+    (fl, fw, fla, fby), (ul, uw, ula, _) = runs
+    rel = {n: ((fw[n] - uw[n]).abs().max() / uw[n].abs().max()).item()
+           for n in uw}
+    loss_rel = abs(fl - ul) / abs(ul)
+    log(f"[cover] Dense(10, relu) float16-AMP step fused {fl!r} unfused "
+        f"{ul!r} (rel {loss_rel:.2e}); weights, max |fused - unfused| / "
+        f"max |unfused|: {rel} (tol {DENSE16_RTOL:.2e}); fused launches "
+        f"{fby}")
+    assert fby == {("scale_shift_act", "float16"): 1} and \
+        fla["scale_shift_act"] == 1 and ula["scale_shift_act"] == 0, \
+        "the float16 Dense step off the apply kernel"
+    assert loss_rel <= DENSE16_RTOL and all(r <= DENSE16_RTOL
+                                            for r in rel.values()), \
+        "fused Dense(10) float16 step != unfused"
+    return {"loss_fused": fl, "loss_unfused": ul, "loss_rel": loss_rel,
+            "weight_rel": rel, "launches": fla["scale_shift_act"]}
+
+
 def cover_paged_wide(dev, gen):
     """The paged kernel at head_dim 256, 320 and 512 against its plain
     version: bfloat16 and int8 pools (codes and scales from the engine's
@@ -2053,8 +2245,8 @@ def cover_mha(dev, units):
         net = gluon.nn.MultiHeadAttention(units, 2, use_flash=use_flash)
         net.initialize(device=dev, seed=4)
         xi = x.clone().requires_grad_()
-        named = {n: p for n, p in net.collect_params().items()
-                 if p.requires_grad and n != MHA_SKIP}
+        named = {n: p.data() for n, p in net.collect_params().items()
+                 if p.grad_req != "null" and n != MHA_SKIP}
 
         def run():
             y = net(xi, causal=True)
@@ -2093,7 +2285,7 @@ def cover_dense(dev):
                              rescale_grad=1.0 / 64), use_fusion=use_fusion)
         loss = _counted(lambda: float(step(x, y)),
                         **({"scale_shift_act": 1} if use_fusion else {}))
-        runs.append((loss, {n: t.detach().clone() for n, t in
+        runs.append((loss, {n: p.data().detach().clone() for n, p in
                             net.collect_params().items()}))
     (fl, fw), (ul, uw) = runs
     rel = {n: ((fw[n] - uw[n]).abs().max() / uw[n].abs().max()).item()
@@ -2130,6 +2322,8 @@ def phase_coverage(dev):
     paged_wide = cover_paged_wide(dev, gen)
     mha = [cover_mha(dev, units) for units in (384, 768)]
     dense = cover_dense(dev)
+    engine16 = cover_engine_f16(dev)
+    dense16 = cover_dense_f16(dev)
     pools = []
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for shape, pool in (((8, 14, 14, 12), (2, 2)),
@@ -2152,14 +2346,323 @@ def phase_coverage(dev):
     kernels.reset_launch_counts()
     return {"engine": engines[0], "engines": engines,
             "paged_wide": paged_wide, "mha": mha, "dense": dense,
+            "engine_f16": engine16, "dense_f16": dense16,
             "pools": pools, "applies": applies}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the imperative Gluon training loop at full width
+# ---------------------------------------------------------------------------
+LOOP_WARMUP, LOOP_STEPS, LOOP_F16_STEPS = 2, 10, 3
+# GluonNLP's BERT pretraining: LAMB (You et al. 2019, arXiv:1904.00962)
+# with poly decay after a linear warmup, no weight decay on LayerNorm's
+# beta and gamma and on the biases
+NO_DECAY = ".*beta|.*gamma|.*bias"
+LAMB = dict(learning_rate=1e-4, wd=0.01, epsilon=1e-6)
+POLY = dict(max_update=LOOP_WARMUP + LOOP_STEPS, base_lr=1e-4, pwr=1,
+            warmup_steps=4)
+# GluonCV's train_imagenet.py: NAG, momentum 0.9, wd 1e-4, lr 0.1 per 256
+# images, cosine decay after a linear warmup
+NAG = dict(learning_rate=0.1 * BATCH / 256, momentum=0.9, wd=1e-4)
+COSINE = dict(max_update=LOOP_WARMUP + LOOP_STEPS, base_lr=NAG[
+    "learning_rate"], warmup_steps=2)
+# the float32 checks of (d): phase 7's limits (2 layers at full width,
+# batch 4, dropout 0, TF32 off, the key projection's bias left out)
+LOOP_CHECK_STEPS = 2
+
+
+def loop_step(net, trainer, loss_fn, x, y):
+    """One step as a Gluon script writes it: record, backward from the
+    per-sample loss (seeded with ones), `trainer.step(batch)`."""
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    autograd.backward(loss)
+    trainer.step(x.shape[0])
+    return loss.detach()
+
+
+def _timed_loop(step, batches, warmup, steps):
+    """(losses, wall seconds) of `steps` calls of step(*batch) after
+    `warmup` untimed ones, the counts set to 0 in between."""
+    for i in range(warmup):
+        step(*batches[i % len(batches)])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = [step(*batches[i % len(batches)]) for i in range(steps)]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def loop_bert(card, dev, profile):
+    """(a) BERT-base, built without the head's and final LayerNorm's
+    widths, through LAMB + PolyScheduler under bf16 AMP."""
+    L = BERT["layers"]
+    batches = token_batches(2, BERT_BATCH, seed=31, dev=dev)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    amp.init("bfloat16")
+    try:
+        net = BertEncoderLM(L, True, BERT["dropout"], deferred=True) \
+            .initialize(device=dev, seed=0)
+        params = net.collect_params()
+        pending = sorted(n for n, p in params.items() if p._data is None)
+        assert pending == ["head.weight", "ln.beta", "ln.gamma"], pending
+        for p in net.collect_params(NO_DECAY).values():
+            p.wd_mult = 0.0
+        trainer = gluon.Trainer(params, "lamb", dict(
+            LAMB, lr_scheduler=lr_scheduler.PolyScheduler(**POLY)))
+        rates = []
+
+        def step(x, y):
+            rates.append(trainer.learning_rate)
+            return loop_step(net, trainer, loss_fn, x, y)
+        losses, wall = _timed_loop(step, batches, LOOP_WARMUP, LOOP_STEPS)
+        launches = kernels.launch_counts()
+        prof = profile_steps(
+            lambda x, y: loop_step(net, trainer, loss_fn, x, y), batches,
+            wall / LOOP_STEPS * 1e3, FLASH_SYMBOLS, "loop bert") \
+            if profile else None
+    finally:
+        amp.uninit()
+    shapes = {n: params[n].shape for n in pending}
+    want_rates = [lr_scheduler.PolyScheduler(**POLY)(k)
+                  for k in range(LOOP_WARMUP + LOOP_STEPS)]
+    losses = [float(v.float().mean()) for v in losses]
+    step_ms = wall / LOOP_STEPS * 1e3
+    tokens_s = BERT_BATCH * BERT_SEQ * LOOP_STEPS / wall
+    log(f"[loop bert] deferred {pending} resolved at the first forward to "
+        f"{shapes}; {len(net.collect_params(NO_DECAY))} values without "
+        f"weight decay; LAMB {LAMB} with PolyScheduler {POLY}")
+    log(f"[loop bert] {card}: {LOOP_STEPS} imperative steps (record, "
+        f"autograd.backward, trainer.step) of batch {BERT_BATCH} x "
+        f"{BERT_SEQ}, bf16 AMP, in {wall:.3f} s: {step_ms:.3f} ms/step, "
+        f"{tokens_s:.1f} tokens/s; losses {[round(v, 4) for v in losses]}; "
+        f"learning rates {rates}")
+    log(f"[loop bert] launches {launches} (expected {L} each of "
+        f"flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv a step, all on the "
+        f"tensor cores)")
+    assert all(np.isfinite(losses)), "non-finite BERT loop loss"
+    assert shapes == {"head.weight": (BERT["vocab"], BERT["units"]),
+                      "ln.beta": (BERT["units"],),
+                      "ln.gamma": (BERT["units"],)}, shapes
+    assert rates == want_rates, f"learning rates {rates} != {want_rates}"
+    want = dict.fromkeys(launches, 0)
+    for n in FLASH_KERNELS[1:]:
+        want[n] = want[FLASH_WGMMA[n]] = L * LOOP_STEPS
+    assert launches == want, "flash launch count off the imperative loop"
+    return net, batches, {"step_ms": step_ms, "tokens_per_s": tokens_s,
+                          "losses": losses, "rates": rates,
+                          "launches": launches, "deferred": shapes,
+                          "profile": prof}
+
+
+def loop_resnet(card, dev, profile):
+    """(b) ResNet-50 v1 NHWC through NAG + CosineScheduler under bf16 AMP
+    with the fusion default on: the eager loop takes the fused ops."""
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in b)
+               for b in make_batches(2, BATCH, seed=41)]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    amp.init("bfloat16")
+    prev = fused.set_fusion_default(True)
+    try:
+        net = vision.resnet50_v1(layout="NHWC", classes=CLASSES,
+                                 device=dev, seed=0)
+        trainer = gluon.Trainer(net.collect_params(), "nag", dict(
+            NAG, lr_scheduler=lr_scheduler.CosineScheduler(**COSINE)))
+        step = lambda x, y: loop_step(net, trainer, loss_fn, x, y)
+        losses, wall = _timed_loop(step, batches, LOOP_WARMUP, LOOP_STEPS)
+        launches = kernels.launch_counts()
+        prof = profile_steps(step, batches, wall / LOOP_STEPS * 1e3,
+                             KERNEL_SYMBOLS, "loop resnet") \
+            if profile else None
+    finally:
+        fused.set_fusion_default(prev)
+        amp.uninit()
+    losses = [float(v.float().mean()) for v in losses]
+    step_ms = wall / LOOP_STEPS * 1e3
+    ips = BATCH * LOOP_STEPS / wall
+    log(f"[loop resnet] {card}: {LOOP_STEPS} imperative steps of batch "
+        f"{BATCH} x {IMAGE}^2, bf16 AMP, fusion default on, NAG {NAG} with "
+        f"CosineScheduler {COSINE}, in {wall:.3f} s: {step_ms:.3f} ms/step, "
+        f"{ips:.1f} images/s; losses {[round(v, 4) for v in losses]}; "
+        f"launches {launches} (expected 53, 1, 1 a step)")
+    assert all(np.isfinite(losses)), "non-finite ResNet loop loss"
+    assert launches["scale_shift_act"] == 53 * LOOP_STEPS \
+        and launches["avg_pool2d_fwd"] == LOOP_STEPS \
+        and launches["avg_pool2d_bwd"] == LOOP_STEPS, \
+        "kernel launch count off the imperative loop"
+    del net, trainer
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "images_per_s": ips, "losses": losses,
+            "launches": launches, "profile": prof}
+
+
+def loop_f16(card, dev, net, batches):
+    """(c) (a)'s model and batch under float16 AMP with dynamic loss
+    scaling; every flash launch on the float16 CUDA-core kernels; then one
+    inference forward (B5 in float16) and one step with an inf planted in
+    a gradient, which must be skipped."""
+    L = BERT["layers"]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    amp.init("float16")
+    try:
+        trainer = gluon.Trainer(net.collect_params(), "lamb", dict(
+            LAMB, lr_scheduler=lr_scheduler.PolyScheduler(**POLY)))
+        amp.init_trainer(trainer)
+        scaler = trainer._amp_loss_scaler
+
+        def step(x, y):
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            with amp.scale_loss(loss, trainer) as scaled:
+                autograd.backward(scaled)
+            ran = amp.step_with_overflow_check(trainer, x.shape[0])
+            return loss.detach(), ran, scaler.loss_scale
+        out, wall = _timed_loop(step, batches, LOOP_WARMUP, LOOP_F16_STEPS)
+        launches = kernels.launch_counts()
+        by_dtype = kernels.launch_counts_by_dtype()
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            logits = net(batches[0][0])
+        torch.cuda.synchronize()
+        infer = kernels.launch_counts_by_dtype()
+        infer_wgmma = kernels.launch_counts()["flash_fwd_wgmma"]
+        # the planted overflow
+        x, y = batches[0]
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        with amp.scale_loss(loss, trainer) as scaled:
+            autograd.backward(scaled)
+        victim = net.collect_params()["cells.3.ffn1.weight"]
+        g = victim.grad().view(-1)
+        g[g.numel() // 3] = float("inf")
+        before = {n: p.data().clone()
+                  for n, p in net.collect_params().items()}
+        scale0 = scaler.loss_scale
+        ran = amp.step_with_overflow_check(trainer, x.shape[0])
+        torch.cuda.synchronize()
+        unchanged = all(torch.equal(p.data(), before[n])
+                        for n, p in net.collect_params().items())
+    finally:
+        amp.uninit()
+    losses = [float(v.float().mean()) for v, _, _ in out]
+    ran_steps = [r for _, r, _ in out]
+    scales = [sc for _, _, sc in out]
+    step_ms = wall / LOOP_F16_STEPS * 1e3
+    tokens_s = BERT_BATCH * BERT_SEQ * LOOP_F16_STEPS / wall
+    log(f"[loop f16] {card}: {LOOP_F16_STEPS} float16-AMP steps (scale_loss,"
+        f" step_with_overflow_check) in {wall:.3f} s: {step_ms:.3f} ms/step,"
+        f" {tokens_s:.1f} tokens/s; losses {[round(v, 4) for v in losses]};"
+        f" updates ran {ran_steps}, loss scales {scales}; flash launches by "
+        f"type {by_dtype}; inference forward {infer}")
+    log(f"[loop f16] planted inf in cells.3.ffn1.weight's gradient: step ran "
+        f"{ran}, weights unchanged {unchanged}, scale {scale0} -> "
+        f"{scaler.loss_scale}")
+    assert all(np.isfinite(losses)), "non-finite float16 loop loss"
+    n = L * LOOP_F16_STEPS
+    assert by_dtype == {(k, "float16"): n for k in FLASH_KERNELS[1:]} and \
+        all(launches[k] == n and launches[FLASH_WGMMA[k]] == 0
+            for k in FLASH_KERNELS[1:]), \
+        "float16 flash launches off the CUDA-core route"
+    assert infer == {("flash_fwd", "float16"): L} and infer_wgmma == 0, \
+        f"float16 inference launches {infer}"
+    assert logits.shape == (BERT_BATCH, BERT_SEQ, BERT["vocab"]) and \
+        torch.isfinite(logits.float()).all(), "float16 logits not finite"
+    assert not ran and unchanged and scaler.loss_scale == scale0 / 2, \
+        "the planted overflow was not skipped"
+    return {"step_ms": step_ms, "tokens_per_s": tokens_s, "losses": losses,
+            "updates_ran": ran_steps, "loss_scales": scales,
+            "launches": launches, "by_dtype": {f"{k}/{d}": v for (k, d), v
+                                              in by_dtype.items()},
+            "infer_launches": infer[("flash_fwd", "float16")],
+            "planted_scale": [scale0, scaler.loss_scale]}
+
+
+def loop_f32_checks(dev):
+    """(d) float32, TF32 off, dropout 0, FLASH_CHECK_LAYERS layers at full
+    width, batch FLASH_CHECK_BATCH: two Trainer-loop Adam steps against two
+    FusedTrainStep Adam steps, and grad_req "add" over two half-batches
+    against "write" over the batch (SGD with momentum), from the same
+    weights; phase 7's limits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x, y = token_batches(1, FLASH_CHECK_BATCH, seed=42, dev=dev)[0]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def new_net():
+        return BertEncoderLM(FLASH_CHECK_LAYERS, True, 0.0).initialize(
+            device=dev, seed=1)
+    init = new_net().collect_params()
+    out = {}
+    # Trainer loop against FusedTrainStep, Adam
+    a = new_net()
+    tr = gluon.Trainer(a.collect_params(), "adam",
+                       {"learning_rate": BERT_LR})
+    la = [float(loop_step(a, tr, loss_fn, x, y).mean())
+          for _ in range(LOOP_CHECK_STEPS)]
+    b = new_net()
+    step = bert_step(b, optimizer.create("adam", learning_rate=BERT_LR))
+    lb = [float(step(x, y)) for _ in range(LOOP_CHECK_STEPS)]
+    # grad_req "add" over two half-batches against "write"
+    c, d = new_net(), new_net()
+    c.setattr("grad_req", "add")
+    sgd = {"learning_rate": FLASH_CHECK_LR, "momentum": 0.9}
+    trc = gluon.Trainer(c.collect_params(), "sgd", dict(sgd))
+    trd = gluon.Trainer(d.collect_params(), "sgd", dict(sgd))
+    half = FLASH_CHECK_BATCH // 2
+    for _ in range(LOOP_CHECK_STEPS):
+        for part in (slice(0, half), slice(half, None)):
+            with autograd.record():
+                loss = loss_fn(c(x[part]), y[part])
+            autograd.backward(loss)
+        trc.step(FLASH_CHECK_BATCH)
+        loop_step(d, trd, loss_fn, x, y)
+    kernels.reset_launch_counts()
+    for tag, (p, q), losses in (("Trainer against FusedTrainStep (Adam)",
+                                 (a, b), (la, lb)),
+                                ("add over halves against write (SGD)",
+                                 (c, d), None)):
+        rel = update_parting(init, p.collect_params(), q.collect_params())
+        held = {n: r for n, r in rel.items()
+                if not n.endswith(FLASH_CHECK_SKIP)}
+        worst = max(held, key=held.get)
+        loss_rel = 0.0 if losses is None else max(
+            abs(u - v) / max(abs(v), 1e-6) for u, v in zip(*losses))
+        log(f"[loop float32] {tag}: losses {losses}, max rel {loss_rel:.2e}"
+            f" (tol {FLASH_CHECK_LOSS_RTOL}); update parting |dA - dB| / "
+            f"|dB| over {len(held)} weights: median "
+            f"{float(np.median(list(held.values()))):.3e}, worst "
+            f"{held[worst]:.3e} at {worst} (tol {FLASH_CHECK_UPDATE_RTOL})")
+        assert loss_rel <= FLASH_CHECK_LOSS_RTOL, f"{tag}: losses part"
+        assert held[worst] <= FLASH_CHECK_UPDATE_RTOL, \
+            f"{tag}: updates part at {worst}: {held[worst]:.3e}"
+        out[tag] = {"loss_max_rel": loss_rel, "update_rel_worst":
+                    held[worst], "worst_at": worst,
+                    "update_rel_median": float(np.median(
+                        list(held.values())))}
+    return out
+
+
+def phase_loop(card, dev, profile):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    net, batches, bert = loop_bert(card, dev, profile)
+    resnet = loop_resnet(card, dev, profile)
+    f16 = loop_f16(card, dev, net, batches)
+    del net, batches
+    torch.cuda.empty_cache()
+    checks = loop_f32_checks(dev)
+    log(f"[loop] phase 11 took {time.perf_counter() - t0:.1f} s")
+    return {"bert": bert, "resnet": resnet, "f16": f16, "f32": checks}
 
 
 def int8_entry(variants, engine):
     """The int8 variant's JSON entry, at the speculative verify shape the
     engine's decode waves launch (bf16 q, int8 slab, C = draft + 1)."""
     timed = [v for v in variants if "ms" in v]
-    head = next(v for v in timed if v["C"] == DRAFT + 1)
+    head = next(v for v in timed if v["C"] == DRAFT + 1
+                and v["q_dtype"] == "bfloat16")
     return {
         "name": "paged_attention_int8", "route": "cuda",
         "source": "incubator_mxnet_tpu_torch/ops/csrc/paged_attention.cu",
@@ -2188,7 +2691,8 @@ def flash_entries(variants, bert):
     entry a wrapper (its launches on either route), then one for each
     tensor-core backward sweep, the kernel the path's bf16 shape runs
     (its launches from its own counter)."""
-    timed = [v for v in variants if "ms" in v["flash_fwd"]]
+    timed = [v for v in variants if "ms" in v["flash_fwd"]
+             and v["flash_fwd"]["dtype"] == "bfloat16"]
     main, = [v for v in timed if v["flash_fwd"]["tq"] == FLASH_MAIN[1]]
     long_, = [v for v in timed if v["flash_fwd"]["tq"] == FLASH_LONG[1]]
     huge, = [v for v in timed if v["flash_fwd"]["d"] == FLASH_HUGE_TIMED[3]]
@@ -2234,6 +2738,63 @@ def flash_entries(variants, bert):
     return entries, share
 
 
+def f16_entries(tk, paged, flash, coverage, loop):
+    """The float16 instances' JSON entries (ROADMAP C3), each with the
+    launches of the path that runs it in float16, counted on counts set to
+    0 just before that run: the apply in phase 10's float16-AMP Dense step,
+    the paged read in phase 10's float16 engine, the flash kernels in
+    phase 11 (c)."""
+    base = "incubator_mxnet_tpu"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    stem = next(r for r in tk["apply"]
+                if r["dtype"] == "float16" and "ms" in r)
+    out = [dict({k: stem[k] for k in keys},
+                name="scale_shift_act_float16", route="cuda",
+                source="incubator_mxnet_tpu_torch/ops/csrc/scale_shift_act.cu",
+                replaces=f"{base}/ops/pallas_kernels.py:112",
+                launches=coverage["dense_f16"]["launches"],
+                max_abs_err=max(r["max_abs_err"] for r in tk["apply"]
+                                if r["dtype"] == "float16"),
+                shape=f"M={stem['M']} C={stem['C']} act=None float16 (the "
+                      f"stem BN's shape; library: torch.addcmul in float16)")]
+    split = next(v for v in paged if v["dtype"] == "float16" and v["C"] == 1)
+    chunk = next(v for v in paged if v["dtype"] == "float16"
+                 and v["C"] == WINDOW)
+    eng = coverage["engine_f16"]["launches"]
+    out.append(dict(
+        {k: split[k] for k in keys}, name="paged_attention_float16",
+        route="cuda",
+        source="incubator_mxnet_tpu_torch/ops/csrc/paged_attention.cu",
+        replaces=f"{base}/ops/pallas_kernels.py:292",
+        launches=eng["paged_attention"], kernel_route="split",
+        shape=f"S={SLOTS} C=1 H={FULL['heads']} D={FULL['head_dim']} "
+              f"T={FULL['max_len']} float16 q and slab",
+        chunk_C256={k: chunk[k] for k in keys + ("kernel_route",)}))
+    timed = [v for v in flash if "ms" in v["flash_fwd"]
+             and v["flash_fwd"]["dtype"] == "float16"]
+    main, = [v for v in timed if v["flash_fwd"]["tq"] == FLASH_MAIN[1]]
+    long_, = [v for v in timed if v["flash_fwd"]["tq"] == FLASH_LONG[1]]
+    for name in FLASH_KERNELS:
+        r = main[name]
+        launches = loop["f16"]["infer_launches"] if name == "flash_fwd" \
+            else loop["f16"]["launches"][name]
+        out.append(dict(
+            {k: r[k] for k in keys}, name=f"{name}_float16", route="cuda",
+            source="incubator_mxnet_tpu_torch/ops/csrc/flash_attention.cu",
+            replaces="incubator_mxnet_tpu/ops/pallas_attention.py:"
+                     f"{FLASH_REPLACES[name]}",
+            launches=launches, kernel_route=r["route"],
+            shape=f"(bh, T, d) = ({r['bh']}, {r['tq']}, {r['d']}) float16, "
+                  f"no mask (library: F.scaled_dot_product_attention "
+                  f"{'forward' if name.startswith('flash_fwd') else 'backward'}"
+                  f" in float16)",
+            causal_48x2048x128={k: long_[name][k] for k in keys}))
+    for e in out:
+        assert e["launches"] > 0, f"{e['name']} never ran on its path"
+    return out
+
+
 def spill_report(ptxas_log):
     """(instances compiled, [(instance, ptxas line)] of those that spill)
     from `nvcc -Xptxas -v` output."""
@@ -2255,7 +2816,7 @@ def main():
                     "file")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler pass over 3 training steps "
-                         "of ResNet-50 and of BERT-base")
+                         "of ResNet-50 and of BERT-base (phases 5, 7 and 11)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2285,6 +2846,7 @@ def main():
     int8_variants = phase_int8_kernels(dev)
     engine = phase_engine(card)
     coverage = phase_coverage(dev)
+    loop = phase_loop(card, dev, args.profile)
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -2333,6 +2895,7 @@ def main():
     entries += fentries
     entries.append(int8_entry(int8_variants, engine))
     entries += route_entries
+    entries += f16_entries(train_kernels, variants, flash, coverage, loop)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -2341,7 +2904,8 @@ def main():
                        "build_each_s": built, "build_log": kernels.BUILD_LOG,
                        "kernels": [entry] + entries,
                        "serve": result, "train": train, "bert": bert,
-                       "engine": engine, "coverage": coverage}, f,
+                       "engine": engine, "coverage": coverage,
+                       "loop": loop}, f,
                       indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [

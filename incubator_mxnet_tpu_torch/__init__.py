@@ -23,12 +23,19 @@ Ported so far:
     through `FusedTrainStep` with `optimizer.Adam`/`AdamW`, whose flash
     attention (`ops.attention.flash_attention`) runs on the CUDA kernels
     for the forward, the forward with log-sum-exp and the backward's dq
-    and dk/dv sweeps.
+    and dk/dv sweeps;
+  * the imperative training loop: `autograd` (record / pause scopes,
+    `backward`, `grad`, grad_req write / add / null), `gluon.Parameter`
+    with deferred initialization, `gluon.Trainer`, `lr_scheduler`, the
+    JAX package's 18 optimizer rules, and float16 AMP with dynamic loss
+    scaling (`amp.init("float16")`, `amp.scale_loss`); every CUDA kernel
+    takes float32, bfloat16 and float16.
 """
 from .base import MXNetError, get_env
 from .device import default_device, resolve_device
-from . import amp, initializer, ops, optimizer, random, gluon, serve
+from . import (amp, autograd, initializer, lr_scheduler, ops, optimizer,
+               random, gluon, serve)
 
 __all__ = ["MXNetError", "get_env", "default_device", "resolve_device",
-           "amp", "initializer", "ops", "optimizer", "random", "gluon",
-           "serve"]
+           "amp", "autograd", "initializer", "lr_scheduler", "ops",
+           "optimizer", "random", "gluon", "serve"]

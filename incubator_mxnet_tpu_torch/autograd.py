@@ -1,0 +1,329 @@
+"""Autograd of the PyTorch port: MXNet's recording scopes, `backward`,
+`grad`, `mark_variables` and `Function` over PyTorch's own autograd.
+
+Counterpart of `incubator_mxnet_tpu/autograd.py`. The JAX package keeps a
+tape of `jax.vjp` closures; here PyTorch's autograd graph is the tape, and
+this module adds MXNet's semantics on top of it:
+
+  * scopes: `record(train_mode=True)` tapes (`torch.enable_grad`) and sets
+    the training flag, `pause(train_mode=False)` stops taping
+    (`torch.no_grad`), `train_mode()` / `predict_mode()` set the flag
+    alone. `is_training()` is what BatchNorm and Dropout read; blocks
+    ignore `torch.nn.Module.training`.
+  * `grad_req` per variable: "write" (each backward overwrites the
+    gradient), "add" (backwards add up until the gradient is consumed, by
+    `gluon.Trainer.step` for instance) or "null" (no gradient). PyTorch
+    always adds into `.grad`; a hook on each variable's gradient
+    accumulator makes the write and the first add of a round overwrite
+    instead, and only in a backward that accumulates (never inside
+    `torch.autograd.grad`, which `gluon.contrib.FusedTrainStep` uses).
+  * `backward(heads)` on a non-scalar head seeds it with ones, as MXNet's
+    `loss.backward()` does on a per-sample loss (PyTorch's
+    `Tensor.backward()` refuses a non-scalar).
+
+Arrays are `torch.Tensor`s until the port has its own NDArray (ROADMAP
+A5), so `x.requires_grad_()` or `mark_variables([x])` stands in for
+`x.attach_grad()`, and `autograd.backward(loss)` for `loss.backward()` on
+a per-sample loss.
+
+Deliberate differences: PyTorch tapes every op on a tensor that requires a
+gradient unless taping is paused, so a head computed outside `record()`
+from such tensors is differentiable here (the JAX package raises); a head
+connected to no graph at all raises as in the JAX package.
+"""
+from __future__ import annotations
+
+import threading
+import weakref
+
+import torch
+
+from .base import MXNetError
+
+__all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
+           "is_training", "set_recording", "set_training", "mark_variables",
+           "backward", "grad", "Function"]
+
+_state = threading.local()
+
+
+def is_recording():
+    """Whether ops are taped for backward (inside `record()`)."""
+    return getattr(_state, "recording", False)
+
+
+def is_training():
+    """Whether ops run in train mode (Dropout drops, BatchNorm takes batch
+    statistics and updates its running ones)."""
+    return getattr(_state, "training", False)
+
+
+def set_recording(is_record):
+    """Set the recording flag and PyTorch's grad mode with it; returns the
+    previous flag."""
+    prev = is_recording()
+    _state.recording = bool(is_record)
+    torch.set_grad_enabled(bool(is_record))
+    return prev
+
+
+def set_training(train_mode_):
+    """Set the training flag; returns the previous one."""
+    prev = is_training()
+    _state.training = bool(train_mode_)
+    return prev
+
+
+class _Scope:
+    """Sets the recording and training flags for its extent (None leaves a
+    flag alone); `grad_mode` True or False also sets PyTorch's grad mode."""
+
+    def __init__(self, recording=None, training=None, grad_mode=None):
+        self._recording = recording
+        self._training = training
+        self._grad_mode = grad_mode
+
+    def __enter__(self):
+        if self._recording is not None:
+            self._prev_rec = getattr(_state, "recording", False)
+            _state.recording = bool(self._recording)
+        if self._training is not None:
+            self._prev_train = set_training(self._training)
+        if self._grad_mode is not None:
+            self._prev_grad = torch.is_grad_enabled()
+            torch.set_grad_enabled(self._grad_mode)
+        return self
+
+    def __exit__(self, *exc):
+        if self._recording is not None:
+            _state.recording = self._prev_rec
+        if self._training is not None:
+            set_training(self._prev_train)
+        if self._grad_mode is not None:
+            torch.set_grad_enabled(self._prev_grad)
+
+
+def record(train_mode=True):
+    """Scope in which ops are taped for backward, in train mode unless
+    `train_mode=False`."""
+    return _Scope(recording=True, training=train_mode, grad_mode=True)
+
+
+def pause(train_mode=False):
+    """Scope in which taping stops (`torch.no_grad`)."""
+    return _Scope(recording=False, training=train_mode, grad_mode=False)
+
+
+def train_mode():
+    return _Scope(training=True)
+
+
+def predict_mode():
+    return _Scope(training=False)
+
+
+# ---------------------------------------------------------------------------
+# grad_req on a variable
+# ---------------------------------------------------------------------------
+_REQS = ("write", "add", "null")
+
+
+class _Variable:
+    """A variable's gradient request and whether its `.grad` holds the
+    gradients of a backward not yet consumed (`fresh`)."""
+
+    __slots__ = ("grad_req", "fresh", "_handles", "__weakref__")
+
+    def __init__(self, tensor, grad_req):
+        self.grad_req = grad_req
+        self.fresh = False
+        self._handles = []
+        if grad_req == "null":
+            return
+        ref = weakref.ref(tensor)
+        me = weakref.ref(self)
+        self._handles = [
+            tensor.register_hook(lambda g: _before_accumulate(ref, me)),
+            tensor.register_post_accumulate_grad_hook(
+                lambda t: _after_accumulate(me))]
+
+    def detach_hooks(self):
+        for h in self._handles:
+            h.remove()
+        self._handles = []
+
+
+def _accumulates(t):
+    """Whether the running backward accumulates into leaf `t`'s `.grad`:
+    False inside `torch.autograd.grad` (where the query is refused or its
+    answer false) and for a leaf that `inputs=` leaves out."""
+    acc = torch.autograd.graph.get_gradient_edge(t).node
+    try:
+        return torch._C._will_engine_execute_node(acc)
+    except RuntimeError:
+        return False
+
+
+def _before_accumulate(tensor_ref, var_ref):
+    var, t = var_ref(), tensor_ref()
+    if var is None or t is None or not _accumulates(t):
+        return None
+    if var.grad_req == "write" or not var.fresh:
+        t.grad = None          # this backward's gradient replaces it
+    return None
+
+
+def _after_accumulate(var_ref):
+    var = var_ref()
+    if var is not None:
+        var.fresh = True
+
+
+def attach(tensor, grad_req="write", grad=None):
+    """Make `tensor` a variable with `grad_req`; returns it. `grad` (a
+    tensor of its shape) becomes its gradient buffer. A tensor attached
+    before is re-attached (its old hooks removed)."""
+    if grad_req not in _REQS:
+        raise MXNetError(f"invalid grad_req {grad_req!r}")
+    old = getattr(tensor, "_mx_var", None)
+    if old is not None:
+        old.detach_hooks()
+    tensor.requires_grad_(grad_req != "null")
+    tensor._mx_var = _Variable(tensor, grad_req)
+    if grad is not None:
+        tensor.grad = grad
+    elif grad_req == "null":
+        tensor.grad = None
+    return tensor
+
+
+def variable(tensor):
+    """The `_Variable` of an attached tensor, else None."""
+    return getattr(tensor, "_mx_var", None)
+
+
+def mark_variables(variables, gradients=None, grad_reqs="write"):
+    """Attach gradient buffers to tensors, so that a backward writes (or
+    adds, per `grad_reqs`) their gradients into them."""
+    if isinstance(variables, torch.Tensor):
+        variables, gradients = [variables], [gradients]
+    if gradients is None:
+        gradients = [None] * len(variables)
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for t, g, req in zip(variables, gradients, grad_reqs):
+        attach(t, req, g)
+
+
+# ---------------------------------------------------------------------------
+# backward / grad
+# ---------------------------------------------------------------------------
+def _heads(heads, head_grads):
+    if isinstance(heads, torch.Tensor):
+        heads = [heads]
+        if head_grads is not None and not isinstance(head_grads,
+                                                     (list, tuple)):
+            head_grads = [head_grads]
+    heads = list(heads)
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    seeds = []
+    for h, hg in zip(heads, head_grads):
+        if not h.requires_grad:
+            raise MXNetError(
+                "cannot differentiate: output is not connected to the tape "
+                "(was it computed outside autograd.record()?)")
+        seeds.append(torch.ones_like(h) if hg is None
+                     else hg.to(device=h.device, dtype=h.dtype))
+    return heads, seeds
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Backpropagate from `heads` (one tensor or a list) into the variables'
+    `.grad`, per their `grad_req`. A head without `head_grads` is seeded
+    with ones, whatever its shape."""
+    heads, seeds = _heads(heads, head_grads)
+    with _Scope(training=train_mode):
+        torch.autograd.backward(heads, seeds, retain_graph=retain_graph)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """Gradients of `heads` with respect to `variables`, returned (one
+    tensor for one variable, else a list) and written nowhere; a variable
+    the heads do not reach gets zeros. `create_graph` tapes the gradient
+    computation for a higher-order backward."""
+    if retain_graph is None:
+        retain_graph = create_graph
+    single = isinstance(variables, torch.Tensor)
+    variables = [variables] if single else list(variables)
+    for v in variables:
+        if not v.requires_grad:
+            raise MXNetError("grad target must be a marked variable "
+                             "(requires_grad_()) or tape-connected")
+    heads, seeds = _heads(heads, head_grads)
+    with _Scope(training=train_mode):
+        out = torch.autograd.grad(heads, variables, seeds,
+                                  retain_graph=retain_graph,
+                                  create_graph=create_graph,
+                                  allow_unused=True)
+    out = [torch.zeros_like(v) if g is None else g
+           for g, v in zip(out, variables)]
+    return out[0] if single else out
+
+
+# ---------------------------------------------------------------------------
+# custom differentiable function
+# ---------------------------------------------------------------------------
+class _Bridge(torch.autograd.Function):
+    """Runs a `Function`'s forward and backward with taping paused."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        with pause(train_mode=is_training()):
+            out = fn.forward(*inputs)
+        ctx.fn = fn
+        ctx.single = not isinstance(out, (list, tuple))
+        ctx.n_in = len(inputs)
+        return out if ctx.single else tuple(out)
+
+    @staticmethod
+    def backward(ctx, *output_grads):
+        with pause(train_mode=is_training()):
+            gs = ctx.fn.backward(*output_grads)
+        if not isinstance(gs, (list, tuple)):
+            gs = [gs]
+        gs = list(gs) + [None] * (ctx.n_in - len(gs))
+        return (None,) + tuple(gs)
+
+
+class Function:
+    """A differentiable op with its own backward::
+
+        class Square(autograd.Function):
+            def forward(self, x):
+                self.save_for_backward(x)
+                return x * x
+            def backward(self, dy):
+                x, = self._saved
+                return dy * 2 * x
+
+        y = Square()(x)
+
+    `forward` and `backward` run with taping paused and take and return
+    tensors."""
+
+    def __init__(self):
+        self._saved = None
+
+    def save_for_backward(self, *tensors):
+        self._saved = tensors
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        return _Bridge.apply(self, *inputs)

@@ -1,5 +1,5 @@
 """Base utilities of the PyTorch port: the error root, the environment-flag
-lookup and the dtype names.
+lookup, the dtype names and atomic file writes.
 
 Counterpart of `incubator_mxnet_tpu/base.py`. The port keeps its own copy
 of what it needs from there (`MXNetError`, `get_env`), so that it never
@@ -8,10 +8,12 @@ imports the JAX package.
 from __future__ import annotations
 
 import os
+import tempfile
+from contextlib import contextmanager
 
 import torch
 
-__all__ = ["MXNetError", "get_env", "torch_dtype"]
+__all__ = ["MXNetError", "get_env", "torch_dtype", "atomic_output"]
 
 
 class MXNetError(RuntimeError):
@@ -36,6 +38,23 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
 }
+
+
+@contextmanager
+def atomic_output(path):
+    """A binary file object whose contents replace `path` only when the
+    block ends without an error (written beside it, then renamed), so a
+    failure never leaves a truncated file."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            yield f
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
 
 
 def torch_dtype(name):

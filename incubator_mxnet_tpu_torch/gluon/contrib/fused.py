@@ -17,9 +17,11 @@ learning rates are resolved once per call, as in the JAX package, and a
 rule that takes the step count (the Adam family) sees each inner step's
 own count.
 
-The net runs in training mode for the step (BatchNorm takes batch
-statistics and updates its running stats, as the JAX step's aux buffers
-are updated) and inside `fusion_scope(use_fusion)`: with fusion on (the
+The net runs in the JAX step's scope, `autograd._Scope(recording=False,
+training=True)`: training mode (BatchNorm takes batch statistics and
+updates its running stats, as the JAX step's aux buffers are updated),
+with the gradients taken by `torch.autograd.grad` (no `.grad` is written),
+and inside `fusion_scope(use_fusion)`: with fusion on (the
 default; `use_fusion=False` gives the unfused step) the Gluon blocks route
 through the fused ops, whose CUDA kernels run on the card. CUDA-graph capture of the
 step comes later.
@@ -29,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import autograd
 from ... import optimizer as opt_mod
 from ...base import MXNetError
 from ...ops import fused as _fused
@@ -52,19 +55,19 @@ class FusedTrainStep:
         if self._K < 1:
             raise MXNetError("steps_per_call must be >= 1")
         self._use_fusion = True if use_fusion is None else bool(use_fusion)
-        values = sorted(net.collect_params().items())
-        for name, t in values:
-            if t.device.type == "meta":
-                raise MXNetError(f"FusedTrainStep needs an initialized net "
-                                 f"({name} is not materialized)")
-        self._params = [t for _, t in values]
-        self._device = self._params[0].device
+        params = [p for _, p in sorted(net.collect_params().items())]
+        for p in params:
+            if p._data is None:
+                raise MXNetError(
+                    "FusedTrainStep needs a fully initialized net: run one "
+                    "forward pass first (deferred shapes must be resolved)")
+        self._params = params
+        self._device = params[0].data().device
         # per-parameter lr_mult/wd_mult resolve through param_dict, as in
         # the JAX package
-        self._opt.param_dict = dict(enumerate(self._params))
-        self._train_idx = [i for i, t in enumerate(self._params)
-                           if isinstance(t, torch.nn.Parameter)
-                           and t.requires_grad]
+        self._opt.param_dict = dict(enumerate(params))
+        self._train_idx = [i for i, p in enumerate(params)
+                           if p.grad_req != "null"]
         self._states = None
 
     def _stage(self, a):
@@ -75,9 +78,10 @@ class FusedTrainStep:
         return a
 
     def __call__(self, *inputs):
-        opt, params = self._opt, self._params
+        opt = self._opt
+        params = [p.data() for p in self._params]
         if self._states is None:
-            self._states = [opt.create_state(i, params[i])
+            self._states = [opt.create_state_multi_precision(i, params[i])
                             for i in self._train_idx]
         for _ in range(self._K):
             for i in self._train_idx:
@@ -91,9 +95,8 @@ class FusedTrainStep:
         train = [params[i] for i in self._train_idx]
         staged = [self._stage(a) for a in inputs]
         losses, extras_k = [], []
-        was_training = self._net.training
-        self._net.train(True)
-        try:
+        with autograd._Scope(recording=False, training=True), \
+                torch.enable_grad():
             for k in range(self._K):
                 in_k = [a[k] for a in staged] if self._K > 1 else staged
                 with _fused.fusion_scope(self._use_fusion):
@@ -113,12 +116,11 @@ class FusedTrainStep:
                     grads = [g * scale.to(g.dtype) for g in grads]
                 for j, i in enumerate(self._train_idx):
                     t = {} if ts is None else {"t": ts[j] + k}
-                    opt.step_one(i, params[i], grads[j], self._states[j],
-                                 lrs[j], wds[j], **t)
+                    opt.step_multi_precision(i, params[i], grads[j],
+                                             self._states[j], lrs[j],
+                                             wds[j], **t)
                 losses.append(loss.detach())
                 extras_k.append(tuple(e.detach() for e in extras))
-        finally:
-            self._net.train(was_training)
         if self._K == 1:
             loss, extras = losses[0], extras_k[0]
         else:

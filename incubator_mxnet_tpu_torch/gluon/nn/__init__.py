@@ -15,10 +15,16 @@ BatchNorm takes `fused.batch_norm`, and an average pool whose window tiles
 the NHWC input (GlobalAvgPool2D included) takes `fused.avg_pool2d`;
 otherwise the plain ops of `ops.nn`.
 
-Differences from the JAX package: channel counts are explicit
-(`in_channels`/`in_units`; there is no deferred init), `Dropout` draws
-from the port's per-device generator (`random.generator`) while the
-block is in training mode, `Embedding` has no sparse gradient, and the
+Channel counts (`in_units` of Dense, `in_channels` of Conv2D, BatchNorm
+and LayerNorm) default to 0, inferred from the first input as in the JAX
+package (the values are drawn then: deferred initialization); explicit
+counts draw at `initialize()`. BatchNorm and Dropout read the training
+flag of `autograd` (`autograd.record()`, `train_mode()`,
+`FusedTrainStep`).
+
+Differences from the JAX package: `Dropout` draws
+from the port's per-device generator (`random.generator`) in training
+mode, `Embedding` has no sparse gradient, and the
 fused BatchNorm is taken only when the channel axis is last (NHWC),
 since the apply kernel takes channels last; a channels-first BatchNorm
 stays on the plain op. A strided input to a fused op is copied to a contiguous one
@@ -27,8 +33,11 @@ strided views.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ... import autograd as _autograd
 from ... import random as _random
 from ...base import MXNetError
 from ...ops import fused as _fused
@@ -46,11 +55,9 @@ __all__ = ["HybridSequential", "Conv2D", "BatchNorm", "BatchNormReLU",
 _FUSABLE_ACTS = frozenset({"relu", "sigmoid", "tanh"})
 
 
-def _need(value, what, layer):
-    if not value or value <= 0:
-        raise MXNetError(f"{layer} needs an explicit {what} (the port has "
-                         f"no deferred initialization)")
-    return int(value)
+def _known(value):
+    """A declared channel count, or 0 for one the first input gives."""
+    return int(value) if value and value > 0 else 0
 
 
 class HybridSequential(HybridBlock):
@@ -89,13 +96,16 @@ class Dense(HybridBlock):
         self._units = units
         self._flatten = flatten
         self._act_type = activation
-        self._new_param("weight", (units, _need(in_units, "in_units",
-                                                "Dense")),
+        self._new_param("weight", (units, _known(in_units)),
                         weight_initializer)
         if use_bias:
             self._new_param("bias", (units,), bias_initializer)
         else:
             self.bias = None
+
+    def infer_shape(self, x, *args):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self._reg_params["weight"].shape = (self._units, in_units)
 
     def forward(self, x):
         if (self._act_type in _FUSABLE_ACTS and self.bias is not None
@@ -121,7 +131,7 @@ class Dropout(HybridBlock):
 
     def forward(self, x):
         return _ops.dropout(x, self._rate, _random.generator(x.device),
-                            training=self.training)
+                            training=_autograd.is_training())
 
 
 class LayerNorm(HybridBlock):
@@ -130,9 +140,13 @@ class LayerNorm(HybridBlock):
 
     def __init__(self, in_channels=0):
         super().__init__()
-        ch = _need(in_channels, "in_channels", "LayerNorm")
+        ch = _known(in_channels)
         self._new_param("gamma", (ch,), "ones")
         self._new_param("beta", (ch,), "zeros")
+
+    def infer_shape(self, x, *args):
+        for name in ("gamma", "beta"):
+            self._reg_params[name].shape = (x.shape[-1],)
 
     def forward(self, x):
         return _ops.layer_norm(x, self.gamma, self.beta)
@@ -173,9 +187,9 @@ class Conv2D(HybridBlock):
         self._act_type = activation
         # the JAX package keeps this weight HWIO for NHWC
         self._hwio_weight = layout == "NHWC"
-        in_ch = _need(in_channels, "in_channels", "Conv2D")
         self._new_param(
-            "weight", (channels, in_ch // groups) + k, weight_initializer,
+            "weight", (channels, _known(in_channels) // groups) + k,
+            weight_initializer,
             memory_format=torch.channels_last if layout == "NHWC" else None)
         if use_bias:
             self._new_param("bias", (channels,), bias_initializer)
@@ -184,6 +198,11 @@ class Conv2D(HybridBlock):
 
     def _channel_axis(self):
         return 1 if self._layout == "NCHW" else 3
+
+    def infer_shape(self, x, *args):
+        in_ch = x.shape[self._channel_axis()]
+        self._reg_params["weight"].shape = \
+            (self._channels, in_ch // self._groups) + self._kernel
 
     def forward(self, x):
         bias = self.bias
@@ -217,7 +236,7 @@ class BatchNorm(HybridBlock):
         self._momentum = momentum
         self._eps = epsilon
         self._use_global_stats = use_global_stats
-        ch = _need(in_channels, "in_channels", "BatchNorm")
+        ch = _known(in_channels)
         self._new_param("gamma", (ch,), gamma_initializer,
                         grad_req="write" if scale else "null")
         self._new_param("beta", (ch,), beta_initializer,
@@ -225,11 +244,15 @@ class BatchNorm(HybridBlock):
         self._new_state("running_mean", (ch,), running_mean_initializer)
         self._new_state("running_var", (ch,), running_variance_initializer)
 
+    def infer_shape(self, x, *args):
+        for p in self._reg_params.values():
+            p.shape = (x.shape[self._axis],)
+
     def _channels_last(self, x):
         return self._axis % x.ndim == x.ndim - 1
 
     def _adopt_stats(self, new_rm, new_rv):
-        if self.training and not self._use_global_stats:
+        if _autograd.is_training() and not self._use_global_stats:
             with torch.no_grad():
                 self.running_mean.copy_(new_rm)
                 self.running_var.copy_(new_rv)
@@ -238,6 +261,8 @@ class BatchNorm(HybridBlock):
         """BN + optional activation + optional pre-activation residual add
         as one fused op (`ops.fused.batch_norm`): its apply stage is one
         launch of the scale/shift/activation kernel on the card."""
+        if self._pending:
+            self._resolve(x)
         if not self._channels_last(x):
             raise MXNetError("BatchNorm.fused_forward takes the channel axis "
                              "last (NHWC)")
@@ -246,9 +271,10 @@ class BatchNorm(HybridBlock):
             residual = _fused.contiguous_counted(residual)
         out, nm, nv = _fused.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
-            momentum=self._momentum, eps=self._eps, training=self.training,
-            axis=self._axis, use_global_stats=self._use_global_stats,
-            act_type=act_type, residual=residual)
+            momentum=self._momentum, eps=self._eps,
+            training=_autograd.is_training(), axis=self._axis,
+            use_global_stats=self._use_global_stats, act_type=act_type,
+            residual=residual)
         self._adopt_stats(nm, nv)
         return out
 
@@ -257,8 +283,9 @@ class BatchNorm(HybridBlock):
             return self.fused_forward(x)
         out, nm, nv = _ops.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
-            momentum=self._momentum, eps=self._eps, training=self.training,
-            axis=self._axis, use_global_stats=self._use_global_stats)
+            momentum=self._momentum, eps=self._eps,
+            training=_autograd.is_training(), axis=self._axis,
+            use_global_stats=self._use_global_stats)
         self._adopt_stats(nm, nv)
         return out
 

@@ -17,9 +17,9 @@ Each of them has two kernels, chosen by dtype and head dim alone
 multiple of 8 up to 128 on the tensor cores (`flash_fwd_wgmma_kernel`,
 `flash_bwd_dq_wgmma_kernel`, `flash_bwd_dkv_wgmma_kernel`; their launches
 also count in `flash_fwd_wgmma`, `flash_fwd_lse_wgmma`,
-`flash_bwd_dq_wgmma` and `flash_bwd_dkv_wgmma`), float32 and other d on
-the CUDA cores. Every head dim 1-256 and any bh reach a kernel; d > 256 is
-refused (`kernels.refusal`).
+`flash_bwd_dq_wgmma` and `flash_bwd_dkv_wgmma`), float32, float16 and
+other d on the CUDA cores. Every head dim (past 256 in 128-column slices)
+and any bh reach a kernel.
 
 `flash_attention` is the JAX package's `custom_vjp` as one
 `torch.autograd.Function`: its forward runs B6 and saves (q, k, v, o,

@@ -21,17 +21,19 @@
 //   dk_j     = scale * sum_i ds[i, j] q_i,  dv_j = sum_i p[i, j] dO_i
 //
 // with f32 arithmetic and accumulators inside, and q, k, v, o, dO, dq, dk, dv
-// in float32 or bfloat16 (lse and delta float32), for every head dim d >= 1
+// in float32, bfloat16 or float16 (lse and delta float32), for every head dim d >= 1
 // and any bh. delta is computed by the caller, as the JAX package
 // computes it outside Pallas.
 //
 // Two routes. bfloat16 at d a multiple of 8 up to 128 runs on the tensor
 // cores (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel and
-// flash_bwd_dkv_wgmma_kernel, below); float32 inputs and bfloat16 ones at
-// other d run on the CUDA cores (flash_fwd_kernel, flash_bwd_dq_kernel,
-// flash_bwd_dkv_kernel). The wrappers choose by dtype and d alone. float32
-// stays off the tensor cores because they would take it as TF32 (about three
-// digits); d % 8 != 0 stays off them because a row of d bfloat16 values is
+// flash_bwd_dkv_wgmma_kernel, below); float32 and float16 inputs, and
+// bfloat16 ones at other d, run on the CUDA cores (flash_fwd_kernel,
+// flash_bwd_dq_kernel, flash_bwd_dkv_kernel). The wrappers choose by dtype
+// and d alone. float32 stays off the tensor cores because they would take it
+// as TF32 (about three digits); float16 because the tensor-core kernels are
+// written for bf16 (their stores, TMA maps and the two-term split of P and
+// dS), a float16 instance of them is later work; d % 8 != 0 stays off them because a row of d bfloat16 values is
 // then no multiple of 16 bytes, the least global stride a TMA tensor map can
 // describe; d > 128 because a 64 x d f32 accumulator is d / 2 registers a
 // thread in each of O, dK and dV, which at d = 256 leaves no room for the
@@ -85,6 +87,7 @@
 // t) below.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -122,6 +125,23 @@ struct Load8<__nv_bfloat16> {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(h[i]);
+      d[2 * i] = f.x;
+      d[2 * i + 1] = f.y;
+    }
+  }
+};
+
+template <>
+struct Load8<__half> {
+  __device__ __forceinline__ static float one(const __half* p) {
+    return __half2float(*p);
+  }
+  __device__ __forceinline__ static void load(const __half* p, float* d) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
       d[2 * i] = f.x;
       d[2 * i + 1] = f.y;
     }
@@ -1428,7 +1448,7 @@ cudaError_t run_dim(int which, const Args& a) {
 }
 
 int dispatch(int dtype, int device, int which, const Args& a) {
-  if ((dtype != 0 && dtype != 1) || a.bh <= 0 || a.tq < 0 || a.tk < 0 ||
+  if (dtype < 0 || dtype > 2 || a.bh <= 0 || a.tq < 0 || a.tk < 0 ||
       a.hd < 1)
     return (int)cudaErrorInvalidValue;
   // bfloat16 at d % 8 == 0 up to 128 is the tensor-core kernels'
@@ -1436,8 +1456,11 @@ int dispatch(int dtype, int device, int which, const Args& a) {
     return (int)cudaErrorInvalidValue;
   Device guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  return (int)(dtype == 0 ? run_dim<float>(which, a)
-                          : run_dim<__nv_bfloat16>(which, a));
+  switch (dtype) {
+    case 0: return (int)run_dim<float>(which, a);
+    case 1: return (int)run_dim<__nv_bfloat16>(which, a);
+    default: return (int)run_dim<__half>(which, a);
+  }
 }
 
 // a bf16 (bh, rows, hd) contiguous tensor as a 3-D map (hd, rows, bh), read
@@ -1548,7 +1571,8 @@ cudaError_t run_dkv_wgmma(const Args& a) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; head_dim >= 1 (bfloat16 at a multiple of 8
+// dtype: 0 float32, 1 bfloat16, 2 float16 (ops/kernels.py :: DTYPE_CODES);
+// head_dim >= 1 (bfloat16 at a multiple of 8
 // up to 128 is refused: the tensor-core entry points serve it). q (bh, tq, d), k and v
 // (bh, tk, d), o (bh, tq, d), all contiguous and 16-byte aligned; lse
 // (bh, tq) float32, written when with_lse. Returns cudaGetLastError() after

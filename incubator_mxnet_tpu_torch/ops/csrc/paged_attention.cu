@@ -12,8 +12,8 @@
 //   k' = k (float slabs) or float(code_k) * k_scale[s,l,t] (int8 slabs),
 //
 // with f32 arithmetic inside and the output in q's dtype. q and out are
-// float32 or bfloat16; the slab is float32, bfloat16 or int8, independent of
-// q's type. Lane s reads row s of the slab; the slab and the scales may be
+// float32, bfloat16 or float16; the slab is float32, bfloat16, float16 or
+// int8, independent of q's type. Lane s reads row s of the slab; the slab and the scales may be
 // views (the engine's `extent` slice keeps the full slab's strides), so rows
 // and positions are addressed by strides.
 //
@@ -66,6 +66,7 @@
 // recomputed once per slice.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -116,6 +117,21 @@ struct Vec16<__nv_bfloat16> {
 };
 
 template <>
+struct Vec16<__half> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __half* p, float* dst) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const __half2* b = reinterpret_cast<const __half2*>(&x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __half22float2(b[e]);
+      dst[2 * e] = f.x;
+      dst[2 * e + 1] = f.y;
+    }
+  }
+};
+
+template <>
 struct Vec16<int8_t> {
   static constexpr int N = 16;
   __device__ __forceinline__ static void load(const int8_t* p, float* dst) {
@@ -130,6 +146,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 // the 16 bytes at p whose first n (>= 1) elements are in the row: one vector
 // load (kVec: every chunk whole and aligned), else element by element with
@@ -1016,7 +1033,8 @@ cudaError_t run_kv(int route, int kv_dtype, const Args& a, float scale,
   switch (kv_dtype) {
     case 0: return run_cores<Tq, float>(route, a, scale, st);
     case 1: return run_cores<Tq, __nv_bfloat16>(route, a, scale, st);
-    case 2: return run_cores<Tq, int8_t>(route, a, scale, st);
+    case 2: return run_cores<Tq, __half>(route, a, scale, st);
+    case 3: return run_cores<Tq, int8_t>(route, a, scale, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -1064,9 +1082,9 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // route: 0 split (C <= 16), 1 wgmma, 2 cuda_cores (ops/kernels.py ::
-// paged_route). q_dtype: 0 float32, 1 bfloat16 (q and out). kv_dtype:
-// 0 float32, 1 bfloat16, 2 int8 (the slab; int8 needs k_scale and v_scale,
-// f32). q and out are contiguous (S, C, H, D); k and v point at [row 0,
+// paged_route). q_dtype: 0 float32, 1 bfloat16, 2 float16 (q and out).
+// kv_dtype: 0 float32, 1 bfloat16, 2 float16, 3 int8 (the slab; int8 needs
+// k_scale and v_scale, f32). The codes are ops/kernels.py :: DTYPE_CODES. q and out are contiguous (S, C, H, D); k and v point at [row 0,
 // layer, position 0] of the slab, whose rows and positions are row_stride
 // and tok_stride elements apart (heads and dims contiguous); k_scale and
 // v_scale point at [row 0, layer, position 0] of the scales, whose rows are
@@ -1085,16 +1103,16 @@ extern "C" int mx_paged_attention_fwd(
     int T_ext, long long row_stride, long long tok_stride,
     long long scale_row_stride, int piece, int slice, void* stream) {
   if (S <= 0 || C <= 0 || H <= 0 || D < 1 || T_ext < 1 || route < 0 ||
-      route > 2 || (q_dtype != 0 && q_dtype != 1) || kv_dtype < 0 ||
-      kv_dtype > 2 || piece != kPiece || slice != kSliceCols)
+      route > 2 || q_dtype < 0 || q_dtype > 2 || kv_dtype < 0 ||
+      kv_dtype > 3 || piece != kPiece || slice != kSliceCols)
     return (int)cudaErrorInvalidValue;
-  if ((kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
+  if ((kv_dtype == 3) != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
   if (route == 0 && (C > kSplitRows || ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int kv_item = kv_dtype == 0 ? 4 : (kv_dtype == 1 ? 2 : 1);
+  const int kv_item = kv_dtype == 0 ? 4 : (kv_dtype == 3 ? 1 : 2);
   if (route == 1 &&
-      (q_dtype != 1 || kv_dtype == 0 || D > 128 ||
+      (q_dtype != 1 || (kv_dtype != 1 && kv_dtype != 3) || D > 128 ||
        (D * kv_item) % 16 != 0 || (row_stride * kv_item) % 16 != 0 ||
        (tok_stride * kv_item) % 16 != 0 || !aligned16(q) || !aligned16(out) ||
        !aligned16(k) || !aligned16(v)))
@@ -1125,14 +1143,17 @@ extern "C" int mx_paged_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (route == 1)
-    err = kv_dtype == 2
+    err = kv_dtype == 3
               ? (D <= 64 ? run_wgmma<true, 64>(a, scale, st)
                          : run_wgmma<true, 128>(a, scale, st))
               : (D <= 64 ? run_wgmma<false, 64>(a, scale, st)
                          : run_wgmma<false, 128>(a, scale, st));
   else
-    err = q_dtype == 0 ? run_kv<float>(route, kv_dtype, a, scale, st)
-                       : run_kv<__nv_bfloat16>(route, kv_dtype, a, scale, st);
+    switch (q_dtype) {
+      case 0: err = run_kv<float>(route, kv_dtype, a, scale, st); break;
+      case 1: err = run_kv<__nv_bfloat16>(route, kv_dtype, a, scale, st); break;
+      default: err = run_kv<__half>(route, kv_dtype, a, scale, st);
+    }
   return (int)err;
 }
 

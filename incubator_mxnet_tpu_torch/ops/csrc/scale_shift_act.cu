@@ -9,7 +9,8 @@
 //
 // with f32 arithmetic inside (in that order, multiply then adds, each
 // rounded: no fused multiply-add, so the result is the plain version's),
-// and the output in x's dtype. scale, shift and residual may each be absent.
+// and the output in x's dtype (float32, bfloat16 or float16). scale, shift
+// and residual may each be absent.
 // act is one of none, relu, sigmoid, tanh, silu and the exact (erf) gelu.
 //
 // What bounds it on the card: bytes. It reads x (and the residual) once and
@@ -17,8 +18,8 @@
 // balance point, so the least time is (x + residual + out bytes) / 3.35 TB/s.
 // What the design does about it: one pass, no intermediate in device memory
 // (the chain of elementwise kernels it replaces reads and writes the tensor
-// once per op); every thread moves 16 bytes at a time (4 float32 or 8
-// bfloat16), neighbouring threads on neighbouring addresses, in a
+// once per op); every thread moves 16 bytes at a time (4 float32, or 8
+// bfloat16 or float16), neighbouring threads on neighbouring addresses, in a
 // grid-stride loop over a grid sized to keep every SM full. The per-channel
 // scale and shift rows are small and stay in L1/L2.
 //
@@ -30,6 +31,7 @@
 // The caller guarantees: x / residual / out contiguous and of one dtype,
 // scale and shift float32 of C elements.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -100,6 +102,34 @@ struct Pack<__nv_bfloat16> {
   }
   __device__ __forceinline__ static void put(__nv_bfloat16* p, float x) {
     *p = __float2bfloat16_rn(x);
+  }
+};
+
+template <>
+struct Pack<__half> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __half* p, float* d) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      d[2 * i] = f.x;
+      d[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static void store(__half* p, const float* s) {
+    uint4 v;
+    __half2* h = reinterpret_cast<__half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(s[2 * i], s[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = v;
+  }
+  __device__ __forceinline__ static float one(const __half* p) {
+    return __half2float(*p);
+  }
+  __device__ __forceinline__ static void put(__half* p, float x) {
+    *p = __float2half_rn(x);
   }
 };
 
@@ -234,7 +264,8 @@ cudaError_t launch(int act, const void* x, const float* scale,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (x, residual and out). act: 0 none, 1 relu,
+// dtype: 0 float32, 1 bfloat16, 2 float16 (x, residual and out; the codes
+// of ops/kernels.py :: DTYPE_CODES). act: 0 none, 1 relu,
 // 2 sigmoid, 3 tanh, 4 silu, 5 gelu. scale, shift and residual may be null.
 // M >= 1, C >= 1. Returns cudaGetLastError() after the launch (0 on
 // success), never synchronises.
@@ -243,7 +274,7 @@ extern "C" int mx_scale_shift_act(int dtype, int act, int device,
                                   const void* shift, const void* residual,
                                   void* out, long long M, long long C,
                                   void* stream) {
-  if (M <= 0 || C <= 0 || (dtype != 0 && dtype != 1))
+  if (M <= 0 || C <= 0 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -252,10 +283,17 @@ extern "C" int mx_scale_shift_act(int dtype, int act, int device,
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = dtype == 0
-            ? launch<float>(act, x, sc, sh, residual, out, M, C, device, st)
-            : launch<__nv_bfloat16>(act, x, sc, sh, residual, out, M, C,
-                                    device, st);
+  switch (dtype) {
+    case 0:
+      err = launch<float>(act, x, sc, sh, residual, out, M, C, device, st);
+      break;
+    case 1:
+      err = launch<__nv_bfloat16>(act, x, sc, sh, residual, out, M, C, device,
+                                  st);
+      break;
+    default:
+      err = launch<__half>(act, x, sc, sh, residual, out, M, C, device, st);
+  }
   if (prev != device) cudaSetDevice(prev);
   return (int)err;
 }

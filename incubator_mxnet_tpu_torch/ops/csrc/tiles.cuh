@@ -9,6 +9,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -37,6 +38,9 @@ __device__ __forceinline__ int out_col(int cg, int t) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 // four consecutive elements of an operand tile as f32

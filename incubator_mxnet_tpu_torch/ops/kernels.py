@@ -28,6 +28,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 
 import torch
 
@@ -37,8 +38,8 @@ __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
            "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "flash_fwd_cuda",
            "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "flash_fwd_route",
            "flash_bwd_route", "paged_route", "pool_route",
-           "ACT_CODES", "RULES", "refusal",
-           "reset_launch_counts", "launch_counts"]
+           "ACT_CODES", "DTYPE_CODES", "RULES", "refusal",
+           "reset_launch_counts", "launch_counts", "launch_counts_by_dtype"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(
@@ -73,6 +74,14 @@ flash_bwd_dkv_launches = 0
 # the backward launches (of the two above) that ran on the tensor cores
 flash_bwd_dq_wgmma_launches = 0
 flash_bwd_dkv_wgmma_launches = 0
+# every launch above again, by (counter name, dtype name of the launch's
+# data: x, q, or the slab for the paged kernel's slab side)
+_BY_DTYPE = Counter()
+
+
+def _count_dtype(name, *dtypes):
+    for dt in dtypes:
+        _BY_DTYPE[(name, str(dt).replace("torch.", ""))] += 1
 
 
 def reset_launch_counts():
@@ -99,6 +108,15 @@ def reset_launch_counts():
     flash_bwd_dkv_launches = 0
     flash_bwd_dq_wgmma_launches = 0
     flash_bwd_dkv_wgmma_launches = 0
+    _BY_DTYPE.clear()
+
+
+def launch_counts_by_dtype():
+    """{(counter name, dtype name): launches} since the last reset: the
+    launches of `launch_counts()` by the type of the data they took
+    ("scale_shift_act", "float16") — the paged kernel's by its q
+    ("paged_attention_q") and its slab ("paged_attention_kv")."""
+    return dict(_BY_DTYPE)
 
 
 def launch_counts():
@@ -135,11 +153,32 @@ def _nvcc():
 _INCLUDE = re.compile(rb'^#include "([^"]+\.cuh)"', re.M)
 
 
+_FLAGS = []
+
+
+def _flags():
+    """`_NVCC_FLAGS`, plus `--split-compile 0` (the compiler's optimization
+    passes over the source's many template instances spread over every
+    core: the paged-attention source builds in about a third of the time)
+    where this `nvcc` has the option."""
+    if not _FLAGS:
+        flags = list(_NVCC_FLAGS)
+        try:
+            usage = subprocess.run([_nvcc(), "--help"], capture_output=True,
+                                   text=True, timeout=60).stdout
+        except MXNetError:
+            usage = ""
+        if "--split-compile" in usage:
+            flags += ["--split-compile", "0"]
+        _FLAGS[:] = flags
+    return tuple(_FLAGS)
+
+
 def _lib_path(name):
     """(source, library path): the library's name hashes the source, every
     `csrc/*.cuh` header it includes (and theirs), and the flags."""
     src = os.path.join(_CSRC, name + ".cu")
-    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_flags()).encode())
     todo, seen = [src], set()
     while todo:
         path = todo.pop(0)
@@ -171,7 +210,7 @@ def build(names=_SOURCES):
     procs = []
     for name, src, lib in todo:
         tmp = f"{lib}.{os.getpid()}.tmp"
-        p = subprocess.Popen([nvcc, *_NVCC_FLAGS, "-o", tmp, src],
+        p = subprocess.Popen([nvcc, *_flags(), "-o", tmp, src],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                              text=True)
         procs.append((name, lib, tmp, p))
@@ -247,9 +286,12 @@ def _load(name):
 # act name -> the kernels' activation code (csrc/scale_shift_act.cu)
 ACT_CODES = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3, "silu": 4,
              "gelu": 5}
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the pool alone takes float16 too (csrc/avg_pool2d.cu)
-_POOL_DTYPE_CODES = {**_DTYPE_CODES, torch.float16: 2}
+# the one table of dtype codes every wrapper passes and every C entry point
+# of csrc/ reads; int8 is the paged kernel's quantized slab alone
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.int8: 3}
+# the float types every kernel takes (x, q, dO, the pooled tensor)
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 # Every shape rule the wrappers enforce, one row each: (kernel, kind, test,
 # message). Kind "jax": the JAX package refuses the shape too; no other kind
@@ -288,8 +330,7 @@ def _refuse(name, kernel, **shape):
         raise MXNetError(f"{name}: {why}")
 
 
-_PA_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PA_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_PA_KV_DTYPES = _FLOATS + (torch.int8,)
 _PA_ROUTES = {"split": 0, "wgmma": 1, "cuda_cores": 2}
 # the split route's fixed pieces of the token axis (positions from 0), and
 # the output columns a block takes past head dim 256
@@ -309,8 +350,9 @@ def paged_route(q_dtype, kv_dtype, d, C):
     bfloat16 q over a bfloat16 slab at d % 8 == 0 or an int8 one at
     d % 16 == 0 (a row of whole 16-byte vectors), d <= 128 (a 64 x d f32
     accumulator is d / 2 registers a thread); "cuda_cores" for every other
-    chunk (float32 q or slab, which the tensor cores would take as TF32, the
-    other mixed pairs, d off that alignment, d > 128)."""
+    chunk (float32 q or slab, which the tensor cores would take as TF32;
+    float16 on either side, which the tensor-core kernel, written for bf16,
+    does not take; the other mixed pairs, d off that alignment, d > 128)."""
     if C <= PAGED_SPLIT_ROWS:
         return "split"
     if (q_dtype == torch.bfloat16 and d <= 128
@@ -325,9 +367,9 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
     """Launch the paged-attention kernel (`csrc/paged_attention.cu`) that
     `paged_route(q.dtype, k_slab.dtype, D, C)` names.
 
-    `q`: contiguous (S, C, H, D) CUDA tensor, float32 or bfloat16.
-    `k_slab`/`v_slab`: (rows, L, T, H, D) with rows > S, float32, bfloat16
-    or int8 (any of them with either q dtype), one dtype, shape and
+    `q`: contiguous (S, C, H, D) CUDA tensor, float32, bfloat16 or float16.
+    `k_slab`/`v_slab`: (rows, L, T, H, D) with rows > S, float32, bfloat16,
+    float16 or int8 (any of them with any q dtype), one dtype, shape and
     strides, heads and dims contiguous; a view that cuts the position axis
     (`slab[:, :, :extent]`) is read in place, not copied. Any head_dim D:
     16-byte vector loads where every row is a whole number of aligned
@@ -366,13 +408,13 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
             f"{tuple(k_slab.shape)}")
     S, C, H, D = q.shape
     rows, L, T, Hk, Dk = k_slab.shape
-    if q.dtype not in _PA_Q_DTYPES:
+    if q.dtype not in _FLOATS:
         raise MXNetError(f"{name}: q dtype {q.dtype} not taken "
-                         f"(float32, bfloat16)")
+                         f"(float32, bfloat16, float16)")
     if k_slab.dtype not in _PA_KV_DTYPES or v_slab.dtype != k_slab.dtype:
         raise MXNetError(f"{name}: slab dtypes {k_slab.dtype}, "
                          f"{v_slab.dtype} not taken (one of float32, "
-                         f"bfloat16, int8)")
+                         f"bfloat16, float16, int8)")
     _refuse(name, "paged_attention", head_dim=D)
     if (Hk, Dk) != (H, D) or rows <= S or not 0 <= layer < L:
         raise MXNetError(
@@ -427,7 +469,7 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
                          device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.mx_paged_attention_fwd(
-        _PA_ROUTES[route], _PA_Q_DTYPES[q.dtype], _PA_KV_DTYPES[k_slab.dtype],
+        _PA_ROUTES[route], DTYPE_CODES[q.dtype], DTYPE_CODES[k_slab.dtype],
         q.device.index or 0, q.data_ptr(), kl.data_ptr(), vl.data_ptr(),
         ksl.data_ptr() if quant else None, vsl.data_ptr() if quant else None,
         lengths.data_ptr(), out.data_ptr(),
@@ -446,6 +488,8 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
         paged_attention_wgmma_launches += 1
     else:
         paged_attention_cuda_cores_launches += 1
+    _count_dtype("paged_attention_q", q.dtype)
+    _count_dtype("paged_attention_kv", k_slab.dtype)
     return out
 
 
@@ -472,7 +516,7 @@ def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
     act(x2d * scale + shift + residual) over a row-major (M, C) view, f32
     inside, returned in x2d's dtype.
 
-    `x2d`: contiguous (M, C), float32 or bfloat16, any C (16-byte vectors
+    `x2d`: contiguous (M, C), float32, bfloat16 or float16, any C (16-byte vectors
     when C * itemsize is a multiple of 16 and every buffer is 16-byte
     aligned, one element a thread otherwise). `scale`/`shift`: contiguous
     (C,) float32, or None. `residual`:
@@ -485,9 +529,9 @@ def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
     full = [x2d] + ([residual] if residual is not None else [])
     _check_cuda(name, full + rows)
     _refuse(name, "scale_shift_act", act=act_type)
-    if x2d.dim() != 2 or x2d.dtype not in _DTYPE_CODES:
-        raise MXNetError(f"{name}: x must be a 2-D float32 or bfloat16 "
-                         f"tensor; got {tuple(x2d.shape)} {x2d.dtype}")
+    if x2d.dim() != 2 or x2d.dtype not in _FLOATS:
+        raise MXNetError(f"{name}: x must be a 2-D float32, bfloat16 or "
+                         f"float16 tensor; got {tuple(x2d.shape)} {x2d.dtype}")
     M, C = x2d.shape
     if residual is not None and (residual.shape != x2d.shape
                                  or residual.dtype != x2d.dtype):
@@ -505,7 +549,7 @@ def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
     lib = _load("scale_shift_act")
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     rc = lib.mx_scale_shift_act(
-        _DTYPE_CODES[x2d.dtype], ACT_CODES[act_type], x2d.device.index or 0,
+        DTYPE_CODES[x2d.dtype], ACT_CODES[act_type], x2d.device.index or 0,
         x2d.data_ptr(), scale.data_ptr() if scale is not None else None,
         shift.data_ptr() if shift is not None else None,
         residual.data_ptr() if residual is not None else None,
@@ -513,6 +557,7 @@ def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
     if rc != 0:
         raise _launch_failed(lib, "scale_shift_act", rc)
     scale_shift_act_launches += 1
+    _count_dtype("scale_shift_act", x2d.dtype)
     return out
 
 
@@ -542,7 +587,7 @@ def _pool_check(name, t, ph, pw, spatial=None):
     """Checks of an NHWC pooling operand; `spatial` is the (h, w) pooled
     over (the forward's own, or the backward's dX)."""
     _check_cuda(name, (t,))
-    if t.dim() != 4 or t.dtype not in _POOL_DTYPE_CODES:
+    if t.dim() != 4 or t.dtype not in _FLOATS:
         raise MXNetError(f"{name}: takes a 4-D NHWC float32, bfloat16 or "
                          f"float16 tensor; got {tuple(t.shape)} {t.dtype}")
     if not t.is_contiguous():
@@ -555,7 +600,7 @@ def _pool_args(src, dst, c, ph, pw):
     """(dtype code, route code, vector) of a pooling launch."""
     route, vec = pool_route(ph, pw, c, src.dtype, src.data_ptr() % 16 == 0
                             and dst.data_ptr() % 16 == 0)
-    return _POOL_DTYPE_CODES[src.dtype], _POOL_ROUTES[route], vec
+    return DTYPE_CODES[src.dtype], _POOL_ROUTES[route], vec
 
 
 def avg_pool2d_fwd_cuda(x, ph, pw):
@@ -578,6 +623,7 @@ def avg_pool2d_fwd_cuda(x, ph, pw):
     if rc != 0:
         raise _launch_failed(lib, "avg_pool2d_fwd", rc)
     avg_pool2d_fwd_launches += 1
+    _count_dtype("avg_pool2d_fwd", x.dtype)
     return y
 
 
@@ -606,6 +652,7 @@ def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
     if rc != 0:
         raise _launch_failed(lib, "avg_pool2d_bwd", rc)
     avg_pool2d_bwd_launches += 1
+    _count_dtype("avg_pool2d_bwd", dy.dtype)
     return dx
 
 
@@ -613,7 +660,9 @@ def flash_fwd_route(dtype, d):
     """Which forward kernel takes (dtype, head dim d): "wgmma", the
     tensor-core kernel, for bfloat16 at d a multiple of 8 (a TMA tensor map
     needs rows of whole 16-byte vectors) up to 128, else "cuda_cores".
-    float32 stays off the tensor cores, which would take it as TF32; d over
+    float32 stays off the tensor cores, which would take it as TF32;
+    float16 because the tensor-core kernels are written for bf16 (ROADMAP
+    §B); d over
     128 (over 256 in 128-column slices) because a 64 x d f32 accumulator (O here, dK and dV in the
     backward) is d / 2 registers a thread, which at d = 256 leaves no room
     for the scores and the rest."""
@@ -629,7 +678,7 @@ def flash_bwd_route(dtype, d):
 
 def _flash_check(name, q, k, v, extra=()):
     """Checks shared by the flash wrappers: q (bh, tq, d), k and v
-    (bh, tk, d), one dtype (float32 or bfloat16), d the `refusal` table
+    (bh, tk, d), one dtype (float32, bfloat16 or float16), d the `refusal` table
     takes (any), every tensor contiguous and on one card. `extra` are
     further operands of q's shape and dtype (dO). Returns (bh, tq, tk,
     d)."""
@@ -642,10 +691,11 @@ def _flash_check(name, q, k, v, extra=()):
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
         raise MXNetError(f"{name}: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not serve q {tuple(q.shape)}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+    if q.dtype not in _FLOATS or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise MXNetError(f"{name}: q, k, v must share one dtype, float32 or "
-                         f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise MXNetError(f"{name}: q, k, v must share one dtype, float32, "
+                         f"bfloat16 or float16; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
     _refuse(name, "flash", d=d)
     for t in extra:
         if t.shape != q.shape or t.dtype != q.dtype:
@@ -691,16 +741,18 @@ def flash_fwd_cuda(q, k, v, causal, scale, with_lse):
         rc = lib.mx_flash_fwd_wgmma(q.device.index or 0, d, int(with_lse),
                                     *ptrs, *tail)
     else:
-        rc = lib.mx_flash_fwd(_DTYPE_CODES[q.dtype], q.device.index or 0, d,
+        rc = lib.mx_flash_fwd(DTYPE_CODES[q.dtype], q.device.index or 0, d,
                               int(with_lse), *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_fwd", rc)
     if with_lse:
         flash_fwd_lse_launches += 1
         flash_fwd_lse_wgmma_launches += tensor_cores
+        _count_dtype("flash_fwd_lse", q.dtype)
         return o, lse
     flash_fwd_launches += 1
     flash_fwd_wgmma_launches += tensor_cores
+    _count_dtype("flash_fwd", q.dtype)
     return o
 
 
@@ -731,12 +783,13 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
         _check_aligned(name, q=q, k=k, v=v, do=do, dq=dq)
         rc = lib.mx_flash_bwd_dq_wgmma(q.device.index or 0, d, *ptrs, *tail)
     else:
-        rc = lib.mx_flash_bwd_dq(_DTYPE_CODES[q.dtype], q.device.index or 0,
+        rc = lib.mx_flash_bwd_dq(DTYPE_CODES[q.dtype], q.device.index or 0,
                                  d, *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_bwd_dq", rc)
     flash_bwd_dq_launches += 1
     flash_bwd_dq_wgmma_launches += tensor_cores
+    _count_dtype("flash_bwd_dq", q.dtype)
     return dq
 
 
@@ -767,10 +820,11 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
         rc = lib.mx_flash_bwd_dkv_wgmma(q.device.index or 0, d, *ptrs,
                                         *tail)
     else:
-        rc = lib.mx_flash_bwd_dkv(_DTYPE_CODES[q.dtype],
+        rc = lib.mx_flash_bwd_dkv(DTYPE_CODES[q.dtype],
                                   q.device.index or 0, d, *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_bwd_dkv", rc)
     flash_bwd_dkv_launches += 1
     flash_bwd_dkv_wgmma_launches += tensor_cores
+    _count_dtype("flash_bwd_dkv", q.dtype)
     return dk, dv

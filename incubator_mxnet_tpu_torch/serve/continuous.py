@@ -388,7 +388,10 @@ def _make_prefill(config, window=None):
             _store_page(k_cache, rows, l, W, k)
             _store_page(v_cache, rows, l, W, v)
             scores = torch.einsum("pqhd,pkhd->phqk", q, k) * scale
-            scores = scores.masked_fill(~mask, -1e30)
+            # -1e30, or float16's lowest (the JAX package's -1e30 rounds
+            # to -inf there; either gives exp() = 0)
+            scores = scores.masked_fill(
+                ~mask, max(-1e30, torch.finfo(scores.dtype).min))
             att = torch.einsum("phqk,pkhd->pqhd",
                                torch.softmax(scores, dim=-1), v)
             x = x + att.reshape(P, W, c.embed) @ params["wo"][l]

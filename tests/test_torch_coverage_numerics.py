@@ -148,7 +148,7 @@ def test_fused_dense10_relu_steps_match_jax(monkeypatch):
     np.testing.assert_allclose(got, want, rtol=1e-4)
     for name, p in jnet.collect_params().items():
         np.testing.assert_allclose(
-            tnet.collect_params()[name].detach().numpy(),
+            tnet.collect_params()[name].data().detach().numpy(),
             np.asarray(p.data().asnumpy()), rtol=2e-4, atol=2e-5,
             err_msg=name)
 

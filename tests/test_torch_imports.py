@@ -34,6 +34,7 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "incubator_mxnet_tpu"))
 assert not bad, bad
+print("MODULES", " ".join(names))
 print("IMPORTED", len(names))
 """
 
@@ -59,6 +60,10 @@ def test_port_modules_import_without_jax():
     assert r.returncode == 0, r.stderr
     n = int(r.stdout.split("IMPORTED")[1])
     assert n >= 10      # base, device, ops.{fused,kernels}, serve.{...}
+    names = set(r.stdout.split("MODULES")[1].split("IMPORTED")[0].split())
+    pkg = "incubator_mxnet_tpu_torch"
+    assert {f"{pkg}.autograd", f"{pkg}.lr_scheduler",
+            f"{pkg}.gluon.parameter", f"{pkg}.gluon.trainer"} <= names
 
 
 def test_chip_smoke_imports_without_jax():

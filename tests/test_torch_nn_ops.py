@@ -205,7 +205,29 @@ def test_initializers_dispatch_on_names_and_seed():
 
 
 def test_layers_need_explicit_channels():
-    with pytest.raises(MXNetError, match="in_channels"):
-        tgluon.nn.Conv2D(8, 3)
-    with pytest.raises(MXNetError, match="in_units"):
-        tgluon.nn.Dense(8)
+    """Channel counts are no longer needed: Conv2D and Dense without them
+    defer their weights to the first forward (their shapes then equal the
+    JAX package's), and the values equal an explicit layer's from the same
+    seed, drawn at `initialize()`."""
+    for layout, x in (("NCHW", np.zeros((2, 5, 6, 6), np.float32)),
+                      ("NHWC", np.zeros((2, 6, 6, 5), np.float32))):
+        conv = tgluon.nn.Conv2D(8, 3, layout=layout).initialize(
+            device="cpu", seed=2)
+        with pytest.raises(tgluon.DeferredInitializationError):
+            conv.collect_params()["weight"].data()
+        conv(torch.from_numpy(x))
+        jconv = mx.gluon.nn.Conv2D(8, 3, layout=layout)
+        jconv.initialize()
+        jconv(mx.np.array(x))
+        want = {n: p.shape for n, p in jconv.collect_params().items()}
+        if layout == "NHWC":            # HWIO there, (O, I, kh, kw) here
+            want["weight"] = (8, 5, 3, 3)
+        assert {n: p.shape for n, p in conv.collect_params().items()} == want
+        eager = tgluon.nn.Conv2D(8, 3, layout=layout, in_channels=5)
+        eager.initialize(device="cpu", seed=2)
+        assert torch.equal(conv.weight, eager.weight)
+    dense = tgluon.nn.Dense(8).initialize(device="cpu", seed=3)
+    dense(torch.zeros(4, 2, 3))                      # flatten: 6 in units
+    assert dense.weight.shape == (8, 6)
+    with pytest.raises(MXNetError, match="incompatible"):
+        dense.collect_params()["weight"].shape = (8, 7)

@@ -7,7 +7,7 @@ CUDA kernels, on the CPU.
     records the launch arguments: no card or `nvcc` here);
   * float16 through `fused.avg_pool2d`, forward and gradient, against the
     JAX package's op with its Pallas kernels in interpret mode;
-  * the wrappers take float16 for the pool alone;
+  * the wrappers take float16, the pool's and the others' (ROADMAP C3);
   * `chip_smoke.py`'s phase-4 rule for the pool forward: it must refuse
     three planted bfloat16 faults and pass a sum taken in another order.
 
@@ -72,6 +72,14 @@ class _FakeLib:
 
     def mx_avg_pool2d_bwd(self, dtype, route, vec, *rest):
         self.calls.append(("bwd", dtype, route, vec))
+        return 0
+
+    def mx_scale_shift_act(self, dtype, act, *rest):
+        self.calls.append(("apply", dtype, act))
+        return 0
+
+    def mx_flash_fwd(self, dtype, device, d, with_lse, *rest):
+        self.calls.append(("flash_fwd", dtype, d, with_lse))
         return 0
 
 
@@ -149,16 +157,25 @@ def test_pool_wrappers_take_float16_and_refuse_other_types(fake_lib):
 
 
 def test_other_kernels_keep_refusing_float16(fake_lib):
-    """float16 is the pool's alone (ROADMAP C3): the apply and flash
-    wrappers refuse it before any launch."""
+    """float16 is no longer the pool's alone (ROADMAP C3, closed): the apply
+    and flash wrappers launch it with the one dtype table's code (2), and
+    keep refusing float64 before any launch."""
     x = _cuda(torch.zeros((4, 8), dtype=torch.float16))
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        kernels.scale_shift_act_cuda(x, None, _cuda(torch.zeros(8)), None,
-                                     "relu")
+    assert kernels.scale_shift_act_cuda(
+        x, None, _cuda(torch.zeros(8)), None, "relu").dtype == torch.float16
     q = _cuda(torch.zeros((2, 4, 64), dtype=torch.float16))
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        kernels.flash_fwd_cuda(q, q, q, False, 0.125, False)
-    assert fake_lib.calls == []
+    assert kernels.flash_fwd_cuda(q, q, q, False, 0.125,
+                                  False).dtype == torch.float16
+    assert fake_lib.calls == [("apply", 2, kernels.ACT_CODES["relu"]),
+                              ("flash_fwd", 2, 64, 0)]
+    x64 = _cuda(torch.zeros((4, 8), dtype=torch.float64))
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        kernels.scale_shift_act_cuda(x64, None, _cuda(torch.zeros(8)), None,
+                                     "relu")
+    q64 = _cuda(torch.zeros((2, 4, 64), dtype=torch.float64))
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        kernels.flash_fwd_cuda(q64, q64, q64, False, 0.125, False)
+    assert len(fake_lib.calls) == 2
 
 
 def _load_chip_smoke():

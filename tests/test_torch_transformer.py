@@ -32,6 +32,7 @@ from incubator_mxnet_tpu.ops import pallas_attention as jpa
 from incubator_mxnet_tpu.ops.registry import invoke as jinvoke
 
 from incubator_mxnet_tpu_torch import MXNetError
+from incubator_mxnet_tpu_torch import autograd
 from incubator_mxnet_tpu_torch import amp as tamp
 from incubator_mxnet_tpu_torch import gluon as tgluon
 from incubator_mxnet_tpu_torch import optimizer as topt
@@ -89,7 +90,7 @@ def _port_run(tblk, x, extra, cot, **kw):
     out = tblk(torch.tensor(x), *(torch.tensor(e) for e in extra), **kw)
     params = tblk.collect_params()
     grads = torch.autograd.grad((out * torch.tensor(cot)).sum(),
-                                list(params.values()))
+                                [p.data() for p in params.values()])
     return out.detach().numpy(), {n: g.numpy()
                                   for n, g in zip(params, grads)}
 
@@ -321,7 +322,7 @@ def test_amp_bf16_train_steps_match_jax(monkeypatch):
     got = _port_train(tnet, x, y, amp_on=True)
     np.testing.assert_allclose(got, want, rtol=2e-3)
     assert seen == [(torch.bfloat16,) * 3] * (2 * STEPS)
-    assert all(p.dtype == torch.float32
+    assert all(p.data().dtype == torch.float32
                for p in tnet.collect_params().values())
     jw, tw = _jax_weights(jnet), port_values(tnet)
     for n in jw:
@@ -337,8 +338,13 @@ def test_bert_layout_names_and_shapes_match_jax():
     j = {n: tuple(p.shape) for n, p in jnet.collect_params().items()}
     t = {n: tuple(v.shape) for n, v in tnet.collect_params().items()}
     assert t == j and len(t) == 22
-    with pytest.raises(MXNetError, match="in_channels"):
-        tgluon.nn.LayerNorm()
+    # a LayerNorm without in_channels takes its width from the first input
+    ln = tgluon.nn.LayerNorm().initialize(device="cpu")
+    with pytest.raises(tgluon.DeferredInitializationError):
+        ln.collect_params()["gamma"].data()
+    ln(torch.zeros(2, 3, TRANSFORMER["units"]))
+    assert {n: p.shape for n, p in ln.collect_params().items()} == \
+        {"gamma": (TRANSFORMER["units"],), "beta": (TRANSFORMER["units"],)}
 
 
 # ---------------------------------------------------------------------------
@@ -385,12 +391,17 @@ def test_dropout_block_draws_only_in_training_mode():
     trandom.seed(7)
     blk = tgluon.nn.Dropout(0.5)
     x = torch.ones(64, 64)
-    assert torch.equal(blk(x), x)                   # blocks start in predict
-    blk.train(True)
-    first = blk(x)
+    assert torch.equal(blk(x), x)                   # predict mode by default
+    blk.train(True)                         # the module flag is not read
+    assert torch.equal(blk(x), x)
+    with autograd.train_mode():
+        first = blk(x)
     assert 0.4 < (first == 0).float().mean().item() < 0.6
     trandom.seed(7)
-    assert torch.equal(blk(x), first)              # the seed replays it
+    with autograd.record():
+        assert torch.equal(blk(x), first)          # the seed replays it
+    with autograd.record(train_mode=False):
+        assert torch.equal(blk(x), x)
 
 
 # ---------------------------------------------------------------------------

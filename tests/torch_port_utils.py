@@ -115,8 +115,8 @@ def port_values(tnet):
     """The port net's values in the JAX package's layout (a channels-last
     Conv2D's (O, I, kh, kw) weight back to HWIO)."""
     out = {}
-    for name, t in tnet.collect_params().items():
-        v = t.detach().float().cpu()
+    for name, p in tnet.collect_params().items():
+        v = p.data().detach().float().cpu()
         blk, leaf = tnet._owner(name)
         if leaf == "weight" and getattr(blk, "_hwio_weight", False):
             v = v.permute(2, 3, 1, 0)
@@ -163,11 +163,14 @@ def carry_values(jblk, tblk, seed=0):
     return values
 
 
-def encoder_lm_pair(layers=2, use_flash=True, seed=0, cfg=TRANSFORMER):
+def encoder_lm_pair(layers=2, use_flash=True, seed=0, cfg=TRANSFORMER,
+                    deferred=False):
     """(JAX net, port net on the CPU): token embedding, positional
     embedding, `layers` pre-norm encoder cells (gelu, dropout 0), a final
     LayerNorm and a Dense head over the vocabulary — BERT's layout at a
-    small width — holding the same values."""
+    small width — holding the same values. `deferred`: the LayerNorm and
+    the head are built without channel counts (their shapes resolve when
+    the values are carried in)."""
     from incubator_mxnet_tpu import gluon as jgluon
     from incubator_mxnet_tpu_torch import gluon as tgluon
 
@@ -184,8 +187,10 @@ def encoder_lm_pair(layers=2, use_flash=True, seed=0, cfg=TRANSFORMER):
                 seq_add(self.cells, [nn.TransformerEncoderCell(
                     u, cfg["hidden"], cfg["heads"], dropout=0.0,
                     use_flash=use_flash) for _ in range(layers)])
-                self.ln = nn.LayerNorm(in_channels=u)
-                self.head = nn.Dense(V, flatten=False, in_units=u)
+                width = {} if deferred else {"in_channels": u}
+                self.ln = nn.LayerNorm(**width)
+                self.head = nn.Dense(V, flatten=False,
+                                     in_units=0 if deferred else u)
 
             def forward(self, x):
                 return self.head(self.ln(self.cells(self.pos(self.emb(x)))))
@@ -193,6 +198,9 @@ def encoder_lm_pair(layers=2, use_flash=True, seed=0, cfg=TRANSFORMER):
 
     jnet = build(jgluon, lambda s, cells: [s.add(c) for c in cells])
     jnet.initialize()
+    if deferred:
+        import incubator_mxnet_tpu as mx
+        jnet(mx.np.zeros((1, cfg["seq"]), dtype="int32"))
     tnet = build(tgluon, lambda s, cells: s.add(*cells)).initialize(
         device="cpu")
     carry_values(jnet, tnet, seed)
