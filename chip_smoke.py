@@ -62,10 +62,12 @@ Each phase fails the run (non-zero exit) on any error:
   6. the flash-attention kernels (B5 forward, B6 forward + log-sum-exp,
      B7 dq sweep, B8 dk/dv sweep) against their plain versions on the
      card at the BERT path's shape (bh 192 = 16 x 12 heads, T 512, d 64)
-     in bfloat16 and float32 (and float16 on the CUDA cores, timed there
-     and at the causal (48, 2048, 128) shape, its limits bfloat16's scaled
-     to its step, 2^-11 against 2^-8, and the planted store faults refused
-     in float16 too, plus a ragged T = 500 and d = 384), causal and not,
+     in bfloat16 and float32 (and float16, its forward on the tensor cores
+     and its backward on the CUDA cores, timed there and at the causal
+     (48, 2048, 128) shape, its limits bfloat16's scaled to its step,
+     2^-11 against 2^-8, the planted store faults refused in float16 too
+     and its one-term P read, plus a ragged T = 500, d = 384 and d = 12,
+     the CUDA-core forward), causal and not,
      plus Tq != Tk causal (rows
      that see no key), a ragged T = 500, head dims 12 (the CUDA-core
      kernels in bf16 too), 32, 40, 96 and 128, 136, 192 and 256 (the
@@ -76,14 +78,15 @@ Each phase fails the run (non-zero exit) on any error:
      causal (48, 2048, 128) bf16 shape each kernel's time against its
      bound, the plain version's time and one SDPA call's (forward for
      B5/B6, backward for B7/B8). All four kernels take bf16 at d % 8 == 0
-     up to 128 on the tensor cores (wgmma, TMA), and the launch counters
-     must show every such shape there and no other. A bf16 output is held
+     up to 128 on the tensor cores (wgmma, TMA), and so do B5 and B6 in
+     float16; the launch counters must show every such shape there and no
+     other. A bf16 output is held
      to limits relative to its own size, and they must refuse two planted
      store faults (a truncating store, a swapped pair) of o, dq, dk and dv
      at both timed shapes, and a swapped pair of each tensor-core kernel's
      own output; beside them, the readings of a one-term bf16 P in the
-     forward and of one-term P and dS in the backward (emulated in
-     PyTorch), which the kernels' two-term operands avoid.
+     forward (bf16 and float16) and of one-term P and dS in the backward
+     (emulated in PyTorch), which the kernels' two-term operands avoid.
   7. BERT-base at full width: 12 `TransformerEncoderCell(768, 3072, 12,
      dropout 0.1, gelu, use_flash=True)` between token and positional
      embeddings (vocab 30522, 512 positions) and a LayerNorm + Dense head
@@ -91,8 +94,9 @@ Each phase fails the run (non-zero exit) on any error:
      tokens and random labels from numpy, bf16 AMP, Adam lr 1e-4: 2
      warm-up and 10 timed steps with finite losses and exactly 12 B6, 12
      B7 and 12 B8 launches a step, every one on the tensor cores,
-     then one inference forward under `torch.no_grad()` with exactly 12 B5
-     launches, all on the tensor cores, and finite logits;
+     then one plain inference forward `net(x)` outside `record()` (no
+     `torch.no_grad()`) with exactly 12 B5 launches, all on the tensor
+     cores, no B6, nothing taped, and finite logits;
      then, in float32 with TF32 off, dropout 0, 2 layers at full width
      and batch 4, two flash SGD steps against two SDPA-composition steps
      from the same weights: the losses, and each weight's update relative
@@ -157,13 +161,17 @@ Each phase fails the run (non-zero exit) on any error:
      wd 0.01, epsilon 1e-6, PolyScheduler(max_update 12, pwr 1, warmup
      4))` with wd_mult 0 on beta, gamma and bias: finite losses, exactly
      12 B6, 12 B7 and 12 B8 launches a step on the tensor cores, the
-     trainer's learning rate the scheduler's at every step; (b) ResNet-50
+     trainer's learning rate the scheduler's at every step, and the
+     gradient copies a step that writing each gradient into its
+     Parameter's buffer adds (one per trainable Parameter); (b) ResNet-50
      v1 NHWC, batch 32, bf16 AMP, `fused.set_fusion_default(True)`, NAG
      momentum 0.9, wd 1e-4, lr 0.1 x 32 / 256 with a warmed-up
      CosineScheduler: exactly 53, 1 and 1 launches a step; (c) (a)'s model
      and batch under float16 AMP (`amp.init_trainer`, `amp.scale_loss`,
-     `amp.step_with_overflow_check`), 2 + 3 steps, every flash launch on
-     the float16 CUDA-core kernels, one inference forward (12 float16 B5),
+     `amp.step_with_overflow_check`), 2 + 3 steps, every B6 on the float16
+     tensor-core kernel and every B7 and B8 on the float16 CUDA-core ones,
+     one plain inference forward `net(x)` (12 float16 B5 on the tensor
+     cores, no B6),
      then a step with an inf planted in one gradient, which must leave
      every weight bit-equal and halve the scale; (d) float32, TF32 off,
      dropout 0, 2 layers at full width, batch 4: two Trainer-loop Adam
@@ -1127,8 +1135,11 @@ FLASH_HUGE = [(8, 300, 300, 264, True), (8, 300, 300, 264, False),
               (8, 256, 256, 384, False), (8, 300, 260, 384, True),
               (8, 300, 300, 512, True), (8, 256, 256, 512, False)]
 FLASH_HUGE_TIMED = (8, 256, 256, 384, False)
-# float16's further shapes: a ragged T and a head dim over 256
-FLASH_F16_EXTRA = [(24, 500, 500, 64, True), (8, 300, 260, 384, True)]
+# float16's further shapes: a ragged T, a head dim over 256, and d = 12
+# (d % 8 != 0: the float16 CUDA-core forward, held beside the tensor-core
+# one)
+FLASH_F16_EXTRA = [(24, 500, 500, 64, True), (8, 300, 260, 384, True),
+                   (24, 256, 256, 12, True)]
 # the second timed shape: a long causal sequence at the widest head dim the
 # tensor cores take
 FLASH_LONG = (48, 2048, 2048, 128, True)
@@ -1342,9 +1353,10 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed, faults=True):
             planted[f"{name}, swapped pair of the kernel's own output"] = \
                 swapped_own(name, own, ref)
         rows["flash_fwd"]["planted"] = planted
-    if timed and faults and dtype == torch.bfloat16:
+    if timed and faults and dtype != torch.float32:
         rows["flash_fwd"]["one_term_p"] = one_term_reading(q, k, v, causal,
                                                            scale, o_ref)
+    if timed and faults and dtype == torch.bfloat16:
         rows["flash_bwd_dq"]["one_term"] = bwd_term_readings(
             bwd_args, {"dq": dq_ref, "dk": dk_ref, "dv": dv_ref})
     return rows
@@ -1364,27 +1376,29 @@ def swapped_own(name, out, ref):
 
 
 def one_term_reading(q, k, v, causal, scale, o_ref):
-    """What the bf16 limits read if P went into P.V as one bf16 term (P
-    rounded to bf16, products and sums in f32, as a single wgmma would
-    take it), against the two terms P_hi + P_lo the tensor-core forward
-    issues; emulated in PyTorch on the card. Recorded, not asserted: it
-    says why the forward splits P."""
+    """What the limits of q's 16-bit type read if P went into P.V as one
+    term of that type (P rounded to it, products and sums in f32, as a
+    single wgmma would take it), against the two terms P_hi + P_lo the
+    tensor-core forward issues; emulated in PyTorch on the card. Recorded,
+    not asserted: it says why the forward splits P in both types."""
+    dtype = q.dtype
     s, live = attention._scores(q, k, scale, causal)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     if live is not None:
         p = p * live
     den = p.sum(-1, keepdim=True)
     den = torch.where(den == 0, 1.0, den)
-    hi = p.bfloat16().float()
+    hi = p.to(dtype).float()
     out = {}
     for name, pp in (("one_term", hi),
-                     ("two_term", hi + (p - hi).bfloat16().float())):
-        o = (torch.einsum("bqk,bkd->bqd", pp, v.float()) / den).to(q.dtype)
-        out[name] = _flash_err(o, o_ref, q.dtype)[2]
+                     ("two_term", hi + (p - hi).to(dtype).float())):
+        o = (torch.einsum("bqk,bkd->bqd", pp, v.float()) / den).to(dtype)
+        out[name] = _flash_err(o, o_ref, dtype)[2]
     del s, p, hi
-    log(f"[flash kernels] P.V with P in bf16 (emulated): one term "
-        f"{out['one_term']}, two terms {out['two_term']} (limits max_rel "
-        f"{FLASH_BF16_MAX_TOL}, rms_rel {FLASH_BF16_RMS_TOL})")
+    max_tol, rms_tol = limits16(dtype)
+    log(f"[flash kernels] P.V with P in {_dtype_name(dtype)} (emulated): "
+        f"one term {out['one_term']}, two terms {out['two_term']} (limits "
+        f"max_rel {max_tol:.3e}, rms_rel {rms_tol:.3e})")
     return out
 
 
@@ -1485,9 +1499,10 @@ def phase_flash_kernels(dev):
                                         faults=False))
         variants.append(check_flash(*FLASH_LONG, dtype, gen, dev,
                                     dtype == torch.bfloat16))
-    # float16, on the CUDA cores: the path's shape and the causal long one,
-    # timed, with the planted store faults; a ragged T and a head dim over
-    # 256
+    # float16: the path's shape and the causal long one (forward on the
+    # tensor cores, backward on the CUDA cores), timed, with the planted
+    # store faults and the one-term reading; a ragged T, a head dim over
+    # 256 and d = 12 (the CUDA-core forward)
     f16 = torch.float16
     variants.append(check_flash(bh, t, t, d, False, f16, gen, dev, True))
     variants.append(check_flash(*FLASH_LONG, f16, gen, dev, True))
@@ -1590,10 +1605,10 @@ def phase_bert(card, profile, dev):
         launches = kernels.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         step_ms = wall / BERT_STEPS * 1e3
-        # inference: one forward with nothing recorded, on the same counts
+        # inference: one plain forward outside record(), on the same counts;
+        # nothing is taped, so flash takes B5
         t0 = time.perf_counter()
-        with torch.no_grad():
-            logits = net(batches[0][0])
+        logits = net(batches[0][0])
         torch.cuda.synchronize()
         infer_ms = (time.perf_counter() - t0) * 1e3
         total = kernels.launch_counts()
@@ -1631,6 +1646,7 @@ def phase_bert(card, profile, dev):
     assert infer == dict(dict.fromkeys(infer, 0), flash_fwd=L,
                          flash_fwd_wgmma=L), \
         "flash launch count off the inference path"
+    assert logits.grad_fn is None, "the inference forward was taped"
     assert logits.shape == (BERT_BATCH, BERT_SEQ, BERT["vocab"]) and \
         torch.isfinite(logits.float()).all(), "inference logits not finite"
     del net, step, logits
@@ -2249,7 +2265,8 @@ def cover_mha(dev, units):
                  if p.grad_req != "null" and n != MHA_SKIP}
 
         def run():
-            y = net(xi, causal=True)
+            with autograd.record(train_mode=False):
+                y = net(xi, causal=True)
             grads = torch.autograd.grad(y, [xi] + list(named.values()), g,
                                         allow_unused=True)
             return dict(zip(["out", "x"] + list(named), (y,) + grads))
@@ -2381,13 +2398,26 @@ def loop_step(net, trainer, loss_fn, x, y):
     return loss.detach()
 
 
+def c4_copies(net, steps):
+    """The elementwise launches a step that writing each gradient into its
+    Parameter's own buffer (ROADMAP C4) adds: one copy per overwritten
+    gradient, read from `autograd.buffer_copies` over `steps` steps. With
+    grad_req "write" it is one per trainable Parameter a step."""
+    per_step = autograd.buffer_copies() / steps
+    trainable = sum(p.grad_req != "null"
+                    for p in net.collect_params().values())
+    return {"copies_per_step": per_step, "trainable_parameters": trainable}
+
+
 def _timed_loop(step, batches, warmup, steps):
     """(losses, wall seconds) of `steps` calls of step(*batch) after
-    `warmup` untimed ones, the counts set to 0 in between."""
+    `warmup` untimed ones, the counts (and `autograd.buffer_copies`) set to
+    0 in between."""
     for i in range(warmup):
         step(*batches[i % len(batches)])
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    autograd.buffer_copies(reset=True)
     t0 = time.perf_counter()
     out = [step(*batches[i % len(batches)]) for i in range(steps)]
     torch.cuda.synchronize()
@@ -2418,6 +2448,7 @@ def loop_bert(card, dev, profile):
             return loop_step(net, trainer, loss_fn, x, y)
         losses, wall = _timed_loop(step, batches, LOOP_WARMUP, LOOP_STEPS)
         launches = kernels.launch_counts()
+        c4 = c4_copies(net, LOOP_STEPS)
         prof = profile_steps(
             lambda x, y: loop_step(net, trainer, loss_fn, x, y), batches,
             wall / LOOP_STEPS * 1e3, FLASH_SYMBOLS, "loop bert") \
@@ -2441,6 +2472,10 @@ def loop_bert(card, dev, profile):
     log(f"[loop bert] launches {launches} (expected {L} each of "
         f"flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv a step, all on the "
         f"tensor cores)")
+    log(f"[loop bert] gradient buffers (C4): the backward writes each "
+        f"gradient into its Parameter's buffer, {c4['copies_per_step']:.1f} "
+        f"copies (elementwise launches) a step over "
+        f"{c4['trainable_parameters']} trainable Parameters")
     assert all(np.isfinite(losses)), "non-finite BERT loop loss"
     assert shapes == {"head.weight": (BERT["vocab"], BERT["units"]),
                       "ln.beta": (BERT["units"],),
@@ -2450,10 +2485,12 @@ def loop_bert(card, dev, profile):
     for n in FLASH_KERNELS[1:]:
         want[n] = want[FLASH_WGMMA[n]] = L * LOOP_STEPS
     assert launches == want, "flash launch count off the imperative loop"
+    assert c4["copies_per_step"] == c4["trainable_parameters"], \
+        f"gradient copies a step {c4}"
     return net, batches, {"step_ms": step_ms, "tokens_per_s": tokens_s,
                           "losses": losses, "rates": rates,
                           "launches": launches, "deferred": shapes,
-                          "profile": prof}
+                          "c4": c4, "profile": prof}
 
 
 def loop_resnet(card, dev, profile):
@@ -2472,6 +2509,7 @@ def loop_resnet(card, dev, profile):
         step = lambda x, y: loop_step(net, trainer, loss_fn, x, y)
         losses, wall = _timed_loop(step, batches, LOOP_WARMUP, LOOP_STEPS)
         launches = kernels.launch_counts()
+        c4 = c4_copies(net, LOOP_STEPS)
         prof = profile_steps(step, batches, wall / LOOP_STEPS * 1e3,
                              KERNEL_SYMBOLS, "loop resnet") \
             if profile else None
@@ -2485,7 +2523,9 @@ def loop_resnet(card, dev, profile):
         f"{BATCH} x {IMAGE}^2, bf16 AMP, fusion default on, NAG {NAG} with "
         f"CosineScheduler {COSINE}, in {wall:.3f} s: {step_ms:.3f} ms/step, "
         f"{ips:.1f} images/s; losses {[round(v, 4) for v in losses]}; "
-        f"launches {launches} (expected 53, 1, 1 a step)")
+        f"launches {launches} (expected 53, 1, 1 a step); gradient "
+        f"buffers (C4): {c4['copies_per_step']:.1f} copies a step over "
+        f"{c4['trainable_parameters']} trainable Parameters")
     assert all(np.isfinite(losses)), "non-finite ResNet loop loss"
     assert launches["scale_shift_act"] == 53 * LOOP_STEPS \
         and launches["avg_pool2d_fwd"] == LOOP_STEPS \
@@ -2494,14 +2534,16 @@ def loop_resnet(card, dev, profile):
     del net, trainer
     torch.cuda.empty_cache()
     return {"step_ms": step_ms, "images_per_s": ips, "losses": losses,
-            "launches": launches, "profile": prof}
+            "launches": launches, "c4": c4, "profile": prof}
 
 
-def loop_f16(card, dev, net, batches):
+def loop_f16(card, dev, net, batches, profile):
     """(c) (a)'s model and batch under float16 AMP with dynamic loss
-    scaling; every flash launch on the float16 CUDA-core kernels; then one
-    inference forward (B5 in float16) and one step with an inf planted in
-    a gradient, which must be skipped."""
+    scaling; every flash forward (B6) on the float16 tensor-core kernel,
+    the backward sweeps on the float16 CUDA-core kernels; then one plain
+    inference forward `net(x)` (B5 in float16 on the tensor cores, nothing
+    taped) and one step with an inf planted in a gradient, which must be
+    skipped."""
     L = BERT["layers"]
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     amp.init("float16")
@@ -2521,12 +2563,13 @@ def loop_f16(card, dev, net, batches):
         out, wall = _timed_loop(step, batches, LOOP_WARMUP, LOOP_F16_STEPS)
         launches = kernels.launch_counts()
         by_dtype = kernels.launch_counts_by_dtype()
+        prof = profile_steps(step, batches, wall / LOOP_F16_STEPS * 1e3,
+                             FLASH_SYMBOLS, "loop f16") if profile else None
         kernels.reset_launch_counts()
-        with torch.no_grad():
-            logits = net(batches[0][0])
+        logits = net(batches[0][0])
         torch.cuda.synchronize()
         infer = kernels.launch_counts_by_dtype()
-        infer_wgmma = kernels.launch_counts()["flash_fwd_wgmma"]
+        infer_counts = kernels.launch_counts()
         # the planted overflow
         x, y = batches[0]
         with autograd.record():
@@ -2560,12 +2603,19 @@ def loop_f16(card, dev, net, batches):
         f"{scaler.loss_scale}")
     assert all(np.isfinite(losses)), "non-finite float16 loop loss"
     n = L * LOOP_F16_STEPS
+    # B6 on the tensor cores, B7 and B8 on the CUDA cores (their float16
+    # tensor-core instances are later work)
     assert by_dtype == {(k, "float16"): n for k in FLASH_KERNELS[1:]} and \
-        all(launches[k] == n and launches[FLASH_WGMMA[k]] == 0
-            for k in FLASH_KERNELS[1:]), \
-        "float16 flash launches off the CUDA-core route"
-    assert infer == {("flash_fwd", "float16"): L} and infer_wgmma == 0, \
-        f"float16 inference launches {infer}"
+        all(launches[k] == n for k in FLASH_KERNELS[1:]) and \
+        launches["flash_fwd_lse_wgmma"] == n and \
+        launches["flash_bwd_dq_wgmma"] == 0 and \
+        launches["flash_bwd_dkv_wgmma"] == 0, \
+        "float16 flash launches off their routes"
+    assert infer == {("flash_fwd", "float16"): L} and \
+        infer_counts["flash_fwd_wgmma"] == L and \
+        infer_counts["flash_fwd_lse"] == 0, \
+        f"float16 inference launches {infer} {infer_counts}"
+    assert logits.grad_fn is None, "the float16 inference forward was taped"
     assert logits.shape == (BERT_BATCH, BERT_SEQ, BERT["vocab"]) and \
         torch.isfinite(logits.float()).all(), "float16 logits not finite"
     assert not ran and unchanged and scaler.loss_scale == scale0 / 2, \
@@ -2575,6 +2625,8 @@ def loop_f16(card, dev, net, batches):
             "launches": launches, "by_dtype": {f"{k}/{d}": v for (k, d), v
                                               in by_dtype.items()},
             "infer_launches": infer[("flash_fwd", "float16")],
+            "infer_wgmma_launches": infer_counts["flash_fwd_wgmma"],
+            "profile": prof,
             "planted_scale": [scale0, scaler.loss_scale]}
 
 
@@ -2649,7 +2701,7 @@ def phase_loop(card, dev, profile):
     t0 = time.perf_counter()
     net, batches, bert = loop_bert(card, dev, profile)
     resnet = loop_resnet(card, dev, profile)
-    f16 = loop_f16(card, dev, net, batches)
+    f16 = loop_f16(card, dev, net, batches, profile)
     del net, batches
     torch.cuda.empty_cache()
     checks = loop_f32_checks(dev)
@@ -2777,14 +2829,22 @@ def f16_entries(tk, paged, flash, coverage, loop):
     long_, = [v for v in timed if v["flash_fwd"]["tq"] == FLASH_LONG[1]]
     for name in FLASH_KERNELS:
         r = main[name]
-        launches = loop["f16"]["infer_launches"] if name == "flash_fwd" \
-            else loop["f16"]["launches"][name]
+        f16 = loop["f16"]
+        # B5 runs in (c)'s inference forward, the others in its steps;
+        # "kernel_route" is the route the path's shape takes (the forward
+        # on the tensor cores, the backward on the CUDA cores)
+        if name == "flash_fwd":
+            launches, tc = f16["infer_launches"], f16["infer_wgmma_launches"]
+        else:
+            launches = f16["launches"][name]
+            tc = f16["launches"][FLASH_WGMMA[name]]
         out.append(dict(
             {k: r[k] for k in keys}, name=f"{name}_float16", route="cuda",
             source="incubator_mxnet_tpu_torch/ops/csrc/flash_attention.cu",
             replaces="incubator_mxnet_tpu/ops/pallas_attention.py:"
                      f"{FLASH_REPLACES[name]}",
             launches=launches, kernel_route=r["route"],
+            tensor_core_launches=tc,
             shape=f"(bh, T, d) = ({r['bh']}, {r['tq']}, {r['d']}) float16, "
                   f"no mask (library: F.scaled_dot_product_attention "
                   f"{'forward' if name.startswith('flash_fwd') else 'backward'}"

@@ -13,10 +13,18 @@ this module adds MXNet's semantics on top of it:
   * `grad_req` per variable: "write" (each backward overwrites the
     gradient), "add" (backwards add up until the gradient is consumed, by
     `gluon.Trainer.step` for instance) or "null" (no gradient). PyTorch
-    always adds into `.grad`; a hook on each variable's gradient
-    accumulator makes the write and the first add of a round overwrite
+    always adds into `.grad`; hooks on each variable's gradient
+    accumulator make the write and the first add of a round overwrite
     instead, and only in a backward that accumulates (never inside
     `torch.autograd.grad`, which `gluon.contrib.FusedTrainStep` uses).
+    The gradient lands in the buffer `.grad` held before the backward (the
+    one given to `mark_variables`, or returned by `Parameter.grad()`), as
+    the JAX package writes `var.grad[:]`: an overwrite costs one copy into
+    it (`buffer_copies()` counts them); a tensor without a buffer takes
+    PyTorch's gradient tensor as its first one.
+  * the taping scope: `record()` and `FusedTrainStep`'s own scope tape
+    (`is_taping()`); a Gluon block called outside them runs its forward
+    under `torch.no_grad()`, so inference records nothing.
   * `backward(heads)` on a non-scalar head seeds it with ones, as MXNet's
     `loss.backward()` does on a per-sample loss (PyTorch's
     `Tensor.backward()` refuses a non-scalar).
@@ -41,8 +49,9 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad", "Function"]
+           "is_training", "is_taping", "set_recording", "set_training",
+           "mark_variables", "backward", "grad", "Function",
+           "buffer_copies"]
 
 _state = threading.local()
 
@@ -62,7 +71,7 @@ def set_recording(is_record):
     """Set the recording flag and PyTorch's grad mode with it; returns the
     previous flag."""
     prev = is_recording()
-    _state.recording = bool(is_record)
+    _state.recording = _state.taping = bool(is_record)
     torch.set_grad_enabled(bool(is_record))
     return prev
 
@@ -74,19 +83,32 @@ def set_training(train_mode_):
     return prev
 
 
+def is_taping():
+    """Whether a Gluon block's forward is taped: inside `record()` or
+    `FusedTrainStep`'s scope. Outside them a block runs under
+    `torch.no_grad()`."""
+    return getattr(_state, "taping", False)
+
+
 class _Scope:
     """Sets the recording and training flags for its extent (None leaves a
-    flag alone); `grad_mode` True or False also sets PyTorch's grad mode."""
+    flag alone); `grad_mode` True or False also sets PyTorch's grad mode;
+    `taping` sets `is_taping()` (by default it follows `recording`)."""
 
-    def __init__(self, recording=None, training=None, grad_mode=None):
+    def __init__(self, recording=None, training=None, grad_mode=None,
+                 taping=None):
         self._recording = recording
         self._training = training
         self._grad_mode = grad_mode
+        self._taping = recording if taping is None else taping
 
     def __enter__(self):
         if self._recording is not None:
             self._prev_rec = getattr(_state, "recording", False)
             _state.recording = bool(self._recording)
+        if self._taping is not None:
+            self._prev_tape = is_taping()
+            _state.taping = bool(self._taping)
         if self._training is not None:
             self._prev_train = set_training(self._training)
         if self._grad_mode is not None:
@@ -97,6 +119,8 @@ class _Scope:
     def __exit__(self, *exc):
         if self._recording is not None:
             _state.recording = self._prev_rec
+        if self._taping is not None:
+            _state.taping = self._prev_tape
         if self._training is not None:
             set_training(self._prev_train)
         if self._grad_mode is not None:
@@ -129,14 +153,16 @@ _REQS = ("write", "add", "null")
 
 
 class _Variable:
-    """A variable's gradient request and whether its `.grad` holds the
-    gradients of a backward not yet consumed (`fresh`)."""
+    """A variable's gradient request, whether its `.grad` holds the
+    gradients of a backward not yet consumed (`fresh`), and during a
+    backward that overwrites, the buffer the gradient goes to (`kept`)."""
 
-    __slots__ = ("grad_req", "fresh", "_handles", "__weakref__")
+    __slots__ = ("grad_req", "fresh", "kept", "_handles", "__weakref__")
 
     def __init__(self, tensor, grad_req):
         self.grad_req = grad_req
         self.fresh = False
+        self.kept = None
         self._handles = []
         if grad_req == "null":
             return
@@ -145,7 +171,7 @@ class _Variable:
         self._handles = [
             tensor.register_hook(lambda g: _before_accumulate(ref, me)),
             tensor.register_post_accumulate_grad_hook(
-                lambda t: _after_accumulate(me))]
+                lambda t: _after_accumulate(t, me))]
 
     def detach_hooks(self):
         for h in self._handles:
@@ -164,19 +190,48 @@ def _accumulates(t):
         return False
 
 
+# copies of a gradient into its kept buffer (one elementwise launch each)
+# since the last reset
+_buffer_copies = 0
+
+
+def buffer_copies(reset=False):
+    """Gradients copied into their variables' buffers (an overwrite: a
+    "write", or the first "add" of a round, on a tensor that had a
+    buffer) since the last reset; each is one elementwise launch."""
+    global _buffer_copies
+    n = _buffer_copies
+    if reset:
+        _buffer_copies = 0
+    return n
+
+
 def _before_accumulate(tensor_ref, var_ref):
     var, t = var_ref(), tensor_ref()
     if var is None or t is None or not _accumulates(t):
         return None
     if var.grad_req == "write" or not var.fresh:
-        t.grad = None          # this backward's gradient replaces it
+        # this backward's gradient replaces the buffer's content: PyTorch
+        # puts it in a tensor of its own, and the post-accumulate hook
+        # copies it into the buffer
+        var.kept, t.grad = t.grad, None
     return None
 
 
-def _after_accumulate(var_ref):
+def _after_accumulate(t, var_ref):
+    global _buffer_copies
     var = var_ref()
-    if var is not None:
-        var.fresh = True
+    if var is None:
+        return
+    var.fresh = True
+    kept, var.kept = var.kept, None
+    # a gradient with a graph of its own (create_graph) stays PyTorch's
+    if kept is None or t.grad is kept or t.grad.requires_grad:
+        return
+    with torch.no_grad():
+        kept.copy_(t.grad)
+    t.grad = kept
+    _buffer_copies += 1
 
 
 def attach(tensor, grad_req="write", grad=None):

@@ -23,7 +23,11 @@ Counterpart of `incubator_mxnet_tpu/gluon/block.py`. What carries over:
   * `hybridize()` records the flag and nothing else: the port runs
     eagerly (CUDA-graph capture of the step is later work);
   * training mode is `autograd.is_training()` (set by `autograd.record()`,
-    `train_mode()`, and `FusedTrainStep`), not `torch.nn.Module.training`.
+    `train_mode()`, and `FusedTrainStep`), not `torch.nn.Module.training`;
+  * a block called outside `autograd.record()` (and `FusedTrainStep`)
+    records nothing: its forward runs under `torch.no_grad()`, so an
+    inference `net(x)` keeps no activations and its flash attention takes
+    the LSE-free forward (B5).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import autograd
 from ..base import MXNetError, atomic_output
 from ..device import resolve_device
 from .parameter import DeferredInitializationError, Parameter
@@ -130,6 +135,12 @@ class HybridBlock(torch.nn.Module):
     def __call__(self, *args, **kwargs):
         if self._pending:
             self._resolve(*args)
+        # outside record() (and FusedTrainStep's scope) nothing is taped,
+        # as in the JAX package: the outermost call turns grad mode off, so
+        # nested calls see it off and add no work
+        if torch.is_grad_enabled() and not autograd.is_taping():
+            with torch.no_grad():
+                return super().__call__(*args, **kwargs)
         return super().__call__(*args, **kwargs)
 
     # ------------------------------------------------------------------

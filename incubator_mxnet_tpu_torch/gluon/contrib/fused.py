@@ -18,8 +18,10 @@ rule that takes the step count (the Adam family) sees each inner step's
 own count.
 
 The net runs in the JAX step's scope, `autograd._Scope(recording=False,
-training=True)`: training mode (BatchNorm takes batch statistics and
-updates its running stats, as the JAX step's aux buffers are updated),
+training=True)`, taped (`autograd.is_taping()`: its blocks record the
+graph the gradients come from): training mode (BatchNorm takes batch
+statistics and updates its running stats, as the JAX step's aux buffers
+are updated),
 with the gradients taken by `torch.autograd.grad` (no `.grad` is written),
 and inside `fusion_scope(use_fusion)`: with fusion on (the
 default; `use_fusion=False` gives the unfused step) the Gluon blocks route
@@ -95,8 +97,8 @@ class FusedTrainStep:
         train = [params[i] for i in self._train_idx]
         staged = [self._stage(a) for a in inputs]
         losses, extras_k = [], []
-        with autograd._Scope(recording=False, training=True), \
-                torch.enable_grad():
+        with autograd._Scope(recording=False, training=True,
+                             grad_mode=True, taping=True):
             for k in range(self._K):
                 in_k = [a[k] for a in staged] if self._K > 1 else staged
                 with _fused.fusion_scope(self._use_fusion):

@@ -25,16 +25,17 @@
 // and any bh. delta is computed by the caller, as the JAX package
 // computes it outside Pallas.
 //
-// Two routes. bfloat16 at d a multiple of 8 up to 128 runs on the tensor
+// Two routes. At d a multiple of 8 up to 128, bfloat16 runs on the tensor
 // cores (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel and
-// flash_bwd_dkv_wgmma_kernel, below); float32 and float16 inputs, and
-// bfloat16 ones at other d, run on the CUDA cores (flash_fwd_kernel,
-// flash_bwd_dq_kernel, flash_bwd_dkv_kernel). The wrappers choose by dtype
-// and d alone. float32 stays off the tensor cores because they would take it
-// as TF32 (about three digits); float16 because the tensor-core kernels are
-// written for bf16 (their stores, TMA maps and the two-term split of P and
-// dS), a float16 instance of them is later work; d % 8 != 0 stays off them because a row of d bfloat16 values is
-// then no multiple of 16 bytes, the least global stride a TMA tensor map can
+// flash_bwd_dkv_wgmma_kernel, below), and so does the float16 forward
+// (flash_fwd_wgmma_kernel's float16 instance); float32 inputs, the float16
+// backward, and 16-bit inputs at other d run on the CUDA cores
+// (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel). The
+// wrappers choose by dtype and d alone. float32 stays off the tensor cores
+// because they would take it as TF32 (about three digits); the float16
+// backward because its sweeps are written for bf16 (a float16 instance is
+// the next step); d % 8 != 0 because a row of d 16-bit values is then no
+// multiple of 16 bytes, the least global stride a TMA tensor map can
 // describe; d > 128 because a 64 x d f32 accumulator is d / 2 registers a
 // thread in each of O, dK and dV, which at d = 256 leaves no room for the
 // rest.
@@ -563,14 +564,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// B5 / B6 on the tensor cores: bfloat16, d a multiple of 8 (<= 128)
+// B5 / B6 on the tensor cores: bfloat16 or float16, d a multiple of 8 (<= 128)
 // ---------------------------------------------------------------------------
 // Replaces _flash_forward_kernel / _flash_forward_lse
-// (incubator_mxnet_tpu/ops/pallas_attention.py:279, :313) for bfloat16 inputs
-// whose rows are whole 16-byte vectors. Bound: bytes, (2 Tq + 2 Tk) d bh x 2
-// bytes (+ 4 Tq bh for the lse) over 3.35 TB/s, 0.015 ms at (192, 512, 64);
-// its 12.9 GFLOP (19.3 with the two-term P) need 0.013-0.020 ms at the bf16
-// peak. What the design does about it:
+// (incubator_mxnet_tpu/ops/pallas_attention.py:279, :313) for bfloat16 and
+// float16 inputs whose rows are whole 16-byte vectors. Bound: bytes,
+// (2 Tq + 2 Tk) d bh x 2 bytes (+ 4 Tq bh for the lse) over 3.35 TB/s, 0.015
+// ms at (192, 512, 64); its 12.9 GFLOP (19.3 with the two-term P) need
+// 0.013-0.020 ms at the 16-bit peak (the same for both types). The element
+// type T is a template argument: it sets the TMA maps' data type, the wgmma
+// operand type (.bf16 or .f16), the two-term split of P and the stores;
+// nothing else differs. What the design does about it:
 //   * a persistent grid, one block of 288 threads per SM (its registers
 //     leave room for no second), each walking work items of (head, 128
 //     query rows): warps 0-3 and 4-7 are two consumer warpgroups of 64 rows
@@ -586,7 +590,7 @@ __global__ void __launch_bounds__(kThreads)
 //     row past T, or a column past d, is outside the map and reads as zero,
 //     so a head never reads the next head's rows and the pad adds nothing.
 //   * a consumer warpgroup computes S = Q K^T (64 x BN) by wgmma from the
-//     swizzled tiles (bf16 operands, f32 accumulators), runs the online
+//     swizzled tiles (16-bit operands, f32 accumulators), runs the online
 //     softmax on the accumulator registers (row max by two lane shuffles,
 //     the row sum kept per thread until the end), and accumulates
 //     O += P V by wgmma with P from registers and V from shared memory
@@ -596,7 +600,10 @@ __global__ void __launch_bounds__(kThreads)
 //     (192, 512, 64) (chip_smoke.py phase 6 reads it), over the 5e-4 limit
 //     the smoke holds bf16 outputs to; P = P_hi + P_lo, both bf16, issued
 //     as two wgmma into the same accumulator, keeps P to about 2^-17 for
-//     1.5x the forward's products.
+//     1.5x the forward's products. float16 misses its own limit (6.25e-5,
+//     the bf16 one scaled by the step) by the same factor with one term
+//     (an emulation reads rms_rel ~3e-4), so it keeps both; P <= 1 cannot
+//     overflow float16, and P_lo, mostly below 2^-14, goes in subnormal.
 //   * the two consumer warpgroups take turns issuing S = Q K^T (named
 //     barriers), so one's softmax overlaps the other's products.
 //   * BN = 128 key rows at D = 64, 64 at D = 128, so S, O and the two P
@@ -626,12 +633,12 @@ struct Tc {
 // Accumulator fragment of a 64 x N wgmma in a consumer thread (warp w of
 // its warpgroup, lane = 4 g + t): register 4 j + e holds row
 // 16 w + g + 8 (e / 2), column 8 j + 2 t + (e % 2).
-template <int D, bool kWithLse>
+template <typename T, int D, bool kWithLse>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
-                           __nv_bfloat16* __restrict__ o,
+                           T* __restrict__ o,
                            float* __restrict__ lse, int n_heads, int Tq,
                            int Tk, int causal, float scale_log2, int hd) {
   using C = Tc<D>;
@@ -740,8 +747,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;  // 16 columns: 32 bytes
-        wgmma_ss<BN>(s, sw128_desc(sQw + (kk / 4) * 8192 + off, 16),
-                     sw128_desc(sKs + (kk / 4) * BN * 128 + off, 16), kk > 0);
+        wgmma_ss<BN, T>(s, sw128_desc(sQw + (kk / 4) * 8192 + off, 16),
+                        sw128_desc(sKs + (kk / 4) * BN * 128 + off, 16),
+                        kk > 0);
       }
       wg_commit();
       named_arrive(2 - wg);
@@ -783,10 +791,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           const float a = exp2f(fmaf(s[i], scale_log2, -m[r % 2]));
           const float b = exp2f(fmaf(s[i + 1], scale_log2, -m[r % 2]));
           l[r % 2] += a + b;
-          const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-          const float2 hf = __bfloat1622float2(h);
-          p_hi[kb][r] = *reinterpret_cast<const uint32_t*>(&h);
-          p_lo[kb][r] = pack_bf16(a - hf.x, b - hf.y);
+          Elem16<T>::split(a, b, &p_hi[kb][r], &p_lo[kb][r]);
         }
       }
 #pragma unroll
@@ -795,10 +800,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       wg_fence();
 #pragma unroll
       for (int kb = 0; kb < BN / 16; ++kb)
-        wgmma_rs<D>(acc, p_hi[kb], sw128_desc(sVs + kb * 2048, BN * 128));
+        wgmma_rs<D, T>(acc, p_hi[kb],
+                       sw128_desc(sVs + kb * 2048, BN * 128));
 #pragma unroll
       for (int kb = 0; kb < BN / 16; ++kb)
-        wgmma_rs<D>(acc, p_lo[kb], sw128_desc(sVs + kb * 2048, BN * 128));
+        wgmma_rs<D, T>(acc, p_lo[kb],
+                       sw128_desc(sVs + kb * 2048, BN * 128));
       wg_commit();
       wg_wait0();
       pin<D / 2>(acc);
@@ -821,14 +828,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       const int qi = row0 + 8 * r;
       if (qi >= Tq) continue;
       const float den = l[r] == 0.f ? 1.f : l[r];
-      __nv_bfloat16* orow = o + (head + qi) * hd;
+      T* orow = o + (head + qi) * hd;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int col = 8 * j + 2 * t;
         if (col < hd)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * r] / den,
-                                    acc[4 * j + 2 * r + 1] / den);
+          Elem16<T>::store2(orow + col, acc[4 * j + 2 * r] / den,
+                            acc[4 * j + 2 * r + 1] / den);
       }
       if (kWithLse && t == 0)
         lse[head + qi] = l[r] > 0.f
@@ -1451,8 +1457,10 @@ int dispatch(int dtype, int device, int which, const Args& a) {
   if (dtype < 0 || dtype > 2 || a.bh <= 0 || a.tq < 0 || a.tk < 0 ||
       a.hd < 1)
     return (int)cudaErrorInvalidValue;
-  // bfloat16 at d % 8 == 0 up to 128 is the tensor-core kernels'
-  if (dtype == 1 && a.hd % 8 == 0 && a.hd <= 128)
+  // at d % 8 == 0 up to 128, bfloat16 is the tensor-core kernels' and so is
+  // the float16 forward (which 0 and 1); the float16 backward stays here
+  if (a.hd % 8 == 0 && a.hd <= 128 &&
+      (dtype == 1 || (dtype == 2 && which <= 1)))
     return (int)cudaErrorInvalidValue;
   Device guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
@@ -1463,23 +1471,25 @@ int dispatch(int dtype, int device, int which, const Args& a) {
   }
 }
 
-// a bf16 (bh, rows, hd) contiguous tensor as a 3-D map (hd, rows, bh), read
-// in (64 columns, box_rows rows, 1 head) boxes with 128-byte swizzle;
-// outside the map reads as zero
+// a 16-bit (bh, rows, hd) contiguous tensor of `type` (bf16 unless given)
+// as a 3-D map (hd, rows, bh), read in (64 columns, box_rows rows, 1 head)
+// boxes with 128-byte swizzle; outside the map reads as zero
 bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int rows, int bh,
-                int box_rows) {
+                int box_rows,
+                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows,
                               (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)hd * 2 * rows};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  return tensor_map_bf16(map, ptr, 3, dims, strides, box);
+  return tensor_map_bf16(map, ptr, 3, dims, strides, box, type);
 }
 
-template <int D, bool L>
+template <typename T, int D, bool L>
 cudaError_t run_fwd_wgmma(const Args& a) {
   using C = Tc<D>;
-  auto kern = flash_fwd_wgmma_kernel<D, L>;
+  auto kern = flash_fwd_wgmma_kernel<T, D, L>;
+  constexpr CUtensorMapDataType ty = Elem16<T>::kTma;
   const long long items = (long long)a.bh * ((a.tq + kTcRows - 1) / kTcRows);
   if (items <= 0 || items > 2147483647LL) return cudaErrorInvalidValue;
   // persistent: one block per SM (its registers allow no second), each
@@ -1490,15 +1500,15 @@ cudaError_t run_fwd_wgmma(const Args& a) {
   const void* kp = a.tk > 0 ? a.k : a.q;
   const void* vp = a.tk > 0 ? a.v : a.q;
   const int tk = a.tk > 0 ? a.tk : a.tq;
-  if (!tensor_map(&mq, a.q, a.hd, a.tq, a.bh, 64) ||
-      !tensor_map(&mk, kp, a.hd, tk, a.bh, C::kBN) ||
-      !tensor_map(&mv, vp, a.hd, tk, a.bh, C::kBN))
+  if (!tensor_map(&mq, a.q, a.hd, a.tq, a.bh, 64, ty) ||
+      !tensor_map(&mk, kp, a.hd, tk, a.bh, C::kBN, ty) ||
+      !tensor_map(&mv, vp, a.hd, tk, a.bh, C::kBN, ty))
     return cudaErrorInvalidValue;
   cudaError_t e = prepare(kern, C::kSmem);
   if (e != cudaSuccess) return e;
   kern<<<grid, kTcThreads, C::kSmem, a.st>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(a.o), a.lse, a.bh, a.tq, a.tk,
-      a.causal, a.scale * kLog2e, a.hd);
+      mq, mk, mv, static_cast<T*>(a.o), a.lse, a.bh, a.tq, a.tk, a.causal,
+      a.scale * kLog2e, a.hd);
   return cudaGetLastError();
 }
 
@@ -1572,8 +1582,8 @@ cudaError_t run_dkv_wgmma(const Args& a) {
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16 (ops/kernels.py :: DTYPE_CODES);
-// head_dim >= 1 (bfloat16 at a multiple of 8
-// up to 128 is refused: the tensor-core entry points serve it). q (bh, tq, d), k and v
+// head_dim >= 1 (at a multiple of 8 up to 128, bfloat16, and float16's
+// forward, are refused: the tensor-core entry points serve them). q (bh, tq, d), k and v
 // (bh, tk, d), o (bh, tq, d), all contiguous and 16-byte aligned; lse
 // (bh, tq) float32, written when with_lse. Returns cudaGetLastError() after
 // the launch, never synchronises.
@@ -1588,26 +1598,35 @@ extern "C" int mx_flash_fwd(int dtype, int device, int head_dim, int with_lse,
   return dispatch(dtype, device, with_lse ? 1 : 0, a);
 }
 
-// The tensor-core forward: bfloat16 q, k, v, o as above, 16-byte aligned,
-// head_dim a multiple of 8 up to 128, tq >= 1.
-extern "C" int mx_flash_fwd_wgmma(int device, int head_dim, int with_lse,
-                                  const void* q, const void* k,
+template <typename T>
+cudaError_t fwd_wgmma(int head_dim, int with_lse, const Args& a) {
+  if (head_dim <= 64)
+    return with_lse ? run_fwd_wgmma<T, 64, true>(a)
+                    : run_fwd_wgmma<T, 64, false>(a);
+  return with_lse ? run_fwd_wgmma<T, 128, true>(a)
+                  : run_fwd_wgmma<T, 128, false>(a);
+}
+
+// The tensor-core forward. dtype: 0 float32, 1 bfloat16, 2 float16
+// (ops/kernels.py :: DTYPE_CODES); only 1 and 2 are taken. q, k, v, o of
+// that type as above, 16-byte aligned, head_dim a multiple of 8 up to 128,
+// tq >= 1.
+extern "C" int mx_flash_fwd_wgmma(int dtype, int device, int head_dim,
+                                  int with_lse, const void* q, const void* k,
                                   const void* v, void* o, void* lse, int bh,
                                   int tq, int tk, int causal, float scale,
                                   void* stream) {
-  if (head_dim < 8 || head_dim > 128 || head_dim % 8 || bh <= 0 || tq <= 0 ||
-      tk < 0 || (with_lse && lse == nullptr))
+  if ((dtype != 1 && dtype != 2) || head_dim < 8 || head_dim > 128 ||
+      head_dim % 8 || bh <= 0 || tq <= 0 || tk < 0 ||
+      (with_lse && lse == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr,
          static_cast<float*>(lse), bh, tq, tk, causal, head_dim, scale,
          static_cast<cudaStream_t>(stream)};
   Device guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  if (head_dim <= 64)
-    return (int)(with_lse ? run_fwd_wgmma<64, true>(a)
-                          : run_fwd_wgmma<64, false>(a));
-  return (int)(with_lse ? run_fwd_wgmma<128, true>(a)
-                        : run_fwd_wgmma<128, false>(a));
+  return (int)(dtype == 1 ? fwd_wgmma<__nv_bfloat16>(head_dim, with_lse, a)
+                          : fwd_wgmma<__half>(head_dim, with_lse, a));
 }
 
 // dq (bh, tq, d) from q, k, v, dout and the float32 (bh, tq) lse and delta

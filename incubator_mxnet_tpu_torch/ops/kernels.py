@@ -264,7 +264,7 @@ def _load(name):
                     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + tail)
                 lib.mx_flash_fwd_wgmma.restype = ctypes.c_int
                 lib.mx_flash_fwd_wgmma.argtypes = (
-                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + tail)
+                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + tail)
                 lib.mx_flash_bwd_dq.restype = ctypes.c_int
                 lib.mx_flash_bwd_dq.argtypes = (
                     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + tail)
@@ -656,24 +656,31 @@ def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
     return dx
 
 
+_TC_TYPES = (torch.bfloat16, torch.float16)
+
+
 def flash_fwd_route(dtype, d):
-    """Which forward kernel takes (dtype, head dim d): "wgmma", the
-    tensor-core kernel, for bfloat16 at d a multiple of 8 (a TMA tensor map
-    needs rows of whole 16-byte vectors) up to 128, else "cuda_cores".
-    float32 stays off the tensor cores, which would take it as TF32;
-    float16 because the tensor-core kernels are written for bf16 (ROADMAP
-    §B); d over
-    128 (over 256 in 128-column slices) because a 64 x d f32 accumulator (O here, dK and dV in the
-    backward) is d / 2 registers a thread, which at d = 256 leaves no room
-    for the scores and the rest."""
-    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= 128 \
+    """Which forward kernel (B5, B6) takes (dtype, head dim d): "wgmma",
+    the tensor-core kernel, for bfloat16 and float16 at d a multiple of 8
+    (a TMA tensor map needs rows of whole 16-byte vectors) up to 128, else
+    "cuda_cores". The kernel is one template over the 16-bit type (its
+    maps, wgmma operand type, split of P and stores). float32 stays off
+    the tensor cores, which would take it as TF32; d over 128 (over 256 in
+    128-column slices) because a 64 x d f32 accumulator (O here, dK and dV
+    in the backward) is d / 2 registers a thread, which at d = 256 leaves
+    no room for the scores and the rest."""
+    return "wgmma" if dtype in _TC_TYPES and d % 8 == 0 and d <= 128 \
         else "cuda_cores"
 
 
 def flash_bwd_route(dtype, d):
-    """Which backward kernels (dq sweep, dk/dv sweep) take (dtype, head dim
-    d): the forward's rule, `flash_fwd_route`, for the same reasons."""
-    return flash_fwd_route(dtype, d)
+    """Which backward kernels (B7 dq sweep, B8 dk/dv sweep) take (dtype,
+    head dim d): "wgmma" for bfloat16 at d a multiple of 8 up to 128, as
+    the forward; float16 stays on "cuda_cores" at every d, because the
+    tensor-core sweeps are written for bf16 alone (their float16 instance
+    is the next step, ROADMAP §B); float32 as the forward."""
+    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= 128 \
+        else "cuda_cores"
 
 
 def _flash_check(name, q, k, v, extra=()):
@@ -738,7 +745,8 @@ def flash_fwd_cuda(q, k, v, causal, scale, with_lse):
     tensor_cores = flash_fwd_route(q.dtype, d) == "wgmma"
     if tensor_cores:
         _check_aligned(name, q=q, k=k, v=v, o=o)
-        rc = lib.mx_flash_fwd_wgmma(q.device.index or 0, d, int(with_lse),
+        rc = lib.mx_flash_fwd_wgmma(DTYPE_CODES[q.dtype],
+                                    q.device.index or 0, d, int(with_lse),
                                     *ptrs, *tail)
     else:
         rc = lib.mx_flash_fwd(DTYPE_CODES[q.dtype], q.device.index or 0, d,

@@ -253,6 +253,96 @@ def test_mark_variables_with_buffers():
         ty = (tx * tx).sum()
     ag.backward(ty)
     _close(tx.grad, jx.grad)
+    # the backward wrote into the caller's buffer (ROADMAP C4)
+    assert tx.grad is buf
+    _close(buf, jx.grad)
+
+
+# ---------------------------------------------------------------------------
+# C4: a backward writes into the caller's gradient buffer, as the JAX
+# package's `var.grad[:] = ct` (or `+= ct` for "add") does
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("rounds", [1, 2])
+def test_write_lands_in_the_callers_buffer(rounds):
+    """grad_req "write": each backward overwrites the buffer given to
+    `mark_variables`, which stays the variable's `.grad`."""
+    rng = np.random.RandomState(11)
+    x0 = rng.randn(4).astype(np.float32)
+    ws = [rng.randn(4).astype(np.float32) for _ in range(rounds)]
+    jx = mx.np.array(x0)
+    jag.mark_variables([jx], [mx.np.zeros(4)])
+    tx = torch.tensor(x0)
+    buf = torch.full((4,), 5.0)
+    ag.mark_variables([tx], [buf], grad_reqs="write")
+    for w in ws:
+        with jag.record():
+            jy = (jx * jx * mx.np.array(w)).sum()
+        jy.backward()
+        with ag.record():
+            ty = (tx * tx * torch.tensor(w)).sum()
+        ag.backward(ty)
+        assert tx.grad is buf
+        _close(buf, jx.grad)
+
+
+def test_add_sums_into_the_callers_buffer():
+    """grad_req "add": two backwards sum into the caller's buffer; the
+    buffer's earlier content is overwritten by the first (a round starts
+    afresh), as in the JAX package after `attach_grad`."""
+    rng = np.random.RandomState(12)
+    x0 = rng.randn(3).astype(np.float32)
+    ws = [rng.randn(3).astype(np.float32) for _ in range(2)]
+    jx = mx.np.array(x0)
+    jag.mark_variables([jx], [mx.np.full((3,), 9.0)], grad_reqs="add")
+    tx = torch.tensor(x0)
+    buf = torch.full((3,), 9.0)
+    ag.mark_variables([tx], [buf], grad_reqs="add")
+    for w in ws:
+        with jag.record():
+            jy = (jx * jx * mx.np.array(w)).sum()
+        jy.backward()
+        with ag.record():
+            ty = (tx * tx * torch.tensor(w)).sum()
+        ag.backward(ty)
+        assert tx.grad is buf
+    _close(buf, jx.grad)
+    np.testing.assert_allclose(buf.numpy(), 2 * x0 * (ws[0] + ws[1]),
+                               rtol=RTOL)
+    # the round's first backward overwrote the buffer: one copy
+    assert ag.buffer_copies() >= 1
+
+
+def test_parameter_grad_buffer_holds_the_gradient():
+    """The tensor `p.grad()` returned before a backward holds the gradient
+    after it, equal to the JAX Dense's, and bit-equal to the gradient
+    `torch.autograd.grad` takes on the same graph."""
+    rng = np.random.RandomState(13)
+    x0 = rng.randn(5, 3).astype(np.float32)
+    jnet = mx.gluon.nn.Dense(2, in_units=3)
+    jnet.initialize()
+    tnet = tgluon.nn.Dense(2, in_units=3).initialize(device="cpu")
+    w0 = rng.randn(2, 3).astype(np.float32)
+    b0 = rng.randn(2).astype(np.float32)
+    jnet.weight.set_data(mx.np.array(w0))
+    jnet.bias.set_data(mx.np.array(b0))
+    params = tnet.collect_params()
+    params["weight"].set_data(w0)
+    params["bias"].set_data(b0)
+    held = {n: p.grad() for n, p in params.items()}
+    for _ in range(2):           # write: the second backward overwrites
+        with jag.record():
+            jy = (jnet(mx.np.array(x0)) ** 2).sum()
+        jy.backward()
+        with ag.record():
+            ty = (tnet(torch.tensor(x0)) ** 2).sum()
+        want = torch.autograd.grad(ty, [p.data() for p in params.values()],
+                                   retain_graph=True)
+        ag.backward(ty)
+        for (n, p), g in zip(params.items(), want):
+            assert p.grad() is held[n]
+            assert torch.equal(held[n], g)
+    _close(held["weight"], jnet.weight.grad())
+    _close(held["bias"], jnet.bias.grad())
 
 
 def test_custom_function():
@@ -302,7 +392,8 @@ def test_grad_under_autograd_grad_leaves_parameters_alone():
     net = tgluon.nn.Dense(2, in_units=3).initialize(device="cpu")
     p = net.collect_params()["weight"]
     p.grad()[:] = 7.0
-    y = net(torch.ones(1, 3)).sum()
+    with ag.record():
+        y = net(torch.ones(1, 3)).sum()
     torch.autograd.grad(y, [p.data()])
     assert torch.equal(p.grad(), torch.full((2, 3), 7.0))
     assert not ag.variable(p.data()).fresh

@@ -5,8 +5,8 @@ dynamic loss scaling, on the CPU.
     route rule names with the one dtype table's code (a stand-in for the
     built library records each launch's arguments: no card or `nvcc`
     here), for the apply (B1), every q/slab pair of paged attention with a
-    float16 side (B4) and the four flash kernels (B5-B8, on the CUDA
-    cores);
+    float16 side (B4) and the four flash kernels (B5 and B6 on the tensor
+    cores where bf16's are, B7 and B8 on the CUDA cores);
   * `kernels.DTYPE_CODES` is the table the C entry points read: each
     source's entry-point comment names the same codes;
   * the plain versions a float16 kernel is held against on the card
@@ -56,7 +56,7 @@ STEP = 2.0 ** -10
 # the head dim and the lse flag
 _LEADING = {"mx_scale_shift_act": 3, "mx_paged_attention_fwd": 4,
             "mx_flash_fwd": 4, "mx_flash_bwd_dq": 3, "mx_flash_bwd_dkv": 3,
-            "mx_flash_fwd_wgmma": 3, "mx_flash_bwd_dq_wgmma": 2,
+            "mx_flash_fwd_wgmma": 4, "mx_flash_bwd_dq_wgmma": 2,
             "mx_flash_bwd_dkv_wgmma": 2}
 
 
@@ -141,9 +141,15 @@ def test_paged_wrapper_takes_every_float16_pair(q_dtype, kv_dtype, C,
 
 @pytest.mark.parametrize("d", [12, 64, 128, 256, 384])
 def test_flash_wrappers_take_float16_on_the_cuda_cores(d, fake_lib):
+    """float16's forward (B5, B6) runs on the tensor cores where bf16's
+    does (d % 8 == 0, d <= 128), with dtype code 2, and never reaches the
+    CUDA-core entry there; the backward (B7, B8) stays on the CUDA cores
+    at every d."""
     q = _cuda(torch.zeros((2, 4, d), dtype=F16))
     stat = _cuda(torch.zeros((2, 4, 1)))
-    assert kernels.flash_fwd_route(F16, d) == "cuda_cores"
+    tc = d % 8 == 0 and d <= 128
+    assert kernels.flash_fwd_route(F16, d) == ("wgmma" if tc
+                                               else "cuda_cores")
     assert kernels.flash_bwd_route(F16, d) == "cuda_cores"
     o = kernels.flash_fwd_cuda(q, q, q, True, 0.5, False)
     o2, lse = kernels.flash_fwd_cuda(q, q, q, True, 0.5, True)
@@ -151,17 +157,36 @@ def test_flash_wrappers_take_float16_on_the_cuda_cores(d, fake_lib):
     dk, dv = kernels.flash_bwd_dkv_cuda(q, q, q, q, stat, stat, True, 0.5)
     assert {t.dtype for t in (o, o2, dq, dk, dv)} == {F16}
     assert lse.dtype == torch.float32
-    assert fake_lib.calls == [("mx_flash_fwd", 2, 0, d, 0),
-                              ("mx_flash_fwd", 2, 0, d, 1),
-                              ("mx_flash_bwd_dq", 2, 0, d),
-                              ("mx_flash_bwd_dkv", 2, 0, d)]
+    fwd = ([("mx_flash_fwd_wgmma", 2, 0, d, 0),
+            ("mx_flash_fwd_wgmma", 2, 0, d, 1)] if tc else
+           [("mx_flash_fwd", 2, 0, d, 0), ("mx_flash_fwd", 2, 0, d, 1)])
+    assert fake_lib.calls == fwd + [("mx_flash_bwd_dq", 2, 0, d),
+                                    ("mx_flash_bwd_dkv", 2, 0, d)]
     counts = kernels.launch_counts()
     assert all(counts[n] == 1 for n in ("flash_fwd", "flash_fwd_lse",
                                         "flash_bwd_dq", "flash_bwd_dkv"))
-    assert not any(counts[n] for n in counts if n.endswith("_wgmma"))
+    assert {n: counts[n] for n in counts if n.endswith("_wgmma")} == {
+        "flash_fwd_wgmma": int(tc), "flash_fwd_lse_wgmma": int(tc),
+        "paged_attention_wgmma": 0, "flash_bwd_dq_wgmma": 0,
+        "flash_bwd_dkv_wgmma": 0}
     assert kernels.launch_counts_by_dtype() == {
         (n, "float16"): 1 for n in ("flash_fwd", "flash_fwd_lse",
                                     "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+@pytest.mark.parametrize("d", [8, 64, 96, 128])
+@pytest.mark.parametrize("dtype,code", [(torch.bfloat16, 1), (F16, 2)],
+                         ids=["bfloat16", "float16"])
+def test_flash_wgmma_forward_takes_the_dtype_code(dtype, code, d, fake_lib):
+    """The tensor-core forward's entry receives the one table's code of
+    its type: 1 for bfloat16, 2 for float16."""
+    q = _cuda(torch.zeros((3, 5, d), dtype=dtype))
+    kernels.flash_fwd_cuda(q, q, q, False, 0.25, False)
+    kernels.flash_fwd_cuda(q, q, q, False, 0.25, True)
+    assert fake_lib.calls == [("mx_flash_fwd_wgmma", code, 0, d, 0),
+                              ("mx_flash_fwd_wgmma", code, 0, d, 1)]
+    assert kernels.launch_counts()["flash_fwd_wgmma"] == 1
+    assert kernels.launch_counts()["flash_fwd_lse_wgmma"] == 1
 
 
 def test_fused_ops_send_float16_cuda_tensors_to_the_kernels(fake_lib,

@@ -82,6 +82,10 @@ class _FakeLib:
         self.calls.append(("flash_fwd", dtype, d, with_lse))
         return 0
 
+    def mx_flash_fwd_wgmma(self, dtype, device, d, with_lse, *rest):
+        self.calls.append(("flash_fwd_wgmma", dtype, d, with_lse))
+        return 0
+
 
 @pytest.fixture
 def fake_lib(monkeypatch):
@@ -158,8 +162,9 @@ def test_pool_wrappers_take_float16_and_refuse_other_types(fake_lib):
 
 def test_other_kernels_keep_refusing_float16(fake_lib):
     """float16 is no longer the pool's alone (ROADMAP C3, closed): the apply
-    and flash wrappers launch it with the one dtype table's code (2), and
-    keep refusing float64 before any launch."""
+    and flash wrappers launch it with the one dtype table's code (2; the
+    flash forward at d = 64 on its tensor-core entry), and keep refusing
+    float64 before any launch."""
     x = _cuda(torch.zeros((4, 8), dtype=torch.float16))
     assert kernels.scale_shift_act_cuda(
         x, None, _cuda(torch.zeros(8)), None, "relu").dtype == torch.float16
@@ -167,7 +172,7 @@ def test_other_kernels_keep_refusing_float16(fake_lib):
     assert kernels.flash_fwd_cuda(q, q, q, False, 0.125,
                                   False).dtype == torch.float16
     assert fake_lib.calls == [("apply", 2, kernels.ACT_CODES["relu"]),
-                              ("flash_fwd", 2, 64, 0)]
+                              ("flash_fwd_wgmma", 2, 64, 0)]
     x64 = _cuda(torch.zeros((4, 8), dtype=torch.float64))
     with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
         kernels.scale_shift_act_cuda(x64, None, _cuda(torch.zeros(8)), None,

@@ -87,7 +87,8 @@ def _jax_run(jblk, x, extra, cot, **kw):
 
 
 def _port_run(tblk, x, extra, cot, **kw):
-    out = tblk(torch.tensor(x), *(torch.tensor(e) for e in extra), **kw)
+    with autograd.record():
+        out = tblk(torch.tensor(x), *(torch.tensor(e) for e in extra), **kw)
     params = tblk.collect_params()
     grads = torch.autograd.grad((out * torch.tensor(cot)).sum(),
                                 [p.data() for p in params.values()])
@@ -124,6 +125,79 @@ def test_masked_attention_takes_the_composition(kind, monkeypatch):
     got, got_g = _port_run(tblk, x, extra, cot, **{key: torch.tensor(mask)})
     np.testing.assert_allclose(got, want, rtol=VAL_TOL, atol=VAL_TOL)
     assert_values_close(got_g, want_g, GRAD_TOL, GRAD_TOL, "grad of")
+
+
+# ---------------------------------------------------------------------------
+# C5: a Gluon forward outside record() records nothing and runs flash's
+# LSE-free forward (B5), as the JAX package's primal path does
+# ---------------------------------------------------------------------------
+def _lse_flags(monkeypatch):
+    """Record `with_lse` of each flash forward the port runs."""
+    flags = []
+    orig = attention._forward
+
+    def forward(q, k, v, causal, scale, with_lse):
+        flags.append(with_lse)
+        return orig(q, k, v, causal, scale, with_lse)
+    monkeypatch.setattr(attention, "_forward", forward)
+    return flags
+
+
+@pytest.mark.parametrize("scope", ["none", "predict_mode"])
+def test_inference_forward_records_nothing_and_takes_b5(scope, monkeypatch):
+    """`TransformerEncoderCell(32, 64, 4, use_flash=True)` called outside
+    record() (and under predict_mode()) returns a tensor with no graph,
+    runs the flash forward without the LSE, agrees with the JAX cell, and
+    a backward from it raises in both packages."""
+    flags = _lse_flags(monkeypatch)
+    jblk, tblk = _blocks("encoder", use_flash=True)
+    x, _, _ = _inputs("encoder", seed=9)
+    want = jblk(mx.np.array(x))
+    if scope == "predict_mode":
+        with autograd.predict_mode():
+            got = tblk(torch.tensor(x))
+    else:
+        got = tblk(torch.tensor(x))
+    assert got.grad_fn is None and not got.requires_grad
+    assert flags == [False]
+    np.testing.assert_allclose(got.numpy(), want.asnumpy(), rtol=VAL_TOL,
+                               atol=VAL_TOL)
+    with pytest.raises(MXNetError, match="not connected"):
+        autograd.backward(got)
+    with pytest.raises(mx.MXNetError):
+        want.backward()
+
+
+def test_record_still_tapes_and_takes_b6(monkeypatch):
+    """Inside record() the cell tapes, runs the flash forward with the LSE
+    (B6), and its gradients are the ones `torch.autograd.grad` takes."""
+    flags = _lse_flags(monkeypatch)
+    _, tblk = _blocks("encoder", use_flash=True)
+    x, _, cot = _inputs("encoder", seed=10)
+    with autograd.record():
+        out = tblk(torch.tensor(x))
+        loss = (out * torch.tensor(cot)).sum()
+    assert out.grad_fn is not None and flags == [True]
+    params = tblk.collect_params()
+    want = torch.autograd.grad(loss, [p.data() for p in params.values()],
+                               retain_graph=True)
+    autograd.backward(loss)
+    for p, g in zip(params.values(), want):
+        assert torch.equal(p.grad(), g)
+
+
+def test_fused_train_step_still_tapes_and_matches_jax(monkeypatch):
+    """FusedTrainStep's own scope counts as taping: every layer runs B6
+    and the Adam steps match the JAX package's."""
+    flags = _lse_flags(monkeypatch)
+    jnet, tnet = encoder_lm_pair(layers=2, use_flash=True, seed=4)
+    x, y = token_batch(seed=5)
+    want = _jax_train(jnet, x, y)
+    got = _port_train(tnet, x, y)
+    assert flags == [True] * (2 * STEPS)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert_values_close(port_values(tnet), _jax_weights(jnet), 2e-4, 2e-5,
+                        "after 3 Adam steps:")
 
 
 # ---------------------------------------------------------------------------
