@@ -62,12 +62,12 @@ Each phase fails the run (non-zero exit) on any error:
   6. the flash-attention kernels (B5 forward, B6 forward + log-sum-exp,
      B7 dq sweep, B8 dk/dv sweep) against their plain versions on the
      card at the BERT path's shape (bh 192 = 16 x 12 heads, T 512, d 64)
-     in bfloat16 and float32 (and float16, its forward on the tensor cores
-     and its backward on the CUDA cores, timed there and at the causal
-     (48, 2048, 128) shape, its limits bfloat16's scaled to its step,
-     2^-11 against 2^-8, the planted store faults refused in float16 too
-     and its one-term P read, plus a ragged T = 500, d = 384 and d = 12,
-     the CUDA-core forward), causal and not,
+     in bfloat16 and float32 (and float16, all four on the tensor cores,
+     timed there and at the causal (48, 2048, 128) shape, both also with
+     dO scaled by 2^-10 and 2^12, its limits bfloat16's scaled to its
+     step, 2^-11 against 2^-8, the planted store faults refused in
+     float16 too and its one-term P read, plus a ragged T = 500, d = 384
+     and d = 12, the CUDA-core kernels), causal and not,
      plus Tq != Tk causal (rows
      that see no key), a ragged T = 500, head dims 12 (the CUDA-core
      kernels in bf16 too), 32, 40, 96 and 128, 136, 192 and 256 (the
@@ -77,16 +77,17 @@ Each phase fails the run (non-zero exit) on any error:
      path's shape (bf16, no mask) and at a
      causal (48, 2048, 128) bf16 shape each kernel's time against its
      bound, the plain version's time and one SDPA call's (forward for
-     B5/B6, backward for B7/B8). All four kernels take bf16 at d % 8 == 0
-     up to 128 on the tensor cores (wgmma, TMA), and so do B5 and B6 in
-     float16; the launch counters must show every such shape there and no
-     other. A bf16 output is held
+     B5/B6, backward for B7/B8). All four kernels take bf16 and float16
+     at d % 8 == 0 up to 128 on the tensor cores (wgmma, TMA); the launch
+     counters must show every such shape there and no other. A bf16 output is held
      to limits relative to its own size, and they must refuse two planted
      store faults (a truncating store, a swapped pair) of o, dq, dk and dv
      at both timed shapes, and a swapped pair of each tensor-core kernel's
      own output; beside them, the readings of a one-term bf16 P in the
-     forward (bf16 and float16) and of one-term P and dS in the backward
-     (emulated in PyTorch), which the kernels' two-term operands avoid.
+     forward (bf16 and float16) and of one-term and plain two-term P and
+     dS in the backward (emulated in PyTorch, and in float16 the
+     kernels' own scheme: P shifted by 2^15, dS scaled per output row),
+     which the kernels' operands avoid.
   7. BERT-base at full width: 12 `TransformerEncoderCell(768, 3072, 12,
      dropout 0.1, gelu, use_flash=True)` between token and positional
      embeddings (vocab 30522, 512 positions) and a LayerNorm + Dense head
@@ -168,12 +169,13 @@ Each phase fails the run (non-zero exit) on any error:
      momentum 0.9, wd 1e-4, lr 0.1 x 32 / 256 with a warmed-up
      CosineScheduler: exactly 53, 1 and 1 launches a step; (c) (a)'s model
      and batch under float16 AMP (`amp.init_trainer`, `amp.scale_loss`,
-     `amp.step_with_overflow_check`), 2 + 3 steps, every B6 on the float16
-     tensor-core kernel and every B7 and B8 on the float16 CUDA-core ones,
-     one plain inference forward `net(x)` (12 float16 B5 on the tensor
-     cores, no B6),
+     `amp.step_with_overflow_check`), 2 + 3 steps, every B6, B7 and B8 on
+     its float16 tensor-core kernel, one plain inference forward `net(x)`
+     (12 float16 B5 on the tensor cores, no B6),
      then a step with an inf planted in one gradient, which must leave
-     every weight bit-equal and halve the scale; (d) float32, TF32 off,
+     every weight bit-equal and halve the scale, its 12 layers' backward
+     inputs (the loss scaler's magnitudes) held against the plain
+     versions within phase 6's float16 limits; (d) float32, TF32 off,
      dropout 0, 2 layers at full width, batch 4: two Trainer-loop Adam
      steps against two FusedTrainStep Adam steps, and grad_req "add" over
      two half-batches against "write" over the batch (SGD with momentum),
@@ -192,6 +194,7 @@ import argparse
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1135,14 +1138,17 @@ FLASH_HUGE = [(8, 300, 300, 264, True), (8, 300, 300, 264, False),
               (8, 256, 256, 384, False), (8, 300, 260, 384, True),
               (8, 300, 300, 512, True), (8, 256, 256, 512, False)]
 FLASH_HUGE_TIMED = (8, 256, 256, 384, False)
-# float16's further shapes: a ragged T, a head dim over 256, and d = 12
-# (d % 8 != 0: the float16 CUDA-core forward, held beside the tensor-core
-# one)
+# float16's further shapes: a ragged T (the tensor cores), a head dim over
+# 256 and d = 12 (d % 8 != 0): the float16 CUDA-core kernels, held beside
+# the tensor-core ones
 FLASH_F16_EXTRA = [(24, 500, 500, 64, True), (8, 300, 260, 384, True),
                    (24, 256, 256, 12, True)]
 # the second timed shape: a long causal sequence at the widest head dim the
 # tensor cores take
 FLASH_LONG = (48, 2048, 2048, 128, True)
+# dO's magnitudes (powers of two) the float16 backward is held at besides
+# 1: a gradient without loss scaling, and one under a loss scale
+FLASH_F16_DO_EXPS = (-10, 12)
 FLASH_KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
                  "flash_bwd_dkv")
 # products per (query, key) pair, each 2 * d operations: q.k and p.v in the
@@ -1272,13 +1278,17 @@ def flash_planted_faults(bwd_args, refs):
     return readings
 
 
-def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed, faults=True):
+def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed, faults=True,
+                do_exp=0):
     """The four kernels against their plain versions on the same inputs
-    (the backward ones from the plain forward's lse and delta); with
-    `timed`, each kernel's time, bound, plain time and library time, and
-    with `faults` too the planted faults and one-term readings."""
+    (the backward ones from the plain forward's lse and delta), dO scaled
+    by 2^do_exp; with `timed`, each kernel's time, bound, plain time and
+    library time, and with `faults` too the planted faults and one-term
+    readings (the backward's also at every do_exp in float16)."""
     q, k, v, do = (torch.randn((bh, n, d), generator=gen, device=dev)
-                   .to(dtype) for n in (tq, tk, tk, tq))
+                   for n in (tq, tk, tk, tq))
+    do = do * 2.0 ** do_exp
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
     scale = 1.0 / np.sqrt(d)
     before = kernels.launch_counts()
     o5 = kernels.flash_fwd_cuda(q, k, v, causal, scale, False)
@@ -1312,6 +1322,8 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed, faults=True):
               for n, c in outputs.items()}
     case = {"bh": bh, "tq": tq, "tk": tk, "d": d, "causal": causal,
             "dtype": _dtype_name(dtype)}
+    if do_exp:
+        case["do_scale"] = f"2^{do_exp}"
     tol = ({"elementwise": TOL[dtype]} if dtype == torch.float32 else
            dict(zip(("max_rel", "rms_rel"), limits16(dtype))))
     rows = {n: dict(case, max_abs_err=max(e for e, _, _ in c.values()),
@@ -1356,7 +1368,7 @@ def check_flash(bh, tq, tk, d, causal, dtype, gen, dev, timed, faults=True):
     if timed and faults and dtype != torch.float32:
         rows["flash_fwd"]["one_term_p"] = one_term_reading(q, k, v, causal,
                                                            scale, o_ref)
-    if timed and faults and dtype == torch.bfloat16:
+    if faults and dtype != torch.float32 and (timed or do_exp):
         rows["flash_bwd_dq"]["one_term"] = bwd_term_readings(
             bwd_args, {"dq": dq_ref, "dk": dk_ref, "dv": dv_ref})
     return rows
@@ -1403,30 +1415,29 @@ def one_term_reading(q, k, v, causal, scale, o_ref):
 
 
 def bwd_term_readings(bwd_args, refs):
-    """What the bf16 limits read if P and dS went into the backward's
-    products as one bf16 term (P^T dO for dv; dS K for dq and dS^T Q for
-    dk; products and sums in f32, as a single wgmma would take them),
-    against the two terms x_hi + x_lo the tensor-core sweeps use;
+    """What the limits of q's 16-bit type read if P and dS went into the
+    backward's products as one term of that type (P^T dO for dv; dS K for
+    dq and dS^T Q for dk; products and sums in f32, as a single wgmma
+    would take them), as two plain terms x_hi + x_lo (the bfloat16
+    sweeps), and (float16) as the float16 sweeps take them: P shifted by
+    2^15, dS scaled per output row (`attention.flash_bwd_split_ref`);
     emulated in PyTorch on the card. Recorded, not asserted: it says why
-    the sweeps split both operands."""
-    q, k, v, do, lse, delta, causal, scale = bwd_args
-    p = attention._probs(q, k, lse, causal, scale)
-    ds = p * (torch.einsum("bqd,bkd->bqk", do.float(), v.float()) - delta)
+    the sweeps split both operands, and why float16's rescale them."""
+    dtype = bwd_args[0].dtype
+    splits = ("one_term", "two_term") + (
+        ("kernel",) if dtype == torch.float16 else ())
     out = {}
-    for name, f in (("one_term", lambda x: x.bfloat16().float()),
-                    ("two_term", lambda x: x.bfloat16().float()
-                     + (x - x.bfloat16().float()).bfloat16().float())):
-        pp, dd = f(p), f(ds)
-        got = {"dq": torch.einsum("bqk,bkd->bqd", dd, k.float()) * scale,
-               "dk": torch.einsum("bqk,bqd->bkd", dd, q.float()) * scale,
-               "dv": torch.einsum("bqk,bqd->bkd", pp, do.float())}
-        out[name] = {n: _flash_err(g.to(q.dtype), refs[n], q.dtype)[2]
-                     for n, g in got.items()}
-        del pp, dd, got
-    del p, ds
-    log(f"[flash kernels] the backward with P and dS in bf16 (emulated): "
-        f"one term {out['one_term']}, two terms {out['two_term']} (limits "
-        f"max_rel {FLASH_BF16_MAX_TOL}, rms_rel {FLASH_BF16_RMS_TOL})")
+    for split in splits:
+        got = attention.flash_bwd_split_ref(*bwd_args, split=split)
+        out[split] = {n: _flash_err(g, refs[n], dtype)[2]
+                      for n, g in zip(("dq", "dk", "dv"), got)}
+        del got
+    max_tol, rms_tol = limits16(dtype)
+    log(f"[flash kernels] the backward with P and dS in "
+        f"{_dtype_name(dtype)} (emulated), max |dO| "
+        f"{bwd_args[3].float().abs().max().item():.3e}: "
+        + "; ".join(f"{n} {r}" for n, r in out.items())
+        + f" (limits max_rel {max_tol:.3e}, rms_rel {rms_tol:.3e})")
     return out
 
 
@@ -1499,13 +1510,16 @@ def phase_flash_kernels(dev):
                                         faults=False))
         variants.append(check_flash(*FLASH_LONG, dtype, gen, dev,
                                     dtype == torch.bfloat16))
-    # float16: the path's shape and the causal long one (forward on the
-    # tensor cores, backward on the CUDA cores), timed, with the planted
-    # store faults and the one-term reading; a ragged T, a head dim over
-    # 256 and d = 12 (the CUDA-core forward)
+    # float16: the path's shape and the causal long one (all four on the
+    # tensor cores), timed, with the planted store faults and the one-term
+    # readings, then at dO 2^-10 and 2^12; a ragged T, a head dim over 256
+    # and d = 12 (the CUDA-core kernels)
     f16 = torch.float16
-    variants.append(check_flash(bh, t, t, d, False, f16, gen, dev, True))
-    variants.append(check_flash(*FLASH_LONG, f16, gen, dev, True))
+    for shape in ((bh, t, t, d, False), FLASH_LONG):
+        variants.append(check_flash(*shape, f16, gen, dev, True))
+        for e in FLASH_F16_DO_EXPS:
+            variants.append(check_flash(*shape, f16, gen, dev, False,
+                                        do_exp=e))
     for shape in FLASH_F16_EXTRA:
         variants.append(check_flash(*shape, f16, gen, dev, False))
     kernels.reset_launch_counts()   # comparison launches do not count
@@ -2537,13 +2551,46 @@ def loop_resnet(card, dev, profile):
             "launches": launches, "c4": c4, "profile": prof}
 
 
+def captured_backward(calls):
+    """The float16 sweeps against their plain versions on the backward
+    inputs (q, k, v, dO, lse, delta) each layer handed B7/B8 in a training
+    step under the loss scaler: the path's own magnitudes, phase 6's
+    limits. Returns the worst readings and the largest |dO| and |dS|."""
+    worst, max_do, max_ds = {}, 0.0, 0.0
+    for args in calls:
+        q, k, v, do, lse, delta, causal, scale = args
+        dq = kernels.flash_bwd_dq_cuda(*args)
+        dk, dv = kernels.flash_bwd_dkv_cuda(*args)
+        refs = dict(zip(("dq", "dk", "dv"), (
+            attention.flash_bwd_dq_ref(*args),
+            *attention.flash_bwd_dkv_ref(*args))))
+        p = attention._probs(q, k, lse, causal, scale)
+        ds = p * (torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+                  - delta)
+        max_do = max(max_do, do.float().abs().max().item())
+        max_ds = max(max_ds, ds.abs().max().item())
+        del p, ds
+        for name, out in (("dq", dq), ("dk", dk), ("dv", dv)):
+            assert torch.isfinite(out.float()).all(), \
+                f"non-finite captured float16 {name}"
+            _, ok, read = _flash_err(out, refs[name], q.dtype)
+            assert ok, f"captured float16 {name} off its plain version: " \
+                       f"{read}"
+            for key, val in read.items():
+                worst[f"{name} {key}"] = max(worst.get(f"{name} {key}", 0.0),
+                                             val)
+    return {"layers": len(calls), "worst": worst, "max_abs_do": max_do,
+            "max_abs_ds": max_ds}
+
+
 def loop_f16(card, dev, net, batches, profile):
     """(c) (a)'s model and batch under float16 AMP with dynamic loss
-    scaling; every flash forward (B6) on the float16 tensor-core kernel,
-    the backward sweeps on the float16 CUDA-core kernels; then one plain
-    inference forward `net(x)` (B5 in float16 on the tensor cores, nothing
-    taped) and one step with an inf planted in a gradient, which must be
-    skipped."""
+    scaling; every flash kernel (B6 forward, B7/B8 backward) on its float16
+    tensor-core instance; then one plain inference forward `net(x)` (B5 in
+    float16 on the tensor cores, nothing taped) and one step with an inf
+    planted in a gradient, which must be skipped; the backward inputs of
+    that step's layers, the loss scaler's magnitudes, are held against the
+    plain versions (`captured_backward`)."""
     L = BERT["layers"]
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     amp.init("float16")
@@ -2570,12 +2617,23 @@ def loop_f16(card, dev, net, batches, profile):
         torch.cuda.synchronize()
         infer = kernels.launch_counts_by_dtype()
         infer_counts = kernels.launch_counts()
-        # the planted overflow
+        # the planted overflow, its backward's flash inputs captured
         x, y = batches[0]
-        with autograd.record():
-            loss = loss_fn(net(x), y)
-        with amp.scale_loss(loss, trainer) as scaled:
-            autograd.backward(scaled)
+        calls = []
+        backward = attention._backward
+
+        def capture(*args):
+            calls.append(tuple(a.detach().clone() if torch.is_tensor(a)
+                               else a for a in args))
+            return backward(*args)
+        attention._backward = capture
+        try:
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            with amp.scale_loss(loss, trainer) as scaled:
+                autograd.backward(scaled)
+        finally:
+            attention._backward = backward
         victim = net.collect_params()["cells.3.ffn1.weight"]
         g = victim.grad().view(-1)
         g[g.numel() // 3] = float("inf")
@@ -2588,6 +2646,9 @@ def loop_f16(card, dev, net, batches, profile):
                         for n, p in net.collect_params().items())
     finally:
         amp.uninit()
+    captured = captured_backward(calls)
+    del calls
+    kernels.reset_launch_counts()   # comparison launches do not count
     losses = [float(v.float().mean()) for v, _, _ in out]
     ran_steps = [r for _, r, _ in out]
     scales = [sc for _, _, sc in out]
@@ -2601,17 +2662,32 @@ def loop_f16(card, dev, net, batches, profile):
     log(f"[loop f16] planted inf in cells.3.ffn1.weight's gradient: step ran "
         f"{ran}, weights unchanged {unchanged}, scale {scale0} -> "
         f"{scaler.loss_scale}")
+    max_tol, rms_tol = limits16(torch.float16)
+    log(f"[loop f16] that step's backward inputs, {captured['layers']} "
+        f"layers under loss scale {scale0}: max |dO| "
+        f"{captured['max_abs_do']:.3e}, max |dS| "
+        f"{captured['max_abs_ds']:.3e}; the float16 tensor-core sweeps "
+        f"against their plain versions, worst {captured['worst']} (limits "
+        f"max_rel {max_tol:.3e}, rms_rel {rms_tol:.3e})")
+    if prof is not None:
+        ms = prof["kernels_ms_per_step"]
+        log(f"[loop f16 profile] flash device ms a step: B6 "
+            f"{ms['flash_fwd_wgmma']:.3f}, B7 {ms['flash_bwd_dq_wgmma']:.3f}"
+            f", B8 {ms['flash_bwd_dkv_wgmma']:.3f} on the tensor cores "
+            f"(CUDA-core kernels {ms['flash_fwd']:.3f} / "
+            f"{ms['flash_bwd_dq']:.3f} / {ms['flash_bwd_dkv']:.3f}), of "
+            f"{prof['device_ms_per_step']:.3f} device ms")
     assert all(np.isfinite(losses)), "non-finite float16 loop loss"
+    assert captured["layers"] == L, f"captured {captured['layers']} layers"
     n = L * LOOP_F16_STEPS
-    # B6 on the tensor cores, B7 and B8 on the CUDA cores (their float16
-    # tensor-core instances are later work)
-    assert by_dtype == {(k, "float16"): n for k in FLASH_KERNELS[1:]} and \
-        all(launches[k] == n for k in FLASH_KERNELS[1:]) and \
-        launches["flash_fwd_lse_wgmma"] == n and \
-        launches["flash_bwd_dq_wgmma"] == 0 and \
-        launches["flash_bwd_dkv_wgmma"] == 0, \
+    # B6, B7 and B8 all on their float16 tensor-core instances
+    tc = [FLASH_WGMMA[k] for k in FLASH_KERNELS[1:]]
+    assert by_dtype == {(k, "float16"): n for k in
+                        list(FLASH_KERNELS[1:]) + tc} and \
+        all(launches[k] == n for k in list(FLASH_KERNELS[1:]) + tc), \
         "float16 flash launches off their routes"
-    assert infer == {("flash_fwd", "float16"): L} and \
+    assert infer == {("flash_fwd", "float16"): L,
+                     ("flash_fwd_wgmma", "float16"): L} and \
         infer_counts["flash_fwd_wgmma"] == L and \
         infer_counts["flash_fwd_lse"] == 0, \
         f"float16 inference launches {infer} {infer_counts}"
@@ -2626,7 +2702,7 @@ def loop_f16(card, dev, net, batches, profile):
                                               in by_dtype.items()},
             "infer_launches": infer[("flash_fwd", "float16")],
             "infer_wgmma_launches": infer_counts["flash_fwd_wgmma"],
-            "profile": prof,
+            "profile": prof, "captured_backward": captured,
             "planted_scale": [scale0, scaler.loss_scale]}
 
 
@@ -2831,8 +2907,8 @@ def f16_entries(tk, paged, flash, coverage, loop):
         r = main[name]
         f16 = loop["f16"]
         # B5 runs in (c)'s inference forward, the others in its steps;
-        # "kernel_route" is the route the path's shape takes (the forward
-        # on the tensor cores, the backward on the CUDA cores)
+        # "kernel_route" is the route the path's shape takes (all four on
+        # the tensor cores)
         if name == "flash_fwd":
             launches, tc = f16["infer_launches"], f16["infer_wgmma_launches"]
         else:
@@ -2870,6 +2946,32 @@ def spill_report(ptxas_log):
     return n, spilled
 
 
+BWD_WGMMA_SYMBOL = re.compile(
+    r"(flash_bwd_d(?:q|kv)_wgmma_kernel)I(6__half|13__nv_bfloat16)Li(\d+)E")
+
+
+def bwd_wgmma_usage(ptxas_log):
+    """{"flash_bwd_dq_wgmma_kernel<float16, 64>": "168 registers; 0 bytes
+    stack frame, 0 bytes spill stores, 0 bytes spill loads", ...}: the
+    registers and spills of the tensor-core backward sweeps' instances
+    from `nvcc -Xptxas -v` output."""
+    types = {"6__half": "float16", "13__nv_bfloat16": "bfloat16"}
+    usage, fn = {}, None
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            m = BWD_WGMMA_SYMBOL.search(line)
+            fn = m and f"{m[1]}<{types[m[2]]}, {m[3]}>"
+            if fn:
+                usage[fn] = ""
+        elif fn and "spill stores" in line:
+            usage[fn] = line.strip()
+        elif fn and "Used" in line and "registers" in line:
+            regs = line.split("Used", 1)[1].split("registers")[0].strip()
+            usage[fn] = f"{regs} registers; {usage[fn]}"
+            fn = None
+    return usage
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every result to this JSON "
@@ -2896,6 +2998,9 @@ def main():
         n_fn, spilled = spill_report(text)
         log(f"[setup] {name}: {n_fn} kernel instances, spilling: "
             f"{spilled or 'none'}")
+    bwd_usage = bwd_wgmma_usage(kernels.BUILD_LOG.get("flash_attention", ""))
+    for fn, use in bwd_usage.items():
+        log(f"[setup] {fn}: {use}")
 
     variants, lens = phase_kernels(dev)
     result = phase_serve(card)
@@ -2962,6 +3067,7 @@ def main():
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s,
                        "build_each_s": built, "build_log": kernels.BUILD_LOG,
+                       "bwd_wgmma_ptxas": bwd_usage,
                        "kernels": [entry] + entries,
                        "serve": result, "train": train, "bert": bert,
                        "engine": engine, "coverage": coverage,

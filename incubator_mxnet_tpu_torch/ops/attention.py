@@ -13,13 +13,17 @@ there: q (bh, Tq, d), k and v (bh, Tk, d), causal masking end-aligned
   flash_bwd_dkv   B8 `_flash_backward`, dk/dv sweep  flash_bwd_dkv_ref
 
 Each of them has two kernels, chosen by dtype and head dim alone
-(`kernels.flash_fwd_route`, `kernels.flash_bwd_route`): bfloat16 at d a
-multiple of 8 up to 128 on the tensor cores (`flash_fwd_wgmma_kernel`,
-`flash_bwd_dq_wgmma_kernel`, `flash_bwd_dkv_wgmma_kernel`; their launches
-also count in `flash_fwd_wgmma`, `flash_fwd_lse_wgmma`,
-`flash_bwd_dq_wgmma` and `flash_bwd_dkv_wgmma`), float32, float16 and
-other d on the CUDA cores. Every head dim (past 256 in 128-column slices)
-and any bh reach a kernel.
+(`kernels.flash_fwd_route`, `kernels.flash_bwd_route`, one rule):
+bfloat16 and float16 at d a multiple of 8 up to 128 on the tensor cores
+(`flash_fwd_wgmma_kernel`, `flash_bwd_dq_wgmma_kernel`,
+`flash_bwd_dkv_wgmma_kernel`, templates over the 16-bit type; their
+launches also count in `flash_fwd_wgmma`, `flash_fwd_lse_wgmma`,
+`flash_bwd_dq_wgmma` and `flash_bwd_dkv_wgmma`), float32 and other d on
+the CUDA cores. Every head dim (past 256 in 128-column slices) and any bh
+reach a kernel. The tensor-core kernels take P and dS into their products
+as two 16-bit terms; `flash_bwd_split_ref` emulates the backward's split
+(in float16 with P shifted and dS scaled per row, to keep them out of
+float16's subnormals) for the tests and chip_smoke.py.
 
 `flash_attention` is the JAX package's `custom_vjp` as one
 `torch.autograd.Function`: its forward runs B6 and saves (q, k, v, o,
@@ -55,7 +59,7 @@ from . import kernels
 from .fused import contiguous_counted
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_forward_lse_ref",
-           "flash_bwd_dq_ref", "flash_bwd_dkv_ref"]
+           "flash_bwd_dq_ref", "flash_bwd_dkv_ref", "flash_bwd_split_ref"]
 
 _NEG_INF = -1e30          # the mask value and the LSE sentinel
 _SENTINEL_CUT = -5e29     # an lse at or below this marks a fully masked row
@@ -138,6 +142,73 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False, scale=None):
     dv = torch.einsum("bqk,bqd->bkd", p, do.float())
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float()) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# The float16 tensor-core sweeps' operands (csrc/flash_attention.cu, B7/B8).
+# P enters dV's product as P * 2^15 (P <= 1), so its low term stays out of
+# float16's subnormals; dS as dS * 2^e with one exponent per output row (a
+# query row in dq, a key row in dk), lowered tile by tile as larger values
+# arrive so that the row's largest |dS| so far lies in [2^14, 2^15), kept
+# over a tile of zeros, clamped to [-56, 56].
+_P_SHIFT = 15
+_DS_TOP = 14
+_DS_EXP = 56
+_SWEEP_TILE = 64          # streamed rows of a sweep's tile
+
+
+def _pow2(e):
+    """2^e as float32, exactly, for int32 e in [-126, 127]."""
+    return ((e + 127) << 23).view(torch.float32)
+
+
+def _row_exponents(x):
+    """The kernel's running exponent of each (row, 64-column tile) of x
+    (bh, rows, cols), spread over the tile's columns (int32)."""
+    bh, rows, cols = x.shape
+    nt = -(-cols // _SWEEP_TILE)
+    mx = torch.nn.functional.pad(x.abs(), (0, nt * _SWEEP_TILE - cols))
+    mx = mx.view(bh, rows, nt, _SWEEP_TILE).amax(-1)
+    top = ((mx.view(torch.int32) >> 23) & 0xFF) - 127   # floor(log2 |x|)
+    e = (_DS_TOP - top).clamp(-_DS_EXP, _DS_EXP)        # zero: the ceiling
+    e = torch.cummin(e, dim=-1).values
+    return e.repeat_interleave(_SWEEP_TILE, -1)[..., :cols].contiguous()
+
+
+def flash_bwd_split_ref(q, k, v, do, lse, delta, causal=False, scale=None,
+                        split="kernel"):
+    """(dq, dk, dv) as the tensor-core sweeps compute them in q's 16-bit
+    type: P and dS enter their products as operands of that type, products
+    and sums in float32; the rest as `flash_bwd_dq_ref` and
+    `flash_bwd_dkv_ref`. `split`: "one_term" (x rounded once), "two_term"
+    (x = hi + lo, bfloat16's sweeps) or "kernel" (in float16, two terms of
+    P * 2^15 and of dS scaled per output row, see `_P_SHIFT`; in bfloat16,
+    "two_term"). The tests and chip_smoke.py hold the scheme and the
+    kernels to it; nothing on the main path calls it."""
+    scale = _scale(q, scale)
+    dt = q.dtype
+    ranged = split == "kernel" and dt == torch.float16
+    p = _probs(q, k, lse, causal, scale)
+    ds = p * (torch.einsum("bqd,bkd->bqk", do.float(), v.float()) - delta)
+
+    def product(x, m, ranged_rows):
+        """sum over x's columns of x[row] m (x (bh, rows, cols) f32, m
+        (bh, cols, d)), x's terms of the type each in its own product."""
+        up = down = None
+        if ranged_rows:
+            e = _row_exponents(x)
+            up, down = _pow2(e), _pow2(-e)
+            x = x * up
+        hi = x.to(dt).float()
+        terms = [hi] if split == "one_term" else [hi, (x - hi).to(dt).float()]
+        if up is not None:
+            terms = [t * down for t in terms]
+        return sum(torch.einsum("brc,bcd->brd", t, m) for t in terms)
+
+    dq = product(ds, k.float(), ranged) * scale
+    dk = product(ds.transpose(1, 2), q.float(), ranged) * scale
+    shift = 2.0 ** _P_SHIFT if ranged else 1.0
+    dv = product(p.transpose(1, 2) * shift, do.float(), False) / shift
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------

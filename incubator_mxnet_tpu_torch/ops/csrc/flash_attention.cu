@@ -25,20 +25,17 @@
 // and any bh. delta is computed by the caller, as the JAX package
 // computes it outside Pallas.
 //
-// Two routes. At d a multiple of 8 up to 128, bfloat16 runs on the tensor
-// cores (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel and
-// flash_bwd_dkv_wgmma_kernel, below), and so does the float16 forward
-// (flash_fwd_wgmma_kernel's float16 instance); float32 inputs, the float16
-// backward, and 16-bit inputs at other d run on the CUDA cores
+// Two routes. At d a multiple of 8 up to 128, bfloat16 and float16 run on
+// the tensor cores (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel and
+// flash_bwd_dkv_wgmma_kernel, below, each a template over the 16-bit type);
+// float32 inputs, and 16-bit inputs at other d, run on the CUDA cores
 // (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel). The
 // wrappers choose by dtype and d alone. float32 stays off the tensor cores
-// because they would take it as TF32 (about three digits); the float16
-// backward because its sweeps are written for bf16 (a float16 instance is
-// the next step); d % 8 != 0 because a row of d 16-bit values is then no
-// multiple of 16 bytes, the least global stride a TMA tensor map can
-// describe; d > 128 because a 64 x d f32 accumulator is d / 2 registers a
-// thread in each of O, dK and dV, which at d = 256 leaves no room for the
-// rest.
+// because they would take it as TF32 (about three digits); d % 8 != 0
+// because a row of d 16-bit values is then no multiple of 16 bytes, the
+// least global stride a TMA tensor map can describe; d > 128 because a
+// 64 x d f32 accumulator is d / 2 registers a thread in each of O, dK and
+// dV, which at d = 256 leaves no room for the rest.
 //
 // What bounds them on the card. At the BERT-base shape (bh 192, T 512, d 64)
 // the forward does 12.9 GFLOP on 50.3 MB of bf16 inputs and outputs, so on
@@ -56,7 +53,9 @@
 //   * tensor-core backward: the same machinery, each sweep its own kernel
 //     (see their note): the resident side (Q, dO or K, V) loads once per
 //     128-row item, the other streams through the ring, every product is a
-//     wgmma, and P and dS go to their products from registers in two terms.
+//     wgmma, and P and dS go to their products from registers in two terms
+//     (in float16 P shifted by 2^15 and dS scaled per output row by a
+//     power of two, so that neither falls into float16's subnormals).
 //   * CUDA-core kernels (the CUDA-core forward and both backward sweeps):
 //     every tile lives in shared memory as f32 after one 16-byte-vector load
 //     from device memory (a scalar one where a row is not a whole number of
@@ -92,6 +91,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "tiles.cuh"
@@ -846,12 +847,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// B7 / B8 on the tensor cores: bfloat16, d a multiple of 8 (<= 128)
+// B7 / B8 on the tensor cores: bfloat16 or float16, d a multiple of 8 (<= 128)
 // ---------------------------------------------------------------------------
 // flash_bwd_dq_wgmma_kernel replaces _bwd_dq_kernel (the dq sweep of
 // _flash_backward, incubator_mxnet_tpu/ops/pallas_attention.py:107, its
 // pallas_call :366), flash_bwd_dkv_wgmma_kernel _bwd_dkv_kernel (:162, its
-// pallas_call :385), for bfloat16 inputs whose rows are whole 16-byte
+// pallas_call :385), for 16-bit inputs (T: __nv_bfloat16 or __half, the
+// forward's Elem16<T> and wgmma_ss/rs<N, T>) whose rows are whole 16-byte
 // vectors. Bound: operations. The dq sweep does 3 products of 2 d
 // operations a live pair (S = Q K^T, dP = dO V^T, dQ = dS K) and the dk/dv
 // sweep 4 (S^T, dP^T, dV = P^T dO, dK = dS^T Q): 19.3 and 25.8 GFLOP at
@@ -876,12 +878,33 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 //     S^T = K Q^T and dP^T = V dO^T, P^T and dS^T on the registers, then
 //     dV += P^T dO and dK += dS^T Q with dO and Q through the transposed
 //     descriptor. Under causal a key item starts at first_query_tile.
-//   * P and dS go into their products as two bf16 terms (x = x_hi + x_lo,
-//     two wgmma into one accumulator), as P does in the forward: one term
-//     reads rms_rel ~2.6e-3 on dq, dk and dv at (192, 512, 64), over the
-//     5e-4 limit chip_smoke.py holds bf16 outputs to, two terms ~9e-5
-//     (emulated; phase 6 records the reading on the card). The split costs
-//     4/3 the dq sweep's products and 6/4 the dk/dv sweep's.
+//   * P and dS go into their products as two terms of T (x = x_hi + x_lo,
+//     two wgmma into one accumulator), as P does in the forward: in bf16
+//     one term reads rms_rel ~2.6e-3 on dq, dk and dv at (192, 512, 64),
+//     over the 5e-4 limit chip_smoke.py holds bf16 outputs to, two terms
+//     ~9e-5 (emulated; phase 6 records the reading on the card). The split
+//     costs 4/3 the dq sweep's products and 6/4 the dk/dv sweep's.
+//   * float16 has bf16's step / 8 but not its range: a term below 2^-14
+//     loses bits in the subnormals. The backward's P is normalised (about
+//     1 / Tk), and dS scales with dO (tiny without loss scaling, large with
+//     it), so two plain terms read rms_rel up to 7.9e-4 on dq and dk at dO
+//     ~ 2^-10 (emulated), 12x the float16 limit 6.25e-5. Only float16's
+//     instances (if constexpr) shift P by 2^15 into dV's product and scale
+//     dS by a running power of two per output row (ds_rescale below), all
+//     exact, which reads 1.1e-5 to 1.7e-5 at every dO from 2^-10 to 2^12
+//     (ops/attention.py :: flash_bwd_split_ref emulates it; phase 6 holds
+//     the card to the limits at 2^-10, 1 and 2^12).
+//   * the tensor cores round each addition into the f32 accumulator toward
+//     zero at the accumulator's precision, and under causal a key row's
+//     terms fall with the query's distance (p ~ 1 / (q + 1)): summed first
+//     to last, the small tail is cut at the large head's precision. The
+//     float16 dk/dv sweep takes a key item's query tiles last to first,
+//     which keeps dv to rms_rel 2.7e-5 where first to last reads 8.2e-5 at
+//     T 2048, d 128 (a model of that rounding,
+//     tests/test_torch_flash_f16_backward.py); the card read dk and dv at
+//     7.1e-5 and 7.4e-5 first to last, 3.5e-5 and 3.1e-5 last to first
+//     (phase 6, causal (48, 2048, 128)), against float16's 6.25e-5. bf16's
+//     order is unchanged (its limit is 8x wider).
 //   * registers: dK and dV at d = 128 are 128 f32 accumulators a thread,
 //     and S^T, dP^T 64 more, over the 168 ptxas gives a thread of a block
 //     of three warpgroups. The producer warpgroup gives its registers to the
@@ -931,26 +954,72 @@ __device__ __forceinline__ void bw_init(uint32_t bars, int full_count) {
 
 // S (64 x 64) = A . B^T over D for one warpgroup: A 64 rows at a (K-major,
 // atoms 8192 bytes apart), B 64 rows at b (the same)
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void bw_scores(float* s, uint32_t a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
-    wgmma_ss<64>(s, sw128_desc(a + off, 16), sw128_desc(b + off, 16), kk > 0);
+    wgmma_ss<64, T>(s, sw128_desc(a + off, 16), sw128_desc(b + off, 16),
+                    kk > 0);
   }
 }
 
-// acc (64 x D) += X (64 x 64, two bf16 terms in registers) . M (64 rows x
+// acc (64 x D) += X (64 x 64, two terms of T in registers) . M (64 rows x
 // D at m, through the transposed descriptor)
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void bw_product(float* acc, uint32_t (*hi)[4],
                                            uint32_t (*lo)[4], uint32_t m) {
 #pragma unroll
   for (int kb = 0; kb < 4; ++kb)
-    wgmma_rs<D>(acc, hi[kb], sw128_desc(m + kb * 2048, kBwTile * 128));
+    wgmma_rs<D, T>(acc, hi[kb], sw128_desc(m + kb * 2048, kBwTile * 128));
 #pragma unroll
   for (int kb = 0; kb < 4; ++kb)
-    wgmma_rs<D>(acc, lo[kb], sw128_desc(m + kb * 2048, kBwTile * 128));
+    wgmma_rs<D, T>(acc, lo[kb], sw128_desc(m + kb * 2048, kBwTile * 128));
+}
+
+// float16's operand ranges (ops/attention.py :: flash_bwd_split_ref
+// emulates them). P enters dV's product as P 2^15 (P <= 1 < 65504 / 2^15)
+// and dV's accumulator is scaled by 2^-15 at the store. dS = P (dP - delta)
+// has no fixed range (it scales with dO), so each output row (its quad of
+// lanes) keeps a power-of-two exponent e, as the forward keeps its running
+// max: after each tile e = min(e, 14 - floor(log2 max |dS|)), which puts
+// the row's largest |dS| so far in [2^14, 2^15); the row's accumulator is
+// scaled by 2^(e_new - e_old) before the tile's product and by 2^-e at the
+// store, all exact. A tile of zeros (or subnormals) keeps e; e starts at,
+// and is clamped to, +-56 (float16 inputs bound |dS| by about 2^40).
+constexpr float kPShift = 32768.f;           // 2^15
+constexpr float kPUnshift = 1.f / 32768.f;
+constexpr int kDsTop = 14;
+constexpr int kDsExp = 56;
+
+__device__ __forceinline__ float pow2(int e) {  // e in [-126, 127]
+  return __int_as_float((127 + e) << 23);
+}
+
+// the row's exponent after a tile whose largest |dS| in this lane is mx
+__device__ __forceinline__ int ds_exponent(float mx, int e) {
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  const int top = ((__float_as_int(mx) >> 23) & 0xff) - 127;  // -127 at 0
+  return min(e, max(kDsTop - top, -kDsExp));
+}
+
+// scales acc's two rows (fragment register i: row (i % 4) / 2) by
+// 2^(e_new - e_old), moves e to e_new and sets up[r] = 2^e_new[r], the
+// factor row r's dS takes before its split
+template <int N>
+__device__ __forceinline__ void ds_rescale(float* acc, int* e,
+                                           const float* mx, float* up) {
+  float down[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int e_new = ds_exponent(mx[r], e[r]);
+    down[r] = pow2(e_new - e[r]);
+    up[r] = pow2(e_new);
+    e[r] = e_new;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= down[(i % 4) / 2];
 }
 
 // lse in log2 units for the exponentials: +inf on a row past Tq or on the
@@ -965,7 +1034,7 @@ __device__ __forceinline__ float lse_log2(const float* lse, long long at,
 // Accumulator fragment of a 64 x N wgmma in a consumer thread (warp w of its
 // warpgroup, lane = 4 g + t): register 4 j + e holds row 16 w + g + 8 (e /
 // 2), column 8 j + 2 t + (e % 2), as in the forward.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kBwThreads, 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_k,
@@ -973,10 +1042,11 @@ __global__ void __launch_bounds__(kBwThreads, 1)
                               const __grid_constant__ CUtensorMap tm_do,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
-                              __nv_bfloat16* __restrict__ dq, int n_heads,
+                              T* __restrict__ dq, int n_heads,
                               int Tq, int Tk, int causal, float scale_log2,
                               float scale, int hd) {
   using C = Bw<D>;
+  constexpr bool kF16 = std::is_same<T, __half>::value;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + C::kBarOff;
@@ -1059,6 +1129,7 @@ __global__ void __launch_bounds__(kBwThreads, 1)
       float acc[D / 2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      int ex[2] = {kDsExp, kDsExp};  // float16: the rows' dS exponents
       mbar_wait(res_full0 + 8 * b, (it >> 1) & 1);
       for (int kt = 0; kt < nk; ++kt) {
         const int k0 = kt * kBwTile;
@@ -1068,8 +1139,8 @@ __global__ void __launch_bounds__(kBwThreads, 1)
         float s[32], dp[32];
         named_sync(1 + wg);
         wg_fence();
-        bw_scores<D>(s, sQw, sKs);
-        bw_scores<D>(dp, sOw, sVs);
+        bw_scores<T, D>(s, sQw, sKs);
+        bw_scores<T, D>(dp, sOw, sVs);
         wg_commit();
         named_arrive(2 - wg);
         wg_wait0();
@@ -1079,7 +1150,8 @@ __global__ void __launch_bounds__(kBwThreads, 1)
         const bool masked = k0 + kBwTile > Tk ||
                             (causal && k0 + kBwTile - 1 >
                                            wg_first + (Tk - Tq));
-        uint32_t d_hi[4][4], d_lo[4][4];
+        // dS = P (dP - delta) into dp, and its row maxima (float16)
+        float mx[2] = {0.f, 0.f};
 #pragma unroll
         for (int kb = 0; kb < 4; ++kb) {
 #pragma unroll
@@ -1094,12 +1166,29 @@ __global__ void __launch_bounds__(kBwThreads, 1)
               if (!live(qi, kj, Tq, Tk, causal)) x = 0.f;
               if (!live(qi, kj + 1, Tq, Tk, causal)) y = 0.f;
             }
-            split_bf16(x * (dp[i] - dl[h]), y * (dp[i + 1] - dl[h]),
-                       &d_hi[kb][r], &d_lo[kb][r]);
+            dp[i] = x * (dp[i] - dl[h]);
+            dp[i + 1] = y * (dp[i + 1] - dl[h]);
+            if constexpr (kF16)
+              mx[h] = fmaxf(mx[h], fmaxf(fabsf(dp[i]), fabsf(dp[i + 1])));
+          }
+        }
+        float up[2] = {1.f, 1.f};
+        if constexpr (kF16) {
+          ds_rescale<D / 2>(acc, ex, mx, up);
+          pin<D / 2>(acc);
+        }
+        uint32_t d_hi[4][4], d_lo[4][4];
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 8 * kb + 2 * r;
+            Elem16<T>::split(dp[i] * up[r % 2], dp[i + 1] * up[r % 2],
+                             &d_hi[kb][r], &d_lo[kb][r]);
           }
         }
         wg_fence();
-        bw_product<D>(acc, d_hi, d_lo, sKs);
+        bw_product<T, D>(acc, d_hi, d_lo, sKs);
         wg_commit();
         wg_wait0();
         pin<D / 2>(acc);
@@ -1115,14 +1204,14 @@ __global__ void __launch_bounds__(kBwThreads, 1)
       for (int r = 0; r < 2; ++r) {
         const int qi = row0 + 8 * r;
         if (qi >= Tq) continue;
-        __nv_bfloat16* orow = dq + (head + qi) * hd;
+        const float f = kF16 ? scale * pow2(-ex[r]) : scale;
+        T* orow = dq + (head + qi) * hd;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
           const int col = 8 * j + 2 * t;
           if (col < hd)
-            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-                __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale,
-                                      acc[4 * j + 2 * r + 1] * scale);
+            Elem16<T>::store2(orow + col, acc[4 * j + 2 * r] * f,
+                              acc[4 * j + 2 * r + 1] * f);
         }
       }
     }
@@ -1130,7 +1219,7 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kBwThreads, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_k,
@@ -1138,11 +1227,11 @@ __global__ void __launch_bounds__(kBwThreads, 1)
                                const __grid_constant__ CUtensorMap tm_do,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
-                               __nv_bfloat16* __restrict__ dk,
-                               __nv_bfloat16* __restrict__ dv, int n_heads,
-                               int Tq, int Tk, int causal, float scale_log2,
-                               float scale, int hd) {
+                               T* __restrict__ dk, T* __restrict__ dv,
+                               int n_heads, int Tq, int Tk, int causal,
+                               float scale_log2, float scale, int hd) {
   using C = Bw<D>;
+  constexpr bool kF16 = std::is_same<T, __half>::value;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const base_p = smem_raw + (base - smem_u32(smem_raw));
@@ -1191,8 +1280,10 @@ __global__ void __launch_bounds__(kBwThreads, 1)
             }
         }
         const long long head = (long long)bh * Tq;
-        for (int qt = causal ? first_query_tile(k0, Tq, Tk) : 0; qt < nq;
-             ++qt) {
+        // the live query tiles qt0 .. nq - 1, in float16 last to first
+        const int qt0 = causal ? first_query_tile(k0, Tq, Tk) : 0;
+        for (int qt = kF16 ? nq - 1 : qt0; kF16 ? qt >= qt0 : qt < nq;
+             qt += kF16 ? -1 : 1) {
           const int q0 = qt * kBwTile;
           mbar_wait(empty0 + 8 * st, phase ^ 1);
           float* sl = stats + st * 2 * kBwTile;
@@ -1241,9 +1332,12 @@ __global__ void __launch_bounds__(kBwThreads, 1)
         dka[i] = 0.f;
         dva[i] = 0.f;
       }
+      int ex[2] = {kDsExp, kDsExp};  // float16: the key rows' dS exponents
       mbar_wait(res_full0 + 8 * b, (it >> 1) & 1);
-      for (int qt = causal ? first_query_tile(k0, Tq, Tk) : 0; qt < nq;
-           ++qt) {
+      // the producer's order (float16: last to first)
+      const int qt0 = causal ? first_query_tile(k0, Tq, Tk) : 0;
+      for (int qt = kF16 ? nq - 1 : qt0; kF16 ? qt >= qt0 : qt < nq;
+           qt += kF16 ? -1 : 1) {
         const int q0 = qt * kBwTile;
         mbar_wait(full0 + 8 * st, phase);
         const uint32_t sQs = ringQ + st * C::kTile;
@@ -1252,8 +1346,8 @@ __global__ void __launch_bounds__(kBwThreads, 1)
         float s[32], dp[32];
         named_sync(1 + wg);
         wg_fence();
-        bw_scores<D>(s, sKw, sQs);   // S^T: key rows x query columns
-        bw_scores<D>(dp, sVw, sOs);  // dP^T
+        bw_scores<T, D>(s, sKw, sQs);   // S^T: key rows x query columns
+        bw_scores<T, D>(dp, sVw, sOs);  // dP^T
         wg_commit();
         named_arrive(2 - wg);
         wg_wait0();
@@ -1262,7 +1356,10 @@ __global__ void __launch_bounds__(kBwThreads, 1)
 
         const bool masked = wg_first + 64 > Tk ||
                             (causal && wg_first + 63 > q0 + (Tk - Tq));
+        // P^T split (float16: shifted by 2^15), dS^T into dp, and its row
+        // maxima (float16)
         uint32_t p_hi[4][4], p_lo[4][4], d_hi[4][4], d_lo[4][4];
+        float mx[2] = {0.f, 0.f};
 #pragma unroll
         for (int kb = 0; kb < 4; ++kb) {
 #pragma unroll
@@ -1279,14 +1376,33 @@ __global__ void __launch_bounds__(kBwThreads, 1)
               if (!live(q0 + c, kj, Tq, Tk, causal)) x = 0.f;
               if (!live(q0 + c + 1, kj, Tq, Tk, causal)) y = 0.f;
             }
-            split_bf16(x, y, &p_hi[kb][r], &p_lo[kb][r]);
-            split_bf16(x * (dp[i] - dl.x), y * (dp[i + 1] - dl.y),
-                       &d_hi[kb][r], &d_lo[kb][r]);
+            const float shift = kF16 ? kPShift : 1.f;
+            Elem16<T>::split(x * shift, y * shift, &p_hi[kb][r],
+                             &p_lo[kb][r]);
+            dp[i] = x * (dp[i] - dl.x);
+            dp[i + 1] = y * (dp[i + 1] - dl.y);
+            if constexpr (kF16)
+              mx[r % 2] = fmaxf(mx[r % 2],
+                                fmaxf(fabsf(dp[i]), fabsf(dp[i + 1])));
+          }
+        }
+        float up[2] = {1.f, 1.f};
+        if constexpr (kF16) {
+          ds_rescale<D / 2>(dka, ex, mx, up);
+          pin<D / 2>(dka);
+        }
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 8 * kb + 2 * r;
+            Elem16<T>::split(dp[i] * up[r % 2], dp[i + 1] * up[r % 2],
+                             &d_hi[kb][r], &d_lo[kb][r]);
           }
         }
         wg_fence();
-        bw_product<D>(dva, p_hi, p_lo, sOs);
-        bw_product<D>(dka, d_hi, d_lo, sQs);
+        bw_product<T, D>(dva, p_hi, p_lo, sOs);
+        bw_product<T, D>(dka, d_hi, d_lo, sQs);
         wg_commit();
         wg_wait0();
         pin<D / 2>(dva);
@@ -1304,18 +1420,21 @@ __global__ void __launch_bounds__(kBwThreads, 1)
       for (int r = 0; r < 2; ++r) {
         const int kj = row0 + 8 * r;
         if (kj >= Tk) continue;
-        __nv_bfloat16* krow = dk + (head + kj) * hd;
-        __nv_bfloat16* vrow = dv + (head + kj) * hd;
+        const float fk = kF16 ? scale * pow2(-ex[r]) : scale;
+        T* krow = dk + (head + kj) * hd;
+        T* vrow = dv + (head + kj) * hd;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
           const int col = 8 * j + 2 * t;
           if (col >= hd) continue;
-          *reinterpret_cast<__nv_bfloat162*>(krow + col) =
-              __floats2bfloat162_rn(dka[4 * j + 2 * r] * scale,
-                                    dka[4 * j + 2 * r + 1] * scale);
-          *reinterpret_cast<__nv_bfloat162*>(vrow + col) =
-              __floats2bfloat162_rn(dva[4 * j + 2 * r],
-                                    dva[4 * j + 2 * r + 1]);
+          Elem16<T>::store2(krow + col, dka[4 * j + 2 * r] * fk,
+                            dka[4 * j + 2 * r + 1] * fk);
+          if constexpr (kF16)
+            Elem16<T>::store2(vrow + col, dva[4 * j + 2 * r] * kPUnshift,
+                              dva[4 * j + 2 * r + 1] * kPUnshift);
+          else
+            Elem16<T>::store2(vrow + col, dva[4 * j + 2 * r],
+                              dva[4 * j + 2 * r + 1]);
         }
       }
     }
@@ -1457,10 +1576,9 @@ int dispatch(int dtype, int device, int which, const Args& a) {
   if (dtype < 0 || dtype > 2 || a.bh <= 0 || a.tq < 0 || a.tk < 0 ||
       a.hd < 1)
     return (int)cudaErrorInvalidValue;
-  // at d % 8 == 0 up to 128, bfloat16 is the tensor-core kernels' and so is
-  // the float16 forward (which 0 and 1); the float16 backward stays here
-  if (a.hd % 8 == 0 && a.hd <= 128 &&
-      (dtype == 1 || (dtype == 2 && which <= 1)))
+  // at d % 8 == 0 up to 128, bfloat16 and float16 are the tensor-core
+  // kernels'
+  if (a.hd % 8 == 0 && a.hd <= 128 && dtype != 0)
     return (int)cudaErrorInvalidValue;
   Device guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
@@ -1538,45 +1656,55 @@ bool bw_grid(const Args& a, int rows, int* grid) {
 
 // the four maps of a backward sweep; a side with no rows (tk == 0 for dq,
 // tq == 0 for dk/dv) is never read, and its maps only need to be valid
+template <typename T>
 bool bw_maps(const Args& a, CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
              CUtensorMap* mo) {
+  constexpr CUtensorMapDataType ty = Elem16<T>::kTma;
   const bool qs = a.tq > 0, ks = a.tk > 0;
-  return tensor_map(mq, qs ? a.q : a.k, a.hd, qs ? a.tq : a.tk, a.bh, 64) &&
-         tensor_map(mo, qs ? a.dout : a.k, a.hd, qs ? a.tq : a.tk, a.bh,
-                    64) &&
-         tensor_map(mk, ks ? a.k : a.q, a.hd, ks ? a.tk : a.tq, a.bh, 64) &&
-         tensor_map(mv, ks ? a.v : a.q, a.hd, ks ? a.tk : a.tq, a.bh, 64);
+  const int nq = qs ? a.tq : a.tk, nk = ks ? a.tk : a.tq;
+  return tensor_map(mq, qs ? a.q : a.k, a.hd, nq, a.bh, 64, ty) &&
+         tensor_map(mo, qs ? a.dout : a.k, a.hd, nq, a.bh, 64, ty) &&
+         tensor_map(mk, ks ? a.k : a.q, a.hd, nk, a.bh, 64, ty) &&
+         tensor_map(mv, ks ? a.v : a.q, a.hd, nk, a.bh, 64, ty);
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t run_dq_wgmma(const Args& a) {
-  auto kern = flash_bwd_dq_wgmma_kernel<D>;
+  auto kern = flash_bwd_dq_wgmma_kernel<T, D>;
   int grid = 0;
   CUtensorMap mq, mk, mv, mo;
-  if (!bw_grid(a, a.tq, &grid) || !bw_maps(a, &mq, &mk, &mv, &mo))
+  if (!bw_grid(a, a.tq, &grid) || !bw_maps<T>(a, &mq, &mk, &mv, &mo))
     return cudaErrorInvalidValue;
   cudaError_t e = prepare_rebalanced(kern, Bw<D>::kSmem);
   if (e != cudaSuccess) return e;
   kern<<<grid, kBwThreads, Bw<D>::kSmem, a.st>>>(
-      mq, mk, mv, mo, a.lse_in, a.delta, static_cast<__nv_bfloat16*>(a.o),
-      a.bh, a.tq, a.tk, a.causal, a.scale * kLog2e, a.scale, a.hd);
+      mq, mk, mv, mo, a.lse_in, a.delta, static_cast<T*>(a.o), a.bh, a.tq,
+      a.tk, a.causal, a.scale * kLog2e, a.scale, a.hd);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t run_dkv_wgmma(const Args& a) {
-  auto kern = flash_bwd_dkv_wgmma_kernel<D>;
+  auto kern = flash_bwd_dkv_wgmma_kernel<T, D>;
   int grid = 0;
   CUtensorMap mq, mk, mv, mo;
-  if (!bw_grid(a, a.tk, &grid) || !bw_maps(a, &mq, &mk, &mv, &mo))
+  if (!bw_grid(a, a.tk, &grid) || !bw_maps<T>(a, &mq, &mk, &mv, &mo))
     return cudaErrorInvalidValue;
   cudaError_t e = prepare_rebalanced(kern, Bw<D>::kSmem);
   if (e != cudaSuccess) return e;
   kern<<<grid, kBwThreads, Bw<D>::kSmem, a.st>>>(
-      mq, mk, mv, mo, a.lse_in, a.delta, static_cast<__nv_bfloat16*>(a.o),
-      static_cast<__nv_bfloat16*>(a.o2), a.bh, a.tq, a.tk, a.causal,
-      a.scale * kLog2e, a.scale, a.hd);
+      mq, mk, mv, mo, a.lse_in, a.delta, static_cast<T*>(a.o),
+      static_cast<T*>(a.o2), a.bh, a.tq, a.tk, a.causal, a.scale * kLog2e,
+      a.scale, a.hd);
   return cudaGetLastError();
+}
+
+// which: 2 the dq sweep, 3 the dk/dv sweep, at the capacity that holds d
+template <typename T>
+cudaError_t bwd_wgmma(int which, const Args& a) {
+  if (which == 2)
+    return a.hd <= 64 ? run_dq_wgmma<T, 64>(a) : run_dq_wgmma<T, 128>(a);
+  return a.hd <= 64 ? run_dkv_wgmma<T, 64>(a) : run_dkv_wgmma<T, 128>(a);
 }
 
 }  // namespace
@@ -1656,47 +1784,45 @@ extern "C" int mx_flash_bwd_dkv(int dtype, int device, int head_dim,
   return dispatch(dtype, device, 3, a);
 }
 
-// The tensor-core backward sweeps: bfloat16 q, k, v, dout and outputs as
-// above, 16-byte aligned, head_dim a multiple of 8 up to 128; tq >= 1 for
-// dq, tk >= 1 for dk/dv (the other side may be empty).
-static bool bw_args_ok(int head_dim, int bh, int tq, int tk, const void* lse,
-                const void* delta) {
-  return head_dim >= 8 && head_dim <= 128 && head_dim % 8 == 0 && bh > 0 &&
-         tq >= 0 && tk >= 0 && lse != nullptr && delta != nullptr;
+// The tensor-core backward sweeps. dtype: 0 float32, 1 bfloat16, 2 float16
+// (ops/kernels.py :: DTYPE_CODES); only 1 and 2 are taken. q, k, v, dout
+// and outputs of that type as above, 16-byte aligned, head_dim a multiple
+// of 8 up to 128; tq >= 1 for dq, tk >= 1 for dk/dv (the other side may be
+// empty).
+static int bwd_wgmma_entry(int dtype, int device, int which, const Args& a) {
+  if ((dtype != 1 && dtype != 2) || a.hd < 8 || a.hd > 128 || a.hd % 8 ||
+      a.bh <= 0 || a.tq < 0 || a.tk < 0 || a.lse_in == nullptr ||
+      a.delta == nullptr || (which == 2 ? a.tq : a.tk) < 1)
+    return (int)cudaErrorInvalidValue;
+  Device guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  return (int)(dtype == 1 ? bwd_wgmma<__nv_bfloat16>(which, a)
+                          : bwd_wgmma<__half>(which, a));
 }
 
-extern "C" int mx_flash_bwd_dq_wgmma(int device, int head_dim, const void* q,
-                                     const void* k, const void* v,
-                                     const void* dout, const void* lse,
-                                     const void* delta, void* dq, int bh,
-                                     int tq, int tk, int causal, float scale,
-                                     void* stream) {
-  if (!bw_args_ok(head_dim, bh, tq, tk, lse, delta) || tq < 1)
-    return (int)cudaErrorInvalidValue;
+extern "C" int mx_flash_bwd_dq_wgmma(int dtype, int device, int head_dim,
+                                     const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dq, int bh, int tq, int tk,
+                                     int causal, float scale, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dq, nullptr, nullptr, bh, tq, tk,
          causal, head_dim, scale, static_cast<cudaStream_t>(stream)};
-  Device guard(device);
-  if (guard.err != cudaSuccess) return (int)guard.err;
-  return (int)(head_dim <= 64 ? run_dq_wgmma<64>(a) : run_dq_wgmma<128>(a));
+  return bwd_wgmma_entry(dtype, device, 2, a);
 }
 
-extern "C" int mx_flash_bwd_dkv_wgmma(int device, int head_dim,
+extern "C" int mx_flash_bwd_dkv_wgmma(int dtype, int device, int head_dim,
                                       const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       void* dk, void* dv, int bh, int tq,
                                       int tk, int causal, float scale,
                                       void* stream) {
-  if (!bw_args_ok(head_dim, bh, tq, tk, lse, delta) || tk < 1)
-    return (int)cudaErrorInvalidValue;
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dk, dv, nullptr, bh, tq, tk,
          causal, head_dim, scale, static_cast<cudaStream_t>(stream)};
-  Device guard(device);
-  if (guard.err != cudaSuccess) return (int)guard.err;
-  return (int)(head_dim <= 64 ? run_dkv_wgmma<64>(a)
-                              : run_dkv_wgmma<128>(a));
+  return bwd_wgmma_entry(dtype, device, 3, a);
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

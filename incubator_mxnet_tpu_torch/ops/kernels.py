@@ -114,7 +114,8 @@ def reset_launch_counts():
 def launch_counts_by_dtype():
     """{(counter name, dtype name): launches} since the last reset: the
     launches of `launch_counts()` by the type of the data they took
-    ("scale_shift_act", "float16") — the paged kernel's by its q
+    ("scale_shift_act", "float16"; the flash kernels' tensor-core
+    counters too, "flash_bwd_dq_wgmma") — the paged kernel's by its q
     ("paged_attention_q") and its slab ("paged_attention_kv")."""
     return dict(_BY_DTYPE)
 
@@ -273,10 +274,10 @@ def _load(name):
                     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + tail)
                 lib.mx_flash_bwd_dq_wgmma.restype = ctypes.c_int
                 lib.mx_flash_bwd_dq_wgmma.argtypes = (
-                    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + tail)
+                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + tail)
                 lib.mx_flash_bwd_dkv_wgmma.restype = ctypes.c_int
                 lib.mx_flash_bwd_dkv_wgmma.argtypes = (
-                    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + tail)
+                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + tail)
             lib.mx_cuda_error_string.restype = ctypes.c_char_p
             lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
             _LIBS[name] = lib
@@ -675,12 +676,13 @@ def flash_fwd_route(dtype, d):
 
 def flash_bwd_route(dtype, d):
     """Which backward kernels (B7 dq sweep, B8 dk/dv sweep) take (dtype,
-    head dim d): "wgmma" for bfloat16 at d a multiple of 8 up to 128, as
-    the forward; float16 stays on "cuda_cores" at every d, because the
-    tensor-core sweeps are written for bf16 alone (their float16 instance
-    is the next step, ROADMAP §B); float32 as the forward."""
-    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= 128 \
-        else "cuda_cores"
+    head dim d): the forward's route, "wgmma" for bfloat16 and float16 at
+    d a multiple of 8 up to 128, else "cuda_cores". The tensor-core sweeps
+    are templates over the 16-bit type; float16's shift P by 2^15 and
+    scale dS by a power of two per output row before splitting them into
+    two float16 terms, so neither falls into float16's subnormals
+    (`attention.flash_bwd_split_ref` emulates it)."""
+    return flash_fwd_route(dtype, d)
 
 
 def _flash_check(name, q, k, v, extra=()):
@@ -755,12 +757,16 @@ def flash_fwd_cuda(q, k, v, causal, scale, with_lse):
         raise _launch_failed(lib, "flash_fwd", rc)
     if with_lse:
         flash_fwd_lse_launches += 1
-        flash_fwd_lse_wgmma_launches += tensor_cores
         _count_dtype("flash_fwd_lse", q.dtype)
+        if tensor_cores:
+            flash_fwd_lse_wgmma_launches += 1
+            _count_dtype("flash_fwd_lse_wgmma", q.dtype)
         return o, lse
     flash_fwd_launches += 1
-    flash_fwd_wgmma_launches += tensor_cores
     _count_dtype("flash_fwd", q.dtype)
+    if tensor_cores:
+        flash_fwd_wgmma_launches += 1
+        _count_dtype("flash_fwd_wgmma", q.dtype)
     return o
 
 
@@ -789,15 +795,18 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
     tensor_cores = flash_bwd_route(q.dtype, d) == "wgmma"
     if tensor_cores:
         _check_aligned(name, q=q, k=k, v=v, do=do, dq=dq)
-        rc = lib.mx_flash_bwd_dq_wgmma(q.device.index or 0, d, *ptrs, *tail)
+        rc = lib.mx_flash_bwd_dq_wgmma(DTYPE_CODES[q.dtype],
+                                       q.device.index or 0, d, *ptrs, *tail)
     else:
         rc = lib.mx_flash_bwd_dq(DTYPE_CODES[q.dtype], q.device.index or 0,
                                  d, *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_bwd_dq", rc)
     flash_bwd_dq_launches += 1
-    flash_bwd_dq_wgmma_launches += tensor_cores
     _count_dtype("flash_bwd_dq", q.dtype)
+    if tensor_cores:
+        flash_bwd_dq_wgmma_launches += 1
+        _count_dtype("flash_bwd_dq_wgmma", q.dtype)
     return dq
 
 
@@ -825,14 +834,16 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
     tensor_cores = flash_bwd_route(q.dtype, d) == "wgmma"
     if tensor_cores:
         _check_aligned(name, q=q, k=k, v=v, do=do, dk=dk, dv=dv)
-        rc = lib.mx_flash_bwd_dkv_wgmma(q.device.index or 0, d, *ptrs,
-                                        *tail)
+        rc = lib.mx_flash_bwd_dkv_wgmma(DTYPE_CODES[q.dtype],
+                                        q.device.index or 0, d, *ptrs, *tail)
     else:
         rc = lib.mx_flash_bwd_dkv(DTYPE_CODES[q.dtype],
                                   q.device.index or 0, d, *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_bwd_dkv", rc)
     flash_bwd_dkv_launches += 1
-    flash_bwd_dkv_wgmma_launches += tensor_cores
     _count_dtype("flash_bwd_dkv", q.dtype)
+    if tensor_cores:
+        flash_bwd_dkv_wgmma_launches += 1
+        _count_dtype("flash_bwd_dkv_wgmma", q.dtype)
     return dk, dv

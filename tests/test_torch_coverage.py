@@ -286,14 +286,14 @@ ROUTES = [
     (torch.bfloat16, 136, "cuda_cores"), (torch.bfloat16, 256, "cuda_cores"),
     (torch.float32, 8, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
     (torch.float32, 256, "cuda_cores")]
-# float16: the forward on the tensor cores where bfloat16's is, the
-# backward on the CUDA cores at every d (its tensor-core sweeps are bf16's)
+# float16: the forward and the backward on the tensor cores where
+# bfloat16's are
 F16_FWD = [
     (torch.float16, 8, "wgmma"), (torch.float16, 64, "wgmma"),
     (torch.float16, 96, "wgmma"), (torch.float16, 128, "wgmma"),
     (torch.float16, 12, "cuda_cores"), (torch.float16, 136, "cuda_cores"),
     (torch.float16, 256, "cuda_cores")]
-F16_BWD = [(torch.float16, d, "cuda_cores") for _, d, _ in F16_FWD]
+F16_BWD = list(F16_FWD)
 
 
 @pytest.mark.parametrize("dtype,d,route", ROUTES + F16_FWD)
@@ -304,9 +304,11 @@ def test_flash_forward_route_is_by_dtype_and_head_dim_alone(dtype, d, route):
 @pytest.mark.parametrize("dtype,d,route", ROUTES + F16_BWD)
 def test_flash_backward_route_is_by_dtype_and_head_dim_alone(dtype, d,
                                                              route):
-    """B7 and B8 take the tensor cores where the forward does for
-    bfloat16 (d % 8 == 0 up to 128); float16's stay on the CUDA cores."""
+    """B7 and B8 take the tensor cores where the forward does, for
+    bfloat16 and float16 (d % 8 == 0 up to 128)."""
     assert kernels.flash_bwd_route(dtype, d) == route
+    assert kernels.flash_bwd_route(dtype, d) == kernels.flash_fwd_route(
+        dtype, d)
 
 
 PAGED_ROUTES = [

@@ -5,8 +5,8 @@ dynamic loss scaling, on the CPU.
     route rule names with the one dtype table's code (a stand-in for the
     built library records each launch's arguments: no card or `nvcc`
     here), for the apply (B1), every q/slab pair of paged attention with a
-    float16 side (B4) and the four flash kernels (B5 and B6 on the tensor
-    cores where bf16's are, B7 and B8 on the CUDA cores);
+    float16 side (B4) and the four flash kernels (B5-B8 on the tensor
+    cores where bf16's are);
   * `kernels.DTYPE_CODES` is the table the C entry points read: each
     source's entry-point comment names the same codes;
   * the plain versions a float16 kernel is held against on the card
@@ -56,8 +56,8 @@ STEP = 2.0 ** -10
 # the head dim and the lse flag
 _LEADING = {"mx_scale_shift_act": 3, "mx_paged_attention_fwd": 4,
             "mx_flash_fwd": 4, "mx_flash_bwd_dq": 3, "mx_flash_bwd_dkv": 3,
-            "mx_flash_fwd_wgmma": 4, "mx_flash_bwd_dq_wgmma": 2,
-            "mx_flash_bwd_dkv_wgmma": 2}
+            "mx_flash_fwd_wgmma": 4, "mx_flash_bwd_dq_wgmma": 3,
+            "mx_flash_bwd_dkv_wgmma": 3}
 
 
 class _FakeLib:
@@ -141,37 +141,36 @@ def test_paged_wrapper_takes_every_float16_pair(q_dtype, kv_dtype, C,
 
 @pytest.mark.parametrize("d", [12, 64, 128, 256, 384])
 def test_flash_wrappers_take_float16_on_the_cuda_cores(d, fake_lib):
-    """float16's forward (B5, B6) runs on the tensor cores where bf16's
-    does (d % 8 == 0, d <= 128), with dtype code 2, and never reaches the
-    CUDA-core entry there; the backward (B7, B8) stays on the CUDA cores
-    at every d."""
+    """float16's forward (B5, B6) and backward (B7, B8) run on the tensor
+    cores where bf16's do (d % 8 == 0, d <= 128), with dtype code 2, and
+    never reach the CUDA-core entries there; on the CUDA cores at other
+    d."""
     q = _cuda(torch.zeros((2, 4, d), dtype=F16))
     stat = _cuda(torch.zeros((2, 4, 1)))
     tc = d % 8 == 0 and d <= 128
-    assert kernels.flash_fwd_route(F16, d) == ("wgmma" if tc
-                                               else "cuda_cores")
-    assert kernels.flash_bwd_route(F16, d) == "cuda_cores"
+    route = "wgmma" if tc else "cuda_cores"
+    assert kernels.flash_fwd_route(F16, d) == route
+    assert kernels.flash_bwd_route(F16, d) == route
     o = kernels.flash_fwd_cuda(q, q, q, True, 0.5, False)
     o2, lse = kernels.flash_fwd_cuda(q, q, q, True, 0.5, True)
     dq = kernels.flash_bwd_dq_cuda(q, q, q, q, stat, stat, True, 0.5)
     dk, dv = kernels.flash_bwd_dkv_cuda(q, q, q, q, stat, stat, True, 0.5)
     assert {t.dtype for t in (o, o2, dq, dk, dv)} == {F16}
     assert lse.dtype == torch.float32
-    fwd = ([("mx_flash_fwd_wgmma", 2, 0, d, 0),
-            ("mx_flash_fwd_wgmma", 2, 0, d, 1)] if tc else
-           [("mx_flash_fwd", 2, 0, d, 0), ("mx_flash_fwd", 2, 0, d, 1)])
-    assert fake_lib.calls == fwd + [("mx_flash_bwd_dq", 2, 0, d),
-                                    ("mx_flash_bwd_dkv", 2, 0, d)]
+    suffix = "_wgmma" if tc else ""
+    assert fake_lib.calls == [
+        ("mx_flash_fwd" + suffix, 2, 0, d, 0),
+        ("mx_flash_fwd" + suffix, 2, 0, d, 1),
+        ("mx_flash_bwd_dq" + suffix, 2, 0, d),
+        ("mx_flash_bwd_dkv" + suffix, 2, 0, d)]
+    names = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
     counts = kernels.launch_counts()
-    assert all(counts[n] == 1 for n in ("flash_fwd", "flash_fwd_lse",
-                                        "flash_bwd_dq", "flash_bwd_dkv"))
-    assert {n: counts[n] for n in counts if n.endswith("_wgmma")} == {
-        "flash_fwd_wgmma": int(tc), "flash_fwd_lse_wgmma": int(tc),
-        "paged_attention_wgmma": 0, "flash_bwd_dq_wgmma": 0,
-        "flash_bwd_dkv_wgmma": 0}
+    assert all(counts[n] == 1 for n in names)
+    assert {n: counts[n] for n in counts if n.endswith("_wgmma")} == dict(
+        {n + "_wgmma": int(tc) for n in names}, paged_attention_wgmma=0)
     assert kernels.launch_counts_by_dtype() == {
-        (n, "float16"): 1 for n in ("flash_fwd", "flash_fwd_lse",
-                                    "flash_bwd_dq", "flash_bwd_dkv")}
+        (n + s, "float16"): 1 for n in names
+        for s in (("", "_wgmma") if tc else ("",))}
 
 
 @pytest.mark.parametrize("d", [8, 64, 96, 128])
@@ -187,6 +186,30 @@ def test_flash_wgmma_forward_takes_the_dtype_code(dtype, code, d, fake_lib):
                               ("mx_flash_fwd_wgmma", code, 0, d, 1)]
     assert kernels.launch_counts()["flash_fwd_wgmma"] == 1
     assert kernels.launch_counts()["flash_fwd_lse_wgmma"] == 1
+
+
+@pytest.mark.parametrize("d", [8, 64, 96, 128])
+@pytest.mark.parametrize("dtype,code", [(torch.bfloat16, 1), (F16, 2)],
+                         ids=["bfloat16", "float16"])
+def test_flash_wgmma_backward_takes_the_dtype_code(dtype, code, d,
+                                                   fake_lib):
+    """Both tensor-core backward entries (B7, B8) receive the one table's
+    code of their type: 1 for bfloat16, 2 for float16; no CUDA-core entry
+    is reached, and each launch counts on its tensor-core counter, by type
+    too."""
+    q = _cuda(torch.zeros((3, 5, d), dtype=dtype))
+    stat = _cuda(torch.zeros((3, 5, 1)))
+    dq = kernels.flash_bwd_dq_cuda(q, q, q, q, stat, stat, True, 0.25)
+    dk, dv = kernels.flash_bwd_dkv_cuda(q, q, q, q, stat, stat, True, 0.25)
+    assert {t.dtype for t in (dq, dk, dv)} == {dtype}
+    assert fake_lib.calls == [("mx_flash_bwd_dq_wgmma", code, 0, d),
+                              ("mx_flash_bwd_dkv_wgmma", code, 0, d)]
+    counts = kernels.launch_counts()
+    assert counts["flash_bwd_dq_wgmma"] == counts["flash_bwd_dkv_wgmma"] == 1
+    name = str(dtype).replace("torch.", "")
+    assert kernels.launch_counts_by_dtype() == {
+        (n, name): 1 for n in ("flash_bwd_dq", "flash_bwd_dq_wgmma",
+                               "flash_bwd_dkv", "flash_bwd_dkv_wgmma")}
 
 
 def test_fused_ops_send_float16_cuda_tensors_to_the_kernels(fake_lib,
