@@ -180,6 +180,32 @@ Each phase fails the run (non-zero exit) on any error:
      steps against two FusedTrainStep Adam steps, and grad_req "add" over
      two half-batches against "write" over the batch (SGD with momentum),
      held as phase 7 holds flash against SDPA.
+ 12. the Gluon script surface at full width: (a) GluonCV's
+     train_imagenet.py recipe on `resnet50_v2(layout="NHWC")` (1000
+     classes): `initialize(initializer.MSRAPrelu())` (each convolution
+     weight's std within 3% of MXNet's fan formula on the card), bf16 AMP,
+     `fused.set_fusion_default(True)`, wd_mult 0 on beta, gamma and bias,
+     phase 11 (b)'s NAG and cosine schedule over 12 steps, one-hot labels
+     smoothed by 0.1 through `SoftmaxCrossEntropyLoss(sparse_label=False)`,
+     `gluon.utils.split_and_load` from the host and `metric.RMSE` on the
+     softmax every step, batch 32 x 224^2: finite losses, the apply
+     kernel given the 51 predicted shapes, exactly 51 apply, 1
+     pool-forward and 1 pool-backward launches a step; (b)
+     `FusedInferStep` on (a)'s net, 8 chained calls at batch 32: exactly
+     51 apply and 1 pool-forward launches a call, no pool backward,
+     nothing taped, `Accuracy` and `TopKAccuracy(5)` over the logits; (c)
+     one float32 ResNet-50 v2 step (TF32 off) fused against unfused from
+     the same MSRAPrelu weights at batch 4, phase 5's limits; (d) the
+     apply kernel against its plain version at every shape of (a) in
+     float32 and bfloat16 (phase 4's limits), the data BN's C = 3 and the
+     final BN's (1568, 2048) timed against the bound and torch.addcmul;
+     (e) the new layers (1-D and 3-D convolutions, the transposed ones,
+     the pools, the norms, the activations, ReflectionPad2D, a
+     concatenation) forward and backward on the card in float32 against
+     the CPU (1e-5, TF32 off) and in bfloat16 within two steps of the type,
+     MobileNet v2's inference forward in float32, and Conv1D NWC / Conv3D
+     NDHWC with relu in a fusion scope on the apply kernel (the NC layouts
+     not).
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
@@ -202,8 +228,8 @@ import time
 import numpy as np
 import torch
 
-from incubator_mxnet_tpu_torch import (amp, autograd, gluon, lr_scheduler,
-                                       optimizer, serve)
+from incubator_mxnet_tpu_torch import (amp, autograd, gluon, initializer,
+                                       lr_scheduler, metric, optimizer, serve)
 from incubator_mxnet_tpu_torch.gluon.contrib import FusedTrainStep
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 from incubator_mxnet_tpu_torch.ops import attention, fused, kernels
@@ -1001,37 +1027,42 @@ def update_parting(init, a, b):
     return rel
 
 
-def train_f32_check(dev):
-    """Two fused against two unfused float32 steps (TF32 off, cuDNN
-    deterministic) from the same weights and data, batch CHECK_BATCH at
-    full resolution, lr CHECK_LR."""
+def train_f32_check(dev, build=None, launches_per_step=55,
+                    batch=CHECK_BATCH, steps=CHECK_STEPS, tag="train float32"):
+    """`steps` fused against `steps` unfused float32 steps (TF32 off, cuDNN
+    deterministic) from the same weights and data, at full resolution, lr
+    CHECK_LR; `build()` makes the net (default: phase 5's ResNet-50 v1 from
+    seed 1), the same weights at every call."""
+    if build is None:
+        def build():
+            return vision.resnet50_v1(layout="NHWC", classes=CLASSES,
+                                      device=dev, seed=1)
     x, y = [torch.from_numpy(a).to(dev)
-            for a in make_batches(1, CHECK_BATCH, seed=12)[0]]
+            for a in make_batches(1, batch, seed=12)[0]]
     prev_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     nets, losses = [], []
     try:
         for use_fusion in (True, False):
-            net = vision.resnet50_v1(layout="NHWC", classes=CLASSES,
-                                     device=dev, seed=1)
-            step = new_step(net, CHECK_BATCH, use_fusion, lr=CHECK_LR)
+            net = build()
+            step = new_step(net, batch, use_fusion, lr=CHECK_LR)
             kernels.reset_launch_counts()
-            losses.append([float(step(x, y)) for _ in range(CHECK_STEPS)])
+            losses.append([float(step(x, y)) for _ in range(steps)])
             n_launch = sum(kernels.launch_counts().values())
-            assert n_launch == (CHECK_STEPS * 55 if use_fusion else 0), \
+            assert n_launch == (steps * launches_per_step
+                                if use_fusion else 0), \
                 f"fusion={use_fusion}: {n_launch} launches"
             nets.append(net)
     finally:
         torch.backends.cudnn.deterministic = prev_det
     kernels.reset_launch_counts()
-    init = vision.resnet50_v1(layout="NHWC", classes=CLASSES, device=dev,
-                              seed=1).collect_params()
+    init = build().collect_params()
     rel = update_parting(init, *(n.collect_params() for n in nets))
     order = sorted(rel, key=rel.get, reverse=True)
     worst = order[0]
     loss_rel = max(abs(p - q) / max(abs(q), 1e-6)
                    for p, q in zip(*losses))
-    log(f"[train float32] fused losses {losses[0]} unfused {losses[1]} "
+    log(f"[{tag}] fused losses {losses[0]} unfused {losses[1]} "
         f"(max rel {loss_rel:.2e}, tol {CHECK_LOSS_RTOL}); the update of "
         f"each of {len(rel)} weights and stats against the unfused one, "
         f"|dA - dB| / |dB|: median {float(np.median(list(rel.values()))):.3e}"
@@ -1041,7 +1072,8 @@ def train_f32_check(dev):
     assert loss_rel <= CHECK_LOSS_RTOL, "fused and unfused losses part"
     assert rel[worst] <= CHECK_UPDATE_RTOL, \
         f"fused and unfused updates part at {worst}: {rel[worst]:.3e}"
-    return {"lr": CHECK_LR, "fused_losses": losses[0],
+    return {"lr": CHECK_LR, "batch": batch, "steps": steps,
+            "fused_losses": losses[0],
             "unfused_losses": losses[1], "loss_max_rel": loss_rel,
             "update_rel_median": float(np.median(list(rel.values()))),
             "update_rel_worst": rel[worst], "worst_at": worst,
@@ -1874,7 +1906,7 @@ def phase_int8_kernels(dev):
                     log(f"[int8] paged_attention {name}: {rec['ms']:.4f} "
                         f"ms, bound {rec['bound_ms']:.4f} ms "
                         f"({rec['bound_by']}), plain {rec['plain_ms']:.4f} "
-                        f"ms, sdpa over the dequantized bf16 prefix "
+                        f"ms, sdpa over the prefix dequantized to q's type "
                         f"{rec['library_ms']:.4f} ms (dequant not timed)")
                 variants.append(rec)
     del slabs, k32, v32, kc, vc
@@ -2785,6 +2817,400 @@ def phase_loop(card, dev, profile):
     return {"bert": bert, "resnet": resnet, "f16": f16, "f32": checks}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the Gluon script surface, GluonCV's recipe on ResNet-50 v2
+# ---------------------------------------------------------------------------
+# GluonCV's scripts/classification/imagenet/train_imagenet.py with
+# --label-smoothing: MSRAPrelu init, NAG (phase 11 b's schedule), no weight
+# decay on beta / gamma / bias, one-hot labels smoothed by 0.1 through
+# SoftmaxCrossEntropyLoss(sparse_label=False), split_and_load, and
+# RMSE against the softmax as its training metric
+SMOOTHING = 0.1
+INFER_CALLS = 8
+V2_CHECK_BATCH, V2_CHECK_STEPS = 4, 1
+# MSRAPrelu's draws on the card: each convolution weight's std within this
+# share of sqrt(magnitude / ((fan_in + fan_out) / 2)), MXNet's fans (the
+# smallest ResNet-50 v2 convolution has 4096 values: a sampling error of
+# 1.1%)
+MSRA_STD_RTOL = 0.03
+# the layer sweep of (e): float32 on the card against the CPU within
+# SWEEP_RTOL relative plus SWEEP_RTOL times the output's largest value
+# (TF32 off: only the summation order differs); a 16-bit run within two
+# steps of its type of the CPU's float32 result on the same rounded
+# values, relative to the largest value
+SWEEP_RTOL = 1e-5
+SWEEP_STEPS16 = 2
+
+
+def resnet50_v2_apply_rows(batch, image):
+    """Every launch of the apply kernel in one ResNet-50 v2 forward at
+    (batch, image, image, 3), NHWC, as (rows M, channels C, act,
+    residual): the data BN (3 channels, no scale or centre), the stem BN
+    (its relu a separate Activation), per bottleneck bn1 (+relu) on the
+    block's input, bn2 (+relu) on conv1's output and bn3 (+relu) on the
+    strided conv2's output, then the final BN (its relu separate). 51 in
+    all."""
+    rows = [(batch * image * image, 3, None, False),
+            (batch * (image // 2) ** 2, 64, None, False)]
+    s, in_c = image // 4, 64
+    for stage, (n, c) in enumerate(zip((3, 4, 6, 3),
+                                       (256, 512, 1024, 2048))):
+        for b in range(n):
+            s_out = s // 2 if (b == 0 and stage > 0) else s
+            rows += [(batch * s * s, in_c if b == 0 else c, "relu", False),
+                     (batch * s * s, c // 4, "relu", False),
+                     (batch * s_out * s_out, c // 4, "relu", False)]
+            s = s_out
+        in_c = c
+    rows.append((batch * s * s, 2048, None, False))
+    return rows
+
+
+def _train_counts(launches):
+    return {k: launches[k] for k in ("scale_shift_act", "avg_pool2d_fwd",
+                                     "avg_pool2d_bwd")}
+
+
+def smooth_labels(y, classes, eta=SMOOTHING):
+    """GluonCV's `smooth`: one-hot with 1 - eta + eta / classes on, eta /
+    classes off."""
+    out = torch.full((len(y), classes), eta / classes, device=y.device)
+    return out.scatter_(1, y.long()[:, None], 1 - eta + eta / classes)
+
+
+def msra_check(net, tag):
+    """Each 4-D (convolution) weight's std against MSRAPrelu's formula with
+    the fans of its (O, I, kh, kw) storage."""
+    mag = 2.0 / (1 + 0.25 ** 2)
+    worst, n = 0.0, 0
+    for name, p in net.collect_params().items():
+        w = p.data()
+        if w.dim() != 4:
+            continue
+        hw = w.shape[2] * w.shape[3]
+        want = (mag / ((w.shape[0] + w.shape[1]) * hw / 2.0)) ** 0.5
+        rel = abs(float(w.detach().float().std()) / want - 1)
+        n += 1
+        if rel > worst:
+            worst, at = rel, name
+    log(f"[{tag}] MSRAPrelu on the card: {n} convolution weights, the "
+        f"largest std departure from MXNet's fan formula {worst:.4f} at "
+        f"{at} (limit {MSRA_STD_RTOL})")
+    assert worst <= MSRA_STD_RTOL, f"MSRAPrelu std off at {at}: {worst}"
+    return {"convs": n, "worst_rel": worst, "worst_at": at}
+
+
+def recipe_v2(card, dev, profile):
+    """(a) the GluonCV recipe at full width, then (b) FusedInferStep on its
+    trained net, under bf16 AMP with the fusion default on."""
+    batches = make_batches(2, BATCH, seed=51)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss(sparse_label=False)
+    amp.init("bfloat16")
+    prev = fused.set_fusion_default(True)
+    try:
+        net = vision.resnet50_v2(layout="NHWC", classes=CLASSES, device=dev,
+                                 seed=0)
+        net.initialize(initializer.MSRAPrelu(), device=dev,
+                       force_reinit=True)
+        net(torch.zeros((1, IMAGE, IMAGE, 3), device=dev))   # deferred shapes
+        init_check = msra_check(net, "recipe v2")
+        for p in net.collect_params(NO_DECAY).values():
+            p.wd_mult = 0.0
+        trainer = gluon.Trainer(net.collect_params(), "nag", dict(
+            NAG, lr_scheduler=lr_scheduler.CosineScheduler(**COSINE)))
+        train_metric = metric.RMSE()
+
+        def step(x, y):
+            data = gluon.utils.split_and_load(x, [dev])[0]
+            label = smooth_labels(gluon.utils.split_and_load(y, [dev])[0],
+                                  CLASSES)
+            with autograd.record():
+                out = net(data)
+                loss = loss_fn(out, label)
+            autograd.backward(loss)
+            trainer.step(BATCH)
+            train_metric.update(label, torch.softmax(out.float(), dim=-1))
+            return loss.detach()
+        seen = record_apply_shapes(step, *batches[0])
+        want = [(m, c, a, r, torch.float32)
+                for m, c, a, r in resnet50_v2_apply_rows(BATCH, IMAGE)]
+        assert len(want) == 51
+        assert sorted(seen, key=str) == sorted(want, key=str), \
+            f"apply launches of a v2 step differ from the prediction: {seen}"
+        losses, wall = _timed_loop(step, batches, LOOP_WARMUP - 1,
+                                   LOOP_STEPS)
+        launches = kernels.launch_counts()
+        rmse = train_metric.get()[1]
+        step_ms = wall / LOOP_STEPS * 1e3
+        prof = profile_steps(step, batches, step_ms, KERNEL_SYMBOLS,
+                             "recipe v2") if profile else None
+        infer = infer_v2(card, net, batches, dev)
+    finally:
+        fused.set_fusion_default(prev)
+        amp.uninit()
+    losses = [float(v.float().mean()) for v in losses]
+    ips = BATCH * LOOP_STEPS / wall
+    log(f"[recipe v2] {card}: resnet50_v2 NHWC, MSRAPrelu, bf16 AMP, "
+        f"fusion default on, NAG {NAG} with CosineScheduler {COSINE}, "
+        f"{len(net.collect_params(NO_DECAY))} values without weight decay, "
+        f"labels smoothed by {SMOOTHING}: {LOOP_STEPS} steps of batch "
+        f"{BATCH} x {IMAGE}^2 (split_and_load from the host, RMSE updated "
+        f"every step) in {wall:.3f} s: {step_ms:.3f} ms/step, {ips:.1f} "
+        f"images/s; losses {[round(v, 4) for v in losses]}; RMSE {rmse:.5f}"
+        f"; launches {_train_counts(launches)} (predicted 51, 1, 1 a "
+        f"step)")
+    assert all(np.isfinite(losses)), "non-finite recipe loss"
+    assert np.isfinite(rmse), "non-finite RMSE"
+    assert launches["scale_shift_act"] == 51 * LOOP_STEPS \
+        and launches["avg_pool2d_fwd"] == LOOP_STEPS \
+        and launches["avg_pool2d_bwd"] == LOOP_STEPS, \
+        "kernel launch count off the recipe's path"
+    del net, trainer
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "images_per_s": ips, "losses": losses,
+            "rmse": rmse, "launches": launches, "init": init_check,
+            "apply_rows": [list(r[:4]) for r in seen], "profile": prof,
+            "infer": infer}
+
+
+def infer_v2(card, net, batches, dev):
+    """(b) FusedInferStep: INFER_CALLS chained calls at batch 32, timed;
+    then Accuracy and TopKAccuracy(5) over each call's logits."""
+    x0, y = (torch.from_numpy(a).to(dev) for a in batches[0])
+    step = gluon.contrib.FusedInferStep(net)
+    step(x0)                                # warm-up call
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = [step(x0)] + [step() for _ in range(INFER_CALLS - 1)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    acc, top5 = metric.Accuracy(), metric.TopKAccuracy(5)
+    for out in logits:
+        acc.update(y, out)
+        top5.update(y, out)
+    ms = wall / INFER_CALLS * 1e3
+    log(f"[infer v2] {card}: FusedInferStep, {INFER_CALLS} chained calls "
+        f"of batch {BATCH}: {ms:.3f} ms a batch, {BATCH / ms * 1e3:.1f} "
+        f"images/s; logits {logits[-1].dtype}; {acc.get()} {top5.get()} "
+        f"(random labels); launches {_train_counts(launches)} (predicted "
+        f"51, 1, 0 a call)")
+    assert all(torch.isfinite(o.float()).all() for o in logits)
+    assert all(o.grad_fn is None for o in logits), "the inference taped"
+    assert launches["scale_shift_act"] == 51 * INFER_CALLS \
+        and launches["avg_pool2d_fwd"] == INFER_CALLS \
+        and launches["avg_pool2d_bwd"] == 0, \
+        "kernel launch count off the inference path"
+    return {"ms_per_batch": ms, "launches": launches,
+            "accuracy": acc.get()[1], "top5": top5.get()[1]}
+
+
+def v2_f32_check(dev):
+    """(c) one float32 ResNet-50 v2 step fused against unfused from the
+    same MSRAPrelu weights, phase 5's form and limits."""
+    def build():
+        net = vision.resnet50_v2(layout="NHWC", classes=CLASSES, device=dev,
+                                 seed=1)
+        net.initialize(initializer.MSRAPrelu(), device=dev, seed=1,
+                       force_reinit=True)
+        net(torch.zeros((1, IMAGE, IMAGE, 3), device=dev))   # deferred shapes
+        return net
+    return train_f32_check(dev, build, launches_per_step=53,
+                           batch=V2_CHECK_BATCH, steps=V2_CHECK_STEPS,
+                           tag="v2 float32")
+
+
+def v2_apply_kernels(card, rows, dev):
+    """(d) B1 against its plain version at every apply shape of (a) (in
+    launch order), in float32 and bfloat16; the data BN's (the first: C =
+    3) and the final BN's (the last: (1568, 2048)) timed in float32."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    distinct = sorted({tuple(r) for r in rows},
+                      key=lambda r: (-r[0], r[1], str(r[2])))
+    timed = {tuple(rows[0]), tuple(rows[-1])}
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, c, act, res in distinct:
+            out.append(check_apply(m, c, act, res, dtype, gen, dev,
+                                   dtype == torch.float32
+                                   and (m, c, act, res) in timed))
+    for r in out:
+        if "ms" in r:
+            log(f"[v2 kernels] {card}: B1 at M={r['M']} C={r['C']} "
+                f"act={r['act']} float32: {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+                f"{r['plain_ms']:.4f} ms, torch.addcmul {r['library_ms']}")
+    kernels.reset_launch_counts()   # comparison launches do not count
+    return out
+
+
+def _sweep_blocks():
+    """(name, constructor, input shape) of the sweep: each layer family
+    of the slice at a narrow width."""
+    nn = gluon.nn
+    return [
+        ("Conv1D NCW", lambda: nn.Conv1D(16, 3, padding=1, layout="NCW",
+                                         activation="relu"), (4, 8, 33)),
+        ("Conv1D NWC", lambda: nn.Conv1D(16, 3, padding=1, layout="NWC",
+                                         activation="relu"), (4, 33, 8)),
+        ("Conv3D NCDHW", lambda: nn.Conv3D(16, 3, padding=1, layout="NCDHW",
+                                           activation="relu"),
+         (2, 8, 6, 10, 10)),
+        ("Conv3D NDHWC", lambda: nn.Conv3D(16, 3, padding=1, layout="NDHWC",
+                                           activation="relu"),
+         (2, 6, 10, 10, 8)),
+        ("Conv1DTranspose NWC", lambda: nn.Conv1DTranspose(
+            8, 3, strides=2, padding=1, output_padding=1, layout="NWC"),
+         (4, 17, 16)),
+        ("Conv2DTranspose NCHW", lambda: nn.Conv2DTranspose(
+            8, 4, strides=2, padding=1, groups=2), (2, 16, 12, 12)),
+        ("Conv3DTranspose NDHWC", lambda: nn.Conv3DTranspose(
+            8, 2, strides=2, layout="NDHWC"), (2, 4, 6, 6, 16)),
+        ("MaxPool1D", lambda: nn.MaxPool1D(3, 2, 1, ceil_mode=True),
+         (4, 8, 33)),
+        ("AvgPool3D NDHWC", lambda: nn.AvgPool3D(
+            3, 2, 1, layout="NDHWC", count_include_pad=False),
+         (2, 6, 10, 10, 8)),
+        ("GlobalMaxPool2D", lambda: nn.GlobalMaxPool2D(), (4, 8, 9, 9)),
+        ("GlobalAvgPool3D", lambda: nn.GlobalAvgPool3D(), (2, 8, 4, 5, 6)),
+        ("GroupNorm", lambda: nn.GroupNorm(4), (4, 16, 9, 9)),
+        ("InstanceNorm", lambda: nn.InstanceNorm(), (4, 16, 9, 9)),
+        ("RMSNorm", lambda: nn.RMSNorm(), (4, 12, 64)),
+        ("LayerNorm axis 1", lambda: nn.LayerNorm(axis=1), (4, 16, 9)),
+        ("LeakyReLU", lambda: nn.LeakyReLU(0.1), (8, 256)),
+        ("PReLU", lambda: nn.PReLU(in_channels=256), (8, 256)),
+        ("ELU", lambda: nn.ELU(), (8, 256)),
+        ("SELU", lambda: nn.SELU(), (8, 256)),
+        ("GELU tanh", lambda: nn.GELU("tanh"), (8, 256)),
+        ("Swish", lambda: nn.Swish(2.0), (8, 256)),
+        ("Activation mish", lambda: nn.Activation("mish"), (8, 256)),
+        ("ReflectionPad2D", lambda: nn.ReflectionPad2D(2), (2, 8, 9, 9)),
+        ("HybridConcatenate", lambda: _concat_block(), (8, 64)),
+    ]
+
+
+def _concat_block():
+    blk = gluon.nn.HybridConcatenate(axis=1)
+    blk.add(gluon.nn.Dense(32, activation="tanh"), gluon.nn.Identity())
+    return blk
+
+
+def _run_block(blk, x, ct_dtype=torch.float32):
+    """Output, input gradient and Parameter gradients of one recorded
+    forward and backward, as float32 on the host. The backward is seeded
+    with a cotangent drawn from a fixed seed and rounded to `ct_dtype`
+    (ones would give a norm's input an exact zero gradient, all
+    rounding)."""
+    x = x.detach().requires_grad_()
+    with autograd.record():
+        out = blk(x)
+    ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(7))
+    out.backward(ct.to(ct_dtype).to(out.device, out.dtype))
+    assert out.device == x.device, f"output on {out.device}"
+    grads = {n: p.data().grad.float().cpu()
+             for n, p in blk.collect_params().items()
+             if p.grad_req != "null"}
+    return out.detach().float().cpu(), x.grad.float().cpu(), grads
+
+
+def _sweep_err(got, want, dtype):
+    """(largest |got - want| / max|want|, limit) of one tensor."""
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max()) / scale
+    if dtype == torch.float32:
+        # relative plus absolute, elementwise, as SWEEP_RTOL states
+        ok = bool(((got - want).abs()
+                   <= SWEEP_RTOL * (want.abs() + scale)).all())
+        return err, ok
+    return err, err <= SWEEP_STEPS16 * STEP16[dtype]
+
+
+def layer_sweep(card, dev):
+    """(e) every block of `_sweep_blocks` forward and backward on the card
+    in float32 and bfloat16 against the same block on the CPU; then the
+    fused routing of Conv1D / Conv3D by layout on the launch counter."""
+    rows = []
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for seed, (name, make, shape) in enumerate(_sweep_blocks()):
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+        for dtype in (torch.float32, torch.bfloat16):
+            ref_blk = make().initialize(device="cpu", seed=seed)
+            blk = make().initialize(device=dev, seed=seed)
+            xr = x.to(dtype).float()
+            ref_blk(xr)                     # resolve the deferred shapes
+            blk(xr.to(dev))
+            if dtype != torch.float32:
+                blk.cast(dtype)
+                ref_blk.cast(dtype)
+                ref_blk.cast("float32")     # the same rounded values
+            want = _run_block(ref_blk, xr, dtype)
+            got = _run_block(blk, xr.to(dev, dtype), dtype)
+            errs = {"out": _sweep_err(got[0], want[0], dtype),
+                    "dx": _sweep_err(got[1], want[1], dtype)}
+            for n in want[2]:
+                errs[n] = _sweep_err(got[2][n], want[2][n], dtype)
+            bad = [k for k, (_, ok) in errs.items() if not ok]
+            top = max(e for e, _ in errs.values())
+            worst[dtype] = max(worst[dtype], top)
+            rows.append({"block": name, "dtype": _dtype_name(dtype),
+                         "max_rel": top, "ok": not bad})
+            assert not bad, f"{name} {dtype} on the card: {bad} {errs}"
+    # MobileNet v2's depthwise convolutions (cuDNN): an inference forward
+    # in float32 (running statistics; a training forward's batch
+    # statistics over 2 x 2 x 2 values would amplify the summation order)
+    x = torch.randn((2, 3, 64, 64), generator=torch.Generator().manual_seed(
+        99))
+    ref_net = vision.MobileNetV2(0.25, classes=10).initialize(device="cpu",
+                                                              seed=3)
+    net = vision.MobileNetV2(0.25, classes=10).initialize(device=dev, seed=3)
+    err, ok = _sweep_err(net(x.to(dev)).cpu(), ref_net(x), torch.float32)
+    rows.append({"block": "MobileNetV2 0.25 inference", "dtype": "float32",
+                 "max_rel": err, "ok": ok})
+    assert ok, f"MobileNetV2 on the card: {err}"
+    worst[torch.float32] = max(worst[torch.float32], err)
+    fused_counts = {}
+    for name, layout, shape in (("Conv1D", "NWC", (4, 33, 8)),
+                                ("Conv1D", "NCW", (4, 8, 33)),
+                                ("Conv3D", "NDHWC", (2, 6, 10, 10, 8)),
+                                ("Conv3D", "NCDHW", (2, 8, 6, 10, 10))):
+        blk = getattr(gluon.nn, name)(16, 3, padding=1, layout=layout,
+                                      activation="relu",
+                                      in_channels=8).initialize(device=dev)
+        x = torch.randn(shape, device=dev)
+        kernels.reset_launch_counts()
+        with fused.fusion_scope(True):
+            _run_block(blk, x)
+        n = kernels.launch_counts()["scale_shift_act"]
+        fused_counts[f"{name} {layout}"] = n
+        assert n == (0 if layout.startswith("NC") else 1), \
+            f"{name} {layout} in a fusion scope: {n} apply launches"
+    kernels.reset_launch_counts()
+    log(f"[sweep] {card}: {len(_sweep_blocks())} blocks forward and "
+        f"backward (and MobileNetV2 0.25's inference forward) on the card "
+        f"against the CPU: worst float32 {worst[torch.float32]:.2e}"
+        f" (limit {SWEEP_RTOL} relative + absolute of the largest value), "
+        f"bfloat16 {worst[torch.bfloat16]:.2e} (limit {SWEEP_STEPS16} "
+        f"steps, {SWEEP_STEPS16 * STEP16[torch.bfloat16]:.2e}); apply "
+        f"launches in a fusion scope {fused_counts}")
+    return {"rows": rows, "worst_float32": worst[torch.float32],
+            "worst_bfloat16": worst[torch.bfloat16],
+            "fused_launches": fused_counts}
+
+
+def phase_script(card, dev, profile):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    recipe = recipe_v2(card, dev, profile)
+    check = v2_f32_check(dev)
+    applies = v2_apply_kernels(card, recipe["apply_rows"], dev)
+    sweep = layer_sweep(card, dev)
+    log(f"[script] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return {"recipe": recipe, "f32_check": check, "applies": applies,
+            "sweep": sweep}
+
+
 def int8_entry(variants, engine):
     """The int8 variant's JSON entry, at the speculative verify shape the
     engine's decode waves launch (bf16 q, int8 slab, C = draft + 1)."""
@@ -2804,7 +3230,14 @@ def int8_entry(variants, engine):
         "shape": f"S={SLOTS} C={DRAFT + 1} H={FULL['heads']} "
                  f"D={FULL['head_dim']} T={FULL['max_len']} bfloat16 q, "
                  f"int8 slab (library: SDPA over the prefix dequantized to "
-                 f"bf16 beforehand, dequant not timed)",
+                 f"q's type beforehand, dequant not timed)",
+        # the chunk (C = 256) over int8: bf16 q on the tensor cores, float16
+        # q on the CUDA cores, each beside SDPA in q's type
+        **{f"chunk_C{WINDOW}_{q}_q": {
+            k: v[k] for k in ("kernel_route", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}
+           for q in ("bfloat16", "float16")
+           for v in timed if v["C"] == WINDOW and v["q_dtype"] == q},
         "variants": variants,
     }
 
@@ -2978,7 +3411,8 @@ def main():
                     "file")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler pass over 3 training steps "
-                         "of ResNet-50 and of BERT-base (phases 5, 7 and 11)")
+                         "of ResNet-50 and of BERT-base (phases 5, 7, 11 "
+                         "and 12)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3012,6 +3446,7 @@ def main():
     engine = phase_engine(card)
     coverage = phase_coverage(dev)
     loop = phase_loop(card, dev, args.profile)
+    script = phase_script(card, dev, args.profile)
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -3061,6 +3496,17 @@ def main():
     entries.append(int8_entry(int8_variants, engine))
     entries += route_entries
     entries += f16_entries(train_kernels, variants, flash, coverage, loop)
+    # phase 12's path (ResNet-50 v2 through the GluonCV recipe and
+    # FusedInferStep), counted on counts set to 0 before each run
+    recipe, infer = script["recipe"], script["recipe"]["infer"]
+    for e, name in zip(entries[:3], ("scale_shift_act", "avg_pool2d_fwd",
+                                     "avg_pool2d_bwd")):
+        e["recipe_v2_launches"] = recipe["launches"][name]
+        e["infer_v2_launches"] = infer["launches"][name]
+    keys = ("M", "C", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    entries[0]["v2_timed"] = [{k: r[k] for k in keys}
+                              for r in script["applies"] if "ms" in r]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -3071,7 +3517,7 @@ def main():
                        "kernels": [entry] + entries,
                        "serve": result, "train": train, "bert": bert,
                        "engine": engine, "coverage": coverage,
-                       "loop": loop}, f,
+                       "loop": loop, "script": script}, f,
                       indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [

@@ -29,13 +29,18 @@ Ported so far:
     with deferred initialization, `gluon.Trainer`, `lr_scheduler`, the
     JAX package's 18 optimizer rules, and float16 AMP with dynamic loss
     scaling (`amp.init("float16")`, `amp.scale_loss`); every CUDA kernel
-    takes float32, bfloat16 and float16.
+    takes float32, bfloat16 and float16;
+  * the Gluon script surface: every initializer (`initializer.Xavier`,
+    `MSRAPrelu`, `Orthogonal`, `Mixed`, ...), every loss, `metric` (also
+    `gluon.metric`), `gluon.utils`, `Block` with forward hooks and
+    `summary`, the rest of `gluon.nn`, ResNet v2 and MobileNet v1/v2 with
+    `get_model`, and `gluon.contrib.FusedInferStep`.
 """
 from .base import MXNetError, get_env
 from .device import default_device, resolve_device
 from . import (amp, autograd, initializer, lr_scheduler, ops, optimizer,
-               random, gluon, serve)
+               random, gluon, metric, serve)
 
 __all__ = ["MXNetError", "get_env", "default_device", "resolve_device",
-           "amp", "autograd", "initializer", "lr_scheduler", "ops",
+           "amp", "autograd", "initializer", "lr_scheduler", "metric", "ops",
            "optimizer", "random", "gluon", "serve"]

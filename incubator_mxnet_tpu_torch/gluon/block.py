@@ -1,7 +1,9 @@
-"""`HybridBlock` of the PyTorch port: a `torch.nn.Module` with the JAX
-package's Gluon surface.
+"""`Block` and `HybridBlock` of the PyTorch port: `torch.nn.Module`s with
+the JAX package's Gluon surface.
 
-Counterpart of `incubator_mxnet_tpu/gluon/block.py`. What carries over:
+Counterpart of `incubator_mxnet_tpu/gluon/block.py`. `Block` is the base
+of every layer and model; `HybridBlock` is a `Block` whose `hybridize()`
+flag is recorded. What carries over:
 
   * `collect_params(select)` returns {structural name: `gluon.Parameter`}
     under the JAX package's names (`features.4.0.body.1.gamma`): child
@@ -15,11 +17,22 @@ Counterpart of `incubator_mxnet_tpu/gluon/block.py`. What carries over:
     the default raises). A value whose shape is not known yet (a layer
     built without `in_units` / `in_channels`) is drawn at the block's first
     forward, on the input's device, from the same generator;
-  * `zero_grad()`, `cast()`, `setattr()`, `share_parameters()`;
+  * `zero_grad()`, `cast()`, `setattr()`, `share_parameters()`,
+    `reset_ctx()`, the `params` property (a block's own Parameters),
+    `register_child()` / `register_block()`, `apply(fn)` (children first,
+    then the block; torch's `Module.apply` has that meaning already) and
+    `summary(*inputs)` (the JAX package's table text);
+  * `register_forward_pre_hook(hook)` / `register_forward_hook(hook)`:
+    MXNet's signatures, `hook(block, args)` and `hook(block, args,
+    output)`, are torch's, so these are torch's methods (their keyword
+    options included; torch's machinery still sees every hook). The handle
+    is a `torch.utils.hooks.RemovableHandle` that also has MXNet's
+    `detach()`. A hook that returns a value replaces the input or output,
+    as in torch; the JAX package ignores what a hook returns;
   * `save_parameters` / `load_parameters` / `load_dict` read and write the
-    JAX package's `.npz` of structural names, with an NHWC convolution's
-    4-D weight in HWIO, so a file written by either package loads in the
-    other (`params_from_jax` is `load_dict` over the JAX package's arrays);
+    JAX package's `.npz` of structural names, with a channels-last
+    convolution's weight kernel dims first (HWIO for NHWC), so a file
+    written by either package loads in the other (`params_from_jax` is `load_dict` over the JAX package's arrays);
   * `hybridize()` records the flag and nothing else: the port runs
     eagerly (CUDA-graph capture of the step is later work);
   * training mode is `autograd.is_training()` (set by `autograd.record()`,
@@ -31,21 +44,33 @@ Counterpart of `incubator_mxnet_tpu/gluon/block.py`. What carries over:
 """
 from __future__ import annotations
 
+import math
 import re
 from collections import OrderedDict
 
 import numpy as np
 import torch
+from torch.utils.hooks import RemovableHandle
 
 from .. import autograd
 from ..base import MXNetError, atomic_output
 from ..device import resolve_device
 from .parameter import DeferredInitializationError, Parameter
 
-__all__ = ["HybridBlock", "params_from_jax"]
+__all__ = ["Block", "HybridBlock", "params_from_jax"]
 
 
-class HybridBlock(torch.nn.Module):
+class _HookHandle(RemovableHandle):
+    """torch's hook handle with MXNet's `detach()` beside `remove()`."""
+
+    def __init__(self, handle):
+        self.__dict__.update(vars(handle))
+
+    def detach(self):
+        self.remove()
+
+
+class Block(torch.nn.Module):
     """Base class of the port's layers and models."""
 
     def __init__(self):
@@ -53,7 +78,6 @@ class HybridBlock(torch.nn.Module):
         self.training = False
         self._reg_params = OrderedDict()   # own name -> Parameter
         self._pending = False   # an own Parameter waits for its shape
-        self._active = False
 
     # ------------------------------------------------------------------
     # values
@@ -95,11 +119,25 @@ class HybridBlock(torch.nn.Module):
                 out[name] = p
         return out
 
+    @property
+    def params(self):
+        """This block's own Parameters, {name: Parameter} (its children's
+        are not included; `collect_params()` gives them all)."""
+        return dict(self._reg_params)
+
+    def register_child(self, block, name=None):
+        """Register `block` as a child under `name` (default: the number
+        of children so far)."""
+        self.add_module(str(len(self._modules)) if name is None else name,
+                        block)
+
+    register_block = register_child
+
     def _iter_params(self, prefix):
         for name, p in self._reg_params.items():
             yield prefix + name, p
         for cname, child in self._modules.items():
-            if isinstance(child, HybridBlock):
+            if isinstance(child, Block):
                 yield from child._iter_params(prefix + cname + ".")
 
     def _owner(self, structural_name):
@@ -157,19 +195,68 @@ class HybridBlock(torch.nn.Module):
         for _, p in self.collect_params().items():
             p.initialize(init=None, device=dev, default_init=init,
                          force_reinit=force_reinit, seed=seed)
-        for m in self.modules():
-            if isinstance(m, HybridBlock):
-                m._pending = any(p._deferred_init is not None
-                                 for p in m._reg_params.values())
+        _refresh_pending(self)
         return self
 
     def hybridize(self, active=True, **kwargs):
-        """Record the flag on this block and its children. The port runs
-        eagerly; nothing is compiled."""
+        """Record the flag on the hybrid blocks among this block and its
+        children. The port runs eagerly; nothing is compiled."""
         for m in self.modules():
             if isinstance(m, HybridBlock):
                 m._active = bool(active)
         return self
+
+    def reset_ctx(self, device):
+        """Move every drawn value to `device`."""
+        dev = resolve_device(device)
+        for p in self.collect_params().values():
+            p.reset_ctx(dev)
+
+    reset_device = reset_ctx
+
+    # ------------------------------------------------------------------
+    # hooks: MXNet's hook signatures are torch's
+    # ------------------------------------------------------------------
+    def register_forward_pre_hook(self, hook, *args, **kwargs):
+        """Call `hook(block, args)` before each forward; returns a handle
+        with `detach()` (and torch's `remove()`)."""
+        return _HookHandle(super().register_forward_pre_hook(
+            hook, *args, **kwargs))
+
+    def register_forward_hook(self, hook, *args, **kwargs):
+        """Call `hook(block, args, output)` after each forward; returns a
+        handle with `detach()` (and torch's `remove()`)."""
+        return _HookHandle(super().register_forward_hook(
+            hook, *args, **kwargs))
+
+    def summary(self, *inputs):
+        """Run `self(*inputs)` and print (and return) one row per block as
+        its forward ends: its type, its output's shape and the sizes of its
+        own Parameters, then the total."""
+        rows = []
+
+        def _hook(block, ins, outs):
+            o = outs[0] if isinstance(outs, (list, tuple)) else outs
+            n_params = sum(math.prod(p.shape or ())
+                           for p in block._reg_params.values()
+                           if p.shape is not None)
+            rows.append((type(block).__name__,
+                         tuple(getattr(o, "shape", ())), n_params))
+
+        handles = [b.register_forward_hook(_hook) for b in self.modules()
+                   if isinstance(b, Block)]
+        try:
+            self(*inputs)
+        finally:
+            for h in handles:
+                h.detach()
+        total = sum(r[2] for r in rows)
+        lines = [f"{'Layer':<28}{'Output shape':<24}{'Params':>12}",
+                 "-" * 64]
+        lines += [f"{n:<28}{str(s):<24}{p:>12}" for n, s, p in rows]
+        lines += ["-" * 64, f"{'Total params':<52}{total:>12}"]
+        print("\n".join(lines))
+        return "\n".join(lines)
 
     def zero_grad(self):
         """Zero every Parameter's gradient buffer."""
@@ -203,24 +290,30 @@ class HybridBlock(torch.nn.Module):
     # ------------------------------------------------------------------
     # save / load: the JAX package's .npz of structural names
     # ------------------------------------------------------------------
-    def _file_layout(self, name, t):
-        """A value as the JAX package stores it: an NHWC convolution's
-        (O, I, kh, kw) weight as HWIO, bfloat16 as float32."""
+    def _kernel_first(self, name, t):
+        """True for a channels-last convolution's weight, which the JAX
+        package keeps kernel dims first: (*k, I/g, O), or (*k, O/g, I)
+        for a transposed one, where the port keeps (O, I/g, *k) and
+        (I, O/g, *k)."""
         blk, leaf = self._owner(name)
+        return (t.dim() >= 3 and leaf == "weight"
+                and getattr(blk, "_hwio_weight", False))
+
+    def _file_layout(self, name, t):
+        """A value as the JAX package stores it: a channels-last
+        convolution's weight kernel dims first, bfloat16 as float32."""
         t = t.detach().cpu()
-        if t.dim() == 4 and leaf == "weight" and getattr(blk, "_hwio_weight",
-                                                         False):
-            t = t.permute(2, 3, 1, 0)
+        if self._kernel_first(name, t):
+            t = t.permute(*range(2, t.dim()), 1, 0)
         if t.dtype == torch.bfloat16:
             t = t.float()
         return np.ascontiguousarray(t.numpy())
 
     def _own_layout(self, name, a):
-        blk, leaf = self._owner(name)
         v = torch.from_numpy(np.array(a, copy=True))
-        if v.dim() == 4 and leaf == "weight" and getattr(blk, "_hwio_weight",
-                                                         False):
-            v = v.permute(3, 2, 0, 1)      # HWIO -> (O, I, kh, kw)
+        if self._kernel_first(name, v):
+            n = v.dim()
+            v = v.permute(n - 1, n - 2, *range(n - 2))
         return v
 
     def save_parameters(self, filename, deduplicate=False):
@@ -266,10 +359,25 @@ class HybridBlock(torch.nn.Module):
             v = self._own_layout(name, a)
             p.shape = tuple(v.shape)
             p.set_data(v, device=dev)
-        for m in self.modules():
-            if isinstance(m, HybridBlock):
-                m._pending = any(q._deferred_init is not None
-                                 for q in m._reg_params.values())
+        _refresh_pending(self)
+
+
+class HybridBlock(Block):
+    """A Block whose `hybridize()` flag is recorded (the port runs every
+    block eagerly)."""
+
+    def __init__(self):
+        super().__init__()
+        self._active = False
+
+
+def _refresh_pending(net):
+    """Mark each block of `net` that holds a Parameter still waiting for
+    its shape."""
+    for m in net.modules():
+        if isinstance(m, Block):
+            m._pending = any(q._deferred_init is not None
+                             for q in m._reg_params.values())
 
 
 def params_from_jax(net, params_np):
@@ -277,9 +385,11 @@ def params_from_jax(net, params_np):
 
     `params_np`: {structural name: numpy array}, as the JAX package's
     `{name: p.data().asnumpy() for name, p in net.collect_params().items()}`
-    gives them. A 4-D convolution weight comes in HWIO (the JAX package's
-    NHWC layout) and is stored as the port's (O, I, kh, kw); an NCHW net's
-    OIHW weight and every other value keep their layout (a Dense weight
+    gives them. A channels-last convolution's weight comes kernel dims
+    first (HWIO for NHWC, (*k, I/g, O) for NWC and NDHWC, (*k, O/g, I) for
+    a transposed one) and is stored as the port's (O, I/g, *k) or
+    (I, O/g, *k); a channels-first net's weight and every other value keep
+    their layout (a Dense weight
     (units, in_units), an Embedding or PositionalEmbedding table, a
     LayerNorm's gamma and beta). Values are cast to each Parameter's
     dtype. Unknown names, missing names and shape mismatches raise
@@ -306,10 +416,7 @@ def params_from_jax(net, params_np):
                              f"{tuple(np.shape(params_np[name]))}, the "
                              f"port's {tuple(p._data.shape)}")
         p.set_data(v)
-    for m in net.modules():
-        if isinstance(m, HybridBlock):
-            m._pending = any(q._deferred_init is not None
-                             for q in m._reg_params.values())
+    _refresh_pending(net)
     return net
 
 

@@ -1,4 +1,5 @@
-"""gluon.contrib of the PyTorch port: the fused training step."""
-from .fused import FusedTrainStep
+"""gluon.contrib of the PyTorch port: the fused training and inference
+steps."""
+from .fused import FusedInferStep, FusedTrainStep
 
-__all__ = ["FusedTrainStep"]
+__all__ = ["FusedTrainStep", "FusedInferStep"]

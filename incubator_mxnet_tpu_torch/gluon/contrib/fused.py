@@ -1,5 +1,7 @@
-"""FusedTrainStep of the PyTorch port: forward, loss, backward, optional
-global-norm clipping and the optimizer update in one call.
+"""FusedTrainStep and FusedInferStep of the PyTorch port.
+
+`FusedTrainStep`: forward, loss, backward, optional global-norm clipping
+and the optimizer update in one call.
 
 Counterpart of `incubator_mxnet_tpu/gluon/contrib/fused.py::FusedTrainStep`:
 
@@ -27,6 +29,19 @@ and inside `fusion_scope(use_fusion)`: with fusion on (the
 default; `use_fusion=False` gives the unfused step) the Gluon blocks route
 through the fused ops, whose CUDA kernels run on the card. CUDA-graph capture of the
 step comes later.
+
+`FusedInferStep` is the JAX package's chained inference step:
+
+    step = FusedInferStep(net)
+    logits = step(x0)        # seed the chain
+    logits = step()          # continue it: x <- x + perturb * mean(logits)
+
+Each call runs `steps_per_call` forwards of the net in inference mode (no
+dropout, running statistics, nothing taped) inside `fusion_scope(
+use_fusion)` (default on), each feeding the next its input perturbed by
+`perturb` times the mean of its logits, and returns the last logits. The
+data dependence orders the calls as the JAX step's donated buffer does;
+the port runs it eagerly (CUDA-graph capture comes later).
 """
 from __future__ import annotations
 
@@ -38,7 +53,51 @@ from ... import optimizer as opt_mod
 from ...base import MXNetError
 from ...ops import fused as _fused
 
-__all__ = ["FusedTrainStep"]
+__all__ = ["FusedTrainStep", "FusedInferStep"]
+
+
+def _initialized_params(net, message):
+    """The net's Parameters in name order; raises `message` when one is
+    not drawn yet."""
+    params = [p for _, p in sorted(net.collect_params().items())]
+    if any(p._data is None for p in params):
+        raise MXNetError(message)
+    return params
+
+
+class FusedInferStep:
+    """`steps_per_call` chained inference forwards per call."""
+
+    def __init__(self, net, perturb=1e-6, steps_per_call=1,
+                 use_fusion=None):
+        params = _initialized_params(
+            net, "FusedInferStep needs a fully initialized net: run one "
+                 "forward pass first")
+        self._net = net
+        self._device = params[0].data().device if params else None
+        self._perturb = perturb
+        self._K = int(steps_per_call)
+        if self._K < 1:
+            raise MXNetError("steps_per_call must be >= 1")
+        self._use_fusion = True if use_fusion is None else bool(use_fusion)
+        self._x = None
+
+    def __call__(self, x=None):
+        if x is not None:
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            # the chain owns its input: seed it with a copy
+            self._x = x.detach().to(self._device, copy=True)
+        if self._x is None:
+            raise MXNetError("seed the chain: step(x0) before step()")
+        with autograd._Scope(recording=False, training=False,
+                             grad_mode=False, taping=False), \
+                _fused.fusion_scope(self._use_fusion):
+            for _ in range(self._K):
+                logits = self._net(self._x)
+                self._x = self._x + (self._perturb * logits.mean()).to(
+                    self._x.dtype)
+        return logits
 
 
 class FusedTrainStep:
@@ -57,12 +116,9 @@ class FusedTrainStep:
         if self._K < 1:
             raise MXNetError("steps_per_call must be >= 1")
         self._use_fusion = True if use_fusion is None else bool(use_fusion)
-        params = [p for _, p in sorted(net.collect_params().items())]
-        for p in params:
-            if p._data is None:
-                raise MXNetError(
-                    "FusedTrainStep needs a fully initialized net: run one "
-                    "forward pass first (deferred shapes must be resolved)")
+        params = _initialized_params(
+            net, "FusedTrainStep needs a fully initialized net: run one "
+                 "forward pass first (deferred shapes must be resolved)")
         self._params = params
         self._device = params[0].data().device
         # per-parameter lr_mult/wd_mult resolve through param_dict, as in

@@ -1,35 +1,42 @@
-"""gluon.nn of the PyTorch port: the layers ResNet and the transformer
-blocks need.
+"""gluon.nn of the PyTorch port.
 
-Counterpart of `incubator_mxnet_tpu/gluon/nn/__init__.py`:
-`HybridSequential`, `Conv2D`, `BatchNorm` (with `fused_forward`),
-`BatchNormReLU`, `Activation`, `MaxPool2D`, `AvgPool2D`,
-`GlobalAvgPool2D`, `Dense`, `Flatten`, `Dropout`, `LayerNorm` and
-`Embedding`, and from `transformer`: `MultiHeadAttention`,
-`TransformerEncoderCell`, `TransformerDecoderCell` and
-`PositionalEmbedding`. They route
-exactly as the JAX package's layers do: inside a fusion scope
-(`ops.fused.fusion_enabled()`, which `FusedTrainStep` enters) a Dense or
-Conv2D with bias and a fusable activation takes `fused.bias_act`, a
-BatchNorm takes `fused.batch_norm`, and an average pool whose window tiles
-the NHWC input (GlobalAvgPool2D included) takes `fused.avg_pool2d`;
-otherwise the plain ops of `ops.nn`.
+Counterpart of `incubator_mxnet_tpu/gluon/nn/__init__.py`: the containers
+`Sequential`, `HybridSequential`, `Concatenate`, `HybridConcatenate`,
+`Identity`, `Lambda` and `HybridLambda`; `Dense`, `Dropout`, `Embedding`,
+`Flatten`; the norms `BatchNorm` (with `fused_forward`), `BatchNormReLU`,
+`LayerNorm`, `GroupNorm`, `InstanceNorm` and `RMSNorm`; the activations
+`Activation` (relu, sigmoid, tanh, softrelu, softsign, log_sigmoid, mish),
+`LeakyReLU`, `PReLU`, `ELU`, `SELU`, `GELU` and `Swish` (`SiLU`); the
+convolutions `Conv1D`, `Conv2D`, `Conv3D` and their transposes over one
+`_Conv` (channels first or last: NCW / NWC, NCHW / NHWC, NCDHW / NDHWC);
+the max, average and global pools in 1, 2 and 3 dims; `ReflectionPad2D`;
+and from `transformer`: `MultiHeadAttention`, `TransformerEncoderCell`,
+`TransformerDecoderCell` and `PositionalEmbedding`. They route exactly as
+the JAX package's layers do: inside a fusion scope
+(`ops.fused.fusion_enabled()`, which `FusedTrainStep` and `FusedInferStep`
+enter) a Dense or convolution with bias and a fusable activation takes
+`fused.bias_act` on its channel axis, a BatchNorm takes
+`fused.batch_norm`, and an average pool whose window tiles the NHWC input
+(GlobalAvgPool2D included) takes `fused.avg_pool2d`; otherwise the plain
+ops of `ops.nn`.
 
-Channel counts (`in_units` of Dense, `in_channels` of Conv2D, BatchNorm
-and LayerNorm) default to 0, inferred from the first input as in the JAX
+Channel counts (`in_units` of Dense, `in_channels` of the convolutions and
+the norms) default to 0, inferred from the first input as in the JAX
 package (the values are drawn then: deferred initialization); explicit
 counts draw at `initialize()`. BatchNorm and Dropout read the training
 flag of `autograd` (`autograd.record()`, `train_mode()`,
 `FusedTrainStep`).
 
-Differences from the JAX package: `Dropout` draws
-from the port's per-device generator (`random.generator`) in training
-mode, `Embedding` has no sparse gradient, and the
-fused BatchNorm is taken only when the channel axis is last (NHWC),
-since the apply kernel takes channels last; a channels-first BatchNorm
-stays on the plain op. A strided input to a fused op is copied to a contiguous one
-first and counted (`ops.fused.layout_copies()`): the kernels raise on
-strided views.
+Differences from the JAX package: `Dropout` draws from the port's
+per-device generator (`random.generator`) in training mode, `Embedding`
+has no sparse gradient, and the fused apply (a convolution's bias and
+activation, a BatchNorm) is taken only when the channel axis is last,
+since the apply kernel takes channels last; a channels-first layer stays
+on the plain ops, where the JAX package calls its fused op and that op
+takes its own plain composition. A strided input to a fused op is copied
+to a contiguous one first and counted (`ops.fused.layout_copies()`): the
+kernels raise on strided views. `Lambda("name")` resolves the name in
+`torch` (the JAX package: in its numpy namespace).
 """
 from __future__ import annotations
 
@@ -38,16 +45,24 @@ import math
 import torch
 
 from ... import autograd as _autograd
+from ... import initializer as _init
 from ... import random as _random
 from ...base import MXNetError
 from ...ops import fused as _fused
 from ...ops import nn as _ops
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 
-__all__ = ["HybridSequential", "Conv2D", "BatchNorm", "BatchNormReLU",
-           "Activation", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D",
-           "Dense", "Flatten", "Dropout", "LayerNorm", "Embedding",
-           "MultiHeadAttention", "TransformerEncoderCell",
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "BatchNormReLU", "Embedding", "Flatten", "InstanceNorm",
+           "LayerNorm", "GroupNorm", "RMSNorm", "Lambda", "HybridLambda",
+           "Concatenate", "HybridConcatenate", "Identity", "Activation",
+           "LeakyReLU", "PReLU", "ELU", "SELU", "Swish", "SiLU", "GELU",
+           "Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+           "Conv2DTranspose", "Conv3DTranspose", "MaxPool1D", "MaxPool2D",
+           "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
+           "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
+           "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D",
+           "ReflectionPad2D", "MultiHeadAttention", "TransformerEncoderCell",
            "TransformerDecoderCell", "PositionalEmbedding"]
 
 # activations a Dense/Conv2D may fuse: those both the kernel and the plain
@@ -60,8 +75,9 @@ def _known(value):
     return int(value) if value and value > 0 else 0
 
 
-class HybridSequential(HybridBlock):
-    """Children run in order; registered as '0', '1', ..."""
+class Sequential(Block):
+    """Children run in order, registered as '0', '1', ...; extra
+    positional inputs go to the first child only."""
 
     def __init__(self, *blocks):
         super().__init__()
@@ -69,21 +85,86 @@ class HybridSequential(HybridBlock):
 
     def add(self, *blocks):
         for b in blocks:
-            self.add_module(str(len(self._modules)), b)
+            self.register_child(b)
 
-    def forward(self, x):
+    def forward(self, x, *args):
         for block in self._modules.values():
-            x = block(x)
+            x = block(x, *args)
+            args = ()
         return x
 
     def __len__(self):
         return len(self._modules)
 
-    def __getitem__(self, i):
-        return list(self._modules.values())[i]
+    def __getitem__(self, key):
+        children = list(self._modules.values())
+        if isinstance(key, slice):
+            net = type(self)()
+            net.add(*children[key])
+            return net
+        return children[key]
 
     def __iter__(self):
         return iter(self._modules.values())
+
+
+class HybridSequential(Sequential, HybridBlock):
+    """A Sequential whose `hybridize()` flag is recorded."""
+
+
+class Identity(HybridBlock):
+    def forward(self, x):
+        return x
+
+
+def _resolve_fn(function):
+    return getattr(torch, function) if isinstance(function, str) \
+        else function
+
+
+class Lambda(Block):
+    """A block around `function` (a callable, or the name of a `torch`
+    function)."""
+
+    def __init__(self, function):
+        super().__init__()
+        self._func = _resolve_fn(function)
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """Lambda as a HybridBlock."""
+
+    def __init__(self, function):
+        super().__init__()
+        self._func = _resolve_fn(function)
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class Concatenate(Sequential):
+    """Every child on the same input, outputs joined along `axis`."""
+
+    def __init__(self, axis=-1):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return _ops.concat([b(x) for b in self._modules.values()],
+                           axis=self._axis)
+
+
+class HybridConcatenate(HybridSequential):
+    """Concatenate as a HybridBlock."""
+
+    def __init__(self, axis=-1):
+        super().__init__()
+        self._axis = axis
+
+    forward = Concatenate.forward
 
 
 class Dense(HybridBlock):
@@ -134,22 +215,87 @@ class Dropout(HybridBlock):
                             training=_autograd.is_training())
 
 
-class LayerNorm(HybridBlock):
-    """Layer norm over the last axis (epsilon 1e-5), gamma (ones) and beta
-    (zeros) of `in_channels`."""
+class _AffineNorm(HybridBlock):
+    """A norm with per-channel gamma (ones) and beta (zeros) of the
+    channel count on `self._axis`; `scale` / `center` False freeze them
+    (grad_req "null"), as in the JAX package, which still applies them."""
 
-    def __init__(self, in_channels=0):
+    def __init__(self, axis, center, scale, beta_initializer,
+                 gamma_initializer, in_channels):
         super().__init__()
+        self._axis = axis
         ch = _known(in_channels)
-        self._new_param("gamma", (ch,), "ones")
-        self._new_param("beta", (ch,), "zeros")
+        self._new_param("gamma", (ch,), gamma_initializer,
+                        grad_req="write" if scale else "null")
+        self._new_param("beta", (ch,), beta_initializer,
+                        grad_req="write" if center else "null")
 
     def infer_shape(self, x, *args):
         for name in ("gamma", "beta"):
-            self._reg_params[name].shape = (x.shape[-1],)
+            self._reg_params[name].shape = (x.shape[self._axis],)
+
+
+class LayerNorm(_AffineNorm):
+    """Layer norm over `axis` (default the last)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__(axis, center, scale, beta_initializer,
+                         gamma_initializer, in_channels)
+        self._eps = epsilon
 
     def forward(self, x):
-        return _ops.layer_norm(x, self.gamma, self.beta)
+        return _ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+                               eps=self._eps)
+
+
+class GroupNorm(_AffineNorm):
+    """Group norm of channels-first data: `num_groups` groups of the
+    channels (axis 1)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__(1, center, scale, beta_initializer,
+                         gamma_initializer, in_channels)
+        self._num_groups = num_groups
+        self._eps = epsilon
+
+    def forward(self, x):
+        return _ops.group_norm(x, self.gamma, self.beta,
+                               num_groups=self._num_groups, eps=self._eps)
+
+
+class InstanceNorm(_AffineNorm):
+    """Instance norm of channels-first data (each sample's channel over
+    its spatial dims); `axis` names the channel count's axis for the
+    deferred shape, as in the JAX package."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__(axis, center, scale, beta_initializer,
+                         gamma_initializer, in_channels)
+        self._eps = epsilon
+
+    def forward(self, x):
+        return _ops.instance_norm(x, self.gamma, self.beta, eps=self._eps)
+
+
+class RMSNorm(HybridBlock):
+    """RMS norm over the last axis, times gamma (ones)."""
+
+    def __init__(self, in_channels=0, epsilon=1e-6, gamma_initializer="ones"):
+        super().__init__()
+        self._eps = epsilon
+        self._new_param("gamma", (_known(in_channels),), gamma_initializer)
+
+    def infer_shape(self, x, *args):
+        self._reg_params["gamma"].shape = (x.shape[-1],)
+
+    def forward(self, x):
+        return _ops.rms_norm(x, self.gamma, eps=self._eps)
 
 
 class Embedding(HybridBlock):
@@ -164,62 +310,144 @@ class Embedding(HybridBlock):
         return _ops.embedding(x, self.weight)
 
 
-class Conv2D(HybridBlock):
-    """2-D convolution over NCHW or NHWC; weight (O, I/groups, kh, kw),
-    kept channels-last in memory for NHWC."""
+class _Conv(HybridBlock):
+    """Convolution or transposed convolution over channels-first or
+    channels-last data of 1-3 spatial dims (the layout names them). The
+    weight is (O, I/groups, *kernel), or (I, O/groups, *kernel) for a
+    transposed one, kept channels-last in memory for NHWC / NDHWC."""
 
-    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
-                 dilation=(1, 1), groups=1, layout="NCHW", activation=None,
+    def __init__(self, channels, kernel_size, strides, padding, dilation,
+                 groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", in_channels=0):
+                 bias_initializer="zeros", op_name="convolution", adj=None):
         super().__init__()
-        if layout not in ("NCHW", "NHWC"):
-            raise MXNetError(f"Conv2D layout {layout!r} not supported")
-        k = (kernel_size,) * 2 if isinstance(kernel_size, int) \
-            else tuple(kernel_size)
+        nd = len(layout) - 2
+        _ops._channels_last(layout, nd)     # raises for an unknown layout
         self._channels = channels
-        self._kernel = k
+        self._kernel = (kernel_size,) * nd if isinstance(kernel_size, int) \
+            else tuple(kernel_size)
         self._strides = strides
         self._padding = padding
         self._dilation = dilation
         self._groups = groups
         self._layout = layout
         self._act_type = activation
-        # the JAX package keeps this weight HWIO for NHWC
-        self._hwio_weight = layout == "NHWC"
-        self._new_param(
-            "weight", (channels, _known(in_channels) // groups) + k,
-            weight_initializer,
-            memory_format=torch.channels_last if layout == "NHWC" else None)
+        self._op_name = op_name
+        self._adj = adj
+        # the JAX package keeps a channels-last weight kernel dims first
+        self._hwio_weight = not layout.startswith("NC")
+        fmt = {"NHWC": torch.channels_last,
+               "NDHWC": torch.channels_last_3d}.get(layout)
+        self._new_param("weight", self._weight_shape(_known(in_channels)),
+                        weight_initializer, memory_format=fmt)
         if use_bias:
             self._new_param("bias", (channels,), bias_initializer)
         else:
             self.bias = None
 
+    def _weight_shape(self, in_ch):
+        if self._op_name == "deconvolution":
+            return (in_ch, self._channels // self._groups) + self._kernel
+        return (self._channels, in_ch // self._groups) + self._kernel
+
     def _channel_axis(self):
-        return 1 if self._layout == "NCHW" else 3
+        return 1 if self._layout.startswith("NC") else len(self._layout) - 1
 
     def infer_shape(self, x, *args):
-        in_ch = x.shape[self._channel_axis()]
-        self._reg_params["weight"].shape = \
-            (self._channels, in_ch // self._groups) + self._kernel
+        self._reg_params["weight"].shape = self._weight_shape(
+            x.shape[self._channel_axis()])
 
     def forward(self, x):
         bias = self.bias
+        # the JAX package fuses in every layout; its fused op takes the
+        # kernel only with the channels last, as the port's does
         fuse_ba = (self._act_type in _FUSABLE_ACTS and bias is not None
-                   and _fused.fusion_enabled() and self._layout == "NHWC")
+                   and _fused.fusion_enabled()
+                   and not self._layout.startswith("NC"))
         if fuse_ba:
             bias_arr, bias = bias, None
-        y = _ops.convolution(x, self.weight, bias, stride=self._strides,
-                             dilate=self._dilation, pad=self._padding,
-                             num_group=self._groups, no_bias=bias is None,
-                             layout=self._layout)
+        if self._op_name == "convolution":
+            y = _ops.convolution(x, self.weight, bias, stride=self._strides,
+                                 dilate=self._dilation, pad=self._padding,
+                                 num_group=self._groups,
+                                 no_bias=bias is None, layout=self._layout)
+        else:
+            y = _ops.deconvolution(x, self.weight, bias, stride=self._strides,
+                                   dilate=self._dilation, pad=self._padding,
+                                   adj=self._adj or 0, num_group=self._groups,
+                                   no_bias=bias is None, layout=self._layout)
         if fuse_ba:
             return _fused.bias_act(_fused.contiguous_counted(y), bias_arr,
                                    act_type=self._act_type, axis=-1)
         if self._act_type:
             y = _ops.activation(y, self._act_type)
         return y
+
+
+class Conv1D(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 dilation=1, groups=1, layout="NCW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer)
+
+
+class Conv2D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 dilation=(1, 1), groups=1, layout="NCHW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer)
+
+
+class Conv3D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
+                 layout="NCDHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer)
+
+
+class Conv1DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="deconvolution", adj=output_padding)
+
+
+class Conv2DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="deconvolution", adj=output_padding)
+
+
+class Conv3DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="deconvolution", adj=output_padding)
 
 
 class BatchNorm(HybridBlock):
@@ -300,12 +528,77 @@ class BatchNormReLU(BatchNorm):
 
 
 class Activation(HybridBlock):
+    """relu, sigmoid, tanh, softrelu, softsign, log_sigmoid or mish."""
+
     def __init__(self, activation):
         super().__init__()
         self._act_type = activation
 
     def forward(self, x):
         return _ops.activation(x, self._act_type)
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha=0.01):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return _ops.leaky_relu(x, "leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """x where x >= 0, else alpha * x; alpha a Parameter of `in_channels`
+    (0.25), broadcast against x's trailing axes as in the JAX package."""
+
+    def __init__(self, alpha_initializer=None, in_channels=1):
+        super().__init__()
+        self._new_param("alpha", (in_channels,),
+                        alpha_initializer or _init.Constant(0.25))
+
+    def forward(self, x):
+        return _ops.leaky_relu(x, "prelu", gamma=self.alpha)
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return _ops.elu(x, self._alpha)
+
+
+class SELU(HybridBlock):
+    def forward(self, x):
+        return _ops.selu(x)
+
+
+class GELU(HybridBlock):
+    """GELU, exact (`approximation="erf"`) or `"tanh"`."""
+
+    def __init__(self, approximation="erf"):
+        super().__init__()
+        self._approx = approximation != "erf"
+
+    def forward(self, x):
+        return _ops.gelu(x, approximate=self._approx)
+
+
+class Swish(HybridBlock):
+    """x * sigmoid(beta * x)."""
+
+    def __init__(self, beta=1.0):
+        super().__init__()
+        self._beta = beta
+
+    def forward(self, x):
+        if self._beta == 1.0:
+            return _ops.silu(x)
+        return _ops.swish(x, self._beta)
+
+
+SiLU = Swish
 
 
 class Flatten(HybridBlock):
@@ -317,8 +610,6 @@ class _Pool(HybridBlock):
     def __init__(self, pool_size, strides, padding, global_pool, pool_type,
                  layout, ceil_mode=False, count_include_pad=True):
         super().__init__()
-        if layout not in ("NCHW", "NHWC"):
-            raise MXNetError(f"pooling layout {layout!r} not supported")
         self._kernel = pool_size
         self._stride = strides if strides is not None else pool_size
         self._pad = padding
@@ -361,11 +652,32 @@ class _Pool(HybridBlock):
                             layout=self._layout, ceil_mode=self._ceil_mode)
 
 
+class MaxPool1D(_Pool):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False):
+        super().__init__(pool_size, strides, padding, False, "max", layout,
+                         ceil_mode)
+
+
 class MaxPool2D(_Pool):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
                  layout="NCHW", ceil_mode=False):
         super().__init__(pool_size, strides, padding, False, "max", layout,
                          ceil_mode)
+
+
+class MaxPool3D(_Pool):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False):
+        super().__init__(pool_size, strides, padding, False, "max", layout,
+                         ceil_mode)
+
+
+class AvgPool1D(_Pool):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, count_include_pad=True):
+        super().__init__(pool_size, strides, padding, False, "avg", layout,
+                         ceil_mode, count_include_pad)
 
 
 class AvgPool2D(_Pool):
@@ -375,9 +687,54 @@ class AvgPool2D(_Pool):
                          ceil_mode, count_include_pad)
 
 
+class AvgPool3D(_Pool):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, count_include_pad=True):
+        super().__init__(pool_size, strides, padding, False, "avg", layout,
+                         ceil_mode, count_include_pad)
+
+
+class GlobalMaxPool1D(_Pool):
+    def __init__(self, layout="NCW"):
+        super().__init__(1, None, 0, True, "max", layout)
+
+
+class GlobalMaxPool2D(_Pool):
+    def __init__(self, layout="NCHW"):
+        super().__init__((1, 1), None, 0, True, "max", layout)
+
+
+class GlobalMaxPool3D(_Pool):
+    def __init__(self, layout="NCDHW"):
+        super().__init__((1, 1, 1), None, 0, True, "max", layout)
+
+
+class GlobalAvgPool1D(_Pool):
+    def __init__(self, layout="NCW"):
+        super().__init__(1, None, 0, True, "avg", layout)
+
+
 class GlobalAvgPool2D(_Pool):
     def __init__(self, layout="NCHW"):
         super().__init__((1, 1), None, 0, True, "avg", layout)
+
+
+class GlobalAvgPool3D(_Pool):
+    def __init__(self, layout="NCDHW"):
+        super().__init__((1, 1, 1), None, 0, True, "avg", layout)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Reflection padding of NCHW data's spatial dims; `padding` is one
+    int or (left, right, top, bottom)."""
+
+    def __init__(self, padding=0):
+        super().__init__()
+        self._padding = (padding,) * 4 if isinstance(padding, int) \
+            else tuple(padding)
+
+    def forward(self, x):
+        return _ops.reflection_pad2d(x, self._padding)
 
 
 from .transformer import (MultiHeadAttention, TransformerEncoderCell,  # noqa: E402

@@ -137,7 +137,8 @@ class Parameter:
     def _install(self, value):
         """Make `value` this Parameter's tensor, in every block that holds
         it, as an autograd variable with the Parameter's grad_req."""
-        if self._memory_format is not None and value.dim() == 4:
+        if self._memory_format is not None and value.dim() == (
+                5 if self._memory_format == torch.channels_last_3d else 4):
             value = value.contiguous(memory_format=self._memory_format)
         t = self._wrap(value)
         if not self._state:
@@ -168,7 +169,7 @@ class Parameter:
                                       else default_init)
         gen = torch.Generator().manual_seed(
             (seed + zlib.crc32(self.name.encode("utf-8"))) & 0x7FFFFFFF)
-        value = initializer(self.name, self._shape, gen)
+        value = initializer(init_mod.InitDesc(self.name), self._shape, gen)
         self._install(value.to(device=device, dtype=_dtype(self.dtype)))
 
     def _finish_deferred_init(self, device=None):
@@ -272,6 +273,7 @@ class Constant(Parameter):
 
 class _ConstInit(init_mod.Initializer):
     def __init__(self, value):
+        super().__init__()
         self._value = value
 
     def __call__(self, name, shape, generator):

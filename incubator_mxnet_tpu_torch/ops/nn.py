@@ -1,20 +1,27 @@
 """Neural-network ops of the PyTorch port, in plain torch.
 
-Counterpart of `incubator_mxnet_tpu/ops/nn.py` for what ResNet and
-transformer training need: convolution, fully_connected, the unfused
-batch_norm, layer_norm, pooling, activation, relu, gelu, softmax,
-log_softmax, pick, embedding, dropout and scaled_dot_product_attention,
-plus the elementwise `add`, the reductions and the reshapes the Gluon
-layers call. The JAX package leaves these to XLA outside any Pallas
-kernel, so the port leaves them to PyTorch (cuDNN and cuBLAS on the
-card).
+Counterpart of `incubator_mxnet_tpu/ops/nn.py` for what the ported Gluon
+layers need: convolution and deconvolution (1-D, 2-D and 3-D),
+fully_connected, the unfused batch_norm, layer_norm, group_norm,
+instance_norm, rms_norm, pooling (1-D, 2-D and 3-D), activation, relu,
+leaky_relu (leaky, prelu), elu, selu, gelu, silu, swish, sigmoid,
+softmax, log_softmax, pick, embedding, dropout and
+scaled_dot_product_attention, plus the elementwise `add`, `clip`, the
+reductions, the reshapes, `concat` and the reflection pad the Gluon layers
+call. The JAX package leaves these to XLA outside any Pallas kernel, so
+the port leaves them to PyTorch (cuDNN and cuBLAS on the card).
 
-Layouts follow the JAX package at the public functions: NHWC (or NCHW)
-activations, channels-minor for the fused tier. One difference: the port
-keeps convolution weights as (O, I/groups, kh, kw) for both layouts (in
-channels-last memory for NHWC, so cuDNN runs channels-last without a
-transpose), where the JAX package keeps HWIO for NHWC;
-`gluon.params_from_jax` converts.
+Layouts follow the JAX package at the public functions: NCW / NWC,
+NCHW / NHWC and NCDHW / NDHWC activations, channels-minor for the fused
+tier. One difference: the port keeps convolution weights as (O, I/groups,
+*kernel) and transposed-convolution weights as (I, O/groups, *kernel) for
+every layout (in channels-last memory for NHWC and NDHWC, so cuDNN runs
+channels-last without a transpose), where the JAX package keeps the
+channels-last ones kernel dims first (HWIO); `gluon.params_from_jax`
+converts. The JAX package's deconvolution is a convolution of the
+stride-dilated input with the kernel as stored, not flipped; the port's
+flips the kernel before `conv_transposeNd`, which flips it back, so both
+compute the same function.
 
 Under AMP each op casts its float inputs on entry as the JAX package's
 dispatch does (`amp.cast_inputs`, by op name and class): convolution,
@@ -34,24 +41,57 @@ import torch.nn.functional as F
 from .. import amp
 from ..base import MXNetError
 
-__all__ = ["convolution", "fully_connected", "batch_norm", "layer_norm",
-           "pooling", "activation", "relu", "gelu", "softmax", "log_softmax",
+__all__ = ["convolution", "deconvolution", "fully_connected", "batch_norm",
+           "layer_norm", "group_norm", "instance_norm", "rms_norm",
+           "pooling", "activation", "relu", "leaky_relu", "elu", "selu",
+           "gelu", "silu", "swish", "sigmoid", "softmax", "log_softmax",
            "pick", "embedding", "dropout", "scaled_dot_product_attention",
-           "add", "multiply", "sum", "mean", "reshape", "transpose"]
+           "add",
+           "multiply", "clip", "sum", "mean", "reshape", "transpose",
+           "concat", "reflection_pad2d"]
+
+# the layouts by number of spatial dims: (channels first, channels last)
+_LAYOUTS = {1: ("NCW", "NWC"), 2: ("NCHW", "NHWC"), 3: ("NCDHW", "NDHWC")}
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _tuple(v, n):
+    if isinstance(v, (tuple, list)):
+        if len(v) != n:
+            raise MXNetError(f"expected {n} spatial values, got {v!r}")
+        return tuple(int(a) for a in v)
+    return (int(v),) * n
 
 
 def _pair(v):
-    if isinstance(v, (tuple, list)):
-        if len(v) != 2:
-            raise MXNetError(f"expected 2 spatial values, got {v!r}")
-        return tuple(int(a) for a in v)
-    return (int(v), int(v))
+    return _tuple(v, 2)
 
 
-def _channels_last(layout):
-    if layout not in ("NCHW", "NHWC"):
-        raise MXNetError(f"layout {layout!r} not supported (NCHW or NHWC)")
-    return layout == "NHWC"
+def _channels_last(layout, nd=2):
+    """True for a channels-last `layout` of `nd` spatial dims; raises for
+    a layout that is neither."""
+    first, last = _LAYOUTS.get(nd, (None, None))
+    if layout not in (first, last):
+        raise MXNetError(f"layout {layout!r} not supported for {nd}-D data "
+                         f"({first} or {last})")
+    return layout == last
+
+
+def _to_first(x, cl):
+    """Channels-last data as a channels-first view (no copy)."""
+    return x.permute(0, x.ndim - 1, *range(1, x.ndim - 1)) if cl else x
+
+
+def _to_last(y, cl):
+    return y.permute(0, *range(2, y.ndim), 1) if cl else y
+
+
+def _add_bias(y, b, cl):
+    if b is None:
+        return y
+    return y + (b if cl else b.reshape((1, -1) + (1,) * (y.ndim - 2)))
 
 
 # ---------------------------------------------------------------------------
@@ -72,22 +112,41 @@ def fully_connected(x, weight, bias=None, no_bias=False, flatten=True):
 
 def convolution(data, weight, bias=None, stride=1, dilate=1, pad=0,
                 num_group=1, no_bias=False, layout="NCHW"):
-    """2-D convolution over NCHW or NHWC data; `weight` is (O, I/groups,
-    kh, kw) for both layouts. The bias is added after the product, as the
-    JAX package adds it."""
-    if data.ndim != 4:
-        raise MXNetError(f"convolution takes 4-D data; got {data.ndim}-D")
+    """1-D, 2-D or 3-D convolution over channels-first or channels-last
+    data (the layout names the rank); `weight` is (O, I/groups, *kernel)
+    for every layout. The bias is added after the product, as the JAX
+    package adds it."""
+    nd = data.ndim - 2
+    if nd not in _CONV:
+        raise MXNetError(f"convolution takes 3-D to 5-D data; got "
+                         f"{data.ndim}-D")
+    cl = _channels_last(layout, nd)
     b = None if no_bias else bias
     data, weight, b = amp.cast_inputs("convolution", "safe", data, weight, b)
-    cl = _channels_last(layout)
-    xc = data.permute(0, 3, 1, 2) if cl else data
-    y = F.conv2d(xc, weight, None, _pair(stride), _pair(pad), _pair(dilate),
-                 num_group)
-    if cl:
-        y = y.permute(0, 2, 3, 1)
-    if b is not None:
-        y = y + (b if cl else b.reshape(1, -1, 1, 1))
-    return y
+    y = _CONV[nd](_to_first(data, cl), weight, None, _tuple(stride, nd),
+                  _tuple(pad, nd), _tuple(dilate, nd), num_group)
+    return _add_bias(_to_last(y, cl), b, cl)
+
+
+def deconvolution(data, weight, bias=None, stride=1, dilate=1, pad=0, adj=0,
+                  num_group=1, no_bias=False, layout="NCHW"):
+    """1-D, 2-D or 3-D transposed convolution; `weight` is (I, O/groups,
+    *kernel) for every layout, `adj` the extra size on the high side of
+    each output dim. Computes the JAX package's function: the input
+    dilated by the stride, padded by (k_eff - 1 - pad, k_eff - 1 - pad +
+    adj) and correlated with the kernel as stored."""
+    nd = data.ndim - 2
+    if nd not in _DECONV:
+        raise MXNetError(f"deconvolution takes 3-D to 5-D data; got "
+                         f"{data.ndim}-D")
+    cl = _channels_last(layout, nd)
+    b = None if no_bias else bias
+    data, weight, b = amp.cast_inputs("deconvolution", "safe", data, weight,
+                                      b)
+    y = _DECONV[nd](_to_first(data, cl), weight.flip(list(range(2, nd + 2))),
+                    None, _tuple(stride, nd), _tuple(pad, nd),
+                    _tuple(adj, nd), num_group, _tuple(dilate, nd))
+    return _add_bias(_to_last(y, cl), b, cl)
 
 
 # ---------------------------------------------------------------------------
@@ -125,41 +184,111 @@ def batch_norm(x, gamma, beta, running_mean, running_var, momentum=0.9,
     return out.to(x.dtype), new_rm, new_rv
 
 
-def layer_norm(x, gamma, beta):
-    """Normalize over the last axis in float32 (population variance,
-    epsilon 1e-5), then the float32 affine; the result in x's dtype
-    (float32 under AMP)."""
+def _bshape(ndim, axis, c):
+    shape = [1] * ndim
+    shape[axis] = c
+    return shape
+
+
+def _normalize(xf, axes, eps):
+    mean = xf.mean(dim=axes, keepdim=True)
+    var = (xf - mean).square().mean(dim=axes, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + eps)
+
+
+def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
+    """Normalize over `axis` in float32 (population variance), then the
+    float32 affine; the result in x's dtype (float32 under AMP)."""
     x, gamma, beta = amp.cast_inputs("layer_norm", "unsafe", x, gamma, beta)
-    out = F.layer_norm(x.float(), (x.shape[-1],), gamma.float(),
-                       beta.float(), 1e-5)
+    ax = axis % x.ndim
+    if ax == x.ndim - 1:
+        out = F.layer_norm(x.float(), (x.shape[-1],), gamma.float(),
+                           beta.float(), eps)
+        return out.to(x.dtype)
+    bshape = _bshape(x.ndim, ax, x.shape[ax])
+    out = _normalize(x.float(), (ax,), eps)
+    out = (out * gamma.reshape(bshape).float()
+           + beta.reshape(bshape).float())
+    return out.to(x.dtype)
+
+
+def group_norm(x, gamma, beta, num_groups, eps=1e-5):
+    """Normalize each of `num_groups` channel groups of channels-first
+    data over its channels and spatial dims in float32, then the
+    per-channel affine."""
+    x, gamma, beta = amp.cast_inputs("group_norm", "unsafe", x, gamma, beta)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    out = _normalize(xg.float(), tuple(range(2, xg.ndim)), eps)
+    out = out.reshape(x.shape)
+    bshape = _bshape(x.ndim, 1, c)
+    out = (out * gamma.reshape(bshape).float()
+           + beta.reshape(bshape).float())
+    return out.to(x.dtype)
+
+
+def instance_norm(x, gamma, beta, eps=1e-5):
+    """Normalize each sample's channel (axis 1) over the spatial dims in
+    float32, then the per-channel affine."""
+    x, gamma, beta = amp.cast_inputs("instance_norm", "unsafe", x, gamma,
+                                     beta)
+    out = _normalize(x.float(), tuple(range(2, x.ndim)), eps)
+    bshape = _bshape(x.ndim, 1, x.shape[1])
+    out = (out * gamma.reshape(bshape).float()
+           + beta.reshape(bshape).float())
+    return out.to(x.dtype)
+
+
+def rms_norm(x, gamma, axis=-1, eps=1e-6):
+    """x / sqrt(mean(x^2 over `axis`) + eps) in float32, times gamma
+    (broadcast over the last axis)."""
+    x, gamma = amp.cast_inputs("rms_norm", "unsafe", x, gamma)
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.square().mean(dim=axis, keepdim=True) + eps)
+    if gamma is not None:
+        out = out * gamma.float()
     return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # pooling
 # ---------------------------------------------------------------------------
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _window_sum(x, k, s):
+    """The sum of each (k, s) window of channels-first `x` (no padding;
+    1-D through the 2-D op, which takes a divisor), summed in float32 and
+    rounded once to x's dtype."""
+    if len(k) == 1:
+        return _window_sum(x.unsqueeze(-2), (1,) + k, (1,) + s).squeeze(-2)
+    pool = F.avg_pool2d if len(k) == 2 else F.avg_pool3d
+    return pool(x.float(), k, s, divisor_override=1).to(x.dtype)
+
+
 def pooling(data, kernel=1, pool_type="max", stride=None, pad=0,
             global_pool=False, count_include_pad=True, layout="NCHW",
             ceil_mode=False):
-    """2-D max / avg pooling with the JAX package's semantics: pads of
-    -inf (max) or 0 (avg); ceil_mode extends the right pad so the last
-    partial window counts; avg divides by the whole window when
+    """1-D, 2-D or 3-D max / avg pooling with the JAX package's semantics:
+    pads of -inf (max) or 0 (avg); ceil_mode extends the high pad so the
+    last partial window counts; avg divides by the whole window when
     `count_include_pad` (or there is no pad), else by the valid count."""
     (x,) = amp.cast_inputs("pooling", "safe", data)
-    if x.ndim != 4:
-        raise MXNetError(f"pooling takes 4-D data; got {x.ndim}-D")
-    cl = _channels_last(layout)
+    nd = x.ndim - 2
+    if nd not in _MAX_POOL:
+        raise MXNetError(f"pooling takes 3-D to 5-D data; got {x.ndim}-D")
+    cl = _channels_last(layout, nd)
     if pool_type not in ("max", "avg"):
         raise ValueError(f"unknown pool_type {pool_type!r}")
     if global_pool:
-        axes = (1, 2) if cl else (2, 3)
+        axes = tuple(range(1, 1 + nd)) if cl else tuple(range(2, 2 + nd))
         if pool_type == "max":
             return x.amax(dim=axes, keepdim=True)
         return x.float().mean(dim=axes, keepdim=True).to(x.dtype)
-    k = _pair(kernel)
-    s = _pair(stride if stride is not None else kernel)
-    p = _pair(pad)
-    xc = x.permute(0, 3, 1, 2) if cl else x
+    k = _tuple(kernel, nd)
+    s = _tuple(stride if stride is not None else kernel, nd)
+    p = _tuple(pad, nd)
+    xc = _to_first(x, cl)
     pads = []
     for size, kk, ss, pp in zip(xc.shape[2:], k, s, p):
         hi = pp
@@ -167,25 +296,22 @@ def pooling(data, kernel=1, pool_type="max", stride=None, pad=0,
             out = -(-(size + 2 * pp - kk) // ss) + 1
             hi = max(pp, (out - 1) * ss + kk - size - pp)
         pads.append((pp, hi))
-    plain = all(lo == hi for lo, hi in pads) and all(
-        lo <= kk // 2 for (lo, _), kk in zip(pads, k))
+    # F.pad takes the last dim's pair first
+    fpad = [v for lo_hi in reversed(pads) for v in lo_hi]
     if pool_type == "max":
+        plain = all(lo == hi for lo, hi in pads) and all(
+            lo <= kk // 2 for (lo, _), kk in zip(pads, k))
         if plain:
-            y = F.max_pool2d(xc, k, s, p)
+            y = _MAX_POOL[nd](xc, k, s, p)
         else:
-            xp = F.pad(xc, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]),
-                       value=-math.inf)
-            y = F.max_pool2d(xp, k, s)
+            y = _MAX_POOL[nd](F.pad(xc, fpad, value=-math.inf), k, s)
     else:
-        xp = F.pad(xc, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
-        tot = F.avg_pool2d(xp, k, s, divisor_override=1)
+        tot = _window_sum(F.pad(xc, fpad), k, s)
         if count_include_pad or all(lo == 0 and hi == 0 for lo, hi in pads):
-            y = tot / float(k[0] * k[1])
+            y = tot / float(math.prod(k))
         else:
-            ones = F.pad(torch.ones_like(xc), (pads[1][0], pads[1][1],
-                                               pads[0][0], pads[0][1]))
-            y = tot / F.avg_pool2d(ones, k, s, divisor_override=1)
-    return y.permute(0, 2, 3, 1) if cl else y
+            y = tot / _window_sum(F.pad(torch.ones_like(xc), fpad), k, s)
+    return _to_last(y, cl)
 
 
 # ---------------------------------------------------------------------------
@@ -200,13 +326,22 @@ def _act(x, act_type):
         return torch.tanh(x)
     if act_type == "softrelu":
         return F.softplus(x)
-    if act_type == "softsign":
-        return F.softsign(x)
     if act_type == "log_sigmoid":
         return F.logsigmoid(x)
+    if act_type == "softsign":
+        return _rounded_once(F.softsign, x)
     if act_type == "mish":
-        return x * torch.tanh(F.softplus(x))
+        return _rounded_once(lambda v: v * torch.tanh(F.softplus(v)), x)
     raise ValueError(f"unknown activation {act_type!r}")
+
+
+def _rounded_once(fn, x):
+    """A composite elementwise function of a 16-bit `x` computed in float32
+    and rounded once, as XLA's fusion computes it for the JAX package
+    (op by op in 16 bits, each step would round, forward and backward)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return fn(x.float()).to(x.dtype)
+    return fn(x)
 
 
 def activation(x, act_type):
@@ -220,10 +355,47 @@ def relu(x):
     return torch.relu(x)
 
 
-def gelu(x):
-    """The exact (erf) GELU."""
+def gelu(x, approximate=False):
+    """GELU: exact (erf), or the tanh approximation."""
     (x,) = amp.cast_inputs("gelu", "neutral", x)
-    return F.gelu(x)
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def leaky_relu(x, act_type="leaky", slope=0.25, gamma=None):
+    """x where x >= 0, else `slope` * x ("leaky") or `gamma` * x ("prelu";
+    gamma broadcasts against x's trailing axes, as in the JAX package)."""
+    x, gamma = amp.cast_inputs("leaky_relu", "neutral", x, gamma)
+    if act_type == "leaky":
+        return torch.where(x >= 0, x, x * slope)
+    if act_type == "prelu":
+        return torch.where(x >= 0, x, gamma * x)
+    raise ValueError(f"unknown leaky_relu type {act_type!r}")
+
+
+def elu(x, alpha=1.0):
+    (x,) = amp.cast_inputs("elu", "neutral", x)
+    return F.elu(x, alpha)
+
+
+def selu(x):
+    (x,) = amp.cast_inputs("selu", "neutral", x)
+    return F.selu(x)
+
+
+def silu(x):
+    (x,) = amp.cast_inputs("silu", "neutral", x)
+    return F.silu(x)
+
+
+def swish(x, beta):
+    """x * sigmoid(beta * x), rounded once for a 16-bit x."""
+    (x,) = amp.cast_inputs("swish", "neutral", x)
+    return _rounded_once(lambda v: v * torch.sigmoid(beta * v), x)
+
+
+def sigmoid(x):
+    (x,) = amp.cast_inputs("sigmoid", "neutral", x)
+    return torch.sigmoid(x)
 
 
 def softmax(x, axis=-1):
@@ -306,6 +478,11 @@ def multiply(a, b):
     return a * b
 
 
+def clip(x, a_min, a_max):
+    (x,) = amp.cast_inputs("clip", "neutral", x)
+    return torch.clamp(x, a_min, a_max)
+
+
 def sum(x, axis=None, keepdims=False):  # noqa: A001 - the op's name
     (x,) = amp.cast_inputs("sum", "neutral", x)
     if axis is None:
@@ -328,3 +505,16 @@ def reshape(x, shape):
 def transpose(x, axes):
     (x,) = amp.cast_inputs("transpose", "neutral", x)
     return x.permute(axes)
+
+
+def concat(arrays, axis=-1):
+    """`arrays` joined along `axis` (the JAX package's `concatenate`)."""
+    arrays = amp.cast_inputs("concatenate", "neutral", *arrays)
+    return torch.cat(arrays, dim=axis)
+
+
+def reflection_pad2d(x, padding):
+    """Reflect-pad the last two dims of NCHW data by `padding` = (left,
+    right, top, bottom), the edge row not repeated (numpy's "reflect")."""
+    (x,) = amp.cast_inputs("pad", "neutral", x)
+    return F.pad(x, tuple(padding), mode="reflect")

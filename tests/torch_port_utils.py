@@ -113,15 +113,32 @@ def jax_values(jnet):
 
 def port_values(tnet):
     """The port net's values in the JAX package's layout (a channels-last
-    Conv2D's (O, I, kh, kw) weight back to HWIO)."""
-    out = {}
-    for name, p in tnet.collect_params().items():
-        v = p.data().detach().float().cpu()
-        blk, leaf = tnet._owner(name)
-        if leaf == "weight" and getattr(blk, "_hwio_weight", False):
-            v = v.permute(2, 3, 1, 0)
-        out[name] = v.contiguous().numpy()
-    return out
+    convolution's weight back to kernel dims first), float32."""
+    return {name: tnet._file_layout(name, p.data().float())
+            for name, p in tnet.collect_params().items()}
+
+
+def vision_pair(make, x_shape, seed=0):
+    """(JAX net, port net on the CPU) built by `make(vision module)`,
+    holding the same values made with numpy from `seed` (the JAX net's
+    deferred shapes resolve on zeros of `x_shape`), carried into the port
+    with `gluon.params_from_jax`."""
+    import incubator_mxnet_tpu as mx
+    from incubator_mxnet_tpu.gluon.model_zoo import vision as jvision
+    from incubator_mxnet_tpu_torch import gluon as tgluon
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision as tvision
+    jnet = make(jvision)
+    jnet.initialize()
+    jnet(mx.np.zeros(x_shape))
+    rng = np.random.RandomState(seed)
+    values = {}
+    for name, p in jnet.collect_params().items():
+        v = _resnet_value(name, p.shape, rng).astype(np.float32)
+        p.set_data(mx.np.array(v))
+        values[name] = v
+    tnet = make(tvision).initialize(device="cpu")
+    tgluon.params_from_jax(tnet, values)
+    return jnet, tnet
 
 
 def assert_values_close(got, want, rtol, atol, what=""):
