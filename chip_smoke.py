@@ -206,12 +206,45 @@ Each phase fails the run (non-zero exit) on any error:
      MobileNet v2's inference forward in float32, and Conv1D NWC / Conv3D
      NDHWC with relu in a fusion scope on the apply kernel (the NC layouts
      not).
+ 13. detection and the rest of the zoo at full width: (a) GluonCV's
+     ssd_300_vgg16_atrous + train_ssd.py: `ssd_300_vgg16(classes=20,
+     layout="NHWC")`, bf16 AMP, the fusion default on, the imperative
+     loop, SGD lr 0.001 momentum 0.9 wd 5e-4, examples/ssd_amp.py's loss
+     (targets with hard negatives at ratio 3, cross-entropy ignoring -1,
+     Huber on loc x mask), batch 32 x 300^2 with 1-8 synthetic boxes an
+     image: 2 warm-up and 8 timed steps, finite losses, exactly 23 apply
+     launches a step at the 23 predicted shapes (bf16, bias + ReLU) and no
+     other launch, `multibox_target`'s ms, B1 (bias + ReLU) against its
+     plain version in float32 and bfloat16 at every distinct shape of the
+     step and at the families' (32, 4096), and at conv1's (2880000, 64)
+     bf16 against its bound and its plain version, timed; (b) `net.detect` on the
+     batch (NMS 0.45, threshold 0.01): one NMS-sweep launch, its keep mask
+     bit-equal to the plain sweep's on the same sorted rows (IoU tests
+     counted), the decoded ids, scores and boxes bit-equal with the plain
+     sweep, `box_nms` at (32, 8732, 6) with and without force_suppress
+     bit-equal, a planted fault (a kept row nudged to just over the
+     threshold against an earlier kept row of its class) refused, and the
+     kernel on it bit-equal; the kernel's, the plain sweep's and detect()'s
+     times and VOC07 mAP; (c) `alexnet`, `vgg16_bn`, `squeezenet1.1`,
+     `densenet121` (224^2) and `inceptionv3` (299^2) at batch 32, bf16 AMP:
+     FusedTrainStep steps and an inference `net(x)`, exactly 2/2/0/0/0
+     apply launches a step and a call, no pool launch; (d) phase 7's
+     BERT-base through `FusedTrainStep(remat=None | "full" | "dots")`: peak
+     memory, ms a step, exactly 12 / 24 / 24 B6 and 12 B7 and B8 launches
+     a step, all on the tensor cores; then one float32 SGD step (lr 1)
+     under each policy of 2 BERT layers (dropout 0.1) and VGG-11 with BN
+     (dropout) from the same weights and dropout seed: losses, updates and
+     running statistics within 1e-6 of remat=None's; (e)
+     `Embedding(32000, 768, sparse_grad=True)` through the Trainer with
+     Adam on 16 x 512 token ids: untouched rows bit-equal, touched rows
+     bit-equal to a dense Adam step's, the update's time beside a dense
+     update's.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
-backward sweep, one for each route of the paged kernel, and one for each
+backward sweep, one for each route of the paged kernel, one for each
 kernel's float16 instances, their launches from the path that runs them
-in float16), and
+in float16, and the NMS sweep, port-only, its launches from (b)), and
 `{"ok": true, "device": {...}}`. Without a
 card the script exits non-zero and prints no result. It imports nothing of
 JAX. Its run time on the card is in the root `PERF.md`.
@@ -229,10 +262,12 @@ import numpy as np
 import torch
 
 from incubator_mxnet_tpu_torch import (amp, autograd, gluon, initializer,
-                                       lr_scheduler, metric, optimizer, serve)
+                                       lr_scheduler, metric, optimizer,
+                                       random, serve)
 from incubator_mxnet_tpu_torch.gluon.contrib import FusedTrainStep
-from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
-from incubator_mxnet_tpu_torch.ops import attention, fused, kernels
+from incubator_mxnet_tpu_torch.gluon.model_zoo import detection, vision
+from incubator_mxnet_tpu_torch.ops import attention, contrib, fused, kernels
+from incubator_mxnet_tpu_torch.ops import nn as ops_nn
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12,         # f32 outside the tensor cores
@@ -3211,6 +3246,652 @@ def phase_script(card, dev, profile):
             "sweep": sweep}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: SSD300 detection, the other vision families, remat, sparse
+# Embedding
+# ---------------------------------------------------------------------------
+# SSD300 by GluonCV's ssd_300_vgg16_atrous + train_ssd.py: 20 VOC classes,
+# 300x300, batch 32, SGD lr 0.001 momentum 0.9 wd 5e-4; synthetic boxes,
+# 1-8 an image, padded with -1 rows to 8
+SSD_BATCH, SSD_IMAGE, SSD_CLASSES, SSD_GT = 32, 300, 20, 8
+SSD_WARMUP, SSD_STEPS = 2, 8
+SSD_SGD = dict(learning_rate=0.001, momentum=0.9, wd=5e-4)
+SSD_NMS, SSD_THRESH = 0.45, 0.01
+SSD_ANCHORS = 8732
+NMS_REPS = 5
+# float32 operations of one IoU test in the sweep (2 max, 2 min, 2 sub, 2
+# clamps, a product; the later box's area: 2 sub, 2 clamps, a product; the
+# union's add and sub; the quotient; the comparison)
+IOU_OPS = 19
+# (c): each family's name, input size and B1 launches a step (and a call)
+FAMILIES = (("alexnet", 224, 2), ("vgg16_bn", 224, 2),
+            ("squeezenet1.1", 224, 0), ("densenet121", 224, 0),
+            ("inceptionv3", 299, 0))
+FAMILY_STEPS, FAMILY_LR = 2, 1e-3
+# GluonCV train_imagenet.py's initializer (the default Uniform(0.07) lets
+# AlexNet's and VGG's activations, which no norm rescales, overflow)
+FAMILY_INIT = initializer.Xavier(rnd_type="gaussian", factor_type="in",
+                                 magnitude=2)
+# (d): BERT-base through FusedTrainStep under each remat policy
+REMAT_POLICIES = (None, "full", "dots")
+REMAT_STEPS = 3
+# flash forward launches a step (B6) under each policy: the recompute runs
+# the forward again, flash included ("dots" saves only the outputs of
+# products and convolutions, and the flash kernels are neither)
+REMAT_B6 = {None: 1, "full": 2, "dots": 2}
+REMAT_CHECK_RTOL = 1e-6
+# (e): the flagship LM's table, Adam, a batch of 16 x 512 token ids
+SPARSE_VOCAB, SPARSE_DIM = FULL["vocab"], FULL["embed"]
+SPARSE_ADAM = dict(learning_rate=1e-3, wd=0.01)
+SPARSE_STEPS = 5
+
+
+def ssd_apply_rows(batch, image):
+    """The (M, C) of every B1 launch in one SSD300 forward at (batch,
+    image, image, 3), NHWC: the 23 convolutions with ReLU (conv1-conv5,
+    fc6, fc7, the extras), in order."""
+    rows, s = [], image
+    for blocks, ch, ceil in ((2, 64, False), (2, 128, False),
+                             (3, 256, True)):
+        rows += [(batch * s * s, ch)] * blocks
+        s = -(-s // 2) if ceil else s // 2
+    rows += [(batch * s * s, 512)] * 3                      # conv4: 38
+    s //= 2
+    rows += [(batch * s * s, 512)] * 3 + [(batch * s * s, 1024)] * 2
+    for mid, out, stride, pad in ((256, 512, 2, 1), (128, 256, 2, 1),
+                                  (128, 256, 1, 0), (128, 256, 1, 0)):
+        rows.append((batch * s * s, mid))
+        s = (s + 2 * pad - 3) // stride + 1
+        rows.append((batch * s * s, out))
+    return rows
+
+
+def ssd_batches(n, seed, dev):
+    """n (images (32, 300, 300, 3), labels (32, 8, 5)) on the card: 1-8
+    boxes [class, x1, y1, x2, y2] an image, -1 rows after them."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        x = rng.rand(SSD_BATCH, SSD_IMAGE, SSD_IMAGE, 3).astype(np.float32)
+        lab = -np.ones((SSD_BATCH, SSD_GT, 5), np.float32)
+        for b in range(SSD_BATCH):
+            for g in range(rng.randint(1, SSD_GT + 1)):
+                xy = rng.rand(2) * 0.7
+                lab[b, g] = [rng.randint(0, SSD_CLASSES), *xy,
+                             *(xy + 0.05 + rng.rand(2) * 0.25)]
+        out.append(tuple(torch.from_numpy(a).to(dev) for a in (x, lab)))
+    return out
+
+
+def ssd_loss(net, x, labels):
+    """examples/ssd_amp.py's loss: targets with hard negatives at ratio 3,
+    cross-entropy over the class targets ignoring -1, Huber on loc x
+    mask."""
+    anchors, cls, box = net(x)
+    loc_t, loc_m, cls_t = net.targets(anchors, labels, cls,
+                                      negative_mining_ratio=3.0)
+    valid = (cls_t >= 0).float()
+    nll = -ops_nn.pick(ops_nn.log_softmax(cls, axis=-1), cls_t.clamp(min=0))
+    lcls = (nll * valid).sum() / valid.sum().clamp(min=1)
+    huber = gluon.loss.HuberLoss()
+    return lcls + huber(box * loc_m, loc_t * loc_m).mean() * 4.0
+
+
+def ssd_apply_kernels(dev):
+    """B1 against its plain version with bias + ReLU (scale absent), as
+    the paths run it, in float32 and bfloat16 at every distinct shape of
+    an SSD300 step and at the families' Dense(4096, relu) (BATCH, 4096);
+    conv1's bfloat16 call timed. Returns conv1's row, with every check
+    under "checked"."""
+    rows = ssd_apply_rows(SSD_BATCH, SSD_IMAGE)
+    shapes = sorted(set(rows) | {(BATCH, 4096)}, reverse=True)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    checked, conv1 = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, c in shapes:
+            x = torch.randn((m, c), generator=gen, device=dev).to(dtype)
+            bias = 0.2 * torch.randn((c,), generator=gen, device=dev)
+            out = kernels.scale_shift_act_cuda(x, None, bias, None, "relu")
+            ref = fused.apply_ref(x, None, bias, None, "relu")
+            torch.cuda.synchronize()
+            assert torch.isfinite(out.float()).all(), \
+                "non-finite apply output"
+            err, ok = _err_ok(out, ref, dtype)
+            assert ok, (f"B1 at ({m}, {c}) {_dtype_name(dtype)} relu "
+                        f"disagrees with its plain version")
+            checked.append({"M": m, "C": c, "dtype": _dtype_name(dtype),
+                            "max_abs_err": err, "tol": KTOL[dtype]})
+            if dtype == torch.bfloat16 and (m, c) == rows[0]:
+                conv1 = ssd_conv1_timing(x, bias, err)
+            del x, out, ref
+    kernels.reset_launch_counts()   # comparison launches do not count
+    conv1["checked"] = checked
+    return conv1
+
+
+def ssd_conv1_timing(x, bias, err):
+    """B1's reading at conv1's shape: ms, its plain version's, the bound."""
+    m, c = x.shape
+    nbytes = 2 * m * c * 2 + c * 4
+    ops = m * c * (1 + ACT_OPS["relu"])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ELEMENTWISE_OPS_PER_S * 1e3
+    return {"M": m, "C": c, "act": "relu", "dtype": "bfloat16",
+            "max_abs_err": err,
+            "ms": median_ms(lambda i: kernels.scale_shift_act_cuda(
+                x, None, bias, None, "relu"), reps=20),
+            "plain_ms": median_ms(lambda i: fused.apply_ref(
+                x, None, bias, None, "relu"), reps=5, warmup=1),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def ssd_train(card, dev, profile):
+    """(a) SSD300 NHWC at batch 32 x 300^2, bf16 AMP, the imperative loop
+    with the fusion default on, GluonCV's SGD."""
+    batches = ssd_batches(2, seed=131, dev=dev)
+    amp.init("bfloat16")
+    prev = fused.set_fusion_default(True)
+    try:
+        net = detection.ssd_300_vgg16(classes=SSD_CLASSES, layout="NHWC",
+                                      device=dev, seed=0)
+        net(torch.zeros((1, SSD_IMAGE, SSD_IMAGE, 3), device=dev))
+        trainer = gluon.Trainer(net.collect_params(), "sgd", SSD_SGD)
+
+        def step(x, labels):
+            with autograd.record():
+                loss = ssd_loss(net, x, labels)
+            autograd.backward(loss)
+            trainer.step(1)
+            return loss.detach()
+        seen = record_apply_shapes(step, *batches[0])
+        want = [(m, c, "relu", False, torch.bfloat16)
+                for m, c in ssd_apply_rows(SSD_BATCH, SSD_IMAGE)]
+        assert len(want) == 23
+        assert seen == want, \
+            f"apply launches of an SSD step differ from the prediction: {seen}"
+        losses, wall = _timed_loop(step, batches, SSD_WARMUP - 1, SSD_STEPS)
+        launches = kernels.launch_counts()
+        step_ms = wall / SSD_STEPS * 1e3
+        x, labels = batches[0]
+        anchors, cls, _ = net(x)
+        tgt_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.targets(anchors, labels, cls, negative_mining_ratio=3.0)
+            torch.cuda.synchronize()
+            tgt_ms.append((time.perf_counter() - t0) * 1e3)
+        prof = profile_steps(step, batches, step_ms, KERNEL_SYMBOLS,
+                             "ssd") if profile else None
+        detect = ssd_detect(card, net, x, labels, dev)
+    finally:
+        fused.set_fusion_default(prev)
+        amp.uninit()
+    losses = [float(v) for v in losses]
+    ips = SSD_BATCH * SSD_STEPS / wall
+    target_ms = float(np.median(tgt_ms))
+    log(f"[ssd] {card}: ssd_300_vgg16(classes={SSD_CLASSES}, NHWC), bf16 "
+        f"AMP, fusion default on, SGD {SSD_SGD}, targets with hard "
+        f"negatives at ratio 3: {SSD_STEPS} steps of batch {SSD_BATCH} x "
+        f"{SSD_IMAGE}^2 in {wall:.3f} s: {step_ms:.3f} ms/step, {ips:.1f} "
+        f"images/s; multibox_target {target_ms:.3f} ms a step; losses "
+        f"{[round(v, 4) for v in losses]}; launches "
+        f"{_train_counts(launches)} (predicted 23, 0, 0 a step), nms_sweep "
+        f"{launches['nms_sweep']}")
+    assert all(np.isfinite(losses)), "non-finite SSD loss"
+    assert launches == dict(dict.fromkeys(launches, 0),
+                            scale_shift_act=23 * SSD_STEPS), \
+        f"kernel launch count off the SSD path: {launches}"
+    conv1 = ssd_apply_kernels(dev)
+    worst = {d: max(r["max_abs_err"] for r in conv1["checked"]
+                    if r["dtype"] == d) for d in ("float32", "bfloat16")}
+    log(f"[ssd] {card}: B1 (bias + relu) against its plain version at "
+        f"{len(conv1['checked']) // 2} shapes (every distinct SSD step shape "
+        f"and ({BATCH}, 4096)) in float32 and bfloat16: largest max abs err "
+        f"{worst}; at conv1 ({conv1['M']}, {conv1['C']}) bf16: "
+        f"{conv1['ms']:.4f} ms, bound {conv1['bound_ms']:.4f} ms "
+        f"({conv1['bound_by']}), plain {conv1['plain_ms']:.4f} ms, max abs "
+        f"err {conv1['max_abs_err']:.3e}")
+    del net, trainer
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "images_per_s": ips, "losses": losses,
+            "launches": launches, "target_ms": target_ms,
+            "apply_rows": [list(r[:2]) for r in seen], "conv1": conv1,
+            "profile": prof, "detect": detect}
+
+
+def counted_sweep(boxes, ids, keep, thresh):
+    """The plain greedy sweep, counting as it goes the IoU tests it makes:
+    for each row alive when its turn comes, the later alive rows of its
+    class. Returns (the count, the keep mask)."""
+    keep = keep.clone()
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+    cols = torch.arange(boxes.shape[1], device=boxes.device)
+    tests = torch.zeros((), dtype=torch.int64, device=boxes.device)
+    for i in range(boxes.shape[1] - 1):
+        s = slice(i, i + 1)
+        live = (cols > i) & keep[:, s] & keep & (ids == ids[:, s])
+        tests += live.sum()
+        iw = (torch.minimum(x2[:, s], x2)
+              - torch.maximum(x1[:, s], x1)).clamp(min=0)
+        ih = (torch.minimum(y2[:, s], y2)
+              - torch.maximum(y1[:, s], y1)).clamp(min=0)
+        inter = iw * ih
+        union = area[:, s] + area - inter
+        iou = torch.where(union > 0, inter / union, 0.0)
+        keep &= ~(live & (iou > thresh))
+    return int(tests), keep
+
+
+def nudged_fault(boxes, ids, kept, thresh):
+    """A planted fault: in image 0, the kept pair (i < j, one class) of
+    largest IoU, row j's box moved toward row i's by the least step
+    (bisected on the CPU in float32, box_iou's arithmetic) that puts their
+    IoU just above the threshold. Returns (boxes with the nudge, j, the
+    IoU before and after)."""
+    b = boxes[0].cpu()
+    k = kept[0].cpu().nonzero().flatten()
+    kid = ids[0].cpu()[k]
+    iou = contrib.box_iou(b[k], b[k])
+    iou = torch.where((kid[:, None] == kid[None, :])
+                      & torch.ones_like(iou, dtype=torch.bool).triu(1),
+                      iou, -1.0)
+    flat = int(iou.argmax())
+    i, j = int(k[flat // len(k)]), int(k[flat % len(k)])
+    before = float(iou.flatten()[flat])
+    lo, hi = 0.0, 1.0
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        cand = b[j] + mid * (b[i] - b[j])
+        if float(contrib.box_iou(b[i:i + 1], cand[None])[0, 0]) > thresh:
+            hi = mid
+        else:
+            lo = mid
+    moved = b[j] + hi * (b[i] - b[j])
+    after = float(contrib.box_iou(b[i:i + 1], moved[None])[0, 0])
+    out = boxes.clone()
+    out[0, j] = moved.to(boxes.device)
+    return out, j, before, after
+
+
+def ssd_detect(card, net, x, labels, dev):
+    """(b) `net.detect(x)` on the batch of 32: the sweep kernel against
+    the plain sweep on the same sorted rows (bit-equal keep masks, then
+    ids, scores and boxes), `box_nms` at (32, 8732, 6) with and without
+    force_suppress, a planted near-threshold fault, the times, and
+    VOC07MApMetric over the detections against the batch's boxes (random
+    weights: near 0)."""
+    net.detect(x, nms_threshold=SSD_NMS, threshold=SSD_THRESH)   # warm-up
+    torch.cuda.synchronize()
+    captured = []
+    orig = kernels.nms_sweep_cuda
+
+    def capturing(boxes, ids, keep, thresh):
+        out = orig(boxes, ids, keep, thresh)
+        captured.append((boxes, ids, keep, thresh, out))
+        return out
+    kernels.reset_launch_counts()
+    kernels.nms_sweep_cuda = capturing
+    try:
+        t0 = time.perf_counter()
+        dets = net.detect(x, nms_threshold=SSD_NMS, threshold=SSD_THRESH)
+        torch.cuda.synchronize()
+        detect_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        kernels.nms_sweep_cuda = orig
+    launches = kernels.launch_counts()
+    assert launches["nms_sweep"] == 1 and len(captured) == 1, launches
+    boxes, ids, keep0, thresh, kept = captured[0]
+    assert dets.shape == (SSD_BATCH, SSD_ANCHORS, 6) \
+        and torch.isfinite(dets).all(), "detections not finite"
+    alive = int(keep0.sum())
+    # the kernel against the plain sweep on the same rows
+    tests, plain = counted_sweep(boxes, ids, keep0, thresh)
+    assert torch.equal(kept, plain), "the NMS kernel's keep mask is not " \
+        "the plain sweep's"
+    # the whole decode: ids, scores and boxes bit-equal with the plain sweep
+    anchors, cls, loc = net(x)
+    probs = ops_nn.softmax(cls, axis=-1).transpose(1, 2)
+    args = (probs, loc, anchors)
+    kw = dict(nms_threshold=SSD_NMS, threshold=SSD_THRESH)
+    nms_data = torch.cat([
+        torch.randint(0, SSD_CLASSES, (SSD_BATCH, SSD_ANCHORS, 1),
+                      generator=torch.Generator(device=dev).manual_seed(14),
+                      device=dev).float(),
+        torch.rand((SSD_BATCH, SSD_ANCHORS, 1), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(15)),
+        boxes], dim=-1)
+    got = {"detection": contrib.multibox_detection(*args, **kw)}
+    before_nms = kernels.launch_counts()["nms_sweep"]
+    for fs in (False, True):
+        got[f"box_nms_force{fs}"] = contrib.box_nms(
+            nms_data, SSD_NMS, id_index=0, force_suppress=fs)
+    box_nms_launches = kernels.launch_counts()["nms_sweep"] - before_nms
+    swept = contrib.nms_sweep
+    contrib.nms_sweep = contrib.nms_sweep_ref
+    try:
+        want = {"detection": contrib.multibox_detection(*args, **kw)}
+        for fs in (False, True):
+            want[f"box_nms_force{fs}"] = contrib.box_nms(
+                nms_data, SSD_NMS, id_index=0, force_suppress=fs)
+    finally:
+        contrib.nms_sweep = swept
+    for name in got:
+        assert torch.equal(got[name], want[name]), \
+            f"{name}: the kernel's result is not the plain sweep's"
+    # the largest difference seen: keep flags, then the decoded rows
+    err = max([float((kept.int() - plain.int()).abs().max())]
+              + [float((got[n] - want[n]).abs().max()) for n in got])
+    assert box_nms_launches == 2, box_nms_launches
+    kept_box_nms = {n: int((g[..., 1] >= 0).sum()) for n, g in got.items()
+                    if n.startswith("box_nms")}
+    # a planted fault near the threshold must be refused
+    nudged, j, before, after = nudged_fault(boxes, ids, kept, thresh)
+    fault_plain = contrib.nms_sweep_ref(nudged, ids, keep0, thresh)
+    fault_kernel = kernels.nms_sweep_cuda(nudged, ids, keep0, thresh)
+    refused = not torch.equal(kept, fault_plain)
+    assert refused and not bool(fault_plain[0, j]), \
+        "the check passes a keep mask with a nudged row"
+    assert torch.equal(fault_kernel, fault_plain), \
+        "the kernel parts from the plain sweep at the nudged row"
+    # times: the kernel, the plain sweep, the whole detect()
+    ms = median_ms(lambda i: kernels.nms_sweep_cuda(boxes, ids, keep0,
+                                                    thresh), NMS_REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = contrib.nms_sweep_ref(boxes, ids, keep0, thresh)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert torch.equal(kept, ref), "the NMS kernel's keep mask is not " \
+        "nms_sweep_ref's"
+    kernels.reset_launch_counts()   # comparison launches do not count
+    t_ops = tests * IOU_OPS / PEAK_OPS[torch.float32] * 1e3
+    nbytes = boxes.numel() * 4 + ids.numel() * 4 + 2 * keep0.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    voc = metric.VOC07MApMetric(iou_thresh=0.5)
+    voc.update(labels, dets)
+    mean_ap = voc.get()[1]
+    log(f"[detect] {card}: net.detect on {SSD_BATCH} x {SSD_IMAGE}^2 "
+        f"(nms {SSD_NMS}, threshold {SSD_THRESH}): {detect_ms:.3f} ms; "
+        f"{alive} of {SSD_BATCH * SSD_ANCHORS} rows alive into the sweep, "
+        f"{int(kept.sum())} kept, {tests} IoU tests; the kernel "
+        f"{ms:.4f} ms (bound {max(t_ops, t_bytes):.4f} ms by "
+        f"{'operations' if t_ops >= t_bytes else 'bytes'}), the plain "
+        f"sweep {plain_ms:.3f} ms; keep mask, ids, scores and boxes "
+        f"bit-equal; box_nms ({SSD_BATCH}, {SSD_ANCHORS}, 6) kept "
+        f"{kept_box_nms}, bit-equal; "
+        f"planted fault (row {j} of image 0 nudged from IoU {before:.7f} to "
+        f"{after:.7f} over {thresh}) refused, the kernel on it bit-equal; "
+        f"VOC07 mAP {mean_ap}")
+    return {"detect_ms": detect_ms, "launches": launches, "alive": alive,
+            "kept": int(kept.sum()), "iou_tests": tests, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": err, "box_nms_kept": kept_box_nms,
+            "fault": {"row": j, "iou_before": before, "iou_after": after,
+                      "refused": refused},
+            "voc07_map": mean_ap}
+
+
+def family_runs(card, dev):
+    """(c) one warm-up and FAMILY_STEPS timed FusedTrainStep steps and one
+    inference `net(x)` of each family (FAMILY_INIT's weights) at batch 32,
+    bf16 AMP, the fusion default on: finite losses and logits, exactly the
+    predicted B1 launches, no pool launch."""
+    out = {}
+    amp.init("bfloat16")
+    prev = fused.set_fusion_default(True)
+    try:
+        for name, image, b1 in FAMILIES:
+            rng = np.random.RandomState(61)
+            x = torch.from_numpy(rng.randn(BATCH, 3, image, image).astype(
+                np.float32)).to(dev)
+            y = torch.from_numpy(rng.randint(0, CLASSES, BATCH).astype(
+                np.int32)).to(dev)
+            net = vision.get_model(name, classes=CLASSES, device=dev, seed=0)
+            net.initialize(FAMILY_INIT, device=dev, force_reinit=True)
+            net(x[:1])                                  # deferred shapes
+            step = new_step(net, BATCH, use_fusion=True, lr=FAMILY_LR)
+            losses, wall = _timed_loop(step, [(x, y)], 1, FAMILY_STEPS)
+            train = kernels.launch_counts()
+            net(x)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = net(x)
+            torch.cuda.synchronize()
+            infer_ms = (time.perf_counter() - t0) * 1e3
+            infer = kernels.launch_counts()
+            losses = [float(v) for v in losses]
+            row = {"step_ms": wall / FAMILY_STEPS * 1e3, "infer_ms": infer_ms,
+                   "losses": losses, "train_launches": train,
+                   "infer_launches": infer}
+            log(f"[families] {card}: {name} at {BATCH} x {image}^2: "
+                f"{row['step_ms']:.3f} ms a step, inference {infer_ms:.3f} "
+                f"ms; losses {[round(v, 4) for v in losses]}; launches a "
+                f"step {_train_counts(train)} / {FAMILY_STEPS}, inference "
+                f"{_train_counts(infer)} (predicted {b1}, 0, 0)")
+            assert all(np.isfinite(losses)), f"{name}: non-finite loss"
+            assert logits.shape == (BATCH, CLASSES) \
+                and torch.isfinite(logits.float()).all()
+            assert train == dict(dict.fromkeys(train, 0),
+                                 scale_shift_act=b1 * FAMILY_STEPS), \
+                f"{name}: training launches {train}"
+            assert infer == dict(dict.fromkeys(infer, 0),
+                                 scale_shift_act=b1), \
+                f"{name}: inference launches {infer}"
+            out[name] = row
+            del net, step, logits
+            torch.cuda.empty_cache()
+    finally:
+        fused.set_fusion_default(prev)
+        amp.uninit()
+    return out
+
+
+def remat_runs(card, dev):
+    """(d) phase 7's BERT-base through FusedTrainStep(remat=...): peak
+    device memory, ms a step and the flash launches a step of each policy,
+    then the float32 check."""
+    batches = token_batches(2, BERT_BATCH, seed=71, dev=dev)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    L = BERT["layers"]
+    rows = {}
+    amp.init("bfloat16")
+    try:
+        net = BertEncoderLM(L, True, BERT["dropout"]).initialize(
+            device=dev, seed=0)
+        for policy in REMAT_POLICIES:
+            step = FusedTrainStep(
+                net, lambda n, x, y: loss_fn(n(x), y).mean(),
+                optimizer.create("adam", learning_rate=BERT_LR),
+                remat=policy)
+            step(*batches[0])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, wall = _timed_loop(step, batches, 0, REMAT_STEPS)
+            launches = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            per_step = {k: v / REMAT_STEPS for k, v in launches.items() if v}
+            rows[str(policy)] = {
+                "step_ms": wall / REMAT_STEPS * 1e3, "peak_gib": peak,
+                "launches_per_step": per_step,
+                "losses": [float(v) for v in losses]}
+            log(f"[remat] {card}: BERT-base bf16 Adam, remat={policy}: "
+                f"{wall / REMAT_STEPS * 1e3:.3f} ms a step, peak "
+                f"{peak:.2f} GiB, flash launches a step {per_step}")
+            assert all(np.isfinite(rows[str(policy)]["losses"]))
+            b6 = REMAT_B6[policy] * L
+            assert per_step == {"flash_fwd_lse": b6,
+                                "flash_fwd_lse_wgmma": b6,
+                                "flash_bwd_dq": L, "flash_bwd_dq_wgmma": L,
+                                "flash_bwd_dkv": L,
+                                "flash_bwd_dkv_wgmma": L}, \
+                f"remat={policy}: flash launches {per_step}"
+            del step
+        del net
+    finally:
+        amp.uninit()
+    torch.cuda.empty_cache()
+    return {"bert": rows, "f32_check": remat_f32_check(dev)}
+
+
+def remat_f32_check(dev):
+    """One float32 SGD step (lr 1: the update is the gradient; TF32 off,
+    cuDNN deterministic) under each policy from the same weights and
+    dropout seed: 2 BERT layers at full width (dropout 0.1) and VGG-11
+    with BN (BN, dropout) at batch 8 x 64^2; the losses, every update and
+    every running statistic against remat=None's."""
+    x, y = token_batches(1, FLASH_CHECK_BATCH, seed=72, dev=dev)[0]
+    rng = np.random.RandomState(73)
+    img = torch.from_numpy(rng.randn(8, 3, 64, 64).astype(np.float32)).to(dev)
+    lab = torch.from_numpy(rng.randint(0, 10, 8).astype(np.int32)).to(dev)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    builds = {
+        "bert2": (lambda: BertEncoderLM(FLASH_CHECK_LAYERS, True,
+                                        BERT["dropout"]).initialize(
+                                            device=dev, seed=1),
+                  lambda n, a, b: loss_fn(n(a), b).mean(), (x, y)),
+        "vgg11_bn": (lambda: vision.vgg11_bn(classes=10, device=dev,
+                                             seed=1),
+                     lambda n, a, b: loss_fn(n(a), b).sum(), (img, lab))}
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for tag, (build, fn, data) in builds.items():
+            nets, losses = {}, {}
+            for policy in REMAT_POLICIES:
+                random.seed(74)
+                net = build()
+                net(data[0][:1])
+                step = FusedTrainStep(net, fn, optimizer.create(
+                    "sgd", learning_rate=1.0), remat=policy)
+                losses[policy] = float(step(*data))
+                nets[policy] = net
+            random.seed(74)
+            init = build()
+            init(data[0][:1])
+            init = init.collect_params()
+            worst = {}
+            for policy in ("full", "dots"):
+                rel = update_parting(init, nets[policy].collect_params(),
+                                     nets[None].collect_params())
+                rel = {n: r for n, r in rel.items()
+                       if not n.endswith(FLASH_CHECK_SKIP)}
+                at = max(rel, key=rel.get)
+                loss_rel = abs(losses[policy] - losses[None]) \
+                    / abs(losses[None])
+                worst[policy] = {"loss_rel": loss_rel, "update_rel": rel[at],
+                                 "at": at}
+                log(f"[remat float32] {tag} remat={policy}: loss "
+                    f"{losses[policy]} against {losses[None]} (rel "
+                    f"{loss_rel:.2e}); the largest update or running-stat "
+                    f"parting {rel[at]:.3e} at {at} (tol {REMAT_CHECK_RTOL})")
+                assert loss_rel <= REMAT_CHECK_RTOL \
+                    and rel[at] <= REMAT_CHECK_RTOL, \
+                    f"{tag}: remat={policy} parts from remat=None"
+            out[tag] = worst
+            del nets, init
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+        kernels.reset_launch_counts()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sparse_embedding_run(card, dev):
+    """(e) Embedding(32000, 768, sparse_grad=True) with Adam through the
+    Trainer on 16 x 512 token ids: untouched rows bit-equal, touched rows
+    equal to a dense Adam step's, and the update's time."""
+    emb = gluon.nn.Embedding(SPARSE_VOCAB, SPARSE_DIM, sparse_grad=True) \
+        .initialize(device=dev, seed=0)
+    param = emb.collect_params()["weight"]
+    trainer = gluon.Trainer(emb.collect_params(), "adam", SPARSE_ADAM)
+    rng = np.random.RandomState(81)
+    gen = torch.Generator(device=dev).manual_seed(82)
+    times = []
+    for k in range(SPARSE_STEPS):
+        tokens = torch.from_numpy(rng.randint(
+            0, SPARSE_VOCAB, (BERT_BATCH, BERT_SEQ)).astype(np.int32)).to(dev)
+        coef = torch.randn((BERT_BATCH, BERT_SEQ, SPARSE_DIM), device=dev,
+                           generator=gen)
+        w0 = emb.weight.detach().clone()
+        with autograd.record():
+            loss = (emb(tokens) * coef).sum()
+        autograd.backward(loss)
+        grad = param.grad().clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if k == 0:
+            w1 = emb.weight.detach()
+            touched = torch.zeros(SPARSE_VOCAB, dtype=torch.bool, device=dev)
+            touched[tokens.long().flatten()] = True
+            assert torch.equal(w1[~touched], w0[~touched]), \
+                "the sparse update moved an untouched row"
+            dense = w0.clone()
+            opt = optimizer.create("adam", **SPARSE_ADAM)
+            opt.update(0, dense, grad, opt.create_state(0, dense))
+            err = (w1[touched] - dense[touched]).abs().max().item()
+            n_touched = int(touched.sum())
+            assert err == 0.0, \
+                f"touched rows part from a dense Adam step by {err}"
+    dense = emb.weight.detach().clone()
+    opt = optimizer.create("adam", **SPARSE_ADAM)
+    state = opt.create_state(0, dense)
+    dense_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.update(0, dense, grad, state)
+        torch.cuda.synchronize()
+        dense_ms.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times[1:]))
+    log(f"[sparse] {card}: Embedding({SPARSE_VOCAB}, {SPARSE_DIM}, "
+        f"sparse_grad=True), Adam {SPARSE_ADAM}, {BERT_BATCH} x {BERT_SEQ} "
+        f"token ids ({n_touched} rows touched in the first step): untouched "
+        f"rows bit-equal, touched rows bit-equal to a dense Adam step; the "
+        f"touched-rows update {ms:.3f} ms (median of {SPARSE_STEPS - 1}), "
+        f"a dense Adam update of the table {float(np.median(dense_ms)):.3f} "
+        f"ms")
+    return {"update_ms": ms, "dense_update_ms": float(np.median(dense_ms)),
+            "touched_rows": n_touched}
+
+
+def phase_detection(card, dev, profile):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    ssd = ssd_train(card, dev, profile)
+    families = family_runs(card, dev)
+    remat = remat_runs(card, dev)
+    sparse = sparse_embedding_run(card, dev)
+    took = time.perf_counter() - t0
+    log(f"[detection] phase 13 took {took:.1f} s")
+    return {"ssd": ssd, "families": families, "remat": remat,
+            "sparse": sparse, "seconds": took}
+
+
+def nms_entry(ssd):
+    d = ssd["detect"]
+    return {"name": "nms_sweep", "route": "cuda",
+            "source": "incubator_mxnet_tpu_torch/ops/csrc/nms.cu",
+            "replaces": None, "launches": d["launches"]["nms_sweep"],
+            "max_abs_err": d["max_abs_err"], "ms": d["ms"],
+            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": None,
+            "shape": f"B={SSD_BATCH} A={SSD_ANCHORS} float32 boxes and "
+                     f"class ids, IoU {SSD_NMS}, {d['alive']} rows alive, "
+                     f"{d['iou_tests']} IoU tests (no PyTorch call computes "
+                     f"greedy NMS)"}
+
+
 def int8_entry(variants, engine):
     """The int8 variant's JSON entry, at the speculative verify shape the
     engine's decode waves launch (bf16 q, int8 slab, C = draft + 1)."""
@@ -3411,8 +4092,8 @@ def main():
                     "file")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler pass over 3 training steps "
-                         "of ResNet-50 and of BERT-base (phases 5, 7, 11 "
-                         "and 12)")
+                         "of ResNet-50, BERT-base and SSD300 (phases 5, 7, "
+                         "11, 12 and 13)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3447,6 +4128,7 @@ def main():
     coverage = phase_coverage(dev)
     loop = phase_loop(card, dev, args.profile)
     script = phase_script(card, dev, args.profile)
+    detect = phase_detection(card, dev, args.profile)
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -3507,6 +4189,20 @@ def main():
             "bound_by", "library_ms")
     entries[0]["v2_timed"] = [{k: r[k] for k in keys}
                               for r in script["applies"] if "ms" in r]
+    # phase 13's paths, each counted on counts set to 0 just before it: B1
+    # on the SSD300 steps and on each family's steps, the flash kernels a
+    # step under each remat policy, the NMS sweep in detect()
+    ssd = detect["ssd"]
+    entries[0]["ssd_launches"] = ssd["launches"]["scale_shift_act"]
+    entries[0]["ssd_conv1"] = ssd["conv1"]
+    entries[0]["families_launches"] = {
+        n: r["train_launches"]["scale_shift_act"]
+        for n, r in detect["families"].items()}
+    for e in fentries:
+        e["remat_launches_per_step"] = {
+            p: r["launches_per_step"].get(e["name"], 0)
+            for p, r in detect["remat"]["bert"].items()}
+    entries.append(nms_entry(ssd))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -3517,7 +4213,8 @@ def main():
                        "kernels": [entry] + entries,
                        "serve": result, "train": train, "bert": bert,
                        "engine": engine, "coverage": coverage,
-                       "loop": loop, "script": script}, f,
+                       "loop": loop, "script": script,
+                       "detection": detect}, f,
                       indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [

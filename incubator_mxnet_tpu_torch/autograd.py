@@ -25,6 +25,9 @@ this module adds MXNet's semantics on top of it:
   * the taping scope: `record()` and `FusedTrainStep`'s own scope tape
     (`is_taping()`); a Gluon block called outside them runs its forward
     under `torch.no_grad()`, so inference records nothing.
+  * `is_recomputing()`: inside the recompute of a rematerialized forward
+    (`FusedTrainStep(remat=...)`), where BatchNorm leaves its running
+    statistics alone: the first pass updated them.
   * `backward(heads)` on a non-scalar head seeds it with ones, as MXNet's
     `loss.backward()` does on a per-sample loss (PyTorch's
     `Tensor.backward()` refuses a non-scalar).
@@ -49,7 +52,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "is_taping", "set_recording", "set_training",
+           "is_training", "is_taping", "is_recomputing", "set_recording",
+           "set_training",
            "mark_variables", "backward", "grad", "Function",
            "buffer_copies"]
 
@@ -90,19 +94,30 @@ def is_taping():
     return getattr(_state, "taping", False)
 
 
+def is_recomputing():
+    """Whether a rematerialized forward is being recomputed for its
+    backward (`FusedTrainStep(remat="full" | "dots")`)."""
+    return getattr(_state, "recomputing", False)
+
+
 class _Scope:
     """Sets the recording and training flags for its extent (None leaves a
     flag alone); `grad_mode` True or False also sets PyTorch's grad mode;
-    `taping` sets `is_taping()` (by default it follows `recording`)."""
+    `taping` sets `is_taping()` (by default it follows `recording`);
+    `recomputing` sets `is_recomputing()`."""
 
     def __init__(self, recording=None, training=None, grad_mode=None,
-                 taping=None):
+                 taping=None, recomputing=None):
         self._recording = recording
         self._training = training
         self._grad_mode = grad_mode
         self._taping = recording if taping is None else taping
+        self._recomputing = recomputing
 
     def __enter__(self):
+        if self._recomputing is not None:
+            self._prev_recompute = is_recomputing()
+            _state.recomputing = bool(self._recomputing)
         if self._recording is not None:
             self._prev_rec = getattr(_state, "recording", False)
             _state.recording = bool(self._recording)
@@ -117,6 +132,8 @@ class _Scope:
         return self
 
     def __exit__(self, *exc):
+        if self._recomputing is not None:
+            _state.recomputing = self._prev_recompute
         if self._recording is not None:
             _state.recording = self._prev_rec
         if self._taping is not None:

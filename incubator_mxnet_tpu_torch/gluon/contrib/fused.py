@@ -12,9 +12,9 @@ Counterpart of `incubator_mxnet_tpu/gluon/contrib/fused.py::FusedTrainStep`:
 tensor, or a tuple (loss, *extras) whose extras pass through. The step
 runs eagerly on the net's device. Weights and optimizer state are updated
 in place; there is nothing to donate (the JAX package donates its buffers
-to XLA to the same end), so the `donate` knob does not exist here, and
-`remat` other than None raises. With `steps_per_call=K` the call loops K
-steps over inputs with a leading K axis and returns the K losses; the
+to XLA to the same end), so the `donate` knob does not exist here. With
+`steps_per_call=K` the call loops K steps over inputs with a leading K
+axis and returns the K losses; the
 learning rates are resolved once per call, as in the JAX package, and a
 rule that takes the step count (the Adam family) sees each inner step's
 own count.
@@ -29,6 +29,26 @@ and inside `fusion_scope(use_fusion)`: with fusion on (the
 default; `use_fusion=False` gives the unfused step) the Gluon blocks route
 through the fused ops, whose CUDA kernels run on the card. CUDA-graph capture of the
 step comes later.
+
+`remat` is the JAX step's `jax.checkpoint` policy over the whole loss
+function: None saves what PyTorch's autograd saves; "full" runs `fn`
+under `torch.utils.checkpoint` and saves nothing of it between the
+forward and the backward (its forward runs again in the backward,
+kernels and all: each forward kernel launches twice a step); "dots"
+saves only the outputs of matrix products and convolutions (`aten.mm`,
+`addmm`, `bmm`, `baddbmm`, `convolution`, through selective activation
+checkpointing) and recomputes the rest, the fused applies and the flash
+kernels included, as `dots_saveable` (`dot_general` and
+`conv_general_dilated`) does. The function is one region, so the recompute holds
+its activations again at the start of the backward, and the peak device
+memory does not fall (the JAX package's policies trade operations for
+the saved residuals' memory traffic).
+The recompute runs in the scope of the first pass (the training, taping
+and fusion flags, which are per thread, and PyTorch may run the backward
+on another thread), draws the same dropout masks (the port's generator,
+which `preserve_rng_state` does not cover, is set back to its state at
+the first pass and restored after), and leaves BatchNorm's running
+statistics alone (`autograd.is_recomputing()`). An unknown policy raises.
 
 `FusedInferStep` is the JAX package's chained inference step:
 
@@ -45,15 +65,63 @@ the port runs it eagerly (CUDA-graph capture comes later).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from ... import autograd
 from ... import optimizer as opt_mod
+from ... import random as _random
 from ...base import MXNetError
 from ...ops import fused as _fused
 
 __all__ = ["FusedTrainStep", "FusedInferStep"]
+
+_REMAT = (None, "full", "dots")
+_aten = torch.ops.aten
+_DOTS = frozenset((_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm,
+                   _aten.convolution))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep a matrix product's or a convolution's
+    output, recompute every other op."""
+    return (_ckpt.CheckpointPolicy.MUST_SAVE
+            if getattr(op, "overloadpacket", None) in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _rematerialized(fn, policy, device):
+    """`fn(*inputs)` under `torch.utils.checkpoint` with `policy` ("full"
+    or "dots"), its recompute replaying the first pass's scope and
+    dropout generator."""
+    def run(*inputs):
+        gen = _random.generator(device)
+        start = gen.get_state()
+        scope = dict(recording=autograd.is_recording(),
+                     training=autograd.is_training(),
+                     taping=autograd.is_taping(), recomputing=True)
+        fusion = _fused.fusion_enabled()
+        passes = []
+
+        def body(*a):
+            if not passes:
+                passes.append(1)
+                return fn(*a)
+            now = gen.get_state()
+            gen.set_state(start)
+            try:
+                with autograd._Scope(**scope), _fused.fusion_scope(fusion):
+                    return fn(*a)
+            finally:
+                gen.set_state(now)
+
+        kw = {} if policy == "full" else {"context_fn": functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)}
+        return _ckpt.checkpoint(body, *inputs, use_reentrant=False, **kw)
+    return run
 
 
 def _initialized_params(net, message):
@@ -105,9 +173,9 @@ class FusedTrainStep:
 
     def __init__(self, net, fn, optimizer, clip_global_norm=None,
                  steps_per_call=1, remat=None, use_fusion=None):
-        if remat is not None:
-            raise MXNetError(f"remat={remat!r} is not supported by the port "
-                             f"yet (only None)")
+        if remat not in _REMAT:
+            raise MXNetError(f"unknown remat policy {remat!r}")
+        self._remat = remat
         self._opt = opt_mod.create(optimizer)
         self._net = net
         self._fn = fn
@@ -152,13 +220,16 @@ class FusedTrainStep:
               if type(opt)._step_takes_t() else None)
         train = [params[i] for i in self._train_idx]
         staged = [self._stage(a) for a in inputs]
+        forward = functools.partial(self._fn, self._net)
+        if self._remat is not None:
+            forward = _rematerialized(forward, self._remat, self._device)
         losses, extras_k = [], []
         with autograd._Scope(recording=False, training=True,
                              grad_mode=True, taping=True):
             for k in range(self._K):
                 in_k = [a[k] for a in staged] if self._K > 1 else staged
                 with _fused.fusion_scope(self._use_fusion):
-                    out = self._fn(self._net, *in_k)
+                    out = forward(*in_k)
                 if isinstance(out, (tuple, list)):
                     loss, extras = out[0], tuple(out[1:])
                 else:

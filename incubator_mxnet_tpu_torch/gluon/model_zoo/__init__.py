@@ -1,4 +1,4 @@
 """gluon.model_zoo of the PyTorch port."""
-from . import vision
+from . import detection, vision
 
-__all__ = ["vision"]
+__all__ = ["detection", "vision"]

@@ -27,9 +27,14 @@ counts draw at `initialize()`. BatchNorm and Dropout read the training
 flag of `autograd` (`autograd.record()`, `train_mode()`,
 `FusedTrainStep`).
 
+`Embedding(sparse_grad=True)` records, under `autograd.record()`, the
+indices of every forward on its weight (accumulated across calls until
+the Trainer's next update); the gradient stays dense, and
+`gluon.Trainer` updates only the rows those indices touched.
+
 Differences from the JAX package: `Dropout` draws from the port's
-per-device generator (`random.generator`) in training mode, `Embedding`
-has no sparse gradient, and the fused apply (a convolution's bias and
+per-device generator (`random.generator`) in training mode, and the fused
+apply (a convolution's bias and
 activation, a BatchNorm) is taken only when the channel axis is last,
 since the apply kernel takes channels last; a channels-first layer stays
 on the plain ops, where the JAX package calls its fused op and that op
@@ -51,6 +56,7 @@ from ...base import MXNetError
 from ...ops import fused as _fused
 from ...ops import nn as _ops
 from ..block import Block, HybridBlock
+from ..parameter import Parameter
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
            "BatchNormReLU", "Embedding", "Flatten", "InstanceNorm",
@@ -299,15 +305,31 @@ class RMSNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Rows of weight (input_dim, output_dim) by index, drawn by the
-    default initializer."""
+    """Rows of weight (input_dim, output_dim) by index. With
+    `sparse_grad=True` a forward under `autograd.record()` adds its
+    indices to the weight's touched set (`Parameter._last_tokens`), which
+    `gluon.Trainer` reads for its touched-rows update and clears; other
+    forwards leave the set alone."""
 
-    def __init__(self, input_dim, output_dim):
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False):
         super().__init__()
-        self._new_param("weight", (input_dim, output_dim))
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self._sparse_grad = bool(sparse_grad)
+        self._adopt("weight", Parameter(shape=(input_dim, output_dim),
+                                        dtype=dtype, init=weight_initializer,
+                                        name="weight"))
+        self._reg_params["weight"]._sparse_grad = self._sparse_grad
 
     def forward(self, x):
+        if self._sparse_grad and _autograd.is_recording():
+            p = self._reg_params["weight"]
+            p._last_tokens = (p._last_tokens or []) + [x.detach()]
         return _ops.embedding(x, self.weight)
+
+    def __repr__(self):
+        return f"Embedding({self._input_dim} -> {self._output_dim})"
 
 
 class _Conv(HybridBlock):
@@ -480,7 +502,9 @@ class BatchNorm(HybridBlock):
         return self._axis % x.ndim == x.ndim - 1
 
     def _adopt_stats(self, new_rm, new_rv):
-        if _autograd.is_training() and not self._use_global_stats:
+        # a rematerialized forward's recompute must not update them twice
+        if _autograd.is_training() and not self._use_global_stats \
+                and not _autograd.is_recomputing():
             with torch.no_grad():
                 self.running_mean.copy_(new_rm)
                 self.running_var.copy_(new_rv)

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from ...base import MXNetError
 from ...ops import attention as _attention
+from ...ops import fused as _fused
 from ...ops import nn as _ops
 from ..block import HybridBlock
 from . import Dense, Dropout, LayerNorm
@@ -56,11 +57,11 @@ class MultiHeadAttention(HybridBlock):
             b, h, t, d = q.shape
             # (b, h, t, d) -> (b*h, t, d): the reshape of the transposed
             # heads copies into the contiguous layout the kernels take, as
-            # the JAX package's reshape copies
-            o = _attention.flash_attention(q.reshape(b * h, t, d),
-                                           k.reshape(b * h, -1, d),
-                                           v.reshape(b * h, -1, d),
-                                           causal=causal)
+            # the JAX package's reshape copies; at batch 1 it is a strided
+            # view, copied here (and counted)
+            q, k, v = (_fused.contiguous_counted(a.reshape(b * h, -1, d))
+                       for a in (q, k, v))
+            o = _attention.flash_attention(q, k, v, causal=causal)
             out = o.reshape(b, h, t, d)
         else:
             out = _ops.scaled_dot_product_attention(q, k, v, mask=mask,

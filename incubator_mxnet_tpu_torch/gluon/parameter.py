@@ -68,6 +68,10 @@ class Parameter:
         self._name = name or "param"
         self._structural_name = None
         self._owners = []           # (block, attribute name) registering it
+        # a sparse-gradient Embedding's weight: the index tensors of the
+        # recorded forwards since the Trainer's last update (None: none)
+        self._sparse_grad = False
+        self._last_tokens = None
 
     # ------------------------------------------------------------------
     @property

@@ -13,7 +13,12 @@ Counterpart of `incubator_mxnet_tpu/gluon/trainer.py`::
 `step` rescales the gradients by 1 / batch_size (times the
 `rescale_grad` given), skips Parameters with grad_req "null", and refuses
 a gradient no backward refreshed since the last step unless
-`ignore_stale_grad`. One card needs no reduction: `kvstore` None, "local"
+`ignore_stale_grad`. A sparse-gradient Embedding's weight
+(`nn.Embedding(sparse_grad=True)`) gets the touched-rows update: the
+optimizer's own rule on the rows its recorded forwards touched since the
+last update, gathered with their gradient and state rows and scattered
+back; untouched rows get no weight decay and no momentum aging (MXNet's
+lazy update). One card needs no reduction: `kvstore` None, "local"
 or "device" reduces nothing; a distributed store ("dist_*") raises until
 the port has several processes (ROADMAP A10). `save_states` writes the
 JAX package's pickle layout, so either package loads the other's file.
@@ -21,6 +26,8 @@ JAX package's pickle layout, so either package loads the other's file.
 from __future__ import annotations
 
 import pickle
+
+import torch
 
 from .. import autograd
 from .. import optimizer as opt_mod
@@ -111,6 +118,9 @@ class Trainer:
             var = autograd.variable(p._data)
             if var is not None and not var.fresh:
                 if ignore_stale_grad:
+                    # a skipped weight's touched rows must not carry over
+                    # into a later update
+                    p._last_tokens = None
                     continue
                 raise MXNetError(
                     f"gradient of parameter {p.name} has not been updated by "
@@ -122,15 +132,51 @@ class Trainer:
                 self._states_created[i] = True
             items.append((i, p._data, p.grad(), self._states[i]))
         for i, w, g, s in items:
-            self._optimizer.update_multi_precision(i, w, g, s)
+            p = self._params[i]
+            if p._sparse_grad and p._last_tokens is not None:
+                self._row_sparse_update(i, p, s)
+            else:
+                self._optimizer.update_multi_precision(i, w, g, s)
         for _, w, _, _ in items:
             autograd.variable(w).fresh = False
+
+    def _row_sparse_update(self, i, p, state):
+        """The optimizer's rule on the unique touched rows of `p` (sorted,
+        found on the device): weight, gradient and every weight-shaped
+        state gathered, updated, scattered back."""
+        tokens, p._last_tokens = p._last_tokens, None
+        w, g = p._data, p.grad()
+        idx = torch.unique(torch.cat([t.reshape(-1).to(w.device, torch.int64)
+                                      for t in tokens]))
+        rows = w.shape[0]
+
+        def gather(s):
+            if isinstance(s, (tuple, list)):
+                return type(s)(gather(x) for x in s)
+            if isinstance(s, torch.Tensor) and s.dim() and s.shape[0] == rows:
+                return s[idx]
+            return s
+
+        def scatter(s, r):
+            if isinstance(s, (tuple, list)):
+                for a, b in zip(s, r):
+                    scatter(a, b)
+            elif isinstance(s, torch.Tensor) and s is not r:
+                s.index_copy_(0, idx, r)
+
+        with torch.no_grad():
+            w_rows, s_rows = w[idx], gather(state)
+            self._optimizer.update_multi_precision(i, w_rows, g[idx], s_rows)
+            w.index_copy_(0, idx, w_rows)
+            scatter(state, s_rows)
 
     def _mark_consumed(self):
         for p in self._params:
             var = autograd.variable(p._data) if p._data is not None else None
             if var is not None:
                 var.fresh = False
+            # a skipped update drops the touched rows with the gradient
+            p._last_tokens = None
 
     # ------------------------------------------------------------------
     def save_states(self, fname):

@@ -36,7 +36,8 @@ from ..base import MXNetError
 
 __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
            "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "flash_fwd_cuda",
-           "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "flash_fwd_route",
+           "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "nms_sweep_cuda",
+           "flash_fwd_route",
            "flash_bwd_route", "paged_route", "pool_route",
            "ACT_CODES", "DTYPE_CODES", "RULES", "refusal",
            "reset_launch_counts", "launch_counts", "launch_counts_by_dtype"]
@@ -45,7 +46,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 _SOURCES = ("paged_attention", "scale_shift_act", "avg_pool2d",
-            "flash_attention")
+            "flash_attention", "nms")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,6 +75,8 @@ flash_bwd_dkv_launches = 0
 # the backward launches (of the two above) that ran on the tensor cores
 flash_bwd_dq_wgmma_launches = 0
 flash_bwd_dkv_wgmma_launches = 0
+# the detection tail's greedy NMS sweep (port-only: no TPU kernel)
+nms_sweep_launches = 0
 # every launch above again, by (counter name, dtype name of the launch's
 # data: x, q, or the slab for the paged kernel's slab side)
 _BY_DTYPE = Counter()
@@ -91,7 +94,8 @@ def reset_launch_counts():
         avg_pool2d_bwd_launches, flash_fwd_launches, flash_fwd_lse_launches, \
         flash_fwd_wgmma_launches, flash_fwd_lse_wgmma_launches, \
         flash_bwd_dq_launches, flash_bwd_dkv_launches, \
-        flash_bwd_dq_wgmma_launches, flash_bwd_dkv_wgmma_launches
+        flash_bwd_dq_wgmma_launches, flash_bwd_dkv_wgmma_launches, \
+        nms_sweep_launches
     paged_attention_launches = 0
     paged_attention_int8_launches = 0
     paged_attention_split_launches = 0
@@ -108,6 +112,7 @@ def reset_launch_counts():
     flash_bwd_dkv_launches = 0
     flash_bwd_dq_wgmma_launches = 0
     flash_bwd_dkv_wgmma_launches = 0
+    nms_sweep_launches = 0
     _BY_DTYPE.clear()
 
 
@@ -136,7 +141,8 @@ def launch_counts():
             "flash_bwd_dq": flash_bwd_dq_launches,
             "flash_bwd_dkv": flash_bwd_dkv_launches,
             "flash_bwd_dq_wgmma": flash_bwd_dq_wgmma_launches,
-            "flash_bwd_dkv_wgmma": flash_bwd_dkv_wgmma_launches}
+            "flash_bwd_dkv_wgmma": flash_bwd_dkv_wgmma_launches,
+            "nms_sweep": nms_sweep_launches}
 
 
 def _nvcc():
@@ -278,6 +284,11 @@ def _load(name):
                 lib.mx_flash_bwd_dkv_wgmma.restype = ctypes.c_int
                 lib.mx_flash_bwd_dkv_wgmma.argtypes = (
                     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + tail)
+            elif name == "nms":
+                lib.mx_nms_sweep.restype = ctypes.c_int
+                lib.mx_nms_sweep.argtypes = (
+                    [ctypes.c_int] + [ctypes.c_void_p] * 3
+                    + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
             lib.mx_cuda_error_string.restype = ctypes.c_char_p
             lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
             _LIBS[name] = lib
@@ -847,3 +858,48 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
         flash_bwd_dkv_wgmma_launches += 1
         _count_dtype("flash_bwd_dkv_wgmma", q.dtype)
     return dk, dv
+
+
+def nms_sweep_cuda(boxes, ids, keep, thresh):
+    """Launch the greedy NMS sweep (`csrc/nms.cu`): the keep mask after
+    sweeping rows already in score order, as `ops.contrib.nms_sweep_ref`
+    computes it, bit for bit.
+
+    `boxes`: contiguous (B, A, 4) float32 corner boxes; `ids`: contiguous
+    (B, A) float32 class ids, or None (one class); `keep`: (B, A) bool, the
+    rows alive at the start (not modified); `thresh`: the IoU above which a
+    later row is suppressed, rounded to float32 as PyTorch's comparison
+    rounds it. Returns a new (B, A) bool mask. Raises `MXNetError` on any
+    input the kernel does not take."""
+    global nms_sweep_launches
+    name = "nms_sweep_cuda"
+    tensors = [boxes, keep] + ([ids] if ids is not None else [])
+    _check_cuda(name, tensors)
+    if boxes.dim() != 3 or boxes.shape[2] != 4 \
+            or boxes.dtype != torch.float32:
+        raise MXNetError(f"{name}: boxes must be (B, A, 4) float32; got "
+                         f"{tuple(boxes.shape)} {boxes.dtype}")
+    B, A = boxes.shape[:2]
+    if keep.shape != (B, A) or keep.dtype != torch.bool:
+        raise MXNetError(f"{name}: keep must be ({B}, {A}) bool; got "
+                         f"{tuple(keep.shape)} {keep.dtype}")
+    if ids is not None and (ids.shape != (B, A)
+                            or ids.dtype != torch.float32):
+        raise MXNetError(f"{name}: ids must be ({B}, {A}) float32; got "
+                         f"{tuple(ids.shape)} {ids.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise MXNetError(f"{name}: boxes, ids and keep must be contiguous")
+    _check_aligned(name, boxes=boxes)
+    out = keep.clone()
+    if out.numel() == 0:
+        return out
+    lib = _load("nms")
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    rc = lib.mx_nms_sweep(boxes.device.index or 0, boxes.data_ptr(),
+                          ids.data_ptr() if ids is not None else None,
+                          out.data_ptr(), B, A, float(thresh), stream)
+    if rc != 0:
+        raise _launch_failed(lib, "nms_sweep", rc)
+    nms_sweep_launches += 1
+    _count_dtype("nms_sweep", boxes.dtype)
+    return out

@@ -63,7 +63,10 @@ def test_port_modules_import_without_jax():
     names = set(r.stdout.split("MODULES")[1].split("IMPORTED")[0].split())
     pkg = "incubator_mxnet_tpu_torch"
     assert {f"{pkg}.autograd", f"{pkg}.lr_scheduler",
-            f"{pkg}.gluon.parameter", f"{pkg}.gluon.trainer"} <= names
+            f"{pkg}.gluon.parameter", f"{pkg}.gluon.trainer",
+            f"{pkg}.ops.contrib", f"{pkg}.gluon.model_zoo.detection",
+            f"{pkg}.gluon.model_zoo.vision",
+            f"{pkg}.gluon.contrib.fused"} <= names
 
 
 def test_chip_smoke_imports_without_jax():

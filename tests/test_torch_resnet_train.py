@@ -98,6 +98,42 @@ def test_fused_train_steps_match_jax(thumbnail):
                         "after 3 steps:")
 
 
+@pytest.mark.parametrize("steps_per_call", [1, 2], ids=["K1", "K2"])
+@pytest.mark.parametrize("clip", [None, 0.5], ids=["noclip", "clip0.5"])
+def test_fused_step_options_match_jax(clip, steps_per_call):
+    """FusedTrainStep's `clip_global_norm` (0.5: well under the gradients'
+    global norm, so every step clips) and `steps_per_call=2` (inputs with a
+    leading K axis, K losses a call) against the JAX package's step: Adam,
+    whose update reads each inner step's own count, two calls, fusion on
+    in both packages."""
+    jnet, tnet = resnet_pair(True, seed=6)
+    batches = [resnet_batch(True, seed=7 + k) for k in range(2 * steps_per_call)]
+    xs = np.stack([b[0] for b in batches])
+    ys = np.stack([b[1] for b in batches])
+    adam = dict(learning_rate=1e-2, rescale_grad=1.0 / len(ys[0]))
+    jL, tL = (jgluon.loss.SoftmaxCrossEntropyLoss(),
+              tgluon.loss.SoftmaxCrossEntropyLoss())
+    jstep = JStep(jnet, lambda n, a, b: jL(n(a), b).sum(),
+                  jopt.create("adam", **adam), clip_global_norm=clip,
+                  steps_per_call=steps_per_call, use_fusion=True)
+    tstep = TStep(tnet, lambda n, a, b: tL(n(a), b).sum(),
+                  topt.create("adam", **adam), clip_global_norm=clip,
+                  steps_per_call=steps_per_call, use_fusion=True)
+    calls = [(xs[k], ys[k]) for k in range(2)] if steps_per_call == 1 else \
+        [(xs[2 * k:2 * k + 2], ys[2 * k:2 * k + 2]) for k in range(2)]
+    prev = jfused.set_interpret(True)
+    try:
+        want = [np.asarray(jstep(mx.np.array(x), mx.np.array(y)).asnumpy())
+                for x, y in calls]
+    finally:
+        jfused.set_interpret(prev)
+    got = [tstep(x, y).numpy() for x, y in calls]
+    assert got[0].shape == (() if steps_per_call == 1 else (2,))
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    assert_values_close(port_values(tnet), jax_values(jnet), RTOL, ATOL,
+                        f"clip {clip}, K {steps_per_call}:")
+
+
 def test_fusion_on_matches_fusion_off():
     """The port's fused step (fused ops) against its unfused step (plain
     ops) from the same values."""
@@ -201,9 +237,9 @@ def test_entry_points_need_a_card_unless_told_cpu():
         pytest.skip("a card is present: the default device works")
     with pytest.raises(MXNetError, match="torch.cuda.is_available"):
         tvision.resnet50_v1()
-    with pytest.raises(MXNetError, match="remat"):
+    with pytest.raises(MXNetError, match="unknown remat policy"):
         _, net = resnet_pair(True)
-        TStep(net, lambda n, a, b: None, "sgd", remat="full")
+        TStep(net, lambda n, a, b: None, "sgd", remat="bogus")
 
 
 def test_params_from_jax_refuses_unknown_and_missing_names():

@@ -168,6 +168,31 @@ def test_inference_forward_records_nothing_and_takes_b5(scope, monkeypatch):
         want.backward()
 
 
+@pytest.mark.parametrize("batch", [1, 2])
+def test_flash_takes_contiguous_heads_at_any_batch(batch, monkeypatch):
+    """The kernels take no strided view: at batch 1 the (b*h, t, d)
+    reshape of the transposed heads is a view, which MultiHeadAttention
+    copies before the flash call (at batch > 1 the reshape copies); the
+    output is unchanged."""
+    seen = []
+    orig = attention._forward
+
+    def forward(q, k, v, causal, scale, with_lse):
+        seen.append(all(t.is_contiguous() for t in (q, k, v)))
+        return orig(q, k, v, causal, scale, with_lse)
+    monkeypatch.setattr(attention, "_forward", forward)
+    blk = tgluon.nn.MultiHeadAttention(32, 4, use_flash=True).initialize(
+        device="cpu")
+    x = torch.from_numpy(np.random.RandomState(3).randn(batch, 6, 32)
+                         .astype(np.float32))
+    got = blk(x)
+    assert seen == [True]
+    ref = tgluon.nn.MultiHeadAttention(32, 4).initialize(device="cpu")
+    tgluon.params_from_jax(ref, {n: p.data().detach().numpy()
+                                 for n, p in blk.collect_params().items()})
+    torch.testing.assert_close(got, ref(x), rtol=1e-5, atol=1e-6)
+
+
 def test_record_still_tapes_and_takes_b6(monkeypatch):
     """Inside record() the cell tapes, runs the flash forward with the LSE
     (B6), and its gradients are the ones `torch.autograd.grad` takes."""
