@@ -240,11 +240,45 @@ Each phase fails the run (non-zero exit) on any error:
      bit-equal to a dense Adam step's, the update's time beside a dense
      update's.
 
+ 14. the array frontend (`mx.np`, `mx.npx`, NDArray) on the card: (a)
+     bench.py's eager step as the JAX package writes it (`mx.np.array`
+     inputs, `loss_fn(net(x), y).mean()`, `L.backward()`,
+     `trainer.step(32, ignore_stale_grad=True)`, `L.wait_to_read()`,
+     `mx.waitall()`) on ResNet-50 v1 NHWC at batch 32 x 224^2, bf16 AMP,
+     the fusion default on, SGD momentum 0.9: 4 warm-up and 8 timed
+     steps, images/s and ms a step, exactly phase 11 (b)'s B1/B2/B3
+     launches a step, the NDArray dispatches a step (`engine.stats()`),
+     no host fallback; beside it the host µs an eager op takes to issue
+     (a chained `x + 1.0` through NDArray and on the bare tensor, and the
+     dispatch alone: `invoke` of a function that launches nothing); then in
+     float32 (TF32 off, deterministic algorithms) the NDArray step and the
+     tensor loop from the same weights and batches, bit-equal after 2
+     steps; (b) `npx.flash_attention` on NDArrays at (192, 512, 64) bf16
+     and float16 and causal (48, 2048, 128) bf16: B5 outside `record()`,
+     B6 + B7 + B8 under it with `attach_grad` / `backward`, every launch on
+     the tensor-core counters, bit-equal to `ops.attention.flash_attention`
+     on the same tensors and within phase 6's limits of the plain versions,
+     and float32 NDArrays under bf16 AMP reaching B5 as bf16; (c)
+     `npx.paged_attention` at phase 2's serving shapes, C = 1 (split) and
+     C = 256 (wgmma), over a bf16 slab and an int8 slab with scales,
+     bit-equal to `ops.fused.paged_attention`; (d) the npx fused ops at the
+     ResNet-50 stem's and global pool's shapes in float32, bfloat16 and
+     float16 (B1 once an op, B2 and B3 for the pool), each within phase
+     4's limits of its plain version, the pool's backward bit-equal; (e)
+     `npx.box_nms` at (32, 8732, 6): one NMS launch, bit-equal to
+     `ops.contrib.box_nms`, its keep mask bit-equal to the plain sweep's;
+     (f) every registered np / npx name on the card against the same call
+     on the CPU (per-dtype limits, TF32 off), with no host fallback.
+     Every kernel entry of the JSON line gains `npx_launches`: its
+     launches through NDArray / npx in (a)-(e), counted around those calls
+     only.
+
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
 backward sweep, one for each route of the paged kernel, one for each
 kernel's float16 instances, their launches from the path that runs them
-in float16, and the NMS sweep, port-only, its launches from (b)), and
+in float16, and the NMS sweep, port-only, its launches from (b); each
+with its phase-14 `npx_launches`), and
 `{"ok": true, "device": {...}}`. Without a
 card the script exits non-zero and prints no result. It imports nothing of
 JAX. Its run time on the card is in the root `PERF.md`.
@@ -261,6 +295,7 @@ import time
 import numpy as np
 import torch
 
+import incubator_mxnet_tpu_torch as mx
 from incubator_mxnet_tpu_torch import (amp, autograd, gluon, initializer,
                                        lr_scheduler, metric, optimizer,
                                        random, serve)
@@ -4086,6 +4121,739 @@ def bwd_wgmma_usage(ptxas_log):
     return usage
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the array frontend (NDArray, mx.np, mx.npx) on the card
+# ---------------------------------------------------------------------------
+ARRAY_WARMUP, ARRAY_STEPS = 4, 8
+ARRAY_SGD = {"learning_rate": 0.05, "momentum": 0.9}
+ARRAY_CHECK_BATCH = 8
+# the float32 check's rate: small enough that a random ResNet-50 in
+# training mode stays finite over its 2 steps
+ARRAY_CHECK_SGD = {"learning_rate": 1e-3, "momentum": 0.9}
+CHAIN_OPS = 2000
+ARRAY_FLASH = ((192, 512, 64, False, torch.bfloat16),
+               (192, 512, 64, False, torch.float16),
+               (48, 2048, 128, True, torch.bfloat16))
+ARRAY_NMS = (BATCH, SSD_ANCHORS, 6)
+# per-dtype limits of the sweep's card-against-CPU comparison: float32
+# sums and libm in another order (TF32 off), integers and bools exact
+SWEEP_TOL = {"float32": (1e-4, 1e-5), "float16": (2e-3, 1e-3),
+             "bfloat16": (1.6e-2, 1e-2)}
+# names whose card result may part further from the CPU's: LAPACK against
+# cuSOLVER / cuBLAS, a fit through lstsq
+SWEEP_LOOSE = {"np.polyfit": (1e-3, 1e-3), "np.corrcoef": (1e-4, 1e-4),
+               "np.cov": (1e-4, 1e-4)}
+
+
+class _Tally:
+    """The launches the array frontend made in phase 14, by counter and by
+    (counter, dtype): only the moves around its own calls are added, so
+    the launches that compare a kernel with its plain version do not
+    count."""
+
+    def __init__(self):
+        self.counts, self.by_dtype = {}, {}
+
+    def run(self, fn):
+        before, bd = kernels.launch_counts(), kernels.launch_counts_by_dtype()
+        out = fn()
+        torch.cuda.synchronize()
+        after, ad = kernels.launch_counts(), kernels.launch_counts_by_dtype()
+        moved = {n: after[n] - before[n] for n in after
+                 if after[n] != before[n]}
+        for n, v in moved.items():
+            self.counts[n] = self.counts.get(n, 0) + v
+        for k, v in ad.items():
+            d = v - bd.get(k, 0)
+            if d:
+                self.by_dtype[k] = self.by_dtype.get(k, 0) + d
+        return out, moved
+
+
+def array_step(net, trainer, loss_fn, x, y):
+    """bench.py's eager step (`bench_resnet50_train_eager`), as the JAX
+    package writes it: NDArray inputs, a mean loss, `L.backward()`."""
+    with mx.autograd.record():
+        L = loss_fn(net(x), y).mean()
+    L.backward()
+    trainer.step(x.shape[0], ignore_stale_grad=True)
+    return L
+
+
+DISPATCH_REPEATS = 5
+
+
+def _first(a, b):
+    return a
+
+
+def dispatch_cost(dev):
+    """Host µs an eager op takes, medians of DISPATCH_REPEATS chains of
+    CHAIN_OPS ops on a 1024-element card array: `x + 1.0` through the
+    NDArray dispatch and on the bare tensor, each timed from the first
+    issue to the last (then the stream drained: `wall`), and the dispatch
+    alone, `ops.registry.invoke` of a function that launches nothing
+    (unwrap, AMP and grad tests, wrap)."""
+    def chain(kind):
+        x = mx.np.ones((1024,), device=dev) if kind != "tensor" \
+            else torch.ones(1024, device=dev)
+        issued, walls = [], []
+        for _ in range(DISPATCH_REPEATS):
+            y = x
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "dispatch_only":
+                for _ in range(CHAIN_OPS):
+                    y = mx.ops.registry.invoke(_first, (y, 1.0), name="add")
+            else:
+                for _ in range(CHAIN_OPS):
+                    y = y + 1.0
+            issued.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        val = float(y[0]) if kind == "tensor" else y[0].item()
+        assert val == (1.0 if kind == "dispatch_only" else 1.0 + CHAIN_OPS), \
+            (kind, val)
+        return {"host_us_per_op": float(np.median(issued)) / CHAIN_OPS * 1e6,
+                "wall_us_per_op": float(np.median(walls)) / CHAIN_OPS * 1e6}
+    out = {kind: chain(kind) for kind in ("ndarray", "tensor",
+                                          "dispatch_only")}
+    out["wrapper_us_per_op"] = (out["ndarray"]["host_us_per_op"]
+                                - out["tensor"]["host_us_per_op"])
+    return out
+
+
+def array_resnet(card, dev, profile, tally, loop_per_step):
+    """(a) bench.py's eager step at full width: ResNet-50 v1 NHWC, batch
+    32 x 224^2, bf16 AMP, fusion default on, SGD momentum 0.9, inputs from
+    mx.np.array."""
+    batches = [(mx.np.array(x, device=dev), mx.np.array(y, device=dev))
+               for x, y in make_batches(2, BATCH, seed=41)]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    amp.init("bfloat16")
+    prev = fused.set_fusion_default(True)
+    try:
+        net = vision.resnet50_v1(layout="NHWC", classes=CLASSES, device=dev,
+                                 seed=0)
+        trainer = gluon.Trainer(net.collect_params(), "sgd", ARRAY_SGD)
+        step = lambda x, y: array_step(net, trainer, loss_fn, x, y)  # noqa
+        for i in range(ARRAY_WARMUP):
+            step(*batches[i % 2]).wait_to_read()
+        mx.waitall()
+        mx.engine.stats(reset=True)
+        mx.np.fallback_calls(reset=True)
+
+        def timed():
+            t0 = time.perf_counter()
+            for i in range(ARRAY_STEPS):
+                L = step(*batches[i % 2])
+            L.wait_to_read()
+            mx.waitall()
+            return time.perf_counter() - t0, L
+        (wall, L), moved = tally.run(timed)
+        stats = mx.engine.stats()
+        fallbacks = mx.np.fallback_calls()
+        step_ms = wall / ARRAY_STEPS * 1e3
+        prof = profile_steps(step, batches, step_ms, KERNEL_SYMBOLS,
+                             "array resnet") if profile else None
+    finally:
+        fused.set_fusion_default(prev)
+        amp.uninit()
+    per_step = {n: moved.get(n, 0) / ARRAY_STEPS for n in
+                ("scale_shift_act", "avg_pool2d_fwd", "avg_pool2d_bwd")}
+    ips = BATCH * ARRAY_STEPS / wall
+    loss = float(L.asnumpy())
+    disp = stats["dispatch"] / ARRAY_STEPS
+    log(f"[array resnet] {card}: {ARRAY_STEPS} eager steps (NDArray "
+        f"inputs, loss_fn(net(x), y).mean(), L.backward(), trainer.step) of "
+        f"batch {BATCH} x {IMAGE}^2, bf16 AMP, fusion default on, SGD "
+        f"{ARRAY_SGD}: {step_ms:.3f} ms/step, {ips:.1f} images/s, last "
+        f"loss {loss:.4f}; launches a step {per_step} (phase 11 (b)'s "
+        f"tensor loop: {loop_per_step}); {disp:.1f} NDArray dispatches a "
+        f"step ({stats}); host fallbacks {fallbacks}")
+    assert np.isfinite(loss), "non-finite eager-step loss"
+    assert per_step == loop_per_step, \
+        "the NDArray step's launches differ from the tensor loop's"
+    assert fallbacks == {}, f"host fallbacks on the card's path {fallbacks}"
+    del net, trainer
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "images_per_s": ips, "loss": loss,
+            "launches_per_step": per_step, "dispatch": stats,
+            "dispatches_per_step": disp, "profile": prof}
+
+
+def array_f32_check(dev):
+    """The NDArray step and the tensor loop (`autograd.backward` on
+    tensors) from the same weights and batches, float32, TF32 off,
+    deterministic algorithms: bit-equal losses, weights and running
+    statistics after 2 steps."""
+    batches = make_batches(2, ARRAY_CHECK_BATCH, seed=43)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    prev = fused.set_fusion_default(True)
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        nets, losses = [], []
+        for kind in ("ndarray", "tensor"):
+            net = vision.resnet50_v1(layout="NHWC", classes=CLASSES,
+                                     device=dev, seed=0)
+            trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                    ARRAY_CHECK_SGD)
+            ls = []
+            for x, y in batches:
+                if kind == "ndarray":
+                    L = array_step(net, trainer, loss_fn,
+                                   mx.np.array(x, device=dev),
+                                   mx.np.array(y, device=dev))
+                    ls.append(L.asnumpy())
+                else:
+                    xt = torch.from_numpy(x).to(dev)
+                    yt = torch.from_numpy(y).to(dev)
+                    with autograd.record():
+                        L = loss_fn(net(xt), yt).mean()
+                    autograd.backward(L)
+                    trainer.step(x.shape[0], ignore_stale_grad=True)
+                    ls.append(L.detach().cpu().numpy())
+            nets.append(net)
+            losses.append(ls)
+        a, b = (n.collect_params() for n in nets)
+        parted = [name for name in a
+                  if not torch.equal(a[name].data(), b[name].data())]
+    finally:
+        fused.set_fusion_default(prev)
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det[0], det[1]
+        torch.use_deterministic_algorithms(det[2])
+    same_loss = all(np.array_equal(p, q) and np.isfinite(p)
+                    for p, q in zip(*losses))
+    log(f"[array f32 check] NDArray step against the tensor loop, "
+        f"ResNet-50 batch {ARRAY_CHECK_BATCH}, 2 steps, float32: losses "
+        f"{[float(v) for v in losses[0]]} vs {[float(v) for v in losses[1]]}"
+        f" (equal: {same_loss}); values parted: {len(parted)} of {len(a)}"
+        f" {parted[:4]}")
+    assert same_loss and not parted, \
+        "the NDArray step is not bit-equal to the tensor loop"
+    del nets
+    torch.cuda.empty_cache()
+    return {"losses": [float(v) for v in losses[0]], "values": len(a),
+            "parted": parted}
+
+
+def array_flash(dev, tally):
+    """(b) npx.flash_attention on NDArrays: B5 outside record(), B6 + B7 +
+    B8 under record() and backward(), each launch on the route the kernels
+    name; bit-equal to ops.attention.flash_attention on the same tensors,
+    and within phase 6's limits of the plain versions; a float32 NDArray
+    under bf16 AMP reaches the kernel as bf16."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for bh, t, d, causal, dtype in ARRAY_FLASH:
+        q, k, v, do = (torch.randn((bh, t, d), generator=gen, device=dev)
+                       .to(dtype) for _ in range(4))
+        route = kernels.flash_fwd_route(dtype, d)
+        o5, m5 = tally.run(lambda: mx.npx.flash_attention(
+            mx.np.array(q), mx.np.array(k), mx.np.array(v), causal=causal))
+        want5 = {"flash_fwd": 1}
+        if route == "wgmma":
+            want5["flash_fwd_wgmma"] = 1
+        assert m5 == want5, f"flash forward launches {m5}, want {want5}"
+        nd = [mx.np.array(a.clone()) for a in (q, k, v)]
+        for a in nd:
+            a.attach_grad()
+
+        def recorded():
+            with mx.autograd.record():
+                o = mx.npx.flash_attention(*nd, causal=causal)
+            o.backward(out_grad=mx.np.array(do))
+            return o
+        o6, m6 = tally.run(recorded)
+        want6 = {"flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        if route == "wgmma":
+            want6.update({n + "_wgmma": 1 for n in want6})
+        assert m6 == want6, f"flash training launches {m6}, want {want6}"
+        # the same tensors through the ops wrapper: bit-equal
+        with torch.no_grad():
+            ref5 = attention.flash_attention(q, k, v, causal=causal)
+        qt, kt, vt = (a.clone().requires_grad_() for a in (q, k, v))
+        with torch.enable_grad():
+            ot = attention.flash_attention(qt, kt, vt, causal=causal)
+            gq, gk, gv = torch.autograd.grad(ot, (qt, kt, vt), do)
+        same = (torch.equal(o5._t, ref5) and torch.equal(o6._t, ot)
+                and torch.equal(nd[0].grad._t, gq)
+                and torch.equal(nd[1].grad._t, gk)
+                and torch.equal(nd[2].grad._t, gv))
+        # the plain versions, phase 6's limits
+        scale = 1.0 / np.sqrt(d)
+        o_ref, lse_ref = attention.flash_forward_lse_ref(q, k, v, causal,
+                                                         scale)
+        delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+        bwd = (q, k, v, do, lse_ref, delta, causal, scale)
+        dq_ref = attention.flash_bwd_dq_ref(*bwd)
+        dk_ref, dv_ref = attention.flash_bwd_dkv_ref(*bwd)
+        errs = {n: _flash_err(g, r, dtype) for n, g, r in (
+            ("o", o6._t, o_ref), ("dq", nd[0].grad._t, dq_ref),
+            ("dk", nd[1].grad._t, dk_ref), ("dv", nd[2].grad._t, dv_ref))}
+        ok = all(e[1] for e in errs.values())
+        row = {"bh": bh, "t": t, "d": d, "causal": causal,
+               "dtype": _dtype_name(dtype), "route": route,
+               "bit_equal_to_ops": same,
+               "max_abs_err": max(e[0] for e in errs.values()),
+               "readings": {n: e[2] for n, e in errs.items()}}
+        log(f"[array flash] {row}")
+        assert same, "npx.flash_attention differs from ops.attention"
+        assert ok, "npx.flash_attention outside phase 6's limits"
+        rows.append(row)
+    # AMP at dispatch: a float32 array reaches the kernel as bf16
+    q32 = torch.randn((192, 512, 64), generator=gen, device=dev)
+    amp.init("bfloat16")
+    try:
+        before = kernels.launch_counts_by_dtype()
+        o, moved = tally.run(lambda: mx.npx.flash_attention(
+            mx.np.array(q32), mx.np.array(q32), mx.np.array(q32)))
+        after = kernels.launch_counts_by_dtype()
+    finally:
+        amp.uninit()
+    bf16 = after.get(("flash_fwd", "bfloat16"), 0) - before.get(
+        ("flash_fwd", "bfloat16"), 0)
+    log(f"[array flash] float32 NDArrays under bf16 AMP: out {o.dtype}, "
+        f"launches {moved}, bf16 B5 launches {bf16}")
+    assert o.dtype == "bfloat16" and bf16 == 1, \
+        "a float32 NDArray did not reach flash as bf16 under AMP"
+    return rows
+
+
+def array_paged(dev, tally):
+    """(c) npx.paged_attention at phase 2's serving shapes, C = 1 (split)
+    and C = 256 (wgmma), over a bf16 slab and an int8 slab with scales:
+    one launch on the predicted route each, bit-equal to
+    ops.fused.paged_attention on the same tensors."""
+    from incubator_mxnet_tpu_torch.serve.continuous import _quantize_kv
+    S, H, D, T, L = SLOTS, FULL["heads"], FULL["head_dim"], \
+        FULL["max_len"], FULL["layers"]
+    gen = torch.Generator(device=dev).manual_seed(15)
+    k32 = torch.randn((S + 1, L, T, H, D), generator=gen, device=dev)
+    v32 = torch.randn((S + 1, L, T, H, D), generator=gen, device=dev)
+    rng = np.random.RandomState(0)
+    lens = torch.as_tensor(np.concatenate(
+        [[0, 1, 255, 1000, 2047 - WINDOW], rng.randint(0, T - WINDOW, S - 5)]
+    ).astype(np.int32), device=dev)
+    kc, ks = _quantize_kv(k32)
+    vc, vs = _quantize_kv(v32)
+    slabs = {"bfloat16": (k32.to(torch.bfloat16), v32.to(torch.bfloat16), {}),
+             "int8": (kc, vc, {"k_scale": ks, "v_scale": vs})}
+    del k32, v32
+    rows = []
+    layer = 5
+    for kind, (k, v, sc) in slabs.items():
+        for C in (1, WINDOW):
+            q = torch.randn((S, C, H, D), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            route = kernels.paged_route(q.dtype, k.dtype, D, C)
+            out, moved = tally.run(lambda: mx.npx.paged_attention(
+                mx.np.array(q), mx.np.array(k), mx.np.array(v),
+                mx.np.array(lens), layer,
+                **{n: mx.np.array(s) for n, s in sc.items()}))
+            counter = "paged_attention_int8" if sc else "paged_attention"
+            want = {counter: 1, f"paged_attention_{route}": 1}
+            ref = fused.paged_attention(q, k, v, lens, layer,
+                                        sc.get("k_scale"), sc.get("v_scale"))
+            same = torch.equal(out._t, ref)
+            row = {"slab": kind, "C": C, "route": route, "launches": moved,
+                   "bit_equal_to_ops": same}
+            log(f"[array paged] {row}")
+            assert moved == want, f"paged launches {moved}, want {want}"
+            assert route == ("split" if C == 1 else "wgmma"), route
+            assert same, "npx.paged_attention differs from ops.fused"
+            rows.append(row)
+    del slabs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def array_fused(dev, tally):
+    """(d) the npx fused ops at the ResNet-50 stem's (32 x 112^2, 64) and
+    the global pool's (32, 7, 7, 2048) shapes, float32, bfloat16 and
+    float16: one B1 launch an apply op, B2 and B3 for the pool's forward
+    and backward; each within its plain version's limits of phase 4 (the
+    pool's backward bit-equal)."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    n, hw, c = BATCH, IMAGE // 2, 64
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = torch.randn((n, hw, hw, c), generator=gen, device=dev).to(dtype)
+        r = torch.randn((n, hw, hw, c), generator=gen, device=dev).to(dtype)
+        g = 1.0 + 0.2 * torch.randn((c,), generator=gen, device=dev)
+        b = 0.2 * torch.randn((c,), generator=gen, device=dev)
+        rm = 0.1 * torch.randn((c,), generator=gen, device=dev)
+        rv = 1.0 + 0.2 * torch.rand((c,), generator=gen, device=dev)
+        X, R_, G, B, RM, RV = (mx.np.array(t) for t in (x, r, g, b, rm, rv))
+        # fused_batch_norm's plain version: its batch moments, folded,
+        # then the plain apply
+        xf = x.float()
+        mean = xf.mean(dim=(0, 1, 2))
+        var = (xf * xf).mean(dim=(0, 1, 2)) - mean * mean
+        scale, shift = fused._fold_bn(g, b, mean, var, 1e-5)
+        del xf
+        cases = {
+            "fused_bias_act": (lambda: mx.npx.fused_bias_act(
+                X, B, act_type="relu"), fused.bias_act_ref(x, b, "relu")),
+            "fused_norm_act_residual": (
+                lambda: mx.npx.fused_norm_act_residual(X, G, B, R_,
+                                                       act_type="relu"),
+                fused.norm_act_residual_ref(x, g, b, r, "relu")),
+            "fused_bn_inference": (
+                lambda: mx.npx.fused_bn_inference(X, G, B, RM, RV,
+                                                  act_type="relu"),
+                fused.bn_inference_ref(x, g, b, rm, rv, act_type="relu")),
+            "fused_batch_norm": (
+                lambda: mx.npx.fused_batch_norm(
+                    X, G, B, mx.np.array(rm.clone()), mx.np.array(rv.clone()),
+                    axis=-1, training=True, act_type="relu"),
+                fused.apply_ref(x, scale, shift, None, "relu", -1)),
+        }
+        for name, (call, ref) in cases.items():
+            out, moved = tally.run(call)
+            err, ok = _err_ok(out._t, ref, dtype)
+            rows.append({"op": name, "dtype": _dtype_name(dtype),
+                         "launches": moved, "max_abs_err": err})
+            log(f"[array fused] {name} {_dtype_name(dtype)} "
+                f"{tuple(x.shape)}: launches {moved}, max_abs_err "
+                f"{err:.3e}")
+            assert moved == {"scale_shift_act": 1}, (name, moved)
+            assert ok, f"npx.{name} outside its plain version's limits"
+        del x, r, X, R_
+        # the global pool, forward (B2) and backward (B3)
+        p = torch.randn(POOL_GLOBAL[0], generator=gen, device=dev).to(dtype)
+        dy = torch.randn((BATCH, 1, 1, 2048), generator=gen,
+                         device=dev).to(dtype)
+        P = mx.np.array(p.clone())
+        P.attach_grad()
+
+        def pooled():
+            with mx.autograd.record():
+                y = mx.npx.fused_avg_pool2d(P, POOL_GLOBAL[1])
+            y.backward(out_grad=mx.np.array(dy))
+            return y
+        y, moved = tally.run(pooled)
+        ref = fused.avg_pool2d_ref(p, POOL_GLOBAL[1])
+        err, ok, read = pool_fwd_err(y._t, ref, dtype)
+        gref = fused.avg_pool2d_bwd_ref(dy, 7, 7, 7, 7)
+        same = torch.equal(P.grad._t, gref)
+        rows.append({"op": "fused_avg_pool2d", "dtype": _dtype_name(dtype),
+                     "launches": moved, "max_abs_err": err, **read,
+                     "backward_bit_equal": same})
+        log(f"[array fused] fused_avg_pool2d {_dtype_name(dtype)} "
+            f"{POOL_GLOBAL}: launches {moved}, max_abs_err {err:.3e} {read},"
+            f" backward bit-equal {same}")
+        assert moved == {"avg_pool2d_fwd": 1, "avg_pool2d_bwd": 1}, moved
+        assert ok and same, "npx.fused_avg_pool2d off its plain version"
+    torch.cuda.empty_cache()
+    return rows
+
+
+def array_nms(dev, tally):
+    """(e) npx.box_nms at (32, 8732, 6): the NMS kernel once, bit-equal to
+    ops.contrib.box_nms on the same tensor, its keep mask bit-equal to the
+    plain sweep's on the same sorted rows."""
+    rng = np.random.RandomState(17)
+    B, A, K = ARRAY_NMS
+    xy = rng.rand(B, A, 2) * 0.8
+    wh = 0.02 + rng.rand(B, A, 2) * 0.2
+    data = np.concatenate([rng.randint(0, 20, (B, A, 1)), rng.rand(B, A, 1),
+                           xy, xy + wh], -1).astype(np.float32)
+    t = torch.from_numpy(data).to(dev)
+    kw = dict(overlap_thresh=0.45, valid_thresh=0.5, topk=400)
+    seen = []
+    orig = contrib.nms_sweep
+
+    def capture(boxes, ids, keep, thresh):
+        seen.append((boxes.clone(), None if ids is None else ids.clone(),
+                     keep.clone(), thresh))
+        out = orig(boxes, ids, keep, thresh)
+        seen.append(out.clone())
+        return out
+    contrib.nms_sweep = capture
+    try:
+        out, moved = tally.run(lambda: mx.npx.box_nms(mx.np.array(t), **kw))
+    finally:
+        contrib.nms_sweep = orig
+    ref = contrib.box_nms(t, **kw)
+    same = torch.equal(out._t, ref)
+    (boxes, ids, keep, thresh), kept = seen
+    plain = contrib.nms_sweep_ref(boxes, ids, keep, thresh)
+    same_keep = torch.equal(plain, kept)
+    row = {"shape": list(ARRAY_NMS), "launches": moved,
+           "bit_equal_to_ops": same, "keep_equal_to_plain": same_keep,
+           "alive": int(keep.sum()), "kept": int(kept.sum())}
+    log(f"[array nms] {row}")
+    assert moved == {"nms_sweep": 1}, moved
+    assert same and same_keep, "npx.box_nms off the kernel or the plain sweep"
+    return row
+
+
+def sweep_cases():
+    """(args, kwargs) of the sweep for the names a generic signature does
+    not fit (numpy values: each run makes its own arrays)."""
+    r = np.random.RandomState(18)
+    A = r.randn(3, 4).astype(np.float32)
+    B = r.randn(3, 4).astype(np.float32)
+    A3 = r.randn(2, 3, 4).astype(np.float32)
+    M = r.randn(4, 5).astype(np.float32)
+    V = r.randn(6).astype(np.float32)
+    W3 = r.randn(3).astype(np.float32)
+    X4 = r.randn(2, 3, 4, 5).astype(np.float32)
+    NHWC = r.randn(2, 4, 4, 8).astype(np.float32)
+    g3, b3 = (1 + 0.2 * r.randn(3)).astype(np.float32), \
+        (0.1 * r.randn(3)).astype(np.float32)
+    g4, b4 = (1 + 0.2 * r.randn(4)).astype(np.float32), \
+        (0.1 * r.randn(4)).astype(np.float32)
+    g8, b8 = (1 + 0.2 * r.randn(8)).astype(np.float32), \
+        (0.1 * r.randn(8)).astype(np.float32)
+    rv8 = (1 + 0.2 * r.rand(8)).astype(np.float32)
+    xy = r.rand(2, 12, 2) * 0.6
+    boxes = np.concatenate([r.randint(0, 3, (2, 12, 1)), r.rand(2, 12, 1),
+                            xy, xy + 0.1 + 0.3 * r.rand(2, 12, 2)],
+                           -1).astype(np.float32)
+    feat = r.randn(1, 4, 3, 3).astype(np.float32)
+    anchors = np.asarray(contrib.multibox_prior(
+        torch.from_numpy(feat), sizes=(0.3, 0.5), ratios=(1.0, 2.0)))
+    na = anchors.shape[1]
+    label = np.full((2, 3, 5), -1.0, np.float32)
+    label[0, :2] = [[0, 0.1, 0.1, 0.4, 0.5], [2, 0.5, 0.4, 0.9, 0.8]]
+    label[1, :1] = [[1, 0.2, 0.3, 0.6, 0.7]]
+    logits = r.randn(2, 4, na).astype(np.float32)
+    prob = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+            ).astype(np.float32)
+    slab = r.randn(4, 2, 12, 2, 8).astype(np.float32)
+    i32 = lambda *v: np.array(v, np.int32)                      # noqa: E731
+    return {
+        "np.bartlett": ((5,), {}), "np.blackman": ((5,), {}),
+        "np.hamming": ((5,), {}), "np.hanning": ((5,), {}),
+        "np.kaiser": ((5, 2.0), {}),
+        "np.broadcast_to": ((W3[:, None], (3, 4)), {}),
+        "np.can_cast": (("int32", "float32"), {}),
+        "np.choose": ((i32(0, 1, 1, 0), [A, B]), {}),
+        "np.cross": ((A[:, :3].copy(), B[:, :3].copy()), {}),
+        "np.digitize": ((V, np.sort(V)[1:4].copy()), {}),
+        "np.dsplit": ((A3, 2), {}), "np.einsum": (("ij,jk->ik", A, M), {}),
+        "np.eye": ((3,), {"k": 1}), "np.identity": ((3,), {}),
+        "np.geomspace": ((1.0, 1000.0, 4), {}),
+        "np.linspace": ((0.0, 1.0, 7), {}),
+        "np.logspace": ((0.0, 2.0, 4), {}), "np.indices": (((2, 3),), {}),
+        "np.interp": ((V, np.sort(V), W3.repeat(2)), {}),
+        "np.matmul": ((A, M), {}), "np.meshgrid": ((W3, V), {}),
+        "np.moveaxis": ((A3, 0, -1), {}), "np.swapaxes": ((A3, 0, 2), {}),
+        "np.nanquantile": ((A, 0.7), {"axis": 0}),
+        "np.quantile": ((A, 0.3), {}), "np.polyder": ((V,), {}),
+        "np.polyint": ((W3,), {}), "np.polyval": ((W3, V), {}),
+        "np.polyfit": ((V, V * V - 2 * V, 2), {}),
+        "np.promote_types": (("int32", "float16"), {}),
+        "np.put_along_axis": ((A, i32(0, 2, 1)[:, None], 9.0, 1), {}),
+        "np.ravel_multi_index": (((i32(0, 2), i32(1, 3)), (3, 4)), {}),
+        "np.reshape": ((A, (4, 3)), {}), "np.split": ((A, 2), {"axis": 1}),
+        "np.vsplit": ((M, 2), {}),
+        "np.take_along_axis": ((A, np.argsort(A, 1).astype(np.int32)),
+                               {"axis": 1}),
+        "np.tri": ((3,), {}), "np.tril_indices": ((4,), {}),
+        "np.triu_indices": ((4, 1), {}),
+        "np.unravel_index": ((i32(1, 5, 11), (3, 4)), {}),
+        "np.vander": ((W3,), {}),
+        "npx.activation": ((A,), {"act_type": "softrelu"}),
+        "npx.batch_norm": ((X4, g3, b3, 0.1 * b3, 1 + g3 * g3),
+                           {"training": True}),
+        "npx.box_nms": ((boxes,), {"overlap_thresh": 0.3}),
+        "npx.convolution": ((X4, (r.randn(4, 3, 3, 3) / 3).astype(
+            np.float32), b4), {"pad": 1}),
+        "npx.deconvolution": ((X4, (r.randn(3, 2, 3, 3) / 3).astype(
+            np.float32)), {"stride": 2}),
+        "npx.flash_attention": ((A3, A3 * 0.5, A3[::-1].copy()),
+                                {"causal": True}),
+        "npx.fused_avg_pool2d": ((NHWC,), {"pool_size": 2}),
+        "npx.fused_batch_norm": ((NHWC, g8, b8, 0.1 * b8, rv8),
+                                 {"axis": -1, "training": True}),
+        "npx.fused_bias_act": ((NHWC, b8), {}),
+        "npx.fused_bn_inference": ((NHWC, g8, b8, 0.1 * b8, rv8),
+                                   {"act_type": "relu"}),
+        "npx.fused_norm_act_residual": ((NHWC, g8, b8, NHWC[::-1].copy()),
+                                        {}),
+        "npx.group_norm": ((X4, g3, b3), {"num_groups": 1}),
+        "npx.instance_norm": ((X4, g3, b3), {}),
+        "npx.layer_norm": ((A, g4, b4), {}),
+        "npx.masked_softmax": ((A, A > 0), {}),
+        "npx.multibox_detection": ((prob, (0.1 * r.randn(2, na * 4)).astype(
+            np.float32), anchors), {}),
+        "npx.multibox_prior": ((feat,), {"sizes": (0.3, 0.5),
+                                         "ratios": (1.0, 2.0)}),
+        "npx.multibox_target": ((anchors, label, logits), {}),
+        "npx.paged_attention": ((r.randn(3, 2, 2, 8).astype(np.float32),
+                                 slab, slab[::-1].copy(), i32(0, 4, 9), 1),
+                                {}),
+        "npx.pick": ((A, i32(0, 3, 1)), {}),
+        "npx.embedding": ((i32(0, 2, 5), r.randn(7, 4).astype(np.float32)),
+                          {}),
+        "npx.pooling": ((X4,), {"kernel": 2, "stride": 2}),
+        "npx.scaled_dot_product_attention": ((X4, X4 * 0.5, X4[::-1].copy()),
+                                             {}),
+    }
+
+
+def _sweep_generic():
+    r = np.random.RandomState(19)
+    A = r.randn(3, 4).astype(np.float32)
+    B = r.randn(3, 4).astype(np.float32)
+    return [((A,), {}), ((A, B), {}), ((np.abs(A) + 0.5,), {}),
+            ((r.randint(1, 9, (3, 4)).astype(np.int32),
+              r.randint(1, 4, (3, 4)).astype(np.int32)), {}),
+            ((A > 0,), {}), ((A, 2), {})]
+
+
+def _sweep_fn(name):
+    ns, _, short = name.partition(".")
+    return getattr(mx.np if ns == "np" else mx.npx, short)
+
+
+def _sweep_args(obj, device):
+    if isinstance(obj, np.ndarray):
+        return mx.np.array(obj, device=device)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_sweep_args(v, device) for v in obj)
+    return obj
+
+
+def _sweep_compare(got, want, tol, where, card):
+    """(ok, worst error) of the card's result (on `card`) against the
+    CPU's."""
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return False, where
+        res = [_sweep_compare(g, w, tol, where, card)
+               for g, w in zip(got, want)]
+        return all(r[0] for r in res), max((r[1] for r in res
+                                            if not isinstance(r[1], str)),
+                                           default=0.0)
+    if isinstance(want, mx.NDArray):
+        if not isinstance(got, mx.NDArray) or got.shape != want.shape \
+                or str(got.dtype) != str(want.dtype) \
+                or got.device != card:
+            return False, where
+        g, w = got.asnumpy(), want.asnumpy()
+        if w.dtype.kind in "fc":
+            rtol, atol = tol.get(str(want.dtype), (1e-4, 1e-5))
+            err = float(np.nanmax(np.abs(g - w), initial=0.0))
+            ok = bool(np.allclose(g, w, rtol=rtol, atol=atol,
+                                  equal_nan=True))
+            return ok, err
+        return bool(np.array_equal(g, w)), 0.0
+    return got == want, 0.0
+
+
+def array_sweep(dev):
+    """(f) every registered np / npx name on the card against the same call
+    on the CPU, with per-dtype limits (SWEEP_TOL); the host fallbacks the
+    table's names made must be none."""
+    special = sweep_cases()
+    generic = _sweep_generic()
+    card = mx.context.Device("gpu", dev.index or 0) if dev.type == "cuda" \
+        else mx.cpu()
+    names = [n for n in mx.ops.registry.list_ops()
+             if n.split(".")[0] in ("np", "npx")]
+    mx.np.fallback_calls(reset=True)
+    swept, failed, unswept = [], [], []
+    worst = {}
+    for name in names:
+        fn = _sweep_fn(name)
+        tries = [special[name]] if name in special else generic
+        want = None
+        for args, kw in tries:
+            try:
+                with mx.cpu():
+                    want = fn(*_sweep_args(args, "cpu"), **kw)
+                case = (args, kw)
+                break
+            except Exception:       # another generic signature fits
+                continue
+        if want is None:
+            unswept.append(name)
+            continue
+        args, kw = case
+        with card:
+            got = fn(*_sweep_args(args, dev), **kw)
+        torch.cuda.synchronize()
+        tol = dict(SWEEP_TOL)
+        if name in SWEEP_LOOSE:
+            tol["float32"] = SWEEP_LOOSE[name]
+        ok, err = _sweep_compare(got, want, tol, name, card)
+        worst[name] = err
+        (swept if ok else failed).append(name)
+    fallbacks = mx.np.fallback_calls()
+    log(f"[array sweep] {len(swept)} of {len(names)} registered np/npx "
+        f"names on the card equal to the CPU within {SWEEP_TOL}; failed "
+        f"{failed}; no case {unswept}; host fallbacks {fallbacks} (the "
+        f"host-numpy names {mx.np.fallback_names()} are not registered)")
+    assert not failed and not unswept, (failed, unswept)
+    assert fallbacks == {}, f"host fallbacks in the sweep {fallbacks}"
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:8]
+    return {"names": len(names), "swept": len(swept), "worst": top,
+            "fallbacks": fallbacks}
+
+
+def phase_array(card, dev, profile, loop_per_step):
+    """Phase 14: the array frontend on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    tally = _Tally()
+    cost = dispatch_cost(dev)
+    log(f"[array dispatch] {card}: chained x + 1.0 on a 1024-element "
+        f"array, {CHAIN_OPS} ops: NDArray "
+        f"{cost['ndarray']['host_us_per_op']:.2f} µs host / "
+        f"{cost['ndarray']['wall_us_per_op']:.2f} µs wall an op, tensor "
+        f"{cost['tensor']['host_us_per_op']:.2f} / "
+        f"{cost['tensor']['wall_us_per_op']:.2f}; the wrapper "
+        f"{cost['wrapper_us_per_op']:.2f} µs an op; the dispatch alone "
+        f"(invoke of a function that launches nothing) "
+        f"{cost['dispatch_only']['host_us_per_op']:.2f} µs")
+    resnet = array_resnet(card, dev, profile, tally, loop_per_step)
+    resnet["dispatch_host_ms_per_step"] = (
+        resnet["dispatches_per_step"] * cost["ndarray"]["host_us_per_op"]
+        / 1e3)
+    log(f"[array resnet] {resnet['dispatches_per_step']:.1f} NDArray "
+        f"dispatches a step at {cost['ndarray']['host_us_per_op']:.2f} µs: "
+        f"{resnet['dispatch_host_ms_per_step']:.4f} host ms of a "
+        f"{resnet['step_ms']:.3f} ms step")
+    f32 = array_f32_check(dev)
+    flash_rows = array_flash(dev, tally)
+    paged_rows = array_paged(dev, tally)
+    fused_rows = array_fused(dev, tally)
+    nms = array_nms(dev, tally)
+    sweep = array_sweep(dev)
+    took = time.perf_counter() - t0
+    log(f"[array] phase 14 took {took:.1f} s; npx launches "
+        f"{tally.counts}")
+    return {"dispatch_cost": cost, "resnet": resnet, "f32_check": f32,
+            "flash": flash_rows, "paged": paged_rows, "fused": fused_rows,
+            "nms": nms, "sweep": sweep, "npx_launches": tally.counts,
+            "npx_launches_by_dtype": {f"{k[0]}:{k[1]}": v for k, v in
+                                      tally.by_dtype.items()},
+            "seconds": took}
+
+
+def npx_launches(entry, array):
+    """An entry's launches through NDArray / npx in phase 14: its counter's,
+    a float16 instance's by its dtype."""
+    name = entry["name"]
+    if name.endswith("_float16"):
+        base = name[:-len("_float16")]
+        key = "paged_attention_q" if base == "paged_attention" else base
+        return sum(v for k, v in array["npx_launches_by_dtype"].items()
+                   if k == f"{key}:float16")
+    return array["npx_launches"].get(name, 0)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every result to this JSON "
@@ -4129,6 +4897,9 @@ def main():
     loop = phase_loop(card, dev, args.profile)
     script = phase_script(card, dev, args.profile)
     detect = phase_detection(card, dev, args.profile)
+    array = phase_array(card, dev, args.profile, {
+        n: loop["resnet"]["launches"][n] / LOOP_STEPS
+        for n in ("scale_shift_act", "avg_pool2d_fwd", "avg_pool2d_bwd")})
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -4203,6 +4974,11 @@ def main():
             p: r["launches_per_step"].get(e["name"], 0)
             for p, r in detect["remat"]["bert"].items()}
     entries.append(nms_entry(ssd))
+    # phase 14's launches through NDArray / npx, counted around its own
+    # calls only (the comparisons with plain versions and the sweep's card
+    # calls do not count)
+    for e in [entry] + entries:
+        e["npx_launches"] = npx_launches(e, array)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -4214,7 +4990,7 @@ def main():
                        "serve": result, "train": train, "bert": bert,
                        "engine": engine, "coverage": coverage,
                        "loop": loop, "script": script,
-                       "detection": detect}, f,
+                       "detection": detect, "array": array}, f,
                       indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [

@@ -34,13 +34,37 @@ Ported so far:
     `MSRAPrelu`, `Orthogonal`, `Mixed`, ...), every loss, `metric` (also
     `gluon.metric`), `gluon.utils`, `Block` with forward hooks and
     `summary`, the rest of `gluon.nn`, ResNet v2 and MobileNet v1/v2 with
-    `get_model`, and `gluon.contrib.FusedInferStep`.
+    `get_model`, and `gluon.contrib.FusedInferStep`;
+  * SSD300 detection (`ops.contrib`, the NMS sweep kernel), the rest of the
+    vision zoo, `FusedTrainStep(remat=...)` and sparse `Embedding`;
+  * the array frontend, MXNet 2.0's primary API: `NDArray` (a wrapper
+    over one `torch.Tensor`), `np` (`mx.np`, with `np.linalg` and
+    `np.random`), `npx` (`mx.npx`: the NN ops, the kernel ops over the
+    CUDA kernels, control flow), `nd` (the legacy namespace), `cpu()`,
+    `gpu()`, `tpu()` and `Device` / `Context` (`context`), `engine`,
+    `waitall()` and `seed()`, every op dispatched through
+    `ops.registry.invoke` with AMP by op name.
+
+Typical use:  import incubator_mxnet_tpu_torch as mx
 """
 from .base import MXNetError, get_env
-from .device import default_device, resolve_device
+from .device import (Device, Context, cpu, gpu, tpu, num_gpus,
+                     current_device, current_context, device_memory_info,
+                     gpu_memory_info, default_device, resolve_device)
 from . import (amp, autograd, initializer, lr_scheduler, ops, optimizer,
                random, gluon, metric, serve)
+from .ndarray import NDArray, waitall
+from . import ndarray
+from . import ndarray as nd
+from . import numpy as np
+from . import numpy_extension as npx
+from . import context, engine
+from .random import seed
 
 __all__ = ["MXNetError", "get_env", "default_device", "resolve_device",
+           "Device", "Context", "cpu", "gpu", "tpu", "num_gpus",
+           "current_device", "current_context", "device_memory_info",
+           "gpu_memory_info", "NDArray", "waitall", "seed", "ndarray", "nd",
+           "np", "npx", "context", "engine",
            "amp", "autograd", "initializer", "lr_scheduler", "metric", "ops",
            "optimizer", "random", "gluon", "serve"]

@@ -32,15 +32,16 @@ this module adds MXNet's semantics on top of it:
     `loss.backward()` does on a per-sample loss (PyTorch's
     `Tensor.backward()` refuses a non-scalar).
 
-Arrays are `torch.Tensor`s until the port has its own NDArray (ROADMAP
-A5), so `x.requires_grad_()` or `mark_variables([x])` stands in for
-`x.attach_grad()`, and `autograd.backward(loss)` for `loss.backward()` on
-a per-sample loss.
+`backward`, `grad` and `mark_variables` take NDArrays (`mx.np`) as well
+as tensors: `x.attach_grad()` marks an NDArray through `attach`, and
+`loss.backward()` on a per-sample NDArray loss seeds ones. NDArray ops
+outside `record()` record nothing, so an NDArray head computed there
+raises, as in the JAX package.
 
-Deliberate differences: PyTorch tapes every op on a tensor that requires a
-gradient unless taping is paused, so a head computed outside `record()`
-from such tensors is differentiable here (the JAX package raises); a head
-connected to no graph at all raises as in the JAX package.
+Deliberate difference: PyTorch tapes every op on a raw tensor that requires
+a gradient unless taping is paused, so a raw-tensor head computed outside
+`record()` from such tensors is differentiable here (the JAX package
+raises); a head connected to no graph at all raises as in the JAX package.
 """
 from __future__ import annotations
 
@@ -274,31 +275,37 @@ def variable(tensor):
     return getattr(tensor, "_mx_var", None)
 
 
+def _tensor_of(x):
+    """The tensor of an NDArray (a tensor or None as it is)."""
+    return getattr(x, "_t", x) if x is not None else None
+
+
 def mark_variables(variables, gradients=None, grad_reqs="write"):
-    """Attach gradient buffers to tensors, so that a backward writes (or
-    adds, per `grad_reqs`) their gradients into them."""
-    if isinstance(variables, torch.Tensor):
+    """Attach gradient buffers to tensors or NDArrays, so that a backward
+    writes (or adds, per `grad_reqs`) their gradients into them."""
+    if isinstance(variables, torch.Tensor) or hasattr(variables, "_t"):
         variables, gradients = [variables], [gradients]
     if gradients is None:
         gradients = [None] * len(variables)
     if isinstance(grad_reqs, str):
         grad_reqs = [grad_reqs] * len(variables)
     for t, g, req in zip(variables, gradients, grad_reqs):
-        attach(t, req, g)
+        attach(_tensor_of(t), req, _tensor_of(g))
 
 
 # ---------------------------------------------------------------------------
 # backward / grad
 # ---------------------------------------------------------------------------
 def _heads(heads, head_grads):
-    if isinstance(heads, torch.Tensor):
+    if isinstance(heads, torch.Tensor) or hasattr(heads, "_t"):
         heads = [heads]
         if head_grads is not None and not isinstance(head_grads,
                                                      (list, tuple)):
             head_grads = [head_grads]
-    heads = list(heads)
+    heads = [_tensor_of(h) for h in heads]
     if head_grads is None:
         head_grads = [None] * len(heads)
+    head_grads = [_tensor_of(g) for g in head_grads]
     seeds = []
     for h, hg in zip(heads, head_grads):
         if not h.requires_grad:
@@ -311,9 +318,9 @@ def _heads(heads, head_grads):
 
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
-    """Backpropagate from `heads` (one tensor or a list) into the variables'
-    `.grad`, per their `grad_req`. A head without `head_grads` is seeded
-    with ones, whatever its shape."""
+    """Backpropagate from `heads` (one tensor or NDArray, or a list) into
+    the variables' `.grad`, per their `grad_req`. A head without
+    `head_grads` is seeded with ones, whatever its shape."""
     heads, seeds = _heads(heads, head_grads)
     with _Scope(training=train_mode):
         torch.autograd.backward(heads, seeds, retain_graph=retain_graph)
@@ -327,8 +334,10 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     computation for a higher-order backward."""
     if retain_graph is None:
         retain_graph = create_graph
-    single = isinstance(variables, torch.Tensor)
+    single = isinstance(variables, torch.Tensor) or hasattr(variables, "_t")
     variables = [variables] if single else list(variables)
+    as_nd = hasattr(variables[0], "_t")
+    variables = [_tensor_of(v) for v in variables]
     for v in variables:
         if not v.requires_grad:
             raise MXNetError("grad target must be a marked variable "
@@ -341,6 +350,9 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                                   allow_unused=True)
     out = [torch.zeros_like(v) if g is None else g
            for g, v in zip(out, variables)]
+    if as_nd:
+        from .ndarray import _wrap
+        out = [_wrap(g) for g in out]
     return out[0] if single else out
 
 

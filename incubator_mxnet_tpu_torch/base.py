@@ -2,8 +2,16 @@
 lookup, the dtype names and atomic file writes.
 
 Counterpart of `incubator_mxnet_tpu/base.py`. The port keeps its own copy
-of what it needs from there (`MXNetError`, `get_env`), so that it never
-imports the JAX package.
+of what it needs from there (`MXNetError`, `get_env`, the dtype table), so
+that it never imports the JAX package.
+
+The dtype table (`name_to_dtype`, `to_torch_dtype`, `from_torch_dtype`)
+follows the JAX package with JAX's 64-bit types off, as it runs: an array
+made from a float64 source is float32, from an int64 source int32, and no
+op returns a 64-bit type. `bfloat16` has no numpy dtype without
+`ml_dtypes`, which the port does not import: its dtype is `BFLOAT16`, a
+string equal to "bfloat16" (the JAX package's `mx.np.bfloat16`) with a
+dtype's `name` and `itemsize`.
 """
 from __future__ import annotations
 
@@ -11,9 +19,14 @@ import os
 import tempfile
 from contextlib import contextmanager
 
+import numpy as _np
 import torch
 
-__all__ = ["MXNetError", "get_env", "torch_dtype", "atomic_output"]
+__all__ = ["MXNetError", "get_env", "torch_dtype", "atomic_output",
+           "BFLOAT16", "name_to_dtype", "to_torch_dtype",
+           "from_torch_dtype", "numeric_types"]
+
+numeric_types = (float, int, _np.generic)
 
 
 class MXNetError(RuntimeError):
@@ -65,3 +78,73 @@ def torch_dtype(name):
     except KeyError:
         raise MXNetError(
             f"dtype {name!r} is not one of {sorted(_DTYPES)}") from None
+
+
+# ---------------------------------------------------------------------------
+# the dtype table (the JAX package's `name_to_dtype`, with JAX's 32-bit
+# defaults)
+# ---------------------------------------------------------------------------
+class _BFloat16(str):
+    """The dtype of a bfloat16 array: equal to "bfloat16" (and to
+    `mx.np.bfloat16`), with a numpy dtype's `name` and `itemsize`."""
+
+    name = "bfloat16"
+    itemsize = 2
+
+    def __repr__(self):
+        return "dtype(bfloat16)"
+
+
+BFLOAT16 = _BFloat16("bfloat16")
+
+_TO_TORCH = {
+    "float32": torch.float32, "float64": torch.float32,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "uint8": torch.uint8, "int8": torch.int8, "int16": torch.int16,
+    "int32": torch.int32, "int64": torch.int32, "uint16": torch.int32,
+    "uint32": torch.int32, "uint64": torch.int32, "bool": torch.bool,
+    "complex64": torch.complex64, "complex128": torch.complex64,
+}
+_FROM_TORCH = {
+    torch.float32: _np.dtype("float32"), torch.float16: _np.dtype("float16"),
+    torch.bfloat16: BFLOAT16, torch.uint8: _np.dtype("uint8"),
+    torch.int8: _np.dtype("int8"), torch.int16: _np.dtype("int16"),
+    torch.int32: _np.dtype("int32"), torch.int64: _np.dtype("int64"),
+    torch.float64: _np.dtype("float64"), torch.bool: _np.dtype("bool"),
+    torch.complex64: _np.dtype("complex64"),
+    torch.complex128: _np.dtype("complex128"),
+}
+# what an op result of a 64-bit type becomes (JAX computes in 32 bits)
+NARROW = {torch.int64: torch.int32, torch.float64: torch.float32,
+          torch.complex128: torch.complex64}
+
+
+def name_to_dtype(name):
+    """A dtype name or object as a numpy dtype (`BFLOAT16` for bfloat16);
+    None is float32."""
+    if name is None:
+        return _np.dtype("float32")
+    if isinstance(name, torch.dtype):
+        return from_torch_dtype(name)
+    if isinstance(name, str) and name == "bfloat16":
+        return BFLOAT16
+    if getattr(name, "name", None) == "bfloat16":
+        return BFLOAT16
+    return _np.dtype(name)
+
+
+def to_torch_dtype(dtype):
+    """The torch dtype an array of `dtype` holds: a 64-bit type as its
+    32-bit one (the JAX package's arrays with 64-bit types off)."""
+    if isinstance(dtype, torch.dtype):
+        return NARROW.get(dtype, dtype)
+    name = name_to_dtype(dtype).name
+    try:
+        return _TO_TORCH[name]
+    except KeyError:
+        raise MXNetError(f"dtype {name!r} has no array type") from None
+
+
+def from_torch_dtype(dtype):
+    """The numpy dtype (or `BFLOAT16`) of a torch dtype."""
+    return _FROM_TORCH[dtype]

@@ -37,6 +37,8 @@ flag is recorded. What carries over:
     eagerly (CUDA-graph capture of the step is later work);
   * training mode is `autograd.is_training()` (set by `autograd.record()`,
     `train_mode()`, and `FusedTrainStep`), not `torch.nn.Module.training`;
+  * a block given NDArrays (`mx.np`) runs on their tensors and returns
+    NDArrays; given tensors, it returns tensors;
   * a block called outside `autograd.record()` (and `FusedTrainStep`)
     records nothing: its forward runs under `torch.no_grad()`, so an
     inference `net(x)` keeps no activations and its flash attention takes
@@ -55,9 +57,19 @@ from torch.utils.hooks import RemovableHandle
 from .. import autograd
 from ..base import MXNetError, atomic_output
 from ..device import resolve_device
+from ..ndarray import NDArray, _unwrap, _wrap
 from .parameter import DeferredInitializationError, Parameter
 
 __all__ = ["Block", "HybridBlock", "params_from_jax"]
+
+
+def _wrap_tree(out):
+    """Tensors in a block's output (tuples and lists too) as NDArrays."""
+    if isinstance(out, torch.Tensor):
+        return _wrap(out)
+    if type(out) in (tuple, list):
+        return type(out)(_wrap_tree(o) for o in out)
+    return out
 
 
 class _HookHandle(RemovableHandle):
@@ -171,6 +183,11 @@ class Block(torch.nn.Module):
         self._pending = False
 
     def __call__(self, *args, **kwargs):
+        # NDArrays in, NDArrays out: the forward runs on their tensors
+        if any(type(a) is NDArray for a in args) or any(
+                type(v) is NDArray for v in kwargs.values()):
+            return _wrap_tree(self.__call__(*_unwrap(args),
+                                            **_unwrap(kwargs)))
         if self._pending:
             self._resolve(*args)
         # outside record() (and FusedTrainStep's scope) nothing is taped,

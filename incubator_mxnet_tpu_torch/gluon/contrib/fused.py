@@ -75,6 +75,7 @@ from ... import autograd
 from ... import optimizer as opt_mod
 from ... import random as _random
 from ...base import MXNetError
+from ...ndarray import NDArray, _wrap
 from ...ops import fused as _fused
 
 __all__ = ["FusedTrainStep", "FusedInferStep"]
@@ -149,9 +150,12 @@ class FusedInferStep:
             raise MXNetError("steps_per_call must be >= 1")
         self._use_fusion = True if use_fusion is None else bool(use_fusion)
         self._x = None
+        self._nd = False
 
     def __call__(self, x=None):
         if x is not None:
+            self._nd = isinstance(x, NDArray)
+            x = getattr(x, "_t", x)
             if isinstance(x, np.ndarray):
                 x = torch.from_numpy(np.ascontiguousarray(x))
             # the chain owns its input: seed it with a copy
@@ -165,7 +169,7 @@ class FusedInferStep:
                 logits = self._net(self._x)
                 self._x = self._x + (self._perturb * logits.mean()).to(
                     self._x.dtype)
-        return logits
+        return _wrap(logits) if self._nd else logits
 
 
 class FusedTrainStep:
@@ -197,6 +201,7 @@ class FusedTrainStep:
         self._states = None
 
     def _stage(self, a):
+        a = getattr(a, "_t", a)             # an NDArray's tensor
         if isinstance(a, torch.Tensor):
             return a.to(self._device)
         if isinstance(a, np.ndarray):
@@ -255,4 +260,6 @@ class FusedTrainStep:
         else:
             loss = torch.stack(losses)
             extras = tuple(torch.stack(es) for es in zip(*extras_k))
+        if any(isinstance(a, NDArray) for a in inputs):
+            loss, extras = _wrap(loss), tuple(_wrap(e) for e in extras)
         return (loss,) + extras if extras else loss

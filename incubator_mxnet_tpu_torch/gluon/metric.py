@@ -68,6 +68,7 @@ def create(metric, *args, **kwargs):
 def _to_numpy(x):
     """A label or prediction as a numpy array on the host (bfloat16 as
     float32)."""
+    x = getattr(x, "_t", x)      # an NDArray's tensor
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:

@@ -2,7 +2,8 @@
 `clip_global_norm`, `check_sha1` and `download`.
 
 Counterpart of `incubator_mxnet_tpu/gluon/utils.py`. Devices are
-`torch.device`s (or their names). `clip_global_norm` scales in place as
+`torch.device`s, their names or `mx.Device`s; NDArray data gives NDArray
+slices (tensors give tensors). `clip_global_norm` scales in place as
 the JAX package's `npx.clip_by_global_norm` does (the norm over the
 squares of every array, each array times max_norm / max(norm, max_norm)),
 with plain torch ops and without reading the norm back to the host: the
@@ -18,12 +19,16 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..device import resolve_device
+from ..ndarray import NDArray, _wrap
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm",
            "check_sha1", "download"]
 
 
 def _as_tensor(data):
+    if isinstance(data, NDArray):
+        return data._t
     if isinstance(data, torch.Tensor):
         return data
     return torch.from_numpy(np.ascontiguousarray(data))
@@ -51,11 +56,14 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
 def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
     """`data` split along `batch_axis` over the devices of `ctx_list`, one
     slice each; with one device, `[data]` moved there."""
+    nd = isinstance(data, NDArray)
     data = _as_tensor(data)
     if len(ctx_list) == 1:
-        return [data.to(torch.device(ctx_list[0]))]
-    slices = split_data(data, len(ctx_list), batch_axis, even_split)
-    return [s.to(torch.device(c)) for s, c in zip(slices, ctx_list)]
+        out = [data.to(resolve_device(ctx_list[0]))]
+    else:
+        slices = split_data(data, len(ctx_list), batch_axis, even_split)
+        out = [s.to(resolve_device(c)) for s, c in zip(slices, ctx_list)]
+    return [_wrap(o) for o in out] if nd else out
 
 
 def clip_global_norm(arrays, max_norm, check_isfinite=True):
@@ -64,6 +72,7 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
     the arrays' device)."""
     if not arrays:
         raise MXNetError("arrays must not be empty")
+    arrays = [getattr(a, "_t", a) for a in arrays]
     total = arrays[0].float().square().sum()
     for a in arrays[1:]:
         total = total + a.float().square().sum()

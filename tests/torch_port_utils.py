@@ -230,3 +230,113 @@ def token_batch(seed=1, batch=2, cfg=TRANSFORMER):
     shape = (batch, cfg["seq"])
     return (rng.randint(0, cfg["vocab"], size=shape).astype(np.int32),
             rng.randint(0, cfg["vocab"], size=shape).astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# parity: a JAX callable and a port callable on the same numpy inputs
+# ---------------------------------------------------------------------------
+# per-dtype tolerances (rtol, atol) of a value computed by both packages
+PARITY_TOL = {"float32": (1e-5, 1e-6), "float16": (2e-3, 1e-3),
+              "bfloat16": (1.6e-2, 1e-2)}
+
+
+def to_jax_args(obj):
+    """numpy arrays anywhere in `obj` (lists, tuples, dicts) as the JAX
+    package's NDArrays."""
+    import incubator_mxnet_tpu as jmx
+    if isinstance(obj, np.ndarray):
+        return jmx.np.array(obj)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_jax_args(v) for v in obj)
+    if isinstance(obj, dict):
+        return {k: to_jax_args(v) for k, v in obj.items()}
+    return obj
+
+
+def to_port_args(obj):
+    """numpy arrays anywhere in `obj` as the port's NDArrays on the CPU."""
+    import incubator_mxnet_tpu_torch as tmx
+    if isinstance(obj, np.ndarray):
+        return tmx.np.array(obj, device=tmx.cpu())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_port_args(v) for v in obj)
+    if isinstance(obj, dict):
+        return {k: to_port_args(v) for k, v in obj.items()}
+    return obj
+
+
+def assert_parity(got, want, rtol=None, atol=None, where="out"):
+    """The port's result `got` equals the JAX package's `want`: the same
+    structure, each array of the same shape and dtype name and within the
+    dtype's tolerance (or rtol / atol), each dtype and scalar equal."""
+    if isinstance(want, (list, tuple)):
+        assert isinstance(got, (list, tuple)), (where, type(got))
+        assert len(got) == len(want), (where, len(got), len(want))
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_parity(g, w, rtol, atol, f"{where}[{i}]")
+        return
+    if hasattr(want, "asnumpy") or hasattr(want, "__array__") and hasattr(
+            want, "dtype") and not isinstance(want, np.dtype):
+        wn = want.asnumpy() if hasattr(want, "asnumpy") else np.asarray(want)
+        assert hasattr(got, "asnumpy"), (where, type(got), wn)
+        assert str(got.dtype) == str(want.dtype), (where, got.dtype,
+                                                   want.dtype)
+        gn = got.asnumpy()
+        assert gn.shape == wn.shape, (where, gn.shape, wn.shape)
+        r, a = PARITY_TOL.get(str(want.dtype), (1e-5, 1e-6))
+        if wn.dtype.kind in "fc" or str(want.dtype) == "bfloat16":
+            np.testing.assert_allclose(
+                gn.astype(np.complex128 if gn.dtype.kind == "c"
+                          else np.float64),
+                np.asarray(wn, np.complex128 if wn.dtype.kind == "c"
+                           else np.float64),
+                rtol=r if rtol is None else rtol,
+                atol=a if atol is None else atol, err_msg=where)
+        else:
+            np.testing.assert_array_equal(gn, wn, err_msg=where)
+        return
+    if isinstance(want, np.dtype) or isinstance(want, type):
+        assert str(np.dtype(got) if not isinstance(got, str) else got) \
+            == str(np.dtype(want)), (where, got, want)
+        return
+    if isinstance(want, float):
+        assert abs(float(got) - want) <= 1e-6 + 1e-5 * abs(want), (
+            where, got, want)
+        return
+    assert got == want, (where, got, want)
+
+
+def parity(jax_fn, port_fn, *inputs, rtol=None, atol=None, grad=False,
+           **kwargs):
+    """Run `jax_fn` and `port_fn` on the same numpy `inputs` (each as its
+    package's NDArray; `kwargs` passed as they are) and compare the values
+    (and, with `grad`, the gradients of each output's sum with respect to
+    every floating input) at per-dtype tolerances. Returns the port's
+    result."""
+    import incubator_mxnet_tpu as jmx
+    import incubator_mxnet_tpu_torch as tmx
+    jin, tin = to_jax_args(list(inputs)), to_port_args(list(inputs))
+    if not grad:
+        want = jax_fn(*jin, **kwargs)
+        got = port_fn(*tin, **kwargs)
+        assert_parity(got, want, rtol, atol)
+        return got
+    diff = [i for i, v in enumerate(inputs)
+            if isinstance(v, np.ndarray) and v.dtype.kind == "f"]
+    for i in diff:
+        jin[i].attach_grad()
+        tin[i].attach_grad()
+    with jmx.autograd.record():
+        want = jax_fn(*jin, **kwargs)
+        jhead = want if not isinstance(want, (list, tuple)) else want[0]
+        jhead = jhead.sum()
+    jhead.backward()
+    with tmx.autograd.record():
+        got = port_fn(*tin, **kwargs)
+        thead = got if not isinstance(got, (list, tuple)) else got[0]
+        thead = thead.sum()
+    thead.backward()
+    assert_parity(got, want, rtol, atol)
+    for i in diff:
+        assert_parity(tin[i].grad, jin[i].grad, rtol, atol, f"grad[{i}]")
+    return got
