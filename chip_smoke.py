@@ -268,17 +268,49 @@ Each phase fails the run (non-zero exit) on any error:
      `npx.box_nms` at (32, 8732, 6): one NMS launch, bit-equal to
      `ops.contrib.box_nms`, its keep mask bit-equal to the plain sweep's;
      (f) every registered np / npx name on the card against the same call
-     on the CPU (per-dtype limits, TF32 off), with no host fallback.
+     on the CPU (per-dtype limits, TF32 off), with no host fallback; (g)
+     out-of-range gathers (ROADMAP C7): `ContinuousEngine` over a small
+     float32 decoder answers a prompt with a token past the vocabulary
+     (equal to the prompt with the last row, the clamped gather) and then
+     the next request, NDArray indexing clamps and `np.take` fills, and
+     the context still runs.
      Every kernel entry of the JSON line gains `npx_launches`: its
      launches through NDArray / npx in (a)-(e), counted around those calls
      only.
+ 15. the input path: (0) the machine's host facts (CPU count, PIL,
+     libjpeg's header, the decode route); (a) a .rec of 1024 records
+     written from a seed (256-320 x 256-352 JPEGs at quality 85 with PIL;
+     without it the 12 small payloads of tests/data/tiny_imagerec.rec
+     cycled, and a "reduced" line); (b) the augment kernel
+     (`ops/csrc/image_augment.cu`) against its plain version on the same
+     draws, bit-equal, at (32, 224, 224, 3) uint8 to bfloat16, float32
+     and float16 and (32, 256, 256, 3) cropped to 224 with a mirror (each
+     timed against its bytes bound and the plain version), and a float32
+     input with its gradient (equal to the CPU's); a changed flip bit
+     must be refused; (c) ResNet-50 v1 NHWC at batch 32, bf16 AMP,
+     phase 5's `FusedTrainStep` SGD, fed by `ImageRecordIter` (shuffled,
+     random crop from a 256 shorter side, mirror, ImageNet mean/std,
+     uint8 handoff, the augment kernel on the card, bf16, shared-memory
+     decode workers): 4 warm-up and 12 timed steps, images/s and ms a
+     step beside phase 5's synthetic-batch step, `io_stats()` a batch,
+     exactly 1 augment launch a batch and 53/1/1 B1/B2/B3 launches a
+     step (`--profile`: device ms, idle share, H2D copies overlapping
+     kernels); without any JPEG decoder the step is fed from a
+     `DataLoader` through the device feed instead; (d) decoded images/s
+     on the host with workers=0 and with min(8, cpu_count) workers, and
+     `DataLoader(num_workers=2)` in spawned processes equal to
+     `num_workers=0` on the card, its workers without a CUDA context;
+     (e) (c)'s first batch: the staged uint8 half bit-equal to a CPU
+     iterator's from the same file and seed, the fed batch bit-equal to
+     the kernel and the plain augment on the same draws.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
 backward sweep, one for each route of the paged kernel, one for each
 kernel's float16 instances, their launches from the path that runs them
-in float16, and the NMS sweep, port-only, its launches from (b); each
-with its phase-14 `npx_launches`), and
+in float16, the NMS sweep, port-only, its launches from (b), and the
+augment kernel, port-only, its launches from phase 15 (c); each with its
+phase-14 `npx_launches`), and
 `{"ok": true, "device": {...}}`. Without a
 card the script exits non-zero and prints no result. It imports nothing of
 JAX. Its run time on the card is in the root `PERF.md`.
@@ -4698,6 +4730,10 @@ def sweep_cases():
         "npx.pooling": ((X4,), {"kernel": 2, "stride": 2}),
         "npx.scaled_dot_product_attention": ((X4, X4 * 0.5, X4[::-1].copy()),
                                              {}),
+        # no crop and no mirror: the result does not depend on the draws
+        "npx.fused_image_augment": ((r.randint(0, 256, (2, 4, 4, 3)).astype(
+            np.uint8), (3, 1)), {"mean": (0.4, 0.5, 0.6),
+                                 "std": (0.2, 0.25, 0.3)}),
     }
 
 
@@ -4801,6 +4837,42 @@ def array_sweep(dev):
             "fallbacks": fallbacks}
 
 
+def array_out_of_range(dev):
+    """(g) Out-of-range gathers on the card (ROADMAP C7): a prompt token past
+    the vocabulary is served by `ContinuousEngine` (it reads the last
+    embedding row, as XLA's clamping gather does), the next request is
+    served too, and NDArray indexing and `np.take` clamp and fill without a
+    device-side assert; the context then still runs."""
+    model = serve.CachedDecoder(serve.DecoderConfig(max_len=64), seed=0,
+                                device=dev)
+    V = model.config.vocab
+    bad, clamped, good = [3, V + 7, 11, 5], [3, V - 1, 11, 5], [4, 9, 2, 8]
+    with serve.ContinuousEngine(model, max_slots=4) as eng:
+        out_bad = eng.submit(bad, 8).result(timeout=300)
+        out_good = eng.submit(good, 8).result(timeout=300)
+        window = eng.prefill_window
+    served = (np.array_equal(out_bad, model.reference_generate(
+        clamped, 8, window=window)) and np.array_equal(
+        out_good, model.reference_generate(good, 8, window=window)))
+    card = mx.Device("gpu", dev.index or 0)
+    with card:
+        a = mx.np.array(np.arange(6, dtype=np.float32).reshape(2, 3))
+        rows = a[mx.np.array([5, -9])].asnumpy()
+        take = mx.np.take(a, mx.np.array([0, 7])).asnumpy()
+    after = float((torch.ones(64, 64, device=dev) @ torch.ones(
+        64, 64, device=dev)).sum())
+    torch.cuda.synchronize()
+    ok = (served and rows.tolist() == [[3, 4, 5], [0, 1, 2]]
+          and take[0] == 0 and np.isnan(take[1]) and after == 64.0 ** 3)
+    log(f"[array out-of-range] prompt token {V + 7} (vocab {V}) served as "
+        f"the clamped row and the next request served: {served}; a[[5, -9]] "
+        f"rows {rows.tolist()}, take([0, 7]) {take.tolist()}; the context "
+        f"runs after: {after == 64.0 ** 3}")
+    assert ok, "out-of-range gathers on the card"
+    return {"served": served, "rows": rows.tolist(),
+            "take": [None if np.isnan(v) else float(v) for v in take]}
+
+
 def phase_array(card, dev, profile, loop_per_step):
     """Phase 14: the array frontend on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4830,16 +4902,520 @@ def phase_array(card, dev, profile, loop_per_step):
     paged_rows = array_paged(dev, tally)
     fused_rows = array_fused(dev, tally)
     nms = array_nms(dev, tally)
+    oor = array_out_of_range(dev)
     sweep = array_sweep(dev)
     took = time.perf_counter() - t0
     log(f"[array] phase 14 took {took:.1f} s; npx launches "
         f"{tally.counts}")
     return {"dispatch_cost": cost, "resnet": resnet, "f32_check": f32,
             "flash": flash_rows, "paged": paged_rows, "fused": fused_rows,
-            "nms": nms, "sweep": sweep, "npx_launches": tally.counts,
+            "nms": nms, "out_of_range": oor, "sweep": sweep,
+            "npx_launches": tally.counts,
             "npx_launches_by_dtype": {f"{k[0]}:{k[1]}": v for k, v in
                                       tally.by_dtype.items()},
             "seconds": took}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the input path
+# ---------------------------------------------------------------------------
+IO_RECORDS, IO_SIDE, IO_QUALITY = 1024, 256, 85
+IO_WARMUP, IO_STEPS = 4, 12
+# ImageNet's mean and std in pixel units (benchmark/io_bench.py:95)
+IO_NORM = dict(mean_r=123.68, mean_g=116.779, mean_b=103.939,
+               std_r=58.393, std_g=57.12, std_b=57.375)
+IO_ITER = dict(data_shape=(IMAGE, IMAGE, 3), batch_size=BATCH, shuffle=True,
+               rand_crop=True, rand_mirror=True, resize=256, seed=3,
+               round_batch=False)
+IO_MEAN = tuple(v / 255.0 for v in (123.68, 116.779, 103.939))
+IO_STD = tuple(v / 255.0 for v in (58.393, 57.12, 57.375))
+IO_HOST_BATCHES = 6
+LOADER_IMAGES, LOADER_SIDE, LOADER_BATCH = 64, 64, 16
+
+
+def host_facts():
+    """(0) The card machine's decoders: PIL, libjpeg's header, and the route
+    the port's reader takes (the native library needs g++ and libjpeg)."""
+    from incubator_mxnet_tpu_torch import native
+    try:
+        import PIL  # noqa: F401
+        has_pil = True
+    except ImportError:
+        has_pil = False
+    jpeglib = os.path.isfile("/usr/include/jpeglib.h")
+    has_native = native.load_imagerec() is not None
+    route = "native" if has_native else ("python (PIL)" if has_pil
+                                         else "none")
+    facts = {"cpu_count": os.cpu_count(), "PIL": has_pil,
+             "jpeglib_h": jpeglib, "native_imagerec": has_native,
+             "decode_route": route}
+    log(f"[io host] cpu_count {facts['cpu_count']}; import PIL: "
+        f"{'yes' if has_pil else 'no'}; /usr/include/jpeglib.h: "
+        f"{'yes' if jpeglib else 'no'}; decode route: {route}")
+    return facts
+
+
+def write_records(path, facts):
+    """(a) A .rec of IO_RECORDS records: with PIL, 256-320 x 256-352 JPEGs
+    at quality 85 from a seed (smooth waves plus noise, as
+    benchmark/io_bench.py:59-75 makes them); without it, the 12 JPEG
+    payloads of tests/data/tiny_imagerec.rec cycled under new ids and
+    labels."""
+    from incubator_mxnet_tpu_torch import recordio
+    t0 = time.perf_counter()
+    w = recordio.MXRecordIO(path, "w")
+    reduced = None
+    if facts["PIL"]:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            jpegs = list(pool.map(_jpeg_record, range(IO_RECORDS)))
+        for i, jpeg in enumerate(jpegs):
+            w.write(recordio.pack(recordio.IRHeader(0, float(i % CLASSES),
+                                                    i, 0), jpeg))
+    else:
+        reduced = "decode sources 44-66 px, not 256 px"
+        r = recordio.MXRecordIO(os.path.join("tests", "data",
+                                             "tiny_imagerec.rec"), "r")
+        payloads = []
+        while (rec := r.read()) is not None:
+            payloads.append(recordio.unpack(rec)[1])
+        r.close()
+        for i in range(IO_RECORDS):
+            w.write(recordio.pack(recordio.IRHeader(0, float(i % CLASSES),
+                                                    i, 0),
+                                  payloads[i % len(payloads)]))
+        log(f'[io records] reduced: "{reduced}"')
+    w.close()
+    took = time.perf_counter() - t0
+    log(f"[io records] wrote {IO_RECORDS} records "
+        f"({os.path.getsize(path) / 2 ** 20:.1f} MiB) in {took:.2f} s")
+    return {"seconds": took, "bytes": os.path.getsize(path),
+            "reduced": reduced}
+
+
+def _jpeg_record(i):
+    """Record i's JPEG, from its own seed (numpy and PIL release the GIL,
+    so threads make them in parallel)."""
+    import io as pyio
+
+    from PIL import Image
+    rng = np.random.default_rng(i)
+    h = IO_SIDE + int(rng.integers(0, 64))
+    wd = IO_SIDE + int(rng.integers(0, 96))
+    base = (127 + 80 * np.sin(np.arange(h) / 23.0 + i)[:, None]
+            + 40 * np.cos(np.arange(wd) / 17.0)[None, :])
+    img = np.stack([base, base * 0.8, base * 1.1], -1)
+    img += rng.standard_normal((h, wd, 3), dtype=np.float32) * 12
+    buf = pyio.BytesIO()
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+        buf, format="JPEG", quality=IO_QUALITY)
+    return buf.getvalue()
+
+
+def augment_bound_ms(n, h, w, in_dtype, out_dtype):
+    """Each input pixel of the crop read once and each output written once,
+    over the card's memory rate (the operations, ~4 an element, are far
+    below the compute rate)."""
+    elems = n * h * w * 3
+    item_in = torch.empty(0, dtype=in_dtype).element_size()
+    item_out = torch.empty(0, dtype=out_dtype).element_size()
+    return elems * (item_in + item_out) / HBM_BYTES_PER_S * 1e3
+
+
+def check_augment(dev, gen, shape, out_dtype, crop, fl=False, timed=False):
+    """(b) The augment kernel against its plain version on the same draws:
+    bit-equal; with a mirror, one flip bit changed must be refused."""
+    n, h, w, _ = shape
+    x = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
+                      device=dev)
+    if fl:
+        x = (x.float() / 255.0).requires_grad_()
+    draws = fused.augment_draws((11, 5), n, (h, w), crop, True, dev)
+    ch, cw = crop or (h, w)
+    kernels.reset_launch_counts()
+    out = fused._augment_apply(x, *draws, crop, IO_MEAN, IO_STD, out_dtype)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["image_augment"]
+    with torch.no_grad():
+        ref = fused.image_augment_ref(x.detach(), *draws, crop, IO_MEAN,
+                                      IO_STD, out_dtype)
+    err = float((out.float() - ref.float()).abs().max())
+    equal = torch.equal(out.detach(), ref)
+    flips = draws[2].clone()
+    flips[0] ^= 1
+    planted = fused._augment_apply(x.detach(), draws[0], draws[1], flips,
+                                   crop, IO_MEAN, IO_STD, out_dtype)
+    refused = not torch.equal(planted, ref)
+    row = {"shape": list(shape), "crop": list(crop or (h, w)),
+           "in": _dtype_name(x.dtype), "out": _dtype_name(out_dtype),
+           "launches": launches, "equal": equal, "max_abs_err": err,
+           "planted_refused": refused}
+    if fl:
+        ct = torch.randn(out.shape, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev)
+        (out.float() * ct).sum().backward()
+        xc = x.detach().cpu().requires_grad_()
+        oc = fused._augment_apply(xc, *(d.cpu() for d in draws), crop,
+                                  IO_MEAN, IO_STD, out_dtype)
+        (oc.float() * ct.cpu()).sum().backward()
+        row["grad_equal_to_cpu"] = torch.equal(x.grad.cpu(), xc.grad)
+    if timed:
+        xi = x.detach()
+        row["ms"] = median_ms(lambda i: fused._augment_apply(
+            xi, *draws, crop, IO_MEAN, IO_STD, out_dtype), 50)
+        row["plain_ms"] = median_ms(lambda i: fused.image_augment_ref(
+            xi, *draws, crop, IO_MEAN, IO_STD, out_dtype), 20)
+        row["bound_ms"] = augment_bound_ms(n, ch, cw, xi.dtype, out_dtype)
+        row["bound_by"] = "bytes"
+    log(f"[io augment] {tuple(shape)} {row['in']} -> {row['out']} crop "
+        f"{row['crop']}: {launches} launch, bit-equal {equal} (max abs "
+        f"{err}), planted flip refused {refused}"
+        + (f", gradient equal to the CPU's {row['grad_equal_to_cpu']}"
+           if fl else "")
+        + (f"; {row['ms']:.4f} ms against a bound of {row['bound_ms']:.4f}"
+           f" ms (bytes), plain {row['plain_ms']:.4f} ms" if timed else ""))
+    assert launches == 1, "the augment did not launch its kernel"
+    assert equal and refused, f"augment kernel against plain: {row}"
+    assert not fl or row["grad_equal_to_cpu"], "augment gradient"
+    return row
+
+
+def _io_iter(dev, **kw):
+    from incubator_mxnet_tpu_torch import io as mxio
+    return mxio.ImageRecordIter(kw.pop("path"), device=dev,
+                                **dict(IO_ITER, **kw))
+
+
+class _Probed:
+    """A dataset's samples with the CUDA environment of the process that
+    made them: [card hidden, CUDA context made]."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        return self.ds[i] + (np.array(
+            [os.environ.get("CUDA_VISIBLE_DEVICES") == "",
+             torch.cuda.is_initialized()], np.int32),)
+
+
+def loader_images():
+    rng = np.random.RandomState(21)
+    x = rng.randint(0, 256, (LOADER_IMAGES, LOADER_SIDE, LOADER_SIDE, 3))
+    return (x.astype(np.uint8),
+            rng.randint(0, CLASSES, LOADER_IMAGES).astype(np.int32))
+
+
+def dataloader_check(dev):
+    """(d) `DataLoader(num_workers=2)` (spawned processes) gives
+    `num_workers=0`'s batches on the card, with no CUDA context in the
+    workers; so does `prefetch_to_device=True` over thread workers (the
+    device feed's pinned ring and side stream)."""
+    from incubator_mxnet_tpu_torch.gluon import data as gdata
+    ds = _Probed(gdata.ArrayDataset(*loader_images()))
+    card = mx.Device("gpu", dev.index or 0)
+    with card:
+        want = [tuple(t.asnumpy() for t in b)
+                for b in gdata.DataLoader(ds, batch_size=LOADER_BATCH)]
+        t0 = time.perf_counter()
+        got = [tuple(t for t in b) for b in gdata.DataLoader(
+            ds, batch_size=LOADER_BATCH, num_workers=2, thread_pool=False)]
+        took = time.perf_counter() - t0
+        on_card = all(t._t.is_cuda for b in got for t in b)
+        got = [tuple(t.asnumpy() for t in b) for b in got]
+        # thread workers through the device feed (pinned ring, side stream)
+        fed = [tuple(t.asnumpy() for t in b) for b in gdata.DataLoader(
+            ds, batch_size=LOADER_BATCH, num_workers=2,
+            prefetch_to_device=True)]
+    equal = len(got) == len(want) == len(fed) and all(
+        np.array_equal(a, c) for x, y, z in zip(got, want, fed)
+        for a, c in zip(x[:2] + z[:2], y[:2] + y[:2]))
+    hidden = all(p.tolist() == [1, 0] for b in got for p in b[2])
+    log(f"[io loader] DataLoader(num_workers=2, spawned) on the card, and "
+        f"with 2 threads through the device feed: {len(got)} batches each, "
+        f"equal to num_workers=0's: {equal}, on the card: {on_card} "
+        f"({took:.2f} s with the workers' start); the spawned workers saw "
+        f"CUDA_VISIBLE_DEVICES empty and no CUDA context: {hidden}")
+    assert equal and on_card and hidden, "DataLoader workers"
+    return {"equal": equal, "workers_hidden": hidden, "seconds": took}
+
+
+def host_throughput(path, facts):
+    """(d) Decoded images/s on the host (uint8 handoff onto the CPU, so the
+    card is not in it), native threads or the PIL path with workers=0, and
+    min(8, cpu_count) shm workers; the first batch is the warm-up."""
+    rows = {}
+    for workers in (0, min(8, os.cpu_count() or 1)):
+        it = _io_iter("cpu", path=path, handoff="uint8", workers=workers)
+        route = it.decode_route
+        b = iter(it)
+        next(b)
+        t0 = time.perf_counter()
+        n = 0
+        for _ in range(IO_HOST_BATCHES):
+            n += next(b).data[0].shape[0]
+        took = time.perf_counter() - t0
+        it.close()
+        rows[f"workers_{workers}"] = {"route": route,
+                                      "images_per_s": n / took}
+        log(f"[io host] workers={workers} ({route}): {n / took:.1f} decoded "
+            f"images/s ({n} images of {IMAGE}^2 from ~{IO_SIDE} px JPEGs)")
+    return rows
+
+
+def io_profile(next_step, step_ms):
+    """torch.profiler over PROFILE_STEPS fed steps: device ms a step, the
+    idle share, and whether the input copies (Memcpy HtoD) overlap the
+    step's kernels on the card's timeline."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            next_step()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    copies = [e for e in dev_events if "HtoD" in e.name]
+    kernels_ = [e for e in dev_events if "Memcpy" not in e.name
+                and "Memset" not in e.name]
+    busy = sum(e.time_range.end - e.time_range.start
+               for e in kernels_) / 1e3 / PROFILE_STEPS
+    overlapped = sum(1 for c in copies if any(
+        k.time_range.start < c.time_range.end
+        and c.time_range.start < k.time_range.end for k in kernels_))
+    copy_ms = sum(c.time_range.end - c.time_range.start
+                  for c in copies) / 1e3 / PROFILE_STEPS
+    out = {"device_ms_per_step": busy, "idle_share": 1.0 - busy / step_ms,
+           "h2d_copies": len(copies), "h2d_ms_per_step": copy_ms,
+           "h2d_overlapping_kernels": overlapped}
+    log(f"[io profile] {busy:.3f} device ms a step of {step_ms:.3f} ms "
+        f"(idle {100 * out['idle_share']:.1f}%); {len(copies)} H2D copies "
+        f"({copy_ms:.3f} ms a step), {overlapped} of them overlapping a "
+        f"kernel")
+    return out
+
+
+def feed_train(card, dev, path, profile, synthetic_ms, facts,
+               predecoded=False):
+    """(c) ResNet-50 v1 NHWC, batch 32, bf16 AMP, phase 5's FusedTrainStep
+    SGD, fed by ImageRecordIter (uint8 handoff, the augment kernel on the
+    card); without a JPEG decoder, or as the control with `predecoded`
+    (the same step and augment with no decode work on the host), by a
+    DataLoader over seeded uint8 images through the device feed and
+    npx.fused_image_augment."""
+    from incubator_mxnet_tpu_torch import io as mxio
+    workers = max(1, (os.cpu_count() or 1) - 2)
+    tag = "io control" if predecoded else "io train"
+    if predecoded or facts["decode_route"] == "none":
+        if not predecoded:
+            log("[io train] no JPEG decoder on this machine: (c) feeds the "
+                "step from gluon.data.DataLoader over an ArrayDataset of "
+                "seeded uint8 images (prefetch_to_device, "
+                "npx.fused_image_augment)")
+        source = predecoded_source(dev) if predecoded else \
+            loader_source(dev)
+        route = ("DeviceFeed over pre-decoded uint8 (no decode)"
+                 if predecoded else "DataLoader")
+        workers = 0
+    else:
+        it = _io_iter(dev, path=path, handoff="uint8", device_augment=True,
+                      dtype="bfloat16", workers=workers, **IO_NORM)
+        route = f"ImageRecordIter ({it.decode_route}, {workers} workers)"
+        source = ((b.data[0], b.label[0]) for b in _forever(it))
+    amp.init("bfloat16")
+    try:
+        net = vision.resnet50_v1(layout="NHWC", classes=CLASSES, device=dev,
+                                 seed=0)
+        step = new_step(net, BATCH, use_fusion=True)
+        first = {}
+
+        def next_step():
+            x, y = next(source)
+            if not first:
+                first["x"] = x._t.clone()
+            return step(x, y._t.reshape(-1).to(torch.int32))
+        for _ in range(IO_WARMUP):
+            next_step()
+        torch.cuda.synchronize()
+        mxio.io_stats(reset=True)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [next_step() for _ in range(IO_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        stats = mxio.io_stats()
+        step_ms = wall / IO_STEPS * 1e3
+        prof = io_profile(next_step, step_ms) if profile else None
+    finally:
+        amp.uninit()
+    losses = [float(v) for v in losses]
+    ips = BATCH * IO_STEPS / wall
+    per_batch = {k: stats[k] / max(stats["batches"], 1)
+                 for k in ("wait_us", "stage_us", "bytes_staged")}
+    fed = "" if predecoded else (
+        f"a batch waited {per_batch['wait_us']:.0f} us on the decoders, "
+        f"staged in {per_batch['stage_us']:.0f} us, "
+        f"{per_batch['bytes_staged']:.0f} bytes; ")
+    log(f"[{tag}] {card}: {IO_STEPS} steps of ResNet-50 v1 (batch "
+        f"{BATCH} x {IMAGE}^2, bf16 AMP, FusedTrainStep SGD) fed by {route}:"
+        f" {step_ms:.3f} ms a step, {ips:.1f} images/s (phase 5's synthetic "
+        f"batches in this run: {synthetic_ms:.3f} ms a step); {fed}"
+        f"launches {launches} (expected {IO_STEPS} augment, "
+        f"53/1/1 x {IO_STEPS} B1/B2/B3); losses "
+        f"{[round(v, 3) for v in losses[:4]]}...")
+    assert all(np.isfinite(losses)), "non-finite fed training loss"
+    assert launches["image_augment"] == IO_STEPS, "augment launches"
+    assert launches["scale_shift_act"] == 53 * IO_STEPS \
+        and launches["avg_pool2d_fwd"] == IO_STEPS \
+        and launches["avg_pool2d_bwd"] == IO_STEPS, "B1/B2/B3 launches"
+    del net, step
+    torch.cuda.empty_cache()
+    return {"route": route, "workers": workers, "step_ms": step_ms,
+            "images_per_s": ips, "synthetic_step_ms": synthetic_ms,
+            "io_stats": stats, "per_batch": per_batch, "launches": launches,
+            "losses": losses, "profile": prof, "first": first["x"]}
+
+
+def _forever(it):
+    while True:
+        for b in it:
+            yield b
+        it.reset()
+
+
+def loader_source(dev):
+    """(c)'s source without a JPEG decoder: seeded uint8 images through
+    DataLoader(prefetch_to_device) and npx.fused_image_augment."""
+    from incubator_mxnet_tpu_torch.gluon import data as gdata
+    x, y = loader_images()
+    x = np.resize(x, (LOADER_IMAGES, IMAGE, IMAGE, 3))
+    ds = gdata.ArrayDataset(x, y)
+    card = mx.Device("gpu", dev.index or 0)
+    batch_no = 0
+    while True:
+        with card:
+            loader = gdata.DataLoader(ds, batch_size=BATCH, shuffle=True,
+                                      last_batch="discard", num_workers=2,
+                                      prefetch_to_device=True)
+            batches = list(loader)
+        for u8, lab in batches:
+            out = mx.npx.fused_image_augment(
+                u8, (3, batch_no), mean=IO_MEAN, std=IO_STD,
+                rand_mirror=True, out_dtype="bfloat16")
+            batch_no += 1
+            yield out, lab
+
+
+def predecoded_source(dev):
+    """(c)'s control: uint8 batches of (c)'s shape made once on the host (no
+    decode), staged by the device feed (pinned ring, side stream) and
+    augmented by npx.fused_image_augment."""
+    from incubator_mxnet_tpu_torch import io as mxio
+    x, y = loader_images()
+    x = np.resize(x, (LOADER_IMAGES, IMAGE, IMAGE, 3))
+    batches = [(x[i:i + BATCH], y[i:i + BATCH])
+               for i in range(0, LOADER_IMAGES - BATCH + 1, BATCH)]
+
+    def host():
+        while True:
+            yield from batches
+    feed = mxio.DeviceFeed(host(), device=mx.Device("gpu", dev.index or 0))
+    try:
+        for batch_no, (u8, lab) in enumerate(feed):
+            yield mx.npx.fused_image_augment(
+                u8, (3, batch_no), mean=IO_MEAN, std=IO_STD,
+                rand_mirror=True, out_dtype="bfloat16"), lab
+    finally:
+        feed.close()
+
+
+def first_batch_check(dev, path, first):
+    """(e) The first batch of (c): its host half (decoded uint8, staged to
+    the card) bit-equal to a CPU ImageRecordIter's from the same file and
+    seed, and on the card bit-equal to the plain augment on its draws."""
+    kw = dict(path=path, handoff="uint8", rand_mirror=False)
+    card_it = _io_iter(dev, **kw)
+    cpu_it = _io_iter("cpu", **kw)
+    u8_card = next(iter(card_it)).data[0]._t
+    u8_cpu = next(iter(cpu_it)).data[0]._t
+    key = card_it.augment_key(0)
+    card_it.close()
+    cpu_it.close()
+    host_equal = torch.equal(u8_card.cpu(), u8_cpu)
+    draws = fused.augment_draws(key, BATCH, (IMAGE, IMAGE), None, True, dev)
+    kernels.reset_launch_counts()
+    kernel_out = fused._augment_apply(u8_card, *draws, None, IO_MEAN, IO_STD,
+                                      torch.bfloat16)
+    plain = fused.image_augment_ref(u8_card, *draws, None, IO_MEAN, IO_STD,
+                                    torch.bfloat16)
+    torch.cuda.synchronize()
+    equal = torch.equal(first, kernel_out) and torch.equal(kernel_out, plain)
+    log(f"[io first batch] host half bit-equal to the CPU iterator's: "
+        f"{host_equal}; the fed batch bit-equal to the kernel and to the "
+        f"plain augment on the same draws: {equal}")
+    assert host_equal and equal, "(e) first batch"
+    return {"host_equal": host_equal, "card_equal": equal,
+            "max_abs_err": float((kernel_out.float()
+                                  - plain.float()).abs().max())}
+
+
+def phase_input(card, dev, profile, synthetic_ms):
+    """Phase 15: the input path."""
+    import tempfile
+    t0 = time.perf_counter()
+    facts = host_facts()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.rec")
+        records = write_records(path, facts)
+        aug = [check_augment(dev, gen, (BATCH, IMAGE, IMAGE, 3), dt, None,
+                             timed=True)
+               for dt in (torch.bfloat16, torch.float32, torch.float16)]
+        aug.append(check_augment(dev, gen, (BATCH, 256, 256, 3),
+                                 torch.bfloat16, (IMAGE, IMAGE), timed=True))
+        aug.append(check_augment(dev, gen, (8, 64, 64, 3), torch.float32,
+                                 (56, 48), fl=True))
+        train = feed_train(card, dev, path, profile, synthetic_ms, facts)
+        first = first_batch_check(dev, path, train.pop("first")) \
+            if facts["decode_route"] != "none" else None
+        # the same step fed with no decode work on the host: parts the
+        # decoders' share of (c)'s time from the feed's and the augment's
+        control = feed_train(card, dev, path, False, synthetic_ms, facts,
+                             predecoded=True) \
+            if facts["decode_route"] != "none" else None
+        if control:
+            control.pop("first")
+        host = host_throughput(path, facts) \
+            if facts["decode_route"] != "none" else None
+        loader = dataloader_check(dev)
+    took = time.perf_counter() - t0
+    log(f"[io] phase 15 took {took:.1f} s")
+    return {"facts": facts, "records": records, "augment": aug,
+            "train": train, "control": control, "first_batch": first,
+            "host": host,
+            "loader": loader, "seconds": took}
+
+
+def augment_entry(io):
+    head = io["augment"][0]
+    return {"name": "image_augment", "route": "cuda",
+            "source": "incubator_mxnet_tpu_torch/ops/csrc/image_augment.cu",
+            "replaces": "none (port-only; ops/fused.py:500)",
+            "launches": io["train"]["launches"]["image_augment"],
+            "max_abs_err": max(r["max_abs_err"] for r in io["augment"]),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None,
+            "shape": f"N={BATCH} {IMAGE}x{IMAGE}x3 uint8 -> bfloat16, "
+                     f"mirror, ImageNet mean/std (no PyTorch call computes "
+                     f"crop, mirror, normalize and cast in one)",
+            "variants": [{k: v for k, v in r.items()} for r in io["augment"]]}
 
 
 def npx_launches(entry, array):
@@ -4900,6 +5476,7 @@ def main():
     array = phase_array(card, dev, args.profile, {
         n: loop["resnet"]["launches"][n] / LOOP_STEPS
         for n in ("scale_shift_act", "avg_pool2d_fwd", "avg_pool2d_bwd")})
+    io = phase_input(card, dev, args.profile, train["step_ms"])
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -4974,6 +5551,8 @@ def main():
             p: r["launches_per_step"].get(e["name"], 0)
             for p, r in detect["remat"]["bert"].items()}
     entries.append(nms_entry(ssd))
+    # phase 15's path: the augment kernel's launches on the fed steps
+    entries.append(augment_entry(io))
     # phase 14's launches through NDArray / npx, counted around its own
     # calls only (the comparisons with plain versions and the sweep's card
     # calls do not count)
@@ -4990,7 +5569,7 @@ def main():
                        "serve": result, "train": train, "bert": bert,
                        "engine": engine, "coverage": coverage,
                        "loop": loop, "script": script,
-                       "detection": detect, "array": array}, f,
+                       "detection": detect, "array": array, "io": io}, f,
                       indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [

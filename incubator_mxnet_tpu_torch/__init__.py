@@ -43,7 +43,12 @@ Ported so far:
     CUDA kernels, control flow), `nd` (the legacy namespace), `cpu()`,
     `gpu()`, `tpu()` and `Device` / `Context` (`context`), `engine`,
     `waitall()` and `seed()`, every op dispatched through
-    `ops.registry.invoke` with AMP by op name.
+    `ops.registry.invoke` with AMP by op name;
+  * the input path: `recordio`, `io` (`ImageRecordIter` over a decode pool
+    of native threads or shared-memory worker processes, `DeviceFeed`,
+    `NDArrayIter`, `CSVIter`), `gluon.data` (datasets, samplers,
+    `DataLoader`, vision datasets and transforms), and the card half of
+    the image augment (`npx.fused_image_augment`, a CUDA kernel).
 
 Typical use:  import incubator_mxnet_tpu_torch as mx
 """
@@ -59,6 +64,7 @@ from . import ndarray as nd
 from . import numpy as np
 from . import numpy_extension as npx
 from . import context, engine
+from . import io, recordio
 from .random import seed
 
 __all__ = ["MXNetError", "get_env", "default_device", "resolve_device",
@@ -67,4 +73,4 @@ __all__ = ["MXNetError", "get_env", "default_device", "resolve_device",
            "gpu_memory_info", "NDArray", "waitall", "seed", "ndarray", "nd",
            "np", "npx", "context", "engine",
            "amp", "autograd", "initializer", "lr_scheduler", "metric", "ops",
-           "optimizer", "random", "gluon", "serve"]
+           "optimizer", "random", "gluon", "serve", "io", "recordio"]

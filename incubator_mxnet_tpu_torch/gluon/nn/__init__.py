@@ -325,7 +325,9 @@ class Embedding(HybridBlock):
     def forward(self, x):
         if self._sparse_grad and _autograd.is_recording():
             p = self._reg_params["weight"]
-            p._last_tokens = (p._last_tokens or []) + [x.detach()]
+            # the rows the gather reads (an index past them is clamped)
+            p._last_tokens = (p._last_tokens or []) + [
+                _ops.clamp_index(x.detach(), self._input_dim)]
         return _ops.embedding(x, self.weight)
 
     def __repr__(self):

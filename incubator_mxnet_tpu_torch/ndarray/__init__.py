@@ -405,6 +405,7 @@ class NDArray:
     # ------------------------------------------------------------------
     def __getitem__(self, key):
         key, flips = _index(key, self._t)
+        key = _clamped(key, self._t.shape)
         return invoke(_getitem, (self,), name="getitem",
                       kwargs={"key": key, "flips": flips})
 
@@ -557,9 +558,43 @@ class NDArray:
 def _add(a, b): return _narrow(a + b)
 def _mul(a, b): return _narrow(a * b)
 def _div(a, b): return _narrow(a / b)
-def _floordiv(a, b): return _narrow(a // b)
-def _mod(a, b): return _narrow(a % b)
-def _pow(a, b): return _narrow(a ** b)
+def _floordiv(a, b): return _narrow(_int_by_zero(torch.floor_divide, a, b))
+def _mod(a, b): return _narrow(_int_by_zero(torch.remainder, a, b))
+
+
+def _int_by_zero(f, a, b):
+    """f(a, b) for floor_divide, remainder or fmod, with XLA's answers where
+    an integer divisor is 0 (PyTorch raises): a // 0 is -1 for a == 0 and
+    -2 otherwise in a signed type, the type's highest value in an unsigned
+    one; a % 0 is 0."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.tensor(b, device=a.device if isinstance(a, torch.Tensor)
+                         else None)
+    if not isinstance(a, torch.Tensor):
+        a = torch.tensor(a, device=b.device)
+    if a.is_floating_point() or b.is_floating_point() or a.is_complex() \
+            or b.is_complex() or torch.bool in (a.dtype, b.dtype):
+        return f(a, b)
+    zero = b == 0
+    r = f(a, torch.where(zero, torch.ones_like(b), b))
+    if f is not torch.floor_divide:
+        return torch.where(zero, torch.zeros_like(r), r)
+    info = torch.iinfo(r.dtype)
+    fill = (torch.where(a == 0, -1, -2).to(r.dtype) if info.min < 0
+            else torch.full_like(r, info.max))
+    return torch.where(zero, fill, r)
+
+
+def _pow(a, b):
+    """a ** b, refusing a negative Python int exponent of an integer (or
+    bool) array, as jnp.power's integer_pow does."""
+    if isinstance(a, torch.Tensor) and type(b) is int and b < 0 \
+            and not (a.is_floating_point() or a.is_complex()):
+        raise TypeError(
+            "Integers cannot be raised to negative powers, got "
+            f"integer_pow({str(a.dtype).replace('torch.', '')}"
+            f"{list(a.shape)}, {b})")
+    return _narrow(a ** b)
 def _matmul(a, b): return a @ b
 
 
@@ -635,6 +670,44 @@ def _index(key, t):
             in_dim += 1
             out_dim += 1
     return tuple(out), tuple(flips)
+
+
+def _gathers(k):
+    return ((isinstance(k, int) and not isinstance(k, bool))
+            or (isinstance(k, torch.Tensor) and k.dtype != torch.bool))
+
+
+def _clamped(key, shape):
+    """`key` with each integer index (a Python int or an integer tensor)
+    read as XLA's gather reads it: negative from the end, then clamped into
+    the axis, as the JAX package's `a[idx]` returns a row for any index
+    (`ops.nn.clamp_index`). PyTorch would raise, and on the card assert."""
+    parts = key if isinstance(key, tuple) else (key,)
+    if not any(_gathers(k) for k in parts):
+        return key
+    from ..ops.nn import clamp_index
+    # A bool mask spans as many axes as it has; any other index (an int,
+    # an integer array of any rank, a slice) indexes one axis.
+    used = sum(k.dim() if isinstance(k, torch.Tensor)
+               and k.dtype == torch.bool else 1
+               for k in parts if k is not None and k is not Ellipsis
+               and not isinstance(k, bool))
+    out, d = [], 0
+    for k in parts:
+        if k is Ellipsis:
+            d += len(shape) - used
+        elif isinstance(k, torch.Tensor) and k.dtype == torch.bool:
+            d += k.dim()
+        elif k is not None and not isinstance(k, bool):
+            if _gathers(k) and d < len(shape) and shape[d]:
+                n = shape[d]
+                if isinstance(k, torch.Tensor):
+                    k = clamp_index(k, n)
+                else:
+                    k = min(max(k + n if k < 0 else k, 0), n - 1)
+            d += 1
+        out.append(k)
+    return tuple(out) if isinstance(key, tuple) else out[0]
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,8 @@ import torch.nn.functional as F
 
 from ..base import (BFLOAT16, NARROW, from_torch_dtype, name_to_dtype,
                     to_torch_dtype)
-from ..ndarray import (NDArray, _as_nd, _wrap, waitall, array, zeros, ones,
-                       full, empty, arange, save, load)
+from ..ndarray import (NDArray, _as_nd, _int_by_zero, _pow, _wrap, waitall,
+                       array, zeros, ones, full, empty, arange, save, load)
 from ..ops.registry import as_tensor, invoke, register_op
 from ..device import resolve_device
 
@@ -190,6 +190,8 @@ def _nanmax(a, axis=None, out=None, keepdims=False, initial=None,
 
 def _argext(f, a, axis, keepdims):
     a = _T(a)
+    if a.dtype == torch.bool:
+        a = a.to(torch.uint8)
     if axis is None:
         r = f(a.reshape(-1))
         return r.reshape([1] * a.dim()) if keepdims else r
@@ -199,13 +201,18 @@ def _argext(f, a, axis, keepdims):
 def _quantile(a, q, axis=None, out=None, overwrite_input=False,
               method="linear", keepdims=False, nan=False):
     a = _fl(a)
+    dt = a.dtype
+    if dt in (torch.float16, torch.bfloat16):
+        # torch.quantile takes float32 and float64 only; the JAX package
+        # returns the 16-bit type
+        a = a.float()
     qt = _T(q, a).to(a.dtype)
     fn = torch.nanquantile if nan else torch.quantile
     b, keep = _merge(a, axis)
     r = fn(b, qt, dim=-1, interpolation=method)
     if keepdims:
         r = r.reshape(tuple(qt.shape) + tuple(keep))
-    return r
+    return r.to(dt)
 
 
 def _average(a, axis=None, weights=None, returned=False, keepdims=False):
@@ -227,6 +234,8 @@ def _average(a, axis=None, weights=None, returned=False, keepdims=False):
 
 def _cum(f, a, axis, dtype):
     a = _T(a)
+    if dtype is None and a.dtype in (torch.int8, torch.uint8, torch.int16):
+        dtype = a.dtype      # JAX keeps a small integer type (and wraps)
     if axis is None:
         a, axis = a.reshape(-1), 0
     return f(a, dim=axis, dtype=dtype)
@@ -315,8 +324,14 @@ def _expand_dims(a, axis):
 
 def _squeeze(a, axis=None):
     a = _T(a)
-    return a.squeeze() if axis is None else a.squeeze(
-        (axis,) if isinstance(axis, int) else tuple(axis))
+    if axis is None:
+        return a.squeeze()
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    if _b.any(a.shape[d] != 1 for d in axes):
+        raise ValueError(
+            "cannot select an axis to squeeze out which has size not equal "
+            f"to one, got shape={tuple(a.shape)} and dimensions={axes}")
+    return a.squeeze(axes)
 
 
 def _many(f):
@@ -442,14 +457,38 @@ def _take(a, indices, axis=None, out=None, mode=None, unique_indices=False,
         a, axis = a.reshape(-1), 0
     n = a.shape[axis]
     idx = _T(indices, a).to(torch.int64)
+    bad = None
     if mode == "clip":
         idx = idx.clamp(0, n - 1)
     elif mode == "wrap":
         idx = idx % n
     else:
+        # jnp.take's default, "fill": negative from the end, and a position
+        # still outside the axis reads `fill_value`
         idx = torch.where(idx < 0, idx + n, idx)
+        bad = (idx < 0) | (idx >= n)
+        idx = idx.clamp(0, _b.max(n - 1, 0))
     out = a.index_select(axis, idx.reshape(-1))
-    return out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
+    out = out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
+    if bad is None:
+        return out
+    bad = bad.reshape((1,) * axis + idx.shape
+                      + (1,) * (a.dim() - axis - 1))
+    fill = _take_fill(a.dtype) if fill_value is None else fill_value
+    return torch.where(bad, torch.tensor(fill, dtype=a.dtype,
+                                         device=a.device), out)
+
+
+def _take_fill(dtype):
+    """jnp.take's fill for an out-of-range position: NaN for a float type,
+    the lowest value of a signed integer type, the highest of an unsigned
+    one, True for bool."""
+    if dtype == torch.bool:
+        return True
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
 
 
 def _take_along_axis(arr, indices, axis, mode=None, fill_value=None):
@@ -636,6 +675,9 @@ def _tri(N, M=None, k=0, dtype=None):
 
 def _ediff1d(ary, to_end=None, to_begin=None):
     a = _T(ary).reshape(-1)
+    if a.dtype == torch.bool:
+        raise TypeError("ediff1d subtracts neighbours, which a bool array "
+                        "has no operator for")
     parts = [torch.diff(a)]
     if to_begin is not None:
         parts.insert(0, _T(to_begin, a).reshape(-1).to(a.dtype))
@@ -713,8 +755,31 @@ def _spacing(x):
                            .to(x.dtype)) - x
 
 
+class _Abs(torch.autograd.Function):
+    """|x| with jax.grad's derivative at 0: sign(x) there would give 0, the
+    JAX package's abs gives 1 (so sqrt(abs(x)) reads inf, not nan)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def _abs(x):
+    x = _T(x)
+    if x.requires_grad and torch.is_grad_enabled() \
+            and x.is_floating_point():
+        return _Abs.apply(x)
+    return torch.abs(x)
+
+
 def _fabs(x):
-    return torch.abs(_fl(x))
+    return _abs(_fl(x))
 
 
 def _cbrt(x):
@@ -862,10 +927,43 @@ def _round(a, decimals=0, out=None):
     return torch.round(a, decimals=decimals) if a.is_floating_point() else a
 
 
+class _Clip(torch.autograd.Function):
+    """clamp(x, lo, hi) with jax.grad's derivative: jnp.clip is
+    minimum(maximum(x, lo), hi), whose ties split the gradient, so an
+    element at a bound takes half (a quarter where lo == hi == x)."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = lo, hi
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        scale = torch.ones_like(x)
+        if lo is not None:
+            scale = torch.where(x > lo, scale, torch.where(x == lo, 0.5, 0.0))
+            x = torch.clamp(x, lo, None)
+        if hi is not None:
+            scale = scale * torch.where(x < hi, 1.0,
+                                        torch.where(x == hi, 0.5, 0.0))
+        return g * scale.to(g.dtype), None, None
+
+
 def _clip(arr=None, min=None, max=None, a_min=None, a_max=None):
     lo = a_min if min is None else min
     hi = a_max if max is None else max
-    return torch.clamp(arr, lo, hi)
+    if not (arr.requires_grad and torch.is_grad_enabled()):
+        return torch.clamp(arr, lo, hi)
+    if _b.any(isinstance(b, torch.Tensor) and b.requires_grad
+              for b in (lo, hi)):
+        # bounds that take a gradient: torch's maximum/minimum split ties
+        # as jax.grad does
+        out = arr if lo is None else torch.maximum(arr, _T(lo, arr))
+        return out if hi is None else torch.minimum(out, _T(hi, arr))
+    return _Clip.apply(arr, lo, hi)
 
 
 def _ufunc2(f):
@@ -879,6 +977,12 @@ def _ufunc2(f):
             x2 = _T(x2, x1)
         return f(x1, x2, *args, **kwargs)
     return g
+
+
+def _power(x1, x2):
+    if isinstance(x1, torch.Tensor) and isinstance(x2, (int, float)):
+        return _pow(x1, x2)
+    return _ufunc2(torch.pow)(x1, x2)
 
 
 def _ufunc2_float(f):
@@ -1016,12 +1120,15 @@ _TABLE = {
     "add": _ufunc2(torch.add), "subtract": _ufunc2(torch.subtract),
     "multiply": _ufunc2(torch.multiply), "divide": _ufunc2(torch.true_divide),
     "true_divide": _ufunc2(torch.true_divide),
-    "floor_divide": _ufunc2(torch.floor_divide),
-    "mod": _ufunc2(torch.remainder), "remainder": _ufunc2(torch.remainder),
-    "fmod": _ufunc2(torch.fmod), "power": _ufunc2(torch.pow),
+    "floor_divide": _ufunc2(lambda a, b: _int_by_zero(torch.floor_divide,
+                                                      a, b)),
+    "mod": _ufunc2(lambda a, b: _int_by_zero(torch.remainder, a, b)),
+    "remainder": _ufunc2(lambda a, b: _int_by_zero(torch.remainder, a, b)),
+    "fmod": _ufunc2(lambda a, b: _int_by_zero(torch.fmod, a, b)),
+    "power": _power,
     "float_power": _ufunc2(lambda a, b: torch.float_power(a, b)),
     "negative": _u(torch.neg), "positive": _u(torch.positive),
-    "absolute": _u(torch.abs), "abs": _u(torch.abs), "fabs": _fabs,
+    "absolute": _abs, "abs": _abs, "fabs": _fabs,
     "sign": _u(torch.sign), "rint": _u(torch.round),
     "reciprocal": _reciprocal, "square": _u(torch.square),
     "sqrt": _float1(torch.sqrt), "cbrt": _cbrt, "exp": _float1(torch.exp),
@@ -1127,9 +1234,9 @@ _TABLE = {
         _cum(torch.cumprod, _nanfill(a, 1.0) if a.is_floating_point() else a,
              axis, dtype),
     "all": lambda a, axis=None, out=None, keepdims=False, where=None:
-        torch.all(_T(a), dim=_dims(_T(a), axis), keepdim=keepdims),
+        torch.all(_T(a).bool(), dim=_dims(_T(a), axis), keepdim=keepdims),
     "any": lambda a, axis=None, out=None, keepdims=False, where=None:
-        torch.any(_T(a), dim=_dims(_T(a), axis), keepdim=keepdims),
+        torch.any(_T(a).bool(), dim=_dims(_T(a), axis), keepdim=keepdims),
     "count_nonzero": _count_nonzero, "bincount": _bincount,
     "histogram": _histogram, "histogram2d": _histogram2d, "corrcoef": _corrcoef, "cov": _cov,
     "digitize": _digitize,

@@ -13,14 +13,15 @@ The kernel ops run the port's hand-written CUDA kernels for CUDA arrays
 `fused_batch_norm` run B1 (the scale/shift/activation apply),
 `fused_avg_pool2d` B2 / B3, `flash_attention` B5-B8 (AMP class "safe"),
 `paged_attention` B4 (float and int8 slabs), `box_nms` and
-`multibox_detection` the NMS sweep. An `interpret=` argument is accepted
+`multibox_detection` the NMS sweep, `fused_image_augment` the input path's
+augment kernel (port-only). An `interpret=` argument is accepted
 where the JAX signature has one and changes nothing: a CUDA array still
 launches the kernel or raises.
 
 Not in this slice (each raises naming its queue): the Faster-RCNN ops
 `roi_align`, `bilinear_resize2d`, `proposal`, `deformable_convolution` and
-`psroi_pooling` (ROADMAP A5's remainder), `rnn` (A12, with `gluon.rnn`)
-and `fused_image_augment` (A6, the input path).
+`psroi_pooling` (ROADMAP A5's remainder) and `rnn` (A12, with
+`gluon.rnn`).
 """
 from __future__ import annotations
 
@@ -445,6 +446,26 @@ def fused_avg_pool2d(data, pool_size, layout="NHWC", interpret=None):
                   kwargs=dict(pool_size=ps, layout=layout))
 
 
+register_op("npx.fused_image_augment", _fused.image_augment)
+
+
+def fused_image_augment(images, key, mean=None, std=None, crop_hw=None,
+                        rand_mirror=False, out_dtype="float32",
+                        interpret=None):
+    """The input path's crop / mirror / 1/255 / mean-std / cast in one pass
+    (`ops.fused.image_augment`; the augment kernel for a CUDA batch). `key`
+    is the (epoch seed, batch) pair of uint32 the draws are seeded from,
+    read on the host."""
+    key = key.asnumpy() if isinstance(key, NDArray) else key
+    key = key.tolist() if hasattr(key, "tolist") else list(key)
+    return invoke(_fused.image_augment, (_as_nd(images),),
+                  name="fused_image_augment",
+                  op=get_op("npx.fused_image_augment"),
+                  kwargs=dict(key=tuple(key), mean=mean, std=std,
+                              crop_hw=crop_hw, rand_mirror=rand_mirror,
+                              out_dtype=out_dtype))
+
+
 def fused_batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-5,
                      momentum=0.9, axis=1, use_global_stats=False,
                      training=None, sync_axis_name=None, act_type=None,
@@ -538,8 +559,6 @@ proposal = _not_ported("proposal", "A5")
 deformable_convolution = _not_ported("deformable_convolution", "A5")
 psroi_pooling = _not_ported("psroi_pooling", "A5")
 rnn = _not_ported("rnn", "A12 (gluon.rnn)")
-fused_image_augment = _not_ported("fused_image_augment",
-                                  "A6 (the input path)")
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ Counterpart of `incubator_mxnet_tpu/ops/fused.py`:
   batch_norm         scale_shift_act.cu (apply pass)    apply_scale_shift_act
   avg_pool2d         avg_pool2d.cu (forward, backward)  avg_pool2d_fwd / _bwd
   paged_attention    paged_attention.cu                 paged_attention_fwd
+  image_augment      image_augment.cu                   none (port-only)
 
 The dispatch is by the device of the tensors alone: a CPU tensor takes the
 plain version, a CUDA tensor takes the kernel or raises. No environment
@@ -47,7 +48,8 @@ from ..base import MXNetError
 from . import kernels
 
 __all__ = ["bias_act", "norm_act_residual", "bn_inference", "batch_norm",
-           "avg_pool2d", "paged_attention",
+           "avg_pool2d", "paged_attention", "image_augment",
+           "image_augment_ref", "augment_draws",
            "bias_act_ref", "norm_act_residual_ref", "bn_inference_ref",
            "avg_pool2d_ref", "avg_pool2d_bwd_ref", "apply_ref",
            "paged_attention_ref",
@@ -487,3 +489,167 @@ def paged_attention(q, k_slab, v_slab, lengths, layer, k_scale=None,
         return paged_attention_ref(q, k_slab, v_slab, lengths, layer,
                                    k_scale, v_scale)
     raise _no_path("paged_attention", q)
+
+
+# ---------------------------------------------------------------------------
+# the input path's augment: crop, mirror, 1/255, mean/std, cast
+# ---------------------------------------------------------------------------
+def _crop_hw(images, crop_hw):
+    h, w = int(images.shape[1]), int(images.shape[2])
+    return (h, w) if crop_hw is None else (int(crop_hw[0]), int(crop_hw[1]))
+
+
+def _start(v, size, window):
+    """lax.dynamic_slice's start: negative from the end, then clamped into
+    [0, size - window]."""
+    v = v.long()
+    return torch.where(v < 0, v + size, v).clamp(0, size - window)
+
+
+def image_augment_ref(images, y0, x0, flips, crop_hw=None, mean=None,
+                      std=None, out_dtype=torch.float32):
+    """The plain version of the augment kernel, the JAX package's jnp chain
+    (`ops/fused.py:500` there) on explicit draws: uint8 pixels times 1/255
+    (a float input as float32), each image cut at (y0[n], x0[n]) to
+    `crop_hw` (an offset read as lax.dynamic_slice reads a start:
+    negative from the end, then clamped so the crop fits),
+    mirrored where flips[n], minus `mean`, over `std`, cast to
+    `out_dtype`. Each step is its own rounded op."""
+    x = images
+    x = x.to(torch.float32) * (1.0 / 255.0) if not x.is_floating_point() \
+        else x.to(torch.float32)
+    n, h, w = x.shape[:3]
+    ch, cw = _crop_hw(images, crop_hw)
+    if (ch, cw) != (h, w):
+        dev = x.device
+        rows = _start(y0, h, ch)[:, None] + torch.arange(ch, device=dev)
+        cols = _start(x0, w, cw)[:, None] + torch.arange(cw, device=dev)
+        x = x[torch.arange(n, device=dev)[:, None, None], rows[:, :, None],
+              cols[:, None, :]]
+    if flips is not None:
+        x = torch.where(flips.bool()[:, None, None, None], x.flip(2), x)
+    if mean is not None:
+        x = x - torch.tensor(mean, dtype=torch.float32, device=x.device)
+    if std is not None:
+        x = x / torch.tensor(std, dtype=torch.float32, device=x.device)
+    return x.to(out_dtype)
+
+
+def _augment_fwd(images, y0, x0, flips, crop_hw, mean, std, out_dtype):
+    dev = images.device.type
+    if dev == "cuda":
+        ch, cw = _crop_hw(images, crop_hw)
+        if (ch, cw) == tuple(images.shape[1:3]):
+            y0 = x0 = None
+        return kernels.image_augment_cuda(images, y0, x0, flips, (ch, cw),
+                                          mean, std, out_dtype)
+    if dev == "cpu":
+        return image_augment_ref(images, y0, x0, flips, crop_hw, mean, std,
+                                 out_dtype)
+    raise _no_path("image_augment", images)
+
+
+class _ImageAugment(torch.autograd.Function):
+    """The augment of a float input with its gradient: the JAX package
+    differentiates through the affine (XLA's backward, not a Pallas
+    kernel), so the backward is plain torch ops: grad / std, un-mirrored,
+    scattered into each image's crop window, in the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, images, y0, x0, flips, crop_hw, mean, std, out_dtype):
+        ctx.save_for_backward(y0, x0, flips)
+        ctx.meta = (tuple(images.shape), images.dtype,
+                    _crop_hw(images, crop_hw), std)
+        return _augment_fwd(images, y0, x0, flips, crop_hw, mean, std,
+                            out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        y0, x0, flips = ctx.saved_tensors
+        (n, h, w, c), dtype, (ch, cw), std = ctx.meta
+        g = g.to(torch.float32)
+        if std is not None:
+            g = g / torch.tensor(std, dtype=torch.float32, device=g.device)
+        if flips is not None:
+            g = torch.where(flips.bool()[:, None, None, None], g.flip(2), g)
+        if (ch, cw) != (h, w):
+            dev = g.device
+            dx = torch.zeros((n, h, w, c), dtype=torch.float32, device=dev)
+            rows = _start(y0, h, ch)[:, None] + torch.arange(ch,
+                                                             device=dev)
+            cols = _start(x0, w, cw)[:, None] + torch.arange(cw,
+                                                             device=dev)
+            dx[torch.arange(n, device=dev)[:, None, None], rows[:, :, None],
+               cols[:, None, :]] = g
+            g = dx
+        return g.to(dtype), None, None, None, None, None, None, None
+
+
+def _augment_apply(images, y0, x0, flips, crop_hw=None, mean=None, std=None,
+                   out_dtype=torch.float32):
+    """The augment on explicit draws (int32 offsets y0 / x0 of shape (N,)
+    or None, flips (N,) or None): the kernel for a CUDA batch, the plain
+    version for a CPU one; a float input that requires a gradient gets
+    one."""
+    mean = None if mean is None else tuple(float(v) for v in mean)
+    std = None if std is None else tuple(float(v) for v in std)
+    if images.is_floating_point():
+        images = images if images.dtype == torch.float32 \
+            else images.to(torch.float32)
+        if images.requires_grad and torch.is_grad_enabled():
+            return _ImageAugment.apply(images, y0, x0, flips, crop_hw, mean,
+                                       std, out_dtype)
+    return _augment_fwd(images, y0, x0, flips, crop_hw, mean, std,
+                        out_dtype)
+
+
+def augment_draws(key, n, hw, crop_hw, rand_mirror, device):
+    """(y0, x0, flips) for a batch of `n` images of size `hw`: the crop
+    offsets (int32, only when `crop_hw` is smaller) and the mirror bits
+    (uint8, only under `rand_mirror`), drawn in that order from a
+    `torch.Generator` on `device` seeded from `key`, a pair of uint32
+    (epoch seed, batch number). The JAX package draws from
+    `jax.random.split(key)`; the port's draws differ from those, and are a
+    deterministic function of (key, device) alone."""
+    k0, k1 = (int(v) & 0xFFFFFFFF for v in key)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((k0 << 32) | k1)
+    h, w = hw
+    ch, cw = (h, w) if crop_hw is None else crop_hw
+    y0 = x0 = flips = None
+    if (ch, cw) != (h, w):
+        y0 = torch.randint(0, h - ch + 1, (n,), generator=gen, device=device,
+                           dtype=torch.int32)
+        x0 = torch.randint(0, w - cw + 1, (n,), generator=gen, device=device,
+                           dtype=torch.int32)
+    if rand_mirror:
+        flips = torch.randint(0, 2, (n,), generator=gen, device=device,
+                              dtype=torch.uint8)
+    return y0, x0, flips
+
+
+def image_augment(images, key, mean=None, std=None, crop_hw=None,
+                  rand_mirror=False, out_dtype="float32"):
+    """The card half of the input pipeline (the JAX package's
+    `ops.fused.image_augment`): optional per-image random crop to `crop_hw`
+    (when the images are larger), optional per-image horizontal mirror,
+    [0, 1] scale of uint8 pixels, per-channel mean / std, cast to
+    `out_dtype`, in one pass of `csrc/image_augment.cu` for a CUDA batch.
+    `images`: (N, H, W, 3) uint8, or a float array already in [0, 1]
+    (gradients flow through the affine). `key`: the (epoch seed, batch)
+    pair of uint32 the draws are seeded from (`augment_draws`)."""
+    if isinstance(key, torch.Tensor):
+        key = key.tolist()
+    out_dtype = _augment_dtype(out_dtype)
+    n, h, w = images.shape[:3]
+    crop = None if crop_hw is None else (int(crop_hw[0]), int(crop_hw[1]))
+    y0, x0, flips = augment_draws(key, n, (h, w), crop, rand_mirror,
+                                  images.device)
+    return _augment_apply(images, y0, x0, flips, crop, mean, std, out_dtype)
+
+
+def _augment_dtype(dtype):
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    from ..base import to_torch_dtype
+    return to_torch_dtype(dtype)

@@ -37,6 +37,7 @@ from ..base import MXNetError
 __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
            "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "flash_fwd_cuda",
            "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "nms_sweep_cuda",
+           "image_augment_cuda",
            "flash_fwd_route",
            "flash_bwd_route", "paged_route", "pool_route",
            "ACT_CODES", "DTYPE_CODES", "RULES", "refusal",
@@ -46,7 +47,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 _SOURCES = ("paged_attention", "scale_shift_act", "avg_pool2d",
-            "flash_attention", "nms")
+            "flash_attention", "nms", "image_augment")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -77,6 +78,8 @@ flash_bwd_dq_wgmma_launches = 0
 flash_bwd_dkv_wgmma_launches = 0
 # the detection tail's greedy NMS sweep (port-only: no TPU kernel)
 nms_sweep_launches = 0
+# the input path's crop / mirror / normalize / cast (port-only)
+image_augment_launches = 0
 # every launch above again, by (counter name, dtype name of the launch's
 # data: x, q, or the slab for the paged kernel's slab side)
 _BY_DTYPE = Counter()
@@ -95,7 +98,7 @@ def reset_launch_counts():
         flash_fwd_wgmma_launches, flash_fwd_lse_wgmma_launches, \
         flash_bwd_dq_launches, flash_bwd_dkv_launches, \
         flash_bwd_dq_wgmma_launches, flash_bwd_dkv_wgmma_launches, \
-        nms_sweep_launches
+        nms_sweep_launches, image_augment_launches
     paged_attention_launches = 0
     paged_attention_int8_launches = 0
     paged_attention_split_launches = 0
@@ -113,6 +116,7 @@ def reset_launch_counts():
     flash_bwd_dq_wgmma_launches = 0
     flash_bwd_dkv_wgmma_launches = 0
     nms_sweep_launches = 0
+    image_augment_launches = 0
     _BY_DTYPE.clear()
 
 
@@ -142,7 +146,8 @@ def launch_counts():
             "flash_bwd_dkv": flash_bwd_dkv_launches,
             "flash_bwd_dq_wgmma": flash_bwd_dq_wgmma_launches,
             "flash_bwd_dkv_wgmma": flash_bwd_dkv_wgmma_launches,
-            "nms_sweep": nms_sweep_launches}
+            "nms_sweep": nms_sweep_launches,
+            "image_augment": image_augment_launches}
 
 
 def _nvcc():
@@ -284,6 +289,11 @@ def _load(name):
                 lib.mx_flash_bwd_dkv_wgmma.restype = ctypes.c_int
                 lib.mx_flash_bwd_dkv_wgmma.argtypes = (
                     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + tail)
+            elif name == "image_augment":
+                lib.mx_image_augment.restype = ctypes.c_int
+                lib.mx_image_augment.argtypes = (
+                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
             elif name == "nms":
                 lib.mx_nms_sweep.restype = ctypes.c_int
                 lib.mx_nms_sweep.argtypes = (
@@ -299,9 +309,10 @@ def _load(name):
 ACT_CODES = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3, "silu": 4,
              "gelu": 5}
 # the one table of dtype codes every wrapper passes and every C entry point
-# of csrc/ reads; int8 is the paged kernel's quantized slab alone
+# of csrc/ reads; int8 is the paged kernel's quantized slab alone, uint8 the
+# augment kernel's raw pixels
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
-               torch.int8: 3}
+               torch.int8: 3, torch.uint8: 4}
 # the float types every kernel takes (x, q, dO, the pooled tensor)
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -320,6 +331,9 @@ RULES = (
      lambda s: s["ph"] <= 0 or s["pw"] <= 0 or s["h"] % s["ph"]
      or s["w"] % s["pw"],
      "pool {ph}x{pw} must divide the spatial dims {h}x{w}"),
+    ("image_augment", "jax",
+     lambda s: not (0 < s["ch"] <= s["h"] and 0 < s["cw"] <= s["w"]),
+     "crop {ch}x{cw} does not fit the images {h}x{w}"),
 )
 
 
@@ -327,8 +341,8 @@ def refusal(kernel, **shape):
     """Why the CUDA kernel `kernel` refuses `shape`, or None when a kernel
     takes it. Kernels and the shape keys their rules read:
     "paged_attention" (head_dim), "scale_shift_act" (act), "avg_pool2d"
-    (h, w, ph, pw), "flash" (d; all four flash kernels); the paged and flash
-    kernels have no row. Runs anywhere: the
+    (h, w, ph, pw), "flash" (d; all four flash kernels), "image_augment"
+    (h, w, ch, cw); the paged and flash kernels have no row. Runs anywhere: the
     CPU tests hold it against the JAX package."""
     for name, _kind, test, message in RULES:
         if name == kernel and test(shape):
@@ -902,4 +916,64 @@ def nms_sweep_cuda(boxes, ids, keep, thresh):
         raise _launch_failed(lib, "nms_sweep", rc)
     nms_sweep_launches += 1
     _count_dtype("nms_sweep", boxes.dtype)
+    return out
+
+
+def image_augment_cuda(images, y0, x0, flips, crop_hw, mean, std, out_dtype):
+    """Launch the input path's augment kernel (`csrc/image_augment.cu`):
+    crop each image at (y0[n], x0[n]) to `crop_hw`, mirror it where
+    flips[n], scale uint8 pixels by 1/255, subtract `mean`, divide by `std`
+    and cast, in one pass, as `ops.fused.image_augment_ref` computes it,
+    bit for bit.
+
+    `images`: contiguous (N, H, W, 3) uint8 or float32. `y0` / `x0`:
+    contiguous (N,) int32, or None (no crop: `crop_hw` is (H, W)), each
+    read as lax.dynamic_slice reads a start (negative from the end, then
+    clamped so the crop fits). `flips`: contiguous (N,)
+    bool or uint8, or None. `mean` / `std`: 3 floats each, or None.
+    `out_dtype`: float32, bfloat16 or float16. Returns a new (N, ch, cw, 3)
+    tensor. Raises `MXNetError` on any input the kernel does not take."""
+    global image_augment_launches
+    name = "image_augment_cuda"
+    draws = [t for t in (y0, x0, flips) if t is not None]
+    _check_cuda(name, [images] + draws)
+    if images.dim() != 4 or images.shape[3] != 3 \
+            or images.dtype not in (torch.uint8, torch.float32):
+        raise MXNetError(f"{name}: images must be (N, H, W, 3) uint8 or "
+                         f"float32; got {tuple(images.shape)} "
+                         f"{images.dtype}")
+    if out_dtype not in _FLOATS:
+        raise MXNetError(f"{name}: out_dtype must be one of {_FLOATS}; got "
+                         f"{out_dtype}")
+    N, H, W, _ = images.shape
+    ch, cw = (int(v) for v in crop_hw)
+    _refuse(name, "image_augment", h=H, w=W, ch=ch, cw=cw)
+    if (y0 is None) != (x0 is None) or (y0 is None and (ch, cw) != (H, W)):
+        raise MXNetError(f"{name}: a crop smaller than the images needs "
+                         f"both y0 and x0")
+    for label, t, dts in (("y0", y0, (torch.int32,)),
+                          ("x0", x0, (torch.int32,)),
+                          ("flips", flips, (torch.bool, torch.uint8))):
+        if t is not None and (t.shape != (N,) or t.dtype not in dts):
+            raise MXNetError(f"{name}: {label} must be ({N},) of "
+                             f"{dts}; got {tuple(t.shape)} {t.dtype}")
+    if not all(t.is_contiguous() for t in [images] + draws):
+        raise MXNetError(f"{name}: images and draws must be contiguous")
+    out = torch.empty((N, ch, cw, 3), dtype=out_dtype, device=images.device)
+    if N == 0:
+        return out
+    consts = [None if v is None else (ctypes.c_float * 3)(*map(float, v))
+              for v in (mean, std)]
+    lib = _load("image_augment")
+    stream = torch.cuda.current_stream(images.device).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = lib.mx_image_augment(
+        DTYPE_CODES[images.dtype], DTYPE_CODES[out_dtype],
+        images.device.index or 0, images.data_ptr(), ptr(y0), ptr(x0),
+        ptr(flips), out.data_ptr(), N, H, W, ch, cw, consts[0], consts[1],
+        stream)
+    if rc != 0:
+        raise _launch_failed(lib, "image_augment", rc)
+    image_augment_launches += 1
+    _count_dtype("image_augment", out_dtype)
     return out

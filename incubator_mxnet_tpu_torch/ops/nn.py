@@ -45,7 +45,7 @@ __all__ = ["convolution", "deconvolution", "fully_connected", "batch_norm",
            "layer_norm", "group_norm", "instance_norm", "rms_norm",
            "pooling", "activation", "relu", "leaky_relu", "elu", "selu",
            "gelu", "silu", "swish", "sigmoid", "softmax", "log_softmax",
-           "pick", "embedding", "dropout", "scaled_dot_product_attention",
+           "pick", "clamp_index", "embedding", "dropout", "scaled_dot_product_attention",
            "add",
            "multiply", "clip", "sum", "mean", "reshape", "transpose",
            "concat", "reflection_pad2d"]
@@ -418,11 +418,26 @@ def pick(x, index, axis=-1, keepdims=False):
     return picked if keepdims else picked.squeeze(axis)
 
 
+def clamp_index(indices, n):
+    """`indices` as int64 positions along an axis of size `n` as XLA's
+    gathers read them: a negative one counts from the end, and what is
+    still outside [0, n) is clamped to the nearest end. (PyTorch's index
+    kernels raise instead, on the card through a device-side assert that
+    leaves the context unusable.)"""
+    idx = indices.to(torch.int64)
+    if n == 0:
+        return idx
+    # [-n, n) first, then the negative ones from the end: two launches
+    return torch.remainder(idx.clamp(-n, n - 1), n)
+
+
 def embedding(indices, weight):
-    """Rows of `weight` (input_dim, output_dim) gathered by `indices`."""
+    """Rows of `weight` (input_dim, output_dim) gathered by `indices`; an
+    index outside the rows reads as `clamp_index` places it, as the JAX
+    package's `weight[indices]` does."""
     (weight,) = amp.cast_inputs("embedding", "neutral", weight)
-    return F.embedding(indices.to(device=weight.device, dtype=torch.int64),
-                       weight)
+    return F.embedding(
+        clamp_index(indices.to(weight.device), weight.shape[0]), weight)
 
 
 def dropout(x, rate, generator, training=True):

@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError, get_env, torch_dtype
+from ..ops.nn import clamp_index
 from ..device import resolve_device
 from ..ops import fused as _fused
 from .batcher import (ServeError, QueueFullError, RequestTimeout,
@@ -149,6 +150,15 @@ def params_from_jax(params_np, device=None):
             t = torch.from_numpy(a.copy())
         out[name] = t.to(dev)
     return out
+
+
+def _embed(params, tokens):
+    """The token embeddings of `tokens`: an id outside the vocabulary reads
+    the row XLA's gather clamps it to, as the JAX package's
+    `params["emb"][tokens]` does, so a bad prompt token is served and never
+    reaches PyTorch's index kernel (on the card a device-side assert)."""
+    emb = params["emb"]
+    return emb[clamp_index(tokens, emb.shape[0])]
 
 
 def _rmsnorm(x, scale):
@@ -374,7 +384,7 @@ def _make_prefill(config, window=None):
         P = tokens.shape[0]
         dev = tokens.device
         lengths = lengths.long()
-        x = params["emb"][tokens.long()] + params["pos"][None, :W]
+        x = _embed(params, tokens) + params["pos"][None, :W]
         pos = torch.arange(W, device=dev)
         key_valid = pos[None, :] < lengths[:, None]            # (P, W)
         causal = pos[:, None] >= pos[None, :]                  # (W, W)
@@ -440,7 +450,7 @@ def _make_chunk_prefill(config, window=None, extent=None):
         wposs = torch.clamp(offsets[:, None] + j[None, :], 0, T - 1)
         valid = j[None, :] < nvalid.long()[:, None]            # (S, W)
         rows = torch.where(valid, lanes[:, None], S)           # garbage=S
-        x = params["emb"][tokens.long()] + params["pos"][wposs]
+        x = _embed(params, tokens) + params["pos"][wposs]
         for l in range(c.layers):
             h = _rmsnorm(x, params["ln1"][l])
             q = (h @ params["wq"][l]).reshape(S, W, c.heads, c.head_dim)
@@ -482,7 +492,7 @@ def _make_decode(config, steps=1, eos_id=None):
         dev = tokens.device
         rows = torch.where(active, torch.arange(S, device=dev), S)
         wpos = torch.clamp(lengths, 0, T - 1).long()
-        x = params["emb"][tokens.long()] + params["pos"][wpos]   # (S, E)
+        x = _embed(params, tokens) + params["pos"][wpos]   # (S, E)
         for l in range(c.layers):
             h = _rmsnorm(x, params["ln1"][l])
             q = (h @ params["wq"][l]).reshape(S, c.heads, c.head_dim)
@@ -581,7 +591,7 @@ def _make_spec_decode(config, steps=1, eos_id=None, draft=2):
         # -- ONE verify forward over the whole chunk [last, drafts...]
         chunk = torch.cat([last[:, None], drafts], dim=1)         # (S, C)
         wposs = torch.clamp(lens64[:, None] + coffs[None, :], 0, T - 1)
-        x = params["emb"][chunk.long()] + params["pos"][wposs]    # (S,C,E)
+        x = _embed(params, chunk) + params["pos"][wposs]    # (S,C,E)
         for l in range(c.layers):
             h = _rmsnorm(x, params["ln1"][l])
             q = (h @ params["wq"][l]).reshape(S, C, c.heads, c.head_dim)

@@ -138,7 +138,8 @@ def test_the_table_names_only_the_remainder_and_refusals_jax_shares():
     shares, and the paged and flash kernels have none."""
     kinds = {(name, kind) for name, kind, _, _ in kernels.RULES}
     assert {kind for _, kind in kinds} == {"jax"}
-    assert {name for name, _ in kinds} == {"scale_shift_act", "avg_pool2d"}
+    assert {name for name, _ in kinds} == {"scale_shift_act", "avg_pool2d",
+                                           "image_augment"}
     assert not hasattr(kernels, "HEAD_DIM_MAX")
 
 

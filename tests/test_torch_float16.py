@@ -22,6 +22,7 @@ once; gradients, which round more than once, within 2^-8); loss scales
 exactly.
 """
 import os
+import contextlib
 import types
 
 import numpy as np
@@ -45,6 +46,7 @@ from incubator_mxnet_tpu_torch import gluon as tgluon
 from incubator_mxnet_tpu_torch.ops import attention, fused, kernels
 
 from test_torch_coverage import _cuda
+from torch_port_utils import jax_amp_restored
 
 torch.set_num_threads(1)
 
@@ -227,7 +229,7 @@ def test_fused_ops_send_float16_cuda_tensors_to_the_kernels(fake_lib,
 
 def test_one_dtype_code_table():
     assert kernels.DTYPE_CODES == {torch.float32: 0, torch.bfloat16: 1,
-                                   F16: 2, torch.int8: 3}
+                                   F16: 2, torch.int8: 3, torch.uint8: 4}
     csrc = os.path.join(os.path.dirname(kernels.__file__), "csrc")
 
     def text(name):
@@ -241,8 +243,13 @@ def test_one_dtype_code_table():
     pa_text = text("paged_attention.cu")
     assert "q_dtype: 0 float32, 1 bfloat16, 2 float16" in pa_text
     assert "kv_dtype: 0 float32, 1 bfloat16, 2 float16, 3 int8" in pa_text
-    # the refusal table keeps its rows: float16 adds none
-    assert [r[0] for r in kernels.RULES] == ["scale_shift_act", "avg_pool2d"]
+    ia_text = text("image_augment.cu")
+    assert "in_dtype: 0 float32, 4 uint8" in ia_text
+    assert "out_dtype: 0 float32, 1 bfloat16, 2 float16" in ia_text
+    # the refusal table keeps its rows: float16 adds none (the augment
+    # kernel's crop that does not fit is the JAX package's refusal too)
+    assert [r[0] for r in kernels.RULES] == ["scale_shift_act", "avg_pool2d",
+                                             "image_augment"]
 
 
 # ---------------------------------------------------------------------------
@@ -328,11 +335,39 @@ def test_paged_attention_float16_matches_jax_reference():
 # ---------------------------------------------------------------------------
 # AMP
 # ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _amp_off_scope():
+    """What `amp_off` runs around a test: both packages' AMP off after it,
+    and the JAX package's whole AMP state as it found it (its `uninit()`
+    keeps the target dtype, which a later JAX test would then autocast to)."""
+    with jax_amp_restored():
+        try:
+            yield
+        finally:
+            tamp.uninit()
+            jamp.uninit()
+
+
 @pytest.fixture
 def amp_off():
-    yield
-    tamp.uninit()
-    jamp.uninit()
+    with _amp_off_scope():
+        yield
+
+
+def test_amp_off_leaves_the_jax_packages_amp_as_it_found_it():
+    """A test under `amp_off` that sets float16 in the JAX package leaves
+    its target dtype bfloat16: a clean `autocast()` matmul is bfloat16."""
+    with _amp_off_scope():
+        jamp.init("float16")
+        tamp.init("float16")
+        jamp.FP32_FUNCS.add("mystery_op")
+    assert jamp.target_dtype() == "bfloat16"
+    assert not jamp.is_active() and "mystery_op" not in jamp.FP32_FUNCS
+    a = mx.np.ones((8, 8))
+    with jamp.autocast():
+        out = mx.np.matmul(a, a)
+    assert str(out.dtype) == "bfloat16"
+    assert str(mx.np.matmul(a, a).dtype) == "float32"
 
 
 def test_amp_init_float16_casts_as_jax(amp_off):

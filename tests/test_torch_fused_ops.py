@@ -31,6 +31,8 @@ from incubator_mxnet_tpu_torch import MXNetError
 from incubator_mxnet_tpu_torch import amp as tamp
 from incubator_mxnet_tpu_torch.ops import fused, kernels
 
+from torch_port_utils import jax_amp_restored
+
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -273,6 +275,7 @@ def test_layout_copies_are_counted():
     "relu", "add", "log_softmax", "pick", "sum", "mean", "reshape",
     "fused_batch_norm", "fused_avg_pool2d", "fused_bias_act",
     "fused_norm_act_residual", "fused_bn_inference"])
+@jax_amp_restored()
 def test_amp_policy_matches_jax_dispatch(name):
     """Under bf16 AMP the port casts each op to the dtype the JAX
     package's dispatch picks (name lists first, then the op's class)."""

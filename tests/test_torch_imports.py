@@ -69,7 +69,11 @@ def test_port_modules_import_without_jax():
             f"{pkg}.gluon.contrib.fused", f"{pkg}.ndarray", f"{pkg}.numpy",
             f"{pkg}.numpy.linalg", f"{pkg}.numpy.random",
             f"{pkg}.numpy_extension", f"{pkg}.ops.registry",
-            f"{pkg}.context", f"{pkg}.engine"} <= names
+            f"{pkg}.context", f"{pkg}.engine", f"{pkg}.recordio",
+            f"{pkg}.native", f"{pkg}.io", f"{pkg}.io.device_feed",
+            f"{pkg}.io.imagerec_pool", f"{pkg}.gluon.data",
+            f"{pkg}.gluon.data.dataloader",
+            f"{pkg}.gluon.data.vision.transforms"} <= names
 
 
 def test_chip_smoke_imports_without_jax():
@@ -83,3 +87,37 @@ def test_chip_smoke_without_a_card_fails_and_prints_no_result():
     assert r.returncode != 0
     assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
     assert "cuda" in r.stderr.lower()
+
+
+_STANDALONE = r"""
+import importlib.abc, importlib.util, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "jax", "jaxlib",
+                                  "incubator_mxnet_tpu",
+                                  "incubator_mxnet_tpu_torch"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, _Block())
+root = "incubator_mxnet_tpu_torch/"
+for name, path in (("common", root + "io/_imagerec_common.py"),
+                   ("worker", root + "io/_shm_worker.py"),
+                   ("native", root + "native/__init__.py")):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+assert "torch" not in sys.modules
+print("STANDALONE_OK")
+"""
+
+
+def test_decode_worker_modules_load_without_torch():
+    """The shm decode worker runs as a bare subprocess: it, the augment
+    spec and the native loaders it loads by path import no torch (nor
+    anything of either package), so a worker never starts a CUDA
+    runtime."""
+    r = _run(_STANDALONE)
+    assert r.returncode == 0, r.stderr
+    assert "STANDALONE_OK" in r.stdout

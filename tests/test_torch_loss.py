@@ -32,6 +32,8 @@ from incubator_mxnet_tpu_torch import amp as tamp
 from incubator_mxnet_tpu_torch import autograd as tautograd
 from incubator_mxnet_tpu_torch import gluon as tgluon
 
+from torch_port_utils import jax_amp_restored
+
 torch.set_num_threads(1)
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -162,6 +164,7 @@ AMP_STEPS = 2 * 2.0 ** -8
     ("HingeLoss", "sign"), ("SquaredHingeLoss", "sign"),
     ("LogisticLoss", "sign"), ("SigmoidBCELoss", "binary"),
     ("KLDivLoss", "prob"), ("PoissonNLLLoss", "prob")])
+@jax_amp_restored()
 def test_losses_under_bf16_amp_match_jax(name, label):
     rng = np.random.RandomState(9)
     pred = _r(rng, 4, 5)

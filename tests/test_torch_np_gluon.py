@@ -28,8 +28,8 @@ from incubator_mxnet_tpu_torch import gluon as tgluon
 from incubator_mxnet_tpu_torch.gluon.contrib import (FusedInferStep,
                                                       FusedTrainStep)
 
-from torch_port_utils import (assert_values_close, jax_values, port_values,
-                              vision_pair)
+from torch_port_utils import (assert_values_close, jax_amp_restored,
+                              jax_values, port_values, vision_pair)
 
 torch.set_num_threads(1)
 
@@ -122,6 +122,7 @@ def eager_step(mx, net, xs, y, steps, batch_size):
 
 
 @pytest.mark.parametrize("amp_dtype", [None, "bfloat16"])
+@jax_amp_restored()
 def test_bench_eager_step_matches_jax(amp_dtype):
     from incubator_mxnet_tpu_torch.gluon.model_zoo import vision as tv
     make = lambda v: v.resnet18_v1(layout="NHWC", **(  # noqa: E731

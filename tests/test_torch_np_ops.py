@@ -277,3 +277,105 @@ def test_scalar_ops_keep_a_16_bit_array_16_bit():
         for f in (lambda x: x * 2.0, lambda x: 1.5 + x, lambda x: x / 3,
                   lambda x: x ** 2, lambda x: -x, lambda x: x - 1):
             assert_parity(f(t), f(j))
+
+
+# ---------------------------------------------------------------------------
+# int8, uint8, bool and float16 inputs (ROADMAP C8): the JAX package's result
+# dtype and values, name by name; float16 results within the float16
+# parity tolerance (the port takes a float16 median or quantile in float32
+# and rounds once, the JAX package computes in float16)
+# ---------------------------------------------------------------------------
+U8 = np.array([[1, 2, 250], [7, 0, 3]], np.uint8)
+I8 = np.array([[1, -2, 100], [-7, 0, 3]], np.int8)
+F16 = np.array([[1.5, 2.0, 3.0], [2.5, -1.0, 0.5]], np.float16)
+BOOLS = np.array([[True, False, True], [False, False, True]])
+I32 = np.array([4, -3, 7, 0], np.int32)
+
+SMALL_CASES = {
+    "all-uint8": ((U8,), {}), "any-uint8": ((U8,), {"axis": 1}),
+    "all-int8": ((I8,), {"axis": 0}), "any-float16": ((F16,), {}),
+    "cumsum-int8": ((I8,), {}), "cumsum-uint8": ((U8,), {"axis": 1}),
+    "cumprod-uint8": ((U8,), {}), "cumprod-int8": ((I8,), {"axis": 0}),
+    "nancumsum-uint8": ((U8,), {}), "nancumprod-int8": ((I8,), {}),
+    "cumsum-bool": ((BOOLS,), {}), "cumsum-float16": ((F16,), {}),
+    "median-float16": ((F16,), {}), "median-float16-axis": ((F16,),
+                                                             {"axis": 1}),
+    "percentile-float16": ((F16, 30.0), {}),
+    "quantile-float16": ((F16, 0.7), {"axis": 0}),
+    "nanmedian-float16": ((F16,), {}),
+    "nanpercentile-float16": ((F16, 60.0), {}),
+    "nanquantile-float16": ((F16, 0.25), {}),
+    "argmax-bool": ((BOOLS,), {}), "argmin-bool": ((BOOLS,), {"axis": 1}),
+    "floor_divide-int32-by-0": ((I32, 0), {}),
+    "floor_divide-int8-by-0": ((I8, 0), {}),
+    "floor_divide-uint8-by-0": ((U8, 0), {}),
+    "floor_divide-int32-by-zeros": ((I32, np.array([2, 0, -2, 0],
+                                                   np.int32)), {}),
+    "mod-int32-by-0": ((I32, 0), {}), "remainder-int8-by-0": ((I8, 0), {}),
+    "fmod-int32-by-0": ((I32, 0), {}),
+    "power-int32-integral-float": ((I32, 2.0), {}),
+    "power-int8-int": ((I8, 2), {}),
+    "sum-int8": ((I8,), {"axis": 1}), "mean-uint8": ((U8,), {}),
+    "max-bool": ((BOOLS,), {}), "diff-bool": ((BOOLS,), {}),
+    "sort-bool": ((BOOLS,), {"axis": 1}), "abs-int8": ((I8,), {}),
+    "negative-uint8": ((U8,), {}), "sum-float16": ((F16,), {}),
+    "mean-float16": ((F16,), {}), "var-uint8": ((U8,), {}),
+    "ediff1d-int8": ((I8,), {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_CASES))
+def test_np_name_with_small_dtype_inputs_matches_jax(name):
+    _run(name, SMALL_CASES[name])
+
+
+OPERATORS = {
+    "floordiv-by-0": (lambda a: a // 0, I32),
+    "mod-by-0": (lambda a: a % 0, I8),
+    "floordiv-uint8-by-0": (lambda a: a // 0, U8),
+    "pow-integral-float": (lambda a: a ** 3.0, I32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPERATORS))
+def test_operator_with_small_dtype_inputs_matches_jax(name):
+    fn, a = OPERATORS[name]
+    assert_parity(fn(tmx.np.array(a, device=tmx.cpu())),
+                  fn(jmx.np.array(a)))
+
+
+REFUSALS = {
+    "squeeze-non-unit-axis": (lambda m, a: m.np.squeeze(a, axis=0), F16,
+                              ValueError),
+    "ndarray-squeeze-non-unit-axis": (lambda m, a: a.squeeze(axis=0), F16,
+                                      ValueError),
+    "power-int-negative": (lambda m, a: m.np.power(a, -1), I32, TypeError),
+    "power-bool-negative": (lambda m, a: m.np.power(a, -1), BOOLS,
+                            TypeError),
+    "ediff1d-bool": (lambda m, a: m.np.ediff1d(a), BOOLS, TypeError),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSALS))
+def test_np_refusals_match_jax(name):
+    fn, a, err = REFUSALS[name]
+    with pytest.raises(err):
+        fn(jmx, jmx.np.array(a))
+    with pytest.raises(err):
+        fn(tmx, tmx.np.array(a, device=tmx.cpu()))
+
+
+@pytest.mark.parametrize("name", ["sum", "prod", "nansum", "nanprod",
+                                  "trace"])
+def test_unsigned_reductions_are_int32_where_the_jax_package_says_uint32(
+        name):
+    """A deliberate difference (ROADMAP §C): the JAX package sums and
+    multiplies uint8 into uint32; the port has no uint32 array type
+    (`base._TO_TORCH` maps it to int32: torch.uint32 has no add, compare,
+    max, floor_divide, neg or pow on the CPU), so the result is int32 with
+    the same values below 2**31. This test fails if either side changes."""
+    a = U8[:, :2] if name == "trace" else U8
+    want = getattr(jmx.np, name)(jmx.np.array(a))
+    got = getattr(tmx.np, name)(tmx.np.array(a, device=tmx.cpu()))
+    assert str(want.dtype) == "uint32" and str(got.dtype) == "int32"
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())

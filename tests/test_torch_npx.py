@@ -18,8 +18,8 @@ import incubator_mxnet_tpu_torch as tmx
 from incubator_mxnet_tpu.ops import fused as jfused
 from incubator_mxnet_tpu_torch.ops import kernels
 
-from torch_port_utils import (assert_parity, parity, to_jax_args,
-                              to_port_args)
+from torch_port_utils import (assert_parity, jax_amp_restored, parity,
+                              to_jax_args, to_port_args)
 
 torch.set_num_threads(1)
 
@@ -350,8 +350,7 @@ def test_np_mode_scopes_and_io(tmp_path):
 
 @pytest.mark.parametrize("name", ["roi_align", "bilinear_resize2d",
                                   "proposal", "deformable_convolution",
-                                  "psroi_pooling", "rnn",
-                                  "fused_image_augment"])
+                                  "psroi_pooling", "rnn"])
 def test_names_left_for_later_raise(name):
     with pytest.raises(tmx.MXNetError, match="ROADMAP"):
         getattr(tmx.npx, name)(tmx.np.ones(2, device=CPU))
@@ -378,11 +377,12 @@ def test_every_jax_npx_name_is_exported_and_cased():
 # ---------------------------------------------------------------------------
 @pytest.fixture
 def amp_bf16():
-    jmx.amp.init("bfloat16")
-    tmx.amp.init("bfloat16")
-    yield
-    jmx.amp.uninit()
-    tmx.amp.uninit()
+    with jax_amp_restored():
+        jmx.amp.init("bfloat16")
+        tmx.amp.init("bfloat16")
+        yield
+        jmx.amp.uninit()
+        tmx.amp.uninit()
 
 
 def test_amp_casts_by_op_name_as_jax(amp_bf16):

@@ -39,7 +39,8 @@ from incubator_mxnet_tpu_torch.gluon.model_zoo import vision as tvision
 from incubator_mxnet_tpu_torch.ops import fused as tfused, kernels
 
 from torch_port_utils import (resnet_pair, resnet_batch, jax_values,
-                              port_values, assert_values_close)
+                              port_values, assert_values_close,
+                              jax_amp_restored)
 
 torch.set_num_threads(1)
 
@@ -193,6 +194,7 @@ def test_update_check_sees_a_dropped_bn_scale_gradient(fault, monkeypatch):
         assert worst < 1e-3, rel
 
 
+@jax_amp_restored()
 def test_amp_bf16_step_matches_jax():
     """One step under bf16 AMP in both packages (the JAX package's op
     lists and classes: convs and the dense in bf16, the fused BN in f32,

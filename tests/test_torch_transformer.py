@@ -41,7 +41,8 @@ from incubator_mxnet_tpu_torch.gluon.contrib import FusedTrainStep as TStep
 from incubator_mxnet_tpu_torch.ops import attention, nn as tops
 
 from torch_port_utils import (TRANSFORMER, carry_values, encoder_lm_pair,
-                              token_batch, port_values, assert_values_close)
+                              token_batch, port_values, assert_values_close,
+                              jax_amp_restored)
 
 torch.set_num_threads(1)
 
@@ -261,6 +262,7 @@ def test_ops_match_jax(name):
 # ---------------------------------------------------------------------------
 # AMP: each op runs in the dtype the JAX package's dispatch gives it
 # ---------------------------------------------------------------------------
+@jax_amp_restored()
 def _amp_dtypes(x_dtype):
     """{op: output dtype name} in both packages under bf16 AMP, for float
     inputs of `x_dtype`."""
@@ -355,6 +357,7 @@ STEPS = 3
 ADAM = dict(learning_rate=1e-3, epsilon=1e-5)
 
 
+@jax_amp_restored()
 def _jax_train(jnet, x, y, amp_on=False):
     L = jgluon.loss.SoftmaxCrossEntropyLoss()
     step = JStep(jnet, lambda n, a, b: L(n(a), b).mean(),

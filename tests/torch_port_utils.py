@@ -7,6 +7,8 @@ default init a small random decoder just repeats the prompt's last token,
 which would make token-exact comparisons say little. These scales give
 varied greedy streams.
 """
+import contextlib
+
 import numpy as np
 
 CFG = dict(vocab=64, embed=32, layers=2, heads=4, head_dim=8, max_len=48)
@@ -340,3 +342,34 @@ def parity(jax_fn, port_fn, *inputs, rtol=None, atol=None, grad=False,
     for i in diff:
         assert_parity(tin[i].grad, jin[i].grad, rtol, atol, f"grad[{i}]")
     return got
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's AMP state: a port test that calls its `amp.init` runs
+# inside `jax_amp_restored()`, so that nothing it sets (the target dtype,
+# which `uninit()` keeps, or the op lists `init` extends) reaches a later
+# test of the same process
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def jax_amp_restored():
+    """Save the JAX package's whole AMP state (`amp._state`, the op lists
+    `init` mutates, the autocast suspension of this thread) and put it back
+    on exit. The policy version only moves forward, so a per-op-name cache
+    keyed on it never serves an entry from the state the block left."""
+    from incubator_mxnet_tpu import amp as jamp
+    from incubator_mxnet_tpu.amp import lists as jlists
+    state = dict(jamp._state)
+    lists = {n: set(getattr(jlists, n))
+             for n in ("BF16_FUNCS", "FP32_FUNCS", "WIDEST_TYPE_CASTS")}
+    suspended = getattr(jamp._tls, "suspended", 0)
+    try:
+        yield
+    finally:
+        version = max(jamp._state["version"], state["version"]) + 1
+        jamp._state.clear()
+        jamp._state.update(state, version=version)
+        for n, saved in lists.items():
+            live = getattr(jlists, n)
+            live.clear()
+            live.update(saved)
+        jamp._tls.suspended = suspended
