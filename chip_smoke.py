@@ -304,6 +304,40 @@ Each phase fails the run (non-zero exit) on any error:
      iterator's from the same file and seed, the fed batch bit-equal to
      the kernel and the plain augment on the same draws.
 
+ 16. crash-consistent training (`fault`, `checkpoint`, `run_resilient`):
+     (a) the flagship LM (`models.transformer`, `TransformerConfig()`:
+     vocab 32000, 12 x 768, 12 x 64 heads, d_ff 3072, bf16 compute,
+     float32 masters, tied embeddings) takes its AdamW step at batch 8 x
+     2048 on one fixed batch: 3 warm-up and 10 timed steps, ms a step,
+     tokens/s and peak memory (`--profile`: device ms, idle share); the
+     loss must fall; a float32 step (2 layers, batch 2 x 512, TF32 off)
+     equals the plain composition (autograd, then AdamW leaf by leaf)
+     within 1e-6 of each leaf's norm; (b) with TF32 off and deterministic
+     algorithms, `run_resilient` over (a)'s step with the depth cut to 2,
+     10 steps, a save every 3: an injected `resilient.step:6:error` and a
+     resume from step 3 bit-equal (params and both moments) to the
+     uninterrupted run, `resilient.loss:2:nan` skipped (the state equal to
+     steps 0, 2, 3), `resilient.step:4:ioerror` retried once (equal to the
+     uninterrupted step 6), `resilient.step:5:stall:30` aborted by a 2 s
+     watchdog, each save's seconds and bytes; then
+     `tools/torch_crashtest.py --device cuda --model lm` at that width
+     (batch 2 x 2048): real SIGKILLs at the 7th step and inside the 2nd
+     save, each resumed in a fresh process bit-equal, no partial step
+     visible; (c) phase 11 (b)'s ResNet-50 loop (deterministic): 6 steps
+     against 3, `checkpoint.save_checkpoint(net, trainer=)`, a fresh net
+     and Trainer through `load_checkpoint(net=, trainer=)` and 3 more:
+     values, optimizer states and `num_update` bit-equal, 53/1/1 launches
+     a step; (d) phase 3's engine (depth cut to 2) one request at a time:
+     `serve.execute:3:error` fails the third request only and the others
+     equal a clean engine's tokens, `serve.enqueue:1:ioerror` fails one
+     submit only, B4 launches; (e) `ImageRecordIter` (256 records, 4 shm
+     workers, the augment kernel) with `io.imagerec:2:ioerror` and
+     `DeviceFeed` with `io.device_feed:2:ioerror`: batches bit-equal to a
+     clean epoch, one restart counted, one augment launch a batch; a
+     persistent rule (`2+`) raises the original error. The kernels' JSON
+     entries gain `resilient_launches`: B1-B3 over (c)'s resumed steps, B4
+     over (d)'s faulted run, the augment over (e)'s faulted epoch.
+
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
 backward sweep, one for each route of the paged kernel, one for each
@@ -320,6 +354,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -5430,6 +5465,628 @@ def npx_launches(entry, array):
     return array["npx_launches"].get(name, 0)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: crash-consistent training (fault, checkpoint, run_resilient)
+# ---------------------------------------------------------------------------
+LM_BATCH, LM_SEQ = 8, 2048                # (a)'s batch: 8 x 2048 tokens
+LM_WARMUP, LM_STEPS = 3, 10
+LM_CHECK = dict(num_layers=2, batch=2, seq=512)   # (a)'s float32 check
+RES_LAYERS, RES_STEPS, RES_EVERY = 2, 10, 3        # (b): depth cut to 2
+CRASH_ARGS = ["--steps", "8", "--ckpt-every", "3", "--kill-at", "7",
+              "--lm-layers", str(RES_LAYERS), "--lm-batch", "2"]
+SERVE_LAYERS = 2                                   # (d): depth cut to 2
+SERVE_PROMPTS, SERVE_NEW = 6, 16
+FAULT_RECORDS, FAULT_WORKERS = 256, 4              # (e)
+
+
+def _lm_tokens(seed, batch, seq, vocab, dev):
+    r = np.random.RandomState(seed)
+    return torch.from_numpy(r.randint(0, vocab, (batch, seq + 1))
+                            .astype(np.int32)).to(dev)
+
+
+def _det_on():
+    """TF32 off, deterministic cuDNN and algorithms (warnings only where an
+    op has no deterministic form); returns the previous settings."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark,
+            torch.are_deterministic_algorithms_enabled())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    return prev
+
+
+def _det_off(prev):
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = prev[:4]
+    torch.use_deterministic_algorithms(prev[4])
+
+
+def _trees_equal(a, b):
+    """True when two trees of tensors / numpy arrays are bit-equal."""
+    from incubator_mxnet_tpu_torch.models import transformer as tf
+    la, lb = tf._leaves(a), tf._leaves(b)
+    return len(la) == len(lb) and all(
+        (torch.equal(x, y) if isinstance(x, torch.Tensor)
+         else np.array_equal(x, y)) for x, y in zip(la, lb))
+
+
+def lm_full_step(card, dev, profile):
+    """(a) The flagship LM's AdamW step at full width (TransformerConfig()
+    defaults: vocab 32000, 12 x 768, 12 x 64 heads, d_ff 3072, bf16 compute,
+    float32 masters, tied embeddings), batch 8 x 2048, on one fixed batch:
+    3 warm-up and 10 timed steps; the loss must fall."""
+    from incubator_mxnet_tpu_torch.models import transformer as tf
+    cfg = tf.TransformerConfig()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = tf.init_params(0, cfg, device=dev)
+    opt = tf.init_opt_state(params)
+    n_params = sum(t.numel() for t in tf._leaves(params))
+    step = tf.make_train_step(cfg)
+    tokens = _lm_tokens(16, LM_BATCH, LM_SEQ, cfg.vocab_size, dev)
+    state = {"p": params, "o": opt, "i": 0}
+    del params, opt
+
+    def run(tok):
+        state["p"], state["o"], loss = step(state["p"], state["o"],
+                                            {"tokens": tok}, state["i"])
+        state["i"] += 1
+        return loss
+
+    losses = [run(tokens) for _ in range(LM_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    losses += [run(tokens) for _ in range(LM_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = wall / LM_STEPS * 1e3
+    prof = profile_steps(run, [(tokens,)], step_ms, {}, "lm") \
+        if profile else None
+    losses = [float(v) for v in losses]
+    tok_s = LM_BATCH * LM_SEQ * LM_STEPS / wall
+    log(f"[resilient lm] {card}: TransformerConfig() ({n_params} params, "
+        f"bf16 compute, float32 masters), batch {LM_BATCH} x {LM_SEQ}: "
+        f"{step_ms:.3f} ms a step, {tok_s:.0f} tokens/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; losses {[round(v, 4) for v in losses]}")
+    assert all(np.isfinite(losses)), "non-finite LM loss"
+    assert losses[-1] < losses[0], "the LM loss did not fall"
+    del state
+    torch.cuda.empty_cache()
+    check = lm_f32_check(dev)
+    return {"params": n_params, "batch": LM_BATCH, "seq": LM_SEQ,
+            "step_ms": step_ms, "tokens_per_s": tok_s,
+            "peak_bytes": peak, "losses": losses, "profile": prof,
+            "f32_check": check}
+
+
+def plain_adamw_step(cfg, params, opt, batch, step, lr=3e-4, wd=0.01,
+                     b1=0.9, b2=0.95, eps=1e-8):
+    """The plain composition: `loss_fn`, torch.autograd.grad, then AdamW
+    leaf by leaf in per-tensor ops (no multi-tensor kernels)."""
+    from incubator_mxnet_tpu_torch.models import transformer as tf
+    leaves = [p.detach().requires_grad_(True) for p in tf._leaves(params)]
+    loss = tf.loss_fn(tf._unflatten(params, leaves), batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    t = torch.tensor(float(step + 1), device=loss.device)
+    bc1 = 1 - torch.tensor(b1, device=loss.device) ** t
+    bc2 = 1 - torch.tensor(b2, device=loss.device) ** t
+    new_p, new_m, new_v = [], [], []
+    for p, g, m, v in zip(tf._leaves(params), grads, tf._leaves(opt[0]),
+                          tf._leaves(opt[1])):
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        new_p.append(p - lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
+                               + wd * p))
+        new_m.append(m)
+        new_v.append(v)
+    return (tf._unflatten(params, new_p), (tf._unflatten(params, new_m),
+                                           tf._unflatten(params, new_v)),
+            loss.detach())
+
+
+def lm_f32_check(dev):
+    """(a) A float32 step of `make_train_step` against the plain
+    composition of the same functions on the card (TF32 off; 2 layers at
+    full width, batch 2 x 512): the same loss, params and moments within
+    1e-6 of each leaf's norm."""
+    from incubator_mxnet_tpu_torch.models import transformer as tf
+    cfg = tf.TransformerConfig(num_layers=LM_CHECK["num_layers"],
+                               dtype="float32")
+    params = tf.init_params(1, cfg, device=dev)
+    opt = tf.init_opt_state(params)
+    batch = {"tokens": _lm_tokens(17, LM_CHECK["batch"], LM_CHECK["seq"],
+                                  cfg.vocab_size, dev)}
+    p1, o1, l1 = tf.make_train_step(cfg)(params, opt, batch, 0)
+    p2, o2, l2 = plain_adamw_step(cfg, params, opt, batch, 0)
+    worst = 0.0
+    for a, b in zip(tf._leaves((p1, o1)), tf._leaves((p2, o2))):
+        worst = max(worst, float((a - b).norm() / b.norm().clamp_min(
+            1e-30)))
+    log(f"[resilient lm f32] make_train_step against the plain composition"
+        f" (2 layers, batch {LM_CHECK['batch']} x {LM_CHECK['seq']}, "
+        f"float32, TF32 off): losses {float(l1):.6f} / {float(l2):.6f}, "
+        f"worst leaf ||diff|| / ||plain|| {worst:.3g} (limit 1e-6)")
+    assert float(l1) == float(l2) and worst <= 1e-6, "(a) float32 check"
+    del params, opt, p1, o1, p2, o2
+    torch.cuda.empty_cache()
+    return {"loss": float(l1), "worst_norm_rel": worst}
+
+
+def _lm_resilient_parts(dev):
+    from incubator_mxnet_tpu_torch.models import transformer as tf
+    cfg = tf.TransformerConfig(num_layers=RES_LAYERS)
+    train = tf.make_train_step(cfg)
+    batches = {}
+
+    def step_fn(state, i):
+        if i not in batches:
+            batches[i] = _lm_tokens(1000 + i, LM_BATCH, LM_SEQ,
+                                    cfg.vocab_size, dev)
+        p, (m, v), loss = train(state["params"], (state["mu"], state["nu"]),
+                                {"tokens": batches[i]}, i)
+        return {"params": p, "mu": m, "nu": v}, loss
+
+    def init():
+        params = tf.init_params(2, cfg, device=dev)
+        mu, nu = tf.init_opt_state(params)
+        return {"params": params, "mu": mu, "nu": nu}
+    return cfg, step_fn, init
+
+
+def lm_resilient(card, dev, root):
+    """(b) run_resilient over (a)'s step at full width, depth cut to 2,
+    ckpt_every 3, TF32 off, deterministic algorithms: an injected error and
+    a resume, the skip, the retry, the watchdog, and real SIGKILLs through
+    tools/torch_crashtest.py."""
+    from incubator_mxnet_tpu_torch import checkpoint as ckpt
+    from incubator_mxnet_tpu_torch import fault
+    cfg, step_fn, init = _lm_resilient_parts(dev)
+    saves = []
+    real_save = ckpt.save_sharded
+
+    def timed_save(directory, tree, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = real_save(directory, tree, **kw)
+        took = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        saves.append((took, size))
+        return path
+    ckpt.save_sharded = timed_save
+    out = {}
+    try:
+        fault.clear()
+        t0 = time.perf_counter()
+        ref_dir = os.path.join(root, "ref")
+        ref = fault.run_resilient(step_fn, init(), ref_dir, RES_STEPS,
+                                  ckpt_every=RES_EVERY)
+        torch.cuda.synchronize()
+        out["ref_s"] = time.perf_counter() - t0
+        # an injected error at the 6th step, then a resume
+        d = os.path.join(root, "crash")
+        fault.install("resilient.step", "error", at=6)
+        try:
+            fault.run_resilient(step_fn, init(), d, RES_STEPS,
+                                ckpt_every=RES_EVERY, max_step_retries=0)
+            raise AssertionError("the injected error did not surface")
+        except fault.InjectedFault:
+            pass
+        fault.clear()
+        latest = ckpt.latest_step(d)
+        res = fault.run_resilient(step_fn, init(), d, RES_STEPS,
+                                  ckpt_every=RES_EVERY)
+        equal = _trees_equal(res.state, ref.state)
+        out["resume"] = {"latest_after_crash": latest,
+                         "resumed_from": res.resumed_from,
+                         "bit_equal": equal}
+        log(f"[resilient lm] resilient.step:6:error: latest committed step "
+            f"{latest}, resumed from {res.resumed_from}; params and both "
+            f"Adam moments bit-equal to the uninterrupted run: {equal}")
+        assert latest == 3 and res.resumed_from == 3 and equal, "(b) resume"
+        del res
+        shutil.rmtree(d)
+        # the skip: step 1's loss poisoned; the state equals steps 0, 2, 3
+        fault.install("resilient.loss", "nan", at=2)
+        skip = fault.run_resilient(step_fn, init(), os.path.join(root, "s"),
+                                   4, ckpt_every=100)
+        fault.clear()
+        st = init()
+        for i in (0, 2, 3):
+            st, _ = step_fn(st, i)
+        skip_equal = _trees_equal(skip.state, st)
+        out["skip"] = {"skipped_nonfinite": skip.skipped_nonfinite,
+                       "bit_equal": skip_equal}
+        log(f"[resilient lm] resilient.loss:2:nan: skipped_nonfinite "
+            f"{skip.skipped_nonfinite}, state bit-equal to steps 0, 2, 3: "
+            f"{skip_equal}")
+        assert skip.skipped_nonfinite == 1 and skip_equal, "(b) skip"
+        del skip, st
+        # the retry: an IOError at the 4th step is retried once; the state
+        # after 6 steps equals the uninterrupted run's step-6 checkpoint
+        fault.install("resilient.step", "ioerror", at=4)
+        rt = fault.run_resilient(step_fn, init(), os.path.join(root, "r"),
+                                 6, ckpt_every=100, retry_backoff=0.001)
+        fault.clear()
+        ref6, _ = ckpt.load_sharded(ref_dir, step=6, target=rt.state)
+        retry_equal = _trees_equal(rt.state, ref6)
+        out["retry"] = {"step_retries": rt.step_retries,
+                        "bit_equal": retry_equal}
+        log(f"[resilient lm] resilient.step:4:ioerror: step_retries "
+            f"{rt.step_retries}, state bit-equal to the uninterrupted "
+            f"run's step 6: {retry_equal}")
+        assert rt.step_retries == 1 and retry_equal, "(b) retry"
+        del rt, ref6, ref
+        # the watchdog: a 30 s stall at the 5th step under a 2 s watchdog
+        fault.install("resilient.step", "stall", at=5, arg=30)
+        t0 = time.perf_counter()
+        fired_after = None
+        try:
+            fault.run_resilient(step_fn, init(), os.path.join(root, "w"), 6,
+                                ckpt_every=100, watchdog_seconds=2,
+                                max_step_retries=0)
+        except fault.WatchdogTimeout:
+            fired_after = time.perf_counter() - t0
+        fault.clear()
+        out["watchdog_s"] = fired_after
+        log(f"[resilient lm] resilient.step:5:stall:30 under a 2 s watchdog:"
+            f" WatchdogTimeout after {fired_after} s (4 steps, then the "
+            f"stall)")
+        assert fired_after is not None and fired_after < 10, "(b) watchdog"
+    finally:
+        ckpt.save_sharded = real_save
+        fault.clear()
+    out["saves"] = [{"seconds": s, "bytes": b} for s, b in saves]
+    log(f"[resilient lm] {len(saves)} saves of the 2-layer state (params, "
+        f"mu, nu): {saves[0][1] / 2 ** 20:.1f} MiB each, seconds "
+        f"{[round(s, 3) for s, _ in saves]}")
+    for sub in os.listdir(root):        # ~0.5 GB a save: free the disk
+        shutil.rmtree(os.path.join(root, sub))
+    torch.cuda.empty_cache()
+    out["crashtest"] = crashtest_run(root)
+    return out
+
+
+def crashtest_run(root):
+    """(b) 3. A real SIGKILL through tools/torch_crashtest.py at the LM's
+    full width (depth 2, batch 2 x 2048): at the 7th step and inside the
+    2nd save; each resumed in a fresh process, bit-equal."""
+    d = os.path.join(root, "crashtest")
+    rec = os.path.join(root, "crashtest.json")
+    cmd = [sys.executable, os.path.join("tools", "torch_crashtest.py"),
+           "--device", "cuda", "--model", "lm", "--dir", d, "--json", rec,
+           "--lm-vocab", "32000", "--lm-d", "768", "--lm-heads", "12",
+           "--lm-ff", "3072", "--lm-seq", str(LM_SEQ),
+           "--lm-dtype", "bfloat16"] + CRASH_ARGS
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "MXNET_FAULT_SPEC"}
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=400,
+                          env=env)
+    took = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[resilient crashtest] {line}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    assert proc.returncode == 0 and "parity OK" in proc.stdout, \
+        "(b) torch_crashtest.py"
+    with open(rec) as f:
+        records = json.load(f)
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"[resilient crashtest] {' '.join(cmd[1:])}: {took:.1f} s")
+    return {"seconds": took, "records": records}
+
+
+def resnet_resume(card, dev):
+    """(c) Phase 11 (b)'s ResNet-50 v1 loop (NHWC, batch 32 x 224^2, bf16
+    AMP, NAG + cosine through gluon.Trainer): 6 steps uninterrupted against
+    3 steps, save_checkpoint(net, trainer=), a fresh net and Trainer
+    through load_checkpoint(net=, trainer=), then 3 more; deterministic."""
+    import tempfile
+    from incubator_mxnet_tpu_torch import checkpoint as ckpt
+    from incubator_mxnet_tpu_torch import optimizer as opt_mod
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in b)
+               for b in make_batches(2, BATCH, seed=41)]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def build(seed):
+        net = vision.resnet50_v1(layout="NHWC", classes=CLASSES, device=dev,
+                                 seed=seed)
+        tr = gluon.Trainer(net.collect_params(), "nag", dict(
+            NAG, lr_scheduler=lr_scheduler.CosineScheduler(**COSINE)))
+        return net, tr
+
+    def steps(net, tr, first, last):
+        for i in range(first, last):
+            loop_step(net, tr, loss_fn, *batches[i % 2])
+        torch.cuda.synchronize()
+
+    def states(tr):
+        return [opt_mod.state_to_numpy(s) for s in tr._states]
+
+    prev = _det_on()
+    amp.init("bfloat16")
+    fprev = fused.set_fusion_default(True)
+    try:
+        net_a, tr_a = build(0)
+        kernels.reset_launch_counts()
+        steps(net_a, tr_a, 0, 6)
+        launches_a = kernels.launch_counts()
+        net_b, tr_b = build(0)
+        steps(net_b, tr_b, 0, 3)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "resnet")
+            t0 = time.perf_counter()
+            path = ckpt.save_checkpoint(path, net_b, step=3, trainer=tr_b)
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path) + os.path.getsize(path + ".trainer")
+            del net_b, tr_b
+            net_c, tr_c = build(7)
+            t0 = time.perf_counter()
+            _, step = ckpt.load_checkpoint(path, net=net_c, trainer=tr_c,
+                                           as_numpy=True)
+            load_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        steps(net_c, tr_c, 3, 6)
+        launches_c = kernels.launch_counts()
+        pa, pc = net_a.collect_params(), net_c.collect_params()
+        parted = [n for n in pa if not torch.equal(pa[n].data(),
+                                                   pc[n].data())]
+        sa, sc = states(tr_a), states(tr_c)
+        states_equal = len(sa) == len(sc) and all(
+            _trees_equal(x, y) for x, y in zip(sa, sc))
+        updates = (tr_a.optimizer.num_update, tr_c.optimizer.num_update)
+    finally:
+        fused.set_fusion_default(fprev)
+        amp.uninit()
+        _det_off(prev)
+    log(f"[resilient resnet] {card}: 6 steps against 3 + save + load into a "
+        f"fresh net and Trainer + 3 (step {step}); checkpoint "
+        f"{size / 2 ** 20:.1f} MiB saved in {save_s:.3f} s, loaded in "
+        f"{load_s:.3f} s; values parted {len(parted)} of {len(pa)} "
+        f"{parted[:3]}; optimizer states equal {states_equal}; num_update "
+        f"{updates}; B1/B2/B3 launches uninterrupted {_b123(launches_a)}, "
+        f"resumed {_b123(launches_c)} (expected 53/1/1 a step)")
+    assert step == 3 and not parted and states_equal \
+        and updates == (6, 6), "(c) resumed ResNet-50 not bit-equal"
+    for launches, n in ((launches_a, 6), (launches_c, 3)):
+        assert launches["scale_shift_act"] == 53 * n \
+            and launches["avg_pool2d_fwd"] == n \
+            and launches["avg_pool2d_bwd"] == n, "(c) B1/B2/B3 launches"
+    del net_a, net_c, tr_a, tr_c
+    torch.cuda.empty_cache()
+    return {"parted": parted, "values": len(pa),
+            "states_equal": states_equal, "num_update": updates,
+            "save_s": save_s, "load_s": load_s, "bytes": size,
+            "launches": launches_c, "launches_uninterrupted": launches_a}
+
+
+def _b123(launches):
+    return "/".join(str(launches[n]) for n in ("scale_shift_act",
+                                                "avg_pool2d_fwd",
+                                                "avg_pool2d_bwd"))
+
+
+def serve_faults(card):
+    """(d) Phase 3's engine (flagship width, random weights, depth cut to
+    2) under faults: serve.execute:3:error fails the third request's wave
+    and the engine serves the next ones token-equal to a clean engine;
+    serve.enqueue:1:ioerror fails one submit and nothing else."""
+    from incubator_mxnet_tpu_torch import fault
+    cfg = serve.DecoderConfig(**dict(FULL, layers=SERVE_LAYERS),
+                              dtype="bfloat16")
+    model = serve.CachedDecoder(cfg, seed=0)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, FULL["vocab"], size=int(n)).tolist()
+               for n in np.linspace(16, WINDOW - 16, SERVE_PROMPTS)]
+
+    def one_by_one(spec):
+        outs = []
+        with serve.ContinuousEngine(model, max_slots=SLOTS,
+                                    prefill_window=WINDOW,
+                                    decode_steps=DECODE_STEPS) as eng:
+            with fault.scope(spec):
+                for p in prompts:
+                    try:
+                        outs.append(eng.submit(p, SERVE_NEW)
+                                    .result(timeout=120))
+                    except Exception as e:
+                        outs.append(e)
+                hits = fault.hits("serve.execute")
+            st = eng.stats()
+        return outs, hits, st
+
+    clean, _, _ = one_by_one("")
+    kernels.reset_launch_counts()
+    got, hits, st = one_by_one("serve.execute:3:error")
+    launches = kernels.launch_counts()
+    failed = [i for i, o in enumerate(got) if isinstance(o, Exception)]
+    same = [i for i, o in enumerate(got) if not isinstance(o, Exception)
+            and np.array_equal(o, clean[i])]
+    log(f"[resilient serve] {card}: {len(prompts)} requests one at a time, "
+        f"serve.execute:3:error: {hits} execute hits, request(s) {failed} "
+        f"failed ({type(got[2]).__name__}: {got[2]}), {len(same)} of "
+        f"{len(prompts) - len(failed)} others token-equal to a clean "
+        f"engine; errors {st['errors']}; paged_attention launches "
+        f"{launches['paged_attention']}")
+    assert failed == [2] and isinstance(got[2], fault.InjectedFault) \
+        and len(same) == len(prompts) - 1, "(d) serve.execute"
+    assert launches["paged_attention"] > 0, "(d) B4 did not launch"
+    with serve.ContinuousEngine(model, max_slots=SLOTS,
+                                prefill_window=WINDOW,
+                                decode_steps=DECODE_STEPS) as eng:
+        with fault.scope("serve.enqueue:1:ioerror"):
+            try:
+                eng.submit(prompts[0], SERVE_NEW)
+                raise AssertionError("serve.enqueue did not fail")
+            except IOError:
+                pass
+            outs = [eng.submit(p, SERVE_NEW).result(timeout=120)
+                    for p in prompts[:2]]
+        errors = eng.stats()["errors"]
+    enq_ok = errors == 0 and all(np.array_equal(o, c)
+                                 for o, c in zip(outs, clean))
+    log(f"[resilient serve] serve.enqueue:1:ioerror: the first submit "
+        f"raised IOError, the next {len(outs)} served token-equal: "
+        f"{enq_ok}")
+    assert enq_ok, "(d) serve.enqueue"
+    del model
+    torch.cuda.empty_cache()
+    return {"failed": failed, "token_equal": len(same), "hits": hits,
+            "launches": launches, "enqueue_ok": enq_ok}
+
+
+def input_faults(card, dev, facts):
+    """(e) Phase 15's ImageRecordIter (shm workers, uint8 handoff, the
+    augment kernel) with io.imagerec:2:ioerror and DeviceFeed with
+    io.device_feed:2:ioerror: batches bit-equal to a clean epoch, the
+    restarts counted; a persistent rule raises the original error."""
+    import tempfile
+    from incubator_mxnet_tpu_torch import fault
+    from incubator_mxnet_tpu_torch import io as mxio
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "faults.rec")
+        w = recordio_writer(path, facts)
+        kw = dict(path=path, handoff="uint8", device_augment=True,
+                  dtype="bfloat16", workers=FAULT_WORKERS, max_restarts=2,
+                  **IO_NORM)
+
+        def epoch():
+            it = _io_iter(dev, **kw)
+            try:
+                return [(b.data[0]._t.clone(), b.label[0]._t.clone())
+                        for b in it]
+            finally:
+                it.close()
+
+        kernels.reset_launch_counts()
+        clean = epoch()
+        clean_launches = kernels.launch_counts()["image_augment"]
+        mxio.io_stats(reset=True)
+        kernels.reset_launch_counts()
+        with fault.scope("io.imagerec:2:ioerror"):
+            got = epoch()
+        launches = kernels.launch_counts()["image_augment"]
+        restarts = mxio.io_stats()["submit_restarts"]
+        equal = len(got) == len(clean) and all(
+            torch.equal(a, c) and torch.equal(b, d)
+            for (a, b), (c, d) in zip(got, clean))
+        with fault.scope("io.imagerec:2+:ioerror"):
+            try:
+                epoch()
+                raised = None
+            except IOError as e:
+                raised = str(e)
+        out["imagerec"] = {"batches": len(got), "bit_equal": equal,
+                           "submit_restarts": restarts,
+                           "launches": launches,
+                           "persistent_raised": raised,
+                           "records": w}
+        log(f"[resilient io] {card}: ImageRecordIter ({FAULT_RECORDS} "
+            f"records, {FAULT_WORKERS} workers) with io.imagerec:2:ioerror: "
+            f"{len(got)} batches bit-equal to a clean epoch: {equal}; "
+            f"submit_restarts {restarts}; augment launches {launches} "
+            f"(clean {clean_launches}); io.imagerec:2+ raised: {raised}")
+        assert equal and restarts == 1 and launches == len(got) \
+            and clean_launches == len(clean) \
+            and raised and "io.imagerec" in raised, "(e) ImageRecordIter"
+    x, y = loader_images()
+    x = np.resize(x, (LOADER_IMAGES, IMAGE, IMAGE, 3))
+    host = [(x[i:i + BATCH], y[i:i + BATCH])
+            for i in range(0, LOADER_IMAGES - BATCH + 1, BATCH)] * 2
+    card_dev = mx.Device("gpu", dev.index or 0)
+
+    def fed():
+        feed = mxio.DeviceFeed(list(host), device=card_dev, max_restarts=2)
+        try:
+            return [(mx.npx.fused_image_augment(
+                u8, (3, n), mean=IO_MEAN, std=IO_STD, rand_mirror=True,
+                out_dtype="bfloat16")._t.clone(), lab._t.clone())
+                for n, (u8, lab) in enumerate(feed)]
+        finally:
+            feed.close()
+
+    clean = fed()
+    mxio.feed_stats(reset=True)
+    kernels.reset_launch_counts()
+    with fault.scope("io.device_feed:2:ioerror"):
+        got = fed()
+    launches = kernels.launch_counts()["image_augment"]
+    restarts = mxio.feed_stats()["restarts"]
+    equal = len(got) == len(clean) == len(host) and all(
+        torch.equal(a, c) and torch.equal(b, d)
+        for (a, b), (c, d) in zip(got, clean))
+    with fault.scope("io.device_feed:2+:ioerror"):
+        try:
+            fed()
+            raised = None
+        except IOError as e:
+            raised = str(e)
+    out["device_feed"] = {"batches": len(got), "bit_equal": equal,
+                          "restarts": restarts, "launches": launches,
+                          "persistent_raised": raised}
+    log(f"[resilient io] DeviceFeed with io.device_feed:2:ioerror: "
+        f"{len(got)} batches (augmented on the card) bit-equal to a clean "
+        f"pass: {equal}; restarts {restarts}; augment launches {launches}; "
+        f"io.device_feed:2+ raised: {raised}")
+    assert equal and restarts == 1 and launches == len(got) \
+        and raised and "io.device_feed" in raised, "(e) DeviceFeed"
+    return out
+
+
+def recordio_writer(path, facts):
+    """FAULT_RECORDS records as phase 15 (a) writes them."""
+    from incubator_mxnet_tpu_torch import recordio
+    t0 = time.perf_counter()
+    w = recordio.MXRecordIO(path, "w")
+    if facts["PIL"]:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            jpegs = list(pool.map(_jpeg_record, range(FAULT_RECORDS)))
+    else:
+        r = recordio.MXRecordIO(os.path.join("tests", "data",
+                                             "tiny_imagerec.rec"), "r")
+        payloads = []
+        while (rec := r.read()) is not None:
+            payloads.append(recordio.unpack(rec)[1])
+        r.close()
+        jpegs = [payloads[i % len(payloads)] for i in range(FAULT_RECORDS)]
+    for i, jpeg in enumerate(jpegs):
+        w.write(recordio.pack(recordio.IRHeader(0, float(i % CLASSES), i, 0),
+                              jpeg))
+    w.close()
+    return {"records": FAULT_RECORDS, "seconds": time.perf_counter() - t0}
+
+
+def phase_resilient(card, dev, profile):
+    """Phase 16: crash-consistent training."""
+    import tempfile
+    t0 = time.perf_counter()
+    lm = lm_full_step(card, dev, profile)
+    with tempfile.TemporaryDirectory() as root:
+        prev = _det_on()
+        try:
+            resilient = lm_resilient(card, dev, root)
+        finally:
+            _det_off(prev)
+    resnet = resnet_resume(card, dev)
+    served = serve_faults(card)
+    inputs = input_faults(card, dev, host_facts())
+    took = time.perf_counter() - t0
+    log(f"[resilient] phase 16 took {took:.1f} s")
+    return {"lm": lm, "resilient": resilient, "resnet": resnet,
+            "serve": served, "io": inputs, "seconds": took}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every result to this JSON "
@@ -5477,6 +6134,7 @@ def main():
         n: loop["resnet"]["launches"][n] / LOOP_STEPS
         for n in ("scale_shift_act", "avg_pool2d_fwd", "avg_pool2d_bwd")})
     io = phase_input(card, dev, args.profile, train["step_ms"])
+    resilient = phase_resilient(card, dev, args.profile)
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -5553,6 +6211,16 @@ def main():
     entries.append(nms_entry(ssd))
     # phase 15's path: the augment kernel's launches on the fed steps
     entries.append(augment_entry(io))
+    # phase 16's paths, each counted on counts set to 0 just before it: the
+    # ResNet-50 loop resumed from a checkpoint (B1-B3), the engine under
+    # faults (B4), the input path under faults (the augment kernel)
+    for e, name in zip(entries[:3], ("scale_shift_act", "avg_pool2d_fwd",
+                                     "avg_pool2d_bwd")):
+        e["resilient_launches"] = resilient["resnet"]["launches"][name]
+    entry["resilient_launches"] = \
+        resilient["serve"]["launches"]["paged_attention"]
+    entries[-1]["resilient_launches"] = \
+        resilient["io"]["imagerec"]["launches"]
     # phase 14's launches through NDArray / npx, counted around its own
     # calls only (the comparisons with plain versions and the sweep's card
     # calls do not count)
@@ -5569,7 +6237,8 @@ def main():
                        "serve": result, "train": train, "bert": bert,
                        "engine": engine, "coverage": coverage,
                        "loop": loop, "script": script,
-                       "detection": detect, "array": array, "io": io}, f,
+                       "detection": detect, "array": array, "io": io,
+                       "resilient": resilient}, f,
                       indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [

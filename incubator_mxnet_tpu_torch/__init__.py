@@ -48,11 +48,16 @@ Ported so far:
     of native threads or shared-memory worker processes, `DeviceFeed`,
     `NDArrayIter`, `CSVIter`), `gluon.data` (datasets, samplers,
     `DataLoader`, vision datasets and transforms), and the card half of
-    the image augment (`npx.fused_image_augment`, a CUDA kernel).
+    the image augment (`npx.fused_image_augment`, a CUDA kernel);
+  * crash-consistent training: `fault` (injection points, retry,
+    watchdog, `run_resilient`), `checkpoint` (the JAX package's npz and
+    manifest, the port's own per-leaf sharded format), and the flagship
+    transformer LM (`models.transformer`: a functional AdamW step that
+    never writes its inputs).
 
 Typical use:  import incubator_mxnet_tpu_torch as mx
 """
-from .base import MXNetError, get_env
+from .base import MXNetError, get_env, set_env, env_flags
 from .device import (Device, Context, cpu, gpu, tpu, num_gpus,
                      current_device, current_context, device_memory_info,
                      gpu_memory_info, default_device, resolve_device)
@@ -66,11 +71,14 @@ from . import numpy_extension as npx
 from . import context, engine
 from . import io, recordio
 from .random import seed
+from . import fault, checkpoint, models
 
-__all__ = ["MXNetError", "get_env", "default_device", "resolve_device",
+__all__ = ["MXNetError", "get_env", "set_env", "env_flags",
+           "default_device", "resolve_device",
            "Device", "Context", "cpu", "gpu", "tpu", "num_gpus",
            "current_device", "current_context", "device_memory_info",
            "gpu_memory_info", "NDArray", "waitall", "seed", "ndarray", "nd",
            "np", "npx", "context", "engine",
            "amp", "autograd", "initializer", "lr_scheduler", "metric", "ops",
-           "optimizer", "random", "gluon", "serve", "io", "recordio"]
+           "optimizer", "random", "gluon", "serve", "io", "recordio",
+           "fault", "checkpoint", "models"]

@@ -1,9 +1,11 @@
 """Base utilities of the PyTorch port: the error root, the environment-flag
-lookup, the dtype names and atomic file writes.
+layer and the dtype names.
 
 Counterpart of `incubator_mxnet_tpu/base.py`. The port keeps its own copy
-of what it needs from there (`MXNetError`, `get_env`, the dtype table), so
-that it never imports the JAX package.
+of what it needs from there (`MXNetError`, the flag registry with
+`env_flags` / `get_env` / `set_env`, the dtype table), so that it never
+imports the JAX package. Crash-consistent file writes are
+`fault.atomic_output`.
 
 The dtype table (`name_to_dtype`, `to_torch_dtype`, `from_torch_dtype`)
 follows the JAX package with JAX's 64-bit types off, as it runs: an array
@@ -16,13 +18,11 @@ dtype's `name` and `itemsize`.
 from __future__ import annotations
 
 import os
-import tempfile
-from contextlib import contextmanager
 
 import numpy as _np
 import torch
 
-__all__ = ["MXNetError", "get_env", "torch_dtype", "atomic_output",
+__all__ = ["MXNetError", "get_env", "set_env", "env_flags", "torch_dtype",
            "BFLOAT16", "name_to_dtype", "to_torch_dtype",
            "from_torch_dtype", "numeric_types"]
 
@@ -33,9 +33,33 @@ class MXNetError(RuntimeError):
     """Base error for all framework errors (reference: python/mxnet/error.py:27)."""
 
 
+# ---------------------------------------------------------------------------
+# environment flag layer (reference: the documented MXNET_* knobs,
+# env_var.md): name -> (type, default, help). Unknown flags still work
+# through get_env(); registering gives introspection through env_flags().
+# ---------------------------------------------------------------------------
+_ENV_REGISTRY = {}
+
+
+def _register_env(name, typ, default, doc):
+    _ENV_REGISTRY[name] = (typ, default, doc)
+    return name
+
+
+def env_flags():
+    """Return {name: (type, default, doc)} of registered flags (≙ env_var.md)."""
+    return dict(_ENV_REGISTRY)
+
+
 def get_env(name, default=None, typ=None):
-    """dmlc::GetEnv equivalent: typed environment lookup. `default` is
-    returned when the variable is unset."""
+    """dmlc::GetEnv equivalent: typed environment lookup with registry
+    defaults (a registered flag's type and default apply where the caller
+    gives none)."""
+    if name in _ENV_REGISTRY:
+        rtyp, rdefault, _ = _ENV_REGISTRY[name]
+        typ = typ or rtyp
+        if default is None:
+            default = rdefault
     raw = os.environ.get(name)
     if raw is None:
         return default
@@ -46,28 +70,37 @@ def get_env(name, default=None, typ=None):
     return typ(raw)
 
 
+def set_env(name, value):
+    """Mirror of mx.util.set_env."""
+    os.environ[name] = str(value)
+
+
+# The flags of the JAX package's registry that the port reads, with its
+# types, defaults and help.
+_register_env("MXNET_TEST_SEED", int, None, "Fixed seed for test reproducibility")
+_register_env("MXNET_MODULE_SEED", int, None, "Module-level test seed")
+_register_env("MXNET_FAULT_SPEC", str, None,
+              "Arm fault injection: 'point:hit:kind[:arg],...' "
+              "(see mx.fault)")
+_register_env("MXNET_PREFETCH_RESTARTS", int, 3,
+              "Bounded in-place retries for transient PrefetchingIter "
+              "worker errors")
+_register_env("MXNET_DATALOADER_RETRIES", int, 3,
+              "Max attempts for a gluon DataLoader batch fetch on "
+              "transient I/O errors")
+_register_env("MXNET_PREFETCH_TO_DEVICE", bool, False,
+              "Route gluon DataLoader batches through io.DeviceFeed: "
+              "async H2D prefetch overlapping the train step")
+_register_env("MXNET_DEVICE_FEED_DEPTH", int, 2,
+              "io.DeviceFeed buffer depth (batches staged ahead; "
+              "2 = double buffering)")
+
+
 _DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
 }
-
-
-@contextmanager
-def atomic_output(path):
-    """A binary file object whose contents replace `path` only when the
-    block ends without an error (written beside it, then renamed), so a
-    failure never leaves a truncated file."""
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
-                               suffix=".tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            yield f
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise
 
 
 def torch_dtype(name):

@@ -55,7 +55,8 @@ import torch
 from torch.utils.hooks import RemovableHandle
 
 from .. import autograd
-from ..base import MXNetError, atomic_output
+from ..base import MXNetError
+from ..fault import atomic_output
 from ..device import resolve_device
 from ..ndarray import NDArray, _unwrap, _wrap
 from .parameter import DeferredInitializationError, Parameter

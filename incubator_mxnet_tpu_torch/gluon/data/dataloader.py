@@ -10,10 +10,9 @@ anything in them imports torch, and they build numpy batches only: no
 worker touches the card. With `prefetch_to_device=True` (or
 `MXNET_PREFETCH_TO_DEVICE=1`) the host batches go through `io.DeviceFeed`:
 page-locked staging and a side CUDA stream, so host assembly and the copy
-overlap the consumer's step.
-
-Left out until A7 lands (ROADMAP): the `dataloader.fetch` fault-injection
-point and its `fault.retrying` wrapper (`MXNET_DATALOADER_RETRIES`).
+overlap the consumer's step. A batch fetch that fails with a transient
+I/O error is retried with backoff (`MXNET_DATALOADER_RETRIES` attempts, the
+`dataloader.fetch` fault point).
 """
 from __future__ import annotations
 
@@ -26,6 +25,7 @@ from concurrent.futures import TimeoutError as FuturesTimeoutError
 
 import numpy as _np
 
+from ... import fault as _fault
 from ...base import MXNetError, get_env
 from .sampler import SequentialSampler, RandomSampler, BatchSampler
 
@@ -83,6 +83,13 @@ class DataLoader:
                              else 2 * self._num_workers)
         self._pin_memory = pin_memory
         self._timeout = timeout
+        # transient fetch errors (flaky storage, network FS) retry with
+        # backoff instead of killing the epoch; bound via
+        # MXNET_DATALOADER_RETRIES (default 3 attempts). Wrapped once here,
+        # not per batch — _make_batch is the hot path.
+        self._make_batch = _fault.retrying(
+            max_attempts=get_env("MXNET_DATALOADER_RETRIES", 3, typ=int),
+            name="dataloader.fetch")(self._fetch_batch)
         # opt-in device prefetch (MXNET_PREFETCH_TO_DEVICE, or the explicit
         # kwarg): host batches stage onto the device through io.DeviceFeed
         # so host assembly + the copy overlap the consumer's step
@@ -95,9 +102,10 @@ class DataLoader:
         self._prefetch_opt_out = (prefetch_to_device is not None
                                   and not prefetch_to_device)
 
-    def _make_batch(self, indices, host, device):
+    def _fetch_batch(self, indices, host, device):
         # a worker thread runs in the consumer's device scope (`with
         # mx.cpu():` included), which is thread-local
+        _fault.inject("dataloader.fetch")
         with device:
             samples = [self._dataset[i] for i in indices]
             if host and self._user_batchify is None:

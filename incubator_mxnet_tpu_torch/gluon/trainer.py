@@ -31,7 +31,8 @@ import torch
 
 from .. import autograd
 from .. import optimizer as opt_mod
-from ..base import MXNetError, atomic_output
+from ..base import MXNetError
+from ..fault import atomic_output
 from .parameter import Parameter
 
 __all__ = ["Trainer"]

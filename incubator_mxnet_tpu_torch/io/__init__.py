@@ -9,28 +9,26 @@ on the card unless the caller asks for the CPU (`device="cpu"` or inside
 `with mx.cpu():`).
 
 Left out until their queues land (ROADMAP): `LibSVMIter` (it serves
-`CSRNDArray`s, A12), the `io.imagerec` fault-injection point (A7), the
+`CSRNDArray`s, A12), the
 registry gauges, trace spans and `inspect.memory` attribution of the
 staged batches (A11), and the `mx.tune` knob tier (A11): a knob is the
 explicit argument, else its `MXNET_*` environment variable.
 """
 from __future__ import annotations
 
-import logging as _logging
 import threading as _threading
 from collections import namedtuple
 
 import numpy as _np
 import torch as _torch
 
+from .. import fault as _fault
 from ..base import MXNetError, get_env
 from ..device import resolve_device
 from ..ndarray import NDArray, _wrap, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "io_stats"]
-
-_LOG = _logging.getLogger("incubator_mxnet_tpu_torch.io")
 
 # ---------------------------------------------------------------------------
 # ImageRecordIter pipeline counters (consumer-side; the native per-stage
@@ -599,8 +597,9 @@ class ImageRecordIter(DataIter):
         except Exception as e:
             if self._native is not None:
                 raise
-            _LOG.warning("io.imagerec_pool_fallback error=%s mode=python-sync",
-                         f"{type(e).__name__}: {e}")
+            _fault._log_event("io.imagerec_pool_fallback",
+                              error=f"{type(e).__name__}: {e}",
+                              mode="python-sync")
             return None
 
     @property
@@ -703,19 +702,21 @@ class ImageRecordIter(DataIter):
             self._sched_cursor += self.batch_size
 
     def _submit_with_restarts(self, idx):
-        """Retry transient I/O errors of a submit in place up to a bounded
-        number of CONSECUTIVE times, and re-raise the original exception
-        once the budget is exhausted (`io.device_feed` semantics)."""
+        """`io.device_feed` semantics for the `io.imagerec` fault point:
+        inject BEFORE the submit, retry transient I/O errors in place up
+        to a bounded number of CONSECUTIVE times, re-raise the original
+        exception once the budget is exhausted."""
         batch_id = self._batch_ids()   # a retry keeps the batch's slot
         while True:
             try:
+                _fault.inject("io.imagerec")
                 job = self._pool.submit(batch_id, idx, self._epoch_seed())
             except (IOError, OSError, TimeoutError) as e:
                 if self._restarts < self._max_restarts:
                     self._restarts += 1
                     _bump_io("submit_restarts")
-                    _LOG.warning("io.imagerec_restart attempt=%d error=%r",
-                                 self._restarts, e)
+                    _fault._log_event("io.imagerec_restart",
+                                      attempt=self._restarts, error=repr(e))
                     continue
                 raise
             self._restarts = 0   # budget bounds CONSECUTIVE errors

@@ -31,13 +31,12 @@ consecutive times (default `MXNET_PREFETCH_RESTARTS`). Knobs: explicit
 argument, else the `MXNET_*` environment variable. Observability:
 `feed_stats()`.
 
-Not carried over until their queues land (ROADMAP): the `io.device_feed`
-fault-injection point (A7), the `io.feed` / `feed.stage` trace spans (A11)
+Not carried over until their queues land (ROADMAP): the `io.feed` /
+`feed.stage` trace spans (A11)
 and placement over a data-parallel mesh (`sharding=`, A10), which raises.
 """
 from __future__ import annotations
 
-import logging
 import queue as _queue
 import threading
 import time
@@ -45,13 +44,12 @@ import time
 import numpy as _np
 import torch
 
+from .. import fault as _fault
 from ..base import MXNetError, get_env
 from ..device import resolve_device
 
 __all__ = ["DeviceFeed", "prefetch_to_device", "feed_stats",
            "maybe_device_put", "FEED_STATS"]
-
-_LOG = logging.getLogger("incubator_mxnet_tpu_torch.io")
 
 # ---------------------------------------------------------------------------
 # counters (always on — plain increments under one lock)
@@ -139,16 +137,17 @@ class _FeedFailure:
 
 def _fetch_with_restarts(source, point, max_restarts, on_restart=None):
     """Shared fetch loop for prefetch workers (PrefetchingIter._worker and
-    DeviceFeed._worker): retry transient I/O errors (IOError/OSError/
-    TimeoutError) in place up to `max_restarts` CONSECUTIVE times with a
-    structured log per retry, and re-raise the original exception once the
-    budget is exhausted (or immediately for non-transient errors). Yields
-    fetched batches. (`point` names the log line; the JAX package also
-    injects faults there, ROADMAP A7.)"""
+    DeviceFeed._worker): inject the fault `point` BEFORE each fetch (a
+    transient injected fault must not consume a batch from the source),
+    retry transient I/O errors (IOError/OSError/TimeoutError) in place up
+    to `max_restarts` CONSECUTIVE times with a structured log per retry,
+    and re-raise the original exception once the budget is exhausted (or
+    immediately for non-transient errors). Yields fetched batches."""
     it = iter(source)
     restarts = 0
     while True:
         try:
+            _fault.inject(point)
             batch = next(it)
         except StopIteration:
             return
@@ -157,8 +156,8 @@ def _fetch_with_restarts(source, point, max_restarts, on_restart=None):
                 restarts += 1
                 if on_restart is not None:
                     on_restart()
-                _LOG.warning("%s_restart attempt=%d error=%r", point,
-                             restarts, e)
+                _fault._log_event(point + "_restart", attempt=restarts,
+                                  error=repr(e))
                 continue
             raise
         restarts = 0   # budget bounds CONSECUTIVE errors, not lifetime
@@ -337,8 +336,8 @@ class DeviceFeed:
             # a fetch stalled past the join window: the old feeder may
             # still advance the shared source when it wakes, racing a new
             # epoch's feeder — surface it instead of silently proceeding
-            _LOG.warning("io.device_feed_shutdown_timeout source=%s",
-                         type(self._source).__name__)
+            _fault._log_event("io.device_feed_shutdown_timeout",
+                              source=type(self._source).__name__)
         self._thread = None
         self._queue = None
         self._stop = None

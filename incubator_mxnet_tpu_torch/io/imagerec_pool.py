@@ -51,6 +51,7 @@ import weakref
 import numpy as _np
 
 from ..base import MXNetError, get_env
+from ..fault import _log_event
 
 __all__ = ["DecodePool"]
 
@@ -68,14 +69,6 @@ def _close_live_pools():
             pool.close()
         except Exception:
             pass
-
-
-def _log_event(name, **fields):
-    """A structured warning (the JAX package logs through its `fault`
-    module, ROADMAP A7)."""
-    import logging
-    logging.getLogger("incubator_mxnet_tpu_torch.io").warning(
-        "%s %s", name, json.dumps(fields, default=str))
 
 
 class _Batch:

@@ -405,7 +405,7 @@ class NDArray:
     # ------------------------------------------------------------------
     def __getitem__(self, key):
         key, flips = _index(key, self._t)
-        key = _clamped(key, self._t.shape)
+        key = _ints_apart(_clamped(key, self._t.shape))
         return invoke(_getitem, (self,), name="getitem",
                       kwargs={"key": key, "flips": flips})
 
@@ -675,6 +675,33 @@ def _index(key, t):
 def _gathers(k):
     return ((isinstance(k, int) and not isinstance(k, bool))
             or (isinstance(k, torch.Tensor) and k.dtype != torch.bool))
+
+
+def _ints_apart(key):
+    """`key` with each Python int made an integer tensor when it and an
+    array index are advanced indices apart from each other (a slice, an
+    Ellipsis or None between them). numpy (and the JAX package) count such
+    an int among the advanced indices, which then, being apart, put their
+    broadcast axes first; PyTorch reads the int as a basic index and keeps
+    the array's axes in place. A full tensor of the broadcast shape makes
+    PyTorch read it numpy's way; other keys pass unchanged."""
+    if not isinstance(key, tuple):
+        return key
+    arrays = [k for k in key if isinstance(k, torch.Tensor)]
+    ints = [i for i, k in enumerate(key)
+            if isinstance(k, int) and not isinstance(k, bool)]
+    if not arrays or not ints:
+        return key
+    adv = [i for i, k in enumerate(key)
+           if isinstance(k, torch.Tensor) or i in ints]
+    if adv[-1] - adv[0] + 1 == len(adv):
+        return key      # adjacent: both libraries keep the axes in place
+    shape = torch.broadcast_shapes(*(
+        (k.nonzero().shape[0],) if k.dtype == torch.bool else k.shape
+        for k in arrays))
+    dev = arrays[0].device
+    return tuple(torch.full(shape, k, dtype=torch.int64, device=dev)
+                 if i in ints else k for i, k in enumerate(key))
 
 
 def _clamped(key, shape):

@@ -43,8 +43,9 @@ names:
     long prompts in window-sized chunks, then runs one decode wave over
     every active slot.
 
-Telemetry spans, fault points, the sanitizer and the `mx.tune` profile
-lookup are not ported.
+The fault points `serve.enqueue` (in `submit`) and `serve.execute` (at
+the top of each prefill wave) are the JAX engine's. Telemetry spans, the
+sanitizer and the `mx.tune` profile lookup are not ported.
 """
 from __future__ import annotations
 
@@ -57,6 +58,7 @@ import numpy as _np
 import torch
 import torch.nn.functional as F
 
+from .. import fault as _fault
 from ..base import MXNetError, get_env, torch_dtype
 from ..ops.nn import clamp_index
 from ..device import resolve_device
@@ -1187,6 +1189,7 @@ class ContinuousEngine:
                 f"(one slot page holds prompt + generated tokens)")
         if max_new_tokens < 1:
             raise ServeError("max_new_tokens must be >= 1")
+        _fault.inject("serve.enqueue")
         dl = (deadline_ms / 1e3 if deadline_ms is not None
               else self.default_deadline_s)
         if seed is None:
@@ -1435,6 +1438,7 @@ class ContinuousEngine:
         alike). A request emits its first token the wave its prefill
         completes; `prefill_tokens` bills only tokens a program processed
         (suffix-only on a hit)."""
+        _fault.inject("serve.execute")
         W = self.prefill_window
         g = self.pool.garbage_row
         params = self.model.params

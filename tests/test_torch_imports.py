@@ -121,3 +121,28 @@ def test_decode_worker_modules_load_without_torch():
     r = _run(_STANDALONE)
     assert r.returncode == 0, r.stderr
     assert "STANDALONE_OK" in r.stdout
+
+
+_IMPORT_RESILIENCE = _BLOCKER + r"""
+import importlib.util
+import incubator_mxnet_tpu_torch.fault
+import incubator_mxnet_tpu_torch.checkpoint
+import incubator_mxnet_tpu_torch.models.transformer
+spec = importlib.util.spec_from_file_location("torch_crashtest",
+                                              "tools/torch_crashtest.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+mod._lm_config(mod.main.__globals__["argparse"].Namespace(
+    lm_vocab=8, lm_layers=1, lm_d=4, lm_heads=2, lm_ff=8, lm_seq=4,
+    lm_dtype="float32"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "incubator_mxnet_tpu"))
+assert not bad, bad
+print("RESILIENCE_IMPORTED")
+"""
+
+
+def test_resilience_modules_and_the_crash_tool_import_without_jax():
+    r = _run(_IMPORT_RESILIENCE)
+    assert r.returncode == 0, r.stderr
+    assert "RESILIENCE_IMPORTED" in r.stdout

@@ -85,6 +85,52 @@ def test_getitem_ellipsis_before_array_index_as_jax(key):
     assert_parity(got, j[make(jmx)])
 
 
+# C10: an int and an array index apart from each other (a slice, an
+# Ellipsis or None between them): numpy counts the int among the advanced
+# indices, which, being apart, put their broadcast axes first; adjacent ones
+# keep their place. Keys and their mirror images, on a (3, 10, 4) array.
+APART_KEYS = {
+    "int-ellipsis-array": lambda m: (
+        0, Ellipsis, m.np.array(np.array([[1, 2]], np.int32))),
+    "int-slice-array": lambda m: (
+        0, slice(None), m.np.array(np.array([[1, 2]], np.int32))),
+    "int-none-array": lambda m: (
+        0, None, m.np.array(np.array([1, 3], np.int32))),
+    "int-slice-numpy-past-end": lambda m: (
+        1, slice(None), np.array([3, -1, 9])),
+    "array-ellipsis-int": lambda m: (
+        m.np.array(np.array([[1, 2]], np.int32)), Ellipsis, 0),
+    "array-slice-int": lambda m: (
+        m.np.array(np.array([[1, 2]], np.int32)), slice(None), 0),
+    "array-none-int": lambda m: (
+        m.np.array(np.array([2, 0], np.int32)), None, slice(None), 3),
+    "slice-int-array": lambda m: (
+        slice(None), 0, m.np.array(np.array([[1, 2]], np.int32))),
+    "array-int-slice": lambda m: (
+        m.np.array(np.array([[1, 2]], np.int32)), 0, slice(None)),
+}
+A3 = np.arange(120, dtype=np.float32).reshape(3, 10, 4)
+
+
+@pytest.mark.parametrize("key", sorted(APART_KEYS))
+def test_getitem_int_apart_from_array_index_as_jax(key):
+    j, t = _pair(A3)
+    with tmx.cpu():
+        got = t[APART_KEYS[key](tmx)]
+    assert_parity(got, j[APART_KEYS[key](jmx)])
+
+
+@pytest.mark.parametrize("key", sorted(k for k in APART_KEYS
+                                       if "past-end" not in k))
+def test_setitem_int_apart_from_array_index_as_jax(key):
+    # the same keys already write the same elements; this pins them
+    j, t = _pair(A3)
+    with tmx.cpu():
+        t[APART_KEYS[key](tmx)] = -1.0
+    j[APART_KEYS[key](jmx)] = -1.0
+    assert_parity(t, j)
+
+
 TAKE = {
     "float": (A, [0, 7, -1, -7], {}),
     "int32": (A.astype(np.int32), [0, 7, -2], {}),

@@ -373,3 +373,49 @@ def jax_amp_restored():
             live.clear()
             live.update(saved)
         jamp._tls.suspended = suspended
+
+
+# ---------------------------------------------------------------------------
+# the fault-injection state of both packages: rules, hit counts and whether
+# MXNET_FAULT_SPEC was read are process-global, and the driver's workers run
+# whole files one after another, so a port fault test leaves both packages'
+# state as it found it
+# ---------------------------------------------------------------------------
+def _fault_state(mod):
+    return list(mod._rules), dict(mod._hit_counts), mod._env_loaded
+
+
+def _put_fault_state(mod, state):
+    rules, hit_counts, env_loaded = state
+    with mod._lock:
+        mod._rules[:] = rules
+        mod._hit_counts.clear()
+        mod._hit_counts.update(hit_counts)
+        mod._env_loaded = env_loaded
+
+
+@contextlib.contextmanager
+def jax_fault_restored():
+    """Save the JAX package's fault state (`fault._rules`, `_hit_counts`,
+    `_env_loaded`) and put it back on exit."""
+    from incubator_mxnet_tpu import fault as jfault
+    saved = _fault_state(jfault)
+    try:
+        yield
+    finally:
+        _put_fault_state(jfault, saved)
+
+
+@contextlib.contextmanager
+def port_faults_cleared():
+    """Run a block with the port's fault registry empty (rules and hits
+    cleared, MXNET_FAULT_SPEC treated as read) and put its earlier state
+    back on exit, inside `jax_fault_restored()`."""
+    from incubator_mxnet_tpu_torch import fault as tfault
+    saved = _fault_state(tfault)
+    with jax_fault_restored():
+        tfault.clear()
+        try:
+            yield
+        finally:
+            _put_fault_state(tfault, saved)
