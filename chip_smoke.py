@@ -17,16 +17,21 @@ Each phase fails the run (non-zero exit) on any error:
      axis that must read bit-equal to the full slab; every read must go to
      the route `kernels.paged_route` names (split, wgmma, cuda_cores: the
      launch counters show it); then each case's time against its bound,
-     the plain version's time and one PyTorch library call's time.
+     the plain version's time and one PyTorch library call's time. The
+     float16 chunk (C = 256, on the tensor cores) must also refuse planted
+     truncating and pair-swapping float16 stores and P.V with P in one
+     float16 term (emulated), and is timed beside its earlier CUDA-core
+     time.
   3. serving at full width: `ContinuousEngine` over a 12-layer, 768-wide
      `CachedDecoder` (vocab 32000, 2048 positions, random weights from a
      seed) answers 16 greedy requests with prompts of 16-1500 tokens, in
      bfloat16 (timed; the paged-attention launch counter must move by
      exactly layers x (decode_steps x decode waves + chunk waves), every
      decode read on the split route and every chunk read on the tensor
-     cores) and in float32 with TF32 off (decode on split, chunks on the
-     CUDA cores), where every request's tokens must equal the 1-slot
-     `reference_generate`.
+     cores), in float16 (the same counts and routes; agreement with the
+     1-slot reference read, TTFT and TPOT beside bfloat16's) and in float32
+     with TF32 off (decode on split, chunks on the CUDA cores), where every
+     request's tokens must equal the 1-slot `reference_generate`.
   4. the training kernels against their plain versions on the card: the
      scale/shift/activation apply at every (rows, channels, activation,
      residual) shape ResNet-50 v1 gives it at batch 32 and 224x224, in
@@ -119,7 +124,10 @@ Each phase fails the run (non-zero exit) on any error:
      give, a lane whose prefix crosses piece boundaries read one position
      long. Then, for bf16 and float16 q over int8 at
      each C, the kernel's time against its bound, the plain version's
-     time and SDPA's over the prefix dequantized to q's type beforehand.
+     time and SDPA's over the prefix dequantized to q's type beforehand;
+     and float16 q at C = 256 on the tensor cores at a peaked softmax (q x
+     8) over the float16 and the int8 slab and over int8 with v_scale x
+     2^-12, each within float16's limits and timed beside SDPA.
   9. the full decode engine at full width: phase 3's model in bfloat16
      behind `ContinuousEngine(kv_dtype="int8", draft_tokens=3,
      prefix_cache_slots=4, prefix_block=64, max_slots=16,
@@ -147,8 +155,10 @@ Each phase fails the run (non-zero exit) on any error:
      one fused `Dense(10, "relu")` float32 training step equal to the
      unfused one, and one under float16 AMP (the apply's float16 instance)
      within 2^-9; a float16 engine (`DecoderConfig(max_len=64,
-     dtype="float16")`, a float16 pool on the card) answering every
-     request with every read on the kernel in float16; the NHWC pool at 12 channels (float32, bfloat16 and
+     dtype="float16")`, a float16 pool on the card, a 32-position prefill
+     window) answering every request with every read on the kernel in
+     float16, decode on split and chunks on the tensor cores; the NHWC
+     pool at 12 channels (float32, bfloat16 and
      float16), over a 14x14 window, at 70000 x 5 x 5 and 4 x 4096 x 4096
      (past the grid's 65535 rows) and over inputs off 16-byte alignment,
      and the apply at 10 float32 and 4 bfloat16 channels, against their
@@ -224,8 +234,12 @@ Each phase fails the run (non-zero exit) on any error:
      sweep, `box_nms` at (32, 8732, 6) with and without force_suppress
      bit-equal, a planted fault (a kept row nudged to just over the
      threshold against an earlier kept row of its class) refused, and the
-     kernel on it bit-equal; the kernel's, the plain sweep's and detect()'s
-     times and VOC07 mAP; (c) `alexnet`, `vgg16_bn`, `squeezenet1.1`,
+     kernel on it bit-equal; the kernels bit-equal to the plain sweep at
+     A = 1, 63, 64, 65 and 8732 (with classes, one class and none); the
+     kernels' (and, by torch.profiler, the mask pass's and the sweep's),
+     the plain sweep's and detect()'s times beside the earlier one-block
+     kernel's, the mask pass's IoU tests and bytes and the workspace's
+     bytes, and VOC07 mAP; (c) `alexnet`, `vgg16_bn`, `squeezenet1.1`,
      `densenet121` (224^2) and `inceptionv3` (299^2) at batch 32, bf16 AMP:
      FusedTrainStep steps and an inference `net(x)`, exactly 2/2/0/0/0
      apply launches a step and a call, no pool launch; (d) phase 7's
@@ -266,7 +280,8 @@ Each phase fails the run (non-zero exit) on any error:
      float16 (B1 once an op, B2 and B3 for the pool), each within phase
      4's limits of its plain version, the pool's backward bit-equal; (e)
      `npx.box_nms` at (32, 8732, 6): one NMS launch, bit-equal to
-     `ops.contrib.box_nms`, its keep mask bit-equal to the plain sweep's;
+     `ops.contrib.box_nms`, its keep mask bit-equal to the plain sweep's,
+     then by class with and without force_suppress, one launch each;
      (f) every registered np / npx name on the card against the same call
      on the CPU (per-dtype limits, TF32 off), with no host fallback; (g)
      out-of-range gathers (ROADMAP C7): `ContinuousEngine` over a small
@@ -352,6 +367,7 @@ JAX. Its run time on the card is in the root `PERF.md`.
 import argparse
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -469,6 +485,11 @@ def library_call(q, k_slab, v_slab, lens, layer):
 
 
 PAGED_CS = (1, 4, WINDOW)           # decode, verify (draft 3), chunk
+# B4's float16 chunk (C = 256) before it took the tensor cores: the
+# cuda_cores route's times by slab type (PERF.md section 6 row 4c,
+# `chip_smoke.py --profile` on NVIDIA H100 80GB HBM3, 700.00 W), logged
+# beside this run's; a recorded reading, so it stays out of the kernels line
+CUDA_CORES_F16_CHUNK_MS = {"float16": 0.6177, "int8": 0.6235}
 # the phase 2 case each route's JSON entry reads
 PAGED_ROUTE_SHAPES = {"split": ("bfloat16", 1), "wgmma": ("bfloat16", WINDOW),
                       "cuda_cores": ("float32", WINDOW)}
@@ -488,6 +509,71 @@ def paged_checked(q, k, v, lens, layer, **sc):
     assert moved == {kind: 1, f"paged_attention_{route}": 1}, \
         f"paged launches {moved}, expected one on route {route}"
     return out, route
+
+
+def paged_term_readings(q, k, v, lens, layer, ref):
+    """What the limits of q's 16-bit type read if P went into P.V as one
+    term of that type, and as the two terms (hi + lo) the tensor-core route
+    issues (P from one softmax over each row's live prefix, products and
+    sums in f32), against the plain version's output `ref`; emulated in
+    PyTorch on the card over a float slab."""
+    S, C, H, D = q.shape
+    T = k.shape[2]
+    kk, vv = k[:S, layer].float(), v[:S, layer].float()
+    s = torch.einsum("schd,sthd->shct", q.float(), kk) / math.sqrt(D)
+    pos = torch.arange(T, device=q.device)
+    lim = lens.long()[:, None] + torch.arange(C, device=q.device)[None]
+    live = (pos[None, None, :] <= lim[:, :, None])[:, None]   # (S,1,C,T)
+    s = s.masked_fill(~live, float("-inf"))   # position 0 is always live
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    del s
+    den = p.sum(-1).permute(0, 2, 1)[..., None]               # (S,C,H,1)
+    hi = p.to(q.dtype).float()
+    out = {}
+    for name, pp in (("one_term", hi),
+                     ("two_term", hi + (p - hi).to(q.dtype).float())):
+        o = (torch.einsum("shct,sthd->schd", pp, vv) / den).to(q.dtype)
+        _, ok, read = paged_err(o, ref)
+        out[name] = dict(read, ok=ok)
+    del p, hi
+    return out
+
+
+def paged_store_faults(q, k, v, lens, layer, ref):
+    """The 16-bit limits against planted store faults of the chunk's
+    output: the plain version in f32 on the same inputs gives the values a
+    16-bit store rounds, `store_faults16` writes them as a faulty store
+    would, and the check must refuse each. Returns the readings."""
+    out32 = fused.paged_attention_ref(q.float(), k, v, lens, layer)
+    readings = {}
+    for fault, bad in store_faults16(out32, q.dtype).items():
+        _, ok, read = paged_err(bad, ref)
+        readings[fault] = read
+        assert not ok, f"the {_dtype_name(q.dtype)} paged check passes a " \
+            f"{fault}"
+    return readings
+
+
+def check_f16_chunk(q, k_slab, v_slab, lens, layer, ref, rec):
+    """Phase 2's float16 chunk on the tensor cores: planted store faults
+    refused, the one-term P refused and the two terms within the limits
+    (emulated), and the time beside the CUDA cores' earlier one."""
+    assert rec["kernel_route"] == "wgmma", rec
+    rec["planted_store_faults"] = paged_store_faults(q, k_slab, v_slab,
+                                                     lens, layer, ref)
+    terms = paged_term_readings(q, k_slab, v_slab, lens, layer, ref)
+    rec["p_terms_emulated"] = terms
+    max_tol, rms_tol = limits16(q.dtype)
+    log(f"[kernels] paged_attention float16 C={WINDOW} (wgmma): planted "
+        f"store faults refused {rec['planted_store_faults']}; P.V with P in "
+        f"float16 (emulated): one term {terms['one_term']}, two terms "
+        f"{terms['two_term']} (limits max_rel {max_tol:.3e}, rms_rel "
+        f"{rms_tol:.3e}); {rec['ms']:.4f} ms against "
+        f"{CUDA_CORES_F16_CHUNK_MS['float16']} on the CUDA cores before "
+        f"(recorded: PERF.md section 6 row 4c), sdpa "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms")
+    assert not terms["one_term"]["ok"], \
+        "the float16 check passes P.V with one float16 term of P"
 
 
 def phase_kernels(dev):
@@ -556,6 +642,9 @@ def phase_kernels(dev):
                 **read,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms})
+            if dtype == torch.float16 and C == WINDOW:
+                check_f16_chunk(q, k_slab, v_slab, lens, layer, ref,
+                                variants[-1])
         del k_slab, v_slab
     kernels.reset_launch_counts()   # comparison launches do not count
     return variants, lens_np.tolist()
@@ -608,10 +697,11 @@ def serve_run(dtype, prompts):
 def check_routes(tag, dtype, cfg, eng, st, launches):
     """Every decode (C = 1) or verify (C = draft + 1) read on the split
     route; every chunk read (C = the window) on the tensor cores in
-    bfloat16, on the CUDA cores in float32."""
+    bfloat16 and float16, on the CUDA cores in float32."""
     reads = cfg.layers * eng.decode_steps * st["decode_iterations"]
     chunks = cfg.layers * st["chunk_batches"]
-    chunk_route = "wgmma" if dtype == "bfloat16" else "cuda_cores"
+    chunk_route = "wgmma" if dtype in ("bfloat16", "float16") \
+        else "cuda_cores"
     want = {"split": reads, "wgmma": 0, "cuda_cores": 0}
     want[chunk_route] += chunks
     got = {r: launches[f"paged_attention_{r}"] for r in want}
@@ -653,6 +743,7 @@ def phase_serve(card):
         f"check is the float32 run)")
     del model, pool
     torch.cuda.empty_cache()
+    f16 = serve_f16(card, prompts, st)
     model32, outs32, st32, wall32, launches32 = serve_run("float32", prompts)
     bad = [len(p) for p, o in zip(prompts, outs32) if not np.array_equal(
         o, model32.reference_generate(p, NEW_TOKENS, window=WINDOW))]
@@ -662,8 +753,34 @@ def phase_serve(card):
     assert not bad, f"engine != reference for prompts of lengths {bad}"
     return {"wall_s": wall, "tokens": gen_tokens, "launches": launches,
             "float32_launches": launches32,
+            "float16_launches": f16["launches"], "float16": f16,
             "stats": st, "bf16_exact": bf16_exact,
             "float32_exact": len(prompts)}
+
+
+def serve_f16(card, prompts, st_bf16):
+    """Phase 3's model and requests in float16: every chunk read on the
+    tensor cores, every decode read on the split route (`serve_run`'s
+    counts); agreement with the 1-slot reference read, not held (float16
+    greedy may part at near-ties, as bfloat16's); TTFT and TPOT beside
+    bfloat16's."""
+    model, outs, st, wall, launches = serve_run("float16", prompts)
+    equal = sum(int(np.array_equal(
+        o, model.reference_generate(p, NEW_TOKENS, window=WINDOW)))
+        for p, o in zip(prompts, outs))
+    tokens = len(prompts) * NEW_TOKENS
+    log(f"[serve float16] {card}: {wall:.3f} s for {tokens} tokens "
+        f"({tokens / wall:.1f} tokens/s end to end); TTFT p50 "
+        f"{st['ttft_p50_ms']} ms p99 {st['ttft_p99_ms']} ms (bfloat16 "
+        f"{st_bf16['ttft_p50_ms']} / {st_bf16['ttft_p99_ms']}); TPOT p50 "
+        f"{st['tpot_p50_ms']} ms p99 {st['tpot_p99_ms']} ms (bfloat16 "
+        f"{st_bf16['tpot_p50_ms']} / {st_bf16['tpot_p99_ms']}); "
+        f"{equal}/{len(prompts)} requests equal the 1-slot reference "
+        f"(read, not held)")
+    del model
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "tokens": tokens, "launches": launches,
+            "stats": st, "equal": equal}
 
 
 # ---------------------------------------------------------------------------
@@ -2038,40 +2155,94 @@ def phase_int8_kernels(dev):
                     rec["planted_max_abs_err"] = b_err
                     rec["planted"] = b_read
                 if kv_dtype == torch.int8 and q_dtype != torch.float32:
-                    rec.update(time_int8(q, k, v, ksc, vsc, lens, lens_np,
-                                         layer))
+                    rec.update(time_paged(q, k, v, lens, lens_np, layer,
+                                          k_scale=ksc, v_scale=vsc))
+                    before = (f", {CUDA_CORES_F16_CHUNK_MS['int8']} ms on "
+                              f"the CUDA cores before (recorded: PERF.md "
+                              f"section 6 row 4c)"
+                              if q_dtype == torch.float16 and C == WINDOW
+                              else "")
                     log(f"[int8] paged_attention {name}: {rec['ms']:.4f} "
                         f"ms, bound {rec['bound_ms']:.4f} ms "
                         f"({rec['bound_by']}), plain {rec['plain_ms']:.4f} "
                         f"ms, sdpa over the prefix dequantized to q's type "
-                        f"{rec['library_ms']:.4f} ms (dequant not timed)")
+                        f"{rec['library_ms']:.4f} ms (dequant not timed)"
+                        f"{before}")
                 variants.append(rec)
+    variants += f16_chunk_cases(gen, slabs, lens, lens_np, layer)
     del slabs, k32, v32, kc, vc
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()   # comparison launches do not count
     return variants
 
 
-def time_int8(q, k, v, ks, vs, lens, lens_np, layer):
-    """Kernel, plain and library times of one int8 read, rotating over
-    the layers as the engine's layer loop does; the library call is SDPA
-    over the lanes' prefix dequantized and gathered into bf16 beforehand
-    (the dequant is not in its time)."""
+# float16 q at C = 256 on the tensor cores, beyond the loop's cases: a
+# peaked softmax (q x 8: scores spread ~8 sigma) over the float16 and the
+# int8 slab, and the int8 slab with v_scale x 2^-12 (~6e-6: P' = P v_scale
+# lies under float16's normal range, where the kernel's per-row shift
+# keeps the lo term): (case, slab type, q scale, v_scale scale)
+F16_CHUNK_CASES = (("peaked", torch.float16, 8.0, 1.0),
+                   ("peaked", torch.int8, 8.0, 1.0),
+                   ("v_scale x 2^-12", torch.int8, 1.0, 2.0 ** -12))
+
+
+def f16_chunk_cases(gen, slabs, lens, lens_np, layer):
+    """`F16_CHUNK_CASES` at phase 8's C = 256 shape: each on the wgmma
+    route within float16's limits, timed beside SDPA (over the prefix
+    dequantized to float16 on int8), the plain version and the bound."""
+    S, H, D = SLOTS, FULL["heads"], FULL["head_dim"]
+    out = []
+    for case, kv_dtype, q_mul, vs_mul in F16_CHUNK_CASES:
+        q = (torch.randn((S, WINDOW, H, D), generator=gen,
+                         device=lens.device) * q_mul).half()
+        k, v, ksc, vsc = slabs[kv_dtype]
+        sc = {}
+        if kv_dtype == torch.int8:
+            sc = dict(k_scale=ksc, v_scale=vsc * vs_mul)
+        got, route = paged_checked(q, k, v, lens, layer, **sc)
+        ref = fused.paged_attention_ref(q, k, v, lens, layer, **sc)
+        torch.cuda.synchronize()
+        assert route == "wgmma" and torch.isfinite(got.float()).all(), route
+        err, ok, read = paged_err(got, ref)
+        name = f"q float16 slab {_dtype_name(kv_dtype)} C={WINDOW} {case}"
+        rec = {"q_dtype": "float16", "kv_dtype": _dtype_name(kv_dtype),
+               "C": WINDOW, "case": case, "kernel_route": route,
+               "max_abs_err": err, **read,
+               **time_paged(q, k, v, lens, lens_np, layer, **sc)}
+        log(f"[int8] paged_attention {name} ({route}): max_abs_err "
+            f"{err:.3e} {read}; {rec['ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+            f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms")
+        assert ok, f"paged_attention {name} disagrees with its plain version"
+        out.append(rec)
+    return out
+
+
+def time_paged(q, k, v, lens, lens_np, layer, k_scale=None, v_scale=None):
+    """Kernel, plain and library times of one read, rotating over the
+    layers as the engine's layer loop does; the library call is SDPA over
+    the lanes' prefix, on an int8 slab dequantized and gathered into q's
+    type beforehand (the dequant is not in its time)."""
     S, C, H, D = q.shape
     T, L = k.shape[2], k.shape[1]
+    sc = dict(k_scale=k_scale, v_scale=v_scale) if k_scale is not None \
+        else {}
     ms = median_ms(lambda i: kernels.paged_attention_cuda(
-        q, k, v, lens, i % L, k_scale=ks, v_scale=vs), reps=24)
+        q, k, v, lens, i % L, **sc), reps=24)
     plain_ms = median_ms(lambda i: fused.paged_attention_ref(
-        q, k, v, lens, i % L, k_scale=ks, v_scale=vs), reps=5, warmup=1)
-    deq_k = (k[:, layer:layer + 1].float()
-             * ks[:, layer:layer + 1, :, None, None]).to(q.dtype)
-    deq_v = (v[:, layer:layer + 1].float()
-             * vs[:, layer:layer + 1, :, None, None]).to(q.dtype)
-    lib_fn, _ = library_call(q, deq_k, deq_v, lens, 0)
+        q, k, v, lens, i % L, **sc), reps=5, warmup=1)
+    if k_scale is not None:
+        lk = (k[:, layer:layer + 1].float()
+              * k_scale[:, layer:layer + 1, :, None, None]).to(q.dtype)
+        lv = (v[:, layer:layer + 1].float()
+              * v_scale[:, layer:layer + 1, :, None, None]).to(q.dtype)
+        lib_fn, _ = library_call(q, lk, lv, lens, 0)
+        del lk, lv
+    else:
+        lib_fn, _ = library_call(q, k, v, lens, layer)
     lib_ms = median_ms(lib_fn, reps=24)
-    del deq_k, deq_v
     bound_ms, bound_by = attention_bound(lens_np, C, T, H, D, q.dtype,
-                                         torch.int8)
+                                         k.dtype)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -2281,20 +2452,27 @@ def cover_engine(dev, cfg):
             "token_exact": exact, "launches": launches["paged_attention"]}
 
 
+# phase 10's float16 engine streams prompts in 32-position windows, so the
+# longest (36 tokens) reads a chunk (C = 32) through the paged kernel
+COVER_F16_WINDOW = 32
+
+
 def cover_engine_f16(dev):
     """`ContinuousEngine` over a float16 `CachedDecoder(DecoderConfig(
-    max_len=64))` (a float16 pool on the card): every request answered,
-    every paged read on the kernel with float16 q and slab, decode on the
-    split route and chunks on the CUDA cores (float16 never takes the bf16
-    tensor cores). Token equality with `reference_generate` is read, not
-    held: float16 greedy may part at near-ties, as bfloat16 in phase 3."""
+    max_len=64))` (a float16 pool on the card, head_dim 16) with a
+    COVER_F16_WINDOW prefill window: every request answered, every paged
+    read on the kernel with float16 q and slab, decode on the split route
+    and chunks on the tensor cores, as bfloat16's (`check_routes`). Token equality with
+    `reference_generate` is read, not held: float16 greedy may part at
+    near-ties, as bfloat16 in phase 3."""
     model = serve.CachedDecoder(serve.DecoderConfig(max_len=64,
                                                     dtype="float16"),
                                 seed=0, device=dev)
     rng = np.random.RandomState(13)
     prompts = [rng.randint(1, model.config.vocab, size=int(n)).tolist()
                for n in np.linspace(3, 36, 6).astype(int)]
-    with serve.ContinuousEngine(model, max_slots=8) as eng:
+    with serve.ContinuousEngine(model, max_slots=8,
+                                prefill_window=COVER_F16_WINDOW) as eng:
         assert eng.pool.k.dtype == torch.float16 and \
             eng.pool.k.device.type == dev.type
         kernels.reset_launch_counts()
@@ -2307,6 +2485,8 @@ def cover_engine_f16(dev):
         want = model.config.layers * (eng.decode_steps
                                       * st["decode_iterations"]
                                       + st["chunk_batches"])
+        check_routes("cover float16", "float16", model.config, eng, st,
+                     launches)
     for p, o in zip(prompts, outs):
         assert o.shape == (COVER_NEW_TOKENS,) and \
             ((o >= 0) & (o < model.config.vocab)).all(), \
@@ -2320,13 +2500,11 @@ def cover_engine_f16(dev):
         f"{exact} equal to reference_generate; paged launches "
         f"{launches['paged_attention']} (expected {want}), float16 q / slab "
         f"{f16}, routes split {launches['paged_attention_split']} "
-        f"cuda_cores {launches['paged_attention_cuda_cores']}")
+        f"wgmma {launches['paged_attention_wgmma']}")
     assert launches["paged_attention"] == want > 0 and f16 == (want, want), \
         "float16 engine off the kernel"
-    assert launches["paged_attention_wgmma"] == 0 and \
-        launches["paged_attention_split"] \
-        + launches["paged_attention_cuda_cores"] == want, \
-        f"float16 engine off its routes {launches}"
+    assert launches["paged_attention_wgmma"] > 0, \
+        f"float16 engine ran no chunk on the tensor cores {launches}"
     return {"requests": len(prompts), "answered": len(outs),
             "token_equal": exact, "launches": launches}
 
@@ -3361,6 +3539,23 @@ SSD_SGD = dict(learning_rate=0.001, momentum=0.9, wd=5e-4)
 SSD_NMS, SSD_THRESH = 0.45, 0.01
 SSD_ANCHORS = 8732
 NMS_REPS = 5
+DETECT_REPS = 5     # detect() is host-timed: a median of this many calls
+# the NMS sweep's time at detect()'s (32, 8732) before the bitmask
+# redesign: one block an image, a barrier a kept row (PERF.md section 6
+# row 9, `chip_smoke.py --profile` on NVIDIA H100 80GB HBM3, 700.00 W);
+# logged beside this run's, a recorded reading, so not in the kernels line
+NMS_ONE_BLOCK_MS = 4.9298
+# the kernels at the edges of a 64-row word and at SSD300's anchors:
+# (images, rows, ids: "classes" (20), "one class", None, "chain": each
+# box overlapping the next alone, so the greedy keeps every other row, or
+# "dense": larger boxes in a third of the frame, no classes, so most pairs
+# overlap and take the IoU); 12000 rows pass the words the sweep's warps
+# load a step ahead (31 x 5 = 155 words, 9920 rows)
+NMS_SHAPES = ((4, 1, "classes"), (4, 63, None), (4, 64, None),
+              (4, 65, "classes"), (4, 65, None), (2, SSD_ANCHORS, "classes"),
+              (1, SSD_ANCHORS, "one class"), (1, SSD_ANCHORS, None),
+              (1, SSD_ANCHORS, "chain"), (2, SSD_ANCHORS, "dense"),
+              (2, 12000, None))
 # float32 operations of one IoU test in the sweep (2 max, 2 min, 2 sub, 2
 # clamps, a product; the later box's area: 2 sub, 2 clamps, a product; the
 # union's add and sub; the quotient; the comparison)
@@ -3472,12 +3667,17 @@ def ssd_apply_kernels(dev):
 
 
 def ssd_conv1_timing(x, bias, err):
-    """B1's reading at conv1's shape: ms, its plain version's, the bound."""
+    """B1's reading at conv1's shape: ms, its plain version's, the bound,
+    and the library's: torch.addcmul of the bias row and a row of ones in
+    x's type (phase 4's yardstick: the affine part in one call, the ReLU
+    not in it)."""
     m, c = x.shape
     nbytes = 2 * m * c * 2 + c * 4
     ops = m * c * (1 + ACT_OPS["relu"])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ELEMENTWISE_OPS_PER_S * 1e3
+    sh = bias.to(x.dtype)
+    sc = torch.ones(c, dtype=x.dtype, device=x.device)
     return {"M": m, "C": c, "act": "relu", "dtype": "bfloat16",
             "max_abs_err": err,
             "ms": median_ms(lambda i: kernels.scale_shift_act_cuda(
@@ -3486,7 +3686,8 @@ def ssd_conv1_timing(x, bias, err):
                 x, None, bias, None, "relu"), reps=5, warmup=1),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": median_ms(lambda i: torch.addcmul(sh, x, sc),
+                                    reps=20)}
 
 
 def ssd_train(card, dev, profile):
@@ -3554,7 +3755,8 @@ def ssd_train(card, dev, profile):
         f"and ({BATCH}, 4096)) in float32 and bfloat16: largest max abs err "
         f"{worst}; at conv1 ({conv1['M']}, {conv1['C']}) bf16: "
         f"{conv1['ms']:.4f} ms, bound {conv1['bound_ms']:.4f} ms "
-        f"({conv1['bound_by']}), plain {conv1['plain_ms']:.4f} ms, max abs "
+        f"({conv1['bound_by']}), plain {conv1['plain_ms']:.4f} ms, "
+        f"torch.addcmul {conv1['library_ms']:.4f} ms, max abs "
         f"err {conv1['max_abs_err']:.3e}")
     del net, trainer
     torch.cuda.empty_cache()
@@ -3617,6 +3819,67 @@ def nudged_fault(boxes, ids, kept, thresh):
     out = boxes.clone()
     out[0, j] = moved.to(boxes.device)
     return out, j, before, after
+
+
+def nms_mask_work(keep):
+    """What the mask pass does for the rows alive at the start: its IoU
+    tests (each alive row against every later row) and the bytes of mask
+    it writes (a 64-bit word for each alive row and each 64-row word from
+    the row's own on)."""
+    A = keep.shape[1]
+    rows = torch.arange(A, device=keep.device)
+    tests = int(((A - 1 - rows) * keep).sum())
+    words = int(((-(-A // 64) - rows // 64) * keep).sum())
+    return tests, 8 * words
+
+
+def nms_shapes(dev):
+    """The kernel against the plain sweep, bit for bit, at NMS_SHAPES:
+    random boxes (SSD-like sizes), a fifth of the rows dead at the start,
+    threshold 0.45; the chain at threshold 0.2 (IoU 0.25 with the next
+    box), every row alive; the two-image SSD case also one image a group."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rows = []
+    for B, A, kind in NMS_SHAPES:
+        xy = torch.rand((B, A, 2), generator=gen, device=dev) * 0.8
+        wh = 0.02 + torch.rand((B, A, 2), generator=gen, device=dev) * 0.2
+        boxes = torch.cat([xy, xy + wh], -1).contiguous()
+        ids = None if kind is None else (
+            torch.zeros((B, A), device=dev) if kind == "one class" else
+            torch.randint(0, SSD_CLASSES, (B, A), generator=gen,
+                          device=dev).float())
+        keep = torch.rand((B, A), generator=gen, device=dev) > 0.2
+        thresh = SSD_NMS
+        if kind == "dense":
+            xy = torch.rand((B, A, 2), generator=gen, device=dev) * 0.3
+            wh = 0.02 + torch.rand((B, A, 2), generator=gen, device=dev) * 0.3
+            boxes = torch.cat([xy, xy + wh], -1).contiguous()
+            ids = None
+        if kind == "chain":
+            x = torch.arange(A, device=dev, dtype=torch.float32) * 0.6
+            boxes = torch.stack([x, torch.zeros_like(x), x + 1,
+                                 torch.ones_like(x)], -1)[None].contiguous()
+            ids, keep, thresh = None, torch.ones_like(keep), 0.2
+        got = kernels.nms_sweep_cuda(boxes, ids, keep, thresh)
+        want = contrib.nms_sweep_ref(boxes, ids, keep, thresh)
+        same = torch.equal(got, want)
+        if B > 1 and A == SSD_ANCHORS and kind == "classes":
+            # the images in groups of one, past a lowered workspace cap
+            cap = kernels.NMS_MASK_CAP_BYTES
+            kernels.NMS_MASK_CAP_BYTES = kernels.nms_mask_bytes(1, A)
+            try:
+                same &= torch.equal(
+                    kernels.nms_sweep_cuda(boxes, ids, keep, thresh), want)
+            finally:
+                kernels.NMS_MASK_CAP_BYTES = cap
+        rows.append({"images": B, "rows": A, "ids": kind, "bit_equal": same,
+                     "alive": int(keep.sum()), "kept": int(got.sum())})
+        assert same, f"the NMS kernels part from the plain sweep at " \
+            f"({B}, {A}), ids {kind}"
+    log(f"[detect] the NMS kernels bit-equal to the plain sweep at "
+        + "; ".join(f"({r['images']}, {r['rows']}) ids {r['ids']}: "
+                    f"{r['kept']} of {r['alive']} kept" for r in rows))
+    return rows
 
 
 def ssd_detect(card, net, x, labels, dev):
@@ -3699,9 +3962,12 @@ def ssd_detect(card, net, x, labels, dev):
         "the check passes a keep mask with a nudged row"
     assert torch.equal(fault_kernel, fault_plain), \
         "the kernel parts from the plain sweep at the nudged row"
+    shapes = nms_shapes(dev)
     # times: the kernel, the plain sweep, the whole detect()
     ms = median_ms(lambda i: kernels.nms_sweep_cuda(boxes, ids, keep0,
                                                     thresh), NMS_REPS)
+    mask_tests, mask_bytes = nms_mask_work(keep0)
+    ws_bytes = kernels.nms_mask_bytes(*keep0.shape)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = contrib.nms_sweep_ref(boxes, ids, keep0, thresh)
@@ -3709,6 +3975,14 @@ def ssd_detect(card, net, x, labels, dev):
     plain_ms = (time.perf_counter() - t0) * 1e3
     assert torch.equal(kept, ref), "the NMS kernel's keep mask is not " \
         "nms_sweep_ref's"
+    detect_runs = []
+    for _ in range(DETECT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.detect(x, nms_threshold=SSD_NMS, threshold=SSD_THRESH)
+        torch.cuda.synchronize()
+        detect_runs.append((time.perf_counter() - t0) * 1e3)
+    detect_median = float(np.median(detect_runs))
     kernels.reset_launch_counts()   # comparison launches do not count
     t_ops = tests * IOU_OPS / PEAK_OPS[torch.float32] * 1e3
     nbytes = boxes.numel() * 4 + ids.numel() * 4 + 2 * keep0.numel()
@@ -3717,22 +3991,31 @@ def ssd_detect(card, net, x, labels, dev):
     voc.update(labels, dets)
     mean_ap = voc.get()[1]
     log(f"[detect] {card}: net.detect on {SSD_BATCH} x {SSD_IMAGE}^2 "
-        f"(nms {SSD_NMS}, threshold {SSD_THRESH}): {detect_ms:.3f} ms; "
+        f"(nms {SSD_NMS}, threshold {SSD_THRESH}): {detect_ms:.3f} ms "
+        f"(median of {DETECT_REPS} more {detect_median:.3f} ms); "
         f"{alive} of {SSD_BATCH * SSD_ANCHORS} rows alive into the sweep, "
-        f"{int(kept.sum())} kept, {tests} IoU tests; the kernel "
-        f"{ms:.4f} ms (bound {max(t_ops, t_bytes):.4f} ms by "
-        f"{'operations' if t_ops >= t_bytes else 'bytes'}), the plain "
+        f"{int(kept.sum())} kept, {tests} IoU tests; the kernels "
+        f"{ms:.4f} ms (one block an image before: {NMS_ONE_BLOCK_MS} ms, "
+        f"recorded: PERF.md section 6 row 9; bound "
+        f"{max(t_ops, t_bytes):.4f} ms by "
+        f"{'operations' if t_ops >= t_bytes else 'bytes'}; mask pass "
+        f"{mask_tests} IoU tests, {mask_bytes} bytes of mask written into "
+        f"a {ws_bytes}-byte workspace), the plain "
         f"sweep {plain_ms:.3f} ms; keep mask, ids, scores and boxes "
         f"bit-equal; box_nms ({SSD_BATCH}, {SSD_ANCHORS}, 6) kept "
         f"{kept_box_nms}, bit-equal; "
         f"planted fault (row {j} of image 0 nudged from IoU {before:.7f} to "
         f"{after:.7f} over {thresh}) refused, the kernel on it bit-equal; "
         f"VOC07 mAP {mean_ap}")
-    return {"detect_ms": detect_ms, "launches": launches, "alive": alive,
+    return {"detect_ms": detect_ms, "detect_median_ms": detect_median,
+            "detect_runs_ms": detect_runs,
+            "launches": launches, "alive": alive,
             "kept": int(kept.sum()), "iou_tests": tests, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "max_abs_err": err, "box_nms_kept": kept_box_nms,
+            "mask_iou_tests": mask_tests, "mask_bytes": mask_bytes,
+            "workspace_bytes": ws_bytes, "shapes": shapes,
             "fault": {"row": j, "iou_before": before, "iou_after": after,
                       "refused": refused},
             "voc07_map": mean_ap}
@@ -3988,6 +4271,11 @@ def nms_entry(ssd):
             "max_abs_err": d["max_abs_err"], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": None,
+            "mask_iou_tests": d["mask_iou_tests"],
+            "mask_bytes": d["mask_bytes"],
+            "workspace_bytes": d["workspace_bytes"],
+            "detect_ms": d["detect_ms"],
+            "detect_median_ms": d["detect_median_ms"],
             "shape": f"B={SSD_BATCH} A={SSD_ANCHORS} float32 boxes and "
                      f"class ids, IoU {SSD_NMS}, {d['alive']} rows alive, "
                      f"{d['iou_tests']} IoU tests (no PyTorch call computes "
@@ -4014,13 +4302,20 @@ def int8_entry(variants, engine):
                  f"D={FULL['head_dim']} T={FULL['max_len']} bfloat16 q, "
                  f"int8 slab (library: SDPA over the prefix dequantized to "
                  f"q's type beforehand, dequant not timed)",
-        # the chunk (C = 256) over int8: bf16 q on the tensor cores, float16
-        # q on the CUDA cores, each beside SDPA in q's type
+        # the chunk (C = 256) over int8: bf16 and float16 q on the tensor
+        # cores, each beside SDPA in q's type; then phase 8's float16 cases
+        # (a peaked softmax, v_scale x 2^-12)
         **{f"chunk_C{WINDOW}_{q}_q": {
             k: v[k] for k in ("kernel_route", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
            for q in ("bfloat16", "float16")
-           for v in timed if v["C"] == WINDOW and v["q_dtype"] == q},
+           for v in timed if v["C"] == WINDOW and v["q_dtype"] == q
+           and "case" not in v},
+        "float16_cases": [
+            {k: v[k] for k in ("kv_dtype", "case", "kernel_route", "ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "max_rel", "rms_rel")}
+            for v in timed if "case" in v],
         "variants": variants,
     }
 
@@ -4082,12 +4377,12 @@ def flash_entries(variants, bert):
     return entries, share
 
 
-def f16_entries(tk, paged, flash, coverage, loop):
+def f16_entries(tk, paged, flash, coverage, loop, serve_f16):
     """The float16 instances' JSON entries (ROADMAP C3), each with the
     launches of the path that runs it in float16, counted on counts set to
     0 just before that run: the apply in phase 10's float16-AMP Dense step,
-    the paged read in phase 10's float16 engine, the flash kernels in
-    phase 11 (c)."""
+    the paged read in phase 3's float16 arm (beside phase 10's float16
+    engine), the flash kernels in phase 11 (c)."""
     base = "incubator_mxnet_tpu"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4106,14 +4401,21 @@ def f16_entries(tk, paged, flash, coverage, loop):
     chunk = next(v for v in paged if v["dtype"] == "float16"
                  and v["C"] == WINDOW)
     eng = coverage["engine_f16"]["launches"]
+    arm = serve_f16["launches"]
     out.append(dict(
         {k: split[k] for k in keys}, name="paged_attention_float16",
         route="cuda",
         source="incubator_mxnet_tpu_torch/ops/csrc/paged_attention.cu",
         replaces=f"{base}/ops/pallas_kernels.py:292",
-        launches=eng["paged_attention"], kernel_route="split",
+        launches=arm["paged_attention"], kernel_route="split",
+        route_launches={r: arm[f"paged_attention_{r}"]
+                        for r in ("split", "wgmma", "cuda_cores")},
+        cover_launches=eng["paged_attention"],
+        cover_route_launches={r: eng[f"paged_attention_{r}"]
+                              for r in ("split", "wgmma", "cuda_cores")},
         shape=f"S={SLOTS} C=1 H={FULL['heads']} D={FULL['head_dim']} "
-              f"T={FULL['max_len']} float16 q and slab",
+              f"T={FULL['max_len']} float16 q and slab (launches: phase "
+              f"3's float16 arm; cover: phase 10's float16 engine)",
         chunk_C256={k: chunk[k] for k in keys + ("kernel_route",)}))
     timed = [v for v in flash if "ms" in v["flash_fwd"]
              and v["flash_fwd"]["dtype"] == "float16"]
@@ -4623,9 +4925,10 @@ def array_fused(dev, tally):
 
 
 def array_nms(dev, tally):
-    """(e) npx.box_nms at (32, 8732, 6): the NMS kernel once, bit-equal to
+    """(e) npx.box_nms at (32, 8732, 6): the NMS kernels once, bit-equal to
     ops.contrib.box_nms on the same tensor, its keep mask bit-equal to the
-    plain sweep's on the same sorted rows."""
+    plain sweep's on the same sorted rows; then by class (id_index 0) with
+    and without force_suppress, each once and bit-equal to box_nms."""
     rng = np.random.RandomState(17)
     B, A, K = ARRAY_NMS
     xy = rng.rand(B, A, 2) * 0.8
@@ -4655,10 +4958,19 @@ def array_nms(dev, tally):
     same_keep = torch.equal(plain, kept)
     row = {"shape": list(ARRAY_NMS), "launches": moved,
            "bit_equal_to_ops": same, "keep_equal_to_plain": same_keep,
-           "alive": int(keep.sum()), "kept": int(kept.sum())}
-    log(f"[array nms] {row}")
+           "alive": int(keep.sum()), "kept": int(kept.sum()),
+           "workspace_bytes": kernels.nms_mask_bytes(B, A)}
     assert moved == {"nms_sweep": 1}, moved
     assert same and same_keep, "npx.box_nms off the kernel or the plain sweep"
+    for fs in (False, True):
+        kw_id = dict(kw, id_index=0, force_suppress=fs)
+        out, moved = tally.run(lambda: mx.npx.box_nms(mx.np.array(t),
+                                                      **kw_id))
+        same = torch.equal(out._t, contrib.box_nms(t, **kw_id))
+        row[f"by_class_force{fs}"] = {"launches": moved, "bit_equal": same}
+        assert moved == {"nms_sweep": 1} and same, \
+            f"npx.box_nms(force_suppress={fs}) off the kernel or box_nms"
+    log(f"[array nms] {row}")
     return row
 
 
@@ -6155,9 +6467,10 @@ def main():
     }
     # one entry per route of B4, timed at phase 2's serving shapes; its
     # launches are the route's over the serving runs of phases 3 and 9
-    # (bfloat16 and float32 engines)
-    route_runs = (result["launches"], result["float32_launches"],
-                  engine["launches"], engine["float32_launches"])
+    # (bfloat16, float16 and float32 engines)
+    route_runs = (result["launches"], result["float16_launches"],
+                  result["float32_launches"], engine["launches"],
+                  engine["float32_launches"])
     route_entries = []
     for route, (dt, C) in PAGED_ROUTE_SHAPES.items():
         v = next(x for x in variants if x["dtype"] == dt and x["C"] == C)
@@ -6183,7 +6496,8 @@ def main():
     entries += fentries
     entries.append(int8_entry(int8_variants, engine))
     entries += route_entries
-    entries += f16_entries(train_kernels, variants, flash, coverage, loop)
+    entries += f16_entries(train_kernels, variants, flash, coverage, loop,
+                           result["float16"])
     # phase 12's path (ResNet-50 v2 through the GluonCV recipe and
     # FusedInferStep), counted on counts set to 0 before each run
     recipe, infer = script["recipe"], script["recipe"]["infer"]

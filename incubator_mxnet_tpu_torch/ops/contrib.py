@@ -11,8 +11,10 @@ differentiable: their inputs are detached, as the JAX package's
 `stop_gradient` does.
 
 The greedy sweep both NMS ops run (`nms_sweep`) takes the card's
-hand-written kernel (`ops/csrc/nms.cu`, through `kernels.nms_sweep_cuda`)
-for a CUDA tensor and its plain version `nms_sweep_ref` for a CPU one.
+hand-written kernels (`ops/csrc/nms.cu`, through `kernels.nms_sweep_cuda`:
+a suppression bitmask of every pair computed over the whole card, then a
+sweep of it a block an image) for a CUDA tensor and its plain version
+`nms_sweep_ref` for a CPU one.
 The JAX package runs the sweep as one `lax.fori_loop` inside a jitted
 program; eagerly it would cost a few launches a row. The kernel takes
 float32 boxes: `box_nms` of another type raises on the card.

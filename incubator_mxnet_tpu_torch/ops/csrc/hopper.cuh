@@ -309,7 +309,8 @@ __device__ __forceinline__ void split_f16(float a, float b, uint32_t* hi,
 }
 
 // what a tensor-core kernel over 16-bit type T needs of it: the TMA data
-// type, the hi + lo split of an f32 pair, and the rounded store of a pair
+// type, the hi + lo split of an f32 pair, a pair rounded and packed as a
+// register operand, and the rounded store of a pair
 template <typename T>
 struct Elem16;
 
@@ -319,6 +320,9 @@ struct Elem16<__nv_bfloat16> {
   __device__ __forceinline__ static void split(float a, float b,
                                                uint32_t* hi, uint32_t* lo) {
     split_bf16(a, b, hi, lo);
+  }
+  __device__ __forceinline__ static uint32_t pack(float a, float b) {
+    return pack_bf16(a, b);
   }
   __device__ __forceinline__ static void store2(__nv_bfloat16* p, float a,
                                                 float b) {
@@ -332,6 +336,9 @@ struct Elem16<__half> {
   __device__ __forceinline__ static void split(float a, float b,
                                                uint32_t* hi, uint32_t* lo) {
     split_f16(a, b, hi, lo);
+  }
+  __device__ __forceinline__ static uint32_t pack(float a, float b) {
+    return pack_f16(a, b);
   }
   __device__ __forceinline__ static void store2(__half* p, float a, float b) {
     *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);

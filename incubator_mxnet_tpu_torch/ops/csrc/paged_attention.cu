@@ -34,18 +34,30 @@
 //     writes its partial (max, normaliser, accumulator) in f32 to a
 //     workspace; a second kernel combines the pieces in piece order
 //     (deterministic) and gives acc / l exactly where a lane has one piece.
-//   wgmma (C > 16, bf16 q over a bf16 slab at d % 8 == 0 or an int8 one at
-//     d % 16 == 0, d <= 128), tensor cores: 128-row items of one (lane,
-//     head), two consumer warpgroups of 64 rows, K/V tiles of 64 positions
-//     in a ring of stages. A bf16 slab comes by TMA from a 4-D tensor map
-//     (d, H, T_ext, S) over the layer view; an int8 one is loaded by the
-//     producer warpgroup, whose threads write the codes as bf16 (exact: codes
-//     lie in [-128, 127]) into the swizzled layout TMA would give. S = Q K^T
-//     and O += P V by wgmma with f32 accumulators; on int8,
-//     S[i, j] = k_scale[j] (q_i . code_k[j]) and P'[i, j] = P[i, j]
-//     v_scale[j] enters P' code_v, the normaliser summing P before the fold.
-//     P (P') enters as two bf16 terms (hi + lo). A persistent grid walks the
-//     items heaviest first.
+//   wgmma (C > 16, 16-bit q of type Tq (bf16 or float16) over a slab of
+//     the same type at d % 8 == 0 or an int8 one at d % 16 == 0, d <= 128),
+//     tensor cores: 128-row items of one (lane, head), two consumer
+//     warpgroups of 64 rows, K/V tiles of 64 positions in a ring of stages.
+//     A 16-bit slab comes by TMA from a 4-D tensor map (d, H, T_ext, S) over
+//     the layer view; an int8 one is loaded by the producer warpgroup, whose
+//     threads write the codes as Tq (exact: codes lie in [-128, 127]) into
+//     the swizzled layout TMA would give. S = Q K^T and O += P V by wgmma
+//     with f32 accumulators; on int8, S[i, j] = k_scale[j] (q_i . code_k[j])
+//     and P'[i, j] = P[i, j] v_scale[j] enters P' code_v, the normaliser
+//     summing P before the fold. P (P') enters as two Tq terms (hi + lo). A
+//     persistent grid walks the items heaviest first.
+//     float16 over int8: P' <= v_scale, and v_scale (absmax / 127) may lie
+//     near or under float16's normal range (2^-14), where the lo term (and
+//     then hi) underflows. So the rows carry a power-of-two exponent e
+//     beside their running max: P' enters as P' 2^e, e chosen from the
+//     tile's largest v_scale so that it lands in [2^14, 2^15), and e only
+//     ever falls (a fall folds 2^(e_new - e_old) <= 1 into the accumulator's
+//     rescale exp(m_old - m_new)); the division by l 2^e undoes it. e
+//     depends on the lane's scales alone, so one register a thread serves
+//     both its rows, computed while S's wgmma runs: off the softmax's chain.
+//     Powers of two scale exactly, so this changes no rounding but the
+//     16-bit one. bf16 has f32's exponent range and takes no shift; over a
+//     float slab P <= 1 and l >= 1, so neither does float16.
 //   cuda_cores (every other chunk case: f32 q or slab, mixed pairs, d off the
 //     TMA alignment, d > 128): one 64-row query tile of one (lane, head)
 //     reads each K/V tile once, 4 x 4 register micro-tiles as the flash
@@ -672,16 +684,35 @@ static_assert(Pg<128>::kSmem <= 232448, "the paged tensor-core tiles fit");
 static_assert(2 * kPgBN == kPgThreads - 256,
               "a producer thread loads one scale of each stage");
 
+// float16 over int8: the bounds of the exponent e (P' enters as P' 2^e),
+// so that every 2^e and every fall 2^(e_new - e_old) is a normal f32
+constexpr int kShiftMax = 60;
+constexpr int kShiftMin = -60;
+
+// the exponent that puts v (> 0) in [2^14, 2^15), within the bounds
+__device__ __forceinline__ int shift_for(float v) {
+  const int e = 141 - ((__float_as_int(v) >> 23) & 0xff);
+  return max(kShiftMin, min(kShiftMax, e));
+}
+
+// 2^e for kShiftMin - kShiftMax <= e <= kShiftMax - kShiftMin, exactly
+__device__ __forceinline__ float pow2(int e) {
+  return __int_as_float((127 + e) << 23);
+}
+
 // Accumulator fragment of a 64 x N wgmma in a consumer thread (warp w of its
 // warpgroup, lane = 4 g + t): register 4 j + e holds row 16 w + g + 8 (e /
-// 2), column 8 j + 2 t + (e % 2), as in the flash kernels.
-template <bool kQuant, int D>
+// 2), column 8 j + 2 t + (e % 2), as in the flash kernels. Tq is q's and the
+// operands' 16-bit type (bf16 or float16).
+template <typename Tq, bool kQuant, int D>
 __global__ void __launch_bounds__(kPgThreads, 1)
     paged_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const Args a,
                        float scale_log2) {
   using P = Pg<D>;
+  // the exponent of P' (see the header): float16 over int8 only
+  constexpr bool kShift = kQuant && std::is_same<Tq, __half>::value;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const base_p = smem_raw + (base - smem_u32(smem_raw));
@@ -743,8 +774,8 @@ __global__ void __launch_bounds__(kPgThreads, 1)
 
   if (warp >= 8) {
     // producer warpgroup. Thread 0 loads each item's Q (TMA) into the free
-    // Q buffer; the K/V tiles come by TMA (bf16, thread 0) or from the
-    // producer's 128 threads (int8: codes to bf16 in the swizzled layout,
+    // Q buffer; the K/V tiles come by TMA (16-bit slabs, thread 0) or from
+    // the producer's 128 threads (int8: codes to Tq in the swizzled layout,
     // and the tile's scales). The ring's stage and phase run on across
     // items.
     const int pt = threadIdx.x - 256;
@@ -814,7 +845,7 @@ __global__ void __launch_bounds__(kPgThreads, 1)
             uint32_t w[8];
 #pragma unroll
             for (int e = 0; e < 8; ++e)
-              w[e] = pack_bf16((float)cb[2 * e], (float)cb[2 * e + 1]);
+              w[e] = Elem16<Tq>::pack((float)cb[2 * e], (float)cb[2 * e + 1]);
             // 128-byte swizzle: the 16-byte chunk c8 of row r sits at
             // c8 ^ (r % 8) of the row's 128 bytes
             uint8_t* row = base_p + P::kRing +
@@ -862,6 +893,8 @@ __global__ void __launch_bounds__(kPgThreads, 1)
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};  // m in log2 units
+    int e = kShiftMax;  // kShift: P' enters as P' 2^e
+    float f = pow2(kShiftMax);
     mbar_wait(q_full0 + 8 * b, (it >> 1) & 1);
     for (int kt = 0; kt < nk; ++kt) {
       const int k0 = kt * kPgBN;
@@ -875,12 +908,30 @@ __global__ void __launch_bounds__(kPgThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;  // 16 columns: 32 bytes
-        wgmma_ss<kPgBN>(sv, sw128_desc(sQw + (kk / 4) * 8192 + off, 16),
-                        sw128_desc(sKs + (kk / 4) * kPgBN * 128 + off, 16),
-                        kk > 0);
+        wgmma_ss<kPgBN, Tq>(sv, sw128_desc(sQw + (kk / 4) * 8192 + off, 16),
+                           sw128_desc(sKs + (kk / 4) * kPgBN * 128 + off, 16),
+                           kk > 0);
       }
       wg_commit();
       named_arrive(2 - wg);
+      float g = 1.f;  // kShift: the accumulator's factor for a fall of e
+      if constexpr (kShift) {
+        // the tile's largest v_scale (0 past T), while the wgmma runs: this
+        // thread's 16 columns, then the row's four threads'
+        float mv = 0.f;
+#pragma unroll
+        for (int q = 0; q < kPgBN / 8; ++q)
+          mv = fmaxf(mv, fmaxf(sc[kPgBN + 8 * q + 2 * t4],
+                               sc[kPgBN + 8 * q + 2 * t4 + 1]));
+        mv = fmaxf(mv, __shfl_xor_sync(0xffffffffu, mv, 1));
+        mv = fmaxf(mv, __shfl_xor_sync(0xffffffffu, mv, 2));
+        if (mv > 0.f) {
+          const int e_new = min(e, shift_for(mv));
+          g = pow2(e_new - e);
+          e = e_new;
+          f = pow2(e);
+        }
+      }
       wg_wait0();
       pin<kPgBN / 2>(sv);
 
@@ -907,6 +958,7 @@ __global__ void __launch_bounds__(kPgThreads, 1)
         alpha[r] = exp2f(m[r] - m_new);
         m[r] = m_new;
         l[r] *= alpha[r];
+        if constexpr (kShift) alpha[r] *= g;  // the accumulator's, not l's
       }
       uint32_t p_hi[kPgBN / 16][4], p_lo[kPgBN / 16][4];
 #pragma unroll
@@ -917,12 +969,16 @@ __global__ void __launch_bounds__(kPgThreads, 1)
           float x = exp2f(fmaf(sv[i], scale_log2, -m[r % 2]));
           float y = exp2f(fmaf(sv[i + 1], scale_log2, -m[r % 2]));
           l[r % 2] += x + y;
-          if constexpr (kQuant) {
+          if constexpr (kShift) {
+            const int c = 16 * kb + 8 * (r / 2) + 2 * t4;
+            x *= sc[kPgBN + c] * f;
+            y *= sc[kPgBN + c + 1] * f;
+          } else if constexpr (kQuant) {
             const int c = 16 * kb + 8 * (r / 2) + 2 * t4;
             x *= sc[kPgBN + c];
             y *= sc[kPgBN + c + 1];
           }
-          split_bf16(x, y, &p_hi[kb][r], &p_lo[kb][r]);
+          Elem16<Tq>::split(x, y, &p_hi[kb][r], &p_lo[kb][r]);
         }
       }
 #pragma unroll
@@ -931,10 +987,12 @@ __global__ void __launch_bounds__(kPgThreads, 1)
       wg_fence();
 #pragma unroll
       for (int kb = 0; kb < kPgBN / 16; ++kb)
-        wgmma_rs<D>(acc, p_hi[kb], sw128_desc(sVs + kb * 2048, kPgBN * 128));
+        wgmma_rs<D, Tq>(acc, p_hi[kb],
+                       sw128_desc(sVs + kb * 2048, kPgBN * 128));
 #pragma unroll
       for (int kb = 0; kb < kPgBN / 16; ++kb)
-        wgmma_rs<D>(acc, p_lo[kb], sw128_desc(sVs + kb * 2048, kPgBN * 128));
+        wgmma_rs<D, Tq>(acc, p_lo[kb],
+                       sw128_desc(sVs + kb * 2048, kPgBN * 128));
       wg_commit();
       wg_wait0();
       pin<D / 2>(acc);
@@ -950,20 +1008,20 @@ __global__ void __launch_bounds__(kPgThreads, 1)
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if constexpr (kShift) l[r] *= f;  // undo the shift: exact
     }
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+    Tq* out = static_cast<Tq*>(a.out);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = row0 + 8 * r;
       if (qi >= C) continue;
-      __nv_bfloat16* orow = out + ((long long)(s * C + qi) * H + h) * hd;
+      Tq* orow = out + ((long long)(s * C + qi) * H + h) * hd;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int col = 8 * j + 2 * t4;
         if (col < hd)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * r] / l[r],
-                                    acc[4 * j + 2 * r + 1] / l[r]);
+          Elem16<Tq>::store2(orow + col, acc[4 * j + 2 * r] / l[r],
+                            acc[4 * j + 2 * r + 1] / l[r]);
       }
     }
   }
@@ -1039,9 +1097,10 @@ cudaError_t run_kv(int route, int kv_dtype, const Args& a, float scale,
   return cudaErrorInvalidValue;
 }
 
-template <bool kQuant, int D>
+template <typename Tq, bool kQuant, int D>
 cudaError_t run_wgmma(const Args& a, float scale, cudaStream_t st) {
-  auto kern = paged_wgmma_kernel<kQuant, D>;
+  auto kern = paged_wgmma_kernel<Tq, kQuant, D>;
+  constexpr CUtensorMapDataType ty = Elem16<Tq>::kTma;
   const cuuint32_t box[4] = {64, 1, 64, 1};
   // q (S, C, H, d) as the map (d, H, C, S)
   const cuuint64_t q_dims[4] = {(cuuint64_t)a.d, (cuuint64_t)a.H,
@@ -1050,7 +1109,7 @@ cudaError_t run_wgmma(const Args& a, float scale, cudaStream_t st) {
                                    (cuuint64_t)a.H * a.d * 2,
                                    (cuuint64_t)a.C * a.H * a.d * 2};
   CUtensorMap mq, mk, mv;
-  if (!tensor_map_bf16(&mq, a.q, 4, q_dims, q_strides, box))
+  if (!tensor_map_bf16(&mq, a.q, 4, q_dims, q_strides, box, ty))
     return cudaErrorInvalidValue;
   mk = mv = mq;
   if (!kQuant) {
@@ -1060,8 +1119,8 @@ cudaError_t run_wgmma(const Args& a, float scale, cudaStream_t st) {
     const cuuint64_t strides[3] = {(cuuint64_t)a.d * 2,
                                    (cuuint64_t)a.tok_stride * 2,
                                    (cuuint64_t)a.row_stride * 2};
-    if (!tensor_map_bf16(&mk, a.k, 4, dims, strides, box) ||
-        !tensor_map_bf16(&mv, a.v, 4, dims, strides, box))
+    if (!tensor_map_bf16(&mk, a.k, 4, dims, strides, box, ty) ||
+        !tensor_map_bf16(&mv, a.v, 4, dims, strides, box, ty))
       return cudaErrorInvalidValue;
   }
   const long long items =
@@ -1073,6 +1132,18 @@ cudaError_t run_wgmma(const Args& a, float scale, cudaStream_t st) {
   kern<<<grid, kPgThreads, Pg<D>::kSmem, st>>>(mq, mk, mv, a,
                                                 scale * 1.4426950408889634f);
   return cudaGetLastError();
+}
+
+// route wgmma over q's 16-bit type Tq: the int8 or the Tq slab, capacity
+// 64 or 128
+template <typename Tq>
+cudaError_t run_wgmma16(int kv_dtype, const Args& a, float scale,
+                        cudaStream_t st) {
+  if (kv_dtype == 3)
+    return a.d <= 64 ? run_wgmma<Tq, true, 64>(a, scale, st)
+                     : run_wgmma<Tq, true, 128>(a, scale, st);
+  return a.d <= 64 ? run_wgmma<Tq, false, 64>(a, scale, st)
+                   : run_wgmma<Tq, false, 128>(a, scale, st);
 }
 
 bool aligned16(const void* p) {
@@ -1092,9 +1163,10 @@ bool aligned16(const void* p) {
 // int32 on the device. ws: the split route's f32 workspace of
 // S * H * ceil(T_ext / piece) * C * (D + 2) floats (null otherwise). piece
 // and slice must be this build's kPiece and kSliceCols (the caller sized ws
-// by them). The wgmma route takes bf16 q over a bf16 slab (D % 8 == 0) or an
-// int8 one (D % 16 == 0), D <= 128, every pointer and slab stride 16-byte
-// aligned. S, C, H, T_ext and D are at least 1. Returns cudaGetLastError()
+// by them). The wgmma route takes bf16 (float16) q over a bf16 (float16)
+// slab (D % 8 == 0) or an int8 one (D % 16 == 0), D <= 128, every pointer
+// and slab stride 16-byte aligned. S, C, H, T_ext and D are at least 1.
+// Returns cudaGetLastError()
 // after the launch (0 on success), never synchronises.
 extern "C" int mx_paged_attention_fwd(
     int route, int q_dtype, int kv_dtype, int device, const void* q,
@@ -1112,7 +1184,7 @@ extern "C" int mx_paged_attention_fwd(
     return (int)cudaErrorInvalidValue;
   const int kv_item = kv_dtype == 0 ? 4 : (kv_dtype == 3 ? 1 : 2);
   if (route == 1 &&
-      (q_dtype != 1 || (kv_dtype != 1 && kv_dtype != 3) || D > 128 ||
+      (q_dtype == 0 || (kv_dtype != q_dtype && kv_dtype != 3) || D > 128 ||
        (D * kv_item) % 16 != 0 || (row_stride * kv_item) % 16 != 0 ||
        (tok_stride * kv_item) % 16 != 0 || !aligned16(q) || !aligned16(out) ||
        !aligned16(k) || !aligned16(v)))
@@ -1143,11 +1215,8 @@ extern "C" int mx_paged_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (route == 1)
-    err = kv_dtype == 3
-              ? (D <= 64 ? run_wgmma<true, 64>(a, scale, st)
-                         : run_wgmma<true, 128>(a, scale, st))
-              : (D <= 64 ? run_wgmma<false, 64>(a, scale, st)
-                         : run_wgmma<false, 128>(a, scale, st));
+    err = q_dtype == 1 ? run_wgmma16<__nv_bfloat16>(kv_dtype, a, scale, st)
+                       : run_wgmma16<__half>(kv_dtype, a, scale, st);
   else
     switch (q_dtype) {
       case 0: err = run_kv<float>(route, kv_dtype, a, scale, st); break;

@@ -37,6 +37,7 @@ from ..base import MXNetError
 __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
            "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "flash_fwd_cuda",
            "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "nms_sweep_cuda",
+           "nms_mask_bytes",
            "image_augment_cuda",
            "flash_fwd_route",
            "flash_bwd_route", "paged_route", "pool_route",
@@ -297,7 +298,7 @@ def _load(name):
             elif name == "nms":
                 lib.mx_nms_sweep.restype = ctypes.c_int
                 lib.mx_nms_sweep.argtypes = (
-                    [ctypes.c_int] + [ctypes.c_void_p] * 3
+                    [ctypes.c_int] + [ctypes.c_void_p] * 4
                     + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
             lib.mx_cuda_error_string.restype = ctypes.c_char_p
             lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
@@ -315,6 +316,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3, torch.uint8: 4}
 # the float types every kernel takes (x, q, dO, the pooled tensor)
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+# the 16-bit types the tensor-core kernels (paged wgmma, flash) take
+_TC_TYPES = (torch.bfloat16, torch.float16)
 
 # Every shape rule the wrappers enforce, one row each: (kernel, kind, test,
 # message). Kind "jax": the JAX package refuses the shape too; no other kind
@@ -373,16 +376,16 @@ def paged_route(q_dtype, kv_dtype, d, C):
     "split" for C <= 16 (decode, the speculative verify, short windows; a
     memory-bound read on the CUDA cores, split over fixed 256-position
     pieces and combined); "wgmma", the tensor cores, for longer chunks of
-    bfloat16 q over a bfloat16 slab at d % 8 == 0 or an int8 one at
-    d % 16 == 0 (a row of whole 16-byte vectors), d <= 128 (a 64 x d f32
-    accumulator is d / 2 registers a thread); "cuda_cores" for every other
-    chunk (float32 q or slab, which the tensor cores would take as TF32;
-    float16 on either side, which the tensor-core kernel, written for bf16,
-    does not take; the other mixed pairs, d off that alignment, d > 128)."""
+    16-bit q (bfloat16 or float16) over a slab of the same type at
+    d % 8 == 0 or an int8 one at d % 16 == 0 (a row of whole 16-byte
+    vectors), d <= 128 (a 64 x d f32 accumulator is d / 2 registers a
+    thread); "cuda_cores" for every other chunk (float32 q or slab, which
+    the tensor cores would take as TF32; a float16 side beside a bfloat16
+    one, which no one wgmma takes; d off that alignment, d > 128)."""
     if C <= PAGED_SPLIT_ROWS:
         return "split"
-    if (q_dtype == torch.bfloat16 and d <= 128
-            and ((kv_dtype == torch.bfloat16 and d % 8 == 0)
+    if (q_dtype in _TC_TYPES and d <= 128
+            and ((kv_dtype == q_dtype and d % 8 == 0)
                  or (kv_dtype == torch.int8 and d % 16 == 0))):
         return "wgmma"
     return "cuda_cores"
@@ -682,9 +685,6 @@ def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
     return dx
 
 
-_TC_TYPES = (torch.bfloat16, torch.float16)
-
-
 def flash_fwd_route(dtype, d):
     """Which forward kernel (B5, B6) takes (dtype, head dim d): "wgmma",
     the tensor-core kernel, for bfloat16 and float16 at d a multiple of 8
@@ -874,6 +874,19 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
     return dk, dv
 
 
+# The most bytes of suppression mask one launch of the NMS kernels takes:
+# images beyond it go in further launches of the same call. 512 MiB holds
+# SSD300's (32, 8732) in one (307 MB); a single image over it still runs,
+# alone.
+NMS_MASK_CAP_BYTES = 1 << 29
+
+
+def nms_mask_bytes(images, A):
+    """Bytes of the suppression mask the NMS kernels write for `images`
+    images of A rows: a 64-bit word for each row and each 64 rows."""
+    return images * (-(-A // 64)) * A * 8
+
+
 def nms_sweep_cuda(boxes, ids, keep, thresh):
     """Launch the greedy NMS sweep (`csrc/nms.cu`): the keep mask after
     sweeping rows already in score order, as `ops.contrib.nms_sweep_ref`
@@ -883,8 +896,12 @@ def nms_sweep_cuda(boxes, ids, keep, thresh):
     (B, A) float32 class ids, or None (one class); `keep`: (B, A) bool, the
     rows alive at the start (not modified); `thresh`: the IoU above which a
     later row is suppressed, rounded to float32 as PyTorch's comparison
-    rounds it. Returns a new (B, A) bool mask. Raises `MXNetError` on any
-    input the kernel does not take."""
+    rounds it. Returns a new (B, A) bool mask. The kernels first write a
+    suppression bitmask (`nms_mask_bytes`) into an int64 workspace
+    allocated here, then sweep it; past `NMS_MASK_CAP_BYTES` the images go
+    in groups, each its own pair of kernels over one workspace (each image
+    is swept on its own, so the bits are the same). One call counts one
+    launch. Raises `MXNetError` on any input the kernel does not take."""
     global nms_sweep_launches
     name = "nms_sweep_cuda"
     tensors = [boxes, keep] + ([ids] if ids is not None else [])
@@ -909,11 +926,18 @@ def nms_sweep_cuda(boxes, ids, keep, thresh):
         return out
     lib = _load("nms")
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    rc = lib.mx_nms_sweep(boxes.device.index or 0, boxes.data_ptr(),
-                          ids.data_ptr() if ids is not None else None,
-                          out.data_ptr(), B, A, float(thresh), stream)
-    if rc != 0:
-        raise _launch_failed(lib, "nms_sweep", rc)
+    group = max(1, min(B, NMS_MASK_CAP_BYTES // nms_mask_bytes(1, A)))
+    mask = torch.empty(nms_mask_bytes(group, A) // 8, dtype=torch.int64,
+                       device=boxes.device)
+    for b0 in range(0, B, group):
+        b1 = min(B, b0 + group)
+        rc = lib.mx_nms_sweep(
+            boxes.device.index or 0, boxes[b0:b1].data_ptr(),
+            ids[b0:b1].data_ptr() if ids is not None else None,
+            out[b0:b1].data_ptr(), mask.data_ptr(), b1 - b0, A,
+            float(thresh), stream)
+        if rc != 0:
+            raise _launch_failed(lib, "nms_sweep", rc)
     nms_sweep_launches += 1
     _count_dtype("nms_sweep", boxes.dtype)
     return out

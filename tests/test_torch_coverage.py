@@ -251,12 +251,16 @@ CALLS = {
        for kernel in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
                       "flash_bwd_dkv")
        for d in (257, 384, 512)},
-    # a chunk of each paged route: tensor cores (bf16 and int8 slabs) and
-    # CUDA cores (f32 q)
+    # a chunk of each paged route: tensor cores (bf16 and float16 q, 16-bit
+    # and int8 slabs) and CUDA cores (f32 q)
     "paged chunk C=40 bf16 tensor cores": _paged_call(64, C=40),
     "paged chunk C=40 int8 tensor cores": _paged_call(
         64, kv=torch.int8, C=40),
     "paged chunk C=40 f32 cuda cores": _paged_call(64, torch.float32, C=40),
+    "paged chunk C=40 f16 tensor cores": _paged_call(
+        64, torch.float16, torch.float16, C=40),
+    "paged chunk C=40 f16 over int8 tensor cores": _paged_call(
+        64, torch.float16, torch.int8, C=40),
 }
 
 
@@ -337,7 +341,28 @@ PAGED_ROUTES = [
     (torch.bfloat16, torch.int8, 24, 40, "cuda_cores"),
     (torch.bfloat16, torch.bfloat16, 136, 256, "cuda_cores"),
     (torch.bfloat16, torch.bfloat16, 256, 256, "cuda_cores"),
-    (torch.bfloat16, torch.int8, 384, 40, "cuda_cores")]
+    (torch.bfloat16, torch.int8, 384, 40, "cuda_cores"),
+    # float16 chunks take the tensor cores where bf16's do: float16 q over a
+    # float16 slab (d % 8) or an int8 one (d % 16), d <= 128
+    (torch.float16, torch.float16, 8, 40, "wgmma"),
+    (torch.float16, torch.float16, 16, 17, "wgmma"),
+    (torch.float16, torch.float16, 64, 256, "wgmma"),
+    (torch.float16, torch.float16, 128, 256, "wgmma"),
+    (torch.float16, torch.int8, 16, 40, "wgmma"),
+    (torch.float16, torch.int8, 64, 256, "wgmma"),
+    (torch.float16, torch.int8, 128, 40, "wgmma"),
+    (torch.float16, torch.float16, 12, 40, "cuda_cores"),
+    (torch.float16, torch.float16, 136, 256, "cuda_cores"),
+    (torch.float16, torch.int8, 8, 40, "cuda_cores"),
+    (torch.float16, torch.int8, 12, 40, "cuda_cores"),
+    (torch.float16, torch.int8, 136, 40, "cuda_cores"),
+    (torch.float16, torch.float16, 64, 16, "split"),
+    (torch.float16, torch.int8, 64, 1, "split"),
+    # mixed 16-bit pairs and float32 beside float16: CUDA cores
+    (torch.float16, torch.bfloat16, 64, 256, "cuda_cores"),
+    (torch.bfloat16, torch.float16, 64, 256, "cuda_cores"),
+    (torch.float16, torch.float32, 64, 256, "cuda_cores"),
+    (torch.float32, torch.float16, 64, 256, "cuda_cores")]
 
 
 @pytest.mark.parametrize("q_dtype,kv_dtype,d,C,route", PAGED_ROUTES)
@@ -361,6 +386,20 @@ def test_paged_wgmma_route_names_an_unaligned_stride(no_nvcc):
     k = _cuda(torch.zeros(3 * 8 * 193, dtype=torch.bfloat16).as_strided(
         (3, 1, 8, 3, 64), (8 * 193, 8 * 193, 193, 64, 1)))
     with pytest.raises(MXNetError, match="position stride 193"):
+        kernels.paged_attention_cuda(
+            q, k, k, _cuda(torch.zeros(2, dtype=torch.int32)), 0)
+    assert kernels.launch_counts()["paged_attention_wgmma"] == 0
+
+
+def test_paged_float16_wgmma_route_names_an_unaligned_stride(no_nvcc):
+    """The float16 tensor-core route raises as the bf16 one does, on a slab
+    stride (here the row stride) a tile load cannot take, and never takes
+    another route."""
+    q = _cuda(torch.zeros((2, 40, 3, 64), dtype=torch.float16))
+    # rows 1543 elements apart (3086 bytes), positions 192
+    k = _cuda(torch.zeros(3 * 1543, dtype=torch.float16).as_strided(
+        (3, 1, 8, 3, 64), (1543, 1543, 192, 64, 1)))
+    with pytest.raises(MXNetError, match="row stride 1543"):
         kernels.paged_attention_cuda(
             q, k, k, _cuda(torch.zeros(2, dtype=torch.int32)), 0)
     assert kernels.launch_counts()["paged_attention_wgmma"] == 0

@@ -5,7 +5,8 @@ dynamic loss scaling, on the CPU.
     route rule names with the one dtype table's code (a stand-in for the
     built library records each launch's arguments: no card or `nvcc`
     here), for the apply (B1), every q/slab pair of paged attention with a
-    float16 side (B4) and the four flash kernels (B5-B8 on the tensor
+    float16 side (B4; float16 chunks over float16 or int8 on the tensor
+    cores where bf16's are) and the four flash kernels (B5-B8 on the tensor
     cores where bf16's are);
   * `kernels.DTYPE_CODES` is the table the C entry points read: each
     source's entry-point comment names the same codes;
@@ -128,8 +129,11 @@ def test_paged_wrapper_takes_every_float16_pair(q_dtype, kv_dtype, C,
         q, k, k, _cuda(torch.zeros(2, dtype=torch.int32)), 0, **scales)
     assert out.dtype == q_dtype
     route = kernels.paged_route(q_dtype, kv_dtype, 64, C)
-    # float16 never takes the bf16 tensor-core route
-    assert route == ("split" if C <= 16 else "cuda_cores")
+    # a float16 chunk takes the tensor cores where bf16's does: float16 q
+    # over a float16 or an int8 slab; every other pair the CUDA cores
+    tensor_cores = q_dtype == F16 and kv_dtype in (F16, torch.int8)
+    assert route == ("split" if C <= 16 else
+                     "wgmma" if tensor_cores else "cuda_cores")
     codes = {"split": 0, "wgmma": 1, "cuda_cores": 2}
     assert fake_lib.calls == [("mx_paged_attention_fwd", codes[route],
                                kernels.DTYPE_CODES[q_dtype],

@@ -250,6 +250,12 @@ EMU_PIECE, EMU_TILE = 32, 32
 # bf16 outputs held to chip_smoke.py's limits relative to their size (phase
 # 6): max |err| / max |ref| and rms(err) / rms(ref)
 BF16_MAX_REL, BF16_RMS_REL = 1e-2, 5e-4
+# float16's: bfloat16's scaled by its step, 2^-11 against 2^-8
+# (chip_smoke.py :: limits16)
+F16_MAX_REL, F16_RMS_REL = BF16_MAX_REL / 8, BF16_RMS_REL / 8
+# the bounds of a row's power-of-two exponent on the float16-over-int8
+# route (csrc/paged_attention.cu: kShiftMin, kShiftMax)
+SHIFT_MIN, SHIFT_MAX = -60, 60
 
 
 def _combine(m, l, acc):
@@ -261,18 +267,26 @@ def _combine(m, l, acc):
     return (w[..., None] * acc).sum(-2) / (w * l).sum(-1)[..., None]
 
 
-def _emulate(q, k, v, lens, layer, k_scale=None, v_scale=None, terms=2):
+def _emulate(q, k, v, lens, layer, k_scale=None, v_scale=None, terms=2,
+             t16=torch.bfloat16, shift=None):
     """The kernel's arithmetic on (S, C, H, D) q, in f32: S scaled by
     k_scale per position (column) after q . code on int8 slabs; C <= 16
     (the split route): fixed pieces of EMU_PIECE positions from 0, each a
     softmax of its own (max m, normaliser l, accumulator), combined in
     piece order with weights exp(m_p - M); C > 16 (the tensor-core route):
     an online softmax over EMU_TILE-position tiles, P' = P v_scale folded
-    per position after l sums P, and P' entering P'.V as `terms` bf16
-    terms (hi + lo, or hi alone)."""
+    per position after l sums P, and P' entering P'.V as `terms` terms of
+    q's 16-bit type `t16` (hi + lo, or hi alone). `shift` (by default what
+    the kernel does: float16 over int8): P' enters as P' 2^e, e = the least
+    so far of the exponent that puts the tile's largest v_scale in
+    [2^14, 2^15), within [SHIFT_MIN, SHIFT_MAX] (one e a lane: it depends
+    on the lane's scales alone); a fall of e rescales the accumulator by
+    2^(e_new - e_old), and the division by l 2^e undoes it."""
     S, C, H, D = q.shape
     T = k.shape[2]
     quant = k_scale is not None
+    if shift is None:
+        shift = quant and t16 == torch.float16
     kk, vv = k[:S, layer].float(), v[:S, layer].float()   # codes on int8
     ones = torch.ones(S, T)
     ks = k_scale[:S, layer] if quant else ones
@@ -300,40 +314,58 @@ def _emulate(q, k, v, lens, layer, k_scale=None, v_scale=None, terms=2):
     m = torch.full((S, H, C), float("-inf"))
     l = torch.zeros(S, H, C)
     acc = torch.zeros(S, H, C, D)
+    e = torch.full((S, 1, 1), float(SHIFT_MAX))
     for t0 in range(0, T, EMU_TILE):
         st = s[..., t0:t0 + EMU_TILE]
         m_new = torch.maximum(m, st.amax(-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(st - m_new[..., None])
         l = l * alpha + p.sum(-1)
-        pp = p * vs[:, None, None, t0:t0 + EMU_TILE]
-        hi = pp.bfloat16().float()
-        pq = hi + (pp - hi).bfloat16().float() if terms == 2 else hi
+        vt = vs[:, None, None, t0:t0 + EMU_TILE]
+        pp = p * vt
+        if shift:
+            mv = vt.amax(-1)                                  # (S, 1, 1)
+            want = (15 - torch.frexp(mv).exponent).clamp(SHIFT_MIN,
+                                                         SHIFT_MAX)
+            e_new = torch.where(mv > 0, torch.minimum(e, want.float()), e)
+            alpha = alpha * torch.exp2(e_new - e)
+            e = e_new
+            pp = pp * torch.exp2(e)[..., None]
+        hi = pp.to(t16).float()
+        pq = hi + (pp - hi).to(t16).float() if terms == 2 else hi
         acc = acc * alpha[..., None] + torch.einsum(
             "shct,sthd->shcd", pq, vv[:, t0:t0 + EMU_TILE])
         m = m_new
+    if shift:
+        l = l * torch.exp2(e)
     return (acc / l[..., None]).permute(0, 2, 1, 3)
 
 
-def _emu_inputs(C, kv, seed):
-    """bf16 q (the tensor-core route's operand), a bf16 slab or int8 codes
-    with per-position scales, ragged lengths with 0, T - C and prefixes
-    across several pieces."""
+def _emu_inputs(C, kv, seed, t16=torch.bfloat16, q_mul=1.0,
+                v_scale=(0.002, 0.022)):
+    """16-bit q of type `t16` (the tensor-core route's operand; `q_mul`
+    spreads the scores: 8 gives a peaked softmax, scores spread ~8 sigma),
+    a slab of that type or int8 codes with per-position scales (k_scale in
+    [0.002, 0.022], v_scale log-uniform over the `v_scale` range), ragged
+    lengths with 0, T - C and prefixes across several pieces; T is EMU_T,
+    or C + 128 for a longer chunk."""
     rng = np.random.RandomState(seed)
-    shape = (EMU_S + 1, L, EMU_T, EMU_H, EMU_D)
-    q = torch.from_numpy(rng.randn(EMU_S, C, EMU_H, EMU_D).astype(
-        np.float32)).bfloat16().float()
-    lens = np.array([0, 37, EMU_T - C, 70 - min(C, 40)], dtype=np.int32)
+    T = max(EMU_T, C + 128)
+    shape = (EMU_S + 1, L, T, EMU_H, EMU_D)
+    q = torch.from_numpy((rng.randn(EMU_S, C, EMU_H, EMU_D) * q_mul).astype(
+        np.float32)).to(t16).float()
+    lens = np.array([0, 37, T - C, 70 - min(C, 40)], dtype=np.int32)
     if kv == "int8":
         k = torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
         v = torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
         ks = torch.from_numpy((rng.rand(*shape[:3]) * 0.02 + 0.002)
                               .astype(np.float32))
-        vs = torch.from_numpy((rng.rand(*shape[:3]) * 0.02 + 0.002)
+        lo, hi = np.log(v_scale[0]), np.log(v_scale[1])
+        vs = torch.from_numpy(np.exp(rng.uniform(lo, hi, shape[:3]))
                               .astype(np.float32))
         return q, k, v, lens, dict(k_scale=ks, v_scale=vs)
-    k = torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16()
-    v = torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16()
+    k = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(t16)
+    v = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(t16)
     return q, k, v, lens, {}
 
 
@@ -387,6 +419,80 @@ def test_one_bf16_term_of_p_misses_the_rms_limit(kv):
     one = _rel(_emulate(q, k, v, lens, 1, terms=1, **sc), want)[1]
     two = _rel(_emulate(q, k, v, lens, 1, terms=2, **sc), want)[1]
     assert one > BF16_RMS_REL > 10 * two, (one, two)
+
+
+# float16 q over a float16 or an int8 slab on the tensor cores: (kv, C,
+# q_mul, v_scale range); q_mul 8 is a peaked softmax, and the v_scale
+# ranges reach 1e-4 (under float16's normal range once P < 0.6) and 10
+F16_CASES = [(kv, C, q_mul, vsr)
+             for kv in ("float16", "int8") for C in (17, 40, 256)
+             for q_mul in (1.0, 8.0)
+             for vsr in (((0.002, 0.022), (1e-4, 1e-4), (1e-4, 10.0))
+                         if kv == "int8" else ((0.002, 0.022),))]
+
+
+@pytest.mark.parametrize("kv,C,q_mul,vsr", F16_CASES,
+                         ids=[f"{kv}-C{C}-q{q:g}-vs{a:g}-{b:g}"
+                              for kv, C, q, (a, b) in F16_CASES])
+def test_float16_route_emulated_matches_jax_reference(kv, C, q_mul, vsr):
+    """The tensor-core route's float16 arithmetic (P' in two float16 terms;
+    over int8, P' shifted by the row's power of two) against the JAX
+    reference within float16's limits (chip_smoke.py :: limits16), at flat
+    and peaked softmaxes and v_scale from 1e-4 to 10."""
+    q, k, v, lens, sc = _emu_inputs(C, kv, seed=170 + C,
+                                    t16=torch.float16, q_mul=q_mul,
+                                    v_scale=vsr)
+    assert kernels.paged_route(torch.float16, k.dtype, EMU_D, C) == "wgmma"
+    got = _emulate(q, k, v, lens, 1, t16=torch.float16, **sc)
+    max_rel, rms_rel = _rel(got, _jax_ref(q, k, v, lens, 1, sc))
+    assert max_rel <= F16_MAX_REL and rms_rel <= F16_RMS_REL, \
+        (max_rel, rms_rel)
+
+
+@pytest.mark.parametrize("kv", ["float16", "int8"])
+def test_one_float16_term_of_p_misses_the_rms_limit(kv):
+    """P' in one float16 term parts from the f32 P by up to 2^-12 relative a
+    position, and at a flat softmax the output then misses float16's
+    6.25e-5 rms limit: the reason the float16 route keeps two terms."""
+    q, k, v, lens, sc = _emu_inputs(40, kv, seed=141, t16=torch.float16)
+    want = _jax_ref(q, k, v, lens, 1, sc)
+    one = _rel(_emulate(q, k, v, lens, 1, terms=1, t16=torch.float16,
+                        **sc), want)[1]
+    two = _rel(_emulate(q, k, v, lens, 1, terms=2, t16=torch.float16,
+                        **sc), want)[1]
+    assert one > F16_RMS_REL > 10 * two, (one, two)
+
+
+@pytest.mark.parametrize("q_mul", [1.0, 8.0])
+def test_unshifted_float16_p_misses_the_limits_at_small_v_scale(q_mul):
+    """Over int8 at v_scale 1e-4, P' = P v_scale lies under float16's
+    normal range (6.1e-5) everywhere: unshifted, its lo term underflows
+    and the output misses the rms limit; shifted by the row's power of two
+    (what the kernel does) it meets both limits."""
+    q, k, v, lens, sc = _emu_inputs(40, "int8", seed=142,
+                                    t16=torch.float16, q_mul=q_mul,
+                                    v_scale=(1e-4, 1e-4))
+    want = _jax_ref(q, k, v, lens, 1, sc)
+    plain = _rel(_emulate(q, k, v, lens, 1, t16=torch.float16, shift=False,
+                          **sc), want)
+    shifted = _rel(_emulate(q, k, v, lens, 1, t16=torch.float16, **sc),
+                   want)
+    assert plain[1] > F16_RMS_REL, plain
+    assert shifted[0] <= F16_MAX_REL and shifted[1] <= F16_RMS_REL / 10, \
+        shifted
+
+
+def test_bfloat16_route_takes_no_shift():
+    """bfloat16 has f32's exponent range: its route's P' is not shifted,
+    and the emulation with the shift forced on gives the same output to
+    rounding (the two differ only where bf16 would round a shifted value
+    differently, which powers of two never make it do)."""
+    q, k, v, lens, sc = _emu_inputs(40, "int8", seed=143,
+                                    v_scale=(1e-4, 10.0))
+    plain = _emulate(q, k, v, lens, 1, **sc)
+    assert torch.equal(plain, _emulate(q, k, v, lens, 1, shift=False, **sc))
+    forced = _emulate(q, k, v, lens, 1, shift=True, **sc)
+    assert torch.allclose(forced, plain, rtol=1e-6, atol=0)
 
 
 def test_split_combine_of_one_piece_is_the_plain_quotient():
