@@ -299,17 +299,26 @@ Each phase fails the run (non-zero exit) on any error:
      cycled, and a "reduced" line); (b) the augment kernel
      (`ops/csrc/image_augment.cu`) against its plain version on the same
      draws, bit-equal, at (32, 224, 224, 3) uint8 to bfloat16, float32
-     and float16 and (32, 256, 256, 3) cropped to 224 with a mirror (each
-     timed against its bytes bound and the plain version), and a float32
-     input with its gradient (equal to the CPU's); a changed flip bit
-     must be refused; (c) ResNet-50 v1 NHWC at batch 32, bf16 AMP,
-     phase 5's `FusedTrainStep` SGD, fed by `ImageRecordIter` (shuffled,
+     and float16, (32, 256, 256, 3) cropped to 224 with a mirror and
+     (256, 224, 224, 3) (each timed against its bytes bound and the plain
+     version, GB/s beside it), a float32 input with its gradient (equal to
+     the CPU's), and `AUGMENT_ROWS`: every other input type (int8, bool,
+     int16, int32, int64), C = 1 under a 3-entry mean, C = 4 under a cut,
+     an unaligned view, 5 channels, a 70-entry mean, rows too wide for a
+     stage, a pixel too wide to stage, ragged tails; each on the route
+     `kernels.augment_route` names, by its counter; a changed flip bit
+     must be refused, and on the "table" route the table emulated in
+     plain torch must equal the kernel and one entry one unit in the last
+     place off must be refused; then the empty-launch floor, `copy_` of a
+     bf16 tensor of the output's size and (`--profile`) the kernel's
+     device time at batch 32 and 256; (c) ResNet-50 v1 NHWC at batch 32,
+     bf16 AMP, phase 5's `FusedTrainStep` SGD, fed by `ImageRecordIter` (shuffled,
      random crop from a 256 shorter side, mirror, ImageNet mean/std,
      uint8 handoff, the augment kernel on the card, bf16, shared-memory
      decode workers): 4 warm-up and 12 timed steps, images/s and ms a
      step beside phase 5's synthetic-batch step, `io_stats()` a batch,
-     exactly 1 augment launch a batch and 53/1/1 B1/B2/B3 launches a
-     step (`--profile`: device ms, idle share, H2D copies overlapping
+     exactly 1 augment launch a batch (on "table") and 53/1/1 B1/B2/B3
+     launches a step (`--profile`: device ms, idle share, H2D copies overlapping
      kernels); without any JPEG decoder the step is fed from a
      `DataLoader` through the device feed instead; (d) decoded images/s
      on the host with workers=0 and with min(8, cpu_count) workers, and
@@ -5359,72 +5368,225 @@ def _jpeg_record(i):
     return buf.getvalue()
 
 
-def augment_bound_ms(n, h, w, in_dtype, out_dtype):
-    """Each input pixel of the crop read once and each output written once,
-    over the card's memory rate (the operations, ~4 an element, are far
-    below the compute rate)."""
-    elems = n * h * w * 3
+def augment_bound_ms(n, h, w, in_dtype, out_dtype, cr=3, cout=3):
+    """Each input element the crop reads (cr channels a pixel) read once
+    and each output written once, over the card's memory rate (the
+    operations, ~4 an element, are far below the compute rate)."""
     item_in = torch.empty(0, dtype=in_dtype).element_size()
     item_out = torch.empty(0, dtype=out_dtype).element_size()
-    return elems * (item_in + item_out) / HBM_BYTES_PER_S * 1e3
+    return n * h * w * (cr * item_in + cout * item_out) \
+        / HBM_BYTES_PER_S * 1e3
 
 
-def check_augment(dev, gen, shape, out_dtype, crop, fl=False, timed=False):
+def augment_images(dev, gen, shape, in_dtype, view):
+    """Seeded pixels of `in_dtype` over its range (int64 past int32's);
+    `view`: an unaligned view one element into a larger buffer."""
+    n = int(np.prod(shape)) + (1 if view else 0)
+    if in_dtype == torch.bool:
+        flat = torch.randint(0, 2, (n,), generator=gen, device=dev).bool()
+    elif in_dtype == torch.float32:
+        flat = torch.rand((n,), generator=gen, device=dev)
+    elif in_dtype == torch.int64:
+        flat = torch.randint(-2 ** 40, 2 ** 40, (n,), generator=gen,
+                             device=dev, dtype=torch.int64)
+    else:
+        lo, hi = (0, 256) if in_dtype == torch.uint8 else \
+            (torch.iinfo(in_dtype).min, torch.iinfo(in_dtype).max + 1)
+        flat = torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int64).to(in_dtype)
+    return (flat[1:] if view else flat).view(shape)
+
+
+def table_bytes(x, draws, crop, cout):
+    """The bytes the table route reads: each output element's pixel byte
+    after the crop (first 3 channels when it cuts), the mirror and the
+    channel broadcast; `fused.augment_table_ref`'s table gathered at them
+    (`table[arange(cout), bytes]`) emulates the route."""
+    y0, x0, flips = draws
+    n, h, w, c = x.shape
+    b = x.to(torch.uint8) if x.dtype == torch.bool else x.view(torch.uint8)
+    ch, cw = crop or (h, w)
+    if (ch, cw) != (h, w):
+        dev = x.device
+        rows = fused._start(y0, h, ch)[:, None] + torch.arange(ch, device=dev)
+        cols = fused._start(x0, w, cw)[:, None] + torch.arange(cw, device=dev)
+        b = b[torch.arange(n, device=dev)[:, None, None], rows[:, :, None],
+              cols[:, None, :], :3]
+    b = torch.where(flips.bool()[:, None, None, None], b.flip(2), b)
+    return b.expand(*b.shape[:3], cout).long()
+
+
+def check_augment(dev, gen, shape, out_dtype, crop, fl=False, timed=False,
+                  in_dtype=torch.uint8, mean=IO_MEAN, std=IO_STD,
+                  view=False, reps=50):
     """(b) The augment kernel against its plain version on the same draws:
-    bit-equal; with a mirror, one flip bit changed must be refused."""
-    n, h, w, _ = shape
-    x = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
-                      device=dev)
+    bit-equal, on the route `kernels.augment_route` names; with a mirror,
+    one flip bit changed must be refused; on the table route, the table
+    emulated in plain torch (`fused.augment_table_ref`, gathered) must
+    equal the kernel, and the same table with one entry one unit in the
+    last place off must be refused."""
+    n, h, w, c = shape
+    x = augment_images(dev, gen, shape, in_dtype, view)
     if fl:
         x = (x.float() / 255.0).requires_grad_()
     draws = fused.augment_draws((11, 5), n, (h, w), crop, True, dev)
     ch, cw = crop or (h, w)
+    cr, cout = kernels.augment_channels(
+        c, (ch, cw) != (h, w), None if mean is None else len(mean),
+        None if std is None else len(std))
+    kernel_in = {torch.int64: torch.int32}.get(x.dtype, x.dtype)
+    route = kernels.augment_route(kernel_in, c, cout, cw)
     kernels.reset_launch_counts()
-    out = fused._augment_apply(x, *draws, crop, IO_MEAN, IO_STD, out_dtype)
+    out = fused._augment_apply(x, *draws, crop, mean, std, out_dtype)
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()["image_augment"]
+    counts = kernels.launch_counts()
+    launches = counts["image_augment"]
     with torch.no_grad():
-        ref = fused.image_augment_ref(x.detach(), *draws, crop, IO_MEAN,
-                                      IO_STD, out_dtype)
-    err = float((out.float() - ref.float()).abs().max())
+        ref = fused.image_augment_ref(x.detach(), *draws, crop, mean, std,
+                                      out_dtype)
+    err = float((out.detach().float() - ref.float()).abs().max())
     equal = torch.equal(out.detach(), ref)
     flips = draws[2].clone()
     flips[0] ^= 1
     planted = fused._augment_apply(x.detach(), draws[0], draws[1], flips,
-                                   crop, IO_MEAN, IO_STD, out_dtype)
+                                   crop, mean, std, out_dtype)
     refused = not torch.equal(planted, ref)
-    row = {"shape": list(shape), "crop": list(crop or (h, w)),
+    row = {"shape": list(shape), "crop": [ch, cw],
            "in": _dtype_name(x.dtype), "out": _dtype_name(out_dtype),
+           "channels": [c, cr, cout],
+           "mean_std": [None if v is None else len(v) for v in (mean, std)],
+           "view": view, "route": route, "route_launches": counts[
+               f"image_augment_{route}"],
            "launches": launches, "equal": equal, "max_abs_err": err,
            "planted_refused": refused}
+    if route == "table":
+        table = fused.augment_table_ref(kernel_in, cout, mean, std,
+                                        out_dtype, dev)
+        b = table_bytes(x.detach(), draws, crop, cout)
+        chans = torch.arange(cout, device=dev)
+        row["table_emulation_equal"] = torch.equal(table[chans, b], out)
+        v = int(b[0, 0, 0, 0])      # an entry the output reads
+        bad = table.clone()
+        if out_dtype == torch.float32:
+            bad[0, v] = torch.nextafter(bad[0, v], torch.tensor(
+                float("inf"), device=dev))
+        else:
+            bad[0, v] = (bad[0, v].view(torch.int16) + 1).view(out_dtype)
+        row["table_fault_refused"] = not torch.equal(bad[chans, b], ref)
     if fl:
         ct = torch.randn(out.shape, generator=torch.Generator(
             device=dev).manual_seed(1), device=dev)
         (out.float() * ct).sum().backward()
         xc = x.detach().cpu().requires_grad_()
         oc = fused._augment_apply(xc, *(d.cpu() for d in draws), crop,
-                                  IO_MEAN, IO_STD, out_dtype)
+                                  mean, std, out_dtype)
         (oc.float() * ct.cpu()).sum().backward()
         row["grad_equal_to_cpu"] = torch.equal(x.grad.cpu(), xc.grad)
     if timed:
         xi = x.detach()
         row["ms"] = median_ms(lambda i: fused._augment_apply(
-            xi, *draws, crop, IO_MEAN, IO_STD, out_dtype), 50)
+            xi, *draws, crop, mean, std, out_dtype), reps)
         row["plain_ms"] = median_ms(lambda i: fused.image_augment_ref(
-            xi, *draws, crop, IO_MEAN, IO_STD, out_dtype), 20)
-        row["bound_ms"] = augment_bound_ms(n, ch, cw, xi.dtype, out_dtype)
+            xi, *draws, crop, mean, std, out_dtype), 20)
+        row["bound_ms"] = augment_bound_ms(n, ch, cw, kernel_in, out_dtype,
+                                           cr, cout)
         row["bound_by"] = "bytes"
-    log(f"[io augment] {tuple(shape)} {row['in']} -> {row['out']} crop "
-        f"{row['crop']}: {launches} launch, bit-equal {equal} (max abs "
-        f"{err}), planted flip refused {refused}"
+        row["gb_per_s"] = row["bound_ms"] * HBM_BYTES_PER_S / 1e9 \
+            / row["ms"]
+    log(f"[io augment] {tuple(shape)}{' view' if view else ''} {row['in']}"
+        f" -> {row['out']} crop {row['crop']} channels {row['channels']} "
+        f"mean/std {row['mean_std']}: {launches} launch on {route} "
+        f"({row['route_launches']}), bit-equal {equal} (max abs {err}), "
+        f"planted flip refused {refused}"
+        + (f", table emulation equal {row['table_emulation_equal']}, "
+           f"table entry one ulp off refused {row['table_fault_refused']}"
+           if route == "table" else "")
         + (f", gradient equal to the CPU's {row['grad_equal_to_cpu']}"
            if fl else "")
         + (f"; {row['ms']:.4f} ms against a bound of {row['bound_ms']:.4f}"
-           f" ms (bytes), plain {row['plain_ms']:.4f} ms" if timed else ""))
-    assert launches == 1, "the augment did not launch its kernel"
+           f" ms (bytes), {row['gb_per_s']:.0f} GB/s, plain "
+           f"{row['plain_ms']:.4f} ms" if timed else ""))
+    assert launches == 1 and row["route_launches"] == 1, \
+        f"the augment did not launch its kernel on {route}: {counts}"
     assert equal and refused, f"augment kernel against plain: {row}"
+    assert route != "table" or (row["table_emulation_equal"]
+                                and row["table_fault_refused"]), \
+        f"augment table route: {row}"
     assert not fl or row["grad_equal_to_cpu"], "augment gradient"
     return row
+
+
+# phase 15 (b)'s rows beyond the main shapes: (shape, out dtype, crop,
+# keywords of check_augment); every type, channel case and route
+AUGMENT_BATCH = 256
+AUGMENT_ROWS = [
+    *(((BATCH, IMAGE, IMAGE, 3), torch.bfloat16, None,
+       dict(in_dtype=dt, timed=True))
+      for dt in (torch.int8, torch.bool, torch.int16, torch.int32,
+                 torch.int64)),
+    ((BATCH, IMAGE, IMAGE, 1), torch.bfloat16, None, dict(timed=True)),
+    ((BATCH, 256, 256, 4), torch.bfloat16, (IMAGE, IMAGE),
+     dict(timed=True)),
+    ((BATCH, IMAGE, IMAGE, 3), torch.bfloat16, None,
+     dict(view=True, timed=True)),
+    ((8, 64, 64, 5), torch.float16, None, dict(mean=(0.5,), std=(0.25,))),
+    ((4, 16, 16, 1), torch.float32, None,
+     dict(mean=tuple(0.01 * i for i in range(70)),
+          std=tuple(0.5 + 0.01 * i for i in range(70)))),
+    ((4, 12, 5000, 3), torch.bfloat16, (9, 4500), {}),
+    ((2, 8, 1200, 3), torch.float32, None, dict(in_dtype=torch.float32)),
+    ((2, 4, 4, 3100), torch.float32, None,
+     dict(in_dtype=torch.float32, mean=(0.5,), std=None)),
+    ((3, 7, 5, 3), torch.bfloat16, (5, 3), {}),
+    ((3, 7, 5, 3), torch.float32, None, dict(in_dtype=torch.int16)),
+]
+
+
+def augment_context(dev, gen, profile):
+    """(b)'s yardsticks on this card: the empty-launch floor of `median_ms`,
+    PyTorch's own `copy_` of a bfloat16 tensor of the output's size at
+    batch BATCH and AUGMENT_BATCH (the rate a plain copy reaches there,
+    reading and writing the same bytes), and with --profile the augment
+    kernel's device time at both batches (torch.profiler, no events
+    around it)."""
+    out = {"floor_ms": median_ms(lambda i: torch.cuda._sleep(1), 20)}
+    for n in (BATCH, AUGMENT_BATCH):
+        src = torch.empty((n, IMAGE, IMAGE, 3), dtype=torch.bfloat16,
+                          device=dev)
+        dst = torch.empty_like(src)
+        ms = median_ms(lambda i: dst.copy_(src), 50)
+        row = {"copy_ms": ms,
+               "copy_gb_per_s": 2 * src.numel() * 2 / ms / 1e6}
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as prof_
+            x = torch.randint(0, 256, (n, IMAGE, IMAGE, 3), generator=gen,
+                              dtype=torch.uint8, device=dev)
+            draws = fused.augment_draws((11, 5), n, (IMAGE, IMAGE), None,
+                                        True, dev)
+            torch.cuda.synchronize()
+            with prof_(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fused._augment_apply(x, *draws, None, IO_MEAN, IO_STD,
+                                         torch.bfloat16)
+                torch.cuda.synchronize()
+            # the mean over the launches the profiler kept (inside this long
+            # process it may keep only some of the 20)
+            ev = [e for e in prof.key_averages() if "augment" in e.key]
+            calls = sum(e.count for e in ev)
+            row["kernel_profiled_calls"] = calls
+            row["kernel_device_ms"] = sum(
+                getattr(e, "device_time_total", 0) or e.cuda_time_total
+                for e in ev) / 1e3 / calls if calls else None
+        out[f"batch_{n}"] = row
+        log(f"[io augment] batch {n}: copy_ of a bf16 tensor of the "
+            f"output's size {ms:.4f} ms ({row['copy_gb_per_s']:.0f} GB/s)"
+            + (f"; the augment kernel's device time "
+               f"{row['kernel_device_ms']} ms (torch.profiler, "
+               f"{row['kernel_profiled_calls']} launches kept)"
+               if profile else ""))
+    log(f"[io augment] empty-launch floor (torch.cuda._sleep(1), timed as "
+        f"the kernels): {out['floor_ms']:.4f} ms")
+    return out
 
 
 def _io_iter(dev, **kw):
@@ -5618,6 +5780,7 @@ def feed_train(card, dev, path, profile, synthetic_ms, facts,
         f"{[round(v, 3) for v in losses[:4]]}...")
     assert all(np.isfinite(losses)), "non-finite fed training loss"
     assert launches["image_augment"] == IO_STEPS, "augment launches"
+    assert launches["image_augment_table"] == IO_STEPS, "augment route"
     assert launches["scale_shift_act"] == 53 * IO_STEPS \
         and launches["avg_pool2d_fwd"] == IO_STEPS \
         and launches["avg_pool2d_bwd"] == IO_STEPS, "B1/B2/B3 launches"
@@ -5728,6 +5891,13 @@ def phase_input(card, dev, profile, synthetic_ms):
                                  torch.bfloat16, (IMAGE, IMAGE), timed=True))
         aug.append(check_augment(dev, gen, (8, 64, 64, 3), torch.float32,
                                  (56, 48), fl=True))
+        aug.append(check_augment(dev, gen, (AUGMENT_BATCH, IMAGE, IMAGE, 3),
+                                 torch.bfloat16, None, timed=True))
+        aug += [check_augment(dev, gen, shape, dt, crop, **kw)
+                for shape, dt, crop, kw in AUGMENT_ROWS]
+        routes = {r["route"] for r in aug}
+        assert routes == {"table", "direct", "scalar"}, routes
+        aug_context = augment_context(dev, gen, profile)
         train = feed_train(card, dev, path, profile, synthetic_ms, facts)
         first = first_batch_check(dev, path, train.pop("first")) \
             if facts["decode_route"] != "none" else None
@@ -5744,6 +5914,7 @@ def phase_input(card, dev, profile, synthetic_ms):
     took = time.perf_counter() - t0
     log(f"[io] phase 15 took {took:.1f} s")
     return {"facts": facts, "records": records, "augment": aug,
+            "augment_context": aug_context,
             "train": train, "control": control, "first_batch": first,
             "host": host,
             "loader": loader, "seconds": took}
@@ -5755,6 +5926,9 @@ def augment_entry(io):
             "source": "incubator_mxnet_tpu_torch/ops/csrc/image_augment.cu",
             "replaces": "none (port-only; ops/fused.py:500)",
             "launches": io["train"]["launches"]["image_augment"],
+            "route_launches": {
+                r: io["train"]["launches"][f"image_augment_{r}"]
+                for r in ("table", "direct", "scalar")},
             "max_abs_err": max(r["max_abs_err"] for r in io["augment"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -5762,6 +5936,7 @@ def augment_entry(io):
             "shape": f"N={BATCH} {IMAGE}x{IMAGE}x3 uint8 -> bfloat16, "
                      f"mirror, ImageNet mean/std (no PyTorch call computes "
                      f"crop, mirror, normalize and cast in one)",
+            "context": io["augment_context"],
             "variants": [{k: v for k, v in r.items()} for r in io["augment"]]}
 
 

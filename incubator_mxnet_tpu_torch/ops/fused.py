@@ -506,32 +506,97 @@ def _start(v, size, window):
     return torch.where(v < 0, v + size, v).clamp(0, size - window)
 
 
+def _norm_consts(v):
+    """mean / std as a tuple of floats (a scalar as one entry), or None."""
+    if v is None:
+        return None
+    if isinstance(v, torch.Tensor):
+        v = v.tolist()
+    try:
+        return tuple(float(u) for u in v)
+    except TypeError:   # not a sequence, or a nested one
+        pass
+    try:
+        return (float(v),)
+    except TypeError:
+        raise MXNetError("image_augment: mean and std are a scalar or a "
+                         f"1-D sequence of floats; got {v!r}") from None
+
+
+# what the augment reads a 64-bit integer image as: JAX with 64-bit types
+# off narrows it to int32 (the port's arrays do the same, base._TO_TORCH);
+# uint16 fits int32
+_AUGMENT_NARROW = {torch.int64: torch.int32, torch.uint16: torch.int32}
+
+
+def _augment_plan(images, crop_hw, mean, std):
+    """(ch, cw, channels read, output channels), or MXNetError for what
+    the JAX package refuses too (`kernels.refusal`)."""
+    n, h, w, c = images.shape
+    ch, cw = _crop_hw(images, crop_hw)
+    lm, ls = (None if v is None else len(v) for v in (mean, std))
+    why = kernels.refusal("image_augment", h=h, w=w, ch=ch, cw=cw, c=c,
+                          lm=lm, ls=ls)
+    if why is not None:
+        raise MXNetError(f"image_augment: {why}")
+    return (ch, cw) + kernels.augment_channels(c, (ch, cw) != (h, w), lm, ls)
+
+
 def image_augment_ref(images, y0, x0, flips, crop_hw=None, mean=None,
                       std=None, out_dtype=torch.float32):
     """The plain version of the augment kernel, the JAX package's jnp chain
-    (`ops/fused.py:500` there) on explicit draws: uint8 pixels times 1/255
-    (a float input as float32), each image cut at (y0[n], x0[n]) to
-    `crop_hw` (an offset read as lax.dynamic_slice reads a start:
-    negative from the end, then clamped so the crop fits),
-    mirrored where flips[n], minus `mean`, over `std`, cast to
-    `out_dtype`. Each step is its own rounded op."""
-    x = images
-    x = x.to(torch.float32) * (1.0 / 255.0) if not x.is_floating_point() \
-        else x.to(torch.float32)
+    (`ops/fused.py:500` there) on explicit draws: integer pixels times 1/255
+    (bool as 0 / 1, a float input as float32; int64 narrowed to int32
+    first), each image cut at (y0[n], x0[n]) to `crop_hw` (an offset read
+    as lax.dynamic_slice reads a start: negative from the end, then
+    clamped so the crop fits) keeping the first 3 channels when the crop
+    cuts, mirrored where flips[n], minus `mean`, over `std` (each
+    broadcast over the channels as numpy broadcasts), cast to `out_dtype`.
+    Each step is its own rounded op. Refuses what the JAX package refuses
+    (`kernels.refusal`)."""
+    mean, std = _norm_consts(mean), _norm_consts(std)
+    ch, cw, _, _ = _augment_plan(images, crop_hw, mean, std)
+    x = images.to(_AUGMENT_NARROW.get(images.dtype, images.dtype))
+    if x.is_floating_point() or x.dtype == torch.bool:
+        x = x.to(torch.float32)
+    else:
+        x = x.to(torch.float32) * (1.0 / 255.0)
     n, h, w = x.shape[:3]
-    ch, cw = _crop_hw(images, crop_hw)
     if (ch, cw) != (h, w):
         dev = x.device
         rows = _start(y0, h, ch)[:, None] + torch.arange(ch, device=dev)
         cols = _start(x0, w, cw)[:, None] + torch.arange(cw, device=dev)
         x = x[torch.arange(n, device=dev)[:, None, None], rows[:, :, None],
-              cols[:, None, :]]
+              cols[:, None, :], :3]
     if flips is not None:
         x = torch.where(flips.bool()[:, None, None, None], x.flip(2), x)
     if mean is not None:
         x = x - torch.tensor(mean, dtype=torch.float32, device=x.device)
     if std is not None:
         x = x / torch.tensor(std, dtype=torch.float32, device=x.device)
+    return x.to(out_dtype)
+
+
+def augment_table_ref(in_dtype, cout, mean=None, std=None,
+                      out_dtype=torch.float32, device="cpu"):
+    """The lookup table the kernel's "table" route builds in each block, in
+    plain torch: (cout, 256) entries of `out_dtype`, entry [c, v] the
+    augment of the 8-bit pattern v of `in_dtype` (uint8, int8 or bool)
+    through output channel c's mean and std, by the same rounded ops as
+    `image_augment_ref`; gathering it at each pixel's byte gives the
+    augment bit for bit."""
+    v = torch.arange(256, device=device).to(torch.uint8)
+    if in_dtype == torch.int8:
+        v = v.view(torch.int8)
+    x = v.to(torch.float32)
+    if in_dtype != torch.bool:
+        x = x * (1.0 / 255.0)
+    x = x[None, :].expand(cout, 256)
+    mean, std = _norm_consts(mean), _norm_consts(std)
+    if mean is not None:
+        x = x - torch.tensor(mean, dtype=torch.float32, device=device)[:, None]
+    if std is not None:
+        x = x / torch.tensor(std, dtype=torch.float32, device=device)[:, None]
     return x.to(out_dtype)
 
 
@@ -553,25 +618,29 @@ class _ImageAugment(torch.autograd.Function):
     """The augment of a float input with its gradient: the JAX package
     differentiates through the affine (XLA's backward, not a Pallas
     kernel), so the backward is plain torch ops: grad / std, un-mirrored,
-    scattered into each image's crop window, in the input's dtype."""
+    summed over the channels a 1-channel image broadcast to, scattered
+    into each image's crop window (the first 3 channels under a crop that
+    cuts), in the input's dtype."""
 
     @staticmethod
     def forward(ctx, images, y0, x0, flips, crop_hw, mean, std, out_dtype):
         ctx.save_for_backward(y0, x0, flips)
-        ctx.meta = (tuple(images.shape), images.dtype,
-                    _crop_hw(images, crop_hw), std)
+        ch, cw, cr, _ = _augment_plan(images, crop_hw, mean, std)
+        ctx.meta = (tuple(images.shape), images.dtype, (ch, cw), cr, std)
         return _augment_fwd(images, y0, x0, flips, crop_hw, mean, std,
                             out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         y0, x0, flips = ctx.saved_tensors
-        (n, h, w, c), dtype, (ch, cw), std = ctx.meta
+        (n, h, w, c), dtype, (ch, cw), cr, std = ctx.meta
         g = g.to(torch.float32)
         if std is not None:
             g = g / torch.tensor(std, dtype=torch.float32, device=g.device)
         if flips is not None:
             g = torch.where(flips.bool()[:, None, None, None], g.flip(2), g)
+        if g.shape[3] != cr:
+            g = g.sum(3, keepdim=True)
         if (ch, cw) != (h, w):
             dev = g.device
             dx = torch.zeros((n, h, w, c), dtype=torch.float32, device=dev)
@@ -580,7 +649,7 @@ class _ImageAugment(torch.autograd.Function):
             cols = _start(x0, w, cw)[:, None] + torch.arange(cw,
                                                              device=dev)
             dx[torch.arange(n, device=dev)[:, None, None], rows[:, :, None],
-               cols[:, None, :]] = g
+               cols[:, None, :], :cr] = g
             g = dx
         return g.to(dtype), None, None, None, None, None, None, None
 
@@ -590,15 +659,17 @@ def _augment_apply(images, y0, x0, flips, crop_hw=None, mean=None, std=None,
     """The augment on explicit draws (int32 offsets y0 / x0 of shape (N,)
     or None, flips (N,) or None): the kernel for a CUDA batch, the plain
     version for a CPU one; a float input that requires a gradient gets
-    one."""
-    mean = None if mean is None else tuple(float(v) for v in mean)
-    std = None if std is None else tuple(float(v) for v in std)
+    one. int64 images are narrowed to int32 first, float16, bfloat16 and
+    float64 ones cast to float32."""
+    mean, std = _norm_consts(mean), _norm_consts(std)
     if images.is_floating_point():
         images = images if images.dtype == torch.float32 \
             else images.to(torch.float32)
         if images.requires_grad and torch.is_grad_enabled():
             return _ImageAugment.apply(images, y0, x0, flips, crop_hw, mean,
                                        std, out_dtype)
+    elif images.dtype in _AUGMENT_NARROW:
+        images = images.to(_AUGMENT_NARROW[images.dtype])
     return _augment_fwd(images, y0, x0, flips, crop_hw, mean, std,
                         out_dtype)
 
@@ -633,10 +704,13 @@ def image_augment(images, key, mean=None, std=None, crop_hw=None,
     """The card half of the input pipeline (the JAX package's
     `ops.fused.image_augment`): optional per-image random crop to `crop_hw`
     (when the images are larger), optional per-image horizontal mirror,
-    [0, 1] scale of uint8 pixels, per-channel mean / std, cast to
+    [0, 1] scale of integer pixels, per-channel mean / std, cast to
     `out_dtype`, in one pass of `csrc/image_augment.cu` for a CUDA batch.
-    `images`: (N, H, W, 3) uint8, or a float array already in [0, 1]
-    (gradients flow through the affine). `key`: the (epoch seed, batch)
+    `images`: (N, H, W, C) uint8 (or another integer type, scaled by 1/255;
+    bool is read as 0 / 1), or a float array already in [0, 1] (gradients
+    flow through the affine); a crop that cuts keeps the first 3 channels,
+    and mean / std (a scalar or one entry a channel) broadcast over the
+    channels as numpy broadcasts. `key`: the (epoch seed, batch)
     pair of uint32 the draws are seeded from (`augment_draws`)."""
     if isinstance(key, torch.Tensor):
         key = key.tolist()

@@ -40,7 +40,8 @@ __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
            "nms_mask_bytes",
            "image_augment_cuda",
            "flash_fwd_route",
-           "flash_bwd_route", "paged_route", "pool_route",
+           "flash_bwd_route", "paged_route", "pool_route", "augment_route",
+           "augment_channels",
            "ACT_CODES", "DTYPE_CODES", "RULES", "refusal",
            "reset_launch_counts", "launch_counts", "launch_counts_by_dtype"]
 
@@ -81,6 +82,10 @@ flash_bwd_dkv_wgmma_launches = 0
 nms_sweep_launches = 0
 # the input path's crop / mirror / normalize / cast (port-only)
 image_augment_launches = 0
+# the augment launches (of the one above) by route (`augment_route`)
+image_augment_table_launches = 0
+image_augment_direct_launches = 0
+image_augment_scalar_launches = 0
 # every launch above again, by (counter name, dtype name of the launch's
 # data: x, q, or the slab for the paged kernel's slab side)
 _BY_DTYPE = Counter()
@@ -99,7 +104,9 @@ def reset_launch_counts():
         flash_fwd_wgmma_launches, flash_fwd_lse_wgmma_launches, \
         flash_bwd_dq_launches, flash_bwd_dkv_launches, \
         flash_bwd_dq_wgmma_launches, flash_bwd_dkv_wgmma_launches, \
-        nms_sweep_launches, image_augment_launches
+        nms_sweep_launches, image_augment_launches, \
+        image_augment_table_launches, image_augment_direct_launches, \
+        image_augment_scalar_launches
     paged_attention_launches = 0
     paged_attention_int8_launches = 0
     paged_attention_split_launches = 0
@@ -118,6 +125,9 @@ def reset_launch_counts():
     flash_bwd_dkv_wgmma_launches = 0
     nms_sweep_launches = 0
     image_augment_launches = 0
+    image_augment_table_launches = 0
+    image_augment_direct_launches = 0
+    image_augment_scalar_launches = 0
     _BY_DTYPE.clear()
 
 
@@ -148,7 +158,10 @@ def launch_counts():
             "flash_bwd_dq_wgmma": flash_bwd_dq_wgmma_launches,
             "flash_bwd_dkv_wgmma": flash_bwd_dkv_wgmma_launches,
             "nms_sweep": nms_sweep_launches,
-            "image_augment": image_augment_launches}
+            "image_augment": image_augment_launches,
+            "image_augment_table": image_augment_table_launches,
+            "image_augment_direct": image_augment_direct_launches,
+            "image_augment_scalar": image_augment_scalar_launches}
 
 
 def _nvcc():
@@ -293,8 +306,10 @@ def _load(name):
             elif name == "image_augment":
                 lib.mx_image_augment.restype = ctypes.c_int
                 lib.mx_image_augment.argtypes = (
-                    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-                    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
+                    [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_longlong]
+                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                    + [ctypes.c_void_p, ctypes.c_int] * 2
+                    + [ctypes.c_void_p] * 2)
             elif name == "nms":
                 lib.mx_nms_sweep.restype = ctypes.c_int
                 lib.mx_nms_sweep.argtypes = (
@@ -310,10 +325,11 @@ def _load(name):
 ACT_CODES = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3, "silu": 4,
              "gelu": 5}
 # the one table of dtype codes every wrapper passes and every C entry point
-# of csrc/ reads; int8 is the paged kernel's quantized slab alone, uint8 the
-# augment kernel's raw pixels
+# of csrc/ reads; int8 is the paged kernel's quantized slab and an augment
+# input, uint8, bool, int16 and int32 the augment kernel's other inputs
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
-               torch.int8: 3, torch.uint8: 4}
+               torch.int8: 3, torch.uint8: 4, torch.bool: 5, torch.int16: 6,
+               torch.int32: 7}
 # the float types every kernel takes (x, q, dO, the pooled tensor)
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 # the 16-bit types the tensor-core kernels (paged wgmma, flash) take
@@ -337,7 +353,36 @@ RULES = (
     ("image_augment", "jax",
      lambda s: not (0 < s["ch"] <= s["h"] and 0 < s["cw"] <= s["w"]),
      "crop {ch}x{cw} does not fit the images {h}x{w}"),
+    ("image_augment", "jax",
+     lambda s: _cuts(s) and s.get("c", 3) < 3,
+     "a crop that cuts reads the first 3 channels; the images have {c}"),
+    ("image_augment", "jax",
+     lambda s: augment_channels(s.get("c", 3), _cuts(s), s.get("lm"),
+                                s.get("ls")) is None,
+     "mean and std of lengths {lm} and {ls} (None: not given) do not "
+     "broadcast with the channels read (all {c}, or 3 under a crop that "
+     "cuts)"),
 )
+
+
+def _cuts(s):
+    return (s["ch"], s["cw"]) != (s["h"], s["w"])
+
+
+def augment_channels(c, cuts, lm=None, ls=None):
+    """(channels read, output channels) of the augment: all `c`, or the
+    first 3 under a crop that `cuts` (lax.dynamic_slice's (ch, cw, 3)
+    window), broadcast as numpy broadcasts with mean and std of lengths
+    `lm` / `ls` (None: not given); None where they do not broadcast."""
+    cr = 3 if cuts else c
+    cout = cr
+    for n in (lm, ls):
+        if n is None or n == 1:
+            continue
+        if cout != 1 and n != cout:
+            return None
+        cout = n
+    return cr, cout
 
 
 def refusal(kernel, **shape):
@@ -345,8 +390,9 @@ def refusal(kernel, **shape):
     takes it. Kernels and the shape keys their rules read:
     "paged_attention" (head_dim), "scale_shift_act" (act), "avg_pool2d"
     (h, w, ph, pw), "flash" (d; all four flash kernels), "image_augment"
-    (h, w, ch, cw); the paged and flash kernels have no row. Runs anywhere: the
-    CPU tests hold it against the JAX package."""
+    (h, w, ch, cw, and c channels, mean / std lengths lm / ls or None,
+    which default to 3, None, None); the paged and flash kernels have no
+    row. Runs anywhere: the CPU tests hold it against the JAX package."""
     for name, _kind, test, message in RULES:
         if name == kernel and test(shape):
             return message.format(**shape)
@@ -943,35 +989,80 @@ def nms_sweep_cuda(boxes, ids, keep, thresh):
     return out
 
 
-def image_augment_cuda(images, y0, x0, flips, crop_hw, mean, std, out_dtype):
-    """Launch the input path's augment kernel (`csrc/image_augment.cu`):
-    crop each image at (y0[n], x0[n]) to `crop_hw`, mirror it where
-    flips[n], scale uint8 pixels by 1/255, subtract `mean`, divide by `std`
-    and cast, in one pass, as `ops.fused.image_augment_ref` computes it,
-    bit for bit.
+# the augment's input types (uint8, int8 and bool take the table route),
+# the most output channels of its table, the most mean / std entries passed
+# by value, the widest pixel (C * item bytes) its staged routes take
+# (csrc/image_augment.cu: kTableChannels, kParamChannels, kStageBytes - 30)
+_AUGMENT_IN = (torch.uint8, torch.int8, torch.bool, torch.int16, torch.int32,
+               torch.float32)
+_AUGMENT_BYTES = (torch.uint8, torch.int8, torch.bool)
+AUGMENT_TABLE_CHANNELS = 4
+AUGMENT_PARAM_CHANNELS = 64
+AUGMENT_PIXEL_BYTES = 12258
+_AUGMENT_ROUTES = {"table": 0, "direct": 1, "scalar": 2}
 
-    `images`: contiguous (N, H, W, 3) uint8 or float32. `y0` / `x0`:
-    contiguous (N,) int32, or None (no crop: `crop_hw` is (H, W)), each
-    read as lax.dynamic_slice reads a start (negative from the end, then
-    clamped so the crop fits). `flips`: contiguous (N,)
-    bool or uint8, or None. `mean` / `std`: 3 floats each, or None.
-    `out_dtype`: float32, bfloat16 or float16. Returns a new (N, ch, cw, 3)
-    tensor. Raises `MXNetError` on any input the kernel does not take."""
-    global image_augment_launches
+
+def augment_route(in_dtype, c, cout, cw):
+    """Which path of `csrc/image_augment.cu` takes images of `in_dtype` with
+    `c` channels into `cout` output channels at crop width `cw`: "scalar"
+    (an element a thread, straight from device memory) for a pixel wider
+    than AUGMENT_PIXEL_BYTES or a row of 2^31 elements or more; "table"
+    (staged 16-byte copies, a shared lookup table of the 256 values of
+    each output channel) for uint8, int8 and bool at cout <=
+    AUGMENT_TABLE_CHANNELS; "direct" (the same staging, each element
+    computed) otherwise. Any data_ptr: the staging copies the 16-byte
+    chunks that cover a span, the tensor's first and last bytes one by
+    one."""
+    item = torch.empty(0, dtype=in_dtype).element_size()
+    if c * item > AUGMENT_PIXEL_BYTES or cw * cout >= 2 ** 31:
+        return "scalar"
+    if in_dtype in _AUGMENT_BYTES and cout <= AUGMENT_TABLE_CHANNELS:
+        return "table"
+    return "direct"
+
+
+def _device_floats(values, device):
+    """float32 `values` on `device`, copied from page-locked memory on the
+    current stream: the host does not wait for the card."""
+    host = torch.tensor(values, dtype=torch.float32).pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def image_augment_cuda(images, y0, x0, flips, crop_hw, mean, std, out_dtype):
+    """Launch the input path's augment kernel (`csrc/image_augment.cu`) on
+    the route `augment_route` names: crop each image at (y0[n], x0[n]) to
+    `crop_hw`, mirror it where flips[n], scale integer pixels by 1/255,
+    subtract `mean`, divide by `std` and cast, in one pass, as
+    `ops.fused.image_augment_ref` computes it, bit for bit.
+
+    `images`: contiguous (N, H, W, C) uint8, int8, bool (read as 0 / 1),
+    int16, int32 or float32. The channels read are all C, or the first 3
+    under a crop that cuts; the output has their broadcast with the
+    lengths of mean and std. `y0` / `x0`: contiguous (N,) int32, or None
+    (no crop: `crop_hw` is (H, W)), each read as lax.dynamic_slice reads a
+    start (negative from the end, then clamped so the crop fits). `flips`:
+    contiguous (N,) bool or uint8, or None. `mean` / `std`: tuples of
+    floats, or None. `out_dtype`: float32, bfloat16 or float16. Returns a
+    new (N, ch, cw, cout) tensor. Counts one launch in
+    `image_augment_launches` and one in the route's counter. Raises
+    `MXNetError` on any input the kernel does not take."""
+    global image_augment_launches, image_augment_table_launches, \
+        image_augment_direct_launches, image_augment_scalar_launches
     name = "image_augment_cuda"
     draws = [t for t in (y0, x0, flips) if t is not None]
     _check_cuda(name, [images] + draws)
-    if images.dim() != 4 or images.shape[3] != 3 \
-            or images.dtype not in (torch.uint8, torch.float32):
-        raise MXNetError(f"{name}: images must be (N, H, W, 3) uint8 or "
-                         f"float32; got {tuple(images.shape)} "
+    if images.dim() != 4 or images.dtype not in _AUGMENT_IN:
+        raise MXNetError(f"{name}: images must be (N, H, W, C) of "
+                         f"{_AUGMENT_IN}; got {tuple(images.shape)} "
                          f"{images.dtype}")
     if out_dtype not in _FLOATS:
         raise MXNetError(f"{name}: out_dtype must be one of {_FLOATS}; got "
                          f"{out_dtype}")
-    N, H, W, _ = images.shape
+    N, H, W, C = images.shape
     ch, cw = (int(v) for v in crop_hw)
-    _refuse(name, "image_augment", h=H, w=W, ch=ch, cw=cw)
+    lm, ls = (None if v is None else len(v) for v in (mean, std))
+    _refuse(name, "image_augment", h=H, w=W, ch=ch, cw=cw, c=C, lm=lm, ls=ls)
+    cr, cout = augment_channels(C, (ch, cw) != (H, W), lm, ls)
     if (y0 is None) != (x0 is None) or (y0 is None and (ch, cw) != (H, W)):
         raise MXNetError(f"{name}: a crop smaller than the images needs "
                          f"both y0 and x0")
@@ -983,21 +1074,35 @@ def image_augment_cuda(images, y0, x0, flips, crop_hw, mean, std, out_dtype):
                              f"{dts}; got {tuple(t.shape)} {t.dtype}")
     if not all(t.is_contiguous() for t in [images] + draws):
         raise MXNetError(f"{name}: images and draws must be contiguous")
-    out = torch.empty((N, ch, cw, 3), dtype=out_dtype, device=images.device)
-    if N == 0:
-        return out
-    consts = [None if v is None else (ctypes.c_float * 3)(*map(float, v))
-              for v in (mean, std)]
+    shape = (N, ch, cw, cout)
+    if N * ch * cw * cout == 0:
+        return torch.empty(shape, dtype=out_dtype, device=images.device)
+    route = augment_route(images.dtype, C, cout, cw)
     lib = _load("image_augment")
+    out = torch.empty(shape, dtype=out_dtype, device=images.device)
+    consts = [None if v is None else (ctypes.c_float * min(
+        len(v), AUGMENT_PARAM_CHANNELS))(*map(float, v[:AUGMENT_PARAM_CHANNELS]))
+        for v in (mean, std)]
+    far = None
+    if max(lm or 0, ls or 0) > AUGMENT_PARAM_CHANNELS:
+        far = _device_floats(list(mean or ()) + list(std or ()),
+                             images.device)
     stream = torch.cuda.current_stream(images.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.mx_image_augment(
         DTYPE_CODES[images.dtype], DTYPE_CODES[out_dtype],
-        images.device.index or 0, images.data_ptr(), ptr(y0), ptr(x0),
-        ptr(flips), out.data_ptr(), N, H, W, ch, cw, consts[0], consts[1],
-        stream)
+        _AUGMENT_ROUTES[route], images.device.index or 0, images.data_ptr(),
+        images.numel() * images.element_size(), ptr(y0), ptr(x0),
+        ptr(flips), out.data_ptr(), N, H, W, C, ch, cw, cr, cout, consts[0],
+        lm or 0, consts[1], ls or 0, ptr(far), stream)
     if rc != 0:
         raise _launch_failed(lib, "image_augment", rc)
     image_augment_launches += 1
+    if route == "table":
+        image_augment_table_launches += 1
+    elif route == "direct":
+        image_augment_direct_launches += 1
+    else:
+        image_augment_scalar_launches += 1
     _count_dtype("image_augment", out_dtype)
     return out

@@ -208,6 +208,13 @@ def _flash_call(d, bh=2, dtype=torch.bfloat16, kernel="flash_fwd_lse"):
             "flash_bwd_dkv": lambda: kernels.flash_bwd_dkv_cuda(*bwd)}[kernel]
 
 
+def _augment_call(dtype, c, crop, mean):
+    x = _cuda(torch.zeros((2, 6, 7, c), dtype=getattr(torch, dtype)))
+    y0 = _cuda(torch.zeros(2, dtype=torch.int32)) if crop else None
+    return lambda: kernels.image_augment_cuda(
+        x, y0, y0, None, crop or (6, 7), mean, None, torch.bfloat16)
+
+
 CALLS = {
     "paged d=16 bf16": _paged_call(16),
     "paged d=24 int8": _paged_call(24, torch.float32, torch.int8),
@@ -261,6 +268,17 @@ CALLS = {
         64, torch.float16, torch.float16, C=40),
     "paged chunk C=40 f16 over int8 tensor cores": _paged_call(
         64, torch.float16, torch.int8, C=40),
+    # the augment: every input type, channel count and route
+    **{f"augment {dt} C={c} {name}": _augment_call(dt, c, crop, mean)
+       for dt in ("uint8", "int8", "bool", "int16", "int32", "float32")
+       for c, crop, mean, name in ((3, (4, 5), (0.5,) * 3, "cut"),
+                                   (1, None, (0.5,) * 3, "broadcast"),
+                                   (4, (4, 5), None, "cut of 4"),
+                                   (5, None, (0.5,), "5 channels"))},
+    "augment unaligned view": lambda: kernels.image_augment_cuda(
+        _cuda(torch.zeros(2 * 6 * 7 * 3 + 1, dtype=torch.uint8)[1:]
+              .view(2, 6, 7, 3)), None, None, None, (6, 7), None, None,
+        torch.float32),
 }
 
 
@@ -277,6 +295,12 @@ def test_wrappers_take_the_new_shapes_to_the_kernel_build(name, no_nvcc):
     ("apply", lambda: kernels.scale_shift_act_cuda(
         _cuda(torch.zeros((2, 4))), None, None, None, "swish"),
      "unsupported fused activation"),
+    ("augment C=1 cut", _augment_call("uint8", 1, (4, 5), None),
+     "reads the first 3 channels"),
+    ("augment C=2 mean 3", _augment_call("uint8", 2, None, (0.5,) * 3),
+     "do not broadcast"),
+    ("augment C=4 cut mean 4", _augment_call("int16", 4, (4, 5), (0.5,) * 4),
+     "do not broadcast"),
 ])
 def test_wrappers_refuse_what_the_table_refuses(name, call, match, no_nvcc):
     with pytest.raises(MXNetError, match=match):
@@ -420,3 +444,65 @@ def test_library_name_hashes_the_headers_a_source_includes(tmp_path,
         moved = {n for n in names if kernels._lib_path(n)[1] != names[n]}
         assert moved == {"flash_attention", "paged_attention"}, header
         names = {n: kernels._lib_path(n)[1] for n in kernels._SOURCES}
+
+
+# ---------------------------------------------------------------------------
+# the augment: every channel count the JAX package serves, and its routes
+# ---------------------------------------------------------------------------
+AUGMENT_GRID = [(c, cut, lm)
+                for c in range(1, 7) for cut in (False, True)
+                for lm in (None, 1, 3, c)]
+
+
+@pytest.mark.parametrize("c,cut,lm", AUGMENT_GRID,
+                         ids=[f"C{c}-{'cut' if cut else 'full'}-m{lm}"
+                              for c, cut, lm in AUGMENT_GRID])
+def test_augment_channels_the_jax_package_serves_reach_a_kernel(c, cut, lm):
+    """The table takes exactly the channel cases the JAX package serves:
+    all C read where nothing is cut, the first 3 under a cut, broadcast
+    with the mean's length."""
+    x = jnp.asarray(np.arange(2 * 5 * 6 * c).reshape(2, 5, 6, c)
+                    .astype(np.uint8))
+    mean = None if lm is None else tuple(0.1 * (i + 1) for i in range(lm))
+    crop = (4, 5) if cut else None
+    ch, cw = crop or (5, 6)
+    why = kernels.refusal("image_augment", h=5, w=6, ch=ch, cw=cw, c=c,
+                          lm=lm, ls=None)
+    try:
+        out = np.asarray(jfused.image_augment(
+            x, np.array([1, 2], np.uint32), mean=mean, crop_hw=crop))
+    except (TypeError, ValueError):
+        assert why is not None
+        return
+    assert why is None
+    cr, cout = kernels.augment_channels(c, cut, lm)
+    assert out.shape == (2, ch, cw, cout) and np.isfinite(out).all()
+
+
+AUGMENT_ROUTES = [
+    (torch.uint8, 3, 3, 224, "table"),
+    (torch.int8, 1, 3, 224, "table"),
+    (torch.bool, 4, 4, 224, "table"),
+    (torch.uint8, 5, 5, 224, "direct"),
+    (torch.uint8, 1, 70, 224, "direct"),
+    (torch.int16, 3, 3, 224, "direct"),
+    (torch.int32, 3, 3, 224, "direct"),
+    (torch.float32, 3, 3, 224, "direct"),
+    (torch.uint8, 12258, 12258, 1, "direct"),
+    (torch.uint8, 12259, 12259, 1, "scalar"),
+    (torch.int32, 3064, 3064, 1, "direct"),
+    (torch.int32, 3065, 3065, 1, "scalar"),
+    (torch.uint8, 1, 3, 2 ** 30, "scalar")]
+
+
+@pytest.mark.parametrize("dtype,c,cout,cw,route", AUGMENT_ROUTES)
+def test_augment_route_is_by_type_channels_and_width(dtype, c, cout, cw,
+                                                     route):
+    assert kernels.augment_route(dtype, c, cout, cw) == route
+
+
+def test_augment_counters_start_at_zero_per_route():
+    kernels.reset_launch_counts()
+    counts = kernels.launch_counts()
+    for route in ("table", "direct", "scalar"):
+        assert counts[f"image_augment_{route}"] == 0

@@ -233,7 +233,9 @@ def test_fused_ops_send_float16_cuda_tensors_to_the_kernels(fake_lib,
 
 def test_one_dtype_code_table():
     assert kernels.DTYPE_CODES == {torch.float32: 0, torch.bfloat16: 1,
-                                   F16: 2, torch.int8: 3, torch.uint8: 4}
+                                   F16: 2, torch.int8: 3, torch.uint8: 4,
+                                   torch.bool: 5, torch.int16: 6,
+                                   torch.int32: 7}
     csrc = os.path.join(os.path.dirname(kernels.__file__), "csrc")
 
     def text(name):
@@ -248,11 +250,14 @@ def test_one_dtype_code_table():
     assert "q_dtype: 0 float32, 1 bfloat16, 2 float16" in pa_text
     assert "kv_dtype: 0 float32, 1 bfloat16, 2 float16, 3 int8" in pa_text
     ia_text = text("image_augment.cu")
-    assert "in_dtype: 0 float32, 4 uint8" in ia_text
+    assert ("in_dtype: 0 float32, 3 int8, 4 uint8, 5 bool, 6 int16, "
+            "7 int32") in ia_text
     assert "out_dtype: 0 float32, 1 bfloat16, 2 float16" in ia_text
     # the refusal table keeps its rows: float16 adds none (the augment
-    # kernel's crop that does not fit is the JAX package's refusal too)
+    # kernel's crop that does not fit, cut on fewer than 3 channels and
+    # mean / std that do not broadcast are the JAX package's refusals too)
     assert [r[0] for r in kernels.RULES] == ["scale_shift_act", "avg_pool2d",
+                                             "image_augment", "image_augment",
                                              "image_augment"]
 
 
