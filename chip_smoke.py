@@ -361,6 +361,28 @@ Each phase fails the run (non-zero exit) on any error:
      persistent rule (`2+`) raises the original error. The kernels' JSON
      entries gain `resilient_launches`: B1-B3 over (c)'s resumed steps, B4
      over (d)'s faulted run, the augment over (e)'s faulted epoch.
+ 17. serving through the deployment path (`deploy`, `serve.Server`,
+     `serve.Fleet`): (a) `BucketedModel.export_block` of ResNet-50 v1
+     (NHWC, random weights from a seed) at buckets 1, 8 and 32 under bf16
+     AMP, seconds and bytes a bucket; each bucket's `torch.export` graph
+     holds exactly 53 `mxtorch.scale_shift_act` and 1
+     `mxtorch.avg_pool2d_fwd` nodes, and a run moves B1 by 53 and B2 by 1;
+     (b) `serve.Server` over it: 8 client threads submit 96 single images
+     made from a seed, each reply within 8 bf16 steps (2^-8) of its
+     image's largest logit from the eager forward at batch 1; p50/p99,
+     rows by bucket, images/s beside phase 12 (b)'s ms a batch, and the
+     bucket-32 program alone against the eager forward; the same export
+     and server in float32 with TF32 off, within 1e-4; (c) `serve.Fleet`
+     of 2 replica processes on the one card at phase 3's width: 16
+     float32 greedy requests (16-1500 tokens, 8 new) token-exact against
+     `reference_generate`, a SIGKILL of replica 0 with all 16 in flight
+     (every one answered token-exact by the survivor, the respawn
+     observed), a rolling `swap` to a bf16 "v2" under load with nothing
+     lost, bf16 TTFT (a 1-token request's latency) and TPOT through the
+     router beside phase 3's engine, and B4's launches in every replica
+     process, read from the `replica <i> launches` line of its log. The
+     kernels' JSON entries of B1 and B2 gain `deploy_<dtype>_launches`
+     ((b)'s servers), B4's `fleet_launches` (the replicas' sum).
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
@@ -382,6 +404,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -6574,6 +6597,367 @@ def phase_resilient(card, dev, profile):
             "serve": served, "io": inputs, "seconds": took}
 
 
+# phase 17: export + Server over ResNet-50, and a two-replica Fleet
+DEPLOY_BUCKETS = (1, 8, 32)
+DEPLOY_REQUESTS, DEPLOY_CLIENTS = 96, 8
+DEPLOY_TIMEOUT_MS = 5.0       # the Server's batch timeout
+# a bf16 reply against the eager bf16 forward of its image at batch 1:
+# each logit within DEPLOY_BF16_STEPS bfloat16 steps (2^-8) of the image's
+# largest |logit| (the bucket programs run other convolution algorithms
+# than batch 1, over 53 rounded layers); a float32 reply (TF32 off) within
+# DEPLOY_F32_RTOL of the largest |logit|
+DEPLOY_BF16_STEPS = 8
+DEPLOY_F32_RTOL = 1e-4
+B1_PER_BATCH, B2_PER_BATCH = 53, 1
+FLEET_REPLICAS, FLEET_NEW = 2, 8
+FLEET_LOAD_NEW = 4            # the requests of the swap's background load
+
+
+def _artifact_bytes(prefix):
+    return {ext: os.path.getsize(f"{prefix}{ext}")
+            for ext in (".pt2", ".params.npz", ".deploy.json")}
+
+
+def export_buckets(net, root, tag, dtype_name, dev):
+    """(a) `BucketedModel.export_block` of `net` at each bucket (timed one
+    bucket at a time), each bucket's graph holding 53 B1 and 1 B2 nodes."""
+    models, rows = {}, []
+    for b in DEPLOY_BUCKETS:
+        t0 = time.perf_counter()
+        one = serve.BucketedModel.export_block(
+            net, (IMAGE, IMAGE, 3), (b,), root, name=tag,
+            dtype="float32", device=dev)
+        took = time.perf_counter() - t0
+        m = one.model(b)
+        nodes = [str(n.target) for n in m.lowered().graph.nodes]
+        n_b1 = sum("mxtorch.scale_shift_act" in n for n in nodes)
+        n_b2 = sum("mxtorch.avg_pool2d_fwd" in n for n in nodes)
+        size = _artifact_bytes(os.path.join(root, f"{tag}-b{b}-0000"))
+        log(f"[deploy {dtype_name}] export bucket {b}: {took:.2f} s, "
+            f"{len(nodes)} nodes ({n_b1} scale_shift_act, {n_b2} "
+            f"avg_pool2d_fwd), artifacts {size} bytes")
+        assert (n_b1, n_b2) == (B1_PER_BATCH, B2_PER_BATCH), \
+            f"bucket {b}: {n_b1} B1 / {n_b2} B2 nodes"
+        kernels.reset_launch_counts()
+        x = np.random.RandomState(b).rand(b, IMAGE, IMAGE, 3) \
+            .astype(np.float32)
+        out = m.run(x)
+        launches = kernels.launch_counts()
+        assert out.shape == (b, CLASSES) and np.isfinite(out).all()
+        assert launches["scale_shift_act"] == B1_PER_BATCH \
+            and launches["avg_pool2d_fwd"] == B2_PER_BATCH \
+            and launches["avg_pool2d_bwd"] == 0, \
+            f"bucket {b} launches {_b123(launches)}"
+        models[b] = m
+        rows.append({"bucket": b, "export_s": took, "nodes": len(nodes),
+                     "b1_nodes": n_b1, "b2_nodes": n_b2, "bytes": size})
+    return serve.BucketedModel(models), rows
+
+
+def serve_images(card, model, net, dtype_name, infer_ms, dev):
+    """(b) 8 client threads submit 96 single images (each its 12 at once,
+    then wait); every reply against the eager forward of its image."""
+    rng = np.random.RandomState(17)
+    images = rng.rand(DEPLOY_REQUESTS, IMAGE, IMAGE, 3).astype(np.float32)
+    per = DEPLOY_REQUESTS // DEPLOY_CLIENTS
+    replies = [None] * DEPLOY_REQUESTS
+    srv = serve.Server(model, batch_timeout_ms=DEPLOY_TIMEOUT_MS,
+                       max_queue=DEPLOY_REQUESTS,
+                       name=f"resnet50-{dtype_name}").start()
+    errors = []
+
+    def client(c):
+        try:
+            idx = range(c * per, (c + 1) * per)
+            futs = [(i, srv.submit(images[i])) for i in idx]
+            for i, f in futs:
+                replies[i] = f.result(timeout=300)
+        except Exception as e:              # noqa: BLE001 - re-raised
+            errors.append(e)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(DEPLOY_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    srv.close()
+    st = srv.stats()
+    assert not errors, f"(b) {dtype_name}: {errors[:3]}"
+    assert all(r is not None for r in replies), "(b) a request unanswered"
+    assert launches["scale_shift_act"] == B1_PER_BATCH * st["batches"] \
+        and launches["avg_pool2d_fwd"] == B2_PER_BATCH * st["batches"], \
+        f"(b) launches {_b123(launches)} over {st['batches']} batches"
+    worst = 0.0
+    with torch.no_grad():
+        for i in range(DEPLOY_REQUESTS):
+            ref = net(torch.from_numpy(images[i:i + 1]).to(dev)).float()
+            ref = ref.cpu().numpy()[0]
+            err = float(np.abs(replies[i] - ref).max())
+            worst = max(worst, err / float(np.abs(ref).max()))
+    limit = DEPLOY_BF16_STEPS * 2.0 ** -8 if dtype_name == "bfloat16" \
+        else DEPLOY_F32_RTOL
+    # where a batch's time goes: the bucket-32 program alone (numpy in and
+    # out, so it ends synchronised) against the eager forward on the card
+    top = DEPLOY_BUCKETS[-1]
+    batch = images[np.arange(top) % len(images)]
+    xb = torch.from_numpy(batch).to(dev)
+    program_ms = host_median_ms(lambda: model.run_batch(top, [batch]))
+    with torch.no_grad():
+        eager_ms = host_median_ms(lambda: (net(xb), _sync(dev)))
+    occ = {b: r["rows"] for b, r in st["batch_occupancy"].items()}
+    log(f"[deploy {dtype_name}] {card}: Server, {DEPLOY_REQUESTS} requests "
+        f"from {DEPLOY_CLIENTS} threads: {DEPLOY_REQUESTS / wall:.1f} "
+        f"images/s, latency p50 {st['p50_ms']} ms p99 {st['p99_ms']} ms, "
+        f"{st['batches']} batches, rows by bucket {occ} (padded "
+        f"{st['padded_rows']}), queue wait {st['timeline']['queue_wait_pct']}"
+        f"% / execute {st['timeline']['exec_pct']}%; phase 12 (b)'s "
+        f"FusedInferStep {infer_ms:.3f} ms a batch of {BATCH}; worst reply "
+        f"vs eager batch-1 forward {worst:.3e} of the largest |logit| "
+        f"(limit {limit:.3e}); launches {_b123(launches)}; a batch of "
+        f"{top}: the program alone (numpy in and out) {program_ms:.3f} ms, "
+        f"the eager forward {eager_ms:.3f} ms")
+    assert worst <= limit, f"(b) {dtype_name} reply off the eager forward"
+    return {"wall_s": wall, "images_per_s": DEPLOY_REQUESTS / wall,
+            "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+            "batches": st["batches"], "occupancy": st["batch_occupancy"],
+            "timeline": {k: v for k, v in st["timeline"].items()
+                         if k != "slowest"},
+            "worst_rel_err": worst, "limit": limit, "launches": launches,
+            "program_ms": program_ms, "eager_ms": eager_ms}
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def host_median_ms(fn, reps=5):
+    """Median host ms of fn() over `reps` calls after one warm-up; fn
+    must end synchronised."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def deploy_resnet(card, dev, root, infer_ms):
+    """(a)-(b) under bf16 AMP, then the float32 arm with TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for dtype_name in ("bfloat16", "float32"):
+        if dtype_name == "bfloat16":
+            amp.init("bfloat16")
+        try:
+            with fused.fusion_scope(True):
+                net = vision.resnet50_v1(layout="NHWC", classes=CLASSES,
+                                         device=dev, seed=0)
+                t0 = time.perf_counter()
+                model, rows = export_buckets(net, root, f"r50-{dtype_name}",
+                                             dtype_name, dev)
+                export_s = time.perf_counter() - t0
+                served = serve_images(card, model, net, dtype_name, infer_ms,
+                                      dev)
+        finally:
+            if dtype_name == "bfloat16":
+                amp.uninit()
+        out[dtype_name] = {"export": rows, "export_s": export_s,
+                           "serve": served}
+        del net, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fleet_launches(workdir):
+    """{replica index: [B4 launches of each logged process]} from the
+    replicas' `replica <i> launches {...}` lines."""
+    out = {}
+    for i in range(FLEET_REPLICAS):
+        path = os.path.join(workdir, f"replica{i}.log")
+        with open(path) as f:
+            for line in f:
+                m = re.search(rf"replica {i} launches (\{{.*\}})", line)
+                if m:
+                    counts = json.loads(m.group(1))
+                    out.setdefault(i, []).append(sum(
+                        n for k, n in counts.items()
+                        if k.startswith("paged_attention_q:")))
+    return out
+
+
+def _fleet_round(fleet, prompts, new):
+    t0 = time.perf_counter()
+    futs = [(fleet.submit(p, max_new_tokens=new), time.perf_counter())
+            for p in prompts]
+    lat, outs = [], []
+    for f, ts in futs:
+        outs.append(f.result(timeout=300))
+        lat.append((time.perf_counter() - ts) * 1e3)
+    return outs, lat, time.perf_counter() - t0
+
+
+def fleet_run(card, root, engine_st, dev):
+    """(c) Two replicas at phase 3's width on the one card: float32 exact
+    against reference_generate, a SIGKILL drill, a swap to bfloat16 under
+    load, then bfloat16 traffic timed through the router."""
+    import signal
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prompts = make_prompts()
+    cfg32 = dict(FULL, dtype="float32")
+    engine = {"max_slots": SLOTS, "prefill_window": WINDOW,
+              "decode_steps": DECODE_STEPS}
+    ref_model = serve.CachedDecoder(serve.DecoderConfig(**cfg32), seed=0,
+                                    device=dev)
+    want = [ref_model.reference_generate(p, FLEET_NEW, window=WINDOW)
+            for p in prompts]
+    del ref_model
+    torch.cuda.empty_cache()
+    spec = {"version": "v1", "config": cfg32, "seed": 0, "engine": engine,
+            "device": dev.type}
+    workdir = os.path.join(root, "fleet")
+    before = serve.fleet_stats()
+    t0 = time.perf_counter()
+    fleet = serve.Fleet(spec, replicas=FLEET_REPLICAS, heartbeat_ms=500,
+                        workdir=workdir, spawn_timeout=300)
+    try:
+        fleet.start()
+        start_s = time.perf_counter() - t0
+        warm = [r["warmup_s"] for r in fleet.stats()["replicas"]]
+        outs, lat, wall = _fleet_round(fleet, prompts, FLEET_NEW)
+        bad = [len(p) for p, o, w in zip(prompts, outs, want)
+               if not np.array_equal(o, w)]
+        log(f"[fleet float32] {card}: {FLEET_REPLICAS} replicas up in "
+            f"{start_s:.2f} s (engine warmups {warm} s); {len(prompts)} "
+            f"requests, {FLEET_NEW} tokens each, {wall:.3f} s; "
+            f"{len(prompts) - len(bad)}/{len(prompts)} token-exact against "
+            f"reference_generate")
+        assert not bad, f"(c) fleet != reference for prompts {bad}"
+        # SIGKILL replica 0 with the whole round in flight
+        pid0 = fleet.stats()["replicas"][0]["pid"]
+        futs = [fleet.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]
+        os.kill(pid0, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        killed = [f.result(timeout=300) for f in futs]
+        answered_s = time.perf_counter() - t_kill
+        lost = [len(p) for p, o, w in zip(prompts, killed, want)
+                if not np.array_equal(o, w)]
+        deadline = time.perf_counter() + 300
+        while time.perf_counter() < deadline:
+            reps = fleet.stats()["replicas"]
+            if reps[0]["state"] == "serving" and reps[0]["pid"] != pid0:
+                break
+            time.sleep(0.2)
+        respawn_s = time.perf_counter() - t_kill
+        mid = serve.fleet_stats()
+        log(f"[fleet float32] SIGKILL of replica 0 (pid {pid0}) with "
+            f"{len(prompts)} requests in flight: all answered in "
+            f"{answered_s:.2f} s, {len(prompts) - len(lost)} token-exact; "
+            f"respawned in {respawn_s:.2f} s (failovers "
+            f"{mid['failovers'] - before['failovers']}, retries "
+            f"{mid['retries'] - before['retries']}, respawns "
+            f"{mid['respawns'] - before['respawns']})")
+        assert not lost, f"(c) SIGKILL drill changed prompts {lost}"
+        assert mid["respawns"] > before["respawns"] \
+            and fleet.stats()["replicas"][0]["state"] == "serving", \
+            "(c) the respawn was not observed"
+        # rolling swap onto version v2 (bfloat16) under load
+        stop, load_errors, load_outs = threading.Event(), [], []
+
+        def pump(k):
+            i = k
+            while not stop.is_set():
+                try:
+                    load_outs.append(fleet.submit(
+                        prompts[i % len(prompts)][:64],
+                        max_new_tokens=FLEET_LOAD_NEW).result(timeout=300))
+                except Exception as e:      # noqa: BLE001 - re-raised
+                    load_errors.append(e)
+                i += 2
+
+        pumps = [threading.Thread(target=pump, args=(k,)) for k in range(2)]
+        for t in pumps:
+            t.start()
+        t_swap = time.perf_counter()
+        try:
+            fleet.swap(dict(spec, version="v2",
+                            config=dict(FULL, dtype="bfloat16")))
+        finally:
+            stop.set()
+            for t in pumps:
+                t.join(timeout=300)
+        swap_s = time.perf_counter() - t_swap
+        log(f"[fleet] swap to v2 (bfloat16) under load: {swap_s:.2f} s, "
+            f"{len(load_outs)} requests answered, {len(load_errors)} lost, "
+            f"versions {[r['version'] for r in fleet.stats()['replicas']]}")
+        assert not load_errors, f"(c) swap lost {load_errors[:3]}"
+        assert load_outs and all(o.shape == (FLEET_LOAD_NEW,)
+                                 for o in load_outs)
+        assert fleet.version == "v2" and all(
+            r["version"] == "v2" for r in fleet.stats()["replicas"])
+        # bfloat16 through the router: TTFT is a 1-token request's latency,
+        # TPOT the extra latency of FLEET_NEW tokens over FLEET_NEW - 1
+        _, ttft, _ = _fleet_round(fleet, prompts, 1)
+        outs16, e2e, wall16 = _fleet_round(fleet, prompts, FLEET_NEW)
+        tpot = [(e - t) / (FLEET_NEW - 1) for e, t in zip(e2e, ttft)]
+        assert all(o.shape == (FLEET_NEW,) and (o >= 0).all()
+                   and (o < FULL["vocab"]).all() for o in outs16)
+        stats = {}
+        for nm, vals in (("ttft", ttft), ("tpot", tpot), ("e2e", e2e)):
+            v = sorted(vals)
+            for q in (50, 99):
+                stats[f"{nm}_p{q}_ms"] = serve.percentile(v, q)
+        log(f"[fleet bfloat16] {card}: {len(prompts)} requests through the "
+            f"router, {wall16:.3f} s; TTFT p50 {stats['ttft_p50_ms']:.3f} "
+            f"ms p99 {stats['ttft_p99_ms']:.3f} ms, TPOT p50 "
+            f"{stats['tpot_p50_ms']:.3f} ms p99 {stats['tpot_p99_ms']:.3f} "
+            f"ms; phase 3's in-process engine TTFT p50 "
+            f"{engine_st['ttft_p50_ms']} ms p99 {engine_st['ttft_p99_ms']} "
+            f"ms, TPOT p50 {engine_st['tpot_p50_ms']} ms p99 "
+            f"{engine_st['tpot_p99_ms']} ms")
+    finally:
+        fleet.close()
+        for h in fleet._replicas:
+            if h.proc is not None and h.proc.poll() is None:
+                h.proc.kill()
+                h.proc.wait(timeout=30)
+    launches = _fleet_launches(workdir)
+    log(f"[fleet] B4 launches by replica process, from the replicas' logs: "
+        f"{launches}")
+    assert sorted(launches) == list(range(FLEET_REPLICAS)) and all(
+        n > 0 for v in launches.values() for n in v), \
+        "(c) a replica logged no B4 launch"
+    after = serve.fleet_stats()
+    return {"start_s": start_s, "warmup_s": warm, "float32_exact":
+            len(prompts), "kill_answered_s": answered_s,
+            "respawn_s": respawn_s, "swap_s": swap_s,
+            "swap_load_answered": len(load_outs), "bf16": stats,
+            "bf16_wall_s": wall16, "b4_launches": launches,
+            "b4_launches_total": sum(sum(v) for v in launches.values()),
+            "counters": {k: after[k] - before[k] for k in after
+                         if k != "replicas_live"}}
+
+
+def phase_deploy_serve(card, dev, infer_ms, engine_st):
+    """Phase 17: export + Server over ResNet-50, and a Fleet."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        resnet = deploy_resnet(card, dev, root, infer_ms)
+        fleet = fleet_run(card, root, engine_st, dev)
+    took = time.perf_counter() - t0
+    log(f"[deploy] phase 17 took {took:.1f} s")
+    return {"resnet": resnet, "fleet": fleet, "seconds": took}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every result to this JSON "
@@ -6622,6 +7006,9 @@ def main():
         for n in ("scale_shift_act", "avg_pool2d_fwd", "avg_pool2d_bwd")})
     io = phase_input(card, dev, args.profile, train["step_ms"])
     resilient = phase_resilient(card, dev, args.profile)
+    deploy = phase_deploy_serve(card, dev,
+                                script["recipe"]["infer"]["ms_per_batch"],
+                                result["stats"])
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -6710,6 +7097,13 @@ def main():
         resilient["serve"]["launches"]["paged_attention"]
     entries[-1]["resilient_launches"] = \
         resilient["io"]["imagerec"]["launches"]
+    # phase 17's paths, each counted on counts set to 0 just before it: B1
+    # and B2 over the Server's bucket programs (bfloat16 and float32 arms),
+    # B4 in the fleet's replica processes (from their logs)
+    for e, name in zip(entries[:2], ("scale_shift_act", "avg_pool2d_fwd")):
+        for dt, r in deploy["resnet"].items():
+            e[f"deploy_{dt}_launches"] = r["serve"]["launches"][name]
+    entry["fleet_launches"] = deploy["fleet"]["b4_launches_total"]
     # phase 14's launches through NDArray / npx, counted around its own
     # calls only (the comparisons with plain versions and the sweep's card
     # calls do not count)
@@ -6727,7 +7121,7 @@ def main():
                        "engine": engine, "coverage": coverage,
                        "loop": loop, "script": script,
                        "detection": detect, "array": array, "io": io,
-                       "resilient": resilient}, f,
+                       "resilient": resilient, "deploy": deploy}, f,
                       indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [

@@ -53,7 +53,13 @@ Ported so far:
     watchdog, `run_resilient`), `checkpoint` (the JAX package's npz and
     manifest, the port's own per-leaf sharded format), and the flagship
     transformer LM (`models.transformer`: a functional AdamW step that
-    never writes its inputs).
+    never writes its inputs);
+  * deployment: `HybridBlock.export` (a `torch.export` program whose
+    fused-tier kernels are custom-op nodes, the weights in `.params.npz`),
+    `deploy.ExportedModel`, `gluon.SymbolBlock`, the dynamic-batching
+    `serve.Server` over `serve.BucketedModel` / `CallableModel`, and
+    `serve.Fleet`, a router over replica processes (`serve.replica`) with
+    failover, respawn and a rolling swap.
 
 Typical use:  import incubator_mxnet_tpu_torch as mx
 """
@@ -71,7 +77,7 @@ from . import numpy_extension as npx
 from . import context, engine
 from . import io, recordio
 from .random import seed
-from . import fault, checkpoint, models
+from . import fault, checkpoint, models, deploy
 
 __all__ = ["MXNetError", "get_env", "set_env", "env_flags",
            "default_device", "resolve_device",
@@ -81,4 +87,4 @@ __all__ = ["MXNetError", "get_env", "set_env", "env_flags",
            "np", "npx", "context", "engine",
            "amp", "autograd", "initializer", "lr_scheduler", "metric", "ops",
            "optimizer", "random", "gluon", "serve", "io", "recordio",
-           "fault", "checkpoint", "models"]
+           "fault", "checkpoint", "models", "deploy"]

@@ -94,6 +94,51 @@ _register_env("MXNET_PREFETCH_TO_DEVICE", bool, False,
 _register_env("MXNET_DEVICE_FEED_DEPTH", int, 2,
               "io.DeviceFeed buffer depth (batches staged ahead; "
               "2 = double buffering)")
+# serving (serve.Server, ContinuousEngine) and the fleet (serve.Fleet)
+_register_env("MXNET_SERVE_MAX_QUEUE", int, 256,
+              "Bound on queued inference requests (admission control)")
+_register_env("MXNET_SERVE_BATCH_TIMEOUT_MS", float, 2.0,
+              "Max wait to fill a batch after its first request")
+_register_env("MXNET_SERVE_DEADLINE_MS", float, None,
+              "Default per-request queue deadline (unset = none)")
+_register_env("MXNET_SERVE_OVERLOAD_POLICY", str, "reject",
+              "Queue-full behavior: 'reject' (newest) or 'shed' (oldest)")
+_register_env("MXNET_SERVE_MAX_SLOTS", int, 8,
+              "KV-cache slots in the continuous-batching engine = max "
+              "concurrently-decoding requests (serve.KVCachePool)")
+_register_env("MXNET_SERVE_PREFILL_BUDGET", int, 256,
+              "Max prompt tokens prefilled per engine iteration "
+              "(bounds prefill's added latency on in-flight decode)")
+_register_env("MXNET_SERVE_DECODE_STEPS", int, 4,
+              "Decode micro-iterations per dispatch in the continuous "
+              "engine (host round-trip amortization)")
+_register_env("MXNET_SERVE_PREFILL_LANES", int, None,
+              "Fixed lane count of the prefill program (unset = "
+              "min(max_slots, 8)); sized to the admission rate")
+_register_env("MXNET_SERVE_KV_DTYPE", str, None,
+              "KV pool storage dtype ('int8' = quantized codes + "
+              "scales; unset = model dtype)")
+_register_env("MXNET_SERVE_PREFIX_BLOCK", int, 16,
+              "Shared-prefix cache granularity in tokens (prefixes "
+              "cache and match on whole blocks only)")
+_register_env("MXNET_SERVE_PREFIX_CACHE_SLOTS", int, 0,
+              "Dedicated KV-pool rows holding shared-prefix KV for "
+              "reuse across requests (0 = prefix cache off)")
+_register_env("MXNET_SERVE_PREFIX_CACHE_INSERT", int, 1,
+              "Publish a retiring request's own prompt prefix back "
+              "into the shared-prefix cache (0 = read-only cache)")
+_register_env("MXNET_FLEET_REPLICAS", int, 2,
+              "Replica worker processes a serve.Fleet spawns")
+_register_env("MXNET_FLEET_HEARTBEAT_MS", float, 500.0,
+              "Fleet heartbeat interval; a replica missing "
+              "`heartbeat_misses` consecutive beats is declared hung")
+_register_env("MXNET_FLEET_RETRY_BUDGET", int, 2,
+              "Failover retries per request before the original replica "
+              "error surfaces to the client")
+_register_env("MXNET_FLEET_DRAIN_TIMEOUT_MS", float, 30000.0,
+              "Max wait for a draining replica to finish its resident "
+              "requests before the swap hard-stops it (survivors absorb "
+              "its in-flight via failover)")
 
 
 _DTYPES = {

@@ -5,8 +5,9 @@ Counterpart of `incubator_mxnet_tpu/fault/__init__.py`, with its public
 names, its spec syntax and its injection-point names:
 
   fault.inject(point[, value])      named injection points wired through
-                                    checkpoint/io/gluon.data/serve; armed
-                                    from MXNET_FAULT_SPEC or fault.install()
+                                    checkpoint/io/gluon.data/serve/fleet;
+                                    armed from MXNET_FAULT_SPEC or
+                                    fault.install()
   fault.retrying(...)               bounded-retry decorator with exponential
                                     backoff and structured logs
   fault.watchdog(seconds)           abort a stalled region with
@@ -77,9 +78,9 @@ logger = logging.getLogger("incubator_mxnet_tpu_torch.fault")
 # Injection points (call sites register themselves implicitly by calling
 # inject(); this table documents the stable names, the JAX package's).
 # Wired in the port: checkpoint.*, io.*, dataloader.fetch, serve.enqueue,
-# serve.execute, resilient.*. `engine.flush` never fires: the port's engine
-# runs every op eagerly, with no bulked segment to flush. The others wait
-# for their modules: serve.reply and fleet.* (A8), kvstore.* and elastic.*
+# serve.execute, serve.reply, fleet.*, resilient.*. `engine.flush` never
+# fires: the port's engine runs every op eagerly, with no bulked segment
+# to flush. The others wait for their modules: kvstore.* and elastic.*
 # (A10), estimator.checkpoint (A4), tune.trial (A11).
 POINTS = {
     "checkpoint.save": "save_checkpoint, after temp write / before commit",

@@ -13,10 +13,10 @@ package's values into a port net, and `data` (datasets, samplers,
 batchify, `DataLoader`, `vision` datasets and transforms).
 """
 from . import nn, loss, metric, utils, model_zoo, contrib, data
-from .block import Block, HybridBlock, params_from_jax
+from .block import Block, HybridBlock, SymbolBlock, params_from_jax
 from .parameter import Constant, DeferredInitializationError, Parameter
 from .trainer import Trainer
 
-__all__ = ["Block", "HybridBlock", "Parameter", "Constant",
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter", "Constant",
            "DeferredInitializationError", "Trainer", "params_from_jax", "nn",
            "loss", "metric", "utils", "model_zoo", "contrib", "data"]

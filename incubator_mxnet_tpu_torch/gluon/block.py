@@ -47,6 +47,7 @@ flag is recorded. What carries over:
 from __future__ import annotations
 
 import math
+import os
 import re
 from collections import OrderedDict
 
@@ -61,7 +62,7 @@ from ..device import resolve_device
 from ..ndarray import NDArray, _unwrap, _wrap
 from .parameter import DeferredInitializationError, Parameter
 
-__all__ = ["Block", "HybridBlock", "params_from_jax"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "params_from_jax"]
 
 
 def _wrap_tree(out):
@@ -380,13 +381,129 @@ class Block(torch.nn.Module):
         _refresh_pending(self)
 
 
+class _Program(torch.nn.Module):
+    """The forward `HybridBlock.export` traces: the parameters (in the
+    manifest's order), then the data, as inputs, so the traced program
+    holds no weights. The block is held outside the module tree, so its
+    tensors are not lifted into the program."""
+
+    def __init__(self, block, names):
+        super().__init__()
+        self._block = [block]
+        self._names = list(names)
+
+    def forward(self, *args):
+        n = len(self._names)
+        return torch.func.functional_call(
+            self._block[0], dict(zip(self._names, args[:n])), args[n:])
+
+
 class HybridBlock(Block):
     """A Block whose `hybridize()` flag is recorded (the port runs every
-    block eagerly)."""
+    block eagerly) and that `export`s its inference forward."""
 
     def __init__(self):
         super().__init__()
         self._active = False
+
+    def export(self, path, epoch=0, remove_amp_cast=True,
+               example_inputs=None):
+        """Write the deployment artifacts (≙ HybridBlock.export): always
+        `<path>-<epoch>.params.npz` (the weights by structural name, the
+        file `save_parameters` writes); with `example_inputs`, also
+
+          * `<path>-<epoch>.pt2` — the `torch.export` program of the
+            inference forward at the inputs' shapes, the parameters as its
+            first inputs (no weights and no device inside); the fused
+            tier's kernels are custom-op nodes in it. The ambient AMP and
+            fusion settings are traced in, as a forward would take them;
+          * `<path>-<epoch>.deploy.json` — the manifest `deploy.
+            ExportedModel` loads (parameter order, input shapes and types,
+            output arity).
+
+        `remove_amp_cast` is accepted for the reference's signature; the
+        program keeps the casts AMP put in. Returns the paths written."""
+        import json
+        from ..deploy import LAYOUT_FILE
+        prefix = f"{path}-{epoch:04d}"
+        params_file = f"{prefix}.params.npz"
+        self.save_parameters(params_file)
+        outputs = [params_file]
+        if example_inputs is None:
+            return tuple(outputs)
+        if not isinstance(example_inputs, (list, tuple)):
+            example_inputs = (example_inputs,)
+        xs = tuple(_unwrap(a) for a in example_inputs)
+        params = sorted(self.collect_params().items())
+        if any(p._data is None for _, p in params):
+            raise MXNetError("export: run a forward first, so every "
+                             "parameter has its shape and value")
+        names = [n for n, _ in params]
+        pbufs = tuple(p._data.detach() for _, p in params)
+        with torch.no_grad():
+            program = torch.export.export(_Program(self, names),
+                                          pbufs + xs)
+        # the output's structure from the trace: nothing runs eagerly, so
+        # no kernel launches during export
+        single = program.call_spec.out_spec.is_leaf()
+        n_out = len(program.graph_signature.user_outputs)
+        # the example inputs (the weights among them) stay out of the file
+        program.example_inputs = None
+        program_file = f"{prefix}.pt2"
+        layout = {"kernel_first": [n for n, p in params
+                                   if self._kernel_first(n, p._data)]}
+        with atomic_output(program_file) as f:
+            torch.export.save(program, f,
+                              extra_files={LAYOUT_FILE: json.dumps(layout)})
+        outputs.append(program_file)
+        manifest = {
+            "format_version": 1,
+            "params": names,
+            "n_out": n_out,
+            "single_output": single,
+            "aux_indices": [],
+            "inputs": [{"shape": list(a.shape),
+                        "dtype": str(a.dtype).replace("torch.", "")}
+                       for a in xs],
+            "program": os.path.basename(program_file),
+        }
+        man_file = f"{prefix}.deploy.json"
+        with atomic_output(man_file, "w") as f:
+            json.dump(manifest, f, indent=1)
+        outputs.append(man_file)
+        return tuple(outputs)
+
+
+class SymbolBlock(HybridBlock):
+    """≙ gluon.SymbolBlock: a block over an exported program
+    (`deploy.ExportedModel`), no Python model class needed. `forward`
+    runs the program on its inputs' tensors, on the model's device."""
+
+    def __init__(self, model):
+        super().__init__()
+        self._model = model
+
+    def forward(self, *args):
+        outs = self._model.call_arrays(*args)
+        return outs[0] if self._model.single_output else outs
+
+    @staticmethod
+    def imports(symbol_file, input_names=None, param_file=None, device=None):
+        """Load an export: the `net-0000` prefix or its `.pt2` path, with
+        `param_file` another `.params.npz` for the same program. A
+        reference `*-symbol.json` graph needs `mx.symbol`, which the port
+        does not have yet (ROADMAP A12): it raises."""
+        if symbol_file.endswith(".json"):
+            raise MXNetError(
+                f"SymbolBlock.imports({symbol_file!r}): legacy "
+                f"*-symbol.json graphs need mx.symbol, not ported yet "
+                f"(ROADMAP A12); load a HybridBlock.export artifact (its "
+                f"prefix or .pt2 path)")
+        from ..deploy import ExportedModel
+        prefix = symbol_file[:-len(".pt2")] \
+            if symbol_file.endswith(".pt2") else symbol_file
+        return SymbolBlock(ExportedModel(prefix, params=param_file or None,
+                                         device=device))
 
 
 def _refresh_pending(net):

@@ -25,7 +25,10 @@ backward is plain torch ops, as the JAX package's `custom_vjp` backward is
 jnp: recompute the pre-activation in f32, apply the activation's
 derivative, then dx = g*scale, dscale = sum over rows of g*x, dshift = sum
 over rows of g (and g itself for the residual). `avg_pool2d`'s backward is
-a kernel, as the JAX package's is a Pallas kernel.
+a kernel, as the JAX package's is a Pallas kernel. The two forwards are
+`torch.library` custom ops (`scale_shift_act_op`, `avg_pool2d_fwd_op`),
+so an exported program (`HybridBlock.export`, `deploy.ExportedModel`)
+holds each call as one node that launches the kernel when run on the card.
 
 Gating (`fusion_scope`, `set_fusion_default`, `fusion_enabled`) decides
 only whether Gluon blocks take these ops; once taken, the device decides
@@ -39,6 +42,7 @@ from __future__ import annotations
 import math
 import threading
 from contextlib import contextmanager
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,7 +59,7 @@ __all__ = ["bias_act", "norm_act_residual", "bn_inference", "batch_norm",
            "paged_attention_ref",
            "fusion_scope", "fusion_enabled", "set_fusion_default",
            "contiguous_counted", "layout_copies", "reset_layout_copies",
-           "FUSABLE_ACTS"]
+           "FUSABLE_ACTS", "scale_shift_act_op", "avg_pool2d_fwd_op"]
 
 # activations the apply kernel (and its backward) take; None = identity
 FUSABLE_ACTS = (None, "relu", "sigmoid", "tanh", "silu", "gelu")
@@ -268,13 +272,55 @@ def _no_path(name, t):
     return MXNetError(f"{name}: no path for device {t.device}")
 
 
-def _apply_fwd(x2d, scale, shift, res, act_type):
+# The forward kernels on the exported path are `torch.library` custom ops,
+# so `torch.export` records each call as one graph node
+# (`mxtorch.scale_shift_act`, `mxtorch.avg_pool2d_fwd`) and runs it on the
+# device of its inputs when the loaded program is called. One
+# implementation serves every backend and dispatches by the tensor's
+# device, as the rest of this module does: the kernel's wrapper for a CUDA
+# tensor, the plain version for a CPU one. Tracing (fake tensors) reaches
+# only the shape functions, so the launch counters move in real calls
+# alone.
+@torch.library.custom_op("mxtorch::scale_shift_act", mutates_args=())
+def scale_shift_act_op(x2d: torch.Tensor, scale: Optional[torch.Tensor],
+                       shift: Optional[torch.Tensor],
+                       residual: Optional[torch.Tensor],
+                       act_type: Optional[str]) -> torch.Tensor:
+    """act(x2d [*scale] [+ shift] [+ residual]) over (M, C); every arity
+    of the apply kernel (bias-only, scale+shift, scale+shift+residual)."""
     dev = x2d.device.type
     if dev == "cuda":
-        return kernels.scale_shift_act_cuda(x2d, scale, shift, res, act_type)
+        return kernels.scale_shift_act_cuda(x2d, scale, shift, residual,
+                                            act_type)
     if dev == "cpu":
-        return apply_ref(x2d, scale, shift, res, act_type, -1)
+        return apply_ref(x2d, scale, shift, residual, act_type, -1)
     raise _no_path("scale_shift_act", x2d)
+
+
+@scale_shift_act_op.register_fake
+def _(x2d, scale, shift, residual, act_type):
+    return torch.empty_like(x2d)
+
+
+@torch.library.custom_op("mxtorch::avg_pool2d_fwd", mutates_args=())
+def avg_pool2d_fwd_op(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """The non-overlapping NHWC average pool's forward."""
+    dev = x.device.type
+    if dev == "cuda":
+        return kernels.avg_pool2d_fwd_cuda(x, ph, pw)
+    if dev == "cpu":
+        return avg_pool2d_ref(x, (ph, pw))
+    raise _no_path("avg_pool2d", x)
+
+
+@avg_pool2d_fwd_op.register_fake
+def _(x, ph, pw):
+    n, h, w, c = x.shape
+    return x.new_empty((n, h // ph, w // pw, c))
+
+
+def _apply_fwd(x2d, scale, shift, res, act_type):
+    return scale_shift_act_op(x2d, scale, shift, res, act_type)
 
 
 def _apply_bwd(ctx, ct, x2d, scale, shift, res):
@@ -379,12 +425,7 @@ class _AvgPool2d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ph, pw):
         ctx.pool = (x.shape[1], x.shape[2], ph, pw)
-        dev = x.device.type
-        if dev == "cuda":
-            return kernels.avg_pool2d_fwd_cuda(x, ph, pw)
-        if dev == "cpu":
-            return avg_pool2d_ref(x, (ph, pw))
-        raise _no_path("avg_pool2d", x)
+        return avg_pool2d_fwd_op(x, ph, pw)
 
     @staticmethod
     def backward(ctx, dy):

@@ -1,23 +1,51 @@
-"""Serving in the PyTorch port: the continuous-batching decode engine.
+"""Serving in the PyTorch port.
 
-Counterpart of `incubator_mxnet_tpu/serve/`. Ported so far: the engine
-(`ContinuousEngine`: greedy and sampled requests, speculative decode,
-float or int8 KV, the shared-prefix cache) over a cached-KV decoder
-(`CachedDecoder`), its slot pool (`KVCachePool`) and prefix cache
-(`PrefixCache`), the error types, and the process-wide counters. The
-stateless `Server`, replicas and the fleet are not ported yet.
+Counterpart of `incubator_mxnet_tpu/serve/`, with its surface:
+
+  serve.Server          thread-safe bounded queue + dynamic batcher:
+                        concurrent requests coalesce into padded batch
+                        buckets, run through one program per bucket, and
+                        split back into per-request futures (numpy)
+  serve.BucketedModel   bucket -> `deploy.ExportedModel` map
+                        (`export_block` makes the per-bucket artifacts)
+  serve.CallableModel   the same contract over an in-process torch callable
+  serve.stats()         process-wide serving counters; per-server metrics
+                        (requests/s, p50/p95/p99, batch occupancy, queue
+                        depth, queue-wait vs execute) via `Server.stats()`
+  serve.metrics_text()  Prometheus text of the counters;
+                        `serve.start_metrics_server(port)` (or
+                        MXNET_METRICS_PORT at `Server.start()`) serves it
+  serve.ContinuousEngine  iteration-level batching decode engine over a
+                        cached-KV decoder (`CachedDecoder`), its slot pool
+                        (`KVCachePool`) and prefix cache (`PrefixCache`)
+  serve.Fleet           replica supervisor + router over
+                        `serve.replica` processes: failover, respawn,
+                        prefix affinity, rolling drain-and-swap
+
+The telemetry registry, request spans and the tune profiles wait for
+ROADMAP A11; the compile surface for A3.
 """
 from .batcher import (ServeError, QueueFullError, RequestTimeout,
-                      ServerClosed, ReplicaDraining)
+                      ServerClosed, ReplicaDraining, BucketedModel,
+                      CallableModel, Server, pick_bucket)
 from .continuous import (DecoderConfig, CachedDecoder, ContinuousEngine,
                          init_decoder_params, params_from_jax)
 from .kv_pool import KVCachePool, SlotsFullError
-from .metrics import SERVE_STATS, serve_stats, percentile
+from .metrics import (SERVE_STATS, ServeMetrics, serve_stats, percentile,
+                      metrics_text, start_metrics_server)
 from .prefix_cache import PrefixCache, PrefixCacheError, prefix_stats
+from .fleet import Fleet, FleetError, ReplicaDied, FLEET_STATS, fleet_stats
 
-__all__ = ["ServeError", "QueueFullError", "RequestTimeout", "ServerClosed",
-           "ReplicaDraining", "DecoderConfig", "CachedDecoder",
-           "ContinuousEngine", "init_decoder_params", "params_from_jax",
+stats = serve_stats
+
+__all__ = ["Server", "BucketedModel", "CallableModel", "pick_bucket",
+           "ServeError", "QueueFullError", "RequestTimeout", "ServerClosed",
+           "ReplicaDraining", "ServeMetrics", "SERVE_STATS", "stats",
+           "serve_stats", "percentile", "metrics_text",
+           "start_metrics_server",
+           "DecoderConfig", "CachedDecoder", "ContinuousEngine",
+           "init_decoder_params", "params_from_jax",
            "KVCachePool", "SlotsFullError", "PrefixCache",
            "PrefixCacheError", "prefix_stats",
-           "SERVE_STATS", "serve_stats", "percentile"]
+           "Fleet", "FleetError", "ReplicaDied", "FLEET_STATS",
+           "fleet_stats"]

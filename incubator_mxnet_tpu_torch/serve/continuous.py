@@ -1158,6 +1158,20 @@ class ContinuousEngine:
         finishing); False once the scheduler has exited."""
         return self._closing and self._drain and self._thread.is_alive()
 
+    def queue_depth(self):
+        """(waiting, running) request counts — the fleet router's
+        least-loaded placement signal. Mid-prefill (chunk-streaming)
+        requests hold slots, so they count as running."""
+        with self._cv:
+            return (len(self._waiting),
+                    len(self._running) + len(self._prefilling))
+
+    def prefix_hit_count(self):
+        """Lifetime prefix-cache hits — the count the replica heartbeat
+        carries (the full breakdown is in `stats()`)."""
+        with self._mlock:
+            return self._counters["prefix_hits"]
+
     # -- submission --------------------------------------------------------
     def submit(self, prompt_tokens, max_new_tokens=16, deadline_ms=None,
                temperature=0.0, top_k=0, top_p=1.0, seed=None):

@@ -73,7 +73,9 @@ def test_port_modules_import_without_jax():
             f"{pkg}.native", f"{pkg}.io", f"{pkg}.io.device_feed",
             f"{pkg}.io.imagerec_pool", f"{pkg}.gluon.data",
             f"{pkg}.gluon.data.dataloader",
-            f"{pkg}.gluon.data.vision.transforms"} <= names
+            f"{pkg}.gluon.data.vision.transforms", f"{pkg}.deploy",
+            f"{pkg}.serve.batcher", f"{pkg}.serve.metrics",
+            f"{pkg}.serve.replica", f"{pkg}.serve.fleet"} <= names
 
 
 def test_chip_smoke_imports_without_jax():
@@ -146,3 +148,28 @@ def test_resilience_modules_and_the_crash_tool_import_without_jax():
     r = _run(_IMPORT_RESILIENCE)
     assert r.returncode == 0, r.stderr
     assert "RESILIENCE_IMPORTED" in r.stdout
+
+
+_REPLICA_MAIN = _BLOCKER + r"""
+import runpy, sys
+sys.argv = ["serve.replica", "--help"]
+try:
+    runpy.run_module("incubator_mxnet_tpu_torch.serve.replica",
+                     run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "incubator_mxnet_tpu"))
+assert not bad, bad
+assert "incubator_mxnet_tpu_torch.serve.fleet" in sys.modules
+print("REPLICA_MAIN_OK")
+"""
+
+
+def test_replica_entry_point_runs_without_jax():
+    """`python -m incubator_mxnet_tpu_torch.serve.replica`, the process a
+    serve.Fleet spawns, runs its entry point importing no jax and nothing
+    of the JAX package."""
+    r = _run(_REPLICA_MAIN)
+    assert r.returncode == 0, r.stderr
+    assert "REPLICA_MAIN_OK" in r.stdout
