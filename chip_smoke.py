@@ -383,6 +383,25 @@ Each phase fails the run (non-zero exit) on any error:
      process, read from the `replica <i> launches` line of its log. The
      kernels' JSON entries of B1 and B2 gain `deploy_<dtype>_launches`
      ((b)'s servers), B4's `fleet_launches` (the replicas' sum).
+ 18. telemetry (`telemetry`, `profiler`, `inspect.memory`): (a) phase 5's
+     ResNet-50 step (bf16 AMP, batch 32 of 224x224) 10 steps with
+     MXNET_TELEMETRY=0, then 10 with it on, each under a
+     `telemetry.StepTimeline` whose MFU is `block_fwd_flops` x 3 over
+     `device_peak_flops()` (53/1/1 launches a step in both); 2 more steps
+     between `profiler.start()` and `stop()`, whose dumped Chrome trace must
+     hold the CUDA kernels of B1, B2 and B3 (torch.profiler's records) as
+     many times as their launch counters moved; (b) phase 3's engine in
+     bfloat16 with MXNET_TRACE_SAMPLE=1 and the profiler on (host events):
+     16 greedy requests, each with one `serve.request` span and its own
+     trace id, `prefill` / `decode` spans in the same trace,
+     `metrics_text()` holding the `serve.*` families under the JAX
+     package's names, B4 launched; TTFT / TPOT beside phase 3's; (c) a
+     census across the step (parameters, optimizer state and the device
+     feed's batches tagged), `leakcheck` over 4 steps (no leak), an
+     allocation larger than the card's free memory (`is_oom_error`, and an
+     `on_oom` dump holding `torch.cuda.memory_stats()`), and a
+     flight-recorder dump written and read back. The kernels' JSON entries
+     of B1-B3 gain `telemetry_launches` ((a)'s 20 steps), B4's (b)'s.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
@@ -6958,6 +6977,257 @@ def phase_deploy_serve(card, dev, infer_ms, engine_st):
     return {"resnet": resnet, "fleet": fleet, "seconds": took}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: telemetry over the training and serving paths
+# ---------------------------------------------------------------------------
+TEL_STEPS = 10
+TEL_PROFILE_STEPS = 2
+# B1-B3's kernel symbols as torch.profiler names them (the apply's vector
+# and scalar kernels both start "scale_shift_act")
+TEL_SYMBOLS = {"scale_shift_act": "scale_shift_act",
+               "avg_pool2d_fwd": "mx_pool_fwd_",
+               "avg_pool2d_bwd": "mx_pool_bwd_"}
+
+
+def _set_telemetry(on):
+    from incubator_mxnet_tpu_torch.telemetry import trace as ttrace
+    os.environ["MXNET_TELEMETRY"] = "1" if on else "0"
+    ttrace._expire_env_memo()
+
+
+def telemetry_train(card, dev, tmpdir):
+    """(a): the same steps with telemetry off and on, MFU, and a profiled
+    window whose kernel records match the launch counters; (c)'s census
+    and leak check ride on the same net and step."""
+    from incubator_mxnet_tpu_torch import profiler, telemetry
+    from incubator_mxnet_tpu_torch.inspect import memory as mem
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in b)
+               for b in make_batches(2, BATCH, seed=11)]
+    amp.init("bfloat16")
+    try:
+        net = vision.resnet50_v1(layout="NHWC", classes=CLASSES,
+                                 device=dev, seed=0)
+        step = new_step(net, BATCH, use_fusion=True)
+        for i in range(TRAIN_WARMUP):
+            step(*batches[i % 2])
+        flops = 3 * telemetry.block_fwd_flops(net, batches[0][0])
+        peak = telemetry.device_peak_flops()
+        torch.cuda.synchronize()
+        runs = {}
+        kernels.reset_launch_counts()
+        for on in (False, True):
+            _set_telemetry(on)
+            tl = telemetry.StepTimeline(flops_per_step=flops,
+                                        peak_flops=peak)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(TEL_STEPS):
+                with tl.step():
+                    step(*batches[i % 2])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs["on" if on else "off"] = {
+                "ms_per_step": wall / TEL_STEPS * 1e3, "report": tl.report()}
+        launches = kernels.launch_counts()
+        for name, per in (("scale_shift_act", 53), ("avg_pool2d_fwd", 1),
+                          ("avg_pool2d_bwd", 1)):
+            assert launches[name] == per * 2 * TEL_STEPS, \
+                f"{name}: {launches[name]} launches off the main path"
+        off, on = runs["off"]["ms_per_step"], runs["on"]["ms_per_step"]
+        rep = runs["on"]["report"]
+        assert rep["steps"] == TEL_STEPS and rep["mfu"] > 0
+        assert runs["off"]["report"].get("mfu") is None, \
+            "a disabled timeline reported MFU"
+        log(f"[telemetry train] {card}: {TEL_STEPS} steps telemetry off "
+            f"{off:.3f} ms/step, on {on:.3f} ms/step (difference "
+            f"{on - off:+.3f} ms, {100 * (on - off) / off:+.2f}%); flops a "
+            f"step {flops:.4e} (block_fwd_flops x 3), peak {peak:.3e}, MFU "
+            f"{rep['mfu']}")
+        log(f"[telemetry train] StepTimeline.report() {json.dumps(rep)}")
+        # a profiled window: the trace's kernel records against the
+        # launch counters
+        profiler.set_config(profile_device=True)
+        kernels.reset_launch_counts()
+        profiler.start()
+        for i in range(TEL_PROFILE_STEPS):
+            with telemetry.span("train.step", step=i):
+                step(*batches[i % 2])
+        profiler.stop()
+        moved = kernels.launch_counts()
+        path = profiler.dump(filename=os.path.join(tmpdir, "trace.json"))
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        in_trace = {n: sum(1 for e in events if e.get("cat") == "kernel"
+                           and sym in e["name"])
+                    for n, sym in TEL_SYMBOLS.items()}
+        spans = sum(1 for e in events if e["name"] == "train.step")
+        log(f"[telemetry train] profiled {TEL_PROFILE_STEPS} steps: kernel "
+            f"records {in_trace}, launch counters "
+            f"{ {n: moved[n] for n in TEL_SYMBOLS} }, {spans} train.step "
+            f"spans, {len(events)} events")
+        for n in TEL_SYMBOLS:
+            assert in_trace[n] == moved[n] > 0, \
+                f"{n}: {in_trace[n]} records in the trace, {moved[n]} launches"
+        assert spans == TEL_PROFILE_STEPS
+        profiler._events.clear()
+        census = telemetry_memory(net, step, batches, dev)
+        kernels.reset_launch_counts()
+    finally:
+        amp.uninit()
+        _set_telemetry(True)
+    del net, step
+    torch.cuda.empty_cache()
+    return {"ms_per_step_off": off, "ms_per_step_on": on,
+            "overhead_ms": on - off, "flops_per_step": flops,
+            "peak_flops": peak, "mfu": rep["mfu"], "report": rep,
+            "report_off": runs["off"]["report"], "launches": launches,
+            "profiled": {"kernel_records": in_trace, "spans": spans},
+            "memory": census}
+
+
+def telemetry_memory(net, step, batches, dev):
+    """(c): a tagged census across the step, a leak check over 4 steps,
+    a provoked OOM and its dump, a flight-recorder dump read back."""
+    import tempfile
+    from incubator_mxnet_tpu_torch import telemetry
+    from incubator_mxnet_tpu_torch.inspect import memory as mem
+    mem.register(net.collect_params(), owner="params")
+    mem.register(step._states, owner="optimizer_state")
+    host = [tuple(t.cpu().numpy() for t in b) for b in batches]
+    feed = mx.io.DeviceFeed(iter(host * 2), depth=2, device=dev)
+    fed = list(feed)                  # staged batches, "device_feed"
+    for x, y in fed:
+        step(x, y)
+    torch.cuda.synchronize()
+    c = mem.census(device=dev)
+    own = {k: (v["count"], v["bytes"]) for k, v in c["owners"].items()}
+    log(f"[telemetry memory] census on {c['device']}: {own}; total "
+        f"{c['total_bytes'] / 2**20:.1f} MiB, tagged "
+        f"{100 * c['tagged_fraction']:.1f}%")
+    for owner in ("params", "optimizer_state", "device_feed"):
+        assert c["owners"].get(owner, {}).get("bytes", 0) > 0, \
+            f"census lacks {owner}"
+    x, y = fed[0]
+    leak = mem.leakcheck(lambda: step(x, y), rounds=4, device=dev)
+    log(f"[telemetry memory] leakcheck over 4 steps: untagged MiB "
+        f"{[round(b / 2**20, 3) for b in leak['untagged_bytes']]}, growth "
+        f"{leak['growth_bytes']} bytes, leak {leak['leak']}")
+    assert not leak["leak"]
+    del fed, feed, x, y
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["MXNET_MEM_OOM_DUMP"] = d
+        free, total = torch.cuda.mem_get_info(dev)
+        err = None
+        try:
+            torch.empty(int(free * 1.5), dtype=torch.uint8, device=dev)
+        except torch.OutOfMemoryError as e:
+            err = e
+        assert err is not None, "an allocation past free memory succeeded"
+        assert mem.is_oom_error(err)
+        path = telemetry.mem_on_oom(err, where="phase18")
+        with open(path) as f:
+            dump = json.load(f)
+        del os.environ["MXNET_MEM_OOM_DUMP"]
+        assert dump["memory_stats"]["allocated_bytes.all.current"] > 0
+        assert dump["device_memory"]["total"] == total
+        err = None
+        torch.cuda.empty_cache()
+        rec = telemetry.flightrec_dump(path=os.path.join(d, "flightrec.json"),
+                                       reason="phase18")
+        with open(rec) as f:
+            ring = json.load(f)
+    kinds = sorted({e["kind"] for e in ring["events"]})
+    log(f"[telemetry memory] OOM of {free * 1.5 / 2**30:.2f} GiB past "
+        f"{free / 2**30:.2f} GiB free: is_oom_error True, dump with "
+        f"{len(dump['memory_stats'])} memory_stats keys (allocated "
+        f"{dump['memory_stats']['allocated_bytes.all.current'] / 2**20:.1f}"
+        f" MiB); flight recorder dump read back: {ring['n_events']} events, "
+        f"kinds {kinds}")
+    assert ring["reason"] == "phase18" and "oom" in kinds
+    return {"census": {k: {"count": v["count"], "bytes": v["bytes"]}
+                       for k, v in c["owners"].items()},
+            "total_bytes": c["total_bytes"],
+            "tagged_fraction": c["tagged_fraction"],
+            "leakcheck": {k: leak[k] for k in ("untagged_bytes",
+                                               "growth_bytes", "leak")},
+            "oom_free_bytes": free, "flightrec_events": ring["n_events"],
+            "flightrec_kinds": kinds}
+
+
+def telemetry_serve(card, phase3):
+    """(b): phase 3's engine in bfloat16 with every request traced."""
+    from incubator_mxnet_tpu_torch import profiler, telemetry
+    from incubator_mxnet_tpu_torch.telemetry import trace as ttrace
+    prompts = make_prompts()
+    os.environ["MXNET_TRACE_SAMPLE"] = "1"
+    ttrace._expire_env_memo()
+    profiler.set_config(profile_device=False)
+    profiler._events.clear()
+    try:
+        cfg = serve.DecoderConfig(**FULL, dtype="bfloat16")
+        eng = serve.ContinuousEngine(serve.CachedDecoder(cfg, seed=0),
+                                     max_slots=SLOTS, prefill_window=WINDOW,
+                                     decode_steps=DECODE_STEPS)
+        eng.start()
+        kernels.reset_launch_counts()
+        profiler.start()
+        outs = [f.result(timeout=300)
+                for f in [eng.submit(p, NEW_TOKENS) for p in prompts]]
+        profiler.stop()
+        launches = kernels.launch_counts()
+        st = eng.stats()
+        eng.close()
+    finally:
+        del os.environ["MXNET_TRACE_SAMPLE"]
+        ttrace._expire_env_memo()
+        profiler.set_config(profile_device=True)
+    assert all(o.shape == (NEW_TOKENS,) for o in outs)
+    ev = profiler._events
+    reqs = [e for e in ev if e["name"] == "serve.request"]
+    ids = {e["args"].get("trace_id") for e in reqs}
+    kids = {n: [e for e in ev if e["name"] == n]
+            for n in ("serve.prefill", "serve.decode")}
+    log(f"[telemetry serve] {len(reqs)} serve.request spans, {len(ids)} "
+        f"trace ids, prefill {len(kids['serve.prefill'])} / decode "
+        f"{len(kids['serve.decode'])} child spans, "
+        f"{sum(e['name'] == 'serve.decode_batch' for e in ev)} decode-batch "
+        f"spans; paged_attention launches {launches['paged_attention']}")
+    assert len(reqs) == len(prompts) and len(ids) == len(prompts) \
+        and None not in ids, "a request without its span or trace id"
+    for n, spans in kids.items():
+        assert {e["args"]["trace_id"] for e in spans} == ids, n
+    assert launches["paged_attention"] > 0, "B4 off the traced path"
+    text = telemetry.metrics_text()
+    fams = ("mx_serve_requests", "mx_serve_replies", "mx_serve_decode_tokens",
+            "mx_serve_decode_iterations", 'mx_span_duration_us_count'
+            '{name="serve.request"}', 'mx_span_count{name="serve.decode_batch"}',
+            "mx_trace_traces", "mx_flightrec_events")
+    missing = [f for f in fams if f not in text]
+    assert not missing, f"metrics_text lacks {missing}"
+    p3 = phase3["stats"]
+    log(f"[telemetry serve] {card}: traced TTFT p50 {st['ttft_p50_ms']} ms "
+        f"(phase 3 {p3['ttft_p50_ms']}), TPOT p50 {st['tpot_p50_ms']} ms "
+        f"(phase 3 {p3['tpot_p50_ms']}); metrics_text holds {fams}")
+    profiler._events.clear()
+    return {"launches": launches, "requests": len(reqs),
+            "trace_ids": len(ids), "ttft_p50_ms": st["ttft_p50_ms"],
+            "tpot_p50_ms": st["tpot_p50_ms"],
+            "phase3_ttft_p50_ms": p3["ttft_p50_ms"],
+            "phase3_tpot_p50_ms": p3["tpot_p50_ms"]}
+
+
+def phase_telemetry(card, dev, phase3):
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        train = telemetry_train(card, dev, d)
+    srv = telemetry_serve(card, phase3)
+    took = time.perf_counter() - t0
+    log(f"[telemetry] phase 18 took {took:.1f} s")
+    return {"train": train, "serve": srv, "seconds": took}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every result to this JSON "
@@ -7009,6 +7279,7 @@ def main():
     deploy = phase_deploy_serve(card, dev,
                                 script["recipe"]["infer"]["ms_per_batch"],
                                 result["stats"])
+    tel = phase_telemetry(card, dev, result)
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -7104,6 +7375,12 @@ def main():
         for dt, r in deploy["resnet"].items():
             e[f"deploy_{dt}_launches"] = r["serve"]["launches"][name]
     entry["fleet_launches"] = deploy["fleet"]["b4_launches_total"]
+    # phase 18's paths, each counted on counts set to 0 just before it: B1
+    # to B3 over (a)'s 20 steps, B4 over (b)'s traced serving
+    for e, name in zip(entries[:3], ("scale_shift_act", "avg_pool2d_fwd",
+                                     "avg_pool2d_bwd")):
+        e["telemetry_launches"] = tel["train"]["launches"][name]
+    entry["telemetry_launches"] = tel["serve"]["launches"]["paged_attention"]
     # phase 14's launches through NDArray / npx, counted around its own
     # calls only (the comparisons with plain versions and the sweep's card
     # calls do not count)
@@ -7121,7 +7398,8 @@ def main():
                        "engine": engine, "coverage": coverage,
                        "loop": loop, "script": script,
                        "detection": detect, "array": array, "io": io,
-                       "resilient": resilient, "deploy": deploy}, f,
+                       "resilient": resilient, "deploy": deploy,
+                       "telemetry": tel}, f,
                       indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [

@@ -59,7 +59,12 @@ Ported so far:
     `deploy.ExportedModel`, `gluon.SymbolBlock`, the dynamic-batching
     `serve.Server` over `serve.BucketedModel` / `CallableModel`, and
     `serve.Fleet`, a router over replica processes (`serve.replica`) with
-    failover, respawn and a rolling swap.
+    failover, respawn and a rolling swap;
+  * observability: `telemetry` (the metrics registry every module's
+    counters live in, spans, request tracing, the flight recorder,
+    `StepTimeline` with MFU), `profiler` (Chrome traces merged with
+    `torch.profiler`'s CUDA kernel records) and `inspect.memory` (the
+    attributed census, leak checks, OOM dumps).
 
 Typical use:  import incubator_mxnet_tpu_torch as mx
 """
@@ -67,6 +72,7 @@ from .base import MXNetError, get_env, set_env, env_flags
 from .device import (Device, Context, cpu, gpu, tpu, num_gpus,
                      current_device, current_context, device_memory_info,
                      gpu_memory_info, default_device, resolve_device)
+from . import telemetry, profiler
 from . import (amp, autograd, initializer, lr_scheduler, ops, optimizer,
                random, gluon, metric, serve)
 from .ndarray import NDArray, waitall
@@ -78,6 +84,7 @@ from . import context, engine
 from . import io, recordio
 from .random import seed
 from . import fault, checkpoint, models, deploy
+from . import inspect
 
 __all__ = ["MXNetError", "get_env", "set_env", "env_flags",
            "default_device", "resolve_device",
@@ -87,4 +94,5 @@ __all__ = ["MXNetError", "get_env", "set_env", "env_flags",
            "np", "npx", "context", "engine",
            "amp", "autograd", "initializer", "lr_scheduler", "metric", "ops",
            "optimizer", "random", "gluon", "serve", "io", "recordio",
-           "fault", "checkpoint", "models", "deploy"]
+           "fault", "checkpoint", "models", "deploy", "telemetry",
+           "profiler", "inspect"]

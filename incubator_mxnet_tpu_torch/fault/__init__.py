@@ -266,12 +266,18 @@ def scope(spec):
 def _log_event(event, **fields):
     """One structured log line (`<event> <json fields>`) on the
     `incubator_mxnet_tpu_torch.fault` logger, under the JAX package's event
-    names. (The JAX package also feeds each line to its flight recorder;
-    that waits for the port's telemetry, ROADMAP A11.)"""
+    names. Every line also feeds the flight recorder (and its spool when
+    MXNET_FLIGHTREC_DIR is set), so fault injections, restarts and
+    nonfinite skips land in the post-mortem ring."""
     try:
         logger.info("%s %s", event, json.dumps(fields, default=str))
     except Exception:
         logger.info("%s %r", event, fields)
+    try:
+        from ..telemetry.trace import flightrec_record
+        flightrec_record("fault", event, **fields)
+    except Exception:
+        pass
 
 
 def _poison_nan(value):
@@ -381,6 +387,18 @@ def retrying(max_attempts=3, backoff=0.05, max_backoff=2.0,
     return deco
 
 
+def _flightrec_watchdog(message):
+    """Black-box the stall before WatchdogTimeout unwinds the stack: the
+    ring names the spans that were open when the region blew its budget.
+    Crash-path code: never raises."""
+    try:
+        from ..telemetry.trace import flightrec_record, flightrec_maybe_dump
+        flightrec_record("watchdog", message)
+        flightrec_maybe_dump("watchdog")
+    except Exception:
+        pass
+
+
 @contextmanager
 def watchdog(seconds, message=None):
     """Bound the wall-clock time of a region.
@@ -392,21 +410,32 @@ def watchdog(seconds, message=None):
     cooperative check at region exit (POSIX signals only deliver to the
     main thread). Nesting works: the inner region saves the outer timer
     and re-arms its remaining time on exit (an outer deadline that expired
-    inside the inner region fires immediately after). (The JAX package
-    also records the stall in its flight recorder: ROADMAP A11.)"""
+    inside the inner region fires immediately after). A region that
+    expires is recorded in the flight recorder (and dumped, rate-limited,
+    when MXNET_FLIGHTREC_DIR is set) before the error unwinds."""
     if seconds is None or seconds <= 0:
         yield
         return
     msg = message or f"watchdog: step exceeded {seconds:.3g}s"
     main = threading.current_thread() is threading.main_thread()
     if main and hasattr(signal, "setitimer"):
+        fired = [False]
+
         def _handler(signum, frame):
+            fired[0] = True
             raise WatchdogTimeout(msg)
         prev_handler = signal.signal(signal.SIGALRM, _handler)
         outer_delay, _ = signal.setitimer(signal.ITIMER_REAL, seconds)
         t0 = time.monotonic()
         try:
             yield
+        except WatchdogTimeout:
+            # recorded here, not in the handler: by now every lock the
+            # interrupted code held (the recorder's too) is released; only
+            # when this region's timer fired, not a nested one's
+            if fired[0]:
+                _flightrec_watchdog(msg)
+            raise
         finally:
             signal.setitimer(signal.ITIMER_REAL, 0)
             signal.signal(signal.SIGALRM, prev_handler)
@@ -423,6 +452,7 @@ def watchdog(seconds, message=None):
         finally:
             timer.cancel()
         if expired.is_set():
+            _flightrec_watchdog(msg)
             raise WatchdogTimeout(msg)
 
 
@@ -648,8 +678,12 @@ def run_resilient(step_fn, state, ckpt_dir, num_steps, *, ckpt_every=10,
         raise MXNetError("run_resilient(mesh=, specs=): resuming onto a "
                          "device mesh waits for the port's mesh "
                          "(ROADMAP A10)")
-    # (the JAX package also installs its crash and OOM black-box hooks and
-    # opens a `resilient.step` span around each step: ROADMAP A11)
+    from ..telemetry import (install_crash_hooks, mem_install_oom_hook,
+                             mem_on_oom, span as _span)
+    # a resilient run leaves a black box: the flight recorder's hooks
+    # (armed while MXNET_FLIGHTREC_DIR is set) and the OOM excepthook
+    install_crash_hooks()
+    mem_install_oom_hook()
     run = ResilientRun()
     entry = ckpt.latest_entry(ckpt_dir)
     if entry is not None:
@@ -698,9 +732,19 @@ def run_resilient(step_fn, state, ckpt_dir, num_steps, *, ckpt_every=10,
         run.step_retries += 1
 
     def _attempt(step):
-        with watchdog(watchdog_seconds):
-            inject("resilient.step")
-            return step_fn(state, step)
+        # the span outside the watchdog: its span_open flight-recorder
+        # event (with the step) is spooled before the step body runs, so
+        # a SIGKILL mid-step leaves a black box naming the step
+        with _span("resilient.step", step=step):
+            with watchdog(watchdog_seconds):
+                inject("resilient.step")
+                try:
+                    return step_fn(state, step)
+                except BaseException as e:
+                    # an OOM leaves the memory black box before the retry
+                    # machinery sees it (never raises; a no-op otherwise)
+                    mem_on_oom(e, where="resilient.step")
+                    raise
 
     run_step = retrying(max_attempts=max_step_retries + 1,
                         backoff=retry_backoff, retry_on=tuple(retry_on),

@@ -197,7 +197,8 @@ def _ctc_loss_raw(logits, labels, pred_lengths=None, label_lengths=None,
     has_label = label_lengths > 0
     alpha = torch.cat([
         logp[:, 0, blank][:, None],
-        torch.where(has_label, logp[:, 0].gather(1, ext[:, 1:2])[:, 0],
+        torch.where(has_label,
+                    _ops.take_fill(logp[:, 0], ext[:, 1:2], 1)[:, 0],
                     neg)[:, None],
         neg.expand(n, S - 2)], dim=1)
     same_as_prev2 = torch.cat([torch.ones((n, 2), dtype=torch.bool,
@@ -205,7 +206,7 @@ def _ctc_loss_raw(logits, labels, pred_lengths=None, label_lengths=None,
                                ext[:, 2:] == ext[:, :-2]], dim=1)
     pad1, pad2 = neg.expand(n, 1), neg.expand(n, 2)
     for t in range(1, t_len):
-        lp = logp[:, t].gather(1, ext)
+        lp = _ops.take_fill(logp[:, t], ext, 1)
         a1 = torch.cat([pad1, alpha[:, :-1]], dim=1)
         a2 = torch.where(same_as_prev2, neg,
                          torch.cat([pad2, alpha[:, :-2]], dim=1))

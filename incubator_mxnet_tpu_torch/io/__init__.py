@@ -8,11 +8,13 @@ C++ reader `native/imagerec.cc`, or PIL through the shared augment spec
 on the card unless the caller asks for the CPU (`device="cpu"` or inside
 `with mx.cpu():`).
 
-Left out until their queues land (ROADMAP): `LibSVMIter` (it serves
-`CSRNDArray`s, A12), the
-registry gauges, trace spans and `inspect.memory` attribution of the
-staged batches (A11), and the `mx.tune` knob tier (A11): a knob is the
-explicit argument, else its `MXNET_*` environment variable.
+The record iterator's counters are the telemetry registry's `io.imagerec`
+group and gauges, its decode workers' windows `io.worker.decode` spans in
+the consumer's trace, and its staged batches the `imagerec_slots` owner
+of `inspect.memory`'s census. Left out until their queues land
+(ROADMAP): `LibSVMIter` (it serves `CSRNDArray`s, A12) and the `mx.tune`
+knob tier (the tooling half of A11): a knob is the explicit argument,
+else its `MXNET_*` environment variable.
 """
 from __future__ import annotations
 
@@ -26,17 +28,21 @@ from .. import fault as _fault
 from ..base import MXNetError, get_env
 from ..device import resolve_device
 from ..ndarray import NDArray, _wrap, array
+from ..inspect import memory as _mem
+from ..telemetry import trace as _trace
+from ..telemetry.registry import REGISTRY as _REGISTRY
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "io_stats"]
 
 # ---------------------------------------------------------------------------
 # ImageRecordIter pipeline counters (consumer-side; the native per-stage
-# read/decode/augment clocks ride along in io_stats())
+# read/decode/augment clocks ride along in io_stats()). Adopted into the
+# telemetry registry as the `io.imagerec` group.
 # ---------------------------------------------------------------------------
 _IO_STATS_LOCK = _threading.Lock()
 
-IO_STATS = {
+IO_STATS = _REGISTRY.stats_group("io.imagerec", {
     "batches": 0,            # batches delivered to the consumer
     "images": 0,             # real (non-pad) images delivered
     "failed_records": 0,     # corrupt records zero-filled by the decoders
@@ -51,13 +57,31 @@ IO_STATS = {
     "alias_copies": 0,       # CPU batches copied out of a ring slot
     "submit_restarts": 0,    # transient submit faults retried in place
     "worker_restarts": 0,    # decode worker processes respawned
-}
+}, lock=_IO_STATS_LOCK,
+    help="ImageRecordIter pipeline counters (profiler.io_stats)")
 
 
 def _bump_io(key, delta=1):
     with _IO_STATS_LOCK:
         IO_STATS[key] += delta
 
+
+# native decoder per-stage clocks, mirrored into the registry by
+# io_stats(): gauges (levels), so snapshot(reset=True) leaves them alone
+_STAGE_GAUGES = {
+    "read_ns": _REGISTRY.gauge(
+        "io.imagerec.read_ns",
+        help="native record-byte acquisition time (mmap fault / chunk "
+             "reassembly) — what ir_advise readahead targets"),
+    "decode_ns": _REGISTRY.gauge(
+        "io.imagerec.decode_ns", help="native JPEG decode time"),
+    "augment_ns": _REGISTRY.gauge(
+        "io.imagerec.augment_ns",
+        help="native fused resize/crop/mirror[/normalize] sampling pass"),
+    "decoded_records": _REGISTRY.gauge(
+        "io.imagerec.decoded_records",
+        help="records decoded by the native pipeline since stage reset"),
+}
 
 # native stage-clock deltas shipped back by out-of-process decode workers
 # (the in-process lib's globals only see parent-side decodes); guarded by
@@ -78,13 +102,11 @@ def io_stats(reset=False):
     (record-byte acquisition — what `ir_advise` readahead targets),
     decode (JPEG), augment (fused resize/crop/mirror[/normalize] sampling
     pass), and the decoded-record count, the shm workers' included.
-    `reset=True` zeroes both the counters and the native clocks after the
-    snapshot."""
-    with _IO_STATS_LOCK:
-        snap = dict(IO_STATS)
-        if reset:
-            for k, v in IO_STATS.items():
-                IO_STATS[k] = type(v)()
+    The clocks are also mirrored into the registry as
+    `io.imagerec.{read_ns, decode_ns, augment_ns, decoded_records}`
+    gauges on every call. `reset=True` zeroes both the counters and the
+    native clocks after the snapshot."""
+    snap = IO_STATS.snapshot(reset=reset)
     try:
         from ..native import imagerec_stage_stats
         stages = imagerec_stage_stats(reset=reset)
@@ -102,7 +124,9 @@ def io_stats(reset=False):
                      ("decode_ns", "decode_ns"),
                      ("augment_ns", "augment_ns"),
                      ("decoded_records", "records")):
-        snap[key] = stages[src] + worker[src]
+        val = stages[src] + worker[src]
+        snap[key] = val
+        _STAGE_GAUGES[key].set(val)
     return snap
 
 
@@ -710,7 +734,10 @@ class ImageRecordIter(DataIter):
         while True:
             try:
                 _fault.inject("io.imagerec")
-                job = self._pool.submit(batch_id, idx, self._epoch_seed())
+                # the consumer's trace context: the decode workers' lane
+                # spans join its trace
+                job = self._pool.submit(batch_id, idx, self._epoch_seed(),
+                                        ctx=_trace.current_context())
             except (IOError, OSError, TimeoutError) as e:
                 if self._restarts < self._max_restarts:
                     self._restarts += 1
@@ -776,6 +803,9 @@ class ImageRecordIter(DataIter):
             _bump_io("alias_copies")
         else:
             data = host
+        # census attribution: the staged image batch is the decode
+        # pipeline's resident set
+        _mem.register(data, owner="imagerec_slots")
         if self._pool is not None and job is not None:
             self._pool.release(job, fence=fence)
         data, labels = _wrap(data), _wrap(labels)

@@ -29,11 +29,13 @@ the consumer (never a silently short epoch); transient I/O errors
 (IOError/OSError/TimeoutError) retry in place up to `max_restarts`
 consecutive times (default `MXNET_PREFETCH_RESTARTS`). Knobs: explicit
 argument, else the `MXNET_*` environment variable. Observability:
-`feed_stats()`.
+`feed_stats()` (the registry's `feed` group), the `io.feed` (consumer
+waits) and `feed.stage` (feeder staging) spans in the trace that was
+current when the epoch started, and the staged batches as the
+`device_feed` owner of `inspect.memory`'s census.
 
-Not carried over until their queues land (ROADMAP): the `io.feed` /
-`feed.stage` trace spans (A11)
-and placement over a data-parallel mesh (`sharding=`, A10), which raises.
+Not carried over until its queue lands (ROADMAP): placement over a
+data-parallel mesh (`sharding=`, A10), which raises.
 """
 from __future__ import annotations
 
@@ -47,16 +49,19 @@ import torch
 from .. import fault as _fault
 from ..base import MXNetError, get_env
 from ..device import resolve_device
+from ..telemetry import record_span, trace as _trace
+from ..telemetry.registry import REGISTRY
 
 __all__ = ["DeviceFeed", "prefetch_to_device", "feed_stats",
            "maybe_device_put", "FEED_STATS"]
 
 # ---------------------------------------------------------------------------
-# counters (always on — plain increments under one lock)
+# counters (always on — plain increments under one lock; adopted into the
+# telemetry registry as the `feed` stats group)
 # ---------------------------------------------------------------------------
 _STATS_LOCK = threading.Lock()
 
-FEED_STATS = {
+FEED_STATS = REGISTRY.stats_group("feed", {
     "batches_fed": 0,          # staged + buffered by feeder threads
     "batches_consumed": 0,     # delivered to the consumer
     "epochs": 0,               # completed feed iterations
@@ -71,7 +76,8 @@ FEED_STATS = {
     "occupancy_samples": 0,    # batch being taken)
     "restarts": 0,             # transient feeder errors retried in place
     "failures": 0,             # terminal feeder failures re-raised downstream
-}
+}, lock=_STATS_LOCK,
+    help="device-feed input-pipeline counters (profiler.feed_stats)")
 
 
 def _bump(key, delta=1):
@@ -79,15 +85,17 @@ def _bump(key, delta=1):
         FEED_STATS[key] += delta
 
 
+def _mem_register(t, owner):
+    """`inspect.memory.register(t, owner)`; returns `t`."""
+    from ..inspect import memory as _mem
+    return _mem.register(t, owner=owner)
+
+
 def feed_stats(reset=False):
     """Snapshot of the device-feed counters (plus derived
     `occupancy_mean`). `reset=True` zeroes the counters after the
     snapshot (atomically — no increment is lost between copy and zero)."""
-    with _STATS_LOCK:
-        snap = dict(FEED_STATS)
-        if reset:
-            for k, v in FEED_STATS.items():
-                FEED_STATS[k] = type(v)()
+    snap = FEED_STATS.snapshot(reset=reset)
     snap["occupancy_mean"] = (
         snap["occupancy_sum"] / snap["occupancy_samples"]
         if snap["occupancy_samples"] else 0.0)
@@ -261,8 +269,12 @@ class DeviceFeed:
                           if dev.type == "cuda" else None)
         q = self._queue = _queue.Queue(maxsize=self._depth)
         stop = self._stop = threading.Event()
+        # a new thread starts with an empty contextvars context: the
+        # consumer's trace context rides as a Thread argument, so the
+        # feeder's feed.stage spans nest under the consumer's step
+        ctx = _trace.current_context()
         self._thread = threading.Thread(
-            target=self._worker, args=(q, stop), daemon=True,
+            target=self._worker, args=(q, stop, ctx), daemon=True,
             name="mx-device-feed")
         self._thread.start()
 
@@ -287,6 +299,8 @@ class DeviceFeed:
             FEED_STATS["occupancy_sum"] += self._queue.qsize() + 1
             FEED_STATS["occupancy_samples"] += 1
             FEED_STATS["batches_consumed"] += 1
+        record_span("io.feed", waited_us, ts_us=t0 * 1e6, cat="io",
+                    buffer=self._queue.qsize())
         staged, event, tensors = item
         if event is not None:
             # the consumer's stream waits for the batch's copies; the
@@ -349,7 +363,10 @@ class DeviceFeed:
             pass
 
     # -- feeder thread --------------------------------------------------
-    def _worker(self, q, stop):
+    def _worker(self, q, stop, ctx=None):
+        if ctx is not None:
+            # adopt the consumer's trace context
+            _trace.attach(ctx)
         fetch = _fetch_with_restarts(self._source, "io.device_feed",
                                      self._max_restarts,
                                      on_restart=lambda: _bump("restarts"))
@@ -366,11 +383,13 @@ class DeviceFeed:
             try:
                 t0 = time.perf_counter()
                 staged = self._stage_batch(batch)
-                _bump("stage_us", (time.perf_counter() - t0) * 1e6)
+                stage_us = (time.perf_counter() - t0) * 1e6
             except BaseException as e:
                 _bump("failures")
                 self._put(q, stop, _FeedFailure(e))
                 return
+            _bump("stage_us", stage_us)
+            record_span("feed.stage", stage_us, ts_us=t0 * 1e6, cat="io")
             if not self._put(q, stop, staged):
                 return
             _bump("batches_fed")
@@ -440,7 +459,8 @@ class DeviceFeed:
             # what the source may rewrite); another card: a move
             _bump("host_transfers" if raw.device.type == "cpu"
                   else "recommitted")
-            return _wrap(raw.to(dev, copy=True))
+            return _wrap(_mem_register(raw.to(dev, copy=True),
+                                       "device_feed"))
         bufs, made = pinned
         key = (tuple(raw.shape), raw.dtype, len(made))
         buf = bufs.get(key)
@@ -451,6 +471,9 @@ class DeviceFeed:
         out = buf.to(dev, non_blocking=True)
         made.append(out)
         _bump("host_transfers")
+        # census attribution: the staged batches in flight are the feed's
+        # resident set (a weak reference per leaf)
+        _mem_register(out, "device_feed")
         return _wrap(out)
 
 

@@ -52,6 +52,7 @@ import numpy as _np
 
 from ..base import MXNetError, get_env
 from ..fault import _log_event
+from ..telemetry import record_span, trace as _trace
 
 __all__ = ["DecodePool"]
 
@@ -73,9 +74,9 @@ def _close_live_pools():
 
 class _Batch:
     __slots__ = ("batch_id", "slot", "n", "event", "failed", "error",
-                 "pending_shards", "seed")
+                 "pending_shards", "seed", "ctx")
 
-    def __init__(self, batch_id, slot, n, seed):
+    def __init__(self, batch_id, slot, n, seed, ctx=None):
         self.batch_id = batch_id
         self.slot = slot
         self.n = n
@@ -84,6 +85,9 @@ class _Batch:
         self.failed = 0
         self.error = None
         self.pending_shards = 0
+        # the consumer's TraceContext at submit: the decode-worker lane
+        # spans land in the consuming iterator's trace
+        self.ctx = ctx
 
 
 class DecodePool:
@@ -204,6 +208,7 @@ class DecodePool:
                 job = self._queue.popleft()
             images, labels, indices = self._slot_arrays(job.slot)
             idx = indices[:job.n]
+            t0 = time.perf_counter_ns()
             try:
                 if self._out_u8:
                     _, _, failed = self._reader.read_batch_u8(
@@ -225,7 +230,15 @@ class DecodePool:
                 job.failed = int(failed)
             except BaseException as e:
                 job.error = e
+            dur_ns = time.perf_counter_ns() - t0
             job.event.set()
+            if job.error is None:
+                # the dispatcher's decode window: the same lane as the
+                # process mode's workers (worker="thread")
+                self._record_worker_span(
+                    "thread", job.ctx,
+                    {"dur_ns": dur_ns, "batch": job.batch_id, "start": 0,
+                     "failed": job.failed})
 
     # -- process mode ----------------------------------------------------
     def _start_proc_mode(self, n_workers, shm_mb):
@@ -356,6 +369,7 @@ class DecodePool:
                 msg = json.loads(line)
             except ValueError:
                 continue
+            lane = None
             with self._lock:
                 key = (msg.get("batch"), msg.get("start"))
                 state["outstanding"].pop(key, None)
@@ -372,12 +386,19 @@ class DecodePool:
                 else:
                     job.failed += int(msg.get("failed", 0))
                     self._restarts_left = self._max_restarts
+                    if "dur_ns" in msg:
+                        lane = (job.ctx, msg)
                 # the event only fires once EVERY shard has resolved
                 # (success or error): wait()/reset() must not run while a
                 # sibling worker is still writing into the slot
                 job.pending_shards -= 1
                 if job.pending_shards <= 0:
                     job.event.set()
+            if lane is not None:
+                # the shard's decode window in the consuming iterator's
+                # trace (outside the pool lock: record_span takes the
+                # registry's)
+                self._record_worker_span(state["wid"], *lane)
         # EOF: worker died (or quit during close). Never silent: an IDLE
         # death (no in-flight shard — e.g. the OOM killer between batches)
         # is respawned and logged too, or the pool would quietly run
@@ -473,10 +494,27 @@ class DecodePool:
                 job.event.set()
 
     # -- producer API ----------------------------------------------------
-    def submit(self, batch_id, indices, seed):
+    @staticmethod
+    def _record_worker_span(wid, ctx, msg):
+        """One decode-worker lane span from a reply's wall and stage
+        clocks: `io.worker.decode`, in the consuming iterator's trace when
+        the submit captured a context, with the stage clocks as attrs."""
+        stages = msg.get("stages") or {}
+        record_span(
+            "io.worker.decode", msg["dur_ns"] / 1e3, cat="io",
+            ctx=_trace.child_context(ctx, "io.worker.decode")
+            if ctx is not None else None,
+            worker=wid, batch=msg.get("batch"),
+            shard_start=msg.get("start"), failed=msg.get("failed", 0),
+            decode_us=round(stages.get("decode_ns", 0) / 1e3, 1),
+            read_us=round(stages.get("read_ns", 0) / 1e3, 1),
+            augment_us=round(stages.get("augment_ns", 0) / 1e3, 1))
+
+    def submit(self, batch_id, indices, seed, ctx=None):
         """Schedule decode of `indices` into the ring (consumer thread;
         non-blocking except for the slot-reuse fence). The caller enforces
-        the lookahead bound, so a free slot always exists."""
+        the lookahead bound, so a free slot always exists. `ctx` is the
+        consumer's TraceContext: the worker decode spans join its trace."""
         indices = _np.ascontiguousarray(indices, dtype=_np.int64)
         n = len(indices)
         slot = batch_id % self._n_slots
@@ -495,7 +533,7 @@ class DecodePool:
                 self._reader.advise(indices)
             except Exception:
                 pass
-        job = _Batch(batch_id, slot, n, seed)
+        job = _Batch(batch_id, slot, n, seed, ctx=ctx)
         images, labels, idx_region = self._slot_arrays(slot)
         idx_region[:n] = indices
         with self._lock:

@@ -262,7 +262,9 @@ def loss_fn(params, batch, cfg: TransformerConfig, mesh=None):
     logits, aux = forward(params, inputs, cfg, mesh, return_aux=True)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None].to(torch.int64))[..., 0]
+    # an id outside the vocabulary reads NaN, as the JAX package's fill
+    # mode gives (a negative one within it counts from the end)
+    gold = _nn.take_fill(logits, targets[..., None], -1)[..., 0]
     ce = (logz - gold).mean()
     if cfg.num_experts > 0:
         return ce + cfg.moe_aux_weight * aux

@@ -418,6 +418,7 @@ class NDArray:
             value = as_tensor(value)
         if isinstance(value, torch.Tensor):
             value = value.to(device=t.device, dtype=t.dtype)
+        key, value = _in_range_writes(key, t, value)
         with torch.no_grad():
             if flips:
                 target = t[key]
@@ -702,6 +703,67 @@ def _ints_apart(key):
     dev = arrays[0].device
     return tuple(torch.full(shape, k, dtype=torch.int64, device=dev)
                  if i in ints else k for i, k in enumerate(key))
+
+
+def _in_range_writes(key, t, value):
+    """`(key, value)` of `t[key] = value` without the writes whose integer
+    array index lies outside its axis once -n <= i < 0 counts from the
+    end: XLA's scatters drop them (the JAX package's `.at[key].set`),
+    where PyTorch would raise, and on the card assert. The broadcast index
+    and the value's matching axes are flattened and the in-range positions
+    kept; other keys pass unchanged."""
+    parts = key if isinstance(key, tuple) else (key,)
+    if not any(isinstance(k, torch.Tensor) and k.dtype != torch.bool
+               for k in parts):
+        return key, value
+    shape = t.shape
+    used = sum(k.dim() if isinstance(k, torch.Tensor)
+               and k.dtype == torch.bool else 1
+               for k in parts if k is not None and k is not Ellipsis
+               and not isinstance(k, bool))
+    out, adv, ok, d = [], [], None, 0
+    for k in parts:
+        if k is Ellipsis:
+            d += len(shape) - used
+        elif isinstance(k, torch.Tensor) and k.dtype == torch.bool:
+            # a mask is its nonzero positions, in range by construction
+            for part in k.nonzero(as_tuple=True):
+                adv.append(len(out))
+                out.append(part)
+            d += k.dim()
+            continue
+        elif isinstance(k, torch.Tensor):
+            n = shape[d]
+            k = k.to(torch.int64)
+            k = torch.where(k < 0, k + n, k)
+            inside = (k >= 0) & (k < n)
+            ok = inside if ok is None else ok & inside
+            adv.append(len(out))
+            d += 1
+        elif k is not None and not isinstance(k, bool):
+            d += 1
+        out.append(k)
+    b_shape = torch.broadcast_shapes(*(out[i].shape for i in adv))
+    keep = torch.broadcast_to(ok, b_shape).reshape(-1)
+    def meta_shape(dims, adv_shape, probe=False):
+        # t[key]'s shape for a tensor of shape `dims`, computed on the meta
+        # device with each array index of `adv_shape`: nothing is read
+        idx = torch.zeros(adv_shape, dtype=torch.int64, device="meta")
+        return list(torch.empty(dims, device="meta")[tuple(
+            idx if i in adv else 0 if probe and _gathers(k) else k
+            for i, k in enumerate(out))].shape)
+
+    target = meta_shape(shape, b_shape)
+    # where torch puts the broadcast axes: a probe of ones with array
+    # indices of length 7 shows it
+    q = meta_shape((1,) * len(shape), (7,), probe=True).index(7)
+    nb = len(b_shape)
+    v = torch.as_tensor(value, dtype=t.dtype, device=t.device) \
+        .expand(target).movedim(tuple(range(q, q + nb)), tuple(range(nb)))
+    v = v.reshape((-1,) + tuple(v.shape[nb:]))[keep].movedim(0, q)
+    key = tuple(torch.broadcast_to(k, b_shape).reshape(-1)[keep]
+                if i in adv else k for i, k in enumerate(out))
+    return key, v
 
 
 def _clamped(key, shape):

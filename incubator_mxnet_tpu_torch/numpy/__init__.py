@@ -32,6 +32,7 @@ from ..base import (BFLOAT16, NARROW, from_torch_dtype, name_to_dtype,
                     to_torch_dtype)
 from ..ndarray import (NDArray, _as_nd, _int_by_zero, _pow, _wrap, waitall,
                        array, zeros, ones, full, empty, arange, save, load)
+from ..ops import nn as _nn
 from ..ops.registry import as_tensor, invoke, register_op
 from ..device import resolve_device
 
@@ -474,30 +475,22 @@ def _take(a, indices, axis=None, out=None, mode=None, unique_indices=False,
         return out
     bad = bad.reshape((1,) * axis + idx.shape
                       + (1,) * (a.dim() - axis - 1))
-    fill = _take_fill(a.dtype) if fill_value is None else fill_value
+    fill = _nn.fill_value(a.dtype) if fill_value is None else fill_value
     return torch.where(bad, torch.tensor(fill, dtype=a.dtype,
                                          device=a.device), out)
 
 
-def _take_fill(dtype):
-    """jnp.take's fill for an out-of-range position: NaN for a float type,
-    the lowest value of a signed integer type, the highest of an unsigned
-    one, True for bool."""
-    if dtype == torch.bool:
-        return True
-    if dtype.is_floating_point or dtype.is_complex:
-        return float("nan")
-    info = torch.iinfo(dtype)
-    return info.min if info.min < 0 else info.max
-
-
 def _take_along_axis(arr, indices, axis, mode=None, fill_value=None):
     arr = _T(arr)
-    idx = _T(indices, arr).to(torch.int64)
+    idx = _T(indices, arr)
     if axis is None:
         arr, axis = arr.reshape(-1), 0
-    n = arr.shape[axis]
-    return torch.take_along_dim(arr, torch.where(idx < 0, idx + n, idx),
+    if mode in (None, "fill"):
+        # jnp.take_along_axis' default: XLA's fill mode
+        return _nn.take_fill(arr, idx, axis, fill=fill_value)
+    if mode != "clip":
+        raise ValueError(f"Unknown gather mode {mode!r}")
+    return torch.take_along_dim(arr, _nn.clamp_index(idx, arr.shape[axis]),
                                 dim=axis)
 
 
@@ -1051,11 +1044,18 @@ def _digitize(x, bins, right=False, method=None):
 
 
 def _put_along_axis_fn(arr, indices, values, axis, inplace=False, mode=None):
+    axis %= arr.dim()
     idx = _T(indices, arr).to(torch.int64)
     n = arr.shape[axis]
     idx = torch.where(idx < 0, idx + n, idx)
+    # an update whose index is still outside the axis is dropped, as XLA's
+    # scatters drop it: it lands in a spare row past the end
+    idx = torch.where((idx < 0) | (idx >= n), n, idx)
     vals = _T(values, arr).to(arr.dtype).expand(idx.shape)
-    return arr.scatter(axis, idx, vals)
+    spare = list(arr.shape)
+    spare[axis] = 1
+    ext = torch.cat([arr, arr.new_zeros(spare)], dim=axis)
+    return ext.scatter(axis, idx, vals).narrow(axis, 0, n)
 
 
 def _diff(a, n=1, axis=-1, prepend=None, append=None):

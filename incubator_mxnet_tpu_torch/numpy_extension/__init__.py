@@ -259,8 +259,9 @@ def _sequence_reverse(x, sequence_length=None, use_sequence_length=False,
     t_idx = torch.arange(T, device=x.device)[:, None]
     lens = sequence_length.to(device=x.device, dtype=torch.int64)[None, :]
     rev = torch.where(t_idx < lens, lens - 1 - t_idx, t_idx)
-    out = torch.take_along_dim(moved, rev.reshape(
-        rev.shape + (1,) * (moved.ndim - 2)), dim=0)
+    # a length past T reverses into positions the JAX package fills (NaN)
+    out = _nn.take_fill(moved, rev.reshape(
+        rev.shape + (1,) * (moved.ndim - 2)), 0)
     return torch.movedim(out, 0, axis)
 
 

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from .. import amp
 from ..base import MXNetError
+from ..telemetry.registry import REGISTRY
 from . import kernels
 
 __all__ = ["bias_act", "norm_act_residual", "bn_inference", "batch_norm",
@@ -59,10 +60,34 @@ __all__ = ["bias_act", "norm_act_residual", "bn_inference", "batch_norm",
            "paged_attention_ref",
            "fusion_scope", "fusion_enabled", "set_fusion_default",
            "contiguous_counted", "layout_copies", "reset_layout_copies",
-           "FUSABLE_ACTS", "scale_shift_act_op", "avg_pool2d_fwd_op"]
+           "FUSABLE_ACTS", "scale_shift_act_op", "avg_pool2d_fwd_op",
+           "fused_stats", "FUSED_STATS"]
 
 # activations the apply kernel (and its backward) take; None = identity
 FUSABLE_ACTS = (None, "relu", "sigmoid", "tanh", "silu", "gelu")
+
+# the JAX package's `fused` stats group: each dispatch of a fused-tier op
+# (the apply, the pool's forward and backward, paged attention, the
+# augment) counts once, in "pallas_calls" (the JAX package's name) when it
+# launched a CUDA kernel, in "fallback_calls" when a CPU tensor took the
+# plain version. Plain int += under the GIL (diagnostics).
+FUSED_STATS = REGISTRY.stats_group("fused", {
+    "pallas_calls": 0,       # dispatches that launched a CUDA kernel
+    "fallback_calls": 0,     # dispatches served by the plain version
+    "device_augment_calls": 0,   # image_augment dispatches
+    "paged_attention_calls": 0,  # paged_attention dispatches
+}, help="fused-kernel tier path counters (profiler.fused_stats)")
+_STATS = FUSED_STATS
+
+
+def fused_stats(reset=False):
+    """Snapshot of the fused tier's path counters (also
+    `profiler.fused_stats()`); `reset=True` zeroes them after it."""
+    return _STATS.snapshot(reset=reset)
+
+
+def _count_path(dev):
+    _STATS["pallas_calls" if dev == "cuda" else "fallback_calls"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -289,6 +314,7 @@ def scale_shift_act_op(x2d: torch.Tensor, scale: Optional[torch.Tensor],
     """act(x2d [*scale] [+ shift] [+ residual]) over (M, C); every arity
     of the apply kernel (bias-only, scale+shift, scale+shift+residual)."""
     dev = x2d.device.type
+    _count_path(dev)
     if dev == "cuda":
         return kernels.scale_shift_act_cuda(x2d, scale, shift, residual,
                                             act_type)
@@ -306,6 +332,7 @@ def _(x2d, scale, shift, residual, act_type):
 def avg_pool2d_fwd_op(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     """The non-overlapping NHWC average pool's forward."""
     dev = x.device.type
+    _count_path(dev)
     if dev == "cuda":
         return kernels.avg_pool2d_fwd_cuda(x, ph, pw)
     if dev == "cpu":
@@ -431,6 +458,7 @@ class _AvgPool2d(torch.autograd.Function):
     def backward(ctx, dy):
         h, w, ph, pw = ctx.pool
         dev = dy.device.type
+        _count_path(dev)
         if dev == "cuda":
             return (kernels.avg_pool2d_bwd_cuda(contiguous_counted(dy), h, w,
                                                 ph, pw), None, None)
@@ -523,6 +551,8 @@ def paged_attention(q, k_slab, v_slab, lengths, layer, k_scale=None,
     CUDA tensors launch the kernel (`ops/csrc/paged_attention.cu`), CPU
     tensors take `paged_attention_ref`."""
     dev = q.device.type
+    _STATS["paged_attention_calls"] += 1
+    _count_path(dev)
     if dev == "cuda":
         return kernels.paged_attention_cuda(q, k_slab, v_slab, lengths,
                                             layer, k_scale, v_scale)
@@ -643,6 +673,8 @@ def augment_table_ref(in_dtype, cout, mean=None, std=None,
 
 def _augment_fwd(images, y0, x0, flips, crop_hw, mean, std, out_dtype):
     dev = images.device.type
+    _STATS["device_augment_calls"] += 1
+    _count_path(dev)
     if dev == "cuda":
         ch, cw = _crop_hw(images, crop_hw)
         if (ch, cw) == tuple(images.shape[1:3]):

@@ -45,7 +45,7 @@ __all__ = ["convolution", "deconvolution", "fully_connected", "batch_norm",
            "layer_norm", "group_norm", "instance_norm", "rms_norm",
            "pooling", "activation", "relu", "leaky_relu", "elu", "selu",
            "gelu", "silu", "swish", "sigmoid", "softmax", "log_softmax",
-           "pick", "clamp_index", "embedding", "dropout", "scaled_dot_product_attention",
+           "pick", "clamp_index", "fill_value", "take_fill", "embedding", "dropout", "scaled_dot_product_attention",
            "add",
            "multiply", "clip", "sum", "mean", "reshape", "transpose",
            "concat", "reflection_pad2d"]
@@ -429,6 +429,43 @@ def clamp_index(indices, n):
         return idx
     # [-n, n) first, then the negative ones from the end: two launches
     return torch.remainder(idx.clamp(-n, n - 1), n)
+
+
+def fill_value(dtype):
+    """What XLA's gathers in fill mode read at an out-of-range position:
+    NaN for a float type, the lowest value of a signed integer type, the
+    highest of an unsigned one, True for bool."""
+    if dtype == torch.bool:
+        return True
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+def take_fill(x, indices, dim, fill=None):
+    """`torch.take_along_dim(x, indices, dim)` as the JAX package's
+    `take_along_axis` reads it (XLA's fill mode): an index with
+    -n <= i < 0 counts from the end, and a position whose index is still
+    outside [0, n) reads `fill` (default `fill_value(x.dtype)`), with a
+    zero gradient. The
+    gather itself reads a clamped index, so neither device reads past the
+    axis (the card would assert)."""
+    dim %= x.dim()
+    n = x.shape[dim]
+    idx = indices.to(device=x.device, dtype=torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    bad = (idx < 0) | (idx >= n)
+    if n == 0:
+        # XLA's gather of an empty axis reads zeros, the JAX package's too
+        shape = list(torch.broadcast_shapes(x.shape[:dim] + (1,)
+                                            + x.shape[dim + 1:], idx.shape))
+        shape[dim] = idx.shape[dim]
+        return x.new_zeros(shape)
+    fill = torch.tensor(fill_value(x.dtype) if fill is None else fill,
+                        dtype=x.dtype, device=x.device)
+    out = torch.take_along_dim(x, idx.clamp(0, n - 1), dim=dim)
+    return torch.where(bad, fill, out)
 
 
 def embedding(indices, weight):

@@ -32,21 +32,24 @@ import torch
 from .. import amp as _amp
 from .. import autograd
 from ..base import MXNetError
+from ..telemetry.registry import REGISTRY
 
 __all__ = ["OpInfo", "register_op", "get_op", "list_ops", "apply_op",
            "record_key", "invoke", "dispatch_stats", "as_tensor"]
 
 _OP_REGISTRY = {}
-_STATS = {"dispatch": 0, "eager_fallback": 0}
+# the JAX package's `dispatch` group, with the two counters that mean
+# something without bulking; plain int += under the GIL (diagnostics)
+_STATS = REGISTRY.stats_group("dispatch", {
+    "dispatch": 0,            # total ops.registry.invoke() calls
+    "eager_fallback": 0,      # invokes executed op by op
+}, help="eager-dispatch counters (profiler.dispatch_stats)")
 
 
 def dispatch_stats(reset=False):
-    """A snapshot of the dispatch counters; `reset` zeroes them."""
-    snap = dict(_STATS)
-    if reset:
-        for k in _STATS:
-            _STATS[k] = 0
-    return snap
+    """A snapshot of the dispatch counters; `reset` zeroes them (one
+    atomic step)."""
+    return _STATS.snapshot(reset=reset)
 
 
 class OpInfo:

@@ -12,7 +12,7 @@ Counterpart of `incubator_mxnet_tpu/serve/`, with its surface:
   serve.stats()         process-wide serving counters; per-server metrics
                         (requests/s, p50/p95/p99, batch occupancy, queue
                         depth, queue-wait vs execute) via `Server.stats()`
-  serve.metrics_text()  Prometheus text of the counters;
+  serve.metrics_text()  Prometheus text of the telemetry registry;
                         `serve.start_metrics_server(port)` (or
                         MXNET_METRICS_PORT at `Server.start()`) serves it
   serve.ContinuousEngine  iteration-level batching decode engine over a
@@ -22,8 +22,9 @@ Counterpart of `incubator_mxnet_tpu/serve/`, with its surface:
                         `serve.replica` processes: failover, respawn,
                         prefix affinity, rolling drain-and-swap
 
-The telemetry registry, request spans and the tune profiles wait for
-ROADMAP A11; the compile surface for A3.
+Requests are traced (`telemetry.trace`: one trace per request, across
+the batcher's queue and a fleet's replica hop); the tune profiles wait
+for the tooling half of ROADMAP A11, the compile surface for A3.
 """
 from .batcher import (ServeError, QueueFullError, RequestTimeout,
                       ServerClosed, ReplicaDraining, BucketedModel,

@@ -13,9 +13,15 @@ batch and splits it into the replies (numpy arrays). Failures are typed
 (`QueueFullError` for admission-control rejects and shed requests,
 `RequestTimeout` for missed deadlines, `ServerClosed` after shutdown), and
 the `serve.enqueue` / `serve.execute` / `serve.reply` fault points sit at
-the JAX package's call sites. Request spans, trace contexts, the flight
-recorder and the OOM black box wait for the port's telemetry (ROADMAP
-A11).
+the JAX package's call sites. One request is one trace: its
+`serve.request` root context is minted on the caller's thread (while a
+collector can consume it: the profiler, the flight recorder's spool, or
+an explicit `MXNET_TRACE_SAMPLE`) and rides the queue, so the
+`serve.enqueue`, `serve.queue_wait`, `serve.execute` and `serve.reply`
+spans land in it; the slowest requests' trace ids are in
+`stats()["timeline"]["slowest"]`. Overload and timeouts feed the flight
+recorder, and a failed batch that ran out of memory leaves the OOM black
+box (`telemetry.mem_on_oom`).
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ import torch
 
 from .. import fault as _fault
 from ..base import MXNetError, get_env
+from ..telemetry import (record_span, trace as _trace, mem_on_oom,
+                         mem_install_oom_hook)
 from .metrics import ServeMetrics
 
 __all__ = ["ServeError", "QueueFullError", "RequestTimeout", "ServerClosed",
@@ -218,13 +226,16 @@ class CallableModel:
 # server
 # ---------------------------------------------------------------------------
 class _Request:
-    __slots__ = ("inputs", "future", "deadline", "t_submit")
+    __slots__ = ("inputs", "future", "deadline", "t_submit", "ctx")
 
-    def __init__(self, inputs, deadline):
+    def __init__(self, inputs, deadline, ctx=None):
         self.inputs = inputs
         self.future = Future()
         self.deadline = deadline
         self.t_submit = time.perf_counter()
+        # the request's root TraceContext ("serve.request"), minted on the
+        # caller's thread and carried across the queue
+        self.ctx = ctx
 
 
 class Server:
@@ -318,6 +329,10 @@ class Server:
                 logging.getLogger("mx.serve").warning(
                     "metrics endpoint on port %s unavailable (%s); "
                     "serving continues without /metrics", port, e)
+        # the flight recorder's crash hooks (armed only while
+        # MXNET_FLIGHTREC_DIR is set) and the OOM excepthook
+        _trace.install_crash_hooks()
+        mem_install_oom_hook()
         self._started = True
         return self
 
@@ -378,35 +393,55 @@ class Server:
         close()."""
         if not self._started:
             raise ServeError("Server.start() (or `with Server(...)`) first")
+        t_enter = time.perf_counter()
         rows = self._check_row(inputs)
         _fault.inject("serve.enqueue")
         dl = (deadline_ms / 1e3 if deadline_ms is not None
               else self.default_deadline_s)
+        # one request = one trace, minted here on the caller's thread
+        ctx = _trace.request_root("serve.request")
         req = _Request(rows, None if dl is None
-                       else time.perf_counter() + dl)
+                       else time.perf_counter() + dl, ctx=ctx)
         shed_req = None
-        rejected = False
+        rejected_depth = None
         with self._cv:
             if self._closing:
                 raise ServerClosed("server is closed")
             if len(self._queue) >= self.max_queue:
                 if self.overload_policy == "reject":
-                    rejected = True
+                    rejected_depth = len(self._queue)
                 else:
                     shed_req = self._queue.popleft()
-            if not rejected:
+            if rejected_depth is None:
                 self._queue.append(req)
                 depth = len(self._queue)
                 self._cv.notify()
-        if rejected:
+        if rejected_depth is not None:
+            # flight-recorder I/O (a rate-limited dump too) outside the
+            # server lock: an overload black box must not stall admission
             self.metrics.count("rejected")
+            _trace.flightrec_record(
+                "serve.reject", self.name, depth=rejected_depth,
+                trace_id=ctx.trace_id if ctx else None)
+            _trace.flightrec_maybe_dump("serve.overload")
             raise QueueFullError(
                 f"queue full ({self.max_queue}); request rejected",
                 policy="reject")
         self.metrics.count("requests")
         self.metrics.set_queue_depth(depth)
+        if ctx is not None and _trace._profiler_running():
+            # the caller-side stage span: admission + enqueue cost
+            record_span("serve.enqueue",
+                        (time.perf_counter() - t_enter) * 1e6,
+                        ts_us=t_enter * 1e6, cat="serve",
+                        ctx=_trace.child_context(ctx, "serve.enqueue"),
+                        queue_depth=depth)
         if shed_req is not None:
             self.metrics.count("shed")
+            _trace.flightrec_record(
+                "serve.shed", self.name, depth=depth,
+                trace_id=shed_req.ctx.trace_id if shed_req.ctx else None)
+            _trace.flightrec_maybe_dump("serve.overload")
             _fail(shed_req, QueueFullError(
                 f"queue full ({self.max_queue}); oldest request shed",
                 policy="shed"))
@@ -481,6 +516,10 @@ class Server:
             for req in batch:
                 if req.deadline is not None and now > req.deadline:
                     self.metrics.count("timeouts")
+                    _trace.flightrec_record(
+                        "serve.timeout", self.name,
+                        waited_ms=round((now - req.t_submit) * 1e3, 1),
+                        trace_id=req.ctx.trace_id if req.ctx else None)
                     _fail(req, RequestTimeout(
                         "deadline expired after "
                         f"{(now - req.t_submit) * 1e3:.1f}ms in queue"))
@@ -518,6 +557,9 @@ class Server:
                     f"off, refusing to reply with pad-contaminated data")
             outs = tuple(o[:n] for o in outs)
         except BaseException as e:
+            # an OOM leaves its black box before the batch fails (never
+            # raises, so it cannot displace the real error)
+            mem_on_oom(e, where="serve.batch")
             self.metrics.count("errors", n)
             err = e if isinstance(e, MXNetError) else ServeError(
                 f"batch execution failed: {type(e).__name__}: {e}")
@@ -526,8 +568,26 @@ class Server:
             return
         exec_ms = (time.perf_counter() - t0) * 1e3
         wait_ms = sum((t0 - req.t_submit) * 1e3 for req in batch)
-        self.metrics.observe_batch(bucket, n, exec_ms, depth,
-                                   queue_wait_ms=wait_ms)
+        self.metrics.observe_batch(
+            bucket, n, exec_ms, depth, queue_wait_ms=wait_ms,
+            member_traces=[req.ctx.trace_id for req in batch if req.ctx])
+        # the batcher-side stage spans of each traced request, while the
+        # profiler collects
+        if _trace._profiler_running():
+            for req in batch:
+                if req.ctx is None:
+                    continue
+                record_span("serve.queue_wait",
+                            (t0 - req.t_submit) * 1e6,
+                            ts_us=req.t_submit * 1e6, cat="serve",
+                            ctx=_trace.child_context(req.ctx,
+                                                     "serve.queue_wait"),
+                            bucket=bucket)
+                record_span("serve.execute", exec_ms * 1e3,
+                            ts_us=t0 * 1e6, cat="serve",
+                            ctx=_trace.child_context(req.ctx,
+                                                     "serve.execute"),
+                            bucket=bucket, batch_n=n)
         try:
             _fault.inject("serve.reply")
         except BaseException as e:
@@ -549,8 +609,20 @@ class Server:
             self.metrics.count("replies")
             total_ms = (done - req.t_submit) * 1e3
             self.metrics.observe_latency(total_ms)
+            if req.ctx is not None and _trace._profiler_running():
+                record_span("serve.reply",
+                            (time.perf_counter() - done) * 1e6,
+                            ts_us=done * 1e6, cat="serve",
+                            ctx=_trace.child_context(req.ctx,
+                                                     "serve.reply"))
+                # the request's root span: enqueue -> reply
+                record_span("serve.request", total_ms * 1e3,
+                            ts_us=req.t_submit * 1e6, cat="serve",
+                            ctx=req.ctx, bucket=bucket)
             self.metrics.observe_request(
-                total_ms, queue_wait_ms=(t0 - req.t_submit) * 1e3,
+                total_ms,
+                trace_id=req.ctx.trace_id if req.ctx else None,
+                queue_wait_ms=(t0 - req.t_submit) * 1e3,
                 exec_ms=exec_ms, batch_size=n,
                 deadline_margin_ms=((req.deadline - done) * 1e3
                                     if req.deadline is not None else None))

@@ -60,6 +60,8 @@ import torch.nn.functional as F
 
 from .. import fault as _fault
 from ..base import MXNetError, get_env, torch_dtype
+from ..telemetry import (record_span, trace as _trace, mem_on_oom,
+                         mem_install_oom_hook)
 from ..ops.nn import clamp_index
 from ..device import resolve_device
 from ..ops import fused as _fused
@@ -844,11 +846,12 @@ class _GenRequest:
     __slots__ = ("prompt", "max_new", "future", "deadline", "t_submit",
                  "slot", "generated", "cache_len", "t_first", "t_last",
                  "temperature", "top_k", "top_p", "key", "entry",
-                 "cached_len", "prefill_pos")
+                 "cached_len", "prefill_pos", "ctx")
 
     def __init__(self, prompt, max_new, deadline, temperature=0.0, top_k=0,
-                 top_p=1.0, key=None):
+                 top_p=1.0, key=None, ctx=None):
         self.prompt = prompt                 # np.int32 (plen,)
+        self.ctx = ctx                       # serve.request root context
         self.max_new = max_new
         self.future = Future()
         self.deadline = deadline             # perf_counter deadline or None
@@ -1090,6 +1093,10 @@ class ContinuousEngine:
         with self._cv:
             self._started = True
         self.warmup_s = round(time.perf_counter() - t0, 3)
+        # the flight recorder's crash hooks (armed only while
+        # MXNET_FLIGHTREC_DIR is set) and the OOM excepthook
+        _trace.install_crash_hooks()
+        mem_install_oom_hook()
         self._thread.start()
         return self
 
@@ -1210,10 +1217,11 @@ class ContinuousEngine:
             with self._mlock:
                 seed = self._auto_seed
                 self._auto_seed += 1
+        ctx = _trace.request_root("serve.request")
         req = _GenRequest(prompt, int(max_new_tokens),
                           None if dl is None else time.perf_counter() + dl,
                           temperature=temperature, top_k=top_k,
-                          top_p=top_p, key=_seed_key(seed))
+                          top_p=top_p, key=_seed_key(seed), ctx=ctx)
         with self._cv:
             if self._closing:
                 if self._drain and self._thread.is_alive():
@@ -1221,12 +1229,17 @@ class ContinuousEngine:
                         "engine is draining (finishing resident requests "
                         "before restart); route to another replica")
                 raise ServerClosed("engine is closed")
-            rejected = len(self._waiting) >= self.max_queue
+            depth = len(self._waiting)
+            rejected = depth >= self.max_queue
             if not rejected:
                 self._waiting.append(req)
                 self._cv.notify()
         if rejected:
             self._count("rejected")
+            _trace.flightrec_record(
+                "serve.reject", self.name, depth=depth,
+                trace_id=ctx.trace_id if ctx else None)
+            _trace.flightrec_maybe_dump("serve.overload")
             raise QueueFullError(
                 f"waiting queue full ({self.max_queue}); request "
                 f"rejected", policy="reject")
@@ -1338,6 +1351,10 @@ class ContinuousEngine:
             now = time.perf_counter()
             for req in expired:
                 self._count("timeouts")
+                _trace.flightrec_record(
+                    "serve.timeout", self.name,
+                    waited_ms=round((now - req.t_submit) * 1e3, 1),
+                    trace_id=req.ctx.trace_id if req.ctx else None)
                 _fail(req, RequestTimeout(
                     f"deadline expired after "
                     f"{(now - req.t_submit) * 1e3:.1f}ms waiting for a "
@@ -1362,7 +1379,9 @@ class ContinuousEngine:
                 # slots, and the engine keeps serving. The slabs need no
                 # reallocation (they are updated in place, never donated):
                 # whatever a failed step half-wrote lies outside every
-                # later request's [0, cur_len] mask.
+                # later request's [0, cur_len] mask. An OOM leaves its
+                # black box first (mem_on_oom never raises).
+                mem_on_oom(e, where="serve.continuous")
                 err = e if isinstance(e, MXNetError) else ServeError(
                     f"engine step failed: {type(e).__name__}: {e}")
                 with self._cv:
@@ -1453,6 +1472,7 @@ class ContinuousEngine:
         completes; `prefill_tokens` bills only tokens a program processed
         (suffix-only on a hit)."""
         _fault.inject("serve.execute")
+        t0 = time.perf_counter()
         W = self.prefill_window
         g = self.pool.garbage_row
         params = self.model.params
@@ -1541,6 +1561,7 @@ class ContinuousEngine:
         n_sampled = sum(1 for r, _ in finished if r.temperature > 0)
         if n_sampled:
             self._count("sampled_tokens", n_sampled)
+        prof = _trace._profiler_running()
         done = []
         for req, tok in finished:
             req.cache_len = int(req.prompt.size)
@@ -1548,12 +1569,25 @@ class ContinuousEngine:
             req.t_first = req.t_last = now
             with self._mlock:
                 self._ttft_ms.append((now - req.t_submit) * 1e3)
+            if req.ctx is not None and prof:
+                # admission -> first token, a child of the request root
+                record_span("serve.prefill", (now - req.t_submit) * 1e6,
+                            ts_us=req.t_submit * 1e6, cat="serve",
+                            ctx=_trace.child_context(req.ctx,
+                                                     "serve.prefill"),
+                            prompt_tokens=req.prompt.size,
+                            cached_tokens=req.cached_len,
+                            slot=req.slot)
             if self._finished(req):
                 done.append(req)
         with self._cv:
             for req, _ in finished:
                 self._prefilling.pop(req.slot, None)
                 self._running[req.slot] = req
+        if _trace.enabled() and _trace.collector_active():
+            record_span("serve.prefill_batch", (now - t0) * 1e6,
+                        ts_us=t0 * 1e6, cat="serve",
+                        requests=len(admitted), tokens=n_tokens)
         self._retire(done)
 
     def _dispatch_copy(self, pairs):
@@ -1571,6 +1605,7 @@ class ContinuousEngine:
         mid-prefill slots and prefix-cache rows alike), so lane index ==
         slab row; non-decoding lanes are inactive and write into the
         garbage row."""
+        t0 = time.perf_counter()
         S = self.pool.max_slots
         draft = self.draft_tokens
         toks = _np.zeros((S,), dtype=_np.int32)
@@ -1640,6 +1675,11 @@ class ContinuousEngine:
         if draft:
             self._count("draft_accepted", int(acc.sum()))
             self._count("draft_rejected", int(rej.sum()))
+        if _trace.enabled() and _trace.collector_active():
+            now = time.perf_counter()
+            record_span("serve.decode_batch", (now - t0) * 1e6,
+                        ts_us=t0 * 1e6, cat="serve", active=len(running),
+                        tokens=n_tokens, steps=self.decode_steps)
         self._retire(done)
 
     def _finished(self, req):
@@ -1654,6 +1694,7 @@ class ContinuousEngine:
         """Publish prompt prefixes into the cache (cold requests) or
         release the pinned entry (hits), free slots and resolve
         futures."""
+        prof = _trace._profiler_running()
         for req in done:
             with self._cv:
                 self._running.pop(req.slot, None)
@@ -1681,14 +1722,28 @@ class ContinuousEngine:
             if req.future.set_running_or_notify_cancel():
                 req.future.set_result(out)
             now = time.perf_counter()
+            total_ms = (now - req.t_submit) * 1e3
             with self._mlock:
-                self._e2e_ms.append((now - req.t_submit) * 1e3)
+                self._e2e_ms.append(total_ms)
                 if len(req.generated) > 1 and req.t_first is not None:
                     self._tpot_ms.append(
                         (req.t_last - req.t_first) * 1e3
                         / (len(req.generated) - 1))
             self._count("replies")
             self._count("retired")
+            if req.ctx is not None and prof:
+                if req.t_first is not None and req.t_last > req.t_first:
+                    # first -> last token: the decode iterations as one
+                    # node (the batch lane has them one by one)
+                    record_span("serve.decode",
+                                (req.t_last - req.t_first) * 1e6,
+                                ts_us=req.t_first * 1e6, cat="serve",
+                                ctx=_trace.child_context(req.ctx,
+                                                         "serve.decode"),
+                                tokens=len(req.generated), slot=req.slot)
+                record_span("serve.request", total_ms * 1e3,
+                            ts_us=req.t_submit * 1e6, cat="serve",
+                            ctx=req.ctx, tokens=len(req.generated))
 
 
 # engine counter -> process-wide SERVE_STATS key

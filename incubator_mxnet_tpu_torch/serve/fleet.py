@@ -36,10 +36,12 @@ Counterpart of `incubator_mxnet_tpu/serve/fleet.py`, same design:
 
 Each child runs `python -m incubator_mxnet_tpu_torch.serve.replica` with
 the repo on PYTHONPATH and logs to
-`<workdir>/replica<i>.log`. The replica states live in a plain dict in
-`stats()`. Request spans, trace-context hops and the replica-state gauge
-of the telemetry registry wait for ROADMAP A11; the compile surface
-(`retraces_after_warmup`, `assert_no_retraces`) for A3.
+`<workdir>/replica<i>.log`. The counters are the registry's `fleet`
+stats group, each replica's state the `serve.replica_state{replica=i}`
+gauge; a request is one trace: its `fleet.request` root context rides the
+request message, and the replica's `serve.request` joins it. The compile
+surface (`retraces_after_warmup`, `assert_no_retraces`) waits for ROADMAP
+A3.
 """
 from __future__ import annotations
 
@@ -60,6 +62,8 @@ import numpy as _np
 from .. import fault as _fault
 from ..base import MXNetError, get_env
 from ..fault import _log_event
+from ..telemetry import record_span, trace as _trace
+from ..telemetry.registry import gauge, stats_group
 from .batcher import (QueueFullError, RequestTimeout, ServeError,
                       ServerClosed)
 from .prefix_cache import rolling_hash as _rolling_hash
@@ -70,7 +74,7 @@ __all__ = ["Fleet", "FleetError", "ReplicaDied", "FLEET_STATS",
            "fleet_stats", "REPLICA_STATES"]
 
 _STATS_LOCK = threading.Lock()
-FLEET_STATS = {
+FLEET_STATS = stats_group("fleet", {
     "replicas_live": 0,       # level: replicas currently SERVING
     "failovers": 0,           # replica-death events with in-flight work
     "retries": 0,             # request re-dispatches after a failure
@@ -80,23 +84,24 @@ FLEET_STATS = {
     "profile_divergence": 0,  # hellos showing replicas of one fleet under
                               # different tune profiles
     "affinity_hits": 0,       # dispatches routed by prefix affinity
-}
+}, lock=_STATS_LOCK, help="serving-fleet supervisor/router counters")
 
 
 def fleet_stats(reset=False):
     """Snapshot (optionally reset, atomically) of the process-wide fleet
     counters."""
-    with _STATS_LOCK:
-        snap = dict(FLEET_STATS)
-        if reset:
-            for k in FLEET_STATS:
-                FLEET_STATS[k] = 0.0 if k == "drain_ms" else 0
-    return snap
+    return FLEET_STATS.snapshot(reset=reset)
 
 
-# replica lifecycle, the JAX package's codes
+# replica lifecycle, the JAX package's codes, surfaced per replica on the
+# serve.replica_state gauge
 REPLICA_STATES = {"dead": 0, "spawning": 1, "serving": 2, "draining": 3,
                   "failed": 4}
+_REPLICA_STATE = gauge(
+    "serve.replica_state",
+    help="fleet replica lifecycle (0 dead, 1 spawning, 2 serving, "
+         "3 draining, 4 failed)",
+    labels=("replica",))
 
 
 class FleetError(ServeError):
@@ -125,11 +130,12 @@ _WIRE_ERRORS = {
 class _FleetRequest:
     __slots__ = ("rid", "prompt", "max_new", "deadline_at", "future",
                  "attempts", "reroutes", "t_submit", "replica",
-                 "first_error", "sampling", "prefix_hash")
+                 "first_error", "sampling", "prefix_hash", "ctx")
 
     def __init__(self, rid, prompt, max_new, deadline_at, sampling=None,
-                 prefix_hash=None):
+                 prefix_hash=None, ctx=None):
         self.rid = rid
+        self.ctx = ctx                    # fleet.request root context
         self.prompt = prompt
         self.max_new = max_new
         self.deadline_at = deadline_at    # perf_counter deadline or None
@@ -210,7 +216,7 @@ class _Replica:
 
     def __init__(self, index):
         self.index = index
-        self.state = "dead"
+        self._state = "dead"
         self.generation = 0
         self.proc = None
         self.sock = None
@@ -228,6 +234,16 @@ class _Replica:
         self.swap_pending = False     # orderly drain-exit in progress
         self.ready_evt = threading.Event()
         self.drained_evt = threading.Event()
+
+    @property
+    def state(self):
+        return self._state
+
+    @state.setter
+    def state(self, value):
+        # every transition moves the replica's gauge
+        self._state = value
+        _REPLICA_STATE.labels(replica=self.index).set(REPLICA_STATES[value])
         self.served_since_spawn = 0
 
 
@@ -536,6 +552,12 @@ class Fleet:
         toks = _np.asarray(msg.get("tokens", []), dtype=_np.int32)
         if freq.future.set_running_or_notify_cancel():
             freq.future.set_result(toks)
+        if freq.ctx is not None and _trace._profiler_running():
+            now = time.perf_counter()
+            record_span("fleet.request", (now - freq.t_submit) * 1e6,
+                        ts_us=freq.t_submit * 1e6, cat="fleet",
+                        ctx=freq.ctx, replica=h.index,
+                        attempts=freq.attempts + 1, tokens=int(toks.size))
 
     def _on_wire_error(self, h, freq, msg):
         kind = msg.get("kind", "ServeError")
@@ -589,6 +611,7 @@ class Fleet:
                     seed = self._seed_counter[0]
                     self._seed_counter[0] += 1
             sampling["seed"] = int(seed)
+        ctx = _trace.request_root("fleet.request")
         with self._lock:
             self._rid[0] += 1
             rid = self._rid[0]
@@ -602,7 +625,7 @@ class Fleet:
                  if nblocks >= 1 else None)
         freq = _FleetRequest(rid, prompt, int(max_new_tokens),
                              deadline_at, sampling=sampling,
-                             prefix_hash=phash)
+                             prefix_hash=phash, ctx=ctx)
         self._dispatch(freq)
         return freq.future
 
@@ -690,6 +713,8 @@ class Fleet:
                        "prompt": freq.prompt.tolist(),
                        "max_new": freq.max_new}
                 msg.update(freq.sampling)
+                if freq.ctx is not None:
+                    msg["trace"] = freq.ctx.to_dict()
                 if remaining_ms is not None:
                     msg["deadline_ms"] = remaining_ms
                 with self._lock:

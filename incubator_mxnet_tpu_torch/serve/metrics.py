@@ -2,27 +2,28 @@
 port.
 
 Counterpart of `incubator_mxnet_tpu/serve/metrics.py`: the process-wide
-`SERVE_STATS` counters (a plain dict; every mutation holds `_STATS_LOCK`,
-since `d[k] += n` is not atomic across threads), the prefix cache's
-`PREFIX_STATS` (the JAX package's "prefix" stats group, here a plain dict
-under `_PREFIX_LOCK`), the nearest-rank `percentile`, and `ServeMetrics`,
-one `Server`'s own view: requests/s, p50/p95/p99 latency over a bounded
+`SERVE_STATS` counters and the prefix cache's `PREFIX_STATS`, adopted into
+the telemetry registry as the `serve` and `prefix` stats groups (every
+mutation holds the group's lock, since `d[k] += n` is not atomic across
+threads), the nearest-rank `percentile`, and `ServeMetrics`, one
+`Server`'s own view: requests/s, p50/p95/p99 latency over a bounded
 reservoir, the batch-occupancy histogram keyed by bucket, queue depth, and
-the request timeline that splits queue-wait from execute time.
+the request timeline that splits queue-wait from execute time, with the
+slowest requests' trace ids.
 
-`metrics_text()` renders the port's stats groups (`serve`, `prefix` and
-`fleet`) in the Prometheus text format under the JAX package's metric
-names (`mx_serve_requests`, ...), and `start_metrics_server(port)` serves
-it at `/metrics`. The JAX package's telemetry registry (span histograms,
-gauges, `/metrics.json`) is not ported.
+`metrics_text()` is the telemetry registry's Prometheus text (every stats
+group and metric of the process, under the JAX package's names), and
+`start_metrics_server(port)` serves it at `/metrics`.
 """
 from __future__ import annotations
 
 import heapq
-import math
 import threading
 import time
 from collections import deque
+
+from ..telemetry import (REGISTRY, metrics_text, start_metrics_server,
+                         ensure_metrics_server)
 
 __all__ = ["SERVE_STATS", "serve_stats", "PREFIX_STATS", "prefix_stats",
            "percentile", "ServeMetrics", "metrics_text",
@@ -32,7 +33,7 @@ _STATS_LOCK = threading.Lock()
 
 # Field meanings are those of the JAX package's SERVE_STATS (the
 # continuous-batching decode_* family).
-SERVE_STATS = {
+SERVE_STATS = REGISTRY.stats_group("serve", {
     "requests": 0, "replies": 0, "rejected": 0, "shed": 0,
     "timeouts": 0, "errors": 0, "batches": 0, "padded_rows": 0,
     "programs_compiled": 0,
@@ -40,40 +41,34 @@ SERVE_STATS = {
     "decode_prefill_tokens": 0, "decode_admitted": 0, "decode_retired": 0,
     "decode_sampled_tokens": 0, "decode_draft_accepted": 0,
     "decode_draft_rejected": 0,
-}
+}, lock=_STATS_LOCK,
+    help="process-wide serving counters (profiler.serve_stats)")
 
 _PREFIX_LOCK = threading.Lock()
 
 # Shared-prefix KV-cache counters (serve.prefix_cache), the JAX package's
 # "prefix" group
-PREFIX_STATS = {
+PREFIX_STATS = REGISTRY.stats_group("prefix", {
     "hits": 0,           # acquiring lookups that reused a cached prefix
     "misses": 0,         # acquiring lookups that found nothing reusable
     "cached_tokens": 0,  # prompt tokens served from cache across all hits
     "evictions": 0,      # LRU-evicted entries (refcount 0 only, ever)
     "collisions": 0,     # hash hits rejected by the token-block verify
-}
-
-
-def _snapshot(stats, lock, reset):
-    with lock:
-        snap = dict(stats)
-        if reset:
-            for k in stats:
-                stats[k] = 0
-    return snap
+}, lock=_PREFIX_LOCK,
+    help="Shared-prefix KV-cache counters (serve.prefix_cache."
+         "prefix_stats)")
 
 
 def serve_stats(reset=False):
     """Snapshot of the process-wide serving counters; the snapshot and the
     optional reset are one atomic step."""
-    return _snapshot(SERVE_STATS, _STATS_LOCK, reset)
+    return SERVE_STATS.snapshot(reset=reset)
 
 
 def prefix_stats(reset=False):
     """Snapshot of the process-wide prefix-cache counters (atomic with the
     optional reset, the serve_stats() contract)."""
-    return _snapshot(PREFIX_STATS, _PREFIX_LOCK, reset)
+    return PREFIX_STATS.snapshot(reset=reset)
 
 
 def percentile(sorted_vals, q):
@@ -120,10 +115,11 @@ class ServeMetrics:
             self.queue_depth_max = max(self.queue_depth_max, depth)
 
     def observe_batch(self, bucket, occupancy, exec_ms, queue_depth,
-                      queue_wait_ms=0.0):
+                      queue_wait_ms=0.0, member_traces=None):
         """One executed batch: `occupancy` rows served out of `bucket`;
         `queue_wait_ms` is the sum over its requests of their time
-        queued."""
+        queued; `member_traces` the trace ids of its requests, which the
+        `serve.batch` span links."""
         pad = bucket - occupancy
         with self._lock:
             self.counters["batches"] += 1
@@ -139,13 +135,25 @@ class ServeMetrics:
         with _STATS_LOCK:
             SERVE_STATS["batches"] += 1
             SERVE_STATS["padded_rows"] += pad
+        # the `serve.batch` span lane, only while a collector can consume
+        # it (this runs on the batcher thread, once a batch)
+        from ..telemetry import record_span, trace as _trace
+        if _trace.enabled() and _trace.collector_active():
+            extra = {}
+            if member_traces:
+                extra["member_traces"] = ",".join(member_traces[:16])
+                extra["n_member_traces"] = len(member_traces)
+            record_span("serve.batch", exec_ms * 1000.0, cat="serve",
+                        bucket=bucket, occupancy=occupancy,
+                        queue_depth=queue_depth, **extra)
 
     def observe_latency(self, ms):
         with self._lock:
             self._lat_ms.append(ms)
 
-    def observe_request(self, total_ms, queue_wait_ms=0.0, exec_ms=0.0,
-                        batch_size=None, deadline_margin_ms=None):
+    def observe_request(self, total_ms, trace_id=None, queue_wait_ms=0.0,
+                        exec_ms=0.0, batch_size=None,
+                        deadline_margin_ms=None):
         """Keep the K slowest requests seen (a bounded min-heap); the row
         is built only for a request that enters the table."""
         with self._lock:
@@ -153,6 +161,7 @@ class ServeMetrics:
                     and total_ms <= self._slowest[0][0]:
                 return
             row = {"total_ms": round(total_ms, 3),
+                   "trace_id": trace_id,
                    "queue_wait_ms": round(queue_wait_ms, 3),
                    "exec_ms": round(exec_ms, 3),
                    "batch_size": batch_size,
@@ -218,83 +227,7 @@ class ServeMetrics:
         return lines
 
 
-# ---------------------------------------------------------------------------
-# Prometheus text of the stats groups, and the /metrics endpoint
-# ---------------------------------------------------------------------------
 def _prom_label_value(v):
     """Escape a label value (backslash, double quote, newline)."""
     return str(v).replace("\\", "\\\\").replace('"', '\\"') \
         .replace("\n", "\\n")
-
-
-def _fmt(v):
-    if isinstance(v, float):
-        if not math.isfinite(v):
-            return "+Inf" if v > 0 else ("-Inf" if v < 0 else "NaN")
-        if v == int(v) and abs(v) < 1e15:
-            return str(int(v))
-        return repr(v)
-    return str(v)
-
-
-def _groups():
-    """(family, help, snapshot) of each stats group, by family name."""
-    from .fleet import fleet_stats
-    return [("fleet", "serving-fleet supervisor/router counters",
-             fleet_stats()),
-            ("prefix", "shared-prefix KV-cache counters", prefix_stats()),
-            ("serve", "process-wide serving counters (profiler."
-                      "serve_stats)", serve_stats())]
-
-
-def metrics_text():
-    """The port's serving counters in the Prometheus text format: one
-    `mx_<group>_<counter> <value>` line per counter of the `fleet`,
-    `prefix` and `serve` groups, under a `# HELP` line per group."""
-    lines = []
-    for fam, help_, snap in _groups():
-        lines.append(f"# HELP mx_{fam} {help_}")
-        lines += [f"mx_{fam}_{k} {_fmt(v)}" for k, v in snap.items()]
-    return "\n".join(lines) + "\n"
-
-
-def start_metrics_server(port=0, host="127.0.0.1"):
-    """Serve `metrics_text()` at `/metrics` on a daemon thread. Returns
-    the HTTPServer (`server_address` holds the bound port; port 0 takes
-    an ephemeral one; `shutdown()` stops it)."""
-    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-
-    class _Handler(BaseHTTPRequestHandler):
-        def do_GET(self):
-            if self.path.split("?")[0] != "/metrics":
-                self.send_response(404)
-                self.end_headers()
-                return
-            body = metrics_text().encode()
-            self.send_response(200)
-            self.send_header("Content-Type",
-                             "text/plain; version=0.0.4; charset=utf-8")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
-        def log_message(self, *a):
-            pass
-
-    server = ThreadingHTTPServer((host, int(port)), _Handler)
-    threading.Thread(target=server.serve_forever, name="mx-metrics",
-                     daemon=True).start()
-    return server
-
-
-_SHARED = {"server": None}
-_SHARED_LOCK = threading.Lock()
-
-
-def ensure_metrics_server(port=0, host="127.0.0.1"):
-    """Start (once) and return the process-wide `/metrics` endpoint; later
-    calls return it whatever port they name."""
-    with _SHARED_LOCK:
-        if _SHARED["server"] is None:
-            _SHARED["server"] = start_metrics_server(port, host)
-        return _SHARED["server"]

@@ -52,6 +52,7 @@ from concurrent.futures import Future
 import numpy as _np
 
 from ..base import get_env
+from ..telemetry import trace as _trace
 from .batcher import ReplicaDraining, ServerClosed
 
 logger = logging.getLogger("mx.serve.fleet")
@@ -284,6 +285,10 @@ def main(argv=None):
         t = msg.get("type")
         if t == "request":
             rid = msg.get("id")
+            # rejoin the router's trace: the engine's serve.request root,
+            # minted inside submit(), becomes a child of fleet.request
+            ctx = _trace.TraceContext.from_dict(msg.get("trace") or {})
+            token = _trace.attach(ctx) if ctx is not None else None
             sampling = {k: msg[k]
                         for k in ("temperature", "top_k", "top_p", "seed")
                         if k in msg}
@@ -298,6 +303,9 @@ def main(argv=None):
             else:
                 fut.add_done_callback(
                     lambda f, rid=rid: _on_done(rid, f))
+            finally:
+                if token is not None:
+                    _trace.detach(token)
         elif t == "ping":
             waiting, running = eng.queue_depth()
             send({"type": "pong", "seq": msg.get("seq"),

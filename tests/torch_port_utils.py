@@ -8,6 +8,8 @@ which would make token-exact comparisons say little. These scales give
 varied greedy streams.
 """
 import contextlib
+import copy
+import os
 
 import numpy as np
 
@@ -419,3 +421,148 @@ def port_faults_cleared():
             yield
         finally:
             _put_fault_state(tfault, saved)
+
+
+# ---------------------------------------------------------------------------
+# process-wide state of the telemetry layers: the SIGTERM handler, the
+# excepthook chain, live threads, the MXNET_* environment and both
+# packages' metrics registries. Under `pytest -n N --dist loadfile` each
+# worker runs whole files one after another, so a test that leaves any of
+# it changed can fail a later file's test on the same worker.
+# ---------------------------------------------------------------------------
+def _registry_state(reg):
+    with reg._lock:
+        metrics = {name: copy.deepcopy(m._children)
+                   for name, m in reg._metrics.items()}
+        groups = dict(reg._groups)
+    return metrics, {fam: dict(g) for fam, g in groups.items()}
+
+
+def _put_registry_state(reg, state):
+    metrics, groups = state
+    with reg._lock:
+        for name, m in reg._metrics.items():
+            m._children.clear()
+            m._children.update(copy.deepcopy(metrics.get(name, {})))
+        live = dict(reg._groups)
+    for fam, g in live.items():
+        if fam in groups:
+            with g._owner_lock:
+                g.clear()
+                g.update(groups[fam])
+        else:        # adopted during the block (a lazy import): its counts
+            g.snapshot(reset=True)      # are the block's
+
+
+def _same_snapshot(before, after):
+    """Equal on every key `before` has; a key registered since (a module
+    imported lazily in between) must read zero."""
+    for k, v in after.items():
+        if k in before:
+            if before[k] != v:
+                return False
+        elif (v.get("count") if isinstance(v, dict) else v):
+            return False
+    return set(before) <= set(after)
+
+
+def _profilers_idle():
+    import torch
+    from incubator_mxnet_tpu import profiler as jprof
+    from incubator_mxnet_tpu_torch import profiler as tprof
+    return (not torch.autograd._profiler_enabled()
+            and not jprof._state["running"]
+            and not tprof._state["running"]
+            and tprof._state["torch_prof"] is None)
+
+
+def expire_port_trace_memo():
+    """The port's tracing layer TTL-caches MXNET_TELEMETRY and
+    MXNET_TRACE_SAMPLE (50 ms); `tests/conftest.py` expires the JAX
+    package's memo around every test, this the port's."""
+    from incubator_mxnet_tpu_torch.telemetry import trace as ttrace
+    ttrace._expire_env_memo()
+
+
+@contextlib.contextmanager
+def process_state_kept(thread_grace_s=10.0):
+    """Record the process-wide state around a block, put both registries
+    back as they were (a test's traffic moves counters in both packages),
+    and assert that the block left SIGTERM's handler, `sys.excepthook`,
+    the live threads, the MXNET_* environment and both registries'
+    snapshots as it found them, and no profiler running. Threads the
+    block started get `thread_grace_s` to finish after it."""
+    import signal
+    import sys
+    import threading
+    import time
+    from incubator_mxnet_tpu.telemetry import REGISTRY as jreg
+    from incubator_mxnet_tpu_torch.telemetry import REGISTRY as treg
+
+    def env():
+        return {k: v for k, v in os.environ.items()
+                if k.startswith("MXNET_")}
+
+    sigterm = signal.getsignal(signal.SIGTERM)
+    hook = sys.excepthook
+    threads = set(threading.enumerate())
+    env0 = env()
+    jstate, tstate = _registry_state(jreg), _registry_state(treg)
+    jsnap, tsnap = jreg.snapshot(), treg.snapshot()
+    try:
+        yield
+    finally:
+        _put_registry_state(jreg, jstate)
+        _put_registry_state(treg, tstate)
+    deadline = time.monotonic() + thread_grace_s
+    while set(threading.enumerate()) - threads \
+            and time.monotonic() < deadline:
+        time.sleep(0.02)
+    left = set(threading.enumerate()) - threads
+    assert not left, f"threads left running: {[t.name for t in left]}"
+    assert signal.getsignal(signal.SIGTERM) is sigterm, "SIGTERM handler"
+    assert sys.excepthook is hook, "sys.excepthook"
+    assert env() == env0, "MXNET_* environment"
+    assert _same_snapshot(jsnap, jreg.snapshot()), \
+        "the JAX package's registry"
+    assert _same_snapshot(tsnap, treg.snapshot()), "the port's registry"
+    assert _profilers_idle(), "a profiler was left running"
+
+
+@contextlib.contextmanager
+def crash_hooks_restored():
+    """Put back what either package's `install_crash_hooks` and
+    `install_oom_hook` armed inside the block (the atexit dump, the
+    SIGTERM handler and the excepthook chain, with their latches), and
+    drop both flight recorders' rings and spools before and after, so
+    that their knobs are read again. (The JAX package's `Server` and
+    engine arm their hooks whenever they start.)"""
+    import atexit
+    import signal
+    import sys
+    from incubator_mxnet_tpu.inspect import memory as jmem
+    from incubator_mxnet_tpu.telemetry import trace as jtrace
+    from incubator_mxnet_tpu_torch.inspect import memory as tmem
+    from incubator_mxnet_tpu_torch.telemetry import trace as ttrace
+    sigterm, hook = signal.getsignal(signal.SIGTERM), sys.excepthook
+    mods = ((jtrace, jmem), (ttrace, tmem))
+    latches = [(tr._atexit_armed[0], tr._sigterm_armed[0],
+                mem._hook_installed[0]) for tr, mem in mods]
+    rings = [(None if tr.FLIGHTREC._ring is None
+              else copy.copy(tr.FLIGHTREC._ring),
+              tr.FLIGHTREC._spool_dir_memo) for tr, _ in mods]
+    for tr, _ in mods:
+        tr.FLIGHTREC._reset_for_tests()
+    try:
+        yield
+    finally:
+        for (tr, mem), saved, ring in zip(mods, latches, rings):
+            if tr._atexit_armed[0] and not saved[0]:
+                atexit.unregister(tr._atexit_dump)
+            (tr._atexit_armed[0], tr._sigterm_armed[0],
+             mem._hook_installed[0]) = saved
+            tr.FLIGHTREC._reset_for_tests()
+            with tr.FLIGHTREC._lock:
+                tr.FLIGHTREC._ring, tr.FLIGHTREC._spool_dir_memo = ring
+        signal.signal(signal.SIGTERM, sigterm)
+        sys.excepthook = hook

@@ -31,7 +31,7 @@ The uninterrupted run and the killed runs start together, then the
 resumes together (each child its own process, sharing only the card).
 Prints `parity OK` and exits 0 when every kind holds. The flight-recorder,
 sanitize, OOM, elastic and fleet modes of `tools/crashtest.py` wait for the
-port's telemetry (ROADMAP A11), mesh (A10) and fleet (A8).
+tooling half of ROADMAP A11 and the mesh (A10).
 """
 from __future__ import annotations
 
