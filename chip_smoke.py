@@ -402,6 +402,29 @@ Each phase fails the run (non-zero exit) on any error:
      `on_oom` dump holding `torch.cuda.memory_stats()`), and a
      flight-recorder dump written and read back. The kernels' JSON entries
      of B1-B3 gain `telemetry_launches` ((a)'s 20 steps), B4's (b)'s.
+ 19. the Estimator and the roofline report (`gluon.contrib.estimator`,
+     `inspect`): (a) `Estimator.fit` over ResNet-50 v1 (NHWC, 1000
+     classes, random weights from a seed, bf16 AMP, the fused Gluon path)
+     on a prefetching `gluon.data.DataLoader` of synthetic batches (32 x
+     224x224, numpy from a seed), SGD momentum 0.9, 2 epochs x 4 batches,
+     with CheckpointHandler, StepTimelineHandler(auto_flops=True),
+     validation over 2 batches, LoggingHandler and EarlyStoppingHandler:
+     the first step's loss and parameters bit-equal to a hand-written
+     record / backward / `trainer.step` from the same weights and batch
+     (deterministic cuDNN for that step), exactly 689 / 13 / 8 launches
+     (53/1/1 a step, 53/1/0 a validation or FLOPs forward), a finite
+     loss; the step time, images/s, MFU and stall share; (b) a fresh net
+     resumed from the epoch-2 checkpoint, bit-equal, with 0 more epochs of
+     the 2-epoch budget, and a transient fault at `estimator.checkpoint`
+     retried until the file lands; (c) `inspect.inspect_step` over one
+     training step of the fitted Estimator and over phase 17's bf16
+     bucket-32 program (exported afresh when phase 17 did not run): the
+     B1-B3 kernel records in the profiled window equal to the launch
+     counters, the apply's units at ResNet-50's 53 shapes with
+     `kernel_cost`'s flops and bytes, no unit over 105% of its roofline,
+     the unattributed share, the top classes and `est_step_mfu_ceiling`.
+     The kernels' JSON entries of B1-B3 gain `estimator_launches` ((a)'s
+     fit).
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
@@ -421,6 +444,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -435,13 +459,14 @@ from incubator_mxnet_tpu_torch import (amp, autograd, gluon, initializer,
                                        random, serve)
 from incubator_mxnet_tpu_torch.gluon.contrib import FusedTrainStep
 from incubator_mxnet_tpu_torch.gluon.model_zoo import detection, vision
+from incubator_mxnet_tpu_torch.inspect import roofline
 from incubator_mxnet_tpu_torch.ops import attention, contrib, fused, kernels
 from incubator_mxnet_tpu_torch.ops import nn as ops_nn
 
-HBM_BYTES_PER_S = 3.35e12                 # H100 SXM device memory
-PEAK_OPS = {torch.float32: 67e12,         # f32 outside the tensor cores
-            torch.bfloat16: 989e12,       # dense bf16 tensor cores
-            torch.float16: 989e12}        # fp16 counts bf16's peak
+# the H100's published rates (`inspect.roofline`'s spec row): every bound
+# below is `roofline.kernel_cost` of the launch over them
+H100 = roofline.DEFAULT_CALIBRATIONS["gpu"]
+HBM_BYTES_PER_S = H100["peak_bytes_per_sec"]   # 3.35e12
 # a 16-bit type's step (unit in the last place, relative): every 16-bit
 # limit below is bfloat16's scaled by STEP16[t] / STEP16[bfloat16]
 STEP16 = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
@@ -491,29 +516,12 @@ def median_ms(fn, reps, warmup=2):
 # ---------------------------------------------------------------------------
 # phase 2: paged attention against its plain version
 # ---------------------------------------------------------------------------
-def attention_bound(lens, C, T, H, D, dtype, kv_dtype=None):
-    """Least time (ms) for the work: bytes moved (q read, out written,
-    lengths read, each lane's live K/V read once, and their f32 scales on
-    an int8 slab) over the memory rate, against the multiply-adds this
-    data needs over the peak for the type: q's, or the slab's where that
-    is slower (f32)."""
-    kv_dtype = kv_dtype or dtype
-    item = torch.empty((), dtype=dtype).element_size()
-    kv_item = torch.empty((), dtype=kv_dtype).element_size()
-    S = len(lens)
-    live = sum(min(T, int(n) + C) for n in lens)
-    nbytes = 2 * S * C * H * D * item + 4 * S + live * H * D * 2 * kv_item
-    if kv_dtype == torch.int8:
-        nbytes += live * 2 * 4
-    # query j of lane s attends over min(T, len + j + 1) positions, and
-    # each position costs 2 * D multiply-adds (q.k and p.v), 2 ops each
-    ops = sum(min(T, int(n) + j + 1) for n in lens for j in range(C)) \
-        * H * D * 4
-    peak = min(PEAK_OPS[dtype], PEAK_OPS.get(kv_dtype, PEAK_OPS[dtype]))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+def bound_ms(name, **shape):
+    """(least ms, "bytes" or "operations") of one launch of kernel `name`
+    at `shape`: `roofline.kernel_cost` over the H100's rates."""
+    sec, by, _, _ = roofline.unit_bound(roofline.kernel_cost(name, **shape),
+                                        H100)
+    return sec * 1e3, by
 
 
 def library_call(q, k_slab, v_slab, lens, layer):
@@ -683,15 +691,16 @@ def phase_kernels(dev):
             lib_fn, lib_out = library_call(q, k_slab, v_slab, lens, layer)
             lib_err = (lib_out.float() - ref.float()).abs().max().item()
             lib_ms = median_ms(lib_fn, reps=24)
-            bound_ms, bound_by = attention_bound(lens_np, C, T, H, D, dtype)
+            bound, bound_by = bound_ms("paged_attention", lengths=lens_np,
+                                       C=C, T=T, H=H, D=D, dtype=dtype)
             log(f"[kernels] paged_attention {name}: {ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+                f"{bound:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
                 f"sdpa {lib_ms:.4f} ms (sdpa max_abs_err {lib_err:.2e})")
             variants.append({
                 "dtype": str(dtype).split(".")[-1], "C": C,
                 "kernel_route": route, "max_abs_err": err, "tol": TOL[dtype],
                 **read,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": lib_ms})
             if dtype == torch.float16 and C == WINDOW:
                 check_f16_chunk(q, k_slab, v_slab, lens, layer, ref,
@@ -840,7 +849,6 @@ def serve_f16(card, prompts, st_bf16):
 BATCH, IMAGE, CLASSES = 32, 224, 1000
 TRAIN_WARMUP, TRAIN_STEPS, CHECK_BATCH, CHECK_STEPS = 2, 10, 8, 2
 # elementwise kernels compute in f32 on the CUDA cores whatever the storage
-ELEMENTWISE_OPS_PER_S = PEAK_OPS[torch.float32]
 # kernel against plain version: f32 differs only where a transcendental
 # rounds differently; bf16 may part by one output rounding step
 KTOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2),
@@ -860,8 +868,6 @@ KTOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2),
 CHECK_LR = 1e-5
 CHECK_LOSS_RTOL = 1e-3
 CHECK_UPDATE_RTOL = 0.4
-ACT_OPS = {None: 0, "relu": 1, "sigmoid": 4, "tanh": 4, "silu": 5,
-           "gelu": 8}
 # ResNet-50's global pool and a 2x2 pool, (N, H, W, C) and window
 POOL_GLOBAL = ((BATCH, 7, 7, 2048), (7, 7))
 POOL_2X2 = ((BATCH, 56, 56, 256), (2, 2))
@@ -909,29 +915,6 @@ def apply_inputs(m, c, residual, dtype, gen, dev):
     return x, scale, shift, res
 
 
-def apply_bound(m, c, act, residual, dtype):
-    """Least time (ms) of one apply: x (+ residual) read and out written
-    once, the scale/shift rows read once, over the memory rate, against
-    its f32 operations (mul, add, residual add, activation) over the f32
-    rate."""
-    item = torch.empty((), dtype=dtype).element_size()
-    nbytes = m * c * item * (3 if residual else 2) + 2 * c * 4
-    ops = m * c * (2 + (1 if residual else 0) + ACT_OPS[act])
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ELEMENTWISE_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
-def pool_bound(n_in, n_out, item):
-    """Least time (ms) of one pooling pass: the input read and the output
-    written once, against one f32 operation per element read."""
-    t_bytes = (n_in + n_out) * item / HBM_BYTES_PER_S * 1e3
-    t_ops = max(n_in, n_out) / ELEMENTWISE_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
 def check_apply(m, c, act, residual, dtype, gen, dev, timed):
     x, scale, shift, res = apply_inputs(m, c, residual, dtype, gen, dev)
     out = kernels.scale_shift_act_cuda(x, scale, shift, res, act)
@@ -949,8 +932,9 @@ def check_apply(m, c, act, residual, dtype, gen, dev, timed):
             x, scale, shift, res, act), reps=20)
         row["plain_ms"] = median_ms(lambda i: fused.apply_ref(
             x, scale, shift, res, act), reps=5, warmup=1)
-        row["bound_ms"], row["bound_by"] = apply_bound(m, c, act, residual,
-                                                       dtype)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            "scale_shift_act", M=m, C=c, dtype=dtype, act=act,
+            residual=residual)
         row["library_ms"] = None
         if act is None and not residual and dtype != torch.bfloat16:
             # the rows in x's type beforehand, so the call's output is too
@@ -1115,8 +1099,9 @@ def check_pool(shape, pool, dtype, gen, dev, timed, floor_ms=None,
         row["ms"] = cold_ms(kernel, inputs)
         row["warm_ms"] = median_ms(lambda i: kernel(src), reps=20)
         row["plain_ms"] = median_ms(lambda i: plain(src), reps=5, warmup=1)
-        row["bound_ms"], row["bound_by"] = pool_bound(
-            src.numel(), out.numel(), src.element_size())
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            "avg_pool2d_fwd", N=n, H=h, W=w, C=c, ph=ph, pw=pw,
+            dtype=src.dtype)
         row["floor_ms"] = floor_ms
         row["libraries"] = {}
         for lib, call in cands.items():
@@ -1488,11 +1473,6 @@ FLASH_LONG = (48, 2048, 2048, 128, True)
 FLASH_F16_DO_EXPS = (-10, 12)
 FLASH_KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
                  "flash_bwd_dkv")
-# products per (query, key) pair, each 2 * d operations: q.k and p.v in the
-# forward; q.k, dO.v and ds.k in the dq sweep; q.k, dO.v, p.dO and ds.q in
-# the dk/dv sweep
-FLASH_PRODUCTS = {"flash_fwd": 2, "flash_fwd_lse": 2, "flash_bwd_dq": 3,
-                  "flash_bwd_dkv": 4}
 FLASH_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
                  "flash_fwd_wgmma": "flash_fwd_wgmma_kernel",
                  "flash_bwd_dq": "flash_bwd_dq_kernel",
@@ -1501,32 +1481,6 @@ FLASH_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
                  "flash_bwd_dkv_wgmma": "flash_bwd_dkv_wgmma_kernel"}
 # the tensor-core counter of each wrapper's launches
 FLASH_WGMMA = {n: n + "_wgmma" for n in FLASH_KERNELS}
-
-
-def live_pairs(tq, tk, causal):
-    """(query, key) pairs a head attends: all, or the end-aligned causal
-    triangle (query i sees keys j <= i + tk - tq)."""
-    if not causal:
-        return tq * tk
-    return int(np.clip(np.arange(tq) + tk - tq + 1, 0, tk).sum())
-
-
-def flash_bound(name, bh, tq, tk, d, causal, dtype):
-    """Least time (ms) of one launch: its inputs read and outputs written
-    once (q, k, v, o, dO, dq, dk, dv in `dtype`, lse and delta float32)
-    over the memory rate, against the products the live pairs need over
-    the peak for the type."""
-    item = torch.empty((), dtype=dtype).element_size()
-    nq, nk, rows = bh * tq * d * item, bh * tk * d * item, bh * tq * 4
-    nbytes = {"flash_fwd": 2 * nq + 2 * nk,
-              "flash_fwd_lse": 2 * nq + 2 * nk + rows,
-              "flash_bwd_dq": 3 * nq + 2 * nk + 2 * rows,
-              "flash_bwd_dkv": 2 * nq + 4 * nk + 2 * rows}[name]
-    ops = bh * live_pairs(tq, tk, causal) * 2 * d * FLASH_PRODUCTS[name]
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
 
 
 # a bfloat16 output is one rounding of float32 values that part from the
@@ -1814,8 +1768,8 @@ def time_flash(rows, q, k, v, do, lse, delta, causal, scale, dtype, o_ref):
         r = rows[name]
         r["ms"] = median_ms(kern, reps=20)
         r["plain_ms"] = median_ms(plain, reps=5, warmup=1)
-        r["bound_ms"], r["bound_by"] = flash_bound(name, bh, tq, tk, d,
-                                                   causal, dtype)
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            name, bh=bh, tq=tq, tk=tk, d=d, causal=causal, dtype=dtype)
         r["library_ms"] = lib_fwd if name in ("flash_fwd",
                                               "flash_fwd_lse") else lib_bwd
         r["library_max_abs_err"] = lib_err
@@ -2292,10 +2246,10 @@ def time_paged(q, k, v, lens, lens_np, layer, k_scale=None, v_scale=None):
     else:
         lib_fn, _ = library_call(q, k, v, lens, layer)
     lib_ms = median_ms(lib_fn, reps=24)
-    bound_ms, bound_by = attention_bound(lens_np, C, T, H, D, q.dtype,
-                                         k.dtype)
+    bound, bound_by = bound_ms("paged_attention", lengths=lens_np, C=C, T=T,
+                               H=H, D=D, dtype=q.dtype, kv_dtype=k.dtype)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound, "bound_by": bound_by}
 
 
 # ---------------------------------------------------------------------------
@@ -3607,10 +3561,6 @@ NMS_SHAPES = ((4, 1, "classes"), (4, 63, None), (4, 64, None),
               (1, SSD_ANCHORS, "one class"), (1, SSD_ANCHORS, None),
               (1, SSD_ANCHORS, "chain"), (2, SSD_ANCHORS, "dense"),
               (2, 12000, None))
-# float32 operations of one IoU test in the sweep (2 max, 2 min, 2 sub, 2
-# clamps, a product; the later box's area: 2 sub, 2 clamps, a product; the
-# union's add and sub; the quotient; the comparison)
-IOU_OPS = 19
 # (c): each family's name, input size and B1 launches a step (and a call)
 FAMILIES = (("alexnet", 224, 2), ("vgg16_bn", 224, 2),
             ("squeezenet1.1", 224, 0), ("densenet121", 224, 0),
@@ -3723,10 +3673,8 @@ def ssd_conv1_timing(x, bias, err):
     x's type (phase 4's yardstick: the affine part in one call, the ReLU
     not in it)."""
     m, c = x.shape
-    nbytes = 2 * m * c * 2 + c * 4
-    ops = m * c * (1 + ACT_OPS["relu"])
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ELEMENTWISE_OPS_PER_S * 1e3
+    bound, by = bound_ms("scale_shift_act", M=m, C=c, dtype=x.dtype,
+                         act="relu", scale=False, shift=True)
     sh = bias.to(x.dtype)
     sc = torch.ones(c, dtype=x.dtype, device=x.device)
     return {"M": m, "C": c, "act": "relu", "dtype": "bfloat16",
@@ -3735,8 +3683,7 @@ def ssd_conv1_timing(x, bias, err):
                 x, None, bias, None, "relu"), reps=20),
             "plain_ms": median_ms(lambda i: fused.apply_ref(
                 x, None, bias, None, "relu"), reps=5, warmup=1),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound, "bound_by": by,
             "library_ms": median_ms(lambda i: torch.addcmul(sh, x, sc),
                                     reps=20)}
 
@@ -4035,9 +3982,9 @@ def ssd_detect(card, net, x, labels, dev):
         detect_runs.append((time.perf_counter() - t0) * 1e3)
     detect_median = float(np.median(detect_runs))
     kernels.reset_launch_counts()   # comparison launches do not count
-    t_ops = tests * IOU_OPS / PEAK_OPS[torch.float32] * 1e3
-    nbytes = boxes.numel() * 4 + ids.numel() * 4 + 2 * keep0.numel()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    nms_bound, nms_by = bound_ms("nms_sweep", B=boxes.shape[0],
+                                 A=boxes.shape[1], iou_tests=tests,
+                                 ids=ids is not None)
     voc = metric.VOC07MApMetric(iou_thresh=0.5)
     voc.update(labels, dets)
     mean_ap = voc.get()[1]
@@ -4048,8 +3995,7 @@ def ssd_detect(card, net, x, labels, dev):
         f"{int(kept.sum())} kept, {tests} IoU tests; the kernels "
         f"{ms:.4f} ms (one block an image before: {NMS_ONE_BLOCK_MS} ms, "
         f"recorded: PERF.md section 6 row 9; bound "
-        f"{max(t_ops, t_bytes):.4f} ms by "
-        f"{'operations' if t_ops >= t_bytes else 'bytes'}; mask pass "
+        f"{nms_bound:.4f} ms by {nms_by}; mask pass "
         f"{mask_tests} IoU tests, {mask_bytes} bytes of mask written into "
         f"a {ws_bytes}-byte workspace), the plain "
         f"sweep {plain_ms:.3f} ms; keep mask, ids, scores and boxes "
@@ -4062,8 +4008,8 @@ def ssd_detect(card, net, x, labels, dev):
             "detect_runs_ms": detect_runs,
             "launches": launches, "alive": alive,
             "kept": int(kept.sum()), "iou_tests": tests, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "plain_ms": plain_ms, "bound_ms": nms_bound,
+            "bound_by": nms_by,
             "max_abs_err": err, "box_nms_kept": kept_box_nms,
             "mask_iou_tests": mask_tests, "mask_bytes": mask_bytes,
             "workspace_bytes": ws_bytes, "shapes": shapes,
@@ -5410,16 +5356,6 @@ def _jpeg_record(i):
     return buf.getvalue()
 
 
-def augment_bound_ms(n, h, w, in_dtype, out_dtype, cr=3, cout=3):
-    """Each input element the crop reads (cr channels a pixel) read once
-    and each output written once, over the card's memory rate (the
-    operations, ~4 an element, are far below the compute rate)."""
-    item_in = torch.empty(0, dtype=in_dtype).element_size()
-    item_out = torch.empty(0, dtype=out_dtype).element_size()
-    return n * h * w * (cr * item_in + cout * item_out) \
-        / HBM_BYTES_PER_S * 1e3
-
-
 def augment_images(dev, gen, shape, in_dtype, view):
     """Seeded pixels of `in_dtype` over its range (int64 past int32's);
     `view`: an unaligned view one element into a larger buffer."""
@@ -5530,9 +5466,9 @@ def check_augment(dev, gen, shape, out_dtype, crop, fl=False, timed=False,
             xi, *draws, crop, mean, std, out_dtype), reps)
         row["plain_ms"] = median_ms(lambda i: fused.image_augment_ref(
             xi, *draws, crop, mean, std, out_dtype), 20)
-        row["bound_ms"] = augment_bound_ms(n, ch, cw, kernel_in, out_dtype,
-                                           cr, cout)
-        row["bound_by"] = "bytes"
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            "image_augment", N=n, ch=ch, cw=cw, in_dtype=kernel_in,
+            out_dtype=out_dtype, cr=cr, cout=cout)
         row["gb_per_s"] = row["bound_ms"] * HBM_BYTES_PER_S / 1e9 \
             / row["ms"]
     log(f"[io augment] {tuple(shape)}{' view' if view else ''} {row['in']}"
@@ -6281,14 +6217,15 @@ def lm_resilient(card, dev, root):
     for sub in os.listdir(root):        # ~0.5 GB a save: free the disk
         shutil.rmtree(os.path.join(root, sub))
     torch.cuda.empty_cache()
-    out["crashtest"] = crashtest_run(root)
     return out
 
 
-def crashtest_run(root):
+def crashtest_start(root):
     """(b) 3. A real SIGKILL through tools/torch_crashtest.py at the LM's
     full width (depth 2, batch 2 x 2048): at the 7th step and inside the
-    2nd save; each resumed in a fresh process, bit-equal."""
+    2nd save; each resumed in a fresh process, bit-equal. Started here, its
+    processes run beside (b)-(e) in this one (they share nothing but the
+    card and the disk); `crashtest_wait` collects them."""
     d = os.path.join(root, "crashtest")
     rec = os.path.join(root, "crashtest.json")
     cmd = [sys.executable, os.path.join("tools", "torch_crashtest.py"),
@@ -6296,21 +6233,35 @@ def crashtest_run(root):
            "--lm-vocab", "32000", "--lm-d", "768", "--lm-heads", "12",
            "--lm-ff", "3072", "--lm-seq", str(LM_SEQ),
            "--lm-dtype", "bfloat16"] + CRASH_ARGS
-    t0 = time.perf_counter()
     env = {k: v for k, v in os.environ.items() if k != "MXNET_FAULT_SPEC"}
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=400,
-                          env=env)
+    # a session of its own: its children go with it if it is stopped
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            start_new_session=True)
+    return proc, cmd, rec, d, time.perf_counter()
+
+
+def crashtest_wait(started, ok=True):
+    """The crash test's result; with `ok` False (a part beside it failed)
+    its processes are stopped instead."""
+    proc, cmd, rec, d, t0 = started
+    if not ok:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        return None
+    stdout, stderr = proc.communicate(timeout=400)
     took = time.perf_counter() - t0
-    for line in proc.stdout.splitlines():
+    for line in stdout.splitlines():
         log(f"[resilient crashtest] {line}")
     if proc.returncode != 0:
-        print(proc.stderr[-4000:], file=sys.stderr)
-    assert proc.returncode == 0 and "parity OK" in proc.stdout, \
+        print(stderr[-4000:], file=sys.stderr)
+    assert proc.returncode == 0 and "parity OK" in stdout, \
         "(b) torch_crashtest.py"
     with open(rec) as f:
         records = json.load(f)
     shutil.rmtree(d, ignore_errors=True)
-    log(f"[resilient crashtest] {' '.join(cmd[1:])}: {took:.1f} s")
+    log(f"[resilient crashtest] {' '.join(cmd[1:])}: {took:.1f} s from its "
+        f"start, beside (b)-(e)")
     return {"seconds": took, "records": records}
 
 
@@ -6601,15 +6552,24 @@ def phase_resilient(card, dev, profile):
     import tempfile
     t0 = time.perf_counter()
     lm = lm_full_step(card, dev, profile)
-    with tempfile.TemporaryDirectory() as root:
-        prev = _det_on()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as crash_root:
+        crash = crashtest_start(crash_root)
+        ok = False
         try:
-            resilient = lm_resilient(card, dev, root)
+            with tempfile.TemporaryDirectory() as root:
+                prev = _det_on()
+                try:
+                    resilient = lm_resilient(card, dev, root)
+                finally:
+                    _det_off(prev)
+            resnet = resnet_resume(card, dev)
+            served = serve_faults(card)
+            inputs = input_faults(card, dev, host_facts())
+            ok = True
         finally:
-            _det_off(prev)
-    resnet = resnet_resume(card, dev)
-    served = serve_faults(card)
-    inputs = input_faults(card, dev, host_facts())
+            resilient_crash = crashtest_wait(crash, ok)
+    resilient["crashtest"] = resilient_crash
     took = time.perf_counter() - t0
     log(f"[resilient] phase 16 took {took:.1f} s")
     return {"lm": lm, "resilient": resilient, "resnet": resnet,
@@ -6628,6 +6588,8 @@ DEPLOY_TIMEOUT_MS = 5.0       # the Server's batch timeout
 DEPLOY_BF16_STEPS = 8
 DEPLOY_F32_RTOL = 1e-4
 B1_PER_BATCH, B2_PER_BATCH = 53, 1
+# programs a later phase reuses: phase 17's bfloat16 bucket-32 ResNet-50
+LIVE = {}
 FLEET_REPLICAS, FLEET_NEW = 2, 8
 FLEET_LOAD_NEW = 4            # the requests of the swap's background load
 
@@ -6668,6 +6630,8 @@ def export_buckets(net, root, tag, dtype_name, dev):
             and launches["avg_pool2d_bwd"] == 0, \
             f"bucket {b} launches {_b123(launches)}"
         models[b] = m
+        if b == BATCH and dtype_name == "bfloat16":
+            LIVE["deploy_b32"] = m       # phase 19 inspects it
         rows.append({"bucket": b, "export_s": took, "nodes": len(nodes),
                      "b1_nodes": n_b1, "b2_nodes": n_b2, "bytes": size})
     return serve.BucketedModel(models), rows
@@ -7228,6 +7192,403 @@ def phase_telemetry(card, dev, phase3):
     return {"train": train, "serve": srv, "seconds": took}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the Estimator's fit and the roofline report over its step
+# ---------------------------------------------------------------------------
+EST_EPOCHS, EST_BATCHES, EST_VAL_BATCHES = 2, 4, 2
+EST_SGD = dict(learning_rate=0.05, momentum=0.9)
+EST_PATIENCE = 2            # early stopping: lets both epochs run
+EST_INSPECT_STEPS = 2       # profiled calls of each inspected step
+ROOFLINE_LIMIT = 1.05       # a unit over its bound reads a cost-model fault
+B123 = ("scale_shift_act", "avg_pool2d_fwd", "avg_pool2d_bwd")
+
+
+def _device_scope(dev):
+    return mx.gpu(dev.index or 0) if dev.type == "cuda" else mx.cpu()
+
+
+def estimator_loader(n, seed):
+    """A DataLoader over n batches of seeded synthetic images and labels
+    (made with numpy; no shuffling, so batch i is rows i*BATCH on)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n * BATCH, IMAGE, IMAGE, 3).astype(np.float32)
+    y = rng.randint(0, CLASSES, size=n * BATCH).astype(np.int32)
+    return gluon.data.DataLoader(gluon.data.ArrayDataset(x, y),
+                                 batch_size=BATCH), x, y
+
+
+def _param_values(net):
+    return {n: p.data().detach().clone()
+            for n, p in net.collect_params().items()}
+
+
+def _est_net(dev, seed):
+    net = vision.resnet50_v1(layout="NHWC", classes=CLASSES, device=dev,
+                             seed=seed)
+    return net, gluon.Trainer(net.collect_params(), "sgd", dict(EST_SGD))
+
+
+def _cudnn_det(on, prev=None):
+    """Deterministic cuDNN (benchmark off) for one comparison; returns the
+    settings to put back."""
+    if on:
+        prev = (torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        return prev
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    return None
+
+
+def estimator_fit(card, dev, root):
+    """(a) `Estimator.fit` over ResNet-50 v1 (NHWC, bf16 AMP, batch 32 x
+    224^2), SGD momentum 0.9, a prefetching DataLoader, 2 epochs x 4
+    batches, with CheckpointHandler, StepTimelineHandler(auto_flops=True),
+    validation over 2 batches, LoggingHandler and EarlyStoppingHandler;
+    the first step against a hand-written one, bit for bit."""
+    from incubator_mxnet_tpu_torch.gluon.contrib import estimator as est
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    loader, x_np, y_np = estimator_loader(EST_BATCHES, seed=23)
+    val, _, _ = estimator_loader(EST_VAL_BATCHES, seed=29)
+    x0 = torch.from_numpy(x_np[:BATCH]).to(dev)
+    y0 = torch.from_numpy(y_np[:BATCH]).to(dev)
+    first = {}
+
+    class FirstStep(est.BatchEnd):
+        """Snapshots the first step's loss and parameters, then puts the
+        cuDNN settings back."""
+
+        def batch_end(self, estimator, loss=None, **kw):
+            if "loss" not in first:
+                first["loss"] = getattr(loss, "_t", loss).detach().clone()
+                first["params"] = _param_values(estimator.net)
+                _cudnn_det(False, first.pop("prev"))
+
+    class SteadyClock(est.EpochBegin, est.BatchBegin, est.BatchEnd):
+        """Synchronised time of each epoch's batches after its first (no
+        checkpoint or validation falls between them)."""
+        spans, i, t0 = [], 0, 0.0
+
+        def epoch_begin(self, estimator, *a, **kw):
+            self.i = 0
+
+        def batch_begin(self, estimator, *a, **kw):
+            if self.i == 1:
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+
+        def batch_end(self, estimator, *a, **kw):
+            self.i += 1
+            if self.i == EST_BATCHES:
+                torch.cuda.synchronize()
+                self.spans.append((time.perf_counter() - self.t0)
+                                  / (EST_BATCHES - 1))
+
+    prev = _cudnn_det(True)
+    # the hand-written step from the same weights and batch
+    ref_net, ref_tr = _est_net(dev, seed=0)
+    with autograd.record():
+        ref_loss = loss_fn(ref_net(x0), y0).mean()
+    ref_loss.backward()
+    ref_tr.step(BATCH)
+    ref_loss = getattr(ref_loss, "_t", ref_loss).detach().clone()
+    ref_params = _param_values(ref_net)
+    del ref_net, ref_tr
+    net, tr = _est_net(dev, seed=0)
+    e = est.Estimator(net, loss_fn, trainer=tr,
+                      train_metrics=metric.Accuracy())
+    timeline = est.StepTimelineHandler(auto_flops=True)
+    early = est.EarlyStoppingHandler(e.train_metrics[-1], mode="min",
+                                     patience=EST_PATIENCE)
+    handlers = [est.CheckpointHandler(root, model_prefix="r50"), timeline,
+                est.LoggingHandler(metrics=e.train_metrics), early,
+                FirstStep(), SteadyClock()]
+    first["prev"] = prev
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e.fit(loader, val_data=val, epochs=EST_EPOCHS, event_handlers=handlers)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if "prev" in first:
+        _cudnn_det(False, first.pop("prev"))
+    loss_equal = torch.equal(first["loss"], ref_loss)
+    parted = [n for n in ref_params
+              if not torch.equal(ref_params[n], first["params"][n])]
+    rep = e.step_timeline
+    steps = EST_EPOCHS * EST_BATCHES
+    # per training step 53 / 1 / 1; each validation forward and the one
+    # forward that counts the FLOPs (auto_flops) 53 / 1 / 0
+    forwards = EST_EPOCHS * EST_VAL_BATCHES + 1
+    want = {"scale_shift_act": 53 * (steps + forwards),
+            "avg_pool2d_fwd": steps + forwards, "avg_pool2d_bwd": steps}
+    files = sorted(os.listdir(root))
+    loss_final = float(e.train_metrics[-1].get()[1])
+    step_ms = rep["step_mean_us"] / 1e3
+    flops = timeline._tl.flops_per_step
+    peak = timeline._tl.peak_flops
+    steady_ms = float(np.mean(handlers[-1].spans)) * 1e3
+    steady_mfu = flops / (steady_ms / 1e3) / peak if peak else None
+    log(f"[estimator fit] {card}: {EST_EPOCHS} epochs x {EST_BATCHES} "
+        f"batches of {BATCH} in {fit_s:.2f} s (validation over "
+        f"{EST_VAL_BATCHES} batches an epoch, two checkpoints); "
+        f"StepTimeline: step {step_ms:.3f} ms ({BATCH / step_ms * 1e3:.1f} "
+        f"images/s), MFU {rep.get('mfu')} of {peak} (flops a step "
+        f"{flops:.4e}; over the whole fit, saves and validation "
+        f"included), stall {rep['stall_pct']:.2f}%; steady steps (each "
+        f"epoch's last {EST_BATCHES - 1}, synchronised) {steady_ms:.3f} ms "
+        f"({BATCH / steady_ms * 1e3:.1f} images/s, MFU {steady_mfu}); "
+        f"launches {_b123(launches)} (want "
+        f"{_b123(want)}: 53/1/1 a step x {steps} + 53/1/0 a forward x "
+        f"{forwards}); first step against the hand-written one: loss "
+        f"equal {loss_equal} ({float(first['loss'])} / "
+        f"{float(ref_loss)}), parameters parted {len(parted)} of "
+        f"{len(ref_params)} {parted[:3]}; train loss {loss_final:.4f}, "
+        f"accuracy {e.train_metrics[0].get()[1]}, validation "
+        f"{e.val_metrics[0].get()}; early stopping at epoch "
+        f"{early.stopped_epoch}; files {files}")
+    assert loss_equal and not parted, \
+        "(a) the fit's first step is not the hand-written step, bit for bit"
+    assert all(launches[n] == want[n] for n in B123), \
+        f"(a) launches {_b123(launches)}, want {_b123(want)}"
+    assert math.isfinite(loss_final), "(a) non-finite loss"
+    assert rep["steps"] == steps and early.stopped_epoch == 0
+    assert "r50-epoch2.params.npz" in files \
+        and "r50-epoch2.params.npz.states" in files
+    return e, loader, {
+        "fit_s": fit_s, "step_ms": step_ms,
+        "images_per_s": BATCH / step_ms * 1e3, "mfu": rep.get("mfu"),
+        "steady_step_ms": steady_ms,
+        "steady_images_per_s": BATCH / steady_ms * 1e3,
+        "steady_mfu": steady_mfu,
+        "stall_pct": rep["stall_pct"],
+        "flops_per_step": timeline._tl.flops_per_step, "timeline": rep,
+        "launches": {n: launches[n] for n in B123}, "want": want,
+        "first_step_equal": loss_equal and not parted, "files": files,
+        "loss": loss_final}
+
+
+def estimator_resume(card, dev, root, e, loader):
+    """(b) a fresh net resumed from the fit's epoch-2 checkpoint (bit for
+    bit, 0 more epochs of a 2-epoch budget), and a transient fault at
+    `estimator.checkpoint` retried until the file lands."""
+    from incubator_mxnet_tpu_torch import fault
+    from incubator_mxnet_tpu_torch import optimizer as opt_mod
+    from incubator_mxnet_tpu_torch.gluon.contrib import estimator as est
+    net2, tr2 = _est_net(dev, seed=5)
+    e2 = est.Estimator(net2, gluon.loss.SoftmaxCrossEntropyLoss(),
+                       trainer=tr2)
+
+    class Epochs(est.EpochEnd):
+        n = 0
+
+        def epoch_end(self, estimator, *a, **kw):
+            self.n += 1
+    count = Epochs()
+    h = est.CheckpointHandler(root, model_prefix="r50",
+                              resume_from_checkpoint=True)
+    e2.fit(loader, epochs=EST_EPOCHS, event_handlers=[h, count])
+    pa, pb = e.net.collect_params(), net2.collect_params()
+    parted = [n for n in pa if not torch.equal(pa[n].data(), pb[n].data())]
+    sa = [opt_mod.state_to_numpy(s) for s in e.trainer._states]
+    sb = [opt_mod.state_to_numpy(s) for s in tr2._states]
+    states_equal = len(sa) == len(sb) and all(
+        _trees_equal(x, y) for x, y in zip(sa, sb))
+    # a transient I/O fault at the checkpoint's save: retried, lands
+    h3 = est.CheckpointHandler(root, model_prefix="r50f")
+    h3.train_begin(e)
+    fault.reset_hits()
+    t0 = time.perf_counter()
+    with fault.scope("estimator.checkpoint:1:ioerror"):
+        h3.epoch_end(e)
+        hits = fault.hits("estimator.checkpoint")
+    save_s = time.perf_counter() - t0
+    landed = os.path.exists(os.path.join(root, "r50f-epoch1.params.npz"))
+    log(f"[estimator resume] {card}: resumed at epoch {e2._resume_epoch}, "
+        f"{count.n} more epochs of a {EST_EPOCHS}-epoch budget; parameters "
+        f"parted {len(parted)} of {len(pa)}, trainer states equal "
+        f"{states_equal}; a transient fault at estimator.checkpoint: "
+        f"{hits} attempts, the file landed {landed} ({save_s:.2f} s)")
+    assert e2._resume_epoch == EST_EPOCHS and count.n == 0, "(b) resume"
+    assert not parted and states_equal, "(b) resume not bit-equal"
+    assert hits >= 2 and landed, "(b) the faulted save was not retried"
+    del e2, net2, tr2
+    return {"resume_epoch": EST_EPOCHS, "more_epochs": count.n,
+            "parted": parted, "states_equal": states_equal,
+            "fault_attempts": hits, "fault_landed": landed,
+            "fault_save_s": save_s}
+
+
+def _inspected(card, tag, rep, want_b123):
+    """Checks of one measured report: the hand-written kernels' records in
+    the window against the launch counters; the apply's units at the
+    shapes ResNet-50 gives it, each hand-written kernel's unit with
+    `kernel_cost`'s flops and bytes at its shapes and its bound exactly
+    that cost's cold bound; no unit over ROOFLINE_LIMIT of its floor
+    (`roofline.floor_bound`: every byte through the L2 at its rate,
+    measured in this run, and device memory spared at most what the L2
+    holds at the unit's start and end). The units over their cold bound are
+    counted and listed apart, each with both shares."""
+    from incubator_mxnet_tpu_torch.inspect import report as mxreport
+    win = rep["window"]
+    records = {n: win["kernel_records"].get(n, 0) for n in B123}
+    counted = {n: win["launch_counts"].get(n, 0) for n in B123}
+    units = rep["units"]
+    bad_bound = []
+    applies = []
+    for u in units:
+        if u["opcode"] != "mx_kernel":
+            continue
+        shape = dict(u["shape"])
+        for k in ("dtype", "in_dtype", "out_dtype", "kv_dtype"):
+            if k in shape:
+                shape[k] = getattr(torch, shape[k])
+        cost = roofline.kernel_cost(u["kernel"], **shape)
+        cold = roofline.unit_bound(cost, rep["calibration"])[0]
+        if (u["flops"], u["bytes"], u["est_time_s"]) != (
+                cost["flops"], cost["bytes"], cold):
+            bad_bound.append(u["name"])
+        if u["kernel"] == "scale_shift_act":
+            applies.append((shape["M"], shape["C"], shape["act"],
+                            shape["residual"]))
+    rows = resnet50_apply_rows(BATCH, IMAGE)
+    assert rep["platform"] != "gpu" or sorted(applies, key=repr) == sorted(
+        rows, key=repr), f"({tag}) the apply's units are not ResNet-50's " \
+        f"53 shapes"
+    over = [(u["name"], u["class"], u["floor_share"], u["roofline_share"])
+            for u in units if u["floor_share"] is not None
+            and u["floor_share"] > ROOFLINE_LIMIT]
+    read = sorted((u for u in units if u["floor_share"] is not None),
+                  key=lambda u: -u["floor_share"])
+    top = read[0]
+    t = rep["totals"]
+    l2 = rep["l2_resident"]
+    cold_over = sum(1 for u in read if u["roofline_share"] > ROOFLINE_LIMIT)
+    cold_max = max((u["roofline_share"] for u in read), default=0.0)
+    log(f"[inspect {tag}] highest floor shares: " + "; ".join(
+        f"{u['name']} {u['class'][:40]} {u['floor_share']:.3f} "
+        f"({u['floor_by']}; cold {u['roofline_share']:.3f}; "
+        f"{u['bytes'] / 1e6:.2f} MB, {u['device_ms'] * 1e3:.1f} us)"
+        for u in read[:12]))
+    log(f"[inspect {tag}] over their cold bound: {l2['over_cold_bound']} "
+        f"units: " + "; ".join(
+            f"{u['name']} cold {u['roofline_share']:.3f} floor "
+            f"{u['floor_share']:.3f} ({u['floor_by']})"
+            for u in l2["units"]))
+    log(f"[inspect {tag}] {card}: {rep['n_units']} units in "
+        f"{rep['n_groups']} classes over {win['calls']} calls; kernel "
+        f"records {records}, launch counters "
+        f"{counted} (want {want_b123} a call); device {t['device_ms']:.3f} "
+        f"ms a call in units, {t['unattributed_ms']:.3f} ms unattributed "
+        f"({100 * (t['unattributed_share'] or 0):.2f}%, "
+        f"{rep['unattributed']['classes']}); est_step_mfu_ceiling "
+        f"{rep['est_step_mfu_ceiling']} (cold bounds, least time "
+        f"{t['est_time_s'] * 1e3:.3f} ms; floors {t['floor_time_s'] * 1e3:.3f}"
+        f" ms); bytes a call {t['bytes']:.4e}; the L2's rate "
+        f"{rep['calibration']['l2_bytes_per_sec']:.4e} B/s "
+        f"({rep['calibration']['l2_source']}); highest floor share "
+        f"{top['floor_share']} ({top['name']}, {top['class'][:60]}); units "
+        f"over {ROOFLINE_LIMIT} of their floor: {over[:5]}; of their cold "
+        f"bound {cold_over} of {len(read)}, the highest {cold_max:.3f}")
+    for line in mxreport.render_markdown(dict(
+            rep, offender_groups=rep["offender_groups"][:10])).splitlines():
+        log(f"[inspect {tag}]   {line}")
+    assert records == counted and all(
+        counted[n] == want_b123[n] * win["calls"] for n in B123), \
+        f"({tag}) kernel records {records} against counters {counted}"
+    assert not bad_bound, f"({tag}) unit bounds off kernel_cost: {bad_bound}"
+    assert not over, f"({tag}) units over their floor: {over[:5]}"
+    return {"n_units": rep["n_units"], "n_groups": rep["n_groups"],
+            "kernel_records": records, "launch_counts": counted,
+            "device_ms": t["device_ms"], "bytes": t["bytes"],
+            "flops": t["flops"],
+            "est_time_s": t["est_time_s"],
+            "floor_time_s": t["floor_time_s"],
+            "l2_bytes_per_sec": rep["calibration"]["l2_bytes_per_sec"],
+            "l2_resident": l2, "cold_over": cold_over,
+            "cold_max_share": cold_max,
+            "unattributed_ms":
+            t["unattributed_ms"], "unattributed_share":
+            t["unattributed_share"], "est_step_mfu_ceiling":
+            rep["est_step_mfu_ceiling"], "max_floor_share":
+            top["floor_share"], "top_groups": [
+                {k: g[k] for k in ("class", "count", "est_time_s",
+                                   "floor_time_s", "device_ms",
+                                   "roofline_share", "floor_share", "bound")}
+                for g in rep["offender_groups"][:10]],
+            "b1_roofline_share": next(
+                (g["roofline_share"] for g in rep["offender_groups"]
+                 if g["class"] == "scale_shift_act_kernel"), None),
+            "measured_wall_ms": rep["measured_wall_ms"]}
+
+
+def estimator_report(card, dev, e, loader):
+    """(c) `inspect_step` over one training step of the fitted Estimator
+    on a batch of its loader, then over phase 17's exported bucket-32
+    program (exported afresh when phase 17 did not run in this process)."""
+    from incubator_mxnet_tpu_torch import inspect as mxinspect
+    with _device_scope(dev):
+        x, y = next(iter(loader))
+    rep = mxinspect.inspect_step(e, x, y, name="resnet50_estimator_step",
+                                 measured=True, steps=EST_INSPECT_STEPS)
+    train = _inspected(card, "train", rep,
+                       {"scale_shift_act": 53, "avg_pool2d_fwd": 1,
+                        "avg_pool2d_bwd": 1})
+    model = LIVE.get("deploy_b32")
+    fresh = model is None
+    if fresh:
+        import tempfile
+        # under the phase's bf16 AMP, as phase 17 exports its bf16 arm
+        # (float32 inputs, cast inside the program)
+        assert amp.is_active() and amp.target_dtype() == "bfloat16"
+        with tempfile.TemporaryDirectory() as root, \
+                fused.fusion_scope(True):
+            bm = serve.BucketedModel.export_block(
+                e.net, (IMAGE, IMAGE, 3), (BATCH,), root, name="r50-b32",
+                dtype="float32", device=dev)
+            model = bm.model(BATCH)
+    xb = np.random.RandomState(31).rand(BATCH, IMAGE, IMAGE, 3) \
+        .astype(np.float32)
+    rep_b = mxinspect.inspect_step(model, xb, name="resnet50_bucket32",
+                                   measured=True, steps=EST_INSPECT_STEPS)
+    bucket = _inspected(card, "bucket32", rep_b,
+                        {"scale_shift_act": 53, "avg_pool2d_fwd": 1,
+                         "avg_pool2d_bwd": 0})
+    bucket["exported_afresh"] = fresh
+    return {"train": train, "bucket32": bucket}
+
+
+def phase_estimator(card, dev):
+    import tempfile
+    t0 = time.perf_counter()
+    prev_env = os.environ.get("MXNET_PREFETCH_TO_DEVICE")
+    os.environ["MXNET_PREFETCH_TO_DEVICE"] = "1"
+    amp.init("bfloat16")
+    fprev = fused.set_fusion_default(True)      # the fused Gluon path
+    try:
+        with tempfile.TemporaryDirectory() as root, _device_scope(dev):
+            e, loader, fit = estimator_fit(card, dev, root)
+            resume = estimator_resume(card, dev, root, e, loader)
+        kernels.reset_launch_counts()
+        report = estimator_report(card, dev, e, loader)
+        kernels.reset_launch_counts()
+    finally:
+        fused.set_fusion_default(fprev)
+        amp.uninit()
+        if prev_env is None:
+            os.environ.pop("MXNET_PREFETCH_TO_DEVICE", None)
+        else:
+            os.environ["MXNET_PREFETCH_TO_DEVICE"] = prev_env
+    LIVE.clear()
+    del e, loader
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    log(f"[estimator] phase 19 took {took:.1f} s")
+    return {"fit": fit, "resume": resume, "report": report, "seconds": took}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every result to this JSON "
@@ -7259,27 +7620,42 @@ def main():
     for fn, use in bwd_usage.items():
         log(f"[setup] {fn}: {use}")
 
-    variants, lens = phase_kernels(dev)
-    result = phase_serve(card)
-    train_kernels = phase_train_kernels(dev)
-    train = phase_train(card, train_kernels["rows"], args.profile, dev)
-    flash = phase_flash_kernels(dev)
-    bert = phase_bert(card, args.profile, dev)
-    int8_variants = phase_int8_kernels(dev)
-    engine = phase_engine(card)
-    coverage = phase_coverage(dev)
-    loop = phase_loop(card, dev, args.profile)
-    script = phase_script(card, dev, args.profile)
-    detect = phase_detection(card, dev, args.profile)
-    array = phase_array(card, dev, args.profile, {
+    seconds = {}
+
+    def timed(phase, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[phase] = time.perf_counter() - t0
+        log(f"[timing] {phase}: {seconds[phase]:.1f} s")
+        return out
+    variants, lens = timed("2 kernels", phase_kernels, dev)
+    result = timed("3 serve", phase_serve, card)
+    train_kernels = timed("4 train kernels", phase_train_kernels, dev)
+    train = timed("5 train", phase_train, card, train_kernels["rows"],
+                  args.profile, dev)
+    flash = timed("6 flash kernels", phase_flash_kernels, dev)
+    bert = timed("7 bert", phase_bert, card, args.profile, dev)
+    int8_variants = timed("8 int8 kernels", phase_int8_kernels, dev)
+    engine = timed("9 engine", phase_engine, card)
+    coverage = timed("10 coverage", phase_coverage, dev)
+    loop = timed("11 loop", phase_loop, card, dev, args.profile)
+    script = timed("12 script", phase_script, card, dev, args.profile)
+    detect = timed("13 detection", phase_detection, card, dev, args.profile)
+    array = timed("14 array", phase_array, card, dev, args.profile, {
         n: loop["resnet"]["launches"][n] / LOOP_STEPS
         for n in ("scale_shift_act", "avg_pool2d_fwd", "avg_pool2d_bwd")})
-    io = phase_input(card, dev, args.profile, train["step_ms"])
-    resilient = phase_resilient(card, dev, args.profile)
-    deploy = phase_deploy_serve(card, dev,
-                                script["recipe"]["infer"]["ms_per_batch"],
-                                result["stats"])
-    tel = phase_telemetry(card, dev, result)
+    io = timed("15 input", phase_input, card, dev, args.profile,
+               train["step_ms"])
+    resilient = timed("16 resilient", phase_resilient, card, dev,
+                      args.profile)
+    deploy = timed("17 deploy", phase_deploy_serve, card, dev,
+                   script["recipe"]["infer"]["ms_per_batch"],
+                   result["stats"])
+    tel = timed("18 telemetry", phase_telemetry, card, dev, result)
+    estimator = timed("19 estimator", phase_estimator, card, dev)
+    log(f"[timing] build {build_s:.1f} s, phases "
+        f"{sum(seconds.values()):.1f} s: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in seconds.items()))
 
     head = next(v for v in variants if v["dtype"] == "bfloat16"
                 and v["C"] == 1)
@@ -7381,6 +7757,11 @@ def main():
                                      "avg_pool2d_bwd")):
         e["telemetry_launches"] = tel["train"]["launches"][name]
     entry["telemetry_launches"] = tel["serve"]["launches"]["paged_attention"]
+    # phase 19's path, counted on counts set to 0 just before it: B1 to B3
+    # over the Estimator's fit (8 steps, 4 validation forwards, the FLOPs
+    # forward)
+    for e, name in zip(entries[:3], B123):
+        e["estimator_launches"] = estimator["fit"]["launches"][name]
     # phase 14's launches through NDArray / npx, counted around its own
     # calls only (the comparisons with plain versions and the sweep's card
     # calls do not count)
@@ -7391,6 +7772,7 @@ def main():
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s,
+                       "phase_seconds": seconds,
                        "build_each_s": built, "build_log": kernels.BUILD_LOG,
                        "bwd_wgmma_ptxas": bwd_usage,
                        "kernels": [entry] + entries,
@@ -7399,7 +7781,7 @@ def main():
                        "loop": loop, "script": script,
                        "detection": detect, "array": array, "io": io,
                        "resilient": resilient, "deploy": deploy,
-                       "telemetry": tel}, f,
+                       "telemetry": tel, "estimator": estimator}, f,
                       indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [

@@ -1,5 +1,6 @@
-"""gluon.contrib of the PyTorch port: the fused training and inference
-steps."""
+"""gluon.contrib of the PyTorch port: the Estimator fit loop and the fused
+training and inference steps."""
+from . import estimator
 from .fused import FusedInferStep, FusedTrainStep
 
-__all__ = ["FusedTrainStep", "FusedInferStep"]
+__all__ = ["estimator", "FusedTrainStep", "FusedInferStep"]

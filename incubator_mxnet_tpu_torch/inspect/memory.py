@@ -271,9 +271,21 @@ def _storage(t):
 
 
 def _host_tensors():
-    """Every CPU tensor the garbage collector can see."""
-    return [o for o in gc.get_objects()
-            if issubclass(type(o), torch.Tensor) and o.device.type == "cpu"]
+    """Every CPU tensor with a real storage the garbage collector can see
+    (the fake and functional tensors that tracing, `torch.export` among
+    it, leaves behind hold none)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch._subclasses.functional_tensor import FunctionalTensor
+    out = []
+    for o in gc.get_objects():
+        if issubclass(type(o), torch.Tensor) and o.device.type == "cpu" \
+                and not isinstance(o, (FakeTensor, FunctionalTensor)):
+            try:
+                o.untyped_storage().data_ptr()
+            except (RuntimeError, NotImplementedError):
+                continue
+            out.append(o)
+    return out
 
 
 def live_bytes(device=None):

@@ -96,6 +96,28 @@ def _count_dtype(name, *dtypes):
         _BY_DTYPE[(name, str(dt).replace("torch.", ""))] += 1
 
 
+# The launches of a running inspection (`inspect.report.inspect_step`): a
+# list of (kernel name, shape) while one runs, else None. A wrapper then
+# launches through `_captured`, which notes the launch and runs it inside a
+# profiler span `mx_kernel:<index>`, so the kernels it starts are read as
+# that launch's. Without an inspection a launch costs one test of this
+# flag: no span, no host read, no synchronisation.
+_CAPTURE = None
+
+
+def _captured(fn, name, **shape):
+    """`fn` (a library entry point), noting one launch of kernel `name` at
+    `shape` (`inspect.roofline.kernel_cost`'s arguments, read after the
+    profiled window) in the running inspection's capture."""
+    idx = len(_CAPTURE)
+    _CAPTURE.append((name, shape))
+
+    def launch(*args):
+        with torch.profiler.record_function(f"mx_kernel:{idx}"):
+            return fn(*args)
+    return launch
+
+
 def reset_launch_counts():
     global paged_attention_launches, paged_attention_int8_launches, \
         paged_attention_split_launches, paged_attention_wgmma_launches, \
@@ -543,7 +565,12 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
         ws = torch.empty(S * H * pieces * C * (D + 2), dtype=torch.float32,
                          device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.mx_paged_attention_fwd(
+    launch = lib.mx_paged_attention_fwd if _CAPTURE is None else _captured(
+        lib.mx_paged_attention_fwd,
+        "paged_attention_int8" if quant else "paged_attention",
+        lengths=lengths, C=C, T=T, H=H, D=D,
+        dtype=q.dtype, kv_dtype=k_slab.dtype)
+    rc = launch(
         _PA_ROUTES[route], DTYPE_CODES[q.dtype], DTYPE_CODES[k_slab.dtype],
         q.device.index or 0, q.data_ptr(), kl.data_ptr(), vl.data_ptr(),
         ksl.data_ptr() if quant else None, vsl.data_ptr() if quant else None,
@@ -623,7 +650,11 @@ def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
         return out
     lib = _load("scale_shift_act")
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
-    rc = lib.mx_scale_shift_act(
+    launch = lib.mx_scale_shift_act if _CAPTURE is None else _captured(
+        lib.mx_scale_shift_act, "scale_shift_act", M=M, C=C,
+        dtype=x2d.dtype, act=act_type, residual=residual is not None,
+        scale=scale is not None, shift=shift is not None)
+    rc = launch(
         DTYPE_CODES[x2d.dtype], ACT_CODES[act_type], x2d.device.index or 0,
         x2d.data_ptr(), scale.data_ptr() if scale is not None else None,
         shift.data_ptr() if shift is not None else None,
@@ -692,9 +723,11 @@ def avg_pool2d_fwd_cuda(x, ph, pw):
         return y
     lib = _load("avg_pool2d")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.mx_avg_pool2d_fwd(*_pool_args(x, y, c, ph, pw),
-                               x.device.index or 0, x.data_ptr(),
-                               y.data_ptr(), n, h, w, c, ph, pw, stream)
+    launch = lib.mx_avg_pool2d_fwd if _CAPTURE is None else _captured(
+        lib.mx_avg_pool2d_fwd, "avg_pool2d_fwd", N=n, H=h, W=w, C=c,
+        ph=ph, pw=pw, dtype=x.dtype)
+    rc = launch(*_pool_args(x, y, c, ph, pw), x.device.index or 0,
+                x.data_ptr(), y.data_ptr(), n, h, w, c, ph, pw, stream)
     if rc != 0:
         raise _launch_failed(lib, "avg_pool2d_fwd", rc)
     avg_pool2d_fwd_launches += 1
@@ -720,10 +753,12 @@ def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
     lib = _load("avg_pool2d")
     stream = torch.cuda.current_stream(dy.device).cuda_stream
     inv = float(torch.tensor(1.0 / (ph * pw), dtype=torch.float32))
-    rc = lib.mx_avg_pool2d_bwd(*_pool_args(dy, dx, c, ph, pw),
-                               dy.device.index or 0, dy.data_ptr(),
-                               dx.data_ptr(), n, h, w, c, ph, pw, inv,
-                               stream)
+    launch = lib.mx_avg_pool2d_bwd if _CAPTURE is None else _captured(
+        lib.mx_avg_pool2d_bwd, "avg_pool2d_bwd", N=n, H=h, W=w, C=c,
+        ph=ph, pw=pw, dtype=dy.dtype)
+    rc = launch(*_pool_args(dy, dx, c, ph, pw), dy.device.index or 0,
+                dy.data_ptr(), dx.data_ptr(), n, h, w, c, ph, pw, inv,
+                stream)
     if rc != 0:
         raise _launch_failed(lib, "avg_pool2d_bwd", rc)
     avg_pool2d_bwd_launches += 1
@@ -818,12 +853,13 @@ def flash_fwd_cuda(q, k, v, causal, scale, with_lse):
     tensor_cores = flash_fwd_route(q.dtype, d) == "wgmma"
     if tensor_cores:
         _check_aligned(name, q=q, k=k, v=v, o=o)
-        rc = lib.mx_flash_fwd_wgmma(DTYPE_CODES[q.dtype],
-                                    q.device.index or 0, d, int(with_lse),
-                                    *ptrs, *tail)
-    else:
-        rc = lib.mx_flash_fwd(DTYPE_CODES[q.dtype], q.device.index or 0, d,
-                              int(with_lse), *ptrs, *tail)
+    launch = lib.mx_flash_fwd_wgmma if tensor_cores else lib.mx_flash_fwd
+    if _CAPTURE is not None:
+        launch = _captured(launch, "flash_fwd_lse" if with_lse
+                           else "flash_fwd", bh=bh, tq=tq, tk=tk, d=d,
+                           causal=bool(causal), dtype=q.dtype)
+    rc = launch(DTYPE_CODES[q.dtype], q.device.index or 0, d, int(with_lse),
+                *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_fwd", rc)
     if with_lse:
@@ -866,11 +902,12 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
     tensor_cores = flash_bwd_route(q.dtype, d) == "wgmma"
     if tensor_cores:
         _check_aligned(name, q=q, k=k, v=v, do=do, dq=dq)
-        rc = lib.mx_flash_bwd_dq_wgmma(DTYPE_CODES[q.dtype],
-                                       q.device.index or 0, d, *ptrs, *tail)
-    else:
-        rc = lib.mx_flash_bwd_dq(DTYPE_CODES[q.dtype], q.device.index or 0,
-                                 d, *ptrs, *tail)
+    launch = (lib.mx_flash_bwd_dq_wgmma if tensor_cores
+              else lib.mx_flash_bwd_dq)
+    if _CAPTURE is not None:
+        launch = _captured(launch, "flash_bwd_dq", bh=bh, tq=tq, tk=tk, d=d,
+                           causal=bool(causal), dtype=q.dtype)
+    rc = launch(DTYPE_CODES[q.dtype], q.device.index or 0, d, *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_bwd_dq", rc)
     flash_bwd_dq_launches += 1
@@ -905,11 +942,12 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
     tensor_cores = flash_bwd_route(q.dtype, d) == "wgmma"
     if tensor_cores:
         _check_aligned(name, q=q, k=k, v=v, do=do, dk=dk, dv=dv)
-        rc = lib.mx_flash_bwd_dkv_wgmma(DTYPE_CODES[q.dtype],
-                                        q.device.index or 0, d, *ptrs, *tail)
-    else:
-        rc = lib.mx_flash_bwd_dkv(DTYPE_CODES[q.dtype],
-                                  q.device.index or 0, d, *ptrs, *tail)
+    launch = (lib.mx_flash_bwd_dkv_wgmma if tensor_cores
+              else lib.mx_flash_bwd_dkv)
+    if _CAPTURE is not None:
+        launch = _captured(launch, "flash_bwd_dkv", bh=bh, tq=tq, tk=tk,
+                           d=d, causal=bool(causal), dtype=q.dtype)
+    rc = launch(DTYPE_CODES[q.dtype], q.device.index or 0, d, *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_bwd_dkv", rc)
     flash_bwd_dkv_launches += 1
@@ -977,7 +1015,10 @@ def nms_sweep_cuda(boxes, ids, keep, thresh):
                        device=boxes.device)
     for b0 in range(0, B, group):
         b1 = min(B, b0 + group)
-        rc = lib.mx_nms_sweep(
+        launch = lib.mx_nms_sweep if _CAPTURE is None else _captured(
+            lib.mx_nms_sweep, "nms_sweep", B=b1 - b0, A=A,
+            ids=ids is not None)
+        rc = launch(
             boxes.device.index or 0, boxes[b0:b1].data_ptr(),
             ids[b0:b1].data_ptr() if ids is not None else None,
             out[b0:b1].data_ptr(), mask.data_ptr(), b1 - b0, A,
@@ -1089,7 +1130,10 @@ def image_augment_cuda(images, y0, x0, flips, crop_hw, mean, std, out_dtype):
                              images.device)
     stream = torch.cuda.current_stream(images.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = lib.mx_image_augment(
+    launch = lib.mx_image_augment if _CAPTURE is None else _captured(
+        lib.mx_image_augment, "image_augment", N=N, ch=ch, cw=cw,
+        in_dtype=images.dtype, out_dtype=out_dtype, cr=cr, cout=cout)
+    rc = launch(
         DTYPE_CODES[images.dtype], DTYPE_CODES[out_dtype],
         _AUGMENT_ROUTES[route], images.device.index or 0, images.data_ptr(),
         images.numel() * images.element_size(), ptr(y0), ptr(x0),

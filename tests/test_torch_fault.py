@@ -169,6 +169,12 @@ def test_the_jax_fault_state_is_put_back():
 # ---------------------------------------------------------------------------
 def test_env_flags_get_env_set_env_as_jax(monkeypatch):
     import incubator_mxnet_tpu as jmx
+    # the JAX package registers a module's knobs when that module is first
+    # imported, and the port registers some of the same knobs sooner: load
+    # the JAX modules whose knobs the port has, so that both tables are
+    # whole whatever ran earlier in the process
+    import incubator_mxnet_tpu.serve  # noqa: F401
+    import incubator_mxnet_tpu.inspect.report  # noqa: F401
     flags = mx.env_flags()
     jflags = jmx.env_flags()
     for name, entry in flags.items():       # type and default

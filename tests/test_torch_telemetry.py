@@ -591,6 +591,19 @@ def _traffic_imagerec(m, **kw):
     return n
 
 
+def _read_io_stats():
+    """Both packages' `io_stats()`: the reader gives the decoder's stage
+    gauges their children, and an unread gauge is left out of a snapshot,
+    so a family compared across the two packages must have been read in
+    both, whatever ran earlier in the process."""
+    jmx.io.io_stats()
+    tmx.io.io_stats()
+
+
+def _registered(registry, fam):
+    return {n for n in registry.names() if n.startswith(fam + ".")}
+
+
 def test_stats_groups_match_jax_after_the_same_traffic():
     jm, tm = _servers()
     snaps = {}
@@ -603,18 +616,23 @@ def test_stats_groups_match_jax_after_the_same_traffic():
             fed = tel.snapshot()
             _traffic_serve(m, model)
             _traffic_imagerec(m, **kw)
+            _read_io_stats()
             a = m.np.ones((2, 2), **kw) + 1
             (a * 2).asnumpy()
             snaps[name] = (before, fed, tel.snapshot())
     (jb, jf, ja), (tb, tf, ta) = snaps["jax"], snaps["port"]
     for fam in ("serve", "io.imagerec", "feed", "fused", "dispatch"):
         jkeys, tkeys = set(_family(ja, fam)), set(_family(ta, fam))
+        jreg, treg = (_registered(jtel.REGISTRY, fam),
+                      _registered(ttel.REGISTRY, fam))
         if fam == "dispatch":
             # the port keeps only the counters that mean something without
             # bulking (ROADMAP "Deliberate differences")
             assert tkeys and tkeys <= jkeys
+            assert treg and treg <= jreg
         else:
             assert tkeys == jkeys, fam
+            assert treg == jreg, fam
     jd, td = _delta(jb, ja, "serve"), _delta(tb, ta, "serve")
     for k in ("serve.requests", "serve.replies", "serve.batches",
               "serve.padded_rows", "serve.errors"):

@@ -100,8 +100,9 @@ def main():
                              ("old", old)):
                 times[name].append(chip_smoke.median_ms(fn, args.reps))
         ch, cw = crop or (h, w)
-        bound = chip_smoke.augment_bound_ms(n, ch, cw, torch.uint8,
-                                            out_dtype)
+        bound = chip_smoke.bound_ms("image_augment", N=n, ch=ch, cw=cw,
+                                    in_dtype=torch.uint8,
+                                    out_dtype=out_dtype)[0]
         row = {"shape": list(shape), "crop": [ch, cw],
                "out": chip_smoke._dtype_name(out_dtype), "equal": equal,
                "old_ms": float(np.median(times["old"])),
