@@ -28,8 +28,9 @@ Each phase fails the run (non-zero exit) on any error:
      bfloat16 (timed; the paged-attention launch counter must move by
      exactly layers x (decode_steps x decode waves + chunk waves), every
      decode read on the split route and every chunk read on the tensor
-     cores), in float16 (the same counts and routes; agreement with the
-     1-slot reference read, TTFT and TPOT beside bfloat16's) and in float32
+     cores; agreement with the 1-slot reference read over 4 requests), in
+     float16 (the same counts and routes; agreement with the 1-slot
+     reference read over 4, TTFT and TPOT beside bfloat16's) and in float32
      with TF32 off (decode on split, chunks on the CUDA cores), where every
      request's tokens must equal the 1-slot `reference_generate`.
   4. the training kernels against their plain versions on the card: the
@@ -425,6 +426,31 @@ Each phase fails the run (non-zero exit) on any error:
      the unattributed share, the top classes and `est_step_mfu_ceiling`.
      The kernels' JSON entries of B1-B3 gain `estimator_launches` ((a)'s
      fit).
+ 20. the autotuner and the sanitizer (`tune`, `sanitize`), at the flagship
+     LM width (phase 3's model, bf16) and ResNet-50's: (a) `tune.sweep`
+     over serve_decode with an in-process runner (budget 5; trial 0 the
+     hand-tuned assignment; each trial a flagship engine serving a fixed
+     seeded set of greedy requests: tokens/s, no retrace, B4 exactly the
+     waves'), and `tune.sweep` over serve_decode and train_fused as two
+     scrubbed subprocess trials on the card, whose result lines carry
+     their launches (B4; B1-B3), run on a thread beside phase 17 (joined
+     before phase 18; beside (a)-(c) when phase 20 runs alone); (b) the
+     profile built
+     from (a), saved, booted by a fresh replica process (its hash, the
+     swept knobs), activated here (an engine under it has the knobs and
+     the greedy tokens of one given them explicitly), and a
+     CPU-fingerprinted copy refused (`profile_mismatch` + 1, defaults);
+     (c) under `sanitize.scope("all")` a flagship engine serving 16
+     greedy requests silently, the canary checked every wave, its tokens
+     an unsanitized engine's; a write over the canary row caught within
+     two waves and the next request served; a prefill width the warmup
+     never saw caught as `prefill[w=7]`; the k slab passed as both slabs
+     of the row copy refused before any write; a ResNet-50
+     `FusedTrainStep` (bf16, batch 32) silent over 3 steps in
+     `sanitize.steady_state()` with donation and retrace armed, 53/1/1 a
+     step; TPOT p50 armed and unarmed, one reading each. The kernels'
+     JSON entries of B4 and B1-B3 gain `tune_launches` and
+     `sanitize_launches`.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
@@ -456,7 +482,7 @@ import torch
 import incubator_mxnet_tpu_torch as mx
 from incubator_mxnet_tpu_torch import (amp, autograd, gluon, initializer,
                                        lr_scheduler, metric, optimizer,
-                                       random, serve)
+                                       random, sanitize, serve, tune)
 from incubator_mxnet_tpu_torch.gluon.contrib import FusedTrainStep
 from incubator_mxnet_tpu_torch.gluon.model_zoo import detection, vision
 from incubator_mxnet_tpu_torch.inspect import roofline
@@ -476,6 +502,9 @@ TOL = {torch.float32: 1e-4,               # f32 sums in another order
 FULL = dict(vocab=32000, embed=768, layers=12, heads=12, head_dim=64,
             mlp_hidden=3072, max_len=2048)
 SLOTS, WINDOW, DECODE_STEPS, NEW_TOKENS = 16, 256, 4, 64
+# phase 3's bfloat16 and float16 agreement with the 1-slot reference is
+# read (not held) over this many of its requests; float32 holds all 16
+READ_PROMPTS = 4
 
 
 def log(*a):
@@ -797,8 +826,8 @@ def phase_serve(card):
         torch.isfinite(logits.float()).all(), "prefill logits not finite"
     bf16_exact = sum(int(np.array_equal(
         o, model.reference_generate(p, NEW_TOKENS, window=WINDOW)))
-        for p, o in zip(prompts, outs))
-    log(f"[serve bfloat16] {bf16_exact}/{len(prompts)} requests equal the "
+        for p, o in zip(prompts[:READ_PROMPTS], outs))
+    log(f"[serve bfloat16] {bf16_exact}/{READ_PROMPTS} requests equal the "
         f"1-slot reference (bf16 greedy may part at near-ties; the exact "
         f"check is the float32 run)")
     del model, pool
@@ -827,7 +856,7 @@ def serve_f16(card, prompts, st_bf16):
     model, outs, st, wall, launches = serve_run("float16", prompts)
     equal = sum(int(np.array_equal(
         o, model.reference_generate(p, NEW_TOKENS, window=WINDOW)))
-        for p, o in zip(prompts, outs))
+        for p, o in zip(prompts[:READ_PROMPTS], outs))
     tokens = len(prompts) * NEW_TOKENS
     log(f"[serve float16] {card}: {wall:.3f} s for {tokens} tokens "
         f"({tokens / wall:.1f} tokens/s end to end); TTFT p50 "
@@ -835,7 +864,7 @@ def serve_f16(card, prompts, st_bf16):
         f"{st_bf16['ttft_p50_ms']} / {st_bf16['ttft_p99_ms']}); TPOT p50 "
         f"{st['tpot_p50_ms']} ms p99 {st['tpot_p99_ms']} ms (bfloat16 "
         f"{st_bf16['tpot_p50_ms']} / {st_bf16['tpot_p99_ms']}); "
-        f"{equal}/{len(prompts)} requests equal the 1-slot reference "
+        f"{equal}/{READ_PROMPTS} requests equal the 1-slot reference "
         f"(read, not held)")
     del model
     torch.cuda.empty_cache()
@@ -7589,6 +7618,393 @@ def phase_estimator(card, dev):
     return {"fit": fit, "resume": resume, "report": report, "seconds": took}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: mx.tune and mx.sanitize at the flagship LM width and ResNet-50's
+# ---------------------------------------------------------------------------
+TUNE_BUDGET = 5            # (a)'s in-process sweep: trial 0 + 4 variants
+TUNE_REQUESTS, TUNE_NEW = 8, 16
+ROUNDTRIP_PROMPTS = 8      # (b)'s tuned-vs-explicit greedy requests
+SAN_REQUESTS, SAN_NEW = 16, 16
+SAN_STEPS = 3              # (c)'s sanitized ResNet-50 steps
+CHILD_TIMEOUT_S = 240      # each scrubbed subprocess trial
+
+_RESOLVE_CHILD = r"""
+import json, sys
+from incubator_mxnet_tpu_torch import tune
+from incubator_mxnet_tpu_torch.serve import replica
+config, names = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+h = replica._resolve_profile({"config": config})
+print(json.dumps({"hash": h, "knobs": {n: tune.resolve(n) for n in names},
+                  "hw_fp": tune.hardware_fingerprint()["fp"]}))
+"""
+
+
+def tune_prompts(n, seed, longest=WINDOW - 8):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(1, FULL["vocab"], size=int(k)).tolist()
+            for k in np.linspace(16, longest, n).astype(int)]
+
+
+def tune_engine(model, knobs=None, **kw):
+    """A flagship engine with `knobs` (a serve_decode assignment) passed
+    explicitly; without them every knob resolves (profile > env >
+    default)."""
+    if knobs is not None:
+        lanes = knobs["serve.prefill_lanes"]
+        kw.update(max_slots=knobs["serve.max_slots"],
+                  prefill_lanes=(None if lanes is None
+                                 else min(lanes, knobs["serve.max_slots"])),
+                  decode_steps=knobs["serve.decode_steps"],
+                  draft_tokens=knobs["serve.draft_tokens"],
+                  kv_dtype=knobs["serve.kv_dtype"])
+    return serve.ContinuousEngine(model, prefill_window=WINDOW, **kw)
+
+
+def _serve_all(eng, prompts, new):
+    futs = [eng.submit(p, new) for p in prompts]
+    return [f.result(timeout=300) for f in futs]
+
+
+def tune_sweep_in_process(card, model):
+    """(a) `tune.sweep` over serve_decode with an in-process runner: each
+    trial a flagship engine with the assignment, a fixed seeded set of
+    greedy requests, tokens/s, no retrace, and B4 launches exactly the
+    engine's waves'."""
+    prompts = tune_prompts(TUNE_REQUESTS, seed=21)
+
+    def runner(phase, asn, scale):
+        assert phase == "serve_decode", phase
+        eng = tune_engine(model, asn).start()
+        try:
+            before = kernels.launch_counts()["paged_attention"]
+            t0 = time.perf_counter()
+            outs = _serve_all(eng, prompts, TUNE_NEW)
+            dt = time.perf_counter() - t0
+            launches = kernels.launch_counts()["paged_attention"] - before
+            st = eng.stats()
+            retraces = eng.assert_no_retraces()
+        finally:
+            eng.close()
+        want = FULL["layers"] * (eng.decode_steps * st["decode_iterations"]
+                                 + st["chunk_batches"])
+        assert retraces == 0 and launches == want > 0, (launches, want)
+        toks = sum(len(o) for o in outs)
+        return {"ok": True, "score": toks / dt, "unit": "tokens_per_sec",
+                "tokens": toks, "launches": launches, "retraces": retraces}
+
+    kernels.reset_launch_counts()
+    res = tune.sweep(phases=["serve_decode"], budget=TUNE_BUDGET,
+                     runner=runner)
+    launches = kernels.launch_counts()["paged_attention"]
+    trials = res["phases"]["serve_decode"]["trials"]
+    assert trials[0]["knobs"] == tune.HAND_TUNED["serve_decode"], trials[0]
+    assert len(trials) == TUNE_BUDGET
+    assert all(t["ok"] for t in trials), [t["error"] for t in trials]
+    for i, t in enumerate(trials):
+        log(f"[tune a] {card}: trial {i} decode_steps "
+            f"{t['knobs']['serve.decode_steps']}: {t['score']} {t['unit']} "
+            f"in {t['elapsed_ms'] / 1e3:.3f} s, B4 "
+            f"{t['detail']['launches']}")
+    served = sum(t["detail"]["launches"] for t in trials)
+    assert launches > served, (launches, served)
+    best = res["phases"]["serve_decode"]
+    log(f"[tune a] winners {res['knobs']} (speedup over the hand-tuned "
+        f"assignment {best['speedup_vs_hand']}, one reading each); B4 "
+        f"{launches} over the sweep, {served} of them serving, the rest "
+        f"the engines' warmups")
+    return res, launches
+
+
+def tune_sweep_children(out, dev):
+    """(a) `tune.sweep` over serve_decode and train_fused, one trial each,
+    as scrubbed subprocesses on the card."""
+    t0 = time.perf_counter()
+    try:
+        out["result"] = tune.sweep(phases=["serve_decode", "train_fused"],
+                                   budget=2, scale="quick", device=str(dev),
+                                   timeout_s=CHILD_TIMEOUT_S)
+    except BaseException as e:          # re-raised by the phase
+        out["error"] = e
+    out["seconds"] = time.perf_counter() - t0
+
+
+def tune_children_start(dev):
+    """Start (a)'s subprocess sweep on a thread; `tune_children_join`
+    waits for it (its trials end by their own timeouts)."""
+    out = {}
+    worker = threading.Thread(target=tune_sweep_children, args=(out, dev),
+                              name="tune-children")
+    worker.start()
+    return worker, out
+
+
+def tune_children_join(children):
+    worker, out = children
+    worker.join(timeout=2 * CHILD_TIMEOUT_S + 60)
+    assert not worker.is_alive(), "(a) the subprocess sweep did not end"
+    if "error" in out:
+        raise out["error"]
+    return out
+
+
+def _child_launches(trial, prefix):
+    return sum(n for k, n in trial["detail"]["launches"].items()
+               if k.startswith(prefix + ":"))
+
+
+def tune_check_children(card, res, dev):
+    trials = {p: d["trials"][0] for p, d in res["phases"].items()}
+    assert set(trials) == {"serve_decode", "train_fused"}, trials
+    for p, t in trials.items():
+        assert t["ok"], f"{p} child: {t['error']}"
+        assert t["knobs"] == tune.HAND_TUNED[p], t["knobs"]
+        assert t["detail"]["device"] == str(dev), t["detail"]
+        log(f"[tune a] {card}: subprocess {p}: {t['score']} {t['unit']} "
+            f"in {t['elapsed_ms'] / 1e3:.3f} s, launches "
+            f"{t['detail']['launches']}")
+    b4 = _child_launches(trials["serve_decode"], "paged_attention_q")
+    b123 = {n: _child_launches(trials["train_fused"], n) for n in B123}
+    assert b4 > 0 and trials["serve_decode"]["detail"]["retraces"] == 0
+    assert all(v > 0 for v in b123.values()), b123
+    return b4, b123
+
+
+def profile_round_trip(card, model, res_a, root):
+    """(b) the sweep's profile: saved, booted by a fresh replica process,
+    activated here (an engine built under it has the knobs and the tokens
+    of one built with them explicitly), and refused on a CPU
+    fingerprint."""
+    prof = tune.build_profile(res_a, model_meta=FULL)
+    path = prof.save(directory=root)
+    model_fp = tune.model_fingerprint(FULL)
+    assert prof.model_fp == model_fp and \
+        prof.hw_fp == tune.hardware_fingerprint()["fp"]
+    env = dict(tune.scrubbed_env(), MXNET_TUNE_PROFILE_DIR=root)
+    child = subprocess.Popen(
+        [sys.executable, "-c", _RESOLVE_CHILD, json.dumps(FULL),
+         json.dumps(sorted(prof.knobs))], env=env, cwd=os.getcwd(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    prompts = tune_prompts(ROUNDTRIP_PROMPTS, seed=22)
+    try:
+        assert prof.apply(model_fp=model_fp, source="smoke") is True
+        tuned = tune_engine(model)
+        got = (tuned.decode_steps, tuned.max_slots, tuned.prefill_lanes,
+               tuned.draft_tokens, tuned.kv_dtype)
+        with tuned:
+            tuned_out = _serve_all(tuned, prompts, TUNE_NEW)
+    finally:
+        tune.deactivate()
+    explicit = tune_engine(model, prof.knobs)
+    want = (explicit.decode_steps, explicit.max_slots,
+            explicit.prefill_lanes, explicit.draft_tokens,
+            explicit.kv_dtype)
+    with explicit:
+        explicit_out = _serve_all(explicit, prompts, TUNE_NEW)
+    equal = all(np.array_equal(a, b) for a, b in zip(tuned_out,
+                                                     explicit_out))
+    log(f"[tune b] profile {prof.profile_hash} ({path}): knobs "
+        f"{prof.knobs}; engine under the profile {got}, explicit {want}; "
+        f"{ROUNDTRIP_PROMPTS} greedy requests token-equal: {equal}")
+    assert got == want and equal, "(b) tuned != explicit"
+    # a CPU-fingerprinted profile of the same model falls back loudly
+    cpu = tune.DeploymentProfile(prof.knobs, model_fp,
+                                 tune.hardware_fingerprint("cpu")["fp"])
+    before = tune.tune_stats()["profile_mismatch"]
+    applied = cpu.apply(model_fp=model_fp, source="smoke")
+    mismatch = tune.tune_stats()["profile_mismatch"] - before
+    eng = tune_engine(model)
+    defaults = (eng.decode_steps, eng.max_slots, eng.draft_tokens)
+    del eng
+    log(f"[tune b] a CPU-fingerprinted profile: applied {applied}, "
+        f"profile_mismatch +{mismatch}, engine knobs {defaults} (the "
+        f"defaults (4, 8, 0))")
+    assert applied is False and mismatch == 1 and tune.active() is None \
+        and defaults == (4, 8, 0), "(b) CPU profile not refused"
+    try:
+        out, err = child.communicate(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(child.pid, signal.SIGKILL)
+        child.communicate()
+        raise AssertionError("(b) the replica child timed out")
+    assert child.returncode == 0, err[-2000:]
+    booted = json.loads(out.strip().splitlines()[-1])
+    log(f"[tune b] a fresh replica process booted with profile "
+        f"{booted['hash']} (hardware {booted['hw_fp']}), resolving "
+        f"{booted['knobs']}")
+    assert booted["hash"] == prof.profile_hash and \
+        booted["knobs"] == prof.knobs, "(b) the child did not boot tuned"
+    return {"profile_hash": prof.profile_hash, "knobs": prof.knobs,
+            "child": booted, "tuned_equal_explicit": equal,
+            "cpu_profile_mismatch": mismatch}
+
+
+def sanitized_engine(card, model):
+    """(c) the flagship engine under every sanitizer mode: silent and
+    token-equal to an unsanitized one, then the canary write, a prefill
+    width warmup never saw and an aliased copy, each caught."""
+    prompts = make_prompts()[:SAN_REQUESTS]
+    with tune_engine(model, max_slots=SLOTS,
+                     decode_steps=DECODE_STEPS) as plain:
+        plain_out = _serve_all(plain, prompts, SAN_NEW)
+        plain_st = plain.stats()
+    with sanitize.scope("all"):
+        san_model = serve.CachedDecoder(model.config, params=model.params)
+        eng = tune_engine(san_model, max_slots=SLOTS,
+                          decode_steps=DECODE_STEPS).start()
+        try:
+            kernels.reset_launch_counts()
+            outs = _serve_all(eng, prompts, SAN_NEW)
+            launches = kernels.launch_counts()["paged_attention"]
+            st = eng.stats()
+            canary = eng._canary
+            equal = all(np.array_equal(a, b)
+                        for a, b in zip(outs, plain_out))
+            log(f"[sanitize c] {card}: {SAN_REQUESTS} greedy requests "
+                f"under all modes: errors {st['errors']}, canary checked "
+                f"{canary.waves} times over {st['decode_iterations']} "
+                f"decode waves, retraces {eng.retraces_after_warmup()}, "
+                f"token-equal to an unsanitized engine: {equal}; B4 "
+                f"{launches}; TPOT p50 {st['tpot_p50_ms']} ms armed, "
+                f"{plain_st['tpot_p50_ms']} ms unarmed (one reading each)")
+            assert st["errors"] == 0 and equal and \
+                eng.assert_no_retraces() == 0 and \
+                canary.waves == st["decode_iterations"] > 0, \
+                "(c) the sanitized engine was not silent"
+            want = FULL["layers"] * (eng.decode_steps
+                                     * st["decode_iterations"]
+                                     + st["chunk_batches"])
+            assert launches == want, (launches, want)
+            # a store that escapes the slot masks
+            waves = canary.waves
+            eng.pool.k[canary.slot] = 0
+            f = eng.submit(prompts[0][:32], SAN_NEW)
+            try:
+                f.result(timeout=120)
+                raise AssertionError("(c) the canary write was not caught")
+            except sanitize.SlotCanaryError as e:
+                caught = str(e)
+            waited = canary.waves - waves
+            after = eng.submit(prompts[1][:32], SAN_NEW).result(timeout=120)
+            log(f"[sanitize c] canary write caught after {waited} wave(s): "
+                f"{caught[:120]}; the next request served "
+                f"{len(after)} tokens")
+            assert waited <= 2 and len(after) == SAN_NEW
+            # a bypassing prefill at a width the warmup never saw
+            side = san_model.new_pool(1)
+            ints = dict(dtype=torch.int32, device=san_model.device)
+            san_model.prefill(*side.buffers(), torch.ones((1, 7), **ints),
+                              torch.full((1,), 7, **ints),
+                              torch.zeros((1,), **ints))
+            del side
+            try:
+                eng.submit(prompts[2][:32], SAN_NEW).result(timeout=120)
+                raise AssertionError("(c) the new width was not caught")
+            except sanitize.RetraceViolation as e:
+                retrace = str(e)
+            log(f"[sanitize c] post-warmup prefill width caught: "
+                f"{retrace[:140]}")
+            assert "prefill[w=7]" in retrace
+            served = eng.submit(prompts[3][:32], SAN_NEW).result(timeout=120)
+            assert len(served) == SAN_NEW
+            # the k slab passed as both slabs of the row copy
+            k, _ = eng.pool.buffers()
+            version, rows = k._version, k[:2].clone()
+            longs = dict(dtype=torch.int64, device=san_model.device)
+            try:
+                san_model.copy_program()(k, k, torch.zeros(1, **longs),
+                                         torch.ones(1, **longs))
+                raise AssertionError("(c) the aliased copy was not caught")
+            except sanitize.DonationViolation as e:
+                aliased = str(e)
+            untouched = k._version == version and torch.equal(k[:2], rows)
+            log(f"[sanitize c] aliased copy caught before any write "
+                f"({untouched}): {aliased[:120]}")
+            assert untouched
+        finally:
+            eng.close()
+    del san_model, eng
+    torch.cuda.empty_cache()
+    return {"launches": launches, "waves": st["decode_iterations"],
+            "canary_checks": canary.waves, "token_equal": equal,
+            "tpot_p50_ms_armed": st["tpot_p50_ms"],
+            "tpot_p50_ms_unarmed": plain_st["tpot_p50_ms"],
+            "canary_caught_after_waves": waited, "retrace": retrace,
+            "aliased": aliased}
+
+
+def sanitized_resnet(card, dev):
+    """(c) a ResNet-50 FusedTrainStep (bf16 AMP, batch 32, 224^2, SGD
+    momentum 0.9) with the donation and retrace modes armed: SAN_STEPS
+    steps inside `sanitize.steady_state()`, silent, 53/1/1 a step."""
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in b)
+               for b in make_batches(2, BATCH, seed=23)]
+    amp.init("bfloat16")
+    try:
+        with sanitize.scope("donation,retrace"):
+            net = vision.resnet50_v1(layout="NHWC", classes=CLASSES,
+                                     device=dev, seed=0)
+            step = new_step(net, BATCH, use_fusion=True)
+            assert isinstance(step._prog, sanitize._SanitizedProgram)
+            step(*batches[0])                 # the step's one signature
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with sanitize.steady_state("fused.train_step"):
+                losses = [float(step(*batches[i % 2]))
+                          for i in range(SAN_STEPS)]
+            launches = kernels.launch_counts()
+            sigs = step._prog._cache_size()
+    finally:
+        amp.uninit()
+    got = {n: launches[n] for n in B123}
+    log(f"[sanitize c] {card}: ResNet-50 FusedTrainStep, {SAN_STEPS} steps "
+        f"under donation + retrace in steady state: losses "
+        f"{[round(v, 4) for v in losses]}, signatures {sigs}, launches "
+        f"{got} (expected 53/1/1 a step)")
+    assert all(np.isfinite(losses)) and sigs == 1
+    assert got == {"scale_shift_act": 53 * SAN_STEPS,
+                   "avg_pool2d_fwd": SAN_STEPS,
+                   "avg_pool2d_bwd": SAN_STEPS}, got
+    del net, step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "launches": got}
+
+
+def phase_tune_sanitize(card, dev, children=None):
+    """Phase 20. `children`: (a)'s subprocess sweep, started earlier by
+    `tune_children_start` (`main` runs it beside phase 17); None starts it
+    here."""
+    import tempfile
+    t0 = time.perf_counter()
+    if children is None:
+        children = tune_children_start(dev)
+    cfg = serve.DecoderConfig(**FULL, dtype="bfloat16")
+    model = serve.CachedDecoder(cfg, seed=0)
+    try:
+        res_a, a_launches = tune_sweep_in_process(card, model)
+        with tempfile.TemporaryDirectory() as root:
+            roundtrip = profile_round_trip(card, model, res_a, root)
+        engine = sanitized_engine(card, model)
+        resnet = sanitized_resnet(card, dev)
+    finally:
+        children[0].join(timeout=2 * CHILD_TIMEOUT_S + 60)
+    out = tune_children_join(children)
+    log(f"[tune a] the subprocess sweep took {out['seconds']:.1f} s")
+    child_b4, child_b123 = tune_check_children(card, out["result"], dev)
+    del model
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    log(f"[tune sanitize] phase 20 took {took:.1f} s")
+    return {"sweep": res_a, "children": out["result"],
+            "children_seconds": out["seconds"],
+            "roundtrip": roundtrip, "engine": engine, "resnet": resnet,
+            "tune_launches": dict(child_b123,
+                                  paged_attention=a_launches + child_b4),
+            "sanitize_launches": dict(
+                resnet["launches"], paged_attention=engine["launches"]),
+            "seconds": took}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every result to this JSON "
@@ -7648,11 +8064,20 @@ def main():
                train["step_ms"])
     resilient = timed("16 resilient", phase_resilient, card, dev,
                       args.profile)
-    deploy = timed("17 deploy", phase_deploy_serve, card, dev,
-                   script["recipe"]["infer"]["ms_per_batch"],
-                   result["stats"])
+    # phase 20's subprocess trials (mostly process start) run beside
+    # phase 17, whose exports trace on the host with the card idle, and
+    # end before phase 18 measures anything
+    children = tune_children_start(dev)
+    try:
+        deploy = timed("17 deploy", phase_deploy_serve, card, dev,
+                       script["recipe"]["infer"]["ms_per_batch"],
+                       result["stats"])
+    finally:
+        children[0].join(timeout=2 * CHILD_TIMEOUT_S + 60)
     tel = timed("18 telemetry", phase_telemetry, card, dev, result)
     estimator = timed("19 estimator", phase_estimator, card, dev)
+    tunesan = timed("20 tune sanitize", phase_tune_sanitize, card, dev,
+                    children)
     log(f"[timing] build {build_s:.1f} s, phases "
         f"{sum(seconds.values()):.1f} s: " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -7762,6 +8187,13 @@ def main():
     # forward)
     for e, name in zip(entries[:3], B123):
         e["estimator_launches"] = estimator["fit"]["launches"][name]
+    # phase 20's paths: B4 over (a)'s in-process sweep (counts set to 0
+    # just before it) plus its serve_decode child's own launches, B1-B3 in
+    # its train_fused child; B4 over (c)'s sanitized engine and B1-B3 over
+    # (c)'s sanitized ResNet-50 steps, each on counts set to 0 just before
+    for e, name in zip([entry] + entries[:3], ("paged_attention",) + B123):
+        e["tune_launches"] = tunesan["tune_launches"][name]
+        e["sanitize_launches"] = tunesan["sanitize_launches"][name]
     # phase 14's launches through NDArray / npx, counted around its own
     # calls only (the comparisons with plain versions and the sweep's card
     # calls do not count)
@@ -7781,7 +8213,8 @@ def main():
                        "loop": loop, "script": script,
                        "detection": detect, "array": array, "io": io,
                        "resilient": resilient, "deploy": deploy,
-                       "telemetry": tel, "estimator": estimator}, f,
+                       "telemetry": tel, "estimator": estimator,
+                       "tune_sanitize": tunesan}, f,
                       indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [

@@ -64,7 +64,12 @@ Ported so far:
     counters live in, spans, request tracing, the flight recorder,
     `StepTimeline` with MFU), `profiler` (Chrome traces merged with
     `torch.profiler`'s CUDA kernel records) and `inspect.memory` (the
-    attributed census, leak checks, OOM dumps).
+    attributed census, leak checks, OOM dumps);
+  * `tune` (the knob catalog, deployment profiles and the sweep) and
+    `sanitize` (the in-place check, the recompile sentinel and the slot
+    canary), loaded at first use (`mx.tune`, `mx.sanitize`) as the JAX
+    package loads them, so the `tune` counters register when a knob site
+    or a caller first needs them.
 
 Typical use:  import incubator_mxnet_tpu_torch as mx
 """
@@ -96,3 +101,19 @@ __all__ = ["MXNetError", "get_env", "set_env", "env_flags",
            "optimizer", "random", "gluon", "serve", "io", "recordio",
            "fault", "checkpoint", "models", "deploy", "telemetry",
            "profiler", "inspect"]
+
+# loaded at first attribute access, as the JAX package's `_LAZY` modules
+_LAZY = ("tune", "sanitize")
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY))

@@ -5,7 +5,8 @@ on the device's stream as it is called, so the engine's surface maps as:
 
   Engine::WaitForVar   -> NDArray.wait_to_read (the tensor's stream)
   Engine::WaitForAll   -> waitall() (a device synchronize)
-  op bulking           -> `bulk(size)` / `set_bulk_size` record the size,
+  op bulking           -> `bulk(size)` / `set_bulk_size` record the size
+                          (override > `mx.tune` profile > env > default),
                           and nothing bulks: the JAX package defers eager
                           ops into one compiled segment; PyTorch has no
                           counterpart (CUDA-graph capture is ROADMAP A2)
@@ -34,6 +35,12 @@ def set_bulk_size(size):
 def current_bulk_size():
     if _bulk_size[0] is not None:
         return _bulk_size[0]
+    # knob precedence: set_bulk_size override > deployment profile
+    # (mx.tune) > MXNET_ENGINE_BULK_SIZE env > default
+    from .tune.profile import resolve as _tune_resolve
+    v = _tune_resolve("dispatch.bulk_size")
+    if v is not None:
+        return int(v)
     return int(get_env("MXNET_ENGINE_BULK_SIZE", 4096, int))
 
 

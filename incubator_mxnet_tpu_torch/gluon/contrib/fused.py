@@ -11,8 +11,16 @@ Counterpart of `incubator_mxnet_tpu/gluon/contrib/fused.py::FusedTrainStep`:
 `fn` receives the live net and the step inputs and returns a scalar loss
 tensor, or a tuple (loss, *extras) whose extras pass through. The step
 runs eagerly on the net's device. Weights and optimizer state are updated
-in place; there is nothing to donate (the JAX package donates its buffers
-to XLA to the same end), so the `donate` knob does not exist here. With
+in place, where the JAX package donates its buffers to XLA to the same
+end: `donate=` is taken and recorded (`self._donate`) and changes
+nothing. `remat` and `donate` resolve as the JAX package's do: explicit
+argument > active `mx.tune` profile (`train.remat`, `train.donate`) >
+default, behind a sentinel, since `None` is a real remat policy. The
+step body is one program, `fused.train_step`, whose in-place arguments
+are the trainable weights and the optimizer state: with an
+`MXNET_SANITIZE` mode armed at construction it runs under
+`sanitize.maybe_wrap_donated` (its aliasing and in-place checks, and the
+recompile sentinel over its argument signatures). With
 `steps_per_call=K` the call loops K steps over inputs with a leading K
 axis and returns the K losses; the
 learning rates are resolved once per call, as in the JAX package, and a
@@ -74,6 +82,7 @@ from torch.utils import checkpoint as _ckpt
 from ... import autograd
 from ... import optimizer as opt_mod
 from ... import random as _random
+from ... import sanitize as _sanitize
 from ...base import MXNetError
 from ...ndarray import NDArray, _wrap
 from ...ops import fused as _fused
@@ -81,6 +90,9 @@ from ...ops import fused as _fused
 __all__ = ["FusedTrainStep", "FusedInferStep"]
 
 _REMAT = (None, "full", "dots")
+# "the caller said nothing" (None is a real remat policy), so the profile
+# tier can tell the two apart
+_TUNE_UNSET = object()
 _aten = torch.ops.aten
 _DOTS = frozenset((_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm,
                    _aten.convolution))
@@ -176,7 +188,16 @@ class FusedTrainStep:
     """One training step per call (K with `steps_per_call=K`)."""
 
     def __init__(self, net, fn, optimizer, clip_global_norm=None,
-                 steps_per_call=1, remat=None, use_fusion=None):
+                 steps_per_call=1, remat=_TUNE_UNSET, donate=_TUNE_UNSET,
+                 use_fusion=None):
+        # knob precedence: explicit arg > deployment profile > default
+        from ...tune.profile import resolve as _tune_resolve
+        if remat is _TUNE_UNSET:
+            remat = _tune_resolve("train.remat")
+        if donate is _TUNE_UNSET:
+            donate = _tune_resolve("train.donate", True)
+        # recorded only: the step updates its buffers in place
+        self._donate = bool(donate)
         if remat not in _REMAT:
             raise MXNetError(f"unknown remat policy {remat!r}")
         self._remat = remat
@@ -199,6 +220,10 @@ class FusedTrainStep:
         self._train_idx = [i for i, p in enumerate(params)
                            if p.grad_req != "null"]
         self._states = None
+        # the step body as one program over its in-place arguments (the
+        # trainable weights, the optimizer state)
+        self._prog = _sanitize.maybe_wrap_donated(
+            self._program, (0, 1), "fused.train_step")
 
     def _stage(self, a):
         a = getattr(a, "_t", a)             # an NDArray's tensor
@@ -225,6 +250,22 @@ class FusedTrainStep:
               if type(opt)._step_takes_t() else None)
         train = [params[i] for i in self._train_idx]
         staged = [self._stage(a) for a in inputs]
+        losses, extras_k = self._prog(train, self._states, staged,
+                                      (lrs, wds, ts))
+        if self._K == 1:
+            loss, extras = losses[0], extras_k[0]
+        else:
+            loss = torch.stack(losses)
+            extras = tuple(torch.stack(es) for es in zip(*extras_k))
+        if any(isinstance(a, NDArray) for a in inputs):
+            loss, extras = _wrap(loss), tuple(_wrap(e) for e in extras)
+        return (loss,) + extras if extras else loss
+
+    def _program(self, train, states, staged, rates):
+        """K steps of forward, loss, backward, clipping and the update of
+        `train` and `states` in place; returns (losses, extras)."""
+        opt = self._opt
+        lrs, wds, ts = rates
         forward = functools.partial(self._fn, self._net)
         if self._remat is not None:
             forward = _rematerialized(forward, self._remat, self._device)
@@ -250,16 +291,8 @@ class FusedTrainStep:
                     grads = [g * scale.to(g.dtype) for g in grads]
                 for j, i in enumerate(self._train_idx):
                     t = {} if ts is None else {"t": ts[j] + k}
-                    opt.step_multi_precision(i, params[i], grads[j],
-                                             self._states[j], lrs[j],
-                                             wds[j], **t)
+                    opt.step_multi_precision(i, train[j], grads[j],
+                                             states[j], lrs[j], wds[j], **t)
                 losses.append(loss.detach())
                 extras_k.append(tuple(e.detach() for e in extras))
-        if self._K == 1:
-            loss, extras = losses[0], extras_k[0]
-        else:
-            loss = torch.stack(losses)
-            extras = tuple(torch.stack(es) for es in zip(*extras_k))
-        if any(isinstance(a, NDArray) for a in inputs):
-            loss, extras = _wrap(loss), tuple(_wrap(e) for e in extras)
-        return (loss,) + extras if extras else loss
+        return losses, extras_k

@@ -160,10 +160,13 @@ def floor_bound(cost, calib):
 def measure_l2_rate(device):
     """The L2's rate on the card, bytes/s: the most that PyTorch's
     elementwise and reduction kernels move over tensors that stay in the
-    L2 (an add over three tensors of 2, 4 and 8 MiB each, a copy over two,
-    a sum over one, each launched 20 times so that all but the first find
-    their tensors there), each launch's bytes (inputs read, outputs
-    written) over its device time in a `torch.profiler` trace."""
+    L2 (an add over three tensors of 2, 4 and 8 MiB each, an optimizer's
+    in-place add over two, a copy over two, a sum over one, each launched
+    50 times so that all but the first find their tensors there), each
+    launch's bytes (inputs read, outputs written) over its device time in
+    a `torch.profiler` trace. A rate that reads low makes a floor that no
+    unit can meet: on an H100, one run in four with 20 launches read ~6%
+    under what a 25 MB optimizer add then moved in the same process."""
     from torch.profiler import ProfilerActivity, profile
     from .report import _trace_events
     device = torch.device(device)
@@ -173,13 +176,14 @@ def measure_l2_rate(device):
         a, b, c = (torch.rand(n, device=device) for _ in range(3))
         out = torch.empty((), device=device)
         runs += [(lambda a=a, b=b, c=c: torch.add(a, b, out=c), 3 * n * 4),
+                 (lambda b=b, c=c: c.add_(b), 3 * n * 4),
                  (lambda a=a, c=c: c.copy_(a), 2 * n * 4),
                  (lambda a=a, o=out: torch.sum(a, dim=0, out=o), n * 4 + 4)]
     best = 0.0
     for fn, nbytes in runs:
         torch.cuda.synchronize(device)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
+            for _ in range(50):
                 fn()
             torch.cuda.synchronize(device)
         durs = [float(e["dur"]) for e in _trace_events(prof)

@@ -11,10 +11,10 @@ on the card unless the caller asks for the CPU (`device="cpu"` or inside
 The record iterator's counters are the telemetry registry's `io.imagerec`
 group and gauges, its decode workers' windows `io.worker.decode` spans in
 the consumer's trace, and its staged batches the `imagerec_slots` owner
-of `inspect.memory`'s census. Left out until their queues land
-(ROADMAP): `LibSVMIter` (it serves `CSRNDArray`s, A12) and the `mx.tune`
-knob tier (the tooling half of A11): a knob is the explicit argument,
-else its `MXNET_*` environment variable.
+of `inspect.memory`'s census. A knob is the explicit argument, else the
+active `mx.tune` profile's value, else its `MXNET_*` environment
+variable. Left out until its queue lands (ROADMAP A12): `LibSVMIter` (it
+serves `CSRNDArray`s).
 """
 from __future__ import annotations
 
@@ -576,9 +576,16 @@ class ImageRecordIter(DataIter):
                 "device) or the float32 handoff (normalize in the "
                 "decoders), or drop the mean/std arguments and normalize "
                 "in your step")
-        # knob precedence: explicit arg > MXNET_* env > default
+        # knob precedence: explicit arg > deployment profile (mx.tune) >
+        # MXNET_* env > default (shm_mb's profile/env tiers resolve at
+        # the DecodePool wire site, where the arg's None is consumed)
+        from ..tune.profile import resolve as _tune_resolve
+        if workers is None:
+            workers = _tune_resolve("io.workers")
         self._workers = (get_env("MXNET_IO_WORKERS", 0, typ=int)
                          if workers is None else int(workers))
+        if lookahead is None:
+            lookahead = _tune_resolve("io.lookahead")
         ahead = (get_env("MXNET_IMAGEREC_LOOKAHEAD", 2, typ=int)
                  if lookahead is None else int(lookahead))
         self._ahead = max(0, ahead) if prefetch else 0

@@ -244,6 +244,9 @@ class DecodePool:
     def _start_proc_mode(self, n_workers, shm_mb):
         from multiprocessing import shared_memory
         if shm_mb is None:
+            from ..tune.profile import resolve as _tune_resolve
+            shm_mb = _tune_resolve("io.shm_mb")
+        if shm_mb is None:
             shm_mb = get_env("MXNET_IO_SHM_MB", 256, typ=int)
         img_b = self._cap * self._h * self._w * 3 * self._itemsize
         lab_b = self._cap * self._label_width * 4

@@ -23,8 +23,12 @@ Counterpart of `incubator_mxnet_tpu/serve/`, with its surface:
                         prefix affinity, rolling drain-and-swap
 
 Requests are traced (`telemetry.trace`: one trace per request, across
-the batcher's queue and a fleet's replica hop); the tune profiles wait
-for the tooling half of ROADMAP A11, the compile surface for A3.
+the batcher's queue and a fleet's replica hop). The engine's and the
+batcher's knobs resolve through `mx.tune` profiles, and a replica boots
+on the profile of its (model, hardware) fingerprints; the engine counts
+its programs' signatures (`compile_cache_size`, `assert_no_retraces`)
+and runs under `mx.sanitize`'s modes. The rest of the compile surface
+(CUDA-graph capture, memory plans) waits for ROADMAP A2/A3.
 """
 from .batcher import (ServeError, QueueFullError, RequestTimeout,
                       ServerClosed, ReplicaDraining, BucketedModel,

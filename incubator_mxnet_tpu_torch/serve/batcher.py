@@ -185,7 +185,12 @@ class CallableModel:
                  single_output=True, device=None):
         from ..device import resolve_device
         if batch_sizes is None:
-            batch_sizes = [1, 2, 4, 8, 16, 32]
+            # knob precedence: explicit arg > deployment profile >
+            # default ladder (each bucket is one program shape, so the set
+            # is a measured cost/padding trade — mx.tune's serve_batch)
+            from ..tune.profile import resolve as _tune_resolve
+            batch_sizes = _tune_resolve("serve.batch_buckets",
+                                        [1, 2, 4, 8, 16, 32])
         if not row_specs:
             raise ServeError("CallableModel needs row_specs")
         self._fn = fn

@@ -44,8 +44,22 @@ names:
     every active slot.
 
 The fault points `serve.enqueue` (in `submit`) and `serve.execute` (at
-the top of each prefill wave) are the JAX engine's. Telemetry spans, the
-sanitizer and the `mx.tune` profile lookup are not ported.
+the top of each prefill wave) are the JAX engine's. The knobs resolve as
+the JAX package's do: explicit argument > active `mx.tune` profile >
+`MXNET_SERVE_*` env > default.
+
+Every step program is memoised per key on its `CachedDecoder` and counts
+the argument signatures it has run (`sanitize.counted`):
+`compile_cache_size()` is their sum, the zero-retrace observable a
+CUDA-graph capture of the programs would have to hold, and the engine
+warms every program it will run (prefill, decode with and without the
+sampling tensors, every chunk extent, the row copy) before `start()`
+returns. Built while an `MXNET_SANITIZE` mode is armed, each program is
+also wrapped by `sanitize.maybe_wrap_donated` (the slabs are its in-place
+arguments), the engine arms the recompile sentinel after warmup, claims a
+canary slot in slot mode, and checks both every decode wave; a violation
+fails that wave's requests through the step-failure path, after which the
+engine re-poisons the canary, re-arms the sentinel and keeps serving.
 """
 from __future__ import annotations
 
@@ -59,6 +73,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import fault as _fault
+from .. import sanitize as _sanitize
 from ..base import MXNetError, get_env, torch_dtype
 from ..telemetry import (record_span, trace as _trace, mem_on_oom,
                          mem_install_oom_hook)
@@ -689,6 +704,12 @@ class CachedDecoder:
         if params is None:
             params = init_decoder_params(config, seed, self.device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
+        # the step programs, memoised per key as the JAX package memoises
+        # its jits
+        self._prefills = {}
+        self._chunks = {}
+        self._decodes = {}
+        self._copy = None
 
     def new_pool(self, max_slots=None, dtype=None):
         """A slot pool at this model's shape; `dtype` is the KV storage
@@ -698,27 +719,73 @@ class CachedDecoder:
                            heads=c.heads, head_dim=c.head_dim,
                            dtype=dtype or c.dtype, device=self.device)
 
+    @staticmethod
+    def _program(fn, key, donated, name):
+        """`fn` with its signature count, wrapped by the sanitizer when a
+        mode is armed (the `donated` positions are updated in place)."""
+        return _sanitize.maybe_wrap_donated(_sanitize.counted(fn, key),
+                                            donated, name)
+
     def prefill_program(self, window):
-        """The prefill program for a prompt-page width."""
-        return _make_prefill(self.config, window=int(window))
+        """The prefill program for a prompt-page width (memoised)."""
+        key = int(window)
+        fn = self._prefills.get(key)
+        if fn is None:
+            fn = self._program(_make_prefill(self.config, window=key), key,
+                               (1, 2), f"prefill[w={key}]")
+            self._prefills[key] = fn
+        return fn
 
     def chunk_prefill_program(self, window, extent=None):
-        """The CHUNK prefill program for a (window, extent) pair."""
-        return _make_chunk_prefill(self.config, window=int(window),
-                                   extent=extent)
+        """The CHUNK prefill program for a (window, extent) pair
+        (memoised)."""
+        key = (int(window),
+               int(extent if extent is not None else self.config.max_len))
+        fn = self._chunks.get(key)
+        if fn is None:
+            fn = self._program(
+                _make_chunk_prefill(self.config, window=key[0],
+                                    extent=key[1]),
+                key, (1, 2), f"chunk_prefill[w={key[0]},e={key[1]}]")
+            self._chunks[key] = fn
+        return fn
 
     def decode_program(self, steps, eos_id=None, draft=0):
-        """The decode program for a (steps, eos, draft) variant; `draft >
-        0` selects the speculative program."""
-        if int(draft) > 0:
-            return _make_spec_decode(self.config, steps=int(steps),
-                                     eos_id=eos_id, draft=int(draft))
-        return _make_decode(self.config, steps=int(steps), eos_id=eos_id)
+        """The decode program for a (steps, eos, draft) variant (memoised);
+        `draft > 0` selects the speculative program."""
+        key = (int(steps), eos_id, int(draft))
+        fn = self._decodes.get(key)
+        if fn is None:
+            if key[2] > 0:
+                built = _make_spec_decode(self.config, steps=key[0],
+                                          eos_id=eos_id, draft=key[2])
+            else:
+                built = _make_decode(self.config, steps=key[0],
+                                     eos_id=eos_id)
+            fn = self._program(built, key, (1, 2),
+                               f"decode[s={key[0]},eos={key[1]},"
+                               f"d={key[2]}]")
+            self._decodes[key] = fn
+        return fn
 
     def copy_program(self):
         """The slab-to-slab KV row copy (prefix-cache hit and publish):
-        `copy(k_cache, v_cache, src_rows, dst_rows)`, in place."""
-        return _copy_slot_rows
+        `copy(k_cache, v_cache, src_rows, dst_rows)`, in place
+        (memoised)."""
+        if self._copy is None:
+            self._copy = self._program(_copy_slot_rows, "copy", (0, 1),
+                                       "copy_slot_rows")
+        return self._copy
+
+    def compile_cache_size(self):
+        """Distinct argument signatures run across every program — the
+        zero-retrace observable (one entry per program variant a CUDA-graph
+        capture would hold)."""
+        fns = (list(self._prefills.values()) + list(self._chunks.values())
+               + list(self._decodes.values()))
+        if self._copy is not None:
+            fns.append(self._copy)
+        return sum(int(f._cache_size()) for f in fns)
 
     def _ints(self, a):
         return torch.as_tensor(_np.asarray(a, dtype=_np.int32),
@@ -908,8 +975,8 @@ class ContinuousEngine:
             fut = eng.submit([3, 14, 15], max_new_tokens=16)
             tokens = fut.result()            # np.int32 generated ids
 
-    Knobs (constructor arg > MXNET_SERVE_* env > default, the JAX
-    package's names):
+    Knobs (constructor arg > active `mx.tune` profile > MXNET_SERVE_* env
+    > default, the JAX package's names and order):
 
       max_slots        KV slots = max concurrently-decoding requests
                        (MXNET_SERVE_MAX_SLOTS, 8)
@@ -961,23 +1028,37 @@ class ContinuousEngine:
         self.name = name
         self.eos_id = eos_id
         self.device = model.device
+        # the profile tier loads lazily, as in the JAX package
+        from ..tune.profile import resolve as _tune_resolve
+        if max_slots is None:
+            max_slots = _tune_resolve("serve.max_slots")
         if kv_dtype is None:
-            kv_dtype = get_env("MXNET_SERVE_KV_DTYPE")
+            kv_dtype = _tune_resolve("serve.kv_dtype")
+            if kv_dtype is None:
+                kv_dtype = get_env("MXNET_SERVE_KV_DTYPE")
         self.kv_dtype = kv_dtype
         if prefix_block is None:
-            prefix_block = get_env("MXNET_SERVE_PREFIX_BLOCK", 16, typ=int)
+            prefix_block = _tune_resolve("serve.prefix_block")
+            if prefix_block is None:
+                prefix_block = get_env("MXNET_SERVE_PREFIX_BLOCK", 16,
+                                       typ=int)
         self.prefix_block = int(prefix_block)
         if self.prefix_block < 1:
             raise ServeError("prefix_block must be >= 1")
         if prefix_cache_slots is None:
-            prefix_cache_slots = get_env("MXNET_SERVE_PREFIX_CACHE_SLOTS",
-                                         0, typ=int)
+            prefix_cache_slots = _tune_resolve("serve.prefix_cache_slots")
+            if prefix_cache_slots is None:
+                prefix_cache_slots = get_env(
+                    "MXNET_SERVE_PREFIX_CACHE_SLOTS", 0, typ=int)
         self.prefix_cache_slots = int(prefix_cache_slots)
         if self.prefix_cache_slots < 0:
             raise ServeError("prefix_cache_slots must be >= 0")
         if prefix_cache_insert is None:
-            prefix_cache_insert = bool(get_env(
-                "MXNET_SERVE_PREFIX_CACHE_INSERT", 1, typ=int))
+            prefix_cache_insert = _tune_resolve(
+                "serve.prefix_cache_insert")
+            if prefix_cache_insert is None:
+                prefix_cache_insert = bool(get_env(
+                    "MXNET_SERVE_PREFIX_CACHE_INSERT", 1, typ=int))
         self.prefix_cache_insert = bool(prefix_cache_insert)
         if max_slots is None:
             max_slots = get_env("MXNET_SERVE_MAX_SLOTS", 8, typ=int)
@@ -994,11 +1075,16 @@ class ContinuousEngine:
                 self.prefix_block,
                 [self.pool.claim() for _ in range(self.prefix_cache_slots)])
         if decode_steps is None:
-            decode_steps = get_env("MXNET_SERVE_DECODE_STEPS", 4, typ=int)
+            decode_steps = _tune_resolve("serve.decode_steps")
+            if decode_steps is None:
+                decode_steps = get_env("MXNET_SERVE_DECODE_STEPS", 4,
+                                       typ=int)
         self.decode_steps = max(1, int(decode_steps))
         if draft_tokens is None:
-            draft_tokens = get_env("MXNET_SERVE_DRAFT_TOKENS", 0, typ=int)
-        self.draft_tokens = int(draft_tokens)
+            draft_tokens = _tune_resolve("serve.draft_tokens")
+        self.draft_tokens = int(
+            draft_tokens if draft_tokens is not None
+            else get_env("MXNET_SERVE_DRAFT_TOKENS", 0, typ=int))
         if self.draft_tokens < 0:
             raise ServeError("draft_tokens must be >= 0")
         self._decode_prog = model.decode_program(
@@ -1038,7 +1124,10 @@ class ContinuousEngine:
         if self.prefill_budget < 1:
             raise ServeError("prefill_budget must be >= 1")
         if prefill_lanes is None:
-            prefill_lanes = get_env("MXNET_SERVE_PREFILL_LANES", typ=int)
+            prefill_lanes = _tune_resolve("serve.prefill_lanes")
+            if prefill_lanes is None:
+                prefill_lanes = get_env("MXNET_SERVE_PREFILL_LANES",
+                                        typ=int)
         self.prefill_lanes = int(prefill_lanes if prefill_lanes is not None
                                  else min(self.max_slots, 8))
         if not 1 <= self.prefill_lanes <= self.max_slots:
@@ -1060,6 +1149,8 @@ class ContinuousEngine:
         self._closing = False
         self._drain = True
         self._started = False
+        self._warm_cache_size = None
+        self._canary = None
         self.warmup_s = None
         self._thread = threading.Thread(
             target=self._loop, name=f"{name}-scheduler", daemon=True)
@@ -1081,18 +1172,30 @@ class ContinuousEngine:
 
     # -- lifecycle ---------------------------------------------------------
     def start(self, warmup=True):
-        """Run one garbage-lane pass through the prefill and decode steps
-        (this builds the CUDA kernels at first use and initialises the
-        matrix-product libraries, so the first request does not pay for
-        either), then start the scheduler thread. Returns self."""
+        """Run one garbage-lane pass through every step program the engine
+        will run (this builds the CUDA kernels at first use and
+        initialises the matrix-product libraries, so the first request
+        does not pay for either), record the warm signature count for the
+        zero-retrace assertion, arm the sanitizer's modes, then start the
+        scheduler thread. Returns self."""
         if self._started:
             return self
         t0 = time.perf_counter()
         if warmup:
             self._warmup()
         with self._cv:
+            self._warm_cache_size = self.model.compile_cache_size()
             self._started = True
         self.warmup_s = round(time.perf_counter() - t0, 3)
+        if _sanitize.enabled("retrace"):
+            # warmup ran every program at its serving signatures: from
+            # here any growth breaks the zero-retrace contract (polled
+            # once a decode wave)
+            _sanitize.arm()
+        if _sanitize.enabled("slot"):
+            with self._cv:
+                if self._canary is None:
+                    self._canary = _sanitize.SlotCanary(self.pool)
         # the flight recorder's crash hooks (armed only while
         # MXNET_FLIGHTREC_DIR is set) and the OOM excepthook
         _trace.install_crash_hooks()
@@ -1104,7 +1207,10 @@ class ContinuousEngine:
         return torch.as_tensor(a, device=self.device)
 
     def _warmup(self):
-        """Inactive lanes only: every write lands in the garbage row."""
+        """Inactive lanes only: every write lands in the garbage row. Runs
+        each program at the signatures serving gives it: the prefill, the
+        decode with an all-greedy wave (no sampling tensors) and with a
+        sampled one, every chunk extent, and the row copy."""
         g = self.pool.garbage_row
         P, S, W = self.prefill_lanes, self.pool.max_slots, \
             self.prefill_window
@@ -1115,12 +1221,22 @@ class ContinuousEngine:
             self._tensor(_np.zeros((P, W), dtype=_np.int32)),
             self._tensor(_np.ones((P,), dtype=_np.int32)),
             self._tensor(_np.full((P,), g, dtype=_np.int32)))
-        args = [self.model.params, kb, vb, zeros, zeros, zeros,
-                None, None, None, None]
-        if self.draft_tokens:
-            args.append(self._tensor(
-                _np.zeros((S, self.max_len), dtype=_np.int32)))
-        self._decode_prog(*args)
+        lanes = _LaneSampling(S)
+        lanes.temps[:] = 1.0            # a sampled wave's tensors; idle lanes
+        sampled = _sampling_tensors(*lanes.host(), self.device)
+        for sampling in ((None, None, None, None), sampled):
+            args = [self.model.params, kb, vb, zeros, zeros, zeros,
+                    *sampling]
+            if self.draft_tokens:
+                args.append(self._tensor(
+                    _np.zeros((S, self.max_len), dtype=_np.int32)))
+            self._decode_prog(*args)
+        if self._chunk_progs is not None:
+            ctoks = self._tensor(_np.zeros((S, W), dtype=_np.int32))
+            for prog in self._chunk_progs.values():
+                prog(self.model.params, kb, vb, ctoks, zeros, zeros)
+        if self._copy_prog is not None:
+            self._dispatch_copy([])     # garbage onto garbage
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -1145,6 +1261,10 @@ class ContinuousEngine:
             _fail(req, ServerClosed("engine closed before admission"))
         if self._started:
             self._thread.join(timeout=timeout)
+        with self._cv:
+            canary, self._canary = self._canary, None
+        if canary is not None:
+            canary.release()
 
     def __exit__(self, *exc):
         self.close()
@@ -1178,6 +1298,28 @@ class ContinuousEngine:
         carries (the full breakdown is in `stats()`)."""
         with self._mlock:
             return self._counters["prefix_hits"]
+
+    def compile_cache_size(self):
+        """The model's distinct program signatures (`CachedDecoder.
+        compile_cache_size`)."""
+        return self.model.compile_cache_size()
+
+    def retraces_after_warmup(self):
+        """Program-signature growth since start() — MUST be 0 in steady
+        state (-1 before start())."""
+        if self._warm_cache_size is None:
+            return -1
+        return self.model.compile_cache_size() - self._warm_cache_size
+
+    def assert_no_retraces(self):
+        """Raise when a program ran a signature warmup did not; returns
+        the growth (0, or -1 before start())."""
+        r = self.retraces_after_warmup()
+        if r > 0:
+            raise MXNetError(
+                f"continuous engine retraced {r} program(s) after warmup "
+                f"— a shape leaked into a step program")
+        return r
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt_tokens, max_new_tokens=16, deadline_ms=None,
@@ -1295,6 +1437,8 @@ class ContinuousEngine:
                 / (c["draft_accepted"] + c["draft_rejected"]), 4)
         out["prefill_lanes"] = self.prefill_lanes
         out["prefill_window"] = self.prefill_window
+        out["compile_cache_size"] = self.compile_cache_size()
+        out["retraces_after_warmup"] = self.retraces_after_warmup()
         if self._cache is not None:
             out["prefix_block"] = self.prefix_block
             out["prefix_cache"] = self._cache.stats()
@@ -1401,6 +1545,13 @@ class ContinuousEngine:
                     # a publish copy may have been cut mid-row: drop the
                     # index (its rows stay claimed and refill later)
                     self._cache.clear()
+                # the sanitizer's state after a violation (or any failed
+                # wave): the canary row poisoned again, the sentinel
+                # re-baselined, and the engine keeps serving
+                if self._canary is not None:
+                    self._canary.rearm()
+                if _sanitize.enabled("retrace"):
+                    _sanitize.arm()
 
     def _admit_locked(self):
         """Deadline-aware admission (runs under self._cv): drop expired
@@ -1593,10 +1744,16 @@ class ContinuousEngine:
     def _dispatch_copy(self, pairs):
         """Copy whole KV slot rows slab-to-slab, (src, dst) pairs: cache
         row -> claimed slot at admission, retiring slot -> cache row at
-        publish."""
-        src = self._tensor(_np.asarray([s for s, _ in pairs], _np.int64))
-        dst = self._tensor(_np.asarray([d for _, d in pairs], _np.int64))
-        self._copy_prog(*self.pool.buffers(), src, dst)
+        publish. ONE fixed shape, as the JAX package's: `prefill_lanes`
+        lanes, the idle ones copying the garbage row onto itself."""
+        g = self.pool.garbage_row
+        src = _np.full((self.prefill_lanes,), g, dtype=_np.int64)
+        dst = _np.full((self.prefill_lanes,), g, dtype=_np.int64)
+        for i, (s, d) in enumerate(pairs):
+            src[i] = s
+            dst[i] = d
+        self._copy_prog(*self.pool.buffers(), self._tensor(src),
+                        self._tensor(dst))
 
     def _run_decode(self):
         """ONE decode wave: every active slot advances up to
@@ -1639,10 +1796,16 @@ class ContinuousEngine:
         if draft:
             blocks, n_emits, emitted, acc, rej = self._decode_prog(
                 *args, self._tensor(buf))
+        else:
+            out_toks, emitted = self._decode_prog(*args)
+        if self._canary is not None:
+            # queued behind the wave; reads the previous wave's probe
+            self._canary.check(where="serve.decode")
+        _sanitize.poll(where="serve.decode")
+        if draft:
             blocks_host = blocks.cpu().numpy()    # (steps, S, draft+1)
             nem_host = n_emits.cpu().numpy()      # (steps, S)
         else:
-            out_toks, emitted = self._decode_prog(*args)
             out_host = out_toks.cpu().numpy()     # (decode_steps, S)
         emitted_host = emitted.cpu().numpy()
         now = time.perf_counter()

@@ -172,18 +172,30 @@ class _StubEngine:
 
 
 def _resolve_profile(spec):
-    """The deployment-profile hash this replica reports in its hello. A
-    stub passes its declared `profile_hash` through. The port has no
-    `mx.tune` yet (ROADMAP A11): a `profile` key or MXNET_TUNE_PROFILE
-    logs a warning and the replica boots on its defaults, as the JAX
-    package does for a profile it cannot use."""
+    """Activate the deployment profile for this replica's model, if one
+    exists: explicit `spec["profile"]` path > ``MXNET_TUNE_PROFILE`` >
+    lookup by (model, hardware) fingerprint under the profile dir.
+    Returns the applied profile hash (reported in the hello so the Fleet
+    can detect divergent tunings) or None — a mismatched or corrupt
+    profile falls back loudly inside tune.profile and the replica boots
+    on env/defaults; tuning must never keep a replica down. A stub passes
+    its declared `profile_hash` through."""
     if spec.get("stub"):
         return spec.get("profile_hash")
-    path = spec.get("profile") or os.environ.get("MXNET_TUNE_PROFILE")
-    if path:
-        logger.warning("deployment profile %s unavailable (mx.tune is not "
-                       "ported yet, ROADMAP A11); replica starts on "
-                       "env/defaults", path)
+    try:
+        from ..tune import profile as _tprof
+        model_fp = _tprof.model_fingerprint(spec.get("config", {}))
+        path = spec.get("profile") or os.environ.get("MXNET_TUNE_PROFILE")
+        if path:
+            prof = _tprof.DeploymentProfile.load(path)
+        else:
+            prof = _tprof.lookup(model_fp)
+        if prof is not None and _tprof.activate(prof, model_fp=model_fp,
+                                                source="replica"):
+            return prof.profile_hash
+    except Exception as e:  # noqa: BLE001 — boot anyway, on defaults
+        logger.warning("deployment profile unavailable (%s); replica "
+                       "starts on env/defaults", e)
     return None
 
 

@@ -75,7 +75,10 @@ def test_port_modules_import_without_jax():
             f"{pkg}.gluon.data.dataloader",
             f"{pkg}.gluon.data.vision.transforms", f"{pkg}.deploy",
             f"{pkg}.serve.batcher", f"{pkg}.serve.metrics",
-            f"{pkg}.serve.replica", f"{pkg}.serve.fleet"} <= names
+            f"{pkg}.serve.replica", f"{pkg}.serve.fleet",
+            f"{pkg}.tune", f"{pkg}.tune.space", f"{pkg}.tune.profile",
+            f"{pkg}.tune.search", f"{pkg}.tune.measure",
+            f"{pkg}.sanitize"} <= names
 
 
 def test_chip_smoke_imports_without_jax():
@@ -173,3 +176,54 @@ def test_replica_entry_point_runs_without_jax():
     r = _run(_REPLICA_MAIN)
     assert r.returncode == 0, r.stderr
     assert "REPLICA_MAIN_OK" in r.stdout
+
+
+_TUNE_ENTRY_POINTS = _BLOCKER + r"""
+import importlib.util, runpy, sys
+spec = importlib.util.spec_from_file_location("torch_mxtune",
+                                              "tools/torch_mxtune.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+assert mod.main(["--phases", "dispatch,serve_decode", "--budget", "2",
+                 "--dry-run"]) == 0
+sys.argv = ["mx.tune.measure", "--help"]
+try:
+    runpy.run_module("incubator_mxnet_tpu_torch.tune.measure",
+                     run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, e.code
+import incubator_mxnet_tpu_torch as mx
+assert mx.tune.HAND_TUNED and mx.sanitize.modes() == frozenset()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "incubator_mxnet_tpu"))
+assert not bad, bad
+print("TUNE_ENTRY_POINTS_OK")
+"""
+
+
+def test_tune_cli_and_trial_child_run_without_jax():
+    """`tools/torch_mxtune.py` and the trial child `python -m
+    incubator_mxnet_tpu_torch.tune.measure` import nothing of JAX or of
+    the JAX package, nor do `mx.tune` and `mx.sanitize` loaded lazily."""
+    r = _run(_TUNE_ENTRY_POINTS)
+    assert r.returncode == 0, r.stderr
+    assert "TUNE_ENTRY_POINTS_OK" in r.stdout
+    assert "phase dispatch: 2 trials" in r.stdout
+
+
+_LAZY_TUNE = r"""
+import sys
+import incubator_mxnet_tpu_torch
+from incubator_mxnet_tpu_torch.telemetry import REGISTRY
+assert "incubator_mxnet_tpu_torch.tune" not in sys.modules
+assert not any(n.startswith("tune.") for n in REGISTRY.names())
+print("LAZY_OK")
+"""
+
+
+def test_importing_the_port_does_not_register_the_tune_counters():
+    """`mx.tune` loads at first use, as the JAX package's does, so its
+    counter family registers at the same moment in both packages."""
+    r = _run(_LAZY_TUNE)
+    assert r.returncode == 0, r.stderr
+    assert "LAZY_OK" in r.stdout

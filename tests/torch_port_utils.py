@@ -484,14 +484,54 @@ def expire_port_trace_memo():
     ttrace._expire_env_memo()
 
 
+def _tune_sanitize_modules():
+    """Both packages' `tune.profile` and `sanitize` (imported here, so the
+    `tune` counters are registered in both registries before any
+    snapshot)."""
+    from incubator_mxnet_tpu import sanitize as jsan
+    from incubator_mxnet_tpu.tune import profile as jprof
+    from incubator_mxnet_tpu_torch import sanitize as tsan
+    from incubator_mxnet_tpu_torch.tune import profile as tprof
+    return (jprof, tprof), (jsan, tsan)
+
+
+_SANITIZE_STATE = ("_override", "_armed_snapshot", "_arm_epoch",
+                   "_arm_version")
+
+
+def _tune_sanitize_state():
+    """The process-global profile tier (`_ACTIVE`, `_AUTOLOADED`) and
+    sanitizer state (the mode override, the armed snapshot, the JAX
+    package's poison registry) of both packages."""
+    profs, sans = _tune_sanitize_modules()
+    return ([(m._ACTIVE[0], m._AUTOLOADED[0]) for m in profs],
+            [({k: getattr(m, k) for k in _SANITIZE_STATE},
+              dict(getattr(m, "_poisoned", {}))) for m in sans])
+
+
+def _put_tune_sanitize_state(state):
+    profs, sans = _tune_sanitize_modules()
+    for m, (active, autoloaded) in zip(profs, state[0]):
+        m._ACTIVE[0], m._AUTOLOADED[0] = active, autoloaded
+    for m, (attrs, poisoned) in zip(sans, state[1]):
+        for k, v in attrs.items():
+            setattr(m, k, v)
+        if hasattr(m, "_poisoned"):
+            m._poisoned.clear()
+            m._poisoned.update(poisoned)
+
+
 @contextlib.contextmanager
 def process_state_kept(thread_grace_s=10.0):
     """Record the process-wide state around a block, put both registries
-    back as they were (a test's traffic moves counters in both packages),
-    and assert that the block left SIGTERM's handler, `sys.excepthook`,
-    the live threads, the MXNET_* environment and both registries'
-    snapshots as it found them, and no profiler running. Threads the
-    block started get `thread_grace_s` to finish after it."""
+    and both packages' tune and sanitize state back as they were (a test's
+    traffic moves counters in both packages; a leaked profile would beat
+    the env at every later knob site), and assert that the block left
+    SIGTERM's handler, `sys.excepthook`, the live threads, the MXNET_*
+    environment and both registries' snapshots as it found them, no
+    profile active and no sanitizer mode armed that was not before, and
+    no profiler running. Threads the block started get `thread_grace_s`
+    to finish after it."""
     import signal
     import sys
     import threading
@@ -507,11 +547,14 @@ def process_state_kept(thread_grace_s=10.0):
     hook = sys.excepthook
     threads = set(threading.enumerate())
     env0 = env()
+    tune_san = _tune_sanitize_state()
     jstate, tstate = _registry_state(jreg), _registry_state(treg)
     jsnap, tsnap = jreg.snapshot(), treg.snapshot()
     try:
         yield
     finally:
+        left_tune_san = _tune_sanitize_state()
+        _put_tune_sanitize_state(tune_san)
         _put_registry_state(jreg, jstate)
         _put_registry_state(treg, tstate)
     deadline = time.monotonic() + thread_grace_s
@@ -523,6 +566,11 @@ def process_state_kept(thread_grace_s=10.0):
     assert signal.getsignal(signal.SIGTERM) is sigterm, "SIGTERM handler"
     assert sys.excepthook is hook, "sys.excepthook"
     assert env() == env0, "MXNET_* environment"
+    for (active, _), (left, _) in zip(tune_san[0], left_tune_san[0]):
+        assert left is active, "a deployment profile was left active"
+    for (attrs, _), (left, _) in zip(tune_san[1], left_tune_san[1]):
+        assert left["_override"] == attrs["_override"], \
+            "a sanitizer mode was left armed"
     assert _same_snapshot(jsnap, jreg.snapshot()), \
         "the JAX package's registry"
     assert _same_snapshot(tsnap, treg.snapshot()), "the port's registry"
