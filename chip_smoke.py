@@ -451,14 +451,38 @@ Each phase fails the run (non-zero exit) on any error:
      step; TPOT p50 armed and unarmed, one reading each. The kernels'
      JSON entries of B4 and B1-B3 gain `tune_launches` and
      `sanitize_launches`.
+ 21. the Faster-RCNN / R-FCN test-time tail (`npx.proposal`,
+     `roi_align`, `psroi_pooling`, `deformable_convolution`,
+     `bilinear_resize2d`), the model store and `npx.pick(mode=)`, at
+     Faster-RCNN R-50-C4's test-time shapes (a 600 x 1000 image at stride
+     16: a (38, 63) feature): (a) `npx.proposal` over 12 anchors a cell
+     (28,728), 6000 before the sweep, 300 after, IoU 0.7, min size 16,
+     with one launch of the pixel-inclusive NMS sweep (`nms.cu`'s
+     `proposal_sweep` route), its keep mask bit-equal to
+     `proposal_sweep_ref` on the same sorted boxes, the rois against the
+     port on the CPU (a relative 1e-5 through the decode's exp;
+     bit-equal with `iou_loss`), two planted pixel pairs (a shared pixel
+     column, one pixel twice) suppressed there and kept by box_iou's
+     kernel, the kernel's time against its bound and the plain sweep's;
+     (b) ROI Align of those rois over res4 (1, 1024, 38, 63) at 14 x 14,
+     R-FCN's PS ROI pooling (21 x 7 x 7 = 1029 maps), DCN's res5
+     deformable convolution (512 -> 512, 3 x 3, pad 1) and the resize 2x
+     up and 1/2 down, each forward (through its npx name) and one
+     backward held against the CPU in float32; (c) a reference-format
+     `.params` ResNet-50 v1 written from seeded weights with the port's
+     writer, loaded with `pretrained=True` on the card, its batch-32
+     forward bit-equal to the same net loaded from `.npz`; (d)
+     `npx.pick(mode="clip" / "wrap")` on the card. The kernels' JSON
+     gains the `proposal_sweep` entry, its launches from (a).
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
 backward sweep, one for each route of the paged kernel, one for each
 kernel's float16 instances, their launches from the path that runs them
-in float16, the NMS sweep, port-only, its launches from (b), and the
-augment kernel, port-only, its launches from phase 15 (c); each with its
-phase-14 `npx_launches`), and
+in float16, the NMS sweep, port-only, its launches from (b), the
+proposal op's sweep on the same kernels, port-only, its launches from
+phase 21 (a), and the augment kernel, port-only, its launches from phase
+15 (c); each with its phase-14 `npx_launches`), and
 `{"ok": true, "device": {...}}`. Without a
 card the script exits non-zero and prints no result. It imports nothing of
 JAX. Its run time on the card is in the root `PERF.md`.
@@ -5034,6 +5058,10 @@ def sweep_cases():
     prob = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
             ).astype(np.float32)
     slab = r.randn(4, 2, 12, 2, 8).astype(np.float32)
+    rois = np.array([[0, 0.5, 0.3, 3.2, 2.8], [1, 1.2, 0.7, 4.6, 3.9]],
+                    np.float32)
+    rpn_cls = r.rand(1, 24, 3, 4).astype(np.float32)
+    rpn_box = (0.2 * r.randn(1, 48, 3, 4)).astype(np.float32)
     i32 = lambda *v: np.array(v, np.int32)                      # noqa: E731
     return {
         "np.bartlett": ((5,), {}), "np.blackman": ((5,), {}),
@@ -5103,6 +5131,19 @@ def sweep_cases():
         "npx.pooling": ((X4,), {"kernel": 2, "stride": 2}),
         "npx.scaled_dot_product_attention": ((X4, X4 * 0.5, X4[::-1].copy()),
                                              {}),
+        "npx.roi_align": ((X4, rois), {"pooled_size": 2,
+                                       "spatial_scale": 1.0}),
+        "npx.bilinear_resize2d": ((X4,), {"height": 7, "width": 3}),
+        "npx.proposal": ((rpn_cls, rpn_box, np.array(
+            [[48, 64, 1.0]], np.float32)), {"rpn_pre_nms_top_n": 60,
+                                            "rpn_post_nms_top_n": 12,
+                                            "rpn_min_size": 2}),
+        "npx.deformable_convolution": ((
+            X4, (r.randn(2, 18, 4, 5) * 1.5).astype(np.float32),
+            (r.randn(2, 3, 3, 3) / 3).astype(np.float32)), {"pad": (1, 1)}),
+        "npx.psroi_pooling": ((r.randn(2, 8, 4, 5).astype(np.float32),
+                               rois), {"spatial_scale": 1.0,
+                                       "output_dim": 2, "pooled_size": 2}),
         # no crop and no mirror: the result does not depend on the draws
         "npx.fused_image_augment": ((r.randint(0, 256, (2, 4, 4, 3)).astype(
             np.uint8), (3, 1)), {"mean": (0.4, 0.5, 0.6),
@@ -8005,6 +8046,394 @@ def phase_tune_sanitize(card, dev, children=None):
             "seconds": took}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the Faster-RCNN / R-FCN test-time tail (ROADMAP A5's remainder)
+# ---------------------------------------------------------------------------
+# Faster-RCNN R-50-C4 at test time (Ren et al. 2015; Detectron's
+# e2e_faster_rcnn_R-50-C4): a 600 x 1000 image at stride 16 gives a
+# (38, 63) feature; 12 anchors a cell (scales 4-32 x ratios 0.5-2, the
+# proposal op's defaults), 6000 boxes before the sweep, 300 after, IoU
+# 0.7, min size 16
+RCNN_IMAGE = (600, 1000)
+RCNN_FEAT = (38, 63)
+RCNN_ANCHORS = 12
+RCNN_PRE, RCNN_POST, RCNN_NMS, RCNN_MIN = 6000, 300, 0.7, 16
+RCNN_C4 = 1024            # res4's channels, which ROI Align pools
+RCNN_POOL = 14            # 14 x 14 bins a ROI, sample ratio 2
+RFCN_CLASSES, RFCN_GROUP = 21, 7   # R-FCN: 21 x 7 x 7 = 1029 score maps
+DCN_CHANNELS = 512        # DCN's res5 3 x 3 deformable convolution
+RCNN_GRAD_ROIS = 16       # ROI Align's backward is held on the first 16
+PROPOSAL_REPS = 20
+PRETRAINED_BATCH = 32
+# float32 limits, relative to the largest magnitude of the CPU's result:
+# the forwards sum the same terms in another order (the deformable
+# convolution's product over 9 x 512 terms a little more), the gradients
+# scatter-add in another order
+RCNN_TOL = {"roi_align": 1e-5, "psroi_pooling": 1e-5,
+            "bilinear_resize2d": 1e-5, "deformable_convolution": 1e-4,
+            "grad": 1e-4}
+
+
+def rcnn_inputs(dev):
+    """The RPN's outputs on `dev`, from a seed: foreground probabilities
+    uniform, background 1 - foreground, box deltas normal x 0.2; the
+    image's (height, width, scale)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    h, w = RCNN_FEAT
+    fg = torch.rand((1, RCNN_ANCHORS, h, w), generator=gen, device=dev)
+    cls = torch.cat([1 - fg, fg], dim=1)
+    bbox = torch.randn((1, 4 * RCNN_ANCHORS, h, w), generator=gen,
+                       device=dev) * 0.2
+    info = torch.tensor([[*RCNN_IMAGE, 1.0]], device=dev)
+    return cls, bbox, info
+
+
+def counted_proposal_sweep(boxes, keep, thresh):
+    """The plain proposal sweep (`contrib.proposal_sweep_ref`'s pixel IoU),
+    counting as it goes the IoU tests it makes: for each row alive when
+    its turn comes, the later rows still alive. Returns (the count, the
+    keep mask)."""
+    keep = keep.clone()
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = ((x2 - x1) + 1.0) * ((y2 - y1) + 1.0)
+    cols = torch.arange(boxes.shape[1], device=boxes.device)
+    tests = torch.zeros((), dtype=torch.int64, device=boxes.device)
+    for i in range(boxes.shape[1] - 1):
+        s = slice(i, i + 1)
+        live = (cols > i) & keep[:, s] & keep
+        tests += live.sum()
+        iw = ((torch.minimum(x2[:, s], x2) - torch.maximum(x1[:, s], x1))
+              + 1.0).clamp(min=0)
+        ih = ((torch.minimum(y2[:, s], y2) - torch.maximum(y1[:, s], y1))
+              + 1.0).clamp(min=0)
+        inter = iw * ih
+        iou = inter / ((area[:, s] + area) - inter)
+        keep &= ~((iou > thresh) & (cols > i) & keep[:, s])
+    return int(tests), keep
+
+
+def planted_pixel_pairs(boxes):
+    """The sorted boxes with two pairs planted first: rows 0-1 one pixel
+    wide sharing their pixel column (pixel IoU 41/42, box_iou's 0), rows
+    2-3 the same single pixel (pixel IoU 1, box_iou's 0)."""
+    planted = boxes.clone()
+    planted[0, :4] = torch.tensor(
+        [[100, 100, 100, 140], [100, 100, 100, 141], [7, 7, 7, 7],
+         [7, 7, 7, 7]], dtype=boxes.dtype, device=boxes.device)
+    return planted
+
+
+def proposal_run(card, dev):
+    """(a) `npx.proposal` at R-50-C4's test-time shapes: one launch of the
+    pixel-inclusive sweep, its keep mask bit-equal to the plain sweep on
+    the same sorted boxes, the rois against the port on the CPU (within a
+    relative 1e-5 through the decode's exp; bit-equal with the deltas
+    added, `iou_loss`), the planted pixel pairs suppressed (and kept by
+    box_iou's kernel), the times."""
+    cls, bbox, info = rcnn_inputs(dev)
+    args = [mx.np.array(t) for t in (cls, bbox, info)]
+    kw = dict(rpn_pre_nms_top_n=RCNN_PRE, rpn_post_nms_top_n=RCNN_POST,
+              threshold=RCNN_NMS, rpn_min_size=RCNN_MIN, output_score=True)
+    mx.npx.proposal(*args, **kw)                     # warm-up
+    torch.cuda.synchronize()
+    captured = []
+    orig = kernels.proposal_sweep_cuda
+
+    def capturing(boxes, keep, thresh):
+        out = orig(boxes, keep, thresh)
+        captured.append((boxes, keep, thresh, out))
+        return out
+    kernels.reset_launch_counts()
+    kernels.proposal_sweep_cuda = capturing
+    try:
+        t0 = time.perf_counter()
+        rois, scores = mx.npx.proposal(*args, **kw)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        kernels.proposal_sweep_cuda = orig
+    launches = kernels.launch_counts()
+    assert launches["proposal_sweep"] == 1 and len(captured) == 1 \
+        and launches["nms_sweep"] == 0, launches
+    rois, scores = rois._t, scores._t
+    boxes, keep0, thresh, kept = captured[0]
+    assert boxes.shape == (1, RCNN_PRE, 4) and boxes.device == dev
+    assert rois.shape == (RCNN_POST, 5) and rois.device == dev \
+        and torch.isfinite(rois).all(), "proposals not finite"
+    alive = int(keep0.sum())
+    # the kernel against the plain sweep on the same rows, counted
+    tests, plain = counted_proposal_sweep(boxes, keep0, thresh)
+    assert torch.equal(kept, plain), "the proposal sweep kernel's keep " \
+        "mask is not the plain sweep's"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = contrib.proposal_sweep_ref(boxes, keep0, thresh)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert torch.equal(kept, ref), "the proposal sweep kernel's keep mask " \
+        "is not proposal_sweep_ref's"
+    # the rois against the port on the CPU
+    cpu = [t.cpu() for t in (cls, bbox, info)]
+    crois, cscores = contrib.proposal(*cpu, **kw)
+    err = float((rois.cpu() - crois).abs().max())
+    assert torch.allclose(rois.cpu(), crois, rtol=1e-5, atol=1e-3) \
+        and torch.equal(scores.cpu(), cscores), \
+        f"the card's proposals part from the CPU's (max {err})"
+    kl = dict(kw, iou_loss=True)
+    lrois, lscores = contrib.proposal(cls, bbox * 8, info, **kl)
+    wrois, wscores = contrib.proposal(cpu[0], cpu[1] * 8, cpu[2], **kl)
+    assert torch.equal(lrois.cpu(), wrois) \
+        and torch.equal(lscores.cpu(), wscores), \
+        "iou_loss proposals part from the CPU's"
+    # the planted pairs: suppressed counting pixels, kept by box_iou's
+    planted = planted_pixel_pairs(boxes)
+    every = torch.ones_like(keep0)
+    got = kernels.proposal_sweep_cuda(planted, every, thresh)
+    want = contrib.proposal_sweep_ref(planted, every, thresh)
+    cont = kernels.nms_sweep_cuda(planted, None, every, thresh)
+    assert torch.equal(got, want), "the kernel parts from the plain " \
+        "sweep on the planted pairs"
+    assert not got[0, 1] and not got[0, 3] and got[0, 0] and got[0, 2], \
+        "a planted pixel pair was not suppressed"
+    assert cont[0, 1] and cont[0, 3], "box_iou's kernel suppressed a " \
+        "pair whose continuous IoU is 0"
+    ms = median_ms(lambda i: kernels.proposal_sweep_cuda(boxes, keep0,
+                                                         thresh),
+                   PROPOSAL_REPS)
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mx.npx.proposal(*args, **kw)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    kernels.reset_launch_counts()   # comparison launches do not count
+    bound, by = bound_ms("proposal_sweep", B=1, A=RCNN_PRE,
+                         iou_tests=tests)
+    mask_tests, mask_bytes = nms_mask_work(keep0)
+    log(f"[rcnn a] {card}: npx.proposal at R-50-C4's test time ({RCNN_FEAT} "
+        f"x {RCNN_ANCHORS} = {RCNN_FEAT[0] * RCNN_FEAT[1] * RCNN_ANCHORS} "
+        f"anchors, pre {RCNN_PRE}, post {RCNN_POST}, IoU {RCNN_NMS}, min "
+        f"size {RCNN_MIN}): {call_ms:.3f} ms (median of 5 more "
+        f"{float(np.median(runs)):.3f} ms), 1 proposal_sweep launch; "
+        f"{alive} of {RCNN_PRE} rows alive into the sweep, "
+        f"{int(kept.sum())} kept, {tests} IoU tests; the kernels "
+        f"{ms:.4f} ms (bound {bound:.4f} ms by {by}; mask pass "
+        f"{mask_tests} pairs, {mask_bytes} bytes of mask), the plain sweep "
+        f"{plain_ms:.3f} ms; keep mask bit-equal; rois against the CPU max "
+        f"{err:.3g} (iou_loss bit-equal); planted pixel pairs suppressed, "
+        f"kept by box_iou's kernel")
+    return {"launches": launches["proposal_sweep"], "call_ms": call_ms,
+            "call_median_ms": float(np.median(runs)), "alive": alive,
+            "kept": int(kept.sum()), "iou_tests": tests, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "mask_iou_tests": mask_tests, "mask_bytes": mask_bytes,
+            "rois_max_abs_err": err,
+            "max_abs_err": float((kept.int() - ref.int()).abs().max()),
+            "rois": rois}
+
+
+def _held(name, got, want, tol):
+    """The largest difference of the card's result from the CPU's, relative
+    to the CPU result's largest magnitude; asserts it is within `tol`."""
+    got = got.detach().cpu()
+    want = want.detach()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max()) / scale
+    assert got.shape == want.shape and torch.isfinite(got).all() \
+        and err <= tol, f"{name}: card against CPU {err:.3g} > {tol}"
+    return err
+
+
+def _fwd_bwd(fn, inputs, wrt, seed):
+    """fn(*inputs) and the gradients of sum(out * cot) in the inputs
+    numbered `wrt`, cot a normal draw of the output's shape from `seed`
+    (made on the CPU, so both devices take the same)."""
+    ins = [t.detach().clone().requires_grad_(i in wrt)
+           for i, t in enumerate(inputs)]
+    out = fn(*ins)
+    gen = torch.Generator().manual_seed(seed)
+    cot = torch.randn(out.shape, generator=gen).to(out.device)
+    grads = torch.autograd.grad(out, [ins[i] for i in wrt], cot)
+    return out.detach(), grads
+
+
+def rcnn_ops(card, dev, rois):
+    """(b) the op tail at published widths, each through its npx name on
+    the card (forward) and through `ops.contrib` on both devices (forward
+    and one backward), held against the CPU: ROI Align of (a)'s rois over
+    res4 (1, 1024, 38, 63) at 14 x 14, scale 1/16, ratio 2 (its backward
+    on the first RCNN_GRAD_ROIS rois); R-FCN's PS ROI pooling (21 classes x
+    7 x 7 = 1029 maps); DCN's res5 deformable convolution (512 -> 512, 3
+    x 3, pad 1, offsets of a few pixels; all four gradients); the bilinear
+    resize 2x up and 1/2 down."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    h, w = RCNN_FEAT
+    c4 = torch.randn((1, RCNN_C4, h, w), generator=gen, device=dev)
+    maps = torch.randn((1, RFCN_CLASSES * RFCN_GROUP ** 2, h, w),
+                       generator=gen, device=dev)
+    x5 = torch.randn((1, DCN_CHANNELS, h, w), generator=gen, device=dev)
+    off = torch.randn((1, 18, h, w), generator=gen, device=dev) * 2.0
+    wt = torch.randn((DCN_CHANNELS, DCN_CHANNELS, 3, 3), generator=gen,
+                     device=dev) / math.sqrt(9 * DCN_CHANNELS)
+    bias = torch.randn((DCN_CHANNELS,), generator=gen, device=dev) * 0.1
+    scale = 1.0 / 16
+    cases = [
+        ("roi_align",
+         lambda d, r: contrib.roi_align(d, r, RCNN_POOL, scale, 2),
+         lambda d, r: mx.npx.roi_align(d, r, RCNN_POOL, spatial_scale=scale,
+                                       sample_ratio=2),
+         [c4, rois], [0]),
+        ("psroi_pooling",
+         lambda d, r: contrib.psroi_pooling(d, r, scale, RFCN_CLASSES,
+                                            RFCN_GROUP),
+         lambda d, r: mx.npx.psroi_pooling(d, r, scale, RFCN_CLASSES,
+                                           RFCN_GROUP),
+         [maps, rois], [0]),
+        ("deformable_convolution",
+         lambda *a: contrib.deformable_convolution(*a, pad=(1, 1)),
+         lambda *a: mx.npx.deformable_convolution(*a, pad=(1, 1)),
+         [x5, off, wt, bias], [0, 1, 2, 3]),
+        ("bilinear_resize2d up",
+         lambda d: contrib.bilinear_resize2d(d, 2 * h, 2 * w),
+         lambda d: mx.npx.bilinear_resize2d(d, 2 * h, 2 * w), [c4], [0]),
+        ("bilinear_resize2d down",
+         lambda d: contrib.bilinear_resize2d(d, h // 2, w // 2),
+         lambda d: mx.npx.bilinear_resize2d(d, h // 2, w // 2), [c4], [0]),
+    ]
+    out = {}
+    for k, (name, fn, npx_fn, inputs, wrt) in enumerate(cases):
+        op = name.split()[0]
+        t0 = time.perf_counter()
+        got = npx_fn(*[mx.np.array(t) for t in inputs])._t
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu_in = [t.cpu() for t in inputs]
+        want = fn(*cpu_in)
+        fwd = _held(name, got, want, RCNN_TOL[op])
+        if op == "roi_align":     # the backward over the first rois
+            inputs = [inputs[0], inputs[1][:RCNN_GRAD_ROIS]]
+            cpu_in = [cpu_in[0], cpu_in[1][:RCNN_GRAD_ROIS]]
+        gout, ggrads = _fwd_bwd(fn, inputs, wrt, seed=30 + k)
+        torch.cuda.synchronize()
+        wout, wgrads = _fwd_bwd(fn, cpu_in, wrt, seed=30 + k)
+        bwd = max(_held(f"{name} gradient {i}", g, v, RCNN_TOL["grad"])
+                  for i, g, v in zip(wrt, ggrads, wgrads))
+        out[name] = {"shape": list(got.shape), "forward_err": fwd,
+                     "grad_err": bwd, "npx_ms": ms}
+        log(f"[rcnn b] {card}: {name} {list(got.shape)} on the card "
+            f"({ms:.2f} ms through npx): forward {fwd:.3g}, gradients "
+            f"{bwd:.3g} (relative to the CPU's largest magnitude; limits "
+            f"{RCNN_TOL[op]}, {RCNN_TOL['grad']})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def pretrained_check(card, dev):
+    """(c) a reference-format `.params` ResNet-50 v1 written from seeded
+    weights with the port's writer, loaded with `pretrained=True` on the
+    card: its values the written ones, and its batch-32 forward (float32,
+    deterministic cuDNN) bit-equal to the same net loaded from `.npz`."""
+    import tempfile
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import model_store
+    src = vision.resnet50_v1(device="cpu", seed=7)
+    src(torch.zeros((1, 3, 224, 224)))            # resolve deferred shapes
+    values = {n: src._file_layout(n, p.data())
+              for n, p in src.collect_params().items()}
+    del src
+    gen = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn((PRETRAINED_BATCH, 3, 224, 224), generator=gen,
+                    device=dev)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            proot, nroot = os.path.join(root, "p"), os.path.join(root, "n")
+            os.makedirs(proot)
+            os.makedirs(nroot)
+            t0 = time.perf_counter()
+            model_store.save_params_file(
+                os.path.join(proot, "resnet50_v1.params"), values)
+            write_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(os.path.join(proot,
+                                                  "resnet50_v1.params"))
+            np.savez(os.path.join(nroot, "resnet50_v1.npz"), **values)
+            t0 = time.perf_counter()
+            a = vision.resnet50_v1(pretrained=True, root=proot, device=dev)
+            load_s = time.perf_counter() - t0
+            b = vision.resnet50_v1(pretrained=True, root=nroot, device=dev)
+        for n, p in a.collect_params().items():
+            assert p.data().device == dev
+            assert np.array_equal(a._file_layout(n, p.data()), values[n]), n
+        ya, yb = a(x), b(x)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert ya.shape == (PRETRAINED_BATCH, 1000) and \
+        torch.isfinite(ya).all(), "pretrained forward not finite"
+    assert torch.equal(ya, yb), "the .params net's forward is not the " \
+        ".npz net's"
+    log(f"[rcnn c] {card}: resnet50_v1(pretrained=True) from a "
+        f"{nbytes}-byte reference .params ({len(values)} arrays, written "
+        f"{write_s:.2f} s, loaded {load_s:.2f} s) on the card: values "
+        f"equal, batch-{PRETRAINED_BATCH} forward bit-equal to the .npz "
+        f"net's")
+    del a, b
+    torch.cuda.empty_cache()
+    return {"arrays": len(values), "bytes": nbytes, "write_s": write_s,
+            "load_s": load_s}
+
+
+def pick_check(card, dev):
+    """(d) `npx.pick` with `mode` on the card (out-of-range indices
+    clipped in both modes) equal to the CPU's."""
+    gen = torch.Generator().manual_seed(25)
+    x = torch.randn((4, 7), generator=gen)
+    idx = torch.tensor([-3, 9, 2, 100], dtype=torch.int32)
+    res = {}
+    for mode in ("clip", "wrap"):
+        with mx.cpu():
+            want = mx.npx.pick(mx.np.array(x), mx.np.array(idx), mode=mode)
+        got = mx.npx.pick(mx.np.array(x.to(dev)), mx.np.array(idx.to(dev)),
+                          mode=mode)
+        assert got._t.device == dev and torch.equal(got._t.cpu(), want._t)
+        res[mode] = got.asnumpy().tolist()
+    log(f"[rcnn d] {card}: npx.pick(mode=clip / wrap) on the card equal to "
+        f"the CPU: {res['clip']}")
+    return res
+
+
+def phase_rcnn(card, dev):
+    """Phase 21."""
+    t0 = time.perf_counter()
+    prop = proposal_run(card, dev)
+    ops = rcnn_ops(card, dev, prop.pop("rois"))
+    pre = pretrained_check(card, dev)
+    pick = pick_check(card, dev)
+    took = time.perf_counter() - t0
+    log(f"[rcnn] phase 21 took {took:.1f} s")
+    return {"proposal": prop, "ops": ops, "pretrained": pre, "pick": pick,
+            "seconds": took}
+
+
+def proposal_entry(rcnn):
+    p = rcnn["proposal"]
+    return {"name": "proposal_sweep", "route": "cuda",
+            "source": "incubator_mxnet_tpu_torch/ops/csrc/nms.cu",
+            "replaces": None, "launches": p["launches"],
+            "max_abs_err": p["max_abs_err"], "ms": p["ms"],
+            "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+            "bound_by": p["bound_by"], "library_ms": None,
+            "mask_iou_tests": p["mask_iou_tests"],
+            "mask_bytes": p["mask_bytes"],
+            "proposal_ms": p["call_ms"],
+            "proposal_median_ms": p["call_median_ms"],
+            "shape": f"B=1 A={RCNN_PRE} float32 boxes, pixel-inclusive IoU "
+                     f"{RCNN_NMS}, {p['alive']} rows alive, "
+                     f"{p['iou_tests']} IoU tests (no PyTorch call computes "
+                     f"greedy NMS)"}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every result to this JSON "
@@ -8078,6 +8507,7 @@ def main():
     estimator = timed("19 estimator", phase_estimator, card, dev)
     tunesan = timed("20 tune sanitize", phase_tune_sanitize, card, dev,
                     children)
+    rcnn = timed("21 rcnn", phase_rcnn, card, dev)
     log(f"[timing] build {build_s:.1f} s, phases "
         f"{sum(seconds.values()):.1f} s: " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -8157,6 +8587,9 @@ def main():
             p: r["launches_per_step"].get(e["name"], 0)
             for p, r in detect["remat"]["bert"].items()}
     entries.append(nms_entry(ssd))
+    # phase 21's path: the proposal op's sweep, counted on counts set to 0
+    # just before its npx.proposal call
+    entries.append(proposal_entry(rcnn))
     # phase 15's path: the augment kernel's launches on the fed steps
     entries.append(augment_entry(io))
     # phase 16's paths, each counted on counts set to 0 just before it: the
@@ -8214,7 +8647,7 @@ def main():
                        "detection": detect, "array": array, "io": io,
                        "resilient": resilient, "deploy": deploy,
                        "telemetry": tel, "estimator": estimator,
-                       "tune_sanitize": tunesan}, f,
+                       "tune_sanitize": tunesan, "rcnn": rcnn}, f,
                       indent=1, default=str)
     print(card)
     print(json.dumps({"kernels": [entry] + [

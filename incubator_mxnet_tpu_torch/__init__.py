@@ -69,12 +69,19 @@ Ported so far:
     `sanitize` (the in-place check, the recompile sentinel and the slot
     canary), loaded at first use (`mx.tune`, `mx.sanitize`) as the JAX
     package loads them, so the `tune` counters register when a knob site
-    or a caller first needs them.
+    or a caller first needs them;
+  * the Faster-RCNN / R-FCN op tail (`npx.roi_align`, `bilinear_resize2d`,
+    `proposal`, whose sweep runs on the NMS kernels under the proposal
+    op's IoU, `deformable_convolution`, `psroi_pooling`), the local
+    pretrained-weight store (`gluon.model_zoo.model_store`, reading the
+    zoo's `.npz` and the reference's `.params`), and `runtime`, `util`,
+    `test_utils` and `visualization`, loaded at first use as the JAX
+    package loads them.
 
 Typical use:  import incubator_mxnet_tpu_torch as mx
 """
 from .base import MXNetError, get_env, set_env, env_flags
-from .device import (Device, Context, cpu, gpu, tpu, num_gpus,
+from .device import (Device, Context, cpu, gpu, tpu, num_gpus, num_tpus,
                      current_device, current_context, device_memory_info,
                      gpu_memory_info, default_device, resolve_device)
 from . import telemetry, profiler
@@ -93,7 +100,7 @@ from . import inspect
 
 __all__ = ["MXNetError", "get_env", "set_env", "env_flags",
            "default_device", "resolve_device",
-           "Device", "Context", "cpu", "gpu", "tpu", "num_gpus",
+           "Device", "Context", "cpu", "gpu", "tpu", "num_gpus", "num_tpus",
            "current_device", "current_context", "device_memory_info",
            "gpu_memory_info", "NDArray", "waitall", "seed", "ndarray", "nd",
            "np", "npx", "context", "engine",
@@ -103,7 +110,8 @@ __all__ = ["MXNetError", "get_env", "set_env", "env_flags",
            "profiler", "inspect"]
 
 # loaded at first attribute access, as the JAX package's `_LAZY` modules
-_LAZY = ("tune", "sanitize")
+_LAZY = ("tune", "sanitize", "runtime", "util", "test_utils",
+         "visualization")
 
 
 def __getattr__(name):

@@ -25,43 +25,88 @@ package's does:
       autograd.backward(scaled)  # the trainer divides the scale back out
   amp.step_with_overflow_check(trainer, batch_size)  # skips on inf/nan
   amp.uninit()                   deactivate
+
+`autocast(active)` turns the policy on or off for a block of this thread
+(nested as in the JAX package), `convert_hybrid_block(net)` casts a net's
+float parameters to the target dtype, and `lists_version()` counts the
+changes of the policy.
 """
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
 
 import torch
 
 from ..base import MXNetError
-from .lists import BF16_FUNCS, FP32_FUNCS
+from .lists import BF16_FUNCS, FP32_FUNCS, WIDEST_TYPE_CASTS
 
 __all__ = ["init", "uninit", "is_active", "target_dtype", "amp_dtype_for",
            "op_dtype", "cast_inputs", "all_finite", "LossScaler",
            "init_trainer", "scale_loss", "step_with_overflow_check",
-           "BF16_FUNCS", "FP32_FUNCS"]
+           "autocast", "convert_hybrid_block", "lists_version",
+           "BF16_FUNCS", "FP32_FUNCS", "WIDEST_TYPE_CASTS"]
 
-_state = {"active": False, "target_dtype": "bfloat16"}
+_state = {"active": False, "target_dtype": "bfloat16", "version": 0}
+# per thread: how many autocast(False) blocks are open
+_tls = threading.local()
 
 _TORCH = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
 
 
-def init(target_dtype="bfloat16"):
-    """Activate autocast (as `amp.init` of the JAX package, with its
-    default op lists)."""
+def lists_version():
+    """A counter raised at every change the policy could see (init,
+    uninit, the op lists `init` extends)."""
+    return _state["version"]
+
+
+def init(target_dtype="bfloat16", target_precision_ops=None,
+         conditional_fp32_ops=None, fp32_ops=None):
+    """Activate autocast (as `amp.init` of the JAX package): the names in
+    `target_precision_ops` join `BF16_FUNCS`, those in `fp32_ops`
+    `FP32_FUNCS`; `conditional_fp32_ops` is taken and not used, as in the
+    JAX package."""
     if target_dtype not in ("bfloat16", "float16"):
         raise MXNetError(f"target_dtype must be bfloat16 or float16; got "
                          f"{target_dtype!r}")
     _state["active"] = True
     _state["target_dtype"] = target_dtype
+    _state["version"] += 1
+    if target_precision_ops:
+        BF16_FUNCS.update(target_precision_ops)
+    if fp32_ops:
+        FP32_FUNCS.update(fp32_ops)
 
 
 def uninit():
     _state["active"] = False
+    _state["version"] += 1
 
 
 def is_active():
+    if getattr(_tls, "suspended", 0):
+        return False
     return _state["active"]
+
+
+@contextmanager
+def autocast(active=True):
+    """Turn autocast on (`active`) or off for the block, on this thread:
+    an inner autocast(True) turns it on again inside an autocast(False)
+    block, and each block leaves the state as it found it."""
+    prev_susp = getattr(_tls, "suspended", 0)
+    prev_active = _state["active"]
+    if active:
+        _tls.suspended = 0
+        _state["active"] = True
+    else:
+        _tls.suspended = prev_susp + 1
+    try:
+        yield
+    finally:
+        _tls.suspended = prev_susp
+        _state["active"] = prev_active
 
 
 def target_dtype():
@@ -165,6 +210,18 @@ def scale_loss(loss, trainer):
         yield [l * scaler.loss_scale for l in loss]
     else:
         yield loss * scaler.loss_scale
+
+
+def convert_hybrid_block(net, target_dtype="bfloat16", cast_params=True,
+                         excluded_sym_names=None, device=None):
+    """Cast every floating-point parameter of `net` that holds a value to
+    `target_dtype` (as the JAX package's offline conversion does; its
+    other arguments are taken and not used). Returns `net`."""
+    if cast_params:
+        for p in net.collect_params().values():
+            if p._data is not None and p._data.is_floating_point():
+                p.cast(target_dtype)
+    return net
 
 
 def step_with_overflow_check(trainer, batch_size):

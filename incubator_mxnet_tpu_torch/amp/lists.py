@@ -32,3 +32,5 @@ FP32_FUNCS = {
     # losses
     "ctc_loss", "smooth_l1", "true_divide", "divide", "mod",
 }
+
+WIDEST_TYPE_CASTS = set()  # the JAX package's: none, dtypes promote as usual

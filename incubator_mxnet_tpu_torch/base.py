@@ -2,9 +2,9 @@
 layer and the dtype names.
 
 Counterpart of `incubator_mxnet_tpu/base.py`. The port keeps its own copy
-of what it needs from there (`MXNetError`, the flag registry with
-`env_flags` / `get_env` / `set_env`, the dtype table), so that it never
-imports the JAX package. Crash-consistent file writes are
+of what it needs from there (`MXNetError` and the typed errors, the flag
+registry with `env_flags` / `get_env` / `set_env`, the dtype table), so
+that it never imports the JAX package. Crash-consistent file writes are
 `fault.atomic_output`.
 
 The dtype table (`name_to_dtype`, `to_torch_dtype`, `from_torch_dtype`)
@@ -22,15 +22,51 @@ import os
 import numpy as _np
 import torch
 
-__all__ = ["MXNetError", "get_env", "set_env", "env_flags", "torch_dtype",
-           "BFLOAT16", "name_to_dtype", "to_torch_dtype",
-           "from_torch_dtype", "numeric_types"]
+__all__ = ["MXNetError", "NotImplementedForSymbol", "InternalError",
+           "ValueError_", "TypeError_", "IndexError_", "AttributeError_",
+           "NotImplementedError_", "get_env", "set_env", "env_flags",
+           "torch_dtype", "BFLOAT16", "DTYPE_NAMES", "name_to_dtype",
+           "dtype_to_name", "to_torch_dtype", "from_torch_dtype",
+           "numeric_types", "integer_types", "string_types"]
 
+string_types = (str,)
 numeric_types = (float, int, _np.generic)
+integer_types = (int, _np.integer)
 
 
 class MXNetError(RuntimeError):
     """Base error for all framework errors (reference: python/mxnet/error.py:27)."""
+
+
+# the JAX package's typed errors: each an MXNetError, and the builtin it
+# names where there is one
+class InternalError(MXNetError):
+    """Framework-internal invariant violation."""
+
+
+class NotImplementedForSymbol(MXNetError):
+    """Operation unavailable in traced/deferred mode."""
+
+
+class ValueError_(MXNetError, ValueError):
+    pass
+
+
+class TypeError_(MXNetError, TypeError):
+    pass
+
+
+class IndexError_(MXNetError, IndexError):
+    pass
+
+
+class AttributeError_(MXNetError, AttributeError):
+    pass
+
+
+class NotImplementedError_(MXNetError, NotImplementedError):
+    pass
+
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +211,12 @@ class _BFloat16(str):
 
 BFLOAT16 = _BFloat16("bfloat16")
 
+# the dtype names arrays take (the reference's Python-visible names)
+DTYPE_NAMES = (
+    "float32", "float64", "float16", "bfloat16",
+    "uint8", "int8", "int16", "int32", "int64", "bool",
+)
+
 _TO_TORCH = {
     "float32": torch.float32, "float64": torch.float32,
     "float16": torch.float16, "bfloat16": torch.bfloat16,
@@ -209,6 +251,14 @@ def name_to_dtype(name):
     if getattr(name, "name", None) == "bfloat16":
         return BFLOAT16
     return _np.dtype(name)
+
+
+def dtype_to_name(dtype):
+    """The name of a dtype (a numpy dtype, `BFLOAT16` or a name):
+    "bfloat16" for bfloat16, else numpy's name."""
+    if getattr(dtype, "name", None) == "bfloat16" or dtype == "bfloat16":
+        return "bfloat16"
+    return _np.dtype(dtype).name
 
 
 def to_torch_dtype(dtype):

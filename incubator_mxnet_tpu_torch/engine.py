@@ -11,6 +11,11 @@ on the device's stream as it is called, so the engine's surface maps as:
                           ops into one compiled segment; PyTorch has no
                           counterpart (CUDA-graph capture is ROADMAP A2)
   stats()              -> ops.registry.dispatch_stats()
+  NaiveEngine          -> MXNET_ENGINE_TYPE=NaiveEngine or `set_naive(True)`:
+                          every op dispatched through `ops.registry.invoke`
+                          waits for the card before it returns (one op at
+                          a time, as the reference's NaiveEngine); the
+                          bulk size in force is then 0
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ from contextlib import contextmanager
 
 from .base import get_env
 
-__all__ = ["bulk", "set_bulk_size", "current_bulk_size", "waitall",
+__all__ = ["bulk", "set_bulk_size", "current_bulk_size",
+           "effective_bulk_size", "is_naive", "set_naive", "waitall",
            "wait_for_all", "stats"]
 
 _bulk_size = [None]
@@ -42,6 +48,30 @@ def current_bulk_size():
     if v is not None:
         return int(v)
     return int(get_env("MXNET_ENGINE_BULK_SIZE", 4096, int))
+
+
+def effective_bulk_size():
+    """The bulk size in force: 0 under NaiveEngine."""
+    return 0 if is_naive() else current_bulk_size()
+
+
+_naive = [None]  # None: follow MXNET_ENGINE_TYPE; a bool: set_naive's
+
+
+def is_naive():
+    """True under MXNET_ENGINE_TYPE=NaiveEngine (read at each call) unless
+    `set_naive` overrode it."""
+    if _naive[0] is not None:
+        return _naive[0]
+    return get_env("MXNET_ENGINE_TYPE") == "NaiveEngine"
+
+
+def set_naive(value):
+    """Turn synchronous dispatch on or off (None: follow the env var
+    again). Returns the previous effective setting."""
+    prev = is_naive()
+    _naive[0] = value if value is None else bool(value)
+    return prev
 
 
 @contextmanager

@@ -1,4 +1,6 @@
-"""gluon.model_zoo of the PyTorch port."""
-from . import detection, vision
+"""gluon.model_zoo of the PyTorch port: the vision catalog, SSD, and the
+local pretrained-weight store."""
+from . import detection, model_store, vision
+from .vision import get_model
 
-__all__ = ["detection", "vision"]
+__all__ = ["detection", "model_store", "vision", "get_model"]

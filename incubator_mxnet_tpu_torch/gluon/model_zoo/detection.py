@@ -12,7 +12,8 @@ are 38, 19, 10, 5, 3 and 1 wide, 8732 anchors in all.
 
 `ssd_300_vgg16` takes `device=` (default: the card; without one it
 raises) and `seed=`, and returns an initialized net whose deferred shapes
-resolve at the first forward; `pretrained=True` raises.
+resolve at the first forward; with `pretrained=True` it loads
+`<root>/ssd_300_vgg16.npz` (or `.params`) instead, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from ...ops import contrib as _contrib
 from ...ops import nn as _ops
 from .. import nn
 from ..block import HybridBlock
-from .vision import _no_download
+from .vision import _load_pretrained
 
 __all__ = ["SSD300", "ssd_300_vgg16", "ssd_anchor_sizes"]
 
@@ -141,10 +142,11 @@ class SSD300(HybridBlock):
             negative_mining_ratio=negative_mining_ratio)
 
 
-def ssd_300_vgg16(classes=20, layout="NCHW", pretrained=False, device=None,
-                  seed=0):
+def ssd_300_vgg16(classes=20, layout="NCHW", pretrained=False, root=None,
+                  device=None, seed=0):
     """The SSD-300/VGG16 preset (GluonCV's ssd_300_vgg16_atrous), drawn on
-    `device` (default: the card) from `seed`."""
-    _no_download(pretrained)
-    return SSD300(classes=classes, layout=layout).initialize(device=device,
-                                                             seed=seed)
+    `device` (default: the card) from `seed`, or with the local weights of
+    `ssd_300_vgg16` under `root` when `pretrained`."""
+    net = SSD300(classes=classes, layout=layout).initialize(device=device,
+                                                            seed=seed)
+    return _load_pretrained(net, "ssd_300_vgg16", pretrained, root)

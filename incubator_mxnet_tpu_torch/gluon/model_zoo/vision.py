@@ -25,8 +25,10 @@ The model functions take `device=` (default: the card; without one they
 raise) and `seed=`, and return an initialized net: random weights from the
 seed (`HybridBlock.initialize`; another initializer through
 `net.initialize(init, force_reinit=True)`), or the JAX package's through
-`gluon.params_from_jax`. `pretrained=True` raises: the port downloads
-nothing.
+`gluon.params_from_jax`. `pretrained=True` (with `root=`) loads local
+weights, as the JAX package does: `<root>/<name>.npz` or the reference's
+`<root>/<name>.params` (`model_store.load_pretrained`); nothing is
+downloaded.
 """
 from __future__ import annotations
 
@@ -301,22 +303,26 @@ _resnet_spec = {
 }
 
 
-def _no_download(pretrained):
+def _load_pretrained(net, name, pretrained, root=None):
+    """`net`, with `name`'s local weights under `root` loaded when
+    `pretrained` (`model_store.load_pretrained`)."""
     if pretrained:
-        raise MXNetError("pretrained weights are not supported by the port; "
-                         "carry weights across with gluon.params_from_jax")
+        from .model_store import load_pretrained
+        load_pretrained(net, name, root=root)
+    return net
 
 
-def _build(klass, *args, pretrained=False, device=None, seed=0, **kwargs):
-    _no_download(pretrained)
-    return klass(*args, **kwargs).initialize(device=device, seed=seed)
+def _build(klass, *args, name, pretrained=False, root=None, device=None,
+           seed=0, **kwargs):
+    net = klass(*args, **kwargs).initialize(device=device, seed=seed)
+    return _load_pretrained(net, name, pretrained, root)
 
 
-def get_resnet(version, num_layers, pretrained=False, device=None, seed=0,
-               **kwargs):
+def get_resnet(version, num_layers, pretrained=False, root=None, device=None,
+               seed=0, **kwargs):
     """A ResNet of the given version (1 or 2) and depth, initialized on
-    `device` (default: the card) from `seed`."""
-    _no_download(pretrained)
+    `device` (default: the card) from `seed`, or with the local weights
+    of `resnet<depth>_v<version>` under `root` when `pretrained`."""
     if version not in (1, 2):
         raise MXNetError(f"no ResNet version {version}; 1 or 2")
     if num_layers not in _resnet_spec:
@@ -329,7 +335,9 @@ def get_resnet(version, num_layers, pretrained=False, device=None, seed=0,
     else:
         block = BasicBlockV2 if block_type == "basic_block" else BottleneckV2
         net = ResNetV2(block, layers, channels, **kwargs)
-    return net.initialize(device=device, seed=seed)
+    return _load_pretrained(net.initialize(device=device, seed=seed),
+                            f"resnet{num_layers}_v{version}", pretrained,
+                            root)
 
 
 def resnet18_v1(**kw): return get_resnet(1, 18, **kw)
@@ -438,14 +446,36 @@ class MobileNetV2(HybridBlock):
         return self.output(self.features(x))
 
 
-def mobilenet1_0(**kw): return _build(MobileNet, 1.0, **kw)
-def mobilenet0_75(**kw): return _build(MobileNet, 0.75, **kw)
-def mobilenet0_5(**kw): return _build(MobileNet, 0.5, **kw)
-def mobilenet0_25(**kw): return _build(MobileNet, 0.25, **kw)
-def mobilenet_v2_1_0(**kw): return _build(MobileNetV2, 1.0, **kw)
-def mobilenet_v2_0_75(**kw): return _build(MobileNetV2, 0.75, **kw)
-def mobilenet_v2_0_5(**kw): return _build(MobileNetV2, 0.5, **kw)
-def mobilenet_v2_0_25(**kw): return _build(MobileNetV2, 0.25, **kw)
+def mobilenet1_0(**kw):
+    return _build(MobileNet, 1.0, name="mobilenet1.0", **kw)
+
+
+def mobilenet0_75(**kw):
+    return _build(MobileNet, 0.75, name="mobilenet0.75", **kw)
+
+
+def mobilenet0_5(**kw):
+    return _build(MobileNet, 0.5, name="mobilenet0.5", **kw)
+
+
+def mobilenet0_25(**kw):
+    return _build(MobileNet, 0.25, name="mobilenet0.25", **kw)
+
+
+def mobilenet_v2_1_0(**kw):
+    return _build(MobileNetV2, 1.0, name="mobilenetv2_1.0", **kw)
+
+
+def mobilenet_v2_0_75(**kw):
+    return _build(MobileNetV2, 0.75, name="mobilenetv2_0.75", **kw)
+
+
+def mobilenet_v2_0_5(**kw):
+    return _build(MobileNetV2, 0.5, name="mobilenetv2_0.5", **kw)
+
+
+def mobilenet_v2_0_25(**kw):
+    return _build(MobileNetV2, 0.25, name="mobilenetv2_0.25", **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -474,7 +504,7 @@ class AlexNet(HybridBlock):
         return self.output(self.features(x))
 
 
-def alexnet(**kw): return _build(AlexNet, **kw)
+def alexnet(**kw): return _build(AlexNet, name="alexnet", **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -509,8 +539,10 @@ _vgg_spec = {11: ([1, 1, 2, 2, 2], [64, 128, 256, 512, 512]),
 
 
 def get_vgg(num_layers, **kwargs):
+    bn = "_bn" if kwargs.get("batch_norm") else ""
     layers, filters = _vgg_spec[num_layers]
-    return _build(VGG, layers, filters, **kwargs)
+    return _build(VGG, layers, filters, name=f"vgg{num_layers}{bn}",
+                  **kwargs)
 
 
 def vgg11(**kw): return get_vgg(11, **kw)
@@ -577,8 +609,12 @@ class SqueezeNet(HybridBlock):
         return self.output(self.features(x))
 
 
-def squeezenet1_0(**kw): return _build(SqueezeNet, "1.0", **kw)
-def squeezenet1_1(**kw): return _build(SqueezeNet, "1.1", **kw)
+def squeezenet1_0(**kw):
+    return _build(SqueezeNet, "1.0", name="squeezenet1.0", **kw)
+
+
+def squeezenet1_1(**kw):
+    return _build(SqueezeNet, "1.1", name="squeezenet1.1", **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -655,7 +691,8 @@ _densenet_spec = {121: (64, 32, [6, 12, 24, 16]),
 
 
 def get_densenet(num_layers, **kwargs):
-    return _build(DenseNet, *_densenet_spec[num_layers], **kwargs)
+    return _build(DenseNet, *_densenet_spec[num_layers],
+                  name=f"densenet{num_layers}", **kwargs)
 
 
 def densenet121(**kw): return get_densenet(121, **kw)
@@ -777,7 +814,8 @@ class Inception3(HybridBlock):
         return self.output(self.features(x))
 
 
-def inception_v3(**kw): return _build(Inception3, **kw)
+def inception_v3(**kw):
+    return _build(Inception3, name="inceptionv3", **kw)
 
 
 _models = {

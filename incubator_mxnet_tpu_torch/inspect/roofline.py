@@ -221,6 +221,11 @@ FLASH_PRODUCTS = {"flash_fwd": 2, "flash_fwd_lse": 2, "flash_bwd_dq": 3,
 # clamps, a product; the later box's area: 2 sub, 2 clamps, a product; the
 # union's add and sub; the quotient; the comparison)
 IOU_OPS = 19
+# the same for the proposal op's pixel-inclusive IoU test (2 max, 2 min, 2
+# sub, 2 adds of the pixel, 2 clamps, a product; the later box's area: 2
+# sub, 2 adds, a product; the union's add and sub; the quotient; the
+# comparison)
+IOU_PLUS_ONE_OPS = 20
 # float32 operations of one output element of the augment (scale, mean,
 # std, cast)
 AUGMENT_OPS = 4
@@ -298,6 +303,13 @@ def _nms(B, A, iou_tests=None, ids=True):
     return out
 
 
+def _proposal_sweep(B, A, iou_tests=None):
+    out = _nms(B, A, iou_tests, ids=False)
+    out["flops"] = IOU_PLUS_ONE_OPS * iou_tests if iou_tests is not None \
+        else 0
+    return out
+
+
 def _augment(N, ch, cw, in_dtype, out_dtype, cr=3, cout=3):
     return {"flops": AUGMENT_OPS * N * ch * cw * cout,
             "bytes": N * ch * cw * (cr * _item(in_dtype)
@@ -317,6 +329,7 @@ KERNELS = {
     "flash_bwd_dq": _flash("flash_bwd_dq"),
     "flash_bwd_dkv": _flash("flash_bwd_dkv"),
     "nms_sweep": _nms,
+    "proposal_sweep": _proposal_sweep,
     "image_augment": _augment,
 }
 
@@ -342,6 +355,8 @@ def kernel_cost(name, **shape):
       nms_sweep        B, A, iou_tests=None, ids=True (boxes, ids and the
                        keep mask in and out; 19 f32 ops an IoU test the
                        inputs need, or bytes only, flagged, when unknown)
+      proposal_sweep   B, A, iou_tests=None (nms_sweep's without ids, 20
+                       f32 ops a pixel-inclusive IoU test)
       image_augment    N, ch, cw, in_dtype, out_dtype, cr=3, cout=3 (the
                        crop's cr channels read, cout written)
 

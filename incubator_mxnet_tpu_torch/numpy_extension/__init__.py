@@ -13,14 +13,13 @@ The kernel ops run the port's hand-written CUDA kernels for CUDA arrays
 `fused_batch_norm` run B1 (the scale/shift/activation apply),
 `fused_avg_pool2d` B2 / B3, `flash_attention` B5-B8 (AMP class "safe"),
 `paged_attention` B4 (float and int8 slabs), `box_nms` and
-`multibox_detection` the NMS sweep, `fused_image_augment` the input path's
-augment kernel (port-only). An `interpret=` argument is accepted
-where the JAX signature has one and changes nothing: a CUDA array still
-launches the kernel or raises.
+`multibox_detection` the NMS sweep, `proposal` the same sweep kernels
+under the proposal op's pixel-inclusive IoU, `fused_image_augment` the
+input path's augment kernel (port-only). An `interpret=` argument is
+accepted where the JAX signature has one and changes nothing: a CUDA array
+still launches the kernel or raises.
 
-Not in this slice (each raises naming its queue): the Faster-RCNN ops
-`roi_align`, `bilinear_resize2d`, `proposal`, `deformable_convolution` and
-`psroi_pooling` (ROADMAP A5's remainder) and `rnn` (A12, with
+Not in this slice: `rnn`, which raises naming its queue (A12, with
 `gluon.rnn`).
 """
 from __future__ import annotations
@@ -554,11 +553,70 @@ def multibox_prior(data, sizes=(1.0,), ratios=(1.0,), clip=False,
                            layout=layout)
 
 
-roi_align = _not_ported("roi_align", "A5")
-bilinear_resize2d = _not_ported("bilinear_resize2d", "A5")
-proposal = _not_ported("proposal", "A5")
-deformable_convolution = _not_ported("deformable_convolution", "A5")
-psroi_pooling = _not_ported("psroi_pooling", "A5")
+# the Faster-RCNN / R-FCN tail, with the JAX package's AMP classes (the
+# deformable convolution is product-bound, "safe"; the box and pooled
+# sampling arithmetic stays float32, "unsafe")
+_roi_align = _op("roi_align", _contrib.roi_align, amp="unsafe")
+_bilinear_resize2d = _op("bilinear_resize2d", _contrib.bilinear_resize2d,
+                         amp="unsafe")
+_proposal = _op("proposal", _contrib.proposal, amp="unsafe")
+_deformable_convolution = _op("deformable_convolution",
+                              _contrib.deformable_convolution, amp="safe")
+_psroi_pooling = _op("psroi_pooling", _contrib.psroi_pooling, amp="unsafe")
+
+
+def roi_align(data, rois, pooled_size, spatial_scale=1.0, sample_ratio=2):
+    """ROI Align of `rois` (R, 5) over `data` (N, C, H, W): (R, C, ph,
+    pw)."""
+    if not isinstance(pooled_size, int):
+        pooled_size = tuple(pooled_size)
+    return _roi_align(data, rois, pooled_size=pooled_size,
+                      spatial_scale=spatial_scale, sample_ratio=sample_ratio)
+
+
+def bilinear_resize2d(data, height, width, layout="NCHW"):
+    """`jax.image.resize`'s linear resize of an NCHW (or NHWC) batch to
+    height x width."""
+    return _bilinear_resize2d(data, height=int(height), width=int(width),
+                              layout=layout)
+
+
+def proposal(cls_prob, bbox_pred, im_info, rpn_pre_nms_top_n=6000,
+             rpn_post_nms_top_n=300, threshold=0.7, rpn_min_size=16,
+             scales=(4, 8, 16, 32), ratios=(0.5, 1, 2), feature_stride=16,
+             output_score=False, iou_loss=False):
+    """RPN proposals (rois (post_n, 5), and their scores with
+    `output_score`); the sweep runs on the card's kernel. No backward."""
+    return _proposal(cls_prob, bbox_pred, im_info,
+                     rpn_pre_nms_top_n=int(rpn_pre_nms_top_n),
+                     rpn_post_nms_top_n=int(rpn_post_nms_top_n),
+                     threshold=float(threshold),
+                     rpn_min_size=rpn_min_size, scales=tuple(scales),
+                     ratios=tuple(ratios),
+                     feature_stride=int(feature_stride),
+                     output_score=bool(output_score),
+                     iou_loss=bool(iou_loss))
+
+
+def deformable_convolution(data, offset, weight, bias=None, kernel=(3, 3),
+                           stride=(1, 1), pad=(0, 0), dilate=(1, 1),
+                           num_deformable_group=1):
+    """Deformable convolution v1 (offset (B, 2 G kh kw, Ho, Wo))."""
+    return _deformable_convolution(
+        data, offset, weight, bias, kernel=tuple(kernel),
+        stride=tuple(stride), pad=tuple(pad), dilate=tuple(dilate),
+        num_deformable_group=int(num_deformable_group))
+
+
+def psroi_pooling(data, rois, spatial_scale, output_dim, pooled_size,
+                  group_size=0):
+    """Position-sensitive ROI pooling (R-FCN): (R, output_dim, P, P)."""
+    return _psroi_pooling(data, rois, spatial_scale=spatial_scale,
+                          output_dim=int(output_dim),
+                          pooled_size=int(pooled_size),
+                          group_size=int(group_size))
+
+
 rnn = _not_ported("rnn", "A12 (gluon.rnn)")
 
 

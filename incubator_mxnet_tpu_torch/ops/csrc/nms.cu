@@ -43,6 +43,22 @@
 //     the words after that, a word a warp. Every load is issued a step
 //     before it is used. One block barrier a 64-row block, none a row.
 //
+// A second convention, for the Faster-RCNN proposal op's sweep
+// (incubator_mxnet_tpu_torch/ops/contrib.py :: proposal_sweep_ref; the JAX
+// package's proposal sweep, incubator_mxnet_tpu/ops/contrib.py ::
+// _proposal_body, again a lax.fori_loop): kPlusOne measures IoU pixel-
+// inclusive, as the reference's proposal op does. Every width and height
+// is (x2 - x1) + 1, the overlap's clamped at 0 (NaN-propagating max and
+// min, as torch.maximum and jnp.maximum), and the quotient inter / ((a_i +
+// a_j) - inter) has no guard: x / 0 is inf and 0 / 0 NaN, as on the CPU.
+// There are no class ids. Its prefilter: a pair is a candidate where its
+// overlap's (x2 - x1) + 1 and (y2 - y1) + 1, computed as the IoU computes
+// them, are both positive. Any other pair's overlap clamps to 0 (or is
+// NaN), so its IoU is +-0 or NaN, above no threshold >= 0; under a
+// negative threshold the prefilter proves nothing and every later column
+// takes the IoU. A box need not be proper here: boxes inverted by less
+// than a pixel (rpn_min_size 0) still have a positive + 1 extent.
+//
 // The mask lives in a workspace the caller allocates: (images, words, A)
 // 64-bit words, word w of row i at [w][i], so a warp's 32 rows write 256
 // contiguous bytes and a block's kept rows of one word lie within 512.
@@ -87,6 +103,37 @@ __device__ __forceinline__ bool proper(float4 b) {
   return b.z > b.x && b.w > b.y;
 }
 
+// torch.maximum / torch.minimum: NaN if either operand is NaN (fmaxf and
+// fminf return the other operand)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+
+// the pixel-inclusive extent of the overlap of [lo_a, hi_a] and [lo_b,
+// hi_b]: (min(hi) - max(lo)) + 1, not clamped
+__device__ __forceinline__ float extent1(float lo_a, float hi_a, float lo_b,
+                                         float hi_b) {
+  return __fadd_rn(__fsub_rn(min_nan(hi_a, hi_b), max_nan(lo_a, lo_b)), 1.f);
+}
+
+// the pixel-inclusive area ((x2 - x1) + 1) ((y2 - y1) + 1), not clamped
+__device__ __forceinline__ float area1(float4 b) {
+  return __fmul_rn(__fadd_rn(__fsub_rn(b.z, b.x), 1.f),
+                   __fadd_rn(__fsub_rn(b.w, b.y), 1.f));
+}
+
+// proposal_sweep_ref's IoU: inter / ((area_a + area_b) - inter), unguarded
+__device__ __forceinline__ float iou1(float4 a, float area_a, float4 b,
+                                      float area_b) {
+  const float iw = max_nan(0.f, extent1(a.x, a.z, b.x, b.z));
+  const float ih = max_nan(0.f, extent1(a.y, a.w, b.y, b.w));
+  const float inter = __fmul_rn(iw, ih);
+  return __fdiv_rn(inter, __fsub_rn(__fadd_rn(area_a, area_b), inter));
+}
+
 // grid (images, row blocks): the heaviest row blocks (the first, whose
 // rows meet the most later ones) of every image start first. Lane
 // l of warp c takes rows 64 rb + l and 64 rb + 32 + l of the block and
@@ -103,7 +150,8 @@ __device__ __forceinline__ bool proper(float4 b) {
 // candidates, the IoU (op by op) runs on the candidates alone, and every
 // other column of the row's class hits iff 0 > thresh. A column dead at
 // the start is no candidate either: no kept row's bit for it is ever read.
-template <bool kIds>
+// kPlusOne (never with ids): the pixel-inclusive IoU and its prefilter.
+template <bool kIds, bool kPlusOne>
 __global__ void __launch_bounds__(kMaskThreads, kMaskBlocks)
 nms_mask_kernel(const float4* __restrict__ boxes,
                 const float* __restrict__ ids,
@@ -128,7 +176,7 @@ nms_mask_kernel(const float4* __restrict__ boxes,
     row[h] = rb * 64 + 32 * h + lane;
     live[h] = row[h] < A && keep[img * A + row[h]];
     bi[h] = live[h] ? __ldg(bx + row[h]) : make_float4(0.f, 0.f, 0.f, 0.f);
-    ai[h] = area(bi[h]);
+    ai[h] = kPlusOne ? area1(bi[h]) : area(bi[h]);
     pi[h] = proper(bi[h]);
     idi[h] = kIds && live[h] ? __ldg(id + row[h]) : 0.f;
   }
@@ -142,10 +190,10 @@ nms_mask_kernel(const float4* __restrict__ boxes,
       if (j < A) {
         const float4 bj = __ldg(bx + j);
         col_box[q] = bj;
-        col_test[q] = proper(bj) && keep[img * A + j]
+        col_test[q] = (kPlusOne || proper(bj)) && keep[img * A + j]
                           ? bj
                           : make_float4(NAN, NAN, NAN, NAN);
-        col_area[q] = area(bj);
+        col_area[q] = kPlusOne ? area1(bj) : area(bj);
         col_id[q] = kIds ? __ldg(id + j) : 0.f;
       }
     }
@@ -163,8 +211,11 @@ nms_mask_kernel(const float4* __restrict__ boxes,
         const float bid = kIds ? cid[32 * half + t] : 0.f;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const bool x = b.z > bi[h].x && bi[h].z > b.x && b.w > bi[h].y &&
-                         bi[h].w > b.y && (!kIds || bid == idi[h]);
+          const bool x =
+              kPlusOne ? extent1(bi[h].x, bi[h].z, b.x, b.z) > 0.f &&
+                             extent1(bi[h].y, bi[h].w, b.y, b.w) > 0.f
+                       : b.z > bi[h].x && bi[h].z > b.x && b.w > bi[h].y &&
+                             bi[h].w > b.y && (!kIds || bid == idi[h]);
           cand[h][half] |= x ? 1u << t : 0u;
         }
       }
@@ -177,9 +228,15 @@ nms_mask_kernel(const float4* __restrict__ boxes,
       // and after the row
       const int t0 = w == rb ? 32 * h + lane + 1 : 0;
       const u64 range = (t0 >= 64 ? 0ull : ~0ull << t0) & inside;
-      u64 cb = pi[h] ? (((u64)cand[h][1] << 32) | cand[h][0]) & range : 0;
+      u64 cb = (((u64)cand[h][1] << 32) | cand[h][0]) & range;
       u64 bits = 0;
-      if (zero_hits) {
+      if (kPlusOne) {
+        // a negative threshold: the prefilter proves nothing
+        if (zero_hits) cb = range;
+      } else if (!pi[h]) {
+        cb = 0;
+      }
+      if (!kPlusOne && zero_hits) {
         u64 same = 0;
         for (int t = 0; t < 64; ++t)
           if (!kIds || cid[t] == idi[h]) same |= 1ull << t;
@@ -188,8 +245,10 @@ nms_mask_kernel(const float4* __restrict__ boxes,
       while (cb) {
         const int t = __ffsll((long long)cb) - 1;
         cb &= cb - 1;
-        if (iou(bi[h], ai[h], col_box[c * 64 + t], col_area[c * 64 + t]) >
-            thresh)
+        const float4 bj = col_box[c * 64 + t];
+        const float aj = col_area[c * 64 + t];
+        if ((kPlusOne ? iou1(bi[h], ai[h], bj, aj)
+                      : iou(bi[h], ai[h], bj, aj)) > thresh)
           bits |= 1ull << t;
       }
       mk[(long long)w * A + row[h]] = bits;
@@ -311,16 +370,12 @@ nms_resolve_kernel(const u64* __restrict__ mask, uint8_t* keep, int A,
   }
 }
 
-}  // namespace
-
-// boxes (B, A, 4) float32, ids (B, A) float32 or null (every row one
-// class), keep (B, A) bytes, read as the rows alive at the start and
-// written with the rows kept, mask the workspace of B * ceil(A / 64) * A
-// 64-bit words. B >= 1, A >= 1. Two kernels on `stream`; returns
-// cudaGetLastError() after the launches (0 on success), never synchronises.
-extern "C" int mx_nms_sweep(int device, const void* boxes, const void* ids,
-                            void* keep, void* mask, int B, int A,
-                            float thresh, void* stream) {
+// The two kernels on `stream` for B images of A rows: the mask pass of
+// the given convention, then the resolve pass. Returns cudaGetLastError()
+// after the launches (0 on success); never synchronises.
+int launch_sweep(bool plus_one, int device, const void* boxes,
+                 const void* ids, void* keep, void* mask, int B, int A,
+                 float thresh, void* stream) {
   if (B <= 0 || A <= 0 || mask == nullptr) return (int)cudaErrorInvalidValue;
   const int n_words = (A + 63) / 64;
   const size_t smem = (size_t)n_words * sizeof(u64);
@@ -335,7 +390,9 @@ extern "C" int mx_nms_sweep(int device, const void* boxes, const void* ids,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   if (err == cudaSuccess) {
-    auto kern = ids ? nms_mask_kernel<true> : nms_mask_kernel<false>;
+    auto kern = plus_one ? nms_mask_kernel<false, true>
+                : ids    ? nms_mask_kernel<true, false>
+                         : nms_mask_kernel<false, false>;
     kern<<<dim3(B, n_words), kMaskThreads, 0, st>>>(
         static_cast<const float4*>(boxes), static_cast<const float*>(ids),
         static_cast<const uint8_t*>(keep), static_cast<u64*>(mask), A,
@@ -350,6 +407,29 @@ extern "C" int mx_nms_sweep(int device, const void* boxes, const void* ids,
   }
   if (prev != device) cudaSetDevice(prev);
   return (int)err;
+}
+
+}  // namespace
+
+// boxes (B, A, 4) float32, ids (B, A) float32 or null (every row one
+// class), keep (B, A) bytes, read as the rows alive at the start and
+// written with the rows kept, mask the workspace of B * ceil(A / 64) * A
+// 64-bit words. B >= 1, A >= 1. Two kernels on `stream`; returns
+// cudaGetLastError() after the launches (0 on success), never synchronises.
+extern "C" int mx_nms_sweep(int device, const void* boxes, const void* ids,
+                            void* keep, void* mask, int B, int A,
+                            float thresh, void* stream) {
+  return launch_sweep(false, device, boxes, ids, keep, mask, B, A, thresh,
+                      stream);
+}
+
+// mx_nms_sweep's contract under the pixel-inclusive IoU of the proposal
+// op, without class ids.
+extern "C" int mx_proposal_sweep(int device, const void* boxes, void* keep,
+                                 void* mask, int B, int A, float thresh,
+                                 void* stream) {
+  return launch_sweep(true, device, boxes, nullptr, keep, mask, B, A, thresh,
+                      stream);
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

@@ -37,7 +37,7 @@ from ..base import MXNetError
 __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
            "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "flash_fwd_cuda",
            "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "nms_sweep_cuda",
-           "nms_mask_bytes",
+           "proposal_sweep_cuda", "nms_mask_bytes",
            "image_augment_cuda",
            "flash_fwd_route",
            "flash_bwd_route", "paged_route", "pool_route", "augment_route",
@@ -80,6 +80,8 @@ flash_bwd_dq_wgmma_launches = 0
 flash_bwd_dkv_wgmma_launches = 0
 # the detection tail's greedy NMS sweep (port-only: no TPU kernel)
 nms_sweep_launches = 0
+# the same kernels under the proposal op's pixel-inclusive IoU
+proposal_sweep_launches = 0
 # the input path's crop / mirror / normalize / cast (port-only)
 image_augment_launches = 0
 # the augment launches (of the one above) by route (`augment_route`)
@@ -126,7 +128,8 @@ def reset_launch_counts():
         flash_fwd_wgmma_launches, flash_fwd_lse_wgmma_launches, \
         flash_bwd_dq_launches, flash_bwd_dkv_launches, \
         flash_bwd_dq_wgmma_launches, flash_bwd_dkv_wgmma_launches, \
-        nms_sweep_launches, image_augment_launches, \
+        nms_sweep_launches, proposal_sweep_launches, \
+        image_augment_launches, \
         image_augment_table_launches, image_augment_direct_launches, \
         image_augment_scalar_launches
     paged_attention_launches = 0
@@ -146,6 +149,7 @@ def reset_launch_counts():
     flash_bwd_dq_wgmma_launches = 0
     flash_bwd_dkv_wgmma_launches = 0
     nms_sweep_launches = 0
+    proposal_sweep_launches = 0
     image_augment_launches = 0
     image_augment_table_launches = 0
     image_augment_direct_launches = 0
@@ -180,6 +184,7 @@ def launch_counts():
             "flash_bwd_dq_wgmma": flash_bwd_dq_wgmma_launches,
             "flash_bwd_dkv_wgmma": flash_bwd_dkv_wgmma_launches,
             "nms_sweep": nms_sweep_launches,
+            "proposal_sweep": proposal_sweep_launches,
             "image_augment": image_augment_launches,
             "image_augment_table": image_augment_table_launches,
             "image_augment_direct": image_augment_direct_launches,
@@ -336,6 +341,10 @@ def _load(name):
                 lib.mx_nms_sweep.restype = ctypes.c_int
                 lib.mx_nms_sweep.argtypes = (
                     [ctypes.c_int] + [ctypes.c_void_p] * 4
+                    + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+                lib.mx_proposal_sweep.restype = ctypes.c_int
+                lib.mx_proposal_sweep.argtypes = (
+                    [ctypes.c_int] + [ctypes.c_void_p] * 3
                     + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
             lib.mx_cuda_error_string.restype = ctypes.c_char_p
             lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
@@ -971,23 +980,8 @@ def nms_mask_bytes(images, A):
     return images * (-(-A // 64)) * A * 8
 
 
-def nms_sweep_cuda(boxes, ids, keep, thresh):
-    """Launch the greedy NMS sweep (`csrc/nms.cu`): the keep mask after
-    sweeping rows already in score order, as `ops.contrib.nms_sweep_ref`
-    computes it, bit for bit.
-
-    `boxes`: contiguous (B, A, 4) float32 corner boxes; `ids`: contiguous
-    (B, A) float32 class ids, or None (one class); `keep`: (B, A) bool, the
-    rows alive at the start (not modified); `thresh`: the IoU above which a
-    later row is suppressed, rounded to float32 as PyTorch's comparison
-    rounds it. Returns a new (B, A) bool mask. The kernels first write a
-    suppression bitmask (`nms_mask_bytes`) into an int64 workspace
-    allocated here, then sweep it; past `NMS_MASK_CAP_BYTES` the images go
-    in groups, each its own pair of kernels over one workspace (each image
-    is swept on its own, so the bits are the same). One call counts one
-    launch. Raises `MXNetError` on any input the kernel does not take."""
-    global nms_sweep_launches
-    name = "nms_sweep_cuda"
+def _sweep_checked(name, boxes, ids, keep):
+    """The checks both sweeps' wrappers make; raises `MXNetError`."""
     tensors = [boxes, keep] + ([ids] if ids is not None else [])
     _check_cuda(name, tensors)
     if boxes.dim() != 3 or boxes.shape[2] != 4 \
@@ -1005,28 +999,81 @@ def nms_sweep_cuda(boxes, ids, keep, thresh):
     if not all(t.is_contiguous() for t in tensors):
         raise MXNetError(f"{name}: boxes, ids and keep must be contiguous")
     _check_aligned(name, boxes=boxes)
+
+
+def _sweep(kernel, boxes, ids, keep, thresh):
+    """The keep mask after the two kernels of `csrc/nms.cu` (`kernel`:
+    "nms_sweep", or "proposal_sweep" for the pixel-inclusive IoU, which
+    takes no ids), the images in groups past `NMS_MASK_CAP_BYTES`, each
+    group its own pair of launches over one workspace."""
     out = keep.clone()
     if out.numel() == 0:
         return out
+    B, A = boxes.shape[:2]
     lib = _load("nms")
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     group = max(1, min(B, NMS_MASK_CAP_BYTES // nms_mask_bytes(1, A)))
     mask = torch.empty(nms_mask_bytes(group, A) // 8, dtype=torch.int64,
                        device=boxes.device)
+    plus_one = kernel == "proposal_sweep"
+    fn = lib.mx_proposal_sweep if plus_one else lib.mx_nms_sweep
     for b0 in range(0, B, group):
         b1 = min(B, b0 + group)
-        launch = lib.mx_nms_sweep if _CAPTURE is None else _captured(
-            lib.mx_nms_sweep, "nms_sweep", B=b1 - b0, A=A,
-            ids=ids is not None)
-        rc = launch(
-            boxes.device.index or 0, boxes[b0:b1].data_ptr(),
-            ids[b0:b1].data_ptr() if ids is not None else None,
-            out[b0:b1].data_ptr(), mask.data_ptr(), b1 - b0, A,
-            float(thresh), stream)
+        launch = fn if _CAPTURE is None else _captured(
+            fn, kernel, B=b1 - b0, A=A,
+            **({} if plus_one else {"ids": ids is not None}))
+        ptrs = (boxes[b0:b1].data_ptr(),)
+        if not plus_one:
+            ptrs += (ids[b0:b1].data_ptr() if ids is not None else None,)
+        rc = launch(boxes.device.index or 0, *ptrs, out[b0:b1].data_ptr(),
+                    mask.data_ptr(), b1 - b0, A, float(thresh), stream)
         if rc != 0:
-            raise _launch_failed(lib, "nms_sweep", rc)
-    nms_sweep_launches += 1
-    _count_dtype("nms_sweep", boxes.dtype)
+            raise _launch_failed(lib, kernel, rc)
+    return out
+
+
+def nms_sweep_cuda(boxes, ids, keep, thresh):
+    """Launch the greedy NMS sweep (`csrc/nms.cu`): the keep mask after
+    sweeping rows already in score order, as `ops.contrib.nms_sweep_ref`
+    computes it, bit for bit.
+
+    `boxes`: contiguous (B, A, 4) float32 corner boxes; `ids`: contiguous
+    (B, A) float32 class ids, or None (one class); `keep`: (B, A) bool, the
+    rows alive at the start (not modified); `thresh`: the IoU above which a
+    later row is suppressed, rounded to float32 as PyTorch's comparison
+    rounds it. Returns a new (B, A) bool mask. The kernels first write a
+    suppression bitmask (`nms_mask_bytes`) into an int64 workspace
+    allocated here, then sweep it; past `NMS_MASK_CAP_BYTES` the images go
+    in groups, each its own pair of kernels over one workspace (each image
+    is swept on its own, so the bits are the same). One call counts one
+    launch. Raises `MXNetError` on any input the kernel does not take."""
+    global nms_sweep_launches
+    _sweep_checked("nms_sweep_cuda", boxes, ids, keep)
+    out = _sweep("nms_sweep", boxes, ids, keep, thresh)
+    if out.numel():
+        nms_sweep_launches += 1
+        _count_dtype("nms_sweep", boxes.dtype)
+    return out
+
+
+def proposal_sweep_cuda(boxes, keep, thresh):
+    """Launch the proposal op's greedy sweep (`csrc/nms.cu`, the
+    pixel-inclusive instance of the NMS kernels): the keep mask after
+    sweeping rows already in score order, as
+    `ops.contrib.proposal_sweep_ref` computes it, bit for bit.
+
+    `boxes`: contiguous (B, A, 4) float32 corner boxes; `keep`: (B, A)
+    bool, the rows alive at the start (not modified); `thresh`: as
+    `nms_sweep_cuda`'s. No class ids. Returns a new (B, A) bool mask; the
+    workspace and the groups as `nms_sweep_cuda`'s. One call counts one
+    launch in `proposal_sweep_launches`. Raises `MXNetError` on any input
+    the kernel does not take."""
+    global proposal_sweep_launches
+    _sweep_checked("proposal_sweep_cuda", boxes, None, keep)
+    out = _sweep("proposal_sweep", boxes, None, keep, thresh)
+    if out.numel():
+        proposal_sweep_launches += 1
+        _count_dtype("proposal_sweep", boxes.dtype)
     return out
 
 

@@ -408,9 +408,10 @@ def log_softmax(x, axis=-1):
     return torch.log_softmax(x, dim=axis)
 
 
-def pick(x, index, axis=-1, keepdims=False):
-    """Select one element along `axis` per position (indices clipped to
-    the axis, as the JAX package's mode='clip')."""
+def pick(x, index, axis=-1, keepdims=False, mode="clip"):
+    """Select one element along `axis` per position. The indices are
+    clipped to the axis in every `mode` ("clip" or "wrap"), as the JAX
+    package clips them."""
     axis = axis % x.ndim
     idx = index.to(device=x.device, dtype=torch.int64).clamp(
         0, x.shape[axis] - 1)

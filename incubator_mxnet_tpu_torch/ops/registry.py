@@ -18,7 +18,9 @@ Counterpart of `incubator_mxnet_tpu/ops/registry.py`. Every `mx.np`,
     element);
   * counts itself in `dispatch_stats()`: "dispatch" (every call) and
     "eager_fallback" (calls run op by op: every call here), the names the
-    JAX package's `ops/segment.py` `DISPATCH_STATS` gives them.
+    JAX package's `ops/segment.py` `DISPATCH_STATS` gives them;
+  * under NaiveEngine (`engine.is_naive()`) waits for the card before it
+    returns, when its inputs are on one.
 
 The JAX package also defers eager ops into bulked segments and keeps a
 per-key cache of jitted kernels; PyTorch runs each op as it is called, so
@@ -31,6 +33,7 @@ import torch
 
 from .. import amp as _amp
 from .. import autograd
+from .. import engine as _engine
 from ..base import MXNetError
 from ..telemetry.registry import REGISTRY
 
@@ -187,6 +190,8 @@ def invoke(fn, args, name="", op=None, kwargs=None, wrap=True):
             _set_grad(True)
     else:
         out = fn(*raw, **(kwargs or _EMPTY))
+    if dev is not None and dev.type == "cuda" and _engine.is_naive():
+        torch.cuda.synchronize(dev)
     if not wrap:
         return out
     if type(out) is _Tensor:

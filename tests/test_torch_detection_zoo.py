@@ -249,7 +249,10 @@ def test_ssd300_npz_loads_into_jax(tmp_path):
     assert_values_close(jax_values(jnet), port_values(tnet), 0, 0, "npz")
 
 
-def test_ssd300_preset_refuses_pretrained():
-    with pytest.raises(MXNetError, match="pretrained"):
-        tdet.ssd_300_vgg16(pretrained=True, device="cpu")
+def test_ssd300_preset_refuses_pretrained(tmp_path):
+    # no weight file under the root: the JAX package's message
+    with pytest.raises(MXNetError, match="no pretrained weights for "
+                       "'ssd_300_vgg16'"):
+        tdet.ssd_300_vgg16(pretrained=True, root=str(tmp_path),
+                           device="cpu")
     assert tdet.ssd_anchor_sizes() == jdet.ssd_anchor_sizes()

@@ -633,6 +633,8 @@ PERF_ROWS = [
      "operations"),
     ("NMS (32, 8732)", "nms_sweep",
      dict(B=32, A=8732, iou_tests=30_070_329), 0.0085, "operations"),
+    ("proposal (1, 6000)", "proposal_sweep",
+     dict(B=1, A=6000, iou_tests=7_338_333), 0.0022, "operations"),
     ("augment", "image_augment",
      dict(N=32, ch=224, cw=224, in_dtype=torch.uint8, out_dtype=bf16),
      0.0043, "bytes"),
@@ -665,6 +667,19 @@ def test_kernel_cost_flags_an_nms_launch_it_cannot_count():
     assert cost["bytes"] == 32 * 8732 * (16 + 4 + 2)
     with pytest.raises(MXNetError, match="no kernel"):
         troofline.kernel_cost("no_such_kernel")
+
+
+def test_kernel_cost_of_the_proposal_sweep():
+    """The pixel-inclusive route: nms_sweep's bytes without ids, 20 f32
+    operations an IoU test, or bytes only, flagged, when the tests are
+    not known."""
+    c = troofline.kernel_cost("proposal_sweep", B=1, A=6000,
+                              iou_tests=1_000_000)
+    assert c["flops"] == 20 * 1_000_000 and c["compute"] == "float32"
+    assert c["bytes"] == 6000 * (16 + 2) and "bytes_only" not in c
+    c = troofline.kernel_cost("proposal_sweep", B=2, A=10)
+    assert c["bytes_only"] and c["flops"] == 0 and c["bytes"] == 2 * 10 * 18
+    assert troofline.IOU_PLUS_ONE_OPS == troofline.IOU_OPS + 1
 
 
 def test_kernel_cost_formulas():

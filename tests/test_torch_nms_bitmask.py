@@ -11,6 +11,10 @@ pairs, the IoU runs on those); `_resolve` walks the 64-row blocks in
 order, resolves a block's rows from their diagonal words and the bits
 removed so far (the kernel's fixed point), then ORs each kept row's
 words for later blocks into the removed bits. The emulation must equal `nms_sweep_ref` bit for bit, and
+its pixel-inclusive instance (the proposal op's IoU: `+ 1` on every width
+and height, no guard on the division, a pair a candidate where both its
+overlap's `+ 1` extents are positive, every later column under a negative
+threshold) must equal `proposal_sweep_ref`; and
 `box_nms` / `multibox_detection` swept by it must equal the JAX package's
 on the same numpy inputs (exactly, as tests/test_torch_detection_ops.py
 holds them). The wrapper's workspace, its grouping of images past the cap
@@ -24,6 +28,7 @@ import torch
 
 from incubator_mxnet_tpu.ops import contrib as jcontrib
 
+from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.ops import contrib as tcontrib
 from incubator_mxnet_tpu_torch.ops import kernels
 
@@ -37,29 +42,44 @@ WORD = 64
 U64 = (1 << 64) - 1
 
 
-def _mask_words(boxes, ids, keep, thresh):
+def _mask_words(boxes, ids, keep, thresh, plus_one=False):
     """The mask kernel's words: (B, ceil(A / 64), A) int64, word w of row i
     at [w, i]; rows dead at the start hold 0 (the kernel writes nothing
     there, and the sweep never reads them). As the kernel builds them:
     comparisons pick the candidates (two proper boxes whose edges overlap,
     the column alive at the start), the IoU runs on those, and every other
-    later column of the row's class hits iff 0 > thresh."""
+    later column of the row's class hits iff 0 > thresh. With `plus_one`
+    (no ids): a candidate is a pair whose overlap's (x2 - x1) + 1 and
+    (y2 - y1) + 1 are both positive, the column alive at the start, or
+    every column under a negative threshold; only candidates hit."""
     B, A = boxes.shape[:2]
     n = -(-A // WORD)
     x1, y1, x2, y2 = (boxes[..., c] for c in range(4))
-    proper = (x2 > x1) & (y2 > y1)
-    cand = ((x2[:, :, None] > x1[:, None]) & (x2[:, None] > x1[:, :, None])
-            & (y2[:, :, None] > y1[:, None]) & (y2[:, None] > y1[:, :, None])
-            & proper[:, :, None] & proper[:, None] & keep[:, None])
-    area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
-    iw = (torch.minimum(x2[:, :, None], x2[:, None])
-          - torch.maximum(x1[:, :, None], x1[:, None])).clamp(min=0)
-    ih = (torch.minimum(y2[:, :, None], y2[:, None])
-          - torch.maximum(y1[:, :, None], y1[:, None])).clamp(min=0)
-    inter = iw * ih
-    union = area[:, :, None] + area[:, None] - inter
-    iou = torch.where(union > 0, inter / union, 0.0)
-    hit = torch.where(cand, iou > thresh, torch.tensor(0.0 > thresh))
+    ew = (torch.minimum(x2[:, :, None], x2[:, None])
+          - torch.maximum(x1[:, :, None], x1[:, None]))
+    eh = (torch.minimum(y2[:, :, None], y2[:, None])
+          - torch.maximum(y1[:, :, None], y1[:, None]))
+    if plus_one:
+        ew, eh = ew + 1.0, eh + 1.0
+        cand = (ew > 0) & (eh > 0) & keep[:, None]
+        if 0.0 > thresh:
+            cand = torch.ones_like(cand)
+        area = ((x2 - x1) + 1.0) * ((y2 - y1) + 1.0)
+        inter = ew.clamp(min=0) * eh.clamp(min=0)
+        iou = inter / ((area[:, :, None] + area[:, None]) - inter)
+        hit = cand & (iou > thresh)
+    else:
+        proper = (x2 > x1) & (y2 > y1)
+        cand = ((x2[:, :, None] > x1[:, None])
+                & (x2[:, None] > x1[:, :, None])
+                & (y2[:, :, None] > y1[:, None])
+                & (y2[:, None] > y1[:, :, None])
+                & proper[:, :, None] & proper[:, None] & keep[:, None])
+        area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+        inter = ew.clamp(min=0) * eh.clamp(min=0)
+        union = area[:, :, None] + area[:, None] - inter
+        iou = torch.where(union > 0, inter / union, 0.0)
+        hit = torch.where(cand, iou > thresh, torch.tensor(0.0 > thresh))
     cols = torch.arange(A)
     hit &= (cols[None, :] > cols[:, None])[None]
     if ids is not None:
@@ -107,9 +127,10 @@ def _resolve(words, keep):
     return torch.tensor(out, dtype=torch.bool)
 
 
-def bitmask_sweep(boxes, ids, keep, thresh):
-    """`nms_sweep_ref`'s contract, computed as the two kernels do."""
-    words = _mask_words(boxes, ids, keep, thresh)
+def bitmask_sweep(boxes, ids, keep, thresh, plus_one=False):
+    """`nms_sweep_ref`'s contract (`proposal_sweep_ref`'s with
+    `plus_one`), computed as the two kernels do."""
+    words = _mask_words(boxes, ids, keep, thresh, plus_one)
     return torch.stack([_resolve(words[b], keep[b])
                         for b in range(boxes.shape[0])])
 
@@ -248,6 +269,10 @@ class _FakeNms:
         self.calls.append(args)
         return 0
 
+    def mx_proposal_sweep(self, *args):
+        self.calls.append(("proposal",) + args)
+        return 0
+
 
 @pytest.fixture
 def fake_nms(monkeypatch):
@@ -325,3 +350,91 @@ def test_nms_wrapper_passes_no_ids_for_one_class(fake_nms):
     kernels.nms_sweep_cuda(boxes, None, keep, 0.5)
     (call,) = fake_nms.calls
     assert call[2] is None
+
+
+# ---------------------------------------------------------------------------
+# the pixel-inclusive instance: proposal's sweep
+# ---------------------------------------------------------------------------
+def _pixel_boxes(rng, B, A, grid=40, size=10):
+    """Integer pixel boxes on a small grid: many pairs overlap, touch at a
+    pixel or share a pixel line; some are a pixel wide or one pixel."""
+    xy = rng.randint(0, grid, (B, A, 2)).astype(np.float32)
+    wh = rng.randint(0, size, (B, A, 2)).astype(np.float32)
+    return torch.from_numpy(np.concatenate([xy, xy + wh], -1))
+
+
+@pytest.mark.parametrize("A", [1, 2, 63, 64, 65, 129, 200])
+def test_plus_one_bitmask_sweep_equals_the_proposal_sweep(A):
+    rng = np.random.RandomState(400 + A)
+    B = 2
+    boxes = _pixel_boxes(rng, B, A)
+    keep = torch.from_numpy(rng.rand(B, A) > 0.15)
+    for thresh in (0.7, 0.3, 0.0, -0.1):
+        want = tcontrib.proposal_sweep_ref(boxes, keep, thresh)
+        got = bitmask_sweep(boxes, None, keep, thresh, plus_one=True)
+        assert torch.equal(got, want), (A, thresh)
+    if A >= 63:     # at 0.3 and 0.0 the pixel IoU suppresses rows
+        for thresh in (0.3, 0.0):
+            want = tcontrib.proposal_sweep_ref(boxes, keep, thresh)
+            assert int(want.sum()) < int(keep.sum())
+
+
+def test_plus_one_bitmask_sweep_at_the_edges_of_its_iou():
+    """Pairs the continuous prefilter would drop and the pixel IoU does
+    not: a shared pixel line, one pixel twice, a touching corner; boxes
+    inverted by under a pixel (rpn_min_size 0 keeps them: their + 1
+    extent is positive); a NaN box (IoU NaN: never a hit); an infinite
+    one; a union of 0 (0 / 0) under a negative threshold; an IoU exactly
+    at the threshold (kept)."""
+    nan, inf = float("nan"), float("inf")
+    rows = [[100, 100, 100, 140], [100, 100, 100, 141],   # 41 / 42
+            [7, 7, 7, 7], [7, 7, 7, 7],                   # IoU 1
+            [60, 60, 64, 64], [64, 64, 68, 68],           # 1 / 49
+            [30.5, 30.25, 30.0, 30.0], [30.4, 30.2, 30.1, 30.05],
+            [5, nan, 9, 9], [5, 5, 9, 9],
+            [-inf, 0, inf, 3],
+            [50, 50, 49, 49], [50, 50, 49, 49],           # areas 0: 0 / 0
+            [0, 0, 1, 0], [1, 0, 2, 0]]                   # 1 / 3
+    boxes = torch.tensor([rows], dtype=torch.float32)
+    keep = torch.ones(1, len(rows), dtype=torch.bool)
+    for thresh in (0.7, 1 / 3, 0.02, 0.0, -0.1, -1.0):
+        want = tcontrib.proposal_sweep_ref(boxes, keep, thresh)
+        got = bitmask_sweep(boxes, None, keep, thresh, plus_one=True)
+        assert torch.equal(got, want), thresh
+    got = bitmask_sweep(boxes, None, keep, 0.7, plus_one=True)
+    assert not got[0, 1] and not got[0, 3]     # the pixel IoU suppresses
+    assert bool(tcontrib.nms_sweep_ref(boxes, None, keep, 0.7)[0, 1])
+    got = bitmask_sweep(boxes, None, keep, 1 / 3, plus_one=True)
+    assert bool(got[0, 14])                    # IoU exactly 1 / 3: kept
+
+
+def test_plus_one_words_hold_only_candidates_at_a_threshold_of_0():
+    """At threshold 0 a word holds the later live columns whose + 1 overlap
+    is positive in both extents: sharing a pixel counts, the next pixel
+    over does not."""
+    boxes = torch.tensor([[[0, 0, 4, 4], [4, 4, 8, 8], [5, 0, 9, 4],
+                           [9, 9, 9, 9]]], dtype=torch.float32)
+    keep = torch.ones(1, 4, dtype=torch.bool)
+    words = _mask_words(boxes, None, keep, 0.0, plus_one=True)
+    bits = [int(words[0, 0, i]) & U64 for i in range(4)]
+    assert bits == [0b0010, 0b0100, 0b0000, 0b0000]
+
+
+def test_proposal_wrapper_launches_its_own_entry(fake_nms):
+    """`proposal_sweep_cuda` calls the library's `mx_proposal_sweep` (no
+    ids), over the nms workspace, and counts in its own counter."""
+    B, A = 2, 70
+    boxes, _, keep = _nms_args(B, A, with_ids=False)
+    kernels.proposal_sweep_cuda(boxes, keep, 0.7)
+    ws, = [t for t in fake_nms.empties if t.dtype == torch.int64]
+    (call,) = fake_nms.calls
+    assert call[0] == "proposal"
+    assert call[2] == boxes.data_ptr() and call[4] == ws.data_ptr()
+    assert call[5:7] == (B, A)
+    assert abs(call[7] - 0.7) < 1e-7
+    assert kernels.launch_counts()["proposal_sweep"] == 1
+    assert kernels.launch_counts()["nms_sweep"] == 0
+    assert kernels.launch_counts_by_dtype() == {
+        ("proposal_sweep", "float32"): 1}
+    with pytest.raises(MXNetError, match="float32"):
+        kernels.proposal_sweep_cuda(boxes.double(), keep, 0.7)

@@ -6,7 +6,8 @@ and result dtypes must agree (float32: rtol 1e-5 / atol 1e-5 unless a case
 states more; the JAX fused ops run their Pallas kernels in interpret mode,
 as tests/test_torch_fused_ops.py runs them). Also: the kernel ops reach the
 kernels' plain versions on CPU arrays (the launch counters stay 0), the
-control flow, the names left for later raise, and AMP at dispatch gives
+control flow, the name left for later raises, `pick` takes `mode` (C18),
+and AMP at dispatch gives
 every registered name the JAX package's result dtype.
 """
 import numpy as np
@@ -348,12 +349,24 @@ def test_np_mode_scopes_and_io(tmp_path):
     np.testing.assert_array_equal(back[0].asnumpy(), X2)
 
 
-@pytest.mark.parametrize("name", ["roi_align", "bilinear_resize2d",
-                                  "proposal", "deformable_convolution",
-                                  "psroi_pooling", "rnn"])
+@pytest.mark.parametrize("name", ["rnn"])
 def test_names_left_for_later_raise(name):
     with pytest.raises(tmx.MXNetError, match="ROADMAP"):
         getattr(tmx.npx, name)(tmx.np.ones(2, device=CPU))
+
+
+@pytest.mark.parametrize("mode", ["clip", "wrap"])
+@pytest.mark.parametrize("axis", [-1, 0])
+def test_pick_takes_mode_and_clips_as_jax(mode, axis):
+    """C18: `npx.pick(..., mode=)` is the JAX package's signature; both
+    packages clip an out-of-range index in every mode."""
+    idx = np.array([-3, 7, 2] if axis == -1 else [9, -1, 12], np.int32)
+    x = X2 if axis == -1 else X2.T.copy()
+    want = jmx.npx.pick(jmx.np.array(x), jmx.np.array(idx), axis=axis,
+                        mode=mode)
+    got = tmx.npx.pick(tmx.np.array(x, device=CPU),
+                       tmx.np.array(idx, device=CPU), axis=axis, mode=mode)
+    assert_parity(got, want, rtol=0, atol=0)
 
 
 def test_every_jax_npx_name_is_exported_and_cased():

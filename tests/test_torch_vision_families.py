@@ -111,12 +111,14 @@ def test_dense_relu_pairs_take_the_apply_kernel_in_a_fusion_scope():
     assert kernels.launch_counts()["scale_shift_act"] == 0
 
 
-def test_get_model_builds_every_jax_name():
+def test_get_model_builds_every_jax_name(tmp_path):
     assert sorted(tvision._models) == sorted(jvision._models)
     assert len(tvision._models) == 34
     with pytest.raises(MXNetError, match="not in the zoo"):
         tvision.get_model("vgg17")
-    with pytest.raises(MXNetError, match="pretrained"):
-        tvision.get_model("densenet121", pretrained=True, device="cpu")
+    with pytest.raises(MXNetError, match="no pretrained weights for "
+                       "'densenet121'"):
+        tvision.get_model("densenet121", pretrained=True,
+                          root=str(tmp_path), device="cpu")
     with pytest.raises(MXNetError, match="version"):
         tvision.SqueezeNet("1.2")

@@ -164,15 +164,17 @@ def test_get_model_builds_the_jax_packages_architecture(name):
     assert list(tnet.collect_params()) == list(jnet.collect_params())
 
 
-def test_get_model_names():
+def test_get_model_names(tmp_path):
     """Every name of the JAX package's zoo is the port's (the families
     other than ResNet and MobileNet: tests/test_torch_vision_families.py)."""
     assert set(PORTED) <= set(tvision._models)
     assert sorted(tvision._models) == sorted(jvision._models)
     with pytest.raises(MXNetError, match="not in the zoo"):
         tvision.get_model("resnet19_v3")
-    with pytest.raises(MXNetError, match="pretrained"):
-        tvision.get_model("resnet18_v2", pretrained=True, device="cpu")
+    with pytest.raises(MXNetError, match="no pretrained weights for "
+                       "'resnet18_v2'"):
+        tvision.get_model("resnet18_v2", pretrained=True,
+                          root=str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("fusion", [True, False], ids=["fused", "plain"])

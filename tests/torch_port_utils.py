@@ -377,6 +377,28 @@ def jax_amp_restored():
         jamp._tls.suspended = suspended
 
 
+@contextlib.contextmanager
+def port_amp_restored():
+    """Put the port's AMP state (`amp._state`, the op lists `init` extends,
+    this thread's autocast suspension) back as it was on exit."""
+    from incubator_mxnet_tpu_torch import amp as tamp
+    from incubator_mxnet_tpu_torch.amp import lists as tlists
+    state = dict(tamp._state)
+    lists = {n: set(getattr(tlists, n))
+             for n in ("BF16_FUNCS", "FP32_FUNCS", "WIDEST_TYPE_CASTS")}
+    suspended = getattr(tamp._tls, "suspended", 0)
+    try:
+        yield
+    finally:
+        tamp._state.clear()
+        tamp._state.update(state)
+        for n, saved in lists.items():
+            live = getattr(tlists, n)
+            live.clear()
+            live.update(saved)
+        tamp._tls.suspended = suspended
+
+
 # ---------------------------------------------------------------------------
 # the fault-injection state of both packages: rules, hit counts and whether
 # MXNET_FAULT_SPEC was read are process-global, and the driver's workers run

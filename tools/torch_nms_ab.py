@@ -72,18 +72,19 @@ def old_sweep(lib, boxes, ids, keep, thresh):
     return out
 
 
-def kernel_split(boxes, ids, keep, thresh, pair_ms):
+def kernel_split(call, pair_ms):
     """Device ms a launch of the mask pass and of the sweep over SPLIT_REPS
-    calls (torch.profiler, by the launches it recorded); both None unless
-    they add up to within SPLIT_AGREES of `pair_ms`, the CUDA-event time of
-    a call. Also the parts' sum as read."""
+    calls of `call()` (one call of a sweep's wrapper; torch.profiler, by
+    the launches it recorded); both None unless they add up to within
+    SPLIT_AGREES of `pair_ms`, the CUDA-event time of a call. Also the
+    parts' sum as read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(SPLIT_REPS):
-            kernels.nms_sweep_cuda(boxes, ids, keep, thresh)
+            call()
         torch.cuda.synchronize()
     out = {}
     for part, sym in (("mask_ms", "nms_mask_kernel"),
@@ -147,8 +148,7 @@ def main():
                 fn = old_fn if name == "old" else new_fn
                 times[name].append(cs.median_ms(fn, 5))
         reading = {n: float(np.median(t)) for n, t in times.items()}
-        reading.update(kernel_split(boxes, ids, keep, thresh,
-                                    reading["new"]))
+        reading.update(kernel_split(lambda: new_fn(0), reading["new"]))
         reading.update(alive=int(keep.sum()), kept=int(want.sum()),
                        runs=times)
         result["kinds"][kind] = reading
