@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`incubator_mxnet_tpu_torch`) on one
 NVIDIA card.
 
-    python3 chip_smoke.py [--out results.json] [--profile]
+    python3 chip_smoke.py [--out results.json] [--profile] [--phases 22]
 
 Run from the repository root, on a machine with one CUDA card and `nvcc`.
 Each phase fails the run (non-zero exit) on any error:
@@ -474,6 +474,39 @@ Each phase fails the run (non-zero exit) on any error:
      forward bit-equal to the same net loaded from `.npz`; (d)
      `npx.pick(mode="clip" / "wrap")` on the card. The kernels' JSON
      gains the `proposal_sweep` entry, its launches from (a).
+ 22. the recurrent cell kernel (`csrc/rnn_cell.cu`) and the word language
+     model: (a) the forward and backward kernels of every mode (LSTM, GRU,
+     RNN) and activation (tanh, relu, sigmoid, softrelu, softsign,
+     log_sigmoid) against their plain versions (`ops.rnn.
+     cell_fwd_ref` / `cell_bwd_ref`) at the LM's step (N 32, H 650) and a
+     ragged H 37, in float32 (within 8 ulps of each value plus 8 of the
+     tensor's largest), bfloat16 and float16 (one step of the type), the
+     LSTM backward also without dc'; an LSTM with i and f swapped and a
+     backward without the c path refused; the float32 LSTM and GRU kernels
+     timed warm and cold beside the empty-launch floor, their bounds, the
+     plain versions and `aten._thnn_fused_lstm_cell` / `_gru_cell` (and
+     their backwards); (b) the first training step of the reference
+     example's medium LSTM LM (33,278 words, 650 wide, 2 layers, tied,
+     dropout 0.5, bptt 35, batch 32, float32, TF32 off) on the kernels
+     against the same step with the cell as the plain composition under
+     autograd (the dropout generator seeded alike): the loss within 1e-5,
+     each gradient within 1e-4 of its norm, 70 + 70 launches; (c) 10
+     steps each through the port example's `FusedTrainStep` and its
+     imperative loop (SGD lr 20, clipping at 0.25 x batch): exactly 70
+     forward and 70 backward cell launches a step, the loss falling,
+     tokens/s, a `torch.profiler` pass over 3 fused steps (idle share), an
+     inference forward with 70 and 0; (d) the port's 2-layer LSTM layer
+     against cuDNN's `torch.nn.LSTM` with the same weights (within 1e-4),
+     both timed forward + backward; (e) `npx.rnn` in all four modes,
+     bidirectional, with state outputs, against the port on the CPU. The
+     kernels' JSON gains `rnn_cell_fwd` and `rnn_cell_bwd`, their
+     launches from (c)'s fused loop.
+
+`--phases 22` (or `--phases 2,22`, ...) runs the named phases and those
+whose results they take (5 <- 4, 14 <- 11, 15 <- 5, 17 <- 3 and 12,
+18 <- 3), in order, builds only the sources they need where that is known
+(phases 21 and 22), and lists only their kernels; the default is the
+whole run, as the last lines below.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
@@ -481,8 +514,9 @@ backward sweep, one for each route of the paged kernel, one for each
 kernel's float16 instances, their launches from the path that runs them
 in float16, the NMS sweep, port-only, its launches from (b), the
 proposal op's sweep on the same kernels, port-only, its launches from
-phase 21 (a), and the augment kernel, port-only, its launches from phase
-15 (c); each with its phase-14 `npx_launches`), and
+phase 21 (a), the augment kernel, port-only, its launches from phase
+15 (c), and the recurrent cell's forward and backward, port-only, their
+launches from phase 22 (c); each with its phase-14 `npx_launches`), and
 `{"ok": true, "device": {...}}`. Without a
 card the script exits non-zero and prints no result. It imports nothing of
 JAX. Its run time on the card is in the root `PERF.md`.
@@ -512,6 +546,11 @@ from incubator_mxnet_tpu_torch.gluon.model_zoo import detection, vision
 from incubator_mxnet_tpu_torch.inspect import roofline
 from incubator_mxnet_tpu_torch.ops import attention, contrib, fused, kernels
 from incubator_mxnet_tpu_torch.ops import nn as ops_nn
+from incubator_mxnet_tpu_torch.ops import rnn as rnn_ops
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "examples"))
+import torch_word_language_model as wlm  # noqa: E402
 
 # the H100's published rates (`inspect.roofline`'s spec row): every bound
 # below is `roofline.kernel_cost` of the launch over them
@@ -5148,6 +5187,14 @@ def sweep_cases():
         "npx.fused_image_augment": ((r.randint(0, 256, (2, 4, 4, 3)).astype(
             np.uint8), (3, 1)), {"mean": (0.4, 0.5, 0.6),
                                  "std": (0.2, 0.25, 0.3)}),
+        # a bidirectional LSTM layer over (T 3, N 2, C 4), H 5: the flat
+        # vector of 2 directions x 4 gates x 5 x (4 + 5 + 2 biases)
+        "npx.rnn": ((r.randn(3, 2, 4).astype(np.float32),
+                     (0.3 * r.randn(440)).astype(np.float32),
+                     r.randn(2, 2, 5).astype(np.float32),
+                     r.randn(2, 2, 5).astype(np.float32)),
+                    {"mode": "lstm", "state_size": 5, "bidirectional": True,
+                     "state_outputs": True}),
     }
 
 
@@ -8434,6 +8481,770 @@ def proposal_entry(rcnn):
                      f"greedy NMS)"}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the recurrent cell kernel and the word language model
+# ---------------------------------------------------------------------------
+# the MXNet reference example's medium model (example/gluon/
+# word_language_model/train.py --emsize 650 --nhid 650 --nlayers 2
+# --dropout 0.5 --tied, bptt 35, batch 32), WikiText-2's vocabulary size,
+# float32, trained through the port example's loops (the summed token loss,
+# SGD with rescale 1/batch, clipping at 0.25 x batch) at the reference's
+# lr 20: while the clipping binds, each update is at most lr x 0.25 long,
+# as the reference's (lr 20 on the mean loss, clipped at 0.25) is
+WLM = dict(vocab=33278, emsize=650, nhid=650, nlayers=2, dropout=0.5,
+           bptt=35, batch=32, lr=20.0, clip=0.25)
+WLM_STEPS = 10
+# the cell kernel's checks: the LM's step and a ragged H, every mode and
+# activation
+CELL_SHAPES = ((32, 650), (5, 37))
+CELL_MODES = tuple((mode, act) for mode in ("lstm", "gru", "rnn")
+                   for act in rnn_ops.ACTS)
+# a float32 output within CELL_ULPS units in the last place of each value
+# plus as many of the tensor's largest (the kernel's expf / tanhf against
+# PyTorch's; a sum that cancels keeps the error of its operands)
+CELL_ULPS = 8
+# (b): the LM step on the kernel against the plain cell composition, both
+# float32 with TF32 off: the summed loss within WLM_LOSS_RTOL, each
+# gradient within WLM_GRAD_RTOL of its own norm (35 x 2 steps compound the
+# cell's ulps)
+WLM_LOSS_RTOL = 1e-5
+WLM_GRAD_RTOL = 1e-4
+# (d): the port's LSTM layer against cuDNN's, float32 with TF32 off: the
+# output and states within this absolute error (values in (-1, 1))
+CUDNN_ATOL = 1e-4
+# (e): npx.rnn on the card against the port on the CPU
+NPX_RNN = dict(T=7, N=4, C=16, H=24, L=2)
+NPX_RNN_TOL = (1e-4, 1e-5)
+
+
+def cell_err(got, want, dtype):
+    """(max abs error, ok, reading) of a cell kernel output against its
+    plain version: float32 within CELL_ULPS ulps (reading "max_ulps" of
+    each value), a 16-bit one within one step of its type ("max_steps")."""
+    if got is None and want is None:
+        return 0.0, True, {}
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    if dtype == torch.float32:
+        w = want.float().abs()
+        ulp = 2.0 ** -23
+        lim = CELL_ULPS * ulp * (w + w.max())
+        ulps = (diff / (ulp * w.clamp(min=2.0 ** -126))).max().item()
+        ok = bool((diff <= lim).all()) and bool(torch.isfinite(got).all())
+        return err, ok, {"max_ulps": ulps}
+    steps = int((_ordered(got) - _ordered(want)).abs().max()) \
+        if diff.numel() else 0
+    return err, steps <= 1 and bool(torch.isfinite(got.float()).all()), \
+        {"max_steps": steps}
+
+
+def cell_inputs(mode, N, H, dtype, gen, dev):
+    G = rnn_ops.GATES[mode]
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(
+            dtype)
+    return dict(gx=r(N, G * H, scale=1.5), gh=r(N, G * H), h=r(N, H),
+                c=r(N, H, scale=2.0), dh=r(N, H), dc=r(N, H))
+
+
+def _cell_held(tag, pairs, dtype):
+    """Each (name, got, want) of `pairs` held by cell_err; returns the
+    worst error and readings."""
+    worst, read = 0.0, {}
+    for name, got, want in pairs:
+        err, ok, r = cell_err(got, want, dtype)
+        assert ok, (tag, name, err, r)
+        worst = max(worst, err)
+        for k, v in r.items():
+            read[k] = max(read.get(k, 0), v)
+    return worst, read
+
+
+def check_cell(mode, act, N, H, dtype, gen, dev, dc=True):
+    """The forward and backward kernels against their plain versions on
+    the same inputs (the backward on what the kernel's forward saved)."""
+    a = cell_inputs(mode, N, H, dtype, gen, dev)
+    lstm = mode == "lstm"
+    c = a["c"] if lstm else None
+    h_k, c_k, s_k = kernels.rnn_cell_fwd_cuda(mode, a["gx"], a["gh"], a["h"],
+                                              c, act, True)
+    h_p, c_p, s_p = rnn_ops.cell_fwd_ref(mode, a["gx"], a["gh"], a["h"], c,
+                                         act, True)
+    tag = f"{mode}/{act} N={N} H={H} {_dtype_name(dtype)}"
+    fwd_err, fwd_read = _cell_held(tag + " fwd", [("h'", h_k, h_p),
+                                             ("c'", c_k, c_p),
+                                             ("saved", s_k, s_p)], dtype)
+    bwd_in = dict(saved=s_k if mode != "rnn" else None,
+                  gh=a["gh"] if mode == "gru" else None,
+                  h=a["h"] if mode == "gru" else None, c=c,
+                  h_new=h_k if mode == "rnn" else None,
+                  c_new=c_k, dh=a["dh"],
+                  dc=a["dc"] if lstm and dc else None)
+    got = kernels.rnn_cell_bwd_cuda(mode, act=act, **bwd_in)
+    want = rnn_ops.cell_bwd_ref(mode, act=act, **bwd_in)
+    bwd_err, bwd_read = _cell_held(tag + " bwd", [
+        ("dgx", got[0], want[0]), ("dgh", got[1], want[1]),
+        ("dstate", got[2], want[2])], dtype)
+    return {"mode": mode, "act": act, "N": N, "H": H,
+            "dtype": _dtype_name(dtype), "dc": dc and lstm,
+            "vec": kernels.rnn_cell_vec(H, dtype),
+            "fwd_err": fwd_err, "bwd_err": bwd_err,
+            "fwd": fwd_read, "bwd": bwd_read}
+
+
+def cell_planted_faults(gen, dev):
+    """Two faulty plain versions the float32 limit must refuse at the LM's
+    shape: an LSTM forward with the i and f gates swapped, and a backward
+    without the c path (dc' dropped)."""
+    N, H = CELL_SHAPES[0]
+    a = cell_inputs("lstm", N, H, torch.float32, gen, dev)
+    h_k, c_k, s_k = kernels.rnn_cell_fwd_cuda("lstm", a["gx"], a["gh"],
+                                              None, a["c"], "tanh", True)
+
+    def swap(t):
+        i, f, g, o = t.chunk(4, dim=-1)
+        return torch.cat([f, i, g, o], -1)
+    h_f, c_f, _ = rnn_ops.cell_fwd_ref("lstm", swap(a["gx"]), swap(a["gh"]),
+                                       None, a["c"])
+    swapped = not cell_err(h_k, h_f, torch.float32)[1] and \
+        not cell_err(c_k, c_f, torch.float32)[1]
+    got = kernels.rnn_cell_bwd_cuda("lstm", s_k, None, None, a["c"], None,
+                                    c_k, a["dh"], a["dc"])
+    faulty = rnn_ops.cell_bwd_ref("lstm", s_k, None, None, a["c"], None,
+                                  c_k, a["dh"], None)
+    no_c = not cell_err(got[0], faulty[0], torch.float32)[1]
+    assert swapped and no_c, ("planted cell faults passed", swapped, no_c)
+    return {"i_f_swapped_refused": swapped, "no_c_path_refused": no_c}
+
+
+def _lstm_library(a):
+    """One PyTorch call for the LSTM step's elementwise part (the
+    yardstick, never on the port's path): aten._thnn_fused_lstm_cell on
+    the same gx / gh, and its backward."""
+    fwd = torch.ops.aten._thnn_fused_lstm_cell
+    hy, cy, ws = fwd(a["gx"], a["gh"], a["c"])
+    bwd = getattr(torch.ops.aten, "_thnn_fused_lstm_cell_backward_impl",
+                  None)
+    return ((lambda _i: fwd(a["gx"], a["gh"], a["c"])),
+            None if bwd is None else
+            (lambda _i: bwd(a["dh"], a["dc"], a["c"], cy, ws, False)))
+
+
+def _gru_library(a):
+    fwd = torch.ops.aten._thnn_fused_gru_cell
+    hy, ws = fwd(a["gx"], a["gh"], a["h"])
+    bwd = getattr(torch.ops.aten, "_thnn_fused_gru_cell_backward", None)
+    return ((lambda _i: fwd(a["gx"], a["gh"], a["h"])),
+            None if bwd is None else
+            (lambda _i: bwd(a["dh"], ws, False)))
+
+
+def time_cell(mode, N, H, gen, dev, floor_ms):
+    """The float32 kernels at (N, H), warm and cold, against their bounds,
+    the plain versions and the library's fused cell; returns a row for
+    each direction."""
+    dt = torch.float32
+    a = cell_inputs(mode, N, H, dt, gen, dev)
+    lstm = mode == "lstm"
+    c = a["c"] if lstm else None
+    h_k, c_k, s_k = kernels.rnn_cell_fwd_cuda(mode, a["gx"], a["gh"], a["h"],
+                                              c)
+    bwd_in = dict(saved=s_k, gh=a["gh"] if mode == "gru" else None,
+                  h=a["h"] if mode == "gru" else None, c=c, h_new=None,
+                  c_new=c_k, dh=a["dh"], dc=a["dc"] if lstm else None)
+    lib_fwd, lib_bwd = (_lstm_library if lstm else _gru_library)(a)
+    G = rnn_ops.GATES[mode]
+    rows = []
+    for name, kern, plain, lib, ins in (
+            ("rnn_cell_fwd",
+             lambda t: kernels.rnn_cell_fwd_cuda(mode, t[0], t[1], t[2],
+                                                 t[3]),
+             lambda _i: rnn_ops.cell_fwd_ref(mode, a["gx"], a["gh"], a["h"],
+                                             c),
+             lib_fwd, (a["gx"], a["gh"], a["h"], c)),
+            ("rnn_cell_bwd",
+             lambda t: kernels.rnn_cell_bwd_cuda(
+                 mode, t[0], bwd_in["gh"], bwd_in["h"], t[1], None, t[2],
+                 t[3], t[4]),
+             lambda _i: rnn_ops.cell_bwd_ref(mode, **bwd_in),
+             lib_bwd, (s_k, c, c_k, a["dh"], bwd_in["dc"]))):
+        warm = median_ms(lambda _i: kern(ins), reps=50)
+        n_bytes = sum(t.numel() * t.element_size() for t in ins
+                      if t is not None)
+        copies = max(2, -(-int(COLD_BYTES) // max(n_bytes, 1)))
+        cold = cold_ms(kern, [tuple(None if t is None else t.clone()
+                                    for t in ins) for _ in range(copies)])
+        shape = dict(mode=mode, N=N, H=H, dtype=dt)
+        if name == "rnn_cell_bwd":
+            shape["dc"] = lstm
+        bound, by = bound_ms(name, **shape)
+        row = {"name": name, "mode": mode, "N": N, "H": H, "G": G,
+               "dtype": "float32", "ms": warm, "cold_ms": cold,
+               "floor_ms": floor_ms, "bound_ms": bound, "bound_by": by,
+               "plain_ms": median_ms(plain, reps=20),
+               "library_ms": None if lib is None else median_ms(lib,
+                                                                reps=50)}
+        lib_ms = "n/a" if lib is None else f"{row['library_ms']:.4f}"
+        log(f"[rnn kernels] {name} {mode} N={N} H={H} float32: warm "
+            f"{warm:.4f} ms, cold {cold:.4f} ms (empty launch "
+            f"{floor_ms:.4f}, bound {bound:.5f} by {by}; plain "
+            f"{row['plain_ms']:.4f}; library {lib_ms})")
+        rows.append(row)
+    return rows
+
+
+def rnn_kernels(dev):
+    """(a): every mode, forward and backward, float32 / bfloat16 /
+    float16, at the LM's step and a ragged H, held against the plain
+    versions; the planted faults; the float32 LSTM and GRU timed."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for N, H in CELL_SHAPES:
+            for mode, act in CELL_MODES:
+                checks.append(check_cell(mode, act, N, H, dtype, gen, dev))
+        checks.append(check_cell("lstm", "tanh", *CELL_SHAPES[0], dtype,
+                                 gen, dev, dc=False))
+    faults = cell_planted_faults(gen, dev)
+    floor_ms = median_ms(lambda i: torch.cuda._sleep(EMPTY_CYCLES), reps=20)
+    timed = time_cell("lstm", *CELL_SHAPES[0], gen, dev, floor_ms) + \
+        time_cell("gru", *CELL_SHAPES[0], gen, dev, floor_ms)
+    worst = {n: max(r[k] for r in checks if r["dtype"] == n)
+             for n in ("float32", "bfloat16", "float16")
+             for k in ("fwd_err",)}
+    log(f"[rnn kernels] {len(checks)} checks held (worst forward error by "
+        f"type {worst}; float32 max ulps fwd "
+        f"{max(r['fwd'].get('max_ulps', 0) for r in checks):.2f} bwd "
+        f"{max(r['bwd'].get('max_ulps', 0) for r in checks):.2f}; 16-bit "
+        f"max steps {max(r['fwd'].get('max_steps', 0) for r in checks)} / "
+        f"{max(r['bwd'].get('max_steps', 0) for r in checks)}); planted "
+        f"faults refused {faults}")
+    kernels.reset_launch_counts()   # comparison launches do not count
+    return {"checks": checks, "faults": faults, "timed": timed,
+            "floor_ms": floor_ms}
+
+
+def wlm_corpus(n_batches):
+    """The example's synthetic Zipf corpus at the LM's vocabulary, as
+    (x, y) numpy batches of (bptt, batch) tokens."""
+    T, N = WLM["bptt"], WLM["batch"]
+    data = wlm.batchify(wlm.zipf_corpus(WLM["vocab"], n_batches * T * N + N,
+                                        seed=0), N)
+    return [(data[i:i + T], data[i + 1:i + 1 + T].reshape(-1))
+            for i in range(0, n_batches * T, T)]
+
+
+def wlm_model(dev, seed=0, dropout=None):
+    net = wlm.RNNModel(WLM["vocab"], WLM["emsize"], WLM["nhid"], WLM["nlayers"],
+                       WLM["dropout"] if dropout is None else dropout,
+                       tie_weights=True)
+    net.initialize(init="xavier", device=dev, seed=seed)
+    return net
+
+
+def _rnn_launches():
+    c = kernels.launch_counts()
+    return {"rnn_cell_fwd": c["rnn_cell_fwd"],
+            "rnn_cell_bwd": c["rnn_cell_bwd"]}
+
+
+def _composed_cell(mode, gx, gh, h, c=None, act="tanh"):
+    return rnn_ops.cell_composed(mode, gx, gh, h, c, act)
+
+
+def wlm_step_check(dev, batch):
+    """(b): the LM's first training step (dropout 0.5 drawn from the
+    port's generator, seeded alike) on the kernel against the same step
+    with the cell as the plain composition under autograd: the summed loss
+    and every parameter's gradient."""
+    x, y = (torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in batch)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    net = wlm_model(dev, seed=5)
+    params = [p for _, p in sorted(net.collect_params().items())]
+    params = list({id(p): p for p in params}.values())
+    out = {}
+    for tag in ("kernel", "plain"):
+        random.seed(22)
+        saved = rnn_ops.cell
+        if tag == "plain":
+            rnn_ops.cell = _composed_cell
+        kernels.reset_launch_counts()
+        try:
+            h, c = (s._t for s in net.begin_state(WLM["batch"]))
+            with autograd.record():
+                logits, _, _ = net(x, h, c)
+                loss = loss_fn(logits, y).sum()
+            grads = torch.autograd.grad(loss, [p.data() for p in params])
+        finally:
+            rnn_ops.cell = saved
+        torch.cuda.synchronize()
+        out[tag] = (loss.detach(), grads, _rnn_launches())
+    (lk, gk, nk), (lp, gp, npl) = out["kernel"], out["plain"]
+    per_layer = WLM["nlayers"] * WLM["bptt"]
+    assert nk == {"rnn_cell_fwd": per_layer, "rnn_cell_bwd": per_layer}, nk
+    assert npl == {"rnn_cell_fwd": 0, "rnn_cell_bwd": 0}, npl
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    grad_rel = {}
+    for p, a, b in zip(params, gk, gp):
+        grad_rel[p.name] = ((a - b).norm() / b.norm().clamp(
+            min=1e-30)).item()
+    worst = max(grad_rel.items(), key=lambda kv: kv[1])
+    assert loss_rel <= WLM_LOSS_RTOL and worst[1] <= WLM_GRAD_RTOL, \
+        (loss_rel, worst)
+    log(f"[lm] (b) the first step on the kernel against the plain cell "
+        f"composition: loss {lk.item():.6f} vs {lp.item():.6f} (relative "
+        f"{loss_rel:.2e}), worst gradient {worst[0]} at {worst[1]:.2e} of "
+        f"its norm over {len(params)} parameters; launches {nk}")
+    return {"loss": lk.item(), "plain_loss": lp.item(),
+            "loss_rel": loss_rel, "grad_rel": grad_rel,
+            "launches": nk}
+
+
+def wlm_eval_loss(net, nds):
+    """The mean token loss of `net` in inference mode (no dropout) over
+    the (x, y) batches `nds`, each from zero states."""
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    total = 0.0
+    for x, y in nds:
+        h, c = net.begin_state(WLM["batch"])
+        logits, _, _ = net(x, h, c)
+        total += float(loss_fn(logits, y).mean().asnumpy())
+    return total / len(nds)
+
+
+def _wlm_loop(dev, fused, batches):
+    """WLM_STEPS steps of one of the example's loops on a fresh tied model
+    (dropout 0.5) after one warm-up step; returns the losses, the mean
+    inference loss over the timed steps' batches before and after them,
+    the step time, the launches of the timed steps and a step closure that
+    goes on from where they ended."""
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    net = wlm_model(dev, seed=1)
+    if fused:
+        step = wlm.fused_step(net, loss_fn, WLM["lr"], WLM["clip"],
+                              WLM["batch"])
+    else:
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": WLM["lr"]})
+
+        def step(x, y, h, c):
+            return wlm.imperative_step(net, loss_fn, trainer, WLM["clip"],
+                                       WLM["batch"], x, y, h, c)
+    nds = [(mx.np.array(x, device=dev), mx.np.array(y, device=dev))
+           for x, y in batches]
+    state = list(net.begin_state(WLM["batch"]))
+
+    def one(x, y):
+        loss, state[0], state[1] = step(x, y, state[0], state[1])
+        return loss
+    one(*nds[0])                                   # warm-up
+    timed_batches = nds[1:1 + WLM_STEPS]
+    before = wlm_eval_loss(net, timed_batches)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [one(*b) for b in timed_batches]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / WLM_STEPS
+    launches = _rnn_launches()
+    after = wlm_eval_loss(net, timed_batches)
+    losses = [float(v.asnumpy()) / (WLM["bptt"] * WLM["batch"])
+              for v in losses]
+    return net, losses, (before, after), step_ms, launches, one, nds
+
+
+def wlm_loops(dev, batches):
+    """(c): WLM_STEPS steps through FusedTrainStep and through the
+    imperative loop: 70 forward and 70 backward cell launches a step;
+    the loss falling: the inference loss over the steps' batches after
+    them under the one before (each batch fitted once; the training loss
+    of a new batch barely moves in 10 steps from a uniform start at the
+    reference's clipped rate); tokens/s; an inference forward (70 and
+    0); the card's idle share over 3 profiled fused steps."""
+    per_step = WLM["nlayers"] * WLM["bptt"]
+    tokens = WLM["bptt"] * WLM["batch"]
+    out = {}
+    for tag, fused in (("fused", True), ("imperative", False)):
+        net, losses, (before, after), step_ms, launches, one, nds = \
+            _wlm_loop(dev, fused, batches)
+        want = {"rnn_cell_fwd": per_step * WLM_STEPS,
+                "rnn_cell_bwd": per_step * WLM_STEPS}
+        assert launches == want, (tag, launches, want)
+        assert all(math.isfinite(v) for v in losses), (tag, losses)
+        assert after < before, (tag, before, after, losses)
+        row = {"losses": losses, "eval_loss_before": before,
+               "eval_loss_after": after, "step_ms": step_ms,
+               "tokens_per_s": tokens / step_ms * 1e3,
+               "launches": launches, "launches_per_step": {
+                   k: v / WLM_STEPS for k, v in launches.items()}}
+        log(f"[lm] (c) {tag}: {WLM_STEPS} steps of {tokens} tokens, "
+            f"{step_ms:.2f} ms a step ({row['tokens_per_s']:.0f} tokens/s),"
+            f" loss {losses[0]:.4f} -> {losses[-1]:.4f}, inference loss "
+            f"over the steps' batches {before:.5f} -> {after:.5f}, "
+            f"launches {launches}")
+        if fused:
+            prof = profile_steps(lambda x, y: one(x, y), nds[1:4], step_ms,
+                                 symbols={"rnn_cell_fwd": "rnn_cell_fwd",
+                                          "rnn_cell_bwd": "rnn_cell_bwd"},
+                                 tag="lm")
+            row["profile"] = prof
+            kernels.reset_launch_counts()
+            h, c = net.begin_state(WLM["batch"])
+            logits, _, _ = net(nds[0][0], h, c)
+            torch.cuda.synchronize()
+            infer = _rnn_launches()
+            assert infer == {"rnn_cell_fwd": per_step, "rnn_cell_bwd": 0}, \
+                infer
+            assert tuple(logits.shape) == (tokens, WLM["vocab"])
+            assert bool(torch.isfinite(logits._t).all())
+            row["infer_launches"] = infer
+        out[tag] = row
+        del net
+    return out
+
+
+def wlm_vs_cudnn(dev):
+    """(d): the port's 2-layer LSTM layer (650 wide, no dropout) against
+    cuDNN's torch.nn.LSTM with the same weights on the same (35, 32, 650)
+    input, float32 with TF32 off; both timed forward + backward."""
+    T, N, H, L = WLM["bptt"], WLM["batch"], WLM["nhid"], WLM["nlayers"]
+    layer = gluon.rnn.LSTM(H, L, input_size=H)
+    layer.initialize(init="xavier", device=dev, seed=3)
+    ref = torch.nn.LSTM(H, H, L).to(dev)
+    params = layer.collect_params()
+    with torch.no_grad():
+        for k in range(L):
+            for mine, theirs in (("i2h_weight", "weight_ih"),
+                                 ("h2h_weight", "weight_hh"),
+                                 ("i2h_bias", "bias_ih"),
+                                 ("h2h_bias", "bias_hh")):
+                getattr(ref, f"{theirs}_l{k}").copy_(
+                    params[f"l{k}_{mine}"].data())
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(T, N, H, generator=gen, device=dev)
+    h0 = torch.randn(L, N, H, generator=gen, device=dev) * 0.5
+    c0 = torch.randn(L, N, H, generator=gen, device=dev) * 0.5
+    with torch.no_grad():
+        ours, (oh, oc) = layer(x, [h0, c0])
+        theirs, (th, tc) = ref(x, (h0, c0))
+    err = max((a - b).abs().max().item() for a, b in
+              ((ours, theirs), (oh, th), (oc, tc)))
+    assert err <= CUDNN_ATOL, err
+    xs = x.clone().requires_grad_(True)
+
+    def port_fb(_i):
+        with autograd.record():
+            y, _ = layer(xs, [h0, c0])
+        y.backward(torch.ones_like(y))
+
+    def cudnn_fb(_i):
+        y, _ = ref(xs, (h0, c0))
+        y.backward(torch.ones_like(y))
+    kernels.reset_launch_counts()
+    port_fb(0)
+    torch.cuda.synchronize()
+    launches = _rnn_launches()
+    assert launches == {"rnn_cell_fwd": T * L, "rnn_cell_bwd": T * L}, \
+        launches
+    port_ms = median_ms(port_fb, reps=10)
+    cudnn_ms = median_ms(cudnn_fb, reps=10)
+    log(f"[lm] (d) the port's LSTM layer against cuDNN's torch.nn.LSTM "
+        f"(T {T}, N {N}, {L} x {H}, float32, TF32 off): max abs difference "
+        f"{err:.2e}; forward + backward {port_ms:.3f} ms against "
+        f"{cudnn_ms:.3f} ms")
+    kernels.reset_launch_counts()
+    return {"max_abs_err": err, "port_ms": port_ms, "cudnn_ms": cudnn_ms,
+            "launches": launches}
+
+
+def npx_rnn_card(dev):
+    """(e): npx.rnn on the card for all four modes, bidirectional, with
+    state_outputs, against the port's own CPU result."""
+    T, N, C, H, L = (NPX_RNN[k] for k in "TNCHL")
+    rows = {}
+    for mode, G in (("lstm", 4), ("gru", 3), ("rnn_tanh", 1),
+                    ("rnn_relu", 1)):
+        rng = np.random.RandomState(G + len(mode))
+        n = sum(G * H * ((C if k == 0 else 2 * H) + H + 2)
+                for k in range(L) for _ in range(2))
+        inputs = [rng.randn(T, N, C).astype(np.float32),
+                  (rng.randn(n) * 0.2).astype(np.float32),
+                  rng.randn(2 * L, N, H).astype(np.float32),
+                  rng.randn(2 * L, N, H).astype(np.float32)]
+        res = {}
+        for where in ("cpu", dev):
+            nds = [mx.np.array(a, device=where) for a in inputs]
+            kernels.reset_launch_counts()
+            res[str(where)] = [o.asnumpy() for o in mx.npx.rnn(
+                nds[0], nds[1], nds[2],
+                state_cell=nds[3] if mode == "lstm" else None, mode=mode,
+                state_size=H, num_layers=L, bidirectional=True,
+                state_outputs=True)]
+            if where != "cpu":
+                assert _rnn_launches()["rnn_cell_fwd"] == 2 * L * T
+        err = 0.0
+        for a, b in zip(res[str(dev)], res["cpu"]):
+            np.testing.assert_allclose(a, b, rtol=NPX_RNN_TOL[0],
+                                       atol=NPX_RNN_TOL[1], err_msg=mode)
+            err = max(err, float(np.abs(a - b).max()))
+        rows[mode] = err
+    log(f"[lm] (e) npx.rnn on the card against the CPU, bidirectional, "
+        f"{L} layers, state_outputs: max abs difference by mode {rows}")
+    kernels.reset_launch_counts()
+    return rows
+
+
+def phase_rnn(card, dev):
+    """Phase 22."""
+    t0 = time.perf_counter()
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        kern = rnn_kernels(dev)
+        batches = wlm_corpus(WLM_STEPS + 1)
+        check = wlm_step_check(dev, batches[0])
+        loops = wlm_loops(dev, batches)
+        cudnn = wlm_vs_cudnn(dev)
+        npx_rows = npx_rnn_card(dev)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    took = time.perf_counter() - t0
+    log(f"[lm] phase 22 took {took:.1f} s")
+    return {"kernels": kern, "check": check, "loops": loops,
+            "cudnn": cudnn, "npx_rnn": npx_rows, "seconds": took,
+            "card": card}
+
+
+def rnn_entries(lm):
+    """The cell kernels' JSON entries: launches from (c)'s fused loop,
+    times at the LM's step (float32 LSTM)."""
+    out = []
+    fused = lm["loops"]["fused"]
+    for name in ("rnn_cell_fwd", "rnn_cell_bwd"):
+        t = next(r for r in lm["kernels"]["timed"]
+                 if r["name"] == name and r["mode"] == "lstm")
+        err = max(r["fwd_err" if name == "rnn_cell_fwd" else "bwd_err"]
+                  for r in lm["kernels"]["checks"]
+                  if r["dtype"] == "float32")
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "incubator_mxnet_tpu_torch/ops/csrc/rnn_cell.cu",
+            "replaces": None, "launches": fused["launches"][name],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "cold_ms": t["cold_ms"],
+            "floor_ms": t["floor_ms"],
+            "imperative_launches": lm["loops"]["imperative"]["launches"][
+                name],
+            "infer_launches": fused["infer_launches"][name],
+            "layer_ms": lm["cudnn"]["port_ms"],
+            "cudnn_layer_ms": lm["cudnn"]["cudnn_ms"],
+            "shape": f"LSTM N={WLM['batch']} H={WLM['nhid']} float32 (the "
+                     f"word LM's step; no TPU kernel: the JAX package's "
+                     f"cell body, incubator_mxnet_tpu/ops/nn.py:526, is "
+                     f"fused by XLA inside lax.scan; library: "
+                     f"aten._thnn_fused_lstm_cell)"})
+    return out
+
+
+# the phases, and those whose results a phase takes (`--phases` adds them)
+PHASES = tuple(range(2, 23))
+PHASE_NEEDS = {5: (4,), 14: (11,), 15: (5,), 17: (3, 12), 18: (3,)}
+# the sources a phase builds when every phase run is listed here (a run
+# with any other phase builds every source, all at once)
+PHASE_SOURCES = {21: ("nms",), 22: ("rnn_cell",)}
+
+
+def selected_phases(spec):
+    """The phases `--phases` names ("22", "2,22") and those whose results
+    they take, in order; None (every phase) without a spec."""
+    if spec is None:
+        return None
+    want = set()
+    for part in spec.split(","):
+        n = int(part)
+        if n not in PHASES:
+            raise SystemExit(f"--phases: no phase {n} ({PHASES[0]}-"
+                             f"{PHASES[-1]})")
+        want.add(n)
+    todo = sorted(want)
+    while todo:
+        for n in PHASE_NEEDS.get(todo.pop(), ()):
+            if n not in want:
+                want.add(n)
+                todo.append(n)
+    return sorted(want)
+
+
+def kernel_entries(r):
+    """The kernels' JSON entries of the phases that ran (`r`: phase ->
+    result; every phase in the whole run): an entry is listed when the
+    phases that measure it and run its main path ran, and gains the
+    launches of each later path that ran."""
+    has = lambda *ns: all(n in r for n in ns)  # noqa: E731
+    entry, route_entries, entries, b123, fentries = None, [], [], [], []
+    if has(2, 3):
+        variants, lens = r[2]
+        result = r[3]
+        head = next(v for v in variants if v["dtype"] == "bfloat16"
+                    and v["C"] == 1)
+        entry = {
+            "name": "paged_attention", "route": "cuda",
+            "source": "incubator_mxnet_tpu_torch/ops/csrc/paged_attention.cu",
+            "replaces": "incubator_mxnet_tpu/ops/pallas_kernels.py:292",
+            "launches": result["launches"]["paged_attention"],
+            "max_abs_err": max(v["max_abs_err"] for v in variants
+                               if v["dtype"] == "bfloat16"),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "kernel_route": "split",
+            "shape": f"S={SLOTS} C=1 H={FULL['heads']} "
+                     f"D={FULL['head_dim']} T={FULL['max_len']} bfloat16, "
+                     f"lengths {lens}",
+            "variants": variants,
+        }
+        if has(10):
+            entry["coverage"] = r[10]["engine"]
+        # one entry per route of B4, timed at phase 2's serving shapes; its
+        # launches are the route's over the serving runs of phases 3 and 9
+        # (bfloat16, float16 and float32 engines)
+        route_runs = (result["launches"], result["float16_launches"],
+                      result["float32_launches"])
+        if has(9):
+            route_runs += (r[9]["launches"], r[9]["float32_launches"])
+        for route, (dt, C) in PAGED_ROUTE_SHAPES.items():
+            v = next(x for x in variants if x["dtype"] == dt and x["C"] == C)
+            assert v["kernel_route"] == route, (route, v)
+            launches = sum(run[f"paged_attention_{route}"]
+                           for run in route_runs)
+            assert launches > 0, f"route {route} never ran on the main path"
+            route_entries.append({
+                "name": f"paged_attention_{route}", "route": "cuda",
+                "source":
+                    "incubator_mxnet_tpu_torch/ops/csrc/paged_attention.cu",
+                "replaces": "incubator_mxnet_tpu/ops/pallas_kernels.py:292",
+                "launches": launches, "max_abs_err": v["max_abs_err"],
+                "ms": v["ms"], "plain_ms": v["plain_ms"],
+                "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+                "library_ms": v["library_ms"], "kernel_route": route,
+                "shape": f"S={SLOTS} C={C} H={FULL['heads']} "
+                         f"D={FULL['head_dim']} T={FULL['max_len']} {dt}"})
+    if has(4, 5):
+        entries, share = train_entries(r[4], r[5])
+        b123 = entries[:3]
+        if has(10):
+            b123[0]["coverage"] = r[10]["applies"] + [r[10]["dense"]]
+            b123[1]["coverage"] = [p[0] for p in r[10]["pools"]]
+            b123[2]["coverage"] = [p[1] for p in r[10]["pools"]]
+        r[5]["kernel_share"] = share
+    if has(6, 7):
+        fentries, r[7]["flash_share"] = flash_entries(r[6], r[7])
+        entries += fentries
+    if has(8, 9):
+        entries.append(int8_entry(r[8], r[9]))
+    entries += route_entries
+    if has(2, 3, 4, 6, 10, 11):
+        entries += f16_entries(r[4], r[2][0], r[6], r[10], r[11],
+                               r[3]["float16"])
+    # phase 12's path (ResNet-50 v2 through the GluonCV recipe and
+    # FusedInferStep), counted on counts set to 0 before each run
+    if b123 and has(12):
+        recipe, infer = r[12]["recipe"], r[12]["recipe"]["infer"]
+        for e, name in zip(b123, B123):
+            e["recipe_v2_launches"] = recipe["launches"][name]
+            e["infer_v2_launches"] = infer["launches"][name]
+        keys = ("M", "C", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")
+        b123[0]["v2_timed"] = [{k: row[k] for k in keys}
+                               for row in r[12]["applies"] if "ms" in row]
+    # phase 13's paths, each counted on counts set to 0 just before it: B1
+    # on the SSD300 steps and on each family's steps, the flash kernels a
+    # step under each remat policy, the NMS sweep in detect()
+    if has(13):
+        ssd = r[13]["ssd"]
+        if b123:
+            b123[0]["ssd_launches"] = ssd["launches"]["scale_shift_act"]
+            b123[0]["ssd_conv1"] = ssd["conv1"]
+            b123[0]["families_launches"] = {
+                n: fam["train_launches"]["scale_shift_act"]
+                for n, fam in r[13]["families"].items()}
+        for e in fentries:
+            e["remat_launches_per_step"] = {
+                p: run["launches_per_step"].get(e["name"], 0)
+                for p, run in r[13]["remat"]["bert"].items()}
+        entries.append(nms_entry(ssd))
+    # phase 21's path: the proposal op's sweep, counted on counts set to 0
+    # just before its npx.proposal call
+    if has(21):
+        entries.append(proposal_entry(r[21]))
+    # phase 15's path: the augment kernel's launches on the fed steps
+    augment = None
+    if has(15):
+        augment = augment_entry(r[15])
+        entries.append(augment)
+    # phase 16's paths, each counted on counts set to 0 just before it: the
+    # ResNet-50 loop resumed from a checkpoint (B1-B3), the engine under
+    # faults (B4), the input path under faults (the augment kernel)
+    if has(16):
+        res = r[16]
+        for e, name in zip(b123, B123):
+            e["resilient_launches"] = res["resnet"]["launches"][name]
+        if entry is not None:
+            entry["resilient_launches"] = \
+                res["serve"]["launches"]["paged_attention"]
+        if augment is not None:
+            augment["resilient_launches"] = res["io"]["imagerec"]["launches"]
+    # phase 17's paths, each counted on counts set to 0 just before it: B1
+    # and B2 over the Server's bucket programs (bfloat16 and float32 arms),
+    # B4 in the fleet's replica processes (from their logs)
+    if has(17):
+        for e, name in zip(b123[:2], ("scale_shift_act", "avg_pool2d_fwd")):
+            for dt, run in r[17]["resnet"].items():
+                e[f"deploy_{dt}_launches"] = run["serve"]["launches"][name]
+        if entry is not None:
+            entry["fleet_launches"] = r[17]["fleet"]["b4_launches_total"]
+    # phase 18's paths, each counted on counts set to 0 just before it: B1
+    # to B3 over (a)'s 20 steps, B4 over (b)'s traced serving
+    if has(18):
+        for e, name in zip(b123, B123):
+            e["telemetry_launches"] = r[18]["train"]["launches"][name]
+        if entry is not None:
+            entry["telemetry_launches"] = \
+                r[18]["serve"]["launches"]["paged_attention"]
+    # phase 19's path, counted on counts set to 0 just before it: B1 to B3
+    # over the Estimator's fit (8 steps, 4 validation forwards, the FLOPs
+    # forward)
+    if has(19):
+        for e, name in zip(b123, B123):
+            e["estimator_launches"] = r[19]["fit"]["launches"][name]
+    # phase 20's paths: B4 over (a)'s in-process sweep (counts set to 0
+    # just before it) plus its serve_decode child's own launches, B1-B3 in
+    # its train_fused child; B4 over (c)'s sanitized engine and B1-B3 over
+    # (c)'s sanitized ResNet-50 steps, each on counts set to 0 just before
+    if has(20):
+        for e, name in zip([entry] + b123, ("paged_attention",) + B123):
+            if e is None:
+                continue
+            e["tune_launches"] = r[20]["tune_launches"][name]
+            e["sanitize_launches"] = r[20]["sanitize_launches"][name]
+    # phase 22's path: the cell kernels over the word LM's fused steps,
+    # counted on counts set to 0 just before them
+    if has(22):
+        entries += rnn_entries(r[22])
+    listed = ([entry] if entry is not None else []) + entries
+    # phase 14's launches through NDArray / npx, counted around its own
+    # calls only (the comparisons with plain versions and the sweep's card
+    # calls do not count)
+    if has(14):
+        for e in listed:
+            e["npx_launches"] = npx_launches(e, r[14])
+    return listed
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every result to this JSON "
@@ -8442,17 +9253,27 @@ def main():
                     help="add a torch.profiler pass over 3 training steps "
                          "of ResNet-50, BERT-base and SSD300 (phases 5, 7, "
                          "11, 12 and 13)")
+    ap.add_argument("--phases", help="run only these phases (comma-"
+                    "separated, e.g. 22 or 2,22) and those whose results "
+                    "they take (14 <- 11, 15 <- 5 <- 4, 17 <- 3, 12, "
+                    "18 <- 3), and list only their kernels; default: every "
+                    "phase")
     args = ap.parse_args()
+    only = selected_phases(args.phases)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs on a CUDA card only", file=sys.stderr)
         return 2
+    run = set(PHASES if only is None else only)
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"[setup] {card}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+        f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}; phases "
+        f"{'all' if only is None else only}")
+    sources = kernels._SOURCES if not run <= set(PHASE_SOURCES) else \
+        tuple(sorted({src for n in run for src in PHASE_SOURCES[n]}))
     t0 = time.perf_counter()
-    built = kernels.build()
+    built = kernels.build(sources)
     build_s = time.perf_counter() - t0
     log(f"[setup] kernel build {build_s:.2f} s "
         f"({', '.join(built) or 'up to date'})")
@@ -8466,6 +9287,7 @@ def main():
         log(f"[setup] {fn}: {use}")
 
     seconds = {}
+    r = {}
 
     def timed(phase, fn, *a):
         t0 = time.perf_counter()
@@ -8473,185 +9295,91 @@ def main():
         seconds[phase] = time.perf_counter() - t0
         log(f"[timing] {phase}: {seconds[phase]:.1f} s")
         return out
-    variants, lens = timed("2 kernels", phase_kernels, dev)
-    result = timed("3 serve", phase_serve, card)
-    train_kernels = timed("4 train kernels", phase_train_kernels, dev)
-    train = timed("5 train", phase_train, card, train_kernels["rows"],
-                  args.profile, dev)
-    flash = timed("6 flash kernels", phase_flash_kernels, dev)
-    bert = timed("7 bert", phase_bert, card, args.profile, dev)
-    int8_variants = timed("8 int8 kernels", phase_int8_kernels, dev)
-    engine = timed("9 engine", phase_engine, card)
-    coverage = timed("10 coverage", phase_coverage, dev)
-    loop = timed("11 loop", phase_loop, card, dev, args.profile)
-    script = timed("12 script", phase_script, card, dev, args.profile)
-    detect = timed("13 detection", phase_detection, card, dev, args.profile)
-    array = timed("14 array", phase_array, card, dev, args.profile, {
-        n: loop["resnet"]["launches"][n] / LOOP_STEPS
-        for n in ("scale_shift_act", "avg_pool2d_fwd", "avg_pool2d_bwd")})
-    io = timed("15 input", phase_input, card, dev, args.profile,
-               train["step_ms"])
-    resilient = timed("16 resilient", phase_resilient, card, dev,
+    if 2 in run:
+        r[2] = timed("2 kernels", phase_kernels, dev)
+    if 3 in run:
+        r[3] = timed("3 serve", phase_serve, card)
+    if 4 in run:
+        r[4] = timed("4 train kernels", phase_train_kernels, dev)
+    if 5 in run:
+        r[5] = timed("5 train", phase_train, card, r[4]["rows"],
+                     args.profile, dev)
+    if 6 in run:
+        r[6] = timed("6 flash kernels", phase_flash_kernels, dev)
+    if 7 in run:
+        r[7] = timed("7 bert", phase_bert, card, args.profile, dev)
+    if 8 in run:
+        r[8] = timed("8 int8 kernels", phase_int8_kernels, dev)
+    if 9 in run:
+        r[9] = timed("9 engine", phase_engine, card)
+    if 10 in run:
+        r[10] = timed("10 coverage", phase_coverage, dev)
+    if 11 in run:
+        r[11] = timed("11 loop", phase_loop, card, dev, args.profile)
+    if 12 in run:
+        r[12] = timed("12 script", phase_script, card, dev, args.profile)
+    if 13 in run:
+        r[13] = timed("13 detection", phase_detection, card, dev,
+                      args.profile)
+    if 14 in run:
+        r[14] = timed("14 array", phase_array, card, dev, args.profile, {
+            n: r[11]["resnet"]["launches"][n] / LOOP_STEPS
+            for n in ("scale_shift_act", "avg_pool2d_fwd",
+                      "avg_pool2d_bwd")})
+    if 15 in run:
+        r[15] = timed("15 input", phase_input, card, dev, args.profile,
+                      r[5]["step_ms"])
+    if 16 in run:
+        r[16] = timed("16 resilient", phase_resilient, card, dev,
                       args.profile)
     # phase 20's subprocess trials (mostly process start) run beside
     # phase 17, whose exports trace on the host with the card idle, and
     # end before phase 18 measures anything
-    children = tune_children_start(dev)
-    try:
-        deploy = timed("17 deploy", phase_deploy_serve, card, dev,
-                       script["recipe"]["infer"]["ms_per_batch"],
-                       result["stats"])
-    finally:
-        children[0].join(timeout=2 * CHILD_TIMEOUT_S + 60)
-    tel = timed("18 telemetry", phase_telemetry, card, dev, result)
-    estimator = timed("19 estimator", phase_estimator, card, dev)
-    tunesan = timed("20 tune sanitize", phase_tune_sanitize, card, dev,
-                    children)
-    rcnn = timed("21 rcnn", phase_rcnn, card, dev)
+    children = tune_children_start(dev) if {17, 20} <= run else None
+    if 17 in run:
+        try:
+            r[17] = timed("17 deploy", phase_deploy_serve, card, dev,
+                          r[12]["recipe"]["infer"]["ms_per_batch"],
+                          r[3]["stats"])
+        finally:
+            if children is not None:
+                children[0].join(timeout=2 * CHILD_TIMEOUT_S + 60)
+    if 18 in run:
+        r[18] = timed("18 telemetry", phase_telemetry, card, dev, r[3])
+    if 19 in run:
+        r[19] = timed("19 estimator", phase_estimator, card, dev)
+    if 20 in run:
+        r[20] = timed("20 tune sanitize", phase_tune_sanitize, card, dev,
+                      children)
+    if 21 in run:
+        r[21] = timed("21 rcnn", phase_rcnn, card, dev)
+    if 22 in run:
+        r[22] = timed("22 word lm", phase_rnn, card, dev)
     log(f"[timing] build {build_s:.1f} s, phases "
         f"{sum(seconds.values()):.1f} s: " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
 
-    head = next(v for v in variants if v["dtype"] == "bfloat16"
-                and v["C"] == 1)
-    entry = {
-        "name": "paged_attention", "route": "cuda",
-        "source": "incubator_mxnet_tpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": "incubator_mxnet_tpu/ops/pallas_kernels.py:292",
-        "launches": result["launches"]["paged_attention"],
-        "max_abs_err": max(v["max_abs_err"] for v in variants
-                           if v["dtype"] == "bfloat16"),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "kernel_route": "split",
-        "shape": f"S={SLOTS} C=1 H={FULL['heads']} D={FULL['head_dim']} "
-                 f"T={FULL['max_len']} bfloat16, lengths {lens}",
-        "variants": variants,
-        "coverage": coverage["engine"],
-    }
-    # one entry per route of B4, timed at phase 2's serving shapes; its
-    # launches are the route's over the serving runs of phases 3 and 9
-    # (bfloat16, float16 and float32 engines)
-    route_runs = (result["launches"], result["float16_launches"],
-                  result["float32_launches"], engine["launches"],
-                  engine["float32_launches"])
-    route_entries = []
-    for route, (dt, C) in PAGED_ROUTE_SHAPES.items():
-        v = next(x for x in variants if x["dtype"] == dt and x["C"] == C)
-        assert v["kernel_route"] == route, (route, v)
-        launches = sum(r[f"paged_attention_{route}"] for r in route_runs)
-        assert launches > 0, f"route {route} never ran on the main path"
-        route_entries.append({
-            "name": f"paged_attention_{route}", "route": "cuda",
-            "source": "incubator_mxnet_tpu_torch/ops/csrc/paged_attention.cu",
-            "replaces": "incubator_mxnet_tpu/ops/pallas_kernels.py:292",
-            "launches": launches, "max_abs_err": v["max_abs_err"],
-            "ms": v["ms"], "plain_ms": v["plain_ms"],
-            "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
-            "library_ms": v["library_ms"], "kernel_route": route,
-            "shape": f"S={SLOTS} C={C} H={FULL['heads']} "
-                     f"D={FULL['head_dim']} T={FULL['max_len']} {dt}"})
-    entries, share = train_entries(train_kernels, train)
-    entries[0]["coverage"] = coverage["applies"] + [coverage["dense"]]
-    entries[1]["coverage"] = [p[0] for p in coverage["pools"]]
-    entries[2]["coverage"] = [p[1] for p in coverage["pools"]]
-    train["kernel_share"] = share
-    fentries, bert["flash_share"] = flash_entries(flash, bert)
-    entries += fentries
-    entries.append(int8_entry(int8_variants, engine))
-    entries += route_entries
-    entries += f16_entries(train_kernels, variants, flash, coverage, loop,
-                           result["float16"])
-    # phase 12's path (ResNet-50 v2 through the GluonCV recipe and
-    # FusedInferStep), counted on counts set to 0 before each run
-    recipe, infer = script["recipe"], script["recipe"]["infer"]
-    for e, name in zip(entries[:3], ("scale_shift_act", "avg_pool2d_fwd",
-                                     "avg_pool2d_bwd")):
-        e["recipe_v2_launches"] = recipe["launches"][name]
-        e["infer_v2_launches"] = infer["launches"][name]
-    keys = ("M", "C", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
-    entries[0]["v2_timed"] = [{k: r[k] for k in keys}
-                              for r in script["applies"] if "ms" in r]
-    # phase 13's paths, each counted on counts set to 0 just before it: B1
-    # on the SSD300 steps and on each family's steps, the flash kernels a
-    # step under each remat policy, the NMS sweep in detect()
-    ssd = detect["ssd"]
-    entries[0]["ssd_launches"] = ssd["launches"]["scale_shift_act"]
-    entries[0]["ssd_conv1"] = ssd["conv1"]
-    entries[0]["families_launches"] = {
-        n: r["train_launches"]["scale_shift_act"]
-        for n, r in detect["families"].items()}
-    for e in fentries:
-        e["remat_launches_per_step"] = {
-            p: r["launches_per_step"].get(e["name"], 0)
-            for p, r in detect["remat"]["bert"].items()}
-    entries.append(nms_entry(ssd))
-    # phase 21's path: the proposal op's sweep, counted on counts set to 0
-    # just before its npx.proposal call
-    entries.append(proposal_entry(rcnn))
-    # phase 15's path: the augment kernel's launches on the fed steps
-    entries.append(augment_entry(io))
-    # phase 16's paths, each counted on counts set to 0 just before it: the
-    # ResNet-50 loop resumed from a checkpoint (B1-B3), the engine under
-    # faults (B4), the input path under faults (the augment kernel)
-    for e, name in zip(entries[:3], ("scale_shift_act", "avg_pool2d_fwd",
-                                     "avg_pool2d_bwd")):
-        e["resilient_launches"] = resilient["resnet"]["launches"][name]
-    entry["resilient_launches"] = \
-        resilient["serve"]["launches"]["paged_attention"]
-    entries[-1]["resilient_launches"] = \
-        resilient["io"]["imagerec"]["launches"]
-    # phase 17's paths, each counted on counts set to 0 just before it: B1
-    # and B2 over the Server's bucket programs (bfloat16 and float32 arms),
-    # B4 in the fleet's replica processes (from their logs)
-    for e, name in zip(entries[:2], ("scale_shift_act", "avg_pool2d_fwd")):
-        for dt, r in deploy["resnet"].items():
-            e[f"deploy_{dt}_launches"] = r["serve"]["launches"][name]
-    entry["fleet_launches"] = deploy["fleet"]["b4_launches_total"]
-    # phase 18's paths, each counted on counts set to 0 just before it: B1
-    # to B3 over (a)'s 20 steps, B4 over (b)'s traced serving
-    for e, name in zip(entries[:3], ("scale_shift_act", "avg_pool2d_fwd",
-                                     "avg_pool2d_bwd")):
-        e["telemetry_launches"] = tel["train"]["launches"][name]
-    entry["telemetry_launches"] = tel["serve"]["launches"]["paged_attention"]
-    # phase 19's path, counted on counts set to 0 just before it: B1 to B3
-    # over the Estimator's fit (8 steps, 4 validation forwards, the FLOPs
-    # forward)
-    for e, name in zip(entries[:3], B123):
-        e["estimator_launches"] = estimator["fit"]["launches"][name]
-    # phase 20's paths: B4 over (a)'s in-process sweep (counts set to 0
-    # just before it) plus its serve_decode child's own launches, B1-B3 in
-    # its train_fused child; B4 over (c)'s sanitized engine and B1-B3 over
-    # (c)'s sanitized ResNet-50 steps, each on counts set to 0 just before
-    for e, name in zip([entry] + entries[:3], ("paged_attention",) + B123):
-        e["tune_launches"] = tunesan["tune_launches"][name]
-        e["sanitize_launches"] = tunesan["sanitize_launches"][name]
-    # phase 14's launches through NDArray / npx, counted around its own
-    # calls only (the comparisons with plain versions and the sweep's card
-    # calls do not count)
-    for e in [entry] + entries:
-        e["npx_launches"] = npx_launches(e, array)
+    listed = kernel_entries(r)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
+        names = {3: "serve", 5: "train", 7: "bert", 9: "engine",
+                 10: "coverage", 11: "loop", 12: "script", 13: "detection",
+                 14: "array", 15: "io", 16: "resilient", 17: "deploy",
+                 18: "telemetry", 19: "estimator", 20: "tune_sanitize",
+                 21: "rcnn", 22: "word_lm"}
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s,
-                       "phase_seconds": seconds,
+                       "phase_seconds": seconds, "phases": sorted(r),
                        "build_each_s": built, "build_log": kernels.BUILD_LOG,
                        "bwd_wgmma_ptxas": bwd_usage,
-                       "kernels": [entry] + entries,
-                       "serve": result, "train": train, "bert": bert,
-                       "engine": engine, "coverage": coverage,
-                       "loop": loop, "script": script,
-                       "detection": detect, "array": array, "io": io,
-                       "resilient": resilient, "deploy": deploy,
-                       "telemetry": tel, "estimator": estimator,
-                       "tune_sanitize": tunesan, "rcnn": rcnn}, f,
+                       "kernels": listed,
+                       **{v: r[k] for k, v in names.items() if k in r}}, f,
                       indent=1, default=str)
     print(card)
-    print(json.dumps({"kernels": [entry] + [
-        {k: v for k, v in e.items() if k != "variants"} for e in entries]}))
+    print(json.dumps({"kernels": [
+        e if e["name"] == "paged_attention" else
+        {k: v for k, v in e.items() if k != "variants"} for e in listed]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

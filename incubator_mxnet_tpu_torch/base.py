@@ -115,6 +115,8 @@ def set_env(name, value):
 # types, defaults and help.
 _register_env("MXNET_TEST_SEED", int, None, "Fixed seed for test reproducibility")
 _register_env("MXNET_MODULE_SEED", int, None, "Module-level test seed")
+_register_env("MXNET_DEFAULT_DEVICE", str, None,
+              "Override default device, e.g. 'tpu(0)' or 'cpu(0)'")
 _register_env("MXNET_FAULT_SPEC", str, None,
               "Arm fault injection: 'point:hit:kind[:arg],...' "
               "(see mx.fault)")

@@ -3,8 +3,9 @@
 
 Counterpart of `incubator_mxnet_tpu/device.py`. The port's entry points
 run on the card: the default device is `cuda`, and the CPU is used only
-when a caller asks for it (`device="cpu"`, `mx.cpu()`, or inside `with
-mx.cpu():`), as the tests do. Asking for `cuda` where no card is present
+when a caller asks for it (`device="cpu"`, `mx.cpu()`, inside `with
+mx.cpu():`, or `MXNET_DEFAULT_DEVICE=cpu(0)` as in the JAX package), as
+the tests do. Asking for `cuda` where no card is present
 raises in `resolve_device`, the one place that does; nothing falls back to
 the CPU.
 
@@ -19,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, get_env
 
 __all__ = ["Device", "Context", "cpu", "gpu", "tpu", "current_device",
            "current_context", "num_gpus", "num_tpus", "MemoryInfo",
@@ -112,13 +113,24 @@ def as_device(device):
     raise MXNetError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
 
 
+def _default_device():
+    """`MXNET_DEFAULT_DEVICE` read as the JAX package reads it ("cpu",
+    "cpu(N)", "gpu(N)" or "tpu(N)", the last two naming card N), else the
+    card."""
+    override = get_env("MXNET_DEFAULT_DEVICE")
+    if override:
+        kind, _, idx = override.partition("(")
+        return Device(kind, int(idx.rstrip(")") or 0))
+    return gpu(0)
+
+
 def current_device():
     """The calling thread's device: the innermost `with device:`, else
-    the card."""
+    `MXNET_DEFAULT_DEVICE`, else the card."""
     stack = getattr(_state, "stack", None)
     if stack:
         return stack[-1]
-    return gpu(0)
+    return _default_device()
 
 
 current_context = current_device

@@ -60,7 +60,7 @@ from ..base import MXNetError
 from ..fault import atomic_output
 from ..device import resolve_device
 from ..ndarray import NDArray, _unwrap, _wrap
-from .parameter import DeferredInitializationError, Parameter
+from .parameter import DeferredInitializationError, Parameter, holder_of
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "params_from_jax"]
 
@@ -92,6 +92,18 @@ class Block(torch.nn.Module):
         self.training = False
         self._reg_params = OrderedDict()   # own name -> Parameter
         self._pending = False   # an own Parameter waits for its shape
+
+    def __setattr__(self, name, value):
+        # `decoder.weight = encoder.weight` (a tensor another block holds
+        # for its Parameter) shares that Parameter, as in the JAX package:
+        # one value, one gradient summed over both uses, counted once
+        if isinstance(value, torch.Tensor) and "_reg_params" in self.__dict__:
+            p = holder_of(value)
+            if p is not None and self._reg_params.get(name) is not p:
+                self._adopt(name, p)
+                _refresh_pending(self)
+                return
+        super().__setattr__(name, value)
 
     # ------------------------------------------------------------------
     # values

@@ -138,9 +138,14 @@ def _rematerialized(fn, policy, device):
 
 
 def _initialized_params(net, message):
-    """The net's Parameters in name order; raises `message` when one is
-    not drawn yet."""
-    params = [p for _, p in sorted(net.collect_params().items())]
+    """The net's Parameters in name order, a Parameter shared by two
+    blocks (tied weights) once; raises `message` when one is not drawn
+    yet."""
+    params, seen = [], set()
+    for _, p in sorted(net.collect_params().items()):
+        if id(p) not in seen:
+            seen.add(id(p))
+            params.append(p)
     if any(p._data is None for p in params):
         raise MXNetError(message)
     return params

@@ -21,6 +21,7 @@ drawn. Accessing a deferred value raises `DeferredInitializationError`.
 """
 from __future__ import annotations
 
+import weakref
 import zlib
 
 import numpy as np
@@ -31,6 +32,24 @@ from .. import initializer as init_mod
 from ..base import MXNetError, torch_dtype
 
 __all__ = ["Parameter", "Constant", "DeferredInitializationError"]
+
+
+# id(tensor) -> the Parameter that put it in a block (its placeholder or its
+# value), so that `block.weight = other.weight` can share the Parameter as
+# the JAX package's attribute assignment does (`Block.__setattr__`)
+_HOLDERS = weakref.WeakValueDictionary()
+
+
+def holder_of(t):
+    """The Parameter whose tensor, held in one of its blocks, is `t`; None
+    for any other tensor."""
+    p = _HOLDERS.get(id(t))
+    if p is None:
+        return None
+    for block, attr in p._owners:
+        if block._parameters.get(attr) is t or block._buffers.get(attr) is t:
+            return p
+    return None
 
 
 class DeferredInitializationError(MXNetError):
@@ -133,6 +152,7 @@ class Parameter:
         self._put(block, attr, t)
 
     def _put(self, block, attr, t):
+        _HOLDERS[id(t)] = self
         if self._state:
             block._buffers[attr] = t
         else:

@@ -113,9 +113,13 @@ class Trainer:
 
     def _update(self, ignore_stale_grad=False):
         items = []
+        seen = set()
         for i, p in enumerate(self._params):
-            if p.grad_req == "null" or p._data is None:
+            if p.grad_req == "null" or p._data is None or id(p) in seen:
+                # a Parameter shared by two blocks is listed under both
+                # names and updated once, as in the JAX package
                 continue
+            seen.add(id(p))
             var = autograd.variable(p._data)
             if var is not None and not var.fresh:
                 if ignore_stale_grad:

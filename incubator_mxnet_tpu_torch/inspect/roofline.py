@@ -317,6 +317,36 @@ def _augment(N, ch, cw, in_dtype, out_dtype, cr=3, cout=3):
             "compute": "float32"}
 
 
+# The recurrent cell's f32 operations an (n, h) element, each activation
+# as ACT_OPS counts it (tanh's 4 for the softplus family and softsign):
+# (forward, backward) by mode; the backward's activation derivatives 2
+# each (1 - y y, s (1 - s))
+def _cell_ops(mode, act):
+    a = ACT_OPS.get(act, ACT_OPS["tanh"])
+    s = ACT_OPS["sigmoid"]
+    return {"lstm": (4 + 3 * s + 2 * a + 4, a + 5 + 3 * 4 + 4 + 1),
+            "gru": (2 + 2 * s + 2 + a + 4, 5 + 5 + 4 + 1 + 1),
+            "rnn": (1 + a, 3)}[mode]
+
+
+def _rnn_cell_fwd(mode, N, H, dtype, save=True, act="tanh"):
+    from ..ops.kernels import RNN_GATES
+    G = RNN_GATES[mode]
+    # gx, gh; c (LSTM) or h (GRU); h' (and c'); the activations
+    values = 2 * G + (mode != "rnn") + 1 + (mode == "lstm") \
+        + (G if save and mode != "rnn" else 0)
+    return {"flops": N * H * _cell_ops(mode, act)[0],
+            "bytes": N * H * values * _item(dtype), "compute": "float32"}
+
+
+def _rnn_cell_bwd(mode, N, H, dtype, dc=True, act="tanh"):
+    values = {"lstm": 4 + 3 + int(bool(dc)) + 4 + 1,
+              "gru": 3 + 1 + 1 + 1 + 3 + 3 + 1,
+              "rnn": 3}[mode]
+    return {"flops": N * H * _cell_ops(mode, act)[1],
+            "bytes": N * H * values * _item(dtype), "compute": "float32"}
+
+
 # kernel (launch counter's name) -> cost of one launch from its shapes
 KERNELS = {
     "scale_shift_act": _scale_shift_act,
@@ -331,6 +361,8 @@ KERNELS = {
     "nms_sweep": _nms,
     "proposal_sweep": _proposal_sweep,
     "image_augment": _augment,
+    "rnn_cell_fwd": _rnn_cell_fwd,
+    "rnn_cell_bwd": _rnn_cell_bwd,
 }
 
 
@@ -359,6 +391,15 @@ def kernel_cost(name, **shape):
                        f32 ops a pixel-inclusive IoU test)
       image_augment    N, ch, cw, in_dtype, out_dtype, cr=3, cout=3 (the
                        crop's cr channels read, cout written)
+      rnn_cell_fwd     mode ("lstm", "gru", "rnn"), N, H, dtype, save=True,
+                       act="tanh" (the gates gx and gh read, the state the
+                       mode reads, h' (and c') written, and with `save` the
+                       gate activations; f32 ops by `_cell_ops`)
+      rnn_cell_bwd     mode, N, H, dtype, dc=True, act="tanh" (what the
+                       mode's backward reads: the activations and c, c',
+                       dh, dc for the LSTM; the activations, gh's n block,
+                       h, dh for the GRU; h', dh for the RNN; dgx (and the
+                       GRU's dgh) and the state's gradient written)
 
     Returns {"name", "flops", "bytes", "compute"} (the type whose peak
     bounds the operations), plus "bytes_only" when the flops are unknown.

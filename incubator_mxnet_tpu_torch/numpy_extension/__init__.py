@@ -84,13 +84,6 @@ def _op(name, impl, amp="neutral", casts_inside=False):
     return fn
 
 
-def _not_ported(name, queue):
-    def fn(*args, **kwargs):
-        raise MXNetError(f"npx.{name} is not ported yet (ROADMAP {queue})")
-    fn.__name__ = fn.__qualname__ = name
-    return fn
-
-
 # ---------------------------------------------------------------------------
 # activations and elementwise functions
 # ---------------------------------------------------------------------------
@@ -617,7 +610,81 @@ def psroi_pooling(data, rois, spatial_scale, output_dim, pooled_size,
                           group_size=int(group_size))
 
 
-rnn = _not_ported("rnn", "A12 (gluon.rnn)")
+_RNN_GATES = {"lstm": 4, "gru": 3, "rnn_tanh": 1, "rnn_relu": 1}
+
+
+def _rnn_fused(x, flat, h0, *maybe_c, mode, H, L, D, p, generator,
+               training):
+    """`ops.nn.rnn` over the reference's flat parameter vector: all
+    W_i2h / W_h2h gate blocks layer-major (direction inner), then all
+    b_i2h / b_h2h pairs in the same order."""
+    G, C = _RNN_GATES[mode], x.shape[-1]
+    need = sum(G * H * ((C if layer == 0 else H * D) + H + 2)
+               for layer in range(L) for _ in range(D))
+    if need != flat.shape[0]:
+        # the reference op's parameter-size check (rnn.cc): a mismatched
+        # layout must not misalign every block (the JAX package's message;
+        # it raises it for a long vector, and a reshape error for a short
+        # one)
+        raise MXNetError(
+            f"parameters has {flat.shape[0]} elements; the "
+            f"{mode} L={L} D={D} H={H} C={C} layout needs {need}")
+    off = 0
+
+    def take(n, shape):
+        nonlocal off
+        w = flat[off:off + n].reshape(shape)
+        off += n
+        return w
+
+    params = {}
+    for layer in range(L):
+        insz = C if layer == 0 else H * D
+        for d in range(D):
+            params[(layer, d)] = {"wx": take(G * H * insz, (G * H, insz)),
+                                  "wh": take(G * H * H, (G * H, H))}
+    for layer in range(L):
+        for d in range(D):
+            params[(layer, d)]["bx"] = take(G * H, (G * H,))
+            params[(layer, d)]["bh"] = take(G * H, (G * H,))
+    out, new_state = _nn.rnn(x, params, (h0,) + tuple(maybe_c), mode=mode,
+                             num_layers=L, bidirectional=(D == 2),
+                             dropout_rate=p, generator=generator,
+                             training=training)
+    return (out,) + tuple(new_state)
+
+
+register_op("npx.rnn", _rnn_fused)
+
+
+def rnn(data, parameters, state, state_cell=None, mode="lstm",
+        state_size=None, num_layers=1, bidirectional=False, p=0.0,
+        state_outputs=False):
+    """Fused multi-layer (bi)RNN on a flat parameter vector (the
+    reference's `_npx.rnn`, src/operator/rnn.cc). `data` (T, N, C)
+    time-major; `parameters` all W_i2h / W_h2h gate blocks layer-major
+    with direction inner, then all b_i2h / b_h2h pairs in the same order;
+    gate order LSTM [i, f, g, o], GRU [r, z, n]. `state` (L D, N, H) and,
+    for the LSTM, `state_cell` likewise. Dropout `p` between layers in
+    training, from the device's generator. Returns `out`, or (out, h_n[,
+    c_n]) with `state_outputs`."""
+    if state_size is None:
+        raise MXNetError("state_size is required")
+    if mode not in _RNN_GATES:
+        raise MXNetError(f"unknown rnn mode {mode!r}")
+    arrs = [_as_nd(data), _as_nd(parameters), _as_nd(state)]
+    if mode == "lstm":
+        if state_cell is None:
+            raise MXNetError("lstm needs state_cell")
+        arrs.append(_as_nd(state_cell))
+    training = _autograd.is_training()
+    gen = _grandom.generator(arrs[0]._t.device) \
+        if (p > 0 and training) else None
+    res = invoke(_rnn_fused, tuple(arrs), name="rnn_fused",
+                 kwargs=dict(mode=mode, H=int(state_size),
+                             L=int(num_layers), D=2 if bidirectional else 1,
+                             p=p, generator=gen, training=training))
+    return tuple(res) if state_outputs else res[0]
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,8 @@ when the launch is refused, and adds one to its launch counter (see
 table, `refusal()`: it refuses only what the JAX package refuses too. Any
 other shape the JAX package serves reaches a kernel, every head dim
 included. The plain PyTorch versions live beside the
-dispatchers in `ops/fused.py` and `ops/attention.py`; no wrapper ever
+dispatchers in `ops/fused.py`, `ops/attention.py`, `ops/contrib.py` and
+`ops/rnn.py`; no wrapper ever
 falls back to them, and no wrapper copies a tensor into the layout its
 kernel takes: it raises.
 """
@@ -38,7 +39,8 @@ __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
            "avg_pool2d_fwd_cuda", "avg_pool2d_bwd_cuda", "flash_fwd_cuda",
            "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "nms_sweep_cuda",
            "proposal_sweep_cuda", "nms_mask_bytes",
-           "image_augment_cuda",
+           "image_augment_cuda", "rnn_cell_fwd_cuda", "rnn_cell_bwd_cuda",
+           "rnn_cell_vec", "RNN_MODES", "RNN_GATES", "RNN_ACTS",
            "flash_fwd_route",
            "flash_bwd_route", "paged_route", "pool_route", "augment_route",
            "augment_channels",
@@ -49,7 +51,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 _SOURCES = ("paged_attention", "scale_shift_act", "avg_pool2d",
-            "flash_attention", "nms", "image_augment")
+            "flash_attention", "nms", "image_augment", "rnn_cell")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,6 +90,10 @@ image_augment_launches = 0
 image_augment_table_launches = 0
 image_augment_direct_launches = 0
 image_augment_scalar_launches = 0
+# the recurrent cell's elementwise step, forward and backward (port-only:
+# the JAX package's cell body is fused by XLA inside lax.scan)
+rnn_cell_fwd_launches = 0
+rnn_cell_bwd_launches = 0
 # every launch above again, by (counter name, dtype name of the launch's
 # data: x, q, or the slab for the paged kernel's slab side)
 _BY_DTYPE = Counter()
@@ -131,7 +137,8 @@ def reset_launch_counts():
         nms_sweep_launches, proposal_sweep_launches, \
         image_augment_launches, \
         image_augment_table_launches, image_augment_direct_launches, \
-        image_augment_scalar_launches
+        image_augment_scalar_launches, rnn_cell_fwd_launches, \
+        rnn_cell_bwd_launches
     paged_attention_launches = 0
     paged_attention_int8_launches = 0
     paged_attention_split_launches = 0
@@ -154,6 +161,8 @@ def reset_launch_counts():
     image_augment_table_launches = 0
     image_augment_direct_launches = 0
     image_augment_scalar_launches = 0
+    rnn_cell_fwd_launches = 0
+    rnn_cell_bwd_launches = 0
     _BY_DTYPE.clear()
 
 
@@ -188,7 +197,9 @@ def launch_counts():
             "image_augment": image_augment_launches,
             "image_augment_table": image_augment_table_launches,
             "image_augment_direct": image_augment_direct_launches,
-            "image_augment_scalar": image_augment_scalar_launches}
+            "image_augment_scalar": image_augment_scalar_launches,
+            "rnn_cell_fwd": rnn_cell_fwd_launches,
+            "rnn_cell_bwd": rnn_cell_bwd_launches}
 
 
 def _nvcc():
@@ -346,6 +357,15 @@ def _load(name):
                 lib.mx_proposal_sweep.argtypes = (
                     [ctypes.c_int] + [ctypes.c_void_p] * 3
                     + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+            elif name == "rnn_cell":
+                lib.mx_rnn_cell_fwd.restype = ctypes.c_int
+                lib.mx_rnn_cell_fwd.argtypes = (
+                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
+                    + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+                lib.mx_rnn_cell_bwd.restype = ctypes.c_int
+                lib.mx_rnn_cell_bwd.argtypes = (
+                    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 11
+                    + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
             lib.mx_cuda_error_string.restype = ctypes.c_char_p
             lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
             _LIBS[name] = lib
@@ -422,8 +442,9 @@ def refusal(kernel, **shape):
     "paged_attention" (head_dim), "scale_shift_act" (act), "avg_pool2d"
     (h, w, ph, pw), "flash" (d; all four flash kernels), "image_augment"
     (h, w, ch, cw, and c channels, mean / std lengths lm / ls or None,
-    which default to 3, None, None); the paged and flash kernels have no
-    row. Runs anywhere: the CPU tests hold it against the JAX package."""
+    which default to 3, None, None); the paged, flash and recurrent cell
+    kernels have no row (the cell takes every float type, N and H). Runs
+    anywhere: the CPU tests hold it against the JAX package."""
     for name, _kind, test, message in RULES:
         if name == kernel and test(shape):
             return message.format(**shape)
@@ -1197,3 +1218,157 @@ def image_augment_cuda(images, y0, x0, flips, crop_hw, mean, std, out_dtype):
         image_augment_scalar_launches += 1
     _count_dtype("image_augment", out_dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the recurrent cell (csrc/rnn_cell.cu; the plain versions are
+# ops/rnn.py :: cell_fwd_ref / cell_bwd_ref)
+# ---------------------------------------------------------------------------
+# the cell kernels' mode and activation codes (csrc/rnn_cell.cu: Mode,
+# Act) and each mode's gate count
+RNN_MODES = {"lstm": 0, "gru": 1, "rnn": 2}
+RNN_GATES = {"lstm": 4, "gru": 3, "rnn": 1}
+RNN_ACTS = {"tanh": 0, "relu": 1, "sigmoid": 2, "softrelu": 3,
+            "softsign": 4, "log_sigmoid": 5}
+
+
+def rnn_cell_vec(H, dtype, tensors=()):
+    """Elements a thread of the cell kernels takes (one load of V x
+    itemsize bytes from each gate block): the largest of 16 bytes' worth
+    (4 float32, 8 bfloat16 or float16) and its halves down to 1 that
+    divides H and to whose alignment every pointer in `tensors` keeps
+    (csrc/rnn_cell.cu :: pick_vec)."""
+    item = torch.empty(0, dtype=dtype).element_size()
+    v = 16 // item
+    while v > 1 and (H % v or any(t.data_ptr() % (v * item)
+                                  for t in tensors if t is not None)):
+        v //= 2
+    return v
+
+
+def _rnn_check(name, mode, act, like, named):
+    """(mode code, gates, N, H) after checking every tensor of `named`
+    ({label: (tensor or None, columns, required)}) against `like` (N, H):
+    on the card, one device, like's dtype, contiguous (N, columns)."""
+    if mode not in RNN_MODES or act not in RNN_ACTS:
+        raise MXNetError(f"{name}: mode {mode!r} / activation {act!r} not "
+                         f"one of {sorted(RNN_MODES)} / {sorted(RNN_ACTS)}")
+    code, G = RNN_MODES[mode], RNN_GATES[mode]
+    present = [t for t, _, _ in named.values() if t is not None]
+    _check_cuda(name, present)
+    if like.dim() != 2 or like.dtype not in _FLOATS:
+        raise MXNetError(f"{name}: the state must be a 2-D float32, "
+                         f"bfloat16 or float16 tensor; got "
+                         f"{tuple(like.shape)} {like.dtype}")
+    N, H = like.shape
+    for label, (t, cols, required) in named.items():
+        if t is None:
+            if required:
+                raise MXNetError(f"{name}: {mode} needs {label}")
+            continue
+        if tuple(t.shape) != (N, cols * H) or t.dtype != like.dtype:
+            raise MXNetError(f"{name}: {label} must be ({N}, {cols * H}) "
+                             f"{like.dtype}; got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise MXNetError(f"{name}: {label} must be contiguous")
+    return code, G, N, H
+
+
+def rnn_cell_fwd_cuda(mode, gx, gh, h, c, act="tanh", save=True):
+    """Launch the recurrent cell's forward (`csrc/rnn_cell.cu`): from the
+    gate pre-activations gx, gh (N, G H) and the previous state (h for
+    the GRU, c for the LSTM; the other is not read) compute h' (and the
+    LSTM's c') and, with `save`, the gate activations the backward reads
+    (LSTM i, f, g, o; GRU r, z, n; nothing for the RNN), every value in
+    float32 and rounded once to the inputs' dtype, as `ops.rnn.
+    cell_fwd_ref` computes them. `mode` "lstm", "gru" or "rnn", `act` a
+    key of `ops.rnn.ACTS`. Every tensor contiguous, of one float dtype, on
+    one card. Returns (h', c' or None, activations or None); counts one launch
+    in `rnn_cell_fwd_launches`. Raises `MXNetError` on any input the
+    kernel does not take."""
+    global rnn_cell_fwd_launches
+    name = "rnn_cell_fwd_cuda"
+    G = RNN_GATES.get(mode, 1)
+    if gx.dim() != 2 or gx.shape[-1] % G:
+        raise MXNetError(f"{name}: gx must be (N, {G} H); got "
+                         f"{tuple(gx.shape)}")
+    like = torch.empty((gx.shape[0], gx.shape[1] // G), dtype=gx.dtype,
+                       device="meta")
+    code, G, N, H = _rnn_check(name, mode, act, like, {
+        "gx": (gx, G, True), "gh": (gh, G, True),
+        "h": (h if mode == "gru" else None, 1, mode == "gru"),
+        "c": (c if mode == "lstm" else None, 1, mode == "lstm")})
+    h_new = torch.empty((N, H), dtype=gx.dtype, device=gx.device)
+    c_new = torch.empty_like(h_new) if mode == "lstm" else None
+    saved = (torch.empty_like(gx) if save and mode != "rnn" else None)
+    if N * H == 0:
+        return h_new, c_new, saved
+    lib = _load("rnn_cell")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(gx.device).cuda_stream
+    launch = lib.mx_rnn_cell_fwd if _CAPTURE is None else _captured(
+        lib.mx_rnn_cell_fwd, "rnn_cell_fwd", mode=mode, N=N, H=H,
+        dtype=gx.dtype, save=saved is not None, act=act)
+    rc = launch(DTYPE_CODES[gx.dtype], code, RNN_ACTS[act],
+                gx.device.index or 0, gx.data_ptr(), gh.data_ptr(),
+                ptr(h if mode == "gru" else None),
+                ptr(c if mode == "lstm" else None), h_new.data_ptr(),
+                ptr(c_new), ptr(saved), N, H, stream)
+    if rc != 0:
+        raise _launch_failed(lib, "rnn_cell_fwd", rc)
+    rnn_cell_fwd_launches += 1
+    _count_dtype("rnn_cell_fwd", gx.dtype)
+    return h_new, c_new, saved
+
+
+def rnn_cell_bwd_cuda(mode, saved, gh, h, c, h_new, c_new, dh, dc,
+                      act="tanh"):
+    """Launch the recurrent cell's backward (`csrc/rnn_cell.cu`): from what
+    the forward saved (the LSTM's activations, c and c'; the GRU's
+    activations, gh and h; the RNN's h') and the output gradients dh' (and
+    the LSTM's dc'; None reads as zeros) compute dgx, dgh (N, G H) and the
+    previous state's elementwise gradient (the LSTM's dc, the GRU's
+    dh' z), as `ops.rnn.cell_bwd_ref` computes them. dgh is dgx itself
+    except for the GRU, whose n block differs (dn_pre r). Returns (dgx,
+    dgh, dstate or None); counts one launch in `rnn_cell_bwd_launches`.
+    Raises `MXNetError` on any input the kernel does not take."""
+    global rnn_cell_bwd_launches
+    name = "rnn_cell_bwd_cuda"
+    key = {"lstm": "c_new", "gru": "h"}.get(mode, "h_new")
+    like = {"c_new": c_new, "h": h, "h_new": h_new}[key]
+    if like is None:
+        raise MXNetError(f"{name}: {mode} needs {key}")
+    G = RNN_GATES.get(mode, 1)
+    lstm, gru = mode == "lstm", mode == "gru"
+    code, G, N, H = _rnn_check(name, mode, act, like, {
+        "saved": (saved if mode != "rnn" else None, G, mode != "rnn"),
+        "gh": (gh if gru else None, G, gru),
+        "h": (h if gru else None, 1, gru),
+        "c": (c if lstm else None, 1, lstm),
+        "c_new": (c_new if lstm else None, 1, lstm),
+        "h_new": (h_new if mode == "rnn" else None, 1, mode == "rnn"),
+        "dh": (dh, 1, False), "dc": (dc if lstm else None, 1, False)})
+    dgx = torch.empty((N, G * H), dtype=like.dtype, device=like.device)
+    dgh = torch.empty_like(dgx) if gru else dgx
+    dstate = torch.empty_like(like) if mode != "rnn" else None
+    if N * H == 0:
+        return dgx, dgh, dstate
+    lib = _load("rnn_cell")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(like.device).cuda_stream
+    launch = lib.mx_rnn_cell_bwd if _CAPTURE is None else _captured(
+        lib.mx_rnn_cell_bwd, "rnn_cell_bwd", mode=mode, N=N, H=H,
+        dtype=like.dtype, dc=dc is not None, act=act)
+    rc = launch(DTYPE_CODES[like.dtype], code, RNN_ACTS[act],
+                like.device.index or 0,
+                ptr(saved if mode != "rnn" else None), ptr(gh if gru else None),
+                ptr(h if gru else None), ptr(c if lstm else None),
+                ptr(h_new if mode == "rnn" else None),
+                ptr(c_new if lstm else None), ptr(dh),
+                ptr(dc if lstm else None), dgx.data_ptr(),
+                ptr(dgh if gru else None), ptr(dstate), N, H, stream)
+    if rc != 0:
+        raise _launch_failed(lib, "rnn_cell_bwd", rc)
+    rnn_cell_bwd_launches += 1
+    _count_dtype("rnn_cell_bwd", like.dtype)
+    return dgx, dgh, dstate

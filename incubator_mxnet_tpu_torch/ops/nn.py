@@ -5,10 +5,12 @@ layers need: convolution and deconvolution (1-D, 2-D and 3-D),
 fully_connected, the unfused batch_norm, layer_norm, group_norm,
 instance_norm, rms_norm, pooling (1-D, 2-D and 3-D), activation, relu,
 leaky_relu (leaky, prelu), elu, selu, gelu, silu, swish, sigmoid,
-softmax, log_softmax, pick, embedding, dropout and
-scaled_dot_product_attention, plus the elementwise `add`, `clip`, the
-reductions, the reshapes, `concat` and the reflection pad the Gluon layers
-call. The JAX package leaves these to XLA outside any Pallas kernel, so
+softmax, log_softmax, pick, embedding, dropout,
+scaled_dot_product_attention and the recurrent cells and layer
+(`lstm_cell`, `gru_cell`, `rnn_relu_cell`, `rnn`, whose elementwise step
+is the CUDA kernel of `ops.rnn` on the card), plus the elementwise `add`,
+`clip`, the reductions, the reshapes, `concat` and the reflection pad the
+Gluon layers call. The JAX package leaves these to XLA outside any Pallas kernel, so
 the port leaves them to PyTorch (cuDNN and cuBLAS on the card).
 
 Layouts follow the JAX package at the public functions: NCW / NWC,
@@ -48,7 +50,8 @@ __all__ = ["convolution", "deconvolution", "fully_connected", "batch_norm",
            "pick", "clamp_index", "fill_value", "take_fill", "embedding", "dropout", "scaled_dot_product_attention",
            "add",
            "multiply", "clip", "sum", "mean", "reshape", "transpose",
-           "concat", "reflection_pad2d"]
+           "concat", "reflection_pad2d", "lstm_cell", "gru_cell",
+           "rnn_relu_cell", "rnn"]
 
 # the layouts by number of spatial dims: (channels first, channels last)
 _LAYOUTS = {1: ("NCW", "NWC"), 2: ("NCHW", "NHWC"), 3: ("NCDHW", "NDHWC")}
@@ -571,3 +574,107 @@ def reflection_pad2d(x, padding):
     right, top, bottom), the edge row not repeated (numpy's "reflect")."""
     (x,) = amp.cast_inputs("pad", "neutral", x)
     return F.pad(x, tuple(padding), mode="reflect")
+
+
+# ---------------------------------------------------------------------------
+# recurrent cells and the fused multi-layer RNN (the JAX package's lax.scan
+# over packed per-layer weights). The products stay torch.matmul / addmm;
+# each step's elementwise part is `ops.rnn.cell`: the CUDA kernel on the
+# card, its plain version on the CPU.
+# ---------------------------------------------------------------------------
+def _gates(x, w, b=None):
+    """x W^T (+ b) over the last axis of x."""
+    if b is None:
+        return torch.matmul(x, w.t())
+    if x.dim() == 2:
+        return torch.addmm(b, x, w.t())
+    return torch.matmul(x, w.t()) + b
+
+
+def lstm_cell(x, h, c, wx, wh, b):
+    """One LSTM step (gates [i, f, g, o], bias b = bx + bh): (h', c')."""
+    from . import rnn as _rnn
+    return _rnn.cell("lstm", _gates(x, wx, b), _gates(h, wh), h, c)
+
+
+def gru_cell(x, h, wx, wh, bx, bh):
+    """One GRU step (gates [r, z, n], n = tanh(nx + r nh)): h'."""
+    from . import rnn as _rnn
+    return _rnn.cell("gru", _gates(x, wx, bx), _gates(h, wh, bh), h)
+
+
+def rnn_relu_cell(x, h, wx, wh, b, act="tanh"):
+    """One Elman step act(x Wx^T + h Wh^T + b), act "relu" or "tanh"."""
+    from . import rnn as _rnn
+    return _rnn.cell("rnn", _gates(x, wx, b), _gates(h, wh), h,
+                     act="relu" if act == "relu" else "tanh")
+
+
+def _scan_layer(step, gx_steps, h, c, reverse=False):
+    """Run `step(gx_t, h, c) -> (h, c)` over the time steps `gx_steps`
+    (backwards with `reverse`); returns (h_T, c_T, outputs stacked in time
+    order)."""
+    T = len(gx_steps)
+    ys = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        h, c = step(gx_steps[t], h, c)
+        ys[t] = h
+    return h, c, torch.stack(ys, 0)
+
+
+_RNN_CELL = {"lstm": ("lstm", "tanh"), "gru": ("gru", "tanh"),
+             "rnn_tanh": ("rnn", "tanh"), "rnn_relu": ("rnn", "relu")}
+
+
+def rnn(x, params, state, mode="lstm", num_layers=1, hidden_size=None,
+        bidirectional=False, dropout_rate=0.0, generator=None,
+        training=False):
+    """Multi-layer (bi)directional RNN over time-major x (T, N, C).
+
+    `params` {(layer, direction): {"wx", "wh", "bx", "bh"}}, `state` (h0,)
+    or (h0, c0) of shape (L D, N, H), as the JAX package's `ops.nn.rnn`.
+    Returns (output (T, N, H D), new state tuple). The input product of a
+    layer and direction is one product over all T N rows, ahead of the
+    time loop; the loop then takes the recurrent product and the cell
+    step. Dropout of `dropout_rate` between layers in training, its masks
+    drawn from `generator` (the port's, not jax.random: the masks differ
+    from the JAX package's)."""
+    from . import rnn as _rnn
+    if mode not in _RNN_CELL:
+        raise MXNetError(f"unknown rnn mode {mode!r}")
+    cell_mode, act = _RNN_CELL[mode]
+    ndir = 2 if bidirectional else 1
+    h0 = state[0]
+    c0 = state[1] if mode == "lstm" else None
+    out = x
+    T, N = x.shape[0], x.shape[1]
+    h_list, c_list = [], []
+    for layer in range(num_layers):
+        dir_outs = []
+        for d in range(ndir):
+            p = params[(layer, d)]
+            idx = layer * ndir + d
+            # the GRU keeps bh in the recurrent product (n = act(nx + r nh))
+            gru = mode == "gru"
+            bias = p["bx"] if gru else p["bx"] + p["bh"]
+            gx = torch.addmm(bias, out.reshape(T * N, -1), p["wx"].t())
+            gx_steps = gx.reshape(T, N, -1).unbind(0)
+
+            def step(g, h, c, wh=p["wh"], bh=p["bh"] if gru else None):
+                new = _rnn.cell(cell_mode, g, _gates(h, wh, bh), h, c, act)
+                return new if mode == "lstm" else (new, None)
+            hT, cT, ys = _scan_layer(
+                step, gx_steps, h0[idx].to(gx.dtype),
+                None if c0 is None else c0[idx].to(gx.dtype),
+                reverse=(d == 1))
+            h_list.append(hT)
+            if mode == "lstm":
+                c_list.append(cT)
+            dir_outs.append(ys)
+        out = dir_outs[0] if ndir == 1 else torch.cat(dir_outs, dim=-1)
+        if dropout_rate > 0 and training and layer < num_layers - 1:
+            out = dropout(out, dropout_rate, generator, training=True)
+    h_out = torch.stack(h_list, 0)
+    if mode == "lstm":
+        return out, (h_out, torch.stack(c_list, 0))
+    return out, (h_out,)

@@ -349,12 +349,6 @@ def test_np_mode_scopes_and_io(tmp_path):
     np.testing.assert_array_equal(back[0].asnumpy(), X2)
 
 
-@pytest.mark.parametrize("name", ["rnn"])
-def test_names_left_for_later_raise(name):
-    with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-        getattr(tmx.npx, name)(tmx.np.ones(2, device=CPU))
-
-
 @pytest.mark.parametrize("mode", ["clip", "wrap"])
 @pytest.mark.parametrize("axis", [-1, 0])
 def test_pick_takes_mode_and_clips_as_jax(mode, axis):

@@ -197,12 +197,64 @@ def _engine_trace(engine, monkeypatch):
     return out
 
 
-def test_naive_engine_as_jax(monkeypatch):
+def _engine_traces(monkeypatch):
+    """Both packages' traces, each from no override: a JAX test that
+    restores with `set_naive(prev)` leaves the effective bool behind, so
+    both overrides are set to None first (the fixture puts them back)."""
     monkeypatch.delenv("MXNET_ENGINE_BULK_SIZE", raising=False)
-    want = _engine_trace(jengine, monkeypatch)
-    assert _engine_trace(tengine, monkeypatch) == want
+    tengine._naive[0] = jengine._naive[0] = None
+    return (_engine_trace(jengine, monkeypatch),
+            _engine_trace(tengine, monkeypatch))
+
+
+def test_naive_engine_as_jax(monkeypatch):
+    want, got = _engine_traces(monkeypatch)
+    assert got == want
     assert want[0] == (False, 4096) and want[1] == (True, 0)
     assert set(jengine.__all__) <= set(tengine.__all__)
+
+
+@pytest.mark.parametrize("jax_left, port_left", [(False, None),
+                                                 (False, True)])
+def test_naive_engine_after_a_stuck_override(monkeypatch, jax_left,
+                                             port_left):
+    """The trace as another test file leaves the engines: the JAX
+    package's override stuck at False (`tests/test_dispatch.py` restores
+    with `set_naive(prev)`), the port's at None or stuck too."""
+    jengine.set_naive(jax_left)
+    tengine._naive[0] = port_left
+    want, got = _engine_traces(monkeypatch)
+    assert got == want
+    assert want[0] == (False, 4096) and want[1] == (True, 0)
+
+
+@pytest.mark.parametrize("value", ["cpu(0)", "cpu", None])
+def test_default_device_knob_as_jax(monkeypatch, value):
+    """`MXNET_DEFAULT_DEVICE` names the default device in both packages:
+    "cpu(0)" and "cpu" are the CPU for `current_device()` and a new
+    array; unset, the port keeps the card (it raises without one) where
+    the JAX package takes its accelerator or the CPU. The knob is
+    registered with the JAX package's type, default and help."""
+    import incubator_mxnet_tpu.device  # noqa: F401 - registers the knob
+    if value is None:
+        monkeypatch.delenv("MXNET_DEFAULT_DEVICE", raising=False)
+    else:
+        monkeypatch.setenv("MXNET_DEFAULT_DEVICE", value)
+    assert tmx.env_flags()["MXNET_DEFAULT_DEVICE"] == \
+        jmx.env_flags()["MXNET_DEFAULT_DEVICE"]
+    if value is None:
+        assert tmx.current_device() == tmx.gpu(0)
+        if not torch.cuda.is_available():
+            with pytest.raises(tmx.MXNetError, match="cuda"):
+                tmx.np.zeros((2,))
+        return
+    assert repr(tmx.current_device()) == repr(jmx.current_device()) \
+        == "cpu(0)"
+    got, want = tmx.np.array([1.0, 2.0]), jmx.np.array([1.0, 2.0])
+    assert repr(got.device) == repr(want.device) == "cpu(0)"
+    assert got._t.device.type == "cpu"
+    with tmx.gpu(0):
+        assert tmx.current_device() == tmx.gpu(0)
 
 
 def test_naive_dispatch_runs_ops(monkeypatch):

@@ -636,3 +636,94 @@ def crash_hooks_restored():
                 tr.FLIGHTREC._ring, tr.FLIGHTREC._spool_dir_memo = ring
         signal.signal(signal.SIGTERM, sigterm)
         sys.excepthook = hook
+
+
+# ---------------------------------------------------------------------------
+# recurrent nets: one block in each package holding the same values, and a
+# recorded forward and backward of each on the same numpy inputs
+# ---------------------------------------------------------------------------
+def recurrent_value(name, shape, rng):
+    """A value for the parameter `name` of `shape`: biases 0.1 N(0, 1),
+    weights N(0, 1) / sqrt(fan-in), float32."""
+    if name.endswith("bias"):
+        return (0.1 * rng.randn(*shape)).astype(np.float32)
+    fan = max(int(np.prod(shape[1:])), 1)
+    return (rng.randn(*shape) / np.sqrt(fan)).astype(np.float32)
+
+
+def recurrent_pair(make, resolve=None, seed=0):
+    """(JAX block, port block on the CPU) built by `make(rnn)` (each
+    package's `gluon.rnn`) with the same values, made from `seed`;
+    `resolve(jblk)` runs one JAX forward first where shapes are
+    deferred. The values go across with `gluon.params_from_jax`."""
+    from incubator_mxnet_tpu import np as jnp_
+    from incubator_mxnet_tpu.gluon import rnn as jrnn
+    from incubator_mxnet_tpu_torch import gluon as tgluon
+    from incubator_mxnet_tpu_torch.gluon import rnn as trnn
+    jblk = make(jrnn)
+    jblk.initialize()
+    if resolve is not None:
+        resolve(jblk)
+    rng = np.random.RandomState(seed)
+    values = {}
+    for name, p in jblk.collect_params().items():
+        v = recurrent_value(name, p.shape, rng)
+        p.set_data(jnp_.array(v))
+        values[name] = v
+    tblk = make(trnn).initialize(device="cpu")
+    tgluon.params_from_jax(tblk, values)
+    return jblk, tblk
+
+
+def recorded(port, blk, call, arrays, seed=7):
+    """Run `call(blk, nds)` (a list of output arrays) under `record()` on
+    `arrays` (numpy; each an NDArray with a gradient of the package,
+    `port` True for the port on the CPU) and back-propagate
+    sum_k (out_k * w_k).sum() with w_k from `seed`. Returns (outputs,
+    input gradients, {parameter: gradient}) as numpy."""
+    if port:
+        import incubator_mxnet_tpu_torch as pkg
+
+        def nd(a):
+            return pkg.np.array(a, device=pkg.cpu())
+    else:
+        import incubator_mxnet_tpu as pkg
+        nd = pkg.np.array
+    nds = [nd(a) for a in arrays]
+    for a in nds:
+        a.attach_grad()
+    rng = np.random.RandomState(seed)
+    with pkg.autograd.record():
+        outs = call(blk, nds)
+        loss = None
+        for o in outs:
+            w = nd(rng.randn(*o.shape).astype(np.float32))
+            term = (o * w).sum()
+            loss = term if loss is None else loss + term
+    loss.backward()
+    grads = {}
+    for name, p in blk.collect_params().items():
+        if p.grad_req == "null":
+            continue
+        g = p.grad()
+        grads[name] = (g.detach().cpu().numpy() if port else g.asnumpy())
+    return ([o.asnumpy() for o in outs], [a.grad.asnumpy() for a in nds],
+            grads)
+
+
+def assert_recorded_close(got, want, rtol, atol):
+    """Outputs, input gradients and parameter gradients of `recorded` in
+    the two packages agree within rtol / atol."""
+    (go, gi, gp), (wo, wi, wp) = got, want
+    assert len(go) == len(wo)
+    for k, (a, b) in enumerate(zip(go, wo)):
+        assert a.shape == b.shape, (k, a.shape, b.shape)
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol,
+                                   err_msg=f"output {k}")
+    for k, (a, b) in enumerate(zip(gi, wi)):
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol,
+                                   err_msg=f"input gradient {k}")
+    assert sorted(gp) == sorted(wp)
+    for name in wp:
+        np.testing.assert_allclose(gp[name], wp[name], rtol=rtol, atol=atol,
+                                   err_msg=f"gradient of {name}")
