@@ -474,9 +474,9 @@ Each phase fails the run (non-zero exit) on any error:
      forward bit-equal to the same net loaded from `.npz`; (d)
      `npx.pick(mode="clip" / "wrap")` on the card. The kernels' JSON
      gains the `proposal_sweep` entry, its launches from (a).
- 22. the recurrent cell kernel (`csrc/rnn_cell.cu`) and the word language
-     model: (a) the forward and backward kernels of every mode (LSTM, GRU,
-     RNN) and activation (tanh, relu, sigmoid, softrelu, softsign,
+ 22. the recurrent kernels (`csrc/rnn_cell.cu`, `csrc/rnn_layer.cu`) and
+     the word language model: (a) the cell's forward and backward
+     kernels of every mode (LSTM, GRU, RNN) and activation (tanh, relu, sigmoid, softrelu, softsign,
      log_sigmoid) against their plain versions (`ops.rnn.
      cell_fwd_ref` / `cell_bwd_ref`) at the LM's step (N 32, H 650) and a
      ragged H 37, in float32 (within 8 ulps of each value plus 8 of the
@@ -485,22 +485,39 @@ Each phase fails the run (non-zero exit) on any error:
      backward without the c path refused; the float32 LSTM and GRU kernels
      timed warm and cold beside the empty-launch floor, their bounds, the
      plain versions and `aten._thnn_fused_lstm_cell` / `_gru_cell` (and
-     their backwards); (b) the first training step of the reference
-     example's medium LSTM LM (33,278 words, 650 wide, 2 layers, tied,
-     dropout 0.5, bptt 35, batch 32, float32, TF32 off) on the kernels
-     against the same step with the cell as the plain composition under
-     autograd (the dropout generator seeded alike): the loss within 1e-5,
-     each gradient within 1e-4 of its norm, 70 + 70 launches; (c) 10
+     their backwards); (a') the layer's forward and backward kernels (the
+     whole time loop of a layer and direction in one cooperative launch)
+     against their plain versions (`ops.rnn.layer_fwd_ref` /
+     `layer_bwd_ref`) at the LM's layer (T 35, N 32, H 650), a ragged H 37,
+     a GRU over two batch passes, an RNN with relu and a 16-bit LSTM at
+     H 1500, both ways, in float32, bfloat16 and float16 where the route
+     is "persistent" (within 1e-4, 2e-2 and 2.5e-3 of each output's
+     largest value), two launches bit-equal; a forward with W_hh's i and
+     f blocks swapped and a forward and a backward walking time the other
+     way refused; the float32 LSTM and GRU layer kernels timed warm and
+     cold beside their bounds, the plain versions, the per-step route and
+     cuDNN's one-layer `torch.nn.LSTM` / `torch.nn.GRU`; (b) the first
+     training step of the reference example's medium LSTM LM (33,278
+     words, 650 wide, 2 layers, tied, dropout 0.5, bptt 35, batch 32,
+     float32, TF32 off) on the kernels against the same step with each
+     layer as the plain per-step composition under autograd (the dropout
+     generator seeded alike): the loss within 1e-5, each gradient within
+     1e-4 of its norm, 2 + 2 layer launches and no cell launch; (c) 10
      steps each through the port example's `FusedTrainStep` and its
-     imperative loop (SGD lr 20, clipping at 0.25 x batch): exactly 70
-     forward and 70 backward cell launches a step, the loss falling,
-     tokens/s, a `torch.profiler` pass over 3 fused steps (idle share), an
-     inference forward with 70 and 0; (d) the port's 2-layer LSTM layer
-     against cuDNN's `torch.nn.LSTM` with the same weights (within 1e-4),
-     both timed forward + backward; (e) `npx.rnn` in all four modes,
-     bidirectional, with state outputs, against the port on the CPU. The
-     kernels' JSON gains `rnn_cell_fwd` and `rnn_cell_bwd`, their
-     launches from (c)'s fused loop.
+     imperative loop (SGD lr 20, clipping at 0.25 x batch): exactly 2
+     forward and 2 backward layer launches a step (one a layer) and no
+     cell launch, the loss falling, tokens/s, a `torch.profiler` pass over
+     3 fused steps (idle share), an inference forward with 2 and 0; (d)
+     the port's 2-layer LSTM layer against cuDNN's `torch.nn.LSTM` with
+     the same weights (within 1e-4), both timed forward + backward, 2 + 2
+     layer launches; (e) `npx.rnn` in all four modes, bidirectional, with
+     state outputs, against the port on the CPU, counted on the route it
+     takes; (f) the per-step route on its main path: 2 fused steps of the
+     example's large model (1500 wide, float32, whose W_hh share does not
+     fit a block), 70 + 70 cell launches a step and no layer launch. The
+     kernels' JSON gains `rnn_layer_fwd` and `rnn_layer_bwd` (launches
+     from (c)'s fused loop) and `rnn_cell_fwd` and `rnn_cell_bwd`
+     (launches from (f)).
 
 `--phases 22` (or `--phases 2,22`, ...) runs the named phases and those
 whose results they take (5 <- 4, 14 <- 11, 15 <- 5, 17 <- 3 and 12,
@@ -515,8 +532,9 @@ kernel's float16 instances, their launches from the path that runs them
 in float16, the NMS sweep, port-only, its launches from (b), the
 proposal op's sweep on the same kernels, port-only, its launches from
 phase 21 (a), the augment kernel, port-only, its launches from phase
-15 (c), and the recurrent cell's forward and backward, port-only, their
-launches from phase 22 (c); each with its phase-14 `npx_launches`), and
+15 (c), the recurrent layer's forward and backward, port-only, their
+launches from phase 22 (c), and the recurrent cell's, port-only, their
+launches from phase 22 (f); each with its phase-14 `npx_launches`), and
 `{"ok": true, "device": {...}}`. Without a
 card the script exits non-zero and prints no result. It imports nothing of
 JAX. Its run time on the card is in the root `PERF.md`.
@@ -8515,6 +8533,23 @@ CUDNN_ATOL = 1e-4
 # (e): npx.rnn on the card against the port on the CPU
 NPX_RNN = dict(T=7, N=4, C=16, H=24, L=2)
 NPX_RNN_TOL = (1e-4, 1e-5)
+# (a'): the layer kernels' checks, (mode, act, T, N, H), each both ways (a
+# bidirectional layer's two directions) in every type whose route is
+# "persistent" there: the LM's layer; a ragged H (37 blocks, fewer than the
+# SMs); a GRU over two batch passes (N 40); an RNN with relu whose last
+# block owns one unit of three; a bfloat16 / float16 LSTM at the example's
+# large width (12 units, 144 KB of W_hh a block; float32 takes "per_step")
+LAYER_SHAPES = (("lstm", "tanh", 35, 32, 650), ("lstm", "tanh", 7, 5, 37),
+                ("gru", "tanh", 9, 40, 200), ("rnn", "relu", 9, 6, 301),
+                ("lstm", "tanh", 5, 8, 1500))
+# a layer output within TOL[dtype] (float32 1e-4: the products sum in
+# another order; 16-bit 2e-2 / 2.5e-3: h rounds at every step) of the
+# plain version's largest |value|
+# (f): the per-step route on its main path, the reference example's large
+# model (--emsize 1500 --nhid 1500 --dropout 0.65 --tied), float32: a
+# block's share of W_hh (12 units, 288 KB) does not fit
+WLM_LARGE = dict(WLM, emsize=1500, nhid=1500, dropout=0.65)
+WLM_LARGE_STEPS = 2
 
 
 def cell_err(got, want, dtype):
@@ -8725,6 +8760,250 @@ def rnn_kernels(dev):
             "floor_ms": floor_ms}
 
 
+def layer_inputs(mode, T, N, H, dtype, gen, dev):
+    G = rnn_ops.GATES[mode]
+    lstm, gru = mode == "lstm", mode == "gru"
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(
+            dtype)
+    return dict(gx=r(T, N, G * H), w=r(G * H, H, scale=H ** -0.5),
+                h0=r(N, H, scale=0.5), c0=r(N, H, scale=0.5) if lstm else None,
+                bh=r(G * H, scale=0.1) if gru else None, dys=r(T, N, H),
+                dh_T=r(N, H), dc_T=r(N, H) if lstm else None)
+
+
+def layer_err(got, want, dtype):
+    """(max abs error, its share of the plain version's largest |value|,
+    ok: within TOL[dtype] of it and finite)."""
+    if got is None and want is None:
+        return 0.0, 0.0, True
+    err = (got.float() - want.float()).abs().max().item()
+    share = err / max(want.float().abs().max().item(), 1e-30)
+    return err, share, share <= TOL[dtype] and bool(
+        torch.isfinite(got.float()).all())
+
+
+def _layer_fwd_args(mode, a):
+    return (mode, a["gx"], a["w"], a["h0"], a["c0"], a["bh"])
+
+
+def _layer_bwd_args(mode, a, fwd):
+    ys, _, _, acts, aux = fwd
+    return (mode, a["w"], acts, aux, ys, a["h0"], a["c0"], a["dys"],
+            a["dh_T"], a["dc_T"])
+
+
+def check_layer(mode, act, T, N, H, reverse, dtype, gen, dev):
+    """The layer's forward and backward kernels against their plain
+    versions on the same inputs (the backward on what the kernel's
+    forward saved), each launched twice: bit-equal."""
+    a = layer_inputs(mode, T, N, H, dtype, gen, dev)
+    fa = _layer_fwd_args(mode, a)
+    got = kernels.rnn_layer_fwd_cuda(*fa, act, reverse, True)
+    again = kernels.rnn_layer_fwd_cuda(*fa, act, reverse, True)
+    want = rnn_ops.layer_fwd_ref(*fa, act, reverse, True)
+    ba = _layer_bwd_args(mode, a, got)
+    gotb = kernels.rnn_layer_bwd_cuda(*ba, act, reverse)
+    againb = kernels.rnn_layer_bwd_cuda(*ba, act, reverse)
+    wantb = rnn_ops.layer_bwd_ref(*ba, act, reverse)
+    tag = (f"{mode}/{act} T={T} N={N} H={H} reverse={reverse} "
+           f"{_dtype_name(dtype)}")
+    same = all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(got + gotb, again + againb))
+    assert same, (tag, "two launches differ")
+    errs = {}
+    for names, g, w in ((("ys", "h_T", "c_T", "acts", "aux"), got, want),
+                        (("dgx", "dgh", "dh0", "dc0"), gotb, wantb)):
+        for name, x, y in zip(names, g, w):
+            err, share, ok = layer_err(x, y, dtype)
+            assert ok, (tag, name, err, share)
+            errs[name] = share
+    # the route's shared-memory count is the kernels' own
+    plan = kernels.rnn_layer_plan(mode, H, dtype, kernels.rnn_sms(dev))
+    smem = [kernels._load("rnn_layer").mx_rnn_layer_smem(
+        kernels.DTYPE_CODES[dtype], kernels.RNN_MODES[mode], H,
+        plan["units"], b) for b in (0, 1)]
+    assert smem == [plan["smem_fwd"], plan["smem_bwd"]], (tag, smem, plan)
+    return {"mode": mode, "act": act, "T": T, "N": N, "H": H,
+            "reverse": reverse, "dtype": _dtype_name(dtype),
+            "units": plan["units"], "smem": smem,
+            "fwd_err": max(errs[k] for k in ("ys", "h_T", "c_T", "acts",
+                                               "aux")),
+            "bwd_err": max(errs[k] for k in ("dgx", "dgh", "dh0", "dc0")),
+            "bit_equal": same}
+
+
+def layer_planted_faults(gen, dev):
+    """Three faulty plain versions the float32 limit must refuse at the
+    LM's layer: a forward with W_hh's i and f blocks swapped, a forward
+    and a backward that walk the time axis the other way."""
+    mode, act, T, N, H = LAYER_SHAPES[0]
+    a = layer_inputs(mode, T, N, H, torch.float32, gen, dev)
+    fa = _layer_fwd_args(mode, a)
+    got = kernels.rnn_layer_fwd_cuda(*fa, act)
+    w = a["w"]
+    swapped = torch.cat([w[H:2 * H], w[:H], w[2 * H:]])
+    bad_w = rnn_ops.layer_fwd_ref(mode, a["gx"], swapped, a["h0"], a["c0"],
+                                  None, act)
+    bad_t = rnn_ops.layer_fwd_ref(*fa, act, True)
+    ba = _layer_bwd_args(mode, a, got)
+    gotb = kernels.rnn_layer_bwd_cuda(*ba, act)
+    bad_b = rnn_ops.layer_bwd_ref(*ba, act, True)
+    out = {"i_f_swapped_refused": not layer_err(got[0], bad_w[0],
+                                                torch.float32)[2],
+           "reversed_fwd_refused": not layer_err(got[0], bad_t[0],
+                                                 torch.float32)[2],
+           "reversed_bwd_refused": not layer_err(gotb[0], bad_b[0],
+                                                 torch.float32)[2]}
+    assert all(out.values()), ("planted layer faults passed", out)
+    return out
+
+
+def _needs_grad(a, keys):
+    return {k: (None if a[k] is None else a[k].detach().clone()
+                .requires_grad_(True)) for k in keys}
+
+
+def per_step_layer(mode, act, a):
+    """The per-step route of one layer at `a` (the recurrent product and
+    `ops.rnn.cell` a step): (ys, ...) under autograd."""
+    def step(g, h, c):
+        new = rnn_ops.cell(mode, g, ops_nn._gates(h, a["w"], a["bh"]), h, c,
+                           act)
+        return new if mode == "lstm" else (new, None)
+    hT, cT, ys = ops_nn._scan_layer(step, a["gx"].unbind(0), a["h0"],
+                                    a["c0"])
+    return ys, hT, cT
+
+
+def _library_layer(mode, a):
+    """cuDNN's one-layer torch.nn.LSTM / torch.nn.GRU with W_hh = a's (the
+    yardstick, never on the port's path; it also takes the input product
+    x W_ih, which the layer kernels are given): (forward fn, backward fn:
+    autograd.grad through its graph, kept)."""
+    T, N, H = a["dys"].shape
+    cls = torch.nn.LSTM if mode == "lstm" else torch.nn.GRU
+    ref = cls(H, H, 1).to(a["w"].device)
+    with torch.no_grad():
+        ref.weight_hh_l0.copy_(a["w"])
+    x = a["gx"][..., :H].detach().clone().requires_grad_(True)
+    state = (a["h0"][None], a["c0"][None]) if mode == "lstm" else \
+        a["h0"][None]
+
+    def fwd(_i):
+        with torch.no_grad():
+            return ref(x, state)
+    y, _ = ref(x, state)
+    wrt = [x] + list(ref.parameters())
+
+    def bwd(_i):
+        return torch.autograd.grad(y, wrt, a["dys"], retain_graph=True)
+    return fwd, bwd
+
+
+def time_layer(mode, gen, dev, floor_ms):
+    """The float32 layer kernels at the LM's layer (mode LSTM or GRU),
+    warm and cold, against their bounds, the plain versions, the per-step
+    route (forward; forward + backward under autograd, less the forward)
+    and cuDNN's layer; returns a row for each direction."""
+    _, act, T, N, H = LAYER_SHAPES[0]
+    dt = torch.float32
+    a = layer_inputs(mode, T, N, H, dt, gen, dev)
+    fa = _layer_fwd_args(mode, a)
+    fwd = kernels.rnn_layer_fwd_cuda(*fa, act)
+    ba = _layer_bwd_args(mode, a, fwd)
+    lib_fwd, lib_bwd = _library_layer(mode, a)
+    keys = ("gx", "w", "h0", "c0", "bh")
+    g = _needs_grad(a, keys)
+    g.update(dys=a["dys"], dh_T=None, dc_T=None)
+    wrt = [g[k] for k in keys if g[k] is not None]
+
+    def route_fb(run):
+        def fn(_i):
+            out = run()
+            torch.autograd.grad(out[0], wrt, a["dys"])
+        return fn
+    with torch.no_grad():
+        step_fwd = median_ms(lambda i: per_step_layer(mode, act, a), reps=10)
+    step_fb = median_ms(route_fb(lambda: per_step_layer(mode, act, g)),
+                        reps=10)
+    layer_fb = median_ms(route_fb(lambda: rnn_ops.layer(
+        mode, g["gx"], g["w"], g["h0"], g["c0"], g["bh"], act)), reps=10)
+    lib_f = median_ms(lib_fwd, reps=10)
+    lib_b = median_ms(lib_bwd, reps=10)
+    rows = []
+    for name, kern, ins, plain in (
+            ("rnn_layer_fwd",
+             lambda t: kernels.rnn_layer_fwd_cuda(mode, *t, act),
+             fa[1:], lambda _i: rnn_ops.layer_fwd_ref(*fa, act)),
+            ("rnn_layer_bwd",
+             lambda t: kernels.rnn_layer_bwd_cuda(mode, *t, act),
+             ba[1:], lambda _i: rnn_ops.layer_bwd_ref(*ba, act))):
+        warm = median_ms(lambda _i: kern(ins), reps=20)
+        n_bytes = sum(t.numel() * t.element_size() for t in ins
+                      if t is not None)
+        copies = max(2, -(-int(COLD_BYTES) // max(n_bytes, 1)))
+        cold = cold_ms(kern, [tuple(None if t is None else t.clone()
+                                    for t in ins) for _ in range(copies)])
+        shape = dict(mode=mode, T=T, N=N, H=H, dtype=dt, act=act)
+        if name == "rnn_layer_bwd":
+            shape["dc"] = mode == "lstm"
+        bound, by = bound_ms(name, **shape)
+        fwd_name = name == "rnn_layer_fwd"
+        row = {"name": name, "mode": mode, "T": T, "N": N, "H": H,
+               "dtype": "float32", "ms": warm, "cold_ms": cold,
+               "floor_ms": floor_ms, "bound_ms": bound, "bound_by": by,
+               "plain_ms": median_ms(plain, reps=3),
+               "per_step_ms": step_fwd if fwd_name else step_fb - step_fwd,
+               "library_ms": lib_f if fwd_name else lib_b,
+               "layer_fb_ms": layer_fb, "per_step_fb_ms": step_fb,
+               "library_fb_ms": lib_f + lib_b}
+        log(f"[rnn layer] {name} {mode} T={T} N={N} H={H} float32: warm "
+            f"{warm:.4f} ms, cold {cold:.4f} ms (bound {bound:.5f} by {by};"
+            f" plain {row['plain_ms']:.3f}; the per-step route "
+            f"{row['per_step_ms']:.3f}; cuDNN's layer "
+            f"{row['library_ms']:.4f})")
+        rows.append(row)
+    log(f"[rnn layer] {mode} forward + backward under autograd: the layer "
+        f"route {layer_fb:.3f} ms, the per-step route {step_fb:.3f} ms, "
+        f"cuDNN {lib_f + lib_b:.3f} ms")
+    return rows
+
+
+def layer_kernels(dev, floor_ms):
+    """(a'): the layer kernels in every mode of LAYER_SHAPES, both ways,
+    float32 / bfloat16 / float16 where the route is "persistent", held
+    against their plain versions and bit-equal launch to launch; the
+    planted faults; the float32 LSTM and GRU timed at the LM's layer."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    sms = kernels.rnn_sms(dev)
+    checks, skipped = [], []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for mode, act, T, N, H in LAYER_SHAPES:
+            if kernels.rnn_layer_route(mode, N, H, dtype, sms) != \
+                    "persistent":
+                skipped.append((mode, H, _dtype_name(dtype)))
+                continue
+            for reverse in (False, True):
+                checks.append(check_layer(mode, act, T, N, H, reverse, dtype,
+                                          gen, dev))
+    assert skipped == [("lstm", 1500, "float32")], skipped
+    faults = layer_planted_faults(gen, dev)
+    timed = time_layer("lstm", gen, dev, floor_ms) + \
+        time_layer("gru", gen, dev, floor_ms)
+    worst = {n: (max(r["fwd_err"] for r in checks if r["dtype"] == n),
+                 max(r["bwd_err"] for r in checks if r["dtype"] == n))
+             for n in ("float32", "bfloat16", "float16")}
+    log(f"[rnn layer] {len(checks)} checks held, every pair of launches "
+        f"bit-equal (worst (forward, backward) error as a share of the "
+        f"largest value, by type: {worst}; per_step: {skipped}); planted "
+        f"faults refused {faults}")
+    kernels.reset_launch_counts()   # comparison launches do not count
+    return {"checks": checks, "skipped": skipped, "faults": faults,
+            "timed": timed, "worst": worst}
+
+
 def wlm_corpus(n_batches):
     """The example's synthetic Zipf corpus at the LM's vocabulary, as
     (x, y) numpy batches of (bptt, batch) tokens."""
@@ -8743,10 +9022,22 @@ def wlm_model(dev, seed=0, dropout=None):
     return net
 
 
+RNN_COUNTERS = ("rnn_cell_fwd", "rnn_cell_bwd", "rnn_layer_fwd",
+                "rnn_layer_bwd", "rnn_layer_persistent", "rnn_layer_per_step")
+
+
 def _rnn_launches():
     c = kernels.launch_counts()
-    return {"rnn_cell_fwd": c["rnn_cell_fwd"],
-            "rnn_cell_bwd": c["rnn_cell_bwd"]}
+    return {k: c[k] for k in RNN_COUNTERS}
+
+
+def _rnn_want(cell=0, layer=0, per_step=0, bwd=True):
+    """The recurrent counters of a run: `cell` cell launches and `layer`
+    layer launches each way (forward only without `bwd`), `per_step`
+    (layer, direction) passes on the per-step route."""
+    return {"rnn_cell_fwd": cell, "rnn_cell_bwd": cell if bwd else 0,
+            "rnn_layer_fwd": layer, "rnn_layer_bwd": layer if bwd else 0,
+            "rnn_layer_persistent": layer, "rnn_layer_per_step": per_step}
 
 
 def _composed_cell(mode, gx, gh, h, c=None, act="tanh"):
@@ -8755,9 +9046,9 @@ def _composed_cell(mode, gx, gh, h, c=None, act="tanh"):
 
 def wlm_step_check(dev, batch):
     """(b): the LM's first training step (dropout 0.5 drawn from the
-    port's generator, seeded alike) on the kernel against the same step
-    with the cell as the plain composition under autograd: the summed loss
-    and every parameter's gradient."""
+    port's generator, seeded alike) on the layer kernels against the same
+    step with each layer as the plain per-step composition under autograd:
+    the summed loss and every parameter's gradient."""
     x, y = (torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in batch)
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     net = wlm_model(dev, seed=5)
@@ -8766,9 +9057,10 @@ def wlm_step_check(dev, batch):
     out = {}
     for tag in ("kernel", "plain"):
         random.seed(22)
-        saved = rnn_ops.cell
+        saved = rnn_ops.cell, rnn_ops.layer
         if tag == "plain":
-            rnn_ops.cell = _composed_cell
+            rnn_ops.cell, rnn_ops.layer = _composed_cell, \
+                rnn_ops.layer_composed
         kernels.reset_launch_counts()
         try:
             h, c = (s._t for s in net.begin_state(WLM["batch"]))
@@ -8777,13 +9069,12 @@ def wlm_step_check(dev, batch):
                 loss = loss_fn(logits, y).sum()
             grads = torch.autograd.grad(loss, [p.data() for p in params])
         finally:
-            rnn_ops.cell = saved
+            rnn_ops.cell, rnn_ops.layer = saved
         torch.cuda.synchronize()
         out[tag] = (loss.detach(), grads, _rnn_launches())
     (lk, gk, nk), (lp, gp, npl) = out["kernel"], out["plain"]
-    per_layer = WLM["nlayers"] * WLM["bptt"]
-    assert nk == {"rnn_cell_fwd": per_layer, "rnn_cell_bwd": per_layer}, nk
-    assert npl == {"rnn_cell_fwd": 0, "rnn_cell_bwd": 0}, npl
+    assert nk == _rnn_want(layer=WLM["nlayers"]), nk
+    assert npl == _rnn_want(), npl
     loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
     grad_rel = {}
     for p, a, b in zip(params, gk, gp):
@@ -8792,9 +9083,10 @@ def wlm_step_check(dev, batch):
     worst = max(grad_rel.items(), key=lambda kv: kv[1])
     assert loss_rel <= WLM_LOSS_RTOL and worst[1] <= WLM_GRAD_RTOL, \
         (loss_rel, worst)
-    log(f"[lm] (b) the first step on the kernel against the plain cell "
-        f"composition: loss {lk.item():.6f} vs {lp.item():.6f} (relative "
-        f"{loss_rel:.2e}), worst gradient {worst[0]} at {worst[1]:.2e} of "
+    log(f"[lm] (b) the first step on the layer kernels against the plain "
+        f"per-step composition: loss {lk.item():.6f} vs {lp.item():.6f} "
+        f"(relative {loss_rel:.2e}), worst gradient {worst[0]} at "
+        f"{worst[1]:.2e} of "
         f"its norm over {len(params)} parameters; launches {nk}")
     return {"loss": lk.item(), "plain_loss": lp.item(),
             "loss_rel": loss_rel, "grad_rel": grad_rel,
@@ -8856,20 +9148,20 @@ def _wlm_loop(dev, fused, batches):
 
 def wlm_loops(dev, batches):
     """(c): WLM_STEPS steps through FusedTrainStep and through the
-    imperative loop: 70 forward and 70 backward cell launches a step;
+    imperative loop: 2 forward and 2 backward layer launches a step (one
+    a layer; no cell launch);
     the loss falling: the inference loss over the steps' batches after
     them under the one before (each batch fitted once; the training loss
     of a new batch barely moves in 10 steps from a uniform start at the
-    reference's clipped rate); tokens/s; an inference forward (70 and
-    0); the card's idle share over 3 profiled fused steps."""
-    per_step = WLM["nlayers"] * WLM["bptt"]
+    reference's clipped rate); tokens/s; an inference forward (2 and 0);
+    the card's idle share over 3 profiled fused steps."""
+    L = WLM["nlayers"]
     tokens = WLM["bptt"] * WLM["batch"]
     out = {}
     for tag, fused in (("fused", True), ("imperative", False)):
         net, losses, (before, after), step_ms, launches, one, nds = \
             _wlm_loop(dev, fused, batches)
-        want = {"rnn_cell_fwd": per_step * WLM_STEPS,
-                "rnn_cell_bwd": per_step * WLM_STEPS}
+        want = _rnn_want(layer=L * WLM_STEPS)
         assert launches == want, (tag, launches, want)
         assert all(math.isfinite(v) for v in losses), (tag, losses)
         assert after < before, (tag, before, after, losses)
@@ -8885,7 +9177,9 @@ def wlm_loops(dev, batches):
             f"launches {launches}")
         if fused:
             prof = profile_steps(lambda x, y: one(x, y), nds[1:4], step_ms,
-                                 symbols={"rnn_cell_fwd": "rnn_cell_fwd",
+                                 symbols={"rnn_layer_fwd": "rnn_layer_fwd",
+                                          "rnn_layer_bwd": "rnn_layer_bwd",
+                                          "rnn_cell_fwd": "rnn_cell_fwd",
                                           "rnn_cell_bwd": "rnn_cell_bwd"},
                                  tag="lm")
             row["profile"] = prof
@@ -8894,8 +9188,7 @@ def wlm_loops(dev, batches):
             logits, _, _ = net(nds[0][0], h, c)
             torch.cuda.synchronize()
             infer = _rnn_launches()
-            assert infer == {"rnn_cell_fwd": per_step, "rnn_cell_bwd": 0}, \
-                infer
+            assert infer == _rnn_want(layer=L, bwd=False), infer
             assert tuple(logits.shape) == (tokens, WLM["vocab"])
             assert bool(torch.isfinite(logits._t).all())
             row["infer_launches"] = infer
@@ -8945,8 +9238,7 @@ def wlm_vs_cudnn(dev):
     port_fb(0)
     torch.cuda.synchronize()
     launches = _rnn_launches()
-    assert launches == {"rnn_cell_fwd": T * L, "rnn_cell_bwd": T * L}, \
-        launches
+    assert launches == _rnn_want(layer=L), launches
     port_ms = median_ms(port_fb, reps=10)
     cudnn_ms = median_ms(cudnn_fb, reps=10)
     log(f"[lm] (d) the port's LSTM layer against cuDNN's torch.nn.LSTM "
@@ -8982,7 +9274,14 @@ def npx_rnn_card(dev):
                 state_size=H, num_layers=L, bidirectional=True,
                 state_outputs=True)]
             if where != "cpu":
-                assert _rnn_launches()["rnn_cell_fwd"] == 2 * L * T
+                n = _rnn_launches()
+                if kernels.rnn_layer_route(
+                        ops_nn._RNN_CELL[mode][0], N, H, torch.float32,
+                        kernels.rnn_sms(dev)) == "persistent":
+                    assert n == _rnn_want(layer=2 * L, bwd=False), n
+                else:
+                    assert n == _rnn_want(cell=2 * L * T, per_step=2 * L,
+                                          bwd=False), n
         err = 0.0
         for a, b in zip(res[str(dev)], res["cpu"]):
             np.testing.assert_allclose(a, b, rtol=NPX_RNN_TOL[0],
@@ -8995,6 +9294,49 @@ def npx_rnn_card(dev):
     return rows
 
 
+def wlm_per_step(dev, batches):
+    """(f): the per-step route on its main path: WLM_LARGE_STEPS fused
+    steps of the example's large model after one warm-up, exactly
+    bptt x layers cell launches each way a step and no layer launch; the
+    losses finite."""
+    T, L = WLM_LARGE["bptt"], WLM_LARGE["nlayers"]
+    assert kernels.rnn_layer_route("lstm", WLM_LARGE["batch"],
+                                   WLM_LARGE["nhid"], torch.float32,
+                                   kernels.rnn_sms(dev)) == "per_step"
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    net = wlm.RNNModel(WLM_LARGE["vocab"], WLM_LARGE["emsize"],
+                       WLM_LARGE["nhid"], L, WLM_LARGE["dropout"],
+                       tie_weights=True)
+    net.initialize(init="xavier", device=dev, seed=2)
+    step = wlm.fused_step(net, loss_fn, WLM_LARGE["lr"], WLM_LARGE["clip"],
+                          WLM_LARGE["batch"])
+    nds = [(mx.np.array(x, device=dev), mx.np.array(y, device=dev))
+           for x, y in batches[:WLM_LARGE_STEPS + 1]]
+    h, c = net.begin_state(WLM_LARGE["batch"])
+    loss, h, c = step(*nds[0], h, c)                  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for x, y in nds[1:]:
+        loss, h, c = step(x, y, h, c)
+        losses.append(float(loss.asnumpy()) / (T * WLM_LARGE["batch"]))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / WLM_LARGE_STEPS
+    launches = _rnn_launches()
+    want = _rnn_want(cell=T * L * WLM_LARGE_STEPS,
+                     per_step=L * WLM_LARGE_STEPS)
+    assert launches == want, (launches, want)
+    assert all(math.isfinite(v) for v in losses), losses
+    log(f"[lm] (f) the per-step route: the large model ({WLM_LARGE['nhid']} "
+        f"wide, float32)"
+        f" {step_ms:.2f} ms a fused step, losses {losses}, launches "
+        f"{launches}")
+    kernels.reset_launch_counts()
+    del net
+    return {"step_ms": step_ms, "losses": losses, "launches": launches}
+
+
 def phase_rnn(card, dev):
     """Phase 22."""
     t0 = time.perf_counter()
@@ -9004,26 +9346,55 @@ def phase_rnn(card, dev):
     torch.backends.cudnn.allow_tf32 = False
     try:
         kern = rnn_kernels(dev)
+        layer = layer_kernels(dev, kern["floor_ms"])
         batches = wlm_corpus(WLM_STEPS + 1)
         check = wlm_step_check(dev, batches[0])
         loops = wlm_loops(dev, batches)
         cudnn = wlm_vs_cudnn(dev)
         npx_rows = npx_rnn_card(dev)
+        per_step = wlm_per_step(dev, batches)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
     took = time.perf_counter() - t0
     log(f"[lm] phase 22 took {took:.1f} s")
-    return {"kernels": kern, "check": check, "loops": loops,
-            "cudnn": cudnn, "npx_rnn": npx_rows, "seconds": took,
-            "card": card}
+    return {"kernels": kern, "layer": layer, "check": check, "loops": loops,
+            "cudnn": cudnn, "npx_rnn": npx_rows, "per_step": per_step,
+            "seconds": took, "card": card}
 
 
 def rnn_entries(lm):
-    """The cell kernels' JSON entries: launches from (c)'s fused loop,
-    times at the LM's step (float32 LSTM)."""
+    """The recurrent kernels' JSON entries. The layer kernels: launches
+    from (c)'s fused loop, times at the LM's layer (float32 LSTM, (a')).
+    The cell kernels: launches from (f)'s per-step path, times at the
+    LM's step (float32 LSTM, (a))."""
     out = []
     fused = lm["loops"]["fused"]
+    for name in ("rnn_layer_fwd", "rnn_layer_bwd"):
+        t = next(r for r in lm["layer"]["timed"]
+                 if r["name"] == name and r["mode"] == "lstm")
+        err = max(r["fwd_err" if name == "rnn_layer_fwd" else "bwd_err"]
+                  for r in lm["layer"]["checks"] if r["dtype"] == "float32")
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "incubator_mxnet_tpu_torch/ops/csrc/rnn_layer.cu",
+            "replaces": None, "launches": fused["launches"][name],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "cold_ms": t["cold_ms"],
+            "per_step_ms": t["per_step_ms"],
+            "imperative_launches": lm["loops"]["imperative"]["launches"][
+                name],
+            "infer_launches": fused["infer_launches"][name],
+            "layer_ms": lm["cudnn"]["port_ms"],
+            "cudnn_layer_ms": lm["cudnn"]["cudnn_ms"],
+            "shape": f"LSTM T={WLM['bptt']} N={WLM['batch']} "
+                     f"H={WLM['nhid']} float32 (the word LM's layer; "
+                     f"max_abs_err as a share of the largest value; no TPU "
+                     f"kernel: the JAX package's time loop, "
+                     f"incubator_mxnet_tpu/ops/nn.py:565 (rnn), is lax.scan; "
+                     f"library: cuDNN's one-layer torch.nn.LSTM, which "
+                     f"also takes the input product)"})
     for name in ("rnn_cell_fwd", "rnn_cell_bwd"):
         t = next(r for r in lm["kernels"]["timed"]
                  if r["name"] == name and r["mode"] == "lstm")
@@ -9033,18 +9404,18 @@ def rnn_entries(lm):
         out.append({
             "name": name, "route": "cuda",
             "source": "incubator_mxnet_tpu_torch/ops/csrc/rnn_cell.cu",
-            "replaces": None, "launches": fused["launches"][name],
+            "replaces": None, "launches": lm["per_step"]["launches"][name],
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "cold_ms": t["cold_ms"],
             "floor_ms": t["floor_ms"],
-            "imperative_launches": lm["loops"]["imperative"]["launches"][
-                name],
-            "infer_launches": fused["infer_launches"][name],
-            "layer_ms": lm["cudnn"]["port_ms"],
-            "cudnn_layer_ms": lm["cudnn"]["cudnn_ms"],
+            "per_step_route_ms": next(
+                r["per_step_ms"] for r in lm["layer"]["timed"]
+                if r["mode"] == "lstm"
+                and r["name"] == name.replace("cell", "layer")),
             "shape": f"LSTM N={WLM['batch']} H={WLM['nhid']} float32 (the "
-                     f"word LM's step; no TPU kernel: the JAX package's "
+                     f"word LM's step; launches: the large model's per-step "
+                     f"route, phase 22 (f); no TPU kernel: the JAX package's "
                      f"cell body, incubator_mxnet_tpu/ops/nn.py:526, is "
                      f"fused by XLA inside lax.scan; library: "
                      f"aten._thnn_fused_lstm_cell)"})
@@ -9056,7 +9427,7 @@ PHASES = tuple(range(2, 23))
 PHASE_NEEDS = {5: (4,), 14: (11,), 15: (5,), 17: (3, 12), 18: (3,)}
 # the sources a phase builds when every phase run is listed here (a run
 # with any other phase builds every source, all at once)
-PHASE_SOURCES = {21: ("nms",), 22: ("rnn_cell",)}
+PHASE_SOURCES = {21: ("nms",), 22: ("rnn_cell", "rnn_layer")}
 
 
 def selected_phases(spec):

@@ -347,6 +347,37 @@ def _rnn_cell_bwd(mode, N, H, dtype, dc=True, act="tanh"):
             "bytes": N * H * values * _item(dtype), "compute": "float32"}
 
 
+def _rnn_layer_fwd(mode, T, N, H, dtype, save=True, act="tanh"):
+    from ..ops.kernels import RNN_GATES
+    G = RNN_GATES[mode]
+    lstm = mode == "lstm"
+    # gx, W_hh, h0 (and c0; the GRU's bh) read; ys and h_T (and c_T)
+    # written; with `save` every step's activations and aux (the RNN none)
+    values = (T * N * G * H + G * H * H + 2 * N * H * (1 + lstm)
+              + (G * H if mode == "gru" else 0) + T * N * H
+              + (T * N * (G + 1) * H if save and mode != "rnn" else 0))
+    return {"flops": T * N * H * (2 * G * H + _cell_ops(mode, act)[0]),
+            "bytes": values * _item(dtype), "compute": "float32"}
+
+
+def _rnn_layer_bwd(mode, T, N, H, dtype, dys=True, dh=True, dc=True,
+                   act="tanh"):
+    from ..ops.kernels import RNN_GATES
+    G = RNN_GATES[mode]
+    lstm, gru, rnn = mode == "lstm", mode == "gru", mode == "rnn"
+    # W_hh and the saved activations and aux (the RNN none) read, the
+    # states each mode reads (the LSTM's c0; the GRU's h0 and ys but one
+    # step; the RNN's ys), the gradients given (dys, dh_T, the LSTM's
+    # dc_T); dgx (and the GRU's dgh), dh0 (and dc0) written
+    values = (G * H * H + (0 if rnn else T * N * (G + 1) * H)
+              + (N * H if lstm else T * N * H)
+              + T * N * H * bool(dys) + N * H * bool(dh)
+              + N * H * (lstm and bool(dc))
+              + T * N * G * H * (1 + gru) + N * H * (1 + lstm))
+    return {"flops": T * N * H * (2 * G * H + _cell_ops(mode, act)[1]),
+            "bytes": values * _item(dtype), "compute": "float32"}
+
+
 # kernel (launch counter's name) -> cost of one launch from its shapes
 KERNELS = {
     "scale_shift_act": _scale_shift_act,
@@ -363,6 +394,8 @@ KERNELS = {
     "image_augment": _augment,
     "rnn_cell_fwd": _rnn_cell_fwd,
     "rnn_cell_bwd": _rnn_cell_bwd,
+    "rnn_layer_fwd": _rnn_layer_fwd,
+    "rnn_layer_bwd": _rnn_layer_bwd,
 }
 
 
@@ -400,6 +433,16 @@ def kernel_cost(name, **shape):
                        dh, dc for the LSTM; the activations, gh's n block,
                        h, dh for the GRU; h', dh for the RNN; dgx (and the
                        GRU's dgh) and the state's gradient written)
+      rnn_layer_fwd    mode, T, N, H, dtype, save=True, act="tanh" (the
+                       whole time loop: gx, W_hh and the initial states
+                       read, ys and the final states written, with `save`
+                       the activations and aux of every step; f32 ops: the
+                       recurrent product 2 N H G H a step plus the cell's)
+      rnn_layer_bwd    mode, T, N, H, dtype, dys=True, dh=True, dc=True,
+                       act="tanh" (W_hh, the saved activations and aux, the
+                       states the mode reads and the gradients given read;
+                       dgx (and the GRU's dgh), dh0 (and dc0) written; the
+                       same product a step plus the cell's backward)
 
     Returns {"name", "flops", "bytes", "compute"} (the type whose peak
     bounds the operations), plus "bytes_only" when the flops are unknown.

@@ -7,7 +7,8 @@
 // part inside lax.scan. PyTorch runs eagerly, so without this kernel each
 // step of gluon.rnn and npx.rnn would be about ten elementwise launches.
 // It computes what incubator_mxnet_tpu_torch/ops/rnn.py :: cell_fwd_ref and
-// cell_bwd_ref compute, in the same order (each product and sum rounded
+// cell_bwd_ref compute (rnn_gates.cuh :: cell_fwd / cell_bwd, shared with
+// the whole-layer kernels of rnn_layer.cu), in the same order (each product and sum rounded
 // on its own: no fused multiply-add), from the gate pre-activations of one
 // step, gx = x Wx^T + bias and gh = h Wh^T (+ bh for the GRU), (N, G H)
 // row-major with the gate blocks in the reference's order:
@@ -51,45 +52,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "rnn_gates.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-enum Mode { kLstm = 0, kGru = 1, kRnn = 2 };
-enum Act {
-  kTanh = 0,
-  kRelu = 1,
-  kSigmoid = 2,
-  kSoftrelu = 3,
-  kSoftsign = 4,
-  kLogSigmoid = 5
-};
-
-template <int MODE>
-struct Gates {
-  static constexpr int G = MODE == kLstm ? 4 : (MODE == kGru ? 3 : 1);
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
 
 // V values of T in one aligned load or store
 template <typename T, int V>
@@ -124,57 +91,6 @@ __device__ __forceinline__ void store(T* p, const float* s) {
   *reinterpret_cast<Chunk<T, V>*>(p) = c;
 }
 
-__device__ __forceinline__ float sigmoid(float u) {
-  return __fdiv_rn(1.f, __fadd_rn(expf(-u), 1.f));
-}
-
-// log(1 + exp(-|u|)), the tail both softplus forms share
-__device__ __forceinline__ float softplus_tail(float u) {
-  return log1pf(expf(-fabsf(u)));
-}
-
-__device__ __forceinline__ float act(float u, int a) {
-  switch (a) {
-    case kTanh:
-      return tanhf(u);
-    case kRelu:
-      return fmaxf(u, 0.f);
-    case kSigmoid:
-      return sigmoid(u);
-    case kSoftrelu:
-      return __fadd_rn(fmaxf(u, 0.f), softplus_tail(u));
-    case kSoftsign:
-      return __fdiv_rn(u, __fadd_rn(fabsf(u), 1.f));
-    default:
-      return __fsub_rn(fminf(u, 0.f), softplus_tail(u));
-  }
-}
-
-// s (1 - s), the sigmoid's derivative from its output
-__device__ __forceinline__ float sig_grad(float s) {
-  return __fmul_rn(s, __fsub_rn(1.f, s));
-}
-
-// the activation's derivative from its output y
-__device__ __forceinline__ float act_grad(float y, int a) {
-  switch (a) {
-    case kTanh:
-      return __fsub_rn(1.f, __fmul_rn(y, y));
-    case kRelu:
-      return y > 0.f ? 1.f : 0.f;
-    case kSigmoid:
-      return sig_grad(y);
-    case kSoftrelu:
-      return -expm1f(-y);  // sigmoid(u) = 1 - exp(-softplus(u))
-    case kSoftsign: {
-      const float r = __fsub_rn(1.f, fabsf(y));  // 1 / (1 + |u|)
-      return __fmul_rn(r, r);
-    }
-    default:
-      return -expm1f(y);  // 1 - sigmoid(u) = 1 - exp(log_sigmoid(u))
-  }
-}
-
 template <typename T, int MODE, int V>
 __global__ void __launch_bounds__(kThreads)
     rnn_cell_fwd_kernel(const T* __restrict__ gx, const T* __restrict__ gh,
@@ -192,49 +108,29 @@ __global__ void __launch_bounds__(kThreads)
     const long long j = (e - n * hv) * V;
     const long long row = n * G * H + j;  // gate block 0 at (n, j)
     const long long s = n * H + j;        // the state at (n, j)
-    float a[G][V], b[G][V], hn[V];
+    float a[G][V], b[G][V], hn[V], cn[V], cp[V] = {}, hp[V] = {};
 #pragma unroll
     for (int k = 0; k < G; ++k) {
       load<T, V>(gx + row + k * H, a[k]);
       load<T, V>(gh + row + k * H, b[k]);
     }
-    if constexpr (MODE == kLstm) {
-      float cp[V], cn[V];
-      load<T, V>(c + s, cp);
+    if constexpr (MODE == kLstm) load<T, V>(c + s, cp);
+    if constexpr (MODE == kGru) load<T, V>(h + s, hp);
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float ig = sigmoid(__fadd_rn(a[0][i], b[0][i]));
-        const float fg = sigmoid(__fadd_rn(a[1][i], b[1][i]));
-        const float gg = act(__fadd_rn(a[2][i], b[2][i]), act_code);
-        const float og = sigmoid(__fadd_rn(a[3][i], b[3][i]));
-        cn[i] = __fadd_rn(__fmul_rn(fg, cp[i]), __fmul_rn(ig, gg));
-        hn[i] = __fmul_rn(og, act(cn[i], act_code));
-        a[0][i] = ig;
-        a[1][i] = fg;
-        a[2][i] = gg;
-        a[3][i] = og;
+    for (int i = 0; i < V; ++i) {
+      float ai[G], bi[G], gate[G];
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        ai[k] = a[k][i];
+        bi[k] = b[k][i];
       }
-      store<T, V>(c_out + s, cn);
-    } else if constexpr (MODE == kGru) {
-      float hp[V];
-      load<T, V>(h + s, hp);
+      cell_fwd<MODE>(ai, bi, cp[i], hp[i], act_code, gate, cn[i], hn[i]);
+      if constexpr (MODE != kRnn) {
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float r = sigmoid(__fadd_rn(a[0][i], b[0][i]));
-        const float z = sigmoid(__fadd_rn(a[1][i], b[1][i]));
-        const float nn =
-            act(__fadd_rn(a[2][i], __fmul_rn(r, b[2][i])), act_code);
-        hn[i] = __fadd_rn(__fmul_rn(__fsub_rn(1.f, z), nn),
-                          __fmul_rn(z, hp[i]));
-        a[0][i] = r;
-        a[1][i] = z;
-        a[2][i] = nn;
+        for (int k = 0; k < G; ++k) a[k][i] = gate[k];
       }
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i)
-        hn[i] = act(__fadd_rn(a[0][i], b[0][i]), act_code);
     }
+    if constexpr (MODE == kLstm) store<T, V>(c_out + s, cn);
     store<T, V>(h_out + s, hn);
     if (MODE != kRnn && saved != nullptr) {
 #pragma unroll
@@ -263,68 +159,42 @@ __global__ void __launch_bounds__(kThreads)
     const long long j = (e - n * hv) * V;
     const long long row = n * G * H + j;
     const long long s = n * H + j;
-    float d[V];
+    float d[V], gate[G][V] = {}, cp[V] = {}, cn[V] = {}, dcv[V] = {},
+                nh[V] = {}, hp[V] = {}, y[V] = {};
     load_or_zero<T, V>(dh, s, d);
     if constexpr (MODE == kLstm) {
-      float i_[V], f_[V], g_[V], o_[V], cp[V], cn[V], dcv[V];
-      load<T, V>(saved + row, i_);
-      load<T, V>(saved + row + H, f_);
-      load<T, V>(saved + row + 2 * H, g_);
-      load<T, V>(saved + row + 3 * H, o_);
+#pragma unroll
+      for (int k = 0; k < G; ++k) load<T, V>(saved + row + k * H, gate[k]);
       load<T, V>(c + s, cp);
       load<T, V>(c_new + s, cn);
       load_or_zero<T, V>(dc, s, dcv);
-      float di[V], df[V], dg[V], dO[V], dcp[V];
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float tc = act(cn[i], act_code);
-        const float dct = __fadd_rn(
-            dcv[i],
-            __fmul_rn(__fmul_rn(d[i], o_[i]), act_grad(tc, act_code)));
-        di[i] = __fmul_rn(__fmul_rn(dct, g_[i]), sig_grad(i_[i]));
-        df[i] = __fmul_rn(__fmul_rn(dct, cp[i]), sig_grad(f_[i]));
-        dg[i] = __fmul_rn(__fmul_rn(dct, i_[i]), act_grad(g_[i], act_code));
-        dO[i] = __fmul_rn(__fmul_rn(d[i], tc), sig_grad(o_[i]));
-        dcp[i] = __fmul_rn(dct, f_[i]);
-      }
-      store<T, V>(dgx + row, di);
-      store<T, V>(dgx + row + H, df);
-      store<T, V>(dgx + row + 2 * H, dg);
-      store<T, V>(dgx + row + 3 * H, dO);
-      store<T, V>(dstate + s, dcp);
     } else if constexpr (MODE == kGru) {
-      float r[V], z[V], nn[V], nh[V], hp[V];
-      load<T, V>(saved + row, r);
-      load<T, V>(saved + row + H, z);
-      load<T, V>(saved + row + 2 * H, nn);
+#pragma unroll
+      for (int k = 0; k < G; ++k) load<T, V>(saved + row + k * H, gate[k]);
       load<T, V>(gh + row + 2 * H, nh);
       load<T, V>(h + s, hp);
-      float dr[V], dz[V], dn[V], dnh[V], dhp[V];
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        dn[i] = __fmul_rn(__fmul_rn(d[i], __fsub_rn(1.f, z[i])),
-                          act_grad(nn[i], act_code));
-        dz[i] = __fmul_rn(__fmul_rn(d[i], __fsub_rn(hp[i], nn[i])),
-                          sig_grad(z[i]));
-        dr[i] = __fmul_rn(__fmul_rn(dn[i], nh[i]), sig_grad(r[i]));
-        dnh[i] = __fmul_rn(dn[i], r[i]);
-        dhp[i] = __fmul_rn(d[i], z[i]);
-      }
-      store<T, V>(dgx + row, dr);
-      store<T, V>(dgx + row + H, dz);
-      store<T, V>(dgx + row + 2 * H, dn);
-      store<T, V>(dgh + row, dr);
-      store<T, V>(dgh + row + H, dz);
-      store<T, V>(dgh + row + 2 * H, dnh);
-      store<T, V>(dstate + s, dhp);
     } else {
-      float y[V], dp[V];
       load<T, V>(h_new + s, y);
-#pragma unroll
-      for (int i = 0; i < V; ++i)
-        dp[i] = __fmul_rn(d[i], act_grad(y[i], act_code));
-      store<T, V>(dgx + row, dp);
     }
+    float dg[G][V], dnh[V], dprev[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float gi[G], dgi[G];
+#pragma unroll
+      for (int k = 0; k < G; ++k) gi[k] = gate[k][i];
+      cell_bwd<MODE>(gi, cp[i], cn[i], nh[i], hp[i], y[i], d[i], dcv[i],
+                     act_code, dgi, dnh[i], dprev[i]);
+#pragma unroll
+      for (int k = 0; k < G; ++k) dg[k][i] = dgi[k];
+    }
+#pragma unroll
+    for (int k = 0; k < G; ++k) store<T, V>(dgx + row + k * H, dg[k]);
+    if constexpr (MODE == kGru) {
+      store<T, V>(dgh + row, dg[0]);
+      store<T, V>(dgh + row + H, dg[1]);
+      store<T, V>(dgh + row + 2 * H, dnh);
+    }
+    if constexpr (MODE != kRnn) store<T, V>(dstate + s, dprev);
   }
 }
 
@@ -457,18 +327,6 @@ cudaError_t bwd_dtype(int mode, const Bwd& a, int device, cudaStream_t st) {
     default:
       return bwd_mode<T, kRnn>(a, device, st);
   }
-}
-
-// run fn on `device`, putting the caller's current device back
-template <typename F>
-int on_device(int device, F fn) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = fn();
-  if (prev != device) cudaSetDevice(prev);
-  return (int)err;
 }
 
 }  // namespace

@@ -41,6 +41,8 @@ __all__ = ["build", "paged_attention_cuda", "scale_shift_act_cuda",
            "proposal_sweep_cuda", "nms_mask_bytes",
            "image_augment_cuda", "rnn_cell_fwd_cuda", "rnn_cell_bwd_cuda",
            "rnn_cell_vec", "RNN_MODES", "RNN_GATES", "RNN_ACTS",
+           "rnn_layer_fwd_cuda", "rnn_layer_bwd_cuda", "rnn_layer_plan",
+           "rnn_layer_route", "RNN_LAYER_SMS", "RNN_LAYER_SMEM",
            "flash_fwd_route",
            "flash_bwd_route", "paged_route", "pool_route", "augment_route",
            "augment_channels",
@@ -51,7 +53,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 _SOURCES = ("paged_attention", "scale_shift_act", "avg_pool2d",
-            "flash_attention", "nms", "image_augment", "rnn_cell")
+            "flash_attention", "nms", "image_augment", "rnn_cell",
+            "rnn_layer")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,6 +97,15 @@ image_augment_scalar_launches = 0
 # the JAX package's cell body is fused by XLA inside lax.scan)
 rnn_cell_fwd_launches = 0
 rnn_cell_bwd_launches = 0
+# the recurrent layer's whole time loop, forward and backward (port-only:
+# the JAX package's lax.scan is one XLA program)
+rnn_layer_fwd_launches = 0
+rnn_layer_bwd_launches = 0
+# the (layer, direction) passes of ops.nn.rnn on the card by route
+# (`rnn_layer_route`): one rnn_layer_fwd launch each on "persistent", a
+# cell launch a step on "per_step"
+rnn_layer_persistent_launches = 0
+rnn_layer_per_step_launches = 0
 # every launch above again, by (counter name, dtype name of the launch's
 # data: x, q, or the slab for the paged kernel's slab side)
 _BY_DTYPE = Counter()
@@ -138,7 +150,9 @@ def reset_launch_counts():
         image_augment_launches, \
         image_augment_table_launches, image_augment_direct_launches, \
         image_augment_scalar_launches, rnn_cell_fwd_launches, \
-        rnn_cell_bwd_launches
+        rnn_cell_bwd_launches, rnn_layer_fwd_launches, \
+        rnn_layer_bwd_launches, rnn_layer_persistent_launches, \
+        rnn_layer_per_step_launches
     paged_attention_launches = 0
     paged_attention_int8_launches = 0
     paged_attention_split_launches = 0
@@ -163,6 +177,10 @@ def reset_launch_counts():
     image_augment_scalar_launches = 0
     rnn_cell_fwd_launches = 0
     rnn_cell_bwd_launches = 0
+    rnn_layer_fwd_launches = 0
+    rnn_layer_bwd_launches = 0
+    rnn_layer_persistent_launches = 0
+    rnn_layer_per_step_launches = 0
     _BY_DTYPE.clear()
 
 
@@ -199,7 +217,11 @@ def launch_counts():
             "image_augment_direct": image_augment_direct_launches,
             "image_augment_scalar": image_augment_scalar_launches,
             "rnn_cell_fwd": rnn_cell_fwd_launches,
-            "rnn_cell_bwd": rnn_cell_bwd_launches}
+            "rnn_cell_bwd": rnn_cell_bwd_launches,
+            "rnn_layer_fwd": rnn_layer_fwd_launches,
+            "rnn_layer_bwd": rnn_layer_bwd_launches,
+            "rnn_layer_persistent": rnn_layer_persistent_launches,
+            "rnn_layer_per_step": rnn_layer_per_step_launches}
 
 
 def _nvcc():
@@ -366,6 +388,19 @@ def _load(name):
                 lib.mx_rnn_cell_bwd.argtypes = (
                     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 11
                     + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+            elif name == "rnn_layer":
+                lib.mx_rnn_layer_fwd.restype = ctypes.c_int
+                lib.mx_rnn_layer_fwd.argtypes = (
+                    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 10
+                    + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+                lib.mx_rnn_layer_bwd.restype = ctypes.c_int
+                lib.mx_rnn_layer_bwd.argtypes = (
+                    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13
+                    + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+                lib.mx_rnn_layer_smem.restype = ctypes.c_longlong
+                lib.mx_rnn_layer_smem.argtypes = (
+                    [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                    + [ctypes.c_int] * 2)
             lib.mx_cuda_error_string.restype = ctypes.c_char_p
             lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
             _LIBS[name] = lib
@@ -443,7 +478,8 @@ def refusal(kernel, **shape):
     (h, w, ph, pw), "flash" (d; all four flash kernels), "image_augment"
     (h, w, ch, cw, and c channels, mean / std lengths lm / ls or None,
     which default to 3, None, None); the paged, flash and recurrent cell
-    kernels have no row (the cell takes every float type, N and H). Runs
+    kernels have no row (the cell takes every float type, N and H; the
+    recurrent layer's kernels take what `rnn_layer_route` sends them). Runs
     anywhere: the CPU tests hold it against the JAX package."""
     for name, _kind, test, message in RULES:
         if name == kernel and test(shape):
@@ -1246,32 +1282,30 @@ def rnn_cell_vec(H, dtype, tensors=()):
     return v
 
 
-def _rnn_check(name, mode, act, like, named):
-    """(mode code, gates, N, H) after checking every tensor of `named`
-    ({label: (tensor or None, columns, required)}) against `like` (N, H):
-    on the card, one device, like's dtype, contiguous (N, columns)."""
+def _rnn_check(name, mode, act, named):
+    """The dtype after checking every tensor of `named` ({label: (tensor
+    or None, shape, required)}): on one card, of one float dtype, of its
+    shape, contiguous."""
     if mode not in RNN_MODES or act not in RNN_ACTS:
         raise MXNetError(f"{name}: mode {mode!r} / activation {act!r} not "
                          f"one of {sorted(RNN_MODES)} / {sorted(RNN_ACTS)}")
-    code, G = RNN_MODES[mode], RNN_GATES[mode]
     present = [t for t, _, _ in named.values() if t is not None]
     _check_cuda(name, present)
-    if like.dim() != 2 or like.dtype not in _FLOATS:
-        raise MXNetError(f"{name}: the state must be a 2-D float32, "
-                         f"bfloat16 or float16 tensor; got "
-                         f"{tuple(like.shape)} {like.dtype}")
-    N, H = like.shape
-    for label, (t, cols, required) in named.items():
+    dt = present[0].dtype
+    if dt not in _FLOATS:
+        raise MXNetError(f"{name}: float32, bfloat16 or float16 only; got "
+                         f"{dt}")
+    for label, (t, shape, required) in named.items():
         if t is None:
             if required:
                 raise MXNetError(f"{name}: {mode} needs {label}")
             continue
-        if tuple(t.shape) != (N, cols * H) or t.dtype != like.dtype:
-            raise MXNetError(f"{name}: {label} must be ({N}, {cols * H}) "
-                             f"{like.dtype}; got {tuple(t.shape)} {t.dtype}")
+        if tuple(t.shape) != tuple(shape) or t.dtype != dt:
+            raise MXNetError(f"{name}: {label} must be {tuple(shape)} {dt}; "
+                             f"got {tuple(t.shape)} {t.dtype}")
         if not t.is_contiguous():
             raise MXNetError(f"{name}: {label} must be contiguous")
-    return code, G, N, H
+    return dt
 
 
 def rnn_cell_fwd_cuda(mode, gx, gh, h, c, act="tanh", save=True):
@@ -1292,12 +1326,12 @@ def rnn_cell_fwd_cuda(mode, gx, gh, h, c, act="tanh", save=True):
     if gx.dim() != 2 or gx.shape[-1] % G:
         raise MXNetError(f"{name}: gx must be (N, {G} H); got "
                          f"{tuple(gx.shape)}")
-    like = torch.empty((gx.shape[0], gx.shape[1] // G), dtype=gx.dtype,
-                       device="meta")
-    code, G, N, H = _rnn_check(name, mode, act, like, {
-        "gx": (gx, G, True), "gh": (gh, G, True),
-        "h": (h if mode == "gru" else None, 1, mode == "gru"),
-        "c": (c if mode == "lstm" else None, 1, mode == "lstm")})
+    N, H = gx.shape[0], gx.shape[1] // G
+    _rnn_check(name, mode, act, {
+        "gx": (gx, (N, G * H), True), "gh": (gh, (N, G * H), True),
+        "h": (h if mode == "gru" else None, (N, H), mode == "gru"),
+        "c": (c if mode == "lstm" else None, (N, H), mode == "lstm")})
+    code = RNN_MODES[mode]
     h_new = torch.empty((N, H), dtype=gx.dtype, device=gx.device)
     c_new = torch.empty_like(h_new) if mode == "lstm" else None
     saved = (torch.empty_like(gx) if save and mode != "rnn" else None)
@@ -1338,16 +1372,22 @@ def rnn_cell_bwd_cuda(mode, saved, gh, h, c, h_new, c_new, dh, dc,
     like = {"c_new": c_new, "h": h, "h_new": h_new}[key]
     if like is None:
         raise MXNetError(f"{name}: {mode} needs {key}")
+    if like.dim() != 2:
+        raise MXNetError(f"{name}: {key} must be (N, H); got "
+                         f"{tuple(like.shape)}")
     G = RNN_GATES.get(mode, 1)
+    N, H = like.shape
     lstm, gru = mode == "lstm", mode == "gru"
-    code, G, N, H = _rnn_check(name, mode, act, like, {
-        "saved": (saved if mode != "rnn" else None, G, mode != "rnn"),
-        "gh": (gh if gru else None, G, gru),
-        "h": (h if gru else None, 1, gru),
-        "c": (c if lstm else None, 1, lstm),
-        "c_new": (c_new if lstm else None, 1, lstm),
-        "h_new": (h_new if mode == "rnn" else None, 1, mode == "rnn"),
-        "dh": (dh, 1, False), "dc": (dc if lstm else None, 1, False)})
+    rows, state = (N, G * H), (N, H)
+    _rnn_check(name, mode, act, {
+        "saved": (saved if mode != "rnn" else None, rows, mode != "rnn"),
+        "gh": (gh if gru else None, rows, gru),
+        "h": (h if gru else None, state, gru),
+        "c": (c if lstm else None, state, lstm),
+        "c_new": (c_new if lstm else None, state, lstm),
+        "h_new": (h_new if mode == "rnn" else None, state, mode == "rnn"),
+        "dh": (dh, state, False), "dc": (dc if lstm else None, state, False)})
+    code = RNN_MODES[mode]
     dgx = torch.empty((N, G * H), dtype=like.dtype, device=like.device)
     dgh = torch.empty_like(dgx) if gru else dgx
     dstate = torch.empty_like(like) if mode != "rnn" else None
@@ -1372,3 +1412,215 @@ def rnn_cell_bwd_cuda(mode, saved, gh, h, c, h_new, c_new, dh, dc,
     rnn_cell_bwd_launches += 1
     _count_dtype("rnn_cell_bwd", like.dtype)
     return dgx, dgh, dstate
+
+
+# ---------------------------------------------------------------------------
+# the recurrent layer's whole time loop (csrc/rnn_layer.cu; the plain
+# versions are ops/rnn.py :: layer_fwd_ref / layer_bwd_ref)
+# ---------------------------------------------------------------------------
+# the card a route is decided for by default: the H100 SXM's SMs, and the
+# shared memory one block may take (227 KB)
+RNN_LAYER_SMS = 132
+RNN_LAYER_SMEM = 232448
+# csrc/rnn_layer.cu: warps a block, batch rows a product pass, the ring's
+# bytes (2 stages of 32 rows of 512 + 16 bytes), the most product rows of a
+# forward block (G U, padded to 4) and units of a backward block
+_RL_WARPS, _RL_TILE, _RL_RING = 8, 32, 2 * 32 * (512 + 16)
+_RL_FWD_ROWS, _RL_BWD_ROWS = 64, 16
+
+
+def _rl_smem(rows, K, item):
+    """Shared bytes of a block (csrc/rnn_layer.cu :: layer_smem): `rows`
+    rows of K values, each padded to 16 bytes, then the ring, which the
+    warps' partial sums reuse."""
+    vk = 16 // item
+    return rows * (-(-K // vk) * vk) * item + max(
+        _RL_WARPS * rows * _RL_TILE * 4, _RL_RING)
+
+
+def rnn_layer_plan(mode, H, dtype, sms=RNN_LAYER_SMS):
+    """How `csrc/rnn_layer.cu` splits a (layer, direction) of `mode` at
+    hidden size H >= 1 and `dtype` over `sms` SMs: {"units": hidden units a
+    block, "rows": a forward block's product rows (G units, padded to 4),
+    "blocks", "smem_fwd" / "smem_bwd": shared bytes a block}."""
+    G = RNN_GATES[mode]
+    item = torch.empty(0, dtype=dtype).element_size()
+    units = -(-max(H, 1) // sms)
+    rows = -(-G * units // 4) * 4
+    return {"units": units, "rows": rows, "blocks": -(-max(H, 1) // units),
+            "smem_fwd": _rl_smem(rows, H, item),
+            "smem_bwd": _rl_smem(units, G * H, item)}
+
+
+def rnn_layer_route(mode, N, H, dtype, sms=RNN_LAYER_SMS):
+    """Which route `ops.nn.rnn` takes for a (layer, direction) of `mode`
+    ("lstm", "gru", "rnn") at batch N, hidden size H and `dtype`, decided
+    from those values (and the card's SM count, the H100's by default):
+    "persistent", the whole time loop in one launch of `csrc/rnn_layer.cu`
+    each way, when a block's share of W_hh (G ceil(H / sms) rows of H
+    values) fits in its shared memory beside the ring and the partial sums
+    (RNN_LAYER_SMEM in all; at most 16 units a block); else "per_step",
+    the recurrent product and `csrc/rnn_cell.cu` once a step. Any N takes
+    either: the batch runs in passes of 32 rows. On the H100: the word LM
+    (LSTM, H 650, float32) persistent; a float32 LSTM at H 1500 (288 KB of
+    W_hh a block) per_step; the same in bfloat16 (144 KB) persistent."""
+    if H < 1:
+        return "per_step"
+    p = rnn_layer_plan(mode, H, dtype, sms)
+    fits = (p["units"] <= _RL_BWD_ROWS and p["rows"] <= _RL_FWD_ROWS
+            and max(p["smem_fwd"], p["smem_bwd"]) <= RNN_LAYER_SMEM)
+    return "persistent" if fits else "per_step"
+
+
+def rnn_sms(device):
+    """The SM count of the card `device`."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def count_per_step_layer():
+    """Count one (layer, direction) pass of `ops.nn.rnn` on the card that
+    took the "per_step" route."""
+    global rnn_layer_per_step_launches
+    rnn_layer_per_step_launches += 1
+
+
+def _rl_units(name, mode, H, dtype, device):
+    """Hidden units a block takes on `device`; raises where the layer does
+    not take the persistent route on that card."""
+    sms = rnn_sms(device)
+    if rnn_layer_route(mode, 1, H, dtype, sms) != "persistent":
+        raise MXNetError(f"{name}: a {mode} layer at H {H} in {dtype} does "
+                         f"not fit a block's shared memory over {sms} SMs "
+                         f"(rnn_layer_route: per_step)")
+    return rnn_layer_plan(mode, H, dtype, sms)["units"]
+
+
+def _rl_shape(name, mode, w):
+    """(G, H) of W_hh (G H, H) for `mode`."""
+    if mode not in RNN_MODES:
+        raise MXNetError(f"{name}: mode {mode!r} not one of "
+                         f"{sorted(RNN_MODES)}")
+    G = RNN_GATES[mode]
+    if w.dim() != 2 or w.shape[0] != G * w.shape[1]:
+        raise MXNetError(f"{name}: w must be ({G} H, H); got "
+                         f"{tuple(w.shape)}")
+    return G, w.shape[1]
+
+
+def rnn_layer_fwd_cuda(mode, gx, w, h0, c0=None, bh=None, act="tanh",
+                       reverse=False, save=True):
+    """Launch the recurrent layer's forward (`csrc/rnn_layer.cu`): every
+    step of one (layer, direction), the time axis walked backwards with
+    `reverse`, as `ops.rnn.layer_fwd_ref` computes it. gx (T, N, G H): the
+    input product and bias of every step; w: W_hh (G H, H); h0 (N, H); c0
+    (N, H) the LSTM's; bh (G H,) the GRU's (kept in its recurrent
+    product). With `save` the LSTM and the GRU also write what the backward
+    reads: the gate activations (T, N, G H) and `aux` (T, N, H), the
+    LSTM's c or the GRU's n block of the recurrent product at each step.
+    Every tensor contiguous, of one float dtype, on one card; the shape
+    must take the "persistent" route (`rnn_layer_route`) on that card.
+    Returns (ys (T, N, H), h_T, c_T or None, activations or None, aux or
+    None); counts one launch in `rnn_layer_fwd_launches` and
+    `rnn_layer_persistent_launches`. Raises `MXNetError` on any input the
+    kernel does not take."""
+    global rnn_layer_fwd_launches, rnn_layer_persistent_launches
+    name = "rnn_layer_fwd_cuda"
+    G, H = _rl_shape(name, mode, w)
+    if gx.dim() != 3:
+        raise MXNetError(f"{name}: gx must be (T, N, {G * H}); got "
+                         f"{tuple(gx.shape)}")
+    T, N = gx.shape[0], gx.shape[1]
+    lstm, gru = mode == "lstm", mode == "gru"
+    dt = _rnn_check(name, mode, act, {
+        "gx": (gx, (T, N, G * H), True), "w": (w, (G * H, H), True),
+        "h0": (h0, (N, H), True),
+        "c0": (c0 if lstm else None, (N, H), lstm),
+        "bh": (bh if gru else None, (G * H,), gru)})
+    dev = gx.device
+    ys = torch.empty((T, N, H), dtype=dt, device=dev)
+    h_out = torch.empty((N, H), dtype=dt, device=dev)
+    c_out = torch.empty_like(h_out) if lstm else None
+    keep = save and mode != "rnn"
+    acts = torch.empty_like(gx) if keep else None
+    aux = torch.empty_like(ys) if keep else None
+    if T < 1:
+        raise MXNetError(f"{name}: the layer needs T >= 1 steps")
+    if N * H == 0:
+        return ys, h_out, c_out, acts, aux
+    units = _rl_units(name, mode, H, dt, dev)
+    lib = _load("rnn_layer")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launch = lib.mx_rnn_layer_fwd if _CAPTURE is None else _captured(
+        lib.mx_rnn_layer_fwd, "rnn_layer_fwd", mode=mode, T=T, N=N, H=H,
+        dtype=dt, save=keep, act=act)
+    rc = launch(DTYPE_CODES[dt], RNN_MODES[mode], RNN_ACTS[act],
+                dev.index or 0, int(bool(reverse)), units, gx.data_ptr(),
+                w.data_ptr(), h0.data_ptr(), ptr(c0 if lstm else None),
+                ptr(bh if gru else None), ys.data_ptr(), h_out.data_ptr(),
+                ptr(c_out), ptr(acts), ptr(aux), T, N, H, stream)
+    if rc != 0:
+        raise _launch_failed(lib, "rnn_layer_fwd", rc)
+    rnn_layer_fwd_launches += 1
+    rnn_layer_persistent_launches += 1
+    _count_dtype("rnn_layer_fwd", dt)
+    return ys, h_out, c_out, acts, aux
+
+
+def rnn_layer_bwd_cuda(mode, w, acts, aux, ys, h0, c0, dys, dh_T, dc_T,
+                       act="tanh", reverse=False):
+    """Launch the recurrent layer's backward (`csrc/rnn_layer.cu`), as
+    `ops.rnn.layer_bwd_ref` computes it: from W_hh, what the forward saved
+    (the activations and aux; the RNN none), ys, h0, the LSTM's c0 and the
+    output gradients dys (T, N, H), dh_T and the LSTM's dc_T (N, H) (any
+    None: zeros) compute, in reverse time, dgx (T, N, G H): the gradient of
+    every step's gate pre-activations; dgh: the recurrent product's (the
+    GRU's n block dn r; dgx itself for the others); dh0 and the LSTM's dc0.
+    Returns (dgx, dgh, dh0, dc0 or None); counts one launch in
+    `rnn_layer_bwd_launches`. Raises `MXNetError` on any input the kernel
+    does not take."""
+    global rnn_layer_bwd_launches
+    name = "rnn_layer_bwd_cuda"
+    G, H = _rl_shape(name, mode, w)
+    if ys.dim() != 3:
+        raise MXNetError(f"{name}: ys must be (T, N, {H}); got "
+                         f"{tuple(ys.shape)}")
+    T, N = ys.shape[0], ys.shape[1]
+    lstm, gru, rnn = mode == "lstm", mode == "gru", mode == "rnn"
+    dt = _rnn_check(name, mode, act, {
+        "w": (w, (G * H, H), True), "ys": (ys, (T, N, H), True),
+        "acts": (None if rnn else acts, (T, N, G * H), not rnn),
+        "aux": (None if rnn else aux, (T, N, H), not rnn),
+        "h0": (h0, (N, H), True),
+        "c0": (c0 if lstm else None, (N, H), lstm),
+        "dys": (dys, (T, N, H), False), "dh_T": (dh_T, (N, H), False),
+        "dc_T": (dc_T if lstm else None, (N, H), False)})
+    dev = ys.device
+    dgx = torch.empty((T, N, G * H), dtype=dt, device=dev)
+    dgh = torch.empty_like(dgx) if gru else dgx
+    dh0 = torch.empty((N, H), dtype=dt, device=dev)
+    dc0 = torch.empty_like(dh0) if lstm else None
+    if T < 1:
+        raise MXNetError(f"{name}: the layer needs T >= 1 steps")
+    if N * H == 0:
+        return dgx, dgh, dh0, dc0
+    units = _rl_units(name, mode, H, dt, dev)
+    lib = _load("rnn_layer")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launch = lib.mx_rnn_layer_bwd if _CAPTURE is None else _captured(
+        lib.mx_rnn_layer_bwd, "rnn_layer_bwd", mode=mode, T=T, N=N, H=H,
+        dtype=dt, dys=dys is not None, dh=dh_T is not None,
+        dc=lstm and dc_T is not None, act=act)
+    rc = launch(DTYPE_CODES[dt], RNN_MODES[mode], RNN_ACTS[act],
+                dev.index or 0, int(bool(reverse)), units, w.data_ptr(),
+                ptr(None if rnn else acts), ptr(None if rnn else aux),
+                ys.data_ptr(), h0.data_ptr(), ptr(c0 if lstm else None),
+                ptr(dys), ptr(dh_T), ptr(dc_T if lstm else None),
+                dgx.data_ptr(), ptr(dgh if gru else None), dh0.data_ptr(),
+                ptr(dc0), T, N, H, stream)
+    if rc != 0:
+        raise _launch_failed(lib, "rnn_layer_bwd", rc)
+    rnn_layer_bwd_launches += 1
+    _count_dtype("rnn_layer_bwd", dt)
+    return dgx, dgh, dh0, dc0

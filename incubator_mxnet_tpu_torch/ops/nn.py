@@ -578,9 +578,13 @@ def reflection_pad2d(x, padding):
 
 # ---------------------------------------------------------------------------
 # recurrent cells and the fused multi-layer RNN (the JAX package's lax.scan
-# over packed per-layer weights). The products stay torch.matmul / addmm;
-# each step's elementwise part is `ops.rnn.cell`: the CUDA kernel on the
-# card, its plain version on the CPU.
+# over packed per-layer weights). A single cell is its products
+# (torch.matmul / addmm) and `ops.rnn.cell`, its elementwise step. The fused
+# RNN takes each (layer, direction) by `kernels.rnn_layer_route`: on
+# "persistent" the whole time loop is `ops.rnn.layer` (one CUDA kernel
+# launch each way on the card); on "per_step" the loop below launches the
+# recurrent product and the cell once a step. On the CPU both run the
+# kernels' plain versions.
 # ---------------------------------------------------------------------------
 def _gates(x, w, b=None):
     """x W^T (+ b) over the last axis of x."""
@@ -635,11 +639,13 @@ def rnn(x, params, state, mode="lstm", num_layers=1, hidden_size=None,
     or (h0, c0) of shape (L D, N, H), as the JAX package's `ops.nn.rnn`.
     Returns (output (T, N, H D), new state tuple). The input product of a
     layer and direction is one product over all T N rows, ahead of the
-    time loop; the loop then takes the recurrent product and the cell
-    step. Dropout of `dropout_rate` between layers in training, its masks
-    drawn from `generator` (the port's, not jax.random: the masks differ
-    from the JAX package's)."""
-    from . import rnn as _rnn
+    time loop. The loop is `ops.rnn.layer` where `kernels.rnn_layer_route`
+    says "persistent" (for the shape, and on the card for its SM count),
+    else one recurrent product and cell step at a time. Dropout of
+    `dropout_rate` between layers in training, its masks drawn from
+    `generator` (the port's, not jax.random: the masks differ from the
+    JAX package's)."""
+    from . import kernels, rnn as _rnn
     if mode not in _RNN_CELL:
         raise MXNetError(f"unknown rnn mode {mode!r}")
     cell_mode, act = _RNN_CELL[mode]
@@ -658,15 +664,32 @@ def rnn(x, params, state, mode="lstm", num_layers=1, hidden_size=None,
             gru = mode == "gru"
             bias = p["bx"] if gru else p["bx"] + p["bh"]
             gx = torch.addmm(bias, out.reshape(T * N, -1), p["wx"].t())
-            gx_steps = gx.reshape(T, N, -1).unbind(0)
+            H = p["wh"].shape[1]
+            cuda = gx.device.type == "cuda"
+            route = kernels.rnn_layer_route(
+                cell_mode, N, H, gx.dtype,
+                kernels.rnn_sms(gx.device) if cuda
+                else kernels.RNN_LAYER_SMS)
+            if route == "persistent":
+                res = _rnn.layer(cell_mode, gx.reshape(T, N, -1), p["wh"],
+                                 h0[idx], None if c0 is None else c0[idx],
+                                 p["bh"] if gru else None, act,
+                                 reverse=(d == 1))
+                ys, hT = res[0], res[1]
+                cT = res[2] if mode == "lstm" else None
+            else:
+                if cuda:
+                    kernels.count_per_step_layer()
 
-            def step(g, h, c, wh=p["wh"], bh=p["bh"] if gru else None):
-                new = _rnn.cell(cell_mode, g, _gates(h, wh, bh), h, c, act)
-                return new if mode == "lstm" else (new, None)
-            hT, cT, ys = _scan_layer(
-                step, gx_steps, h0[idx].to(gx.dtype),
-                None if c0 is None else c0[idx].to(gx.dtype),
-                reverse=(d == 1))
+                def step(g, h, c, wh=p["wh"], bh=p["bh"] if gru else None):
+                    new = _rnn.cell(cell_mode, g, _gates(h, wh, bh), h, c,
+                                    act)
+                    return new if mode == "lstm" else (new, None)
+                hT, cT, ys = _scan_layer(
+                    step, gx.reshape(T, N, -1).unbind(0),
+                    h0[idx].to(gx.dtype),
+                    None if c0 is None else c0[idx].to(gx.dtype),
+                    reverse=(d == 1))
             h_list.append(hT)
             if mode == "lstm":
                 c_list.append(cT)

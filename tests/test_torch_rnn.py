@@ -9,8 +9,9 @@ gradient of sum_k (out_k * w_k) (w_k from numpy) must agree. float32 on
 both sides, 2e-5 relative + 2e-5 absolute: XLA's and PyTorch's CPU
 products sum in other orders, and the port's input product of a fused
 layer adds the bias before the recurrent product (the JAX package after).
-On the CPU each step runs the cell kernel's plain version (`ops.rnn.
-cell_fwd_ref` / `cell_bwd_ref`).
+On the CPU a cell step runs the cell kernel's plain version (`ops.rnn.
+cell_fwd_ref` / `cell_bwd_ref`), a fused layer the layer kernels' on the
+route `kernels.rnn_layer_route` names (`layer_fwd_ref` / `layer_bwd_ref`).
 
 Dropout draws from each package's own generator, so the masks differ:
 parity runs at rate 0, and the rate > 0 tests check the port's scaling
@@ -416,6 +417,9 @@ def test_fused_layer_steps_count_no_kernel_on_the_cpu():
         net(_nd(_arr(5, 2, 3))).sum().backward()
     counts = kernels.launch_counts()
     assert counts["rnn_cell_fwd"] == counts["rnn_cell_bwd"] == 0
+    assert counts["rnn_layer_fwd"] == counts["rnn_layer_bwd"] == 0
+    assert counts["rnn_layer_persistent"] == \
+        counts["rnn_layer_per_step"] == 0
 
 
 # ---------------------------------------------------------------------------
