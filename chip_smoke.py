@@ -463,10 +463,16 @@ Each phase fails the run (non-zero exit) on any error:
      port on the CPU (a relative 1e-5 through the decode's exp;
      bit-equal with `iou_loss`), two planted pixel pairs (a shared pixel
      column, one pixel twice) suppressed there and kept by box_iou's
-     kernel, the kernel's time against its bound and the plain sweep's;
-     (b) ROI Align of those rois over res4 (1, 1024, 38, 63) at 14 x 14,
-     R-FCN's PS ROI pooling (21 x 7 x 7 = 1029 maps), DCN's res5
-     deformable convolution (512 -> 512, 3 x 3, pad 1) and the resize 2x
+     kernel, the kernel's time against its bound and the plain sweep's,
+     its mask pass's pairs and candidate pairs (those its prefilter passes
+     to the IoU), its grid's tiles and waves, and the mask / resolve split
+     (torch.profiler); (a') the kernel bit-equal to `proposal_sweep_ref` at
+     (B, A) = (1, 1), (3, 63), (3, 64), (3, 65), (2, 513), (1, 4097) and
+     (2, 6000) on seeded proposal-like boxes, IoU 0.7 and -0.1, some rows
+     and a whole row block dead at the start; (b) ROI Align of those rois
+     over res4 (1, 1024, 38, 63) at 14 x 14, R-FCN's PS ROI pooling (21 x
+     7 x 7 = 1029 maps), DCN's res5 deformable convolution (512 -> 512, 3
+     x 3, pad 1) and the resize 2x
      up and 1/2 down, each forward (through its npx name) and one
      backward held against the CPU in float32; (c) a reference-format
      `.params` ResNet-50 v1 written from seeded weights with the port's
@@ -540,6 +546,7 @@ card the script exits non-zero and prints no result. It imports nothing of
 JAX. Its run time on the card is in the root `PERF.md`.
 """
 import argparse
+import ctypes
 import itertools
 import json
 import math
@@ -1322,9 +1329,10 @@ def profile_steps(step, batches, step_ms, symbols=KERNEL_SYMBOLS,
     timed step (one stream: busy time is the sum of kernel times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch.profiler import device_window
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_window(profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])) as prof:
         for i in range(PROFILE_STEPS):
             step(*batches[i % len(batches)])
         torch.cuda.synchronize()
@@ -3941,6 +3949,60 @@ def nms_mask_work(keep):
     return tests, 8 * words
 
 
+# the mask / resolve split is kept only where its parts add up to the
+# CUDA-event time of a call within this share
+SPLIT_REPS = 5
+SPLIT_AGREES = 0.2
+
+
+def kernel_split(call, pair_ms):
+    """Device ms a launch of the NMS mask pass and of the resolve pass
+    over SPLIT_REPS calls of `call()` (one call of a sweep's wrapper;
+    torch.profiler, by the launches it recorded); both None unless they
+    add up to within SPLIT_AGREES of `pair_ms`, the CUDA-event time of a
+    call. Also the parts' sum as read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch.profiler import device_window
+    torch.cuda.synchronize()
+    with device_window(profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])) as prof:
+        for _ in range(SPLIT_REPS):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for part, sym in (("mask_ms", "nms_mask_kernel"),
+                      ("sweep_ms", "nms_resolve_kernel")):
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and sym in e.key]
+        us = sum(e.self_device_time_total for e in evs)
+        n = sum(e.count for e in evs)
+        out[part] = us / 1e3 / n if us > 0 and n else None
+    seen = (None if None in out.values()
+            else out["mask_ms"] + out["sweep_ms"])
+    out["split_sum_ms"] = seen
+    if seen is None or abs(seen - pair_ms) > SPLIT_AGREES * pair_ms:
+        out.update(mask_ms=None, sweep_ms=None)
+    return out
+
+
+def nms_mask_grid(B, A, plus_one=True, ids=False):
+    """The mask kernel's launch for B images of A rows as the built library
+    makes it (`mx_nms_mask_grid`): its grid, words a tile, tiles, blocks
+    of the convention's kernel resident a SM by the occupancy calculator
+    and registers a thread; and the waves its tiles take on this card."""
+    out = (ctypes.c_longlong * 7)()
+    dev = torch.cuda.current_device()
+    rc = kernels._load("nms").mx_nms_mask_grid(dev, int(plus_one), int(ids),
+                                               B, A, out)
+    assert rc == 0, f"mx_nms_mask_grid: CUDA error {rc}"
+    grid, words, tiles, per_sm, regs = list(out[:3]), *out[3:]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {"grid": grid, "words": words, "tiles": tiles, "per_sm": per_sm,
+            "registers": regs, "sms": sms, "resident": per_sm * sms,
+            "waves": -(-tiles // (per_sm * sms))}
+
+
 def nms_shapes(dev):
     """The kernel against the plain sweep, bit for bit, at NMS_SHAPES:
     random boxes (SSD-like sizes), a fifth of the rows dead at the start,
@@ -4076,6 +4138,7 @@ def ssd_detect(card, net, x, labels, dev):
                                                     thresh), NMS_REPS)
     mask_tests, mask_bytes = nms_mask_work(keep0)
     ws_bytes = kernels.nms_mask_bytes(*keep0.shape)
+    grid = nms_mask_grid(*keep0.shape, plus_one=False, ids=ids is not None)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = contrib.nms_sweep_ref(boxes, ids, keep0, thresh)
@@ -4107,7 +4170,9 @@ def ssd_detect(card, net, x, labels, dev):
         f"recorded: PERF.md section 6 row 9; bound "
         f"{nms_bound:.4f} ms by {nms_by}; mask pass "
         f"{mask_tests} IoU tests, {mask_bytes} bytes of mask written into "
-        f"a {ws_bytes}-byte workspace), the plain "
+        f"a {ws_bytes}-byte workspace, {grid['tiles']} tiles in "
+        f"{grid['waves']} waves of {grid['resident']} resident blocks, "
+        f"{grid['per_sm']} a SM by the occupancy calculator), the plain "
         f"sweep {plain_ms:.3f} ms; keep mask, ids, scores and boxes "
         f"bit-equal; box_nms ({SSD_BATCH}, {SSD_ANCHORS}, 6) kept "
         f"{kept_box_nms}, bit-equal; "
@@ -4122,7 +4187,8 @@ def ssd_detect(card, net, x, labels, dev):
             "bound_by": nms_by,
             "max_abs_err": err, "box_nms_kept": kept_box_nms,
             "mask_iou_tests": mask_tests, "mask_bytes": mask_bytes,
-            "workspace_bytes": ws_bytes, "shapes": shapes,
+            "workspace_bytes": ws_bytes, "mask_grid": grid,
+            "shapes": shapes,
             "fault": {"row": j, "iou_before": before, "iou_after": after,
                       "refused": refused},
             "voc07_map": mean_ap}
@@ -4381,7 +4447,7 @@ def nms_entry(ssd):
             "mask_iou_tests": d["mask_iou_tests"],
             "mask_bytes": d["mask_bytes"],
             "workspace_bytes": d["workspace_bytes"],
-            "detect_ms": d["detect_ms"],
+            "mask_grid": d["mask_grid"], "detect_ms": d["detect_ms"],
             "detect_median_ms": d["detect_median_ms"],
             "shape": f"B={SSD_BATCH} A={SSD_ANCHORS} float32 boxes and "
                      f"class ids, IoU {SSD_NMS}, {d['alive']} rows alive, "
@@ -5672,18 +5738,20 @@ def augment_context(dev, gen, profile):
                "copy_gb_per_s": 2 * src.numel() * 2 / ms / 1e6}
         if profile:
             from torch.profiler import ProfilerActivity, profile as prof_
+            from incubator_mxnet_tpu_torch.profiler import device_window
             x = torch.randint(0, 256, (n, IMAGE, IMAGE, 3), generator=gen,
                               dtype=torch.uint8, device=dev)
             draws = fused.augment_draws((11, 5), n, (IMAGE, IMAGE), None,
                                         True, dev)
             torch.cuda.synchronize()
-            with prof_(activities=[ProfilerActivity.CUDA]) as prof:
+            with device_window(prof_(
+                    activities=[ProfilerActivity.CUDA])) as prof:
                 for _ in range(20):
                     fused._augment_apply(x, *draws, None, IO_MEAN, IO_STD,
                                          torch.bfloat16)
                 torch.cuda.synchronize()
-            # the mean over the launches the profiler kept (inside this long
-            # process it may keep only some of the 20)
+            # the mean over the launches the profiler kept (without the
+            # window's edges it dropped the first ones in some windows)
             ev = [e for e in prof.key_averages() if "augment" in e.key]
             calls = sum(e.count for e in ev)
             row["kernel_profiled_calls"] = calls
@@ -5794,9 +5862,10 @@ def io_profile(next_step, step_ms):
     step's kernels on the card's timeline."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch.profiler import device_window
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_window(profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])) as prof:
         for _ in range(PROFILE_STEPS):
             next_step()
         torch.cuda.synchronize()
@@ -8129,6 +8198,12 @@ RFCN_CLASSES, RFCN_GROUP = 21, 7   # R-FCN: 21 x 7 x 7 = 1029 score maps
 DCN_CHANNELS = 512        # DCN's res5 3 x 3 deformable convolution
 RCNN_GRAD_ROIS = 16       # ROI Align's backward is held on the first 16
 PROPOSAL_REPS = 20
+# (a'): the proposal sweep kernel at the edges of a 64-row word and of a
+# run of 8 words, and past a grid wave, on proposal-like boxes, at IoU 0.7
+# and at a negative threshold (every later column takes the IoU)
+PROPOSAL_SHAPES = ((1, 1), (3, 63), (3, 64), (3, 65), (2, 513), (1, 4097),
+                   (2, 6000))
+PROPOSAL_THRESHOLDS = (RCNN_NMS, -0.1)
 PRETRAINED_BATCH = 32
 # float32 limits, relative to the largest magnitude of the CPU's result:
 # the forwards sum the same terms in another order (the deformable
@@ -8175,6 +8250,25 @@ def counted_proposal_sweep(boxes, keep, thresh):
         iou = inter / ((area[:, s] + area) - inter)
         keep &= ~((iou > thresh) & (cols > i) & keep[:, s])
     return int(tests), keep
+
+
+def proposal_mask_candidates(boxes, keep, thresh):
+    """The pairs the proposal sweep's mask pass runs the pixel IoU on, for
+    one image's rows: each row alive at the start against each later row
+    its prefilter passes (both + 1 extents of the overlap positive and the
+    column alive at the start; every later column under a negative
+    threshold)."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    A = boxes.shape[0]
+    cand = torch.ones((A, A), dtype=torch.bool, device=boxes.device) \
+        .triu(1) & keep[:, None]
+    if not 0.0 > thresh:
+        ew = (torch.minimum(x2[:, None], x2[None])
+              - torch.maximum(x1[:, None], x1[None])) + 1.0
+        eh = (torch.minimum(y2[:, None], y2[None])
+              - torch.maximum(y1[:, None], y1[None])) + 1.0
+        cand &= (ew > 0) & (eh > 0) & keep[None]
+    return int(cand.sum())
 
 
 def planted_pixel_pairs(boxes):
@@ -8272,10 +8366,14 @@ def proposal_run(card, dev):
         mx.npx.proposal(*args, **kw)
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0) * 1e3)
+    split = kernel_split(lambda: kernels.proposal_sweep_cuda(boxes, keep0,
+                                                             thresh), ms)
     kernels.reset_launch_counts()   # comparison launches do not count
     bound, by = bound_ms("proposal_sweep", B=1, A=RCNN_PRE,
                          iou_tests=tests)
     mask_tests, mask_bytes = nms_mask_work(keep0)
+    candidates = proposal_mask_candidates(boxes[0], keep0[0], thresh)
+    grid = nms_mask_grid(1, RCNN_PRE)
     log(f"[rcnn a] {card}: npx.proposal at R-50-C4's test time ({RCNN_FEAT} "
         f"x {RCNN_ANCHORS} = {RCNN_FEAT[0] * RCNN_FEAT[1] * RCNN_ANCHORS} "
         f"anchors, pre {RCNN_PRE}, post {RCNN_POST}, IoU {RCNN_NMS}, min "
@@ -8284,7 +8382,13 @@ def proposal_run(card, dev):
         f"{alive} of {RCNN_PRE} rows alive into the sweep, "
         f"{int(kept.sum())} kept, {tests} IoU tests; the kernels "
         f"{ms:.4f} ms (bound {bound:.4f} ms by {by}; mask pass "
-        f"{mask_tests} pairs, {mask_bytes} bytes of mask), the plain sweep "
+        f"{mask_tests} pairs, {candidates} of them through the IoU, "
+        f"{mask_bytes} bytes of mask, {grid['tiles']} tiles in "
+        f"{grid['waves']} waves of {grid['resident']} resident blocks "
+        f"({grid['per_sm']} a SM by the occupancy calculator, "
+        f"{grid['registers']} registers a thread); "
+        f"mask pass {split['mask_ms']} ms, resolve {split['sweep_ms']} ms, "
+        f"parts summed {split['split_sum_ms']} ms), the plain sweep "
         f"{plain_ms:.3f} ms; keep mask bit-equal; rois against the CPU max "
         f"{err:.3g} (iou_loss bit-equal); planted pixel pairs suppressed, "
         f"kept by box_iou's kernel")
@@ -8293,9 +8397,46 @@ def proposal_run(card, dev):
             "kept": int(kept.sum()), "iou_tests": tests, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "mask_iou_tests": mask_tests, "mask_bytes": mask_bytes,
-            "rois_max_abs_err": err,
+            "mask_candidates": candidates, "mask_grid": grid,
+            "kernel_split": split, "rois_max_abs_err": err,
             "max_abs_err": float((kept.int() - ref.int()).abs().max()),
             "rois": rois}
+
+
+def proposal_shapes(card, dev):
+    """(a') the proposal sweep kernel against `proposal_sweep_ref`, bit for
+    bit, at PROPOSAL_SHAPES and PROPOSAL_THRESHOLDS: seeded proposal-like
+    boxes (corners in a 300-pixel square, sides of 50-350 pixels, so most
+    pairs overlap and IoU 0.7 suppresses rows), a tenth of the rows dead
+    at the start and, past 128 rows, the second row block of every image
+    wholly dead (its tiles exit at the barrier). Comparison launches: not
+    counted."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    rows = []
+    for B, A in PROPOSAL_SHAPES:
+        xy = torch.rand((B, A, 2), generator=gen, device=dev) * 300
+        wh = 50 + torch.rand((B, A, 2), generator=gen, device=dev) * 300
+        boxes = torch.cat([xy, xy + wh], -1).contiguous()
+        keep = torch.rand((B, A), generator=gen, device=dev) > 0.1
+        if A > 128:
+            keep[:, 64:128] = False
+        for thresh in PROPOSAL_THRESHOLDS:
+            got = kernels.proposal_sweep_cuda(boxes, keep, thresh)
+            want = contrib.proposal_sweep_ref(boxes, keep, thresh)
+            same = torch.equal(got, want)
+            rows.append({"images": B, "rows": A, "thresh": thresh,
+                         "bit_equal": same, "alive": int(keep.sum()),
+                         "kept": int(got.sum()),
+                         **nms_mask_grid(B, A)})
+            assert same, f"the proposal sweep kernel parts from the plain " \
+                f"sweep at ({B}, {A}), threshold {thresh}"
+    kernels.reset_launch_counts()
+    log(f"[rcnn a'] {card}: the proposal sweep kernel bit-equal to "
+        f"proposal_sweep_ref at "
+        + "; ".join(f"({r['images']}, {r['rows']}) IoU {r['thresh']}: "
+                    f"{r['kept']} of {r['alive']} kept, {r['tiles']} tiles "
+                    f"of grid {tuple(r['grid'])}" for r in rows))
+    return rows
 
 
 def _held(name, got, want, tol):
@@ -8472,13 +8613,14 @@ def phase_rcnn(card, dev):
     """Phase 21."""
     t0 = time.perf_counter()
     prop = proposal_run(card, dev)
+    shapes = proposal_shapes(card, dev)
     ops = rcnn_ops(card, dev, prop.pop("rois"))
     pre = pretrained_check(card, dev)
     pick = pick_check(card, dev)
     took = time.perf_counter() - t0
     log(f"[rcnn] phase 21 took {took:.1f} s")
-    return {"proposal": prop, "ops": ops, "pretrained": pre, "pick": pick,
-            "seconds": took}
+    return {"proposal": prop, "proposal_shapes": shapes, "ops": ops,
+            "pretrained": pre, "pick": pick, "seconds": took}
 
 
 def proposal_entry(rcnn):
@@ -8491,6 +8633,8 @@ def proposal_entry(rcnn):
             "bound_by": p["bound_by"], "library_ms": None,
             "mask_iou_tests": p["mask_iou_tests"],
             "mask_bytes": p["mask_bytes"],
+            "mask_candidates": p["mask_candidates"],
+            "mask_grid": p["mask_grid"], "kernel_split": p["kernel_split"],
             "proposal_ms": p["call_ms"],
             "proposal_median_ms": p["call_median_ms"],
             "shape": f"B=1 A={RCNN_PRE} float32 boxes, pixel-inclusive IoU "

@@ -325,7 +325,7 @@ def _window(run, dev, steps, measured):
         from torch.profiler import ProfilerActivity, profile
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
-        prof.start()
+        _mxprof.open_device_window(prof)
     kernels._CAPTURE = cap
     t0 = time.perf_counter()
     try:
@@ -339,7 +339,7 @@ def _window(run, dev, steps, measured):
         wall = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
         kernels._CAPTURE = None
         if prof is not None:
-            prof.stop()
+            _mxprof.close_device_window(prof)
     after = kernels.launch_counts()
     calls, k = [], 0
     for i, entry in enumerate(cap):

@@ -29,11 +29,11 @@
 //     at the start and each 64-row word w holding rows after i, one 64-bit
 //     word whose bit t is set where row j = 64 w + t lies after i, has row
 //     i's class (when ids are given) and iou(i, j) > thresh. A block takes
-//     64 rows and walks their words 8 at a time, the 512 column boxes (and
-//     their areas and ids) staged in shared memory. Comparisons alone pick
-//     the pairs whose boxes overlap; the IoU runs on those only. Rows dead
-//     at the start write nothing (the sweep never reads their words), and
-//     columns dead at the start take no IoU.
+//     one tile: 64 rows and a range of 8 of their words, the 512 column
+//     boxes (and their areas and ids) staged in shared memory. Comparisons
+//     alone pick the pairs whose boxes overlap; the IoU runs on those only.
+//     Rows dead at the start write nothing (the sweep never reads their
+//     words), and columns dead at the start take no IoU.
 //   nms_resolve_kernel, one block an image: walk the 64-row blocks in
 //     order. Warp 0 resolves a block's rows (a row is kept if it was alive
 //     at the start and no kept row before it removes it) from their
@@ -74,13 +74,16 @@ namespace {
 typedef unsigned long long u64;
 
 constexpr int kMaskThreads = 256;                  // a warp a word
-constexpr int kMaskWords = kMaskThreads / 32;      // words a step
-constexpr int kMaskCols = 64 * kMaskWords;         // columns a step
+constexpr int kMaskWords = kMaskThreads / 32;      // words a tile
+constexpr int kMaskCols = 64 * kMaskWords;         // columns a tile
+constexpr int kColsAThread = kMaskCols / kMaskThreads;
 constexpr int kMaskBlocks = 3;                     // resident a SM, at least
 constexpr int kResolveThreads = 1024;              // warp 0 + 31 ORing
 constexpr int kOrWarps = kResolveThreads / 32 - 1;
 constexpr int kGroup = 5;                          // words a warp loads ahead
 constexpr int kMaxSmem = 232448;  // also keeps the row blocks under 65536
+static_assert(kMaxSmem / sizeof(u64) <= 65535,
+              "the mask grid's y and z extents hold every row block");
 
 __device__ __forceinline__ float area(float4 b) {
   return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.f),
@@ -134,10 +137,38 @@ __device__ __forceinline__ float iou1(float4 a, float area_a, float4 b,
   return __fdiv_rn(inter, __fsub_rn(__fadd_rn(area_a, area_b), inter));
 }
 
-// grid (images, row blocks): the heaviest row blocks (the first, whose
-// rows meet the most later ones) of every image start first. Lane
-// l of warp c takes rows 64 rb + l and 64 rb + 32 + l of the block and
-// word w0 + c of the step, so each column box read from shared memory
+// What bounds the mask pass on the card: where the work lies, not how much
+// of it there is. Its pairs are few (proposal's (1, 6000): 17,997,000, a
+// few tens of microseconds of the card's issue rate even if each took the
+// IoU), but a tile's IoUs run serially in each lane, about 25 us for 8
+// words alone on a SM, so the pass lasts as long as the longest chain of
+// tiles on one SM. A block that walked a row block to its last word would
+// make that chain the first row block's 12 tiles at (1, 6000), on 94 of
+// the 132 SMs. So the grid is one block a tile of 8 words:
+//
+//   grid (images, row blocks, runs of 8 words): block (b, rb, k) takes
+//   image b's row block rb and its words rb + 8 k .. rb + 8 k + 7, cut at
+//   the last word; a block whose run starts past the last word returns at
+//   once. At (1, 6000): 94 row blocks, 94 x 12 = 1,128 blocks, 600 of them
+//   tiles; at detect()'s (32, 8732): 137 row blocks, 78,912 blocks, 39,744
+//   of them tiles. The waves they take depend on the blocks resident a SM,
+//   which __launch_bounds__ only holds at 3 or more; mx_nms_mask_grid reads
+//   it from the occupancy calculator (chip_smoke.py phases 13 and 21 log
+//   it). On an H100 (sm_90a, 132 SMs) it gives 4 blocks a SM of each
+//   kernel (50-64 registers a thread), 528 resident: 2 waves at (1, 6000),
+//   76 at (32, 8732). A flat index over the tiles alone needs no empty
+//   blocks, but its decode (a search over the row blocks) cost more at
+//   (32, 8732) than the empty blocks do.
+//
+// Blocks run in no order, so a tile carries nothing from another: it loads
+// its own rows' boxes, areas and liveness, and its columns'. The column
+// loads are issued before the dead-block barrier, so a tile waits for one
+// round trip to memory, not two. Each (row, word) is written by exactly
+// one tile, at [w][row], by the same arithmetic on the same pairs whatever
+// the grid: the words, and so the keep mask, are the same bits.
+//
+// Lane l of warp c takes rows 64 rb + l and 64 rb + 32 + l of the block
+// and word w0 + c of the tile, so each column box read from shared memory
 // serves two rows.
 //
 // Which pairs need the IoU: two proper boxes intersect in a positive area
@@ -161,11 +192,14 @@ nms_mask_kernel(const float4* __restrict__ boxes,
   __shared__ float4 col_test[kMaskCols];  // NaN: improper, or dead
   __shared__ float col_area[kMaskCols];
   __shared__ float col_id[kMaskCols];
+  // the tile: image img, row block rb, words w0 .. w0 + kMaskWords - 1
   const long long img = blockIdx.x;
+  const int rb = blockIdx.y;
+  const int w0 = rb + blockIdx.z * kMaskWords;
+  if (w0 >= n_words) return;
   const float4* bx = boxes + img * A;
   const float* id = kIds ? ids + img * A : nullptr;
   u64* mk = mask + img * n_words * (long long)A;
-  const int rb = blockIdx.y;
   const int lane = threadIdx.x % 32, c = threadIdx.x / 32;
   int row[2];
   bool live[2], pi[2];
@@ -180,79 +214,87 @@ nms_mask_kernel(const float4* __restrict__ boxes,
     pi[h] = proper(bi[h]);
     idi[h] = kIds && live[h] ? __ldg(id + row[h]) : 0.f;
   }
+  // the tile's columns, in flight with the rows
+  float4 bc[kColsAThread];
+  bool kc[kColsAThread];
+  float idc[kColsAThread];
+#pragma unroll
+  for (int u = 0; u < kColsAThread; ++u) {
+    const int j = w0 * 64 + threadIdx.x + kMaskThreads * u;
+    bc[u] = j < A ? __ldg(bx + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    kc[u] = j < A && keep[img * A + j];
+    idc[u] = kIds && j < A ? __ldg(id + j) : 0.f;
+  }
   // a block none of whose rows is alive has nothing to write
   if (!__syncthreads_or(live[0] || live[1])) return;
   const bool zero_hits = 0.f > thresh;
-  for (int w0 = rb; w0 < n_words; w0 += kMaskWords) {
-    __syncthreads();  // the last step's column boxes are read
-    for (int q = threadIdx.x; q < kMaskCols; q += kMaskThreads) {
-      const int j = w0 * 64 + q;
-      if (j < A) {
-        const float4 bj = __ldg(bx + j);
-        col_box[q] = bj;
-        col_test[q] = (kPlusOne || proper(bj)) && keep[img * A + j]
-                          ? bj
-                          : make_float4(NAN, NAN, NAN, NAN);
-        col_area[q] = kPlusOne ? area1(bj) : area(bj);
-        col_id[q] = kIds ? __ldg(id + j) : 0.f;
-      }
-    }
-    __syncthreads();
-    const int w = w0 + c;
-    if (w >= n_words) continue;
-    const float4* ct = col_test + c * 64;
-    const float* cid = col_id + c * 64;
-    unsigned cand[2][2] = {{0u, 0u}, {0u, 0u}};
 #pragma unroll
-    for (int half = 0; half < 2; ++half)
+  for (int u = 0; u < kColsAThread; ++u) {
+    const int q = threadIdx.x + kMaskThreads * u;
+    if (w0 * 64 + q < A) {
+      col_box[q] = bc[u];
+      col_test[q] = (kPlusOne || proper(bc[u])) && kc[u]
+                        ? bc[u]
+                        : make_float4(NAN, NAN, NAN, NAN);
+      col_area[q] = kPlusOne ? area1(bc[u]) : area(bc[u]);
+      col_id[q] = idc[u];
+    }
+  }
+  __syncthreads();
+  const int w = w0 + c;
+  if (w >= n_words) return;
+  const float4* ct = col_test + c * 64;
+  const float* cid = col_id + c * 64;
+  unsigned cand[2][2] = {{0u, 0u}, {0u, 0u}};
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
 #pragma unroll 8
-      for (int t = 0; t < 32; ++t) {
-        const float4 b = ct[32 * half + t];
-        const float bid = kIds ? cid[32 * half + t] : 0.f;
+    for (int t = 0; t < 32; ++t) {
+      const float4 b = ct[32 * half + t];
+      const float bid = kIds ? cid[32 * half + t] : 0.f;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const bool x =
-              kPlusOne ? extent1(bi[h].x, bi[h].z, b.x, b.z) > 0.f &&
-                             extent1(bi[h].y, bi[h].w, b.y, b.w) > 0.f
-                       : b.z > bi[h].x && bi[h].z > b.x && b.w > bi[h].y &&
-                             bi[h].w > b.y && (!kIds || bid == idi[h]);
-          cand[h][half] |= x ? 1u << t : 0u;
-        }
+      for (int h = 0; h < 2; ++h) {
+        const bool x =
+            kPlusOne ? extent1(bi[h].x, bi[h].z, b.x, b.z) > 0.f &&
+                           extent1(bi[h].y, bi[h].w, b.y, b.w) > 0.f
+                     : b.z > bi[h].x && bi[h].z > b.x && b.w > bi[h].y &&
+                           bi[h].w > b.y && (!kIds || bid == idi[h]);
+        cand[h][half] |= x ? 1u << t : 0u;
       }
-    // columns of word w inside the image
-    const int tn = min(64, A - w * 64);
-    const u64 inside = tn >= 64 ? ~0ull : (1ull << tn) - 1;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (!live[h]) continue;
-      // and after the row
-      const int t0 = w == rb ? 32 * h + lane + 1 : 0;
-      const u64 range = (t0 >= 64 ? 0ull : ~0ull << t0) & inside;
-      u64 cb = (((u64)cand[h][1] << 32) | cand[h][0]) & range;
-      u64 bits = 0;
-      if (kPlusOne) {
-        // a negative threshold: the prefilter proves nothing
-        if (zero_hits) cb = range;
-      } else if (!pi[h]) {
-        cb = 0;
-      }
-      if (!kPlusOne && zero_hits) {
-        u64 same = 0;
-        for (int t = 0; t < 64; ++t)
-          if (!kIds || cid[t] == idi[h]) same |= 1ull << t;
-        bits = same & range & ~cb;
-      }
-      while (cb) {
-        const int t = __ffsll((long long)cb) - 1;
-        cb &= cb - 1;
-        const float4 bj = col_box[c * 64 + t];
-        const float aj = col_area[c * 64 + t];
-        if ((kPlusOne ? iou1(bi[h], ai[h], bj, aj)
-                      : iou(bi[h], ai[h], bj, aj)) > thresh)
-          bits |= 1ull << t;
-      }
-      mk[(long long)w * A + row[h]] = bits;
     }
+  // columns of word w inside the image
+  const int tn = min(64, A - w * 64);
+  const u64 inside = tn >= 64 ? ~0ull : (1ull << tn) - 1;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!live[h]) continue;
+    // and after the row
+    const int t0 = w == rb ? 32 * h + lane + 1 : 0;
+    const u64 range = (t0 >= 64 ? 0ull : ~0ull << t0) & inside;
+    u64 cb = (((u64)cand[h][1] << 32) | cand[h][0]) & range;
+    u64 bits = 0;
+    if (kPlusOne) {
+      // a negative threshold: the prefilter proves nothing
+      if (zero_hits) cb = range;
+    } else if (!pi[h]) {
+      cb = 0;
+    }
+    if (!kPlusOne && zero_hits) {
+      u64 same = 0;
+      for (int t = 0; t < 64; ++t)
+        if (!kIds || cid[t] == idi[h]) same |= 1ull << t;
+      bits = same & range & ~cb;
+    }
+    while (cb) {
+      const int t = __ffsll((long long)cb) - 1;
+      cb &= cb - 1;
+      const float4 bj = col_box[c * 64 + t];
+      const float aj = col_area[c * 64 + t];
+      if ((kPlusOne ? iou1(bi[h], ai[h], bj, aj)
+                    : iou(bi[h], ai[h], bj, aj)) > thresh)
+        bits |= 1ull << t;
+    }
+    mk[(long long)w * A + row[h]] = bits;
   }
 }
 
@@ -370,6 +412,21 @@ nms_resolve_kernel(const u64* __restrict__ mask, uint8_t* keep, int A,
   }
 }
 
+typedef void (*MaskKernel)(const float4*, const float*, const uint8_t*,
+                           u64*, int, int, float);
+
+MaskKernel mask_kernel(bool plus_one, bool ids) {
+  return plus_one ? nms_mask_kernel<false, true>
+         : ids    ? nms_mask_kernel<true, false>
+                  : nms_mask_kernel<false, false>;
+}
+
+// the mask pass's grid for B images of n_words words: (images, row blocks,
+// runs of kMaskWords words), a block a run
+dim3 mask_grid(int B, int n_words) {
+  return dim3(B, n_words, (n_words + kMaskWords - 1) / kMaskWords);
+}
+
 // The two kernels on `stream` for B images of A rows: the mask pass of
 // the given convention, then the resolve pass. Returns cudaGetLastError()
 // after the launches (0 on success); never synchronises.
@@ -390,10 +447,8 @@ int launch_sweep(bool plus_one, int device, const void* boxes,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   if (err == cudaSuccess) {
-    auto kern = plus_one ? nms_mask_kernel<false, true>
-                : ids    ? nms_mask_kernel<true, false>
-                         : nms_mask_kernel<false, false>;
-    kern<<<dim3(B, n_words), kMaskThreads, 0, st>>>(
+    mask_kernel(plus_one, ids != nullptr)<<<mask_grid(B, n_words),
+                                            kMaskThreads, 0, st>>>(
         static_cast<const float4*>(boxes), static_cast<const float*>(ids),
         static_cast<const uint8_t*>(keep), static_cast<u64*>(mask), A,
         n_words, thresh);
@@ -430,6 +485,38 @@ extern "C" int mx_proposal_sweep(int device, const void* boxes, void* keep,
                                  void* stream) {
   return launch_sweep(true, device, boxes, nullptr, keep, mask, B, A, thresh,
                       stream);
+}
+
+// The mask pass's launch for B images of A rows, as the sweeps make it,
+// and what `device` holds of it: out[0..2] the grid (images, row blocks,
+// runs of words), out[3] the words a run, out[4] the blocks that hold a
+// tile (the others return at once), out[5] the blocks of the convention's
+// kernel (plus_one: the proposal op's; else ids: with class ids) resident
+// a SM, from the occupancy calculator, out[6] its registers a thread.
+// Returns a cudaError_t (0 on success).
+extern "C" int mx_nms_mask_grid(int device, int plus_one, int ids, int B,
+                                int A, long long* out) {
+  if (B <= 0 || A <= 0 || out == nullptr) return (int)cudaErrorInvalidValue;
+  const int n_words = (A + 63) / 64;
+  const dim3 grid = mask_grid(B, n_words);
+  long long tiles = 0;
+  for (int rb = 0; rb < n_words; ++rb)
+    tiles += (n_words - rb + kMaskWords - 1) / kMaskWords;
+  int prev = 0, resident = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const MaskKernel kern = mask_kernel(plus_one != 0, ids != 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kern,
+                                                      kMaskThreads, 0);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
+  if (prev != device) cudaSetDevice(prev);
+  if (err != cudaSuccess) return (int)err;
+  const long long got[7] = {grid.x, grid.y,   grid.z,      kMaskWords,
+                            B * tiles, resident, attr.numRegs};
+  for (int i = 0; i < 7; ++i) out[i] = got[i];
+  return 0;
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

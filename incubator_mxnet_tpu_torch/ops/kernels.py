@@ -379,6 +379,9 @@ def _load(name):
                 lib.mx_proposal_sweep.argtypes = (
                     [ctypes.c_int] + [ctypes.c_void_p] * 3
                     + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+                lib.mx_nms_mask_grid.restype = ctypes.c_int
+                lib.mx_nms_mask_grid.argtypes = (
+                    [ctypes.c_int] * 5 + [ctypes.c_void_p])
             elif name == "rnn_cell":
                 lib.mx_rnn_cell_fwd.restype = ctypes.c_int
                 lib.mx_rnn_cell_fwd.argtypes = (

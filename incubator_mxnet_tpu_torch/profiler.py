@@ -23,6 +23,7 @@ samples it on a thread into the trace's storage lane, and
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -64,6 +65,49 @@ def _device_wanted():
             and torch.cuda.is_available())
 
 
+# A device window's margin at each end. Kineto keeps a kernel record only
+# when the kernel's start, put on the host clock, falls inside the window,
+# and on an H100 those starts read up to milliseconds before the launch
+# calls that made them (tools/torch_profiler_window.py): the kernels
+# launched in a window's first milliseconds then had no record. A window
+# therefore opens this long before its first launch and closes this long
+# after its last kernel ends.
+DEVICE_EDGE_S = 0.05
+
+
+def open_device_window(prof):
+    """Start `torch.profiler` object `prof` on an idle card, then wait out
+    the window's edge (no wait without a card)."""
+    import torch
+    on_card = torch.cuda.is_available()
+    if on_card:
+        torch.cuda.synchronize()
+    prof.start()
+    if on_card:
+        time.sleep(DEVICE_EDGE_S)
+
+
+def close_device_window(prof):
+    """Stop `prof` once the card has finished its work and the window's
+    edge has passed."""
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        time.sleep(DEVICE_EDGE_S)
+    prof.stop()
+
+
+@contextlib.contextmanager
+def device_window(prof):
+    """`with device_window(torch.profiler.profile(...)) as prof:` opens and
+    closes `prof` as `open_device_window` / `close_device_window` do."""
+    open_device_window(prof)
+    try:
+        yield prof
+    finally:
+        close_device_window(prof)
+
+
 def start(profile_process="worker"):
     """≙ profiler.set_state('run'). On a card also starts `torch.profiler`
     over the CUDA activity."""
@@ -75,8 +119,7 @@ def start(profile_process="worker"):
         import torch
         prof = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA])
-        torch.cuda.synchronize()
-        prof.start()
+        open_device_window(prof)
         # the two clocks at one instant: kineto's events carry unix-epoch
         # time, the port's events perf_counter time
         _state["torch_prof"] = (prof, time.time_ns() - time.perf_counter_ns())
@@ -85,16 +128,15 @@ def start(profile_process="worker"):
 
 def stop(profile_process="worker"):
     """≙ profiler.set_state('stop'). Stops `torch.profiler` (after a device
-    synchronize) and keeps its kernel and memcpy records for `dump()`."""
+    synchronize and the window's edge) and keeps its kernel and memcpy
+    records for `dump()`."""
     _state["running"] = False
     held = _state["torch_prof"]
     if held is None:
         return
-    import torch
     prof, epoch_minus_perf = held
     _state["torch_prof"] = None
-    torch.cuda.synchronize()
-    prof.stop()
+    close_device_window(prof)
     events = _kineto_device_events(prof, epoch_minus_perf)
     with _lock:
         _device_events[:] = events

@@ -47,7 +47,7 @@ from incubator_mxnet_tpu_torch import gluon as tgluon
 from incubator_mxnet_tpu_torch.ops import attention, fused, kernels
 
 from test_torch_coverage import _cuda
-from torch_port_utils import jax_amp_restored
+from torch_port_utils import jax_amp_restored, port_amp_restored
 
 torch.set_num_threads(1)
 
@@ -347,9 +347,10 @@ def test_paged_attention_float16_matches_jax_reference():
 @contextlib.contextmanager
 def _amp_off_scope():
     """What `amp_off` runs around a test: both packages' AMP off after it,
-    and the JAX package's whole AMP state as it found it (its `uninit()`
-    keeps the target dtype, which a later JAX test would then autocast to)."""
-    with jax_amp_restored():
+    and both packages' whole AMP state as it found it (`uninit()` keeps the
+    target dtype, which a later test of either package would then autocast
+    to)."""
+    with jax_amp_restored(), port_amp_restored():
         try:
             yield
         finally:

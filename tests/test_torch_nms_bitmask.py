@@ -20,6 +20,7 @@ on the same numpy inputs (exactly, as tests/test_torch_detection_ops.py
 holds them). The wrapper's workspace, its grouping of images past the cap
 and its launch count are checked with a stand-in for the built library.
 """
+import os
 import types
 
 import numpy as np
@@ -42,54 +43,66 @@ WORD = 64
 U64 = (1 << 64) - 1
 
 
+def _pair_hits(rows, cols, row_ids, col_ids, col_keep, thresh, plus_one):
+    """(B, r, c) bool: where a column would set its bit in a row's word, as
+    the kernel decides it, before the order of the two and the row's
+    liveness: comparisons pick the candidates (two proper boxes whose edges
+    overlap, the column alive at the start), the IoU runs on those, and
+    every other column hits iff 0 > thresh; then the class (when ids are
+    given). With `plus_one` (no ids): a candidate is a pair whose overlap's
+    (x2 - x1) + 1 and (y2 - y1) + 1 are both positive, the column alive at
+    the start, or every column under a negative threshold; only candidates
+    hit. `rows` (B, r, 4) and `cols` (B, c, 4) boxes."""
+    x1, y1, x2, y2 = (rows[..., k, None] for k in range(4))
+    u1, v1, u2, v2 = (cols[:, None, :, k] for k in range(4))
+    ew = torch.minimum(x2, u2) - torch.maximum(x1, u1)
+    eh = torch.minimum(y2, v2) - torch.maximum(y1, v1)
+    if plus_one:
+        ew, eh = ew + 1.0, eh + 1.0
+        cand = (ew > 0) & (eh > 0) & col_keep[:, None]
+        if 0.0 > thresh:
+            cand = torch.ones_like(cand)
+        area_r = ((x2 - x1) + 1.0) * ((y2 - y1) + 1.0)
+        area_c = ((u2 - u1) + 1.0) * ((v2 - v1) + 1.0)
+        inter = ew.clamp(min=0) * eh.clamp(min=0)
+        iou = inter / ((area_r + area_c) - inter)
+        hit = cand & (iou > thresh)
+    else:
+        cand = ((x2 > u1) & (u2 > x1) & (y2 > v1) & (v2 > y1)
+                & (x2 > x1) & (y2 > y1) & (u2 > u1) & (v2 > v1)
+                & col_keep[:, None])
+        area_r = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+        area_c = (u2 - u1).clamp(min=0) * (v2 - v1).clamp(min=0)
+        inter = ew.clamp(min=0) * eh.clamp(min=0)
+        union = area_r + area_c - inter
+        iou = torch.where(union > 0, inter / union, 0.0)
+        hit = torch.where(cand, iou > thresh, torch.tensor(0.0 > thresh))
+    if row_ids is not None:
+        hit &= row_ids[:, :, None] == col_ids[:, None]
+    return hit
+
+
+def _pack(hit):
+    """(..., 64 k) bools -> (..., k) int64 words, bit t of word w the
+    column 64 w + t."""
+    bits = torch.bitwise_left_shift(torch.ones((), dtype=torch.int64),
+                                    torch.arange(WORD))
+    return (hit.reshape(*hit.shape[:-1], -1, WORD).long() * bits).sum(-1)
+
+
 def _mask_words(boxes, ids, keep, thresh, plus_one=False):
     """The mask kernel's words: (B, ceil(A / 64), A) int64, word w of row i
     at [w, i]; rows dead at the start hold 0 (the kernel writes nothing
-    there, and the sweep never reads them). As the kernel builds them:
-    comparisons pick the candidates (two proper boxes whose edges overlap,
-    the column alive at the start), the IoU runs on those, and every other
-    later column of the row's class hits iff 0 > thresh. With `plus_one`
-    (no ids): a candidate is a pair whose overlap's (x2 - x1) + 1 and
-    (y2 - y1) + 1 are both positive, the column alive at the start, or
-    every column under a negative threshold; only candidates hit."""
+    there, and the sweep never reads them). Bit t of word w of row i is
+    `_pair_hits` of row i and column j = 64 w + t, for j after i."""
     B, A = boxes.shape[:2]
     n = -(-A // WORD)
-    x1, y1, x2, y2 = (boxes[..., c] for c in range(4))
-    ew = (torch.minimum(x2[:, :, None], x2[:, None])
-          - torch.maximum(x1[:, :, None], x1[:, None]))
-    eh = (torch.minimum(y2[:, :, None], y2[:, None])
-          - torch.maximum(y1[:, :, None], y1[:, None]))
-    if plus_one:
-        ew, eh = ew + 1.0, eh + 1.0
-        cand = (ew > 0) & (eh > 0) & keep[:, None]
-        if 0.0 > thresh:
-            cand = torch.ones_like(cand)
-        area = ((x2 - x1) + 1.0) * ((y2 - y1) + 1.0)
-        inter = ew.clamp(min=0) * eh.clamp(min=0)
-        iou = inter / ((area[:, :, None] + area[:, None]) - inter)
-        hit = cand & (iou > thresh)
-    else:
-        proper = (x2 > x1) & (y2 > y1)
-        cand = ((x2[:, :, None] > x1[:, None])
-                & (x2[:, None] > x1[:, :, None])
-                & (y2[:, :, None] > y1[:, None])
-                & (y2[:, None] > y1[:, :, None])
-                & proper[:, :, None] & proper[:, None] & keep[:, None])
-        area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
-        inter = ew.clamp(min=0) * eh.clamp(min=0)
-        union = area[:, :, None] + area[:, None] - inter
-        iou = torch.where(union > 0, inter / union, 0.0)
-        hit = torch.where(cand, iou > thresh, torch.tensor(0.0 > thresh))
+    hit = _pair_hits(boxes, boxes, ids, ids, keep, thresh, plus_one)
     cols = torch.arange(A)
     hit &= (cols[None, :] > cols[:, None])[None]
-    if ids is not None:
-        hit &= ids[:, :, None] == ids[:, None]
     hit &= keep[:, :, None]
     hit = torch.nn.functional.pad(hit, (0, n * WORD - A))
-    bits = torch.bitwise_left_shift(torch.ones((), dtype=torch.int64),
-                                    torch.arange(WORD))
-    words = (hit.reshape(B, A, n, WORD).long() * bits).sum(-1)
-    return words.permute(0, 2, 1).contiguous()
+    return _pack(hit).permute(0, 2, 1).contiguous()
 
 
 def _resolve(words, keep):
@@ -438,3 +451,144 @@ def test_proposal_wrapper_launches_its_own_entry(fake_nms):
         ("proposal_sweep", "float32"): 1}
     with pytest.raises(MXNetError, match="float32"):
         kernels.proposal_sweep_cuda(boxes.double(), keep, 0.7)
+
+
+# ---------------------------------------------------------------------------
+# the mask kernel's grid: a block a tile of 64 rows and 8 of their words
+# ---------------------------------------------------------------------------
+# the words a tile (csrc/nms.cu: kMaskWords, a warp a word of 256 threads)
+TILE = 8
+# what an int64 torch.empty workspace may hold where nothing wrote
+GARBAGE = 0x5A5A5A5A5A5A5A5A
+# the lines of csrc/nms.cu that `_mask_grid` and `_grid_blocks` mirror
+NMS_CU = os.path.join(os.path.dirname(kernels.__file__), "csrc", "nms.cu")
+MIRRORED = ("constexpr int kMaskThreads = 256;",
+            "constexpr int kMaskWords = kMaskThreads / 32;",
+            "return dim3(B, n_words, (n_words + kMaskWords - 1) / kMaskWords);",
+            "const int w0 = rb + blockIdx.z * kMaskWords;",
+            "if (w0 >= n_words) return;",
+            "<<<mask_grid(B, n_words),")
+
+
+def _mask_grid(B, A):
+    """`mask_grid` of csrc/nms.cu: (images, row blocks, runs of TILE
+    words)."""
+    n = -(-A // WORD)
+    return B, n, -(-n // TILE)
+
+
+def _grid_blocks(B, A):
+    """The mask kernel's blocks in launch order (x fastest): (image, row
+    block, first word), each block of `_mask_grid` whose run starts at or
+    before the last word; the others return at once."""
+    gx, gy, gz = _mask_grid(B, A)
+    for k in range(gz):
+        for rb in range(gy):
+            for img in range(gx):
+                if rb + TILE * k < gy:
+                    yield img, rb, rb + TILE * k
+
+
+def _tiled_mask_words(boxes, ids, keep, thresh, plus_one=False):
+    """The mask kernel's workspace as its grid writes it, block by block
+    in launch order: each block takes its tile from its index, loads its
+    own rows and columns, exits if none of its rows is alive, and writes
+    each live row's words of its run (on the diagonal word the columns
+    after the row; every word cut at the image's last row). Returns
+    (words, writes): the (B, n, A) workspace, GARBAGE where nothing wrote,
+    and how many times each word was written."""
+    B, A = boxes.shape[:2]
+    n = -(-A // WORD)
+    words = torch.full((B, n, A), GARBAGE, dtype=torch.int64)
+    writes = torch.zeros((B, n, A), dtype=torch.int64)
+    for img, rb, w0 in _grid_blocks(B, A):
+        r = slice(WORD * rb, min(A, WORD * rb + WORD))
+        live = keep[img, r]
+        if not live.any():
+            continue
+        at = torch.arange(live.numel())
+        one = lambda t, s: None if t is None else t[img:img + 1, s]  # noqa
+        for w in range(w0, min(n, w0 + TILE)):
+            c = slice(WORD * w, min(A, WORD * w + WORD))
+            hit = _pair_hits(one(boxes, r), one(boxes, c), one(ids, r),
+                             one(ids, c), one(keep, c), thresh, plus_one)[0]
+            t0 = at + 1 if w == rb else torch.zeros_like(at)
+            hit &= torch.arange(hit.shape[1])[None] >= t0[:, None]
+            hit = torch.nn.functional.pad(hit, (0, WORD - hit.shape[1]))
+            word = _pack(hit)[:, 0]
+            rows = at[live] + WORD * rb
+            words[img, w, rows] = word[live]
+            writes[img, w, rows] += 1
+    return words, writes
+
+
+def test_mask_tiles_cover_the_upper_triangle_once():
+    """The grid mirrored here is the one csrc/nms.cu launches (its lines
+    are in the source as mirrored). For every image of up to 300 words:
+    the grid's blocks that do not return at once take each (row block,
+    run of 8 words from its own on) exactly once; phase 21's (1, 6000)
+    gives 600 tiles, detect()'s (32, 8732) 39,744."""
+    with open(NMS_CU) as f:
+        source = " ".join(f.read().split())
+    for line in MIRRORED:
+        assert line in source, line
+    for n in range(1, 301):
+        got = [(rb, w0) for _, rb, w0 in _grid_blocks(1, WORD * n)]
+        want = [(rb, w0) for rb in range(n) for w0 in range(rb, n, TILE)]
+        assert sorted(got) == want and len(set(got)) == len(got), n
+        assert len(list(_grid_blocks(3, WORD * n - 1))) == 3 * len(want)
+        assert _mask_grid(3, WORD * n - 1) == (3, n, -(-n // TILE))
+    assert len(list(_grid_blocks(1, 6000))) == 600
+    assert len(list(_grid_blocks(32, 8732))) == 39744
+    assert _mask_grid(32, 8732) == (32, 137, 18)
+
+
+def _proposal_like(rng, B, A):
+    """Float boxes as the proposal op hands its sweep: corners anywhere in
+    a 300-pixel square, sides up to 150 pixels, so most pairs overlap."""
+    xy = rng.rand(B, A, 2) * 300
+    wh = rng.rand(B, A, 2) * 150
+    return torch.from_numpy(np.concatenate([xy, xy + wh], -1)
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["proposal", "nms", "nms_ids"])
+@pytest.mark.parametrize("A", [1, 63, 64, 65, 511, 512, 513, 1100])
+def test_tiled_mask_writes_each_word_once_and_sweeps_as_the_plain(A, kind):
+    """The words built tile by tile in the kernel's order: every word of
+    every alive row from its own row block on written exactly once, no
+    other written; they equal `_mask_words` there, and resolved they give
+    `proposal_sweep_ref` (pixel-inclusive) or `nms_sweep_ref` (with and
+    without ids) bit for bit, the unwritten words left at garbage. Dense
+    boxes at 0.7, and every later column at -0.1, put bits in nearly every
+    word; one row block of the second image is wholly dead."""
+    rng = np.random.RandomState(500 + A)
+    B = 2
+    plus_one = kind == "proposal"
+    boxes = _proposal_like(rng, B, A) if plus_one else _boxes(rng, B, A,
+                                                                spread=0.3)
+    ids = torch.from_numpy(rng.randint(0, 3, (B, A)).astype(np.float32)) \
+        if kind == "nms_ids" else None
+    keep = torch.from_numpy(rng.rand(B, A) > 0.15)
+    keep[1, WORD:2 * WORD] = False
+    n = -(-A // WORD)
+    due = ((torch.arange(n)[:, None] >= torch.arange(A)[None] // WORD)[None]
+           & keep[:, None, :])
+    for thresh in (0.7, -0.1):
+        words, writes = _tiled_mask_words(boxes, ids, keep, thresh, plus_one)
+        assert torch.equal(writes, due.long()), (A, thresh)
+        want = _mask_words(boxes, ids, keep, thresh, plus_one)
+        assert torch.equal(words[due], want[due]), (A, thresh)
+        got = torch.stack([_resolve(words[b], keep[b]) for b in range(B)])
+        plain = (tcontrib.proposal_sweep_ref(boxes, keep, thresh)
+                 if plus_one else
+                 tcontrib.nms_sweep_ref(boxes, ids, keep, thresh))
+        assert torch.equal(got, plain), (A, thresh)
+        if A >= 511:
+            assert int(plain.sum()) < int(keep.sum())
+        if A >= 511 and thresh < 0:
+            # every whole word off the diagonal holds bits
+            full = due & (torch.arange(n)[:, None] > torch.arange(A)[None]
+                          // WORD)[None]
+            full[:, A // WORD:] = False
+            assert bool((want[full] != 0).all())

@@ -356,6 +356,38 @@ def test_record_event_timestamps_monotonic_across_threads():
     assert t0 <= stamps[0] <= tprof._now_us()
 
 
+@pytest.mark.parametrize("on_card", [True, False])
+def test_device_window_waits_out_its_edges(monkeypatch, on_card):
+    """A device window starts on an idle card and waits DEVICE_EDGE_S
+    before the first launch; it stops DEVICE_EDGE_S after the card is
+    idle again. Without a card it neither synchronizes nor waits."""
+    seen = []
+
+    class Prof:
+        def start(self):
+            seen.append("start")
+
+        def stop(self):
+            seen.append("stop")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: on_card)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: seen.append("sync"))
+    monkeypatch.setattr(tprof.time, "sleep",
+                        lambda s: seen.append(("sleep", s)))
+    prof = Prof()
+    tprof.open_device_window(prof)
+    opened = list(seen)
+    seen.clear()
+    tprof.close_device_window(prof)
+    edge = ("sleep", tprof.DEVICE_EDGE_S)
+    if on_card:
+        assert opened == ["sync", "start", edge]
+        assert seen == ["sync", edge, "stop"]
+    else:
+        assert opened == ["start"] and seen == ["stop"]
+    assert tprof.DEVICE_EDGE_S > 0
+
+
 def test_stats_shims_match_their_modules():
     from incubator_mxnet_tpu_torch.io import device_feed
     from incubator_mxnet_tpu_torch.ops import fused, registry

@@ -52,6 +52,7 @@ def main():
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch.profiler import device_window
 
     import chip_smoke as cs
     from incubator_mxnet_tpu_torch import amp
@@ -95,8 +96,8 @@ def main():
     host_ms = float(np.median(host))
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_window(profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])) as prof:
         for _ in range(PROFILE_CALLS):
             net.detect(x, **kw)
         torch.cuda.synchronize()

@@ -1,30 +1,35 @@
-"""The NMS kernels against the one-block-an-image sweep they replaced.
-
-A one-off comparison, kept because PERF.md's readings of the redesign come
-from it: it needs a checkout of commit 76e59ef, the last one whose
-`ops/csrc/nms.cu` holds the one-block sweep.
+"""The NMS kernels against earlier versions of them, at detect()'s shape.
 
 `ops/csrc/nms.cu` builds a suppression bitmask of every pair over the whole
-card, then sweeps it a block an image. The sweep it replaced walked each
-image's sorted rows in one block, a barrier a kept row. This script builds
-that sweep from the checkout's `nms.cu` (`--parent`: `git archive 76e59ef`
-unpacked into a directory `.gitignore` lists; its
-`mx_nms_sweep(device, boxes, ids, keep, B, A, thresh, stream)` takes no
-workspace), checks both against `ops.contrib.nms_sweep_ref` bit for bit,
-and times them in one process on one card, in turns (old, new, new, old
-each round), at (32, 8732) over four kinds of rows: SSD-like random boxes
-with 20 classes and without, dense boxes without classes (most pairs
-overlap), and a chain (each box overlaps the next alone). It splits the
-new kernels' device ms into the mask pass and the sweep (torch.profiler),
-and prints the split only where its parts add up to within 20% of the
-CUDA-event time of the pair (else null). It prints a line a kind and one
-JSON line. Run from the repo root on a CUDA machine:
+card, then sweeps it a block an image. This script times it, in one process
+on one card, beside each `--against NAME=PATH` (repeatable): another
+`nms.cu`, built as its own library and bound by the `mx_nms_sweep` it
+declares. One that takes the mask workspace (an earlier bitmask version,
+such as the parent commit's) is launched through `kernels.nms_sweep_cuda`
+in place of the built library; one that takes none is the sweep the
+bitmask replaced, which walked each image's sorted rows in one block, a
+barrier a kept row (commit 76e59ef's `nms.cu`, the last that holds it), and
+is launched directly.
 
-    mkdir -p _scratch/parent
-    git archive 76e59ef | tar -x -C _scratch/parent
-    python3 tools/torch_nms_ab.py --parent _scratch/parent [--rounds 2]
+Every version is checked against `ops.contrib.nms_sweep_ref` bit for bit
+and timed in turns (the versions in order, then in reverse, each round) at
+(32, 8732) over four kinds of rows: SSD-like random boxes with 20 classes
+and without, dense boxes without classes (most pairs overlap), and a chain
+(each box overlaps the next alone). The bitmask versions' device ms are
+split into the mask pass and the resolve pass (torch.profiler,
+`chip_smoke.kernel_split`: null unless the parts add up to within 20% of
+the CUDA-event time). It prints a line a kind and one JSON line. Run from
+the repo root on a CUDA machine:
+
+    mkdir -p _scratch/old _scratch/prev
+    git archive 76e59ef | tar -x -C _scratch/old
+    git archive HEAD~1 | tar -x -C _scratch/prev
+    N=incubator_mxnet_tpu_torch/ops/csrc/nms.cu
+    python3 tools/torch_nms_ab.py --against old=_scratch/old/$N \\
+        --against prev=_scratch/prev/$N
 """
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -41,65 +46,93 @@ import chip_smoke as cs  # noqa: E402
 from incubator_mxnet_tpu_torch.ops import contrib, kernels  # noqa: E402
 
 B, A, THRESH = 32, 8732, 0.45
-SPLIT_REPS = 5
-# the split is printed only where its parts add up to the timed pair
-SPLIT_AGREES = 0.2
 
 
-def build_old(parent):
-    """The parent's nms.cu as a library, loaded with its own signature."""
-    src = os.path.join(parent, "incubator_mxnet_tpu_torch", "ops", "csrc",
-                       "nms.cu")
+def build_version(src, tag):
+    """(library, bitmask): `src` (an `nms.cu`) compiled with the kernels'
+    flags and bound by the `mx_nms_sweep` it declares, with the mask
+    workspace (bitmask: True, bound as `kernels._load` binds the built one)
+    or without (False: the one-block sweep)."""
+    with open(src) as f:
+        text = f.read()
+    head = text[text.index('extern "C" int mx_nms_sweep('):]
+    bitmask = "mask" in head[:head.index(")")]
     os.makedirs(kernels._BUILD, exist_ok=True)
-    lib_path = os.path.join(kernels._BUILD, "nms-old-sweep.so")
-    subprocess.run([kernels._nvcc(), *kernels._flags(), "-o", lib_path, src],
-                   check=True, capture_output=True, text=True)
+    lib_path = os.path.join(kernels._BUILD, f"nms-{tag}.so")
+    done = subprocess.run([kernels._nvcc(), *kernels._flags(), "-o",
+                           lib_path, src], capture_output=True, text=True)
+    if done.returncode:
+        raise SystemExit(f"{src}: nvcc exit {done.returncode}\n"
+                         f"{done.stdout}{done.stderr}")
     lib = ctypes.CDLL(lib_path)
     lib.mx_nms_sweep.restype = ctypes.c_int
-    lib.mx_nms_sweep.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.mx_nms_sweep.argtypes = ([ctypes.c_int]
+                                 + [ctypes.c_void_p] * (4 if bitmask else 3)
                                  + [ctypes.c_int] * 2
                                  + [ctypes.c_float, ctypes.c_void_p])
-    return lib
+    if hasattr(lib, "mx_proposal_sweep"):
+        lib.mx_proposal_sweep.restype = ctypes.c_int
+        lib.mx_proposal_sweep.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+            + [ctypes.c_float, ctypes.c_void_p])
+    lib.mx_cuda_error_string.restype = ctypes.c_char_p
+    lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib, bitmask
 
 
-def old_sweep(lib, boxes, ids, keep, thresh):
-    out = keep.clone()
-    rc = lib.mx_nms_sweep(
-        0, boxes.data_ptr(), ids.data_ptr() if ids is not None else None,
-        out.data_ptr(), boxes.shape[0], boxes.shape[1], thresh,
-        torch.cuda.current_stream().cuda_stream)
-    assert rc == 0, rc
-    return out
-
-
-def kernel_split(call, pair_ms):
-    """Device ms a launch of the mask pass and of the sweep over SPLIT_REPS
-    calls of `call()` (one call of a sweep's wrapper; torch.profiler, by
-    the launches it recorded); both None unless they add up to within
-    SPLIT_AGREES of `pair_ms`, the CUDA-event time of a call. Also the
-    parts' sum as read."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(SPLIT_REPS):
-            call()
-        torch.cuda.synchronize()
+def versions(specs):
+    """{name: (library or None (the built one), bitmask)}: each NAME=PATH
+    of `specs`, then "new"."""
     out = {}
-    for part, sym in (("mask_ms", "nms_mask_kernel"),
-                      ("sweep_ms", "nms_resolve_kernel")):
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and sym in e.key]
-        us = sum(e.self_device_time_total for e in evs)
-        n = sum(e.count for e in evs)
-        out[part] = us / 1e3 / n if us > 0 and n else None
-    seen = (None if None in out.values()
-            else out["mask_ms"] + out["sweep_ms"])
-    out["split_sum_ms"] = seen
-    if seen is None or abs(seen - pair_ms) > SPLIT_AGREES * pair_ms:
-        out.update(mask_ms=None, sweep_ms=None)
+    for spec in specs:
+        name, path = spec.split("=", 1)
+        out[name] = build_version(path, name)
+    out["new"] = (None, True)
     return out
+
+
+@contextlib.contextmanager
+def library(lib):
+    """Inside, the kernels' NMS wrappers launch `lib` (None: the built
+    library)."""
+    if lib is None:
+        yield
+        return
+    kernels._load("nms")
+    built = kernels._LIBS["nms"]
+    kernels._LIBS["nms"] = lib
+    try:
+        yield
+    finally:
+        kernels._LIBS["nms"] = built
+
+
+def in_turns(fns, rounds, reps=5):
+    """{name: [median_ms, ...]}: each of `fns` (name -> fn(i)) timed in
+    order, then in reverse, `rounds` times."""
+    times = {n: [] for n in fns}
+    for _ in range(rounds):
+        for name in list(fns) + list(fns)[::-1]:
+            times[name].append(cs.median_ms(fns[name], reps))
+    return times
+
+
+def sweep_fn(version, boxes, ids, keep, thresh):
+    """fn(i): one sweep of `version` over the rows."""
+    lib, bitmask = version
+
+    def fn(_i=0):
+        if bitmask:
+            with library(lib):
+                return kernels.nms_sweep_cuda(boxes, ids, keep, thresh)
+        out = keep.clone()
+        rc = lib.mx_nms_sweep(
+            0, boxes.data_ptr(), ids.data_ptr() if ids is not None else None,
+            out.data_ptr(), boxes.shape[0], boxes.shape[1], thresh,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return out
+    return fn
 
 
 def rows(kind, gen, dev):
@@ -121,42 +154,38 @@ def rows(kind, gen, dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", required=True,
-                    help="a checkout holding the one-block sweep's nms.cu")
+    ap.add_argument("--against", action="append", default=[],
+                    metavar="NAME=PATH", help="another nms.cu")
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     kernels.build(("nms",))
-    old = build_old(args.parent)
+    libs = versions(args.against)
     gen = torch.Generator(device=dev).manual_seed(18)
     result = {"card": card, "shape": [B, A], "kinds": {}}
     for kind in ("classes", "no classes", "dense", "chain"):
         boxes, ids, keep, thresh = rows(kind, gen, dev)
         want = contrib.nms_sweep_ref(boxes, ids, keep, thresh)
-
-        def new_fn(_i):
-            return kernels.nms_sweep_cuda(boxes, ids, keep, thresh)
-
-        def old_fn(_i):
-            return old_sweep(old, boxes, ids, keep, thresh)
-        assert torch.equal(new_fn(0), want), kind
-        assert torch.equal(old_fn(0), want), kind
-        times = {"old": [], "new": []}
-        for _ in range(args.rounds):
-            for name in ("old", "new", "new", "old"):
-                fn = old_fn if name == "old" else new_fn
-                times[name].append(cs.median_ms(fn, 5))
+        fns = {n: sweep_fn(v, boxes, ids, keep, thresh)
+               for n, v in libs.items()}
+        for name, fn in fns.items():
+            assert torch.equal(fn(), want), (kind, name)
+        times = in_turns(fns, args.rounds)
         reading = {n: float(np.median(t)) for n, t in times.items()}
-        reading.update(kernel_split(lambda: new_fn(0), reading["new"]))
+        reading["splits"] = {n: cs.kernel_split(fns[n], reading[n])
+                             for n, (_, bitmask) in libs.items() if bitmask}
+        reading.update(reading["splits"]["new"])
         reading.update(alive=int(keep.sum()), kept=int(want.sum()),
                        runs=times)
         result["kinds"][kind] = reading
-        print(f"[nms ab] {card} {kind}: old {reading['old']:.4f} ms, new "
-              f"{reading['new']:.4f} ms (mask pass {reading['mask_ms']}, "
-              f"sweep {reading['sweep_ms']}); {reading['kept']} of "
-              f"{reading['alive']} rows kept; both bit-equal to the plain "
-              f"sweep", flush=True)
+        print(f"[nms ab] {card} {kind}: "
+              + ", ".join(f"{n} {reading[n]:.4f} ms" for n in fns)
+              + " (mask pass / resolve: "
+              + ", ".join(f"{n} {s['mask_ms']} / {s['sweep_ms']}"
+                          for n, s in reading["splits"].items())
+              + f"); {reading['kept']} of {reading['alive']} rows kept; "
+              f"all bit-equal to the plain sweep", flush=True)
     print(json.dumps(result))
     return 0
 
