@@ -289,7 +289,10 @@ Each phase fails the run (non-zero exit) on any error:
      float32 decoder answers a prompt with a token past the vocabulary
      (equal to the prompt with the last row, the clamped gather) and then
      the next request, NDArray indexing clamps and `np.take` fills, and
-     the context still runs.
+     the context still runs; (h) the op records' `layout`: NHWC for the
+     fused pool after (d), NCHW for convolution, deconvolution and pooling
+     after (f), NHWC for pooling and convolution after an NHWC call of
+     each on the card.
      Every kernel entry of the JSON line gains `npx_launches`: its
      launches through NDArray / npx in (a)-(e), counted around those calls
      only.
@@ -524,12 +527,28 @@ Each phase fails the run (non-zero exit) on any error:
      kernels' JSON gains `rnn_layer_fwd` and `rnn_layer_bwd` (launches
      from (c)'s fused loop) and `rnn_cell_fwd` and `rnn_cell_bwd`
      (launches from (f)).
+ 23. the sparse linear example (`examples/torch_sparse_linear.py`:
+     `io.LibSVMIter` -> `mx.nd.sparse.dot` -> squared loss -> backward ->
+     SGD) on the card at avazu-app's published width (1,000,001 features,
+     zero-based, batches of 8192 rows; the reference's
+     example/sparse/linear_classification): 16 batches of seeded synthetic
+     rows with 15 nonzeros each (the real files are not in the repo),
+     parsed once, 2 epochs; ms a step, rows/s, each step's loss (the
+     second epoch's mean under half the first's), and each step split
+     into the iterator's batch (host slicing, the labels' copy), the
+     CSR's copy to the card and the dot + backward + update (CUDA events
+     too); `sparse.dot` forward and backward, plain and with
+     `transpose_a`, at batch 8192 on the card against the same arithmetic
+     in float64 on the CPU, each output within 1e-5 of the sum of its
+     terms' magnitudes (index_add's atomics are not bit-stable); NDArray
+     `tostype` round trips on the card, bit-equal; no kernel of the port
+     launched (the dot is torch's index_select / index_add).
 
 `--phases 22` (or `--phases 2,22`, ...) runs the named phases and those
 whose results they take (5 <- 4, 14 <- 11, 15 <- 5, 17 <- 3 and 12,
 18 <- 3), in order, builds only the sources they need where that is known
-(phases 21 and 22), and lists only their kernels; the default is the
-whole run, as the last lines below.
+(phases 21, 22 and 23, which builds none), and lists only their kernels;
+the default is the whole run, as the last lines below.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (one entry a wrapper, one for each tensor-core
@@ -575,6 +594,7 @@ from incubator_mxnet_tpu_torch.ops import rnn as rnn_ops
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "examples"))
+import torch_sparse_linear as sparse_linear  # noqa: E402
 import torch_word_language_model as wlm  # noqa: E402
 
 # the H100's published rates (`inspect.roofline`'s spec row): every bound
@@ -5332,6 +5352,33 @@ def _sweep_compare(got, want, tol, where, card):
     return got == want, 0.0
 
 
+def array_layouts(dev):
+    """(h) the op records' `layout` (`ops.registry.note_layout`): after
+    (d)'s NHWC fused pool and (f)'s NCHW convolution, deconvolution and
+    pooling on the card, then after an NHWC pooling and convolution there,
+    `get_op(name).layout` reads what each call dispatched with."""
+    get = mx.ops.registry.get_op
+    want = {"npx.fused_avg_pool2d": "NHWC", "npx.convolution": "NCHW",
+            "npx.deconvolution": "NCHW", "npx.pooling": "NCHW"}
+    after_sweep = {n: get(n).layout for n in want}
+    x = mx.np.array(torch.randn((2, 6, 6, 3), device=dev))
+    w = mx.np.array(torch.randn((4, 3, 3, 3), device=dev))
+    y = mx.npx.pooling(x, kernel=(2, 2), stride=(2, 2), pool_type="avg",
+                       layout="NHWC")
+    z = mx.npx.convolution(x, w, kernel=(3, 3), num_filter=4, no_bias=True,
+                           layout="NHWC")
+    assert y.shape == (2, 3, 3, 3) and z.shape == (2, 4, 4, 4), \
+        (y.shape, z.shape)
+    after_nhwc = {n: get(n).layout for n in ("npx.pooling",
+                                              "npx.convolution")}
+    log(f"[array layout] records after (d) and (f): {after_sweep}; after "
+        f"NHWC pooling and convolution on the card: {after_nhwc}")
+    assert after_sweep == want, after_sweep
+    assert after_nhwc == {"npx.pooling": "NHWC",
+                          "npx.convolution": "NHWC"}, after_nhwc
+    return {"after_sweep": after_sweep, "after_nhwc": after_nhwc}
+
+
 def array_sweep(dev):
     """(f) every registered np / npx name on the card against the same call
     on the CPU, with per-dtype limits (SWEEP_TOL); the host fallbacks the
@@ -5449,13 +5496,14 @@ def phase_array(card, dev, profile, loop_per_step):
     nms = array_nms(dev, tally)
     oor = array_out_of_range(dev)
     sweep = array_sweep(dev)
+    layouts = array_layouts(dev)
     took = time.perf_counter() - t0
     log(f"[array] phase 14 took {took:.1f} s; npx launches "
         f"{tally.counts}")
     return {"dispatch_cost": cost, "resnet": resnet, "f32_check": f32,
             "flash": flash_rows, "paged": paged_rows, "fused": fused_rows,
             "nms": nms, "out_of_range": oor, "sweep": sweep,
-            "npx_launches": tally.counts,
+            "layouts": layouts, "npx_launches": tally.counts,
             "npx_launches_by_dtype": {f"{k[0]}:{k[1]}": v for k, v in
                                       tally.by_dtype.items()},
             "seconds": took}
@@ -9566,12 +9614,247 @@ def rnn_entries(lm):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the sparse linear example at avazu-app's width
+# ---------------------------------------------------------------------------
+# avazu-app (the reference's example/sparse/linear_classification):
+# 1,000,001 zero-based features, batches of 8192 rows. 15 nonzeros a row is
+# this phase's assumption for its synthetic rows (the files are not here).
+# The weight's rate is batch / 32: a weight is touched by about one row of
+# a batch, so the batch mean's gradient reaching it is ~1/8192 of a row's;
+# the bias, touched by every row, takes 0.25 (above 1 it diverges).
+SPARSE = dict(features=1_000_001, batch=8192, nnz=15, batches=16, epochs=2,
+              lr=256.0, lr_b=0.25, seed=23)
+# each output of a float32 dot within this share of the sum of its terms'
+# magnitudes (|x| @ |w| in float64): float32 sums of a few terms in any
+# order (index_add's atomics) stay far inside it
+SPARSE_TOL = 1e-5
+
+
+def sparse_libsvm(path):
+    """(a) SPARSE's rows as a zero-based LibSVM file: 15 distinct sorted
+    columns a row, N(0, 1) values, y = x . w_true + 0.01 N(0, 1), from a
+    seed."""
+    d, k = SPARSE["features"], SPARSE["nnz"]
+    n = SPARSE["batch"] * SPARSE["batches"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SPARSE["seed"])
+    w_true = rng.standard_normal(d)
+    cols = np.sort(rng.integers(0, d, (n, k)), axis=1)
+    for i in np.nonzero((np.diff(cols, axis=1) == 0).any(axis=1))[0]:
+        cols[i] = np.sort(rng.choice(d, k, replace=False))
+    vals = rng.standard_normal((n, k))
+    y = (vals * w_true[cols]).sum(1) + 0.01 * rng.standard_normal(n)
+    with open(path, "w") as f:
+        for yi, ci, vi in zip(y.tolist(), cols.tolist(), vals.tolist()):
+            f.write(f"{yi:.5f} " + " ".join(
+                f"{c}:{v:.5f}" for c, v in zip(ci, vi)) + "\n")
+    took = time.perf_counter() - t0
+    log(f"[sparse data] {n} rows x {d} features, {k} nonzeros a row: "
+        f"{os.path.getsize(path) / 2 ** 20:.1f} MiB written in {took:.2f} s")
+    return {"rows": n, "seconds": took, "bytes": os.path.getsize(path)}
+
+
+def sparse_train(card, dev, path):
+    """(b) the example's step (`sparse_linear.step`) over the iterator's
+    CSR batches for SPARSE's epochs: each step timed whole and split into
+    the iterator's batch, the CSR's copy to the card, and the dot +
+    backward + update (host clock after a synchronize, and CUDA events).
+    Returns (the result, the iterator)."""
+    d, B = SPARSE["features"], SPARSE["batch"]
+    on_card = mx.gpu(dev.index or 0)
+    t0 = time.perf_counter()
+    with on_card:
+        it = mx.io.LibSVMIter(path, (d,), batch_size=B)
+        w = mx.np.zeros((d, 1))
+        b = mx.np.zeros((1,))
+    parse_s = time.perf_counter() - t0
+    w.attach_grad()
+    b.attach_grad()
+    assert w._t.device.type == "cuda" and b._t.device.type == "cuda"
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    kernels.reset_launch_counts()
+    steps = []
+    t_all = time.perf_counter()
+    for epoch in range(SPARSE["epochs"]):
+        it.reset()
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = it.next()
+            except StopIteration:
+                break
+            x, y = batch.data[0], batch.label[0]
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            x._device_parts(dev)
+            torch.cuda.synchronize(dev)
+            t2 = time.perf_counter()
+            ev[0].record()
+            loss = sparse_linear.step(x, y, w, b, SPARSE["lr"],
+                                      SPARSE["lr_b"])
+            ev[1].record()
+            value = float(loss.asnumpy())
+            t3 = time.perf_counter()
+            assert x.stype == "csr" and x.shape == (B, d), x
+            assert y._t.device.type == "cuda" and \
+                loss._t.device.type == "cuda", "the step left the card"
+            steps.append({"epoch": epoch, "loss": value,
+                          "ms": (t3 - t0) * 1e3,
+                          "batch_ms": (t1 - t0) * 1e3,
+                          "copy_ms": (t2 - t1) * 1e3,
+                          "update_ms": (t3 - t2) * 1e3,
+                          "update_device_ms": ev[0].elapsed_time(ev[1])})
+    total_s = time.perf_counter() - t_all
+    launches = kernels.launch_counts()
+    want_steps = SPARSE["epochs"] * SPARSE["batches"]
+    med = {k: float(np.median([s[k] for s in steps])) for k in
+           ("ms", "batch_ms", "copy_ms", "update_ms", "update_device_ms")}
+    share = {k: med[k] / (med["batch_ms"] + med["copy_ms"]
+                          + med["update_ms"])
+             for k in ("batch_ms", "copy_ms", "update_ms")}
+    losses = [s["loss"] for s in steps]
+    by_epoch = [float(np.mean([s["loss"] for s in steps
+                               if s["epoch"] == e]))
+                for e in range(SPARSE["epochs"])]
+    log(f"[sparse] {card}: LibSVMIter parse {parse_s:.2f} s; {len(steps)} "
+        f"steps of {B} rows x {d} features in {total_s:.3f} s: "
+        f"{med['ms']:.3f} ms a step (median), "
+        f"{B / (med['ms'] / 1e3):.0f} rows/s, "
+        f"{len(steps) * B / total_s:.0f} rows/s over the run")
+    log(f"[sparse] split (medians): the iterator's batch "
+        f"{med['batch_ms']:.3f} ms ({share['batch_ms']:.1%}), the CSR's "
+        f"copy {med['copy_ms']:.3f} ms ({share['copy_ms']:.1%}), dot + "
+        f"backward + update {med['update_ms']:.3f} ms "
+        f"({share['update_ms']:.1%}; {med['update_device_ms']:.3f} ms "
+        f"between CUDA events)")
+    log(f"[sparse] loss by step: "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; epoch means "
+        f"{', '.join(f'{v:.4f}' for v in by_epoch)}; launches of the "
+        f"port's kernels {sum(launches.values())}")
+    assert len(steps) == want_steps, (len(steps), want_steps)
+    assert all(math.isfinite(v) for v in losses), losses
+    assert by_epoch[-1] < 0.5 * by_epoch[0], by_epoch
+    assert sum(launches.values()) == 0, launches
+    return {"parse_s": parse_s, "total_s": total_s, "steps": steps,
+            "median": med, "share": share, "epoch_loss": by_epoch,
+            "rows_per_s": B / (med["ms"] / 1e3),
+            "rows_per_s_run": len(steps) * B / total_s}, it
+
+
+def _dot_held(name, got, ref, mag):
+    """(max abs error, ok): every output of `got` (a card tensor) within
+    SPARSE_TOL of its terms' magnitude sum `mag` from the float64 `ref`."""
+    g = got.detach().double().cpu().numpy()
+    err = np.abs(g - ref)
+    ok = bool((err <= SPARSE_TOL * mag).all())
+    worst = float(err.max(initial=0.0))
+    log(f"[sparse dot] {name}: {tuple(g.shape)}, max_abs_err {worst:.3e}, "
+        f"largest |ref| {float(np.abs(ref).max(initial=0.0)):.3e}, within "
+        f"{SPARSE_TOL} of each output's magnitude sum: {ok}")
+    return worst, ok
+
+
+def sparse_dot_check(dev, x):
+    """(c) `sparse.dot` forward and its gradient to the dense operand at
+    batch 8192 on the card against the same sums in float64 on the CPU:
+    plain with a (d, 1) weight and a (d,) vector, and with transpose_a
+    over a (8192, 4) operand."""
+    from incubator_mxnet_tpu_torch.ndarray import sparse
+    B, d = x.shape
+    S = x.asscipy().astype(np.float64)
+    A = abs(S)
+    rng = np.random.default_rng(SPARSE["seed"] + 1)
+    rows = []
+    cases = (("x @ w", False, (d, 1), (B, 1)),
+             ("x @ v", False, (d,), (B,)),
+             ("x.T @ u", True, (B, 4), (d, 4)))
+    on_card = mx.gpu(dev.index or 0)
+    for name, transpose, shape, out_shape in cases:
+        w64 = rng.standard_normal(shape)
+        g64 = rng.standard_normal(out_shape)
+        with on_card:
+            w = mx.np.array(w64.astype(np.float32))
+            g = mx.np.array(g64.astype(np.float32))
+        w.attach_grad()
+        with autograd.record():
+            out = sparse.dot(x, w, transpose_a=transpose)
+        out.backward(out_grad=g)
+        assert out._t.device.type == "cuda", out.device
+        # the reference takes the float32 inputs the card took
+        w32 = w64.astype(np.float32).astype(np.float64)
+        g32 = g64.astype(np.float32).astype(np.float64)
+        if transpose:
+            ref, mag = S.T @ w32, A.T @ np.abs(w32)
+            gref, gmag = S @ g32, A @ np.abs(g32)
+        else:
+            ref, mag = S @ w32, A @ np.abs(w32)
+            gref, gmag = S.T @ g32, A.T @ np.abs(g32)
+        fe, fok = _dot_held(name, out._t, ref, mag)
+        be, bok = _dot_held(f"d({name})/d{'u' if transpose else 'w'}",
+                            w.grad._t, gref, gmag)
+        rows.append({"case": name, "transpose_a": transpose,
+                     "fwd_max_abs_err": fe, "bwd_max_abs_err": be,
+                     "ok": fok and bok})
+        assert fok and bok, f"sparse.dot {name} off its float64 reference"
+    return rows
+
+
+def sparse_tostype(dev):
+    """(d) NDArray.tostype round trips on the card: dense -> csr ->
+    default and dense -> row_sparse -> default bit-equal, csr ->
+    row_sparse -> csr keeping the arrays, every dense result on the
+    card."""
+    rng = np.random.default_rng(SPARSE["seed"] + 2)
+    a = np.where(rng.random((512, 4096)) < 0.01,
+                 rng.standard_normal((512, 4096)), 0).astype(np.float32)
+    a[7] = 0
+    on_card = mx.gpu(dev.index or 0)
+    with on_card:
+        X = mx.np.array(a)
+    out = {}
+    for stype in ("csr", "row_sparse"):
+        s = X.tostype(stype)
+        back = s.tostype("default")
+        assert s.stype == stype and s.device == on_card, (s, s.device)
+        assert back._t.device.type == "cuda", back.device
+        out[stype] = bool(torch.equal(back._t, X._t))
+    c = X.tostype("csr")
+    c2 = c.tostype("row_sparse").tostype("csr")
+    out["csr_rsp_csr"] = bool(
+        np.array_equal(c._data_np, c2._data_np)
+        and np.array_equal(c._indices_np, c2._indices_np)
+        and np.array_equal(c._indptr_np, c2._indptr_np))
+    log(f"[sparse tostype] (512, 4096) float32 on the card, 1% nonzero: "
+        f"bit-equal round trips {out}")
+    assert all(out.values()), out
+    return out
+
+
+def phase_sparse(card, dev):
+    """Phase 23."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "avazu_synthetic.libsvm")
+        data = sparse_libsvm(path)
+        train, it = sparse_train(card, dev, path)
+    it.reset()
+    x = it.next().data[0]
+    dots = sparse_dot_check(dev, x)
+    tostype = sparse_tostype(dev)
+    took = time.perf_counter() - t0
+    log(f"[sparse] phase 23 took {took:.1f} s")
+    return {"config": SPARSE, "data": data, "train": train, "dot": dots,
+            "tostype": tostype, "seconds": took, "card": card}
+
+
 # the phases, and those whose results a phase takes (`--phases` adds them)
-PHASES = tuple(range(2, 23))
+PHASES = tuple(range(2, 24))
 PHASE_NEEDS = {5: (4,), 14: (11,), 15: (5,), 17: (3, 12), 18: (3,)}
 # the sources a phase builds when every phase run is listed here (a run
 # with any other phase builds every source, all at once)
-PHASE_SOURCES = {21: ("nms",), 22: ("rnn_cell", "rnn_layer")}
+PHASE_SOURCES = {21: ("nms",), 22: ("rnn_cell", "rnn_layer"), 23: ()}
 
 
 def selected_phases(spec):
@@ -9772,7 +10055,7 @@ def main():
                     "separated, e.g. 22 or 2,22) and those whose results "
                     "they take (14 <- 11, 15 <- 5 <- 4, 17 <- 3, 12, "
                     "18 <- 3), and list only their kernels; default: every "
-                    "phase")
+                    "phase (2-23)")
     args = ap.parse_args()
     only = selected_phases(args.phases)
     if not torch.cuda.is_available():
@@ -9870,6 +10153,8 @@ def main():
         r[21] = timed("21 rcnn", phase_rcnn, card, dev)
     if 22 in run:
         r[22] = timed("22 word lm", phase_rnn, card, dev)
+    if 23 in run:
+        r[23] = timed("23 sparse linear", phase_sparse, card, dev)
     log(f"[timing] build {build_s:.1f} s, phases "
         f"{sum(seconds.values()):.1f} s: " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -9882,7 +10167,7 @@ def main():
                  10: "coverage", 11: "loop", 12: "script", 13: "detection",
                  14: "array", 15: "io", 16: "resilient", 17: "deploy",
                  18: "telemetry", 19: "estimator", 20: "tune_sanitize",
-                 21: "rcnn", 22: "word_lm"}
+                 21: "rcnn", 22: "word_lm", 23: "sparse_linear"}
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s,
                        "phase_seconds": seconds, "phases": sorted(r),

@@ -111,7 +111,7 @@ __all__ = ["MXNetError", "get_env", "set_env", "env_flags",
 
 # loaded at first attribute access, as the JAX package's `_LAZY` modules
 _LAZY = ("tune", "sanitize", "runtime", "util", "test_utils",
-         "visualization")
+         "visualization", "analysis")
 
 
 def __getattr__(name):

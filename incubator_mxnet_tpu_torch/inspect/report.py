@@ -597,6 +597,7 @@ def _byte_coverage(groups, k, totals):
 # the L2's rate measured on each card in this process (`roofline.
 # measure_l2_rate`), for calibrations that leave it None
 _L2_RATES = {}
+_L2_LOCK = threading.Lock()
 
 
 def _with_l2(calib, dev):
@@ -612,9 +613,11 @@ def _with_l2(calib, dev):
     if calib["l2_bytes_per_sec"]:
         return calib
     key = dev.index or 0
-    if key not in _L2_RATES:
-        _L2_RATES[key] = _roofline.measure_l2_rate(dev)
-    return dict(calib, l2_bytes_per_sec=_L2_RATES[key],
+    with _L2_LOCK:
+        if key not in _L2_RATES:
+            _L2_RATES[key] = _roofline.measure_l2_rate(dev)
+        rate = _L2_RATES[key]
+    return dict(calib, l2_bytes_per_sec=rate,
                 l2_source="measured (roofline.measure_l2_rate)")
 
 

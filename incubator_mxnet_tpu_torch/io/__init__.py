@@ -13,8 +13,8 @@ group and gauges, its decode workers' windows `io.worker.decode` spans in
 the consumer's trace, and its staged batches the `imagerec_slots` owner
 of `inspect.memory`'s census. A knob is the explicit argument, else the
 active `mx.tune` profile's value, else its `MXNET_*` environment
-variable. Left out until its queue lands (ROADMAP A12): `LibSVMIter` (it
-serves `CSRNDArray`s).
+variable. `LibSVMIter` serves zero-based LibSVM files as `CSRNDArray`
+batches of `mx.nd.sparse`.
 """
 from __future__ import annotations
 
@@ -458,15 +458,103 @@ class CSVIter(NDArrayIter):
         super().__init__(data, label, batch_size, last_batch_handle="pad")
 
 
-def _not_ported(name, queue):
-    def fn(*args, **kwargs):
-        raise MXNetError(f"mx.io.{name} is not ported yet (ROADMAP {queue})")
-    fn.__name__ = fn.__qualname__ = name
-    return fn
+class LibSVMIter(DataIter):
+    """≙ mx.io.LibSVMIter (src/io/iter_libsvm.cc): serves CSR batches from
+    ZERO-BASED libsvm files, like the reference's sparse batch loader
+    (iter_sparse_batchloader.h). batch.data[0] is a `CSRNDArray`
+    (`mx.nd.sparse`, its aux arrays on the host) whose `sparse.dot` runs on
+    the weight's device; data_stype='default' serves dense rows instead.
+    Batches belong to the device that was current when the iterator was
+    made. The file is parsed once, here. Out-of-range feature indices
+    raise (a silent drop would corrupt training data — e.g. a 1-based file
+    read as 0-based)."""
 
+    def __init__(self, data_libsvm, data_shape, batch_size=1,
+                 round_batch=True, dtype="float32", data_stype="csr"):
+        super().__init__(batch_size)
+        if data_stype not in ("csr", "default"):
+            raise MXNetError(f"invalid data_stype {data_stype!r}")
+        from ..device import current_device
+        self._device = current_device()
+        num_features = int(_np.prod(data_shape))
+        vals, cols, indptr, labels = [], [], [0], []
+        with open(data_libsvm) as f:
+            for lineno, line in enumerate(f, 1):
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                for tok in parts[1:]:
+                    idx, val = tok.split(":")
+                    idx = int(idx)
+                    if not 0 <= idx < num_features:
+                        raise MXNetError(
+                            f"{data_libsvm}:{lineno}: feature index {idx} "
+                            f"outside [0, {num_features}) — libsvm input "
+                            "must be zero-based and match data_shape")
+                    cols.append(idx)
+                    vals.append(float(val))
+                indptr.append(len(cols))
+        if not labels:
+            raise MXNetError(f"no examples in {data_libsvm}")
+        from ..ndarray.sparse import CSRNDArray
+        self._csr = CSRNDArray(_np.asarray(vals, dtype),
+                               _np.asarray(cols, _np.int64),
+                               _np.asarray(indptr, _np.int64),
+                               (len(labels), num_features), dtype,
+                               self._device)
+        # built once: a batch's slice costs O(batch nnz), not a rebuild of
+        # the whole matrix
+        self._scipy = self._csr.asscipy()
+        self._labels = _np.asarray(labels, dtype)
+        self._data_shape = tuple(data_shape)
+        self._stype = data_stype
+        self.num_data = len(labels)
+        # round_batch=True (the reference's default): the last partial
+        # batch wraps, its pad count exposed; False: the tail is dropped
+        self._round_batch = bool(round_batch)
+        self.cursor = -batch_size
 
-# it serves CSRNDArray batches (ndarray/sparse.py)
-LibSVMIter = _not_ported("LibSVMIter", "A12 (ndarray.sparse)")
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self._data_shape,
+                         self._csr.dtype)]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("softmax_label", (self.batch_size,),
+                         self._labels.dtype)]
+
+    def reset(self):
+        self.cursor = -self.batch_size
+
+    def iter_next(self):
+        self.cursor += self.batch_size
+        if not self._round_batch:
+            return self.cursor + self.batch_size <= self.num_data
+        return self.cursor < self.num_data
+
+    def getpad(self):
+        end = self.cursor + self.batch_size
+        if self._round_batch and end > self.num_data:
+            return end - self.num_data
+        return 0
+
+    def _batch_rows(self):
+        return _np.arange(self.cursor,
+                          self.cursor + self.batch_size) % self.num_data
+
+    def getdata(self):
+        sub = self._scipy[self._batch_rows()]
+        if self._stype == "default":
+            return [array(sub.toarray().reshape(
+                (self.batch_size,) + self._data_shape), device=self._device)]
+        from ..ndarray.sparse import csr_matrix
+        return [csr_matrix(sub, ctx=self._device, dtype=self._csr.dtype)]
+
+    def getlabel(self):
+        return [array(self._labels[self._batch_rows()],
+                      device=self._device)]
 
 
 __all__ += ["CSVIter", "LibSVMIter"]

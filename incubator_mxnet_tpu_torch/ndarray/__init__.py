@@ -168,8 +168,8 @@ class NDArray:
 
     @property
     def stype(self):
-        """Storage type: dense only here (`ndarray.sparse` is ROADMAP
-        A12)."""
+        """Storage type: an NDArray is dense, "default" (the sparse
+        containers are `mx.nd.sparse`'s)."""
         return "default"
 
     @property
@@ -395,10 +395,14 @@ class NDArray:
         return _mxnp().take(self, indices, axis=axis, mode=mode)
 
     def tostype(self, stype):
-        if stype != "default":
-            raise MXNetError("sparse storage types are ROADMAP A12 in the "
-                             "port")
-        return self
+        """This array as `stype` storage: itself for "default", else
+        `mx.nd.sparse.cast_storage`'s CSRNDArray or RowSparseNDArray (the
+        reference's `tostype`; the JAX package's NDArray refuses the sparse
+        types, its `sparse.cast_storage` gives the same arrays)."""
+        if stype == "default":
+            return self
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     # ------------------------------------------------------------------
     # indexing
@@ -932,7 +936,12 @@ def load(fname, device=None):
 
 def __getattr__(name):
     """mx.nd.<op>: the legacy namespace shares its ops with mx.np and
-    mx.npx, as in the JAX package."""
+    mx.npx, as in the JAX package; `mx.nd.sparse` is the sparse module."""
+    if name == "sparse":
+        import importlib
+        mod = importlib.import_module(".sparse", __name__)
+        globals()[name] = mod
+        return mod
     fn = getattr(_mxnp(), name, None)
     if fn is None:
         from .. import numpy_extension as _mxnpx

@@ -37,7 +37,7 @@ from ..ops import attention as _attention
 from ..ops import contrib as _contrib
 from ..ops import fused as _fused
 from ..ops import nn as _nn
-from ..ops.registry import get_op, invoke, register_op
+from ..ops.registry import get_op, invoke, note_layout, register_op
 
 __all__ = [
     "relu", "sigmoid", "tanh", "softmax", "log_softmax", "masked_softmax",
@@ -384,8 +384,10 @@ def convolution(data, weight, bias=None, kernel=None, stride=1, dilate=1,
     first)."""
     arrs = (_as_nd(data), _as_nd(weight)) + (
         () if no_bias or bias is None else (_as_nd(bias),))
+    info = get_op("npx.convolution")
+    note_layout(info, layout)
     return invoke(_nn.convolution, arrs, name="convolution",
-                  op=get_op("npx.convolution"),
+                  op=info,
                   kwargs=dict(stride=stride, dilate=dilate, pad=pad,
                               num_group=num_group, layout=layout))
 
@@ -394,8 +396,10 @@ def deconvolution(data, weight, bias=None, stride=1, dilate=1, pad=0, adj=0,
                   num_group=1, no_bias=False, layout="NCHW"):
     arrs = (_as_nd(data), _as_nd(weight)) + (
         () if no_bias or bias is None else (_as_nd(bias),))
+    info = get_op("npx.deconvolution")
+    note_layout(info, layout)
     return invoke(_nn.deconvolution, arrs, name="deconvolution",
-                  op=get_op("npx.deconvolution"),
+                  op=info,
                   kwargs=dict(stride=stride, dilate=dilate, pad=pad, adj=adj,
                               num_group=num_group, layout=layout))
 
@@ -405,8 +409,10 @@ def pooling(data, kernel=1, pool_type="max", stride=None, pad=0,
             ceil_mode=False, pooling_convention=None):
     if pooling_convention is not None:
         ceil_mode = pooling_convention == "full"
+    info = get_op("npx.pooling")
+    note_layout(info, layout)
     return invoke(_nn.pooling, (_as_nd(data),), name="pooling",
-                  op=get_op("npx.pooling"),
+                  op=info,
                   kwargs=dict(kernel=kernel, pool_type=pool_type,
                               stride=stride, pad=pad,
                               global_pool=global_pool,
@@ -434,8 +440,10 @@ def fused_avg_pool2d(data, pool_size, layout="NHWC", interpret=None):
     """Non-overlapping NHWC average pool (B2; its backward B3)."""
     ps = (pool_size, pool_size) if isinstance(pool_size, int) \
         else tuple(pool_size)
+    info = get_op("npx.fused_avg_pool2d")
+    note_layout(info, layout)
     return invoke(_fused.avg_pool2d, (_as_nd(data),), name="fused_avg_pool2d",
-                  op=get_op("npx.fused_avg_pool2d"),
+                  op=info,
                   kwargs=dict(pool_size=ps, layout=layout))
 
 

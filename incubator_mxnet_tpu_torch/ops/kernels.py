@@ -22,6 +22,7 @@ kernel takes: it raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -62,6 +63,13 @@ _LOCK = threading.Lock()
 _LIBS = {}
 # what the last build printed, per source (ptxas register/spill report)
 BUILD_LOG = {}
+_BUILD_LOG_LOCK = threading.Lock()
+
+# Guards the launch counters below and `_BY_DTYPE`: the batcher, engine
+# and fleet threads launch too, and `+=` on a global or a Counter is a
+# read-modify-write that loses updates under contention. A lock of their
+# own: `_load` holds `_LOCK` across a whole `nvcc` build.
+_COUNT_LOCK = threading.Lock()
 
 # launches of each kernel since the last reset: one per successful launch
 paged_attention_launches = 0
@@ -109,11 +117,32 @@ rnn_layer_per_step_launches = 0
 # every launch above again, by (counter name, dtype name of the launch's
 # data: x, q, or the slab for the paged kernel's slab side)
 _BY_DTYPE = Counter()
+# every counter above by name, in `launch_counts()`'s order
+_COUNTERS = ("paged_attention", "paged_attention_int8",
+             "paged_attention_split", "paged_attention_wgmma",
+             "paged_attention_cuda_cores", "scale_shift_act",
+             "avg_pool2d_fwd", "avg_pool2d_bwd", "flash_fwd",
+             "flash_fwd_lse", "flash_fwd_wgmma", "flash_fwd_lse_wgmma",
+             "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_wgmma",
+             "flash_bwd_dkv_wgmma", "nms_sweep", "proposal_sweep",
+             "image_augment", "image_augment_table", "image_augment_direct",
+             "image_augment_scalar", "rnn_cell_fwd", "rnn_cell_bwd",
+             "rnn_layer_fwd", "rnn_layer_bwd", "rnn_layer_persistent",
+             "rnn_layer_per_step")
+
+
+def _count_launch(*names):
+    """One launch on each counter `<name>_launches` of `names`."""
+    g = globals()
+    with _COUNT_LOCK:
+        for name in names:
+            g[name + "_launches"] += 1
 
 
 def _count_dtype(name, *dtypes):
-    for dt in dtypes:
-        _BY_DTYPE[(name, str(dt).replace("torch.", ""))] += 1
+    with _COUNT_LOCK:
+        for dt in dtypes:
+            _BY_DTYPE[(name, str(dt).replace("torch.", ""))] += 1
 
 
 # The launches of a running inspection (`inspect.report.inspect_step`): a
@@ -139,49 +168,11 @@ def _captured(fn, name, **shape):
 
 
 def reset_launch_counts():
-    global paged_attention_launches, paged_attention_int8_launches, \
-        paged_attention_split_launches, paged_attention_wgmma_launches, \
-        paged_attention_cuda_cores_launches, scale_shift_act_launches, avg_pool2d_fwd_launches, \
-        avg_pool2d_bwd_launches, flash_fwd_launches, flash_fwd_lse_launches, \
-        flash_fwd_wgmma_launches, flash_fwd_lse_wgmma_launches, \
-        flash_bwd_dq_launches, flash_bwd_dkv_launches, \
-        flash_bwd_dq_wgmma_launches, flash_bwd_dkv_wgmma_launches, \
-        nms_sweep_launches, proposal_sweep_launches, \
-        image_augment_launches, \
-        image_augment_table_launches, image_augment_direct_launches, \
-        image_augment_scalar_launches, rnn_cell_fwd_launches, \
-        rnn_cell_bwd_launches, rnn_layer_fwd_launches, \
-        rnn_layer_bwd_launches, rnn_layer_persistent_launches, \
-        rnn_layer_per_step_launches
-    paged_attention_launches = 0
-    paged_attention_int8_launches = 0
-    paged_attention_split_launches = 0
-    paged_attention_wgmma_launches = 0
-    paged_attention_cuda_cores_launches = 0
-    scale_shift_act_launches = 0
-    avg_pool2d_fwd_launches = 0
-    avg_pool2d_bwd_launches = 0
-    flash_fwd_launches = 0
-    flash_fwd_lse_launches = 0
-    flash_fwd_wgmma_launches = 0
-    flash_fwd_lse_wgmma_launches = 0
-    flash_bwd_dq_launches = 0
-    flash_bwd_dkv_launches = 0
-    flash_bwd_dq_wgmma_launches = 0
-    flash_bwd_dkv_wgmma_launches = 0
-    nms_sweep_launches = 0
-    proposal_sweep_launches = 0
-    image_augment_launches = 0
-    image_augment_table_launches = 0
-    image_augment_direct_launches = 0
-    image_augment_scalar_launches = 0
-    rnn_cell_fwd_launches = 0
-    rnn_cell_bwd_launches = 0
-    rnn_layer_fwd_launches = 0
-    rnn_layer_bwd_launches = 0
-    rnn_layer_persistent_launches = 0
-    rnn_layer_per_step_launches = 0
-    _BY_DTYPE.clear()
+    g = globals()
+    with _COUNT_LOCK:
+        for name in _COUNTERS:
+            g[name + "_launches"] = 0
+        _BY_DTYPE.clear()
 
 
 def launch_counts_by_dtype():
@@ -190,38 +181,14 @@ def launch_counts_by_dtype():
     ("scale_shift_act", "float16"; the flash kernels' tensor-core
     counters too, "flash_bwd_dq_wgmma") — the paged kernel's by its q
     ("paged_attention_q") and its slab ("paged_attention_kv")."""
-    return dict(_BY_DTYPE)
+    with _COUNT_LOCK:
+        return dict(_BY_DTYPE)
 
 
 def launch_counts():
-    return {"paged_attention": paged_attention_launches,
-            "paged_attention_int8": paged_attention_int8_launches,
-            "paged_attention_split": paged_attention_split_launches,
-            "paged_attention_wgmma": paged_attention_wgmma_launches,
-            "paged_attention_cuda_cores": paged_attention_cuda_cores_launches,
-            "scale_shift_act": scale_shift_act_launches,
-            "avg_pool2d_fwd": avg_pool2d_fwd_launches,
-            "avg_pool2d_bwd": avg_pool2d_bwd_launches,
-            "flash_fwd": flash_fwd_launches,
-            "flash_fwd_lse": flash_fwd_lse_launches,
-            "flash_fwd_wgmma": flash_fwd_wgmma_launches,
-            "flash_fwd_lse_wgmma": flash_fwd_lse_wgmma_launches,
-            "flash_bwd_dq": flash_bwd_dq_launches,
-            "flash_bwd_dkv": flash_bwd_dkv_launches,
-            "flash_bwd_dq_wgmma": flash_bwd_dq_wgmma_launches,
-            "flash_bwd_dkv_wgmma": flash_bwd_dkv_wgmma_launches,
-            "nms_sweep": nms_sweep_launches,
-            "proposal_sweep": proposal_sweep_launches,
-            "image_augment": image_augment_launches,
-            "image_augment_table": image_augment_table_launches,
-            "image_augment_direct": image_augment_direct_launches,
-            "image_augment_scalar": image_augment_scalar_launches,
-            "rnn_cell_fwd": rnn_cell_fwd_launches,
-            "rnn_cell_bwd": rnn_cell_bwd_launches,
-            "rnn_layer_fwd": rnn_layer_fwd_launches,
-            "rnn_layer_bwd": rnn_layer_bwd_launches,
-            "rnn_layer_persistent": rnn_layer_persistent_launches,
-            "rnn_layer_per_step": rnn_layer_per_step_launches}
+    g = globals()
+    with _COUNT_LOCK:
+        return {name: g[name + "_launches"] for name in _COUNTERS}
 
 
 def _nvcc():
@@ -239,25 +206,21 @@ def _nvcc():
 _INCLUDE = re.compile(rb'^#include "([^"]+\.cuh)"', re.M)
 
 
-_FLAGS = []
-
-
+@functools.lru_cache(maxsize=None)
 def _flags():
     """`_NVCC_FLAGS`, plus `--split-compile 0` (the compiler's optimization
     passes over the source's many template instances spread over every
     core: the paged-attention source builds in about a third of the time)
     where this `nvcc` has the option."""
-    if not _FLAGS:
-        flags = list(_NVCC_FLAGS)
-        try:
-            usage = subprocess.run([_nvcc(), "--help"], capture_output=True,
-                                   text=True, timeout=60).stdout
-        except MXNetError:
-            usage = ""
-        if "--split-compile" in usage:
-            flags += ["--split-compile", "0"]
-        _FLAGS[:] = flags
-    return tuple(_FLAGS)
+    flags = list(_NVCC_FLAGS)
+    try:
+        usage = subprocess.run([_nvcc(), "--help"], capture_output=True,
+                               text=True, timeout=60).stdout
+    except MXNetError:
+        usage = ""
+    if "--split-compile" in usage:
+        flags += ["--split-compile", "0"]
+    return tuple(flags)
 
 
 def _lib_path(name):
@@ -303,7 +266,8 @@ def build(names=_SOURCES):
     took, failed = {}, []
     for name, lib, tmp, p in procs:
         log, _ = p.communicate()
-        BUILD_LOG[name] = log
+        with _BUILD_LOG_LOCK:
+            BUILD_LOG[name] = log
         took[name] = time.perf_counter() - t0
         if p.returncode != 0:
             failed.append(f"{name}: nvcc exit {p.returncode}\n{log}")
@@ -551,9 +515,6 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
     (`paged_attention_split_launches`, `paged_attention_wgmma_launches`,
     `paged_attention_cuda_cores_launches`). Raises `MXNetError` on any
     input the kernel does not take."""
-    global paged_attention_launches, paged_attention_int8_launches, \
-        paged_attention_split_launches, paged_attention_wgmma_launches, \
-        paged_attention_cuda_cores_launches
     name = "paged_attention_cuda"
     quant = k_slab.dtype == torch.int8
     scales = [t for t in (k_scale, v_scale) if t is not None]
@@ -649,16 +610,8 @@ def paged_attention_cuda(q, k_slab, v_slab, lengths, layer, k_scale=None,
         stream)
     if rc != 0:
         raise _launch_failed(lib, "paged_attention", rc)
-    if quant:
-        paged_attention_int8_launches += 1
-    else:
-        paged_attention_launches += 1
-    if route == "split":
-        paged_attention_split_launches += 1
-    elif route == "wgmma":
-        paged_attention_wgmma_launches += 1
-    else:
-        paged_attention_cuda_cores_launches += 1
+    _count_launch("paged_attention_int8" if quant else "paged_attention",
+                  f"paged_attention_{route}")
     _count_dtype("paged_attention_q", q.dtype)
     _count_dtype("paged_attention_kv", k_slab.dtype)
     return out
@@ -694,7 +647,6 @@ def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
     None or contiguous (M, C) of x2d's dtype. `act_type`: a key of
     `ACT_CODES`. Raises `MXNetError` on any input the kernel does not take
     (a strided view included: the caller copies, and counts the copy)."""
-    global scale_shift_act_launches
     name = "scale_shift_act_cuda"
     rows = [t for t in (scale, shift) if t is not None]
     full = [x2d] + ([residual] if residual is not None else [])
@@ -731,7 +683,7 @@ def scale_shift_act_cuda(x2d, scale, shift, residual, act_type):
         out.data_ptr(), M, C, stream)
     if rc != 0:
         raise _launch_failed(lib, "scale_shift_act", rc)
-    scale_shift_act_launches += 1
+    _count_launch("scale_shift_act")
     _count_dtype("scale_shift_act", x2d.dtype)
     return out
 
@@ -783,7 +735,6 @@ def avg_pool2d_fwd_cuda(x, ph, pw):
     each non-overlapping (ph, pw) window of a contiguous NHWC float32,
     bfloat16 or float16 tensor, f32 inside, in x's dtype, on the route
     `pool_route` names. Any channel count."""
-    global avg_pool2d_fwd_launches
     name = "avg_pool2d_fwd_cuda"
     _pool_check(name, x, ph, pw)
     n, h, w, c = x.shape
@@ -799,7 +750,7 @@ def avg_pool2d_fwd_cuda(x, ph, pw):
                 x.data_ptr(), y.data_ptr(), n, h, w, c, ph, pw, stream)
     if rc != 0:
         raise _launch_failed(lib, "avg_pool2d_fwd", rc)
-    avg_pool2d_fwd_launches += 1
+    _count_launch("avg_pool2d_fwd")
     _count_dtype("avg_pool2d_fwd", x.dtype)
     return y
 
@@ -809,7 +760,6 @@ def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
     from a contiguous NHWC dY (N, h/ph, w/pw, C), each dY value times
     1/(ph*pw) broadcast over its window, in dy's dtype; the forward's
     types, routes and channel counts."""
-    global avg_pool2d_bwd_launches
     name = "avg_pool2d_bwd_cuda"
     _pool_check(name, dy, ph, pw, (h, w))
     n, ho, wo, c = dy.shape
@@ -830,7 +780,7 @@ def avg_pool2d_bwd_cuda(dy, h, w, ph, pw):
                 stream)
     if rc != 0:
         raise _launch_failed(lib, "avg_pool2d_bwd", rc)
-    avg_pool2d_bwd_launches += 1
+    _count_launch("avg_pool2d_bwd")
     _count_dtype("avg_pool2d_bwd", dy.dtype)
     return dx
 
@@ -906,8 +856,6 @@ def flash_fwd_cuda(q, k, v, causal, scale, with_lse):
     16-byte aligned) or the CUDA-core one; a tensor-core launch also counts
     in `flash_fwd_wgmma_launches` / `flash_fwd_lse_wgmma_launches`. Raises
     `MXNetError` on any input the kernel does not take."""
-    global flash_fwd_launches, flash_fwd_lse_launches, \
-        flash_fwd_wgmma_launches, flash_fwd_lse_wgmma_launches
     name = "flash_fwd_cuda"
     bh, tq, tk, d = _flash_check(name, q, k, v)
     o = torch.empty_like(q)
@@ -932,16 +880,16 @@ def flash_fwd_cuda(q, k, v, causal, scale, with_lse):
     if rc != 0:
         raise _launch_failed(lib, "flash_fwd", rc)
     if with_lse:
-        flash_fwd_lse_launches += 1
+        _count_launch("flash_fwd_lse")
         _count_dtype("flash_fwd_lse", q.dtype)
         if tensor_cores:
-            flash_fwd_lse_wgmma_launches += 1
+            _count_launch("flash_fwd_lse_wgmma")
             _count_dtype("flash_fwd_lse_wgmma", q.dtype)
         return o, lse
-    flash_fwd_launches += 1
+    _count_launch("flash_fwd")
     _count_dtype("flash_fwd", q.dtype)
     if tensor_cores:
-        flash_fwd_wgmma_launches += 1
+        _count_launch("flash_fwd_wgmma")
         _count_dtype("flash_fwd_wgmma", q.dtype)
     return o
 
@@ -954,7 +902,6 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
     dtype. The kernel is `flash_bwd_route(q.dtype, d)`'s: the tensor-core
     one (its buffers 16-byte aligned; the launch also counts in
     `flash_bwd_dq_wgmma_launches`) or the CUDA-core one."""
-    global flash_bwd_dq_launches, flash_bwd_dq_wgmma_launches
     name = "flash_bwd_dq_cuda"
     _check_cuda(name, (lse, delta))
     bh, tq, tk, d = _flash_check(name, q, k, v, (do,))
@@ -979,10 +926,10 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
     rc = launch(DTYPE_CODES[q.dtype], q.device.index or 0, d, *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_bwd_dq", rc)
-    flash_bwd_dq_launches += 1
+    _count_launch("flash_bwd_dq")
     _count_dtype("flash_bwd_dq", q.dtype)
     if tensor_cores:
-        flash_bwd_dq_wgmma_launches += 1
+        _count_launch("flash_bwd_dq_wgmma")
         _count_dtype("flash_bwd_dq_wgmma", q.dtype)
     return dq
 
@@ -993,7 +940,6 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
     ds, sentinel and mask rules. Returns (dk, dv) in k's dtype, from the
     kernel `flash_bwd_route(q.dtype, d)` names (a tensor-core launch also
     counts in `flash_bwd_dkv_wgmma_launches`)."""
-    global flash_bwd_dkv_launches, flash_bwd_dkv_wgmma_launches
     name = "flash_bwd_dkv_cuda"
     _check_cuda(name, (lse, delta))
     bh, tq, tk, d = _flash_check(name, q, k, v, (do,))
@@ -1019,10 +965,10 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
     rc = launch(DTYPE_CODES[q.dtype], q.device.index or 0, d, *ptrs, *tail)
     if rc != 0:
         raise _launch_failed(lib, "flash_bwd_dkv", rc)
-    flash_bwd_dkv_launches += 1
+    _count_launch("flash_bwd_dkv")
     _count_dtype("flash_bwd_dkv", q.dtype)
     if tensor_cores:
-        flash_bwd_dkv_wgmma_launches += 1
+        _count_launch("flash_bwd_dkv_wgmma")
         _count_dtype("flash_bwd_dkv_wgmma", q.dtype)
     return dk, dv
 
@@ -1107,11 +1053,10 @@ def nms_sweep_cuda(boxes, ids, keep, thresh):
     in groups, each its own pair of kernels over one workspace (each image
     is swept on its own, so the bits are the same). One call counts one
     launch. Raises `MXNetError` on any input the kernel does not take."""
-    global nms_sweep_launches
     _sweep_checked("nms_sweep_cuda", boxes, ids, keep)
     out = _sweep("nms_sweep", boxes, ids, keep, thresh)
     if out.numel():
-        nms_sweep_launches += 1
+        _count_launch("nms_sweep")
         _count_dtype("nms_sweep", boxes.dtype)
     return out
 
@@ -1128,11 +1073,10 @@ def proposal_sweep_cuda(boxes, keep, thresh):
     workspace and the groups as `nms_sweep_cuda`'s. One call counts one
     launch in `proposal_sweep_launches`. Raises `MXNetError` on any input
     the kernel does not take."""
-    global proposal_sweep_launches
     _sweep_checked("proposal_sweep_cuda", boxes, None, keep)
     out = _sweep("proposal_sweep", boxes, None, keep, thresh)
     if out.numel():
-        proposal_sweep_launches += 1
+        _count_launch("proposal_sweep")
         _count_dtype("proposal_sweep", boxes.dtype)
     return out
 
@@ -1194,8 +1138,6 @@ def image_augment_cuda(images, y0, x0, flips, crop_hw, mean, std, out_dtype):
     new (N, ch, cw, cout) tensor. Counts one launch in
     `image_augment_launches` and one in the route's counter. Raises
     `MXNetError` on any input the kernel does not take."""
-    global image_augment_launches, image_augment_table_launches, \
-        image_augment_direct_launches, image_augment_scalar_launches
     name = "image_augment_cuda"
     draws = [t for t in (y0, x0, flips) if t is not None]
     _check_cuda(name, [images] + draws)
@@ -1248,13 +1190,7 @@ def image_augment_cuda(images, y0, x0, flips, crop_hw, mean, std, out_dtype):
         lm or 0, consts[1], ls or 0, ptr(far), stream)
     if rc != 0:
         raise _launch_failed(lib, "image_augment", rc)
-    image_augment_launches += 1
-    if route == "table":
-        image_augment_table_launches += 1
-    elif route == "direct":
-        image_augment_direct_launches += 1
-    else:
-        image_augment_scalar_launches += 1
+    _count_launch("image_augment", f"image_augment_{route}")
     _count_dtype("image_augment", out_dtype)
     return out
 
@@ -1323,7 +1259,6 @@ def rnn_cell_fwd_cuda(mode, gx, gh, h, c, act="tanh", save=True):
     one card. Returns (h', c' or None, activations or None); counts one launch
     in `rnn_cell_fwd_launches`. Raises `MXNetError` on any input the
     kernel does not take."""
-    global rnn_cell_fwd_launches
     name = "rnn_cell_fwd_cuda"
     G = RNN_GATES.get(mode, 1)
     if gx.dim() != 2 or gx.shape[-1] % G:
@@ -1353,7 +1288,7 @@ def rnn_cell_fwd_cuda(mode, gx, gh, h, c, act="tanh", save=True):
                 ptr(c_new), ptr(saved), N, H, stream)
     if rc != 0:
         raise _launch_failed(lib, "rnn_cell_fwd", rc)
-    rnn_cell_fwd_launches += 1
+    _count_launch("rnn_cell_fwd")
     _count_dtype("rnn_cell_fwd", gx.dtype)
     return h_new, c_new, saved
 
@@ -1369,7 +1304,6 @@ def rnn_cell_bwd_cuda(mode, saved, gh, h, c, h_new, c_new, dh, dc,
     except for the GRU, whose n block differs (dn_pre r). Returns (dgx,
     dgh, dstate or None); counts one launch in `rnn_cell_bwd_launches`.
     Raises `MXNetError` on any input the kernel does not take."""
-    global rnn_cell_bwd_launches
     name = "rnn_cell_bwd_cuda"
     key = {"lstm": "c_new", "gru": "h"}.get(mode, "h_new")
     like = {"c_new": c_new, "h": h, "h_new": h_new}[key]
@@ -1412,7 +1346,7 @@ def rnn_cell_bwd_cuda(mode, saved, gh, h, c, h_new, c_new, dh, dc,
                 ptr(dgh if gru else None), ptr(dstate), N, H, stream)
     if rc != 0:
         raise _launch_failed(lib, "rnn_cell_bwd", rc)
-    rnn_cell_bwd_launches += 1
+    _count_launch("rnn_cell_bwd")
     _count_dtype("rnn_cell_bwd", like.dtype)
     return dgx, dgh, dstate
 
@@ -1483,8 +1417,7 @@ def rnn_sms(device):
 def count_per_step_layer():
     """Count one (layer, direction) pass of `ops.nn.rnn` on the card that
     took the "per_step" route."""
-    global rnn_layer_per_step_launches
-    rnn_layer_per_step_launches += 1
+    _count_launch("rnn_layer_per_step")
 
 
 def _rl_units(name, mode, H, dtype, device):
@@ -1526,7 +1459,6 @@ def rnn_layer_fwd_cuda(mode, gx, w, h0, c0=None, bh=None, act="tanh",
     None); counts one launch in `rnn_layer_fwd_launches` and
     `rnn_layer_persistent_launches`. Raises `MXNetError` on any input the
     kernel does not take."""
-    global rnn_layer_fwd_launches, rnn_layer_persistent_launches
     name = "rnn_layer_fwd_cuda"
     G, H = _rl_shape(name, mode, w)
     if gx.dim() != 3:
@@ -1564,8 +1496,7 @@ def rnn_layer_fwd_cuda(mode, gx, w, h0, c0=None, bh=None, act="tanh",
                 ptr(c_out), ptr(acts), ptr(aux), T, N, H, stream)
     if rc != 0:
         raise _launch_failed(lib, "rnn_layer_fwd", rc)
-    rnn_layer_fwd_launches += 1
-    rnn_layer_persistent_launches += 1
+    _count_launch("rnn_layer_fwd", "rnn_layer_persistent")
     _count_dtype("rnn_layer_fwd", dt)
     return ys, h_out, c_out, acts, aux
 
@@ -1582,7 +1513,6 @@ def rnn_layer_bwd_cuda(mode, w, acts, aux, ys, h0, c0, dys, dh_T, dc_T,
     Returns (dgx, dgh, dh0, dc0 or None); counts one launch in
     `rnn_layer_bwd_launches`. Raises `MXNetError` on any input the kernel
     does not take."""
-    global rnn_layer_bwd_launches
     name = "rnn_layer_bwd_cuda"
     G, H = _rl_shape(name, mode, w)
     if ys.dim() != 3:
@@ -1624,6 +1554,6 @@ def rnn_layer_bwd_cuda(mode, w, acts, aux, ys, h0, c0, dys, dh_T, dc_T,
                 ptr(dc0), T, N, H, stream)
     if rc != 0:
         raise _launch_failed(lib, "rnn_layer_bwd", rc)
-    rnn_layer_bwd_launches += 1
+    _count_launch("rnn_layer_bwd")
     _count_dtype("rnn_layer_bwd", dt)
     return dgx, dgh, dh0, dc0

@@ -37,8 +37,9 @@ from .. import engine as _engine
 from ..base import MXNetError
 from ..telemetry.registry import REGISTRY
 
-__all__ = ["OpInfo", "register_op", "get_op", "list_ops", "apply_op",
-           "record_key", "invoke", "dispatch_stats", "as_tensor"]
+__all__ = ["OpInfo", "register_op", "note_layout", "get_op", "list_ops",
+           "apply_op", "record_key", "invoke", "dispatch_stats",
+           "as_tensor"]
 
 _OP_REGISTRY = {}
 # the JAX package's `dispatch` group, with the two counters that mean
@@ -57,10 +58,14 @@ def dispatch_stats(reset=False):
 
 class OpInfo:
     """A registry entry: the op's name, function, AMP class ("safe",
-    "unsafe" or "neutral"), docstring, and whether its body casts under
-    AMP itself (`casts_inside`)."""
+    "unsafe" or "neutral"), docstring, whether its body casts under AMP
+    itself (`casts_inside`), and, for a layout-sensitive op (convolution,
+    pooling, the fused pool), `layout`: the last layout it dispatched with
+    ("NHWC", "NCHW", ...), written by the npx wrappers through
+    `note_layout`, else None. `get_op(name).layout` shows which layout a
+    model actually ran, as in the JAX package."""
 
-    __slots__ = ("name", "fn", "amp", "doc", "casts_inside")
+    __slots__ = ("name", "fn", "amp", "doc", "casts_inside", "layout")
 
     def __init__(self, name, fn, amp="neutral", doc="", casts_inside=False):
         self.name = name
@@ -68,6 +73,7 @@ class OpInfo:
         self.amp = amp
         self.doc = doc
         self.casts_inside = casts_inside
+        self.layout = None
 
 
 def register_op(name, fn=None, amp="neutral", doc="", casts_inside=False):
@@ -79,6 +85,14 @@ def register_op(name, fn=None, amp="neutral", doc="", casts_inside=False):
     if fn is not None:
         return _reg(fn)
     return _reg
+
+
+def note_layout(op, layout):
+    """Record the layout a layout-sensitive op dispatched with on its
+    record (one attribute write, the last writer wins: the record is
+    introspection, not dispatch state)."""
+    if op is not None and layout is not None:
+        op.layout = layout
 
 
 def get_op(name):

@@ -474,19 +474,20 @@ class MemoryMonitor:
     def _read(self):
         from .telemetry.steptrace import _note_memory_sample
         b, source = read_memory_sample(self.device)
-        self.source = source
+        # handoff ordered by Thread start/join like samples (see start)
+        self.source = source  # mxlint: disable=lock-shared-mutation -- handoff ordered by Thread start/join
         _note_memory_sample(b)
         return b, source
 
     def start(self):
         # handoff ordered by Thread start/join, not a lock: _stop and
         # samples are written before start() and read after join()
-        self._stop = threading.Event()
+        self._stop = threading.Event()  # mxlint: disable=lock-shared-mutation -- handoff ordered by Thread start/join
 
         def loop():
             while not self._stop.is_set():
                 b, source = self._read()
-                self.samples.append((_now_us(), b, source))
+                self.samples.append((_now_us(), b, source))  # mxlint: disable=lock-shared-mutation -- handoff ordered by Thread start/join
                 self._stop.wait(self.interval)
 
         self._thread = threading.Thread(target=loop, daemon=True,

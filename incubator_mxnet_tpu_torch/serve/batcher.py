@@ -318,7 +318,8 @@ class Server:
         process; a port taken by another process only logs a warning)."""
         if self._started:
             return self
-        self._warm_first = warmup
+        with self._cv:
+            self._warm_first = warmup
         self._thread.start()
         self._ready.wait()
         if self._start_error is not None:
@@ -507,7 +508,8 @@ class Server:
                     if self._mark_warm(b):
                         self.metrics.count("programs_compiled")
         except BaseException as e:
-            self._start_error = e
+            with self._cv:
+                self._start_error = e
             return
         finally:
             self._ready.set()

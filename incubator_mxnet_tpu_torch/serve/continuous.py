@@ -1544,7 +1544,7 @@ class ContinuousEngine:
                 if self._cache is not None:
                     # a publish copy may have been cut mid-row: drop the
                     # index (its rows stay claimed and refill later)
-                    self._cache.clear()
+                    self._cache.clear()  # mxlint: disable=lock-shared-mutation -- PrefixCache serializes internally (leaf lock); every ref was just released above
                 # the sanitizer's state after a violation (or any failed
                 # wave): the canary row poisoned again, the sentinel
                 # re-baselined, and the engine keeps serving
@@ -1568,7 +1568,7 @@ class ContinuousEngine:
                    if r.deadline is not None and now > r.deadline]
         if expired:
             dropset = set(id(r) for r in expired)
-            self._waiting = deque(r for r in self._waiting
+            self._waiting = deque(r for r in self._waiting  # mxlint: disable=lock-shared-mutation -- _admit_locked runs with self._cv held by its only caller (_loop)
                                   if id(r) not in dropset)
         admitted = []
         budget = self.prefill_budget
@@ -1608,10 +1608,10 @@ class ContinuousEngine:
                 admitted.append(req)
             if admitted:
                 dropset = set(id(r) for r in admitted)
-                self._waiting = deque(r for r in self._waiting
+                self._waiting = deque(r for r in self._waiting  # mxlint: disable=lock-shared-mutation -- _admit_locked runs with self._cv held by its only caller (_loop)
                                       if id(r) not in dropset)
         for req in admitted:
-            self._prefilling[req.slot] = req
+            self._prefilling[req.slot] = req  # mxlint: disable=lock-shared-mutation -- _admit_locked runs with self._cv held by its only caller (_loop)
         return admitted, expired
 
     def _run_prefill(self, admitted):
@@ -1867,10 +1867,10 @@ class ContinuousEngine:
                     # chunk program, and the cache keeps cold provenance
                     # (windowed head + chunks) so every later hit is the
                     # cold build's
-                    self._cache.release(req.entry)
+                    self._cache.release(req.entry)  # mxlint: disable=lock-shared-mutation -- PrefixCache serializes internally (leaf lock)
                     req.entry = None
                 elif self.prefix_cache_insert:
-                    row = self._cache.insert(req.prompt)
+                    row = self._cache.insert(req.prompt)  # mxlint: disable=lock-shared-mutation -- PrefixCache serializes internally (leaf lock)
                     if row is not None:
                         # publish BEFORE free: the copy is queued on this
                         # thread ahead of any wave that could rewrite the
